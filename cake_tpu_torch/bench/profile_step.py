@@ -1,0 +1,121 @@
+"""Where the serving time goes on the card: one decode step of the full
+slot pool and one prefill chunk of each flash mode, on the flagship.
+
+    python -m cake_tpu_torch.bench.profile_step [--layers N] [--out PATH]
+
+Builds the flagship (bf16, seeded random weights) with a 4-slot, 4096-row
+pool, fills every slot with a 600-token prompt through prefill_chunk, then
+for each program (decode step over the pool, a fresh 256-token chunk, an
+append 256-token chunk, the 128-wide masked tail) reports:
+  * wall ms per call (host clock around calls that end in a synchronize),
+  * device ms per call from torch.profiler (sum of kernel time),
+  * the device idle share (1 - device / wall),
+  * the top kernels by device time.
+Prints one JSON object and writes it to --out (default
+chiprun_out/profile_step.json). Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import time
+
+import torch
+
+from ..cli import build_flagship
+from ..ops.sampling import SamplingConfig
+from ..serve.engine import RECENT_N
+
+
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+
+
+def _profile(fn, iters: int) -> dict:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / iters * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        # kernel events only: an aten op's self device time repeats the
+        # time of the kernels it launched
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            rows.append((dev_us / iters / 1e3, ev.count // iters, ev.key))
+    rows.sort(reverse=True)
+    device = sum(r[0] for r in rows)
+    return {"wall_ms": wall, "device_ms": device,
+            "idle_share": max(0.0, 1.0 - device / wall),
+            "top": [{"ms": round(ms, 4), "calls": n, "kernel": k[:90]}
+                    for ms, n, k in rows[:12]]}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--layers", type=int, default=None)
+    ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--out", default="chiprun_out/profile_step.json")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step needs a CUDA card")
+    model = build_flagship(args.layers, "bf16", 0, "cuda")
+    slots, ctx, n = 4, 4096, 600
+    layers = model.new_cache(slots, kv_len=ctx)["layers"]
+    gen = torch.Generator().manual_seed(0)
+    ids = torch.randint(0, 256, (n,), generator=gen).tolist()
+    for s in range(slots):
+        for p0 in range(0, n, 256):
+            _, layers = model.prefill_chunk(layers, s, ids[p0:p0 + 256], p0)
+    dev = model.device
+    toks = torch.ones(slots, dtype=torch.int32, device=dev)
+    pos = torch.full((slots,), n, dtype=torch.int32, device=dev)
+    recents = torch.full((slots, RECENT_N), -1, dtype=torch.int32,
+                         device=dev)
+    g = SamplingConfig()
+    carries = [torch.full((slots,), v, dtype=dt, device=dev) for v, dt in (
+        (g.temperature, torch.float32), (model.cfg.vocab_size, torch.int32),
+        (1.0, torch.float32), (g.repeat_penalty, torch.float32))]
+    active = torch.ones(slots, dtype=torch.bool, device=dev)
+
+    def decode():   # positions stay put: the same step, re-run
+        model.decode_slots(layers, toks, pos, recents, *carries, active)
+    scratch = model.new_cache(1, kv_len=ctx)["layers"]
+    report = {"card": _card(), "layers": model.cfg.num_hidden_layers,
+              "slots": slots, "ctx": ctx, "prompt": n,
+              "decode_step": _profile(decode, args.iters)}
+    for name, p0, width in (("prefill_fresh_256", 0, 256),
+                            ("prefill_append_256", 256, 256),
+                            ("prefill_tail_88", 512, 88)):
+        report[name] = _profile(
+            lambda: model.prefill_chunk(scratch, 0, ids[p0:p0 + width], p0),
+            args.iters)
+    text = json.dumps(report, indent=1)
+    print(text)
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        f.write(text)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,192 @@
+"""Generic dense decoder block (counterpart of
+cake_tpu/models/common/layers.py).
+
+Parameters are nested dicts of tensors with the reference's keys
+(`layers[i].self_attn.q_proj.weight`, ...), so a JAX parameter tree
+carries across one to one (utils/weights.py). Forwards are plain
+functions closed over the static ModelConfig/LayerSpec.
+
+Positions: `pos0` is a host int for prefill (one sequence), or a [B]
+tensor of per-row positions for the batched one-token decode step, where
+`valid_len` is then a [B] 0/1 tensor (a 0 row writes nothing).
+"""
+from __future__ import annotations
+
+import torch
+
+from ...ops import (apply_rope, embedding, linear, make_attention_mask,
+                    multi_head_attention, rms_norm, rope_tables, silu_mul)
+from ...ops import flash as flash_ops
+from .cache import update_kv_cache
+from .config import LayerSpec, ModelConfig
+
+INIT_STD = 0.02
+
+
+def init_params(cfg: ModelConfig, seed: int = 0,
+                dtype: torch.dtype = torch.bfloat16, device="cpu") -> dict:
+    """Seeded random weights (std 0.02, ones for the norms). Drawn in
+    float32 from a CPU `torch.Generator` and then cast and moved, so one
+    seed gives the same weights on every device."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+
+    def normal(*shape):
+        w = torch.randn(shape, generator=gen, dtype=torch.float32) * INIT_STD
+        return w.to(device=device, dtype=dtype)
+
+    def ones(n):
+        return torch.ones(n, dtype=dtype, device=device)
+
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    sq, skv = cfg.size_q, cfg.size_kv
+    layers = []
+    for _ in range(cfg.num_hidden_layers):
+        attn = {"q_proj": {"weight": normal(sq, h)},
+                "k_proj": {"weight": normal(skv, h)},
+                "v_proj": {"weight": normal(skv, h)},
+                "o_proj": {"weight": normal(h, sq)}}
+        if cfg.qkv_bias:
+            for name, n in (("q_proj", sq), ("k_proj", skv), ("v_proj", skv)):
+                attn[name]["bias"] = torch.zeros(n, dtype=dtype,
+                                                 device=device)
+        if cfg.qk_norm:
+            attn["q_norm"] = {"weight": ones(cfg.head_dim)}
+            attn["k_norm"] = {"weight": ones(cfg.head_dim)}
+        layers.append({
+            "self_attn": attn,
+            "mlp": {"gate_proj": {"weight": normal(i, h)},
+                    "up_proj": {"weight": normal(i, h)},
+                    "down_proj": {"weight": normal(h, i)}},
+            "input_layernorm": {"weight": ones(h)},
+            "post_attention_layernorm": {"weight": ones(h)},
+        })
+    params = {"layers": layers,
+              "embed_tokens": {"weight": normal(cfg.vocab_size, h)},
+              "norm": {"weight": ones(h)}}
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = {"weight": normal(cfg.vocab_size, h)}
+    return params
+
+
+def make_rope(cfg: ModelConfig, device) -> dict:
+    cos, sin = rope_tables(cfg.max_seq_len, cfg.rotary_dim, cfg.rope_theta,
+                           cfg.rope_scaling, device=device)
+    return {"cos": cos, "sin": sin}
+
+
+def _positions(pos0, s: int, device) -> torch.Tensor:
+    """[S] positions for a host int pos0, [B, S] for a [B] tensor."""
+    ar = torch.arange(s, device=device)
+    if torch.is_tensor(pos0):
+        return pos0.long()[:, None] + ar[None, :]
+    return pos0 + ar
+
+
+def attention_forward(cfg: ModelConfig, spec: LayerSpec, p: dict,
+                      x: torch.Tensor, layer_cache: dict, pos0,
+                      rope: dict, valid_len=None, flash_mode: str = "off"):
+    """x: [B, S, H]. Returns (y [B, S, H], layer_cache updated in place).
+
+    Flash dispatch as the reference's (layers.py:221-267): a chunk of
+    width >= FLASH_MIN_SEQ takes the flash kernel in "fresh" mode (pos0 0:
+    causal over the in-pass K/V, window included) or "append" mode
+    (scatter the chunk into the unwrapped cache row, then flash over the
+    row with q_offset = pos0). On a CPU tensor the flash wrapper computes
+    its plain version, so the CPU walks the same branch as the card."""
+    b, s, _ = x.shape
+    hq, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    q = linear(x, p["q_proj"]["weight"], p["q_proj"].get("bias"))
+    k = linear(x, p["k_proj"]["weight"], p["k_proj"].get("bias"))
+    v = linear(x, p["v_proj"]["weight"], p["v_proj"].get("bias"))
+    q = q.reshape(b, s, hq, d)
+    k = k.reshape(b, s, hkv, d)
+    v = v.reshape(b, s, hkv, d)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"]["weight"], cfg.rms_norm_eps)
+        k = rms_norm(k, p["k_norm"]["weight"], cfg.rms_norm_eps)
+    positions = _positions(pos0, s, x.device)
+    q = apply_rope(q, rope["cos"], rope["sin"], positions, cfg.rotary_dim)
+    k = apply_rope(k, rope["cos"], rope["sin"], positions, cfg.rotary_dim)
+
+    use_flash = s >= flash_ops.FLASH_MIN_SEQ and (
+        flash_mode == "fresh"
+        or (flash_mode == "append" and spec.window is None))
+    if use_flash and flash_mode == "fresh":
+        y = flash_ops.flash_attention(q, k, v, valid_len=valid_len,
+                                      window=spec.window)
+        update_kv_cache(layer_cache, k, v, pos0, valid_len)
+    elif use_flash:
+        update_kv_cache(layer_cache, k, v, pos0, valid_len)
+        y = flash_ops.flash_attention(q, layer_cache["k"], layer_cache["v"],
+                                      valid_len=valid_len, q_offset=pos0)
+    elif s == 1:
+        # decode: write the new entry first, then attend over the buffer
+        # (for a ring, the overwritten slot is exactly the one the window
+        # mask hides)
+        update_kv_cache(layer_cache, k, v, pos0, valid_len)
+        q_pos = positions if torch.is_tensor(pos0) else \
+            positions[None, :].expand(b, s)
+        mask = make_attention_mask(q_pos, layer_cache["pos"],
+                                   window=spec.window)
+        y = multi_head_attention(q, layer_cache["k"], layer_cache["v"], mask)
+    else:
+        # a chunk too short for flash: attend over [cache ; chunk]; pad
+        # keys (index >= valid_len) are invisible
+        kv_pos_new = positions
+        if valid_len is not None:
+            kv_pos_new = torch.where(torch.arange(s, device=x.device)
+                                     < int(valid_len), positions, -1)
+        kv_pos = torch.cat([layer_cache["pos"], kv_pos_new.to(
+            layer_cache["pos"].dtype)[None, :].expand(b, s)], 1)
+        mask = make_attention_mask(positions[None, :].expand(b, s), kv_pos,
+                                   window=spec.window)
+        y = multi_head_attention(q, torch.cat([layer_cache["k"], k], 1),
+                                 torch.cat([layer_cache["v"], v], 1), mask)
+        update_kv_cache(layer_cache, k, v, pos0, valid_len)
+    return linear(y.reshape(b, s, hq * d), p["o_proj"]["weight"]), layer_cache
+
+
+def mlp_forward(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    gate = linear(x, p["gate_proj"]["weight"])
+    up = linear(x, p["up_proj"]["weight"])
+    return linear(silu_mul(gate, up), p["down_proj"]["weight"])
+
+
+def block_forward(cfg: ModelConfig, spec: LayerSpec, p: dict,
+                  x: torch.Tensor, layer_cache: dict, pos0,
+                  rope: dict, valid_len=None, flash_mode: str = "off"):
+    """One pre-norm decoder block (post and sandwich norms are not ported
+    yet)."""
+    eps = cfg.rms_norm_eps
+    h = rms_norm(x, p["input_layernorm"]["weight"], eps)
+    attn_out, layer_cache = attention_forward(cfg, spec, p["self_attn"], h,
+                                              layer_cache, pos0, rope,
+                                              valid_len, flash_mode)
+    x = x + attn_out
+    h = rms_norm(x, p["post_attention_layernorm"]["weight"], eps)
+    return x + mlp_forward(cfg, p["mlp"], h), layer_cache
+
+
+def forward_layers(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                   layers: list[dict], pos0, rope: dict,
+                   valid_len=None, flash_mode: str = "off") -> torch.Tensor:
+    """Run every block over hidden states x; `layers` (the per-layer
+    cache list) is updated in place."""
+    for j, spec in enumerate(cfg.layer_specs()):
+        x, _ = block_forward(cfg, spec, params["layers"][j], x, layers[j],
+                             pos0, rope, valid_len, flash_mode)
+    return x
+
+
+def embed_tokens(cfg: ModelConfig, params: dict,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    return embedding(tokens, params["embed_tokens"]["weight"])
+
+
+def lm_head_logits(cfg: ModelConfig, params: dict,
+                   x_last: torch.Tensor) -> torch.Tensor:
+    """Final norm + head -> float32 logits."""
+    h = rms_norm(x_last, params["norm"]["weight"], cfg.rms_norm_eps)
+    w = (params["embed_tokens"]["weight"] if cfg.tie_word_embeddings
+         else params["lm_head"]["weight"])
+    return linear(h, w).float()

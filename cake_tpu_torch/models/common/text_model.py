@@ -1,0 +1,226 @@
+"""Decoder-only text model runtime (counterpart of
+cake_tpu/models/common/text_model.py: prefill, prefill_chunk,
+decode_slots, slot_release, generate).
+
+PyTorch runs eagerly, so the reference's compiled programs become plain
+methods. Host-static decisions stay host-side and identical: the prompt
+is right-padded to a PREFILL_BUCKETS width, and select_flash_mode picks
+"fresh", "append" or the masked path from (pos0, width, capacity).
+
+The slot pool (the serve engine's KV) is one cache with a batch axis; a
+prefill chunk writes into a row view of it in place, and the batched
+decode step steps every row at once with per-row positions, per-row
+sampling parameters and an `active` mask (an inactive row writes nothing
+and keeps its carries).
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Iterable
+
+import torch
+
+from ...device import resolve_device
+from ...ops.sampling import SamplingConfig, push_recent_token, sample_traced
+from .cache import init_cache, kv_capacity, row_view, slot_reset_layers
+from .config import ModelConfig
+from .layers import (embed_tokens, forward_layers, init_params,
+                     lm_head_logits, make_rope)
+
+PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
+
+
+def bucket_for(n: int, max_len: int) -> int:
+    for b in PREFILL_BUCKETS:
+        if n <= b:
+            return min(b, max_len)
+    return max_len
+
+
+def select_flash_mode(pos0: int, width: int, capacity: int | None) -> str:
+    """"fresh" at position 0, "append" while the chunk stays inside the
+    unwrapped buffer, else the masked path ("off")."""
+    if pos0 == 0:
+        return "fresh"
+    if capacity is not None and pos0 + width <= capacity:
+        return "append"
+    return "off"
+
+
+def check_prefill_bounds(n: int, pos0: int, capacity: int | None,
+                         max_len: int) -> int:
+    """Validate a prefill against the cache; returns the prompt bucket."""
+    bkt = bucket_for(n, max_len)
+    if n > bkt:
+        raise ValueError(f"prompt length {n} exceeds cache {bkt}")
+    limit = max_len if capacity is None else min(capacity, max_len)
+    if pos0 + n > limit:
+        raise ValueError(f"prefill past cache end: pos0={pos0} + {n} "
+                         f"tokens > cache capacity {limit}")
+    return bkt
+
+
+@dataclass
+class Token:
+    id: int
+    text: str | None
+    is_end_of_stream: bool
+
+
+class TextModel:
+    """All layers on one device. `device` defaults to `cuda`."""
+
+    def __init__(self, cfg: ModelConfig, params: dict | None = None,
+                 tokenizer=None, dtype: torch.dtype = torch.bfloat16,
+                 device=None, seed: int = 42,
+                 max_cache_len: int | None = None):
+        self.cfg = cfg
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        self.tokenizer = tokenizer
+        self.max_cache_len = min(max_cache_len or cfg.max_seq_len,
+                                 cfg.max_seq_len)
+        self.params = (init_params(cfg, seed, dtype, self.device)
+                       if params is None else params)
+        self.rope = make_rope(cfg, self.device)
+        self.last_prefill_mode: str | None = None
+
+    # -- cache ---------------------------------------------------------------
+
+    def new_cache(self, batch: int = 1, kv_len: int | None = None) -> dict:
+        return init_cache(self.cfg, batch, kv_len or self.max_cache_len,
+                          self.dtype, self.device)
+
+    # -- prefill -------------------------------------------------------------
+
+    @torch.no_grad()
+    def _prefill_into(self, layers: list[dict], token_ids, pos0: int):
+        """Bucket-padded prefill of one sequence into batch-1 `layers` at
+        pos0; returns logits [1, V] at the last valid position."""
+        ids = [int(t) for t in token_ids]
+        n = len(ids)
+        cap = kv_capacity(self.cfg, {"layers": layers})
+        bkt = check_prefill_bounds(n, pos0, cap, self.max_cache_len)
+        padded = torch.zeros((1, bkt), dtype=torch.long)
+        padded[0, :n] = torch.as_tensor(ids, dtype=torch.long)
+        mode = select_flash_mode(pos0, bkt, cap)
+        self.last_prefill_mode = mode
+        x = embed_tokens(self.cfg, self.params, padded.to(self.device))
+        x = forward_layers(self.cfg, self.params, x, layers, pos0, self.rope,
+                           valid_len=n, flash_mode=mode)
+        return lm_head_logits(self.cfg, self.params, x[:, n - 1:n])[:, 0]
+
+    def prefill(self, cache: dict, token_ids: Iterable[int], pos0: int = 0):
+        """Prefill a batch-1 cache; returns (logits [1, V], cache)."""
+        ids = list(token_ids)
+        logits = self._prefill_into(cache["layers"], ids, pos0)
+        cache["pos"] = pos0 + len(ids)
+        return logits, cache
+
+    def prefill_chunk(self, layers: list[dict], slot: int, token_ids,
+                      pos0: int):
+        """Prefill one chunk of a prompt into pool row `slot` at pos0 (the
+        row must hold exactly positions 0..pos0-1). Writes the row in
+        place; returns (logits [1, V] at the chunk's last valid position,
+        layers)."""
+        return self._prefill_into(row_view(layers, slot), token_ids,
+                                  pos0), layers
+
+    # -- batched decode --------------------------------------------------------
+
+    @torch.no_grad()
+    def decode_slots(self, layers: list[dict], toks: torch.Tensor,
+                     pos: torch.Tensor, recents: torch.Tensor,
+                     temps: torch.Tensor, top_ks: torch.Tensor,
+                     top_ps: torch.Tensor, penalties: torch.Tensor,
+                     active: torch.Tensor, generator=None):
+        """One sampled decode step over every pool row.
+
+        toks/pos: [B] int32 (each row's input token and its position);
+        recents: [B, N] int32 (-1 padded); temps/top_ps/penalties: [B]
+        float32; top_ks: [B] int32 (>= vocab disables); active: [B] bool.
+        An inactive row (free, or mid-way through a chunked prefill)
+        writes nothing to its KV and keeps its token, position and recent
+        window. Every row of the pool is stepped whatever the occupancy,
+        so a row's arithmetic never depends on how many others are busy
+        (a request's greedy output is the same alone or in company).
+        Returns (packed [2, B] = [input token ; sampled token], toks, pos,
+        recents); the KV pool is updated in place."""
+        x = embed_tokens(self.cfg, self.params, toks.long()[:, None])
+        x = forward_layers(self.cfg, self.params, x, layers, pos, self.rope,
+                           valid_len=active.to(torch.int32))
+        logits = lm_head_logits(self.cfg, self.params, x)[:, -1]
+        nxt = sample_traced(logits, generator, temps, top_ks, top_ps,
+                            penalties, recents)
+        nxt = torch.where(active, nxt, toks)
+        recents = torch.where(active[:, None],
+                              push_recent_token(recents, nxt), recents)
+        packed = torch.stack([toks, nxt])
+        return packed, nxt, pos + active.to(pos.dtype), recents
+
+    @torch.no_grad()
+    def sample_one(self, logits: torch.Tensor, generator,
+                   scfg: SamplingConfig, recent: torch.Tensor) -> torch.Tensor:
+        """Sample the first token off prefill logits [1, V] with the
+        request's settings; recent: [1, N]. Returns [1] int32."""
+        dev = logits.device
+        return sample_traced(
+            logits, generator,
+            torch.tensor([scfg.temperature], dtype=torch.float32, device=dev),
+            torch.tensor([scfg.top_k or self.cfg.vocab_size],
+                         dtype=torch.int32, device=dev),
+            torch.tensor([1.0 if scfg.top_p is None else scfg.top_p],
+                         dtype=torch.float32, device=dev),
+            torch.tensor([scfg.repeat_penalty], dtype=torch.float32,
+                         device=dev),
+            recent)
+
+    @torch.no_grad()
+    def slot_release(self, layers: list[dict], slot: int) -> list[dict]:
+        """Clear pool row `slot` (positions -1, K/V zero) in place."""
+        return slot_reset_layers(layers, slot)
+
+    # -- single-stream generation ------------------------------------------
+
+    def generate(self, prompt_ids: list[int], max_new_tokens: int = 256,
+                 sampling: SamplingConfig | None = None,
+                 generator: torch.Generator | None = None):
+        """Generate up to max_new_tokens (stopping at EOS) through the same
+        prefill and batched decode step the engine uses, at batch 1.
+        Returns (token_ids, stats)."""
+        scfg = sampling or SamplingConfig()
+        n = len(prompt_ids)
+        kv_len = bucket_for(n + max_new_tokens, self.max_cache_len)
+        cache = self.new_cache(1, kv_len=kv_len)
+        dev = self.device
+        t0 = time.perf_counter()
+        logits, cache = self.prefill(cache, prompt_ids)
+        recent = torch.full((1, scfg.repeat_last_n), -1, dtype=torch.int32,
+                            device=dev)
+        tok = self.sample_one(logits, generator, scfg, recent)
+        recent = push_recent_token(recent, tok)
+        out = [int(tok[0])]
+        ttft = time.perf_counter() - t0
+        pos = torch.tensor([n], dtype=torch.int32, device=dev)
+        carries = [torch.tensor([v], dtype=dt, device=dev) for v, dt in (
+            (scfg.temperature, torch.float32),
+            (scfg.top_k or self.cfg.vocab_size, torch.int32),
+            (1.0 if scfg.top_p is None else scfg.top_p, torch.float32),
+            (scfg.repeat_penalty, torch.float32))]
+        active = torch.ones(1, dtype=torch.bool, device=dev)
+        budget = min(max_new_tokens, kv_len - n)
+        t1 = time.perf_counter()
+        while len(out) < budget and not self.cfg.is_eos(out[-1]):
+            _, tok, pos, recent = self.decode_slots(
+                cache["layers"], tok, pos, recent, *carries, active,
+                generator)
+            out.append(int(tok[0]))
+        dt = time.perf_counter() - t1
+        return out, {"ttft_s": ttft, "decode_tokens": len(out) - 1,
+                     "decode_s": dt,
+                     "tok_per_s": (len(out) - 1) / dt if dt > 0 else 0.0}
+
+    def mk_token(self, tid: int) -> Token:
+        text = self.tokenizer.decode([tid]) if self.tokenizer else None
+        return Token(id=tid, text=text, is_end_of_stream=self.cfg.is_eos(tid))

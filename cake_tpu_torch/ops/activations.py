@@ -1,0 +1,16 @@
+"""Gated MLP activations (counterpart of cake_tpu/ops/activations.py)."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def silu_mul(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """silu(gate) * up — the SwiGLU elementwise."""
+    return F.silu(gate) * up
+
+
+def gelu_mul(gate: torch.Tensor, up: torch.Tensor,
+             approximate: bool = True) -> torch.Tensor:
+    """gelu(gate) * up — GEGLU (tanh approximation by default)."""
+    return F.gelu(gate, approximate="tanh" if approximate else "none") * up

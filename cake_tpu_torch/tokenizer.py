@@ -1,0 +1,66 @@
+"""Byte-level tokenizer for random-weight models, and the ChatML template.
+
+The port serves models with seeded random weights, so it needs no
+`tokenizer.json` (loading one is later work): text maps to its UTF-8
+bytes (ids 0-255) and the ChatML markers to Qwen3's `<|im_start|>` /
+`<|im_end|>` ids. An id with no text of its own decodes to a fixed
+placeholder, so every generated token shows in a response's content.
+"""
+from __future__ import annotations
+
+import re
+
+IM_START = "<|im_start|>"
+IM_END = "<|im_end|>"
+QWEN3_IM_START_ID = 151644
+QWEN3_IM_END_ID = 151645
+PLACEHOLDER = "·"
+
+
+def render_chat(messages: list[dict]) -> str:
+    """ChatML template (the reference's render_chat fallback)."""
+    parts = [f"{IM_START}{m['role']}\n{m['content']}{IM_END}\n"
+             for m in messages]
+    parts.append(f"{IM_START}assistant\n")
+    return "".join(parts)
+
+
+class ByteTokenizer:
+    """Bytes are ids 0-255; the two ChatML markers have their own ids
+    (Qwen3's by default; a model with a small vocabulary passes its own,
+    which then shadow those byte values)."""
+
+    def __init__(self, im_start_id: int = QWEN3_IM_START_ID,
+                 im_end_id: int = QWEN3_IM_END_ID):
+        self.special = {IM_START: im_start_id, IM_END: im_end_id}
+        self.special_text = {v: k for k, v in self.special.items()}
+        self._split = re.compile(
+            "(" + "|".join(re.escape(s) for s in self.special) + ")")
+
+    def encode(self, text: str) -> list[int]:
+        ids: list[int] = []
+        for piece in self._split.split(text):
+            if piece in self.special:
+                ids.append(self.special[piece])
+            elif piece:
+                ids.extend(piece.encode("utf-8"))
+        return ids
+
+    def decode(self, ids) -> str:
+        out: list[str] = []
+        buf = bytearray()
+        for t in ids:
+            t = int(t)
+            if t in self.special_text or not 0 <= t < 256:
+                if buf:
+                    out.append(buf.decode("utf-8", errors="replace"))
+                    buf.clear()
+                out.append(self.special_text.get(t, PLACEHOLDER))
+            else:
+                buf.append(t)
+        if buf:
+            out.append(buf.decode("utf-8", errors="replace"))
+        return "".join(out)
+
+    def chat_prompt_ids(self, messages: list[dict]) -> list[int]:
+        return self.encode(render_chat(messages))

@@ -1,0 +1,50 @@
+"""Carry a parameter tree of numpy arrays into the port.
+
+The JAX package keeps parameters as nested dicts/lists of arrays under the
+HF names (`layers[i].self_attn.q_proj.weight`, `embed_tokens.weight`,
+...). `params_from_numpy` turns the same tree, converted to numpy, into
+the port's tensors: same keys, on `device`, in `dtype`. The reference's
+precomputed `rope` tables are dropped (the port computes its own), and
+`ml_dtypes.bfloat16` arrays, which torch cannot take directly, go through
+float32.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..models.common.config import ModelConfig
+
+DROPPED_KEYS = ("rope",)
+
+
+def _tensor(arr, device, dtype) -> torch.Tensor:
+    a = np.asarray(arr)
+    if a.dtype.kind not in "iub":       # floats, ml_dtypes' bfloat16 ('V')
+        a = a.astype(np.float32)
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def _convert(node, device, dtype):
+    if isinstance(node, dict):
+        return {k: _convert(v, device, dtype) for k, v in node.items()
+                if k not in DROPPED_KEYS}
+    if isinstance(node, (list, tuple)):
+        return [_convert(v, device, dtype) for v in node]
+    return _tensor(node, device, dtype)
+
+
+def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda",
+                      dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Nested dict of numpy arrays -> the port's parameter dict."""
+    params = _convert(tree, device, dtype)
+    n = len(params.get("layers", []))
+    if n != cfg.num_hidden_layers:
+        raise ValueError(f"tree has {n} layers, config "
+                         f"{cfg.num_hidden_layers}")
+    if "embed_tokens" not in params or "norm" not in params:
+        raise ValueError("tree lacks embed_tokens or norm")
+    return params

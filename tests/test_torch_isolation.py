@@ -1,0 +1,78 @@
+"""The port stands alone: with `jax` and `cake_tpu` blocked, every module
+of cake_tpu_torch and chip_smoke.py imports and a tiny CPU chat is served;
+an AST scan finds no import of either in the port's sources."""
+import ast
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "cake_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+BLOCKED_RUN = r'''
+import importlib, importlib.abc, json, pkgutil, sys, urllib.request
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "jax" or name.startswith("jax.") or name == "cake_tpu" \
+                or name.startswith("cake_tpu."):
+            raise ImportError(f"blocked: {name}")
+        return None
+sys.meta_path.insert(0, Block())
+
+import torch
+torch.set_num_threads(1)
+import cake_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(cake_tpu_torch.__path__,
+                                              "cake_tpu_torch.")]
+for name in mods:
+    importlib.import_module(name)
+import chip_smoke
+
+from cake_tpu_torch.api import create_app
+from cake_tpu_torch.models import TextModel, tiny_config
+from cake_tpu_torch.serve import ServeEngine
+from cake_tpu_torch.tokenizer import ByteTokenizer
+cfg = tiny_config("qwen3", vocab_size=258, max_position_embeddings=256)
+tok = ByteTokenizer(256, 257)
+model = TextModel(cfg, tokenizer=tok, dtype=torch.float32, device="cpu")
+app = create_app(model, ServeEngine(model, slots=2, ctx_len=256), tok,
+                 port=0).start()
+body = {"messages": [{"role": "user", "content": "hi"}],
+        "temperature": 0, "max_tokens": 4}
+req = urllib.request.Request(app.url + "/v1/chat/completions",
+                             data=json.dumps(body).encode())
+with urllib.request.urlopen(req, timeout=60) as r:
+    resp = json.loads(r.read())
+app.stop()
+assert resp["usage"]["completion_tokens"] > 0, resp
+leaked = [m for m in sys.modules
+          if m == "jax" or m.startswith(("jax.", "cake_tpu."))]
+assert not leaked, leaked
+print("OK", len(mods))
+'''
+
+
+def test_port_runs_with_jax_and_cake_tpu_blocked():
+    out = subprocess.run([sys.executable, "-c", BLOCKED_RUN], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.startswith("OK")
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_no_jax_or_cake_tpu_import_in_port_sources():
+    assert len(PORT_FILES) > 20
+    bad = [(p.relative_to(ROOT).as_posix(), name)
+           for p in PORT_FILES for name in _imports(p)
+           if name.split(".")[0] in ("jax", "jaxlib", "cake_tpu")]
+    assert not bad, bad
