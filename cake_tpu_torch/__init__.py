@@ -6,8 +6,9 @@ nothing of `cake_tpu`. Entry points run on `cuda` unless the caller asks
 for `device="cpu"` (the CPU path exists for tests and parity checks).
 
 The one TPU kernel of the reference, the Pallas flash prefill attention,
-is a hand-written CUDA kernel here (`csrc/flash_attn.cu`, bound through
-`ops/flash.py`); every other op is plain PyTorch.
+is hand-written CUDA here, one kernel per dtype route (bf16 on the tensor
+cores, `csrc/flash_attn_wgmma.cu`; float32 on FMA, `csrc/flash_attn.cu`),
+bound through `ops/flash.py`; every other op is plain PyTorch.
 """
 from .device import parse_dtype, resolve_device
 

@@ -10,6 +10,7 @@ append 256-token chunk, the 128-wide masked tail) reports:
   * wall ms per call (host clock around calls that end in a synchronize),
   * device ms per call from torch.profiler (sum of kernel time),
   * the device idle share (1 - device / wall),
+  * the flash kernels' device ms per call,
   * the top kernels by device time.
 Prints one JSON object and writes it to --out (default
 chiprun_out/profile_step.json). Needs a CUDA card.
@@ -27,6 +28,7 @@ import torch
 from ..cli import build_flagship
 from ..ops.sampling import SamplingConfig
 from ..serve.engine import RECENT_N
+from .timing import kernel_times
 
 
 def _card() -> str:
@@ -37,8 +39,6 @@ def _card() -> str:
 
 
 def _profile(fn, iters: int) -> dict:
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -47,26 +47,14 @@ def _profile(fn, iters: int) -> dict:
         fn()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / iters * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    rows = []
-    for ev in prof.key_averages():
-        # kernel events only: an aten op's self device time repeats the
-        # time of the kernels it launched
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-        if dev_us > 0:
-            rows.append((dev_us / iters / 1e3, ev.count // iters, ev.key))
-    rows.sort(reverse=True)
+    rows = kernel_times(fn, iters, warmup=0)
+    if not rows:
+        raise RuntimeError("torch.profiler shows no device time")
     device = sum(r[0] for r in rows)
     return {"wall_ms": wall, "device_ms": device,
             "idle_share": max(0.0, 1.0 - device / wall),
-            "top": [{"ms": round(ms, 4), "calls": n, "kernel": k[:90]}
+            "flash_ms": sum(ms for ms, _, k in rows if "flash" in k),
+            "top": [{"ms": round(ms, 4), "calls": round(n), "kernel": k[:90]}
                     for ms, n, k in rows[:12]]}
 
 

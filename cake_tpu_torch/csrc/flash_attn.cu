@@ -1,18 +1,20 @@
-// Flash prefill attention for Hopper (sm_90a), plain C entry point.
+// Flash prefill attention for Hopper (sm_90a), float32, plain C entry point.
 //
-// Replaces cake_tpu/ops/flash.py:_flash_kernel (the Pallas TPU kernel).
+// Replaces cake_tpu/ops/flash.py:_flash_kernel (the Pallas TPU kernel) on
+// the float32 route; bfloat16 takes csrc/flash_attn_wgmma.cu (tensor
+// cores). TF32 tensor cores would keep about three decimal digits, which
+// breaks the float32 tolerance (1e-4), so this route stays on FMA.
 // Computes causal GQA attention over [B, S, H, D] tensors given by their
 // strides (last dimension contiguous), with the reference's masks:
 //   key valid   iff k_pos < limit        (limit = q_offset + valid_len)
 //   causal      iff k_pos <= q_pos       (q_pos = q_offset + row)
 //   window      iff k_pos >  q_pos - window   (window > 0 only)
-// Scores, the running max/sum and the output accumulator are float32; the
-// output is written in the input dtype (float32 or bfloat16).
+// Scores, the running max/sum and the output accumulator are float32.
 //
-// Bound on an H100: ~4*Sq*Skv_visible*Hq*D FLOPs against the tensor cores
-// at the flagship chunk, and the K/V rows below `limit` against HBM in
-// append mode. This first version uses plain FMA from shared memory and is
-// far from either bound; it is the simple, checked baseline.
+// Bound on an H100: ~4*Sq*Skv_visible*Hq*D FLOPs against 67 TFLOP/s of
+// float32 FMA, or the K/V rows below `limit` against HBM in append mode.
+// Plain FMA from shared memory, far from either bound: the checked
+// float32 baseline.
 //
 // Layout of one block (one 32-row query tile of one head of one batch row):
 //   shared: Q tile [32][D+1], K and V tiles [64][D+1], P tile [32][65]
@@ -23,7 +25,6 @@
 // last tile any row of the block can see, so tiles wholly above the
 // diagonal, below the window or past the limit are never read.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -37,10 +38,10 @@ constexpr int PLD = BK + 1;
 constexpr float kNegInf = -1e30f;
 
 struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
   int64_t q_sb, q_ss, q_sh;
   int64_t k_sb, k_ss, k_sh;
   int64_t v_sb, v_ss, v_sh;
@@ -50,26 +51,13 @@ struct Params {
   int causal, window, q_offset, limit;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 template <int D>
 constexpr size_t smem_bytes() {
   return sizeof(float) *
          (size_t(BQ) * (D + 1) + 2 * size_t(BK) * (D + 1) + BQ * PLD + 2 * BQ);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT) flash_fwd(Params p) {
   constexpr int LD = D + 1;
   constexpr int DC = D / 16;   // output columns per thread
@@ -86,15 +74,15 @@ __global__ void __launch_bounds__(NT) flash_fwd(Params p) {
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / p.group;
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  T* o = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const float* q = p.q + b * p.q_sb + h * p.q_sh;
+  const float* k = p.k + b * p.k_sb + kvh * p.k_sh;
+  const float* v = p.v + b * p.v_sb + kvh * p.v_sh;
+  float* o = p.o + b * p.o_sb + h * p.o_sh;
 
   for (int i = tid; i < BQ * D; i += NT) {
     const int r = i / D, c = i % D;
     const int qr = q_start + r;
-    sQ[r * LD + c] = qr < p.sq ? to_f32(q[qr * p.q_ss + c]) * p.scale : 0.f;
+    sQ[r * LD + c] = qr < p.sq ? q[qr * p.q_ss + c] * p.scale : 0.f;
   }
 
   // tile range: keys past the limit are invisible to every row; under
@@ -129,8 +117,8 @@ __global__ void __launch_bounds__(NT) flash_fwd(Params p) {
       const int r = i / D, c = i % D;
       const int kr = k0 + r;
       const bool ok = kr < p.skv;
-      sK[r * LD + c] = ok ? to_f32(k[kr * p.k_ss + c]) : 0.f;
-      sV[r * LD + c] = ok ? to_f32(v[kr * p.v_ss + c]) : 0.f;
+      sK[r * LD + c] = ok ? k[kr * p.k_ss + c] : 0.f;
+      sV[r * LD + c] = ok ? v[kr * p.v_ss + c] : 0.f;
     }
     __syncthreads();
 
@@ -220,30 +208,30 @@ __global__ void __launch_bounds__(NT) flash_fwd(Params p) {
     if (qr >= p.sq) continue;
     const float inv = 1.f / fmaxf(sL[r], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < DC; ++j)
-      o[qr * p.o_ss + cg + 16 * j] = from_f32<T>(acc[i][j] * inv);
+    for (int j = 0; j < DC; ++j) o[qr * p.o_ss + cg + 16 * j] = acc[i][j] * inv;
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const Params& p, int batch, int hq, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  // once per instantiation, not on every launch
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
+  if (attr != cudaSuccess) return attr;
   dim3 grid((p.sq + BQ - 1) / BQ, hq, batch);
-  flash_fwd<T, D><<<grid, NT, bytes, stream>>>(p);
+  flash_fwd<D><<<grid, NT, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements, in the order
-// (batch, seq, head) for each of q, k, v, o. window <= 0 means none.
-// Returns the CUDA error code of the launch (0 on success).
+// float32 only. Strides are in elements, in the order (batch, seq, head)
+// for each of q, k, v, o. window <= 0 means none. Returns the CUDA error
+// code of the launch (0 on success).
 extern "C" int cake_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, int dtype,
+    const void* q, const void* k, const void* v, void* o,
     int batch, int sq, int skv, int hq, int hkv, int d,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
@@ -254,7 +242,10 @@ extern "C" int cake_flash_attention_fwd(
   if (batch <= 0 || sq <= 0 || hq <= 0 || hkv <= 0 || hq % hkv)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p;
-  p.q = q; p.k = k; p.v = v; p.o = o;
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.o = static_cast<float*>(o);
   p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
   p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
   p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
@@ -264,14 +255,7 @@ extern "C" int cake_flash_attention_fwd(
   p.causal = causal; p.window = window; p.q_offset = q_offset;
   p.limit = limit;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0 && d == 128) err = launch<float, 128>(p, batch, hq, s);
-  else if (dtype == 0 && d == 64) err = launch<float, 64>(p, batch, hq, s);
-  else if (dtype == 1 && d == 128)
-    err = launch<__nv_bfloat16, 128>(p, batch, hq, s);
-  else if (dtype == 1 && d == 64)
-    err = launch<__nv_bfloat16, 64>(p, batch, hq, s);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  if (d == 128) return static_cast<int>(launch<128>(p, batch, hq, s));
+  if (d == 64) return static_cast<int>(launch<64>(p, batch, hq, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

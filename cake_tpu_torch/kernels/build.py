@@ -25,7 +25,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build"
 
 # kernel name -> source file under csrc/
-KERNELS = {"flash_attn": "flash_attn.cu"}
+KERNELS = {"flash_attn": "flash_attn.cu",
+           "flash_attn_wgmma": "flash_attn_wgmma.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

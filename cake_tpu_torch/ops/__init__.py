@@ -1,5 +1,5 @@
 """Op library of the port: plain PyTorch functions, plus the hand-written
-CUDA flash prefill kernel (flash.py)."""
+CUDA flash prefill kernels, one per dtype route (flash.py)."""
 from .activations import gelu_mul, silu_mul
 from .attention import causal_sdpa, make_attention_mask, multi_head_attention
 from .flash import FLASH_MIN_SEQ, flash_attention, flash_attention_ref

@@ -6,10 +6,16 @@
 Phases (any failure exits non-zero and prints no result line):
   1. device: require CUDA; print `nvidia-smi` name and power limit;
   2. build: compile every CUDA kernel of the port from this checkout
-     (one nvcc per source, all started together);
+     (one nvcc per source, all started together), print each source's
+     ptxas report (registers, shared memory, spills) and the count of
+     HGMMA (wgmma) instructions in the bf16 kernel's SASS, which must not
+     be 0;
   3. kernels: hold each kernel against its plain PyTorch version on the
-     card at the flagship shapes (bf16 and f32), then time kernel, plain
-     version and the PyTorch library call, beside the card's bound;
+     card (bf16 on the tensor-core kernel, f32 on the FMA kernel), then
+     time kernel, plain version and the PyTorch library call as device
+     time (CUDA events around calls queued behind a spin kernel, so the
+     card runs them back to back), beside the issue rate of back-to-back
+     calls, the card's bound and the library call's backend;
   4. model parity: the flagship at full width and 2 layers in f32 prefills
      a 600-token prompt in chunks (fresh flash, append flash, masked tail)
      on the card and on the CPU; logits agree within 2e-3 and 16 greedy
@@ -17,8 +23,8 @@ Phases (any failure exits non-zero and prints no result line):
   5. serving: the full flagship (28 layers, bf16, seed 0) behind the
      port's HTTP server with 4 slots and ctx 4096 answers 4 concurrent
      chats and one SSE chat; each concurrent result equals the same
-     request sent alone, and the flash kernel's launch counts show both
-     modes ran;
+     request sent alone, and the bf16 flash kernel's launch counts show
+     both modes ran;
   6. prints the kernels line, the card line, and the result line last.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -26,6 +32,8 @@ Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -36,8 +44,10 @@ BF16_TOL = 2e-2     # bf16 output rounding (ulp 2^-7 near 1) + sum order
 F32_TOL = 1e-4      # float32 summation order only
 LOGIT_TOL = 2e-3    # f32 model on card vs CPU (cuBLAS vs MKL sum order)
 
-H100_BF16_FLOPS = 989e12     # dense tensor-core peak, H100 SXM
+H100_PEAK_FLOPS = {"bf16": 989e12,   # dense tensor-core peak, H100 SXM
+                   "f32": 67e12}     # float32 outside the tensor cores
 H100_HBM_BYTES_S = 3.35e12
+CUOBJDUMP = "/usr/local/cuda/bin/cuobjdump"   # the CUDA toolkit's
 
 class SmokeFailure(Exception):
     pass
@@ -57,19 +67,33 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+# -- phase 2: build ----------------------------------------------------------
+
+
+def phase_build() -> None:
+    from cake_tpu_torch.kernels.build import build_all
+    from cake_tpu_torch.ops import flash
+    t = time.perf_counter()
+    built = build_all()
+    for name, info in built.items():
+        print(f"build {name}: {info['seconds']:.1f}s", flush=True)
+        for ln in info["log"].splitlines():
+            if any(w in ln for w in ("registers", "spill", "smem", "wgmma",
+                                     "arning")):
+                print(f"  {ln.strip()}")
+    print(f"build total {time.perf_counter() - t:.1f}s", flush=True)
+    cuobjdump = shutil.which("cuobjdump") or (
+        CUOBJDUMP if os.path.exists(CUOBJDUMP) else None)
+    if cuobjdump is None:
+        print("cuobjdump not found: HGMMA count not taken", flush=True)
+        return
+    lib = built[flash.LIBRARIES["bf16"]]["path"]
+    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                          text=True, timeout=300)
+    check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr}")
+    n = sum("HGMMA" in ln for ln in sass.stdout.splitlines())
+    print(f"HGMMA instructions in {flash.SOURCES['bf16']}: {n}", flush=True)
+    check(n > 0, "the bf16 flash kernel has no HGMMA (wgmma) instruction")
 
 
 # -- phase 3: kernels --------------------------------------------------------
@@ -120,9 +144,11 @@ def visible_pairs(sq, limit, q_offset, window, skv) -> int:
 
 
 def flash_bound_ms(q, k, kw) -> tuple[float, str]:
-    """Least time on an H100 SXM: the larger of FLOPs over the bf16 tensor
-    peak and bytes (q read, K/V rows below the limit read, output written,
-    once each) over HBM bandwidth."""
+    """Least time on an H100 SXM: the larger of FLOPs over the peak for
+    q's type (bf16 tensor cores, or float32 outside them) and bytes (q
+    read, K/V rows below the limit read, output written, once each) over
+    HBM bandwidth."""
+    import torch
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
     off = kw.get("q_offset") or 0
@@ -132,67 +158,94 @@ def flash_bound_ms(q, k, kw) -> tuple[float, str]:
                                 k.shape[1]) * hq * d * b
     el = q.element_size()
     nbytes = el * b * (2 * sq * hq * d + 2 * rows * hkv * d)
-    t_ops, t_bytes = flops / H100_BF16_FLOPS, nbytes / H100_HBM_BYTES_S
+    peak = H100_PEAK_FLOPS["bf16" if q.dtype == torch.bfloat16 else "f32"]
+    t_ops, t_bytes = flops / peak, nbytes / H100_HBM_BYTES_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def library_call(q, k, v, kw):
-    """One PyTorch call computing the same function (yardstick only: the
-    port never calls it): scaled_dot_product_attention on [B, H, S, D]."""
+def _library_args(q, k, v, kw):
+    """Arguments of scaled_dot_product_attention for the same function:
+    [B, H, S, D] views, and a causal flag or an explicit mask."""
     import torch
-    import torch.nn.functional as F
     off = kw.get("q_offset") or 0
     limit = off + (kw.get("valid_len") or q.shape[1])
     qt = q.transpose(1, 2)
     kt = k[:, :limit].transpose(1, 2)
     vt = v[:, :limit].transpose(1, 2)
     if off == 0 and limit >= k.shape[1] and not kw.get("window"):
-        return lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)
+        return (qt, kt, vt), dict(is_causal=True, enable_gqa=True)
     qp = off + torch.arange(q.shape[1], device="cuda")[:, None]
     kp = torch.arange(kt.shape[2], device="cuda")[None, :]
     mask = kp <= qp
     if kw.get("window"):
         mask &= kp > qp - kw["window"]
-    return lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    return (qt, kt, vt), dict(attn_mask=mask, enable_gqa=True)
+
+
+def library_call(q, k, v, kw):
+    """One PyTorch call computing the same function (yardstick only: the
+    port never calls it): scaled_dot_product_attention on [B, H, S, D]."""
+    import torch.nn.functional as F
+    args, sdpa_kw = _library_args(q, k, v, kw)
+    return lambda: F.scaled_dot_product_attention(*args, **sdpa_kw)
+
+
+def library_backend(q, k, v, kw) -> str:
+    """The backend scaled_dot_product_attention picks for these inputs
+    (the choice its dispatcher makes, read without running it)."""
+    import torch
+    from torch.nn.attention import SDPBackend
+    args, sdpa_kw = _library_args(q, k, v, kw)
+    return SDPBackend(torch._fused_sdp_choice(*args, **sdpa_kw)).name
 
 
 def phase_kernels() -> dict:
     import torch
+    from cake_tpu_torch.bench.timing import device_ms, issue_ms
     from cake_tpu_torch.ops.flash import (flash_attention_kernel,
-                                          flash_attention_ref)
+                                          flash_attention_ref, kernel_route)
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
         for name, spec in FLASH_CASES:
-            spec = dict(spec)
             q, k, v, kw = flash_case(name, dtype, **spec)
             got = flash_attention_kernel(q, k, v, **kw)
             torch.cuda.synchronize()
             want = flash_attention_ref(q, k, v, **kw)
             err = (got.float() - want.float()).abs().max().item()
-            print(f"flash {name:15s} {str(dtype):15s} max_abs_err "
+            print(f"flash {name:15s} {kernel_route(dtype)} max_abs_err "
                   f"{err:.3e} (tol {tol:g})", flush=True)
             check(err <= tol and torch.isfinite(got).all().item(),
                   f"flash {name} {dtype}: max_abs_err {err} > {tol}")
     timings = {}
-    for mode, spec in (("fresh", {}), ("append", FLASH_CASES[4][1])):
-        q, k, v, kw = flash_case(mode, torch.bfloat16, **spec)
+    for entry, dtype, spec in (
+            ("fresh", torch.bfloat16, {}),
+            ("append", torch.bfloat16, FLASH_CASES[4][1]),
+            ("f32", torch.float32, {})):
+        q, k, v, kw = flash_case(entry, dtype, **spec)
         err = (flash_attention_kernel(q, k, v, **kw).float()
                - flash_attention_ref(q, k, v, **kw).float()).abs().max()
+
+        def kern():
+            return flash_attention_kernel(q, k, v, **kw)
+        # device time: events around calls queued behind a spin, so the
+        # host's issue rate (issue_ms) does not set it
         t = {
-            "max_abs_err": err.item(),
-            "ms": cuda_time_ms(lambda: flash_attention_kernel(q, k, v, **kw)),
-            "plain_ms": cuda_time_ms(
-                lambda: flash_attention_ref(q, k, v, **kw), iters=20),
-            "library_ms": cuda_time_ms(library_call(q, k, v, kw)),
+            "max_abs_err": err.item(), "ms": device_ms(kern),
+            "issue_ms": issue_ms(kern),
+            "plain_ms": device_ms(
+                lambda: flash_attention_ref(q, k, v, **kw), iters=10),
+            "library_ms": device_ms(library_call(q, k, v, kw)),
         }
         t["bound_ms"], t["bound_by"] = flash_bound_ms(q, k, kw)
-        timings[mode] = t
-        print(f"flash timing {mode}: bf16 Sq=256 Hq/Hkv=16/8 D=128 "
-              f"Skv_row={k.shape[1]} kernel_ms {t['ms']:.4f} plain_ms "
-              f"{t['plain_ms']:.4f} library_ms {t['library_ms']:.4f} "
-              f"bound_ms {t['bound_ms']:.5f} ({t['bound_by']})", flush=True)
+        timings[entry] = t
+        print(f"flash timing {entry}: {kernel_route(dtype)} Sq=256 Hq/Hkv="
+              f"16/8 D=128 Skv_row={k.shape[1]} device ms: kernel "
+              f"{t['ms']:.5f} plain {t['plain_ms']:.5f} library "
+              f"{t['library_ms']:.5f}; kernel issue_ms {t['issue_ms']:.5f}; "
+              f"bound_ms {t['bound_ms']:.5f} ({t['bound_by']}), share of "
+              f"bound {t['bound_ms'] / t['ms']:.3f}", flush=True)
+        print(f"  library backend: {library_backend(q, k, v, kw)}",
+              flush=True)
     return timings
 
 
@@ -211,7 +264,7 @@ def chunked_prefill_and_greedy(model, ids, n_greedy=16):
     logits = None
     for p0 in range(0, len(ids), 256):
         logits, cache = model.prefill(cache, ids[p0:p0 + 256], p0)
-    launches = dict(flash.flash_attention.launches)
+    launches = flash.launch_counts()
     dev = model.device
     recent = torch.full((1, 64), -1, dtype=torch.int32, device=dev)
     tok = model.sample_one(logits, None, SamplingConfig(), recent)
@@ -228,9 +281,10 @@ def chunked_prefill_and_greedy(model, ids, n_greedy=16):
     return logits.float().cpu(), toks, launches
 
 
-def phase_parity() -> None:
+def phase_parity() -> dict:
     """600 tokens in chunks of 256: fresh flash, append flash, then a
-    88-token tail (bucket 128 < FLASH_MIN_SEQ) on the masked path."""
+    88-token tail (bucket 128 < FLASH_MIN_SEQ) on the masked path. Returns
+    the f32 route's launches by mode."""
     import torch
     from cake_tpu_torch.cli import build_flagship
     from cake_tpu_torch.models import TextModel
@@ -249,10 +303,12 @@ def phase_parity() -> None:
           f"prefill: flash launches {launches}; logits max_abs_err "
           f"{err:.3e} (tol {LOGIT_TOL:g}); 16 greedy tokens identical "
           f"{tg == tc}", flush=True)
-    check(launches == {"fresh": 2, "append": 2},
+    check(launches == {"bf16": {"fresh": 0, "append": 0},
+                       "f32": {"fresh": 2, "append": 2}},
           f"unexpected flash launches {launches}")
     check(err <= LOGIT_TOL, f"logits differ by {err}")
     check(tg == tc, f"greedy tokens differ: {tg} vs {tc}")
+    return launches["f32"]
 
 
 def _to_device(tree, device):
@@ -325,7 +381,7 @@ def phase_serve(card: str) -> dict:
         for th in threads:
             th.join(timeout=900)
         torch.cuda.synchronize()
-        launches = dict(flash.flash_attention.launches)
+        counts = flash.launch_counts()
         check(not errors, f"serving errors: {errors}")
         check(all(not th.is_alive() for th in threads), "requests hung")
         concurrent = {}
@@ -347,9 +403,12 @@ def phase_serve(card: str) -> dict:
         stats = [reqs[concurrent[i][0]["id"]].result["stats"]
                  for i in range(4)]
         print(f"serve flash launches (4 concurrent + 1 SSE, 28 layers): "
-              f"{launches}", flush=True)
-        check(launches["fresh"] >= 28 * 4, f"fresh launches {launches}")
-        check(launches["append"] > 0, f"append launches {launches}")
+              f"{counts}", flush=True)
+        launches = counts["bf16"]
+        check(launches["fresh"] >= 28 * 4, f"fresh launches {counts}")
+        check(launches["append"] > 0, f"append launches {counts}")
+        check(sum(counts["f32"].values()) == 0,
+              f"the f32 route ran while serving bf16: {counts}")
         for i in range(4):
             status, raw = _post(app.url, body(i))
             alone = json.loads(raw)
@@ -380,30 +439,25 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
-    from cake_tpu_torch.kernels.build import build_all
     from cake_tpu_torch.ops import flash
     card = card_line()
     print(f"device: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
-    t = time.perf_counter()
-    built = build_all()
-    for name, info in built.items():
-        print(f"build {name}: {info['seconds']:.1f}s", flush=True)
-        for ln in info["log"].splitlines():
-            if "registers" in ln or "spill" in ln or "smem" in ln:
-                print(f"  {ln.strip()}")
-    print(f"build total {time.perf_counter() - t:.1f}s", flush=True)
+    phase_build()
     timings = phase_kernels()
-    phase_parity()
-    launches = phase_serve(card)
+    parity_launches = phase_parity()
+    serve_launches = phase_serve(card)
     kernels = []
-    for mode in ("fresh", "append"):
-        t = timings[mode]
+    for entry, route, launches in (
+            ("fresh", "bf16", serve_launches["fresh"]),
+            ("append", "bf16", serve_launches["append"]),
+            ("f32", "f32", sum(parity_launches.values()))):
+        t = timings[entry]
         kernels.append({
-            "name": f"flash_attention.{mode}", "route": "cuda",
-            "source": flash.SOURCE, "replaces": flash.REPLACES,
-            "launches": launches[mode],
-            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "name": f"flash_attention.{entry}", "route": "cuda",
+            "source": flash.SOURCES[route], "replaces": flash.REPLACES,
+            "launches": launches, "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"], "issue_ms": t["issue_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": kernels}))
