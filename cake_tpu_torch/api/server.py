@@ -1,6 +1,7 @@
 """HTTP front end on the standard library (counterpart of
 cake_tpu/api/server.py): `POST /v1/chat/completions`, `GET /v1/models`
-and `GET /health`. A ThreadingHTTPServer gives each connection a thread;
+and `GET /health` (the engine's health, with its `prefix_cache` and, in
+paged mode, `kv_pool` blocks). A ThreadingHTTPServer gives each connection a thread;
 those threads only submit to the engine and wait on its queues, so no
 aiohttp is needed.
 """

@@ -1,16 +1,19 @@
 """Where the serving time goes on the card: one decode step of the full
-slot pool and one prefill chunk of each flash mode, on the flagship.
+slot pool (contiguous and paged) and one prefill chunk of each flash mode,
+on the flagship.
 
     python -m cake_tpu_torch.bench.profile_step [--layers N] [--out PATH]
 
 Builds the flagship (bf16, seeded random weights) with a 4-slot, 4096-row
-pool, fills every slot with a 600-token prompt through prefill_chunk, then
-for each program (decode step over the pool, a fresh 256-token chunk, an
-append 256-token chunk, the 128-wide masked tail) reports:
+pool, fills every slot with a 600-token prompt through prefill_chunk, and
+the same into a paged pool (1024 blocks of 16 tokens) through
+prefill_chunk_paged, then for each program (decode step over the
+contiguous pool, paged decode step over 4 slots, a fresh 256-token chunk,
+an append 256-token chunk, the 128-wide masked tail) reports:
   * wall ms per call (host clock around calls that end in a synchronize),
   * device ms per call from torch.profiler (sum of kernel time),
   * the device idle share (1 - device / wall),
-  * the flash kernels' device ms per call,
+  * the flash kernels' and the paged decode kernel's device ms per call,
   * the top kernels by device time.
 Prints one JSON object and writes it to --out (default
 chiprun_out/profile_step.json). Needs a CUDA card.
@@ -28,6 +31,7 @@ import torch
 from ..cli import build_flagship
 from ..ops.sampling import SamplingConfig
 from ..serve.engine import RECENT_N
+from ..serve.paged import PagedKV
 from .timing import kernel_times
 
 
@@ -54,6 +58,8 @@ def _profile(fn, iters: int) -> dict:
     return {"wall_ms": wall, "device_ms": device,
             "idle_share": max(0.0, 1.0 - device / wall),
             "flash_ms": sum(ms for ms, _, k in rows if "flash" in k),
+            "paged_decode_ms": sum(ms for ms, _, k in rows
+                                   if "paged_decode" in k),
             "top": [{"ms": round(ms, 4), "calls": round(n), "kernel": k[:90]}
                     for ms, n, k in rows[:12]]}
 
@@ -87,10 +93,20 @@ def main(argv=None) -> int:
 
     def decode():   # positions stay put: the same step, re-run
         model.decode_slots(layers, toks, pos, recents, *carries, active)
+    paged = PagedKV.build(model, slots, ctx, 1024, 16, 256)
+    for s in range(slots):
+        for p0 in range(0, n, 256):
+            paged.reserve_range(s, p0, min(256, n - p0) + 1)
+            paged.prefill_into(s, ids[p0:p0 + 256], p0)
+
+    def decode_paged():
+        model.decode_slots_paged(paged.pool, paged.rows, paged.tables, toks,
+                                 pos, recents, *carries, active)
     scratch = model.new_cache(1, kv_len=ctx)["layers"]
     report = {"card": _card(), "layers": model.cfg.num_hidden_layers,
               "slots": slots, "ctx": ctx, "prompt": n,
-              "decode_step": _profile(decode, args.iters)}
+              "decode_step": _profile(decode, args.iters),
+              "paged_decode_step": _profile(decode_paged, args.iters)}
     for name, p0, width in (("prefill_fresh_256", 0, 256),
                             ("prefill_append_256", 256, 256),
                             ("prefill_tail_88", 512, 88)):

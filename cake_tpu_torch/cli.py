@@ -1,11 +1,14 @@
 """Command line (counterpart of cake_tpu/cli.py, `serve` and `run`).
 
     python -m cake_tpu_torch.cli serve --flagship [--seed N] [--port P] [--cpu]
+        [--prefix-cache-mb MB] [--kv-blocks N] [--kv-block-tokens T]
     python -m cake_tpu_torch.cli run --flagship "prompt" [--max-tokens N]
 
 `--flagship` is the Qwen3-0.6B shape with seeded random weights (loading
 a checkpoint is not ported yet); `--layers` cuts its depth. The model
-runs on `cuda` unless `--cpu` is given.
+runs on `cuda` unless `--cpu` is given. `serve` keeps the reference's
+defaults: the shared-prefix cache on at 256 MB, and a contiguous KV pool
+unless `--kv-blocks` asks for a paged one.
 """
 from __future__ import annotations
 
@@ -20,8 +23,9 @@ from .device import parse_dtype
 from .models.common.config import FLAGSHIP_QWEN3_0_6B, config_from_hf_dict
 from .models.common.text_model import TextModel
 from .ops.sampling import SamplingConfig
-from .serve.engine import (DEFAULT_CHUNK, DEFAULT_CTX, DEFAULT_QUEUE,
-                           DEFAULT_SLOTS, ServeEngine)
+from .serve.engine import (DEFAULT_CHUNK, DEFAULT_CTX,
+                           DEFAULT_KV_BLOCK_TOKENS, DEFAULT_PREFIX_CACHE_MB,
+                           DEFAULT_QUEUE, DEFAULT_SLOTS, ServeEngine)
 from .tokenizer import ByteTokenizer
 
 
@@ -52,7 +56,10 @@ def cmd_serve(args) -> int:
                            "cpu" if args.cpu else None)
     engine = ServeEngine(model, slots=args.slots, max_queue=args.max_queue,
                          ctx_len=args.ctx, seed=args.seed,
-                         prefill_chunk=args.prefill_chunk)
+                         prefill_chunk=args.prefill_chunk,
+                         prefix_cache_mb=args.prefix_cache_mb,
+                         kv_blocks=args.kv_blocks,
+                         kv_block_tokens=args.kv_block_tokens)
     app = create_app(model, engine, model.tokenizer, args.host, args.port)
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
@@ -91,6 +98,14 @@ def main(argv=None) -> int:
     s.add_argument("--ctx", type=int, default=DEFAULT_CTX)
     s.add_argument("--prefill-chunk", type=int, default=DEFAULT_CHUNK)
     s.add_argument("--max-queue", type=int, default=DEFAULT_QUEUE)
+    s.add_argument("--prefix-cache-mb", type=float,
+                   default=DEFAULT_PREFIX_CACHE_MB,
+                   help="shared-prefix cache capacity (0 turns it off)")
+    s.add_argument("--kv-blocks", type=int, default=0,
+                   help="paged KV pool of this many blocks (0: contiguous)")
+    s.add_argument("--kv-block-tokens", type=int,
+                   default=DEFAULT_KV_BLOCK_TOKENS,
+                   help="tokens per paged KV block")
     s.set_defaults(fn=cmd_serve)
     r = sub.add_parser("run", help="generate once from a chat prompt")
     _model_args(r)

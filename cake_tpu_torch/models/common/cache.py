@@ -95,9 +95,164 @@ def row_view(layers: list[dict], slot: int) -> list[dict]:
 
 
 def slot_reset_layers(layers: list[dict], slot: int) -> list[dict]:
-    """Clear pool row `slot` in place (positions -1, K/V zero)."""
+    """Clear pool row `slot` in place (positions -1, K/V zero). Empty
+    dicts (a paged pool's pooled positions in `rows`) are skipped."""
     for lc in layers:
+        if not lc:
+            continue
         lc["k"][slot].zero_()
         lc["v"][slot].zero_()
         lc["pos"][slot].fill_(-1)
     return layers
+
+
+# -- prefix blocks: copy out of a row and back --------------------------------
+
+
+def slot_extract_block_layers(cfg: ModelConfig, layers: list[dict], slot: int,
+                              start: int, width: int) -> list[dict]:
+    """Copy one prefix block (absolute positions start .. start+width-1) out
+    of pool row `slot` into batch-1 tensors: the shared-prefix cache's
+    insert path. Entries are read through the ring map (index = position %
+    buffer), valid while width <= the smallest window, which the prefix
+    cache gates at construction."""
+    out = []
+    for lc in layers:
+        size = lc["k"].shape[1]
+        idx = (start + torch.arange(width, device=lc["k"].device)) % size
+        out.append({name: lc[name][slot, idx][None] for name in
+                    ("k", "v", "pos")})
+    return out
+
+
+def slot_splice_block_layers(cfg: ModelConfig, layers: list[dict],
+                             src_layers: list[dict], slot: int,
+                             start: int) -> list[dict]:
+    """Write a cached prefix block (slot_extract_block_layers output, taken
+    at `start`) into pool row `slot` in place, without resetting the rest
+    of the row, so consecutive blocks of a matched chain merge. Entries
+    land where extract read them, at (start + i) % buffer. The row must
+    have been wiped at release; an entry the block holds as empty (pos -1)
+    stays empty there, which is what the reference's dropped write leaves
+    visible on a wiped row. Unlike the reference, the caller passes the
+    block's start, so no index depends on device data (no host sync)."""
+    for lc, sl in zip(layers, src_layers):
+        size = lc["k"].shape[1]
+        width = sl["pos"].shape[1]
+        idx = (start + torch.arange(width, device=lc["k"].device)) % size
+        for name in ("k", "v", "pos"):
+            lc[name][slot, idx] = sl[name][0]
+    return layers
+
+
+# -- paged KV: block-pool storage behind a per-slot block table --------------
+#
+# As in the reference (cache.py:328-440): full-attention KV lives in one
+# pool of fixed-size blocks per layer, and a slot addresses its logical row
+# through a [max_blocks] table whose entry j maps positions [j*bt,
+# (j+1)*bt) to a physical block. Sliding-window rings stay per-slot rows.
+#
+# Where the port differs: the pool has ONE EXTRA block, the sink, at index
+# num_blocks, which is also the NULL table id. It is never mapped and its
+# contents are never visible: writes of masked rows land there (in place of
+# JAX's `mode="drop"`), and gathers of unmapped entries read it and mask
+# it. Writes need no host sync that way.
+
+
+def init_paged_layers(cfg: ModelConfig, num_blocks: int, block_tokens: int,
+                      batch: int, ctx: int, dtype: torch.dtype = torch.bfloat16,
+                      device="cpu") -> tuple[list[dict], list[dict]]:
+    """(pool_layers, row_layers): pool_layers[i] holds full-attention layer
+    i's block pool ({k, v: [num_blocks + 1, bt, Hkv, D], pos: [num_blocks +
+    1, bt]}, the last block the sink) and an empty dict elsewhere;
+    row_layers[i] holds a sliding-window layer's per-slot ring and an empty
+    dict at pooled positions."""
+    pool, rows = [], []
+    shape = (num_blocks + 1, block_tokens, cfg.num_key_value_heads,
+             cfg.head_dim)
+    for i in range(cfg.num_hidden_layers):
+        spec = cfg.layer_spec(i)
+        if spec.window is not None:
+            pool.append({})
+            rows.append(init_layer_cache(cfg, spec, batch, ctx, dtype,
+                                         device))
+            continue
+        pool.append({
+            "k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.full(shape[:2], -1, dtype=torch.int32,
+                              device=device),
+        })
+        rows.append({})
+    return pool, rows
+
+
+def paged_gather_layer(pl: dict, table, frontier) -> dict:
+    """Materialize logical KV rows from a layer's block pool through block
+    tables. `table`: [M] (one row) or [B, M] physical ids, NULL (the sink)
+    = unmapped; `frontier`: a scalar, or [B] for a [B, M] table. Returns
+    {k, v: [..., M*bt, Hkv, D], pos: [..., M*bt]}, batch axis only when the
+    table has one.
+
+    Both of the reference's stale-tenant guards hold: an entry is real iff
+    its table entry is mapped, its position lies in that entry's own
+    logical range (pos // bt == j) and pos < frontier. Masked entries get
+    pos -1; their K/V bytes are finite and never weigh in."""
+    null, bt = pl["pos"].shape
+    null -= 1                                   # the sink's id
+    table = table.long()
+    m = table.shape[-1]
+    lead = table.shape[:-1]
+    k = pl["k"][table].reshape(*lead, m * bt, *pl["k"].shape[2:])
+    v = pl["v"][table].reshape(*lead, m * bt, *pl["v"].shape[2:])
+    pos = pl["pos"][table]                              # [..., M, bt]
+    blk = torch.arange(m, device=pos.device)[:, None]
+    front = (frontier if isinstance(frontier, int)
+             else torch.as_tensor(frontier, device=pos.device)[..., None, None])
+    own = (table < null)[..., None] & (torch.div(pos, bt, rounding_mode="floor")
+                                       == blk) & (pos < front)
+    pos = torch.where(own, pos, -1).reshape(*lead, m * bt)
+    return {"k": k, "v": v, "pos": pos}
+
+
+def paged_block_of(view_lc: dict, wb: int, bt: int) -> dict:
+    """Block `wb` of a gathered row view ({k, v: [bt, H, D], pos: [bt]}):
+    the write-back unit after a forward advanced the view."""
+    return {name: view_lc[name][wb * bt:(wb + 1) * bt]
+            for name in ("k", "v", "pos")}
+
+
+def paged_scatter_blocks(pl: dict, pids: torch.Tensor, blk: dict) -> dict:
+    """Write block contents back into a layer's pool at physical ids `pids`
+    ([n], leaves [n, bt, ...]), in place. NULL ids land on the sink (the
+    reference drops them); live ids are owned by their writer alone
+    (shared blocks are forked before any write), so the scatter is
+    injective over everything visible."""
+    idx = pids.long()
+    for name in ("k", "v", "pos"):
+        pl[name][idx] = blk[name]
+    return pl
+
+
+def paged_write_entry(pl: dict, tables: torch.Tensor, k_new: torch.Tensor,
+                      v_new: torch.Tensor, pos: torch.Tensor,
+                      write: torch.Tensor) -> dict:
+    """The batched decode step's write: row b's new entry (k_new/v_new
+    [B, 1, Hkv, D]) at position pos[b] goes to block tables[b, pos[b] //
+    bt], index pos[b] % bt, in place; rows with write[b] False go to the
+    sink. The reference writes back the whole block from its masked view
+    (stale entries past pos become -1 there); the visible contents are the
+    same, since an index of a block only ever holds positions congruent to
+    it mod bt, and every live one at or below the frontier was written."""
+    null, bt = pl["pos"].shape
+    null -= 1
+    m = tables.shape[1]
+    pos = pos.long()
+    j = torch.clamp(torch.div(pos, bt, rounding_mode="floor"), 0, m - 1)
+    pid = torch.gather(tables.long(), 1, j[:, None])[:, 0]
+    pid = torch.where(write.bool(), pid, null)
+    off = pos % bt
+    pl["k"][pid, off] = k_new[:, 0]
+    pl["v"][pid, off] = v_new[:, 0]
+    pl["pos"][pid, off] = pos.to(pl["pos"].dtype)
+    return pl

@@ -9,6 +9,10 @@ functions closed over the static ModelConfig/LayerSpec.
 Positions: `pos0` is a host int for prefill (one sequence), or a [B]
 tensor of per-row positions for the batched one-token decode step, where
 `valid_len` is then a [B] 0/1 tensor (a 0 row writes nothing).
+
+A layer cache is either a contiguous row cache {k, v, pos} or, in the
+paged decode step, a layer's block pool with the step's block tables
+{k, v, pos, tables} (see cache.init_paged_layers).
 """
 from __future__ import annotations
 
@@ -17,7 +21,8 @@ import torch
 from ...ops import (apply_rope, embedding, linear, make_attention_mask,
                     multi_head_attention, rms_norm, rope_tables, silu_mul)
 from ...ops import flash as flash_ops
-from .cache import update_kv_cache
+from ...ops import paged_attention as paged_ops
+from .cache import paged_write_entry, update_kv_cache
 from .config import LayerSpec, ModelConfig
 
 INIT_STD = 0.02
@@ -119,6 +124,17 @@ def attention_forward(cfg: ModelConfig, spec: LayerSpec, p: dict,
         update_kv_cache(layer_cache, k, v, pos0, valid_len)
         y = flash_ops.flash_attention(q, layer_cache["k"], layer_cache["v"],
                                       valid_len=valid_len, q_offset=pos0)
+    elif s == 1 and "tables" in layer_cache:
+        # paged decode: write the new entry into its block, then attend
+        # over the row's live blocks through the table (the kernel on the
+        # card)
+        write = (torch.ones(b, dtype=torch.bool, device=x.device)
+                 if valid_len is None else valid_len.bool())
+        paged_write_entry(layer_cache, layer_cache["tables"], k, v, pos0,
+                          write)
+        y = paged_ops.paged_decode_attention(
+            q.contiguous(), layer_cache["k"], layer_cache["v"], layer_cache["pos"],
+            layer_cache["tables"], pos0.to(torch.int32))
     elif s == 1:
         # decode: write the new entry first, then attend over the buffer
         # (for a ring, the overwritten slot is exactly the one the window

@@ -1,6 +1,8 @@
 """Decoder-only text model runtime (counterpart of
 cake_tpu/models/common/text_model.py: prefill, prefill_chunk,
-decode_slots, slot_release, generate).
+decode_slots, slot_release, slot_extract, slot_splice, the paged
+programs decode_slots_paged and prefill_chunk_paged, row_snapshot,
+row_install, row_reset, generate).
 
 PyTorch runs eagerly, so the reference's compiled programs become plain
 methods. Host-static decisions stay host-side and identical: the prompt
@@ -12,6 +14,14 @@ prefill chunk writes into a row view of it in place, and the batched
 decode step steps every row at once with per-row positions, per-row
 sampling parameters and an `active` mask (an inactive row writes nothing
 and keeps its carries).
+
+Paged KV (cache.init_paged_layers): full-attention KV lives in a block
+pool addressed through [B, M] block tables. The paged decode step writes
+each row's entry into its block and attends through the table (the
+paged decode kernel on the card). A paged prefill chunk gathers the
+slot's whole M x bt logical row, runs the unchanged prefill paths on it
+(so the masked short tail sees exactly the contiguous row's shapes), and
+scatters the blocks it touched back.
 """
 from __future__ import annotations
 
@@ -23,7 +33,10 @@ import torch
 
 from ...device import resolve_device
 from ...ops.sampling import SamplingConfig, push_recent_token, sample_traced
-from .cache import init_cache, kv_capacity, row_view, slot_reset_layers
+from .cache import (init_cache, init_paged_layers, kv_capacity,
+                    paged_gather_layer, paged_scatter_blocks, row_view,
+                    slot_extract_block_layers, slot_reset_layers,
+                    slot_splice_block_layers)
 from .config import ModelConfig
 from .layers import (embed_tokens, forward_layers, init_params,
                      lm_head_logits, make_rope)
@@ -159,6 +172,23 @@ class TextModel:
         packed = torch.stack([toks, nxt])
         return packed, nxt, pos + active.to(pos.dtype), recents
 
+    def decode_slots_paged(self, pool: list[dict], rows: list[dict],
+                           tables: torch.Tensor, toks: torch.Tensor,
+                           pos: torch.Tensor, recents: torch.Tensor,
+                           temps: torch.Tensor, top_ks: torch.Tensor,
+                           top_ps: torch.Tensor, penalties: torch.Tensor,
+                           active: torch.Tensor, generator=None):
+        """decode_slots over a paged pool: the same carries and contract,
+        but full-attention KV is read and written through `tables` ([B, M]
+        int32 block ids on the device; NULL = the pool's sink). Row b's
+        entry lands in block tables[b, pos[b] // bt]; an inactive row
+        writes the sink. `pool` and `rows` (cache.init_paged_layers) are
+        updated in place. Returns (packed [2, B], toks, pos, recents)."""
+        layers = [dict(pl, tables=tables) if pl else rl
+                  for pl, rl in zip(pool, rows)]
+        return self.decode_slots(layers, toks, pos, recents, temps, top_ks,
+                                 top_ps, penalties, active, generator)
+
     @torch.no_grad()
     def sample_one(self, logits: torch.Tensor, generator,
                    scfg: SamplingConfig, recent: torch.Tensor) -> torch.Tensor:
@@ -180,6 +210,89 @@ class TextModel:
     def slot_release(self, layers: list[dict], slot: int) -> list[dict]:
         """Clear pool row `slot` (positions -1, K/V zero) in place."""
         return slot_reset_layers(layers, slot)
+
+    # -- shared-prefix blocks ------------------------------------------------
+
+    @torch.no_grad()
+    def slot_extract(self, layers: list[dict], slot: int, start: int,
+                     width: int) -> list[dict]:
+        """Copy the prefix block [start, start+width) out of pool row
+        `slot` as batch-1 tensors (prefix-cache insert)."""
+        return slot_extract_block_layers(self.cfg, layers, slot, start,
+                                         width)
+
+    @torch.no_grad()
+    def slot_splice(self, layers: list[dict], src_layers: list[dict],
+                    slot: int, start: int) -> list[dict]:
+        """Write a cached prefix block taken at `start` into pool row
+        `slot` in place, without resetting the rest of the row (prefix-
+        cache hit)."""
+        return slot_splice_block_layers(self.cfg, layers, src_layers, slot,
+                                        start)
+
+    # -- paged KV ---------------------------------------------------------------
+
+    def new_paged(self, num_blocks: int, block_tokens: int, batch: int,
+                  ctx: int) -> tuple[list[dict], list[dict]]:
+        """(pool, rows) of a paged slot pool on the model's device."""
+        return init_paged_layers(self.cfg, num_blocks, block_tokens, batch,
+                                 ctx, self.dtype, self.device)
+
+    @torch.no_grad()
+    def prefill_chunk_paged(self, pool: list[dict], rows: list[dict],
+                            tables: torch.Tensor, slot: int, token_ids,
+                            pos0: int):
+        """prefill_chunk over a paged pool. The slot's whole logical row
+        (M x bt entries, the contiguous row's length) is gathered through
+        tables[slot] with frontier pos0, the chunk runs on that view
+        through the unchanged fresh / append / masked paths, and the
+        blocks it touched (pos0 // bt on: never a shared prefix block
+        below pos0) are scattered back. The caller must have mapped
+        them. Returns the chunk's last-position logits [1, V]."""
+        ids = list(token_ids)
+        table_row = tables[slot]
+        view = []
+        for pl, rl in zip(pool, rows):
+            if pl:
+                g = paged_gather_layer(pl, table_row, pos0)
+                view.append({name: t[None] for name, t in g.items()})
+            else:
+                view.append({name: buf[slot:slot + 1]
+                             for name, buf in rl.items()})
+        logits = self._prefill_into(view, ids, pos0)
+        bt = next(pl["pos"].shape[1] for pl in pool if pl)
+        b0 = pos0 // bt
+        last = (pos0 + max(len(ids), 1) - 1) // bt
+        pids = table_row[b0:last + 1]
+        for pl, vl in zip(pool, view):
+            if pl:
+                paged_scatter_blocks(pl, pids, {
+                    name: t[0, b0 * bt:(last + 1) * bt].reshape(
+                        -1, bt, *t.shape[2:])
+                    for name, t in vl.items()})
+        return logits
+
+    @torch.no_grad()
+    def row_snapshot(self, rows: list[dict], slot: int) -> list[dict]:
+        """Batch-1 copy of slot `slot`'s unpooled state (sliding-window
+        rings): what a paged swap carries beside its blocks."""
+        return [{name: buf[slot:slot + 1].clone() for name, buf in rl.items()}
+                for rl in rows]
+
+    @torch.no_grad()
+    def row_install(self, rows: list[dict], snap: list[dict],
+                    slot: int) -> list[dict]:
+        """Install a row_snapshot into slot `slot` in place."""
+        for rl, sn in zip(rows, snap):
+            for name, buf in rl.items():
+                buf[slot].copy_(sn[name][0])
+        return rows
+
+    @torch.no_grad()
+    def row_reset(self, rows: list[dict], slot: int) -> list[dict]:
+        """Clear slot `slot`'s unpooled state in place; pooled blocks need
+        no wipe (the gather's stale-tenant guards hide freed blocks)."""
+        return slot_reset_layers(rows, slot)
 
     # -- single-stream generation ------------------------------------------
 

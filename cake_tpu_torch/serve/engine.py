@@ -1,24 +1,36 @@
 """Continuous-batching serve engine (the core of
-cake_tpu/serve/engine.py: ServeEngine, ServeRequest, chunked admission).
+cake_tpu/serve/engine.py: ServeEngine, ServeRequest, chunked admission,
+the shared-prefix cache, paged KV and swap preemption).
 
-A bounded admission queue feeds one scheduler thread that owns a fixed
-pool of KV rows ("slots") and every device tensor. Each iteration:
+A bounded admission queue feeds one scheduler thread that owns the KV
+(a contiguous pool of rows, "slots", or a paged block pool behind
+per-slot tables) and every device tensor. Each iteration:
 
   1. sweeps cancelled requests (decoding, mid-prefill, queued);
-  2. moves queued requests into free slots as chunked admissions;
-  3. dispatches ONE batched decode step over the pool (rows whose prefill
+  2. resumes preempted requests first (oldest first), then moves queued
+     requests into free slots as chunked admissions, splicing any cached
+     shared prefix so only the suffix is prefilled;
+  3. picks the admission to advance (round-robin) and, in paged mode,
+     reserves its chunk's blocks and then every decoding slot's write
+     block, preempting a victim when the pool is exhausted. All of it
+     comes BEFORE the decode dispatch: a swap-out after the dispatch would
+     capture carries holding a sampled token the host never fanned out;
+  4. dispatches ONE batched decode step over the pool (rows whose prefill
      has completed are `active`; the others ride along frozen);
-  4. advances ONE in-flight admission by one chunk (round-robin), so a
-     long prompt delays running decodes by a chunk, never by the prompt;
-  5. fetches the step's packed token ids in one device-to-host copy and
+  5. advances the chosen admission by one chunk, capturing every prefix
+     block the chunk completed;
+  6. fetches the step's packed token ids in one device-to-host copy and
      fans them out to the request streams.
 
 Every torch call happens on the scheduler thread, so the device state
 needs no lock; client threads only touch thread-safe queues and events.
-Left out of this port so far (see ROADMAP.md): prefix cache, paged KV,
-speculative decoding, preemption, the crash-recovery supervisor, QoS
-lanes, deadlines and the metrics plane. A failure on the scheduler thread
-fails every request and marks the engine dead.
+The port has one engine-wide `torch.Generator` and no per-slot RNG carry,
+so a swapped request resumes bit-identically for greedy streams only.
+Left out of this port so far (see ROADMAP.md): recompute preemption (it
+needs the crash-recovery supervisor's replay), speculative decoding, the
+supervisor itself, QoS lanes and victim classes, deadlines, the fleet KV
+tier and the metrics plane. A failure on the scheduler thread fails every
+request and marks the engine dead.
 """
 from __future__ import annotations
 
@@ -32,6 +44,9 @@ import uuid
 import torch
 
 from ..ops.sampling import SamplingConfig
+from .paged.pool import KVPoolExhausted, PagedKV
+from .paged.preempt import PreemptedSlot, choose_victim, victim_rank
+from .prefix_cache import PagedPrefixCache, PrefixCache
 
 log = logging.getLogger("cake_tpu_torch.serve")
 
@@ -40,6 +55,8 @@ DEFAULT_SLOTS = 4
 DEFAULT_CTX = 4096
 DEFAULT_CHUNK = 256
 DEFAULT_QUEUE = 64
+DEFAULT_PREFIX_CACHE_MB = 256.0     # the reference's CAKE_PREFIX_CACHE_MB
+DEFAULT_KV_BLOCK_TOKENS = 16        # the reference's CAKE_KV_BLOCK_TOKENS
 
 
 class QueueFull(RuntimeError):
@@ -138,7 +155,8 @@ class AdmissionQueue:
 class _Prefill:
     """Scheduler-private state of one in-flight chunked admission."""
 
-    __slots__ = ("req", "slot", "ids", "n", "pos", "chunks")
+    __slots__ = ("req", "slot", "ids", "n", "pos", "chunks", "keys",
+                 "next_block", "hit_tokens")
 
     def __init__(self, req: "ServeRequest", slot: int):
         self.req = req
@@ -147,6 +165,9 @@ class _Prefill:
         self.n = len(self.ids)
         self.pos = 0
         self.chunks = 0
+        self.keys: list[bytes] = []     # prefix-cache chain keys
+        self.next_block = 0             # next prefix block to capture
+        self.hit_tokens = 0             # prompt tokens spliced from cache
 
 
 class ServeRequest:
@@ -197,18 +218,37 @@ class ServeEngine:
     def __init__(self, model, slots: int = DEFAULT_SLOTS,
                  max_queue: int = DEFAULT_QUEUE,
                  ctx_len: int | None = DEFAULT_CTX, seed: int = 0,
-                 prefill_chunk: int = DEFAULT_CHUNK):
+                 prefill_chunk: int = DEFAULT_CHUNK,
+                 prefix_cache_mb: float = DEFAULT_PREFIX_CACHE_MB,
+                 kv_blocks: int = 0,
+                 kv_block_tokens: int = DEFAULT_KV_BLOCK_TOKENS,
+                 preempt_mode: str = "swap"):
+        """kv_blocks > 0 replaces the contiguous pool (slots x ctx rows)
+        with a shared pool of that many blocks of kv_block_tokens tokens;
+        prefix_cache_mb <= 0 turns the shared-prefix cache off. The one
+        preemption mode is "swap"."""
+        if preempt_mode != "swap":
+            raise ValueError(
+                f"preempt_mode must be 'swap', got {preempt_mode!r} "
+                "(recompute preemption needs the crash-recovery "
+                "supervisor's replay, which is not ported yet)")
         self.model = model
         self.slots = slots
         self.ctx = min(ctx_len or DEFAULT_CTX, model.max_cache_len)
         self.chunk = _pow2_chunk(prefill_chunk, self.ctx)
+        self.kv_blocks = max(int(kv_blocks), 0)
+        self.kv_block_tokens = kv_block_tokens
+        self.preempt_mode = preempt_mode
         self.pool = SlotPool(slots)
         self.queue = AdmissionQueue(max_queue)
         self._seed = seed
         self._vocab = model.cfg.vocab_size
+        self.paged: PagedKV | None = None
         self._init_device_state()
+        self.prefix_cache = self._build_prefix_cache(prefix_cache_mb)
         self._reqs: list[ServeRequest | None] = [None] * slots
         self._prefills: list[_Prefill] = []
+        self._preempted: list[PreemptedSlot] = []
         self._rr = 0
         self._draining = threading.Event()
         self._wake = threading.Event()
@@ -221,12 +261,19 @@ class ServeEngine:
         self._thread.start()
 
     def _init_device_state(self):
-        """The KV pool and every per-slot carry live on the model's device
-        and advance inside the batched decode step; the host writes them
-        only at admission and release."""
+        """The KV (contiguous rows, or a PagedKV) and every per-slot carry
+        live on the model's device and advance inside the batched decode
+        step; the host writes them only at admission, preemption and
+        release."""
         dev = self.model.device
         n = self.slots
-        self._layers = self.model.new_cache(n, kv_len=self.ctx)["layers"]
+        if self.kv_blocks > 0:
+            self.paged = PagedKV.build(self.model, n, self.ctx,
+                                       self.kv_blocks, self.kv_block_tokens,
+                                       self.chunk)
+            self._layers = None
+        else:
+            self._layers = self.model.new_cache(n, kv_len=self.ctx)["layers"]
         self._toks = torch.zeros(n, dtype=torch.int32, device=dev)
         self._pos = torch.zeros(n, dtype=torch.int32, device=dev)
         self._temps = torch.zeros(n, dtype=torch.float32, device=dev)
@@ -238,6 +285,19 @@ class ServeEngine:
                                    device=dev)
         self._act = torch.zeros(n, dtype=torch.bool, device=dev)
         self._gen = torch.Generator(device=dev).manual_seed(self._seed)
+
+    def _build_prefix_cache(self, capacity_mb: float):
+        """Mode-matched prefix cache: the paged one pins pool blocks by
+        refcount (a hit is a table remap, no KV copy) and is the
+        allocator's under-pressure evictor; the contiguous one keeps
+        private block copies."""
+        if self.paged is not None:
+            pc = PagedPrefixCache.build_paged(self.model, self.paged,
+                                              self.chunk, capacity_mb)
+            self.paged.evictor = pc.evict_for_pressure if pc else None
+            return pc
+        return PrefixCache.build(self.model, self.ctx, self.chunk,
+                                 capacity_mb)
 
     # -- client surface (any thread) ----------------------------------------
 
@@ -257,6 +317,11 @@ class ServeEngine:
         if n > self.ctx - 2:
             raise ValueError(f"prompt length {n} exceeds the serve context "
                              f"({self.ctx} tokens per slot)")
+        paged = self.paged
+        if paged is not None and paged.blocks_for(n + 1) > paged.num_blocks:
+            raise ValueError(f"prompt needs {paged.blocks_for(n + 1)} KV "
+                             f"blocks but the pool holds {paged.num_blocks} "
+                             f"(kv_blocks x kv_block_tokens tokens in all)")
         req = ServeRequest(prompt_ids, max_new_tokens, sampling, request_id)
         req._engine = self
         # free slots extend the bound: a burst that fits the idle pool is
@@ -281,7 +346,7 @@ class ServeEngine:
             raise req.result["error"]
 
     def health(self) -> dict:
-        return {
+        h = {
             "alive": self.dead is None and self._thread.is_alive(),
             "slots": self.slots,
             "slots_busy": self.pool.busy_count,
@@ -293,6 +358,23 @@ class ServeEngine:
             "steps": self.steps,
             "last_step_age_s": round(time.perf_counter() - self.last_step, 3),
         }
+        pc = self.prefix_cache
+        if pc is not None:
+            h["prefix_cache"] = pc.occupancy()
+        paged = self.paged
+        if paged is not None:
+            live = {}
+            for i in self.pool.busy():
+                req = self._reqs[i]
+                if req is not None:
+                    live[i] = len(req.prompt_ids) \
+                        + max(len(req.tokens) - 1, 0)
+            h["kv_pool"] = {**paged.occupancy(live),
+                            "preempted_slots": len(self._preempted)}
+            if pc is not None:
+                h["kv_pool"]["prefix_entries"] = len(pc._blocks)
+                h["kv_pool"]["prefix_pinned_blocks"] = pc.pinned
+        return h
 
     def begin_drain(self) -> None:
         self._draining.set()
@@ -303,7 +385,7 @@ class ServeEngine:
         finish. True when the engine went idle within the timeout."""
         self.begin_drain()
         deadline = None if timeout is None else time.perf_counter() + timeout
-        while self.pool.busy_count or self.queue.depth():
+        while self.pool.busy_count or self.queue.depth() or self._preempted:
             if self.dead is not None or not self._thread.is_alive():
                 return False
             if deadline is not None and time.perf_counter() >= deadline:
@@ -321,11 +403,15 @@ class ServeEngine:
             # still inside a device call: release the waiters, touch no
             # scheduler state
             self.dead = self.dead or RuntimeError("shutdown timed out")
-            for req in list(self._reqs):
+            for req in list(self._reqs) + [e.req for e in
+                                           list(self._preempted)]:
                 if req is not None:
                     self._fail(req, EngineDown("serve engine shut down"))
             return
         self._prefills.clear()
+        while self._preempted:
+            self._fail(self._preempted.pop(0).req,
+                       EngineDown("serve engine shut down"))
         for i, req in enumerate(self._reqs):
             if req is not None:
                 self._finish(i, req, cancelled=True)
@@ -353,6 +439,8 @@ class ServeEngine:
         self._prefills.clear()
         for req in self.queue.drain():
             self._fail(req, e)
+        while self._preempted:
+            self._fail(self._preempted.pop(0).req, e)
         for i, req in enumerate(self._reqs):
             if req is not None:
                 req.result.setdefault("error", e)
@@ -360,7 +448,7 @@ class ServeEngine:
 
     def _step(self) -> bool:
         busy = self.pool.busy()
-        if not (busy or self.queue.depth()):
+        if not (busy or self.queue.depth() or self._preempted):
             return False
         # 1. cancel sweeps
         prefilling = {p.slot for p in self._prefills}
@@ -371,32 +459,58 @@ class ServeEngine:
                 self._finish(i, req, cancelled=True)
         for pf in [p for p in self._prefills if p.req.cancelled.is_set()]:
             self._abort_prefill(pf, None)
+        for entry in [e for e in self._preempted
+                      if e.req.cancelled.is_set()]:
+            self._preempted.remove(entry)
+            self._fail(entry.req, None)
         for req in self.queue.purge(lambda r: r.cancelled.is_set()):
             self._fail(req, None)
-        # 2. admissions take free slots (cheap: the prefill is chunked)
+        # 2. preempted requests resume first (their clients are mid-
+        # stream), then admissions take free slots (cheap: at most a
+        # prefix splice; the prefill itself is chunked)
+        if self._preempted:
+            self._resume_preempted()
         while self.pool.free_count > 0 and self._start_admission():
             pass
         if not (self.pool.busy_count or self.queue.depth()):
-            return True
-        # 3. one batched decode step over the pool
+            # only parked entries that cannot resume yet: report idle so
+            # the loop waits (its 0.5 s heartbeat retries the resume)
+            return False
+        # 3. choose the admission to advance and, in paged mode, reserve
+        # its chunk's blocks and then the decoding slots' write blocks,
+        # all BEFORE the decode dispatch (see the module docstring)
         pf_job = (self._prefills[self._rr % len(self._prefills)]
                   if self._prefills else None)
+        if pf_job is not None and self.paged is not None:
+            pf_job = self._prepare_prefill(pf_job)
         prefilling = {p.slot for p in self._prefills}
         active = [i for i in self.pool.busy()
                   if self._reqs[i] is not None and i not in prefilling]
+        if self.paged is not None and active:
+            active = self._ensure_decode_blocks(active)
+        # 4. one batched decode step over the pool
         packed = None
         if active:
-            (packed, self._toks, self._pos,
-             self._recents) = self.model.decode_slots(
-                self._layers, self._toks, self._pos, self._recents,
-                self._temps, self._top_ks, self._top_ps, self._pens,
-                self._act, self._gen)
-        # 4. advance the chosen admission by one chunk, queued on the
-        # device behind the decode step
-        if pf_job is not None:
+            if self.paged is not None:
+                (packed, self._toks, self._pos,
+                 self._recents) = self.model.decode_slots_paged(
+                    self.paged.pool, self.paged.rows, self.paged.tables,
+                    self._toks, self._pos, self._recents, self._temps,
+                    self._top_ks, self._top_ps, self._pens, self._act,
+                    self._gen)
+            else:
+                (packed, self._toks, self._pos,
+                 self._recents) = self.model.decode_slots(
+                    self._layers, self._toks, self._pos, self._recents,
+                    self._temps, self._top_ks, self._top_ps, self._pens,
+                    self._act, self._gen)
+        # 5. advance the chosen admission by one chunk, queued on the
+        # device behind the decode step (a preemption in 3 may have
+        # requeued it since)
+        if pf_job is not None and pf_job in self._prefills:
             idx = self._prefills.index(pf_job)
             self._rr = idx + 1 if self._advance_prefill(pf_job) else idx
-        # 5. one fetch per iteration, then fan out
+        # 6. one fetch per iteration, then fan out
         if packed is not None:
             self._fanout(active, packed.cpu().numpy())
         return True
@@ -416,16 +530,36 @@ class ServeEngine:
         req.slot = slot
         req.admitted.set()
         req.stats = {"queue_wait_s": time.perf_counter() - req.t_enqueue}
-        self._prefills.append(_Prefill(req, slot))
+        self._begin_prefill(_Prefill(req, slot))
         return True
 
+    def _begin_prefill(self, pf: _Prefill) -> None:
+        """Splice any cached shared prefix into the slot, then put the
+        admission in flight."""
+        pc = self.prefix_cache
+        if pc is not None:
+            pf.keys = pc.chain_keys(pf.ids)
+            matched = pc.match(pf.ids, pf.keys)
+            if matched:
+                self._layers = pc.splice(self._layers, pf.slot, pf.keys,
+                                         matched)
+                pf.next_block = matched
+                pf.pos = pf.hit_tokens = matched * self.chunk
+        self._prefills.append(pf)
+
     def _advance_prefill(self, pf: _Prefill) -> bool:
-        """Prefill one chunk into the slot's row; on the last chunk sample
-        the first token and activate the slot. True while in flight."""
+        """Prefill one chunk into the slot's row (or its blocks), capture
+        every prefix block the chunk completed, and on the last chunk
+        sample the first token and activate the slot. True while in
+        flight."""
         take = min(self.chunk, pf.n - pf.pos)
+        ids = pf.ids[pf.pos:pf.pos + take]
         try:
-            logits, self._layers = self.model.prefill_chunk(
-                self._layers, pf.slot, pf.ids[pf.pos:pf.pos + take], pf.pos)
+            if self.paged is not None:
+                logits = self.paged.prefill_into(pf.slot, ids, pf.pos)
+            else:
+                logits, self._layers = self.model.prefill_chunk(
+                    self._layers, pf.slot, ids, pf.pos)
         except ValueError as e:
             # a request-scoped refusal (bounds): the admission dies alone.
             # Anything else may have poisoned the pool and goes on up,
@@ -434,10 +568,23 @@ class ServeEngine:
             return False
         pf.pos += take
         pf.chunks += 1
+        self._capture_blocks(pf)
         if pf.pos >= pf.n:
             self._complete_prefill(pf, logits)
             return False
         return True
+
+    def _capture_blocks(self, pf: _Prefill) -> None:
+        """Insert every prefix block the chunk that just landed completed,
+        at the boundary where the row holds exactly that prefix. The block
+        holding the final prompt token is never cached (its logits must be
+        computed live), hence the n-1 cap."""
+        pc = self.prefix_cache
+        if pc is None:
+            return
+        while (pf.next_block + 1) * self.chunk <= min(pf.pos, pf.n - 1):
+            pc.insert(self._layers, pf.slot, pf.ids, pf.next_block, pf.keys)
+            pf.next_block += 1
 
     def _complete_prefill(self, pf: _Prefill, logits):
         """Sample the first token (it stays on the device and rides the
@@ -456,6 +603,7 @@ class ServeEngine:
         req.budget = min(req.max_new_tokens - 1, self.ctx - pf.n - 1)
         req._first_pending = True
         req.stats["prefill_chunks"] = pf.chunks
+        req.stats["prefix_hit_tokens"] = pf.hit_tokens
 
     def _set_slot_sampling(self, slot: int, scfg: SamplingConfig):
         self._temps[slot] = scfg.temperature
@@ -471,7 +619,158 @@ class ServeEngine:
         self._release_row(pf.slot)
 
     def _release_row(self, slot: int):
-        self._layers = self.model.slot_release(self._layers, slot)
+        """Contiguous: wipe the pool row. Paged: deref the slot's blocks
+        (shared ones survive under the prefix cache or other slots)."""
+        if self.paged is not None:
+            self.paged.release_slot(slot)
+        else:
+            self._layers = self.model.slot_release(self._layers, slot)
+
+    # -- paged-pool pressure: reserve / preempt / resume --------------------
+
+    @staticmethod
+    def _frontier(req: ServeRequest) -> int:
+        """Tokens in a decoding request's KV at the start of an iteration
+        (also its next write position): the prompt and every emitted
+        token but the last, whose entry the next decode step writes."""
+        return len(req.prompt_ids) + max(len(req.tokens) - 1, 0)
+
+    def _prepare_prefill(self, pf: _Prefill) -> _Prefill | None:
+        """Reserve the blocks pf's next chunk writes. None when the
+        admission was failed: with every other occupant preempted or
+        requeued the pool still cannot hold the chunk."""
+        take = min(self.chunk, pf.n - pf.pos)
+        if self._reserve_blocks(pf.slot, pf.pos, take):
+            return pf
+        self._abort_prefill(pf, KVPoolExhausted(
+            f"KV pool exhausted admitting {pf.req.id}: the prompt needs "
+            "more blocks than the pool can ever free"))
+        return None
+
+    def _reserve_blocks(self, slot: int, pos0: int, n: int) -> bool:
+        """Back positions [pos0, pos0 + n) of `slot` with blocks, evicting
+        prefix-cache LRU (inside the pool) and then preempting victims
+        until it fits. False = nothing left to reclaim."""
+        while not self.paged.reserve_range(slot, pos0, n):
+            if not self._preempt_one(exclude=slot):
+                return False
+        return True
+
+    def _ensure_decode_blocks(self, active: list[int]) -> list[int]:
+        """Back every decoding slot's write block before the dispatch.
+        Exhaustion evicts prefix-cache LRU, then preempts a victim; a slot
+        that cannot grow with nothing left to reclaim fails typed. Returns
+        the surviving active list."""
+        for i in active:
+            req = self._reqs[i]
+            if req is None:
+                continue        # preempted by an earlier slot's ensure
+            wp = self._frontier(req)
+            if not self._reserve_blocks(i, wp, 1):
+                req.result["error"] = KVPoolExhausted(
+                    f"KV pool exhausted: request {req.id} cannot grow "
+                    f"past {wp} tokens and nothing is left to reclaim")
+                self._finish(i, req, cancelled=True)
+        return [i for i in active if self._reqs[i] is not None]
+
+    def _preempt_one(self, exclude: int) -> bool:
+        """Free blocks: preempt a decoding victim (the latest admission,
+        victim_rank), else send another in-flight admission back for a
+        clean restart (it has emitted nothing). False = nothing left."""
+        prefilling = {p.slot for p in self._prefills}
+        cands = [(i, self._reqs[i]) for i in self.pool.busy()
+                 if i not in prefilling]
+        victim = choose_victim(cands, exclude=exclude)
+        if victim is not None:
+            self._preempt_slot(*victim)
+            return True
+        others = [p for p in self._prefills if p.slot != exclude]
+        if others:
+            self._requeue_admission(max(others,
+                                        key=lambda p: victim_rank(p.req)))
+            return True
+        return False
+
+    def _preempt_slot(self, slot: int, req: ServeRequest):
+        """Swap one decoding slot out: its blocks and carries go to host
+        memory and its blocks are freed. Runs before the iteration's
+        decode dispatch, so the carries hold no unfetched token, and an
+        unfetched first token (`_first_pending`) rides `toks` back in."""
+        wp = self._frontier(req)
+        blob = self.paged.swap_out(slot,
+                                   (self._toks, self._pos, self._recents))
+        self.pool.free(slot)
+        self._reqs[slot] = None
+        req.slot = None
+        self._act[slot] = False
+        self._toks[slot] = 0
+        self._pos[slot] = 0
+        self._preempted.append(PreemptedSlot(req, "swap", wp, blob))
+        log.warning("preempted slot %d (swap, %d tokens): KV pool "
+                    "exhausted", slot, wp)
+
+    def _requeue_admission(self, pf: _Prefill):
+        """Send a mid-prefill admission back to readmission to free its
+        blocks (a clean restart, ahead of every queued request). Its
+        resume gate is the whole prompt's blocks."""
+        self._prefills.remove(pf)
+        self.paged.release_slot(pf.slot)
+        self.pool.free(pf.slot)
+        self._reqs[pf.slot] = None
+        pf.req.slot = None
+        self._preempted.append(PreemptedSlot(pf.req, "requeue",
+                                             max(pf.n - 1, 0)))
+        log.warning("readmitting request %s: KV pool exhausted "
+                    "mid-prefill", pf.req.id)
+
+    def _resume_preempted(self):
+        """Oldest-first resume: a swap entry gets fresh blocks and its
+        bytes and carries back; a requeued admission restarts its prefill
+        once its whole prompt's blocks are free. Stops at the first entry
+        that does not fit yet (strict FIFO: a big parked request is not
+        starved by smaller ones behind it)."""
+        while self._preempted and self.pool.free_count > 0:
+            entry = self._preempted[0]
+            req = entry.req
+            if entry.mode == "swap":
+                slot = self.pool.alloc()
+                if not self.paged.swap_in(slot, entry.blob):
+                    self.pool.free(slot)
+                    self._fail_unresumable(entry)
+                    return
+                self._preempted.pop(0)
+                toks, pos, recents = entry.blob["carries"]
+                self._toks[slot] = int(toks)
+                self._pos[slot] = int(pos)
+                self._recents[slot] = recents.to(self._recents.device)
+                self._set_slot_sampling(slot, req.sampling)
+                self._act[slot] = True
+                self._reqs[slot] = req
+                req.slot = slot
+            else:
+                if not self.paged.ensure_free(
+                        self.paged.blocks_for(entry.tokens_at_preempt + 1)):
+                    self._fail_unresumable(entry)
+                    return
+                slot = self.pool.alloc()
+                self._preempted.pop(0)
+                self._reqs[slot] = req
+                req.slot = slot
+                self._begin_prefill(_Prefill(req, slot))
+            log.warning("resumed preempted request %s into slot %d (%s)",
+                        req.id, slot, entry.mode)
+
+    def _fail_unresumable(self, entry: PreemptedSlot):
+        """A parked entry whose resume gate failed waits while live work
+        still holds blocks. With nothing running and the cache drained by
+        the gate, no block can ever free, so it fails typed instead of
+        hanging its client."""
+        if self.pool.busy_count or self.queue.depth():
+            return
+        self._preempted.remove(entry)
+        self._fail(entry.req, KVPoolExhausted(
+            f"KV pool exhausted: preempted request {entry.req.id} needs "
+            "more blocks than the pool can ever free"))
 
     # -- batched decode fan-out ---------------------------------------------
 

@@ -1,0 +1,57 @@
+"""Preemption policy and parked-request state for the paged serve engine
+(the port's own copy of cake_tpu/serve/paged/preempt.py).
+
+When the block pool is exhausted, a victim slot is evicted to make room.
+The port has one preemption mode so far, "swap": the slot's blocks and its
+decode carries are copied to host memory and its blocks freed; resume
+writes the same bytes into fresh blocks. An admission that is still
+prefilling is requeued instead ("requeue": it has emitted nothing, so it
+restarts cleanly). The reference's "recompute" mode needs its supervisor's
+rebuild-by-replay, which the port does not have yet.
+
+The port has one QoS class, so the victim is the latest admission (LIFO,
+the vLLM rule: the request that has consumed the least scheduler work is
+the cheapest to redo, and the oldest can never be starved by newcomers).
+`victim_rank` keeps the reference's (class, t_enqueue) shape so that QoS
+classes can plug in later. Parked requests resume oldest-first, before
+any new admission, as soon as a slot and enough blocks are free.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+__all__ = ["PreemptedSlot", "choose_victim", "victim_rank"]
+
+
+@dataclass
+class PreemptedSlot:
+    req: object                       # ServeRequest
+    mode: str                         # "swap" | "requeue"
+    tokens_at_preempt: int            # frontier tokens (resume gating)
+    blob: dict | None = None          # swap payload (None for requeue)
+
+
+def class_priority(req) -> int:
+    """QoS priority of a request: the port has one class, so every request
+    ranks the same (the reference reads admission.classes here)."""
+    return 0
+
+
+def victim_rank(req) -> tuple:
+    """Sort key under which the MAX element is the preferred victim:
+    lowest class first (negated priority), latest admission within a
+    class (LIFO). Shared by slot victim choice and the mid-prefill requeue
+    pick so the two paths cannot rank differently."""
+    return (-class_priority(req), getattr(req, "t_enqueue", 0.0))
+
+
+def choose_victim(candidates: list[tuple[int, object]],
+                  exclude: int | None = None) -> tuple[int, object] | None:
+    """(slot, req) to preempt from `candidates` [(slot, req)], or None.
+    `exclude` protects the slot whose allocation triggered the preemption
+    (a slot cannot make room by evicting itself)."""
+    pool = [(s, r) for s, r in candidates
+            if s != exclude and r is not None]
+    if not pool:
+        return None
+    return max(pool, key=lambda sr: victim_rank(sr[1]))

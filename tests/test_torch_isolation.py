@@ -1,6 +1,7 @@
 """The port stands alone: with `jax` and `cake_tpu` blocked, every module
-of cake_tpu_torch and chip_smoke.py imports and a tiny CPU chat is served;
-an AST scan finds no import of either in the port's sources."""
+of cake_tpu_torch and chip_smoke.py imports and a tiny CPU chat is served
+by a contiguous engine and by a paged one; an AST scan finds no import of
+either in the port's sources."""
 import ast
 import pathlib
 import subprocess
@@ -37,16 +38,17 @@ from cake_tpu_torch.tokenizer import ByteTokenizer
 cfg = tiny_config("qwen3", vocab_size=258, max_position_embeddings=256)
 tok = ByteTokenizer(256, 257)
 model = TextModel(cfg, tokenizer=tok, dtype=torch.float32, device="cpu")
-app = create_app(model, ServeEngine(model, slots=2, ctx_len=256), tok,
-                 port=0).start()
 body = {"messages": [{"role": "user", "content": "hi"}],
         "temperature": 0, "max_tokens": 4}
-req = urllib.request.Request(app.url + "/v1/chat/completions",
-                             data=json.dumps(body).encode())
-with urllib.request.urlopen(req, timeout=60) as r:
-    resp = json.loads(r.read())
-app.stop()
-assert resp["usage"]["completion_tokens"] > 0, resp
+for kw in ({}, {"kv_blocks": 32}):
+    app = create_app(model, ServeEngine(model, slots=2, ctx_len=256, **kw),
+                     tok, port=0).start()
+    req = urllib.request.Request(app.url + "/v1/chat/completions",
+                                 data=json.dumps(body).encode())
+    with urllib.request.urlopen(req, timeout=60) as r:
+        resp = json.loads(r.read())
+    app.stop()
+    assert resp["usage"]["completion_tokens"] > 0, resp
 leaked = [m for m in sys.modules
           if m == "jax" or m.startswith(("jax.", "cake_tpu."))]
 assert not leaked, leaked
