@@ -13,7 +13,9 @@ are scattered over the pool as after real churn. Options:
     holds a previous tenant's positions past the frontier in its own
     range: both must stay invisible;
   * shared: row 1 maps row 0's first block at its own entry 0 (a prefix
-    block shared by refcount).
+    block shared by refcount);
+  * scatter=False: blocks handed out in table order instead, each row's
+    blocks adjacent in the pool (a layout to time against, not a case).
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ import torch
 def paged_case(frontiers: list[int], dtype=torch.float32, device="cpu",
                bt: int = 16, hq: int = 16, hkv: int = 8, d: int = 128,
                ctx: int = 4096, null_rows: int = 0, stale: bool = False,
-               shared: bool = False, seed: int = 0) -> dict:
+               shared: bool = False, seed: int = 0,
+               scatter: bool = True) -> dict:
     """{q, k, v, pos, tables, frontier} on `device`, plus `visible_rows`
     (the rows with at least one visible key) and `null` (the sink's id).
     Random values are drawn in float32 on the CPU, so one seed gives the
@@ -32,7 +35,8 @@ def paged_case(frontiers: list[int], dtype=torch.float32, device="cpu",
     m = ctx // bt
     b = len(frontiers) + null_rows
     nb = sum(p // bt + 1 for p in frontiers) + 1
-    perm = iter(torch.randperm(nb, generator=gen).tolist())
+    perm = iter(torch.randperm(nb, generator=gen).tolist() if scatter
+                else range(nb))
     tables = torch.full((b, m), nb, dtype=torch.int32)
     pos = torch.full((nb + 1, bt), -1, dtype=torch.int32)
     ar = torch.arange(bt, dtype=torch.int32)
@@ -69,7 +73,9 @@ def case_args(case: dict) -> tuple:
 
 # (name, paged_case kwargs) of the kernel checks on the card: bt 16 and
 # 64, D 128 and 64, ragged frontiers in one batch with an all-NULL row,
-# stale tenants, a shared block
+# stale tenants, a shared block; and frontiers whose live block counts are
+# 1, C - 1, C, C + 1 and 2C + 1 for the kernel's cluster of C = 8 ranks
+# (each rank walks every C-th block), at bt 16 and 64
 CARD_CASES = [
     ("ragged_bt16", dict(frontiers=[1, 15, 16, 620, 4000], null_rows=1)),
     ("ragged_bt64", dict(frontiers=[1, 15, 16, 620, 4000], bt=64,
@@ -81,4 +87,7 @@ CARD_CASES = [
     ("stale_shared_bt64_d64", dict(frontiers=[200, 620, 4000], bt=64, d=64,
                                    stale=True, shared=True)),
     ("mha_d64", dict(frontiers=[33, 620], hq=8, hkv=8, d=64)),
+    ("cluster_edges_bt16", dict(frontiers=[5, 100, 127, 128, 270])),
+    ("cluster_edges_bt64", dict(frontiers=[63, 400, 511, 512, 1060],
+                                bt=64)),
 ]

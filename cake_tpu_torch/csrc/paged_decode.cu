@@ -14,377 +14,558 @@
 //   with no visible key is don't-care (written as zeros).
 //
 // What bounds it on an H100: bytes. A decode row reads every live K/V
-// entry once for one query (about one FLOP per byte against the card's
-// ~295 bf16 FLOPs per byte), so the least time is the live K/V bytes over
-// 3.35 TB/s. The design spends no tensor cores (one query row per head)
-// and aims at the memory system:
-//   * it reads only live blocks: each CTA loads its own table entries and
-//     stops at p, never touching NULL entries or blocks past p // bt, so
-//     the 4096-row logical row of the gather costs nothing beyond p;
-//   * it keeps few latencies in series: a CTA resolves all its table
-//     entries in one parallel step, then puts every one of its K/V tiles
-//     in flight at once (16-byte cp.async copies into shared memory, one
-//     copy group per tile; NULL entries are zero-filled, not read) while
-//     it loads the keys' positions, and scores tile 0 while tile 1 lands;
-//   * the key range is split across CTAs in fixed pieces of NTILE tiles
-//     (128 keys in bf16, 64 in float32), so a 4-row decode batch fills the
-//     132 SMs (B x Hkv is only 32); a second small kernel merges the
-//     pieces' (max, sum, accumulator). The split and the merge order
-//     depend only on the row's own p, never on B or the other rows, so a
-//     row's result is the same alone or in company and before or after a
-//     swap to other physical blocks.
-// Grid (splits, Hkv, B), 128 threads. One CTA serves the G = Hq / Hkv
-// query heads that share its KV head, so each K/V byte is read once.
+// entry once for one query per head, about one FLOP per byte against the
+// card's ~295 bf16 FLOPs per byte, so the least time is the live K/V bytes
+// over 3.35 TB/s. No tensor cores: with one query row per head a wgmma
+// tile would be 1/64 full and buy nothing the FMA pipes lack. The design
+// aims at keeping the memory system busy from one launch:
+//  a. One launch, a thread-block cluster per (row, KV head). Grid
+//     (C, Hkv, B), clusters of C CTAs along x (C = 8, the portable size).
+//     CTA rank r walks the row's live page blocks j = r, r + C, r + 2C, ...
+//     (j < ceil((p + 1) / bt)) in ascending order with one online softmax
+//     state per query head. At the end every rank pushes its (max, sum,
+//     accumulator) into rank 0's shared memory (distributed shared memory)
+//     and rank 0 merges them in rank order 0..C-1 and writes o. No partial
+//     buffer in device memory, no second kernel, no atomic, no counter:
+//     nothing survives a launch, so the launch can go into a CUDA graph.
+//     Which keys a rank takes and the order of every sum depend only on
+//     the row's own p, on bt and on C: a row's result is bit-identical
+//     alone or in a batch, after its blocks move to other physical ids,
+//     and from run to run.
+//  b. A ring of page blocks fed by TMA. The K and V pools are 2-D tensor
+//     maps [(NB + 1) * bt, Hkv * D]; one block of one KV head is one box
+//     of bt rows x D columns, its bt positions one plain bulk copy. One
+//     producer warp resolves the rank's table entries 32 at a time, ahead
+//     of use, and keeps up to S blocks in flight (an mbarrier per stage,
+//     completed by the copies' bytes) while the consumer warps compute.
+//     Unmapped or NULL entries are never loaded: the producer flags the
+//     stage empty and the consumers skip it.
+//  c. Warps over keys, lanes over channels. Each lane owns 16 contiguous
+//     bytes of a key row (8 bf16 or 4 float channels) and reads them with
+//     one 16-byte shared-memory load; a warp load covers 1-4 whole rows, a
+//     contiguous run of shared memory, so no swizzle is needed for
+//     conflict-free reads (the boxes land unswizzled). q.k reduces over a
+//     row's lanes with shuffles. Each consumer warp takes 4 keys of a
+//     block per step, loads their K and V rows together, keeps its own
+//     online softmax per head (exp2 on the MUFU unit, scale folded with
+//     log2(e) into q), accumulates P.V in lane registers, and the warps
+//     merge in warp order at the end, in float32 throughout.
+//  d. No host sync: the kernel reads the frontier itself and the grid does
+//     not depend on it. The launch plan (cluster size, stages, shared
+//     memory bytes, grid) is computed in Python by PagedPlan
+//     (ops/paged_attention.py) and checked here against the same layout.
+// Where the time goes (PERF.md; bench/paged_timing.py --sweep): about
+// 6.2 us fixed (the launch, the serial chain of frontier, table entries
+// and first copies, and the merge), then about 0.75 us per block a rank
+// walks, set by the consumers' chain of dependent steps up to p ~ 2000;
+// at p = 4000 the copies take about as long as the compute.
+// The visibility rule compares a position with the block's first one:
+// an integer division per key there is a long dependent chain.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "tma.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int NT = 128;            // threads per CTA
-constexpr int NTILE = 2;           // K/V tiles per CTA, all in flight
-constexpr int MAX_G = 8;           // query heads per KV head
+constexpr int NW = 4;                 // consumer warps
+constexpr int NT = 32 * (NW + 1);     // + one producer warp
+constexpr int MAX_CLUSTER = 8;        // the portable cluster size
+constexpr int MAX_STAGES = 8;
+constexpr int MAX_G = 8;              // query heads per KV head
+constexpr int STEP_KEYS = 4;          // keys a warp takes per step
+constexpr int SMEM_LIMIT = 232448;    // bytes a block may use on an H100
+constexpr unsigned FULL = 0xffffffffu;
 
-// keys per tile; a CTA's split is NTILE tiles
-// (ops/paged_attention.py: SPLIT_KEYS)
-template <typename T> struct Tile;
-template <> struct Tile<__nv_bfloat16> { static constexpr int TK = 64; };
-template <> struct Tile<float> { static constexpr int TK = 32; };
+// A lane owns VEC channels (16 bytes) of a key row: LPR lanes hold a row,
+// one warp load covers KPL rows, a step is U loads = STEP_KEYS keys.
+template <typename T, int D>
+struct Lanes {
+  static constexpr int VEC = 16 / sizeof(T);
+  static constexpr int LPR = D / VEC;
+  static constexpr int KPL = 32 / LPR;
+  static constexpr int U = STEP_KEYS / KPL;
+};
+
+__host__ __device__ constexpr int align128(int x) { return (x + 127) & ~127; }
+
+// Shared-memory layout, in bytes from a 128-aligned base (PagedPlan's
+// smem_bytes mirrors it): the ring of S stages [K box | V box | positions],
+// then full[S] and empty[S] mbarriers and a mapped flag per stage, then
+// the consumer warps' states (m, l [NW][G], acc [NW][G][D]), then the
+// cluster's slots in rank 0 (m, l [C][G], acc [C][G][D]); 128 bytes of
+// slack let the kernel align the base.
+struct Smem {
+  int kv, pos, stage, bars, warps, slots, total;
+};
+
+__host__ __device__ inline Smem smem_layout(int stages, int bt, int d,
+                                            int elem, int g, int cluster) {
+  Smem s;
+  s.kv = align128(bt * d * elem);
+  s.pos = align128(bt * 4);
+  s.stage = 2 * s.kv + s.pos;
+  s.bars = stages * s.stage;
+  s.warps = s.bars + align128(stages * (8 + 8 + 4));
+  s.slots = s.warps + align128(NW * g * (d + 2) * 4);
+  s.total = s.slots + cluster * g * (d + 2) * 4 + 128;
+  return s;
+}
 
 struct Params {
   const void* q;          // [B, 1, Hq, D]
-  const void* k;          // [null_id + 1, bt, Hkv, D]
-  const void* v;
   const int* pos;         // [null_id + 1, bt]
   const int* tables;      // [B, M]
   const int* frontier;    // [B]
   void* o;                // [B, 1, Hq, D]
-  float* part_o;          // [B, Hq, splits, D]
-  float* part_ml;         // [B, Hq, splits, 2]: running max, sum
-  int max_blocks, bt, null_id, hq, hkv, group, splits;
+  int max_blocks, bt, null_id, hq, hkv, group, cluster, stages;
   float scale_log2;       // 1/sqrt(D) * log2(e): scores in base 2
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* src,
+                                         float (&f)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(src);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 x = __bfloat1622float2(h[e]);
+    f[2 * e] = x.x;
+    f[2 * e + 1] = x.y;
+  }
+}
+__device__ __forceinline__ void load_vec(const float* src, float (&f)[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(src);
+  f[0] = x.x; f[1] = x.y; f[2] = x.z; f[3] = x.w;
 }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// keys of the row that attention can see: 0 .. p, cut at the row's end
-__device__ __forceinline__ int live_keys(int p, int row_len) {
-  return p < 0 ? 0 : min(p + 1, row_len);
+// 2^x on the MUFU unit. Flushes results below 2^-126 to zero: such a
+// weight vanishes beside the running sum, which is at least 1 (the
+// largest score's own weight).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// 16-byte global -> shared copy; zero-fills (reads nothing) when !valid
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned s =
-      static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
 }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 
-// q (float, pre-scaled) . one K row in shared memory, sequential over D
-template <int D>
-__device__ __forceinline__ float dot_row(const float* q,
-                                         const __nv_bfloat16* row) {
-  const uint4* r = reinterpret_cast<const uint4*>(row);
-  float s = 0.f;
-#pragma unroll
-  for (int c = 0; c < D / 8; ++c) {
-    const uint4 u = r[c];
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(h[e]);
-      s = fmaf(q[c * 8 + 2 * e], f.x, s);
-      s = fmaf(q[c * 8 + 2 * e + 1], f.y, s);
+// Merge n online-softmax states (m, l, acc) in order 0..n-1; a state with
+// m = -inf (nothing seen) weighs 0. Returns (m, l, acc).
+__device__ __forceinline__ float3 merge_states(const float* m, const float* l,
+                                               const float* a, int n,
+                                               int stride_ml, int stride_a) {
+  float mx = -INFINITY;
+  for (int i = 0; i < n; ++i) mx = fmaxf(mx, m[i * stride_ml]);
+  const float mu = mx == -INFINITY ? 0.f : mx;
+  float ls = 0.f, as = 0.f;
+  for (int i = 0; i < n; ++i) {
+    const float w = fast_exp2(m[i * stride_ml] - mu);
+    ls = fmaf(l[i * stride_ml], w, ls);
+    as = fmaf(a[i * stride_a], w, as);
+  }
+  return make_float3(mx, ls, as);
+}
+
+// GM: a compile-time bound on the group size G (2, 4 or 8).
+template <typename T, int D, int GM>
+__global__ void __launch_bounds__(NT) paged_decode(
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const Params p) {
+  using LN = Lanes<T, D>;
+  constexpr int VEC = LN::VEC, LPR = LN::LPR, KPL = LN::KPL, U = LN::U;
+  constexpr int EPT = (GM * D + 32 * NW - 1) / (32 * NW);  // merge elements
+  // aligned by an offset from the shared pointer, not by integer casts,
+  // so the compiler keeps every access below a shared-memory one (LDS)
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);
+
+  cluster_arrive_relaxed();     // paired with the wait before the push
+
+  const int G = p.group, bt = p.bt, S = p.stages, C = p.cluster;
+  const Smem L = smem_layout(S, bt, D, sizeof(T), G, C);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* empty = full + S;
+  int* mapped = reinterpret_cast<int*>(empty + S);
+  float* wm = reinterpret_cast<float*>(smem + L.warps);    // [NW][G]
+  float* wl = wm + NW * G;
+  float* wacc = wl + NW * G;                               // [NW][G][D]
+  float* cm = reinterpret_cast<float*>(smem + L.slots);    // [C][G]
+  float* cl = cm + C * G;
+  float* cacc = cl + C * G;                                // [C][G][D]
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  // the row's live blocks (set by its own p) and this rank's share
+  const int front = p.frontier[b];
+  const int nkeys = front < 0 ? 0 : min(front + 1, p.max_blocks * bt);
+  const int nblk = (nkeys + bt - 1) / bt;
+  const int mine = nblk > rank ? (nblk - rank + C - 1) / C : 0;
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(smem_u32(full + s), 1);
+      mbar_init(smem_u32(empty + s), NW);
     }
-  }
-  return s;
-}
-template <int D>
-__device__ __forceinline__ float dot_row(const float* q, const float* row) {
-  const float4* r = reinterpret_cast<const float4*>(row);
-  float s = 0.f;
-#pragma unroll
-  for (int c = 0; c < D / 4; ++c) {
-    const float4 f = r[c];
-    s = fmaf(q[c * 4], f.x, s);
-    s = fmaf(q[c * 4 + 1], f.y, s);
-    s = fmaf(q[c * 4 + 2], f.z, s);
-    s = fmaf(q[c * 4 + 3], f.w, s);
-  }
-  return s;
-}
-
-template <typename T, int D>
-struct Layout {
-  static constexpr int TK = Tile<T>::TK;
-  static constexpr int SPLIT = NTILE * TK;        // keys per CTA
-  static constexpr int LD = D + 16 / sizeof(T);   // row pad: 16 bytes
-  static constexpr int CH = D * sizeof(T) / 16;   // 16-byte chunks a row
-  static constexpr size_t kv_tile = size_t(TK) * LD * sizeof(T);
-  // K and V, NTILE tiles each; then floats: q [G][D], scores [G][TK],
-  // m, l, alpha [MAX_G]; then ints: pid [SPLIT], visible [SPLIT]
-  static constexpr size_t bytes(int g) {
-    return 2 * NTILE * kv_tile +
-           sizeof(float) * (size_t(g) * D + size_t(g) * TK + 3 * MAX_G) +
-           sizeof(int) * 2 * SPLIT;
-  }
-};
-
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) paged_decode_split(Params p) {
-  using L = Layout<T, D>;
-  constexpr int TK = L::TK, LD = L::LD, CH = L::CH, SK = L::SPLIT;
-  constexpr int RMAX = MAX_G * D / NT;   // (head, column) pairs a thread
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sK = reinterpret_cast<T*>(smem);                  // [NTILE][TK][LD]
-  T* sV = sK + NTILE * TK * LD;                        // [NTILE][TK][LD]
-  float* sQ = reinterpret_cast<float*>(sV + NTILE * TK * LD);   // [G][D]
-  float* sS = sQ + p.group * D;                        // [G][TK]
-  float* sM = sS + p.group * TK;                       // [MAX_G]
-  float* sL = sM + MAX_G;
-  float* sAlpha = sL + MAX_G;
-  int* sPid = reinterpret_cast<int*>(sAlpha + MAX_G);  // [SK]
-  int* sVis = sPid + SK;                               // [SK]
-
-  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int G = p.group;
-  const int frontier = p.frontier[b];
-  const int n_keys = live_keys(frontier, p.max_blocks * p.bt);
-  const int k_begin = split * SK;
-  const int k_end = min(k_begin + SK, n_keys);
-  if (k_begin >= k_end) return;   // the merge reads only live splits
-  const int ntiles = (k_end - k_begin + TK - 1) / TK;
-  const int64_t row_stride = int64_t(p.hkv) * D;      // elements per key
-
-  // 1. the split's table entries, once, all keys in parallel (a key
-  // outside the split or on an unmapped entry gets pid -1), and q
-  for (int i = tid; i < SK; i += NT) {
-    const int kk = k_begin + i;
-    int pid = -1;
-    if (kk < k_end) {
-      const int id = p.tables[int64_t(b) * p.max_blocks + kk / p.bt];
-      if (id >= 0 && id < p.null_id) pid = id;
-    }
-    sPid[i] = pid;
-  }
-  const T* q = static_cast<const T*>(p.q) + (int64_t(b) * p.hq + kvh * G) * D;
-  for (int e = tid; e < G * D; e += NT) sQ[e] = to_f(q[e]) * p.scale_log2;
-  if (tid < MAX_G) {
-    sM[tid] = -INFINITY;
-    sL[tid] = 0.f;
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
 
-  // 2. every tile's K and V rows in flight at once, one copy group per
-  // tile (16 bytes a copy; unmapped keys zero-filled, not read) ...
-  const T* kbase = static_cast<const T*>(p.k) + int64_t(kvh) * D;
-  const T* vbase = static_cast<const T*>(p.v) + int64_t(kvh) * D;
-  for (int t = 0; t < NTILE; ++t) {
-    if (t < ntiles) {
-      for (int c = tid; c < 2 * TK * CH; c += NT) {
-        const int which = c / (TK * CH);          // 0: K, 1: V
-        const int r = (c / CH) % TK;
-        const int ch = c % CH;
-        const int i = t * TK + r;
-        const int pid = sPid[i];
-        const T* src = which ? vbase : kbase;
-        if (pid >= 0)
-          src += (int64_t(pid) * p.bt + (k_begin + i) % p.bt) * row_stride +
-                 ch * (16 / sizeof(T));
-        T* dst = (which ? sV : sK) + (t * TK + r) * LD + ch * (16 / sizeof(T));
-        cp_async16(dst, src, pid >= 0);
-      }
-    }
-    cp_async_commit();                  // an empty group past ntiles
-  }
-  // ... while the positions load: the visibility rule of each key
-  for (int i = tid; i < SK; i += NT) {
-    const int pid = sPid[i];
-    int vis = 0;
-    if (pid >= 0) {
-      const int kk = k_begin + i;
-      const int ps = p.pos[int64_t(pid) * p.bt + kk % p.bt];
-      vis = ps >= 0 && ps / p.bt == kk / p.bt && ps <= frontier;
-    }
-    sVis[i] = vis;
-  }
+  float res_m[EPT], res_l[EPT], res_a[EPT];   // this CTA's merged state
 
-  float acc[RMAX];
-#pragma unroll
-  for (int r = 0; r < RMAX; ++r) acc[r] = 0.f;
-
-  for (int t = 0; t < ntiles; ++t) {
-    if (t == 0) cp_async_wait<NTILE - 1>(); else cp_async_wait<0>();
-    __syncthreads();                 // tile t (and sVis) visible to all
-
-    for (int e = tid; e < TK * G; e += NT) {
-      const int i = e % TK, g = e / TK;
-      sS[g * TK + i] = sVis[t * TK + i]
-                           ? dot_row<D>(sQ + g * D, sK + (t * TK + i) * LD)
-                           : -INFINITY;
-    }
-    __syncthreads();
-
-    // online softmax (base 2), one warp per head
-    for (int g = warp; g < G; g += NT / 32) {
-      float* srow = sS + g * TK;
-      float mx = -INFINITY;
-      for (int i = lane; i < TK; i += 32) mx = fmaxf(mx, srow[i]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_old = sM[g];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f, alpha = 1.f;
-      if (m_new == -INFINITY) {      // nothing visible yet
-        for (int i = lane; i < TK; i += 32) srow[i] = 0.f;
-      } else {
-        for (int i = lane; i < TK; i += 32) {
-          const float e = exp2f(srow[i] - m_new);   // masked: 0
-          srow[i] = e;
-          sum += e;
+  if (warp == NW) {
+    // producer: table entries 32 at a time, one per lane, ahead of use;
+    // lane 0 issues each block's copies once its stage is free
+    const int* trow = p.tables + int64_t(b) * p.max_blocks;
+    const int kv_bytes = bt * D * int(sizeof(T));
+    for (int t0 = 0; t0 < mine; t0 += 32) {
+      const int id = t0 + lane < mine ? trow[rank + (t0 + lane) * C] : -1;
+      const int n = min(32, mine - t0);
+      for (int i = 0; i < n; ++i) {
+        const int pid = __shfl_sync(FULL, id, i);
+        const int t = t0 + i, s = t % S;
+        mbar_wait(smem_u32(empty + s), ((t / S) & 1) ^ 1);
+        if (lane == 0) {
+          const bool live = pid >= 0 && pid < p.null_id;
+          const uint32_t bar = smem_u32(full + s);
+          mapped[s] = live;
+          if (live) {
+            unsigned char* st = smem + s * L.stage;
+            mbar_expect_tx(bar, 2 * kv_bytes + bt * 4);
+            tma_load_2d(smem_u32(st), &tm_k, bar, kvh * D, pid * bt);
+            tma_load_2d(smem_u32(st + L.kv), &tm_v, bar, kvh * D, pid * bt);
+            bulk_load(smem_u32(st + 2 * L.kv), p.pos + int64_t(pid) * bt,
+                      bt * 4, bar);
+          } else {
+            mbar_arrive(bar);
+          }
         }
-        alpha = exp2f(m_old - m_new);                // first: 0
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      __syncwarp();
-      if (lane == 0) {
-        sM[g] = m_new;
-        sL[g] = sL[g] * alpha + sum;
-        sAlpha[g] = alpha;
+        __syncwarp();
       }
     }
-    __syncthreads();
-
+  } else {
+    // consumers: lane (kg, cs) holds channels [cs * VEC, +VEC) of key
+    // group kg; q for the group's heads, pre-scaled, in registers
+    const int cs = lane % LPR, kg = lane / LPR;
+    const T* qrow = static_cast<const T*>(p.q) +
+                    (int64_t(b) * p.hq + kvh * G) * D + cs * VEC;
+    float qf[GM][VEC], acc[GM][VEC], m[GM], l[GM];
 #pragma unroll
-    for (int r = 0; r < RMAX; ++r) {
-      const int e = tid + r * NT;
+    for (int g = 0; g < GM; ++g) {
+      if (g < G) {
+        load_vec(qrow + g * D, qf[g]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) qf[g][e] = 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        qf[g][e] *= p.scale_log2;
+        acc[g][e] = 0.f;
+      }
+      m[g] = -INFINITY;
+      l[g] = 0.f;
+    }
+
+    for (int t = 0; t < mine; ++t) {
+      const int s = t % S;
+      mbar_wait(smem_u32(full + s), (t / S) & 1);
+      if (mapped[s]) {
+        const int k0 = (rank + t * C) * bt;   // visible: k0 <= pos < k0 + bt
+        const T* sk = reinterpret_cast<const T*>(smem + s * L.stage);
+        const T* sv = reinterpret_cast<const T*>(smem + s * L.stage + L.kv);
+        const int* sp =
+            reinterpret_cast<const int*>(smem + s * L.stage + 2 * L.kv);
+        for (int chunk = warp; chunk < bt / STEP_KEYS; chunk += NW) {
+          // the step's K and V rows at once (V of a key that is not
+          // visible as zeros), so the V loads overlap the score chain
+          float sc[U][GM], vf[U][VEC];
+          bool vis[U];
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int i = chunk * STEP_KEYS + u * KPL + kg;
+            const int ps = sp[i];
+            vis[u] = ps >= k0 && ps < k0 + bt && ps <= front;
+            float kf[VEC];
+            load_vec(sk + i * D + cs * VEC, kf);
+            load_vec(sv + i * D + cs * VEC, vf[u]);
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) vf[u][e] = vis[u] ? vf[u][e] : 0.f;
+#pragma unroll
+            for (int g = 0; g < GM; ++g) {
+              float a0 = 0.f, a1 = 0.f;     // two chains of VEC / 2
+#pragma unroll
+              for (int e = 0; e < VEC; e += 2) {
+                a0 = fmaf(qf[g][e], kf[e], a0);
+                a1 = fmaf(qf[g][e + 1], kf[e + 1], a1);
+              }
+              sc[u][g] = a0 + a1;
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < U; ++u)
+#pragma unroll
+            for (int g = 0; g < GM; ++g) {
+#pragma unroll
+              for (int o = LPR / 2; o > 0; o >>= 1)
+                sc[u][g] += __shfl_xor_sync(FULL, sc[u][g], o);
+              if (!vis[u]) sc[u][g] = -INFINITY;
+            }
+#pragma unroll
+          for (int g = 0; g < GM; ++g) {
+            float mx = sc[0][g];
+#pragma unroll
+            for (int u = 1; u < U; ++u) mx = fmaxf(mx, sc[u][g]);
+#pragma unroll
+            for (int o = 16; o >= LPR; o >>= 1)
+              mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
+            const float mn = fmaxf(m[g], mx);
+            const float mu = mn == -INFINITY ? 0.f : mn;
+            const float alpha = fast_exp2(m[g] - mu);   // first keys: 0
+            m[g] = mn;
+            l[g] *= alpha;
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) acc[g][e] *= alpha;
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+              sc[u][g] = fast_exp2(sc[u][g] - mu);      // masked: 0
+              l[g] += sc[u][g];
+#pragma unroll
+              for (int e = 0; e < VEC; ++e)
+                acc[g][e] = fmaf(sc[u][g], vf[u][e], acc[g][e]);
+            }
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(smem_u32(empty + s));
+    }
+
+    // the warp's state: sum l and acc over its key groups, then publish
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+#pragma unroll
+      for (int o = 16; o >= LPR; o >>= 1) {
+        l[g] += __shfl_xor_sync(FULL, l[g], o);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          acc[g][e] += __shfl_xor_sync(FULL, acc[g][e], o);
+      }
+      if (g < G && kg == 0) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          wacc[(warp * G + g) * D + cs * VEC + e] = acc[g][e];
+        if (cs == 0) {
+          wm[warp * G + g] = m[g];
+          wl[warp * G + g] = l[g];
+        }
+      }
+    }
+    asm volatile("bar.sync 1, %0;" ::"n"(32 * NW) : "memory");
+    // the CTA's state: the warps merged in warp order, one (g, c) each
+#pragma unroll
+    for (int r = 0; r < EPT; ++r) {
+      const int e = tid + r * 32 * NW;
       if (e < G * D) {
         const int g = e / D, c = e % D;
-        const float* prow = sS + g * TK;
-        const T* vcol = sV + t * TK * LD + c;
-        float a = acc[r] * sAlpha[g];
-#pragma unroll 8
-        for (int i = 0; i < TK; ++i) a = fmaf(prow[i], to_f(vcol[i * LD]), a);
-        acc[r] = a;
+        const float3 st = merge_states(wm + g, wl + g, wacc + g * D + c, NW,
+                                       G, G * D);
+        res_m[r] = st.x;
+        res_l[r] = st.y;
+        res_a[r] = st.z;
       }
     }
-    // the next tile's barrier orders these reads of sS before its writes
   }
 
-  const int64_t part = (int64_t(b) * p.hq + kvh * G) * p.splits + split;
+  // every CTA of the cluster has started (its shared memory exists): push
+  // this rank's state into rank 0's slot, then let rank 0 merge
+  cluster_wait();
+  if (warp < NW) {
+    float* dm = cluster.map_shared_rank(cm, 0);
+    float* dl = cluster.map_shared_rank(cl, 0);
+    float* da = cluster.map_shared_rank(cacc, 0);
 #pragma unroll
-  for (int r = 0; r < RMAX; ++r) {
-    const int e = tid + r * NT;
-    if (e < G * D) {
-      const int g = e / D, c = e % D;
-      p.part_o[(part + int64_t(g) * p.splits) * D + c] = acc[r];
+    for (int r = 0; r < EPT; ++r) {
+      const int e = tid + r * 32 * NW;
+      if (e < G * D) {
+        const int g = e / D, c = e % D;
+        da[(rank * G + g) * D + c] = res_a[r];
+        if (c == 0) {
+          dm[rank * G + g] = res_m[r];
+          dl[rank * G + g] = res_l[r];
+        }
+      }
     }
   }
-  if (tid < G) {
-    p.part_ml[(part + int64_t(tid) * p.splits) * 2] = sM[tid];
-    p.part_ml[(part + int64_t(tid) * p.splits) * 2 + 1] = sL[tid];
-  }
-}
-
-// one CTA per (row, head), one thread per column: merge the row's live
-// splits in order 0, 1, ... (a count set by its own p alone)
-template <typename T, int D>
-__global__ void __launch_bounds__(D) paged_decode_merge(Params p) {
-  const int bh = blockIdx.x;
-  const int b = bh / p.hq;
-  const int c = threadIdx.x;
-  const int n_keys = live_keys(p.frontier[b], p.max_blocks * p.bt);
-  const int n = (n_keys + Layout<T, D>::SPLIT - 1) / Layout<T, D>::SPLIT;
-  const float* ml = p.part_ml + int64_t(bh) * p.splits * 2;
-  const float* po = p.part_o + int64_t(bh) * p.splits * D;
-  float m = -INFINITY;
-  for (int s = 0; s < n; ++s) m = fmaxf(m, ml[2 * s]);
-  float out = 0.f;
-  if (m != -INFINITY) {
-    float l = 0.f, a = 0.f;
-    for (int s = 0; s < n; ++s) {
-      const float w = exp2f(ml[2 * s] - m);
-      l = fmaf(ml[2 * s + 1], w, l);
-      a = fmaf(po[int64_t(s) * D + c], w, a);
+  cluster_arrive();
+  cluster_wait();
+  if (rank == 0 && warp < NW) {
+    T* orow = static_cast<T*>(p.o) + (int64_t(b) * p.hq + kvh * G) * D;
+#pragma unroll
+    for (int r = 0; r < EPT; ++r) {
+      const int e = tid + r * 32 * NW;
+      if (e < G * D) {
+        const int g = e / D, c = e % D;
+        const float3 st = merge_states(cm + g, cl + g, cacc + g * D + c, C,
+                                       G, G * D);
+        store(orow + e, st.y > 0.f ? st.z / st.y : 0.f);
+      }
     }
-    out = l > 0.f ? a / l : 0.f;
   }
-  store(static_cast<T*>(p.o) + int64_t(bh) * D + c, out);
+}
+
+// -- host side ---------------------------------------------------------------
+
+// One pool ([rows = (null_id + 1) * bt, Hkv * D], row-major) as a 2-D
+// tensor map whose box is one page block of one KV head: D columns x bt
+// rows, unswizzled.
+CUresult encode_pool(CUtensorMap* map, const void* ptr, bool bf16, int rows,
+                     int hkv, int d, int bt) {
+  const int elem = bf16 ? 2 : 4;
+  const cuuint64_t dims[2] = {cuuint64_t(hkv) * d, cuuint64_t(rows)};
+  const cuuint64_t strides[1] = {cuuint64_t(hkv) * d * elem};
+  const cuuint32_t box[2] = {cuuint32_t(d), cuuint32_t(bt)};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode_tiled()(
+      map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      2, const_cast<void*>(ptr), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// Launch, or with `clusters` set only ask how many clusters of this launch
+// can be resident at once (cudaOccupancyMaxActiveClusters).
+template <typename T, int D, int GM>
+cudaError_t launch(const CUtensorMap& tk, const CUtensorMap& tv,
+                   const Params& p, int batch, int smem, cudaStream_t stream,
+                   int* clusters) {
+  auto kernel = paged_decode<T, D, GM>;
+  static int smem_set = 0;     // the largest size granted so far
+  if (smem > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    smem_set = smem;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.cluster, p.hkv, batch);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (clusters) return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+  return cudaLaunchKernelEx(&cfg, kernel, tk, tv, p);
 }
 
 template <typename T, int D>
-cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
-  using L = Layout<T, D>;
-  if (p.splits != (p.max_blocks * p.bt + L::SPLIT - 1) / L::SPLIT)
-    return cudaErrorInvalidValue;
-  // once per instantiation: room for the largest group
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      paged_decode_split<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(L::bytes(MAX_G)));
-  if (attr != cudaSuccess) return attr;
-  dim3 grid(p.splits, p.hkv, batch);
-  paged_decode_split<T, D><<<grid, NT, L::bytes(p.group), stream>>>(p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  paged_decode_merge<T, D><<<batch * p.hq, D, 0, stream>>>(p);
-  return cudaGetLastError();
+cudaError_t launch_group(const CUtensorMap& tk, const CUtensorMap& tv,
+                         const Params& p, int batch, int smem,
+                         cudaStream_t stream, int* clusters) {
+  if (p.group <= 2) return launch<T, D, 2>(tk, tv, p, batch, smem, stream, clusters);
+  if (p.group <= 4) return launch<T, D, 4>(tk, tv, p, batch, smem, stream, clusters);
+  return launch<T, D, 8>(tk, tv, p, batch, smem, stream, clusters);
 }
 
-}  // namespace
+// Error codes beyond the CUDA runtime's: the encoder entry point was not
+// found, or it refused a pool (kErrEncode + the CUresult).
+constexpr int kErrNoEncoder = 20000;
+constexpr int kErrEncode = 30000;
 
-// Returns the CUDA error code of the launches (0 on success). All tensors
-// contiguous; `splits` must be ceil(max_blocks * bt / keys per CTA) (128
-// in bf16, 64 in float32), the size of the partial buffers' split axis.
-// is_bf16: 1 for bfloat16, 0 for float32.
-extern "C" int cake_paged_decode_fwd(
-    const void* q, const void* k, const void* v, const void* pos,
-    const void* tables, const void* frontier, void* o, void* part_o,
-    void* part_ml, int batch, int max_blocks, int bt, int null_id, int hq,
-    int hkv, int d, int splits, float scale_log2, int is_bf16,
-    void* stream) {
-  if (batch <= 0 || max_blocks <= 0 || bt <= 0 || null_id <= 0 ||
-      hkv <= 0 || hq % hkv || hq / hkv > MAX_G)
+int run(const void* q, const void* k, const void* v, const void* pos,
+        const void* tables, const void* frontier, void* o, int batch,
+        int max_blocks, int bt, int null_id, int hq, int hkv, int d,
+        int cluster, int stages, int smem_bytes, float scale_log2,
+        int is_bf16, void* stream, int* clusters) {
+  const int elem = is_bf16 ? 2 : 4;
+  if (batch <= 0 || max_blocks <= 0 || bt <= 0 || bt % STEP_KEYS ||
+      bt > 256 || null_id <= 0 || hkv <= 0 || hq % hkv ||
+      hq / hkv > MAX_G || (d != 64 && d != 128) || cluster < 1 ||
+      cluster > MAX_CLUSTER || stages < 2 || stages > MAX_STAGES ||
+      smem_bytes > SMEM_LIMIT ||
+      smem_bytes != smem_layout(stages, bt, d, elem, hq / hkv, cluster).total)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (encode_tiled() == nullptr) return kErrNoEncoder;
+  const int rows = (null_id + 1) * bt;
+  CUtensorMap tk, tv;
+  CUresult r = encode_pool(&tk, k, is_bf16, rows, hkv, d, bt);
+  if (r == CUDA_SUCCESS) r = encode_pool(&tv, v, is_bf16, rows, hkv, d, bt);
+  if (r != CUDA_SUCCESS) return kErrEncode + static_cast<int>(r);
   Params p;
-  p.q = q; p.k = k; p.v = v;
+  p.q = q;
   p.pos = static_cast<const int*>(pos);
   p.tables = static_cast<const int*>(tables);
   p.frontier = static_cast<const int*>(frontier);
   p.o = o;
-  p.part_o = static_cast<float*>(part_o);
-  p.part_ml = static_cast<float*>(part_ml);
   p.max_blocks = max_blocks; p.bt = bt; p.null_id = null_id;
-  p.hq = hq; p.hkv = hkv; p.group = hq / hkv; p.splits = splits;
+  p.hq = hq; p.hkv = hkv; p.group = hq / hkv;
+  p.cluster = cluster; p.stages = stages;
   p.scale_log2 = scale_log2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    if (d == 128) return static_cast<int>(launch<__nv_bfloat16, 128>(p, batch, s));
-    if (d == 64) return static_cast<int>(launch<__nv_bfloat16, 64>(p, batch, s));
-  } else {
-    if (d == 128) return static_cast<int>(launch<float, 128>(p, batch, s));
-    if (d == 64) return static_cast<int>(launch<float, 64>(p, batch, s));
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  if (is_bf16)
+    err = d == 128
+        ? launch_group<__nv_bfloat16, 128>(tk, tv, p, batch, smem_bytes, s, clusters)
+        : launch_group<__nv_bfloat16, 64>(tk, tv, p, batch, smem_bytes, s, clusters);
+  else
+    err = d == 128
+        ? launch_group<float, 128>(tk, tv, p, batch, smem_bytes, s, clusters)
+        : launch_group<float, 64>(tk, tv, p, batch, smem_bytes, s, clusters);
+  return static_cast<int>(err);
+}
+
+}  // namespace
+
+// Returns 0 on success, else the CUDA error code of the launch (or of the
+// checks: cudaErrorInvalidValue) or one of the codes above. All tensors
+// contiguous; k and v are [null_id + 1, bt, Hkv, D] pools, 16-byte
+// aligned. cluster, stages and smem_bytes come from PagedPlan: smem_bytes
+// must equal the kernel's own layout for them. is_bf16: 1 for bfloat16,
+// 0 for float32.
+extern "C" int cake_paged_decode_fwd(
+    const void* q, const void* k, const void* v, const void* pos,
+    const void* tables, const void* frontier, void* o, int batch,
+    int max_blocks, int bt, int null_id, int hq, int hkv, int d, int cluster,
+    int stages, int smem_bytes, float scale_log2, int is_bf16, void* stream) {
+  return run(q, k, v, pos, tables, frontier, o, batch, max_blocks, bt,
+             null_id, hq, hkv, d, cluster, stages, smem_bytes, scale_log2,
+             is_bf16, stream, nullptr);
+}
+
+// The same arguments, no launch: writes the clusters of that launch that
+// can be resident at once to *clusters.
+extern "C" int cake_paged_decode_clusters(
+    const void* q, const void* k, const void* v, const void* pos,
+    const void* tables, const void* frontier, void* o, int batch,
+    int max_blocks, int bt, int null_id, int hq, int hkv, int d, int cluster,
+    int stages, int smem_bytes, float scale_log2, int is_bf16, void* stream,
+    int* clusters) {
+  return run(q, k, v, pos, tables, frontier, o, batch, max_blocks, bt,
+             null_id, hq, hkv, d, cluster, stages, smem_bytes, scale_log2,
+             is_bf16, stream, clusters);
 }

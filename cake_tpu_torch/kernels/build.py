@@ -1,9 +1,10 @@
 """Build the port's CUDA kernels from the repo's sources at first use.
 
 Each kernel is one `.cu` file under `cake_tpu_torch/csrc/` with a plain C
-entry point. `nvcc` compiles it for `sm_90a` into a shared library under
-`build/` at the repo root (named by the source's content hash, so an edit
-rebuilds and an unchanged source is reused), and `ctypes` loads it. No
+entry point; shared device helpers are headers there (`*.cuh`). `nvcc`
+compiles it for `sm_90a` into a shared library under `build/` at the repo
+root (named by the content hash of the source and the headers, so an edit
+rebuilds and unchanged sources are reused), and `ctypes` loads it. No
 PyTorch headers are included, which keeps a build to seconds.
 
 Nothing here runs at import: the CPU tests import every module of the port
@@ -48,9 +49,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / KERNELS[name]
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path, named by the hash of its source and of every
+    shared header under csrc/ (an edit to either rebuilds)."""
+    h = hashlib.sha256((CSRC_DIR / KERNELS[name]).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _command(name: str, out: Path) -> list[str]:

@@ -20,6 +20,11 @@ visible key is don't-care.
 Routes by dtype, one source (csrc/paged_decode.cu): bfloat16 for serving,
 float32 for the parity phase. Both on FMA: a decode row does about one
 FLOP per byte it reads, so bytes bound it and tensor cores buy nothing.
+One launch per call: a thread-block cluster of CLUSTER CTAs per (row, KV
+head), each rank walking every CLUSTER-th live page block through a TMA
+ring, merged in rank order in distributed shared memory. `PagedPlan` is
+the launch plan, in Python so the CPU tests can hold it; the wrapper
+passes exactly its cluster size, stages and shared-memory bytes.
 
 The wrapper launches the kernel for CUDA tensors (checking device, dtype,
 shapes and contiguity, and raising on anything else), and computes the
@@ -28,7 +33,9 @@ plain version only for CPU tensors. No host sync: p stays on the device.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from dataclasses import dataclass
 
 import torch
 
@@ -41,24 +48,117 @@ REPLACES = ("cake_tpu/models/common/cache.py:383 paged_gather_layer + "
 LIBRARY = "paged_decode"
 SOURCE = "cake_tpu_torch/csrc/paged_decode.cu"
 ROUTES = {torch.bfloat16: "bf16", torch.float32: "f32"}
-# keys per CTA by route (csrc/paged_decode.cu: NTILE x TK)
-SPLIT_KEYS = {"bf16": 128, "f32": 64}
+ELEMENT_BYTES = {"bf16": 2, "f32": 4}
 MAX_GROUP = 8             # query heads per KV head (MAX_G there)
 _HEAD_DIMS = (64, 128)
 
+# The kernel's constants (csrc/paged_decode.cu)
+CLUSTER = 8               # CTAs per (row, KV head): the portable cluster
+CONSUMER_WARPS = 4        # NW; one producer warp besides
+THREADS = 32 * (CONSUMER_WARPS + 1)
+STEP_KEYS = 4             # keys a consumer warp takes per step
+MAX_STAGES = 4            # ring depth the plan takes at most
+# CTAs per SM the ring must leave room for: a cluster's 8 CTAs go to one
+# GPC, and at 2 per SM an H100 held 30 of the flagship's 32 clusters at
+# once, at 3 per SM 45 (PERF.md)
+MIN_CTAS_PER_SM = 3
+SMEM_LIMIT = 232448       # bytes one block may use on an H100
+SM_SMEM = 233472          # shared memory per SM (228 KB)
+CTA_RESERVED = 1024       # shared memory the card keeps per resident CTA
 
-def paged_splits(max_blocks: int, bt: int, route: str) -> int:
-    """CTAs along a row's key range in the kernel's grid: the most any
-    frontier needs. A row with frontier p uses the first
-    live_splits(p, ...) of them."""
-    return -(-max_blocks * bt // SPLIT_KEYS[route])
+
+def _align128(x: int) -> int:
+    return (x + 127) // 128 * 128
 
 
-def live_splits(p: int, max_blocks: int, bt: int, route: str) -> int:
-    """Key-range pieces the kernel computes and merges, in order, for a
-    row at frontier p: set by p alone, never by the batch."""
-    keys = 0 if p < 0 else min(p + 1, max_blocks * bt)
-    return -(-keys // SPLIT_KEYS[route])
+@dataclass(frozen=True)
+class PagedPlan:
+    """Launch plan of csrc/paged_decode.cu for one call: grid (cluster,
+    Hkv, B) in clusters of `cluster` CTAs along x. Rank r of the cluster
+    of (row b, KV head) walks the row's live page blocks r, r + cluster,
+    ... in ascending order; rank 0 merges the ranks in order 0..cluster-1.
+    Which blocks a rank takes depends on the row's own frontier alone."""
+    route: str
+    batch: int
+    hkv: int
+    group: int
+    d: int
+    bt: int
+    max_blocks: int
+    cluster: int = CLUSTER
+
+    @property
+    def stage_bytes(self) -> int:
+        """One ring stage: a K box, a V box (bt x D each) and bt positions."""
+        return (2 * _align128(self.bt * self.d * ELEMENT_BYTES[self.route])
+                + _align128(self.bt * 4))
+
+    def _smem(self, stages: int) -> int:
+        """The kernel's smem_layout: the ring, its barriers and flags, the
+        warps' states, the cluster's slots, 128 bytes to align the base."""
+        per_state = self.group * (self.d + 2) * 4
+        return (stages * self.stage_bytes + _align128(stages * 20)
+                + _align128(CONSUMER_WARPS * per_state)
+                + self.cluster * per_state + 128)
+
+    def _ctas_per_sm(self, stages: int) -> int:
+        return min(SM_SMEM // (self._smem(stages) + CTA_RESERVED),
+                   2048 // THREADS)
+
+    @property
+    def stages(self) -> int:
+        """The deepest ring, up to MAX_STAGES, that leaves room for
+        MIN_CTAS_PER_SM CTAs per SM; 2 at least."""
+        for n in range(MAX_STAGES, 2, -1):
+            if self._ctas_per_sm(n) >= MIN_CTAS_PER_SM:
+                return n
+        return 2
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory per CTA."""
+        return self._smem(self.stages)
+
+    @property
+    def grid(self) -> tuple[int, int, int]:
+        return (self.cluster, self.hkv, self.batch)
+
+    @property
+    def ctas_per_sm(self) -> int:
+        """CTAs that fit on one SM by shared memory and threads."""
+        return self._ctas_per_sm(self.stages)
+
+    def live_blocks(self, p: int) -> int:
+        """Table entries a row at frontier p reads: keys 0..p, cut at the
+        row's end."""
+        keys = 0 if p < 0 else min(p + 1, self.max_blocks * self.bt)
+        return -(-keys // self.bt)
+
+    def rank_blocks(self, rank: int, p: int) -> list[int]:
+        """The table entries rank `rank` walks, in order."""
+        return list(range(rank, self.live_blocks(p), self.cluster))
+
+    def empty_ranks(self, p: int) -> list[int]:
+        """Ranks with no block: they contribute the empty state."""
+        return [r for r in range(self.cluster) if not self.rank_blocks(r, p)]
+
+
+@functools.lru_cache(maxsize=64)
+def _plan(route, batch, hkv, group, d, bt, max_blocks) -> PagedPlan:
+    return PagedPlan(route, batch, hkv, group, d, bt, max_blocks)
+
+
+def plan_paged(q_shape, k_shape, tables_shape, dtype) -> PagedPlan:
+    """The kernel's plan for q [B, 1, Hq, D], a pool [NB + 1, bt, Hkv, D]
+    and tables [B, M]. Raises ValueError on a block size the kernel does
+    not take (a multiple of STEP_KEYS, at most 256: one TMA box)."""
+    b, _, hq, d = q_shape
+    bt, hkv = k_shape[1], k_shape[2]
+    if bt % STEP_KEYS or not 0 < bt <= 256:
+        raise ValueError(f"paged decode kernel takes a block of a multiple "
+                         f"of {STEP_KEYS} tokens up to 256, got {bt}")
+    return _plan(kernel_route(dtype), b, hkv, hq // hkv, d, bt,
+                 tables_shape[1])
 
 
 def paged_decode_attention_ref(q: torch.Tensor, k: torch.Tensor,
@@ -95,6 +195,10 @@ def _check_kernel_inputs(q, k, v, pos, tables, frontier) -> None:
         if not x.is_contiguous():
             raise ValueError(f"paged decode kernel: {name} is not "
                              "contiguous")
+    for name, x in (("q", q), ("k", k), ("v", v), ("pos", pos)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"paged decode kernel: {name} is not 16-byte "
+                             "aligned (TMA and 16-byte loads)")
     kernel_route(q.dtype)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("paged decode kernel: q, k and v must share a "
@@ -134,35 +238,49 @@ def _raise_on(err: int) -> None:
                            f"{err}")
 
 
+def _kernel_args(q, k, v, pos, tables, frontier, out, scale, plan):
+    b, _, hq, d = q.shape
+    nb1, bt, hkv, _ = k.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+            tables.data_ptr(), frontier.data_ptr(), out.data_ptr(), b,
+            tables.shape[1], bt, nb1 - 1, hq, hkv, d, plan.cluster,
+            plan.stages, plan.smem_bytes, float(scale) * math.log2(math.e),
+            int(q.dtype == torch.bfloat16), stream)
+
+
 def paged_decode_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                                   v: torch.Tensor, pos: torch.Tensor,
                                   tables: torch.Tensor, frontier: torch.Tensor,
                                   scale: float | None = None) -> torch.Tensor:
     """Launch the kernel (no launch count: callers that compare it with the
-    plain version use this entry). Raises on what it does not take."""
+    plain version use this entry). One launch, one output allocation.
+    Raises on what it does not take."""
     _check_kernel_inputs(q, k, v, pos, tables, frontier)
+    plan = plan_paged(q.shape, k.shape, tables.shape, q.dtype)
     from ..kernels.build import load_library
     lib = load_library(LIBRARY, _bind)
-    b, _, hq, d = q.shape
-    nb1, bt, hkv, _ = k.shape
-    m = tables.shape[1]
-    splits = paged_splits(m, bt, kernel_route(q.dtype))
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
     out = torch.empty_like(q)
-    part_o = torch.empty((b, hq, splits, d), dtype=torch.float32,
-                         device=q.device)
-    part_ml = torch.empty((b, hq, splits, 2), dtype=torch.float32,
-                          device=q.device)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        _raise_on(lib.cake_paged_decode_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-            tables.data_ptr(), frontier.data_ptr(), out.data_ptr(),
-            part_o.data_ptr(), part_ml.data_ptr(), b, m, bt, nb1 - 1, hq,
-            hkv, d, splits, float(scale) * math.log2(math.e),
-            int(q.dtype == torch.bfloat16), stream))
+        _raise_on(lib.cake_paged_decode_fwd(*_kernel_args(
+            q, k, v, pos, tables, frontier, out, scale, plan)))
     return out
+
+
+def active_clusters(q, k, v, pos, tables, frontier) -> int:
+    """How many clusters of this call's launch can be resident on the card
+    at once (cudaOccupancyMaxActiveClusters); launches nothing."""
+    _check_kernel_inputs(q, k, v, pos, tables, frontier)
+    plan = plan_paged(q.shape, k.shape, tables.shape, q.dtype)
+    from ..kernels.build import load_library
+    lib = load_library(LIBRARY, _bind)
+    n = ctypes.c_int(0)
+    with torch.cuda.device(q.device):
+        _raise_on(lib.cake_paged_decode_clusters(*_kernel_args(
+            q, k, v, pos, tables, frontier, q, None, plan), ctypes.byref(n)))
+    return n.value
 
 
 def paged_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -195,9 +313,11 @@ def reset_launches() -> None:
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    """Declare the entry point's signature (pointers and the stream as
+    """Declare the entry points' signatures (pointers and the stream as
     c_void_p, so ctypes never truncates them to 32 bits)."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn = lib.cake_paged_decode_fwd
-    fn.argtypes = [p] * 9 + [i] * 8 + [ctypes.c_float, i, p]
-    fn.restype = i
+    args = [p] * 7 + [i] * 10 + [ctypes.c_float, i, p]
+    lib.cake_paged_decode_fwd.argtypes = args
+    lib.cake_paged_decode_fwd.restype = i
+    lib.cake_paged_decode_clusters.argtypes = args + [ctypes.POINTER(i)]
+    lib.cake_paged_decode_clusters.restype = i

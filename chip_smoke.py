@@ -12,12 +12,15 @@ Phases (any failure exits non-zero and prints no result line):
      in the bf16 flash kernel's SASS, which must not be 0;
   3. kernels: hold each kernel against its plain PyTorch version on the
      card (flash: bf16 on the tensor-core kernel, f32 on the FMA kernel;
-     paged decode: both routes over ragged frontiers, an all-NULL row,
-     stale tenants and a shared block, bt 16 and 64, D 128 and 64), then
-     time kernel, plain version and the PyTorch library call as device
-     time (CUDA events around calls queued behind a spin kernel, so the
-     card runs them back to back), beside the issue rate of back-to-back
-     calls, the card's bound and the library call's backend;
+     paged decode: its launch plan (cluster, stages, shared memory, the
+     clusters the card holds at once) and ptxas report first, then both
+     routes over ragged frontiers, an all-NULL row, stale tenants and a
+     shared block, bt 16 and 64, D 128 and 64, and block counts around
+     the cluster size, each case launched twice with bit-identical
+     results), then time kernel, plain version and the PyTorch library
+     call as device time (CUDA events around calls queued behind a spin
+     kernel, so the card runs them back to back), beside the issue rate of
+     back-to-back calls, the card's bound and the library call's backend;
   4. model parity: the flagship at full width and 2 layers in f32 prefills
      a 600-token prompt in chunks (fresh flash, append flash, masked tail)
      and decodes 16 greedy tokens, once into a contiguous cache and once
@@ -85,13 +88,15 @@ def card_line() -> str:
 # -- phase 2: build ----------------------------------------------------------
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
     from cake_tpu_torch.kernels.build import build_all
     from cake_tpu_torch.ops import flash
     t = time.perf_counter()
     built = build_all()
     for name, info in built.items():
         print(f"build {name}: {info['seconds']:.1f}s", flush=True)
+        if name == "paged_decode":
+            continue              # its report opens phase 3b
         for ln in info["log"].splitlines():
             if any(w in ln for w in ("entry function", "registers", "spill",
                                      "smem", "wgmma", "arning")):
@@ -101,7 +106,7 @@ def phase_build() -> None:
         CUOBJDUMP if os.path.exists(CUOBJDUMP) else None)
     if cuobjdump is None:
         print("cuobjdump not found: HGMMA count not taken", flush=True)
-        return
+        return built
     lib = built[flash.LIBRARIES["bf16"]]["path"]
     sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
                           text=True, timeout=300)
@@ -109,6 +114,7 @@ def phase_build() -> None:
     n = sum("HGMMA" in ln for ln in sass.stdout.splitlines())
     print(f"HGMMA instructions in {flash.SOURCES['bf16']}: {n}", flush=True)
     check(n > 0, "the bf16 flash kernel has no HGMMA (wgmma) instruction")
+    return built
 
 
 # -- phase 3: kernels --------------------------------------------------------
@@ -267,57 +273,45 @@ def phase_kernels() -> dict:
 # -- phase 3b: the paged decode kernel -----------------------------------------
 
 
-def paged_bound_ms(c) -> tuple[float, str]:
-    """Least time on an H100 SXM for one paged decode call: the larger of
-    bytes (each row's live K/V entries, their positions and table entries,
-    q and o, once each) over HBM bandwidth and FLOPs (4 per visible key,
-    head and channel) over the peak of q's type."""
+def ptxas_report(log: str) -> list[str]:
+    """ptxas's lines for each kernel of a build log: the function, its
+    registers and shared memory, and its spills."""
+    return [ln.strip() for ln in log.splitlines()
+            if any(w in ln for w in ("Compiling entry function",
+                                     "registers", "spill"))]
+
+
+def phase_paged_kernels(build_log: str) -> dict:
+    """The paged decode kernel: its plan at the serving shape and how many
+    of its clusters the card holds at once, ptxas's report, then the kernel
+    against its plain version in every case, bit-identical across two
+    launches, and timed at the serving shape (4 rows at p = 620, bt 16) in
+    both routes and at 4 rows at p = 4000 in bf16."""
     import torch
-    q, k = c["q"], c["k"]
-    b, _, hq, d = q.shape
-    bt, hkv = k.shape[1], k.shape[2]
-    el = q.element_size()
-    fr = [int(p) for p in c["frontier"].tolist()]
-    live = sum(p + 1 for p in fr)
-    nbytes = (live * (2 * hkv * d * el + 4) + 2 * q.numel() * el
-              + 4 * sum(p // bt + 1 for p in fr) + 4 * b)
-    flops = 4.0 * live * hq * d
-    peak = H100_PEAK_FLOPS["bf16" if q.dtype == torch.bfloat16 else "f32"]
-    t_ops, t_bytes = flops / peak, nbytes / H100_HBM_BYTES_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
-
-
-def _paged_library_args(c):
-    """scaled_dot_product_attention's inputs for the same function: each
-    row's live rows gathered (outside the timed call) into contiguous
-    [B, Hkv, T, D] K/V, T = the longest row, with a boolean mask."""
-    from cake_tpu_torch.models.common.cache import paged_gather_layer
-    view = paged_gather_layer({n: c[n] for n in ("k", "v", "pos")},
-                              c["tables"], c["frontier"] + 1)
-    t = int(c["frontier"].max()) + 1
-    kk = view["k"][:, :t].transpose(1, 2).contiguous()
-    vv = view["v"][:, :t].transpose(1, 2).contiguous()
-    mask = (view["pos"][:, :t] >= 0)[:, None, None, :]
-    return (c["q"].transpose(1, 2), kk, vv), dict(attn_mask=mask,
-                                                 enable_gqa=True)
-
-
-def phase_paged_kernels() -> dict:
-    """The paged decode kernel against its plain version in every case,
-    then timed at the serving shape (4 rows at p = 620, bt 16) in both
-    routes, and at 4 rows at p = 4000 in bf16."""
-    import torch
-    import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend
+    from cake_tpu_torch.bench import paged_timing
     from cake_tpu_torch.bench.paged_cases import (CARD_CASES, case_args,
                                                   paged_case)
-    from cake_tpu_torch.bench.timing import device_ms, issue_ms
     from cake_tpu_torch.ops import paged_attention as pa
+    for dtype in (torch.bfloat16, torch.float32):
+        c = paged_case([620] * 4, dtype=dtype, device="cuda", seed=620)
+        plan = pa.plan_paged(c["q"].shape, c["k"].shape, c["tables"].shape,
+                             dtype)
+        clusters = pa.active_clusters(*case_args(c))
+        print(f"paged decode plan {pa.kernel_route(dtype)}: 4 rows, bt 16, "
+              f"Hq/Hkv 16/8, D 128: grid {plan.grid}, cluster "
+              f"{plan.cluster}, stages {plan.stages}, shared memory "
+              f"{plan.smem_bytes} B per CTA, {plan.ctas_per_sm} CTAs per SM "
+              f"by shared memory and threads; active clusters {clusters} "
+              f"(the launch has {plan.grid[1] * plan.grid[2]})", flush=True)
+        check(clusters >= 1, f"no cluster of the paged decode launch fits")
+    print("paged decode ptxas report:", flush=True)
+    for ln in ptxas_report(build_log):
+        print(f"  {ln}", flush=True)
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
         for name, spec in CARD_CASES:
             c = paged_case(dtype=dtype, device="cuda", **spec)
             got = pa.paged_decode_attention_kernel(*case_args(c))
+            again = pa.paged_decode_attention_kernel(*case_args(c))
             torch.cuda.synchronize()
             want = pa.paged_decode_attention_ref(*case_args(c))
             rows = c["visible_rows"]
@@ -326,36 +320,17 @@ def phase_paged_kernels() -> dict:
                   f"max_abs_err {err:.3e} (tol {tol:g})", flush=True)
             check(err <= tol and torch.isfinite(got).all().item(),
                   f"paged decode {name} {dtype}: max_abs_err {err} > {tol}")
-    timings = {}
-    for entry, dtype, p in (("bf16", torch.bfloat16, 620),
-                            ("f32", torch.float32, 620),
-                            ("bf16_p4000", torch.bfloat16, 4000)):
-        c = paged_case([p] * 4, dtype=dtype, device="cuda", seed=p)
-        args = case_args(c)
-        err = (pa.paged_decode_attention_kernel(*args).float()
-               - pa.paged_decode_attention_ref(*args).float()).abs().max()
-        lib_args, lib_kw = _paged_library_args(c)
-
-        def kern():
-            return pa.paged_decode_attention_kernel(*args)
-        t = {"max_abs_err": err.item(), "ms": device_ms(kern),
-             "issue_ms": issue_ms(kern),
-             "plain_ms": device_ms(
-                 lambda: pa.paged_decode_attention_ref(*args), iters=10),
-             "library_ms": device_ms(
-                 lambda: F.scaled_dot_product_attention(*lib_args,
-                                                        **lib_kw))}
-        t["bound_ms"], t["bound_by"] = paged_bound_ms(c)
-        timings[entry] = t
-        backend = SDPBackend(torch._fused_sdp_choice(*lib_args,
-                                                     **lib_kw)).name
-        print(f"paged decode timing {entry}: 4 rows at p={p}, bt 16, Hq/Hkv="
-              f"16/8 D=128, device ms: kernel {t['ms']:.5f} plain "
-              f"{t['plain_ms']:.5f} library {t['library_ms']:.5f} ({backend}"
-              f", over pre-gathered live rows: gather not timed); kernel "
-              f"issue_ms {t['issue_ms']:.5f}; bound_ms {t['bound_ms']:.5f} "
-              f"({t['bound_by']}), share of bound "
-              f"{t['bound_ms'] / t['ms']:.3f}; max_abs_err "
+            check(torch.equal(got, again),
+                  f"paged decode {name} {dtype}: two launches differ")
+    timings = paged_timing.measure(with_plain=True)
+    for entry, t in timings.items():
+        print(f"paged decode timing {entry}: 4 rows at p={t['p']}, bt 16, "
+              f"Hq/Hkv=16/8 D=128, device ms: kernel {t['ms']:.5f} plain "
+              f"{t['plain_ms']:.5f} library {t['library_ms']:.5f} "
+              f"({t['library_backend']}, over pre-gathered live rows: "
+              f"gather not timed); kernel issue_ms {t['issue_ms']:.5f}; "
+              f"bound_ms {t['bound_ms']:.5f} ({t['bound_by']}), share of "
+              f"bound {t['bound_ms'] / t['ms']:.3f}; max_abs_err "
               f"{t['max_abs_err']:.3e}", flush=True)
     return timings
 
@@ -789,9 +764,9 @@ def main() -> int:
     card = card_line()
     print(f"device: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
-    phase_build()
+    built = phase_build()
     timings = phase_kernels()
-    paged_timings = phase_paged_kernels()
+    paged_timings = phase_paged_kernels(built[pa.LIBRARY]["log"])
     parity_launches, parity_paged = phase_parity()
     t0 = time.perf_counter()
     model = build_flagship(layers=None, dtype="bf16", seed=0, device="cuda")

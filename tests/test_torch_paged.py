@@ -296,10 +296,19 @@ def test_paged_decode_plain_matches_jax(spec):
 
 
 def test_paged_splits_depend_on_the_row_alone():
-    assert pa.paged_splits(256, 16, "bf16") == 32
-    assert pa.paged_splits(256, 16, "f32") == 64
-    assert [pa.live_splits(p, 256, 16, "bf16") for p in (
-        -1, 0, 127, 128, 620, 4095, 9999)] == [0, 1, 1, 2, 5, 32, 32]
+    """The kernel's plan: the blocks a row reads and each cluster rank's
+    share are set by the row's own frontier, whatever the batch."""
+    alone = pa.plan_paged((1, 1, 16, 128), (1025, 16, 8, 128), (1, 256),
+                          torch.bfloat16)
+    batch = pa.plan_paged((5, 1, 16, 128), (1025, 16, 8, 128), (5, 256),
+                          torch.bfloat16)
+    assert alone.grid == (pa.CLUSTER, 8, 1) and batch.grid == (8, 8, 5)
+    assert [alone.live_blocks(p) for p in (
+        -1, 0, 15, 16, 620, 4095, 9999)] == [0, 1, 1, 2, 39, 256, 256]
+    for p in (0, 15, 16, 620, 4095):
+        assert [alone.rank_blocks(r, p) for r in range(pa.CLUSTER)] == \
+            [batch.rank_blocks(r, p) for r in range(pa.CLUSTER)]
+    assert alone.rank_blocks(3, 620) == [3, 11, 19, 27, 35]
 
 
 def test_paged_kernel_wrapper_refuses_cpu_and_bad_inputs():

@@ -1,5 +1,7 @@
 """The paged decode kernel (csrc/paged_decode.cu) against its plain version
-on the card, bf16 and float32, in every case of chip_smoke.py's phase 3.
+on the card, bf16 and float32, in every case of chip_smoke.py's phase 3;
+a row bit-identical alone, in a batch and after its blocks move; two
+launches bit-identical; and a second pool between two calls on a first.
 Every test is marked `cuda` and skips without a card. This file imports no
 JAX, so it runs on the card's machine, which has none:
 
@@ -63,3 +65,38 @@ def test_paged_kernel_row_is_independent_of_batch():
     moved = pa.paged_decode_attention_kernel(q[1:2], k2, v2, pos2, t2,
                                              frontier[1:2])
     assert torch.equal(moved, alone)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_paged_kernel_is_bit_identical_across_launches(dtype):
+    """Two launches on the same inputs give the same bits: no atomics, no
+    state left in device memory, a fixed order for every sum."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    c = paged_case([5, 127, 128, 620, 4000], dtype=dtype, device="cuda",
+                   null_rows=1, stale=True, shared=True)
+    first = pa.paged_decode_attention_kernel(*case_args(c))
+    second = pa.paged_decode_attention_kernel(*case_args(c))
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_paged_kernel_follows_a_second_pool_between_calls():
+    """A call on another pool (another size, address and block size)
+    between two calls on the first gives each pool its own result: the
+    kernel's tensor maps are the call's own, never a stale cached one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    a = paged_case([15, 620, 4000], dtype=torch.bfloat16, device="cuda")
+    b = paged_case([100, 1060], dtype=torch.bfloat16, device="cuda", bt=64,
+                   seed=9)
+    assert a["k"].shape != b["k"].shape
+    first = pa.paged_decode_attention_kernel(*case_args(a))
+    other = pa.paged_decode_attention_kernel(*case_args(b))
+    again = pa.paged_decode_attention_kernel(*case_args(a))
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    want = pa.paged_decode_attention_ref(*case_args(b))
+    assert (other.float() - want.float()).abs().max().item() <= 2e-2
