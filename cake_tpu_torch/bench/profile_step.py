@@ -1,22 +1,32 @@
-"""Where the serving time goes on the card: one decode step of the full
-slot pool (contiguous and paged) and one prefill chunk of each flash mode,
-on the flagship.
+"""Where the serving time goes on the card: the decode step of the full
+slot pool (contiguous and paged), eager and as a captured graph, generate's
+captured chunk, and one prefill chunk of each flash mode, on the flagship.
 
     python -m cake_tpu_torch.bench.profile_step [--layers N] [--out PATH]
 
 Builds the flagship (bf16, seeded random weights) with a 4-slot, 4096-row
 pool, fills every slot with a 600-token prompt through prefill_chunk, and
 the same into a paged pool (1024 blocks of 16 tokens) through
-prefill_chunk_paged, then for each program (decode step over the
-contiguous pool, paged decode step over 4 slots, a fresh 256-token chunk,
-an append 256-token chunk, the 128-wide masked tail) reports:
-  * wall ms per call (host clock around calls that end in a synchronize),
-  * device ms per call from torch.profiler (sum of kernel time),
-  * the device idle share (1 - device / wall),
-  * the flash kernels' and the paged decode kernel's device ms per call,
-  * the top kernels by device time.
-Prints one JSON object and writes it to --out (default
-chiprun_out/profile_step.json). Needs a CUDA card.
+prefill_chunk_paged (bench/graph_cases.build_state). Each step writes
+into its carries, so every call advances the rows by one position. For
+each program it reports:
+  * wall_ms: host clock per call over back-to-back calls ending in a
+    synchronize;
+  * device_ms: the summed kernel time from torch.profiler, and the top
+    kernels (null and empty where the profiler sees no kernel). An eager
+    program's ~1,000 launches fill the launch queue, so a spin ahead of
+    them (timing.device_ms) cannot hold them back;
+  * idle_share: 1 - device_ms / wall_ms;
+and for the decode steps the same three for one replay of the step's
+captured graph (replay_ms: CUDA events around replays queued behind a
+spin, timing.device_ms; replay_wall_ms; replay_idle_share). For
+generate: one 16-step chunk replay's time by CUDA events around
+back-to-back replays (timing.issue_ms: a chunk's ~16,000 graph nodes do
+not queue behind a spin), per token, beside the wall time per token of a
+64-token generate and the profiler's kernels of one eager batch-1 step
+of the same state (`step`). Prints one JSON object and
+writes it to --out (default chiprun_out/profile_step.json). Needs a CUDA
+card.
 """
 from __future__ import annotations
 
@@ -24,15 +34,15 @@ import argparse
 import json
 import os
 import subprocess
-import time
 
 import torch
 
 from ..cli import build_flagship
+from ..models.common.graphs import DecodeGraph
+from ..models.common.text_model import GEN_CHUNK
 from ..ops.sampling import SamplingConfig
-from ..serve.engine import RECENT_N
-from ..serve.paged import PagedKV
-from .timing import kernel_times
+from .graph_cases import build_state
+from .timing import device_ms, issue_ms, kernel_times, wall_ms
 
 
 def _card() -> str:
@@ -43,25 +53,33 @@ def _card() -> str:
 
 
 def _profile(fn, iters: int) -> dict:
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / iters * 1e3
+    """An eager program: wall time and the profiler's kernel time."""
+    wall = wall_ms(fn, iters)
     rows = kernel_times(fn, iters, warmup=0)
-    if not rows:
-        raise RuntimeError("torch.profiler shows no device time")
-    device = sum(r[0] for r in rows)
+    device = sum(r[0] for r in rows) if rows else None
     return {"wall_ms": wall, "device_ms": device,
-            "idle_share": max(0.0, 1.0 - device / wall),
+            "idle_share": None if device is None
+            else max(0.0, 1.0 - device / wall),
             "flash_ms": sum(ms for ms, _, k in rows if "flash" in k),
             "paged_decode_ms": sum(ms for ms, _, k in rows
                                    if "paged_decode" in k),
-            "top": [{"ms": round(ms, 4), "calls": round(n), "kernel": k[:90]}
-                    for ms, n, k in rows[:12]]}
+            "top": [{"ms": round(ms, 4), "calls": round(n),
+                     "kernel": k[:90]} for ms, n, k in rows[:12]]}
+
+
+def _decode(model, kv_blocks: int, iters: int) -> dict:
+    """Eager step and graph replay over one state of 4 rows at 600."""
+    greedy = SamplingConfig(temperature=0.0)
+    state = build_state(model, [600] * 4, [greedy] * 4, 4096,
+                        kv_blocks=kv_blocks)
+    graph = DecodeGraph(state.step_fn(model), model.device)
+    state.activate()
+    out = _profile(state.step_fn(model), iters)
+    replay = device_ms(graph.step)
+    wall = wall_ms(graph.step, 4 * iters)
+    out.update({"replay_ms": replay, "replay_wall_ms": wall,
+                "replay_idle_share": max(0.0, 1.0 - replay / wall)})
+    return out
 
 
 def main(argv=None) -> int:
@@ -73,40 +91,24 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_step needs a CUDA card")
     model = build_flagship(args.layers, "bf16", 0, "cuda")
-    slots, ctx, n = 4, 4096, 600
-    layers = model.new_cache(slots, kv_len=ctx)["layers"]
-    gen = torch.Generator().manual_seed(0)
-    ids = torch.randint(0, 256, (n,), generator=gen).tolist()
-    for s in range(slots):
-        for p0 in range(0, n, 256):
-            _, layers = model.prefill_chunk(layers, s, ids[p0:p0 + 256], p0)
-    dev = model.device
-    toks = torch.ones(slots, dtype=torch.int32, device=dev)
-    pos = torch.full((slots,), n, dtype=torch.int32, device=dev)
-    recents = torch.full((slots, RECENT_N), -1, dtype=torch.int32,
-                         device=dev)
-    g = SamplingConfig()
-    carries = [torch.full((slots,), v, dtype=dt, device=dev) for v, dt in (
-        (g.temperature, torch.float32), (model.cfg.vocab_size, torch.int32),
-        (1.0, torch.float32), (g.repeat_penalty, torch.float32))]
-    active = torch.ones(slots, dtype=torch.bool, device=dev)
-
-    def decode():   # positions stay put: the same step, re-run
-        model.decode_slots(layers, toks, pos, recents, *carries, active)
-    paged = PagedKV.build(model, slots, ctx, 1024, 16, 256)
-    for s in range(slots):
-        for p0 in range(0, n, 256):
-            paged.reserve_range(s, p0, min(256, n - p0) + 1)
-            paged.prefill_into(s, ids[p0:p0 + 256], p0)
-
-    def decode_paged():
-        model.decode_slots_paged(paged.pool, paged.rows, paged.tables, toks,
-                                 pos, recents, *carries, active)
-    scratch = model.new_cache(1, kv_len=ctx)["layers"]
+    n = 600
+    ids = torch.randint(0, 256, (n,),
+                        generator=torch.Generator().manual_seed(0)).tolist()
     report = {"card": _card(), "layers": model.cfg.num_hidden_layers,
-              "slots": slots, "ctx": ctx, "prompt": n,
-              "decode_step": _profile(decode, args.iters),
-              "paged_decode_step": _profile(decode_paged, args.iters)}
+              "slots": 4, "ctx": 4096, "prompt": n,
+              "decode_step": _decode(model, 0, args.iters),
+              "paged_decode_step": _decode(model, 1024, args.iters)}
+    _, stats = model.generate(ids, 64, SamplingConfig(temperature=0.0))
+    run = next(iter(model._runners.values()))
+    chunk = issue_ms(run.graph.step, iters=5, warmup=1)
+    report["generate"] = {
+        "tokens": 64, "chunk_steps": GEN_CHUNK, "chunk_replay_ms": chunk,
+        "replay_ms_per_token": chunk / GEN_CHUNK,
+        "wall_ms_per_token": 1e3 / stats["tok_per_s"],
+        "step": _profile(lambda: model.decode_slots_into(run.layers,
+                                                         run.carries),
+                         args.iters)}
+    scratch = model.new_cache(1, kv_len=4096)["layers"]
     for name, p0, width in (("prefill_fresh_256", 0, 256),
                             ("prefill_append_256", 256, 256),
                             ("prefill_tail_88", 512, 88)):

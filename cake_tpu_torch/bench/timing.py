@@ -3,6 +3,8 @@
   * `device_ms`: device time per call, from CUDA events around calls the
     host queues while the card spins, so the card runs them back to back
     whatever the host's issue rate. Uses no profiler.
+  * `wall_ms`: the host clock around back-to-back calls ending in a
+    synchronize.
   * `issue_ms`: CUDA events around back-to-back calls with nothing
     queued ahead: the slower of the host issuing the calls and the card
     running them.
@@ -70,6 +72,19 @@ def device_ms(fn, iters: int = 30, warmup: int = 5) -> float:
                            f"queue {iters} calls, longer than the "
                            f"{spin_ms:.3f} ms spin ahead of them")
     return start.elapsed_time(end) / iters
+
+
+def wall_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Host clock per call over back-to-back calls that end in a
+    synchronize."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
 
 
 def issue_ms(fn, iters: int = 50, warmup: int = 5) -> float:

@@ -3,12 +3,15 @@
     python -m cake_tpu_torch.cli serve --flagship [--seed N] [--port P] [--cpu]
         [--prefix-cache-mb MB] [--kv-blocks N] [--kv-block-tokens T]
     python -m cake_tpu_torch.cli run --flagship "prompt" [--max-tokens N]
+        [--temperature T] [--seed N]
 
 `--flagship` is the Qwen3-0.6B shape with seeded random weights (loading
 a checkpoint is not ported yet); `--layers` cuts its depth. The model
 runs on `cuda` unless `--cpu` is given. `serve` keeps the reference's
 defaults: the shared-prefix cache on at 256 MB, and a contiguous KV pool
-unless `--kv-blocks` asks for a paged one.
+unless `--kv-blocks` asks for a paged one. `--seed` seeds the weights and
+the sampling keys (serve: one key per admission; run: the request's).
+`run` decodes through generate's captured chunks of 16 steps.
 """
 from __future__ import annotations
 
@@ -46,7 +49,8 @@ def _model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--layers", type=int, default=None,
                    help="cut the depth to this many blocks")
     p.add_argument("--dtype", default="bf16")
-    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--seed", type=int, default=0,
+                   help="seeds the random weights and the sampling keys")
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
 
 
@@ -79,7 +83,8 @@ def cmd_run(args) -> int:
         [{"role": "user", "content": args.prompt}])
     out, stats = model.generate(
         ids, max_new_tokens=args.max_tokens,
-        sampling=SamplingConfig(temperature=args.temperature))
+        sampling=SamplingConfig(temperature=args.temperature),
+        seed=args.seed)
     print(model.tokenizer.decode(out))
     print(f"[{len(out)} tokens, ttft {stats['ttft_s']:.3f}s, "
           f"{stats['tok_per_s']:.1f} tok/s]", file=sys.stderr)

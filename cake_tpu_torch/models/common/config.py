@@ -54,8 +54,16 @@ class ModelConfig:
     qkv_bias: bool = False
     qk_norm: bool = False
     sliding_window: int | None = None
+    # the reference's per-layer pattern: True = full attention, False =
+    # sliding window (layers past the tuple are full); empty = every layer
+    # windowed when sliding_window is set
+    global_layers: tuple[bool, ...] = ()
 
     def layer_spec(self, i: int) -> LayerSpec:
+        if self.global_layers:
+            if i >= len(self.global_layers) or self.global_layers[i]:
+                return LayerSpec(kind="full")
+            return LayerSpec(kind="swa", window=self.sliding_window)
         if self.sliding_window is not None:
             return LayerSpec(kind="swa", window=self.sliding_window)
         return LayerSpec(kind="full")

@@ -5,9 +5,12 @@ programs decode_slots_paged and prefill_chunk_paged, row_snapshot,
 row_install, row_reset, generate).
 
 PyTorch runs eagerly, so the reference's compiled programs become plain
-methods. Host-static decisions stay host-side and identical: the prompt
-is right-padded to a PREFILL_BUCKETS width, and select_flash_mode picks
-"fresh", "append" or the masked path from (pos0, width, capacity).
+methods; the decode step also has an in-place form (decode_slots_into)
+that graphs.DecodeGraph captures as a CUDA graph on a card, and
+`generate` replays captured chunks of decode steps. Host-static
+decisions stay host-side and identical: the prompt is right-padded to a
+PREFILL_BUCKETS width, and select_flash_mode picks "fresh", "append" or
+the masked path from (pos0, width, capacity).
 
 The slot pool (the serve engine's KV) is one cache with a batch axis; a
 prefill chunk writes into a row view of it in place, and the batched
@@ -32,12 +35,14 @@ from typing import Iterable
 import torch
 
 from ...device import resolve_device
-from ...ops.sampling import SamplingConfig, push_recent_token, sample_traced
+from ...ops.sampling import (SamplingConfig, push_recent_token, request_key,
+                             sample_traced)
 from .cache import (init_cache, init_paged_layers, kv_capacity,
                     paged_gather_layer, paged_scatter_blocks, row_view,
                     slot_extract_block_layers, slot_reset_layers,
                     slot_splice_block_layers)
 from .config import ModelConfig
+from .graphs import DecodeCarries, DecodeGraph
 from .layers import (embed_tokens, forward_layers, init_params,
                      lm_head_logits, make_rope)
 
@@ -98,6 +103,7 @@ class TextModel:
                        if params is None else params)
         self.rope = make_rope(cfg, self.device)
         self.last_prefill_mode: str | None = None
+        self._runners: dict[tuple[int, int], _ChunkRunner] = {}
 
     # -- cache ---------------------------------------------------------------
 
@@ -142,61 +148,108 @@ class TextModel:
 
     # -- batched decode --------------------------------------------------------
 
-    @torch.no_grad()
-    def decode_slots(self, layers: list[dict], toks: torch.Tensor,
-                     pos: torch.Tensor, recents: torch.Tensor,
-                     temps: torch.Tensor, top_ks: torch.Tensor,
-                     top_ps: torch.Tensor, penalties: torch.Tensor,
-                     active: torch.Tensor, generator=None):
-        """One sampled decode step over every pool row.
-
-        toks/pos: [B] int32 (each row's input token and its position);
-        recents: [B, N] int32 (-1 padded); temps/top_ps/penalties: [B]
-        float32; top_ks: [B] int32 (>= vocab disables); active: [B] bool.
-        An inactive row (free, or mid-way through a chunked prefill)
-        writes nothing to its KV and keeps its token, position and recent
-        window. Every row of the pool is stepped whatever the occupancy,
-        so a row's arithmetic never depends on how many others are busy
-        (a request's greedy output is the same alone or in company).
-        Returns (packed [2, B] = [input token ; sampled token], toks, pos,
-        recents); the KV pool is updated in place."""
+    def _decode_step(self, layers, toks, pos, recents, keys, counters,
+                     temps, top_ks, top_ps, penalties, active):
+        """decode_slots' arithmetic; also returns the step's logits."""
         x = embed_tokens(self.cfg, self.params, toks.long()[:, None])
         x = forward_layers(self.cfg, self.params, x, layers, pos, self.rope,
                            valid_len=active.to(torch.int32))
         logits = lm_head_logits(self.cfg, self.params, x)[:, -1]
-        nxt = sample_traced(logits, generator, temps, top_ks, top_ps,
+        nxt = sample_traced(logits, keys, counters, temps, top_ks, top_ps,
                             penalties, recents)
         nxt = torch.where(active, nxt, toks)
         recents = torch.where(active[:, None],
                               push_recent_token(recents, nxt), recents)
-        packed = torch.stack([toks, nxt])
-        return packed, nxt, pos + active.to(pos.dtype), recents
+        step = active.to(pos.dtype)
+        return (logits, torch.stack([toks, nxt]), nxt, pos + step, recents,
+                counters + step.to(counters.dtype))
+
+    @torch.no_grad()
+    def decode_slots(self, layers: list[dict], toks: torch.Tensor,
+                     pos: torch.Tensor, recents: torch.Tensor,
+                     keys: torch.Tensor, counters: torch.Tensor,
+                     temps: torch.Tensor, top_ks: torch.Tensor,
+                     top_ps: torch.Tensor, penalties: torch.Tensor,
+                     active: torch.Tensor):
+        """One sampled decode step over every pool row.
+
+        toks/pos: [B] int32 (each row's input token and its position);
+        recents: [B, N] int32 (-1 padded); keys/counters: [B] int64 (each
+        row's sampling key and the draw it takes now); temps/top_ps/
+        penalties: [B] float32; top_ks: [B] int32 (>= vocab disables);
+        active: [B] bool. An inactive row (free, or mid-way through a
+        chunked prefill) writes nothing to its KV and keeps its token,
+        position, recent window and counter; an active row's counter
+        advances by one. Every row of the pool is stepped whatever the
+        occupancy, so a row's arithmetic, its noise included, never
+        depends on how many others are busy. Returns (packed [2, B] =
+        [input token ; sampled token], toks, pos, recents, counters); the
+        KV pool is updated in place."""
+        return self._decode_step(layers, toks, pos, recents, keys,
+                                 counters, temps, top_ks, top_ps,
+                                 penalties, active)[1:]
+
+    @torch.no_grad()
+    def decode_slots_into(self, layers: list[dict], c: DecodeCarries,
+                          active: torch.Tensor | None = None) -> None:
+        """decode_slots writing its results into the carries it read:
+        c.packed, c.logits, c.toks, c.pos, c.recents and c.counters, in
+        place (a captured graph needs fixed addresses). `active` replaces
+        c.active for this step when given."""
+        act = c.active if active is None else active
+        logits, packed, nxt, pos, recents, counters = self._decode_step(
+            layers, c.toks, c.pos, c.recents, c.keys, c.counters, c.temps,
+            c.top_ks, c.top_ps, c.pens, act)
+        c.logits.copy_(logits)
+        c.packed.copy_(packed)
+        c.toks.copy_(nxt)
+        c.pos.copy_(pos)
+        c.recents.copy_(recents)
+        c.counters.copy_(counters)
+
+    @staticmethod
+    def paged_layers(pool: list[dict], rows: list[dict],
+                     tables: torch.Tensor) -> list[dict]:
+        """The per-layer caches of a paged decode step: a pooled layer's
+        block pool with the step's tables, else the layer's rows."""
+        return [dict(pl, tables=tables) if pl else rl
+                for pl, rl in zip(pool, rows)]
 
     def decode_slots_paged(self, pool: list[dict], rows: list[dict],
                            tables: torch.Tensor, toks: torch.Tensor,
                            pos: torch.Tensor, recents: torch.Tensor,
+                           keys: torch.Tensor, counters: torch.Tensor,
                            temps: torch.Tensor, top_ks: torch.Tensor,
                            top_ps: torch.Tensor, penalties: torch.Tensor,
-                           active: torch.Tensor, generator=None):
+                           active: torch.Tensor):
         """decode_slots over a paged pool: the same carries and contract,
         but full-attention KV is read and written through `tables` ([B, M]
         int32 block ids on the device; NULL = the pool's sink). Row b's
         entry lands in block tables[b, pos[b] // bt]; an inactive row
         writes the sink. `pool` and `rows` (cache.init_paged_layers) are
-        updated in place. Returns (packed [2, B], toks, pos, recents)."""
-        layers = [dict(pl, tables=tables) if pl else rl
-                  for pl, rl in zip(pool, rows)]
-        return self.decode_slots(layers, toks, pos, recents, temps, top_ks,
-                                 top_ps, penalties, active, generator)
+        updated in place. Returns (packed [2, B], toks, pos, recents,
+        counters)."""
+        return self.decode_slots(self.paged_layers(pool, rows, tables),
+                                 toks, pos, recents, keys, counters, temps,
+                                 top_ks, top_ps, penalties, active)
+
+    def decode_slots_paged_into(self, pool: list[dict], rows: list[dict],
+                                tables: torch.Tensor,
+                                c: DecodeCarries) -> None:
+        """decode_slots_paged writing into its carries (decode_slots_into)."""
+        self.decode_slots_into(self.paged_layers(pool, rows, tables), c)
 
     @torch.no_grad()
-    def sample_one(self, logits: torch.Tensor, generator,
+    def sample_one(self, logits: torch.Tensor, key: int, counter: int,
                    scfg: SamplingConfig, recent: torch.Tensor) -> torch.Tensor:
         """Sample the first token off prefill logits [1, V] with the
-        request's settings; recent: [1, N]. Returns [1] int32."""
+        request's settings and draw `counter` of its key; recent: [1, N].
+        Returns [1] int32."""
         dev = logits.device
         return sample_traced(
-            logits, generator,
+            logits,
+            torch.tensor([key], dtype=torch.int64, device=dev),
+            torch.tensor([counter], dtype=torch.int64, device=dev),
             torch.tensor([scfg.temperature], dtype=torch.float32, device=dev),
             torch.tensor([scfg.top_k or self.cfg.vocab_size],
                          dtype=torch.int32, device=dev),
@@ -296,39 +349,53 @@ class TextModel:
 
     # -- single-stream generation ------------------------------------------
 
+    def _chunk_runner(self, kv_len: int, recent_n: int) -> "_ChunkRunner":
+        """generate's captured decode program for this KV bucket, built at
+        first use and kept."""
+        key = (kv_len, recent_n)
+        if key not in self._runners:
+            self._runners[key] = _ChunkRunner(self, kv_len, recent_n)
+        return self._runners[key]
+
     def generate(self, prompt_ids: list[int], max_new_tokens: int = 256,
-                 sampling: SamplingConfig | None = None,
-                 generator: torch.Generator | None = None):
-        """Generate up to max_new_tokens (stopping at EOS) through the same
-        prefill and batched decode step the engine uses, at batch 1.
-        Returns (token_ids, stats)."""
+                 sampling: SamplingConfig | None = None, seed: int = 0):
+        """Generate up to max_new_tokens (stopping at EOS): one prefill,
+        the first token sampled off its logits, then captured chunks of
+        GEN_CHUNK batch-1 decode steps, STREAM_DEPTH chunks in flight, EOS
+        checked between chunks (the reference's `_decode_chunk`). The
+        request samples under key request_key(seed, 0). Returns
+        (token_ids, stats)."""
         scfg = sampling or SamplingConfig()
         n = len(prompt_ids)
         kv_len = bucket_for(n + max_new_tokens, self.max_cache_len)
-        cache = self.new_cache(1, kv_len=kv_len)
-        dev = self.device
+        run = self._chunk_runner(kv_len, scfg.repeat_last_n)
+        c = run.carries
         t0 = time.perf_counter()
-        logits, cache = self.prefill(cache, prompt_ids)
+        slot_reset_layers(run.layers, 0)
+        logits = self._prefill_into(run.layers, prompt_ids, 0)
+        key = request_key(seed, 0)
         recent = torch.full((1, scfg.repeat_last_n), -1, dtype=torch.int32,
-                            device=dev)
-        tok = self.sample_one(logits, generator, scfg, recent)
-        recent = push_recent_token(recent, tok)
+                            device=self.device)
+        tok = self.sample_one(logits, key, 0, scfg, recent)
         out = [int(tok[0])]
         ttft = time.perf_counter() - t0
-        pos = torch.tensor([n], dtype=torch.int32, device=dev)
-        carries = [torch.tensor([v], dtype=dt, device=dev) for v, dt in (
-            (scfg.temperature, torch.float32),
-            (scfg.top_k or self.cfg.vocab_size, torch.int32),
-            (1.0 if scfg.top_p is None else scfg.top_p, torch.float32),
-            (scfg.repeat_penalty, torch.float32))]
-        active = torch.ones(1, dtype=torch.bool, device=dev)
         budget = min(max_new_tokens, kv_len - n)
         t1 = time.perf_counter()
-        while len(out) < budget and not self.cfg.is_eos(out[-1]):
-            _, tok, pos, recent = self.decode_slots(
-                cache["layers"], tok, pos, recent, *carries, active,
-                generator)
-            out.append(int(tok[0]))
+        if len(out) < budget and not self.cfg.is_eos(out[0]):
+            c.toks.copy_(tok)
+            c.pos.fill_(n)
+            c.recents.copy_(push_recent_token(recent, tok))
+            c.keys.fill_(key)
+            c.counters.fill_(1)
+            c.set_sampling(0, scfg.temperature,
+                           scfg.top_k or self.cfg.vocab_size,
+                           1.0 if scfg.top_p is None else scfg.top_p,
+                           scfg.repeat_penalty)
+            c.active.fill_(True)
+            # the step at position p writes entry p and yields token p+1:
+            # steps past the budget are masked, never write the cache
+            run.limit.fill_(n + budget - 1)
+            out += run.decode(budget - 1, self.cfg.is_eos)
         dt = time.perf_counter() - t1
         return out, {"ttft_s": ttft, "decode_tokens": len(out) - 1,
                      "decode_s": dt,
@@ -337,3 +404,64 @@ class TextModel:
     def mk_token(self, tid: int) -> Token:
         text = self.tokenizer.decode([tid]) if self.tokenizer else None
         return Token(id=tid, text=text, is_end_of_stream=self.cfg.is_eos(tid))
+
+
+GEN_CHUNK = 16      # decode steps per generate chunk (the reference's)
+STREAM_DEPTH = 2    # generate chunks in flight (the reference's)
+
+
+class _ChunkRunner:
+    """generate's decode program for one KV bucket: a batch-1 cache, its
+    carries, and GEN_CHUNK decode steps captured as one DecodeGraph that
+    writes each step's token into `out`. A step runs only while pos <
+    limit (the budget), so a chunk that overshoots writes nothing past
+    it. Two host buffers take turns receiving `out`, so a replay never
+    overwrites the chunk being fetched."""
+
+    def __init__(self, model: TextModel, kv_len: int, recent_n: int):
+        self.model = model
+        dev = model.device
+        self.layers = model.new_cache(1, kv_len=kv_len)["layers"]
+        self.carries = DecodeCarries.build(1, model.cfg.vocab_size,
+                                           recent_n, dev)
+        self.limit = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.out = torch.zeros(GEN_CHUNK, dtype=torch.int32, device=dev)
+        cuda = dev.type == "cuda"
+        self.host = [torch.zeros(GEN_CHUNK, dtype=torch.int32,
+                                 pin_memory=cuda)
+                     for _ in range(STREAM_DEPTH)]
+        self.events = [torch.cuda.Event() if cuda else None
+                       for _ in range(STREAM_DEPTH)]
+        # captured with every row inactive (the carries are fresh)
+        self.graph = DecodeGraph(self._chunk, dev, warmup=1)
+
+    @torch.no_grad()
+    def _chunk(self) -> None:
+        c = self.carries
+        for i in range(GEN_CHUNK):
+            self.model.decode_slots_into(self.layers, c,
+                                         active=c.active & (c.pos < self.limit))
+            self.out[i:i + 1].copy_(c.toks)
+
+    def decode(self, n: int, stop) -> list[int]:
+        """Up to n tokens, ending at the first for which stop(token)."""
+        chunks = -(-n // GEN_CHUNK)
+        issued = fetched = 0
+        toks: list[int] = []
+        while fetched < chunks:
+            while issued < chunks and issued - fetched < STREAM_DEPTH:
+                k = issued % STREAM_DEPTH
+                self.graph.step()
+                self.host[k].copy_(self.out, non_blocking=True)
+                if self.events[k] is not None:
+                    self.events[k].record()
+                issued += 1
+            k = fetched % STREAM_DEPTH
+            if self.events[k] is not None:
+                self.events[k].synchronize()
+            fetched += 1
+            for t in self.host[k].tolist():
+                toks.append(t)
+                if len(toks) == n or stop(t):
+                    return toks
+        return toks

@@ -16,16 +16,28 @@ per-slot tables) and every device tensor. Each iteration:
      comes BEFORE the decode dispatch: a swap-out after the dispatch would
      capture carries holding a sampled token the host never fanned out;
   4. dispatches ONE batched decode step over the pool (rows whose prefill
-     has completed are `active`; the others ride along frozen);
+     has completed are `active`; the others ride along frozen): on a card
+     a replay of the step's CUDA graph, captured once when the scheduler
+     thread starts (models/common/graphs.py), on the CPU the eager step;
   5. advances the chosen admission by one chunk, capturing every prefix
      block the chunk completed;
-  6. fetches the step's packed token ids in one device-to-host copy and
-     fans them out to the request streams.
+  6. fetches the step's packed token ids (the graph's static `packed`
+     buffer) in one device-to-host copy and fans them out to the request
+     streams.
 
 Every torch call happens on the scheduler thread, so the device state
 needs no lock; client threads only touch thread-safe queues and events.
-The port has one engine-wide `torch.Generator` and no per-slot RNG carry,
-so a swapped request resumes bit-identically for greedy streams only.
+The graph reads the KV and the per-slot carries (graphs.DecodeCarries) at
+fixed addresses, so everything between two replays writes them in place
+and nothing rebinds them. There is no fallback: a capture error fails the
+constructor, a replay error kills the engine.
+
+Sampling: each admission gets its own key, request_key(seed, seq) (the
+reference's fold_in(base, seq)), and draws its noise from (key, counter)
+on the device. The first token takes counter 0; each decode step of an
+active row advances the row's counter. Key and counter are per-slot
+carries that ride a swap, so a sampled request's tokens depend neither
+on its company nor on a swap.
 Left out of this port so far (see ROADMAP.md): recompute preemption (it
 needs the crash-recovery supervisor's replay), speculative decoding, the
 supervisor itself, QoS lanes and victim classes, deadlines, the fleet KV
@@ -43,7 +55,8 @@ import uuid
 
 import torch
 
-from ..ops.sampling import SamplingConfig
+from ..models.common.graphs import DecodeCarries, DecodeGraph
+from ..ops.sampling import SamplingConfig, request_key
 from .paged.pool import KVPoolExhausted, PagedKV
 from .paged.preempt import PreemptedSlot, choose_victim, victim_rank
 from .prefix_cache import PagedPrefixCache, PrefixCache
@@ -194,6 +207,7 @@ class ServeRequest:
         self.t_enqueue = time.perf_counter()
         # scheduler-owned
         self.slot: int | None = None
+        self.key = 0                    # sampling key, set at admission
         self.budget = 0                 # decode tokens left after the first
         self.t_first = 0.0
         self._first_pending = False     # first token sampled, not fetched
@@ -256,9 +270,15 @@ class ServeEngine:
         self.steps = 0
         self.last_step = time.perf_counter()
         self.dead: BaseException | None = None
+        self.graph = None               # the decode step's DecodeGraph
+        self._ready = threading.Event()
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="cake-torch-serve")
         self._thread.start()
+        self._ready.wait()
+        if self.dead is not None:
+            self._thread.join()
+            raise self.dead
 
     def _init_device_state(self):
         """The KV (contiguous rows, or a PagedKV) and every per-slot carry
@@ -274,17 +294,17 @@ class ServeEngine:
             self._layers = None
         else:
             self._layers = self.model.new_cache(n, kv_len=self.ctx)["layers"]
-        self._toks = torch.zeros(n, dtype=torch.int32, device=dev)
-        self._pos = torch.zeros(n, dtype=torch.int32, device=dev)
-        self._temps = torch.zeros(n, dtype=torch.float32, device=dev)
-        self._top_ks = torch.full((n,), self._vocab, dtype=torch.int32,
-                                  device=dev)
-        self._top_ps = torch.ones(n, dtype=torch.float32, device=dev)
-        self._pens = torch.ones(n, dtype=torch.float32, device=dev)
-        self._recents = torch.full((n, RECENT_N), -1, dtype=torch.int32,
-                                   device=dev)
-        self._act = torch.zeros(n, dtype=torch.bool, device=dev)
-        self._gen = torch.Generator(device=dev).manual_seed(self._seed)
+        self.carries = DecodeCarries.build(n, self._vocab, RECENT_N, dev)
+        self._seq = 0                   # admissions so far: the key index
+
+    def _decode_fn(self):
+        """The in-place decode step over the pool that the graph captures."""
+        model, c, paged = self.model, self.carries, self.paged
+        if paged is not None:
+            return lambda: model.decode_slots_paged_into(
+                paged.pool, paged.rows, paged.tables, c)
+        layers = self._layers
+        return lambda: model.decode_slots_into(layers, c)
 
     def _build_prefix_cache(self, capacity_mb: float):
         """Mode-matched prefix cache: the paged one pins pool blocks by
@@ -420,6 +440,15 @@ class ServeEngine:
 
     def _loop(self):
         try:
+            # captured with every row inactive (nothing admitted yet)
+            self.graph = DecodeGraph(self._decode_fn(), self.model.device)
+        except BaseException as e:
+            log.exception("serve engine failed to capture its decode step")
+            self.dead = e
+            return
+        finally:
+            self._ready.set()
+        try:
             while not self._stop.is_set():
                 worked = self._step()
                 self.last_step = time.perf_counter()
@@ -489,21 +518,8 @@ class ServeEngine:
         if self.paged is not None and active:
             active = self._ensure_decode_blocks(active)
         # 4. one batched decode step over the pool
-        packed = None
         if active:
-            if self.paged is not None:
-                (packed, self._toks, self._pos,
-                 self._recents) = self.model.decode_slots_paged(
-                    self.paged.pool, self.paged.rows, self.paged.tables,
-                    self._toks, self._pos, self._recents, self._temps,
-                    self._top_ks, self._top_ps, self._pens, self._act,
-                    self._gen)
-            else:
-                (packed, self._toks, self._pos,
-                 self._recents) = self.model.decode_slots(
-                    self._layers, self._toks, self._pos, self._recents,
-                    self._temps, self._top_ks, self._top_ps, self._pens,
-                    self._act, self._gen)
+            self.graph.step()
         # 5. advance the chosen admission by one chunk, queued on the
         # device behind the decode step (a preemption in 3 may have
         # requeued it since)
@@ -511,8 +527,8 @@ class ServeEngine:
             idx = self._prefills.index(pf_job)
             self._rr = idx + 1 if self._advance_prefill(pf_job) else idx
         # 6. one fetch per iteration, then fan out
-        if packed is not None:
-            self._fanout(active, packed.cpu().numpy())
+        if active:
+            self._fanout(active, self.carries.packed.cpu().numpy())
         return True
 
     # -- chunked admission --------------------------------------------------
@@ -530,6 +546,8 @@ class ServeEngine:
         req.slot = slot
         req.admitted.set()
         req.stats = {"queue_wait_s": time.perf_counter() - req.t_enqueue}
+        req.key = request_key(self._seed, self._seq)
+        self._seq += 1
         self._begin_prefill(_Prefill(req, slot))
         return True
 
@@ -541,8 +559,7 @@ class ServeEngine:
             pf.keys = pc.chain_keys(pf.ids)
             matched = pc.match(pf.ids, pf.keys)
             if matched:
-                self._layers = pc.splice(self._layers, pf.slot, pf.keys,
-                                         matched)
+                pc.splice(self._layers, pf.slot, pf.keys, matched)
                 pf.next_block = matched
                 pf.pos = pf.hit_tokens = matched * self.chunk
         self._prefills.append(pf)
@@ -558,8 +575,8 @@ class ServeEngine:
             if self.paged is not None:
                 logits = self.paged.prefill_into(pf.slot, ids, pf.pos)
             else:
-                logits, self._layers = self.model.prefill_chunk(
-                    self._layers, pf.slot, ids, pf.pos)
+                logits, _ = self.model.prefill_chunk(self._layers, pf.slot,
+                                                     ids, pf.pos)
         except ValueError as e:
             # a request-scoped refusal (bounds): the admission dies alone.
             # Anything else may have poisoned the pool and goes on up,
@@ -587,18 +604,22 @@ class ServeEngine:
             pf.next_block += 1
 
     def _complete_prefill(self, pf: _Prefill, logits):
-        """Sample the first token (it stays on the device and rides the
-        next decode step's fetch) and hand the slot to batched decode."""
+        """Sample the first token with draw 0 of the request's key (it
+        stays on the device and rides the next decode step's fetch) and
+        hand the slot to batched decode with its counter at 1."""
         req, slot, scfg = pf.req, pf.slot, pf.req.sampling
-        dev = self.model.device
-        recent = torch.full((1, RECENT_N), -1, dtype=torch.int32, device=dev)
-        tid = self.model.sample_one(logits, self._gen, scfg, recent)
-        self._recents[slot] = -1
-        self._recents[slot, -1] = tid[0]
-        self._toks[slot] = tid[0]
-        self._pos[slot] = pf.n
+        c = self.carries
+        recent = torch.full((1, RECENT_N), -1, dtype=torch.int32,
+                            device=self.model.device)
+        tid = self.model.sample_one(logits, req.key, 0, scfg, recent)
+        c.recents[slot] = -1
+        c.recents[slot, -1] = tid[0]
+        c.toks[slot] = tid[0]
+        c.pos[slot] = pf.n
+        c.keys[slot] = req.key
+        c.counters[slot] = 1
         self._set_slot_sampling(slot, scfg)
-        self._act[slot] = True
+        c.active[slot] = True
         self._prefills.remove(pf)
         req.budget = min(req.max_new_tokens - 1, self.ctx - pf.n - 1)
         req._first_pending = True
@@ -606,10 +627,9 @@ class ServeEngine:
         req.stats["prefix_hit_tokens"] = pf.hit_tokens
 
     def _set_slot_sampling(self, slot: int, scfg: SamplingConfig):
-        self._temps[slot] = scfg.temperature
-        self._top_ks[slot] = scfg.top_k or self._vocab
-        self._top_ps[slot] = 1.0 if scfg.top_p is None else scfg.top_p
-        self._pens[slot] = scfg.repeat_penalty
+        self.carries.set_sampling(
+            slot, scfg.temperature, scfg.top_k or self._vocab,
+            1.0 if scfg.top_p is None else scfg.top_p, scfg.repeat_penalty)
 
     def _abort_prefill(self, pf: _Prefill, error: BaseException | None):
         self._prefills.remove(pf)
@@ -624,7 +644,7 @@ class ServeEngine:
         if self.paged is not None:
             self.paged.release_slot(slot)
         else:
-            self._layers = self.model.slot_release(self._layers, slot)
+            self.model.slot_release(self._layers, slot)
 
     # -- paged-pool pressure: reserve / preempt / resume --------------------
 
@@ -697,14 +717,15 @@ class ServeEngine:
         decode dispatch, so the carries hold no unfetched token, and an
         unfetched first token (`_first_pending`) rides `toks` back in."""
         wp = self._frontier(req)
-        blob = self.paged.swap_out(slot,
-                                   (self._toks, self._pos, self._recents))
+        c = self.carries
+        blob = self.paged.swap_out(slot, (c.toks, c.pos, c.recents, c.keys,
+                                          c.counters))
         self.pool.free(slot)
         self._reqs[slot] = None
         req.slot = None
-        self._act[slot] = False
-        self._toks[slot] = 0
-        self._pos[slot] = 0
+        c.active[slot] = False
+        c.toks[slot] = 0
+        c.pos[slot] = 0
         self._preempted.append(PreemptedSlot(req, "swap", wp, blob))
         log.warning("preempted slot %d (swap, %d tokens): KV pool "
                     "exhausted", slot, wp)
@@ -739,12 +760,15 @@ class ServeEngine:
                     self._fail_unresumable(entry)
                     return
                 self._preempted.pop(0)
-                toks, pos, recents = entry.blob["carries"]
-                self._toks[slot] = int(toks)
-                self._pos[slot] = int(pos)
-                self._recents[slot] = recents.to(self._recents.device)
+                toks, pos, recents, keys, counters = entry.blob["carries"]
+                c = self.carries
+                c.toks[slot] = int(toks)
+                c.pos[slot] = int(pos)
+                c.recents[slot] = recents.to(c.recents.device)
+                c.keys[slot] = int(keys)
+                c.counters[slot] = int(counters)
                 self._set_slot_sampling(slot, req.sampling)
-                self._act[slot] = True
+                c.active[slot] = True
                 self._reqs[slot] = req
                 req.slot = slot
             else:
@@ -807,9 +831,10 @@ class ServeEngine:
             # wipe the row so nothing lingers into the next occupant, and
             # freeze it in the decode step
             self._release_row(slot)
-            self._toks[slot] = 0
-            self._pos[slot] = 0
-            self._act[slot] = False
+            c = self.carries
+            c.toks[slot] = 0
+            c.pos[slot] = 0
+            c.active[slot] = False
         dt = time.perf_counter() - req.t_first if req.t_first else 0.0
         ndec = max(len(req.tokens) - 1, 0)
         req.stats.update({"decode_tokens": ndec, "decode_s": dt,

@@ -27,16 +27,24 @@ Phases (any failure exits non-zero and prints no result line):
      through a paged pool (bt 16, decode on the paged kernel's f32 route),
      on the card, against the contiguous run on the CPU: logits agree
      within 2e-3 and the greedy tokens are identical;
+  4b. graphs: the full flagship (28 layers, bf16, seed 0), 4 slots with
+     ctx 4096, contiguous and paged (1024 blocks of 16): 32 replays of
+     the decode step's captured CUDA graph equal 32 eager steps (tokens,
+     logits, KV bytes, carries) over rows at different positions, one
+     sampled (temperature 0.8, top_k 50) and one free; the replay's
+     device and wall ms beside the eager step's; generate's captured
+     16-step chunks equal the step-by-step loop, greedy and sampled;
   5. serving: the full flagship (28 layers, bf16, seed 0) behind the
      port's HTTP server with 4 slots and ctx 4096 (contiguous pool, prefix
-     cache on at its default) answers 4 concurrent chats and one SSE chat;
+     cache on at its default; every decode step a graph replay) answers 4 concurrent chats and one SSE chat;
      each concurrent result equals the same request sent alone (a rerun
      may hit the prefix cache), and the bf16 flash kernel's launch counts
      show both modes ran;
   6. prefix and paged serving, same model and server: (a) a paged pool of
      1024 blocks of 16 tokens answers phase 5's chats, each equal to the
-     same request alone, with 28 paged decode launches per decode step
-     and both flash modes launched by the paged prefill;
+     same request alone, with 28 paged decode launches per replay of the
+     engine's decode graph and both flash modes launched by the paged
+     prefill;
      (b) four chats sharing a 560-character system message hit at least
      512 prompt tokens after the first, in both modes (blocks shared
      while they run, in paged mode), with tokens equal to the same mode
@@ -339,22 +347,23 @@ def phase_paged_kernels(build_log: str) -> dict:
 
 
 def _greedy(model, logits, n, decode, n_greedy):
-    """n_greedy greedy tokens off prefill logits; decode(tok, pos, recent,
-    carries, active) runs one batch-1 decode step at host position p."""
+    """n_greedy greedy tokens off prefill logits; decode(p, tok, pos,
+    recent, carries) runs one batch-1 decode step at host position p, with
+    carries (key, counter, sampling settings, active)."""
     import torch
     from cake_tpu_torch.ops.sampling import SamplingConfig
     dev = model.device
     recent = torch.full((1, 64), -1, dtype=torch.int32, device=dev)
-    tok = model.sample_one(logits, None, SamplingConfig(), recent)
+    tok = model.sample_one(logits, 0, 0, SamplingConfig(), recent)
     toks = [int(tok[0])]
     pos = torch.tensor([n], dtype=torch.int32, device=dev)
     greedy = [torch.tensor([v], dtype=dt, device=dev) for v, dt in (
-        (0.0, torch.float32), (model.cfg.vocab_size, torch.int32),
-        (1.0, torch.float32), (1.0, torch.float32))]
-    active = torch.ones(1, dtype=torch.bool, device=dev)
+        (0, torch.int64), (1, torch.int64), (0.0, torch.float32),
+        (model.cfg.vocab_size, torch.int32), (1.0, torch.float32),
+        (1.0, torch.float32), (True, torch.bool))]
     while len(toks) < n_greedy:
-        _, tok, pos, recent = decode(n + len(toks) - 1, tok, pos, recent,
-                                     greedy, active)
+        _, tok, pos, recent, greedy[1] = decode(n + len(toks) - 1, tok, pos,
+                                                recent, greedy)
         toks.append(int(tok[0]))
     return toks
 
@@ -371,8 +380,8 @@ def chunked_prefill_and_greedy(model, ids, n_greedy=16):
         logits, cache = model.prefill(cache, ids[p0:p0 + 256], p0)
     launches = flash.launch_counts()
     toks = _greedy(model, logits, len(ids),
-                   lambda p, tok, pos, rec, g, act: model.decode_slots(
-                       cache["layers"], tok, pos, rec, *g, act), n_greedy)
+                   lambda p, tok, pos, rec, g: model.decode_slots(
+                       cache["layers"], tok, pos, rec, *g), n_greedy)
     return logits.float().cpu(), toks, launches
 
 
@@ -391,10 +400,10 @@ def paged_prefill_and_greedy(model, ids, n_greedy=16):
         check(pk.reserve_range(0, p0, len(chunk)), "paged pool too small")
         logits = pk.prefill_into(0, chunk, p0)
 
-    def decode(p, tok, pos, rec, g, act):
+    def decode(p, tok, pos, rec, g):
         check(pk.reserve_range(0, p, 1), "paged pool too small")
         return model.decode_slots_paged(pk.pool, pk.rows, pk.tables, tok,
-                                        pos, rec, *g, act)
+                                        pos, rec, *g)
     toks = _greedy(model, logits, len(ids), decode, n_greedy)
     return logits.float().cpu(), toks, pa.launch_counts()
 
@@ -446,6 +455,86 @@ def _to_device(tree, device):
     if isinstance(tree, list):
         return [_to_device(v, device) for v in tree]
     return tree.to(device)
+
+
+# -- phase 4b: the decode step as a captured CUDA graph ------------------------
+
+
+GRAPH_STEPS = 32
+
+
+def phase_graphs(model, card: str) -> None:
+    """The full flagship (28 layers, bf16), 4 slots with ctx 4096,
+    contiguous and paged (1024 blocks of 16): rows at positions 600, 1100
+    and 300 (greedy, sampled at temperature 0.8 / top_k 50, greedy) and a
+    free row. 32 replays of the captured step equal 32 eager steps in
+    tokens, logits, every KV byte and every carry. Then each step's
+    replay against the eager step, timed; then generate's captured chunks
+    against the step-by-step loop, greedy and sampled."""
+    import torch
+    from cake_tpu_torch.bench.graph_cases import (build_state,
+                                                  graph_vs_eager,
+                                                  step_by_step)
+    from cake_tpu_torch.bench.timing import (device_ms, issue_ms,
+                                             kernel_times, wall_ms)
+    from cake_tpu_torch.models.common.text_model import GEN_CHUNK
+    from cake_tpu_torch.ops.sampling import SamplingConfig
+    greedy = SamplingConfig(temperature=0.0)
+    sampled = SamplingConfig(temperature=0.8, top_k=50)
+    for mode, kv_blocks in (("contiguous", 0), ("paged", 1024)):
+        state = build_state(model, [600, 1100, None, 300],
+                            [greedy, sampled, greedy, greedy], 4096,
+                            kv_blocks=kv_blocks, seed=6)
+        r = graph_vs_eager(model, state, GRAPH_STEPS)
+        sampled_toks = r["tokens"][:, 1, 1].tolist()
+        print(f"graph {mode}: {GRAPH_STEPS} replays vs eager steps, rows at "
+              f"600/1100/300 (row 1 sampled at 0.8, top_k 50) + 1 free: "
+              f"tokens identical {r['tokens_equal']}, KV bytes identical "
+              f"{r['kv_equal']}, carries identical {r['carries_equal']}, "
+              f"max abs logit diff {r['max_logit_diff']:.3e}; launches per "
+              f"replay {r['graph'].launches_per_step}; sampled row's tokens "
+              f"{sampled_toks[:8]}...", flush=True)
+        check(r["graph"].graph is not None, f"graph {mode}: not captured")
+        check(r["tokens_equal"] and r["kv_equal"] and r["carries_equal"],
+              f"graph {mode}: replays differ from eager steps")
+        check(len(set(sampled_toks)) > 1,
+              f"graph {mode}: the sampled row drew one token throughout")
+        graph, eager = r["graph"], r["eager"].step_fn(model)
+        replay_ms = device_ms(graph.step)
+        replay_wall = wall_ms(graph.step, 20)
+        eager_wall = wall_ms(eager, 10)
+        # the eager step's ~1,000 launches fill the launch queue, so a spin
+        # cannot hold them: its device time is the profiler's kernel sum
+        kernels = sum(row[0] for row in kernel_times(eager, 5))
+        eager_dev = (f"kernel sum {kernels:.4f} (idle "
+                     f"{1 - kernels / eager_wall:.3f})" if kernels else
+                     "device ms not measured (the profiler saw no kernel)")
+        # two clocks: a replay's device ms can read above its wall ms
+        print(f"graph {mode} step timing (4 slots, 28 layers, bf16): replay "
+              f"device ms {replay_ms:.4f}, replay wall ms {replay_wall:.4f} "
+              f"(idle {max(0.0, 1 - replay_ms / replay_wall):.3f}); eager "
+              f"step wall ms "
+              f"{eager_wall:.4f}, {eager_dev}; on {card}", flush=True)
+        del state, r, graph, eager
+        torch.cuda.empty_cache()
+    ids = [int(x) for x in torch.randint(
+        0, 256, (600,), generator=torch.Generator().manual_seed(9))]
+    for label, scfg in (("greedy", greedy), ("sampled", sampled)):
+        got, stats = model.generate(ids, 64, scfg, seed=4)
+        want = step_by_step(model, ids, 64, scfg, seed=4)
+        print(f"generate {label}: 600-token prompt, 64 tokens in captured "
+              f"chunks of {GEN_CHUNK} equal to the step-by-step loop "
+              f"{got == want}; {stats['tok_per_s']:.1f} tok/s", flush=True)
+        check(got == want, f"generate {label}: {got} != {want}")
+    run = next(iter(model._runners.values()))
+    # a chunk's ~16,000 graph nodes do not queue behind a spin (the host
+    # blocks until the card drains them), so events around back-to-back
+    # replays time it: the slower of the host and the card
+    chunk_ms = issue_ms(run.graph.step, iters=5, warmup=1)
+    print(f"generate chunk replay: event ms {chunk_ms:.4f} per "
+          f"{GEN_CHUNK} steps ({chunk_ms / GEN_CHUNK:.4f} per token, back to "
+          f"back); wall per token {1e3 / stats['tok_per_s']:.4f} ms (the "
+          f"sampled run); on {card}", flush=True)
 
 
 # -- phases 5 and 6: serving -------------------------------------------------
@@ -597,6 +686,8 @@ def phase_serve(model, card: str) -> tuple[dict, list]:
     from cake_tpu_torch.ops import flash
     served = Served(model)
     try:
+        check(served.engine.graph.graph is not None,
+              "phase 5: the engine captured no graph")
         bodies = [chat_body(i) for i in range(4)] + [chat_body(4, True)]
         flash.reset_launches()
         torch.cuda.synchronize()
@@ -635,30 +726,25 @@ def phase_paged_serve(model, card: str, contiguous: list) -> int:
     # (a) paged pool with the capacity of the contiguous one
     paged = Served(model, kv_blocks=1024, kv_block_tokens=16)
     try:
-        steps = [0]
-        decode = model.decode_slots_paged
-
-        def counting(*a, **kw):
-            steps[0] += 1
-            return decode(*a, **kw)
-        model.decode_slots_paged = counting
+        graph = paged.engine.graph
+        check(graph.graph is not None, "phase 6a: the engine captured no "
+              "graph")
         bodies = [chat_body(i) for i in range(4)] + [chat_body(4, True)]
         torch.cuda.synchronize()
         pa.reset_launches()
         flash.reset_launches()
-        try:
-            results = paged.concurrent(bodies)
-            torch.cuda.synchronize()
-            launches = pa.launch_counts()
-            flash_counts = flash.launch_counts()
-        finally:
-            del model.decode_slots_paged
+        steps = graph.steps
+        results = paged.concurrent(bodies)
+        torch.cuda.synchronize()
+        steps = graph.steps - steps
+        launches = pa.launch_counts()
+        flash_counts = flash.launch_counts()
         _check_chats(results, "phase 6a")
         print(f"paged serve (a): decode launches {launches} over "
-              f"{steps[0]} paged decode steps x {layers} layers; flash "
-              f"launches {flash_counts}", flush=True)
-        check(launches == {"bf16": layers * steps[0], "f32": 0} and steps[0],
-              f"paged decode launches {launches} != {layers} x {steps[0]}")
+              f"{steps} replays of the paged decode step's graph x {layers} "
+              f"layers; flash launches {flash_counts}", flush=True)
+        check(launches == {"bf16": layers * steps, "f32": 0} and steps,
+              f"paged decode launches {launches} != {layers} x {steps}")
         check(flash_counts["bf16"]["fresh"] >= layers * 4
               and flash_counts["bf16"]["append"] > 0
               and sum(flash_counts["f32"].values()) == 0,
@@ -772,6 +858,7 @@ def main() -> int:
     model = build_flagship(layers=None, dtype="bf16", seed=0, device="cuda")
     print(f"serve: flagship 28 layers bf16 built in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
+    phase_graphs(model, card)
     serve_launches, contiguous = phase_serve(model, card)
     paged_launches = phase_paged_serve(model, card, contiguous)
     kernels = []

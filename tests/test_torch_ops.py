@@ -92,9 +92,10 @@ def test_sample_traced_greedy_with_repeat_penalty(rng):
     recent[2, -2:] = np.argsort(logits[2])[:2]              # negatives
     pens = np.array([1.5, 1.0, 2.0, 1.3], np.float32)
     got = tsampling.sample_traced(
-        _t(logits), None, torch.zeros(b), torch.full((b,), v,
-                                                     dtype=torch.int32),
-        torch.ones(b), _t(pens), _t(recent))
+        _t(logits), torch.zeros(b, dtype=torch.int64),
+        torch.zeros(b, dtype=torch.int64), torch.zeros(b),
+        torch.full((b,), v, dtype=torch.int32), torch.ones(b), _t(pens),
+        _t(recent))
     import jax
     key = jax.random.PRNGKey(0)
     want = [int(jsampling.sample_traced(
@@ -109,7 +110,8 @@ def test_sample_traced_top_k_one_is_argmax(rng):
     """A sampled row with top_k=1 is a point mass: exact whatever noise."""
     logits = rng.standard_normal((3, 50)).astype(np.float32)
     got = tsampling.sample_traced(
-        _t(logits), torch.Generator().manual_seed(0), torch.full((3,), 0.8),
+        _t(logits), torch.arange(3, dtype=torch.int64),
+        torch.zeros(3, dtype=torch.int64), torch.full((3,), 0.8),
         torch.ones(3, dtype=torch.int32), torch.ones(3), torch.ones(3),
         torch.full((3, 4), -1, dtype=torch.int32))
     assert got.tolist() == np.argmax(logits, axis=1).tolist()

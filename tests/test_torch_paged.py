@@ -370,6 +370,8 @@ def test_paged_programs_match_jax(pair, monkeypatch):
     v = cfg.vocab_size
     jc = (jnp.zeros(2, jnp.float32), jnp.full(2, v, jnp.int32),
           jnp.ones(2, jnp.float32), jnp.ones(2, jnp.float32))
+    tkeys = torch.zeros(2, dtype=torch.int64)
+    tctr = torch.zeros(2, dtype=torch.int64)
     tc = (torch.zeros(2), torch.full((2,), v, dtype=torch.int32),
           torch.ones(2), torch.ones(2))
     jact = jnp.asarray([False, True])
@@ -379,8 +381,9 @@ def test_paged_programs_match_jax(pair, monkeypatch):
         (jpk, jpool, jrows, jtoks, jpos, jrngs,
          jrec) = jm.decode_slots_paged(jpool, jrows, jtables, jtoks, jpos,
                                        jrngs, jrec, *jc, jact, nb=2)
-        tpk, ttoks, tpos, trec = tm.decode_slots_paged(
-            tpool, trows, ttables, ttoks, tpos, trec, *tc, tact)
+        tpk, ttoks, tpos, trec, tctr = tm.decode_slots_paged(
+            tpool, trows, ttables, ttoks, tpos, trec, tkeys, tctr, *tc,
+            tact)
         jout.append(int(jtoks[1]))
         tout.append(int(ttoks[1]))
     assert tout == jout
