@@ -8,11 +8,16 @@ sequences, continuation mode, QoS headers and the fleet KV handshakes.
 from __future__ import annotations
 
 import json
+import logging
+import sys
 import time
 import uuid
 
 from ..ops.sampling import SamplingConfig
 from ..serve import EngineDown, EngineDraining, QueueFull
+from ..tokenizer import PromptError
+
+log = logging.getLogger("cake_tpu_torch.api")
 
 TOP_K_CHOICES = (1, 5, 10, 20, 40, 64, 100, 200)
 
@@ -56,6 +61,23 @@ def _completion_id() -> str:
     return "chatcmpl-" + uuid.uuid4().hex[:24]
 
 
+def decode_text(tokenizer, ids: list[int]) -> str:
+    """Decode output ids; if the whole list fails, decode per token and
+    drop only the ids that fail (the reference's _decode_text)."""
+    if tokenizer is None or not ids:
+        return ""
+    try:
+        return tokenizer.decode(ids)
+    except Exception:
+        parts = []
+        for i in ids:
+            try:
+                parts.append(tokenizer.decode([i]))
+            except Exception:
+                pass
+        return "".join(parts)
+
+
 def completion_json(state, cid: str, toks: list[int], stats: dict,
                     n_in: int) -> dict:
     ended = bool(toks) and state.model.cfg.is_eos(toks[-1])
@@ -68,7 +90,8 @@ def completion_json(state, cid: str, toks: list[int], stats: dict,
         "choices": [{
             "index": 0,
             "message": {"role": "assistant",
-                        "content": state.tokenizer.decode(content_ids)},
+                        "content": decode_text(state.tokenizer,
+                                               content_ids)},
             "finish_reason": "stop" if ended else "length",
         }],
         "usage": {
@@ -78,6 +101,16 @@ def completion_json(state, cid: str, toks: list[int], stats: dict,
             "tokens_per_second": round(stats.get("tok_per_s", 0.0), 2),
         },
     }
+
+
+def _client_fault(e: Exception) -> bool:
+    """Whether building a prompt failed on the request: text without a
+    tokenizer, or the chat template's own error (its raise_exception, a
+    field the messages lack). jinja2 is looked up, not imported: a
+    template error can only come from a template that was built."""
+    jinja2 = sys.modules.get("jinja2")
+    return isinstance(e, PromptError) or (
+        jinja2 is not None and isinstance(e, jinja2.TemplateError))
 
 
 def chat_completions(handler, state) -> None:
@@ -99,7 +132,15 @@ def chat_completions(handler, state) -> None:
     except (TypeError, ValueError) as e:
         return handler.send_json({"error": f"invalid sampling params: {e}"},
                                  400)
-    prompt_ids = state.tokenizer.chat_prompt_ids(messages)
+    try:
+        prompt_ids = state.tokenizer.chat_prompt_ids(messages)
+    except Exception as e:
+        if not _client_fault(e):
+            log.exception("building the prompt of %d messages failed",
+                          len(messages))
+            return handler.send_json({"error": "internal error"}, 500)
+        return handler.send_json({"error": f"cannot build the prompt: {e}"},
+                                 400)
     cid = _completion_id()
     try:
         req = state.engine.submit(prompt_ids, request_id=cid, **kw)

@@ -73,9 +73,11 @@ def case_args(case: dict) -> tuple:
 
 # (name, paged_case kwargs) of the kernel checks on the card: bt 16 and
 # 64, D 128 and 64, ragged frontiers in one batch with an all-NULL row,
-# stale tenants, a shared block; and frontiers whose live block counts are
+# stale tenants, a shared block; frontiers whose live block counts are
 # 1, C - 1, C, C + 1 and 2C + 1 for the kernel's cluster of C = 8 ranks
-# (each rank walks every C-th block), at bt 16 and 64
+# (each rank walks every C-th block), at bt 16 and 64; and the attention
+# shapes of the checkpoint families (synth_checkpoint.family_attention),
+# named by family, GQA group and a D other than 128
 CARD_CASES = [
     ("ragged_bt16", dict(frontiers=[1, 15, 16, 620, 4000], null_rows=1)),
     ("ragged_bt64", dict(frontiers=[1, 15, 16, 620, 4000], bt=64,
@@ -91,3 +93,23 @@ CARD_CASES = [
     ("cluster_edges_bt64", dict(frontiers=[63, 400, 511, 512, 1060],
                                 bt=64)),
 ]
+FAMILY_CASE_DATA = {
+    "olmo2": dict(frontiers=[1, 620, 4000], null_rows=1),
+    "phi4": dict(frontiers=[15, 620, 2000], stale=True, shared=True),
+    "exaone4": dict(frontiers=[16, 620, 3000], null_rows=1),
+}
+
+
+def _family_cases() -> list:
+    from .synth_checkpoint import family_attention
+    cases = []
+    for fam, data in FAMILY_CASE_DATA.items():
+        a = family_attention(fam)
+        shape = dict(hq=a["hq"], hkv=a["hkv"], d=a["d"])
+        name = f"{fam}_g{a['hq'] // a['hkv']}" + (
+            f"_d{a['d']}" if a["d"] != 128 else "")
+        cases.append((name, dict(data, **shape)))
+    return cases
+
+
+CARD_CASES += _family_cases()

@@ -36,8 +36,8 @@ from pathlib import Path
 H100_PEAK_FLOPS = {"bf16": 989e12,   # dense tensor-core peak, H100 SXM
                    "f32": 67e12}     # float32 outside the tensor cores
 H100_HBM_BYTES_S = 3.35e12
-SHAPES = (("bf16", "bfloat16", 620), ("f32", "float32", 620),
-          ("bf16_p4000", "bfloat16", 4000))
+SHAPES = (("bf16", "bfloat16", 620, {}), ("f32", "float32", 620, {}),
+          ("bf16_p4000", "bfloat16", 4000, {}))
 ROOT = Path(__file__).resolve().parents[2]
 ISSUE_REPEATS = 5   # readings of issue_ms per side with --turns
 
@@ -85,9 +85,20 @@ def library_args(c):
                                                  enable_gqa=True)
 
 
-def measure(with_plain: bool = False, issue_repeats: int = 1) -> dict:
-    """{entry: timings} at SHAPES for the imported package's kernel;
-    issue_ms is the least of `issue_repeats` readings."""
+def family_shapes() -> tuple:
+    """bf16 at p = 620 at each checkpoint family's (Hq, Hkv, D)."""
+    from cake_tpu_torch.bench.synth_checkpoint import (FAMILIES,
+                                                       family_attention)
+    return tuple((f"bf16_{fam}", "bfloat16", 620,
+                  {k: family_attention(fam)[k] for k in ("hq", "hkv", "d")})
+                 for fam in FAMILIES)
+
+
+def measure(with_plain: bool = False, issue_repeats: int = 1,
+            shapes=SHAPES) -> dict:
+    """{entry: timings} at `shapes` ((entry, dtype, p, paged_case kwargs))
+    for the imported package's kernel; issue_ms is the least of
+    `issue_repeats` readings."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend
@@ -95,9 +106,9 @@ def measure(with_plain: bool = False, issue_repeats: int = 1) -> dict:
     from cake_tpu_torch.bench.timing import device_ms, issue_ms
     from cake_tpu_torch.ops import paged_attention as pa
     timings = {}
-    for entry, dtype_name, p in SHAPES:
+    for entry, dtype_name, p, shape in shapes:
         dtype = getattr(torch, dtype_name)
-        c = paged_case([p] * 4, dtype=dtype, device="cuda", seed=p)
+        c = paged_case([p] * 4, dtype=dtype, device="cuda", seed=p, **shape)
         args = case_args(c)
         err = (pa.paged_decode_attention_kernel(*args).float()
                - pa.paged_decode_attention_ref(*args).float()).abs().max()
@@ -105,7 +116,11 @@ def measure(with_plain: bool = False, issue_repeats: int = 1) -> dict:
 
         def kern():
             return pa.paged_decode_attention_kernel(*args)
+        again = pa.paged_decode_attention_kernel(*args)
         t = {"p": p, "max_abs_err": err.item(), "ms": device_ms(kern),
+             "same_bits": bool(torch.equal(kern(), again)),
+             "hq": c["q"].shape[2], "hkv": c["k"].shape[2],
+             "d": c["q"].shape[3],
              "issue_ms": min(issue_ms(kern) for _ in range(issue_repeats)),
              "library_ms": device_ms(
                  lambda: F.scaled_dot_product_attention(*lib_args,

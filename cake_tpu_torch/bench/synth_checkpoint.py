@@ -1,0 +1,249 @@
+"""Checkpoint directories written from seeded weights, for the smoke and
+the tests: the repository holds no published checkpoint and no published
+tokenizer, and nothing may be downloaded.
+
+* `FAMILIES`: config.json dicts at the widths of three published models
+  (the source of each beside it, the fields assumed listed above it);
+  `family_config` cuts the depth only.
+* `model_params(config, seed, ...)`: seeded weights (`init_params`, with
+  the norms drawn around 1 when `randomize_norms`, so identity norms hide
+  nothing); `write_model(dir, config, params, shards)` writes them
+  through the port's exporter as safetensors shards, Phi-4 with its fused
+  `qkv_proj` / `gate_up_proj` names.
+* `write_tokenizer(dir, specials, ...)`: a byte-level BPE tokenizer.json
+  (the 256 byte tokens, then merges learned by `learn_merges`, a small
+  deterministic learner, from `CORPUS`, a fixed multilingual text) with
+  the given special tokens at the given ids, and a tokenizer_config.json
+  with a ChatML template.
+"""
+from __future__ import annotations
+
+import collections
+import json
+import os
+import re
+
+import torch
+
+from ..models.common.config import FLAGSHIP_QWEN3_0_6B, config_from_hf_dict
+from ..models.common.layers import init_params
+from ..utils.bpe import GPT2_PATTERN, bytes_to_unicode, translate_regex
+from ..utils.export import params_to_hf_tensors, write_checkpoint
+
+# The widths of three published models, as config.json dicts, with the
+# repository each is taken from beside it. None of these fields has been
+# checked against the repository's own config.json: they follow the
+# model cards' tables, not a copy of the files, and fields the port does
+# not read are left out. Assumed beyond the widths: EOS and BOS ids, OLMo2's
+# rope_theta, EXAONE4's rope_theta, its llama3 rope_scaling and its
+# "LLLG" pattern with window 4096, and Phi-4's rope_theta. The EXAONE4
+# entry is EXAONE-4.0-1.2B's widths with an assumed LLLG pattern: the
+# card names the 3:1 local/global hybrid for the 32B, and the 1.2B may
+# ship full attention in every layer. Confirm an entry only once that
+# model's config.json is in the repository.
+FAMILIES = {
+    # allenai/OLMo-2-0425-1B widths
+    "olmo2": dict(
+        architectures=["Olmo2ForCausalLM"], vocab_size=100352,
+        hidden_size=2048, intermediate_size=8192, num_hidden_layers=16,
+        num_attention_heads=16, num_key_value_heads=16,
+        max_position_embeddings=4096, rms_norm_eps=1e-6,
+        rope_theta=500000.0, tie_word_embeddings=False,
+        eos_token_id=100257, pad_token_id=100277),
+    # LGAI-EXAONE/EXAONE-4.0-1.2B widths; LLLG pattern and window assumed
+    "exaone4": dict(
+        architectures=["Exaone4ForCausalLM"], vocab_size=102400,
+        hidden_size=2048, intermediate_size=4096, num_hidden_layers=30,
+        num_attention_heads=32, num_key_value_heads=8, head_dim=64,
+        max_position_embeddings=65536, rms_norm_eps=1e-5,
+        rope_theta=1000000.0,
+        rope_scaling=dict(rope_type="llama3", factor=16.0,
+                          high_freq_factor=4.0, low_freq_factor=1.0,
+                          original_max_position_embeddings=8192),
+        sliding_window=4096, sliding_window_pattern="LLLG",
+        tie_word_embeddings=True, bos_token_id=1, eos_token_id=361),
+    # microsoft/Phi-4-mini-instruct widths (rope_scaling, a longrope
+    # entry, left out: neither package implements it)
+    "phi4": dict(
+        architectures=["Phi3ForCausalLM"], vocab_size=200064,
+        hidden_size=3072, intermediate_size=8192, num_hidden_layers=32,
+        num_attention_heads=24, num_key_value_heads=8,
+        max_position_embeddings=131072, partial_rotary_factor=0.75,
+        rms_norm_eps=1e-5, rope_theta=10000.0, tie_word_embeddings=True,
+        bos_token_id=199999, eos_token_id=199999),
+}
+
+CHATML_TEMPLATE = (
+    "{% for message in messages %}"
+    "{{ '<|im_start|>' + message['role'] + '\\n' + message['content'] "
+    "+ '<|im_end|>' + '\\n' }}"
+    "{% endfor %}"
+    "{% if add_generation_prompt %}{{ '<|im_start|>assistant\\n' }}"
+    "{% endif %}")
+
+# Qwen3's special tokens at Qwen3's ids
+QWEN3_SPECIALS = {"<|endoftext|>": 151643, "<|im_start|>": 151644,
+                  "<|im_end|>": 151645}
+
+CORPUS = (
+    "The card serves chat requests from a paged cache of keys and values. "
+    "Each request is prefilled in chunks of 256 tokens, then decoded one "
+    "token at a time by a captured graph. "
+    "Die Karte beantwortet Anfragen aus einem Seitenspeicher; jede Anfrage "
+    "wird in Blöcken vorbereitet. "
+    "La carte répond aux requêtes depuis un cache paginé, et chaque requête "
+    "est décodée un jeton à la fois. "
+    "El servidor responde en español con números como 42, 3.14 y 2026. "
+    "显卡从分页缓存中提供聊天请求，每个请求分块预填充。"
+    "カードはページ化されたキャッシュから応答します。"
+    "카드는 페이지 캐시에서 채팅 요청을 처리합니다. "
+    "Карта обслуживает запросы из страничного кэша. "
+    "البطاقة تخدم طلبات الدردشة. "
+    "Emoji and symbols: 🚀 ✓ → ½ ² Ⅻ.\n\n"
+    "def serve(request):\n    return engine.submit(request.ids)\n")
+
+
+def family_config(family: str, layers: int | None = None) -> dict:
+    """The family's published config.json dict, its depth cut to `layers`
+    (widths are never changed)."""
+    cfg = dict(FAMILIES[family])
+    if layers:
+        cfg["num_hidden_layers"] = layers
+    return cfg
+
+
+def family_attention(family: str) -> dict:
+    """hq, hkv, d and window of the family's attention layers at its
+    published widths, read through the port's adapter: the shapes the
+    kernels are held at on the card (window None: full attention only)."""
+    cfg = config_from_hf_dict(FAMILIES[family])
+    return dict(hq=cfg.num_attention_heads, hkv=cfg.num_key_value_heads,
+                d=cfg.head_dim, window=cfg.sliding_window)
+
+
+def flagship_config(layers: int | None = None) -> dict:
+    cfg = dict(FLAGSHIP_QWEN3_0_6B)
+    if layers:
+        cfg["num_hidden_layers"] = layers
+    return cfg
+
+
+def _norms(params: dict):
+    """Every norm's {"weight": ...} dict of a parameter tree."""
+    yield params["norm"]
+    for layer in params["layers"]:
+        for node in (layer, layer["self_attn"]):
+            yield from (v for k, v in node.items() if k.endswith("norm"))
+
+
+@torch.no_grad()
+def model_params(config: dict, seed: int = 0,
+                 dtype: torch.dtype = torch.bfloat16, device="cpu",
+                 randomize_norms: bool = False) -> dict:
+    """init_params(seed) of the config; with randomize_norms every norm
+    weight is drawn as 1 + 0.2 * N(0, 1) from seed + 1."""
+    params = init_params(config_from_hf_dict(config), seed, dtype, device)
+    if randomize_norms:
+        gen = torch.Generator().manual_seed(seed + 1)
+        for norm in _norms(params):
+            w = norm["weight"]
+            norm["weight"] = (1 + 0.2 * torch.randn(w.shape, generator=gen)
+                              ).to(device=device, dtype=dtype)
+    return params
+
+
+def write_model(model_dir: str, config: dict, params: dict,
+                shards: int = 1) -> int:
+    """config.json and the params as safetensors (Phi-4 with fused
+    names). Returns the bytes of tensor data written."""
+    cfg = config_from_hf_dict(config)
+    tensors = params_to_hf_tensors(params, fuse_phi=cfg.fused_qkv)
+    return write_checkpoint(model_dir, config, tensors, shards)
+
+
+def learn_merges(text: str, n_merges: int) -> list[tuple[str, str]]:
+    """Byte-level BPE merges learned from `text`: words split by the GPT-2
+    pattern, each pass merging the most frequent adjacent pair (ties to
+    the smaller pair), until n_merges or no pair occurs twice."""
+    b2u = bytes_to_unicode()
+    rx = re.compile(translate_regex(GPT2_PATTERN))
+    counts = collections.Counter(
+        tuple(b2u[b] for b in w.encode("utf-8")) for w in rx.findall(text))
+    words = dict(counts)
+    merges: list[tuple[str, str]] = []
+    while len(merges) < n_merges:
+        pairs: collections.Counter = collections.Counter()
+        for w, c in words.items():
+            for a, b in zip(w, w[1:]):
+                pairs[(a, b)] += c
+        if not pairs:
+            break
+        best = min(pairs, key=lambda p: (-pairs[p], p))
+        if pairs[best] < 2:
+            break
+        merges.append(best)
+        merged = {}
+        for w, c in words.items():
+            out, i = [], 0
+            while i < len(w):
+                if i + 1 < len(w) and (w[i], w[i + 1]) == best:
+                    out.append(w[i] + w[i + 1])
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            merged[tuple(out)] = merged.get(tuple(out), 0) + c
+        words = merged
+    return merges
+
+
+def tokenizer_json(specials: dict[str, int], n_merges: int = 400,
+                   text: str = CORPUS) -> dict:
+    """A byte-level BPE tokenizer.json: ids 0-255 the byte tokens, then
+    the learned merges' tokens, then `<|reserved_i|>` fillers up to the
+    first special id (added tokens take the ids right after the vocab),
+    and `specials` ({content: id}, consecutive ids) as special added
+    tokens."""
+    vocab = {c: i for i, c in enumerate(
+        bytes_to_unicode()[b] for b in range(256))}
+    merges = learn_merges(text, n_merges)
+    for a, b in merges:
+        vocab.setdefault(a + b, len(vocab))
+    ids = sorted(specials.values())
+    if ids != list(range(ids[0], ids[0] + len(ids))) or ids[0] < len(vocab):
+        raise ValueError(f"special ids {ids} must be consecutive and past "
+                         f"the {len(vocab)} byte and merged tokens")
+    for i in range(len(vocab), ids[0]):
+        vocab[f"<|reserved_{i}|>"] = i
+    byte_level = {"type": "ByteLevel", "add_prefix_space": False,
+                  "trim_offsets": False, "use_regex": True}
+    return {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [
+            {"id": i, "content": t, "single_word": False, "lstrip": False,
+             "rstrip": False, "normalized": False, "special": True}
+            for t, i in sorted(specials.items(), key=lambda x: x[1])],
+        "normalizer": None, "pre_tokenizer": byte_level,
+        "post_processor": byte_level, "decoder": byte_level,
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": False,
+                  "byte_fallback": False, "ignore_merges": False,
+                  "vocab": vocab, "merges": [[a, b] for a, b in merges]},
+    }
+
+
+def write_tokenizer(model_dir: str, specials: dict[str, int],
+                    eos_token: str = "<|im_end|>",
+                    chat_template: str = CHATML_TEMPLATE,
+                    n_merges: int = 400) -> None:
+    """tokenizer.json (tokenizer_json) and a tokenizer_config.json with
+    the chat template and the EOS token."""
+    os.makedirs(model_dir, exist_ok=True)
+    with open(os.path.join(model_dir, "tokenizer.json"), "w",
+              encoding="utf-8") as f:
+        json.dump(tokenizer_json(specials, n_merges), f, ensure_ascii=False)
+    with open(os.path.join(model_dir, "tokenizer_config.json"), "w",
+              encoding="utf-8") as f:
+        json.dump({"chat_template": chat_template, "eos_token": eos_token,
+                   "bos_token": None}, f, ensure_ascii=False, indent=1)

@@ -1,17 +1,22 @@
 """Command line (counterpart of cake_tpu/cli.py, `serve` and `run`).
 
-    python -m cake_tpu_torch.cli serve --flagship [--seed N] [--port P] [--cpu]
-        [--prefix-cache-mb MB] [--kv-blocks N] [--kv-block-tokens T]
-    python -m cake_tpu_torch.cli run --flagship "prompt" [--max-tokens N]
-        [--temperature T] [--seed N]
+    python -m cake_tpu_torch.cli serve (MODEL | --flagship) [--arch A]
+        [--dtype D] [--seed N] [--port P] [--cpu] [--prefix-cache-mb MB]
+        [--kv-blocks N] [--kv-block-tokens T]
+    python -m cake_tpu_torch.cli run (MODEL | --flagship) "prompt"
+        [--max-tokens N] [--temperature T] [--seed N]
 
-`--flagship` is the Qwen3-0.6B shape with seeded random weights (loading
-a checkpoint is not ported yet); `--layers` cuts its depth. The model
-runs on `cuda` unless `--cpu` is given. `serve` keeps the reference's
-defaults: the shared-prefix cache on at 256 MB, and a contiguous KV pool
-unless `--kv-blocks` asks for a paged one. `--seed` seeds the weights and
-the sampling keys (serve: one key per admission; run: the request's).
-`run` decodes through generate's captured chunks of 16 steps.
+MODEL is a local HF-layout checkpoint directory or a repo id already in
+the local Hugging Face cache (runtime.build_text_model), served with its
+own tokenizer.json and chat template; `--arch` overrides its config's
+architecture. `--flagship` is the other choice: the Qwen3-0.6B shape with
+seeded random weights and the byte tokenizer; `--layers` cuts its depth.
+The model runs on `cuda` unless `--cpu` is given. `serve` keeps the
+reference's defaults: the shared-prefix cache on at 256 MB, and a
+contiguous KV pool unless `--kv-blocks` asks for a paged one. `--seed`
+seeds the sampling keys (serve: one key per admission; run: the
+request's) and the flagship's weights. `run` decodes through generate's
+captured chunks of 16 steps.
 """
 from __future__ import annotations
 
@@ -44,27 +49,50 @@ def build_flagship(layers: int | None = None, dtype: str = "bf16",
 
 
 def _model_args(p: argparse.ArgumentParser) -> None:
-    p.add_argument("--flagship", action="store_true", required=True,
-                   help="Qwen3-0.6B shape, seeded random weights")
+    which = p.add_mutually_exclusive_group(required=True)
+    which.add_argument("model", nargs="?", default=None,
+                       help="checkpoint directory or cached HF repo id")
+    which.add_argument("--flagship", action="store_true",
+                       help="Qwen3-0.6B shape, seeded random weights")
+    p.add_argument("--arch", default=None,
+                   help="architecture or family, overriding config.json")
     p.add_argument("--layers", type=int, default=None,
-                   help="cut the depth to this many blocks")
+                   help="cut the flagship's depth to this many blocks")
     p.add_argument("--dtype", default="bf16")
     p.add_argument("--seed", type=int, default=0,
-                   help="seeds the random weights and the sampling keys")
+                   help="seeds the sampling keys (and the flagship's "
+                        "random weights)")
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
 
 
-def cmd_serve(args) -> int:
+def load_model(args, max_cache_len: int = 2048):
+    """(model, tokenizer, model_id) of the parsed arguments."""
+    device = "cpu" if args.cpu else None
+    if args.flagship:
+        model = build_flagship(args.layers, args.dtype, args.seed, device)
+        return model, model.tokenizer, "cake-tpu-torch"
+    from .runtime import build_text_model
+    return build_text_model(args.model, args.dtype, args.arch,
+                            max_cache_len=max_cache_len, seed=args.seed,
+                            device=device)
+
+
+def build_server(args):
+    """The serve command's HTTP server (not started) over its engine."""
     from .api.server import create_app
-    model = build_flagship(args.layers, args.dtype, args.seed,
-                           "cpu" if args.cpu else None)
+    model, tokenizer, model_id = load_model(args, max_cache_len=args.ctx)
     engine = ServeEngine(model, slots=args.slots, max_queue=args.max_queue,
                          ctx_len=args.ctx, seed=args.seed,
                          prefill_chunk=args.prefill_chunk,
                          prefix_cache_mb=args.prefix_cache_mb,
                          kv_blocks=args.kv_blocks,
                          kv_block_tokens=args.kv_block_tokens)
-    app = create_app(model, engine, model.tokenizer, args.host, args.port)
+    return create_app(model, engine, tokenizer, args.host, args.port,
+                      model_id=model_id)
+
+
+def cmd_serve(args) -> int:
+    app = build_server(args)
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, lambda *_: stop.set())
@@ -77,21 +105,22 @@ def cmd_serve(args) -> int:
 
 
 def cmd_run(args) -> int:
-    model = build_flagship(args.layers, args.dtype, args.seed,
-                           "cpu" if args.cpu else None)
-    ids = model.tokenizer.chat_prompt_ids(
+    model, tokenizer, _ = load_model(args)
+    ids = tokenizer.chat_prompt_ids(
         [{"role": "user", "content": args.prompt}])
     out, stats = model.generate(
         ids, max_new_tokens=args.max_tokens,
         sampling=SamplingConfig(temperature=args.temperature),
         seed=args.seed)
-    print(model.tokenizer.decode(out))
+    if out and model.cfg.is_eos(out[-1]):
+        out = out[:-1]
+    print(tokenizer.decode(out))
     print(f"[{len(out)} tokens, ttft {stats['ttft_s']:.3f}s, "
           f"{stats['tok_per_s']:.1f} tok/s]", file=sys.stderr)
     return 0
 
 
-def main(argv=None) -> int:
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="cake-tpu-torch")
     ap.add_argument("-v", "--verbose", action="store_true")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -118,7 +147,14 @@ def main(argv=None) -> int:
     r.add_argument("--max-tokens", type=int, default=32)
     r.add_argument("--temperature", type=float, default=0.0)
     r.set_defaults(fn=cmd_run)
+    return ap
+
+
+def main(argv=None) -> int:
+    ap = parser()
     args = ap.parse_args(argv)
+    if args.layers and not args.flagship:
+        ap.error("--layers cuts the flagship only")
     logging.basicConfig(level=logging.DEBUG if args.verbose
                         else logging.WARNING)
     return args.fn(args)

@@ -4,16 +4,22 @@ cake_tpu/models/common/config.py, dense families only).
 `config_from_hf_dict` normalizes an HF config.json dict through a family
 adapter into one `ModelConfig`; per-layer behaviour is resolved into
 `LayerSpec`s so the decoder block is one generic function driven by data.
-The families here are the dense pre-norm SiLU ones (llama, qwen2, qwen3,
-mistral, falcon3); MoE, GDN-hybrid, post/sandwich-norm, GELU and
-interleaved-SWA families are not ported yet and raise.
+The families here are the dense SiLU ones: pre-norm (llama, qwen2, qwen3,
+mistral, falcon3, phi4 with its pre-fused projections and partial RoPE)
+and post-norm (olmo2 with QK-norm before the head split, exaone4 with
+local/global layers and NoPE global layers). Gemma3, the MoE and the
+GDN-hybrid families raise, naming the ROADMAP item that ports them; an
+unknown architecture raises too.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Any
 
 from ...ops.rope import RopeScaling
+
+log = logging.getLogger(__name__)
 
 # The repo's flagship shape (Qwen3-0.6B), equal to FLAGSHIP in the JAX
 # package's __graft_entry__.py. Served with seeded random weights.
@@ -30,7 +36,9 @@ FLAGSHIP_QWEN3_0_6B = dict(
 class LayerSpec:
     """Resolved per-layer behaviour, consumed by the generic block."""
     kind: str = "full"            # 'full' | 'swa'
+    use_rope: bool = True         # False: EXAONE4's global layers (NoPE)
     window: int | None = None     # sliding-window size when kind == 'swa'
+    norm_style: str = "pre"       # 'pre' | 'post' (OLMo2, EXAONE4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,21 +60,31 @@ class ModelConfig:
     eos_token_ids: tuple[int, ...] = ()
     tie_word_embeddings: bool = False
     qkv_bias: bool = False
+    fused_qkv: bool = False        # Phi-3/4 checkpoints: one qkv_proj
+                                   # and one gate_up_proj
     qk_norm: bool = False
+    qk_norm_pre_reshape: bool = False  # OLMo2: norm full q/k before heads
+    norm_style: str = "pre"
     sliding_window: int | None = None
     # the reference's per-layer pattern: True = full attention, False =
     # sliding window (layers past the tuple are full); empty = every layer
     # windowed when sliding_window is set
     global_layers: tuple[bool, ...] = ()
+    global_rope: bool = True       # False: global layers skip RoPE (EXAONE4)
+    attn_scale: float | None = None    # None: head_dim ** -0.5
 
     def layer_spec(self, i: int) -> LayerSpec:
+        """The reference's rules (its linear and MoE kinds aside)."""
         if self.global_layers:
             if i >= len(self.global_layers) or self.global_layers[i]:
-                return LayerSpec(kind="full")
-            return LayerSpec(kind="swa", window=self.sliding_window)
+                return LayerSpec(kind="full", use_rope=self.global_rope,
+                                 norm_style=self.norm_style)
+            return LayerSpec(kind="swa", window=self.sliding_window,
+                             norm_style=self.norm_style)
         if self.sliding_window is not None:
-            return LayerSpec(kind="swa", window=self.sliding_window)
-        return LayerSpec(kind="full")
+            return LayerSpec(kind="swa", window=self.sliding_window,
+                             norm_style=self.norm_style)
+        return LayerSpec(kind="full", norm_style=self.norm_style)
 
     def layer_specs(self) -> tuple[LayerSpec, ...]:
         return tuple(self.layer_spec(i) for i in range(self.num_hidden_layers))
@@ -153,25 +171,90 @@ def _falcon3(d):
     return ModelConfig(**_base(d, "falcon3"))
 
 
+def _phi4(d):
+    rs = d.get("rope_scaling") or {}
+    if (rs.get("rope_type") or rs.get("type")) == "longrope":
+        # the reference reads no `factor` from a longrope entry and so
+        # builds unscaled tables; the port does the same and says so
+        log.warning("rope_type 'longrope' not implemented; using unscaled "
+                    "RoPE")
+    return ModelConfig(**_base(
+        d, "phi4", fused_qkv=True,
+        partial_rotary_factor=float(d.get("partial_rotary_factor", 1.0)),
+    ))
+
+
+def _olmo2(d):
+    return ModelConfig(**_base(
+        d, "olmo2", qk_norm=True, qk_norm_pre_reshape=True,
+        norm_style="post"))
+
+
+def _exaone4(d):
+    """EXAONE 4.0: local (sliding window, RoPE) and global (full, NoPE)
+    layers, QK-norm, post-norm. The pattern is an int period or HF's
+    string form ("LLLG": L local, G global)."""
+    n = int(d["num_hidden_layers"])
+    pattern = (d.get("sliding_window_pattern")
+               or d.get("global_layer_period") or 4)
+    if isinstance(pattern, str):
+        global_layers = tuple(pattern[i % len(pattern)].upper() == "G"
+                              for i in range(n))
+    else:
+        global_layers = tuple((i + 1) % int(pattern) == 0 for i in range(n))
+    return ModelConfig(**_base(
+        d, "exaone4", qk_norm=True, norm_style="post",
+        sliding_window=int(d.get("sliding_window", 4096)),
+        global_layers=global_layers, global_rope=False))
+
+
 ARCH_ADAPTERS = {
     "LlamaForCausalLM": _llama,
     "Qwen2ForCausalLM": _qwen2,
     "Qwen3ForCausalLM": _qwen3,
     "MistralForCausalLM": _mistral,
     "FalconForCausalLM": _falcon3,
+    "Phi3ForCausalLM": _phi4,
+    "Phi4ForCausalLM": _phi4,
+    "OLMo2ForCausalLM": _olmo2,
+    "Olmo2ForCausalLM": _olmo2,
+    "ExaoneForCausalLM": _exaone4,
+    "Exaone4ForCausalLM": _exaone4,
 }
 
 FAMILY_ADAPTERS = {
     "llama": _llama, "llama3": _llama, "qwen2": _qwen2, "qwen3": _qwen3,
-    "mistral": _mistral, "falcon3": _falcon3,
+    "mistral": _mistral, "falcon3": _falcon3, "phi4": _phi4, "phi3": _phi4,
+    "olmo2": _olmo2, "exaone4": _exaone4,
 }
+
+# families of the reference the port has not taken over yet -> the ROADMAP
+# item that brings them
+NOT_PORTED = {
+    "Gemma3ForCausalLM": "module 6 (Gemma3)", "gemma3": "module 6 (Gemma3)",
+    "Qwen3MoeForCausalLM": "module 10 (MoE)", "qwen3_moe": "module 10 (MoE)",
+    "Qwen3_5ForConditionalGeneration": "module 10 (GDN)",
+    "qwen3_5": "module 10 (GDN)",
+    "Qwen3_5MoeForConditionalGeneration": "module 10 (GDN and MoE)",
+    "qwen3_5_moe": "module 10 (GDN and MoE)",
+    "Qwen3NextForCausalLM": "module 10 (GDN and MoE)",
+}
+
+
+def detect_arch(config: dict) -> str:
+    """The first `architectures` entry of an HF config dict."""
+    archs = config.get("architectures") or []
+    return archs[0] if archs else ""
 
 
 def config_from_hf_dict(d: dict, arch: str | None = None) -> ModelConfig:
     """Unlike the reference, an unknown architecture raises: the families
     the port has not taken over yet must not silently run as llama."""
-    archs = d.get("architectures") or []
-    name = arch or (archs[0] if archs else "")
+    name = arch or detect_arch(d)
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"architecture {name!r} is not ported yet: ROADMAP "
+            f"{NOT_PORTED[name]}")
     adapter = ARCH_ADAPTERS.get(name) or FAMILY_ADAPTERS.get(name)
     if adapter is None:
         raise ValueError(f"architecture {name!r} is not ported yet")

@@ -28,6 +28,11 @@ from .config import LayerSpec, ModelConfig
 INIT_STD = 0.02
 
 
+NORM_NAMES = {"pre": ("input_layernorm", "post_attention_layernorm"),
+              "post": ("post_attention_layernorm",
+                       "post_feedforward_layernorm")}
+
+
 def init_params(cfg: ModelConfig, seed: int = 0,
                 dtype: torch.dtype = torch.bfloat16, device="cpu") -> dict:
     """Seeded random weights (std 0.02, ones for the norms). Drawn in
@@ -45,7 +50,7 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     h, i = cfg.hidden_size, cfg.intermediate_size
     sq, skv = cfg.size_q, cfg.size_kv
     layers = []
-    for _ in range(cfg.num_hidden_layers):
+    for spec in cfg.layer_specs():
         attn = {"q_proj": {"weight": normal(sq, h)},
                 "k_proj": {"weight": normal(skv, h)},
                 "v_proj": {"weight": normal(skv, h)},
@@ -55,16 +60,19 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                 attn[name]["bias"] = torch.zeros(n, dtype=dtype,
                                                  device=device)
         if cfg.qk_norm:
-            attn["q_norm"] = {"weight": ones(cfg.head_dim)}
-            attn["k_norm"] = {"weight": ones(cfg.head_dim)}
-        layers.append({
+            # OLMo2 norms the whole projection, the others each head
+            pre = cfg.qk_norm_pre_reshape
+            attn["q_norm"] = {"weight": ones(sq if pre else cfg.head_dim)}
+            attn["k_norm"] = {"weight": ones(skv if pre else cfg.head_dim)}
+        layer = {
             "self_attn": attn,
             "mlp": {"gate_proj": {"weight": normal(i, h)},
                     "up_proj": {"weight": normal(i, h)},
                     "down_proj": {"weight": normal(h, i)}},
-            "input_layernorm": {"weight": ones(h)},
-            "post_attention_layernorm": {"weight": ones(h)},
-        })
+        }
+        for name in NORM_NAMES[spec.norm_style]:
+            layer[name] = {"weight": ones(h)}
+        layers.append(layer)
     params = {"layers": layers,
               "embed_tokens": {"weight": normal(cfg.vocab_size, h)},
               "norm": {"weight": ones(h)}}
@@ -100,30 +108,39 @@ def attention_forward(cfg: ModelConfig, spec: LayerSpec, p: dict,
     its plain version, so the CPU walks the same branch as the card."""
     b, s, _ = x.shape
     hq, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    scale = cfg.attn_scale
     q = linear(x, p["q_proj"]["weight"], p["q_proj"].get("bias"))
     k = linear(x, p["k_proj"]["weight"], p["k_proj"].get("bias"))
     v = linear(x, p["v_proj"]["weight"], p["v_proj"].get("bias"))
+    if cfg.qk_norm and cfg.qk_norm_pre_reshape:
+        q = rms_norm(q, p["q_norm"]["weight"], cfg.rms_norm_eps)
+        k = rms_norm(k, p["k_norm"]["weight"], cfg.rms_norm_eps)
     q = q.reshape(b, s, hq, d)
     k = k.reshape(b, s, hkv, d)
     v = v.reshape(b, s, hkv, d)
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cfg.qk_norm_pre_reshape:
         q = rms_norm(q, p["q_norm"]["weight"], cfg.rms_norm_eps)
         k = rms_norm(k, p["k_norm"]["weight"], cfg.rms_norm_eps)
     positions = _positions(pos0, s, x.device)
-    q = apply_rope(q, rope["cos"], rope["sin"], positions, cfg.rotary_dim)
-    k = apply_rope(k, rope["cos"], rope["sin"], positions, cfg.rotary_dim)
+    if spec.use_rope:
+        q = apply_rope(q, rope["cos"], rope["sin"], positions,
+                       cfg.rotary_dim)
+        k = apply_rope(k, rope["cos"], rope["sin"], positions,
+                       cfg.rotary_dim)
 
     use_flash = s >= flash_ops.FLASH_MIN_SEQ and (
         flash_mode == "fresh"
         or (flash_mode == "append" and spec.window is None))
     if use_flash and flash_mode == "fresh":
-        y = flash_ops.flash_attention(q, k, v, valid_len=valid_len,
+        y = flash_ops.flash_attention(q, k, v, scale=scale,
+                                      valid_len=valid_len,
                                       window=spec.window)
         update_kv_cache(layer_cache, k, v, pos0, valid_len)
     elif use_flash:
         update_kv_cache(layer_cache, k, v, pos0, valid_len)
         y = flash_ops.flash_attention(q, layer_cache["k"], layer_cache["v"],
-                                      valid_len=valid_len, q_offset=pos0)
+                                      scale=scale, valid_len=valid_len,
+                                      q_offset=pos0)
     elif s == 1 and "tables" in layer_cache:
         # paged decode: write the new entry into its block, then attend
         # over the row's live blocks through the table (the kernel on the
@@ -134,7 +151,7 @@ def attention_forward(cfg: ModelConfig, spec: LayerSpec, p: dict,
                           write)
         y = paged_ops.paged_decode_attention(
             q.contiguous(), layer_cache["k"], layer_cache["v"], layer_cache["pos"],
-            layer_cache["tables"], pos0.to(torch.int32))
+            layer_cache["tables"], pos0.to(torch.int32), scale)
     elif s == 1:
         # decode: write the new entry first, then attend over the buffer
         # (for a ring, the overwritten slot is exactly the one the window
@@ -144,7 +161,8 @@ def attention_forward(cfg: ModelConfig, spec: LayerSpec, p: dict,
             positions[None, :].expand(b, s)
         mask = make_attention_mask(q_pos, layer_cache["pos"],
                                    window=spec.window)
-        y = multi_head_attention(q, layer_cache["k"], layer_cache["v"], mask)
+        y = multi_head_attention(q, layer_cache["k"], layer_cache["v"], mask,
+                                 scale)
     else:
         # a chunk too short for flash: attend over [cache ; chunk]; pad
         # keys (index >= valid_len) are invisible
@@ -157,7 +175,8 @@ def attention_forward(cfg: ModelConfig, spec: LayerSpec, p: dict,
         mask = make_attention_mask(positions[None, :].expand(b, s), kv_pos,
                                    window=spec.window)
         y = multi_head_attention(q, torch.cat([layer_cache["k"], k], 1),
-                                 torch.cat([layer_cache["v"], v], 1), mask)
+                                 torch.cat([layer_cache["v"], v], 1), mask,
+                                 scale)
         update_kv_cache(layer_cache, k, v, pos0, valid_len)
     return linear(y.reshape(b, s, hq * d), p["o_proj"]["weight"]), layer_cache
 
@@ -171,16 +190,28 @@ def mlp_forward(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 def block_forward(cfg: ModelConfig, spec: LayerSpec, p: dict,
                   x: torch.Tensor, layer_cache: dict, pos0,
                   rope: dict, valid_len=None, flash_mode: str = "off"):
-    """One pre-norm decoder block (post and sandwich norms are not ported
-    yet)."""
+    """One decoder block: pre-norm (norm, sublayer, residual add) or
+    post-norm (OLMo2, EXAONE4: sublayer, norm of its output, residual
+    add; no input_layernorm). The sandwich style is not ported yet."""
     eps = cfg.rms_norm_eps
-    h = rms_norm(x, p["input_layernorm"]["weight"], eps)
-    attn_out, layer_cache = attention_forward(cfg, spec, p["self_attn"], h,
-                                              layer_cache, pos0, rope,
-                                              valid_len, flash_mode)
-    x = x + attn_out
-    h = rms_norm(x, p["post_attention_layernorm"]["weight"], eps)
-    return x + mlp_forward(cfg, p["mlp"], h), layer_cache
+    if spec.norm_style == "pre":
+        h = rms_norm(x, p["input_layernorm"]["weight"], eps)
+        attn_out, layer_cache = attention_forward(
+            cfg, spec, p["self_attn"], h, layer_cache, pos0, rope,
+            valid_len, flash_mode)
+        x = x + attn_out
+        h = rms_norm(x, p["post_attention_layernorm"]["weight"], eps)
+        return x + mlp_forward(cfg, p["mlp"], h), layer_cache
+    if spec.norm_style == "post":
+        attn_out, layer_cache = attention_forward(
+            cfg, spec, p["self_attn"], x, layer_cache, pos0, rope,
+            valid_len, flash_mode)
+        x = x + rms_norm(attn_out, p["post_attention_layernorm"]["weight"],
+                         eps)
+        return x + rms_norm(mlp_forward(cfg, p["mlp"], x),
+                            p["post_feedforward_layernorm"]["weight"],
+                            eps), layer_cache
+    raise ValueError(f"norm style {spec.norm_style!r} is not ported")
 
 
 def forward_layers(cfg: ModelConfig, params: dict, x: torch.Tensor,

@@ -1,10 +1,12 @@
-"""Byte-level tokenizer for random-weight models, and the ChatML template.
+"""Byte-level tokenizer for the flagship's random weights, and the ChatML
+template.
 
-The port serves models with seeded random weights, so it needs no
-`tokenizer.json` (loading one is later work): text maps to its UTF-8
-bytes (ids 0-255) and the ChatML markers to Qwen3's `<|im_start|>` /
-`<|im_end|>` ids. An id with no text of its own decodes to a fixed
-placeholder, so every generated token shows in a response's content.
+`--flagship` has no directory and so no `tokenizer.json` (a checkpoint
+directory's own tokenizer is runtime.CakeTokenizer): text maps to its
+UTF-8 bytes (ids 0-255) and the ChatML markers to Qwen3's
+`<|im_start|>` / `<|im_end|>` ids. An id with no text of its own decodes
+to a fixed placeholder, so every generated token shows in a response's
+content.
 """
 from __future__ import annotations
 
@@ -15,6 +17,11 @@ IM_END = "<|im_end|>"
 QWEN3_IM_START_ID = 151644
 QWEN3_IM_END_ID = 151645
 PLACEHOLDER = "·"
+
+
+class PromptError(RuntimeError):
+    """A request's text that its tokenizer cannot take (text where only
+    raw token ids can be read): the client's fault, not the server's."""
 
 
 def render_chat(messages: list[dict]) -> str:

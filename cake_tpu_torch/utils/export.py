@@ -1,0 +1,90 @@
+"""The port's parameter tree -> HF-named tensors and a checkpoint
+directory (counterpart of cake_tpu/utils/export.py:
+params_to_hf_tensors; the inverse of utils/loaders.py).
+
+`write_checkpoint` writes a directory the loader reads back: config.json
+and one model.safetensors, or `shards` files with a
+model.safetensors.index.json. Tensors are written from the torch tensors
+as they are, bfloat16 included.
+"""
+from __future__ import annotations
+
+import json
+import os
+
+import torch
+
+from .loaders import MODEL_PREFIX
+from .safetensors_io import save_safetensors
+
+NORMS = ("input_layernorm", "post_attention_layernorm",
+         "post_feedforward_layernorm")
+
+
+def params_to_hf_tensors(params: dict,
+                         fuse_phi: bool = False) -> dict[str, torch.Tensor]:
+    """fuse_phi: write Phi-style fused qkv_proj / gate_up_proj names."""
+    pre = MODEL_PREFIX
+    out = {f"{pre}.embed_tokens.weight": params["embed_tokens"]["weight"],
+           f"{pre}.norm.weight": params["norm"]["weight"]}
+    if "lm_head" in params:
+        out["lm_head.weight"] = params["lm_head"]["weight"]
+    for i, layer in enumerate(params["layers"]):
+        lp = f"{pre}.layers.{i}"
+        for norm in NORMS:
+            if norm in layer:
+                out[f"{lp}.{norm}.weight"] = layer[norm]["weight"]
+        a = layer["self_attn"]
+        if fuse_phi:
+            out[f"{lp}.self_attn.qkv_proj.weight"] = torch.cat(
+                [a[p]["weight"] for p in ("q_proj", "k_proj", "v_proj")])
+        else:
+            for proj in ("q_proj", "k_proj", "v_proj"):
+                out[f"{lp}.self_attn.{proj}.weight"] = a[proj]["weight"]
+                if "bias" in a[proj]:
+                    out[f"{lp}.self_attn.{proj}.bias"] = a[proj]["bias"]
+        out[f"{lp}.self_attn.o_proj.weight"] = a["o_proj"]["weight"]
+        for qk in ("q_norm", "k_norm"):
+            if qk in a:
+                out[f"{lp}.self_attn.{qk}.weight"] = a[qk]["weight"]
+        mlp = layer["mlp"]
+        if fuse_phi:
+            out[f"{lp}.mlp.gate_up_proj.weight"] = torch.cat(
+                [mlp["gate_proj"]["weight"], mlp["up_proj"]["weight"]])
+            out[f"{lp}.mlp.down_proj.weight"] = mlp["down_proj"]["weight"]
+        else:
+            for proj in ("gate_proj", "up_proj", "down_proj"):
+                out[f"{lp}.mlp.{proj}.weight"] = mlp[proj]["weight"]
+    return out
+
+
+def write_checkpoint(model_dir: str, config: dict,
+                     tensors: dict[str, torch.Tensor],
+                     shards: int = 1) -> int:
+    """Write config.json and the tensors as `shards` safetensors files
+    (an index beside them when there is more than one), splitting the
+    names in order into runs of about equal bytes. Returns the bytes of
+    tensor data written."""
+    os.makedirs(model_dir, exist_ok=True)
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump(config, f, indent=1)
+    if shards <= 1:
+        return save_safetensors(os.path.join(model_dir, "model.safetensors"),
+                                tensors, {"format": "pt"})
+    total = sum(t.numel() * t.element_size() for t in tensors.values())
+    groups: list[dict] = [{} for _ in range(shards)]
+    acc = 0
+    for name, t in tensors.items():
+        groups[min(acc * shards // max(total, 1), shards - 1)][name] = t
+        acc += t.numel() * t.element_size()
+    weight_map, written = {}, 0
+    for k, group in enumerate(groups):
+        fname = f"model-{k + 1:05d}-of-{shards:05d}.safetensors"
+        written += save_safetensors(os.path.join(model_dir, fname), group,
+                                    {"format": "pt"})
+        weight_map.update({name: fname for name in group})
+    with open(os.path.join(model_dir, "model.safetensors.index.json"),
+              "w") as f:
+        json.dump({"metadata": {"total_size": written},
+                   "weight_map": weight_map}, f, indent=1)
+    return written

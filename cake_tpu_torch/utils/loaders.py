@@ -1,0 +1,120 @@
+"""Checkpoint directory -> the port's parameter tree (counterpart of
+cake_tpu/utils/loaders.py: ParamLoader and load_model_params, dense
+families only).
+
+The tree is the one `init_params` builds: HF names without the model
+prefix, separate q/k/v and gate/up projections. Phi-4's pre-fused
+`qkv_proj` is split at size_q / size_kv and its `gate_up_proj` in halves,
+on the device. Each tensor is read from the file's map, copied to the
+device and cast there, one at a time. A tensor the config needs and the
+checkpoint lacks raises KeyError with its name; tensors the checkpoint
+has and the model does not read are logged, as the reference's
+`mapping.coverage_report` does. Quantization is checked before, by
+`runtime.load_config_and_quant`.
+"""
+from __future__ import annotations
+
+import logging
+
+import torch
+
+from ..models.common.config import ModelConfig
+from ..models.common.layers import NORM_NAMES
+from .safetensors_io import TensorStorage
+
+log = logging.getLogger(__name__)
+
+# tensor-name prefix of the dense families' checkpoints
+MODEL_PREFIX = "model"
+
+
+class ParamLoader:
+    def __init__(self, cfg: ModelConfig, storage: TensorStorage,
+                 dtype: torch.dtype = torch.bfloat16, device="cpu"):
+        self.cfg = cfg
+        self.st = storage
+        self.dtype = dtype
+        self.device = device
+        self.used: set[str] = set()
+
+    def _get(self, name: str) -> torch.Tensor:
+        if name not in self.st:
+            raise KeyError(f"checkpoint tensor {name} is missing "
+                           f"(arch {self.cfg.arch})")
+        self.used.add(name)
+        return self.st.read(name, self.device, self.dtype)
+
+    def _weight(self, name: str) -> dict:
+        return {"weight": self._get(name)}
+
+    def _attention(self, lp: str) -> dict:
+        cfg = self.cfg
+        sq, skv = cfg.size_q, cfg.size_kv
+        fused = f"{lp}.self_attn.qkv_proj.weight"
+        p: dict = {}
+        if cfg.fused_qkv and fused in self.st:
+            w = self._get(fused)
+            if w.shape[0] != sq + 2 * skv:
+                raise ValueError(f"{fused}: {w.shape[0]} rows, expected "
+                                 f"{sq} + 2 x {skv}")
+            p["q_proj"] = {"weight": w[:sq].clone()}
+            p["k_proj"] = {"weight": w[sq:sq + skv].clone()}
+            p["v_proj"] = {"weight": w[sq + skv:].clone()}
+        else:
+            for proj in ("q_proj", "k_proj", "v_proj"):
+                p[proj] = self._weight(f"{lp}.self_attn.{proj}.weight")
+                bias = f"{lp}.self_attn.{proj}.bias"
+                if cfg.qkv_bias and bias in self.st:
+                    p[proj]["bias"] = self._get(bias)
+        p["o_proj"] = self._weight(f"{lp}.self_attn.o_proj.weight")
+        if cfg.qk_norm:
+            for qk in ("q_norm", "k_norm"):
+                p[qk] = self._weight(f"{lp}.self_attn.{qk}.weight")
+        return p
+
+    def _mlp(self, mp: str) -> dict:
+        fused = f"{mp}.gate_up_proj.weight"
+        if self.cfg.fused_qkv and fused in self.st:
+            w = self._get(fused)
+            i = w.shape[0] // 2
+            return {"gate_proj": {"weight": w[:i].clone()},
+                    "up_proj": {"weight": w[i:].clone()},
+                    "down_proj": self._weight(f"{mp}.down_proj.weight")}
+        return {proj: self._weight(f"{mp}.{proj}.weight")
+                for proj in ("gate_proj", "up_proj", "down_proj")}
+
+    def _layer(self, i: int) -> dict:
+        spec = self.cfg.layer_spec(i)
+        if spec.norm_style not in NORM_NAMES:
+            raise NotImplementedError(
+                f"norm style {spec.norm_style!r} is not ported")
+        lp = f"{MODEL_PREFIX}.layers.{i}"
+        p = {"self_attn": self._attention(lp), "mlp": self._mlp(f"{lp}.mlp")}
+        for n in NORM_NAMES[spec.norm_style]:
+            p[n] = self._weight(f"{lp}.{n}.weight")
+        return p
+
+    def load(self) -> dict:
+        cfg, pre = self.cfg, MODEL_PREFIX
+        params = {"layers": [self._layer(i)
+                             for i in range(cfg.num_hidden_layers)],
+                  "embed_tokens": self._weight(f"{pre}.embed_tokens.weight"),
+                  "norm": self._weight(f"{pre}.norm.weight")}
+        if not cfg.tie_word_embeddings:
+            head = ("lm_head.weight" if "lm_head.weight" in self.st
+                    else f"{pre}.lm_head.weight")
+            params["lm_head"] = self._weight(head)
+        unused = sorted(set(self.st.names()) - self.used)
+        if unused:
+            log.warning("checkpoint tensors not consumed: %s%s", unused[:6],
+                        f" (+{len(unused) - 6} more)" if len(unused) > 6
+                        else "")
+        return params
+
+
+def load_model_params(cfg: ModelConfig, model_dir: str,
+                      dtype: torch.dtype = torch.bfloat16,
+                      device="cpu") -> dict:
+    """The parameter tree of an unquantized checkpoint directory."""
+    with TensorStorage.from_model_dir(model_dir) as storage:
+        return ParamLoader(cfg, storage, dtype, device).load()

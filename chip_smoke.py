@@ -62,6 +62,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -159,6 +160,20 @@ FLASH_CASES = [
     ("d64_mha", dict(hq=8, hkv=8, d=64)),
 ]
 
+def family_flash_cases() -> list:
+    """The checkpoint families' attention shapes at their published widths
+    (synth_checkpoint.family_attention): fresh with the family's window
+    (EXAONE4's local layers), and append."""
+    from cake_tpu_torch.bench.synth_checkpoint import (FAMILIES,
+                                                       family_attention)
+    cases = []
+    for fam in FAMILIES:
+        a = family_attention(fam)
+        shape = dict(hq=a["hq"], hkv=a["hkv"], d=a["d"])
+        cases.append((f"{fam}_fresh", dict(shape, window=a["window"])))
+        cases.append((f"{fam}_append", dict(shape, **FLASH_CASES[4][1])))
+    return cases
+
 
 def visible_pairs(sq, limit, q_offset, window, skv) -> int:
     """(query, key) pairs the masks leave visible: the work this run's
@@ -234,22 +249,29 @@ def phase_kernels() -> dict:
     from cake_tpu_torch.bench.timing import device_ms, issue_ms
     from cake_tpu_torch.ops.flash import (flash_attention_kernel,
                                           flash_attention_ref, kernel_route)
+    family = family_flash_cases()
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
-        for name, spec in FLASH_CASES:
+        for name, spec in FLASH_CASES + family:
             q, k, v, kw = flash_case(name, dtype, **spec)
             got = flash_attention_kernel(q, k, v, **kw)
+            again = flash_attention_kernel(q, k, v, **kw)
             torch.cuda.synchronize()
             want = flash_attention_ref(q, k, v, **kw)
             err = (got.float() - want.float()).abs().max().item()
-            print(f"flash {name:15s} {kernel_route(dtype)} max_abs_err "
+            print(f"flash {name:15s} {kernel_route(dtype)} Hq/Hkv "
+                  f"{q.shape[2]}/{k.shape[2]} D {q.shape[3]} max_abs_err "
                   f"{err:.3e} (tol {tol:g})", flush=True)
             check(err <= tol and torch.isfinite(got).all().item(),
                   f"flash {name} {dtype}: max_abs_err {err} > {tol}")
+            check(torch.equal(got, again),
+                  f"flash {name} {dtype}: two launches differ")
     timings = {}
     for entry, dtype, spec in (
             ("fresh", torch.bfloat16, {}),
             ("append", torch.bfloat16, FLASH_CASES[4][1]),
-            ("f32", torch.float32, {})):
+            ("f32", torch.float32, {}),
+            *((name, torch.bfloat16, spec) for name, spec in family),
+            ("phi4_f32", torch.float32, dict(family)["phi4_fresh"])):
         q, k, v, kw = flash_case(entry, dtype, **spec)
         err = (flash_attention_kernel(q, k, v, **kw).float()
                - flash_attention_ref(q, k, v, **kw).float()).abs().max()
@@ -268,7 +290,8 @@ def phase_kernels() -> dict:
         t["bound_ms"], t["bound_by"] = flash_bound_ms(q, k, kw)
         timings[entry] = t
         print(f"flash timing {entry}: {kernel_route(dtype)} Sq=256 Hq/Hkv="
-              f"16/8 D=128 Skv_row={k.shape[1]} device ms: kernel "
+              f"{q.shape[2]}/{k.shape[2]} D={q.shape[3]} window="
+              f"{kw.get('window')} Skv_row={k.shape[1]} device ms: kernel "
               f"{t['ms']:.5f} plain {t['plain_ms']:.5f} library "
               f"{t['library_ms']:.5f}; kernel issue_ms {t['issue_ms']:.5f}; "
               f"bound_ms {t['bound_ms']:.5f} ({t['bound_by']}), share of "
@@ -278,7 +301,7 @@ def phase_kernels() -> dict:
     return timings
 
 
-# -- phase 3b: the paged decode kernel -----------------------------------------
+# -- phase 3b: the paged decode kernel ----------------------------------------
 
 
 def ptxas_report(log: str) -> list[str]:
@@ -330,10 +353,17 @@ def phase_paged_kernels(build_log: str) -> dict:
                   f"paged decode {name} {dtype}: max_abs_err {err} > {tol}")
             check(torch.equal(got, again),
                   f"paged decode {name} {dtype}: two launches differ")
-    timings = paged_timing.measure(with_plain=True)
+    timings = paged_timing.measure(
+        with_plain=True,
+        shapes=paged_timing.SHAPES + paged_timing.family_shapes())
     for entry, t in timings.items():
+        tol = F32_TOL if entry == "f32" else BF16_TOL
+        check(t["max_abs_err"] <= tol and t["same_bits"],
+              f"paged decode timing {entry}: max_abs_err {t['max_abs_err']}"
+              f" (tol {tol}), two launches equal {t['same_bits']}")
         print(f"paged decode timing {entry}: 4 rows at p={t['p']}, bt 16, "
-              f"Hq/Hkv=16/8 D=128, device ms: kernel {t['ms']:.5f} plain "
+              f"Hq/Hkv={t['hq']}/{t['hkv']} D={t['d']}, device ms: kernel "
+              f"{t['ms']:.5f} plain "
               f"{t['plain_ms']:.5f} library {t['library_ms']:.5f} "
               f"({t['library_backend']}, over pre-gathered live rows: "
               f"gather not timed); kernel issue_ms {t['issue_ms']:.5f}; "
@@ -457,7 +487,7 @@ def _to_device(tree, device):
     return tree.to(device)
 
 
-# -- phase 4b: the decode step as a captured CUDA graph ------------------------
+# -- phase 4b: the decode step as a captured CUDA graph -----------------------
 
 
 GRAPH_STEPS = 32
@@ -573,15 +603,12 @@ def chat_body(i: int, stream: bool = False, shared: bool = False) -> dict:
 
 
 class Served:
-    """The model behind the port's HTTP server with one engine (4 slots,
-    ctx 4096); keeps every ServeRequest by id, for its token ids."""
+    """A started server (`create_app`) and its engine; keeps every
+    ServeRequest by id, for its token ids and prompt ids."""
 
-    def __init__(self, model, **engine_kw):
-        from cake_tpu_torch.api import create_app
-        from cake_tpu_torch.serve import ServeEngine
-        self.engine = ServeEngine(model, slots=4, ctx_len=4096, **engine_kw)
-        self.app = create_app(model, self.engine, model.tokenizer,
-                              port=0).start()
+    def __init__(self, app):
+        self.app = app
+        self.engine = app.state.engine
         self.reqs = {}
         submit = self.engine.submit
 
@@ -637,6 +664,16 @@ class Served:
         self.app.stop()
 
 
+def serve_model(model, **engine_kw) -> Served:
+    """The model behind the port's HTTP server with one engine (4 slots,
+    ctx 4096)."""
+    from cake_tpu_torch.api import create_app
+    from cake_tpu_torch.serve import ServeEngine
+    engine = ServeEngine(model, slots=4, ctx_len=4096, **engine_kw)
+    return Served(create_app(model, engine, model.tokenizer,
+                             port=0).start())
+
+
 def _check_chats(results: list[dict], label: str) -> None:
     for i, r in enumerate(results):
         if "events" in r:
@@ -684,7 +721,7 @@ def phase_serve(model, card: str) -> tuple[dict, list]:
     the flash launches and the 4 chats' results."""
     import torch
     from cake_tpu_torch.ops import flash
-    served = Served(model)
+    served = serve_model(model)
     try:
         check(served.engine.graph.graph is not None,
               "phase 5: the engine captured no graph")
@@ -724,7 +761,7 @@ def phase_paged_serve(model, card: str, contiguous: list) -> int:
     from cake_tpu_torch.ops import paged_attention as pa
     layers = model.cfg.num_hidden_layers
     # (a) paged pool with the capacity of the contiguous one
-    paged = Served(model, kv_blocks=1024, kv_block_tokens=16)
+    paged = serve_model(model, kv_blocks=1024, kv_block_tokens=16)
     try:
         graph = paged.engine.graph
         check(graph.graph is not None, "phase 6a: the engine captured no "
@@ -783,7 +820,7 @@ def phase_paged_serve(model, card: str, contiguous: list) -> int:
                      ("paged, cache off", {"prefix_cache_mb": 0,
                                            "kv_blocks": 1024,
                                            "kv_block_tokens": 16})):
-        served = Served(model, **kw)
+        served = serve_model(model, **kw)
         try:
             on[mode] = shared_run(served)
         finally:
@@ -805,7 +842,7 @@ def phase_paged_serve(model, card: str, contiguous: list) -> int:
     check(shared_max[0] > 0, "paged: no block was shared during the hits")
     # (c) swap under pressure: 96 blocks, two chats decoding when the
     # other two arrive
-    tight = Served(model, kv_blocks=96, kv_block_tokens=16)
+    tight = serve_model(model, kv_blocks=96, kv_block_tokens=16)
     try:
         first = {}
 
@@ -838,6 +875,266 @@ def phase_paged_serve(model, card: str, contiguous: list) -> int:
     return launches["bf16"]
 
 
+# -- phase 7: the flagship from a checkpoint directory ------------------------
+
+
+def _tree_diff(a, b, path="") -> list[str]:
+    """Paths where two parameter trees differ (keys, dtype, shape or
+    bits)."""
+    import torch
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            return [f"{path}: keys {sorted(a)} != {sorted(b)}"]
+        return [d for k in a for d in _tree_diff(a[k], b[k], f"{path}.{k}")]
+    if isinstance(a, list):
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in _tree_diff(x, y, f"{path}.{i}")]
+    same = (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a, b.to(a.device)))
+    return [] if same else [path]
+
+
+def _cli_server(model_dir: str, *extra: str) -> Served:
+    """`cli serve MODEL_DIR` with 4 slots and ctx 4096, started."""
+    from cake_tpu_torch import cli
+    args = cli.parser().parse_args(
+        ["serve", model_dir, "--port", "0", "--slots", "4", "--ctx", "4096",
+         *extra])
+    return Served(cli.build_server(args).start())
+
+
+def _prompt_ids_match(served, model_dir: str, bodies, label) -> None:
+    """The prompt ids each request reached the engine with equal a fresh
+    CPU tokenizer's chat_prompt_ids of its messages."""
+    from cake_tpu_torch.runtime import CakeTokenizer
+    tok = CakeTokenizer(model_dir)
+    want = sorted(tok.chat_prompt_ids(b["messages"]) for b in bodies)
+    got = sorted(r.prompt_ids for r in served.reqs.values())
+    check(all(w in got for w in want),
+          f"{label}: the engine's prompt ids differ from the tokenizer's")
+
+
+def phase_checkpoint(model, card: str, workdir: str) -> dict:
+    """Phase 7. The flagship (seed 0, bf16, 28 layers) written as an HF
+    directory (two safetensors shards and an index, config.json, a
+    byte-level BPE tokenizer.json with Qwen3's ChatML ids and a ChatML
+    template), loaded through runtime.build_text_model bit-identical to
+    init_params(seed 0) (here: `model`, build_flagship(seed 0)), then
+    served through `cli serve DIR`, contiguous and paged (1024 blocks):
+    4 concurrent chats and one SSE chat, all 200, each equal alone and in
+    company, their prompt ids those of the CPU tokenizer; and generate's
+    greedy tokens on a fixed id list equal `model`'s. Returns the load's
+    {seconds, gb, gb_s}."""
+    import torch
+    from cake_tpu_torch.bench import synth_checkpoint as sc
+    from cake_tpu_torch.runtime import build_text_model
+    d = os.path.join(workdir, "qwen3-flagship")
+    config = sc.flagship_config()
+    t = time.perf_counter()
+    nbytes = sc.write_model(d, config, sc.model_params(config, seed=0),
+                            shards=2)
+    sc.write_tokenizer(d, sc.QWEN3_SPECIALS)
+    print(f"checkpoint: flagship written to {len(os.listdir(d))} files "
+          f"({nbytes / 1e9:.3f} GB of tensors) in "
+          f"{time.perf_counter() - t:.1f}s", flush=True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loaded, tok, model_id = build_text_model(d, "bf16", device="cuda",
+                                             max_cache_len=4096)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    load = {"seconds": load_s, "gb": nbytes / 1e9,
+            "gb_s": nbytes / 1e9 / load_s}
+    diff = _tree_diff(loaded.params, model.params)
+    print(f"checkpoint load: {load['gb']:.3f} GB "
+          f"({loaded.cfg.num_hidden_layers} layers, bf16, 2 "
+          f"shards, page cache warm) in {load_s:.3f}s = {load['gb_s']:.2f} "
+          f"GB/s through build_text_model; every tensor bit-identical to "
+          f"init_params(seed 0): {not diff}; on {card}", flush=True)
+    check(not diff, f"loaded params differ from init_params: {diff[:5]}")
+    check(model_id == "qwen3-flagship", f"model id {model_id}")
+    ids = [int(x) for x in torch.randint(
+        0, config["vocab_size"], (300,),
+        generator=torch.Generator().manual_seed(21))]
+    got, _ = loaded.generate(ids, 32)
+    want, _ = model.generate(ids, 32)
+    print(f"checkpoint greedy: 32 tokens off a 300-id prompt equal to "
+          f"build_flagship(seed=0)'s {got == want}", flush=True)
+    check(got == want, f"checkpoint greedy {got} != flagship {want}")
+    del loaded
+    torch.cuda.empty_cache()
+    bodies = [chat_body(i) for i in range(4)] + [chat_body(4, True)]
+    for mode, extra in (("contiguous", ()),
+                        ("paged", ("--kv-blocks", "1024"))):
+        served = _cli_server(d, *extra)
+        try:
+            results = served.concurrent(bodies)
+            _check_chats_any(results, f"phase 7 {mode}")
+            check(all(r["resp"]["model"] == "qwen3-flagship"
+                      for r in results[:4]), "phase 7: model id")
+            _prompt_ids_match(served, d, bodies, f"phase 7 {mode}")
+            _alone_equals_concurrent(served, bodies, results,
+                                     f"phase 7 {mode}")
+            first = results[0]["resp"]
+            print(f"checkpoint serve {mode}: 4 concurrent chats + 1 SSE, all "
+                  f"200, {first['usage']['prompt_tokens']}-token prompts "
+                  f"(BPE), each equal alone and in company; first reply "
+                  f"{first['choices'][0]['message']['content'][:60]!r}",
+                  flush=True)
+        finally:
+            served.close()
+    shutil.rmtree(d, ignore_errors=True)
+    return load
+
+
+def _check_chats_any(results: list[dict], label: str) -> None:
+    """Phase 5's checks for a model whose tokenizer gives most sampled ids
+    no text (random weights over a small BPE vocabulary): the SSE stream
+    ends with [DONE] and carries chunks, each blocking chat has tokens."""
+    for i, r in enumerate(results):
+        if "events" in r:
+            check(r["events"] and r["events"][-1] == "[DONE]"
+                  and len(r["events"]) >= 3,
+                  f"{label}: SSE stream did not end with [DONE]")
+        else:
+            check(r["resp"]["usage"]["completion_tokens"] > 0,
+                  f"{label} request {i}: no completion tokens")
+
+
+# -- phase 8: the checkpoint families at their published widths ---------------
+
+FAMILY_LAYERS = {"olmo2": 2, "exaone4": 4, "phi4": 2}
+
+
+def _family_dir(fam: str, workdir: str) -> str:
+    """The family's config at FAMILY_LAYERS depth with seeded weights and
+    randomized norms, bf16, two shards; a BPE tokenizer with ChatML
+    specials at the top of its vocabulary."""
+    from cake_tpu_torch.bench import synth_checkpoint as sc
+    d = os.path.join(workdir, fam)
+    config = sc.family_config(fam, FAMILY_LAYERS[fam])
+    sc.write_model(d, config, sc.model_params(config, seed=7,
+                                              randomize_norms=True),
+                   shards=2)
+    v = config["vocab_size"]
+    sc.write_tokenizer(d, {"<|endoftext|>": v - 3, "<|im_start|>": v - 2,
+                           "<|im_end|>": v - 1})
+    return d
+
+
+def phase_families(card: str, workdir: str) -> dict:
+    """Phase 8. For each family: f32 on the card against f32 on this
+    machine's CPU, both loaded through build_text_model, contiguous and
+    paged (phase 4's chunked 600-token prefill and 16 greedy tokens);
+    bf16: a 600-token prompt prefilled through flash (fresh and append
+    launches counted) into a 2-slot pool, then 16 replays of the captured
+    decode step equal 16 eager steps, contiguous and paged; EXAONE4 also
+    served by the paged engine over HTTP, two chats each equal alone and
+    in company. Returns {fam: launch counts by kernel entry}."""
+    import torch
+    from cake_tpu_torch.bench.graph_cases import build_state, graph_vs_eager
+    from cake_tpu_torch.ops import flash
+    from cake_tpu_torch.ops import paged_attention as pa
+    from cake_tpu_torch.ops.sampling import SamplingConfig
+    from cake_tpu_torch.runtime import build_text_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    greedy = SamplingConfig(temperature=0.0)
+    out = {}
+    for fam in FAMILY_LAYERS:
+        d = _family_dir(fam, workdir)
+        counts = {"fresh": 0, "append": 0, "paged": 0, "f32": 0}
+        cpu, _, _ = build_text_model(d, "f32", device="cpu",
+                                     max_cache_len=4096)
+        gpu, _, _ = build_text_model(d, "f32", device="cuda",
+                                     max_cache_len=4096)
+        cfg = gpu.cfg
+        shape = (f"Hq/Hkv {cfg.num_attention_heads}/"
+                 f"{cfg.num_key_value_heads} D {cfg.head_dim} rotary "
+                 f"{cfg.rotary_dim} window {cfg.sliding_window} "
+                 f"{cfg.num_hidden_layers} layers "
+                 f"{[s.kind for s in cfg.layer_specs()]}")
+        ids = [int(x) for x in torch.randint(
+            0, cfg.vocab_size, (600,),
+            generator=torch.Generator().manual_seed(5))]
+        lg, tg, launches = chunked_prefill_and_greedy(gpu, ids)
+        lp, tp, paged_launches = paged_prefill_and_greedy(gpu, ids)
+        lc, tc, _ = chunked_prefill_and_greedy(cpu, ids)
+        err, err_p = ((x - lc).abs().max().item() for x in (lg, lp))
+        counts["f32"] = sum(launches["f32"].values())
+        print(f"family {fam} ({shape}) f32 card vs CPU: flash launches "
+              f"{launches}, paged {paged_launches}; logits max_abs_err "
+              f"{err:.3e} contiguous, {err_p:.3e} paged (tol {LOGIT_TOL:g}); "
+              f"16 greedy tokens identical {tg == tc} / {tp == tc}",
+              flush=True)
+        check(err <= LOGIT_TOL and err_p <= LOGIT_TOL,
+              f"{fam}: f32 logits differ by {err} / {err_p}")
+        check(tg == tc and tp == tc, f"{fam}: f32 greedy tokens differ")
+        check(launches["f32"]["fresh"] > 0 and launches["f32"]["append"] > 0
+              and paged_launches["f32"] > 0,
+              f"{fam}: f32 kernels not launched: {launches} "
+              f"{paged_launches}")
+        del cpu, gpu
+        torch.cuda.empty_cache()
+        model, _, _ = build_text_model(d, "bf16", device="cuda",
+                                       max_cache_len=4096)
+        for mode, kv_blocks in (("contiguous", 0), ("paged", 1024)):
+            flash.reset_launches()
+            pa.reset_launches()
+            state = build_state(model, [600, None], [greedy, greedy], 4096,
+                                kv_blocks=kv_blocks, seed=3)
+            fl = flash.launch_counts()["bf16"]
+            check(fl["fresh"] > 0 and fl["append"] > 0,
+                  f"{fam} {mode}: bf16 flash launches {fl}")
+            r = graph_vs_eager(model, state, 16)
+            torch.cuda.synchronize()
+            paged_n = pa.launch_counts()["bf16"]
+            print(f"family {fam} bf16 {mode}: 600-token prefill flash "
+                  f"launches {fl}; 16 replays of the captured decode step "
+                  f"vs eager: tokens {r['tokens_equal']}, KV bytes "
+                  f"{r['kv_equal']}, carries {r['carries_equal']}; paged "
+                  f"decode launches {paged_n}", flush=True)
+            check(r["graph"].graph is not None
+                  and r["tokens_equal"] and r["kv_equal"]
+                  and r["carries_equal"],
+                  f"{fam} {mode}: graph replays differ from eager steps")
+            check(kv_blocks == 0 or paged_n > 0,
+                  f"{fam}: no paged decode launch")
+            counts["fresh"] += fl["fresh"]
+            counts["append"] += fl["append"]
+            counts["paged"] += paged_n
+            del state, r
+            torch.cuda.empty_cache()
+        del model
+        torch.cuda.empty_cache()
+        if fam == "exaone4":
+            flash.reset_launches()
+            pa.reset_launches()
+            served = _cli_server(d, "--kv-blocks", "1024")
+            try:
+                bodies = [chat_body(0), chat_body(1)]
+                results = served.concurrent(bodies)
+                _check_chats_any(results, "phase 8 exaone4")
+                _alone_equals_concurrent(served, bodies, results,
+                                         "phase 8 exaone4")
+                _prompt_ids_match(served, d, bodies, "phase 8 exaone4")
+            finally:
+                served.close()
+            fl = flash.launch_counts()["bf16"]
+            paged_n = pa.launch_counts()["bf16"]
+            print(f"family exaone4 served (paged, 1024 blocks): 2 chats "
+                  f"equal alone and in company; flash launches {fl}, paged "
+                  f"decode launches {paged_n}; on {card}", flush=True)
+            check(paged_n > 0 and fl["fresh"] > 0,
+                  "exaone4 serve: kernels not launched")
+            counts["fresh"] += fl["fresh"]
+            counts["append"] += fl["append"]
+            counts["paged"] += paged_n
+        shutil.rmtree(d, ignore_errors=True)
+        out[fam] = counts
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -861,6 +1158,14 @@ def main() -> int:
     phase_graphs(model, card)
     serve_launches, contiguous = phase_serve(model, card)
     paged_launches = phase_paged_serve(model, card, contiguous)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        load = phase_checkpoint(model, card, workdir)
+        del model
+        torch.cuda.empty_cache()
+        family_launches = phase_families(card, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
     kernels = []
     for entry, route, launches in (
             ("fresh", "bf16", serve_launches["fresh"]),
@@ -874,15 +1179,34 @@ def main() -> int:
             "ms": t["ms"], "issue_ms": t["issue_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
-    for route, launches in (("bf16", paged_launches), ("f32", parity_paged)):
-        t = paged_timings[route]
+    for fam, n in family_launches.items():
+        for entry, route, launches in (
+                (f"{fam}_fresh", "bf16", n["fresh"]),
+                (f"{fam}_append", "bf16", n["append"]),
+                *(((f"{fam}_f32", "f32", n["f32"]),) if fam == "phi4"
+                  else ())):
+            t = timings[entry]
+            mode = entry.split("_", 1)[1]
+            kernels.append({
+                "name": f"flash_attention.{mode}.{fam}", "route": "cuda",
+                "source": flash.SOURCES[route], "replaces": flash.REPLACES,
+                "launches": launches, "max_abs_err": t["max_abs_err"],
+                "ms": t["ms"], "issue_ms": t["issue_ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    for name, entry, launches in (
+            ("bf16", "bf16", paged_launches), ("f32", "f32", parity_paged),
+            *((f"bf16.{fam}", f"bf16_{fam}", n["paged"])
+              for fam, n in family_launches.items())):
+        t = paged_timings[entry]
         kernels.append({
-            "name": f"paged_decode_attention.{route}", "route": "cuda",
+            "name": f"paged_decode_attention.{name}", "route": "cuda",
             "source": pa.SOURCE, "replaces": pa.REPLACES,
             "launches": launches, "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "issue_ms": t["issue_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    print(f"checkpoint load (phase 7): {json.dumps(load)} on {card}")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

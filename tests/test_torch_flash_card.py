@@ -33,7 +33,9 @@ def test_kernel_matches_plain_on_card(dtype, tol):
 
 # (name, spec) of card cases: GQA groups 1, 2, 3, 4 and 8, Sq in {1, 63,
 # 64, 100, 256, 300}, causal=False, valid_len 200, windows, append over a
-# strided pool view, D 64, batch 2
+# strided pool view, D 64, batch 2; and the checkpoint families' shapes at
+# their published widths (OLMo2 16/16 D 128, Phi-4-mini 24/8 D 128,
+# EXAONE-4.0-1.2B 32/8 D 64 with its window of 4096), fresh and append
 CARD_CASES = [
     ("g1_sq1", dict(sq=1, hq=8, hkv=8)),
     ("g2_sq63", dict(sq=63)),
@@ -55,6 +57,17 @@ CARD_CASES = [
     ("d64_append_pool", dict(sq=128, d=64, pool_rows=1024, q_offset=300,
                              valid_len=128)),
     ("batch2_sq100", dict(b=2, sq=100)),
+    ("olmo2_g1_sq256", dict(sq=256, hq=16, hkv=16)),
+    ("olmo2_g1_append", dict(sq=256, hq=16, hkv=16, pool_rows=4096,
+                             q_offset=256, valid_len=256)),
+    ("phi4_g3_sq256", dict(sq=256, hq=24, hkv=8)),
+    ("phi4_g3_append", dict(sq=256, hq=24, hkv=8, pool_rows=4096,
+                            q_offset=256, valid_len=256)),
+    ("exaone4_g4_d64_window4096", dict(sq=256, hq=32, hkv=8, d=64,
+                                       window=4096)),
+    ("exaone4_g4_d64_append", dict(sq=256, hq=32, hkv=8, d=64,
+                                   pool_rows=4096, q_offset=256,
+                                   valid_len=256)),
 ]
 
 

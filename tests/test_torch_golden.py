@@ -1,9 +1,10 @@
 """Golden parity of the port for every family it adapts (config.py:
-llama, qwen2, qwen3, mistral, falcon3): the JAX package's weights for the
-committed fixtures (tests/golden/make_golden.py: seeded under
-fixture_prng) carried across with params_from_numpy, then prefill logits,
-5 greedy decode steps' logits and the 5 + 4 chunked prefill within atol
-1e-3 of tests/golden/<family>.npz, and 16 greedy tokens identical.
+llama, qwen2, qwen3, mistral, falcon3, olmo2, exaone4, phi4): the JAX
+package's weights for the committed fixtures (tests/golden/make_golden.py:
+seeded under fixture_prng) carried across with params_from_numpy, then
+prefill logits, 5 greedy decode steps' logits and the 5 + 4 chunked
+prefill within atol 1e-3 of tests/golden/<family>.npz, and 16 greedy
+tokens identical.
 
 A mistral whose sliding window (24) is shorter than prompt plus decode is
 held against the live JAX model: through TextModel (the ring cache wraps
@@ -34,7 +35,8 @@ from golden.make_golden import PROMPT, SEED, fixture_prng
 torch.set_num_threads(1)
 HERE = os.path.join(os.path.dirname(__file__), "golden")
 ATOL = 1e-3
-PORTED = ("llama", "qwen2", "qwen3", "mistral", "falcon3")
+PORTED = ("llama", "qwen2", "qwen3", "mistral", "falcon3", "olmo2",
+          "exaone4", "phi4")
 GREEDY = SamplingConfig(temperature=0.0)
 
 

@@ -1,23 +1,30 @@
-"""The port stands alone: with `jax` and `cake_tpu` blocked, every module
-of cake_tpu_torch and chip_smoke.py imports and a tiny CPU chat is served
-by a contiguous engine and by a paged one; an AST scan finds no import of
-either in the port's sources."""
+"""The port stands alone: with `jax` and `cake_tpu` blocked, and the
+packages the card's machine lacks (`tokenizers`, `transformers`,
+`safetensors`, `regex`, `ml_dtypes`, `huggingface_hub`) blocked too,
+every module of cake_tpu_torch and chip_smoke.py imports, a tiny CPU chat
+is served by a contiguous engine and by a paged one, and a chat is served
+by `cli serve` from a checkpoint directory with a tokenizer.json and a
+chat template; an AST scan finds no import of any of them in the port's
+sources."""
 import ast
 import pathlib
 import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+BLOCKED = ("jax", "jaxlib", "cake_tpu", "tokenizers", "transformers",
+           "safetensors", "regex", "ml_dtypes", "huggingface_hub")
 PORT_FILES = sorted((ROOT / "cake_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
 BLOCKED_RUN = r'''
-import importlib, importlib.abc, json, pkgutil, sys, urllib.request
+import importlib, importlib.abc, json, pkgutil, sys, tempfile
+import urllib.request
+BLOCKED = %r
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name == "jax" or name.startswith("jax.") or name == "cake_tpu" \
-                or name.startswith("cake_tpu."):
+        if name.split(".")[0] in BLOCKED:
             raise ImportError(f"blocked: {name}")
         return None
 sys.meta_path.insert(0, Block())
@@ -49,11 +56,32 @@ for kw in ({}, {"kv_blocks": 32}):
         resp = json.loads(r.read())
     app.stop()
     assert resp["usage"]["completion_tokens"] > 0, resp
-leaked = [m for m in sys.modules
-          if m == "jax" or m.startswith(("jax.", "cake_tpu."))]
+
+# a checkpoint directory with a tokenizer.json and a chat template
+from cake_tpu_torch import cli
+from cake_tpu_torch.bench import synth_checkpoint as sc
+d = tempfile.mkdtemp() + "/tiny-ckpt"
+config = dict(architectures=["Olmo2ForCausalLM"], vocab_size=700,
+              hidden_size=64, intermediate_size=128, num_hidden_layers=2,
+              num_attention_heads=4, num_key_value_heads=2,
+              max_position_embeddings=256, eos_token_id=698)
+sc.write_model(d, config, sc.model_params(config, 1, torch.float32))
+sc.write_tokenizer(d, {"<|im_start|>": 697, "<|im_end|>": 698},
+                   n_merges=100)
+app = cli.build_server(cli.parser().parse_args(
+    ["serve", d, "--cpu", "--dtype", "f32", "--port", "0", "--ctx", "256",
+     "--kv-blocks", "32"])).start()
+req = urllib.request.Request(app.url + "/v1/chat/completions",
+                             data=json.dumps(body).encode())
+with urllib.request.urlopen(req, timeout=60) as r:
+    resp = json.loads(r.read())
+app.stop()
+assert resp["model"] == "tiny-ckpt", resp
+assert resp["usage"]["completion_tokens"] > 0, resp
+leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
 print("OK", len(mods))
-'''
+''' % (BLOCKED,)
 
 
 def test_port_runs_with_jax_and_cake_tpu_blocked():
@@ -76,5 +104,5 @@ def test_no_jax_or_cake_tpu_import_in_port_sources():
     assert len(PORT_FILES) > 20
     bad = [(p.relative_to(ROOT).as_posix(), name)
            for p in PORT_FILES for name in _imports(p)
-           if name.split(".")[0] in ("jax", "jaxlib", "cake_tpu")]
+           if name.split(".")[0] in BLOCKED]
     assert not bad, bad
