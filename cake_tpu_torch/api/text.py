@@ -78,6 +78,33 @@ def decode_text(tokenizer, ids: list[int]) -> str:
         return "".join(parts)
 
 
+class TextStream:
+    """The text deltas of a stream of token ids. A character split over
+    tokens (byte-fallback <0xNN> tokens, or byte-level tokens cut inside a
+    UTF-8 sequence) decodes to U+FFFD until its last byte arrives: the
+    delta waits for it, for at most MAX_PENDING tokens, so the deltas
+    join to the whole text's decode_text."""
+
+    MAX_PENDING = 4      # bytes of the longest UTF-8 sequence
+
+    def __init__(self, tokenizer):
+        self.tokenizer = tokenizer
+        self.pending: list[int] = []
+
+    def push(self, tid: int) -> str:
+        self.pending.append(tid)
+        text = decode_text(self.tokenizer, self.pending)
+        if text.endswith("\ufffd") and len(self.pending) < self.MAX_PENDING:
+            return ""
+        self.pending = []
+        return text
+
+    def flush(self) -> str:
+        text = decode_text(self.tokenizer, self.pending)
+        self.pending = []
+        return text
+
+
 def completion_json(state, cid: str, toks: list[int], stats: dict,
                     n_in: int) -> dict:
     ended = bool(toks) and state.model.cfg.is_eos(toks[-1])
@@ -164,8 +191,9 @@ def chat_completions(handler, state) -> None:
 
 
 def _stream(handler, state, cid: str, req) -> None:
-    """SSE: a role chunk, one content chunk per token, a final chunk with
-    finish_reason, then [DONE]. A client that goes away cancels the
+    """SSE: a role chunk, one content chunk per token (a character split
+    over tokens goes out with its last token: TextStream), a final chunk
+    with finish_reason, then [DONE]. A client that goes away cancels the
     request, which frees its slot."""
     created = int(time.time())
 
@@ -182,15 +210,18 @@ def _stream(handler, state, cid: str, req) -> None:
     handler.end_headers()
     finish = "length"
     tokens = state.engine.stream(req)
+    text = TextStream(state.tokenizer)
     try:
         handler.wfile.write(chunk({"role": "assistant"}))
         try:
             for tok in tokens:
                 if tok.is_end_of_stream:
                     finish = "stop"
-                elif tok.text:
-                    handler.wfile.write(chunk({"content": tok.text}))
+                elif delta := text.push(tok.id):
+                    handler.wfile.write(chunk({"content": delta}))
                     handler.wfile.flush()
+            if rest := text.flush():
+                handler.wfile.write(chunk({"content": rest}))
         except Exception as e:      # generation failed mid-stream
             handler.wfile.write(chunk({"content": f"\n[error: {e}]"}))
             finish = "error"

@@ -72,7 +72,7 @@ def case_args(case: dict) -> tuple:
 
 
 # (name, paged_case kwargs) of the kernel checks on the card: bt 16 and
-# 64, D 128 and 64, ragged frontiers in one batch with an all-NULL row,
+# 64, D 128, 64 and 256 (groups 2 and 8), ragged frontiers in one batch with an all-NULL row,
 # stale tenants, a shared block; frontiers whose live block counts are
 # 1, C - 1, C, C + 1 and 2C + 1 for the kernel's cluster of C = 8 ranks
 # (each rank walks every C-th block), at bt 16 and 64; and the attention
@@ -92,11 +92,16 @@ CARD_CASES = [
     ("cluster_edges_bt16", dict(frontiers=[5, 100, 127, 128, 270])),
     ("cluster_edges_bt64", dict(frontiers=[63, 400, 511, 512, 1060],
                                 bt=64)),
+    ("stale_shared_d256_g8", dict(frontiers=[40, 620, 300], hq=16, hkv=2,
+                                  d=256, stale=True, shared=True)),
+    ("cluster_edges_d256_g2", dict(frontiers=[5, 100, 127, 128, 270],
+                                   hq=4, hkv=2, d=256)),
 ]
 FAMILY_CASE_DATA = {
     "olmo2": dict(frontiers=[1, 620, 4000], null_rows=1),
     "phi4": dict(frontiers=[15, 620, 2000], stale=True, shared=True),
     "exaone4": dict(frontiers=[16, 620, 3000], null_rows=1),
+    "gemma3": dict(frontiers=[1, 15, 16, 620, 4000], null_rows=1),
 }
 
 

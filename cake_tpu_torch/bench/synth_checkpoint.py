@@ -2,7 +2,7 @@
 the tests: the repository holds no published checkpoint and no published
 tokenizer, and nothing may be downloaded.
 
-* `FAMILIES`: config.json dicts at the widths of three published models
+* `FAMILIES`: config.json dicts at the widths of four published models
   (the source of each beside it, the fields assumed listed above it);
   `family_config` cuts the depth only.
 * `model_params(config, seed, ...)`: seeded weights (`init_params`, with
@@ -15,6 +15,13 @@ tokenizer, and nothing may be downloaded.
   deterministic learner, from `CORPUS`, a fixed multilingual text) with
   the given special tokens at the given ids, and a tokenizer_config.json
   with a ChatML template.
+* `write_gemma_tokenizer(dir, ...)`: a tokenizer.json in the style of
+  Gemma's (converted from SentencePiece): Gemma's special tokens at
+  Gemma's ids, the 256 `<0xNN>` byte tokens, the characters of `CORPUS`
+  with " " written "▁", merges learned from it as one text, fillers up to
+  a full vocabulary, byte fallback, a Replace normalizer, no
+  pre-tokenizer, a BOS added by TemplateProcessing, and a Gemma-style
+  chat template.
 """
 from __future__ import annotations
 
@@ -36,7 +43,10 @@ from ..utils.export import params_to_hf_tensors, write_checkpoint
 # model cards' tables, not a copy of the files, and fields the port does
 # not read are left out. Assumed beyond the widths: EOS and BOS ids, OLMo2's
 # rope_theta, EXAONE4's rope_theta, its llama3 rope_scaling and its
-# "LLLG" pattern with window 4096, and Phi-4's rope_theta. The EXAONE4
+# "LLLG" pattern with window 4096, and Phi-4's rope_theta. Every Gemma3
+# field is written from memory of google/gemma-3-1b-it's config.json:
+# widths, head_dim 256, query_pre_attn_scalar, window 512 with pattern 6,
+# both RoPE bases and the EOS ids [1, 106] are all assumed. The EXAONE4
 # entry is EXAONE-4.0-1.2B's widths with an assumed LLLG pattern: the
 # card names the 3:1 local/global hybrid for the 32B, and the 1.2B may
 # ship full attention in every layer. Confirm an entry only once that
@@ -71,6 +81,17 @@ FAMILIES = {
         max_position_embeddings=131072, partial_rotary_factor=0.75,
         rms_norm_eps=1e-5, rope_theta=10000.0, tie_word_embeddings=True,
         bos_token_id=199999, eos_token_id=199999),
+    # google/gemma-3-1b-it widths (every field assumed, see above)
+    "gemma3": dict(
+        architectures=["Gemma3ForCausalLM"], vocab_size=262144,
+        hidden_size=1152, intermediate_size=6912, num_hidden_layers=26,
+        num_attention_heads=4, num_key_value_heads=1, head_dim=256,
+        query_pre_attn_scalar=256, sliding_window=512,
+        sliding_window_pattern=6, rope_theta=1000000.0,
+        rope_local_base_freq=10000.0, rope_scaling=None,
+        rms_norm_eps=1e-6, max_position_embeddings=32768,
+        hidden_activation="gelu_pytorch_tanh", tie_word_embeddings=True,
+        bos_token_id=2, eos_token_id=[1, 106], pad_token_id=0),
 }
 
 CHATML_TEMPLATE = (
@@ -141,14 +162,20 @@ def model_params(config: dict, seed: int = 0,
                  dtype: torch.dtype = torch.bfloat16, device="cpu",
                  randomize_norms: bool = False) -> dict:
     """init_params(seed) of the config; with randomize_norms every norm
-    weight is drawn as 1 + 0.2 * N(0, 1) from seed + 1."""
-    params = init_params(config_from_hf_dict(config), seed, dtype, device)
+    weight is drawn as 1 + 0.2 * N(0, 1) from seed + 1. A (1+w) family's
+    draw is cut to 1 +- 0.48: there the checkpoint stores w - 1, and
+    within [0.5, 2] that difference and the loader's + 1 are exact, so
+    the weights load back bit for bit."""
+    cfg = config_from_hf_dict(config)
+    params = init_params(cfg, seed, dtype, device)
     if randomize_norms:
         gen = torch.Generator().manual_seed(seed + 1)
         for norm in _norms(params):
             w = norm["weight"]
-            norm["weight"] = (1 + 0.2 * torch.randn(w.shape, generator=gen)
-                              ).to(device=device, dtype=dtype)
+            z = torch.randn(w.shape, generator=gen)
+            if cfg.residual_rms_norm:
+                z = z.clamp(-2.4, 2.4)
+            norm["weight"] = (1 + 0.2 * z).to(device=device, dtype=dtype)
     return params
 
 
@@ -157,19 +184,17 @@ def write_model(model_dir: str, config: dict, params: dict,
     """config.json and the params as safetensors (Phi-4 with fused
     names). Returns the bytes of tensor data written."""
     cfg = config_from_hf_dict(config)
-    tensors = params_to_hf_tensors(params, fuse_phi=cfg.fused_qkv)
+    tensors = params_to_hf_tensors(params, fuse_phi=cfg.fused_qkv,
+                                   residual_norms=cfg.residual_rms_norm)
     return write_checkpoint(model_dir, config, tensors, shards)
 
 
-def learn_merges(text: str, n_merges: int) -> list[tuple[str, str]]:
-    """Byte-level BPE merges learned from `text`: words split by the GPT-2
-    pattern, each pass merging the most frequent adjacent pair (ties to
-    the smaller pair), until n_merges or no pair occurs twice."""
-    b2u = bytes_to_unicode()
-    rx = re.compile(translate_regex(GPT2_PATTERN))
-    counts = collections.Counter(
-        tuple(b2u[b] for b in w.encode("utf-8")) for w in rx.findall(text))
-    words = dict(counts)
+def learn_merges(words: dict[tuple[str, ...], int],
+                 n_merges: int) -> list[tuple[str, str]]:
+    """BPE merges learned from `words` ({symbol tuple: count}): each pass
+    merges the most frequent adjacent pair (ties to the smaller pair),
+    left to right in every word, until n_merges or no pair occurs
+    twice."""
     merges: list[tuple[str, str]] = []
     while len(merges) < n_merges:
         pairs: collections.Counter = collections.Counter()
@@ -182,7 +207,7 @@ def learn_merges(text: str, n_merges: int) -> list[tuple[str, str]]:
         if pairs[best] < 2:
             break
         merges.append(best)
-        merged = {}
+        merged: dict[tuple[str, ...], int] = {}
         for w, c in words.items():
             out, i = [], 0
             while i < len(w):
@@ -197,6 +222,15 @@ def learn_merges(text: str, n_merges: int) -> list[tuple[str, str]]:
     return merges
 
 
+def byte_level_words(text: str) -> dict[tuple[str, ...], int]:
+    """`text` split by the GPT-2 pattern, each word as its byte-level
+    symbols, counted."""
+    b2u = bytes_to_unicode()
+    rx = re.compile(translate_regex(GPT2_PATTERN))
+    return dict(collections.Counter(
+        tuple(b2u[b] for b in w.encode("utf-8")) for w in rx.findall(text)))
+
+
 def tokenizer_json(specials: dict[str, int], n_merges: int = 400,
                    text: str = CORPUS) -> dict:
     """A byte-level BPE tokenizer.json: ids 0-255 the byte tokens, then
@@ -206,7 +240,7 @@ def tokenizer_json(specials: dict[str, int], n_merges: int = 400,
     tokens."""
     vocab = {c: i for i, c in enumerate(
         bytes_to_unicode()[b] for b in range(256))}
-    merges = learn_merges(text, n_merges)
+    merges = learn_merges(byte_level_words(text), n_merges)
     for a, b in merges:
         vocab.setdefault(a + b, len(vocab))
     ids = sorted(specials.values())
@@ -247,3 +281,114 @@ def write_tokenizer(model_dir: str, specials: dict[str, int],
               encoding="utf-8") as f:
         json.dump({"chat_template": chat_template, "eos_token": eos_token,
                    "bos_token": None}, f, ensure_ascii=False, indent=1)
+
+
+# -- Gemma's tokenizer style ---------------------------------------------------
+
+# Gemma's special tokens at Gemma's ids; the ids between them are fillers
+GEMMA_SPECIALS = {"<pad>": 0, "<eos>": 1, "<bos>": 2, "<unk>": 3,
+                  "<start_of_turn>": 105, "<end_of_turn>": 106}
+GEMMA_SPACE = "\u2581"   # "▁", SentencePiece's word boundary
+
+# Gemma's chat template in its shape: the BOS written by the template, a
+# system message folded into the first user turn, the assistant's turns
+# as "model", alternation enforced
+GEMMA_TEMPLATE = (
+    "{{ bos_token }}"
+    "{%- if messages[0]['role'] == 'system' -%}"
+    "{%- set first_user_prefix = messages[0]['content'] + '\\n\\n' -%}"
+    "{%- set loop_messages = messages[1:] -%}"
+    "{%- else -%}"
+    "{%- set first_user_prefix = '' -%}"
+    "{%- set loop_messages = messages -%}"
+    "{%- endif -%}"
+    "{%- for message in loop_messages -%}"
+    "{%- if (message['role'] == 'user') != (loop.index0 % 2 == 0) -%}"
+    "{{ raise_exception('Conversation roles must alternate "
+    "user/assistant/user/assistant/...') }}"
+    "{%- endif -%}"
+    "{%- if message['role'] == 'assistant' -%}"
+    "{%- set role = 'model' -%}"
+    "{%- else -%}"
+    "{%- set role = message['role'] -%}"
+    "{%- endif -%}"
+    "{{ '<start_of_turn>' + role + '\\n' + (first_user_prefix if loop.first "
+    "else '') }}"
+    "{{ message['content'] | trim }}"
+    "{{ '<end_of_turn>\\n' }}"
+    "{%- endfor -%}"
+    "{%- if add_generation_prompt -%}"
+    "{{ '<start_of_turn>model\\n' }}"
+    "{%- endif -%}")
+
+
+def gemma_tokenizer_json(vocab_size: int = 262144, n_merges: int = 400,
+                         text: str = CORPUS) -> dict:
+    """A tokenizer.json in Gemma's style: GEMMA_SPECIALS (in the vocab and
+    as special added tokens), `<unused_i>` fillers between them, the 256
+    byte tokens <0x00>..<0xFF>, the text's characters (spaces as "▁"),
+    the learned merges' tokens, then fillers up to vocab_size."""
+    top = max(GEMMA_SPECIALS.values())
+    by_id = {i: t for t, i in GEMMA_SPECIALS.items()}
+    vocab = {by_id.get(i, f"<unused{i}>"): i for i in range(top + 1)}
+    for b in range(256):
+        vocab[f"<0x{b:02X}>"] = len(vocab)
+    norm = text.replace(" ", GEMMA_SPACE)
+    for ch in sorted(set(norm)):
+        vocab.setdefault(ch, len(vocab))
+    # no pre-tokenizer: the whole text is one word
+    merges = learn_merges({tuple(norm): 1}, n_merges)
+    for a, b in merges:
+        vocab.setdefault(a + b, len(vocab))
+    if len(vocab) > vocab_size:
+        raise ValueError(f"{len(vocab)} pieces exceed vocab_size "
+                         f"{vocab_size}")
+    for i in range(len(vocab), vocab_size):
+        vocab[f"<unused{i}>"] = i
+    bos = GEMMA_SPECIALS["<bos>"]
+    return {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [
+            {"id": i, "content": t, "single_word": False, "lstrip": False,
+             "rstrip": False, "normalized": False, "special": True}
+            for t, i in sorted(GEMMA_SPECIALS.items(), key=lambda x: x[1])],
+        "normalizer": {"type": "Replace", "pattern": {"String": " "},
+                       "content": GEMMA_SPACE},
+        "pre_tokenizer": None,
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"SpecialToken": {"id": "<bos>", "type_id": 0}},
+                       {"Sequence": {"id": "A", "type_id": 0}}],
+            "pair": [{"SpecialToken": {"id": "<bos>", "type_id": 0}},
+                     {"Sequence": {"id": "A", "type_id": 0}},
+                     {"Sequence": {"id": "B", "type_id": 1}}],
+            "special_tokens": {"<bos>": {"id": "<bos>", "ids": [bos],
+                                         "tokens": ["<bos>"]}}},
+        "decoder": {"type": "Sequence", "decoders": [
+            {"type": "Replace", "pattern": {"String": GEMMA_SPACE},
+             "content": " "},
+            {"type": "ByteFallback"}, {"type": "Fuse"}]},
+        "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>",
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": True,
+                  "byte_fallback": True, "ignore_merges": False,
+                  "vocab": vocab, "merges": [[a, b] for a, b in merges]},
+    }
+
+
+def write_gemma_tokenizer(model_dir: str, vocab_size: int = 262144,
+                          n_merges: int = 400) -> None:
+    """tokenizer.json (gemma_tokenizer_json) and a tokenizer_config.json
+    with GEMMA_TEMPLATE, <bos> and <eos>."""
+    os.makedirs(model_dir, exist_ok=True)
+    with open(os.path.join(model_dir, "tokenizer.json"), "w",
+              encoding="utf-8") as f:
+        json.dump(gemma_tokenizer_json(vocab_size, n_merges), f,
+                  ensure_ascii=False)
+    with open(os.path.join(model_dir, "tokenizer_config.json"), "w",
+              encoding="utf-8") as f:
+        json.dump({"chat_template": GEMMA_TEMPLATE, "bos_token": "<bos>",
+                   "eos_token": "<eos>", "pad_token": "<pad>",
+                   "unk_token": "<unk>",
+                   "tokenizer_class": "PreTrainedTokenizerFast"},
+                  f, ensure_ascii=False, indent=1)

@@ -18,7 +18,8 @@
 //
 // Layout of one block (one 32-row query tile of one head of one batch row):
 //   shared: Q tile [32][D+1], K and V tiles [64][D+1], P tile [32][65]
-//   (rows padded by one float so column walks hit distinct banks);
+//   (rows padded by one float so column walks hit distinct banks):
+//   173,056 bytes at D = 256, 91,136 at D = 128;
 //   128 threads; thread t owns score rows 4*(t/16)+i and columns
 //   (t%16)+16*j, and the same rows of the output accumulator.
 // K/V tiles stream through shared memory from `lo` to `hi`, the first and
@@ -255,7 +256,13 @@ extern "C" int cake_flash_attention_fwd(
   p.causal = causal; p.window = window; p.q_offset = q_offset;
   p.limit = limit;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 128) return static_cast<int>(launch<128>(p, batch, hq, s));
-  if (d == 64) return static_cast<int>(launch<64>(p, batch, hq, s));
+  switch (d) {   // each head dimension its own instantiation; no other
+    case 64:
+      return static_cast<int>(launch<64>(p, batch, hq, s));
+    case 128:
+      return static_cast<int>(launch<128>(p, batch, hq, s));
+    case 256:
+      return static_cast<int>(launch<256>(p, batch, hq, s));
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

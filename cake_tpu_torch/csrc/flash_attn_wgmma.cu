@@ -27,14 +27,20 @@
 //     MN-major B operand (trans-b). Rounding P to bf16 is the one numeric
 //     change from the reference, which keeps P in float32: a relative error
 //     of at most 2^-9 per weight, well inside the bf16 output tolerance.
-//  2. Asynchronous, overlapped copies. One producer warp issues TMA loads
-//     (cp.async.bulk.tensor, 128-byte swizzle, two 64-column boxes per
-//     128-wide row) of K and V tiles into a ring of NSTAGE slots completed
+//  2. Asynchronous, overlapped copies. One producer warp (a warpgroup at
+//     D = 256, see Layout) issues TMA loads
+//     (cp.async.bulk.tensor, 128-byte swizzle, D / 64 boxes of 64 columns
+//     per row) of K and V tiles into a ring of NSTAGE slots completed
 //     on mbarriers; the consumer warpgroup that read a slot releases it
 //     when its two products are done. K and V have their own barriers, so
 //     Q.K^T starts while V is still in flight.
 //  3. bf16 tiles, no padding, and more warps: Q 16 KB, each K or V tile
-//     16 KB at D = 128, 178 KB in all with 4 stages and the merge buffer.
+//     16 KB at D = 128, 178 KB in all with 4 stages and the merge buffer;
+//     at D = 256 (Gemma3) Q and each tile are 32 KB, the ring has 2 stages
+//     and the merge buffer reuses it (Layout below), 161 KB in all, and a
+//     consumer thread holds a 64 x 256 f32 accumulator fragment (128
+//     registers) beside S (32) and P (16), in the 240 registers that
+//     setmaxnreg gives it.
 //     Swizzling instead of padding keeps wgmma reads free of bank
 //     conflicts. Two consumer warpgroups own the same 64 rows and take
 //     alternate tiles, each with its own running max, sum and accumulator,
@@ -67,13 +73,34 @@ namespace {
 constexpr int BM = 64;                  // packed rows per CTA (wgmma M)
 constexpr int BN = 64;                  // keys per K/V tile
 constexpr int NWG = 2;                  // consumer warpgroups, alternate tiles
-constexpr int NSTAGE = 4;               // K/V ring depth (a multiple of NWG)
 constexpr int NCONSUMER = 128 * NWG;
-constexpr int NTHREADS = NCONSUMER + 32;   // + one producer warp
+constexpr int SMEM_LIMIT = 232448;         // bytes a block may use (H100)
+// D = 256: registers the producer warpgroup keeps and each consumer
+// thread gets (setmaxnreg; 128 x 24 + 256 x 240 <= 65,536)
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 240;
 constexpr float kNeg = -1e30f;
 
+// Shared memory of one CTA at head dimension D. The K/V ring holds NSTAGE
+// slots (a multiple of NWG, so each slot is read by one warpgroup only and
+// its barrier phases follow that group's tiles in order). At D = 256 a
+// 4-slot ring alone (256 KB) exceeds a block's shared memory, so the ring
+// has 2 slots and the merge buffer lives in the ring, which is drained
+// once both warpgroups are past their last tile: 161 KB in all (ops/
+// flash.py: FlashPlan.smem_bytes and .threads mirror this, and the entry
+// point refuses a plan that does not).
 template <int D>
 struct Layout {
+  static constexpr int NSTAGE = D == 256 ? 2 : 4;   // K/V ring depth
+  static constexpr bool MERGE_IN_RING = D == 256;
+  // At D = 256 a consumer thread holds a 64 x 256 f32 accumulator
+  // fragment (128 registers) beside S, P and the softmax state. With a
+  // producer warp the CTA has 9 warps, 3 of them on one of the SM's four
+  // register-file quarters, so ptxas may give each thread only 168
+  // registers and spills. A producer warpgroup instead hands its
+  // registers to the consumers with setmaxnreg.
+  static constexpr bool REG_SPLIT = D == 256;
+  static constexpr int THREADS = NCONSUMER + (REG_SPLIT ? 128 : 32);
   static constexpr int HALVES = D / 64;        // 128-byte column blocks
   static constexpr int Q_HALF = BM * 128;      // bytes of one Q column block
   static constexpr int KV_HALF = BN * 128;
@@ -81,12 +108,19 @@ struct Layout {
   static constexpr int KV_BYTES = HALVES * KV_HALF;   // one K or V tile
   static constexpr int K_OFF = Q_BYTES;
   static constexpr int V_OFF = K_OFF + NSTAGE * KV_BYTES;
+  static constexpr int RING_END = V_OFF + NSTAGE * KV_BYTES;
   // warpgroup 1's o, m and l for the merge, [register][thread] in f32
-  static constexpr int MERGE_OFF = V_OFF + NSTAGE * KV_BYTES;
   static constexpr int MERGE_REGS = HALVES * 32 + 4;
-  static constexpr int BAR_OFF = MERGE_OFF + MERGE_REGS * 128 * 4;
+  static constexpr int MERGE_BYTES = MERGE_REGS * 128 * 4;
+  static constexpr int MERGE_OFF = MERGE_IN_RING ? K_OFF : RING_END;
+  static constexpr int BAR_OFF =
+      MERGE_IN_RING ? RING_END : RING_END + MERGE_BYTES;
   static constexpr int BYTES = BAR_OFF + 8 * (1 + 3 * NSTAGE);
   static constexpr int ALLOC = BYTES + 1024;   // base aligned up to 1024
+  static_assert(NSTAGE % NWG == 0, "each ring slot belongs to one group");
+  static_assert(!MERGE_IN_RING || MERGE_BYTES <= RING_END - K_OFF,
+                "the merge buffer must fit in the ring");
+  static_assert(ALLOC <= SMEM_LIMIT, "shared memory of one block");
 };
 
 struct Params {
@@ -199,12 +233,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // 8*(i/4) + 2*(t%4) + (i&1).
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS, 1)
+__global__ void __launch_bounds__(Layout<D>::THREADS, 1)
     flash_wgmma(__grid_constant__ const CUtensorMap tm_q,
                 __grid_constant__ const CUtensorMap tm_k,
                 __grid_constant__ const CUtensorMap tm_v,
                 __grid_constant__ const CUtensorMap tm_o, const Params p) {
   using L = Layout<D>;
+  constexpr int NSTAGE = L::NSTAGE;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -241,7 +276,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   }
   __syncthreads();
 
-  if (tid >= NCONSUMER) {   // producer warp: one lane issues every copy
+  if (tid >= NCONSUMER) {   // producer warp(group): one lane issues every copy
+    if constexpr (L::REG_SPLIT)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
     if (tid == NCONSUMER) {
       mbar_expect_tx(q_full, L::HALVES * 128 * p.group * p.positions);
       for (int h = 0; h < L::HALVES; ++h)
@@ -270,6 +307,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     return;
   }
 
+  if constexpr (L::REG_SPLIT)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
   // consumer warpgroups: both own the same 64 rows; group wg takes tiles
   // lo + wg, lo + wg + 2, ..., and group 1 hands its o, m, l to group 0
   const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
@@ -375,6 +414,11 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 
   // merge: group 1's partial state through shared memory into group 0's
   float* merge = reinterpret_cast<float*>(sbase + L::MERGE_OFF) + tid % 128;
+  if constexpr (L::MERGE_IN_RING) {
+    // the buffer is the ring: wait until both groups are past their last
+    // tile (every copy landed and was read, no wgmma in flight)
+    asm volatile("bar.sync 1, %0;" ::"n"(NCONSUMER) : "memory");
+  }
   if (wg == 1) {
 #pragma unroll
     for (int hd = 0; hd < L::HALVES; ++hd)
@@ -461,12 +505,15 @@ CUresult encode(CUtensorMap* map, const void* ptr, int d, int heads, int seq,
 
 template <int D>
 cudaError_t launch(const CUtensorMap (&maps)[4], const Params& p, dim3 grid,
-                   cudaStream_t stream) {
+                   int threads, int smem_bytes, cudaStream_t stream) {
+  // the caller's plan must be this instantiation's layout
+  if (threads != Layout<D>::THREADS || smem_bytes != Layout<D>::ALLOC)
+    return cudaErrorInvalidValue;
   static const cudaError_t attr = cudaFuncSetAttribute(
       flash_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       Layout<D>::ALLOC);
   if (attr != cudaSuccess) return attr;
-  flash_wgmma<D><<<grid, NTHREADS, Layout<D>::ALLOC, stream>>>(
+  flash_wgmma<D><<<grid, Layout<D>::THREADS, Layout<D>::ALLOC, stream>>>(
       maps[0], maps[1], maps[2], maps[3], p);
   return cudaGetLastError();
 }
@@ -487,11 +534,11 @@ extern "C" int cake_flash_wgmma_fwd(
     int skv, int hq, int hkv, int d, long long q_sh, long long q_ss,
     long long q_sb, long long k_sh, long long k_ss, long long k_sb,
     long long v_sh, long long v_ss, long long v_sb, long long o_sh,
-    long long o_ss, long long o_sb, int positions, float scale_log2,
-    int causal, int window, int q_offset, int kv_len, void* stream) {
+    long long o_ss, long long o_sb, int positions, int threads,
+    int smem_bytes, float scale_log2, int causal, int window, int q_offset,
+    int kv_len, void* stream) {
   if (batch <= 0 || sq <= 0 || skv <= 0 || hq <= 0 || hkv <= 0 ||
-      hq % hkv || (d != 64 && d != 128) || positions <= 0 ||
-      positions * (hq / hkv) > BM)
+      hq % hkv || positions <= 0 || positions * (hq / hkv) > BM)
     return static_cast<int>(cudaErrorInvalidValue);
   if (encode_tiled() == nullptr) return kErrNoEncoder;
   const int group = hq / hkv;
@@ -517,7 +564,13 @@ extern "C" int cake_flash_wgmma_fwd(
   p.scale_log2 = scale_log2;
   const dim3 grid((sq + positions - 1) / positions, hkv, batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = d == 128 ? launch<128>(maps, p, grid, s)
-                                   : launch<64>(maps, p, grid, s);
-  return static_cast<int>(err);
+  switch (d) {   // each head dimension its own instantiation; no other
+    case 64:
+      return static_cast<int>(launch<64>(maps, p, grid, threads, smem_bytes, s));
+    case 128:
+      return static_cast<int>(launch<128>(maps, p, grid, threads, smem_bytes, s));
+    case 256:
+      return static_cast<int>(launch<256>(maps, p, grid, threads, smem_bytes, s));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

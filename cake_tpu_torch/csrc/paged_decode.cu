@@ -41,8 +41,10 @@
 //     Unmapped or NULL entries are never loaded: the producer flags the
 //     stage empty and the consumers skip it.
 //  c. Warps over keys, lanes over channels. Each lane owns 16 contiguous
-//     bytes of a key row (8 bf16 or 4 float channels) and reads them with
-//     one 16-byte shared-memory load; a warp load covers 1-4 whole rows, a
+//     bytes of a key row (8 bf16 or 4 float channels), or two such runs
+//     512 bytes apart where a row is wider than a warp's load (float32 at
+//     D = 256), each read with one 16-byte shared-memory load; a warp load
+//     covers 1-4 whole rows or half of one, a
 //     contiguous run of shared memory, so no swizzle is needed for
 //     conflict-free reads (the boxes land unswizzled). q.k reduces over a
 //     row's lanes with shuffles. Each consumer warp takes 4 keys of a
@@ -81,15 +83,29 @@ constexpr int STEP_KEYS = 4;          // keys a warp takes per step
 constexpr int SMEM_LIMIT = 232448;    // bytes a block may use on an H100
 constexpr unsigned FULL = 0xffffffffu;
 
-// A lane owns VEC channels (16 bytes) of a key row: LPR lanes hold a row,
-// one warp load covers KPL rows, a step is U loads = STEP_KEYS keys.
+// A lane owns NV vectors of VEC channels (16 bytes each) of a key row:
+// LPR lanes hold a row, one warp load covers KPL rows, a step is U loads
+// = STEP_KEYS keys. A row wider than a warp's 512-byte load (float32 at
+// D = 256: 1 KB) gives each lane NV = 2 vectors, STRIDE channels apart,
+// so each of the lane's loads is still one contiguous warp-wide run.
 template <typename T, int D>
 struct Lanes {
   static constexpr int VEC = 16 / sizeof(T);
-  static constexpr int LPR = D / VEC;
+  static constexpr int LPR = D / VEC < 32 ? D / VEC : 32;
+  static constexpr int NV = D / (VEC * LPR);
+  static constexpr int CH = NV * VEC;        // channels a lane owns
+  static constexpr int STRIDE = LPR * VEC;   // channels between its vectors
   static constexpr int KPL = 32 / LPR;
   static constexpr int U = STEP_KEYS / KPL;
+  static_assert(NV * STRIDE == D && KPL * LPR == 32 && U * KPL == STEP_KEYS,
+                "a row is whole lanes and a step whole loads");
 };
+
+// Channel of a lane's register e: vector e / VEC, lane slot cs.
+template <typename LN>
+__device__ __forceinline__ int lane_channel(int cs, int e) {
+  return (e / LN::VEC) * LN::STRIDE + cs * LN::VEC + e % LN::VEC;
+}
 
 __host__ __device__ constexpr int align128(int x) { return (x + 127) & ~127; }
 
@@ -141,6 +157,18 @@ __device__ __forceinline__ void load_vec(const float* src, float (&f)[4]) {
   const float4 x = *reinterpret_cast<const float4*>(src);
   f[0] = x.x; f[1] = x.y; f[2] = x.z; f[3] = x.w;
 }
+// The lane's NV vectors of a row (src already at the lane's first channel).
+template <typename LN, typename T>
+__device__ __forceinline__ void load_lane(const T* src,
+                                          float (&f)[LN::CH]) {
+#pragma unroll
+  for (int n = 0; n < LN::NV; ++n) {
+    float x[LN::VEC];
+    load_vec(src + n * LN::STRIDE, x);
+#pragma unroll
+    for (int e = 0; e < LN::VEC; ++e) f[n * LN::VEC + e] = x[e];
+  }
+}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
@@ -189,6 +217,7 @@ __global__ void __launch_bounds__(NT) paged_decode(
     const __grid_constant__ CUtensorMap tm_v, const Params p) {
   using LN = Lanes<T, D>;
   constexpr int VEC = LN::VEC, LPR = LN::LPR, KPL = LN::KPL, U = LN::U;
+  constexpr int CH = LN::CH;
   constexpr int EPT = (GM * D + 32 * NW - 1) / (32 * NW);  // merge elements
   // aligned by an offset from the shared pointer, not by integer casts,
   // so the compiler keeps every access below a shared-memory one (LDS)
@@ -263,22 +292,23 @@ __global__ void __launch_bounds__(NT) paged_decode(
       }
     }
   } else {
-    // consumers: lane (kg, cs) holds channels [cs * VEC, +VEC) of key
-    // group kg; q for the group's heads, pre-scaled, in registers
+    // consumers: lane (kg, cs) holds channels cs * VEC + [0, VEC) of
+    // each of its NV vectors (STRIDE apart) of key group kg; q for the
+    // group's heads, pre-scaled, in registers
     const int cs = lane % LPR, kg = lane / LPR;
     const T* qrow = static_cast<const T*>(p.q) +
                     (int64_t(b) * p.hq + kvh * G) * D + cs * VEC;
-    float qf[GM][VEC], acc[GM][VEC], m[GM], l[GM];
+    float qf[GM][CH], acc[GM][CH], m[GM], l[GM];
 #pragma unroll
     for (int g = 0; g < GM; ++g) {
       if (g < G) {
-        load_vec(qrow + g * D, qf[g]);
+        load_lane<LN>(qrow + g * D, qf[g]);
       } else {
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) qf[g][e] = 0.f;
+        for (int e = 0; e < CH; ++e) qf[g][e] = 0.f;
       }
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) {
+      for (int e = 0; e < CH; ++e) {
         qf[g][e] *= p.scale_log2;
         acc[g][e] = 0.f;
       }
@@ -298,23 +328,23 @@ __global__ void __launch_bounds__(NT) paged_decode(
         for (int chunk = warp; chunk < bt / STEP_KEYS; chunk += NW) {
           // the step's K and V rows at once (V of a key that is not
           // visible as zeros), so the V loads overlap the score chain
-          float sc[U][GM], vf[U][VEC];
+          float sc[U][GM], vf[U][CH];
           bool vis[U];
 #pragma unroll
           for (int u = 0; u < U; ++u) {
             const int i = chunk * STEP_KEYS + u * KPL + kg;
             const int ps = sp[i];
             vis[u] = ps >= k0 && ps < k0 + bt && ps <= front;
-            float kf[VEC];
-            load_vec(sk + i * D + cs * VEC, kf);
-            load_vec(sv + i * D + cs * VEC, vf[u]);
+            float kf[CH];
+            load_lane<LN>(sk + i * D + cs * VEC, kf);
+            load_lane<LN>(sv + i * D + cs * VEC, vf[u]);
 #pragma unroll
-            for (int e = 0; e < VEC; ++e) vf[u][e] = vis[u] ? vf[u][e] : 0.f;
+            for (int e = 0; e < CH; ++e) vf[u][e] = vis[u] ? vf[u][e] : 0.f;
 #pragma unroll
             for (int g = 0; g < GM; ++g) {
-              float a0 = 0.f, a1 = 0.f;     // two chains of VEC / 2
+              float a0 = 0.f, a1 = 0.f;     // two chains of CH / 2
 #pragma unroll
-              for (int e = 0; e < VEC; e += 2) {
+              for (int e = 0; e < CH; e += 2) {
                 a0 = fmaf(qf[g][e], kf[e], a0);
                 a1 = fmaf(qf[g][e + 1], kf[e + 1], a1);
               }
@@ -344,13 +374,13 @@ __global__ void __launch_bounds__(NT) paged_decode(
             m[g] = mn;
             l[g] *= alpha;
 #pragma unroll
-            for (int e = 0; e < VEC; ++e) acc[g][e] *= alpha;
+            for (int e = 0; e < CH; ++e) acc[g][e] *= alpha;
 #pragma unroll
             for (int u = 0; u < U; ++u) {
               sc[u][g] = fast_exp2(sc[u][g] - mu);      // masked: 0
               l[g] += sc[u][g];
 #pragma unroll
-              for (int e = 0; e < VEC; ++e)
+              for (int e = 0; e < CH; ++e)
                 acc[g][e] = fmaf(sc[u][g], vf[u][e], acc[g][e]);
             }
           }
@@ -367,13 +397,13 @@ __global__ void __launch_bounds__(NT) paged_decode(
       for (int o = 16; o >= LPR; o >>= 1) {
         l[g] += __shfl_xor_sync(FULL, l[g], o);
 #pragma unroll
-        for (int e = 0; e < VEC; ++e)
+        for (int e = 0; e < CH; ++e)
           acc[g][e] += __shfl_xor_sync(FULL, acc[g][e], o);
       }
       if (g < G && kg == 0) {
 #pragma unroll
-        for (int e = 0; e < VEC; ++e)
-          wacc[(warp * G + g) * D + cs * VEC + e] = acc[g][e];
+        for (int e = 0; e < CH; ++e)
+          wacc[(warp * G + g) * D + lane_channel<LN>(cs, e)] = acc[g][e];
         if (cs == 0) {
           wm[warp * G + g] = m[g];
           wl[warp * G + g] = l[g];
@@ -492,6 +522,22 @@ cudaError_t launch_group(const CUtensorMap& tk, const CUtensorMap& tv,
   return launch<T, D, 8>(tk, tv, p, batch, smem, stream, clusters);
 }
 
+// Each head dimension its own instantiation; any other is refused.
+template <typename T>
+cudaError_t launch_dim(int d, const CUtensorMap& tk, const CUtensorMap& tv,
+                       const Params& p, int batch, int smem,
+                       cudaStream_t stream, int* clusters) {
+  switch (d) {
+    case 64:
+      return launch_group<T, 64>(tk, tv, p, batch, smem, stream, clusters);
+    case 128:
+      return launch_group<T, 128>(tk, tv, p, batch, smem, stream, clusters);
+    case 256:
+      return launch_group<T, 256>(tk, tv, p, batch, smem, stream, clusters);
+  }
+  return cudaErrorInvalidValue;
+}
+
 // Error codes beyond the CUDA runtime's: the encoder entry point was not
 // found, or it refused a pool (kErrEncode + the CUresult).
 constexpr int kErrNoEncoder = 20000;
@@ -505,7 +551,7 @@ int run(const void* q, const void* k, const void* v, const void* pos,
   const int elem = is_bf16 ? 2 : 4;
   if (batch <= 0 || max_blocks <= 0 || bt <= 0 || bt % STEP_KEYS ||
       bt > 256 || null_id <= 0 || hkv <= 0 || hq % hkv ||
-      hq / hkv > MAX_G || (d != 64 && d != 128) || cluster < 1 ||
+      hq / hkv > MAX_G || cluster < 1 ||
       cluster > MAX_CLUSTER || stages < 2 || stages > MAX_STAGES ||
       smem_bytes > SMEM_LIMIT ||
       smem_bytes != smem_layout(stages, bt, d, elem, hq / hkv, cluster).total)
@@ -527,15 +573,11 @@ int run(const void* q, const void* k, const void* v, const void* pos,
   p.cluster = cluster; p.stages = stages;
   p.scale_log2 = scale_log2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (is_bf16)
-    err = d == 128
-        ? launch_group<__nv_bfloat16, 128>(tk, tv, p, batch, smem_bytes, s, clusters)
-        : launch_group<__nv_bfloat16, 64>(tk, tv, p, batch, smem_bytes, s, clusters);
-  else
-    err = d == 128
-        ? launch_group<float, 128>(tk, tv, p, batch, smem_bytes, s, clusters)
-        : launch_group<float, 64>(tk, tv, p, batch, smem_bytes, s, clusters);
+  const cudaError_t err =
+      is_bf16 ? launch_dim<__nv_bfloat16>(d, tk, tv, p, batch, smem_bytes, s,
+                                          clusters)
+              : launch_dim<float>(d, tk, tv, p, batch, smem_bytes, s,
+                                  clusters);
   return static_cast<int>(err);
 }
 

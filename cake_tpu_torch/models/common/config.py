@@ -4,12 +4,14 @@ cake_tpu/models/common/config.py, dense families only).
 `config_from_hf_dict` normalizes an HF config.json dict through a family
 adapter into one `ModelConfig`; per-layer behaviour is resolved into
 `LayerSpec`s so the decoder block is one generic function driven by data.
-The families here are the dense SiLU ones: pre-norm (llama, qwen2, qwen3,
-mistral, falcon3, phi4 with its pre-fused projections and partial RoPE)
-and post-norm (olmo2 with QK-norm before the head split, exaone4 with
-local/global layers and NoPE global layers). Gemma3, the MoE and the
-GDN-hybrid families raise, naming the ROADMAP item that ports them; an
-unknown architecture raises too.
+The families here are the dense ones: pre-norm (llama, qwen2, qwen3,
+mistral, falcon3, phi4 with its pre-fused projections and partial RoPE),
+post-norm (olmo2 with QK-norm before the head split, exaone4 with
+local/global layers and NoPE global layers) and sandwich-norm (gemma3:
+four (1+w) norms per block, GELU-tanh, embeddings scaled by sqrt(hidden),
+local layers on their own RoPE table). The MoE and the GDN-hybrid
+families raise, naming the ROADMAP item that ports them; an unknown
+architecture raises too.
 """
 from __future__ import annotations
 
@@ -37,8 +39,11 @@ class LayerSpec:
     """Resolved per-layer behaviour, consumed by the generic block."""
     kind: str = "full"            # 'full' | 'swa'
     use_rope: bool = True         # False: EXAONE4's global layers (NoPE)
+    local_rope_table: bool = False  # Gemma3's local layers: the tables
+                                    # at rope_local_base_freq
     window: int | None = None     # sliding-window size when kind == 'swa'
-    norm_style: str = "pre"       # 'pre' | 'post' (OLMo2, EXAONE4)
+    norm_style: str = "pre"       # 'pre' | 'post' (OLMo2, EXAONE4) |
+                                  # 'sandwich' (Gemma3)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +69,8 @@ class ModelConfig:
                                    # and one gate_up_proj
     qk_norm: bool = False
     qk_norm_pre_reshape: bool = False  # OLMo2: norm full q/k before heads
+    residual_rms_norm: bool = False    # checkpoints store norms as w, the
+                                       # model uses 1 + w (Gemma3)
     norm_style: str = "pre"
     sliding_window: int | None = None
     # the reference's per-layer pattern: True = full attention, False =
@@ -71,6 +78,12 @@ class ModelConfig:
     # windowed when sliding_window is set
     global_layers: tuple[bool, ...] = ()
     global_rope: bool = True       # False: global layers skip RoPE (EXAONE4)
+    # Gemma3's local layers apply RoPE at rope_local_base_freq, never
+    # scaled; its global layers use rope_theta and rope_scaling (the
+    # reference follows HF here)
+    local_rope_theta: float | None = None
+    hidden_act: str = "silu"       # 'silu' | 'gelu_tanh' (Gemma3)
+    embed_scale: float | None = None   # Gemma3: sqrt(hidden_size)
     attn_scale: float | None = None    # None: head_dim ** -0.5
 
     def layer_spec(self, i: int) -> LayerSpec:
@@ -79,8 +92,10 @@ class ModelConfig:
             if i >= len(self.global_layers) or self.global_layers[i]:
                 return LayerSpec(kind="full", use_rope=self.global_rope,
                                  norm_style=self.norm_style)
-            return LayerSpec(kind="swa", window=self.sliding_window,
-                             norm_style=self.norm_style)
+            return LayerSpec(
+                kind="swa", window=self.sliding_window,
+                local_rope_table=self.local_rope_theta is not None,
+                norm_style=self.norm_style)
         if self.sliding_window is not None:
             return LayerSpec(kind="swa", window=self.sliding_window,
                              norm_style=self.norm_style)
@@ -184,6 +199,34 @@ def _phi4(d):
     ))
 
 
+def _gemma3(d):
+    """Gemma3: local (sliding window) and global layers, every
+    `sliding_window_pattern`-th global, or as the explicit
+    `sliding_window_attention_schedule` says; sandwich norms with (1+w)
+    weights, QK-norm, GELU-tanh, embeddings scaled by sqrt(hidden), tied
+    head, attention scale from query_pre_attn_scalar."""
+    n = int(d["num_hidden_layers"])
+    pattern = int(d.get("sliding_window_pattern", 6))
+    sched = d.get("sliding_window_attention_schedule") or []
+    if sched:
+        global_layers = tuple(bool(x) for x in sched[:n])
+    else:
+        global_layers = tuple((i + 1) % pattern == 0 for i in range(n))
+    return ModelConfig(**_base(
+        d, "gemma3",
+        rope_theta=float(d.get("rope_theta", 10000.0)),
+        qk_norm=True, residual_rms_norm=True, norm_style="sandwich",
+        sliding_window=int(d.get("sliding_window", 1024)),
+        global_layers=global_layers,
+        local_rope_theta=float(d.get("rope_local_base_freq", 10000.0)),
+        hidden_act="gelu_tanh",
+        embed_scale=float(d["hidden_size"]) ** 0.5,
+        tie_word_embeddings=True,
+        attn_scale=(float(d["query_pre_attn_scalar"]) ** -0.5
+                    if d.get("query_pre_attn_scalar") else None),
+    ))
+
+
 def _olmo2(d):
     return ModelConfig(**_base(
         d, "olmo2", qk_norm=True, qk_norm_pre_reshape=True,
@@ -220,18 +263,22 @@ ARCH_ADAPTERS = {
     "Olmo2ForCausalLM": _olmo2,
     "ExaoneForCausalLM": _exaone4,
     "Exaone4ForCausalLM": _exaone4,
+    "Gemma3ForCausalLM": _gemma3,
 }
 
 FAMILY_ADAPTERS = {
     "llama": _llama, "llama3": _llama, "qwen2": _qwen2, "qwen3": _qwen3,
     "mistral": _mistral, "falcon3": _falcon3, "phi4": _phi4, "phi3": _phi4,
-    "olmo2": _olmo2, "exaone4": _exaone4,
+    "olmo2": _olmo2, "exaone4": _exaone4, "gemma3": _gemma3,
 }
 
 # families of the reference the port has not taken over yet -> the ROADMAP
 # item that brings them
 NOT_PORTED = {
-    "Gemma3ForCausalLM": "module 6 (Gemma3)", "gemma3": "module 6 (Gemma3)",
+    # Gemma3 4B and larger: a vision tower around the text model, which
+    # neither package adapts; its text tower waits for a real config
+    "Gemma3ForConditionalGeneration": "module 6 (Gemma3's multimodal "
+                                      "checkpoints)",
     "Qwen3MoeForCausalLM": "module 10 (MoE)", "qwen3_moe": "module 10 (MoE)",
     "Qwen3_5ForConditionalGeneration": "module 10 (GDN)",
     "qwen3_5": "module 10 (GDN)",

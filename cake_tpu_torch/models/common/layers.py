@@ -18,8 +18,9 @@ from __future__ import annotations
 
 import torch
 
-from ...ops import (apply_rope, embedding, linear, make_attention_mask,
-                    multi_head_attention, rms_norm, rope_tables, silu_mul)
+from ...ops import (apply_rope, embedding, gelu_mul, linear,
+                    make_attention_mask, multi_head_attention, rms_norm,
+                    rope_tables, silu_mul)
 from ...ops import flash as flash_ops
 from ...ops import paged_attention as paged_ops
 from .cache import paged_write_entry, update_kv_cache
@@ -30,7 +31,13 @@ INIT_STD = 0.02
 
 NORM_NAMES = {"pre": ("input_layernorm", "post_attention_layernorm"),
               "post": ("post_attention_layernorm",
-                       "post_feedforward_layernorm")}
+                       "post_feedforward_layernorm"),
+              "sandwich": ("input_layernorm", "post_attention_layernorm",
+                           "pre_feedforward_layernorm",
+                           "post_feedforward_layernorm")}
+
+# the gated MLP's activation by config.hidden_act
+ACTIVATIONS = {"silu": silu_mul, "gelu_tanh": gelu_mul}
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
@@ -82,9 +89,16 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 
 
 def make_rope(cfg: ModelConfig, device) -> dict:
+    """{cos, sin}, and for Gemma3 {cos_local, sin_local} at
+    rope_local_base_freq, never scaled (the reference's make_rope)."""
     cos, sin = rope_tables(cfg.max_seq_len, cfg.rotary_dim, cfg.rope_theta,
                            cfg.rope_scaling, device=device)
-    return {"cos": cos, "sin": sin}
+    rope = {"cos": cos, "sin": sin}
+    if cfg.local_rope_theta is not None:
+        rope["cos_local"], rope["sin_local"] = rope_tables(
+            cfg.max_seq_len, cfg.rotary_dim, cfg.local_rope_theta,
+            device=device)
+    return rope
 
 
 def _positions(pos0, s: int, device) -> torch.Tensor:
@@ -123,10 +137,10 @@ def attention_forward(cfg: ModelConfig, spec: LayerSpec, p: dict,
         k = rms_norm(k, p["k_norm"]["weight"], cfg.rms_norm_eps)
     positions = _positions(pos0, s, x.device)
     if spec.use_rope:
-        q = apply_rope(q, rope["cos"], rope["sin"], positions,
-                       cfg.rotary_dim)
-        k = apply_rope(k, rope["cos"], rope["sin"], positions,
-                       cfg.rotary_dim)
+        suffix = "_local" if spec.local_rope_table else ""
+        cos, sin = rope["cos" + suffix], rope["sin" + suffix]
+        q = apply_rope(q, cos, sin, positions, cfg.rotary_dim)
+        k = apply_rope(k, cos, sin, positions, cfg.rotary_dim)
 
     use_flash = s >= flash_ops.FLASH_MIN_SEQ and (
         flash_mode == "fresh"
@@ -182,17 +196,21 @@ def attention_forward(cfg: ModelConfig, spec: LayerSpec, p: dict,
 
 
 def mlp_forward(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    act = ACTIVATIONS.get(cfg.hidden_act)
+    if act is None:
+        raise ValueError(f"hidden_act {cfg.hidden_act!r} is not ported")
     gate = linear(x, p["gate_proj"]["weight"])
     up = linear(x, p["up_proj"]["weight"])
-    return linear(silu_mul(gate, up), p["down_proj"]["weight"])
+    return linear(act(gate, up), p["down_proj"]["weight"])
 
 
 def block_forward(cfg: ModelConfig, spec: LayerSpec, p: dict,
                   x: torch.Tensor, layer_cache: dict, pos0,
                   rope: dict, valid_len=None, flash_mode: str = "off"):
-    """One decoder block: pre-norm (norm, sublayer, residual add) or
+    """One decoder block: pre-norm (norm, sublayer, residual add),
     post-norm (OLMo2, EXAONE4: sublayer, norm of its output, residual
-    add; no input_layernorm). The sandwich style is not ported yet."""
+    add; no input_layernorm) or sandwich (Gemma3: norm, sublayer, norm of
+    its output, residual add, for both sublayers)."""
     eps = cfg.rms_norm_eps
     if spec.norm_style == "pre":
         h = rms_norm(x, p["input_layernorm"]["weight"], eps)
@@ -211,6 +229,17 @@ def block_forward(cfg: ModelConfig, spec: LayerSpec, p: dict,
         return x + rms_norm(mlp_forward(cfg, p["mlp"], x),
                             p["post_feedforward_layernorm"]["weight"],
                             eps), layer_cache
+    if spec.norm_style == "sandwich":
+        h = rms_norm(x, p["input_layernorm"]["weight"], eps)
+        attn_out, layer_cache = attention_forward(
+            cfg, spec, p["self_attn"], h, layer_cache, pos0, rope,
+            valid_len, flash_mode)
+        x = x + rms_norm(attn_out, p["post_attention_layernorm"]["weight"],
+                         eps)
+        h = rms_norm(x, p["pre_feedforward_layernorm"]["weight"], eps)
+        return x + rms_norm(mlp_forward(cfg, p["mlp"], h),
+                            p["post_feedforward_layernorm"]["weight"],
+                            eps), layer_cache
     raise ValueError(f"norm style {spec.norm_style!r} is not ported")
 
 
@@ -227,7 +256,14 @@ def forward_layers(cfg: ModelConfig, params: dict, x: torch.Tensor,
 
 def embed_tokens(cfg: ModelConfig, params: dict,
                  tokens: torch.Tensor) -> torch.Tensor:
-    return embedding(tokens, params["embed_tokens"]["weight"])
+    x = embedding(tokens, params["embed_tokens"]["weight"])
+    if cfg.embed_scale is not None:
+        # Gemma: the scale is rounded to the model dtype first (sqrt(1152)
+        # = 33.94 is 34.0 in bf16), as the reference multiplies by
+        # jnp.asarray(embed_scale, x.dtype); a host number, so that a
+        # captured decode step copies nothing to the card
+        x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype).item()
+    return x
 
 
 def lm_head_logits(cfg: ModelConfig, params: dict,

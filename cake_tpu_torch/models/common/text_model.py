@@ -82,7 +82,6 @@ def check_prefill_bounds(n: int, pos0: int, capacity: int | None,
 @dataclass
 class Token:
     id: int
-    text: str | None
     is_end_of_stream: bool
 
 
@@ -402,8 +401,7 @@ class TextModel:
                      "tok_per_s": (len(out) - 1) / dt if dt > 0 else 0.0}
 
     def mk_token(self, tid: int) -> Token:
-        text = self.tokenizer.decode([tid]) if self.tokenizer else None
-        return Token(id=tid, text=text, is_end_of_stream=self.cfg.is_eos(tid))
+        return Token(id=tid, is_end_of_stream=self.cfg.is_eos(tid))
 
 
 GEN_CHUNK = 16      # decode steps per generate chunk (the reference's)

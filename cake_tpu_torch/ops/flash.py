@@ -54,12 +54,13 @@ ROUTES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 LIBRARIES = {"bf16": "flash_attn_wgmma", "f32": "flash_attn"}
 SOURCES = {"bf16": "cake_tpu_torch/csrc/flash_attn_wgmma.cu",
            "f32": "cake_tpu_torch/csrc/flash_attn.cu"}
-_KERNEL_HEAD_DIMS = (64, 128)
+_KERNEL_HEAD_DIMS = (64, 128, 256)   # one instantiation each, no other
 
 # the bf16 kernel's tiles (csrc/flash_attn_wgmma.cu: BM, BN)
 BLOCK_ROWS = 64     # packed (query index, head) rows per CTA: one wgmma M
 BLOCK_KEYS = 64     # keys per K/V tile
 TMA_ALIGN = 16      # bytes: TMA's alignment of a base address and a stride
+SMEM_LIMIT = 232448   # bytes one block may use on an H100
 
 
 def _limits(s: int, valid_len, q_offset) -> tuple[int, int]:
@@ -124,6 +125,32 @@ class FlashPlan:
     q_offset: int
     causal: bool
     window: int        # 0: none
+    d: int             # head dimension: 64, 128 or 256
+
+    @property
+    def threads(self) -> int:
+        """Threads per CTA (Layout<D>::THREADS): two consumer warpgroups
+        and a producer warp, or at D = 256 a producer warpgroup, whose
+        registers setmaxnreg hands to the consumers."""
+        return 256 + (128 if self.d == 256 else 32)
+
+    @property
+    def stages(self) -> int:
+        """Depth of the K/V ring (Layout<D>::NSTAGE): 4, or 2 at D = 256,
+        where 4 slots of 32 KB K and V tiles exceed a block's shared
+        memory."""
+        return 2 if self.d == 256 else 4
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of one CTA (Layout<D>::ALLOC): Q, the
+        ring, the warpgroup merge buffer (inside the drained ring at
+        D = 256), the barriers, 1024 bytes to align the base."""
+        q = BLOCK_ROWS * 2 * self.d
+        ring = 2 * self.stages * BLOCK_KEYS * 2 * self.d
+        merge = (self.d // 64 * 32 + 4) * 128 * 4
+        bars = 8 * (1 + 3 * self.stages)
+        return q + ring + (0 if self.d == 256 else merge) + bars + 1024
 
     @property
     def positions(self) -> int:
@@ -190,7 +217,7 @@ def plan_flash(q_shape, k_shape, causal: bool = True, valid_len=None,
     off, limit = _limits(s, valid_len, q_offset)
     return FlashPlan(sq=s, group=hq // hkv, kv_len=min(limit, skv),
                      q_offset=off, causal=bool(causal),
-                     window=0 if window is None else int(window))
+                     window=0 if window is None else int(window), d=d)
 
 
 def tma_strides(x: torch.Tensor, name: str) -> tuple[int, int, int]:
@@ -285,7 +312,7 @@ def _launch_wgmma(q, k, v, scale, causal, valid_len, q_offset, window):
         _raise_on(lib.cake_flash_wgmma_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
             k.shape[1], hq, k.shape[2], d, *strides, plan.positions,
-            scale * LOG2E, int(plan.causal), plan.window, plan.q_offset,
+            plan.threads, plan.smem_bytes, scale * LOG2E, int(plan.causal), plan.window, plan.q_offset,
             plan.kv_len, stream))
     return out
 
@@ -316,8 +343,8 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the kernel of q's route (no launch count: callers that
     compare a kernel with its plain version use this entry). Raises on
     CPU tensors, on a dtype other than float32/bfloat16, on D outside
-    {64, 128}, on a non-contiguous last dimension and, for bfloat16, on a
-    view that breaks TMA's rules."""
+    {64, 128, 256}, on a non-contiguous last dimension and, for bfloat16,
+    on a view that breaks TMA's rules."""
     route = kernel_route(q.dtype)
     _check_kernel_inputs(q, k, v)
     if scale is None:
@@ -371,7 +398,7 @@ def _bind_wgmma(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn = lib.cake_flash_wgmma_fwd
     fn.argtypes = ([p, p, p, p] + [i] * 6 + [ll] * 12
-                   + [i, ctypes.c_float, i, i, i, i, p])
+                   + [i, i, i, ctypes.c_float, i, i, i, i, p])
     fn.restype = i
 
 

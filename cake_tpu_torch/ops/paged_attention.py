@@ -50,7 +50,7 @@ SOURCE = "cake_tpu_torch/csrc/paged_decode.cu"
 ROUTES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 ELEMENT_BYTES = {"bf16": 2, "f32": 4}
 MAX_GROUP = 8             # query heads per KV head (MAX_G there)
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 256)   # one instantiation each, no other
 
 # The kernel's constants (csrc/paged_decode.cu)
 CLUSTER = 8               # CTAs per (row, KV head): the portable cluster
@@ -151,14 +151,22 @@ def _plan(route, batch, hkv, group, d, bt, max_blocks) -> PagedPlan:
 def plan_paged(q_shape, k_shape, tables_shape, dtype) -> PagedPlan:
     """The kernel's plan for q [B, 1, Hq, D], a pool [NB + 1, bt, Hkv, D]
     and tables [B, M]. Raises ValueError on a block size the kernel does
-    not take (a multiple of STEP_KEYS, at most 256: one TMA box)."""
+    not take (a multiple of STEP_KEYS, at most 256: one TMA box) and on a
+    block whose two-stage ring does not fit a block's shared memory
+    (float32 at bt 64, D 256)."""
     b, _, hq, d = q_shape
     bt, hkv = k_shape[1], k_shape[2]
     if bt % STEP_KEYS or not 0 < bt <= 256:
         raise ValueError(f"paged decode kernel takes a block of a multiple "
                          f"of {STEP_KEYS} tokens up to 256, got {bt}")
-    return _plan(kernel_route(dtype), b, hkv, hq // hkv, d, bt,
+    plan = _plan(kernel_route(dtype), b, hkv, hq // hkv, d, bt,
                  tables_shape[1])
+    if plan.smem_bytes > SMEM_LIMIT:
+        raise ValueError(f"paged decode kernel: blocks of {bt} tokens at "
+                         f"D {d} ({plan.route}) need {plan.smem_bytes} "
+                         f"bytes of shared memory with 2 stages, more than "
+                         f"the {SMEM_LIMIT} a block may use")
+    return plan
 
 
 def paged_decode_attention_ref(q: torch.Tensor, k: torch.Tensor,
@@ -186,6 +194,13 @@ def kernel_route(dtype: torch.dtype) -> str:
     return route
 
 
+def check_head_dim(d: int) -> None:
+    """Raise ValueError on a head dimension the kernel was not built for."""
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"paged decode kernel takes head_dim in "
+                         f"{_HEAD_DIMS}, got {d}")
+
+
 def _check_kernel_inputs(q, k, v, pos, tables, frontier) -> None:
     for name, x in (("q", q), ("k", k), ("v", v), ("pos", pos),
                     ("tables", tables), ("frontier", frontier)):
@@ -211,9 +226,7 @@ def _check_kernel_inputs(q, k, v, pos, tables, frontier) -> None:
         raise ValueError(f"paged decode kernel: q must be [B, 1, Hq, D], "
                          f"got {tuple(q.shape)}")
     b, _, hq, d = q.shape
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"paged decode kernel takes head_dim in "
-                         f"{_HEAD_DIMS}, got {d}")
+    check_head_dim(d)
     if k.dim() != 4 or k.shape != v.shape or k.shape[3] != d:
         raise ValueError(f"paged decode kernel: k {tuple(k.shape)} / v "
                          f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")

@@ -1,25 +1,31 @@
-"""Byte-level BPE from a `tokenizer.json`, in pure Python (the port's
-counterpart of the `tokenizers` library that cake_tpu/runtime.py calls;
-the card's machine has no `tokenizers`).
+"""BPE from a `tokenizer.json`, in pure Python (the port's counterpart
+of the `tokenizers` library that cake_tpu/runtime.py calls; the card's
+machine has no `tokenizers`): byte-level BPE (GPT-2, Qwen, Llama 3,
+o200k) and the byte-fallback BPE converted from SentencePiece (Gemma).
 
 What it reads, and nothing else (any other construct raises at load and
 names its field):
   * model: BPE with `vocab`, `merges` as "a b" strings or ["a", "b"]
-    pairs, `ignore_merges`; no dropout, no byte fallback, no subword
-    prefix or suffix;
+    pairs, `ignore_merges`, `unk_token` with or without `fuse_unk`, and
+    `byte_fallback` (a character with no piece becomes the `<0xNN>`
+    tokens of its UTF-8 bytes); no dropout, no subword prefix or suffix;
   * added_tokens: split out of the raw text before anything else,
     longest first at each position (the library's leftmost-longest
     match); tokens without lstrip / rstrip / single_word. Their ids are
     the library's: the vocab's id, or the next one past the vocab (a
     file whose ids leave a gap is renumbered, with a warning, as the
     library renumbers it);
-  * normalizer: none, NFC, or a Sequence of them;
-  * pre_tokenizer: ByteLevel (with or without its GPT-2 regex, with or
+  * normalizer: none, NFC, Replace (a string by a string, as Gemma's
+    " " by "▁"), or a Sequence of them;
+  * pre_tokenizer: none (the text between added tokens is one word, as
+    in Gemma's), ByteLevel (with or without its GPT-2 regex, with or
     without a prefix space), Split (a regex or a string, behaviour
     Isolated), or a Sequence of them;
   * post_processor: ByteLevel (ids unchanged) or TemplateProcessing (a
     BOS as Llama 3 adds it), or a Sequence of them;
-  * decoder: ByteLevel.
+  * decoder: ByteLevel, or a Sequence of Replace (string by string),
+    ByteFallback (a run of `<0xNN>` tokens becomes its UTF-8 text, or one
+    U+FFFD per byte when the run is not valid UTF-8) and Fuse.
 
 The library's patterns are Oniguruma regexes. Stdlib `re` lacks
 `\\p{..}` classes and reads `\\s` and `\\w` differently, so `translate_regex`
@@ -30,9 +36,10 @@ rewrites those escapes into explicit code-point ranges built from
 Encoding a word applies merges by rank with a heap, the library's
 algorithm (lowest rank first, leftmost among equals, stale entries
 skipped), behind a per-word cache. `decode(ids)` equals the library's
-`decode(ids, skip_special_tokens=False)`: ids with no token are dropped,
-a token whose characters are not all byte-level characters contributes
-its own UTF-8, and invalid UTF-8 becomes U+FFFD.
+`decode(ids, skip_special_tokens=False)`: ids with no token are dropped;
+through the ByteLevel decoder a token whose characters are not all
+byte-level characters contributes its own UTF-8, and invalid UTF-8
+becomes U+FFFD.
 """
 from __future__ import annotations
 
@@ -200,12 +207,23 @@ def translate_regex(pattern: str) -> str:
 # -- the pipeline's stages ----------------------------------------------------
 
 
+def _string_pattern(spec, where: str) -> str:
+    pat = spec.get("pattern") or {}
+    if "String" not in pat:
+        raise UnsupportedTokenizer(f"{where} Replace: pattern {pat!r} (only "
+                                   "a string is implemented)")
+    return pat["String"]
+
+
 def _normalizer(spec):
     if spec is None:
         return lambda s: s
     kind = spec.get("type")
     if kind == "NFC":
         return lambda s: unicodedata.normalize("NFC", s)
+    if kind == "Replace":
+        old, new = _string_pattern(spec, "normalizer"), spec["content"]
+        return lambda s: s.replace(old, new)
     if kind == "Sequence":
         steps = [_normalizer(n) for n in spec.get("normalizers", [])]
 
@@ -236,10 +254,10 @@ def _split_isolated(rx: re.Pattern, pieces: list[str]) -> list[str]:
 
 
 def _pre_tokenizer(spec):
-    """A function str -> list of words in byte-level characters."""
+    """A function str -> list of words: in byte-level characters, or
+    (no pre-tokenizer) the text itself as one word."""
     if spec is None:
-        raise UnsupportedTokenizer("pre_tokenizer null: only byte-level BPE "
-                                   "is implemented")
+        return lambda text: [text] if text else []
     steps = spec.get("pretokenizers") if spec.get("type") == "Sequence" \
         else [spec]
     fns, byte_level = [], False
@@ -352,20 +370,17 @@ class BpeTokenizer:
         for key in ("continuing_subword_prefix", "end_of_word_suffix"):
             if model.get(key):
                 raise UnsupportedTokenizer(f"model.{key} is not implemented")
-        if model.get("byte_fallback"):
-            raise UnsupportedTokenizer("model.byte_fallback is not "
-                                       "implemented")
         if model.get("dropout"):
             raise UnsupportedTokenizer("model.dropout is not implemented")
-        dec = spec.get("decoder")
-        if dec is None or dec.get("type") != "ByteLevel":
-            raise UnsupportedTokenizer(
-                f"decoder {None if dec is None else dec.get('type')!r}: only "
-                "ByteLevel is implemented")
         self.vocab: dict[str, int] = dict(model.get("vocab") or {})
         self.ignore_merges = bool(model.get("ignore_merges"))
         unk = model.get("unk_token")
         self.unk_id = self.vocab.get(unk) if unk is not None else None
+        self.fuse_unk = bool(model.get("fuse_unk"))
+        # byte value -> its <0xNN> token's id, when the model falls back
+        self.byte_ids = ({b: self.vocab.get(f"<0x{b:02X}>")
+                          for b in range(256)}
+                         if model.get("byte_fallback") else None)
         self.merges: dict[tuple[int, int], tuple[int, int]] = {}
         for rank, m in enumerate(model.get("merges") or []):
             a, b = m.split(" ") if isinstance(m, str) else m
@@ -404,8 +419,8 @@ class BpeTokenizer:
         self._normalize = _normalizer(normalizer)
         self._words = _pre_tokenizer(spec.get("pre_tokenizer"))
         self._post = _post_processor(spec.get("post_processor"))
+        self._decode = _decoder(spec.get("decoder"))
         self._cache: dict[str, list[int]] = {}
-        self._u2b = unicode_to_bytes()
 
     def _added_id(self, content: str) -> int:
         """The id the library gives an added token: the model's own id
@@ -429,12 +444,7 @@ class BpeTokenizer:
     def _bpe(self, word: str) -> list[int]:
         if self.ignore_merges and word in self.vocab:
             return [self.vocab[word]]
-        ids = []
-        for ch in word:
-            if ch in self.vocab:
-                ids.append(self.vocab[ch])
-            elif self.unk_id is not None:
-                ids.append(self.unk_id)
+        ids = self._symbols(word)
         n = len(ids)
         nxt = list(range(1, n + 1))
         prv = list(range(-1, n - 1))
@@ -468,6 +478,34 @@ class BpeTokenizer:
                     heapq.heappush(heap, (m[0], i, m[1]))
         return [t for t, a in zip(ids, alive) if a]
 
+    def _symbols(self, word: str) -> list[int]:
+        """The word's ids before any merge, in the library's order: a
+        character's piece, else its <0xNN> byte tokens (byte_fallback,
+        when all exist), else the unknown token, which waits for the next
+        known character or the end (fused over a run with fuse_unk)."""
+        ids: list[int] = []
+        unk = False         # an unknown token not yet placed
+        for ch in word:
+            i = self.vocab.get(ch)
+            if i is not None:
+                if unk:
+                    ids.append(self.unk_id)
+                    unk = False
+                ids.append(i)
+                continue
+            if self.byte_ids is not None:
+                bs = [self.byte_ids[b] for b in ch.encode("utf-8")]
+                if None not in bs:
+                    ids.extend(bs)
+                    continue
+            if self.unk_id is not None:
+                if unk and not self.fuse_unk:
+                    ids.append(self.unk_id)
+                unk = True
+        if unk:
+            ids.append(self.unk_id)
+        return ids
+
     def _encode_word(self, word: str) -> list[int]:
         ids = self._cache.get(word)
         if ids is None:
@@ -500,13 +538,72 @@ class BpeTokenizer:
     # -- decode --------------------------------------------------------------
 
     def decode(self, ids) -> str:
-        out = bytearray()
-        for i in ids:
-            tok = self.id_to_token.get(int(i))
-            if tok is None:
-                continue
+        tokens = [t for t in (self.id_to_token.get(int(i)) for i in ids)
+                  if t is not None]
+        return "".join(self._decode(tokens))
+
+
+# -- decoders: list of token strings -> list of strings -----------------------
+
+
+def _byte_level_decode(tokens: list[str]) -> list[str]:
+    """Every token's bytes (its own UTF-8 where a character is not a
+    byte-level one), as one string; invalid UTF-8 becomes U+FFFD."""
+    u2b = unicode_to_bytes()
+    out = bytearray()
+    for tok in tokens:
+        try:
+            out.extend([u2b[c] for c in tok])
+        except KeyError:
+            out.extend(tok.encode("utf-8"))
+    return [out.decode("utf-8", errors="replace")]
+
+
+_BYTE_TOKEN = re.compile(r"<0x([0-9A-Fa-f]{2})>")
+
+
+def _byte_fallback_decode(tokens: list[str]) -> list[str]:
+    """Runs of <0xNN> tokens -> their UTF-8 text, or one U+FFFD per byte
+    when the run does not decode (the library's rule)."""
+    out: list[str] = []
+    run = bytearray()
+
+    def flush():
+        if run:
             try:
-                out.extend([self._u2b[c] for c in tok])
-            except KeyError:
-                out.extend(tok.encode("utf-8"))
-        return out.decode("utf-8", errors="replace")
+                out.append(run.decode("utf-8"))
+            except UnicodeDecodeError:
+                out.extend("\ufffd" * len(run))
+            run.clear()
+    for tok in tokens:
+        m = _BYTE_TOKEN.fullmatch(tok) if len(tok) == 6 else None
+        if m is not None:
+            run.append(int(m.group(1), 16))
+        else:
+            flush()
+            out.append(tok)
+    flush()
+    return out
+
+
+def _decoder(spec):
+    """A function list of tokens -> list of strings, joined by decode."""
+    kind = None if spec is None else spec.get("type")
+    if kind == "ByteLevel":
+        return _byte_level_decode
+    if kind == "ByteFallback":
+        return _byte_fallback_decode
+    if kind == "Fuse":
+        return lambda tokens: ["".join(tokens)]
+    if kind == "Replace":
+        old, new = _string_pattern(spec, "decoder"), spec["content"]
+        return lambda tokens: [t.replace(old, new) for t in tokens]
+    if kind == "Sequence":
+        steps = [_decoder(d) for d in spec.get("decoders", [])]
+
+        def run(tokens):
+            for f in steps:
+                tokens = f(tokens)
+            return tokens
+        return run
+    raise UnsupportedTokenizer(f"decoder {kind!r} is not implemented")

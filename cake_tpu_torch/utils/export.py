@@ -5,7 +5,9 @@ params_to_hf_tensors; the inverse of utils/loaders.py).
 `write_checkpoint` writes a directory the loader reads back: config.json
 and one model.safetensors, or `shards` files with a
 model.safetensors.index.json. Tensors are written from the torch tensors
-as they are, bfloat16 included.
+as they are, bfloat16 included; a (1+w) norm (`residual_rms_norm`,
+Gemma3) is stored as w, computed in float32 and cast to its dtype, the
+inverse of the loader's step, as the reference's exporter stores it.
 """
 from __future__ import annotations
 
@@ -18,22 +20,27 @@ from .loaders import MODEL_PREFIX
 from .safetensors_io import save_safetensors
 
 NORMS = ("input_layernorm", "post_attention_layernorm",
-         "post_feedforward_layernorm")
+         "pre_feedforward_layernorm", "post_feedforward_layernorm")
 
 
-def params_to_hf_tensors(params: dict,
-                         fuse_phi: bool = False) -> dict[str, torch.Tensor]:
-    """fuse_phi: write Phi-style fused qkv_proj / gate_up_proj names."""
+def params_to_hf_tensors(params: dict, fuse_phi: bool = False,
+                         residual_norms: bool = False
+                         ) -> dict[str, torch.Tensor]:
+    """fuse_phi: write Phi-style fused qkv_proj / gate_up_proj names;
+    residual_norms: store every norm weight as w - 1 (Gemma3)."""
     pre = MODEL_PREFIX
+
+    def norm(w):
+        return (w.float() - 1.0).to(w.dtype) if residual_norms else w
     out = {f"{pre}.embed_tokens.weight": params["embed_tokens"]["weight"],
-           f"{pre}.norm.weight": params["norm"]["weight"]}
+           f"{pre}.norm.weight": norm(params["norm"]["weight"])}
     if "lm_head" in params:
         out["lm_head.weight"] = params["lm_head"]["weight"]
     for i, layer in enumerate(params["layers"]):
         lp = f"{pre}.layers.{i}"
-        for norm in NORMS:
-            if norm in layer:
-                out[f"{lp}.{norm}.weight"] = layer[norm]["weight"]
+        for name in NORMS:
+            if name in layer:
+                out[f"{lp}.{name}.weight"] = norm(layer[name]["weight"])
         a = layer["self_attn"]
         if fuse_phi:
             out[f"{lp}.self_attn.qkv_proj.weight"] = torch.cat(
@@ -46,7 +53,7 @@ def params_to_hf_tensors(params: dict,
         out[f"{lp}.self_attn.o_proj.weight"] = a["o_proj"]["weight"]
         for qk in ("q_norm", "k_norm"):
             if qk in a:
-                out[f"{lp}.self_attn.{qk}.weight"] = a[qk]["weight"]
+                out[f"{lp}.self_attn.{qk}.weight"] = norm(a[qk]["weight"])
         mlp = layer["mlp"]
         if fuse_phi:
             out[f"{lp}.mlp.gate_up_proj.weight"] = torch.cat(

@@ -11,6 +11,11 @@ checkpoint lacks raises KeyError with its name; tensors the checkpoint
 has and the model does not read are logged, as the reference's
 `mapping.coverage_report` does. Quantization is checked before, by
 `runtime.load_config_and_quant`.
+
+Gemma3 checkpoints store each RMS-norm weight as w for a norm that
+multiplies by 1 + w (`residual_rms_norm`): the loader adds 1 in float32
+after the cast to the model dtype and casts back, in the reference's
+order (`load_rms_norm_weight`), so both loaders give the same bits.
 """
 from __future__ import annotations
 
@@ -47,6 +52,10 @@ class ParamLoader:
     def _weight(self, name: str) -> dict:
         return {"weight": self._get(name)}
 
+    def _norm(self, name: str) -> dict:
+        return {"weight": load_rms_norm_weight(self._get(name),
+                                               self.cfg.residual_rms_norm)}
+
     def _attention(self, lp: str) -> dict:
         cfg = self.cfg
         sq, skv = cfg.size_q, cfg.size_kv
@@ -69,7 +78,7 @@ class ParamLoader:
         p["o_proj"] = self._weight(f"{lp}.self_attn.o_proj.weight")
         if cfg.qk_norm:
             for qk in ("q_norm", "k_norm"):
-                p[qk] = self._weight(f"{lp}.self_attn.{qk}.weight")
+                p[qk] = self._norm(f"{lp}.self_attn.{qk}.weight")
         return p
 
     def _mlp(self, mp: str) -> dict:
@@ -91,7 +100,7 @@ class ParamLoader:
         lp = f"{MODEL_PREFIX}.layers.{i}"
         p = {"self_attn": self._attention(lp), "mlp": self._mlp(f"{lp}.mlp")}
         for n in NORM_NAMES[spec.norm_style]:
-            p[n] = self._weight(f"{lp}.{n}.weight")
+            p[n] = self._norm(f"{lp}.{n}.weight")
         return p
 
     def load(self) -> dict:
@@ -99,7 +108,7 @@ class ParamLoader:
         params = {"layers": [self._layer(i)
                              for i in range(cfg.num_hidden_layers)],
                   "embed_tokens": self._weight(f"{pre}.embed_tokens.weight"),
-                  "norm": self._weight(f"{pre}.norm.weight")}
+                  "norm": self._norm(f"{pre}.norm.weight")}
         if not cfg.tie_word_embeddings:
             head = ("lm_head.weight" if "lm_head.weight" in self.st
                     else f"{pre}.lm_head.weight")
@@ -110,6 +119,15 @@ class ParamLoader:
                         f" (+{len(unused) - 6} more)" if len(unused) > 6
                         else "")
         return params
+
+
+def load_rms_norm_weight(weight: torch.Tensor,
+                         residual: bool) -> torch.Tensor:
+    """The weight a norm multiplies by: as stored, or (residual) 1 + w
+    computed in float32 and cast back to the weight's dtype."""
+    if not residual:
+        return weight
+    return (weight.float() + 1.0).to(weight.dtype)
 
 
 def load_model_params(cfg: ModelConfig, model_dir: str,

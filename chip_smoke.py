@@ -51,7 +51,21 @@ Phases (any failure exits non-zero and prints no result line):
      with the cache off; (c) (a)'s chats on a 96-block pool, the last two
      arriving while the first two decode: at least one swap preemption,
      no failure, tokens equal to (a)'s;
-  7. prints the kernels line, the card line, and the result line last.
+  7. the flagship written as a checkpoint directory, loaded bit for bit
+     and served through `cli serve DIR`, contiguous and paged;
+  8. OLMo2, EXAONE4 and Phi-4 at their published widths, depth cut:
+     f32 card vs CPU, bf16 graph vs eager, EXAONE4 served paged;
+  9. Gemma-3-1B at its published widths (head_dim 256, window 512, GQA
+     4/1, sandwich (1+w) norms, GELU-tanh, local RoPE, vocab 262144):
+     (a) f32 at 6 layers (one global) against the CPU on a 600-token
+     prompt that wraps the 512-token rings, contiguous and paged; (b) the
+     full 26 layers in bf16, written as a checkpoint with a Gemma-style
+     byte-fallback tokenizer and loaded through build_text_model: 16
+     captured decode replays equal 16 eager steps in both pools; (c) the
+     same directory served through `cli serve DIR`, contiguous and paged:
+     4 concurrent chats and one SSE chat, all 200, each equal alone and
+     in company, the engine's prompt ids those of a fresh CPU tokenizer;
+  then prints the kernels line, the card line, and the result line last.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -162,15 +176,20 @@ FLASH_CASES = [
 
 def family_flash_cases() -> list:
     """The checkpoint families' attention shapes at their published widths
-    (synth_checkpoint.family_attention): fresh with the family's window
-    (EXAONE4's local layers), and append."""
+    (synth_checkpoint.family_attention): fresh at the served chunk (Sq
+    256) with the family's window (EXAONE4's and Gemma3's local layers),
+    and append. A window shorter than 600 also gets a fresh case at Sq
+    600, where the window masks: the chunk alone never reaches past it."""
     from cake_tpu_torch.bench.synth_checkpoint import (FAMILIES,
                                                        family_attention)
     cases = []
     for fam in FAMILIES:
         a = family_attention(fam)
         shape = dict(hq=a["hq"], hkv=a["hkv"], d=a["d"])
-        cases.append((f"{fam}_fresh", dict(shape, window=a["window"])))
+        fresh = dict(shape, window=a["window"])
+        cases.append((f"{fam}_fresh", fresh))
+        if a["window"] and a["window"] < 600:
+            cases.append((f"{fam}_fresh_window", dict(fresh, sq=600)))
         cases.append((f"{fam}_append", dict(shape, **FLASH_CASES[4][1])))
     return cases
 
@@ -248,7 +267,8 @@ def phase_kernels() -> dict:
     import torch
     from cake_tpu_torch.bench.timing import device_ms, issue_ms
     from cake_tpu_torch.ops.flash import (flash_attention_kernel,
-                                          flash_attention_ref, kernel_route)
+                                          flash_attention_ref, kernel_route,
+                                          plan_flash)
     family = family_flash_cases()
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
         for name, spec in FLASH_CASES + family:
@@ -265,13 +285,20 @@ def phase_kernels() -> dict:
                   f"flash {name} {dtype}: max_abs_err {err} > {tol}")
             check(torch.equal(got, again),
                   f"flash {name} {dtype}: two launches differ")
+    for d in (64, 128, 256):
+        plan = plan_flash((1, 256, 4, d), (1, 256, 1, d), window=512)
+        print(f"flash plan bf16 D {d} (Sq 256, Hq/Hkv 4/1): {plan.ctas} "
+              f"CTAs of {plan.positions} positions, {plan.threads} "
+              f"threads, {plan.stages}-stage K/V ring, shared memory "
+              f"{plan.smem_bytes} B per CTA", flush=True)
     timings = {}
     for entry, dtype, spec in (
             ("fresh", torch.bfloat16, {}),
             ("append", torch.bfloat16, FLASH_CASES[4][1]),
             ("f32", torch.float32, {}),
             *((name, torch.bfloat16, spec) for name, spec in family),
-            ("phi4_f32", torch.float32, dict(family)["phi4_fresh"])):
+            ("phi4_f32", torch.float32, dict(family)["phi4_fresh"]),
+            ("gemma3_f32", torch.float32, dict(family)["gemma3_fresh"])):
         q, k, v, kw = flash_case(entry, dtype, **spec)
         err = (flash_attention_kernel(q, k, v, **kw).float()
                - flash_attention_ref(q, k, v, **kw).float()).abs().max()
@@ -289,7 +316,8 @@ def phase_kernels() -> dict:
         }
         t["bound_ms"], t["bound_by"] = flash_bound_ms(q, k, kw)
         timings[entry] = t
-        print(f"flash timing {entry}: {kernel_route(dtype)} Sq=256 Hq/Hkv="
+        print(f"flash timing {entry}: {kernel_route(dtype)} Sq={q.shape[1]} "
+              f"Hq/Hkv="
               f"{q.shape[2]}/{k.shape[2]} D={q.shape[3]} window="
               f"{kw.get('window')} Skv_row={k.shape[1]} device ms: kernel "
               f"{t['ms']:.5f} plain {t['plain_ms']:.5f} library "
@@ -323,13 +351,17 @@ def phase_paged_kernels(build_log: str) -> dict:
     from cake_tpu_torch.bench.paged_cases import (CARD_CASES, case_args,
                                                   paged_case)
     from cake_tpu_torch.ops import paged_attention as pa
-    for dtype in (torch.bfloat16, torch.float32):
-        c = paged_case([620] * 4, dtype=dtype, device="cuda", seed=620)
+    gemma = dict(hq=4, hkv=1, d=256)
+    for dtype, shape in ((torch.bfloat16, {}), (torch.float32, {}),
+                         (torch.bfloat16, gemma), (torch.float32, gemma)):
+        c = paged_case([620] * 4, dtype=dtype, device="cuda", seed=620,
+                       **shape)
         plan = pa.plan_paged(c["q"].shape, c["k"].shape, c["tables"].shape,
                              dtype)
         clusters = pa.active_clusters(*case_args(c))
         print(f"paged decode plan {pa.kernel_route(dtype)}: 4 rows, bt 16, "
-              f"Hq/Hkv 16/8, D 128: grid {plan.grid}, cluster "
+              f"Hq/Hkv {c['q'].shape[2]}/{c['k'].shape[2]}, D "
+              f"{c['q'].shape[3]}: grid {plan.grid}, cluster "
               f"{plan.cluster}, stages {plan.stages}, shared memory "
               f"{plan.smem_bytes} B per CTA, {plan.ctas_per_sm} CTAs per SM "
               f"by shared memory and threads; active clusters {clusters} "
@@ -355,9 +387,10 @@ def phase_paged_kernels(build_log: str) -> dict:
                   f"paged decode {name} {dtype}: two launches differ")
     timings = paged_timing.measure(
         with_plain=True,
-        shapes=paged_timing.SHAPES + paged_timing.family_shapes())
+        shapes=paged_timing.SHAPES + paged_timing.family_shapes() + (
+            ("f32_gemma3", "float32", 620, dict(hq=4, hkv=1, d=256)),))
     for entry, t in timings.items():
-        tol = F32_TOL if entry == "f32" else BF16_TOL
+        tol = F32_TOL if entry.startswith("f32") else BF16_TOL
         check(t["max_abs_err"] <= tol and t["same_bits"],
               f"paged decode timing {entry}: max_abs_err {t['max_abs_err']}"
               f" (tol {tol}), two launches equal {t['same_bits']}")
@@ -1006,20 +1039,24 @@ def _check_chats_any(results: list[dict], label: str) -> None:
 FAMILY_LAYERS = {"olmo2": 2, "exaone4": 4, "phi4": 2}
 
 
-def _family_dir(fam: str, workdir: str) -> str:
-    """The family's config at FAMILY_LAYERS depth with seeded weights and
-    randomized norms, bf16, two shards; a BPE tokenizer with ChatML
-    specials at the top of its vocabulary."""
+def _family_dir(fam: str, workdir: str, layers: int | None,
+                name: str | None = None) -> tuple[str, int]:
+    """The family's config at `layers` depth (None: its own) with seeded
+    weights and randomized norms, bf16, two shards; a BPE tokenizer with
+    ChatML specials at the top of its vocabulary, or for Gemma3 the
+    Gemma-style tokenizer. Returns (dir, bytes of tensors)."""
     from cake_tpu_torch.bench import synth_checkpoint as sc
-    d = os.path.join(workdir, fam)
-    config = sc.family_config(fam, FAMILY_LAYERS[fam])
-    sc.write_model(d, config, sc.model_params(config, seed=7,
-                                              randomize_norms=True),
-                   shards=2)
+    d = os.path.join(workdir, name or fam)
+    config = sc.family_config(fam, layers)
+    nbytes = sc.write_model(d, config, sc.model_params(
+        config, seed=7, randomize_norms=True), shards=2)
     v = config["vocab_size"]
-    sc.write_tokenizer(d, {"<|endoftext|>": v - 3, "<|im_start|>": v - 2,
-                           "<|im_end|>": v - 1})
-    return d
+    if fam == "gemma3":
+        sc.write_gemma_tokenizer(d, vocab_size=v)
+    else:
+        sc.write_tokenizer(d, {"<|endoftext|>": v - 3, "<|im_start|>": v - 2,
+                               "<|im_end|>": v - 1})
+    return d, nbytes
 
 
 def phase_families(card: str, workdir: str) -> dict:
@@ -1042,7 +1079,7 @@ def phase_families(card: str, workdir: str) -> dict:
     greedy = SamplingConfig(temperature=0.0)
     out = {}
     for fam in FAMILY_LAYERS:
-        d = _family_dir(fam, workdir)
+        d, _ = _family_dir(fam, workdir, FAMILY_LAYERS[fam])
         counts = {"fresh": 0, "append": 0, "paged": 0, "f32": 0}
         cpu, _, _ = build_text_model(d, "f32", device="cpu",
                                      max_cache_len=4096)
@@ -1135,6 +1172,124 @@ def phase_families(card: str, workdir: str) -> dict:
     return out
 
 
+# -- phase 9: Gemma-3-1B at its published widths --------------------------------
+
+GEMMA_PARITY_LAYERS = 6     # layer 5 is global: the paged pool needs one
+
+
+def phase_gemma3(card: str, workdir: str) -> dict:
+    """Phase 9 (a)-(c). Returns the launches of each kernel entry in it:
+    fresh / append (bf16 flash, (b) and (c)), paged (bf16, (b) and (c)),
+    f32 (flash) and paged_f32, both in (a)."""
+    import torch
+    from cake_tpu_torch.bench.graph_cases import build_state, graph_vs_eager
+    from cake_tpu_torch.ops import flash
+    from cake_tpu_torch.ops import paged_attention as pa
+    from cake_tpu_torch.ops.sampling import SamplingConfig
+    from cake_tpu_torch.runtime import build_text_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    greedy = SamplingConfig(temperature=0.0)
+    out = {}
+    # (a) f32 parity at 6 layers, card against CPU
+    d, _ = _family_dir("gemma3", workdir, GEMMA_PARITY_LAYERS, "gemma3-6")
+    cpu, _, _ = build_text_model(d, "f32", device="cpu", max_cache_len=4096)
+    gpu, _, _ = build_text_model(d, "f32", device="cuda", max_cache_len=4096)
+    cfg = gpu.cfg
+    kinds = ["G" if s.window is None else "L" for s in cfg.layer_specs()]
+    ids = [int(x) for x in torch.randint(
+        0, cfg.vocab_size, (600,), generator=torch.Generator().manual_seed(5))]
+    lg, tg, launches = chunked_prefill_and_greedy(gpu, ids)
+    lp, tp, paged_launches = paged_prefill_and_greedy(gpu, ids)
+    lc, tc, _ = chunked_prefill_and_greedy(cpu, ids)
+    err, err_p = ((x - lc).abs().max().item() for x in (lg, lp))
+    print(f"gemma3 (a) Hq/Hkv {cfg.num_attention_heads}/"
+          f"{cfg.num_key_value_heads} D {cfg.head_dim} window "
+          f"{cfg.sliding_window} layers {''.join(kinds)}, f32, 600-token "
+          f"prompt (the 512-token rings wrap): flash launches {launches}, "
+          f"paged {paged_launches}; logits max_abs_err {err:.3e} contiguous,"
+          f" {err_p:.3e} paged (tol {LOGIT_TOL:g}); 16 greedy tokens "
+          f"identical {tg == tc} / {tp == tc}", flush=True)
+    check(kinds.count("G") == 1, f"gemma3 (a): layers {kinds}")
+    check(err <= LOGIT_TOL and err_p <= LOGIT_TOL,
+          f"gemma3 (a): f32 logits differ by {err} / {err_p}")
+    check(tg == tc and tp == tc, "gemma3 (a): f32 greedy tokens differ")
+    check(launches["f32"]["fresh"] > 0 and launches["f32"]["append"] > 0
+          and paged_launches["f32"] > 0,
+          f"gemma3 (a): f32 kernels not launched: {launches} "
+          f"{paged_launches}")
+    out["f32"] = sum(launches["f32"].values())
+    out["paged_f32"] = paged_launches["f32"]
+    del cpu, gpu
+    torch.cuda.empty_cache()
+    shutil.rmtree(d, ignore_errors=True)
+    # (b) the full model from its checkpoint: graph replays vs eager steps
+    t = time.perf_counter()
+    d, nbytes = _family_dir("gemma3", workdir, None, "gemma-3-1b")
+    write_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    model, _, model_id = build_text_model(d, "bf16", device="cuda",
+                                          max_cache_len=4096)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    print(f"gemma3 (b) checkpoint: {nbytes / 1e9:.3f} GB of bf16 tensors "
+          f"written in {write_s:.1f}s, loaded through build_text_model in "
+          f"{load_s:.3f}s = {nbytes / 1e9 / load_s:.2f} GB/s "
+          f"({model.cfg.num_hidden_layers} layers); on {card}", flush=True)
+    flash.reset_launches()
+    pa.reset_launches()
+    for mode, kv_blocks in (("contiguous", 0), ("paged", 1024)):
+        state = build_state(model, [600, None], [greedy, greedy], 4096,
+                            kv_blocks=kv_blocks, seed=3)
+        r = graph_vs_eager(model, state, 16)
+        torch.cuda.synchronize()
+        print(f"gemma3 (b) bf16 {mode}: 600-token prefill, 16 replays of the"
+              f" captured decode step vs eager: tokens {r['tokens_equal']}, "
+              f"KV bytes {r['kv_equal']}, carries {r['carries_equal']}, max "
+              f"abs logit diff {r['max_logit_diff']:.3e}", flush=True)
+        check(r["graph"].graph is not None and r["tokens_equal"]
+              and r["kv_equal"] and r["carries_equal"],
+              f"gemma3 (b) {mode}: graph replays differ from eager steps")
+        del state, r
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    # (c) served through `cli serve DIR`
+    bodies = [chat_body(i) for i in range(4)] + [chat_body(4, True)]
+    for mode, extra in (("contiguous", ()),
+                        ("paged", ("--kv-blocks", "1024"))):
+        served = _cli_server(d, *extra)
+        try:
+            results = served.concurrent(bodies)
+            _check_chats_any(results, f"phase 9 {mode}")
+            check(all(r["resp"]["model"] == "gemma-3-1b"
+                      for r in results[:4]), "phase 9: model id")
+            _prompt_ids_match(served, d, bodies, f"phase 9 {mode}")
+            _alone_equals_concurrent(served, bodies, results,
+                                     f"phase 9 {mode}")
+            first = results[0]["resp"]
+            ttft, tps = _latency(results[:4])
+            print(f"gemma3 (c) served {mode}: 4 concurrent chats + 1 SSE, "
+                  f"all 200, {first['usage']['prompt_tokens']}-token prompts "
+                  f"(byte-fallback BPE), each equal alone and in company, "
+                  f"prompt ids those of a CPU tokenizer; TTFT p50 {ttft:.1f} "
+                  f"ms, decode tok/s per request p50 {tps:.1f} (smoke); on "
+                  f"{card}", flush=True)
+        finally:
+            served.close()
+    torch.cuda.synchronize()
+    fl = flash.launch_counts()["bf16"]
+    out.update(fresh=fl["fresh"], append=fl["append"],
+               paged=pa.launch_counts()["bf16"])
+    print(f"gemma3 (b)+(c) launches: bf16 flash {fl}, paged decode "
+          f"{out['paged']}", flush=True)
+    check(out["fresh"] > 0 and out["append"] > 0 and out["paged"] > 0,
+          f"gemma3: bf16 kernels not launched: {out}")
+    shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1164,6 +1319,7 @@ def main() -> int:
         del model
         torch.cuda.empty_cache()
         family_launches = phase_families(card, workdir)
+        family_launches["gemma3"] = phase_gemma3(card, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     kernels = []
@@ -1183,8 +1339,8 @@ def main() -> int:
         for entry, route, launches in (
                 (f"{fam}_fresh", "bf16", n["fresh"]),
                 (f"{fam}_append", "bf16", n["append"]),
-                *(((f"{fam}_f32", "f32", n["f32"]),) if fam == "phi4"
-                  else ())):
+                *(((f"{fam}_f32", "f32", n["f32"]),)
+                  if f"{fam}_f32" in timings else ())):
             t = timings[entry]
             mode = entry.split("_", 1)[1]
             kernels.append({
@@ -1197,7 +1353,9 @@ def main() -> int:
     for name, entry, launches in (
             ("bf16", "bf16", paged_launches), ("f32", "f32", parity_paged),
             *((f"bf16.{fam}", f"bf16_{fam}", n["paged"])
-              for fam, n in family_launches.items())):
+              for fam, n in family_launches.items()),
+            ("f32.gemma3", "f32_gemma3",
+             family_launches["gemma3"]["paged_f32"])):
         t = paged_timings[entry]
         kernels.append({
             "name": f"paged_decode_attention.{name}", "route": "cuda",

@@ -1,6 +1,7 @@
 """The port's flash attention: its plain version against the JAX Pallas
-kernel in interpret mode, over the cases of tests/test_flash.py (atol
-2e-4, rtol 1e-3, that file's tolerance), and the CPU dispatch rule. The
+kernel in interpret mode, over the cases of tests/test_flash.py and two at
+Gemma3's head dimension of 256 (atol 2e-4, rtol 1e-3, that file's
+tolerance), and the CPU dispatch rule. The
 kernels themselves are held against the plain version on the card in
 tests/test_torch_flash_card.py."""
 import subprocess
@@ -26,6 +27,10 @@ CASES = [
     ("non_multiple", 1, 100, 100, 2, 2, 16, {}),
     ("append_q_offset", 1, 64, 256, 2, 2, 16,
      dict(valid_len=64, q_offset=70)),
+    # Gemma3's head dimension and GQA group 4
+    ("d256_g4_window", 1, 256, 256, 4, 1, 256, dict(window=96)),
+    ("d256_g4_append", 1, 64, 256, 4, 1, 256,
+     dict(valid_len=64, q_offset=100)),
 ]
 
 

@@ -35,7 +35,9 @@ def test_kernel_matches_plain_on_card(dtype, tol):
 # 64, 100, 256, 300}, causal=False, valid_len 200, windows, append over a
 # strided pool view, D 64, batch 2; and the checkpoint families' shapes at
 # their published widths (OLMo2 16/16 D 128, Phi-4-mini 24/8 D 128,
-# EXAONE-4.0-1.2B 32/8 D 64 with its window of 4096), fresh and append
+# EXAONE-4.0-1.2B 32/8 D 64 with its window of 4096, Gemma-3-1B 4/1 D 256
+# with its window of 512 over 600 queries), fresh and append; and D 256
+# at groups 2 and 8
 CARD_CASES = [
     ("g1_sq1", dict(sq=1, hq=8, hkv=8)),
     ("g2_sq63", dict(sq=63)),
@@ -68,6 +70,15 @@ CARD_CASES = [
     ("exaone4_g4_d64_append", dict(sq=256, hq=32, hkv=8, d=64,
                                    pool_rows=4096, q_offset=256,
                                    valid_len=256)),
+    ("gemma3_g4_d256_window512_sq600", dict(sq=600, hq=4, hkv=1, d=256,
+                                            window=512)),
+    ("gemma3_g4_d256_append", dict(sq=256, hq=4, hkv=1, d=256,
+                                   pool_rows=4096, q_offset=256,
+                                   valid_len=256)),
+    ("d256_g2_sq100", dict(sq=100, hq=4, hkv=2, d=256)),
+    ("d256_g8_append_ragged", dict(sq=100, hq=16, hkv=2, d=256,
+                                   pool_rows=1024, q_offset=70,
+                                   valid_len=90)),
 ]
 
 
@@ -105,3 +116,72 @@ def test_kernel_cases_on_card(case, dtype, tol):
           f"max_abs_err {err:.3e} (tol {tol:g})")
     assert torch.isfinite(got).all().item()
     assert err <= tol
+
+
+@pytest.mark.cuda
+def test_c_entries_refuse_other_head_dims():
+    """Each C entry point names the head dimensions it was built for
+    (64, 128, 256): D 96 returns an error, it does not run another
+    instantiation."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from cake_tpu_torch.kernels.build import load_library
+    q = torch.zeros((1, 64, 2, 96), dtype=torch.bfloat16, device="cuda")
+    out = torch.empty_like(q)
+    lib = load_library(flash.LIBRARIES["bf16"], flash._bind_wgmma)
+    st = [s * 2 for s in (96, 192, 64 * 192)]   # head, seq, batch bytes
+    stream = torch.cuda.current_stream().cuda_stream
+    err = lib.cake_flash_wgmma_fwd(
+        q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(), 1, 64, 64,
+        2, 2, 96, *(st * 4), 64, 288, 93288, 1.0, 1, 0, 0, 64, stream)
+    assert err != 0
+    qf = q.float()
+    lib = load_library(flash.LIBRARIES["f32"], flash._bind_fma)
+    err = lib.cake_flash_attention_fwd(
+        qf.data_ptr(), qf.data_ptr(), qf.data_ptr(), qf.data_ptr(), 1, 64,
+        64, 2, 2, 96, *(list(qf.stride()[:3]) * 4), 1.0, 1, 0, 0, 64,
+        stream)
+    assert err != 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_wgmma_entry_refuses_a_plan_that_is_not_its_layout(d):
+    """The bf16 entry point launches only with FlashPlan's threads and
+    shared memory equal to its Layout<D>: a plan off by one byte or one
+    warp returns an error and writes nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from cake_tpu_torch.kernels.build import load_library
+    q = torch.randn((1, 64, 2, d), dtype=torch.bfloat16, device="cuda")
+    plan = flash.plan_flash(q.shape, q.shape)
+    lib = load_library(flash.LIBRARIES["bf16"], flash._bind_wgmma)
+    st = list(flash.tma_strides(q, "q"))
+    stream = torch.cuda.current_stream().cuda_stream
+    for threads, smem in ((plan.threads, plan.smem_bytes + 1),
+                          (plan.threads - 32, plan.smem_bytes)):
+        out = torch.zeros_like(q)
+        err = lib.cake_flash_wgmma_fwd(
+            q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(), 1, 64,
+            64, 2, 2, d, *(st * 4), plan.positions, threads, smem, 1.0, 1,
+            0, 0, 64, stream)
+        torch.cuda.synchronize()
+        assert err != 0
+        assert not out.any().item()
+    got = flash.flash_attention_kernel(q, q, q)
+    want = flash.flash_attention_ref(q, q, q)
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_d256_is_bit_identical_across_launches(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q, k, v, kw = _card_inputs(dtype, sq=600, hq=4, hkv=1, d=256,
+                               window=512)
+    first = flash.flash_attention_kernel(q, k, v, **kw)
+    second = flash.flash_attention_kernel(q, k, v, **kw)
+    assert torch.equal(first, second)

@@ -33,6 +33,8 @@ PLAN_CASES = [(c[0], c[2], c[3], c[4], c[5], c[7]) for c in CASES] + [
     ("group4_sq100", 100, 100, 16, 4, {}),
     ("group3_sq100", 100, 100, 12, 4, dict(valid_len=90)),
     ("non_causal_limit", 300, 512, 16, 8, dict(causal=False, valid_len=260)),
+    ("gemma3_fresh_window512", 600, 600, 4, 1, dict(window=512)),
+    ("gemma3_append", 256, 4096, 4, 1, dict(q_offset=512, valid_len=256)),
 ]
 
 
@@ -91,9 +93,37 @@ def test_plan_flagship_grid():
     assert append.tile_range(0) == (0, 5)
 
 
+@pytest.mark.parametrize("d,stages,smem,threads", [
+    (64, 4, 93288, 288), (128, 4, 183400, 288), (256, 2, 164920, 384)])
+def test_plan_shared_memory_by_head_dim(d, stages, smem, threads):
+    """Layout<D> of the kernel: at D 256 a 4-slot ring of 32 KB K and V
+    tiles would not fit, so the ring has 2 slots and the warpgroups'
+    merge buffer reuses it, and the producer is a warpgroup that gives
+    its registers to the consumers. Gemma-3-1B's chunk: 16 CTAs."""
+    plan = flash.plan_flash((1, 256, 4, d), (1, 256, 1, d))
+    assert (plan.stages, plan.smem_bytes, plan.threads) == \
+        (stages, smem, threads)
+    assert plan.smem_bytes <= flash.SMEM_LIMIT
+    assert (plan.positions, plan.ctas) == (16, 16)
+
+
+def test_c_entries_name_each_head_dim():
+    """Both flash entry points dispatch 64, 128 and 256 to their own
+    instantiations and return an error for any other D."""
+    for source in flash.SOURCES.values():
+        src = (CSRC / Path(source).name).read_text()
+        entry = src[src.index('extern "C" int'):]
+        assert re.findall(r"case (\d+):", entry) == ["64", "128", "256"]
+        assert "default" not in entry and "d == 128 ?" not in entry
+        assert "return static_cast<int>(cudaErrorInvalidValue);" in \
+            entry[entry.index("switch (d)"):]
+
+
 def test_plan_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="head_dim"):
         flash.plan_flash((1, 8, 2, 32), (1, 8, 2, 32))
+    with pytest.raises(ValueError, match="head_dim"):
+        flash.plan_flash((1, 8, 2, 96), (1, 8, 2, 96))
     with pytest.raises(ValueError, match="multiple of Hkv"):
         flash.plan_flash((1, 8, 3, 64), (1, 8, 2, 64))
     with pytest.raises(ValueError, match="GQA group"):

@@ -1,5 +1,5 @@
 """Golden parity of the port for every family it adapts (config.py:
-llama, qwen2, qwen3, mistral, falcon3, olmo2, exaone4, phi4): the JAX
+llama, qwen2, qwen3, mistral, falcon3, olmo2, exaone4, phi4, gemma3): the JAX
 package's weights for the committed fixtures (tests/golden/make_golden.py:
 seeded under fixture_prng) carried across with params_from_numpy, then
 prefill logits, 5 greedy decode steps' logits and the 5 + 4 chunked
@@ -13,7 +13,9 @@ engine (prefix hit: blocks spliced into the ring), and, with layers
 alternating full and windowed (the paged pool needs a full layer; the
 reference refuses an all-window model there too), through the paged
 engine with a prefix hit (the final unit's row snapshot installed) and a
-swap (row_snapshot / row_install)."""
+swap (row_snapshot / row_install). A Gemma3 with the same window goes
+through the same three checks (every layer local for the first two,
+alternating for the paged engine)."""
 import dataclasses
 import os
 
@@ -36,7 +38,7 @@ torch.set_num_threads(1)
 HERE = os.path.join(os.path.dirname(__file__), "golden")
 ATOL = 1e-3
 PORTED = ("llama", "qwen2", "qwen3", "mistral", "falcon3", "olmo2",
-          "exaone4", "phi4")
+          "exaone4", "phi4", "gemma3")
 GREEDY = SamplingConfig(temperature=0.0)
 
 
@@ -90,19 +92,28 @@ WINDOW, CTX, CHUNK, BT = 24, 128, 16, 8
 MIXED = (True, False, True, False)      # full, windowed, full, windowed
 
 
-def _windowed(global_layers=()):
+def _windowed(global_layers=(), fam="mistral"):
     over = dict(sliding_window=WINDOW, max_position_embeddings=512)
-    jcfg = dataclasses.replace(jax_tiny_config("mistral", **over),
-                               global_layers=global_layers)
+    if fam == "gemma3":
+        over.update(query_pre_attn_scalar=24, rope_theta=1e6,
+                    rope_local_base_freq=1e4)
+    jcfg = jax_tiny_config(fam, **over)
+    cfg = tiny_config(fam, **over)
+    if global_layers or fam == "mistral":
+        jcfg = dataclasses.replace(jcfg, global_layers=global_layers)
+        cfg = dataclasses.replace(cfg, global_layers=global_layers)
     jm = JaxTextModel(jcfg, dtype=jnp.float32, seed=11, max_cache_len=CTX)
-    cfg = dataclasses.replace(tiny_config("mistral", **over),
-                              global_layers=global_layers)
     return jm, _carry(jm, cfg, CTX)
 
 
 @pytest.fixture(scope="module")
 def windowed():
     return _windowed()
+
+
+@pytest.fixture(scope="module")
+def windowed_gemma3():
+    return _windowed(fam="gemma3")
 
 
 def _ids(n: int, seed: int) -> list[int]:
@@ -117,7 +128,20 @@ def test_windowed_mistral_text_model(windowed):
     """Prompt 40 > window 24: prefill logits, the 16 + 16 + 8 chunked
     prefill, 12 decode steps' logits (the ring wraps) within 1e-3 of the
     live JAX model, and 20 greedy tokens identical."""
-    jm, tm = windowed
+    _text_model_against_jax(*windowed)
+
+
+def test_windowed_gemma3_text_model(windowed_gemma3):
+    """The same for Gemma3 (every layer local, window 24, on the local
+    RoPE table; sandwich (1+w) norms, GELU-tanh, scaled embeddings,
+    query_pre_attn_scalar 24)."""
+    jm, tm = windowed_gemma3
+    assert all(s.local_rope_table and s.norm_style == "sandwich"
+               for s in tm.cfg.layer_specs())
+    _text_model_against_jax(jm, tm)
+
+
+def _text_model_against_jax(jm, tm):
     assert all(s.window == WINDOW for s in tm.cfg.layer_specs())
     ids = PROMPTS[0]
     jl, jcache = jm.prefill(jm.new_cache(), ids)
@@ -160,7 +184,14 @@ def test_windowed_mistral_contiguous_engine(windowed):
     """The window gate admits a prefix cache (24 >= the 16-token block):
     the second prompt splices the first's two units into its ring, and
     every request's greedy tokens equal the live JAX model's."""
-    jm, tm = windowed
+    _contiguous_engine_against_jax(*windowed)
+
+
+def test_windowed_gemma3_contiguous_engine(windowed_gemma3):
+    _contiguous_engine_against_jax(*windowed_gemma3)
+
+
+def _contiguous_engine_against_jax(jm, tm):
     want = [jm.generate(p, max_new_tokens=20, spec=False)[0]
             for p in PROMPTS]
     reqs, _ = _serve(tm, PROMPTS, 20, prefix_cache_mb=8)
@@ -174,7 +205,19 @@ def test_windowed_mistral_paged_engine():
     windowed rings in the per-slot rows. A prefix hit installs the final
     unit's row snapshot; two streams outgrow the pool, so one is swapped
     out with its rows and back in; tokens equal the live JAX model's."""
-    jm, tm = _windowed(MIXED)
+    _paged_engine_against_jax(*_windowed(MIXED))
+
+
+def test_windowed_gemma3_paged_engine():
+    """The same for Gemma3, its global layers on the pool and the paged
+    decode path (rope_theta 1e6), its local ones on the rings (1e4)."""
+    jm, tm = _windowed(MIXED, fam="gemma3")
+    assert [s.local_rope_table for s in tm.cfg.layer_specs()] == \
+        [False, True, False, True]
+    _paged_engine_against_jax(jm, tm)
+
+
+def _paged_engine_against_jax(jm, tm):
     assert [s.window for s in tm.cfg.layer_specs()] == [None, WINDOW,
                                                         None, WINDOW]
     want = [jm.generate(p, max_new_tokens=40, spec=False)[0]

@@ -4,7 +4,8 @@ packages the card's machine lacks (`tokenizers`, `transformers`,
 every module of cake_tpu_torch and chip_smoke.py imports, a tiny CPU chat
 is served by a contiguous engine and by a paged one, and a chat is served
 by `cli serve` from a checkpoint directory with a tokenizer.json and a
-chat template; an AST scan finds no import of any of them in the port's
+chat template (byte-level BPE for an OLMo2 and, streamed, a Gemma-style
+byte-fallback BPE for a Gemma3); an AST scan finds no import of any of them in the port's
 sources."""
 import ast
 import pathlib
@@ -78,6 +79,26 @@ with urllib.request.urlopen(req, timeout=60) as r:
 app.stop()
 assert resp["model"] == "tiny-ckpt", resp
 assert resp["usage"]["completion_tokens"] > 0, resp
+
+# a tiny Gemma3 with the Gemma-style byte-fallback tokenizer, paged
+g = tempfile.mkdtemp() + "/tiny-gemma3"
+config = dict(sc.FAMILIES["gemma3"], vocab_size=1024, hidden_size=64,
+              intermediate_size=128, num_hidden_layers=2,
+              num_attention_heads=4, num_key_value_heads=1, head_dim=256,
+              sliding_window=16, sliding_window_pattern=2,
+              max_position_embeddings=256)
+sc.write_model(g, config, sc.model_params(config, 1, torch.float32, "cpu",
+                                          randomize_norms=True))
+sc.write_gemma_tokenizer(g, vocab_size=1024)
+app = cli.build_server(cli.parser().parse_args(
+    ["serve", g, "--cpu", "--dtype", "f32", "--port", "0", "--ctx", "256",
+     "--kv-blocks", "32"])).start()
+req = urllib.request.Request(app.url + "/v1/chat/completions",
+                             data=json.dumps({**body, "stream": True}).encode())
+with urllib.request.urlopen(req, timeout=60) as r:
+    events = r.read().decode()
+app.stop()
+assert events.rstrip().endswith("data: [DONE]"), events
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
 print("OK", len(mods))

@@ -11,7 +11,12 @@ exporter then writes the port's own tree, which loads back bit for bit.
 
 EXAONE4 runs with a window of 16 under a 40-token prompt, so its local
 layers slide and its global layers skip RoPE; Phi-4 with a partial rotary
-factor of 0.75."""
+factor of 0.75; Gemma3 with a window of 16, every second layer global,
+its local layers on their own RoPE table, and its checkpoint storing each
+norm as w for a 1 + w norm (its norms drawn within 1 +- 0.48, where the
+float32 w - 1 and + 1 of the export and the load are exact, so the
+port's own round trip stays bit for bit). Every family's tensors, loaded
+by both loaders in float32 and in bfloat16, are bit-identical."""
 import json
 
 import jax
@@ -35,10 +40,14 @@ ATOL = 1e-3
 ARCHS = {"llama": "LlamaForCausalLM", "qwen2": "Qwen2ForCausalLM",
          "qwen3": "Qwen3ForCausalLM", "mistral": "MistralForCausalLM",
          "falcon3": "FalconForCausalLM", "olmo2": "Olmo2ForCausalLM",
-         "exaone4": "Exaone4ForCausalLM", "phi4": "Phi3ForCausalLM"}
+         "exaone4": "Exaone4ForCausalLM", "phi4": "Phi3ForCausalLM",
+         "gemma3": "Gemma3ForCausalLM"}
 EXTRA = {"exaone4": dict(sliding_window=16, sliding_window_pattern="LLLG"),
          "phi4": dict(partial_rotary_factor=0.75),
-         "mistral": dict(sliding_window=24)}
+         "mistral": dict(sliding_window=24),
+         "gemma3": dict(sliding_window=16, sliding_window_pattern=2,
+                        query_pre_attn_scalar=24, rope_theta=1e6,
+                        rope_local_base_freq=1e4)}
 CASES = [(fam, False) for fam in ARCHS] + [("phi4", True)]
 
 
@@ -53,14 +62,17 @@ def tiny_hf_config(fam: str) -> dict:
     return d
 
 
-def randomize(params: dict, seed: int) -> dict:
+def randomize(params: dict, seed: int, clip_norms: bool = False) -> dict:
+    """Every leaf drawn anew: weights N(0, 0.05), norms 1 + N(0, 0.2),
+    with clip_norms cut to 1 +- 0.48."""
     rng = np.random.default_rng(seed)
     rope = params.pop("rope")
 
     def rand(path, leaf):
         name = jax.tree_util.keystr(path)
         if "norm" in name:
-            arr = 1.0 + rng.normal(0.0, 0.2, np.shape(leaf))
+            z = rng.normal(0.0, 0.2, np.shape(leaf))
+            arr = 1.0 + (np.clip(z, -0.48, 0.48) if clip_norms else z)
         else:
             arr = rng.normal(0.0, 0.05, np.shape(leaf))
         return jnp.asarray(arr.astype(np.float32))
@@ -85,7 +97,8 @@ def test_port_loads_jax_checkpoint(tmp_path, fam, fused):
     hf = tiny_hf_config(fam)
     jcfg = jax_config(hf)
     params = randomize(jax_init_params(jcfg, jax.random.PRNGKey(3),
-                                       jnp.float32), seed=11)
+                                       jnp.float32), seed=11,
+                       clip_norms=jcfg.residual_rms_norm)
     d = tmp_path / "ckpt"
     d.mkdir()
     jax_save(str(d / "model.safetensors"),
@@ -116,13 +129,51 @@ def test_port_loads_jax_checkpoint(tmp_path, fam, fused):
     # the port's exporter round-trips the port's own tree bit for bit
     out = tmp_path / "again"
     write_checkpoint(str(out), hf,
-                     params_to_hf_tensors(tm.params, fuse_phi=fused),
+                     params_to_hf_tensors(
+                         tm.params, fuse_phi=fused,
+                         residual_norms=tm.cfg.residual_rms_norm),
                      shards=2)
     again = load_model_params(tm.cfg, str(out), torch.float32, "cpu")
     a, b = dict(_flat(tm.params)), dict(_flat(again))
     assert a.keys() == b.keys()
     for k in a:
         assert a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]), k
+
+
+def _jax_tree_bits(tree, prefix=""):
+    """{path: numpy array} of a JAX tree, bfloat16 as its int16 bits."""
+    for path, leaf in _flat(tree, prefix):
+        a = np.asarray(leaf)
+        yield path, (a.view(np.int16) if a.dtype.itemsize == 2 else a)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("fam", sorted(ARCHS))
+def test_both_loaders_give_the_same_bits(tmp_path, fam, dtype):
+    """The JAX package's load_model_params and the port's, on one
+    checkpoint written by the JAX exporter: every tensor bit-identical,
+    the (1+w) norms of Gemma3 included."""
+    hf = tiny_hf_config(fam)
+    jcfg = jax_config(hf)
+    params = randomize(jax_init_params(jcfg, jax.random.PRNGKey(4),
+                                       jnp.float32), seed=12)
+    jax_save(str(tmp_path / "model.safetensors"), jax_export(jcfg, params))
+    (tmp_path / "config.json").write_text(json.dumps(hf))
+    jdt, tdt = {"f32": (jnp.float32, torch.float32),
+                "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    want = jax_load(jcfg, str(tmp_path), jdt)
+    want.pop("rope", None)
+    tm, _, _ = build_text_model(str(tmp_path), dtype=dtype, device="cpu",
+                                max_cache_len=128)
+    got = {k: (v.view(torch.int16) if v.element_size() == 2 else v).numpy()
+           for k, v in _flat(tm.params)}
+    want = dict(_jax_tree_bits(want))
+    assert got.keys() == want.keys()
+    for k in got:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    if jcfg.residual_rms_norm:
+        w = tm.params["layers"][0]["pre_feedforward_layernorm"]["weight"]
+        assert 0.5 < w.float().mean().item() < 1.5     # 1 + w, not w
 
 
 def test_missing_tensor_names_itself(tmp_path):

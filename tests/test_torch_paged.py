@@ -284,7 +284,11 @@ def _jax_paged_decode(c):
     dict(frontiers=[1, 15, 16, 70, 127], bt=32),
     dict(frontiers=[40, 100, 60], stale=True, shared=True),
     dict(frontiers=[5, 90], hq=4, hkv=4, d=32, bt=8),
-], ids=["ragged_null", "bt32", "stale_shared", "mha_bt8"])
+    dict(frontiers=[1, 15, 16, 70, 127], hq=4, hkv=1, d=256, null_rows=1),
+    dict(frontiers=[40, 100, 60], hq=8, hkv=1, d=256, stale=True,
+         shared=True),
+], ids=["ragged_null", "bt32", "stale_shared", "mha_bt8", "gemma3_d256_g4",
+        "d256_g8_stale_shared"])
 def test_paged_decode_plain_matches_jax(spec):
     kw = dict(hq=4, hkv=2, d=16, ctx=CTX)
     c = paged_case(**{**kw, **spec}, seed=3)

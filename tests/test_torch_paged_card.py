@@ -100,3 +100,39 @@ def test_paged_kernel_follows_a_second_pool_between_calls():
     assert torch.equal(first, again)
     want = pa.paged_decode_attention_ref(*case_args(b))
     assert (other.float() - want.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_paged_kernel_d256_is_bit_identical_across_launches(dtype):
+    """Gemma-3-1B's shape (4/1, D 256, bt 16): two launches give the same
+    bits, and the plan the wrapper passed is the card's to grant."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    c = paged_case([5, 127, 128, 620, 4000], dtype=dtype, device="cuda",
+                   hq=4, hkv=1, d=256, null_rows=1, stale=True)
+    first = pa.paged_decode_attention_kernel(*case_args(c))
+    second = pa.paged_decode_attention_kernel(*case_args(c))
+    assert torch.equal(first, second)
+    assert pa.active_clusters(*case_args(c)) >= 1
+
+
+@pytest.mark.cuda
+def test_c_entry_refuses_other_head_dims():
+    """The C entry point names each head dimension it was built for: D 96
+    (with a plan the shared-memory check accepts) returns an error, it
+    does not run another instantiation."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from cake_tpu_torch.kernels.build import load_library
+    lib = load_library(pa.LIBRARY, pa._bind)
+    for dtype in (torch.bfloat16, torch.float32):
+        c = paged_case([20, 40], dtype=dtype, device="cuda", hq=4, hkv=2,
+                       d=96)
+        plan = pa.PagedPlan(pa.kernel_route(dtype), 2, 2, 2, 96, 16,
+                            c["tables"].shape[1])
+        out = torch.empty_like(c["q"])
+        args = list(pa._kernel_args(*case_args(c), out, None, plan))
+        assert lib.cake_paged_decode_fwd(*args) != 0
+        torch.cuda.synchronize()

@@ -115,6 +115,44 @@ def test_plan_refuses_block_sizes_the_kernel_does_not_take():
                           torch.bfloat16)
 
 
+@pytest.mark.parametrize("route,smem", [("bf16", 82816), ("f32", 115584)])
+def test_gemma3_shape_plan(route, smem):
+    """Gemma-3-1B's decode shape (4 rows, Hq/Hkv 4/1, D 256, bt 16): the
+    warps' states and the cluster's slots take 49 KB before the ring, so
+    the plan falls to its floor of 2 stages, 2 CTAs per SM."""
+    plan = pa.plan_paged((4, 1, 4, 256), (1025, 16, 1, 256), (4, 256),
+                         getattr(torch, {"bf16": "bfloat16",
+                                         "f32": "float32"}[route]))
+    assert (plan.grid, plan.group, plan.stages) == ((C, 1, 4), 4, 2)
+    assert plan.smem_bytes == smem <= pa.SMEM_LIMIT
+    assert plan.ctas_per_sm == 2
+
+
+def test_wrapper_refuses_head_dims_and_rings_the_kernel_cannot_take():
+    for d in (64, 128, 256):
+        pa.check_head_dim(d)
+    for d in (32, 96, 512):
+        with pytest.raises(ValueError, match="head_dim"):
+            pa.check_head_dim(d)
+    # float32 at bt 64, D 256: two stages of 64 KB K and V boxes
+    with pytest.raises(ValueError, match="shared memory"):
+        pa.plan_paged((1, 1, 4, 256), (9, 64, 1, 256), (1, 4),
+                      torch.float32)
+    assert pa.plan_paged((1, 1, 4, 256), (9, 64, 1, 256), (1, 4),
+                         torch.bfloat16).stages == 2
+
+
+def test_c_entry_names_each_head_dim():
+    """The C entry dispatches 64, 128 and 256 to their own instantiations
+    and has no branch that sends another D to one of them."""
+    src = SOURCE.read_text()
+    body = src[src.index("cudaError_t launch_dim("):]
+    body = body[:body.index("\n}\n")]
+    assert re.findall(r"case (\d+):", body) == ["64", "128", "256"]
+    assert "default" not in body and "d == 128 ?" not in src
+    assert "return cudaErrorInvalidValue;" in body
+
+
 def test_kernel_constants_match_the_source():
     src = SOURCE.read_text()
 

@@ -63,7 +63,8 @@ def test_resolve_model_local_and_cached(tmp_path, monkeypatch):
     ({"quantization_config": {"quant_method": "gptq", "bits": 4}},
      "ROADMAP module 11"),
     ({"quantization_config": {"quant_method": "fp8"}}, "ROADMAP module 11"),
-    ({"architectures": ["Gemma3ForCausalLM"]}, "ROADMAP module 6"),
+    ({"architectures": ["Gemma3ForConditionalGeneration"]},
+     "ROADMAP module 6"),
     ({"architectures": ["Qwen3MoeForCausalLM"]}, "ROADMAP module 10"),
     ({"architectures": ["Qwen3_5ForConditionalGeneration"]},
      "ROADMAP module 10"),
@@ -255,8 +256,9 @@ def test_attn_scale_paged_matches_jax(scaled_pair):
 
 
 def test_family_configs_read_as_published():
-    """The smoke's three configurations resolve to the shapes the kernels
-    are held at: (Hq, Hkv, D, window, rotary dim, layer kinds)."""
+    """The smoke's four configurations resolve to the shapes the kernels
+    are held at: (Hq, Hkv, D, window, rotary dim, layer kinds); Gemma-3-1B
+    has its global layers at 5, 11, 17 and 23."""
     got = {}
     for fam in sc.FAMILIES:
         cfg = config_from_hf_dict(sc.family_config(fam, layers=4))
@@ -270,4 +272,11 @@ def test_family_configs_read_as_published():
         "exaone4": (32, 8, 64, 4096, 64, [local] * 3
                     + [("full", False, "post")]),
         "phi4": (24, 8, 128, None, 96, [("full", True, "pre")] * 4),
+        "gemma3": (4, 1, 256, 512, 256, [("swa", True, "sandwich")] * 4),
     }
+    g = config_from_hf_dict(sc.family_config("gemma3"))
+    assert [i for i, s in enumerate(g.layer_specs()) if s.window is None] \
+        == [5, 11, 17, 23]
+    assert (g.hidden_act, g.embed_scale, g.attn_scale,
+            g.local_rope_theta, g.rope_theta, g.eos_token_ids) == \
+        ("gelu_tanh", 1152 ** 0.5, 256 ** -0.5, 1e4, 1e6, (1, 106))

@@ -1,7 +1,10 @@
 """The port's serve engine and HTTP server on a tiny CPU model: concurrent
 greedy requests equal the sequential path token for token, and a JSON
 chat and an SSE chat through the stdlib server (urllib client) equal the
-JAX TextModel's greedy tokens for the same carried weights."""
+JAX TextModel's greedy tokens for the same carried weights; the SSE
+chunks join to the JSON content, a character split over byte tokens
+going out whole (TextStream, also held here against a Gemma-style
+byte-fallback tokenizer)."""
 import json
 import urllib.request
 
@@ -14,6 +17,7 @@ import torch
 from cake_tpu.models import TextModel as JaxTextModel
 from cake_tpu.models import tiny_config as jax_tiny_config
 from cake_tpu_torch.api import create_app
+from cake_tpu_torch.api.text import TextStream
 from cake_tpu_torch.models import TextModel, tiny_config
 from cake_tpu_torch.ops.sampling import SamplingConfig
 from cake_tpu_torch.serve import QueueFull, ServeEngine
@@ -129,7 +133,12 @@ def test_http_chat_json_and_sse_match_jax(models, monkeypatch):
         chunks = [json.loads(e)["choices"][0] for e in events[:-1]]
         assert chunks[0]["delta"] == {"role": "assistant"}
         streamed = [c["delta"]["content"] for c in chunks[1:-1]]
-        assert streamed == [tok.decode([t]) for t in content_ids]
+        # one chunk per token, but a character split over tokens goes out
+        # whole with its last one; the chunks join to the JSON content
+        ts = TextStream(tok)
+        want_chunks = [d for d in map(ts.push, content_ids) if d]
+        assert streamed == want_chunks + ([ts.flush()] if ts.pending else [])
+        assert "".join(streamed) == tok.decode(content_ids)
         assert chunks[-1]["finish_reason"] == ("stop" if ended else "length")
         assert [r.result["tokens"] for r in submitted] == [want, want]
         with urllib.request.urlopen(app.url + "/health", timeout=30) as r:
@@ -138,3 +147,25 @@ def test_http_chat_json_and_sse_match_jax(models, monkeypatch):
             assert json.loads(r.read())["data"][0]["id"]
     finally:
         app.stop()
+
+
+def test_text_stream_fuses_characters_split_over_tokens():
+    """Byte-fallback tokens of one character (€ = three <0xNN> tokens, 𝄞
+    four) come out as one delta with the last of them; the deltas join to
+    the whole decode, and none holds a replacement character."""
+    from cake_tpu_torch.bench.synth_checkpoint import gemma_tokenizer_json
+    from cake_tpu_torch.utils.bpe import BpeTokenizer
+    tok = BpeTokenizer(gemma_tokenizer_json(vocab_size=1000))
+    text = "a€b 𝄞 naïve 你好"
+    ids = tok.encode(text, add_special_tokens=False)
+    assert len(ids) > len(text)           # bytes of characters with no piece
+    ts = TextStream(tok)
+    deltas = [d for d in map(ts.push, ids) if d] + [ts.flush()]
+    assert "".join(deltas) == tok.decode(ids) == text
+    assert not any("\ufffd" in d for d in deltas)
+    assert "€" in deltas and "𝄞" in deltas
+    # a byte run that never completes is let out after MAX_PENDING tokens
+    byte = tok.vocab["<0xE2>"]
+    ts = TextStream(tok)
+    out = [ts.push(byte) for _ in range(TextStream.MAX_PENDING)]
+    assert out[:-1] == [""] * 3 and out[-1] == "\ufffd" * 4

@@ -7,14 +7,19 @@ without its regex, merges stored as "a b" strings), GPT-2-like (ByteLevel
 with its regex, as OLMo2), Llama-3-like (ignore_merges, a BOS added by
 TemplateProcessing) and o200k-like (\\p{Lu}\\p{Lt}\\p{Lm}\\p{Lo}\\p{M}
 classes, case-insensitive contractions, possessive quantifiers and an
-atomic group, as Phi-4). On text drawn by `hypothesis` from ASCII, CJK,
+atomic group, as Phi-4); a fifth, Gemma-like, is built by `tokenizers`
+from the vocabulary and merges of bench/synth_checkpoint.py's Gemma
+writer (byte fallback to <0xNN> tokens, fuse_unk, a Replace normalizer of
+" " by "▁", no pre-tokenizer, a Replace / ByteFallback / Fuse decoder and
+a BOS added by TemplateProcessing). On text drawn by `hypothesis` from ASCII, CJK,
 emoji, combining marks, whitespace runs (U+001C, which `re` calls space
 and Unicode does not, included), embedded special tokens and numerals
 outside Nd, encode must equal `tokenizers.Tokenizer.encode` with and
 without special tokens, and decode must equal
 `decode(ids, skip_special_tokens=False)`, ids outside the vocab included.
 The chat template must render as transformers' apply_chat_template, and
-the port's chat_prompt_ids must equal the JAX package's CakeTokenizer."""
+the port's chat_prompt_ids must equal both transformers' tokenized
+apply_chat_template and the JAX package's CakeTokenizer."""
 import json
 
 import pytest
@@ -24,7 +29,9 @@ from tokenizers import (Regex, Tokenizer, decoders, models, normalizers,
                         pre_tokenizers, processors, trainers)
 
 from cake_tpu.runtime import CakeTokenizer as JaxCakeTokenizer
-from cake_tpu_torch.bench.synth_checkpoint import CORPUS
+from cake_tpu_torch.bench.synth_checkpoint import (CORPUS, GEMMA_SPECIALS,
+                                                   GEMMA_TEMPLATE,
+                                                   gemma_tokenizer_json)
 from cake_tpu_torch.runtime import CakeTokenizer
 from cake_tpu_torch.utils.bpe import BpeTokenizer, UnsupportedTokenizer
 from cake_tpu_torch.utils.chat_template import ChatTemplate
@@ -47,6 +54,8 @@ SPECIALS = {
     "llama3": ["<|begin_of_text|>", "<|eot_id|>",
                "<|start_header_id|>", "<|end_header_id|>"],
     "o200k": ["<|endoftext|>", "<|user|>", "<|assistant|>", "<|end|>"],
+    "gemma": ["<bos>", "<pad>", "<unk>", "<start_of_turn>", "<end_of_turn>",
+              "<eos>"],
 }
 STYLES = tuple(SPECIALS)
 
@@ -55,7 +64,28 @@ TEXT = CORPUS * 3 + (
     "é ä 你好世界 🚀🚀 ✓✓ \t\t  \n\n\r\n  ")
 
 
+def _gemma() -> Tokenizer:
+    """A Gemma-style tokenizer built by `tokenizers` itself from the
+    Gemma writer's vocabulary (1,000 entries) and merges."""
+    spec = gemma_tokenizer_json(vocab_size=1000, text=TEXT)
+    m = spec["model"]
+    tok = Tokenizer(models.BPE(
+        vocab=m["vocab"], merges=[tuple(x) for x in m["merges"]],
+        unk_token="<unk>", fuse_unk=True, byte_fallback=True))
+    tok.normalizer = normalizers.Replace(" ", "\u2581")
+    tok.decoder = decoders.Sequence([decoders.Replace("\u2581", " "),
+                                     decoders.ByteFallback(),
+                                     decoders.Fuse()])
+    tok.add_special_tokens(sorted(GEMMA_SPECIALS,
+                                  key=GEMMA_SPECIALS.get))
+    tok.post_processor = processors.TemplateProcessing(
+        single="<bos> $A", special_tokens=[("<bos>", GEMMA_SPECIALS["<bos>"])])
+    return tok
+
+
 def _train(style: str) -> Tokenizer:
+    if style == "gemma":
+        return _gemma()
     tok = Tokenizer(models.BPE(ignore_merges=style == "llama3"))
     split = {"qwen2": QWEN2_PAT, "llama3": LLAMA3_PAT, "o200k": O200K_PAT}
     if style == "gpt2":
@@ -110,9 +140,11 @@ PIECES = ["Hello", " world", "Don't", " I'LL", "'s", "'S", " 你好", "世界",
           "²", "٣", "١٢", "12345", " 7", "  ", "\t", "\n", "\r\n", "\n\n",
           "\x1c", " ", "　", "/", "..", "?!", "ß", "İ", "ſ", "K",
           "<|endoftext|>", "<|im_start|>", "<|im_end|>", "<|end|>",
-          "<|begin_of_text|>", "<|user|>", "<|pad|>"]
+          "<|begin_of_text|>", "<|user|>", "<|pad|>", "<bos>",
+          "<start_of_turn>", "<end_of_turn>", "\u2581", " \u2581 ", "€",
+          "𝄞"]
 ALPHABET = ("abcXYZ019 .,'!\n\t" "你好ひらカナ한글" "🚀👍" "́̈"
-            "½²Ⅻ٣" "ǅʰ" "  \x1c")
+            "½²Ⅻ٣" "ǅʰ" "  \x1c" "\u2581€")
 texts = st.one_of(
     st.lists(st.sampled_from(PIECES), max_size=24).map("".join),
     st.text(alphabet=ALPHABET, max_size=40))
@@ -154,15 +186,35 @@ def test_unsupported_constructs_raise(pairs):
     cases = [("decoder", {"type": "WordPiece"}),
              ("normalizer", {"type": "NFKC"}),
              ("pre_tokenizer", {"type": "Whitespace"}),
-             ("post_processor", {"type": "BertProcessing"})]
+             ("post_processor", {"type": "BertProcessing"}),
+             ("normalizer", {"type": "Replace", "pattern": {"Regex": " +"},
+                             "content": "_"})]
     for field, value in cases:
         bad = dict(spec, **{field: value})
         with pytest.raises(UnsupportedTokenizer):
             BpeTokenizer(bad)
     bad = json.loads(json.dumps(spec))
-    bad["model"]["byte_fallback"] = True
-    with pytest.raises(UnsupportedTokenizer, match="byte_fallback"):
+    bad["model"]["dropout"] = 0.1
+    with pytest.raises(UnsupportedTokenizer, match="dropout"):
         BpeTokenizer(bad)
+
+
+def test_byte_fallback_decode_fuses_split_utf8(pairs):
+    """<0xNN> runs decode to their UTF-8 text as one piece, however the
+    ids are split; a run that is not valid UTF-8 gives one U+FFFD per
+    byte, as the library's ByteFallback decoder does; a character with no
+    piece encodes to its bytes."""
+    lib, port = pairs["gemma"]
+    byte = {b: lib.token_to_id(f"<0x{b:02X}>") for b in range(256)}
+    euro = [byte[b] for b in "€".encode()]
+    ids = lib.encode("a€b𝄞", add_special_tokens=False).ids
+    assert port.encode("a€b𝄞", add_special_tokens=False) == ids
+    assert euro[0] in ids
+    for seq in (euro, euro[:2], [euro[0], lib.token_to_id("a"), euro[2]],
+                euro[1:] + euro, [byte[0xFF], byte[0xC3], byte[0xA9]]):
+        assert port.decode(seq) == lib.decode(seq,
+                                              skip_special_tokens=False)
+    assert port.decode(euro) == "€" and port.decode(euro[:2]) == "\ufffd" * 2
 
 
 # -- chat templates -----------------------------------------------------------
@@ -194,6 +246,7 @@ TEMPLATES = {
         "<|assistant|>{{ message['content'] }}<|end|>{% endif %}"
         "{% endfor %}{% if add_generation_prompt %}<|assistant|>"
         "{% else %}{{ eos_token }}{% endif %}"),
+    "gemma": GEMMA_TEMPLATE,
 }
 CONVERSATIONS = [
     [{"role": "user", "content": "hi"}],
@@ -218,12 +271,14 @@ def _model_dir(tmp_path, style, template):
 
 @pytest.mark.parametrize("style,template", [("qwen2", "chatml"),
                                             ("llama3", "llama3"),
-                                            ("o200k", "phi4")])
+                                            ("o200k", "phi4"),
+                                            ("gemma", "gemma")])
 def test_chat_template_and_prompt_ids_match(tmp_path, style, template):
     """apply_chat equals transformers' apply_chat_template, and the
-    port's chat_prompt_ids equal the JAX CakeTokenizer's
-    encode_chat_prompt(apply_chat(...)) (no second BOS after a
-    template)."""
+    port's chat_prompt_ids equal transformers' tokenized
+    apply_chat_template and the JAX CakeTokenizer's
+    encode_chat_prompt(apply_chat(...)) (no second BOS after a template
+    that writes one, as Llama 3's and Gemma's do)."""
     from transformers import PreTrainedTokenizerFast
     d = _model_dir(tmp_path, style, template)
     hf = PreTrainedTokenizerFast.from_pretrained(str(d))
@@ -234,8 +289,10 @@ def test_chat_template_and_prompt_ids_match(tmp_path, style, template):
         want = hf.apply_chat_template(msgs, tokenize=False,
                                       add_generation_prompt=True)
         assert port.apply_chat(msgs) == want
-        assert port.chat_prompt_ids(msgs) == \
-            jax_tok.encode_chat_prompt(jax_tok.apply_chat(msgs))
+        ids = port.chat_prompt_ids(msgs)
+        assert ids == jax_tok.encode_chat_prompt(jax_tok.apply_chat(msgs))
+        assert ids == list(hf.apply_chat_template(
+            msgs, tokenize=True, add_generation_prompt=True))
         out = port.chat_prompt_ids(msgs)[-5:]
         assert port.decode(out) == jax_tok.decode(out)
 
@@ -247,6 +304,10 @@ def test_template_failures_raise(tmp_path):
     t = ChatTemplate(TEMPLATES["llama3"], {"bos_token": "<s>"})
     with pytest.raises(jinja2.TemplateError, match="unknown role"):
         t.render([{"role": "tool", "content": "x"}])
+    t = ChatTemplate(GEMMA_TEMPLATE, {"bos_token": "<bos>"})
+    with pytest.raises(jinja2.TemplateError, match="must alternate"):
+        t.render([{"role": "user", "content": "a"},
+                  {"role": "user", "content": "b"}])
 
 
 def test_no_template_falls_back_to_chatml_and_raw_ids(tmp_path):
