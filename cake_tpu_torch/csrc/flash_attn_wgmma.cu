@@ -2,7 +2,7 @@
 // cores. Plain C entry point, bound with ctypes by ops/flash.py.
 //
 // Replaces cake_tpu/ops/flash.py:_flash_kernel (the Pallas TPU kernel) on
-// the bfloat16 route; csrc/flash_attn.cu (FMA) stays the float32 route.
+// the bfloat16 route; csrc/flash_attn.cu (3xTF32) is the float32 route.
 // Same function: causal GQA attention over [B, S, H, D] tensors given by
 // their strides, with the reference's masks
 //   key valid   iff k_pos < kv_len       (kv_len = min(q_offset + valid_len, Skv))
@@ -130,16 +130,6 @@ struct Params {
 };
 
 // -- PTX wrappers ------------------------------------------------------------
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3) : "memory");
-}
 
 __device__ __forceinline__ void tma_store(const CUtensorMap* map,
                                           uint32_t src, int c0, int c1,
@@ -282,8 +272,8 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
     if (tid == NCONSUMER) {
       mbar_expect_tx(q_full, L::HALVES * 128 * p.group * p.positions);
       for (int h = 0; h < L::HALVES; ++h)
-        tma_load(sQ + h * L::Q_HALF, &tm_q, q_full, 64 * h, kvh * p.group,
-                 pos0, b);
+        tma_load_4d(sQ + h * L::Q_HALF, &tm_q, q_full, 64 * h,
+                    kvh * p.group, pos0, b);
       int stage = 0;
       uint32_t phase = 0;
       for (int kt = lo; kt < hi; ++kt) {
@@ -292,12 +282,12 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
         const uint32_t v_dst = sV + stage * L::KV_BYTES;
         mbar_expect_tx(k_full(stage), L::KV_BYTES);
         for (int h = 0; h < L::HALVES; ++h)
-          tma_load(k_dst + h * L::KV_HALF, &tm_k, k_full(stage), 64 * h, kvh,
-                   kt * BN, b);
+          tma_load_4d(k_dst + h * L::KV_HALF, &tm_k, k_full(stage), 64 * h,
+                      kvh, kt * BN, b);
         mbar_expect_tx(v_full(stage), L::KV_BYTES);
         for (int h = 0; h < L::HALVES; ++h)
-          tma_load(v_dst + h * L::KV_HALF, &tm_v, v_full(stage), 64 * h, kvh,
-                   kt * BN, b);
+          tma_load_4d(v_dst + h * L::KV_HALF, &tm_v, v_full(stage), 64 * h,
+                      kvh, kt * BN, b);
         if (++stage == NSTAGE) {
           stage = 0;
           phase ^= 1u;

@@ -52,6 +52,19 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       : "memory");
 }
 
+// One box of a 4-D tensor map at (c0 innermost, c1, c2, c3) into shared
+// memory, completing its bytes on the barrier.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3) : "memory");
+}
+
 // `bytes` contiguous bytes (a multiple of 16, both addresses 16-aligned).
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
                                           int bytes, uint32_t bar) {

@@ -16,14 +16,20 @@ Routes, chosen by dtype and nothing else:
     `FlashPlan` below, in Python so that the CPU tests reach it; the kernel
     computes the same row map, tile range and mask rule. Its views must
     obey TMA's rules (`tma_strides`), or the wrapper raises.
-  * float32 -> csrc/flash_attn.cu: plain FMA from shared memory, one block
-    per (32-row query tile, head). TF32 tensor cores would break the
-    float32 tolerance, and float32 is not the serving dtype.
+  * float32 -> csrc/flash_attn.cu: mma.sync TF32 tensor cores in 3xTF32
+    (each operand split as hi + lo, each product taken as hi.hi + hi.lo +
+    lo.hi with a float32 accumulator: float32 accuracy, which one TF32
+    product lacks), packed GQA rows (one CTA per KV head and 16 packed
+    (query, head) rows), four warps splitting the CTA's K/V tiles, each
+    loading its own ring of tiles by TMA. Its plan is `F32FlashPlan`; its
+    views obey the same TMA rules.
 
 What bounds it on an H100: at the flagship prefill chunk (Sq = 256,
 Hq = 16, D = 128) the least time is set by bytes (q, o and the K/V rows
 below the limit, once each, against 3.35 TB/s: about a microsecond); the
-FLOPs against 989 TFLOP/s of bf16 tensor cores come second.
+FLOPs against 989 TFLOP/s of bf16 tensor cores come second. In float32
+the FLOPs bound it: three TF32 products per float32-accurate product
+against 495 TFLOP/s.
 
 Both kernels take the [B, S, H, D] tensors with their strides instead of
 transposing to [B*H, S, D], so append-mode K/V is a view of the KV pool
@@ -38,6 +44,8 @@ tensors. There is no fallback from one to another.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 from dataclasses import dataclass
 
@@ -54,11 +62,23 @@ ROUTES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 LIBRARIES = {"bf16": "flash_attn_wgmma", "f32": "flash_attn"}
 SOURCES = {"bf16": "cake_tpu_torch/csrc/flash_attn_wgmma.cu",
            "f32": "cake_tpu_torch/csrc/flash_attn.cu"}
+ENTRIES = {"bf16": "cake_flash_wgmma_fwd",
+           "f32": "cake_flash_attention_fwd"}
 _KERNEL_HEAD_DIMS = (64, 128, 256)   # one instantiation each, no other
 
 # the bf16 kernel's tiles (csrc/flash_attn_wgmma.cu: BM, BN)
 BLOCK_ROWS = 64     # packed (query index, head) rows per CTA: one wgmma M
 BLOCK_KEYS = 64     # keys per K/V tile
+# the f32 kernel's (csrc/flash_attn.cu: ROWS, NWARP, Layout<D>)
+F32_ROWS = 16       # packed rows per CTA: one mma.sync M
+F32_WARPS = 4       # warps of a CTA
+# a cluster of 2 CTAs splits a row group's tiles where the grid leaves
+# SMs idle and each warp would walk at least 4 tiles alone: the cluster's
+# launch and merge cost more than a tile or two, and not every cluster of
+# 4 is resident at once at D 256 (bench/flash_sweep.py,
+# bench/flash_variants.py; PERF.md)
+F32_SPLIT = 2
+F32_SPLIT_MIN_TILES = 4 * F32_WARPS
 TMA_ALIGN = 16      # bytes: TMA's alignment of a base address and a stride
 SMEM_LIMIT = 232448   # bytes one block may use on an H100
 
@@ -110,15 +130,16 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, hq, d).to(q.dtype)
 
 
-# -- launch plan of the bf16 kernel --------------------------------------------
+# -- launch plans -------------------------------------------------------------
 
 
 @dataclass(frozen=True)
-class FlashPlan:
-    """Launch plan of csrc/flash_attn_wgmma.cu over one [B, Sq, Hq, D]
-    query and its K/V. The grid is (ctas, Hkv, B); CTA x of KV head kvh
-    owns `positions` query indices and all G heads of the group, packed
-    as rows r = (index cta * positions + r // G, head kvh * G + r % G)."""
+class _Plan:
+    """What both kernels' plans share: one query [B, Sq, Hq, D] and its
+    K/V, CTAs along x for each (KV head, batch row), the K/V tiles each
+    CTA loads and which of those it masks. A route's plan says how its
+    CTAs pack (query index, head) rows (`row`, `_span`) and how many keys
+    a tile holds (`block_keys`)."""
     sq: int
     group: int
     kv_len: int        # min(q_offset + valid_len, Skv)
@@ -126,6 +147,46 @@ class FlashPlan:
     causal: bool
     window: int        # 0: none
     d: int             # head dimension: 64, 128 or 256
+
+    def tile_range(self, cta: int) -> tuple[int, int]:
+        """[lo, hi): the K/V tiles the CTA loads. Past hi every key is
+        past kv_len or above the diagonal of its last query; below lo
+        every key is outside the window of its first."""
+        first, last = self._span(cta)
+        bk = self.block_keys
+        hi_key = self.kv_len
+        if self.causal:
+            hi_key = min(hi_key, self.q_offset + last + 1)
+        hi = -(-hi_key // bk) if hi_key > 0 else 0
+        lo = 0
+        if self.window > 0:
+            start = self.q_offset + first - self.window + 1
+            lo = start // bk if start > 0 else 0
+        return lo, hi
+
+    def tile_masked(self, cta: int, kt: int) -> bool:
+        """Whether tile kt crosses the limit, the diagonal or the window
+        edge for some row of the CTA (the kernel masks only those)."""
+        first, last = self._span(cta)
+        bk = self.block_keys
+        k0 = kt * bk
+        full = (k0 + bk <= self.kv_len
+                and (not self.causal
+                     or k0 + bk - 1 <= self.q_offset + first)
+                and (self.window <= 0
+                     or k0 > self.q_offset + last - self.window))
+        return not full
+
+
+@dataclass(frozen=True)
+class FlashPlan(_Plan):
+    """Launch plan of csrc/flash_attn_wgmma.cu (bf16). The grid is (ctas,
+    Hkv, B); CTA x of KV head kvh owns `positions` query indices and all G
+    heads of the group, packed as rows r = (index cta * positions + r //
+    G, head kvh * G + r % G)."""
+
+    rows = BLOCK_ROWS
+    block_keys = BLOCK_KEYS
 
     @property
     def threads(self) -> int:
@@ -172,52 +233,108 @@ class FlashPlan:
         first = cta * self.positions
         return first, min(first + self.positions, self.sq) - 1
 
-    def tile_range(self, cta: int) -> tuple[int, int]:
-        """[lo, hi): the K/V tiles the CTA loads. Past hi every key is
-        past kv_len or above the diagonal of its last query; below lo
-        every key is outside the window of its first."""
-        first, last = self._span(cta)
-        hi_key = self.kv_len
-        if self.causal:
-            hi_key = min(hi_key, self.q_offset + last + 1)
-        hi = -(-hi_key // BLOCK_KEYS) if hi_key > 0 else 0
-        lo = 0
-        if self.window > 0:
-            start = self.q_offset + first - self.window + 1
-            lo = start // BLOCK_KEYS if start > 0 else 0
-        return lo, hi
 
-    def tile_masked(self, cta: int, kt: int) -> bool:
-        """Whether tile kt crosses the limit, the diagonal or the window
-        edge for some row of the CTA (the kernel masks only those)."""
-        first, last = self._span(cta)
-        k0 = kt * BLOCK_KEYS
-        full = (k0 + BLOCK_KEYS <= self.kv_len
-                and (not self.causal
-                     or k0 + BLOCK_KEYS - 1 <= self.q_offset + first)
-                and (self.window <= 0
-                     or k0 > self.q_offset + last - self.window))
-        return not full
+@dataclass(frozen=True)
+class F32FlashPlan(_Plan):
+    """Launch plan of csrc/flash_attn.cu (float32, 3xTF32). Row group x
+    of KV head kvh is the 16 packed rows R = 16x .. 16x + 15 of that
+    head's Sq * G rows, row R being (query index R // G, head kvh * G +
+    R % G): any G fits, and only rows past Sq * G are padding. The grid is
+    (ctas * split, Hkv, B): each row group is one CTA, or with split = 2 a
+    cluster of two. Warp w of rank r walks the group's tiles
+    `warp_tiles(cta, r, w)` through its own ring of `slots` K/V tile
+    slots; rank 0 merges the ranks."""
+
+    split: int = 1
+
+    rows = F32_ROWS
+
+    @property
+    def tile_floats(self) -> int:
+        """Floats in one K or V tile (Layout<D>::TILE_FLOATS): 16 KB at
+        D 256, 8 KB below, where two CTAs share an SM."""
+        return 4096 if self.d == 256 else 2048
+
+    @property
+    def block_keys(self) -> int:
+        return self.tile_floats // self.d
+
+    @property
+    def slots(self) -> int:
+        """K/V tile slots of each warp (Layout<D>::NSLOT)."""
+        return 3 if self.d == 256 else 2
+
+    @property
+    def threads(self) -> int:
+        return 32 * F32_WARPS
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of one CTA (Layout<D>::ALLOC): the warps'
+        K/V slots (the merge buffer reuses them and Q once drained), Q's hi
+        and lo fragments, a barrier per slot, 1024 bytes to align the
+        base."""
+        nslots = F32_WARPS * self.slots
+        return (nslots * self.tile_floats * 4 + 2 * F32_ROWS * self.d * 4
+                + 8 * nslots + 1024)
+
+    @property
+    def ctas(self) -> int:
+        return -(-self.sq * self.group // F32_ROWS)
+
+    def row(self, cta: int, r: int) -> tuple[int, int] | None:
+        """(query index, head within the group) of packed row r of the
+        CTA, or None past Sq * G."""
+        packed = cta * F32_ROWS + r
+        if packed >= self.sq * self.group:
+            return None
+        return packed // self.group, packed % self.group
+
+    def _span(self, cta: int) -> tuple[int, int]:
+        first = cta * F32_ROWS
+        return (first // self.group,
+                min((first + F32_ROWS - 1) // self.group, self.sq - 1))
+
+    def warp_tiles(self, cta: int, rank: int, warp: int) -> range:
+        """The tiles warp `warp` of cluster rank `rank` walks for row group
+        `cta`: every (split * 4)-th tile of the group's range."""
+        lo, hi = self.tile_range(cta)
+        return range(lo + rank * F32_WARPS + warp, hi,
+                     self.split * F32_WARPS)
+
+
+PLANS = {"bf16": FlashPlan, "f32": F32FlashPlan}
 
 
 def plan_flash(q_shape, k_shape, causal: bool = True, valid_len=None,
-               q_offset=None, window: int | None = None) -> FlashPlan:
-    """The bf16 kernel's plan for q [B, Sq, Hq, D] and k [B, Skv, Hkv, D];
-    raises ValueError on shapes the kernel does not take."""
-    _, s, hq, d = q_shape
+               q_offset=None, window: int | None = None,
+               route: str = "bf16", sms: int | None = None) -> _Plan:
+    """The plan of the route's kernel for q [B, Sq, Hq, D] and k [B, Skv,
+    Hkv, D]; raises ValueError on shapes the kernel does not take. For
+    f32, `sms` (the card's SM count) lets the plan split each row group
+    over a cluster of 2 CTAs where twice the grid still fits the SMs and
+    the last row group walks at least F32_SPLIT_MIN_TILES tiles; None
+    keeps one CTA per row group."""
+    batch, s, hq, d = q_shape
     skv, hkv = k_shape[1], k_shape[2]
     if d not in _KERNEL_HEAD_DIMS:
         raise ValueError(f"flash kernel takes head_dim in "
                          f"{_KERNEL_HEAD_DIMS}, got {d}")
     if hkv <= 0 or hq % hkv:
         raise ValueError("flash kernel: Hq must be a multiple of Hkv")
-    if hq // hkv > BLOCK_ROWS:
+    if route == "bf16" and hq // hkv > BLOCK_ROWS:
         raise ValueError(f"flash kernel: a GQA group of {hq // hkv} heads "
                          f"exceeds the {BLOCK_ROWS} rows of a CTA")
     off, limit = _limits(s, valid_len, q_offset)
-    return FlashPlan(sq=s, group=hq // hkv, kv_len=min(limit, skv),
-                     q_offset=off, causal=bool(causal),
-                     window=0 if window is None else int(window), d=d)
+    plan = PLANS[route](sq=s, group=hq // hkv, kv_len=min(limit, skv),
+                        q_offset=off, causal=bool(causal),
+                        window=0 if window is None else int(window), d=d)
+    if route == "f32" and sms:
+        lo, hi = plan.tile_range(plan.ctas - 1)
+        if (plan.ctas * hkv * batch * F32_SPLIT <= sms
+                and hi - lo >= F32_SPLIT_MIN_TILES):
+            plan = dataclasses.replace(plan, split=F32_SPLIT)
+    return plan
 
 
 def tma_strides(x: torch.Tensor, name: str) -> tuple[int, int, int]:
@@ -253,7 +370,8 @@ def tma_strides(x: torch.Tensor, name: str) -> tuple[int, int, int]:
 
 
 def kernel_route(dtype: torch.dtype) -> str:
-    """The kernel route of a dtype: "bf16" (tensor cores) or "f32" (FMA).
+    """The kernel route of a dtype: "bf16" or "f32" (both on the tensor
+    cores; f32 in 3xTF32).
     Raises ValueError on any other dtype: no kernel takes it."""
     route = ROUTES.get(dtype)
     if route is None:
@@ -299,41 +417,38 @@ def _raise_on(err: int) -> None:
     raise RuntimeError(f"flash kernel launch failed: CUDA error {err}")
 
 
-def _launch_wgmma(q, k, v, scale, causal, valid_len, q_offset, window):
-    plan = plan_flash(q.shape, k.shape, causal, valid_len, q_offset, window)
+@functools.lru_cache(maxsize=None)
+def _sm_count(index) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch(route, q, k, v, scale, causal, valid_len, q_offset, window):
+    """Plan, check the views against TMA's rules, and launch the route's
+    kernel on q's current stream."""
+    plan = plan_flash(q.shape, k.shape, causal, valid_len, q_offset, window,
+                      route=route, sms=_sm_count(q.device.index))
     b, s, hq, d = q.shape
     out = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
     strides = [st for x, name in ((q, "q"), (k, "k"), (v, "v"), (out, "out"))
                for st in tma_strides(x, name)]
     from ..kernels.build import load_library
-    lib = load_library(LIBRARIES["bf16"], _bind_wgmma)
+    lib = load_library(LIBRARIES[route], _BINDERS[route])
+    entry = getattr(lib, ENTRIES[route])
+    # the per-CTA arguments: query indices (bf16), or packed rows and the
+    # cluster's split (f32)
+    per_cta = ((plan.positions,) if route == "bf16"
+               else (plan.rows, plan.split))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        _raise_on(lib.cake_flash_wgmma_fwd(
+        _raise_on(entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
-            k.shape[1], hq, k.shape[2], d, *strides, plan.positions,
-            plan.threads, plan.smem_bytes, scale * LOG2E, int(plan.causal), plan.window, plan.q_offset,
-            plan.kv_len, stream))
+            k.shape[1], hq, k.shape[2], d, *strides, *per_cta, plan.threads,
+            plan.smem_bytes, scale * LOG2E, int(plan.causal), plan.window,
+            plan.q_offset, plan.kv_len, stream))
     return out
 
 
-def _launch_fma(q, k, v, scale, causal, valid_len, q_offset, window):
-    from ..kernels.build import load_library
-    lib = load_library(LIBRARIES["f32"], _bind_fma)
-    b, s, hq, d = q.shape
-    off, limit = _limits(s, valid_len, q_offset)
-    out = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        _raise_on(lib.cake_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
-            k.shape[1], hq, k.shape[2], d, *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], *out.stride()[:3], scale, int(causal),
-            0 if window is None else int(window), off, limit, stream))
-    return out
-
-
-_LAUNCHERS = {"bf16": _launch_wgmma, "f32": _launch_fma}
+_LAUNCHERS = {route: functools.partial(_launch, route) for route in LIBRARIES}
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -343,8 +458,8 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the kernel of q's route (no launch count: callers that
     compare a kernel with its plain version use this entry). Raises on
     CPU tensors, on a dtype other than float32/bfloat16, on D outside
-    {64, 128, 256}, on a non-contiguous last dimension and, for bfloat16,
-    on a view that breaks TMA's rules."""
+    {64, 128, 256}, on a non-contiguous last dimension and on a view that
+    breaks TMA's rules."""
     route = kernel_route(q.dtype)
     _check_kernel_inputs(q, k, v)
     if scale is None:
@@ -392,20 +507,26 @@ def reset_launches() -> None:
             modes[mode] = 0
 
 
-def _bind_wgmma(lib: ctypes.CDLL) -> None:
-    """Declare the bf16 entry point's signature (every pointer and the
-    stream as c_void_p, so ctypes never truncates them to 32 bits)."""
+def _declare(fn, plan_ints: int) -> None:
+    """Declare a flash entry point's signature: the routes differ only in
+    the number of plan integers before the scale. Every pointer and the
+    stream are c_void_p, so ctypes never truncates them to 32 bits."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn = lib.cake_flash_wgmma_fwd
-    fn.argtypes = ([p, p, p, p] + [i] * 6 + [ll] * 12
-                   + [i, i, i, ctypes.c_float, i, i, i, i, p])
-    fn.restype = i
-
-
-def _bind_fma(lib: ctypes.CDLL) -> None:
-    """Declare the float32 entry point's signature."""
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn = lib.cake_flash_attention_fwd
-    fn.argtypes = ([p, p, p, p] + [i] * 6 + [ll] * 12
+    fn.argtypes = ([p, p, p, p] + [i] * 6 + [ll] * 12 + [i] * plan_ints
                    + [ctypes.c_float, i, i, i, i, p])
     fn.restype = i
+
+
+def _bind_wgmma(lib: ctypes.CDLL) -> None:
+    """Declare the bf16 entry point's signature (positions, threads,
+    shared memory)."""
+    _declare(lib.cake_flash_wgmma_fwd, 3)
+
+
+def _bind_f32(lib: ctypes.CDLL) -> None:
+    """Declare the float32 entry point's signature (rows, split, threads,
+    shared memory)."""
+    _declare(lib.cake_flash_attention_fwd, 4)
+
+
+_BINDERS = {"bf16": _bind_wgmma, "f32": _bind_f32}

@@ -8,10 +8,11 @@ Phases (any failure exits non-zero and prints no result line):
   2. build: compile every CUDA kernel of the port from this checkout (the
      two flash sources and the paged decode source, one nvcc each, all
      started together), print each source's ptxas report (registers,
-     shared memory, spills) and the count of HGMMA (wgmma) instructions
-     in the bf16 flash kernel's SASS, which must not be 0;
+     shared memory, spills) and the count of tensor-core instructions in
+     each flash kernel's SASS: HGMMA (wgmma) in the bf16 one and HMMA
+     .TF32 (mma.sync, 3xTF32) in the f32 one, neither of which may be 0;
   3. kernels: hold each kernel against its plain PyTorch version on the
-     card (flash: bf16 on the tensor-core kernel, f32 on the FMA kernel;
+     card (flash: bf16 on the wgmma kernel, f32 on the 3xTF32 kernel;
      paged decode: its launch plan (cluster, stages, shared memory, the
      clusters the card holds at once) and ptxas report first, then both
      routes over ragged frontiers, an all-NULL row, stale tenants and a
@@ -86,7 +87,11 @@ F32_TOL = 1e-4      # float32 summation order only
 LOGIT_TOL = 2e-3    # f32 model on card vs CPU (cuBLAS vs MKL sum order)
 
 H100_PEAK_FLOPS = {"bf16": 989e12,   # dense tensor-core peak, H100 SXM
+                   "tf32": 495e12,
                    "f32": 67e12}     # float32 outside the tensor cores
+# TF32 products per float32-accurate product on the f32 route (3xTF32:
+# hi.hi + hi.lo + lo.hi)
+TF32_PRODUCTS = 3
 H100_HBM_BYTES_S = 3.35e12
 CUOBJDUMP = "/usr/local/cuda/bin/cuobjdump"   # the CUDA toolkit's
 
@@ -128,15 +133,19 @@ def phase_build() -> dict:
     cuobjdump = shutil.which("cuobjdump") or (
         CUOBJDUMP if os.path.exists(CUOBJDUMP) else None)
     if cuobjdump is None:
-        print("cuobjdump not found: HGMMA count not taken", flush=True)
+        print("cuobjdump not found: tensor-core counts not taken",
+              flush=True)
         return built
-    lib = built[flash.LIBRARIES["bf16"]]["path"]
-    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
-                          text=True, timeout=300)
-    check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr}")
-    n = sum("HGMMA" in ln for ln in sass.stdout.splitlines())
-    print(f"HGMMA instructions in {flash.SOURCES['bf16']}: {n}", flush=True)
-    check(n > 0, "the bf16 flash kernel has no HGMMA (wgmma) instruction")
+    for route, word, what in (("bf16", "HGMMA", "HGMMA (wgmma)"),
+                              ("f32", "TF32", "HMMA .TF32 (mma.sync)")):
+        sass = subprocess.run(
+            [cuobjdump, "-sass", built[flash.LIBRARIES[route]]["path"]],
+            capture_output=True, text=True, timeout=300)
+        check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr}")
+        n = sum(word in ln and "MMA" in ln for ln in sass.stdout.splitlines())
+        print(f"{what} instructions in {flash.SOURCES[route]}: {n}",
+              flush=True)
+        check(n > 0, f"the {route} flash kernel has no {what} instruction")
     return built
 
 
@@ -206,11 +215,13 @@ def visible_pairs(sq, limit, q_offset, window, skv) -> int:
     return int(m.sum())
 
 
-def flash_bound_ms(q, k, kw) -> tuple[float, str]:
+def flash_bound_ms(q, k, kw, peak_flops=None) -> tuple[float, str]:
     """Least time on an H100 SXM: the larger of FLOPs over the peak for
-    q's type (bf16 tensor cores, or float32 outside them) and bytes (q
-    read, K/V rows below the limit read, output written, once each) over
-    HBM bandwidth."""
+    q's type and bytes (q read, K/V rows below the limit read, output
+    written, once each) over HBM bandwidth. bf16: the tensor cores' peak;
+    float32: three TF32 products per product over the TF32 peak, the
+    least time for float32-accurate products on this card (3xTF32).
+    `peak_flops` overrides the FLOP rate (FLOPs counted once)."""
     import torch
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
@@ -221,8 +232,13 @@ def flash_bound_ms(q, k, kw) -> tuple[float, str]:
                                 k.shape[1]) * hq * d * b
     el = q.element_size()
     nbytes = el * b * (2 * sq * hq * d + 2 * rows * hkv * d)
-    peak = H100_PEAK_FLOPS["bf16" if q.dtype == torch.bfloat16 else "f32"]
-    t_ops, t_bytes = flops / peak, nbytes / H100_HBM_BYTES_S
+    if peak_flops is not None:
+        t_ops = flops / peak_flops
+    elif q.dtype == torch.bfloat16:
+        t_ops = flops / H100_PEAK_FLOPS["bf16"]
+    else:
+        t_ops = TF32_PRODUCTS * flops / H100_PEAK_FLOPS["tf32"]
+    t_bytes = nbytes / H100_HBM_BYTES_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -285,20 +301,33 @@ def phase_kernels() -> dict:
                   f"flash {name} {dtype}: max_abs_err {err} > {tol}")
             check(torch.equal(got, again),
                   f"flash {name} {dtype}: two launches differ")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for d in (64, 128, 256):
         plan = plan_flash((1, 256, 4, d), (1, 256, 1, d), window=512)
         print(f"flash plan bf16 D {d} (Sq 256, Hq/Hkv 4/1): {plan.ctas} "
               f"CTAs of {plan.positions} positions, {plan.threads} "
               f"threads, {plan.stages}-stage K/V ring, shared memory "
               f"{plan.smem_bytes} B per CTA", flush=True)
+        plan = plan_flash((1, 256, 4, d), (1, 256, 1, d), window=512,
+                          route="f32", sms=sms)
+        print(f"flash plan f32 D {d} (Sq 256, Hq/Hkv 4/1): {plan.ctas} "
+              f"row groups of {plan.rows} packed rows, each over a cluster "
+              f"of {plan.split} CTAs ({sms} SMs), {plan.threads} threads, "
+              f"{plan.slots} slots of {plan.block_keys}-key tiles per warp, "
+              f"shared memory {plan.smem_bytes} B per CTA", flush=True)
     timings = {}
     for entry, dtype, spec in (
             ("fresh", torch.bfloat16, {}),
             ("append", torch.bfloat16, FLASH_CASES[4][1]),
             ("f32", torch.float32, {}),
+            ("f32_append", torch.float32, FLASH_CASES[4][1]),
             *((name, torch.bfloat16, spec) for name, spec in family),
-            ("phi4_f32", torch.float32, dict(family)["phi4_fresh"]),
-            ("gemma3_f32", torch.float32, dict(family)["gemma3_fresh"])):
+            *((f"{fam}_f32{mode}", torch.float32,
+               dict(family)[f"{fam}_{entry}"])
+              for fam in ("phi4", "gemma3")
+              for mode, entry in (("", "fresh"), ("_append", "append"))),
+            ("gemma3_f32_window", torch.float32,
+             dict(family)["gemma3_fresh_window"])):
         q, k, v, kw = flash_case(entry, dtype, **spec)
         err = (flash_attention_kernel(q, k, v, **kw).float()
                - flash_attention_ref(q, k, v, **kw).float()).abs().max()
@@ -315,6 +344,11 @@ def phase_kernels() -> dict:
             "library_ms": device_ms(library_call(q, k, v, kw)),
         }
         t["bound_ms"], t["bound_by"] = flash_bound_ms(q, k, kw)
+        fma_bound = ""
+        if dtype == torch.float32:   # the bound on FMA (no tensor cores)
+            t["fma_bound_ms"] = flash_bound_ms(
+                q, k, kw, H100_PEAK_FLOPS["f32"])[0]
+            fma_bound = f" (FMA bound {t['fma_bound_ms']:.5f})"
         timings[entry] = t
         print(f"flash timing {entry}: {kernel_route(dtype)} Sq={q.shape[1]} "
               f"Hq/Hkv="
@@ -323,7 +357,8 @@ def phase_kernels() -> dict:
               f"{t['ms']:.5f} plain {t['plain_ms']:.5f} library "
               f"{t['library_ms']:.5f}; kernel issue_ms {t['issue_ms']:.5f}; "
               f"bound_ms {t['bound_ms']:.5f} ({t['bound_by']}), share of "
-              f"bound {t['bound_ms'] / t['ms']:.3f}", flush=True)
+              f"bound {t['bound_ms'] / t['ms']:.3f}{fma_bound}; max_abs_err "
+              f"{t['max_abs_err']:.3e}", flush=True)
         print(f"  library backend: {library_backend(q, k, v, kw)}",
               flush=True)
     return timings
@@ -1080,7 +1115,8 @@ def phase_families(card: str, workdir: str) -> dict:
     out = {}
     for fam in FAMILY_LAYERS:
         d, _ = _family_dir(fam, workdir, FAMILY_LAYERS[fam])
-        counts = {"fresh": 0, "append": 0, "paged": 0, "f32": 0}
+        counts = {"fresh": 0, "append": 0, "paged": 0, "f32": 0,
+                  "f32_append": 0}
         cpu, _, _ = build_text_model(d, "f32", device="cpu",
                                      max_cache_len=4096)
         gpu, _, _ = build_text_model(d, "f32", device="cuda",
@@ -1098,7 +1134,8 @@ def phase_families(card: str, workdir: str) -> dict:
         lp, tp, paged_launches = paged_prefill_and_greedy(gpu, ids)
         lc, tc, _ = chunked_prefill_and_greedy(cpu, ids)
         err, err_p = ((x - lc).abs().max().item() for x in (lg, lp))
-        counts["f32"] = sum(launches["f32"].values())
+        counts["f32"] = launches["f32"]["fresh"]
+        counts["f32_append"] = launches["f32"]["append"]
         print(f"family {fam} ({shape}) f32 card vs CPU: flash launches "
               f"{launches}, paged {paged_launches}; logits max_abs_err "
               f"{err:.3e} contiguous, {err_p:.3e} paged (tol {LOGIT_TOL:g}); "
@@ -1180,7 +1217,7 @@ GEMMA_PARITY_LAYERS = 6     # layer 5 is global: the paged pool needs one
 def phase_gemma3(card: str, workdir: str) -> dict:
     """Phase 9 (a)-(c). Returns the launches of each kernel entry in it:
     fresh / append (bf16 flash, (b) and (c)), paged (bf16, (b) and (c)),
-    f32 (flash) and paged_f32, both in (a)."""
+    f32 / f32_append (flash) and paged_f32, all in (a)."""
     import torch
     from cake_tpu_torch.bench.graph_cases import build_state, graph_vs_eager
     from cake_tpu_torch.ops import flash
@@ -1218,7 +1255,8 @@ def phase_gemma3(card: str, workdir: str) -> dict:
           and paged_launches["f32"] > 0,
           f"gemma3 (a): f32 kernels not launched: {launches} "
           f"{paged_launches}")
-    out["f32"] = sum(launches["f32"].values())
+    out["f32"] = launches["f32"]["fresh"]
+    out["f32_append"] = launches["f32"]["append"]
     out["paged_f32"] = paged_launches["f32"]
     del cpu, gpu
     torch.cuda.empty_cache()
@@ -1326,7 +1364,8 @@ def main() -> int:
     for entry, route, launches in (
             ("fresh", "bf16", serve_launches["fresh"]),
             ("append", "bf16", serve_launches["append"]),
-            ("f32", "f32", sum(parity_launches.values()))):
+            ("f32", "f32", parity_launches["fresh"]),
+            ("f32_append", "f32", parity_launches["append"])):
         t = timings[entry]
         kernels.append({
             "name": f"flash_attention.{entry}", "route": "cuda",
@@ -1339,8 +1378,9 @@ def main() -> int:
         for entry, route, launches in (
                 (f"{fam}_fresh", "bf16", n["fresh"]),
                 (f"{fam}_append", "bf16", n["append"]),
-                *(((f"{fam}_f32", "f32", n["f32"]),)
-                  if f"{fam}_f32" in timings else ())):
+                *((f"{fam}_{mode}", "f32", n[mode])
+                  for mode in ("f32", "f32_append")
+                  if f"{fam}_{mode}" in timings)):
             t = timings[entry]
             mode = entry.split("_", 1)[1]
             kernels.append({

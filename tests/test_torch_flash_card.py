@@ -1,5 +1,5 @@
 """Both flash kernels against their plain version on the card: bf16 on
-the tensor cores (csrc/flash_attn_wgmma.cu) and float32 on FMA
+wgmma (csrc/flash_attn_wgmma.cu) and float32 on mma.sync in 3xTF32
 (csrc/flash_attn.cu). Every test is marked `cuda` and skips without a card.
 This file imports no JAX, so it runs on the card's machine, which has none:
 
@@ -7,7 +7,8 @@ This file imports no JAX, so it runs on the card's machine, which has none:
 
 Tolerances: bf16 2e-2 (output rounding, ulp 2^-7 near 1, and P rounded to
 bf16 before P.V, at most 2^-9 relative per weight); float32 1e-4
-(summation order only)."""
+(summation order, and the 3xTF32 split's dropped lo.lo term and rounded
+lo, each about 2^-22 of a product)."""
 import pytest
 import torch
 
@@ -136,10 +137,11 @@ def test_c_entries_refuse_other_head_dims():
         2, 2, 96, *(st * 4), 64, 288, 93288, 1.0, 1, 0, 0, 64, stream)
     assert err != 0
     qf = q.float()
-    lib = load_library(flash.LIBRARIES["f32"], flash._bind_fma)
+    lib = load_library(flash.LIBRARIES["f32"], flash._bind_f32)
+    st = [s * 4 for s in (96, 192, 64 * 192)]
     err = lib.cake_flash_attention_fwd(
         qf.data_ptr(), qf.data_ptr(), qf.data_ptr(), qf.data_ptr(), 1, 64,
-        64, 2, 2, 96, *(list(qf.stride()[:3]) * 4), 1.0, 1, 0, 0, 64,
+        64, 2, 2, 96, *(st * 4), 16, 1, 128, 230496, 1.0, 1, 0, 0, 64,
         stream)
     assert err != 0
     torch.cuda.synchronize()
@@ -185,3 +187,110 @@ def test_d256_is_bit_identical_across_launches(dtype):
     first = flash.flash_attention_kernel(q, k, v, **kw)
     second = flash.flash_attention_kernel(q, k, v, **kw)
     assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_f32_entry_refuses_a_plan_that_is_not_its_layout(d):
+    """The float32 entry point launches only with F32FlashPlan's rows,
+    threads and shared memory equal to its layout and a split of 1, 2 or
+    4: a plan off by one byte, one warp, its rows or its split returns an
+    error and writes nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from cake_tpu_torch.kernels.build import load_library
+    q = torch.randn((1, 64, 2, d), device="cuda")
+    plan = flash.plan_flash(q.shape, q.shape, route="f32")
+    lib = load_library(flash.LIBRARIES["f32"], flash._bind_f32)
+    st = list(flash.tma_strides(q, "q"))
+    stream = torch.cuda.current_stream().cuda_stream
+    for rows, split, threads, smem in (
+            (plan.rows, 1, plan.threads, plan.smem_bytes + 1),
+            (plan.rows, 1, plan.threads - 32, plan.smem_bytes),
+            (plan.rows * 2, 1, plan.threads, plan.smem_bytes),
+            (plan.rows, 3, plan.threads, plan.smem_bytes)):
+        out = torch.zeros_like(q)
+        err = lib.cake_flash_attention_fwd(
+            q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(), 1, 64,
+            64, 2, 2, d, *(st * 4), rows, split, threads, smem, 1.0, 1, 0,
+            0, 64, stream)
+        torch.cuda.synchronize()
+        assert err != 0
+        assert not out.any().item()
+    got = flash.flash_attention_kernel(q, q, q)
+    want = flash.flash_attention_ref(q, q, q)
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+# float32 cases launched twice: D 64, 128 and 256, a window, append over a
+# pool view, ragged valid_len, GQA groups 1 to 8
+F32_TWICE = [
+    ("d64_g4_window100", dict(sq=300, hq=16, hkv=4, d=64, window=100)),
+    ("d128_g2_append_pool", dict(sq=256, pool_rows=4096, q_offset=256,
+                                 valid_len=256)),
+    ("d128_g3_ragged_valid90", dict(sq=100, hq=12, hkv=4, pool_rows=1024,
+                                    q_offset=70, valid_len=90)),
+    ("d256_g4_append_pool", dict(sq=256, hq=4, hkv=1, d=256,
+                                 pool_rows=4096, q_offset=256,
+                                 valid_len=256)),
+    ("d256_g8_ragged_valid90", dict(sq=100, hq=16, hkv=2, d=256,
+                                    pool_rows=1024, q_offset=70,
+                                    valid_len=90)),
+    ("d256_g1_valid200", dict(sq=256, hq=2, hkv=2, d=256, valid_len=200)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", F32_TWICE, ids=[c[0] for c in F32_TWICE])
+def test_f32_is_bit_identical_across_launches(case):
+    """The float32 kernel merges its warps' partial softmax states in a
+    fixed order: two launches give the same bits, within 1e-4 of the plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _, spec = case
+    q, k, v, kw = _card_inputs(torch.float32, **spec)
+    first = flash.flash_attention_kernel(q, k, v, **kw)
+    second = flash.flash_attention_kernel(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    want = flash.flash_attention_ref(q, k, v, **kw)
+    assert (first - want).abs().max().item() <= 1e-4
+
+
+def _launch_f32(q, k, v, kw, split):
+    """The float32 kernel with the plan's layout and a chosen split."""
+    from cake_tpu_torch.kernels.build import load_library
+    plan = flash.plan_flash(q.shape, k.shape, route="f32", **kw)
+    lib = load_library(flash.LIBRARIES["f32"], flash._bind_f32)
+    out = torch.empty_like(q)
+    st = [x for t, n in ((q, "q"), (k, "k"), (v, "v"), (out, "o"))
+          for x in flash.tma_strides(t, n)]
+    b, s, hq, d = q.shape
+    flash._raise_on(lib.cake_flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
+        k.shape[1], hq, k.shape[2], d, *st, plan.rows, split, plan.threads,
+        plan.smem_bytes, flash.LOG2E / d ** 0.5, int(plan.causal),
+        plan.window, plan.q_offset, plan.kv_len,
+        torch.cuda.current_stream().cuda_stream))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", F32_TWICE, ids=[c[0] for c in F32_TWICE])
+def test_f32_cluster_split_matches_one_cta(case):
+    """Each row group split over a cluster of 2 CTAs (rank 0 merging the
+    ranks' partial states) gives the plain version's result within 1e-4,
+    the same bits on two launches, and one CTA per group's within 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _, spec = case
+    q, k, v, kw = _card_inputs(torch.float32, **spec)
+    want = flash.flash_attention_ref(q, k, v, **kw)
+    one = _launch_f32(q, k, v, kw, 1)
+    first = _launch_f32(q, k, v, kw, 2)
+    second = _launch_f32(q, k, v, kw, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert (first - want).abs().max().item() <= 1e-4
+    assert (first - one).abs().max().item() <= 1e-4

@@ -7,6 +7,7 @@ These tests hold it against the plain version's mask: the tiles a CTA loads
 cover every visible (query, key) pair, the tiles it skips are wholly
 masked, and the tiles it leaves unmasked are wholly visible. The card tests
 of the kernel itself are in tests/test_torch_flash.py (marked `cuda`)."""
+import dataclasses
 import re
 from pathlib import Path
 
@@ -38,21 +39,22 @@ PLAN_CASES = [(c[0], c[2], c[3], c[4], c[5], c[7]) for c in CASES] + [
 ]
 
 
-def _plan(sq, skv, hq, hkv, kw):
-    return flash.plan_flash((1, sq, hq, 64), (1, skv, hkv, 64), **kw)
+def _plan(sq, skv, hq, hkv, kw, route="bf16"):
+    return flash.plan_flash((1, sq, hq, 64), (1, skv, hkv, 64), route=route,
+                            **kw)
 
 
-@pytest.mark.parametrize("case", PLAN_CASES, ids=[c[0] for c in PLAN_CASES])
-def test_plan_tiles_cover_every_visible_pair(case):
-    _, sq, skv, hq, hkv, kw = case
-    plan = _plan(sq, skv, hq, hkv, kw)
+def _check_tiles_cover(plan, sq, skv, kw):
+    """The tiles each CTA loads cover every visible pair of its rows, the
+    tiles it skips are wholly masked, and the tiles it leaves unmasked are
+    wholly visible."""
     off, limit = flash._limits(sq, kw.get("valid_len"), kw.get("q_offset"))
     mask = flash.visible_mask(sq, skv, off, limit, kw.get("causal", True),
                               kw.get("window"))
-    bk = flash.BLOCK_KEYS
+    bk = plan.block_keys
     n_tiles = -(-skv // bk)
     for cta in range(plan.ctas):
-        rows = sorted({i for r in range(flash.BLOCK_ROWS)
+        rows = sorted({i for r in range(plan.rows)
                        if (row := plan.row(cta, r)) is not None
                        for i in row[:1]})
         lo, hi = plan.tile_range(cta)
@@ -63,6 +65,25 @@ def test_plan_tiles_cover_every_visible_pair(case):
                 assert not pairs.any(), (cta, kt, "skipped a visible pair")
             elif not plan.tile_masked(cta, kt):
                 assert pairs.shape[1] == bk and pairs.all(), (cta, kt)
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=[c[0] for c in PLAN_CASES])
+def test_plan_tiles_cover_every_visible_pair(case):
+    _, sq, skv, hq, hkv, kw = case
+    _check_tiles_cover(_plan(sq, skv, hq, hkv, kw), sq, skv, kw)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("case", PLAN_CASES, ids=[c[0] for c in PLAN_CASES])
+def test_f32_plan_tiles_cover_every_visible_pair(case, d):
+    """The same for the float32 kernel's plan, whose CTAs hold 16 packed
+    rows that may split a query's heads between two CTAs, and whose tiles
+    hold 16 keys at D 128 and 256 and 32 at D 64."""
+    _, sq, skv, hq, hkv, kw = case
+    plan = flash.plan_flash((1, sq, hq, d), (1, skv, hkv, d), route="f32",
+                            **kw)
+    assert plan.block_keys == (32 if d == 64 else 16)
+    _check_tiles_cover(plan, sq, skv, kw)
 
 
 @pytest.mark.parametrize("sq,group", [(1, 1), (63, 2), (64, 1), (100, 2),
@@ -79,6 +100,28 @@ def test_plan_rows_pack_each_query_and_head_once(sq, group):
             i, h = row
             # rows of one query index are its G heads, side by side
             assert (i, h) == (cta * plan.positions + r // group, r % group)
+            seen.append(row)
+    assert sorted(seen) == [(i, h) for i in range(sq) for h in range(group)]
+
+
+@pytest.mark.parametrize("sq,group", [(1, 1), (63, 2), (64, 1), (100, 2),
+                                      (300, 4), (100, 3), (5, 64), (7, 24),
+                                      (33, 5)])
+def test_f32_plan_rows_pack_each_query_and_head_once(sq, group):
+    """Packed row R of a KV head is (R // G, R % G), 16 to a CTA: every
+    (query, head) once, only rows past Sq * G are padding, and any group
+    fits (the bf16 plan stops at 64)."""
+    plan = flash.plan_flash((1, sq, 2 * group, 128), (1, sq, 2, 128),
+                            route="f32")
+    assert plan.rows == 16 and plan.ctas == -(-sq * group // 16)
+    seen = []
+    for cta in range(plan.ctas):
+        for r in range(plan.rows):
+            row = plan.row(cta, r)
+            if row is None:
+                assert cta * 16 + r >= sq * group
+                continue
+            assert row == divmod(cta * 16 + r, group)
             seen.append(row)
     assert sorted(seen) == [(i, h) for i in range(sq) for h in range(group)]
 
@@ -105,6 +148,101 @@ def test_plan_shared_memory_by_head_dim(d, stages, smem, threads):
         (stages, smem, threads)
     assert plan.smem_bytes <= flash.SMEM_LIMIT
     assert (plan.positions, plan.ctas) == (16, 16)
+
+
+@pytest.mark.parametrize("d,keys,slots,smem", [
+    (64, 32, 2, 74816), (128, 16, 2, 83008), (256, 16, 3, 230496)])
+def test_f32_plan_shared_memory_by_head_dim(d, keys, slots, smem):
+    """Layout<D> of the float32 kernel: each of 4 warps has its own ring of
+    K/V tile slots (3 of 16 KB at D 256; 2 of 8 KB below, so that two CTAs
+    share an SM), beside Q's hi and lo fragments (2 x 16 x D floats), a
+    barrier per slot and 1024 bytes of alignment, within a block's shared
+    memory. Gemma-3-1B's chunk (Sq 256, 4/1): 64 CTAs."""
+    plan = flash.plan_flash((1, 256, 4, d), (1, 256, 1, d), route="f32")
+    assert (plan.block_keys, plan.slots, plan.smem_bytes, plan.threads) \
+        == (keys, slots, smem, 128)
+    assert plan.smem_bytes <= flash.SMEM_LIMIT
+    if d < 256:   # two CTAs per SM, with the 1 KB each reserves
+        assert 2 * (plan.smem_bytes + 1024) <= 228 * 1024
+    assert plan.ctas == 64
+    flagship = flash.plan_flash((1, 256, 16, 128), (1, 256, 8, 128),
+                                route="f32")
+    assert flagship.ctas == 32 and flagship.tile_range(31) == (0, 16)   # x 8
+
+
+def test_f32_kernel_source_mirrors_its_plan():
+    """csrc/flash_attn.cu states the plan's constants, refuses any other
+    plan, and runs both products on TF32 tensor cores with the 3xTF32
+    split (no FMA loop, no library call)."""
+    src = (CSRC / "flash_attn.cu").read_text()
+    for name, value in (("ROWS", flash.F32_ROWS), ("NWARP", flash.F32_WARPS),
+                        ("MAX_SPLIT", flash.F32_SPLIT)):
+        assert re.search(rf"constexpr int {name} = {value};", src), name
+    assert "p.split < 1 || p.split > MAX_SPLIT" in src
+    assert "static constexpr int NSLOT = D == 256 ? 3 : 2;" in src
+    assert ("static constexpr int TILE_FLOATS = D == 256 ? 4096 : 2048;"
+            in src)
+    for d in (64, 128, 256):
+        plan = flash.plan_flash((1, 8, 2, d), (1, 8, 2, d), route="f32")
+        assert (plan.slots, plan.tile_floats) == ((3, 4096) if d == 256
+                                                  else (2, 2048))
+    assert ("rows != ROWS || threads != THREADS || smem_bytes != L::ALLOC"
+            in src)
+    assert src.count("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32") \
+        == 1
+    assert "hi = __float_as_uint(x) & kTf32;" in src
+    assert "fmaf(" not in src and "cublas" not in src.lower()
+
+
+@pytest.mark.parametrize("sq,q_offset,hq,hkv,d,sms,split", [
+    (256, 0, 4, 1, 256, 132, 2),      # Gemma-3-1B's chunk: 64 row groups
+    (256, 256, 4, 1, 256, 132, 2),    # and its append
+    (600, 0, 4, 1, 256, 132, 1),      # 150 row groups: the card is full
+    (256, 0, 16, 8, 128, 132, 1),     # the flagship's: 256
+    (128, 0, 4, 1, 256, 132, 1),      # 32 row groups of 8 tiles: too few
+    (64, 0, 16, 8, 128, 132, 1),      # 64 of 4 tiles
+    (256, 0, 4, 1, 256, None, 1),     # no SM count: one CTA per group
+])
+def test_f32_plan_splits_small_grids_over_clusters(sq, q_offset, hq, hkv, d,
+                                                   sms, split):
+    """The plan splits each row group over a cluster of 2 CTAs where twice
+    the grid fits the card's SMs and the last group walks at least 16
+    tiles (4 for each warp), else keeps one CTA per group."""
+    plan = flash.plan_flash((1, sq, hq, d), (1, sq + q_offset, hkv, d),
+                            route="f32", sms=sms, q_offset=q_offset or None)
+    assert plan.split == split
+    lo, hi = plan.tile_range(plan.ctas - 1)
+    assert (split == 2) == (plan.ctas * hkv * 2 <= (sms or 0)
+                            and hi - lo >= flash.F32_SPLIT_MIN_TILES)
+
+
+@pytest.mark.parametrize("split", [1, 2])
+@pytest.mark.parametrize("case", PLAN_CASES[-6:],
+                         ids=[c[0] for c in PLAN_CASES[-6:]])
+def test_f32_warps_of_a_cluster_take_each_tile_once(case, split):
+    """The split * 4 warps of a row group's cluster walk its [lo, hi)
+    tiles between them, each tile once, in the kernel's order."""
+    _, sq, skv, hq, hkv, kw = case
+    plan = dataclasses.replace(
+        flash.plan_flash((1, sq, hq, 256), (1, skv, hkv, 256), route="f32",
+                         **kw), split=split)
+    for cta in range(plan.ctas):
+        walked = sorted(kt for rank in range(split)
+                        for warp in range(flash.F32_WARPS)
+                        for kt in plan.warp_tiles(cta, rank, warp))
+        assert walked == list(range(*plan.tile_range(cta)))
+
+
+def test_f32_plan_rejects_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="head_dim"):
+        flash.plan_flash((1, 8, 2, 32), (1, 8, 2, 32), route="f32")
+    with pytest.raises(ValueError, match="head_dim"):
+        flash.plan_flash((1, 8, 2, 96), (1, 8, 2, 96), route="f32")
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        flash.plan_flash((1, 8, 3, 64), (1, 8, 2, 64), route="f32")
+    # a group of 128 heads fits 16-row CTAs: 8 CTAs per query index
+    plan = flash.plan_flash((1, 8, 128, 64), (1, 8, 1, 64), route="f32")
+    assert plan.ctas == 64 and plan.row(63, 15) == (7, 127)
 
 
 def test_c_entries_name_each_head_dim():
@@ -171,8 +309,8 @@ def test_route_is_chosen_by_dtype():
 
 def test_wrapper_launches_the_route_of_the_dtype(monkeypatch):
     """A bf16 tensor reaches only the wgmma launcher and a float32 one only
-    the FMA launcher; a dtype neither takes raises before any launcher and
-    never reaches the plain version."""
+    the 3xTF32 launcher; a dtype neither takes raises before any launcher
+    and never reaches the plain version."""
     called = []
 
     def launcher(route):
@@ -229,7 +367,7 @@ def _c_params(source: str, entry: str) -> int:
 
 @pytest.mark.parametrize("route,entry,bind", [
     ("bf16", "cake_flash_wgmma_fwd", flash._bind_wgmma),
-    ("f32", "cake_flash_attention_fwd", flash._bind_fma),
+    ("f32", "cake_flash_attention_fwd", flash._bind_f32),
 ])
 def test_ctypes_signature_matches_the_c_entry(route, entry, bind):
     class Lib:
