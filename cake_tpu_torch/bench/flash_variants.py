@@ -180,7 +180,7 @@ def _time_variant(name: str) -> dict:
             k.shape[1], hq, k.shape[2], d, *st, 16, plan.split, 32 * warps,
             smem,
             flash.LOG2E / d ** 0.5, 1, plan.window, plan.q_offset,
-            plan.kv_len, torch.cuda.current_stream().cuda_stream)
+            plan.kv_len, None, 0, b, torch.cuda.current_stream().cuda_stream)
         flash._raise_on(err)
         return out
     fam = dict(cs.family_flash_cases())

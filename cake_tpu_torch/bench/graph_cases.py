@@ -20,6 +20,12 @@ that at the flagship's full width and depth, and
 
 `step_by_step` is generate as a loop of single eager decode steps, one
 fetch per token: the parity reference of generate's captured chunks.
+
+`prefill_vs_eager` holds the captured prefill programs (graphs.
+PrefillGraphs over prefill_chunk_into / prefill_chunk_paged_into) against
+the eager host-int chunks (prefill_chunk / prefill_chunk_paged), from one
+state: the same prompt in chunks into the same row of two copies of a
+pool, logits and every KV byte compared (the paged sink aside).
 """
 from __future__ import annotations
 
@@ -27,8 +33,11 @@ from dataclasses import dataclass, field
 
 import torch
 
+import time
+
+from ..models.common.cache import kv_capacity
 from ..models.common.graphs import DecodeCarries, DecodeGraph
-from ..models.common.text_model import bucket_for
+from ..models.common.text_model import bucket_for, prefill_start_keys
 from ..ops.sampling import SamplingConfig, push_recent_token, request_key
 from ..serve.engine import RECENT_N
 from ..serve.paged import PagedKV
@@ -190,3 +199,111 @@ def step_by_step(model, ids: list[int], max_new: int, scfg: SamplingConfig,
             cache["layers"], tok, pos, recent, keys, ctr, *rest)
         out.append(int(tok[0]))
     return out
+
+
+def _copy(caches):
+    return [{n: t.clone() for n, t in lc.items()} for lc in caches]
+
+
+def _strict(program):
+    """The program under torch.cuda.set_sync_debug_mode("error"): any
+    host sync inside it (warm-up or capture) raises."""
+    def run(io, bucket, mode):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            program(io, bucket, mode)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return run
+
+
+@dataclass
+class PrefillCase:
+    """Two copies of a pool after `prefill_vs_eager`: `graphs` replays into
+    one, the eager chunks went into the other. `chunks`: (pos0, ids) of
+    each chunk; `graph_chunk(i)` / `eager_chunk(i)` run chunk i again
+    (each rewrites the same entries: timing)."""
+    graphs: object
+    chunks: list
+    results: list
+    kv_equal: bool
+    capture_s: float
+    graph_chunk: object
+    eager_chunk: object
+
+
+def prefill_vs_eager(model, ids: list[int], slot: int, slots: int, ctx: int,
+                     kv_blocks: int = 0, block_tokens: int = 16,
+                     chunk: int = 256, strict: bool = False,
+                     tenant: list[int] | None = None) -> PrefillCase:
+    """`ids` in chunks of `chunk` into row `slot` of a pool of `slots` rows
+    of ctx (paged with kv_blocks > 0), row 0 first holding `tenant`'s
+    prompt: once through the pool's captured prefill programs (every start
+    program captured first, under the sync-debug check when `strict` on a
+    card) and once through the eager chunks on a copy. results[i]:
+    {key, logits_equal, max_logit_diff}."""
+    dev = model.device
+    pk = None
+    if kv_blocks:
+        pk = PagedKV.build(model, slots, ctx, kv_blocks, block_tokens, chunk)
+        graphs, cap = pk.prefill, pk.max_blocks * pk.bt
+        for row, n in ((0, len(tenant or [])), (slot, len(ids))):
+            if n and not pk.reserve_range(row, 0, n):
+                raise ValueError("paged pool too small for the case")
+        state = (pk.pool, pk.rows, pk.tables)
+
+        def eager_run(st, row, part, p0):
+            return model.prefill_chunk_paged(*st, row, part, p0)
+
+        def copy(st):
+            return (_copy(st[0]), _copy(st[1]), st[2].clone())
+    else:
+        layers = model.new_cache(slots, kv_len=ctx)["layers"]
+        cap = kv_capacity(model.cfg, {"layers": layers})
+        graphs = model.prefill_graphs(
+            lambda io, bucket, mode: model.prefill_chunk_into(
+                layers, io, bucket, mode), cap, chunk)
+        state = layers
+
+        def eager_run(st, row, part, p0):
+            return model.prefill_chunk(st, row, part, p0)[0]
+
+        def copy(st):
+            return _copy(st)
+    if strict and dev.type == "cuda":
+        graphs.program = _strict(graphs.program)
+    for p0 in range(0, len(tenant or []), chunk):
+        eager_run(state, 0, tenant[p0:p0 + chunk], p0)
+    eager = copy(state)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graphs.capture(prefill_start_keys(chunk, cap, model.max_cache_len))
+    capture_s = time.perf_counter() - t0
+    chunks = [(p0, ids[p0:p0 + chunk]) for p0 in range(0, len(ids), chunk)]
+    results = []
+    for p0, part in chunks:
+        got = graphs.run(slot, part, p0).clone()
+        want = eager_run(eager, slot, part, p0)
+        results.append({"key": graphs.key(len(part), p0),
+                        "logits_equal": torch.equal(got, want),
+                        "max_logit_diff": (got - want).abs().max().item()})
+    if kv_blocks:
+        a = [t[:-1] for pl in state[0] for t in pl.values()]
+        b = [t[:-1] for pl in eager[0] for t in pl.values()]
+        a += [t for rl in state[1] for t in rl.values()] + [state[2]]
+        b += [t for rl in eager[1] for t in rl.values()] + [eager[2]]
+    else:
+        a = [t for lc in state for t in lc.values()]
+        b = [t for lc in eager for t in lc.values()]
+    kv_equal = all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def graph_chunk(i):
+        p0, part = chunks[i]
+        return lambda: graphs.run(slot, part, p0)
+
+    def eager_chunk(i):
+        p0, part = chunks[i]
+        return lambda: eager_run(eager, slot, part, p0)
+    return PrefillCase(graphs, chunks, results, kv_equal, capture_s,
+                       graph_chunk, eager_chunk)

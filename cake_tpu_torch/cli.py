@@ -2,7 +2,7 @@
 
     python -m cake_tpu_torch.cli serve (MODEL | --flagship) [--arch A]
         [--dtype D] [--seed N] [--port P] [--cpu] [--prefix-cache-mb MB]
-        [--kv-blocks N] [--kv-block-tokens T]
+        [--kv-blocks N] [--kv-block-tokens T] [--preempt-mode M]
     python -m cake_tpu_torch.cli run (MODEL | --flagship) "prompt"
         [--max-tokens N] [--temperature T] [--seed N]
 
@@ -13,7 +13,10 @@ architecture. `--flagship` is the other choice: the Qwen3-0.6B shape with
 seeded random weights and the byte tokenizer; `--layers` cuts its depth.
 The model runs on `cuda` unless `--cpu` is given. `serve` keeps the
 reference's defaults: the shared-prefix cache on at 256 MB, and a
-contiguous KV pool unless `--kv-blocks` asks for a paged one. `--seed`
+contiguous KV pool unless `--kv-blocks` asks for a paged one, whose
+victims under pressure are swapped to host memory or, with
+`--preempt-mode recompute`, replayed at resume (default: the
+CAKE_PREEMPT_MODE environment variable, else "swap"). `--seed`
 seeds the sampling keys (serve: one key per admission; run: the
 request's) and the flagship's weights. `run` decodes through generate's
 captured chunks of 16 steps.
@@ -23,6 +26,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import logging
+import os
 import signal
 import sys
 import threading
@@ -33,7 +37,8 @@ from .models.common.text_model import TextModel
 from .ops.sampling import SamplingConfig
 from .serve.engine import (DEFAULT_CHUNK, DEFAULT_CTX,
                            DEFAULT_KV_BLOCK_TOKENS, DEFAULT_PREFIX_CACHE_MB,
-                           DEFAULT_QUEUE, DEFAULT_SLOTS, ServeEngine)
+                           DEFAULT_QUEUE, DEFAULT_SLOTS, PREEMPT_MODES,
+                           ServeEngine)
 from .tokenizer import ByteTokenizer
 
 
@@ -86,7 +91,8 @@ def build_server(args):
                          prefill_chunk=args.prefill_chunk,
                          prefix_cache_mb=args.prefix_cache_mb,
                          kv_blocks=args.kv_blocks,
-                         kv_block_tokens=args.kv_block_tokens)
+                         kv_block_tokens=args.kv_block_tokens,
+                         preempt_mode=args.preempt_mode)
     return create_app(model, engine, tokenizer, args.host, args.port,
                       model_id=model_id)
 
@@ -140,6 +146,9 @@ def parser() -> argparse.ArgumentParser:
     s.add_argument("--kv-block-tokens", type=int,
                    default=DEFAULT_KV_BLOCK_TOKENS,
                    help="tokens per paged KV block")
+    s.add_argument("--preempt-mode", choices=PREEMPT_MODES,
+                   default=os.environ.get("CAKE_PREEMPT_MODE", "swap"),
+                   help="how a paged pool under pressure parks a victim")
     s.set_defaults(fn=cmd_serve)
     r = sub.add_parser("run", help="generate once from a chat prompt")
     _model_args(r)

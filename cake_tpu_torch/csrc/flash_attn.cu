@@ -75,6 +75,14 @@
 //     Q per 8 keys and were no faster (bench/flash_variants.py); at
 //     Gemma-3-1B's width the grid is smaller than the card, so more rows
 //     per CTA would only lengthen each CTA's chain.
+//  6. Placement on the card. Each CTA computes its own tile range, so the
+//     query offset and valid length can come from device memory: the
+//     entry's `meta` form reads {row, q_offset, valid_len} there, and in
+//     append mode the K/V maps cover a whole pool of rows and the row
+//     becomes the TMA batch coordinate. A captured prefill graph replays
+//     with new values that way; the host-int form is the same kernel with
+//     meta null. The cluster split stays a launch parameter, fixed by the
+//     plan when the graph is captured (ops/flash.py: static_plan).
 //
 // Tile range (mirrors F32FlashPlan in ops/flash.py, whose CPU tests check
 // that it covers every visible pair of every packed row): tiles wholly
@@ -149,7 +157,29 @@ struct Params {
   int sq, group, causal, window, q_offset, kv_len;
   int split;          // CTAs (a cluster) per row group: 1 or 2
   float scale_log2;   // scale * log2(e)
+  // The device-meta form: {row, q_offset, valid_len} read from device
+  // memory by every CTA, so that a captured graph replays a new chunk.
+  // nullptr: q_offset and kv_len above. meta_row: K/V are a pool whose
+  // batch row meta[0] + b is the one to read (append over a slot pool).
+  const int* meta;
+  int meta_row, skv;
 };
+
+// The chunk's placement, from the host ints or from device memory, and
+// the K/V batch coordinate of query batch b.
+struct Placement {
+  int q_offset, kv_len, kvb;
+};
+
+__device__ __forceinline__ Placement placement(const Params& p, int b) {
+  Placement pl{p.q_offset, p.kv_len, b};
+  if (p.meta != nullptr) {
+    pl.q_offset = p.meta[1];
+    pl.kv_len = min(pl.q_offset + p.meta[2], p.skv);
+    if (p.meta_row) pl.kvb += p.meta[0];
+  }
+  return pl;
+}
 
 // -- 3xTF32 ------------------------------------------------------------------
 
@@ -209,14 +239,16 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int nrows = p.sq * p.group;        // packed rows of this KV head
   const int first = row0 / p.group;
   const int last = min((row0 + ROWS - 1) / p.group, p.sq - 1);
+  const Placement pl = placement(p, b);
+  const int q_offset = pl.q_offset, kv_len = pl.kv_len;
 
   // tile range [lo, hi): F32FlashPlan.tile_range
-  int hi_key = p.kv_len;
-  if (p.causal) hi_key = min(hi_key, p.q_offset + last + 1);
+  int hi_key = kv_len;
+  if (p.causal) hi_key = min(hi_key, q_offset + last + 1);
   const int hi = hi_key > 0 ? (hi_key + L::BK - 1) / L::BK : 0;
   int lo = 0;
   if (p.window > 0) {
-    const int start = p.q_offset + first - p.window + 1;
+    const int start = q_offset + first - p.window + 1;
     lo = start > 0 ? start / L::BK : 0;
   }
   const int ntiles = hi - lo;
@@ -237,7 +269,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     if (lane == 0) mbar_expect_tx(bar, L::TILE_BYTES);
     if (lane < L::BOXES)
       tma_load_4d(dst + lane * L::BOX_BYTES, n % 2 ? &tm_v : &tm_k, bar,
-                  32 * lane, kvh, (lo + j) * L::BK, b);
+                  32 * lane, kvh, (lo + j) * L::BK, pl.kvb);
   };
   auto wait = [&](int n) {
     mbar_wait(bars + 8u * (n % L::NSLOT), (n / L::NSLOT) & 1);
@@ -302,7 +334,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   int qpos[2];   // positions of this thread's rows g and g + 8
 #pragma unroll
   for (int h = 0; h < 2; ++h)
-    qpos[h] = p.q_offset + (row0 + g + 8 * h) / p.group;
+    qpos[h] = q_offset + (row0 + g + 8 * h) / p.group;
 
   float o[L::NT_O][4];
 #pragma unroll
@@ -366,16 +398,16 @@ __global__ void __launch_bounds__(THREADS, 1)
     // masks, only on tiles that cross the diagonal, window or limit
     // (F32FlashPlan.tile_masked); element e of n-tile n is row g + 8(e/2),
     // key k0 + 8n + 2t + e%2
-    const bool full = k0 + L::BK <= p.kv_len &&
-                      (!p.causal || k0 + L::BK - 1 <= p.q_offset + first) &&
-                      (p.window <= 0 || k0 > p.q_offset + last - p.window);
+    const bool full = k0 + L::BK <= kv_len &&
+                      (!p.causal || k0 + L::BK - 1 <= q_offset + first) &&
+                      (p.window <= 0 || k0 > q_offset + last - p.window);
     if (!full) {
 #pragma unroll
       for (int n = 0; n < L::NT_S; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int kp = k0 + 8 * n + 2 * t + (e & 1), qp = qpos[e >> 1];
-          const bool vis = kp < p.kv_len && (!p.causal || kp <= qp) &&
+          const bool vis = kp < kv_len && (!p.causal || kp <= qp) &&
                            (p.window <= 0 || kp > qp - p.window);
           if (!vis) sc[n][e] = kNeg;
         }
@@ -586,7 +618,7 @@ constexpr int kErrNoEncoder = 20000;
 constexpr int kErrEncode = 30000;
 
 template <int D>
-int launch(const void* k, const void* v, int skv, int hkv, int batch,
+int launch(const void* k, const void* v, int skv, int hkv, int kv_batch,
            const long long (&kv_strides)[6], const Params& p, dim3 grid,
            int rows, int threads, int smem_bytes, cudaStream_t stream) {
   using L = Layout<D>;
@@ -595,10 +627,10 @@ int launch(const void* k, const void* v, int skv, int hkv, int batch,
       p.split < 1 || p.split > MAX_SPLIT)
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tm_k, tm_v;
-  CUresult r = encode(&tm_k, k, D, hkv, skv, batch, kv_strides[0],
+  CUresult r = encode(&tm_k, k, D, hkv, skv, kv_batch, kv_strides[0],
                       kv_strides[1], kv_strides[2], L::BK);
   if (r == CUDA_SUCCESS)
-    r = encode(&tm_v, v, D, hkv, skv, batch, kv_strides[3], kv_strides[4],
+    r = encode(&tm_v, v, D, hkv, skv, kv_batch, kv_strides[3], kv_strides[4],
                kv_strides[5], L::BK);
   if (r != CUDA_SUCCESS) return kErrEncode + static_cast<int>(r);
   // once per instantiation, not on every launch
@@ -632,8 +664,11 @@ int launch(const void* k, const void* v, int skv, int hkv, int batch,
 // 16-byte loads and stores for q and o); rows is the number of packed rows
 // per CTA, split the CTAs (a cluster) that share a row group's tiles (1
 // or 2), threads and smem_bytes the plan's (F32FlashPlan); kv_len =
-// min(q_offset + valid_len, skv); window <= 0 means none. Returns 0 on
-// success.
+// min(q_offset + valid_len, skv); window <= 0 means none. meta, when not
+// null, is a device int32[3] {row, q_offset, valid_len} that the kernel
+// reads in place of q_offset and kv_len (the form a captured graph
+// replays); with meta_row, query batch b reads K/V batch row meta[0] + b
+// of kv_batch rows, else K/V have q's batch. Returns 0 on success.
 extern "C" int cake_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int batch, int sq,
     int skv, int hq, int hkv, int d, long long q_sh, long long q_ss,
@@ -641,9 +676,10 @@ extern "C" int cake_flash_attention_fwd(
     long long v_sh, long long v_ss, long long v_sb, long long o_sh,
     long long o_ss, long long o_sb, int rows, int split, int threads,
     int smem_bytes, float scale_log2, int causal, int window, int q_offset,
-    int kv_len, void* stream) {
+    int kv_len, const void* meta, int meta_row, int kv_batch, void* stream) {
   if (batch <= 0 || sq <= 0 || skv <= 0 || hq <= 0 || hkv <= 0 || hq % hkv ||
-      rows <= 0 || split <= 0)
+      rows <= 0 || split <= 0 || kv_batch < batch ||
+      (kv_batch != batch && !(meta && meta_row)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (encode_tiled() == nullptr) return kErrNoEncoder;
   Params p;
@@ -663,18 +699,21 @@ extern "C" int cake_flash_attention_fwd(
   p.kv_len = kv_len;
   p.split = split;
   p.scale_log2 = scale_log2;
+  p.meta = static_cast<const int*>(meta);
+  p.meta_row = meta_row;
+  p.skv = skv;
   const long long kv_strides[6] = {k_sh, k_ss, k_sb, v_sh, v_ss, v_sb};
   const dim3 grid((sq * p.group + rows - 1) / rows * split, hkv, batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {   // each head dimension its own instantiation; no other
     case 64:
-      return launch<64>(k, v, skv, hkv, batch, kv_strides, p, grid, rows,
+      return launch<64>(k, v, skv, hkv, kv_batch, kv_strides, p, grid, rows,
                         threads, smem_bytes, s);
     case 128:
-      return launch<128>(k, v, skv, hkv, batch, kv_strides, p, grid, rows,
+      return launch<128>(k, v, skv, hkv, kv_batch, kv_strides, p, grid, rows,
                          threads, smem_bytes, s);
     case 256:
-      return launch<256>(k, v, skv, hkv, batch, kv_strides, p, grid, rows,
+      return launch<256>(k, v, skv, hkv, kv_batch, kv_strides, p, grid, rows,
                          threads, smem_bytes, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);

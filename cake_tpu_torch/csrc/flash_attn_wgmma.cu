@@ -58,6 +58,13 @@
 //  5. One-time set-up: the shared-memory attribute is set once per
 //     instantiation (a function-local static), not on every launch. The
 //     tensor maps are encoded per call on the host (a few hundred ns).
+//  6. Placement on the card. The grid depends on Sq and the heads only, and
+//     every CTA computes its own tile range, so the query offset and valid
+//     length can come from device memory: the entry's `meta` form reads
+//     {row, q_offset, valid_len} there, and in append mode the K/V maps
+//     cover a whole pool of rows and the row becomes the TMA batch
+//     coordinate. A captured prefill graph replays with new values that
+//     way; the host-int form is the same kernel with meta null.
 //
 // Tile range (mirrors FlashPlan in ops/flash.py, whose CPU tests check that
 // it covers every visible pair): tiles wholly above the diagonal, below the
@@ -127,7 +134,29 @@ struct Params {
   int sq, group, positions;   // positions: query indices per CTA (BM / G)
   int causal, window, q_offset, kv_len;
   float scale_log2;           // scale * log2(e)
+  // The device-meta form: {row, q_offset, valid_len} read from device
+  // memory by every CTA, so that a captured graph replays a new chunk.
+  // nullptr: q_offset and kv_len above. meta_row: K/V are a pool whose
+  // batch row meta[0] + b is the one to read (append over a slot pool).
+  const int* meta;
+  int meta_row, skv;
 };
+
+// The chunk's placement, from the host ints or from device memory, and
+// the K/V batch coordinate of query batch b.
+struct Placement {
+  int q_offset, kv_len, kvb;
+};
+
+__device__ __forceinline__ Placement placement(const Params& p, int b) {
+  Placement pl{p.q_offset, p.kv_len, b};
+  if (p.meta != nullptr) {
+    pl.q_offset = p.meta[1];
+    pl.kv_len = min(pl.q_offset + p.meta[2], p.skv);
+    if (p.meta_row) pl.kvb += p.meta[0];
+  }
+  return pl;
+}
 
 // -- PTX wrappers ------------------------------------------------------------
 
@@ -244,14 +273,16 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
   const int pos0 = blockIdx.x * p.positions;   // first query index
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int last = min(pos0 + p.positions, p.sq) - 1;
+  const Placement pl = placement(p, b);
+  const int q_offset = pl.q_offset, kv_len = pl.kv_len;
 
   // tile range [lo, hi): FlashPlan.tile_range
-  int hi_key = p.kv_len;
-  if (p.causal) hi_key = min(hi_key, p.q_offset + last + 1);
+  int hi_key = kv_len;
+  if (p.causal) hi_key = min(hi_key, q_offset + last + 1);
   const int hi = hi_key > 0 ? (hi_key + BN - 1) / BN : 0;
   int lo = 0;
   if (p.window > 0) {
-    const int first = p.q_offset + pos0 - p.window + 1;
+    const int first = q_offset + pos0 - p.window + 1;
     lo = first > 0 ? first / BN : 0;
   }
 
@@ -283,11 +314,11 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
         mbar_expect_tx(k_full(stage), L::KV_BYTES);
         for (int h = 0; h < L::HALVES; ++h)
           tma_load_4d(k_dst + h * L::KV_HALF, &tm_k, k_full(stage), 64 * h,
-                      kvh, kt * BN, b);
+                      kvh, kt * BN, pl.kvb);
         mbar_expect_tx(v_full(stage), L::KV_BYTES);
         for (int h = 0; h < L::HALVES; ++h)
           tma_load_4d(v_dst + h * L::KV_HALF, &tm_v, v_full(stage), 64 * h,
-                      kvh, kt * BN, b);
+                      kvh, kt * BN, pl.kvb);
         if (++stage == NSTAGE) {
           stage = 0;
           phase ^= 1u;
@@ -306,7 +337,7 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
   int qpos[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h)
-    qpos[h] = p.q_offset + pos0 + (16 * warp + g8 + 8 * h) / p.group;
+    qpos[h] = q_offset + pos0 + (16 * warp + g8 + 8 * h) / p.group;
 
   float o[L::HALVES][32];
 #pragma unroll
@@ -341,9 +372,9 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
 
     // masks, only on tiles that cross the diagonal, window or limit
     // (FlashPlan.tile_masked)
-    const bool full = k0 + BN <= p.kv_len &&
-                      (!p.causal || k0 + BN - 1 <= p.q_offset + pos0) &&
-                      (p.window <= 0 || k0 > p.q_offset + last - p.window);
+    const bool full = k0 + BN <= kv_len &&
+                      (!p.causal || k0 + BN - 1 <= q_offset + pos0) &&
+                      (p.window <= 0 || k0 > q_offset + last - p.window);
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] *= p.scale_log2;
     if (!full) {
@@ -351,7 +382,7 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
       for (int i = 0; i < 32; ++i) {
         const int kp = k0 + 8 * (i / 4) + 2 * t4 + (i & 1);
         const int qp = qpos[(i >> 1) & 1];
-        const bool vis = kp < p.kv_len && (!p.causal || kp <= qp) &&
+        const bool vis = kp < kv_len && (!p.causal || kp <= qp) &&
                          (p.window <= 0 || kp > qp - p.window);
         if (!vis) s[i] = kNeg;
       }
@@ -518,7 +549,11 @@ constexpr int kErrEncode = 30000;
 // bf16 only. Strides are in BYTES, in the order (head, seq, batch) for each
 // of q, k, v, o, and every one a multiple of 16 (TMA); positions is the
 // number of query indices per CTA (64 / group); kv_len = min(q_offset +
-// valid_len, skv); window <= 0 means none. Returns 0 on success.
+// valid_len, skv); window <= 0 means none. meta, when not null, is a
+// device int32[3] {row, q_offset, valid_len} that the kernel reads in
+// place of q_offset and kv_len (the form a captured graph replays); with
+// meta_row, query batch b reads K/V batch row meta[0] + b of kv_batch
+// rows, else K/V have q's batch. Returns 0 on success.
 extern "C" int cake_flash_wgmma_fwd(
     const void* q, const void* k, const void* v, void* o, int batch, int sq,
     int skv, int hq, int hkv, int d, long long q_sh, long long q_ss,
@@ -526,9 +561,10 @@ extern "C" int cake_flash_wgmma_fwd(
     long long v_sh, long long v_ss, long long v_sb, long long o_sh,
     long long o_ss, long long o_sb, int positions, int threads,
     int smem_bytes, float scale_log2, int causal, int window, int q_offset,
-    int kv_len, void* stream) {
+    int kv_len, const void* meta, int meta_row, int kv_batch, void* stream) {
   if (batch <= 0 || sq <= 0 || skv <= 0 || hq <= 0 || hkv <= 0 ||
-      hq % hkv || positions <= 0 || positions * (hq / hkv) > BM)
+      hq % hkv || positions <= 0 || positions * (hq / hkv) > BM ||
+      kv_batch < batch || (kv_batch != batch && !(meta && meta_row)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (encode_tiled() == nullptr) return kErrNoEncoder;
   const int group = hq / hkv;
@@ -536,9 +572,9 @@ extern "C" int cake_flash_wgmma_fwd(
   CUresult r = encode(&maps[0], q, d, hq, sq, batch, q_sh, q_ss, q_sb, group,
                       positions);
   if (r == CUDA_SUCCESS)
-    r = encode(&maps[1], k, d, hkv, skv, batch, k_sh, k_ss, k_sb, 1, BN);
+    r = encode(&maps[1], k, d, hkv, skv, kv_batch, k_sh, k_ss, k_sb, 1, BN);
   if (r == CUDA_SUCCESS)
-    r = encode(&maps[2], v, d, hkv, skv, batch, v_sh, v_ss, v_sb, 1, BN);
+    r = encode(&maps[2], v, d, hkv, skv, kv_batch, v_sh, v_ss, v_sb, 1, BN);
   if (r == CUDA_SUCCESS)
     r = encode(&maps[3], o, d, hq, sq, batch, o_sh, o_ss, o_sb, group,
                positions);
@@ -552,6 +588,9 @@ extern "C" int cake_flash_wgmma_fwd(
   p.q_offset = q_offset;
   p.kv_len = kv_len;
   p.scale_log2 = scale_log2;
+  p.meta = static_cast<const int*>(meta);
+  p.meta_row = meta_row;
+  p.skv = skv;
   const dim3 grid((sq + positions - 1) / positions, hkv, batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {   // each head dimension its own instantiation; no other

@@ -40,18 +40,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq_len: int,
 
 
 def update_kv_cache(layer_cache: dict, k_new: torch.Tensor,
-                    v_new: torch.Tensor, pos, valid_len=None) -> dict:
+                    v_new: torch.Tensor, pos, valid_len=None,
+                    row: torch.Tensor | None = None) -> dict:
     """Write S new entries at absolute positions pos .. pos+S-1 (ring
     index = position % size), in place.
 
     Prefill: `pos` and `valid_len` are host ints; entries at index >=
     valid_len are padding and are not written; when S exceeds a ring's
     size only the last `size` valid entries land.
+    Traced prefill (a captured graph's): `pos` and `valid_len` are 0-d
+    device tensors and the batch-1 chunk lands in row `row` (a [1] device
+    index), the same entries as the host-int form, with no host
+    synchronisation (`_update_traced`).
     Batched decode: S == 1, `pos` is a [B] tensor of per-row positions and
     `valid_len` a [B] tensor of 0/1 — a row with 0 keeps its old entry
     (it is not stepping), with no host synchronisation."""
     kc, vc, pc = layer_cache["k"], layer_cache["v"], layer_cache["pos"]
     size = kc.shape[1]
+    if torch.is_tensor(pos) and pos.dim() == 0:
+        return _update_traced(layer_cache, k_new, v_new, pos, valid_len, row)
     if torch.is_tensor(pos):
         if k_new.shape[1] != 1:
             raise ValueError("per-row positions take one new entry per row")
@@ -76,6 +83,36 @@ def update_kv_cache(layer_cache: dict, k_new: torch.Tensor,
     kc[:, slots] = k_new[:, start:n]
     vc[:, slots] = v_new[:, start:n]
     pc[:, slots] = positions.to(pc.dtype)[None, :]
+    return layer_cache
+
+
+def _update_traced(layer_cache: dict, k_new: torch.Tensor,
+                   v_new: torch.Tensor, pos: torch.Tensor,
+                   valid_len: torch.Tensor, row: torch.Tensor) -> dict:
+    """update_kv_cache of a batch-1 chunk at a device position (after the
+    reference's traced form, cache.py:59-95). A ring narrower than the
+    chunk takes the `size` entries from clip(valid_len - size, 0, S -
+    size) by index_select. The W target slots are consecutive positions
+    modulo the buffer, so they are distinct; an entry at or past valid_len
+    writes back the old bytes of its own slot, in place of the
+    reference's dropped write, so no index repeats in one index_put."""
+    kc, vc, pc = layer_cache["k"], layer_cache["v"], layer_cache["pos"]
+    size, s = kc.shape[1], k_new.shape[1]
+    idx = torch.arange(min(s, size), device=kc.device)
+    if s > size:
+        idx = idx + torch.clamp(valid_len - size, 0, s - size)
+        k_new = k_new.index_select(1, idx)
+        v_new = v_new.index_select(1, idx)
+    positions = pos + idx
+    slots = positions % size
+    rows = row.long()
+    write = idx < valid_len
+    kc.index_put_((rows, slots), torch.where(write[:, None, None], k_new[0],
+                                             kc[rows, slots]))
+    vc.index_put_((rows, slots), torch.where(write[:, None, None], v_new[0],
+                                             vc[rows, slots]))
+    pc.index_put_((rows, slots), torch.where(write, positions.to(pc.dtype),
+                                             pc[rows, slots]))
     return layer_cache
 
 

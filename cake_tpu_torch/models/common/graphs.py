@@ -1,6 +1,7 @@
-"""Captured decode programs (counterpart of the reference's compiled
-decode programs: text_model.py `_decode_slots`, `_decode_slots_paged` and
-`generate`'s `_decode_chunk`).
+"""Captured decode and prefill programs (counterpart of the reference's
+compiled programs: text_model.py `_decode_slots`, `_decode_slots_paged`,
+`generate`'s `_decode_chunk`, and the per-bucket prefill programs
+`_prefill_slot` / `_prefill_slot_paged`).
 
 The reference jits its decode step, so the host issues one program per
 step. The port's step is hundreds of small torch ops per layer; issued
@@ -22,8 +23,11 @@ row inactive, so that every lazy first-use call (kernel library loads,
 the paged kernel's shared-memory attribute, cuBLAS handles) happens
 outside the capture and nothing is written: an inactive row keeps its
 contiguous KV entry and writes the paged pool's sink. Then one step is
-captured into a private memory pool. There is no fallback: a capture or
-replay error goes up to the caller.
+captured into a private memory pool, with Python's garbage collector run
+first and held off during the capture: a dead graph that the collector
+destroyed in mid-capture would free its graph there, which CUDA refuses
+while a stream captures (and the capture is lost). There is no fallback:
+a capture or replay error goes up to the caller.
 
 Launch counts: the kernel wrappers count in Python, where they launch.
 The capture runs them once without launching anything, so DecodeGraph
@@ -32,9 +36,21 @@ keep meaning launches on the device.
 
 On CPU tensors `step()` calls the step itself on the same buffers: the
 eager step is the parity reference.
+
+Prefill: `PrefillGraphs` keeps one `PrefillGraph` per (bucket, flash
+mode) of one pool (contiguous or paged), the counterpart of the
+reference's one executable per (chunk bucket, flash mode). Every graph of
+the set reads one `PrefillIO`: the chunk's {slot, pos0, valid_len} and
+tokens in one int32 buffer, which the host fills with one copy before a
+replay (from pinned memory on a card), and the logits buffer the program
+writes. A graph's warm-up runs with valid_len 0, so it writes no KV byte,
+position or table entry. The set's graphs share one private memory pool
+(only one runs at a time), apart from the decode graph's.
 """
 from __future__ import annotations
 
+import functools
+import gc
 from dataclasses import dataclass, fields
 from typing import Callable
 
@@ -124,16 +140,19 @@ def _add(cells, delta: list[int], sign: int = 1) -> None:
 class DecodeGraph:
     """One decode program: `step_fn()` writes its results into the
     buffers it closes over. On a CUDA device it is captured at
-    construction and `step()` replays it; on the CPU `step()` calls it."""
+    construction and `step()` replays it; on the CPU `step()` calls it.
+    `pool`: a memory pool handle to share with other graphs (None: a
+    private pool of its own)."""
 
     def __init__(self, step_fn: Callable[[], None], device,
-                 warmup: int = WARMUP):
+                 warmup: int = WARMUP, pool=None):
         self.step_fn = step_fn
         self.device = torch.device(device)
         self.graph: torch.cuda.CUDAGraph | None = None
         self.steps = 0          # step() calls: replays on a card
         self._cells = _launch_cells()
         self._delta = [0] * len(self._cells)
+        self._pool = pool
         if self.device.type == "cuda":
             self._capture(warmup)
 
@@ -147,9 +166,17 @@ class DecodeGraph:
         torch.cuda.current_stream(dev).wait_stream(side)
         before = _read(self._cells)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.device(dev), torch.cuda.graph(
-                graph, capture_error_mode="thread_local"):
-            self.step_fn()
+        gc.collect()
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.device(dev), torch.cuda.graph(
+                    graph, pool=self._pool,
+                    capture_error_mode="thread_local"):
+                self.step_fn()
+        finally:
+            if enabled:
+                gc.enable()
         self._delta = [a - b for a, b in zip(_read(self._cells), before)]
         _add(self._cells, self._delta, -1)      # the capture launched none
         self.graph = graph
@@ -166,3 +193,104 @@ class DecodeGraph:
             self.graph.replay()
             _add(self._cells, self._delta)
         self.steps += 1
+
+
+@dataclass
+class PrefillIO:
+    """The fixed buffers of a pool's prefill programs. `io`: int32 [3 +
+    width], the chunk's meta {slot, pos0, valid_len} and then its tokens,
+    right-padded with 0; `logits`: [1, V] float32, the logits of the
+    chunk's last valid position."""
+    io: torch.Tensor
+    logits: torch.Tensor
+
+    @classmethod
+    def build(cls, width: int, vocab: int, device) -> "PrefillIO":
+        return cls(io=torch.zeros(3 + width, dtype=torch.int32, device=device),
+                   logits=torch.zeros((1, vocab), dtype=torch.float32,
+                                      device=device))
+
+    @property
+    def meta(self) -> torch.Tensor:
+        """int32 [3] {slot, pos0, valid_len}."""
+        return self.io[:3]
+
+    def tokens(self, bucket: int) -> torch.Tensor:
+        """[1, bucket] int32: the chunk's tokens."""
+        return self.io[3:3 + bucket][None]
+
+    def load(self, slot: int, pos0: int, ids) -> None:
+        """Write a chunk's meta and tokens in place, in one copy (from
+        pinned memory, without a host sync, on a card)."""
+        ids = [int(t) for t in ids]
+        width = self.io.shape[0] - 3
+        if len(ids) > width:
+            raise ValueError(f"chunk of {len(ids)} tokens exceeds the "
+                             f"prefill buffer's {width}")
+        cuda = self.io.device.type == "cuda"
+        host = torch.tensor([slot, pos0, len(ids)] + ids
+                            + [0] * (width - len(ids)), dtype=torch.int32,
+                            pin_memory=cuda)
+        self.io.copy_(host, non_blocking=cuda)
+
+    def tensors(self) -> dict[str, torch.Tensor]:
+        return {"io": self.io, "logits": self.logits}
+
+
+class PrefillGraph(DecodeGraph):
+    """One prefill program, `run()`, which reads `io` and writes the KV and
+    io.logits in place: captured at construction on a CUDA device (after
+    WARMUP side-stream runs with valid_len 0, which write nothing), called
+    by step() on the CPU."""
+
+    def __init__(self, run: Callable[[], None], io: PrefillIO, device,
+                 pool=None, warmup: int = WARMUP):
+        io.meta.zero_()             # slot 0, pos0 0, valid_len 0
+        super().__init__(run, device, warmup, pool)
+
+
+class PrefillGraphs:
+    """Every prefill program of one pool: a PrefillGraph per (bucket, flash
+    mode), built by `capture(keys)` or at a key's first use, all reading
+    one PrefillIO and sharing one memory pool on a card. `program(io,
+    bucket, mode)` is the pool's in-place prefill; `key(n, pos0)` names
+    the program of an n-token chunk at pos0 (text_model.prefill_key). A
+    capture or replay error goes up to the caller: there is no eager
+    fallback on a card."""
+
+    def __init__(self, program: Callable, key: Callable, width: int,
+                 vocab: int, device):
+        self.program = program
+        self.key = key
+        self.device = torch.device(device)
+        self.io = PrefillIO.build(width, vocab, self.device)
+        self.pool = (torch.cuda.graph_pool_handle()
+                     if self.device.type == "cuda" else None)
+        self.graphs: dict[tuple[int, str], PrefillGraph] = {}
+
+    def graph(self, key: tuple[int, str]) -> PrefillGraph:
+        g = self.graphs.get(key)
+        if g is None:
+            # bound to the program and buffers, not to this set, so that a
+            # dropped set is freed at once (no reference cycle)
+            g = PrefillGraph(functools.partial(self.program, self.io, *key),
+                             self.io, self.device, self.pool)
+            self.graphs[key] = g
+        return g
+
+    def capture(self, keys) -> None:
+        for key in keys:
+            self.graph(key)
+
+    def run(self, slot: int, ids, pos0: int) -> torch.Tensor:
+        """Prefill one chunk of `ids` into `slot` at pos0 by replaying its
+        program; returns io.logits (overwritten by the next chunk)."""
+        g = self.graph(self.key(len(ids), pos0))
+        self.io.load(slot, pos0, ids)
+        g.step()
+        return self.io.logits
+
+    @property
+    def replays(self) -> int:
+        """step() calls over every graph of the set."""
+        return sum(g.steps for g in self.graphs.values())

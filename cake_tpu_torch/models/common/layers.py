@@ -6,15 +6,22 @@ Parameters are nested dicts of tensors with the reference's keys
 carries across one to one (utils/weights.py). Forwards are plain
 functions closed over the static ModelConfig/LayerSpec.
 
-Positions: `pos0` is a host int for prefill (one sequence), or a [B]
-tensor of per-row positions for the batched one-token decode step, where
-`valid_len` is then a [B] 0/1 tensor (a 0 row writes nothing).
+Positions: `pos0` is a host int for prefill (one sequence), a 0-d
+device tensor for the traced prefill that a captured graph replays (with
+`valid_len` a 0-d tensor too), or a [B] tensor of per-row positions for
+the batched one-token decode step, where `valid_len` is then a [B] 0/1
+tensor (a 0 row writes nothing).
 
 A layer cache is either a contiguous row cache {k, v, pos} or, in the
 paged decode step, a layer's block pool with the step's block tables
-{k, v, pos, tables} (see cache.init_paged_layers).
+{k, v, pos, tables} (see cache.init_paged_layers). In the traced prefill
+it also carries "meta", the chunk's device int32 [3] {row, pos0,
+valid_len}: the chunk's row of the cache's batch axis is meta[0], read
+on the card (a slot of the pool, or 0 for a batch-1 view).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -102,11 +109,22 @@ def make_rope(cfg: ModelConfig, device) -> dict:
 
 
 def _positions(pos0, s: int, device) -> torch.Tensor:
-    """[S] positions for a host int pos0, [B, S] for a [B] tensor."""
+    """[S] positions for a host int or 0-d tensor pos0, [B, S] for a [B]
+    tensor."""
     ar = torch.arange(s, device=device)
-    if torch.is_tensor(pos0):
+    if torch.is_tensor(pos0) and pos0.dim():
         return pos0.long()[:, None] + ar[None, :]
     return pos0 + ar
+
+
+def _chunk_row(layer_cache: dict, name: str) -> torch.Tensor:
+    """The batch-1 row a prefill chunk attends over: the buffer itself when
+    it is batch 1 (an eager row view, a paged view), else row meta[0] of
+    a traced prefill's pool, taken on the card."""
+    buf = layer_cache[name]
+    if buf.shape[0] == 1:
+        return buf
+    return buf.index_select(0, layer_cache["meta"][:1].long())
 
 
 def attention_forward(cfg: ModelConfig, spec: LayerSpec, p: dict,
@@ -119,7 +137,12 @@ def attention_forward(cfg: ModelConfig, spec: LayerSpec, p: dict,
     causal over the in-pass K/V, window included) or "append" mode
     (scatter the chunk into the unwrapped cache row, then flash over the
     row with q_offset = pos0). On a CPU tensor the flash wrapper computes
-    its plain version, so the CPU walks the same branch as the card."""
+    its plain version, so the CPU walks the same branch as the card.
+
+    A traced prefill (layer_cache["meta"] present) takes the same branches
+    with nothing read on the host: flash in its device-meta form (append
+    over the whole pool, row meta[0]), the traced cache write, and the
+    masked path over the chunk's row taken on the card."""
     b, s, _ = x.shape
     hq, hkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     scale = cfg.attn_scale
@@ -145,16 +168,29 @@ def attention_forward(cfg: ModelConfig, spec: LayerSpec, p: dict,
     use_flash = s >= flash_ops.FLASH_MIN_SEQ and (
         flash_mode == "fresh"
         or (flash_mode == "append" and spec.window is None))
+    meta = layer_cache.get("meta")
+    row = None if meta is None else meta[:1]
     if use_flash and flash_mode == "fresh":
-        y = flash_ops.flash_attention(q, k, v, scale=scale,
-                                      valid_len=valid_len,
-                                      window=spec.window)
-        update_kv_cache(layer_cache, k, v, pos0, valid_len)
+        if meta is None:
+            y = flash_ops.flash_attention(q, k, v, scale=scale,
+                                          valid_len=valid_len,
+                                          window=spec.window, mode="fresh")
+        else:
+            y = flash_ops.flash_attention_meta(q, k, v, meta, "fresh",
+                                               scale=scale,
+                                               window=spec.window)
+        update_kv_cache(layer_cache, k, v, pos0, valid_len, row)
     elif use_flash:
-        update_kv_cache(layer_cache, k, v, pos0, valid_len)
-        y = flash_ops.flash_attention(q, layer_cache["k"], layer_cache["v"],
-                                      scale=scale, valid_len=valid_len,
-                                      q_offset=pos0)
+        update_kv_cache(layer_cache, k, v, pos0, valid_len, row)
+        if meta is None:
+            y = flash_ops.flash_attention(q, layer_cache["k"],
+                                          layer_cache["v"], scale=scale,
+                                          valid_len=valid_len, q_offset=pos0,
+                                          mode="append")
+        else:
+            y = flash_ops.flash_attention_meta(q, layer_cache["k"],
+                                               layer_cache["v"], meta,
+                                               "append", scale=scale)
     elif s == 1 and "tables" in layer_cache:
         # paged decode: write the new entry into its block, then attend
         # over the row's live blocks through the table (the kernel on the
@@ -179,19 +215,20 @@ def attention_forward(cfg: ModelConfig, spec: LayerSpec, p: dict,
                                  scale)
     else:
         # a chunk too short for flash: attend over [cache ; chunk]; pad
-        # keys (index >= valid_len) are invisible
+        # keys (index >= valid_len, a host int or a 0-d tensor) are
+        # invisible
+        ck, cv, cp = (_chunk_row(layer_cache, n) for n in ("k", "v", "pos"))
         kv_pos_new = positions
         if valid_len is not None:
             kv_pos_new = torch.where(torch.arange(s, device=x.device)
-                                     < int(valid_len), positions, -1)
-        kv_pos = torch.cat([layer_cache["pos"], kv_pos_new.to(
-            layer_cache["pos"].dtype)[None, :].expand(b, s)], 1)
+                                     < valid_len, positions, -1)
+        kv_pos = torch.cat([cp, kv_pos_new.to(cp.dtype)[None, :].expand(b, s)],
+                           1)
         mask = make_attention_mask(positions[None, :].expand(b, s), kv_pos,
                                    window=spec.window)
-        y = multi_head_attention(q, torch.cat([layer_cache["k"], k], 1),
-                                 torch.cat([layer_cache["v"], v], 1), mask,
-                                 scale)
-        update_kv_cache(layer_cache, k, v, pos0, valid_len)
+        y = multi_head_attention(q, torch.cat([ck, k], 1),
+                                 torch.cat([cv, v], 1), mask, scale)
+        update_kv_cache(layer_cache, k, v, pos0, valid_len, row)
     return linear(y.reshape(b, s, hq * d), p["o_proj"]["weight"]), layer_cache
 
 
@@ -261,9 +298,15 @@ def embed_tokens(cfg: ModelConfig, params: dict,
         # Gemma: the scale is rounded to the model dtype first (sqrt(1152)
         # = 33.94 is 34.0 in bf16), as the reference multiplies by
         # jnp.asarray(embed_scale, x.dtype); a host number, so that a
-        # captured decode step copies nothing to the card
-        x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype).item()
+        # captured program copies nothing to the card
+        x = x * _rounded(cfg.embed_scale, x.dtype)
     return x
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    """value rounded to dtype, as a host float."""
+    return float(torch.tensor(value, dtype=dtype))
 
 
 def lm_head_logits(cfg: ModelConfig, params: dict,

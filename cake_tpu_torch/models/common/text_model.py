@@ -7,10 +7,15 @@ row_install, row_reset, generate).
 PyTorch runs eagerly, so the reference's compiled programs become plain
 methods; the decode step also has an in-place form (decode_slots_into)
 that graphs.DecodeGraph captures as a CUDA graph on a card, and
-`generate` replays captured chunks of decode steps. Host-static
-decisions stay host-side and identical: the prompt is right-padded to a
-PREFILL_BUCKETS width, and select_flash_mode picks "fresh", "append" or
-the masked path from (pos0, width, capacity).
+`generate` replays captured chunks of decode steps. A prefill chunk has
+an in-place form too (prefill_chunk_into, prefill_chunk_paged_into: the
+reference's `_prefill_slot` / `_prefill_slot_paged`) that reads its slot,
+pos0 and valid_len from the card, so that graphs.PrefillGraph captures
+one graph per (pool, bucket, flash mode) as the reference compiles one
+executable per (bucket, flash mode). Host-static decisions stay
+host-side and identical: the prompt is right-padded to a PREFILL_BUCKETS
+width, and select_flash_mode picks "fresh", "append" or the masked path
+from (pos0, width, capacity); prefill_key names the program.
 
 The slot pool (the serve engine's KV) is one cache with a batch axis; a
 prefill chunk writes into a row view of it in place, and the batched
@@ -37,14 +42,15 @@ import torch
 from ...device import resolve_device
 from ...ops.sampling import (SamplingConfig, push_recent_token, request_key,
                              sample_traced)
+from ...ops.flash import FLASH_MIN_SEQ
 from .cache import (init_cache, init_paged_layers, kv_capacity,
                     paged_gather_layer, paged_scatter_blocks, row_view,
                     slot_extract_block_layers, slot_reset_layers,
                     slot_splice_block_layers)
 from .config import ModelConfig
-from .graphs import DecodeCarries, DecodeGraph
-from .layers import (embed_tokens, forward_layers, init_params,
-                     lm_head_logits, make_rope)
+from .graphs import DecodeCarries, DecodeGraph, PrefillGraphs, PrefillIO
+from .layers import (block_forward, embed_tokens, forward_layers,
+                     init_params, lm_head_logits, make_rope)
 
 PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
 
@@ -77,6 +83,34 @@ def check_prefill_bounds(n: int, pos0: int, capacity: int | None,
         raise ValueError(f"prefill past cache end: pos0={pos0} + {n} "
                          f"tokens > cache capacity {limit}")
     return bkt
+
+
+def prefill_key(n: int, pos0: int, capacity: int | None,
+                max_len: int) -> tuple[int, str]:
+    """(bucket, flash mode) of an n-token chunk at pos0: the in-place
+    program a captured graph runs, chosen on the host as the reference
+    chooses its executable. Below FLASH_MIN_SEQ every mode takes the
+    masked path, so those buckets have one program, "off"."""
+    bkt = check_prefill_bounds(n, pos0, capacity, max_len)
+    mode = select_flash_mode(pos0, bkt, capacity)
+    return bkt, (mode if bkt >= FLASH_MIN_SEQ else "off")
+
+
+def prefill_start_keys(chunk: int, capacity: int | None,
+                       max_len: int) -> list[tuple[int, str]]:
+    """The prefill programs an engine captures when it starts: every
+    bucket of a chunk of up to `chunk` tokens, "off" below FLASH_MIN_SEQ,
+    and from it up "fresh" and, over an unwrapped buffer, "append" (else
+    "off"). A chunk that runs past the buffer's end ("off" at a wide
+    bucket) has its program captured at first use."""
+    keys = []
+    for bkt in sorted({bucket_for(n, max_len) for n in range(1, chunk + 1)}):
+        if bkt < FLASH_MIN_SEQ:
+            keys.append((bkt, "off"))
+        else:
+            keys += [(bkt, "fresh"),
+                     (bkt, "off" if capacity is None else "append")]
+    return keys
 
 
 @dataclass
@@ -141,9 +175,46 @@ class TextModel:
         """Prefill one chunk of a prompt into pool row `slot` at pos0 (the
         row must hold exactly positions 0..pos0-1). Writes the row in
         place; returns (logits [1, V] at the chunk's last valid position,
-        layers)."""
+        layers). The eager, host-int form; the serve engine runs
+        prefill_chunk_into."""
         return self._prefill_into(row_view(layers, slot), token_ids,
                                   pos0), layers
+
+    def _last_logits(self, x: torch.Tensor, valid_len: torch.Tensor,
+                     io: PrefillIO) -> None:
+        """Logits of the chunk's last valid position, taken on the card at
+        clip(valid_len - 1), into io.logits."""
+        idx = torch.clamp(valid_len - 1, 0, x.shape[1] - 1).long().reshape(1)
+        io.logits.copy_(lm_head_logits(self.cfg, self.params,
+                                       x.index_select(1, idx))[:, 0])
+
+    @torch.no_grad()
+    def prefill_chunk_into(self, layers: list[dict], io: PrefillIO,
+                           bucket: int, mode: str) -> None:
+        """The contiguous pool's prefill program (the reference's
+        `_prefill_slot`, text_model.py:389-414): the first `bucket` tokens
+        of io into pool row meta[0] at position meta[1], meta[2] of them
+        valid, all three read on the card; the last valid position's
+        logits go to io.logits. `mode` is prefill_key's. Nothing is read
+        on the host, so graphs.PrefillGraph captures it; the row must hold
+        exactly positions 0..pos0-1, as for prefill_chunk."""
+        meta = io.meta
+        x = embed_tokens(self.cfg, self.params, io.tokens(bucket))
+        x = forward_layers(self.cfg, self.params, x,
+                           [dict(lc, meta=meta) for lc in layers], meta[1],
+                           self.rope, valid_len=meta[2], flash_mode=mode)
+        self._last_logits(x, meta[2], io)
+
+    def prefill_graphs(self, program, capacity: int | None,
+                       chunk: int) -> PrefillGraphs:
+        """The prefill programs of one pool: `program(io, bucket, mode)`
+        (prefill_chunk_into or prefill_chunk_paged_into bound to the
+        pool), chunks of up to `chunk` tokens, keyed by prefill_key over
+        the pool's unwrapped `capacity`."""
+        max_len = self.max_cache_len
+        return PrefillGraphs(
+            program, lambda n, pos0: prefill_key(n, pos0, capacity, max_len),
+            bucket_for(chunk, max_len), self.cfg.vocab_size, self.device)
 
     # -- batched decode --------------------------------------------------------
 
@@ -325,6 +396,55 @@ class TextModel:
         return logits
 
     @torch.no_grad()
+    def prefill_chunk_paged_into(self, pool: list[dict], rows: list[dict],
+                                 tables: torch.Tensor, io: PrefillIO,
+                                 bucket: int, mode: str) -> None:
+        """prefill_chunk_into over a paged pool (the reference's
+        `_prefill_slot_paged`, text_model.py:643-694): slot, pos0 and
+        valid_len are io's meta, read on the card. Layer by layer, the
+        slot's whole logical row is gathered through tables[slot] with
+        frontier pos0 (one layer's view alive at a time), the block runs
+        on it, and a STATIC window of bucket // bt + 1 table entries is
+        written back, slid to clip(pos0 // bt, 0, M - window) and masked
+        to the sink outside [pos0 // bt, last written block] (nothing at
+        valid_len 0): never a shared prefix block below pos0. A
+        sliding-window layer's ring is row `slot` of `rows`."""
+        cfg = self.cfg
+        meta = io.meta
+        pos0, vl = meta[1], meta[2]
+        table_row = tables.index_select(0, meta[:1].long())[0]
+        view_meta = torch.cat([torch.zeros_like(meta[:1]), meta[1:]])
+        null, bt = next(pl["pos"].shape for pl in pool if pl)
+        null -= 1                                   # the sink's id
+        m = table_row.shape[0]
+        nwb = min(bucket // bt + 1, m)
+        dev = table_row.device
+        b0 = torch.div(pos0, bt, rounding_mode="floor")
+        last_b = torch.div(pos0 + vl - 1, bt, rounding_mode="floor")
+        shift = torch.clamp(b0, 0, m - nwb)
+        bidx = shift + torch.arange(nwb, device=dev)
+        touched = (bidx >= b0) & (bidx <= last_b) & (vl > 0)
+        pids = torch.where(touched, table_row[bidx], null)
+        window = shift * bt + torch.arange(nwb * bt, device=dev)
+        x = embed_tokens(cfg, self.params, io.tokens(bucket))
+        for j, spec in enumerate(cfg.layer_specs()):
+            pl = pool[j]
+            if pl:
+                g = paged_gather_layer(pl, table_row, pos0)
+                lc = {name: t[None] for name, t in g.items()}
+                lc["meta"] = view_meta
+            else:
+                lc = dict(rows[j], meta=meta)
+            x, _ = block_forward(cfg, spec, self.params["layers"][j], x, lc,
+                                 pos0, self.rope, vl, mode)
+            if pl:
+                paged_scatter_blocks(pl, pids, {
+                    name: lc[name][0].index_select(0, window).reshape(
+                        nwb, bt, *lc[name].shape[2:])
+                    for name in ("k", "v", "pos")})
+        self._last_logits(x, vl, io)
+
+    @torch.no_grad()
     def row_snapshot(self, rows: list[dict], slot: int) -> list[dict]:
         """Batch-1 copy of slot `slot`'s unpooled state (sliding-window
         rings): what a paged swap carries beside its blocks."""
@@ -371,7 +491,15 @@ class TextModel:
         c = run.carries
         t0 = time.perf_counter()
         slot_reset_layers(run.layers, 0)
-        logits = self._prefill_into(run.layers, prompt_ids, 0)
+        # the prefill program's device form, run eagerly: one chunk of the
+        # whole prompt into row 0
+        bkt, mode = prefill_key(n, 0, kv_capacity(self.cfg, {
+            "layers": run.layers}), self.max_cache_len)
+        self.last_prefill_mode = mode
+        io = PrefillIO.build(bkt, self.cfg.vocab_size, self.device)
+        io.load(0, 0, prompt_ids)
+        self.prefill_chunk_into(run.layers, io, bkt, mode)
+        logits = io.logits
         key = request_key(seed, 0)
         recent = torch.full((1, scfg.repeat_last_n), -1, dtype=torch.int32,
                             device=self.device)

@@ -37,8 +37,17 @@ row with no copy, and both skip the K/V tiles wholly above the diagonal,
 below the window or past the valid-key limit (a fully masked tile adds
 exactly zero).
 
-The wrapper launches the kernel of the tensor's route for CUDA tensors and
-raises on what neither takes; it uses the plain version only for CPU
+Two entry forms launch the same kernel. `flash_attention` takes the query
+offset and valid length as host ints (eager callers). `flash_attention_meta`
+takes a device int32 [3] {row, q_offset, valid_len} that the kernel reads
+itself, and in append mode the whole pool of K/V rows: a captured prefill
+graph (models/common/graphs.py: PrefillGraph) replays it with new values,
+the counterpart of the reference's traced slot/pos0/valid_len. The grid
+depends on Sq and the heads alone; the f32 route's cluster split is fixed
+when the graph is captured (`static_plan`).
+
+The wrappers launch the kernel of the tensor's route for CUDA tensors and
+raise on what neither takes; they use the plain version only for CPU
 tensors. There is no fallback from one to another.
 """
 from __future__ import annotations
@@ -89,11 +98,10 @@ def _limits(s: int, valid_len, q_offset) -> tuple[int, int]:
     return off, off + vl
 
 
-def visible_mask(sq: int, t: int, q_offset: int, limit: int,
-                 causal: bool = True, window: int | None = None,
-                 device=None) -> torch.Tensor:
+def visible_mask(sq: int, t: int, q_offset, limit, causal: bool = True,
+                 window: int | None = None, device=None) -> torch.Tensor:
     """[sq, t] bool: key index k is visible to query row i, whose position
-    is q_offset + i."""
+    is q_offset + i. q_offset and limit are host ints or 0-d tensors."""
     q_pos = q_offset + torch.arange(sq, device=device)[:, None]
     k_pos = torch.arange(t, device=device)[None, :]
     mask = k_pos < limit
@@ -109,17 +117,19 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         valid_len=None, q_offset=None,
                         window: int | None = None) -> torch.Tensor:
     """Plain PyTorch version of the kernels: masked dense attention in
-    float32 with the kernels' masks. Keys at or past the limit are masked,
-    so they are sliced off before the product."""
+    float32 over every key of k, with the kernels' masks. q_offset and
+    valid_len are host ints or 0-d tensors: the device-meta form's plain
+    version passes tensors and reads nothing on the host, and both forms
+    take the same products on the same shapes, so they agree bit for
+    bit."""
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     g = hq // hkv
     if scale is None:
         scale = 1.0 / (d ** 0.5)
-    off, limit = _limits(s, valid_len, q_offset)
-    t = max(min(limit, k.shape[1]), 1)
-    k, v = k[:, :t], v[:, :t]
-    mask = visible_mask(s, t, off, limit, causal, window, q.device)
+    off = 0 if q_offset is None else q_offset
+    limit = off + (s if valid_len is None else valid_len)
+    mask = visible_mask(s, k.shape[1], off, limit, causal, window, q.device)
     qf = q.float().reshape(b, s, hkv, g, d).permute(0, 2, 3, 1, 4) * scale
     kf = k.float().permute(0, 2, 1, 3)[:, :, None]          # [B,Hkv,1,T,D]
     vf = v.float().permute(0, 2, 1, 3)[:, :, None]
@@ -337,6 +347,21 @@ def plan_flash(q_shape, k_shape, causal: bool = True, valid_len=None,
     return plan
 
 
+def static_plan(q_shape, k_shape, causal: bool = True,
+                window: int | None = None, route: str = "bf16",
+                sms: int | None = None) -> _Plan:
+    """The plan of the device-meta form, fixed when a graph is captured:
+    the grid depends on Sq and the heads alone. f32's cluster split is
+    plan_flash's rule taken at a full chunk at offset 0 (valid_len Sq):
+    exactly that rule for a full fresh chunk; at a later offset a full
+    chunk's last row group only walks more tiles, so the split is the one
+    plan_flash would keep; a short valid length may keep a split that
+    plan_flash would drop (the same function, in another summation
+    order)."""
+    return plan_flash(q_shape, k_shape, causal, None, None, window,
+                      route=route, sms=sms)
+
+
 def tma_strides(x: torch.Tensor, name: str) -> tuple[int, int, int]:
     """Byte strides (head, seq, batch) of a [B, S, H, D] view as a TMA
     tensor map takes them. Raises ValueError where the view breaks TMA's
@@ -380,7 +405,8 @@ def kernel_route(dtype: torch.dtype) -> str:
     return route
 
 
-def _check_kernel_inputs(q, k, v):
+def _check_kernel_inputs(q, k, v, pooled: bool = False):
+    """pooled: k/v are a pool of rows, at least q's batch of them."""
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device.type != "cuda":
             raise ValueError(f"flash kernel: {name} is on {x.device}, "
@@ -396,7 +422,8 @@ def _check_kernel_inputs(q, k, v):
     if d not in _KERNEL_HEAD_DIMS:
         raise ValueError(f"flash kernel takes head_dim in "
                          f"{_KERNEL_HEAD_DIMS}, got {d}")
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+    if (k.shape != v.shape or k.shape[3] != d
+            or (k.shape[0] < b if pooled else k.shape[0] != b)):
         raise ValueError(f"flash kernel: k {tuple(k.shape)} / v "
                          f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
     if hq % k.shape[2]:
@@ -422,11 +449,21 @@ def _sm_count(index) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _launch(route, q, k, v, scale, causal, valid_len, q_offset, window):
-    """Plan, check the views against TMA's rules, and launch the route's
-    kernel on q's current stream."""
-    plan = plan_flash(q.shape, k.shape, causal, valid_len, q_offset, window,
-                      route=route, sms=_sm_count(q.device.index))
+def _check_meta(meta: torch.Tensor, device) -> None:
+    """The device-meta form's placement: int32 [3] on the kernel's device
+    (checked without reading it)."""
+    if (meta.dtype != torch.int32 or meta.device != device
+            or meta.numel() != 3 or not meta.is_contiguous()):
+        raise ValueError(f"flash kernel: meta must be a contiguous int32 [3] "
+                         f"{{row, q_offset, valid_len}} on {device}, got "
+                         f"{meta.dtype} {tuple(meta.shape)} on {meta.device}")
+
+
+def _launch(route, q, k, v, scale, plan, meta=None, meta_row=False):
+    """Check the views against TMA's rules and launch the route's kernel
+    on q's current stream under `plan`: with the plan's q_offset and
+    kv_len, or with `meta` (device int32 {row, q_offset, valid_len}) read
+    by the kernel; meta_row: query batch b reads K/V row meta[0] + b."""
     b, s, hq, d = q.shape
     out = torch.empty((b, s, hq, d), dtype=q.dtype, device=q.device)
     strides = [st for x, name in ((q, "q"), (k, "k"), (v, "v"), (out, "out"))
@@ -444,11 +481,22 @@ def _launch(route, q, k, v, scale, causal, valid_len, q_offset, window):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
             k.shape[1], hq, k.shape[2], d, *strides, *per_cta, plan.threads,
             plan.smem_bytes, scale * LOG2E, int(plan.causal), plan.window,
-            plan.q_offset, plan.kv_len, stream))
+            plan.q_offset, plan.kv_len,
+            None if meta is None else meta.data_ptr(), int(meta_row),
+            k.shape[0], stream))
     return out
 
 
-_LAUNCHERS = {route: functools.partial(_launch, route) for route in LIBRARIES}
+def _launch_ints(route, q, k, v, scale, causal, valid_len, q_offset,
+                 window):
+    """The host-int form: plan from the host ints, then launch."""
+    plan = plan_flash(q.shape, k.shape, causal, valid_len, q_offset, window,
+                      route=route, sms=_sm_count(q.device.index))
+    return _launch(route, q, k, v, scale, plan)
+
+
+_LAUNCHERS = {route: functools.partial(_launch_ints, route)
+              for route in LIBRARIES}
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -468,26 +516,79 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              q_offset, window)
 
 
+def flash_attention_meta_kernel(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, meta: torch.Tensor,
+                                mode: str, scale: float | None = None,
+                                causal: bool = True,
+                                window: int | None = None) -> torch.Tensor:
+    """Launch the device-meta form of q's route (no launch count). Raises
+    as flash_attention_kernel does, and on a meta that is not a contiguous
+    int32 [3] on q's device."""
+    route = kernel_route(q.dtype)
+    append = _check_mode(mode) == "append"
+    _check_kernel_inputs(q, k, v, pooled=append)
+    _check_meta(meta, q.device)
+    if scale is None:
+        scale = 1.0 / (q.shape[3] ** 0.5)
+    plan = static_plan(q.shape, k.shape, causal, window, route=route,
+                       sms=_sm_count(q.device.index))
+    return _launch(route, q, k, v, float(scale), plan, meta, append)
+
+
+def _check_mode(mode: str) -> str:
+    if mode not in ("fresh", "append"):
+        raise ValueError(f"flash mode must be 'fresh' or 'append', got "
+                         f"{mode!r}")
+    return mode
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float | None = None, causal: bool = True,
-                    valid_len=None, q_offset=None,
-                    window: int | None = None) -> torch.Tensor:
+                    valid_len: int | None = None,
+                    q_offset: int | None = None,
+                    window: int | None = None,
+                    mode: str | None = None) -> torch.Tensor:
     """q: [B, Sq, Hq, D]; k/v: [B, Skv, Hkv, D] (strided views allowed).
 
     valid_len: number of valid new keys (absolute limit q_offset +
     valid_len); q_offset: absolute position of query row 0 (append mode
     over an unwrapped cache row whose index is the position); window:
-    sliding-window size. On CUDA tensors this launches the kernel of the
-    dtype's route and counts the launch in
-    `flash_attention.launches[route][mode]` (mode "fresh" when q_offset
-    is 0/None, else "append"); on CPU tensors it computes the plain
-    version."""
+    sliding-window size; both host ints. On CUDA tensors this launches the
+    kernel of the dtype's route and counts the launch in
+    `flash_attention.launches[route][mode]`, mode as the caller names it
+    ("fresh" or "append"; None: "append" when q_offset is a non-zero
+    int); on CPU tensors it computes the plain version."""
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, scale, causal, valid_len,
                                    q_offset, window)
+    mode = _check_mode(mode if mode is not None
+                       else "append" if q_offset else "fresh")
     out = flash_attention_kernel(q, k, v, scale, causal, valid_len,
                                  q_offset, window)
-    mode = "append" if q_offset else "fresh"
+    flash_attention.launches[kernel_route(q.dtype)][mode] += 1
+    return out
+
+
+def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         meta: torch.Tensor, mode: str,
+                         scale: float | None = None, causal: bool = True,
+                         window: int | None = None) -> torch.Tensor:
+    """flash_attention with the chunk's placement on the device: meta is
+    an int32 [3] {row, q_offset, valid_len} that the kernel reads, so a
+    captured graph replays it with new values and the host reads nothing.
+    mode "fresh": k/v [B, Skv, Hkv, D] have q's batch (the in-pass chunk;
+    row unused). mode "append": k/v are a pool [R, Skv, Hkv, D] of rows and
+    query batch b reads row meta[0] + b. On CUDA tensors it launches the
+    route's kernel and counts it under `mode`; on CPU tensors it computes
+    the plain version, the row taken by index_select."""
+    if q.device.type == "cpu":
+        if _check_mode(mode) == "append" and k.shape[0] > q.shape[0]:
+            rows = meta[0].long() + torch.arange(q.shape[0])
+            k, v = k.index_select(0, rows), v.index_select(0, rows)
+        return flash_attention_ref(q, k, v, scale, causal, meta[2], meta[1],
+                                   window)
+    out = flash_attention_meta_kernel(q, k, v, meta, mode, scale, causal,
+                                      window)
     flash_attention.launches[kernel_route(q.dtype)][mode] += 1
     return out
 
@@ -509,11 +610,12 @@ def reset_launches() -> None:
 
 def _declare(fn, plan_ints: int) -> None:
     """Declare a flash entry point's signature: the routes differ only in
-    the number of plan integers before the scale. Every pointer and the
-    stream are c_void_p, so ctypes never truncates them to 32 bits."""
+    the number of plan integers before the scale. Every pointer (meta
+    included, None for the host-int form) and the stream are c_void_p, so
+    ctypes never truncates them to 32 bits."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn.argtypes = ([p, p, p, p] + [i] * 6 + [ll] * 12 + [i] * plan_ints
-                   + [ctypes.c_float, i, i, i, i, p])
+                   + [ctypes.c_float, i, i, i, i, p, i, i, p])
     fn.restype = i
 
 

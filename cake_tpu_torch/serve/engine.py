@@ -1,6 +1,6 @@
 """Continuous-batching serve engine (the core of
 cake_tpu/serve/engine.py: ServeEngine, ServeRequest, chunked admission,
-the shared-prefix cache, paged KV and swap preemption).
+the shared-prefix cache, paged KV, swap and recompute preemption).
 
 A bounded admission queue feeds one scheduler thread that owns the KV
 (a contiguous pool of rows, "slots", or a paged block pool behind
@@ -20,17 +20,23 @@ per-slot tables) and every device tensor. Each iteration:
      a replay of the step's CUDA graph, captured once when the scheduler
      thread starts (models/common/graphs.py), on the CPU the eager step;
   5. advances the chosen admission by one chunk, capturing every prefix
-     block the chunk completed;
+     block the chunk completed: on a card a replay of the chunk's
+     captured prefill program, one CUDA graph per (bucket, flash mode)
+     (graphs.PrefillGraphs), on the CPU the same program run eagerly;
   6. fetches the step's packed token ids (the graph's static `packed`
      buffer) in one device-to-host copy and fans them out to the request
      streams.
 
 Every torch call happens on the scheduler thread, so the device state
 needs no lock; client threads only touch thread-safe queues and events.
-The graph reads the KV and the per-slot carries (graphs.DecodeCarries) at
-fixed addresses, so everything between two replays writes them in place
-and nothing rebinds them. There is no fallback: a capture error fails the
-constructor, a replay error kills the engine.
+The graphs read the KV, the per-slot carries (graphs.DecodeCarries) and
+the prefill buffers (graphs.PrefillIO) at fixed addresses, so everything
+between two replays writes them in place and nothing rebinds them. The
+decode graph and the prefill programs the engine can reach are captured
+when the scheduler thread starts; a prefill program past the buffer's end
+is captured at its first use. There is no fallback to an eager prefill
+or step on a card: a capture error fails the constructor (or, at first
+use, kills the engine), a replay error kills the engine.
 
 Sampling: each admission gets its own key, request_key(seed, seq) (the
 reference's fold_in(base, seq)), and draws its noise from (key, counter)
@@ -38,11 +44,18 @@ on the device. The first token takes counter 0; each decode step of an
 active row advances the row's counter. Key and counter are per-slot
 carries that ride a swap, so a sampled request's tokens depend neither
 on its company nor on a swap.
-Left out of this port so far (see ROADMAP.md): recompute preemption (it
-needs the crash-recovery supervisor's replay), speculative decoding, the
-supervisor itself, QoS lanes and victim classes, deadlines, the fleet KV
-tier and the metrics plane. A failure on the scheduler thread fails every
-request and marks the engine dead.
+
+Preemption (paged pool exhausted): "swap" keeps the victim's blocks and
+carries in host memory; "recompute" drops them and, at resume, replays
+prompt + tokens[:-1] through the prefill programs (`_replay_slot`, the
+reference's): a greedy stream resumes bit for bit, a sampled one on a
+fresh key, request_key(seed, seq) with the next seq, as the reference
+documents. A mid-prefill admission is requeued for a clean restart
+either way (labelled "recompute", as the reference labels it).
+Left out of this port so far (see ROADMAP.md): speculative decoding,
+the crash-recovery supervisor, QoS lanes and victim classes, deadlines,
+the fleet KV tier and the metrics plane. A failure on the scheduler
+thread fails every request and marks the engine dead.
 """
 from __future__ import annotations
 
@@ -55,7 +68,9 @@ import uuid
 
 import torch
 
+from ..models.common.cache import kv_capacity
 from ..models.common.graphs import DecodeCarries, DecodeGraph
+from ..models.common.text_model import prefill_start_keys
 from ..ops.sampling import SamplingConfig, request_key
 from .paged.pool import KVPoolExhausted, PagedKV
 from .paged.preempt import PreemptedSlot, choose_victim, victim_rank
@@ -70,6 +85,7 @@ DEFAULT_CHUNK = 256
 DEFAULT_QUEUE = 64
 DEFAULT_PREFIX_CACHE_MB = 256.0     # the reference's CAKE_PREFIX_CACHE_MB
 DEFAULT_KV_BLOCK_TOKENS = 16        # the reference's CAKE_KV_BLOCK_TOKENS
+PREEMPT_MODES = ("swap", "recompute")   # the reference's CAKE_PREEMPT_MODE
 
 
 class QueueFull(RuntimeError):
@@ -239,13 +255,12 @@ class ServeEngine:
                  preempt_mode: str = "swap"):
         """kv_blocks > 0 replaces the contiguous pool (slots x ctx rows)
         with a shared pool of that many blocks of kv_block_tokens tokens;
-        prefix_cache_mb <= 0 turns the shared-prefix cache off. The one
-        preemption mode is "swap"."""
-        if preempt_mode != "swap":
-            raise ValueError(
-                f"preempt_mode must be 'swap', got {preempt_mode!r} "
-                "(recompute preemption needs the crash-recovery "
-                "supervisor's replay, which is not ported yet)")
+        prefix_cache_mb <= 0 turns the shared-prefix cache off;
+        preempt_mode ("swap" or "recompute") is how a paged pool under
+        pressure parks a decoding victim."""
+        if preempt_mode not in PREEMPT_MODES:
+            raise ValueError(f"preempt_mode must be one of {PREEMPT_MODES},"
+                             f" got {preempt_mode!r}")
         self.model = model
         self.slots = slots
         self.ctx = min(ctx_len or DEFAULT_CTX, model.max_cache_len)
@@ -263,6 +278,8 @@ class ServeEngine:
         self._reqs: list[ServeRequest | None] = [None] * slots
         self._prefills: list[_Prefill] = []
         self._preempted: list[PreemptedSlot] = []
+        self.preemptions = {mode: 0 for mode in PREEMPT_MODES}
+        self.replays = 0                # recompute resumes replayed
         self._rr = 0
         self._draining = threading.Event()
         self._wake = threading.Event()
@@ -271,6 +288,7 @@ class ServeEngine:
         self.last_step = time.perf_counter()
         self.dead: BaseException | None = None
         self.graph = None               # the decode step's DecodeGraph
+        self.capture_s = 0.0            # seconds capturing at start
         self._ready = threading.Event()
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="cake-torch-serve")
@@ -292,8 +310,19 @@ class ServeEngine:
                                        self.kv_blocks, self.kv_block_tokens,
                                        self.chunk)
             self._layers = None
+            self.prefill = self.paged.prefill
+            capacity = self.paged.max_blocks * self.paged.bt
         else:
-            self._layers = self.model.new_cache(n, kv_len=self.ctx)["layers"]
+            model = self.model
+            layers = model.new_cache(n, kv_len=self.ctx)["layers"]
+            self._layers = layers
+            capacity = kv_capacity(model.cfg, {"layers": layers})
+            self.prefill = model.prefill_graphs(
+                lambda io, bucket, mode: model.prefill_chunk_into(
+                    layers, io, bucket, mode), capacity, self.chunk)
+        # the prefill programs captured at start (graphs.PrefillGraphs)
+        self._prefill_keys = prefill_start_keys(self.chunk, capacity,
+                                                self.model.max_cache_len)
         self.carries = DecodeCarries.build(n, self._vocab, RECENT_N, dev)
         self._seq = 0                   # admissions so far: the key index
 
@@ -377,6 +406,9 @@ class ServeEngine:
             "draining": self._draining.is_set(),
             "steps": self.steps,
             "last_step_age_s": round(time.perf_counter() - self.last_step, 3),
+            "prefill_graphs": {"programs": len(self.prefill.graphs),
+                               "replays": self.prefill.replays,
+                               "capture_s": round(self.capture_s, 3)},
         }
         pc = self.prefix_cache
         if pc is not None:
@@ -390,7 +422,10 @@ class ServeEngine:
                     live[i] = len(req.prompt_ids) \
                         + max(len(req.tokens) - 1, 0)
             h["kv_pool"] = {**paged.occupancy(live),
-                            "preempted_slots": len(self._preempted)}
+                            "preempted_slots": len(self._preempted),
+                            "preempt_mode": self.preempt_mode,
+                            "preemptions": dict(self.preemptions),
+                            "replays": self.replays}
             if pc is not None:
                 h["kv_pool"]["prefix_entries"] = len(pc._blocks)
                 h["kv_pool"]["prefix_pinned_blocks"] = pc.pinned
@@ -440,10 +475,14 @@ class ServeEngine:
 
     def _loop(self):
         try:
+            t0 = time.perf_counter()
             # captured with every row inactive (nothing admitted yet)
             self.graph = DecodeGraph(self._decode_fn(), self.model.device)
+            # each prefill program's warm-up writes nothing (valid_len 0)
+            self.prefill.capture(self._prefill_keys)
+            self.capture_s = time.perf_counter() - t0
         except BaseException as e:
-            log.exception("serve engine failed to capture its decode step")
+            log.exception("serve engine failed to capture its programs")
             self.dead = e
             return
         finally:
@@ -572,11 +611,7 @@ class ServeEngine:
         take = min(self.chunk, pf.n - pf.pos)
         ids = pf.ids[pf.pos:pf.pos + take]
         try:
-            if self.paged is not None:
-                logits = self.paged.prefill_into(pf.slot, ids, pf.pos)
-            else:
-                logits, _ = self.model.prefill_chunk(self._layers, pf.slot,
-                                                     ids, pf.pos)
+            logits = self.prefill.run(pf.slot, ids, pf.pos)
         except ValueError as e:
             # a request-scoped refusal (bounds): the admission dies alone.
             # Anything else may have poisoned the pool and goes on up,
@@ -585,23 +620,27 @@ class ServeEngine:
             return False
         pf.pos += take
         pf.chunks += 1
-        self._capture_blocks(pf)
+        pf.next_block = self._capture_blocks(pf.ids, pf.slot, pf.pos,
+                                             pf.next_block, pf.keys)
         if pf.pos >= pf.n:
             self._complete_prefill(pf, logits)
             return False
         return True
 
-    def _capture_blocks(self, pf: _Prefill) -> None:
-        """Insert every prefix block the chunk that just landed completed,
-        at the boundary where the row holds exactly that prefix. The block
-        holding the final prompt token is never cached (its logits must be
-        computed live), hence the n-1 cap."""
+    def _capture_blocks(self, ids: list[int], slot: int, pos: int,
+                        next_block: int, keys: list[bytes]) -> int:
+        """Insert every prefix block of `ids` that the chunk which just
+        landed (the row now holds ids[:pos]) completed, at the boundary
+        where the row holds exactly that prefix; returns the next block to
+        capture. The block holding the final token is never cached (its
+        logits must be computed live), hence the n-1 cap."""
         pc = self.prefix_cache
         if pc is None:
-            return
-        while (pf.next_block + 1) * self.chunk <= min(pf.pos, pf.n - 1):
-            pc.insert(self._layers, pf.slot, pf.ids, pf.next_block, pf.keys)
-            pf.next_block += 1
+            return next_block
+        while (next_block + 1) * self.chunk <= min(pos, len(ids) - 1):
+            pc.insert(self._layers, slot, ids, next_block, keys)
+            next_block += 1
+        return next_block
 
     def _complete_prefill(self, pf: _Prefill, logits):
         """Sample the first token with draw 0 of the request's key (it
@@ -712,44 +751,61 @@ class ServeEngine:
         return False
 
     def _preempt_slot(self, slot: int, req: ServeRequest):
-        """Swap one decoding slot out: its blocks and carries go to host
-        memory and its blocks are freed. Runs before the iteration's
-        decode dispatch, so the carries hold no unfetched token, and an
-        unfetched first token (`_first_pending`) rides `toks` back in."""
+        """Evict one decoding slot to free its blocks. Runs before the
+        iteration's decode dispatch, so the carries hold no unfetched
+        sampled token. Swap: its blocks and carries go to host memory, and
+        an unfetched first token (`_first_pending`) rides `toks` back in.
+        Recompute: its blocks are released and resume replays its tokens;
+        an unfetched first token is dropped and the request restarts from
+        its prompt (it resamples the same token under the same key)."""
         wp = self._frontier(req)
         c = self.carries
-        blob = self.paged.swap_out(slot, (c.toks, c.pos, c.recents, c.keys,
-                                          c.counters))
+        if self.preempt_mode == "swap":
+            blob = self.paged.swap_out(slot, (c.toks, c.pos, c.recents,
+                                              c.keys, c.counters))
+            entry = PreemptedSlot(req, "swap", wp, blob)
+        else:
+            self.paged.release_slot(slot)
+            if not req.tokens:
+                req._first_pending = False
+            entry = PreemptedSlot(req, "recompute", wp)
+        self.preemptions[entry.mode] += 1
+        req.stats.setdefault("preempted_at", []).append(len(req.tokens))
         self.pool.free(slot)
         self._reqs[slot] = None
         req.slot = None
         c.active[slot] = False
         c.toks[slot] = 0
         c.pos[slot] = 0
-        self._preempted.append(PreemptedSlot(req, "swap", wp, blob))
-        log.warning("preempted slot %d (swap, %d tokens): KV pool "
-                    "exhausted", slot, wp)
+        self._preempted.append(entry)
+        log.warning("preempted slot %d (%s, %d tokens): KV pool "
+                    "exhausted", slot, entry.mode, wp)
 
     def _requeue_admission(self, pf: _Prefill):
         """Send a mid-prefill admission back to readmission to free its
-        blocks (a clean restart, ahead of every queued request). Its
-        resume gate is the whole prompt's blocks."""
+        blocks (a clean restart, ahead of every queued request), labelled
+        "recompute" as the reference labels it: it has emitted nothing,
+        so its resume is a fresh prefill. Its resume gate is the whole
+        prompt's blocks."""
         self._prefills.remove(pf)
         self.paged.release_slot(pf.slot)
         self.pool.free(pf.slot)
         self._reqs[pf.slot] = None
         pf.req.slot = None
-        self._preempted.append(PreemptedSlot(pf.req, "requeue",
+        self.preemptions["recompute"] += 1
+        self._preempted.append(PreemptedSlot(pf.req, "recompute",
                                              max(pf.n - 1, 0)))
         log.warning("readmitting request %s: KV pool exhausted "
                     "mid-prefill", pf.req.id)
 
     def _resume_preempted(self):
         """Oldest-first resume: a swap entry gets fresh blocks and its
-        bytes and carries back; a requeued admission restarts its prefill
-        once its whole prompt's blocks are free. Stops at the first entry
-        that does not fit yet (strict FIFO: a big parked request is not
-        starved by smaller ones behind it)."""
+        bytes and carries back; a recompute entry, once the blocks of its
+        frontier are free, replays its tokens (`_replay_slot`) or, having
+        emitted none (a requeued admission, or a dropped first token),
+        restarts its prefill. Stops at the first entry that does not fit
+        yet (strict FIFO: a big parked request is not starved by smaller
+        ones behind it)."""
         while self._preempted and self.pool.free_count > 0:
             entry = self._preempted[0]
             req = entry.req
@@ -780,9 +836,65 @@ class ServeEngine:
                 self._preempted.pop(0)
                 self._reqs[slot] = req
                 req.slot = slot
-                self._begin_prefill(_Prefill(req, slot))
+                if not req.tokens:
+                    self._begin_prefill(_Prefill(req, slot))
+                else:
+                    try:
+                        self._replay_slot(req, slot)
+                    except KVPoolExhausted as e:
+                        req.result["error"] = e
+                        self._finish(slot, req, cancelled=True)
+                        continue
             log.warning("resumed preempted request %s into slot %d (%s)",
                         req.id, slot, entry.mode)
+
+    def _replay_slot(self, req: ServeRequest, slot: int):
+        """Replay a request's recorded tokens into a fresh slot and restore
+        its decode carries (the reference's `_replay_slot`,
+        engine.py:1580-1640): prompt + tokens[:-1] in chunks through the
+        prefill programs (replays of their graphs on a card), after any
+        cached prefix is spliced; every chunk's blocks are reserved first
+        (a replay never preempts: a pool that cannot hold it raises
+        KVPoolExhausted), and every prefix block it completes is captured.
+        The carries: the last token at position n, the recent window from
+        the tail of the tokens, the request's sampling settings, and a
+        fresh key, request_key(seed, seq) with the next seq, its counter
+        at 0 (the reference's fresh fold_in(base, seq)): a greedy stream
+        resumes bit for bit, a sampled one on the new key."""
+        ids = req.prompt_ids + req.tokens[:-1]
+        n = len(ids)
+        pos = next_block = 0
+        keys: list[bytes] = []
+        pc = self.prefix_cache
+        if pc is not None:
+            keys = pc.chain_keys(ids)
+            next_block = pc.match(ids, keys)
+            if next_block:
+                pc.splice(self._layers, slot, keys, next_block)
+                pos = next_block * self.chunk
+        req.stats["replay_hit_tokens"] = pos
+        while pos < n:
+            take = min(self.chunk, n - pos)
+            if not self.paged.reserve_range(slot, pos, take):
+                raise KVPoolExhausted(f"KV pool exhausted replaying "
+                                      f"{req.id}")
+            self.prefill.run(slot, ids[pos:pos + take], pos)
+            pos += take
+            next_block = self._capture_blocks(ids, slot, pos, next_block,
+                                              keys)
+        tail = req.tokens[-RECENT_N:]
+        c = self.carries
+        c.recents[slot] = -1
+        c.recents[slot, RECENT_N - len(tail):] = torch.tensor(
+            tail, dtype=torch.int32)
+        c.toks[slot] = req.tokens[-1]
+        c.pos[slot] = n
+        c.keys[slot] = request_key(self._seed, self._seq)
+        self._seq += 1
+        c.counters[slot] = 0
+        self._set_slot_sampling(slot, req.sampling)
+        c.active[slot] = True
+        self.replays += 1
 
     def _fail_unresumable(self, entry: PreemptedSlot):
         """A parked entry whose resume gate failed waits while live work

@@ -8,6 +8,10 @@ model's paged programs read, and the host-side BlockAllocator that mirrors
 it. The serve engine talks to this object; the allocator never touches
 torch and the engine never touches block ids.
 
+The paged prefill programs (`prefill`, graphs.PrefillGraphs over
+TextModel.prefill_chunk_paged_into) read this object's pool, rows and
+tables at fixed addresses, as the decode graph does.
+
 Everything here runs on the engine's scheduler thread. Every allocator
 change to a table entry updates the device table at once, without a host
 sync: a single entry is a scalar write, a row is one copy from pinned
@@ -46,7 +50,9 @@ def pow2_block_tokens(n: int, chunk: int) -> int:
 
 class PagedKV:
     def __init__(self, model, slots: int, ctx: int, num_blocks: int,
-                 block_tokens: int):
+                 block_tokens: int, chunk: int | None = None):
+        """chunk: the longest prefill chunk (default ctx), which sizes the
+        prefill programs' token buffer."""
         self.model = model
         self.slots = slots
         self.ctx = ctx
@@ -70,6 +76,14 @@ class PagedKV:
         # paged prefix cache's LRU by the engine)
         self.evictor = None
         self.swaps = 0
+        # the paged prefill programs, one captured graph per (bucket,
+        # flash mode) on a card (models/common/graphs.py: PrefillGraphs);
+        # bound to the buffers, not to self (no reference cycle)
+        pool, rows, tables = self.pool, self.rows, self.tables
+        self.prefill = model.prefill_graphs(
+            lambda io, bucket, mode: model.prefill_chunk_paged_into(
+                pool, rows, tables, io, bucket, mode),
+            self.max_blocks * block_tokens, chunk or ctx)
 
     @classmethod
     def build(cls, model, slots: int, ctx: int, num_blocks: int,
@@ -87,7 +101,7 @@ class PagedKV:
             raise ValueError("paged KV needs at least one full-attention "
                              "layer: sliding-window rings are O(window) per "
                              "slot and have nothing to page")
-        return cls(model, slots, ctx, num_blocks, bt)
+        return cls(model, slots, ctx, num_blocks, bt, chunk)
 
     # -- allocation (host) ------------------------------------------------
 
@@ -175,9 +189,10 @@ class PagedKV:
 
     def prefill_into(self, slot: int, ids, pos0: int):
         """One chunk of prompt into the slot's mapped blocks (the caller
-        reserved them). Returns the chunk's last-position logits."""
-        return self.model.prefill_chunk_paged(self.pool, self.rows,
-                                              self.tables, slot, ids, pos0)
+        reserved them), by replaying its captured prefill program on a
+        card. Returns the chunk's last-position logits, a buffer the next
+        chunk overwrites."""
+        return self.prefill.run(slot, ids, pos0)
 
     # -- preemption transport (slow path: explicit host syncs) -------------
 

@@ -1,13 +1,15 @@
 """Preemption policy and parked-request state for the paged serve engine
 (the port's own copy of cake_tpu/serve/paged/preempt.py).
 
-When the block pool is exhausted, a victim slot is evicted to make room.
-The port has one preemption mode so far, "swap": the slot's blocks and its
-decode carries are copied to host memory and its blocks freed; resume
-writes the same bytes into fresh blocks. An admission that is still
-prefilling is requeued instead ("requeue": it has emitted nothing, so it
-restarts cleanly). The reference's "recompute" mode needs its supervisor's
-rebuild-by-replay, which the port does not have yet.
+When the block pool is exhausted, a victim slot is evicted to make room,
+in one of the reference's two modes (the engine's `preempt_mode`):
+"swap" copies the slot's blocks and its decode carries to host memory and
+frees its blocks, and resume writes the same bytes into fresh blocks;
+"recompute" frees the blocks outright, and resume replays the prompt and
+the emitted tokens through the prefill programs (the engine's
+`_replay_slot`). An admission that is still prefilling is requeued in
+either mode, labelled "recompute" as the reference labels it: it has
+emitted nothing, so its resume is a clean restart of its prefill.
 
 The port has one QoS class, so the victim is the latest admission (LIFO,
 the vLLM rule: the request that has consumed the least scheduler work is
@@ -26,7 +28,7 @@ __all__ = ["PreemptedSlot", "choose_victim", "victim_rank"]
 @dataclass
 class PreemptedSlot:
     req: object                       # ServeRequest
-    mode: str                         # "swap" | "requeue"
+    mode: str                         # "swap" | "recompute"
     tokens_at_preempt: int            # frontier tokens (resume gating)
     blob: dict | None = None          # swap payload (None for requeue)
 

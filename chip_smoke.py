@@ -22,6 +22,13 @@ Phases (any failure exits non-zero and prints no result line):
      call as device time (CUDA events around calls queued behind a spin
      kernel, so the card runs them back to back), beside the issue rate of
      back-to-back calls, the card's bound and the library call's backend;
+     and both flash routes' device-meta form ({row, q_offset, valid_len}
+     read on the card, what a captured prefill graph replays; D 64/128/256,
+     fresh, append over row 2 of a pool at offsets 0, 256 and 3840, a
+     ragged valid length) against the plain version, the host-int form
+     under the same plan (bit for bit) and itself launched twice (bit for
+     bit), with its device time beside the host-int form's at each timed
+     shape;
   4. model parity: the flagship at full width and 2 layers in f32 prefills
      a 600-token prompt in chunks (fresh flash, append flash, masked tail)
      and decodes 16 greedy tokens, once into a contiguous cache and once
@@ -35,9 +42,18 @@ Phases (any failure exits non-zero and prints no result line):
      sampled (temperature 0.8, top_k 50) and one free; the replay's
      device and wall ms beside the eager step's; generate's captured
      16-step chunks equal the step-by-step loop, greedy and sampled;
+  4c. prefill graphs: the same flagship, 4 slots with ctx 4096, contiguous
+     and paged (1024 blocks of 16): a 600-token prompt's three chunks
+     (fresh 256, append 256, masked tail 88 in bucket 128) into row 2,
+     beside another tenant in row 0, through the pool's captured prefill
+     programs (every start program captured, each warm-up and capture
+     under torch.cuda.set_sync_debug_mode("error")) equal the eager
+     host-int chunks bit for bit in logits and every KV byte; each
+     chunk's replay device and wall ms beside the eager chunk's;
   5. serving: the full flagship (28 layers, bf16, seed 0) behind the
      port's HTTP server with 4 slots and ctx 4096 (contiguous pool, prefix
-     cache on at its default; every decode step a graph replay) answers 4 concurrent chats and one SSE chat;
+     cache on at its default; every decode step and every prefill chunk a
+     graph replay) answers 4 concurrent chats and one SSE chat;
      each concurrent result equals the same request sent alone (a rerun
      may hit the prefix cache), and the bf16 flash kernel's launch counts
      show both modes ran;
@@ -51,7 +67,9 @@ Phases (any failure exits non-zero and prints no result line):
      while they run, in paged mode), with tokens equal to the same mode
      with the cache off; (c) (a)'s chats on a 96-block pool, the last two
      arriving while the first two decode: at least one swap preemption,
-     no failure, tokens equal to (a)'s;
+     no failure, tokens equal to (a)'s; then the same under
+     preempt_mode="recompute": at least one recompute preemption replayed
+     through the prefill graphs, tokens equal to (a)'s;
   7. the flagship written as a checkpoint directory, loaded bit for bit
      and served through `cli serve DIR`, contiguous and paged;
   8. OLMo2, EXAONE4 and Phi-4 at their published widths, depth cut:
@@ -66,7 +84,8 @@ Phases (any failure exits non-zero and prints no result line):
      same directory served through `cli serve DIR`, contiguous and paged:
      4 concurrent chats and one SSE chat, all 200, each equal alone and
      in company, the engine's prompt ids those of a fresh CPU tokenizer;
-  then prints the kernels line, the card line, and the result line last.
+  then prints the whole run's seconds, the kernels line, the card line,
+  and the result line last.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -279,6 +298,22 @@ def library_backend(q, k, v, kw) -> str:
     return SDPBackend(torch._fused_sdp_choice(*args, **sdpa_kw)).name
 
 
+def _meta_form(q, k, v, kw):
+    """The device-meta form of a timed case: fresh over the chunk, or
+    append over the whole pool that k/v are row 1 of."""
+    import torch
+    from cake_tpu_torch.ops.flash import flash_attention_meta_kernel
+    off = kw.get("q_offset") or 0
+    vl = kw.get("valid_len") or q.shape[1]
+    if off:
+        pool_k, pool_v, row, mode = k._base, v._base, 1, "append"
+    else:
+        pool_k, pool_v, row, mode = k, v, 0, "fresh"
+    meta = torch.tensor([row, off, vl], dtype=torch.int32, device="cuda")
+    return lambda: flash_attention_meta_kernel(
+        q, pool_k, pool_v, meta, mode, window=kw.get("window"))
+
+
 def phase_kernels() -> dict:
     import torch
     from cake_tpu_torch.bench.timing import device_ms, issue_ms
@@ -301,6 +336,20 @@ def phase_kernels() -> dict:
                   f"flash {name} {dtype}: max_abs_err {err} > {tol}")
             check(torch.equal(got, again),
                   f"flash {name} {dtype}: two launches differ")
+    from cake_tpu_torch.bench import flash_meta
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        for case in flash_meta.META_CASES:
+            r = flash_meta.check(flash_meta.meta_case(*case, dtype))
+            print(f"flash meta {case[0]:18s} {kernel_route(dtype)} "
+                  f"max_abs_err {r['max_abs_err']:.3e} (tol {tol:g}); "
+                  f"bits equal to the host-int form {r['same_as_host_int']},"
+                  f" across two launches {r['same_twice']}; split "
+                  f"{r['split']}", flush=True)
+            check(r["finite"] and r["max_abs_err"] <= tol,
+                  f"flash meta {case[0]} {dtype}: max_abs_err "
+                  f"{r['max_abs_err']} > {tol}")
+            check(r["same_as_host_int"] and r["same_twice"],
+                  f"flash meta {case[0]} {dtype}: bits differ {r}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for d in (64, 128, 256):
         plan = plan_flash((1, 256, 4, d), (1, 256, 1, d), window=512)
@@ -334,10 +383,12 @@ def phase_kernels() -> dict:
 
         def kern():
             return flash_attention_kernel(q, k, v, **kw)
+        meta_form = _meta_form(q, k, v, kw)
         # device time: events around calls queued behind a spin, so the
         # host's issue rate (issue_ms) does not set it
         t = {
             "max_abs_err": err.item(), "ms": device_ms(kern),
+            "meta_ms": device_ms(meta_form),
             "issue_ms": issue_ms(kern),
             "plain_ms": device_ms(
                 lambda: flash_attention_ref(q, k, v, **kw), iters=10),
@@ -354,7 +405,8 @@ def phase_kernels() -> dict:
               f"Hq/Hkv="
               f"{q.shape[2]}/{k.shape[2]} D={q.shape[3]} window="
               f"{kw.get('window')} Skv_row={k.shape[1]} device ms: kernel "
-              f"{t['ms']:.5f} plain {t['plain_ms']:.5f} library "
+              f"{t['ms']:.5f} (device-meta form {t['meta_ms']:.5f}) plain "
+              f"{t['plain_ms']:.5f} library "
               f"{t['library_ms']:.5f}; kernel issue_ms {t['issue_ms']:.5f}; "
               f"bound_ms {t['bound_ms']:.5f} ({t['bound_by']}), share of "
               f"bound {t['bound_ms'] / t['ms']:.3f}{fma_bound}; max_abs_err "
@@ -635,6 +687,60 @@ def phase_graphs(model, card: str) -> None:
           f"sampled run); on {card}", flush=True)
 
 
+# -- phase 4c: every prefill chunk as a captured CUDA graph ------------------
+
+
+def phase_prefill_graphs(model, card: str) -> None:
+    """The full flagship, 4 slots with ctx 4096, contiguous and paged
+    (1024 blocks of 16): a 600-token prompt in three chunks into row 2
+    (another tenant's 300 tokens in row 0) through the captured prefill
+    programs and through the eager chunks; logits and KV bytes equal; each
+    chunk's replay timed beside the eager chunk."""
+    import torch
+    from cake_tpu_torch.bench.graph_cases import prefill_vs_eager
+    from cake_tpu_torch.bench.timing import (device_ms, kernel_times,
+                                             wall_ms)
+    gen = torch.Generator().manual_seed(11)
+    ids = torch.randint(0, 256, (600,), generator=gen).tolist()
+    tenant = torch.randint(0, 256, (300,), generator=gen).tolist()
+    for kind, kv_blocks in (("contiguous", 0), ("paged", 1024)):
+        case = prefill_vs_eager(model, ids, slot=2, slots=4, ctx=4096,
+                                kv_blocks=kv_blocks, strict=True,
+                                tenant=tenant)
+        graphs = case.graphs
+        print(f"prefill graphs {kind}: {len(graphs.graphs)} programs "
+              f"{sorted(graphs.graphs)} captured in {case.capture_s:.2f} s "
+              f"under sync debug mode 'error'; chunks "
+              f"{[r['key'] for r in case.results]} logits identical "
+              f"{[r['logits_equal'] for r in case.results]} (max abs diff "
+              f"{max(r['max_logit_diff'] for r in case.results):.3e}), KV "
+              f"bytes identical {case.kv_equal}", flush=True)
+        check(all(g.graph is not None for g in graphs.graphs.values()),
+              f"prefill graphs {kind}: not captured")
+        check(all(r["logits_equal"] for r in case.results) and case.kv_equal,
+              f"prefill graphs {kind}: replays differ from eager chunks")
+        for i, r in enumerate(case.results):
+            g, e = case.graph_chunk(i), case.eager_chunk(i)
+            replay = device_ms(g, iters=10, warmup=2)
+            replay_wall = wall_ms(g, 10)
+            eager_wall = wall_ms(e, 5)
+            # an eager chunk's ~1,000 launches do not queue behind a
+            # spin: its device time is the profiler's kernel sum
+            kernels = sum(row[0] for row in kernel_times(e, 3))
+            eager_dev = (f"kernel sum {kernels:.4f} (idle "
+                         f"{1 - kernels / eager_wall:.3f})" if kernels
+                         else "device ms not measured (the profiler saw "
+                         "no kernel)")
+            print(f"prefill graph {kind} chunk {r['key']} at "
+                  f"{case.chunks[i][0]} ({len(case.chunks[i][1])} tokens, "
+                  f"28 layers, bf16): replay device ms {replay:.4f}, "
+                  f"replay wall ms {replay_wall:.4f} (idle "
+                  f"{max(0.0, 1 - replay / replay_wall):.3f}); eager wall ms "
+                  f"{eager_wall:.4f}, {eager_dev}; on {card}", flush=True)
+        del case, graphs
+        torch.cuda.empty_cache()
+
+
 # -- phases 5 and 6: serving -------------------------------------------------
 
 
@@ -793,6 +899,12 @@ def phase_serve(model, card: str) -> tuple[dict, list]:
     try:
         check(served.engine.graph.graph is not None,
               "phase 5: the engine captured no graph")
+        pg = served.engine.prefill.graphs
+        check(pg and all(g.graph is not None for g in pg.values()),
+              "phase 5: the engine captured no prefill graph")
+        print(f"serve: engine captured its decode step and prefill programs "
+              f"{sorted(pg)} at start in {served.engine.capture_s:.2f} s",
+              flush=True)
         bodies = [chat_body(i) for i in range(4)] + [chat_body(4, True)]
         flash.reset_launches()
         torch.cuda.synchronize()
@@ -807,13 +919,18 @@ def phase_serve(model, card: str) -> tuple[dict, list]:
         check(launches["append"] > 0, f"append launches {counts}")
         check(sum(counts["f32"].values()) == 0,
               f"the f32 route ran while serving bf16: {counts}")
+        replays = served.engine.prefill.replays
+        check(replays > 0 and all(g.graph is not None for g in
+                                  served.engine.prefill.graphs.values()),
+              "phase 5: no prefill chunk was a graph replay")
         hits = _alone_equals_concurrent(served, bodies, results, "phase 5")
         ttft, tps = _latency(results[:4])
         n_prompt = results[0]["resp"]["usage"]["prompt_tokens"]
         print(f"serve: 4 concurrent chats, {n_prompt}-token prompts, 32 "
               f"tokens each: TTFT p50 {ttft:.1f} ms (of "
               f"{sorted(round(r['stats']['ttft_s'] * 1e3, 1) for r in results[:4])}"
-              f"), decode tok/s per request p50 {tps:.1f}; alone reruns' "
+              f"), decode tok/s per request p50 {tps:.1f}; {replays} prefill "
+              f"chunks, each a graph replay; alone reruns' "
               f"prefix_hit_tokens {hits} (prefix cache 256 MB); on {card}",
               flush=True)
         return launches, results[:4]
@@ -908,9 +1025,18 @@ def phase_paged_serve(model, card: str, contiguous: list) -> int:
               f"{mode}: prefix hits {hits} below 512 after the first")
         check(same, f"{mode}: tokens differ between prefix cache on and off")
     check(shared_max[0] > 0, "paged: no block was shared during the hits")
-    # (c) swap under pressure: 96 blocks, two chats decoding when the
-    # other two arrive
-    tight = serve_model(model, kv_blocks=96, kv_block_tokens=16)
+    # (c) swap, then recompute, under pressure: 96 blocks, two chats
+    # decoding when the other two arrive
+    for mode in ("swap", "recompute"):
+        _pressure(model, mode, want)
+    return launches["bf16"]
+
+
+def _pressure(model, mode: str, want: list) -> None:
+    """Phase 6(c) under one preemption mode: (a)'s chats on 96 blocks,
+    the last two arriving while the first two decode."""
+    tight = serve_model(model, kv_blocks=96, kv_block_tokens=16,
+                        preempt_mode=mode)
     try:
         first = {}
 
@@ -931,16 +1057,22 @@ def phase_paged_serve(model, card: str, contiguous: list) -> int:
         check(len(first) == 2, "phase 6c: a first chat failed")
         got = [first[0]["tokens"], first[1]["tokens"]] + \
             [r["tokens"] for r in late]
-        pool = tight.engine.health()["kv_pool"]
-        print(f"paged swap (c): 96 blocks of 16 tokens, kv_pool {pool}; "
-              f"tokens equal to (a)'s {got == want}", flush=True)
+        health = tight.engine.health()
+        pool = health["kv_pool"]
+        print(f"paged {mode} (c): 96 blocks of 16 tokens, kv_pool {pool}; "
+              f"prefill graph replays {health['prefill_graphs']['replays']};"
+              f" tokens equal to (a)'s {got == want}", flush=True)
         check(all(r["status"] == 200 for r in list(first.values()) + late),
-              "phase 6c: a request failed")
-        check(pool["swaps"] >= 1, "phase 6c: no swap preemption")
-        check(got == want, f"phase 6c: swapped tokens {got} != (a)'s {want}")
+              f"phase 6c {mode}: a request failed")
+        if mode == "swap":
+            check(pool["swaps"] >= 1, "phase 6c: no swap preemption")
+        else:
+            check(pool["preemptions"]["recompute"] >= 1
+                  and pool["replays"] >= 1 and pool["swaps"] == 0,
+                  f"phase 6c: no recompute preemption replayed: {pool}")
+        check(got == want, f"phase 6c {mode}: tokens {got} != (a)'s {want}")
     finally:
         tight.close()
-    return launches["bf16"]
 
 
 # -- phase 7: the flagship from a checkpoint directory ------------------------
@@ -1329,6 +1461,7 @@ def phase_gemma3(card: str, workdir: str) -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -1349,6 +1482,7 @@ def main() -> int:
     print(f"serve: flagship 28 layers bf16 built in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     phase_graphs(model, card)
+    phase_prefill_graphs(model, card)
     serve_launches, contiguous = phase_serve(model, card)
     paged_launches = phase_paged_serve(model, card, contiguous)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -1371,7 +1505,7 @@ def main() -> int:
             "name": f"flash_attention.{entry}", "route": "cuda",
             "source": flash.SOURCES[route], "replaces": flash.REPLACES,
             "launches": launches, "max_abs_err": t["max_abs_err"],
-            "ms": t["ms"], "issue_ms": t["issue_ms"],
+            "ms": t["ms"], "meta_ms": t["meta_ms"], "issue_ms": t["issue_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     for fam, n in family_launches.items():
@@ -1387,9 +1521,10 @@ def main() -> int:
                 "name": f"flash_attention.{mode}.{fam}", "route": "cuda",
                 "source": flash.SOURCES[route], "replaces": flash.REPLACES,
                 "launches": launches, "max_abs_err": t["max_abs_err"],
-                "ms": t["ms"], "issue_ms": t["issue_ms"],
-                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+                "ms": t["ms"], "meta_ms": t["meta_ms"],
+                "issue_ms": t["issue_ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"]})
     for name, entry, launches in (
             ("bf16", "bf16", paged_launches), ("f32", "f32", parity_paged),
             *((f"bf16.{fam}", f"bf16_{fam}", n["paged"])
@@ -1405,6 +1540,8 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     print(f"checkpoint load (phase 7): {json.dumps(load)} on {card}")
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.0f} s (limit 1200 s)", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,9 @@
 """Both flash kernels against their plain version on the card: bf16 on
 wgmma (csrc/flash_attn_wgmma.cu) and float32 on mma.sync in 3xTF32
-(csrc/flash_attn.cu). Every test is marked `cuda` and skips without a card.
+(csrc/flash_attn.cu), in the host-int form and in the device-meta form
+that a captured prefill graph replays ({row, q_offset, valid_len} read on
+the card; bench/flash_meta.py). Every test is marked `cuda` and skips
+without a card.
 This file imports no JAX, so it runs on the card's machine, which has none:
 
     python -m pytest tests/test_torch_flash_card.py -m cuda -s --noconftest
@@ -12,6 +15,7 @@ lo, each about 2^-22 of a product)."""
 import pytest
 import torch
 
+from cake_tpu_torch.bench import flash_meta
 from cake_tpu_torch.ops import flash
 
 
@@ -134,7 +138,8 @@ def test_c_entries_refuse_other_head_dims():
     stream = torch.cuda.current_stream().cuda_stream
     err = lib.cake_flash_wgmma_fwd(
         q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(), 1, 64, 64,
-        2, 2, 96, *(st * 4), 64, 288, 93288, 1.0, 1, 0, 0, 64, stream)
+        2, 2, 96, *(st * 4), 64, 288, 93288, 1.0, 1, 0, 0, 64, None, 0, 1,
+        stream)
     assert err != 0
     qf = q.float()
     lib = load_library(flash.LIBRARIES["f32"], flash._bind_f32)
@@ -142,7 +147,7 @@ def test_c_entries_refuse_other_head_dims():
     err = lib.cake_flash_attention_fwd(
         qf.data_ptr(), qf.data_ptr(), qf.data_ptr(), qf.data_ptr(), 1, 64,
         64, 2, 2, 96, *(st * 4), 16, 1, 128, 230496, 1.0, 1, 0, 0, 64,
-        stream)
+        None, 0, 1, stream)
     assert err != 0
     torch.cuda.synchronize()
 
@@ -167,7 +172,7 @@ def test_wgmma_entry_refuses_a_plan_that_is_not_its_layout(d):
         err = lib.cake_flash_wgmma_fwd(
             q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(), 1, 64,
             64, 2, 2, d, *(st * 4), plan.positions, threads, smem, 1.0, 1,
-            0, 0, 64, stream)
+            0, 0, 64, None, 0, 1, stream)
         torch.cuda.synchronize()
         assert err != 0
         assert not out.any().item()
@@ -213,7 +218,7 @@ def test_f32_entry_refuses_a_plan_that_is_not_its_layout(d):
         err = lib.cake_flash_attention_fwd(
             q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(), 1, 64,
             64, 2, 2, d, *(st * 4), rows, split, threads, smem, 1.0, 1, 0,
-            0, 64, stream)
+            0, 64, None, 0, 1, stream)
         torch.cuda.synchronize()
         assert err != 0
         assert not out.any().item()
@@ -271,7 +276,7 @@ def _launch_f32(q, k, v, kw, split):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
         k.shape[1], hq, k.shape[2], d, *st, plan.rows, split, plan.threads,
         plan.smem_bytes, flash.LOG2E / d ** 0.5, int(plan.causal),
-        plan.window, plan.q_offset, plan.kv_len,
+        plan.window, plan.q_offset, plan.kv_len, None, 0, b,
         torch.cuda.current_stream().cuda_stream))
     return out
 
@@ -294,3 +299,36 @@ def test_f32_cluster_split_matches_one_cta(case):
     assert torch.equal(first, second)
     assert (first - want).abs().max().item() <= 1e-4
     assert (first - one).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("case", flash_meta.META_CASES,
+                         ids=[c[0] for c in flash_meta.META_CASES])
+def test_meta_form_on_card(case, dtype, tol):
+    """The device-meta form: within the tolerance of the plain version,
+    the same bits as the host-int form under the same plan, the same bits
+    on two launches (D 64/128/256, fresh, append over row 2 of a pool at
+    offsets 0, 256 and 3840, a ragged valid length)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    r = flash_meta.check(flash_meta.meta_case(*case, dtype))
+    print(f"flash meta {case[0]} {flash.kernel_route(dtype)} {r}")
+    assert r["finite"] and r["max_abs_err"] <= tol
+    assert r["same_as_host_int"] and r["same_twice"]
+
+
+@pytest.mark.cuda
+def test_meta_form_refuses_a_bad_meta():
+    """A meta of another dtype, length or device raises before launching;
+    a pool K/V without the append mode's row raises in the C entry."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    c = flash_meta.meta_case(*flash_meta.META_CASES[3], torch.bfloat16)
+    for bad in (c.meta.long(), c.meta[:2], c.meta.cpu()):
+        with pytest.raises(ValueError, match="meta"):
+            flash.flash_attention_meta_kernel(c.q, c.k, c.v, bad, "append")
+    with pytest.raises(ValueError, match="do not fit"):
+        flash.flash_attention_meta_kernel(c.q, c.k, c.v, c.meta, "fresh")

@@ -1,9 +1,9 @@
 """The decode programs' in-place form on the CPU (models/common/graphs.py,
 TextModel.decode_slots_into, generate's chunks): the in-place step equals
 the eager step bit for bit, contiguous and paged; the engine never moves
-a tensor the captured step reads (every KV tensor, table and carry keeps
-its data_ptr through admissions, chunked prefill, prefix splices, a swap
-and releases); generate's chunks of 16 steps give the step-by-step
+a tensor the captured step or a captured prefill program reads (every KV
+tensor, table, carry and prefill buffer keeps its data_ptr through
+admissions, chunked prefill, prefix splices, a swap and releases); generate's chunks of 16 steps give the step-by-step
 loop's tokens with EOS in mid-chunk and with a budget that ends
 mid-chunk, and write nothing past the budget."""
 import dataclasses
@@ -87,6 +87,8 @@ def _addresses(eng) -> dict:
         kv = {f"layer{i}.{n}": t for i, lc in enumerate(eng._layers)
               for n, t in lc.items()}
     kv.update({f"carry.{n}": t for n, t in eng.carries.tensors().items()})
+    kv.update({f"prefill.{n}": t
+               for n, t in eng.prefill.io.tensors().items()})
     return {n: t.data_ptr() for n, t in kv.items()}
 
 

@@ -4,7 +4,8 @@ replays equal 16 eager steps token for token, logit for logit, KV byte
 for byte and carry for carry, contiguous and paged, over greedy and
 sampled rows and a free one; the launch counts include replays (and not
 the capture); generate's captured chunks equal the step-by-step loop; the
-engine serves through its graph. Every test is marked `cuda` and skips
+engine serves through its graph; the captured prefill programs equal the
+eager chunks bit for bit, and a recompute engine serves through them. Every test is marked `cuda` and skips
 without a card. This file imports no JAX, so it runs on the card's
 machine, which has none:
 
@@ -14,9 +15,10 @@ import pytest
 import torch
 
 from cake_tpu_torch.bench.graph_cases import (build_state, graph_vs_eager,
-                                              step_by_step)
+                                              prefill_vs_eager, step_by_step)
 from cake_tpu_torch.models import TextModel, tiny_config
 from cake_tpu_torch.models.common.graphs import DecodeGraph
+from cake_tpu_torch.ops import flash
 from cake_tpu_torch.ops import paged_attention as pa
 from cake_tpu_torch.ops.sampling import SamplingConfig
 from cake_tpu_torch.serve import ServeEngine
@@ -107,3 +109,46 @@ def test_engine_serves_through_its_graph(model):
             eng.close()
     together = serve(jobs)
     assert [serve([job])[0] for job in jobs] == together
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_blocks", [0, 256], ids=["contiguous", "paged"])
+def test_prefill_graphs_equal_eager_on_card(model, kv_blocks):
+    """600 tokens in chunks (fresh 256, append 256, masked tail) into row
+    2 through the captured prefill programs, every program captured under
+    the sync-debug check: logits and KV bytes equal to the eager chunks;
+    a replay launches the flash kernel once per layer."""
+    r = prefill_vs_eager(model, [3 + i % 500 for i in range(600)], 2, 4, CTX,
+                         kv_blocks=kv_blocks, strict=True,
+                         tenant=list(range(7, 307)))
+    assert all(g.graph is not None for g in r.graphs.graphs.values())
+    assert [x["key"] for x in r.results] == [(256, "fresh"),
+                                             (256, "append"), (128, "off")]
+    assert all(x["logits_equal"] for x in r.results) and r.kv_equal
+    flash.reset_launches()
+    r.graph_chunk(1)()
+    torch.cuda.synchronize()
+    assert flash.launch_counts()["bf16"] == {
+        "fresh": 0, "append": model.cfg.num_hidden_layers}
+
+
+@pytest.mark.cuda
+def test_recompute_engine_serves_through_its_graphs(model):
+    """Two streams outgrow a 40-block paged pool under recompute: each
+    equals its run alone, a replay ran through the prefill graphs."""
+    jobs = [(list(range(40, 340)), GREEDY), (list(range(7, 300)), GREEDY)]
+
+    def serve(jobs, blocks):
+        eng = ServeEngine(model, slots=2, ctx_len=CTX, kv_blocks=blocks,
+                          preempt_mode="recompute")
+        try:
+            reqs = [eng.submit(p, 120, s) for p, s in jobs]
+            for r in reqs:
+                assert r.wait(300) and "error" not in r.result
+            return [r.result["tokens"] for r in reqs], eng.health()
+        finally:
+            eng.close()
+    together, h = serve(jobs, 40)
+    assert h["kv_pool"]["replays"] >= 1
+    assert h["prefill_graphs"]["replays"] > 0
+    assert [serve([job], 128)[0][0] for job in jobs] == together

@@ -501,8 +501,8 @@ def test_pool_too_small_refuses_and_fails_typed(pair):
         assert ok == [tm.generate(PROMPTS[3], max_new_tokens=6)[0]]
     finally:
         eng.close()
-    with pytest.raises(ValueError, match="swap"):
-        _engine(tm, kv_blocks=12, preempt_mode="recompute")
+    with pytest.raises(ValueError, match="preempt_mode"):
+        _engine(tm, kv_blocks=12, preempt_mode="drop")
 
 
 def test_resume_gate_reclaims_cache_pins(pair):
