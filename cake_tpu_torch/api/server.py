@@ -1,9 +1,11 @@
 """HTTP front end on the standard library (counterpart of
 cake_tpu/api/server.py): `POST /v1/chat/completions`, `GET /v1/models`
-and `GET /health` (the engine's health, with its `prefix_cache` and, in
-paged mode, `kv_pool` blocks). A ThreadingHTTPServer gives each connection a thread;
-those threads only submit to the engine and wait on its queues, so no
-aiohttp is needed.
+and `GET /health` (the engine's health, with its `prefix_cache`, in paged
+mode its `kv_pool` block, and the supervisor's counts; 503 "degraded"
+while the engine is dead, wedged or DOWN, as the reference's
+api/obs_routes.py answers). A ThreadingHTTPServer gives each connection a
+thread; those threads only submit to the engine and wait on its queues,
+so no aiohttp is needed.
 """
 from __future__ import annotations
 
@@ -16,6 +18,10 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from .text import chat_completions
 
 log = logging.getLogger("cake_tpu_torch.api")
+
+# the coarse wedge fallback for an engine without a watchdog: work pending
+# and no scheduler iteration for this long (the reference's)
+ENGINE_WEDGED_S = 120.0
 
 
 @dataclass
@@ -50,9 +56,14 @@ class _Handler(BaseHTTPRequestHandler):
     def do_GET(self):
         if self.path == "/health":
             h = self.state.engine.health()
-            ok = h["alive"] and not h["draining"]
-            return self.send_json({"status": "ok" if ok else "unavailable",
-                                   "engine": h}, 200 if ok else 503)
+            busy = h["slots_busy"] or h["queue_depth"]
+            h["wedged"] = bool(h["wedged"]) or bool(
+                busy and h["last_step_age_s"] > ENGINE_WEDGED_S)
+            degraded = not h["alive"] or h["wedged"] or "down" in h
+            status = ("degraded" if degraded
+                      else "unavailable" if h["draining"] else "ok")
+            return self.send_json({"status": status, "engine": h},
+                                  200 if status == "ok" else 503)
         if self.path == "/v1/models":
             return self.send_json({"object": "list", "data": [{
                 "id": self.state.model_id, "object": "model",

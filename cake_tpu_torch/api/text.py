@@ -1,9 +1,11 @@
 """OpenAI-compatible chat completions over the serve engine (counterpart
 of cake_tpu/api/text.py: chat_completions, the sampling grid, usage and
-finish_reason), for the standard-library HTTP server in server.py.
+finish_reason, stop sequences, continuation mode and the typed engine
+errors), for the standard-library HTTP server in server.py.
 
-Blocking JSON and SSE streaming (`"stream": true`). Left out so far: stop
-sequences, continuation mode, QoS headers and the fleet KV handshakes.
+Blocking JSON and SSE streaming (`"stream": true`). Left out so far: QoS
+headers and the fleet KV handshakes (the continuation-chars header among
+them).
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import time
 import uuid
 
 from ..ops.sampling import SamplingConfig
-from ..serve import EngineDown, EngineDraining, QueueFull
+from ..serve import EngineDown, EngineDraining, PoisonedRequest, QueueFull
 from ..tokenizer import PromptError
 
 log = logging.getLogger("cake_tpu_torch.api")
@@ -55,6 +57,77 @@ def gen_kwargs(body: dict) -> dict:
         raise ValueError("max_tokens must be >= 1")
     return {"max_new_tokens": max_new,
             "sampling": sampling_from_request(body)}
+
+
+MAX_STOPS = 4           # OpenAI caps `stop` at 4 sequences
+
+
+def stops_from_request(body: dict) -> list[str]:
+    """Validated OpenAI `stop` field: a string or a list of up to 4
+    non-empty strings (empty / None = no stop sequences)."""
+    stop = body.get("stop")
+    if stop is None:
+        return []
+    if isinstance(stop, str):
+        return [stop] if stop else []
+    if isinstance(stop, list):
+        if len(stop) > MAX_STOPS:
+            raise ValueError(f"stop accepts at most {MAX_STOPS} sequences")
+        for s in stop:
+            if not isinstance(s, str) or not s:
+                raise ValueError("stop sequences must be non-empty strings")
+        return list(stop)
+    raise ValueError("stop must be a string or a list of strings")
+
+
+def apply_stop(text: str, stops: list[str]) -> tuple[str, bool]:
+    """Trim `text` at the EARLIEST occurrence of any stop sequence (the
+    matched text excluded, OpenAI semantics). Returns (text, matched)."""
+    best = -1
+    for s in stops:
+        i = text.find(s)
+        if i >= 0 and (best < 0 or i < best):
+            best = i
+    return (text[:best], True) if best >= 0 else (text, False)
+
+
+class StopMatcher:
+    """Incremental stop-sequence scanner for a stream of text pieces.
+
+    feed() returns the text that is SAFE to emit: everything up to (and
+    excluding) a completed stop match, holding back the longest suffix
+    that could still be the prefix of a match split across pieces (max
+    stop length - 1 chars). flush() releases the held tail when the
+    stream ends without a match, so a client never sees any part of a
+    stop sequence, and never loses text to the holdback.
+    """
+
+    def __init__(self, stops: list[str]):
+        self.stops = [s for s in stops if s]
+        self.hold = max((len(s) for s in self.stops), default=1) - 1
+        self.buf = ""
+        self.stopped = False
+
+    def feed(self, piece: str) -> str:
+        if self.stopped or not piece:
+            return ""
+        self.buf += piece
+        trimmed, matched = apply_stop(self.buf, self.stops)
+        if matched:
+            self.stopped = True
+            self.buf = ""
+            return trimmed
+        if self.hold and len(self.buf) > self.hold:
+            safe, self.buf = self.buf[:-self.hold], self.buf[-self.hold:]
+            return safe
+        if not self.hold:
+            safe, self.buf = self.buf, ""
+            return safe
+        return ""
+
+    def flush(self) -> str:
+        tail, self.buf = self.buf, ""
+        return "" if self.stopped else tail
 
 
 def _completion_id() -> str:
@@ -106,9 +179,15 @@ class TextStream:
 
 
 def completion_json(state, cid: str, toks: list[int], stats: dict,
-                    n_in: int) -> dict:
+                    n_in: int, stops: list[str] | None = None) -> dict:
+    """The blocking chat.completion body. `stops`: the content is trimmed
+    at the earliest match, and finish_reason becomes "stop"."""
     ended = bool(toks) and state.model.cfg.is_eos(toks[-1])
     content_ids = toks[:-1] if ended else toks
+    text = decode_text(state.tokenizer, content_ids)
+    if stops:
+        text, matched = apply_stop(text, stops)
+        ended = ended or matched
     return {
         "id": cid,
         "object": "chat.completion",
@@ -116,9 +195,7 @@ def completion_json(state, cid: str, toks: list[int], stats: dict,
         "model": state.model_id,
         "choices": [{
             "index": 0,
-            "message": {"role": "assistant",
-                        "content": decode_text(state.tokenizer,
-                                               content_ids)},
+            "message": {"role": "assistant", "content": text},
             "finish_reason": "stop" if ended else "length",
         }],
         "usage": {
@@ -154,13 +231,26 @@ def chat_completions(handler, state) -> None:
         if not isinstance(m, dict) or "role" not in m or "content" not in m:
             return handler.send_json(
                 {"error": "each message needs role and content"}, 400)
+    # continuation mode: a final assistant message with "continue": true
+    # is a PARTIAL turn, and generation continues that same message
+    continuation = bool(messages[-1].get("continue"))
+    if continuation and messages[-1].get("role") != "assistant":
+        return handler.send_json(
+            {"error": '"continue": true requires the final message to be '
+                      "role=assistant (the partial turn being continued)"},
+            400)
     try:
+        # validated before submit, so that a stream never commits to a 200
+        # for a bad request
         kw = gen_kwargs(body)
+        stops = stops_from_request(body)
     except (TypeError, ValueError) as e:
         return handler.send_json({"error": f"invalid sampling params: {e}"},
                                  400)
     try:
-        prompt_ids = state.tokenizer.chat_prompt_ids(messages)
+        prompt_ids = (state.tokenizer.continuation_prompt_ids(messages)
+                      if continuation
+                      else state.tokenizer.chat_prompt_ids(messages))
     except Exception as e:
         if not _client_fault(e):
             log.exception("building the prompt of %d messages failed",
@@ -174,27 +264,71 @@ def chat_completions(handler, state) -> None:
     except QueueFull as e:
         return handler.send_json({"error": str(e)}, 429,
                                  {"Retry-After": str(e.retry_after_s)})
-    except (EngineDraining, EngineDown) as e:
+    except EngineDraining as e:
         return handler.send_json({"error": str(e)}, 503,
                                  {"Retry-After": str(e.retry_after_s)})
+    except (EngineDown, PoisonedRequest) as e:
+        return _send_typed_error(handler, e)
     except ValueError as e:
         return handler.send_json({"error": str(e)}, 400)
     if body.get("stream"):
-        return _stream(handler, state, cid, req)
-    req.wait()
+        return _stream(handler, state, cid, req, stops)
+    if stops:
+        _cancel_at_stop(state, req, stops)
+    else:
+        req.wait()
     if "error" in req.result:
-        return handler.send_json(
-            {"error": f"generation failed: {req.result['error']}"}, 500)
+        err = req.result["error"]
+        if isinstance(err, (EngineDown, PoisonedRequest)):
+            return _send_typed_error(handler, err)
+        return handler.send_json({"error": f"generation failed: {err}"},
+                                 500)
     return handler.send_json(completion_json(
         state, cid, req.result["tokens"], req.result["stats"],
-        len(prompt_ids)))
+        len(prompt_ids), stops))
 
 
-def _stream(handler, state, cid: str, req) -> None:
+def _send_typed_error(handler, err) -> None:
+    """A typed engine failure's documented status (the reference's
+    _typed_error_response): 503 + Retry-After for a down engine, 500 for
+    a poisoned request."""
+    if isinstance(err, EngineDown):
+        return handler.send_json({"error": str(err)}, 503,
+                                 {"Retry-After": str(err.retry_after_s)})
+    return handler.send_json({"error": str(err)}, 500)
+
+
+def _cancel_at_stop(state, req, stops: list[str]) -> None:
+    """Wait for a blocking request while watching its text, and cancel it
+    at the first completed stop match, so that its slot frees instead of
+    decoding to its budget (completion_json trims the text either way)."""
+    matcher, text = StopMatcher(stops), TextStream(state.tokenizer)
+    try:
+        for tok in state.engine.stream(req):
+            if not (matcher.stopped or tok.is_end_of_stream):
+                matcher.feed(text.push(tok.id))
+                if matcher.stopped:
+                    req.cancel()
+    except Exception:
+        pass            # the request's error is in req.result, read next
+
+
+def _stream(handler, state, cid: str, req,
+            stops: list[str] | None = None) -> None:
     """SSE: a role chunk, one content chunk per token (a character split
     over tokens goes out with its last token: TextStream), a final chunk
     with finish_reason, then [DONE]. A client that goes away cancels the
-    request, which frees its slot."""
+    request, which frees its slot. `stops`: no part of a stop sequence is
+    ever sent (a StopMatcher over the deltas holds back a possible partial
+    match), the stream finishes with finish_reason "stop" at a match and
+    the request is cancelled there. Nothing is committed before the
+    request is admitted: one refused outright (engine down, poisoned)
+    answers its typed status instead of an in-band error chunk."""
+    while not (req.admitted.is_set() or req.done.is_set()):
+        req.done.wait(0.02)
+    err = req.result.get("error") if req.done.is_set() else None
+    if isinstance(err, (EngineDown, PoisonedRequest)):
+        return _send_typed_error(handler, err)
     created = int(time.time())
 
     def chunk(delta: dict, finish=None) -> bytes:
@@ -211,17 +345,38 @@ def _stream(handler, state, cid: str, req) -> None:
     finish = "length"
     tokens = state.engine.stream(req)
     text = TextStream(state.tokenizer)
+    matcher = StopMatcher(stops) if stops else None
+    matched = False
+
+    def write(delta: str) -> None:
+        if delta:
+            handler.wfile.write(chunk({"content": delta}))
+            handler.wfile.flush()
+
+    def emit(delta: str) -> None:
+        nonlocal matched
+        if matcher is not None:
+            delta = matcher.feed(delta)
+            if matcher.stopped:
+                # nothing past the match is ever sent; the request stops
+                # here, and the loop drains to its end
+                matched = True
+                req.cancel()
+        write(delta)
     try:
         handler.wfile.write(chunk({"role": "assistant"}))
         try:
             for tok in tokens:
                 if tok.is_end_of_stream:
                     finish = "stop"
-                elif delta := text.push(tok.id):
-                    handler.wfile.write(chunk({"content": delta}))
-                    handler.wfile.flush()
-            if rest := text.flush():
-                handler.wfile.write(chunk({"content": rest}))
+                elif not matched:
+                    emit(text.push(tok.id))
+            if not matched:
+                emit(text.flush())
+            if matched:
+                finish = "stop"
+            elif matcher is not None:
+                write(matcher.flush())  # the held-back tail, unmatched
         except Exception as e:      # generation failed mid-stream
             handler.wfile.write(chunk({"content": f"\n[error: {e}]"}))
             finish = "error"

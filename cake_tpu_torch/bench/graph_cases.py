@@ -26,6 +26,10 @@ PrefillGraphs over prefill_chunk_into / prefill_chunk_paged_into) against
 the eager host-int chunks (prefill_chunk / prefill_chunk_paged), from one
 state: the same prompt in chunks into the same row of two copies of a
 pool, logits and every KV byte compared (the paged sink aside).
+
+`engine_addresses` names every tensor a serve engine's captured programs
+read or write with its data_ptr: a rebuild must leave all of them where
+they were.
 """
 from __future__ import annotations
 
@@ -307,3 +311,23 @@ def prefill_vs_eager(model, ids: list[int], slot: int, slots: int, ctx: int,
         return lambda: eager_run(eager, slot, part, p0)
     return PrefillCase(graphs, chunks, results, kv_equal, capture_s,
                        graph_chunk, eager_chunk)
+
+
+def engine_addresses(engine) -> dict[str, int]:
+    """data_ptr of every tensor a ServeEngine's decode graph and prefill
+    programs read or write: the carries, the prefill buffers, and the KV
+    (contiguous rows, or the paged pool, rows and block tables)."""
+    out = {f"carries.{n}": t.data_ptr()
+           for n, t in engine.carries.tensors().items()}
+    out.update({f"io.{n}": t.data_ptr()
+                for n, t in engine.prefill.io.tensors().items()})
+    if engine.paged is not None:
+        kv = {"pool": engine.paged.pool, "rows": engine.paged.rows}
+        out["tables"] = engine.paged.tables.data_ptr()
+    else:
+        kv = {"layers": engine._layers}
+    for name, layers in kv.items():
+        for i, lc in enumerate(layers):
+            out.update({f"{name}{i}.{k}": t.data_ptr()
+                        for k, t in lc.items()})
+    return out

@@ -16,7 +16,12 @@ reference's defaults: the shared-prefix cache on at 256 MB, and a
 contiguous KV pool unless `--kv-blocks` asks for a paged one, whose
 victims under pressure are swapped to host memory or, with
 `--preempt-mode recompute`, replayed at resume (default: the
-CAKE_PREEMPT_MODE environment variable, else "swap"). `--seed`
+CAKE_PREEMPT_MODE environment variable, else "swap"). The supervisor's
+knobs come from the environment, as the reference reads them:
+CAKE_STEP_WATCHDOG_S (0, off), CAKE_ENGINE_REBUILDS (3) per rolling
+CAKE_ENGINE_REBUILD_WINDOW_S (300), and CAKE_ENGINE_RESTORE_S (5), the
+probe interval while DOWN; CAKE_SERVE_FAULT_PLAN installs a fault plan
+(serve/faults.py). `--seed`
 seeds the sampling keys (serve: one key per admission; run: the
 request's) and the flagship's weights. `run` decodes through generate's
 captured chunks of 16 steps.
@@ -82,6 +87,17 @@ def load_model(args, max_cache_len: int = 2048):
                             device=device)
 
 
+def supervisor_knobs(env) -> dict:
+    """The engine's supervisor kwargs from the environment's CAKE_*
+    variables (the reference's knobs); unset ones keep the defaults."""
+    knobs = {"step_watchdog_s": ("CAKE_STEP_WATCHDOG_S", float),
+             "rebuild_budget": ("CAKE_ENGINE_REBUILDS", int),
+             "rebuild_window_s": ("CAKE_ENGINE_REBUILD_WINDOW_S", float),
+             "restore_interval_s": ("CAKE_ENGINE_RESTORE_S", float)}
+    return {kw: cast(env[name]) for kw, (name, cast) in knobs.items()
+            if env.get(name)}
+
+
 def build_server(args):
     """The serve command's HTTP server (not started) over its engine."""
     from .api.server import create_app
@@ -92,7 +108,8 @@ def build_server(args):
                          prefix_cache_mb=args.prefix_cache_mb,
                          kv_blocks=args.kv_blocks,
                          kv_block_tokens=args.kv_block_tokens,
-                         preempt_mode=args.preempt_mode)
+                         preempt_mode=args.preempt_mode,
+                         **supervisor_knobs(os.environ))
     return create_app(model, engine, tokenizer, args.host, args.port,
                       model_id=model_id)
 

@@ -143,6 +143,19 @@ def slot_reset_layers(layers: list[dict], slot: int) -> list[dict]:
     return layers
 
 
+def reset_layers(layers: list[dict]) -> list[dict]:
+    """Clear every row (or every block of a block pool, sink included) in
+    place, as freshly built: positions -1, K/V zero. Empty dicts are
+    skipped."""
+    for lc in layers:
+        if not lc:
+            continue
+        lc["k"].zero_()
+        lc["v"].zero_()
+        lc["pos"].fill_(-1)
+    return layers
+
+
 # -- prefix blocks: copy out of a row and back --------------------------------
 
 

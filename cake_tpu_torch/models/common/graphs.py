@@ -83,28 +83,37 @@ class DecodeCarries:
     packed: torch.Tensor
     logits: torch.Tensor
 
+    @staticmethod
+    def _fresh(vocab: int) -> dict:
+        """Each carry's fill value: every row inactive and greedy."""
+        return dict(toks=0, pos=0, recents=-1, keys=0, counters=0,
+                    temps=0.0, top_ks=vocab, top_ps=1.0, pens=1.0,
+                    active=False, packed=0, logits=0.0)
+
     @classmethod
     def build(cls, batch: int, vocab: int, recent_n: int,
               device) -> "DecodeCarries":
         """Every row inactive and greedy, on `device`."""
-        def full(shape, value, dtype):
-            return torch.full(shape, value, dtype=dtype, device=device)
-        return cls(
-            toks=full((batch,), 0, torch.int32),
-            pos=full((batch,), 0, torch.int32),
-            recents=full((batch, recent_n), -1, torch.int32),
-            keys=full((batch,), 0, torch.int64),
-            counters=full((batch,), 0, torch.int64),
-            temps=full((batch,), 0.0, torch.float32),
-            top_ks=full((batch,), vocab, torch.int32),
-            top_ps=full((batch,), 1.0, torch.float32),
-            pens=full((batch,), 1.0, torch.float32),
-            active=full((batch,), False, torch.bool),
-            packed=full((2, batch), 0, torch.int32),
-            logits=full((batch, vocab), 0.0, torch.float32))
+        shapes = dict(recents=(batch, recent_n), packed=(2, batch),
+                      logits=(batch, vocab))
+        dtypes = dict(toks=torch.int32, pos=torch.int32,
+                      recents=torch.int32, keys=torch.int64,
+                      counters=torch.int64, temps=torch.float32,
+                      top_ks=torch.int32, top_ps=torch.float32,
+                      pens=torch.float32, active=torch.bool,
+                      packed=torch.int32, logits=torch.float32)
+        return cls(**{name: torch.full(shapes.get(name, (batch,)), value,
+                                       dtype=dtypes[name], device=device)
+                      for name, value in cls._fresh(vocab).items()})
 
     def tensors(self) -> dict[str, torch.Tensor]:
         return {f.name: getattr(self, f.name) for f in fields(self)}
+
+    def reset(self) -> None:
+        """Every row inactive and greedy again, written in place (the
+        graphs keep reading these addresses; nothing is allocated)."""
+        for name, value in self._fresh(self.logits.shape[1]).items():
+            getattr(self, name).fill_(value)
 
     def clone(self) -> "DecodeCarries":
         return DecodeCarries(**{n: t.clone()

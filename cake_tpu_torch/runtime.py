@@ -19,7 +19,7 @@ import time
 from .device import parse_dtype, resolve_device
 from .models.common.config import config_from_hf_dict
 from .models.common.text_model import TextModel
-from .tokenizer import PromptError, render_chat
+from .tokenizer import PromptError, continuation_parts, render_chat
 from .utils.bpe import BpeTokenizer
 from .utils.chat_template import ChatTemplate, special_tokens, template_source
 from .utils.hub import resolve_model
@@ -76,6 +76,13 @@ class CakeTokenizer:
 
     def chat_prompt_ids(self, messages: list[dict]) -> list[int]:
         return self.encode_chat_prompt(self.apply_chat(messages))
+
+    def continuation_prompt_ids(self, messages: list[dict]) -> list[int]:
+        """Continuation mode: the history templated with its generation
+        prompt, then the partial assistant turn verbatim (the reference's
+        continuation_prompt_ids, text_model.py:1311)."""
+        head, partial = continuation_parts(messages)
+        return self.encode_chat_prompt(self.apply_chat(head) + partial)
 
 
 def load_config_and_quant(model_dir: str, arch: str | None = None):

@@ -35,8 +35,24 @@ between two replays writes them in place and nothing rebinds them. The
 decode graph and the prefill programs the engine can reach are captured
 when the scheduler thread starts; a prefill program past the buffer's end
 is captured at its first use. There is no fallback to an eager prefill
-or step on a card: a capture error fails the constructor (or, at first
-use, kills the engine), a replay error kills the engine.
+or step on a card: a capture error at start fails the constructor; any
+later failure (a capture at first use, a replay, the fetch) goes to the
+supervisor.
+
+The engine is crash-only (supervisor.py owns the policy, the reference's
+cake_tpu/serve/supervisor.py): a step failure is classified, the device
+state is reset IN PLACE (every captured graph keeps its addresses), and
+`_rebuild` replays every live slot's prompt + generated tokens through
+the captured prefill programs; a greedy continuation is bit-identical.
+A request implicated in two consecutive crashes is quarantined and fails
+alone (PoisonedRequest). Rebuilds are budgeted; past the budget the
+engine goes DOWN (EngineDown, 503 + Retry-After) and a restore loop
+probes the device with a trial chunk until one succeeds. A watchdog
+flags a dispatch stuck past `step_watchdog_s` as wedged. A sticky CUDA
+error (an illegal address) leaves the process's CUDA context unusable:
+every rebuild and probe after it fails, and the engine stays DOWN until
+the process restarts. `dead` is reached only when the supervisor itself
+fails.
 
 Sampling: each admission gets its own key, request_key(seed, seq) (the
 reference's fold_in(base, seq)), and draws its noise from (key, counter)
@@ -53,9 +69,8 @@ fresh key, request_key(seed, seq) with the next seq, as the reference
 documents. A mid-prefill admission is requeued for a clean restart
 either way (labelled "recompute", as the reference labels it).
 Left out of this port so far (see ROADMAP.md): speculative decoding,
-the crash-recovery supervisor, QoS lanes and victim classes, deadlines,
-the fleet KV tier and the metrics plane. A failure on the scheduler
-thread fails every request and marks the engine dead.
+QoS lanes and victim classes, deadlines, the fleet KV tier and the
+metrics plane.
 """
 from __future__ import annotations
 
@@ -68,13 +83,18 @@ import uuid
 
 import torch
 
-from ..models.common.cache import kv_capacity
+from ..models.common.cache import kv_capacity, reset_layers
 from ..models.common.graphs import DecodeCarries, DecodeGraph
 from ..models.common.text_model import prefill_start_keys
 from ..ops.sampling import SamplingConfig, request_key
+from . import faults
+from .flight import FlightRecorder
 from .paged.pool import KVPoolExhausted, PagedKV
 from .paged.preempt import PreemptedSlot, choose_victim, victim_rank
 from .prefix_cache import PagedPrefixCache, PrefixCache
+from .supervisor import (DEFAULT_REBUILD_BUDGET, DEFAULT_REBUILD_WINDOW_S,
+                         DEFAULT_RESTORE_INTERVAL_S, DEFAULT_STEP_WATCHDOG_S,
+                         EngineDown, PoisonedRequest, Supervisor)
 
 log = logging.getLogger("cake_tpu_torch.serve")
 
@@ -97,12 +117,6 @@ class QueueFull(RuntimeError):
 class EngineDraining(RuntimeError):
     def __init__(self, retry_after_s: int = 5):
         super().__init__("serve engine draining for shutdown")
-        self.retry_after_s = retry_after_s
-
-
-class EngineDown(RuntimeError):
-    def __init__(self, msg: str, retry_after_s: int = 30):
-        super().__init__(msg)
         self.retry_after_s = retry_after_s
 
 
@@ -252,12 +266,20 @@ class ServeEngine:
                  prefix_cache_mb: float = DEFAULT_PREFIX_CACHE_MB,
                  kv_blocks: int = 0,
                  kv_block_tokens: int = DEFAULT_KV_BLOCK_TOKENS,
-                 preempt_mode: str = "swap"):
+                 preempt_mode: str = "swap",
+                 step_watchdog_s: float = DEFAULT_STEP_WATCHDOG_S,
+                 rebuild_budget: int = DEFAULT_REBUILD_BUDGET,
+                 rebuild_window_s: float = DEFAULT_REBUILD_WINDOW_S,
+                 restore_interval_s: float = DEFAULT_RESTORE_INTERVAL_S):
         """kv_blocks > 0 replaces the contiguous pool (slots x ctx rows)
         with a shared pool of that many blocks of kv_block_tokens tokens;
         prefix_cache_mb <= 0 turns the shared-prefix cache off;
         preempt_mode ("swap" or "recompute") is how a paged pool under
-        pressure parks a decoding victim."""
+        pressure parks a decoding victim. The supervisor's knobs: a
+        dispatch in flight past step_watchdog_s flags the engine wedged
+        (0: no watchdog); rebuild_budget rebuilds per rolling
+        rebuild_window_s, past which the engine goes DOWN and probes the
+        device every restore_interval_s."""
         if preempt_mode not in PREEMPT_MODES:
             raise ValueError(f"preempt_mode must be one of {PREEMPT_MODES},"
                              f" got {preempt_mode!r}")
@@ -274,7 +296,8 @@ class ServeEngine:
         self._vocab = model.cfg.vocab_size
         self.paged: PagedKV | None = None
         self._init_device_state()
-        self.prefix_cache = self._build_prefix_cache(prefix_cache_mb)
+        self._prefix_cache_mb = prefix_cache_mb
+        self.prefix_cache = self._build_prefix_cache()
         self._reqs: list[ServeRequest | None] = [None] * slots
         self._prefills: list[_Prefill] = []
         self._preempted: list[PreemptedSlot] = []
@@ -289,6 +312,13 @@ class ServeEngine:
         self.dead: BaseException | None = None
         self.graph = None               # the decode step's DecodeGraph
         self.capture_s = 0.0            # seconds capturing at start
+        self.last_rebuild: dict | None = None   # the last _rebuild's record
+        # the ring the supervisor dumps on a wedge or DOWN (flight.py)
+        self.flight = FlightRecorder()
+        self.supervisor = Supervisor(
+            self, watchdog_s=step_watchdog_s, rebuild_budget=rebuild_budget,
+            rebuild_window_s=rebuild_window_s,
+            restore_interval_s=restore_interval_s)
         self._ready = threading.Event()
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="cake-torch-serve")
@@ -335,11 +365,24 @@ class ServeEngine:
         layers = self._layers
         return lambda: model.decode_slots_into(layers, c)
 
-    def _build_prefix_cache(self, capacity_mb: float):
-        """Mode-matched prefix cache: the paged one pins pool blocks by
-        refcount (a hit is a table remap, no KV copy) and is the
+    def _reset_device_state(self):
+        """Back to the state of a fresh engine, IN PLACE: every contiguous
+        row, or every paged block, row and table entry, wiped, the block
+        allocator fresh, every carry inactive. Nothing is rebound, so the
+        decode graph and every prefill program go on reading the same
+        addresses, and nothing is allocated."""
+        if self.paged is not None:
+            self.paged.reset()
+        else:
+            reset_layers(self._layers)
+        self.carries.reset()
+
+    def _build_prefix_cache(self):
+        """Mode-matched prefix cache, empty: the paged one pins pool blocks
+        by refcount (a hit is a table remap, no KV copy) and is the
         allocator's under-pressure evictor; the contiguous one keeps
         private block copies."""
+        capacity_mb = self._prefix_cache_mb
         if self.paged is not None:
             pc = PagedPrefixCache.build_paged(self.model, self.paged,
                                               self.chunk, capacity_mb)
@@ -348,6 +391,12 @@ class ServeEngine:
         return PrefixCache.build(self.model, self.ctx, self.chunk,
                                  capacity_mb)
 
+    def _sync_device(self):
+        """Wait for the device on a card (a no-op on the CPU): a fault of
+        the work queued so far surfaces here."""
+        if self.model.device.type == "cuda":
+            torch.cuda.synchronize(self.model.device)
+
     # -- client surface (any thread) ----------------------------------------
 
     def submit(self, prompt_ids: list[int], max_new_tokens: int = 256,
@@ -355,11 +404,19 @@ class ServeEngine:
                request_id: str | None = None) -> ServeRequest:
         """Enqueue a generation. Raises QueueFull under backpressure,
         EngineDraining while shutting down, EngineDown when the scheduler
-        died, ValueError for prompts a slot can never hold."""
+        died or while the engine is DOWN (rebuild budget exhausted),
+        PoisonedRequest for a quarantined prompt, ValueError for prompts a
+        slot can never hold."""
         if self.dead is not None or not self._thread.is_alive():
-            raise EngineDown(f"serve engine is down: {self.dead}")
+            raise self._down_error()
+        if self.supervisor.is_down():
+            raise self._down_error()
         if self._draining.is_set():
             raise EngineDraining()
+        if self.supervisor.is_quarantined(prompt_ids):
+            raise PoisonedRequest(
+                "request fingerprint quarantined: an identical prompt was "
+                "implicated in repeated engine crashes")
         n = len(prompt_ids)
         if n < 1:
             raise ValueError("empty prompt")
@@ -377,7 +434,28 @@ class ServeEngine:
         # admitted even though the scheduler drains one per iteration
         self.queue.put(req, allow_extra=self.pool.free_count)
         self._wake.set()
+        if self.dead is not None or self.supervisor.is_down():
+            # the scheduler died (or went down) between the check above
+            # and the put: its drain may have missed this request, so
+            # release the waiter here (a second fail is harmless)
+            self.queue.purge(lambda r: r is req)
+            err = self._down_error()
+            self._fail(req, err)
+            raise err
         return req
+
+    def _down_error(self) -> EngineDown:
+        """The typed refusal of a dead engine, or of one DOWN (its
+        Retry-After past the restore loop's next probe)."""
+        if self.dead is not None or not self._thread.is_alive():
+            return EngineDown(f"serve engine is down: {self.dead}",
+                              retry_after_s=30)
+        down = self.supervisor.down_info() or {}
+        return EngineDown(
+            f"serve engine down for {down.get('down_for_s', 0.0)}s "
+            f"(rebuild budget exhausted: "
+            f"{down.get('last_failure', 'unknown failure')}); restore loop "
+            "probing", retry_after_s=self.supervisor.retry_after_s())
 
     def stream(self, req: ServeRequest):
         """Iterator over the request's Tokens (blocking). Closing it early
@@ -395,6 +473,7 @@ class ServeEngine:
             raise req.result["error"]
 
     def health(self) -> dict:
+        sup = self.supervisor
         h = {
             "alive": self.dead is None and self._thread.is_alive(),
             "slots": self.slots,
@@ -409,7 +488,23 @@ class ServeEngine:
             "prefill_graphs": {"programs": len(self.prefill.graphs),
                                "replays": self.prefill.replays,
                                "capture_s": round(self.capture_s, 3)},
+            # supervision: lifetime recovery counts and the live wedge flag
+            "rebuilds": sup.rebuild_count,
+            "wedged": sup.wedged(),
+            "wedges": sup.wedge_count,
+            "step_failures": dict(sup.failures),
         }
+        lf = sup.last_failure()
+        if lf is not None:
+            h["last_failure"] = lf
+        down = sup.down_info()
+        if down is not None:
+            h["down"] = down
+        q = sup.quarantined_count()
+        if q:
+            h["quarantined"] = q
+        if self.last_rebuild is not None:
+            h["last_rebuild"] = dict(self.last_rebuild)
         pc = self.prefix_cache
         if pc is not None:
             h["prefix_cache"] = pc.occupancy()
@@ -487,22 +582,47 @@ class ServeEngine:
             return
         finally:
             self._ready.set()
-        try:
-            while not self._stop.is_set():
-                worked = self._step()
-                self.last_step = time.perf_counter()
-                if worked:
-                    self.steps += 1
-                else:
-                    self._wake.wait(0.5)
-                    self._wake.clear()
-        except BaseException as e:      # terminal: release every waiter
-            log.exception("serve engine died")
-            self._die(e)
-            if not isinstance(e, Exception):
-                raise
+        # the supervision shell (the reference's, engine.py:707-743): a
+        # failure escaping `_run` goes to the supervisor's recovery state
+        # machine (classify -> rebuild by replay -> budget -> DOWN); only
+        # when the supervisor itself fails, or gives up, does the engine
+        # fall to the terminal `dead` state
+        while not self._stop.is_set():
+            try:
+                self._run()
+                return                      # clean stop
+            except BaseException as e:
+                try:
+                    recovered = self.supervisor.on_failure(e)
+                except BaseException as sup_exc:
+                    log.exception("serve supervisor failed")
+                    self._die(sup_exc)      # supervisor bug: last resort
+                    return
+                if not recovered:
+                    log.error("serve engine died: %r", e)
+                    self._die(e)
+                    if not isinstance(e, Exception):
+                        raise
+                    return
+
+    def _run(self):
+        sup = self.supervisor
+        while not self._stop.is_set():
+            if sup.is_down():
+                self._down_cycle()
+                continue
+            worked = self._step()
+            sup.disarm()
+            self.last_step = time.perf_counter()
+            if worked:
+                self.steps += 1
+                sup.note_ok()
+            else:
+                self._wake.wait(0.5)
+                self._wake.clear()
 
     def _die(self, e: BaseException):
+        """Terminal failure: every waiter is released, loudly."""
         self.dead = e
         self._prefills.clear()
         for req in self.queue.drain():
@@ -514,7 +634,49 @@ class ServeEngine:
                 req.result.setdefault("error", e)
                 self._finish(i, req, cancelled=True, release=False)
 
+    # -- degraded mode (rebuild budget exhausted) ---------------------------
+
+    def _down_cycle(self):
+        """One turn of the restore loop while the engine is DOWN: shed
+        whatever raced into the queue, wait restore_interval_s, then probe
+        the device with a trial chunk. Success reopens admission; failure
+        stays down for the next probe."""
+        sup = self.supervisor
+        for req in self.queue.drain():
+            self._fail(req, self._down_error())
+        if self._stop.wait(sup.restore_interval_s):
+            return
+        try:
+            sup.arm("trial", (), grace=True)
+            self._reset_device_state()
+            if self.paged is not None:
+                self.paged.reserve_range(0, 0, 1)
+            self.prefill.run(0, [1], 0)
+            self._release_row(0)
+            # the replay above is asynchronous on a card: a broken device
+            # surfaces its error here, inside the probe's try
+            self._sync_device()
+            sup.disarm()
+        except Exception as e:
+            sup.disarm()
+            sup.note_probe_failure(e)
+            return
+        self._revive()
+
+    def _revive(self):
+        """The trial succeeded on the reset pool: a fresh prefix cache, and
+        back to serving. The pool and every captured graph are the ones
+        the engine started with (the reference reallocates both)."""
+        self.prefix_cache = self._build_prefix_cache()
+        self.supervisor.clear_down()
+        log.warning("serve engine revived: trial chunk succeeded, pool "
+                    "reset in place, admission reopened")
+
     def _step(self) -> bool:
+        sup = self.supervisor
+        # a crash in the host bookkeeping below must not implicate the
+        # previous step's requests (the dispatches arm their own sets)
+        sup.arm("step", ())
         busy = self.pool.busy()
         if not (busy or self.queue.depth() or self._preempted):
             return False
@@ -556,8 +718,16 @@ class ServeEngine:
                   if self._reqs[i] is not None and i not in prefilling]
         if self.paged is not None and active:
             active = self._ensure_decode_blocks(active)
-        # 4. one batched decode step over the pool
+        # 4. one batched decode step over the pool; armed BEFORE the fault
+        # hook, so that an injected stall is seen by the watchdog, and a
+        # crash here implicates every active request
+        t0 = time.perf_counter()
+        active_ids = tuple(self._reqs[i].id for i in active)
         if active:
+            sup.arm("decode", active_ids)
+            hook = faults.FAULT_HOOK
+            if hook is not None:
+                hook.on_decode([self._reqs[i] for i in active])
             self.graph.step()
         # 5. advance the chosen admission by one chunk, queued on the
         # device behind the decode step (a preemption in 3 may have
@@ -565,9 +735,21 @@ class ServeEngine:
         if pf_job is not None and pf_job in self._prefills:
             idx = self._prefills.index(pf_job)
             self._rr = idx + 1 if self._advance_prefill(pf_job) else idx
-        # 6. one fetch per iteration, then fan out
+        # 6. one fetch per iteration, then fan out. The fetch is where an
+        # asynchronous device fault reaches the host: re-armed with the
+        # decode set, so that it does not implicate the chunk's request
         if active:
+            sup.arm("decode", active_ids)
             self._fanout(active, self.carries.packed.cpu().numpy())
+        rec = {"occupancy": len(active),
+               "dispatch_ms": round((time.perf_counter() - t0) * 1e3, 3)
+               if active else 0.0,
+               "queued": self.queue.depth(),
+               "prefilling": len(self._prefills)}
+        if self.paged is not None:
+            rec["kv_free"] = self.paged.alloc.free_count
+            rec["kv_used"] = self.paged.alloc.used_count
+        self.flight.record(**rec)
         return True
 
     # -- chunked admission --------------------------------------------------
@@ -610,12 +792,16 @@ class ServeEngine:
         flight."""
         take = min(self.chunk, pf.n - pf.pos)
         ids = pf.ids[pf.pos:pf.pos + take]
+        self.supervisor.arm("prefill", (pf.req.id,))
+        hook = faults.FAULT_HOOK
+        if hook is not None:
+            hook.on_prefill(pf.req)
         try:
             logits = self.prefill.run(pf.slot, ids, pf.pos)
         except ValueError as e:
             # a request-scoped refusal (bounds): the admission dies alone.
-            # Anything else may have poisoned the pool and goes on up,
-            # taking the engine down
+            # Anything else may have poisoned the pool and goes on up to
+            # the supervisor
             self._abort_prefill(pf, e)
             return False
         pf.pos += take
@@ -873,11 +1059,17 @@ class ServeEngine:
                 pc.splice(self._layers, slot, keys, next_block)
                 pos = next_block * self.chunk
         req.stats["replay_hit_tokens"] = pos
+        hook = faults.FAULT_HOOK
         while pos < n:
             take = min(self.chunk, n - pos)
-            if not self.paged.reserve_range(slot, pos, take):
+            if self.paged is not None and \
+                    not self.paged.reserve_range(slot, pos, take):
                 raise KVPoolExhausted(f"KV pool exhausted replaying "
                                       f"{req.id}")
+            # the recovery grace: a replay chunk may capture a program
+            self.supervisor.arm("replay", (req.id,), grace=True)
+            if hook is not None:
+                hook.on_prefill(req)
             self.prefill.run(slot, ids[pos:pos + take], pos)
             pos += take
             next_block = self._capture_blocks(ids, slot, pos, next_block,
@@ -907,6 +1099,125 @@ class ServeEngine:
         self._fail(entry.req, KVPoolExhausted(
             f"KV pool exhausted: preempted request {entry.req.id} needs "
             "more blocks than the pool can ever free"))
+
+    # -- crash recovery (called by the supervisor, scheduler thread) --------
+
+    def _rebuild(self, suspects: frozenset = frozenset()):
+        """Rebuild by replay after a step failure (the reference's
+        `_rebuild`, engine.py:1503-1578): trust nothing on the device,
+        reset it, then rebuild every live slot from its host-side token
+        record by replaying prompt + generated[:-1] through the prefill
+        programs. Greedy continuations are bit-identical afterwards: the
+        position, the last token and the recent window all follow from
+        the record. Requests that had emitted nothing restart admission;
+        preempted entries survive (swap blobs are host memory, recompute
+        entries replay from the host record either way). Suspects (the
+        requests the failure implicated) replay LAST and one at a time: a
+        poisoned request re-crashes on its own replay, which is how the
+        supervisor attributes it.
+
+        Where the reference reallocates the pool and reuses its compiled
+        executables, the port resets the pool IN PLACE and replays through
+        the graphs it captured at start: every graph reads the KV, the
+        carries, the block tables and the prefill buffers at fixed
+        addresses, so none of them is rebound. Two consequences: an oom
+        rebuild allocates no second pool, so it cannot re-OOM on one; and
+        `_fail_all` and `_revive` keep the pool and the graphs, where the
+        reference drops and reallocates them."""
+        t0 = time.perf_counter()
+        replays: list[ServeRequest] = []
+        restarts: list[ServeRequest] = []
+        for req in self._reqs:
+            if req is None:
+                continue
+            if req.cancelled.is_set() or req.done.is_set():
+                self._fail(req, None)       # no row left to wipe: gone
+                continue
+            if req.tokens:
+                replays.append(req)
+            else:
+                req._first_pending = False  # an unfetched first token
+                restarts.append(req)
+        self._prefills.clear()
+        self.pool = SlotPool(self.slots)
+        self._reqs = [None] * self.slots
+        self._reset_device_state()
+        self.prefix_cache = self._build_prefix_cache()
+        # register EVERY survivor before any device work: if a replay
+        # crashes, the next rebuild's harvest must still see the ones that
+        # had not replayed yet
+        replays.sort(key=lambda r: r.id in suspects)    # innocents first
+        for req in replays + restarts:
+            slot = self.pool.alloc()
+            self._reqs[slot] = req
+            req.slot = slot
+        chunks0 = self.prefill.replays
+        for req in replays:
+            self._replay_slot(req, req.slot)
+            # each completed replay is the CONTRAST that lets a later
+            # replay crash be attributed to its own request's data
+            self.supervisor.note_replay_ok()
+        for req in restarts:
+            self._begin_prefill(_Prefill(req, req.slot))
+        if replays:
+            # wait for the replays on a card, so that their fault, if any,
+            # surfaces inside the rebuild and implicates every replay
+            self.supervisor.arm("replay", tuple(r.id for r in replays),
+                                grace=True)
+            self._sync_device()
+        self.last_rebuild = {
+            "wall_ms": round((time.perf_counter() - t0) * 1e3, 3),
+            # tokens each replay ran through the programs (its cached
+            # prefix, spliced, is not counted)
+            "replayed_tokens": [len(r.prompt_ids) + len(r.tokens) - 1
+                                - r.stats["replay_hit_tokens"]
+                                for r in replays],
+            "replay_chunks": self.prefill.replays - chunks0,
+            "restarted": len(restarts)}
+        self._wake.set()
+        log.warning("serve engine rebuilt in %.0f ms: %d slot(s) replayed "
+                    "(%s tokens), %d admission(s) restarted, %d queued "
+                    "untouched", self.last_rebuild["wall_ms"], len(replays),
+                    self.last_rebuild["replayed_tokens"], len(restarts),
+                    self.queue.depth())
+
+    def _drop_poisoned(self, rid: str, err: PoisonedRequest) -> bool:
+        """Fail ONE request (attributed poison) with its typed 500 and
+        quarantine its fingerprint; the pool lives on for everyone else.
+        Its row is not wiped: the caller is about to rebuild."""
+        for i, req in enumerate(self._reqs):
+            if req is None or req.id != rid:
+                continue
+            self._reqs[i] = None
+            self.pool.free(i)
+            self._prefills[:] = [p for p in self._prefills
+                                 if p.req.id != rid]
+            self.supervisor.quarantine(req.prompt_ids)
+            log.error("poisoned request %s dropped and quarantined: %s",
+                      rid, err)
+            self._fail(req, err)
+            return True
+        return False
+
+    def _fail_all(self, err: EngineDown):
+        """Budget exhausted: every live, parked and queued request is
+        released with the typed down error (503 at the API, never a hang)
+        and the bookkeeping resets. Host only: the pool and the graphs
+        stay (the restore probe resets the pool in place), so a device
+        whose every call fails still leaves the engine DOWN, not dead."""
+        self._prefills.clear()
+        while self._preempted:
+            self._fail(self._preempted.pop(0).req, err)
+        for req in self.queue.drain():
+            self._fail(req, err)
+        for i, req in enumerate(self._reqs):
+            if req is not None:
+                self._reqs[i] = None
+                self._fail(req, err)
+        self.pool = SlotPool(self.slots)
+        if self.paged is not None:
+            self.paged.evictor = None
+        self.prefix_cache = None        # _revive builds it anew
 
     # -- batched decode fan-out ---------------------------------------------
 

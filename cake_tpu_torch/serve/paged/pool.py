@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from ...models.common.cache import reset_layers
 from .allocator import BlockAllocator
 
 __all__ = ["PagedKV", "KVPoolExhausted", "pow2_block_tokens"]
@@ -184,6 +185,17 @@ class PagedKV:
         self.tables[slot] = self.NULL
         if self.has_rows:
             self.model.row_reset(self.rows, slot)
+
+    def reset(self) -> None:
+        """Back to a fresh pool, in place: every block (the sink too) and
+        every row wiped, every table entry NULL, and a fresh allocator.
+        The decode graph and the prefill programs read pool, rows and
+        tables at fixed addresses, so nothing here rebinds them."""
+        reset_layers(self.pool)
+        reset_layers(self.rows)
+        self.tables.fill_(self.NULL)
+        self.alloc = BlockAllocator(self.num_blocks, self.bt, self.slots,
+                                    self.max_blocks)
 
     # -- model programs -----------------------------------------------------
 

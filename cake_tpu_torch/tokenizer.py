@@ -32,6 +32,12 @@ def render_chat(messages: list[dict]) -> str:
     return "".join(parts)
 
 
+def continuation_parts(messages: list[dict]) -> tuple[list[dict], str]:
+    """(the history, the partial assistant turn's text) of a continuation
+    request, whose final message carries `"continue": true`."""
+    return messages[:-1], str(messages[-1].get("content") or "")
+
+
 class ByteTokenizer:
     """Bytes are ids 0-255; the two ChatML markers have their own ids
     (Qwen3's by default; a model with a small vocabulary passes its own,
@@ -71,3 +77,11 @@ class ByteTokenizer:
 
     def chat_prompt_ids(self, messages: list[dict]) -> list[int]:
         return self.encode(render_chat(messages))
+
+    def continuation_prompt_ids(self, messages: list[dict]) -> list[int]:
+        """Continuation mode (the reference's continuation_prompt_ids,
+        text_model.py:1311): the history before the final, partial
+        assistant message is templated with its one assistant header,
+        and the partial content follows verbatim, with no end of turn."""
+        head, partial = continuation_parts(messages)
+        return self.encode(render_chat(head) + partial)

@@ -84,6 +84,23 @@ Phases (any failure exits non-zero and prints no result line):
      same directory served through `cli serve DIR`, contiguous and paged:
      4 concurrent chats and one SSE chat, all 200, each equal alone and
      in company, the engine's prompt ids those of a fresh CPU tokenizer;
+  10. fault drills (run after phase 6, on its model: the full flagship,
+     28 layers, bf16, 4 slots, ctx 4096, chunk 256, prefix cache off),
+     each driven by the port's own fault hook (serve/faults.py): (a)
+     contiguous and (b) paged (1024 blocks of 16), three concurrent
+     greedy chats of ~630 tokens under raise_on_step=6;kind=device give
+     the tokens of the same chats on the same engine with no plan, in one
+     rebuild, whose replay raises the flash launches (fresh and append)
+     and the prefill graph replays by exactly the replay's chunks, at
+     unchanged addresses and graphs (and, paged, the paged decode kernel
+     launching after it); the rebuild's wall ms and replayed tokens per
+     slot printed; (c) over HTTP, a chat holding the poison token that
+     joins two decoding chats answers 500 and they answer 200 with their
+     tokens alone; (d) rebuild_budget=1 and restore_interval_s=0.5: 503
+     with Retry-After on the JSON and the SSE path and /health 503 with
+     engine.down, then, revived, the chat's undisturbed answer; (e)
+     step_watchdog_s=0.25 and a 1.5 s stall: /health 503 while wedged,
+     then 200, the tokens unchanged;
   then prints the whole run's seconds, the kernels line, the card line,
   and the result line last.
 
@@ -1075,6 +1092,307 @@ def _pressure(model, mode: str, want: list) -> None:
         tight.close()
 
 
+# -- phase 10: fault drills (the supervisor) ----------------------------------
+
+FAULT_SLOTS = 4
+
+
+def _post_any(url, body, timeout=600) -> tuple[int, dict, bytes]:
+    """POST a chat; (status, headers, body) for any status."""
+    import urllib.error
+    req = urllib.request.Request(
+        url + "/v1/chat/completions", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def _health(url) -> tuple[int, dict]:
+    import urllib.error
+    try:
+        with urllib.request.urlopen(url + "/health", timeout=60) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _replay_launches(engine, layers: int) -> dict:
+    """The bf16 flash launches the last rebuild's replays made: each
+    replayed chunk through its program's key, `layers` launches per chunk
+    whose program takes a flash mode (no prefix cache: every replay
+    starts at position 0)."""
+    want = {"fresh": 0, "append": 0}
+    for n in engine.health()["last_rebuild"]["replayed_tokens"]:
+        for pos in range(0, n, engine.chunk):
+            mode = engine.prefill.key(min(engine.chunk, n - pos), pos)[1]
+            if mode in want:
+                want[mode] += layers
+    return want
+
+
+def _drill_rebuild(model, card: str, label: str, **engine_kw) -> None:
+    """Phase 10 (a) / (b): three concurrent greedy chats, first on the
+    engine with no plan, then on the same engine under
+    raise_on_step=6;kind=device: the same tokens, one rebuild, the
+    replay's chunks through the captured programs at unchanged addresses
+    (flash launches and prefill replays rise by exactly the replay's),
+    and, paged, the decode kernel launching after it."""
+    import torch
+    from cake_tpu_torch.bench.graph_cases import engine_addresses
+    from cake_tpu_torch.ops import flash
+    from cake_tpu_torch.ops import paged_attention as pa
+    from cake_tpu_torch.ops.sampling import SamplingConfig
+    from cake_tpu_torch.serve import ServeEngine, faults
+    layers = model.cfg.num_hidden_layers
+    eng = ServeEngine(model, slots=FAULT_SLOTS, ctx_len=4096,
+                      prefill_chunk=256, prefix_cache_mb=0, **engine_kw)
+    greedy = SamplingConfig(temperature=0.0)
+    prompts = [model.tokenizer.chat_prompt_ids(chat_body(i)["messages"])
+               for i in range(3)]
+
+    def run():
+        torch.cuda.synchronize()
+        replays0, steps0 = eng.prefill.replays, eng.graph.steps
+        flash.reset_launches()
+        pa.reset_launches()
+        reqs = [eng.submit(p, 32, greedy) for p in prompts]
+        for r in reqs:
+            check(r.wait(600), f"phase 10 {label}: a request hung")
+            check("error" not in r.result,
+                  f"phase 10 {label}: {r.result.get('error')!r}")
+        torch.cuda.synchronize()
+        counts = flash.launch_counts()["bf16"]
+        return {"tokens": [r.result["tokens"] for r in reqs],
+                "fresh": counts["fresh"], "append": counts["append"],
+                "replays": eng.prefill.replays - replays0,
+                "steps": eng.graph.steps - steps0,
+                "paged": pa.launch_counts()["bf16"]}
+    try:
+        check(eng.graph.graph is not None,
+              f"phase 10 {label}: no captured decode graph")
+        check(min(len(p) for p in prompts) > 512,
+              f"phase 10 {label}: prompts too short for an append chunk")
+        calm = run()
+        ptrs, graph = engine_addresses(eng), eng.graph
+        programs = dict(eng.prefill.graphs)
+        faults.install("raise_on_step=6;kind=device")
+        try:
+            hit = run()
+        finally:
+            faults.clear()
+        h = eng.health()
+        last = h["last_rebuild"]
+        want = _replay_launches(eng, layers)
+        print(f"faults {label}: raise_on_step=6 kind=device with 3 "
+              f"concurrent {[len(p) for p in prompts]}-token chats: "
+              f"rebuilds {h['rebuilds']}, rebuild wall ms "
+              f"{last['wall_ms']} (the replay waited for on the card), "
+              f"replayed tokens per slot {last['replayed_tokens']} in "
+              f"{last['replay_chunks']} prefill graph replays; flash "
+              f"launches fresh/append {calm['fresh']}/{calm['append']} "
+              f"undisturbed, {hit['fresh']}/{hit['append']} with the "
+              f"rebuild (its replay {want}); decode replays "
+              f"{calm['steps']} -> {hit['steps']}, paged decode launches "
+              f"{calm['paged']} -> {hit['paged']}; tokens equal to the "
+              f"run with no plan {hit['tokens'] == calm['tokens']}; "
+              f"on {card}", flush=True)
+        check(hit["tokens"] == calm["tokens"],
+              f"phase 10 {label}: tokens after the rebuild differ")
+        check(h["rebuilds"] == 1 and h["step_failures"]["device"] == 1,
+              f"phase 10 {label}: rebuilds {h['rebuilds']}, failures "
+              f"{h['step_failures']}")
+        check(want["fresh"] > 0 and want["append"] > 0,
+              f"phase 10 {label}: the replay ran no flash chunk {want}")
+        check(hit["fresh"] - calm["fresh"] == want["fresh"]
+              and hit["append"] - calm["append"] == want["append"],
+              f"phase 10 {label}: flash launches rose by "
+              f"{hit['fresh'] - calm['fresh']}/"
+              f"{hit['append'] - calm['append']}, the replay's are {want}")
+        check(hit["replays"] - calm["replays"] == last["replay_chunks"] > 0,
+              f"phase 10 {label}: prefill replays rose by "
+              f"{hit['replays'] - calm['replays']}, the replay ran "
+              f"{last['replay_chunks']} chunks")
+        check(engine_addresses(eng) == ptrs and eng.graph is graph
+              and all(eng.prefill.graphs[k] is g
+                      for k, g in programs.items())
+              and len(eng.prefill.graphs) == len(programs),
+              f"phase 10 {label}: a graph or an address changed")
+        if eng.paged is not None:
+            # 5 replays before the fault, the rest after the rebuild
+            check(hit["paged"] == layers * hit["steps"]
+                  and hit["steps"] > 5,
+                  f"phase 10 {label}: paged decode launches "
+                  f"{hit['paged']} over {hit['steps']} replays")
+            eng.paged.alloc.check()
+    finally:
+        eng.close()
+
+
+def _drill_poison(model, card: str) -> None:
+    """Phase 10 (c): two chats decoding when a third, whose prompt holds
+    the poison token, joins them: 500 for it, 200 for the others with
+    the tokens they give alone."""
+    from cake_tpu_torch.serve import faults
+    served = serve_model(model, prefix_cache_mb=0)
+    try:
+        bodies = [chat_body(i) for i in range(2)]
+        poison = ord("~")
+        check(all(poison not in model.tokenizer.chat_prompt_ids(
+            b["messages"]) for b in bodies), "phase 10 (c): poison in body")
+        alone = [served.chat(b)["tokens"] for b in bodies]
+        out = {}
+
+        def send(i):
+            out[i] = served.chat(bodies[i])
+        threads = [threading.Thread(target=send, args=(i,)) for i in (0, 1)]
+        n0 = len(served.reqs)
+        for th in threads:
+            th.start()
+        deadline = time.perf_counter() + 600
+        while True:
+            live = list(served.reqs.values())[n0:]
+            if len(live) == 2 and all(r.tokens for r in live):
+                break
+            check(time.perf_counter() < deadline,
+                  "phase 10 (c): the chats never decoded")
+            time.sleep(0.002)
+        # armed from here; 30 ms per decode step lets the poisoned chat
+        # (one chunk) join the decode set before the poison fires
+        faults.install(f"poison_token={poison};poison_after_ops=8;"
+                       "delay_ms=30")
+        try:
+            status, _, raw = _post_any(served.app.url, {
+                "messages": [{"role": "user", "content": "gamma ~ three"}],
+                "temperature": 0, "max_tokens": 32})
+            for th in threads:
+                th.join(timeout=600)
+        finally:
+            faults.clear()
+        h = served.engine.health()
+        print(f"faults (c) poison over HTTP: the poisoned chat HTTP {status} "
+              f"{json.loads(raw).get('error', '')[:80]!r}; the others "
+              f"{[out[i]['status'] for i in (0, 1)]}, tokens equal alone "
+              f"{[out[i]['tokens'] == alone[i] for i in (0, 1)]}; rebuilds "
+              f"{h['rebuilds']}, quarantined {h.get('quarantined')}; "
+              f"on {card}", flush=True)
+        check(status == 500, f"phase 10 (c): poisoned chat HTTP {status}")
+        check([out[i]["tokens"] for i in (0, 1)] == alone,
+              "phase 10 (c): the innocent chats' tokens differ from alone")
+        check(h.get("quarantined") == 1 and h["rebuilds"] <= 2,
+              f"phase 10 (c): health {h}")
+    finally:
+        served.close()
+
+
+def _drill_down(model, card: str) -> None:
+    """Phase 10 (d): rebuild_budget=1, restore_interval_s=0.5. A chat
+    under raise_on_step=3;times=2 answers 503 + Retry-After, so do a JSON
+    and an SSE chat and /health (with engine.down) while DOWN; the restore
+    loop revives the engine, and the chat then equals its undisturbed
+    answer."""
+    from cake_tpu_torch.serve import faults
+    served = serve_model(model, prefix_cache_mb=0, rebuild_budget=1,
+                         restore_interval_s=0.5)
+    url = served.app.url
+    try:
+        body = chat_body(0)
+        calm = served.chat(body)
+        faults.install("raise_on_step=3;times=2;kind=device")
+        try:
+            first = _post_any(url, body)
+            t_down = time.perf_counter()
+            json_down = _post_any(url, body)
+            sse_down = _post_any(url, dict(body, stream=True))
+            health_down = _health(url)
+            checked_s = time.perf_counter() - t_down
+        finally:
+            faults.clear()
+        deadline = time.perf_counter() + 120
+        while _health(url)[0] != 200:
+            check(time.perf_counter() < deadline,
+                  "phase 10 (d): the restore loop never revived the engine")
+            time.sleep(0.05)
+        revive_s = time.perf_counter() - t_down
+        after = served.chat(body)
+        statuses = [r[0] for r in (first, json_down, sse_down)]
+        print(f"faults (d) budget 1, restore 0.5 s: HTTP {statuses} "
+              f"(Retry-After {[r[1].get('Retry-After') for r in (first, json_down, sse_down)]}), "
+              f"/health {health_down[0]} down={'down' in health_down[1]['engine']} "
+              f"within {checked_s * 1e3:.0f} ms; /health 200 again "
+              f"{revive_s:.2f} s after; tokens equal to the undisturbed "
+              f"chat {after['tokens'] == calm['tokens']}; on {card}",
+              flush=True)
+        check(statuses == [503, 503, 503]
+              and all(int(r[1].get("Retry-After", 0)) >= 1
+                      for r in (first, json_down, sse_down)),
+              f"phase 10 (d): statuses {statuses}")
+        check(sse_down[1].get("Content-Type") == "application/json",
+              "phase 10 (d): the SSE path committed a stream while DOWN")
+        check(health_down[0] == 503
+              and "down" in health_down[1]["engine"],
+              f"phase 10 (d): /health while DOWN {health_down}")
+        check(after["status"] == 200 and after["tokens"] == calm["tokens"],
+              "phase 10 (d): the revived chat differs")
+    finally:
+        served.close()
+
+
+def _drill_wedge(model, card: str) -> None:
+    """Phase 10 (e): step_watchdog_s=0.25 and a 1.5 s stall: /health
+    503 while wedged, then 200, and the chat's tokens unchanged."""
+    from cake_tpu_torch.serve import faults
+    served = serve_model(model, prefix_cache_mb=0, step_watchdog_s=0.25)
+    url = served.app.url
+    try:
+        body = chat_body(1)
+        calm = served.chat(body)
+        faults.install("stall_on_step=3;stall_step_ms=1500")
+        try:
+            out = {}
+            th = threading.Thread(target=lambda: out.update(
+                r=served.chat(body)))
+            th.start()
+            seen = []
+            while th.is_alive():
+                status, h = _health(url)
+                seen.append((status, h["engine"]["wedged"]))
+                time.sleep(0.02)
+            th.join(timeout=600)
+        finally:
+            faults.clear()
+        final = _health(url)
+        wedges = served.engine.health()["wedges"]
+        print(f"faults (e) watchdog 0.25 s, 1.5 s stall: /health 503 "
+              f"wedged in {sum(s == (503, True) for s in seen)} of "
+              f"{len(seen)} polls, {final[0]} after; wedges {wedges}; "
+              f"tokens equal {out['r']['tokens'] == calm['tokens']}; "
+              f"on {card}", flush=True)
+        check((503, True) in seen, "phase 10 (e): never flagged wedged")
+        check(final[0] == 200 and not final[1]["engine"]["wedged"],
+              "phase 10 (e): the wedge flag did not clear")
+        check(out["r"]["tokens"] == calm["tokens"] and wedges >= 1,
+              "phase 10 (e): the stalled chat differs")
+    finally:
+        served.close()
+
+
+def phase_faults(model, card: str) -> None:
+    """Phase 10: the supervisor's drills at full flagship size, each
+    driven by the port's own fault hook (serve/faults.py)."""
+    t0 = time.perf_counter()
+    _drill_rebuild(model, card, "(a) contiguous")
+    _drill_rebuild(model, card, "(b) paged", kv_blocks=1024,
+                   kv_block_tokens=16)
+    _drill_poison(model, card)
+    _drill_down(model, card)
+    _drill_wedge(model, card)
+    print(f"faults: phase 10 took {time.perf_counter() - t0:.1f} s on "
+          f"{card}", flush=True)
+
+
 # -- phase 7: the flagship from a checkpoint directory ------------------------
 
 
@@ -1485,6 +1803,7 @@ def main() -> int:
     phase_prefill_graphs(model, card)
     serve_launches, contiguous = phase_serve(model, card)
     paged_launches = phase_paged_serve(model, card, contiguous)
+    phase_faults(model, card)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         load = phase_checkpoint(model, card, workdir)
