@@ -1,9 +1,24 @@
 """HTTP front end on the standard library (counterpart of
-cake_tpu/api/server.py): `POST /v1/chat/completions`, `GET /v1/models`
-and `GET /health` (the engine's health, with its `prefix_cache`, in paged
-mode its `kv_pool` block, and the supervisor's counts; 503 "degraded"
-while the engine is dead, wedged or DOWN, as the reference's
-api/obs_routes.py answers). A ThreadingHTTPServer gives each connection a
+cake_tpu/api/server.py):
+
+  POST /v1/chat/completions     chat (JSON + SSE), api/text.py
+  GET  /v1/models               model list
+  GET  /health                  the engine's health (prefix_cache, paged
+                                kv_pool, the supervisor's counts) and the
+                                device block; 503 "degraded" while the
+                                engine is dead, wedged or DOWN
+  GET  /metrics                 Prometheus text exposition
+  GET  /api/v1/trace            Chrome-trace JSON of recorded spans
+  GET  /api/v1/requests         recent traced request ids
+  GET  /api/v1/requests/{rid}   one request's lifecycle timeline
+                                (?format=perfetto for Chrome-trace)
+  GET  /api/v1/slo              TTFT/ITL/e2e histograms + exemplar ids
+  GET  /api/v1/flight           flight recorder ring on demand (?n=K)
+
+Every request counts into cake_api_requests_total{endpoint, status} and
+cake_api_request_seconds{endpoint}, the endpoint being the route's
+canonical pattern ("unmatched" for any other path), as the reference's
+middleware records them. A ThreadingHTTPServer gives each connection a
 thread; those threads only submit to the engine and wait on its queues,
 so no aiohttp is needed.
 """
@@ -14,14 +29,13 @@ import logging
 import threading
 from dataclasses import dataclass
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs, urlsplit
 
+from ..obs import API_REQUEST_SECONDS, API_REQUESTS, now
+from . import obs_routes
 from .text import chat_completions
 
 log = logging.getLogger("cake_tpu_torch.api")
-
-# the coarse wedge fallback for an engine without a watchdog: work pending
-# and no scheduler iteration for this long (the reference's)
-ENGINE_WEDGED_S = 120.0
 
 
 @dataclass
@@ -30,6 +44,7 @@ class AppState:
     engine: object
     tokenizer: object
     model_id: str = "cake-tpu-torch"
+    plane: object = None        # serve/admission: AdmissionPlane
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -42,38 +57,68 @@ class _Handler(BaseHTTPRequestHandler):
     def log_message(self, fmt, *args):      # route through logging
         log.debug("%s " + fmt, self.address_string(), *args)
 
+    def send_response(self, code, message=None):
+        self._status = code
+        super().send_response(code, message)
+
     def send_json(self, obj, status: int = 200,
                   headers: dict | None = None) -> None:
-        data = json.dumps(obj).encode()
+        self.send_body(json.dumps(obj).encode(), status, "application/json",
+                       headers)
+
+    def send_body(self, data: bytes, status: int, content_type: str,
+                  headers: dict | None = None) -> None:
         self.send_response(status)
-        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(data)))
         for k, v in (headers or {}).items():
             self.send_header(k, v)
         self.end_headers()
         self.wfile.write(data)
 
+    def _measured(self, endpoint: str, fn) -> None:
+        """Run a route, counting it by endpoint and status."""
+        t0 = now()
+        self._status = 500
+        try:
+            fn()
+        finally:
+            API_REQUESTS.inc(endpoint=endpoint, status=str(self._status))
+            API_REQUEST_SECONDS.observe(now() - t0, endpoint=endpoint)
+
     def do_GET(self):
-        if self.path == "/health":
-            h = self.state.engine.health()
-            busy = h["slots_busy"] or h["queue_depth"]
-            h["wedged"] = bool(h["wedged"]) or bool(
-                busy and h["last_step_age_s"] > ENGINE_WEDGED_S)
-            degraded = not h["alive"] or h["wedged"] or "down" in h
-            status = ("degraded" if degraded
-                      else "unavailable" if h["draining"] else "ok")
-            return self.send_json({"status": status, "engine": h},
-                                  200 if status == "ok" else 503)
-        if self.path == "/v1/models":
-            return self.send_json({"object": "list", "data": [{
-                "id": self.state.model_id, "object": "model",
-                "owned_by": "cake-tpu-torch"}]})
-        return self.send_json({"error": "not found"}, 404)
+        url = urlsplit(self.path)
+        query = parse_qs(url.query, keep_blank_values=True)
+        route, args, endpoint = None, (), "unmatched"
+        if url.path in obs_routes.GET_ROUTES:
+            route, endpoint = obs_routes.GET_ROUTES[url.path], url.path
+        elif url.path.startswith(obs_routes.REQUEST_PREFIX) \
+                and len(url.path) > len(obs_routes.REQUEST_PREFIX):
+            route = obs_routes.request_timeline
+            args = (url.path[len(obs_routes.REQUEST_PREFIX):],)
+            endpoint = obs_routes.REQUEST_PREFIX + "{rid}"
+        elif url.path == "/v1/models":
+            endpoint = url.path
+
+        def answer():
+            if route is not None:
+                status, body, ctype = route(self.state, query, *args)
+                if ctype is None:
+                    return self.send_json(body, status)
+                return self.send_body(body.encode(), status, ctype)
+            if endpoint == "/v1/models":
+                return self.send_json({"object": "list", "data": [{
+                    "id": self.state.model_id, "object": "model",
+                    "owned_by": "cake-tpu-torch"}]})
+            return self.send_json({"error": "not found"}, 404)
+        self._measured(endpoint, answer)
 
     def do_POST(self):
         if self.path == "/v1/chat/completions":
-            return chat_completions(self, self.state)
-        return self.send_json({"error": "not found"}, 404)
+            return self._measured(
+                self.path, lambda: chat_completions(self, self.state))
+        return self._measured(
+            "unmatched", lambda: self.send_json({"error": "not found"}, 404))
 
 
 class ApiServer(ThreadingHTTPServer):
@@ -99,6 +144,8 @@ class ApiServer(ThreadingHTTPServer):
 
     def stop(self, drain_s: float = 10.0) -> None:
         """Drain the engine, stop serving, close the engine."""
+        if self.state.plane is not None:
+            self.state.plane.begin_drain()
         self.state.engine.drain(drain_s)
         self.shutdown()
         self.server_close()
@@ -108,6 +155,9 @@ class ApiServer(ThreadingHTTPServer):
 
 
 def create_app(model, engine, tokenizer, host: str = "127.0.0.1",
-               port: int = 8080, model_id: str = "cake-tpu-torch"
-               ) -> ApiServer:
-    return ApiServer(AppState(model, engine, tokenizer, model_id), host, port)
+               port: int = 8080, model_id: str = "cake-tpu-torch",
+               plane=None) -> ApiServer:
+    """`plane`: the admission plane (tenant policies); None builds one
+    from CAKE_QOS_TENANTS at the first chat."""
+    return ApiServer(AppState(model, engine, tokenizer, model_id, plane),
+                     host, port)

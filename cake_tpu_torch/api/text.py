@@ -1,11 +1,16 @@
 """OpenAI-compatible chat completions over the serve engine (counterpart
 of cake_tpu/api/text.py: chat_completions, the sampling grid, usage and
-finish_reason, stop sequences, continuation mode and the typed engine
+finish_reason, stop sequences, continuation mode, the admission plane's
+QoS class and tenant quota, request-id adoption and the typed engine
 errors), for the standard-library HTTP server in server.py.
 
-Blocking JSON and SSE streaming (`"stream": true`). Left out so far: QoS
-headers and the fleet KV handshakes (the continuation-chars header among
-them).
+Blocking JSON and SSE streaming (`"stream": true`). A chat is admitted
+under a QoS class (interactive by default; `X-Cake-QoS` or the body's
+`qos`, clamped by the tenant's ceiling) and charged to its tenant
+(`X-Cake-Tenant`) before it takes a queue slot (api/qos.py). An
+`X-Cake-Request-Id` header becomes the request's id (its timeline, its
+spans, the engine's bookkeeping) and is echoed back. Left out so far:
+the fleet KV handshakes (the continuation-chars header among them).
 """
 from __future__ import annotations
 
@@ -15,9 +20,14 @@ import sys
 import time
 import uuid
 
+from ..obs import (GENERATIONS, RECORDER, TIMELINES, TRACE_HEADER,
+                   set_request_id)
 from ..ops.sampling import SamplingConfig
-from ..serve import EngineDown, EngineDraining, PoisonedRequest, QueueFull
+from ..serve import (EngineDown, EngineDraining, PoisonedRequest,
+                     QueueDeadlineExceeded, QueueFull,
+                     RequestDeadlineExceeded)
 from ..tokenizer import PromptError
+from .qos import admission_refusal, resolve_admission
 
 log = logging.getLogger("cake_tpu_torch.api")
 
@@ -217,6 +227,21 @@ def _client_fault(e: Exception) -> bool:
         jinja2 is not None and isinstance(e, jinja2.TemplateError))
 
 
+def _adopt_request_id(handler, cid: str) -> str:
+    """Cross-tier trace adoption (the reference's _adopt_request_id): an
+    X-Cake-Request-Id header becomes THE request id (the contextvar every
+    span carries, the id the engine keys its timeline events by, the key
+    /api/v1/requests/<id> answers to); without one the completion id is
+    the request id. The completion id is registered as an alias, so
+    either id finds the timeline."""
+    rid = handler.headers.get(TRACE_HEADER) or cid
+    set_request_id(rid)
+    TIMELINES.begin(rid)
+    TIMELINES.event(rid, "received")
+    TIMELINES.alias(cid, rid)
+    return rid
+
+
 def chat_completions(handler, state) -> None:
     """POST /v1/chat/completions on a BaseHTTPRequestHandler."""
     try:
@@ -247,10 +272,33 @@ def chat_completions(handler, state) -> None:
     except (TypeError, ValueError) as e:
         return handler.send_json({"error": f"invalid sampling params: {e}"},
                                  400)
+    # the admission plane: QoS class (chat defaults to interactive) and
+    # the tenant's bucket and inflight cap, charged BEFORE any queue
+    # slot; the inflight lease spans the whole handler, a stream's too
+    resolved = resolve_admission(handler, state, body, "interactive")
+    if resolved is None:
+        return None
+    qos, tenant, release = resolved
     try:
-        prompt_ids = (state.tokenizer.continuation_prompt_ids(messages)
-                      if continuation
-                      else state.tokenizer.chat_prompt_ids(messages))
+        return _chat_engine(handler, state, messages, continuation, kw,
+                            stops, bool(body.get("stream")), qos, tenant)
+    finally:
+        release()
+
+
+def _chat_engine(handler, state, messages, continuation: bool, kw: dict,
+                 stops: list[str], stream: bool, qos: str,
+                 tenant: str | None) -> None:
+    """Build the prompt, submit it to the engine under its class and
+    tenant, and answer: JSON, SSE, or the typed refusal."""
+    cid = _completion_id()
+    rid = _adopt_request_id(handler, cid)
+    try:
+        with RECORDER.span("api.chat_prompt", cat="api",
+                           messages=len(messages)):
+            prompt_ids = (state.tokenizer.continuation_prompt_ids(messages)
+                          if continuation
+                          else state.tokenizer.chat_prompt_ids(messages))
     except Exception as e:
         if not _client_fault(e):
             log.exception("building the prompt of %d messages failed",
@@ -258,44 +306,51 @@ def chat_completions(handler, state) -> None:
             return handler.send_json({"error": "internal error"}, 500)
         return handler.send_json({"error": f"cannot build the prompt: {e}"},
                                  400)
-    cid = _completion_id()
     try:
-        req = state.engine.submit(prompt_ids, request_id=cid, **kw)
-    except QueueFull as e:
-        return handler.send_json({"error": str(e)}, 429,
-                                 {"Retry-After": str(e.retry_after_s)})
-    except EngineDraining as e:
-        return handler.send_json({"error": str(e)}, 503,
-                                 {"Retry-After": str(e.retry_after_s)})
+        req = state.engine.submit(prompt_ids, request_id=rid, qos=qos,
+                                  tenant=tenant, **kw)
+    except (QueueFull, EngineDraining) as e:
+        return admission_refusal(handler, e)
     except (EngineDown, PoisonedRequest) as e:
         return _send_typed_error(handler, e)
     except ValueError as e:
         return handler.send_json({"error": str(e)}, 400)
-    if body.get("stream"):
+    if stream:
         return _stream(handler, state, cid, req, stops)
     if stops:
         _cancel_at_stop(state, req, stops)
     else:
         req.wait()
     if "error" in req.result:
+        GENERATIONS.inc(kind="text", status="error")
         err = req.result["error"]
-        if isinstance(err, (EngineDown, PoisonedRequest)):
-            return _send_typed_error(handler, err)
+        if _send_typed_error(handler, err):
+            return None
         return handler.send_json({"error": f"generation failed: {err}"},
                                  500)
+    GENERATIONS.inc(kind="text", status="ok")
     return handler.send_json(completion_json(
         state, cid, req.result["tokens"], req.result["stats"],
-        len(prompt_ids), stops))
+        len(prompt_ids), stops), headers={TRACE_HEADER: rid})
 
 
-def _send_typed_error(handler, err) -> None:
+def _send_typed_error(handler, err) -> bool:
     """A typed engine failure's documented status (the reference's
-    _typed_error_response): 503 + Retry-After for a down engine, 500 for
-    a poisoned request."""
-    if isinstance(err, EngineDown):
-        return handler.send_json({"error": str(err)}, 503,
-                                 {"Retry-After": str(err.retry_after_s)})
-    return handler.send_json({"error": str(err)}, 500)
+    _typed_error_response), shared by the blocking path and the SSE
+    path's pre-commit refusal: 503 + Retry-After for a request that
+    expired in the queue or a down engine, 504 for a request that
+    outlived its deadline, 500 for a poisoned request. False when `err`
+    is none of them (the caller decides)."""
+    if isinstance(err, (QueueDeadlineExceeded, EngineDown)):
+        handler.send_json({"error": str(err)}, 503,
+                          {"Retry-After": str(int(err.retry_after_s))})
+    elif isinstance(err, RequestDeadlineExceeded):
+        handler.send_json({"error": str(err)}, 504)
+    elif isinstance(err, PoisonedRequest):
+        handler.send_json({"error": str(err)}, 500)
+    else:
+        return False
+    return True
 
 
 def _cancel_at_stop(state, req, stops: list[str]) -> None:
@@ -323,12 +378,14 @@ def _stream(handler, state, cid: str, req,
     match), the stream finishes with finish_reason "stop" at a match and
     the request is cancelled there. Nothing is committed before the
     request is admitted: one refused outright (engine down, poisoned)
-    answers its typed status instead of an in-band error chunk."""
+    answers its typed status instead of an in-band error chunk (a queue
+    deadline, an engine going down, a quarantined prompt)."""
     while not (req.admitted.is_set() or req.done.is_set()):
         req.done.wait(0.02)
     err = req.result.get("error") if req.done.is_set() else None
-    if isinstance(err, (EngineDown, PoisonedRequest)):
-        return _send_typed_error(handler, err)
+    if err is not None and _send_typed_error(handler, err):
+        GENERATIONS.inc(kind="text", status="error")
+        return
     created = int(time.time())
 
     def chunk(delta: dict, finish=None) -> bytes:
@@ -341,6 +398,9 @@ def _stream(handler, state, cid: str, req,
     handler.send_response(200)
     handler.send_header("Content-Type", "text/event-stream")
     handler.send_header("Cache-Control", "no-cache")
+    # the trace id rides the SSE headers too, so a streaming client can
+    # read /api/v1/requests/<id> afterwards
+    handler.send_header(TRACE_HEADER, req.id)
     handler.end_headers()
     finish = "length"
     tokens = state.engine.stream(req)
@@ -380,6 +440,8 @@ def _stream(handler, state, cid: str, req,
         except Exception as e:      # generation failed mid-stream
             handler.wfile.write(chunk({"content": f"\n[error: {e}]"}))
             finish = "error"
+        GENERATIONS.inc(kind="text",
+                        status="error" if finish == "error" else "ok")
         handler.wfile.write(chunk({}, finish=finish))
         handler.wfile.write(b"data: [DONE]\n\n")
         handler.wfile.flush()

@@ -21,7 +21,14 @@ knobs come from the environment, as the reference reads them:
 CAKE_STEP_WATCHDOG_S (0, off), CAKE_ENGINE_REBUILDS (3) per rolling
 CAKE_ENGINE_REBUILD_WINDOW_S (300), and CAKE_ENGINE_RESTORE_S (5), the
 probe interval while DOWN; CAKE_SERVE_FAULT_PLAN installs a fault plan
-(serve/faults.py). `--seed`
+(serve/faults.py). So do the admission plane's and the metrics plane's:
+CAKE_QUEUE_DEADLINE_S and CAKE_REQUEST_DEADLINE_S (0, off: a request
+queued, or alive, past them answers 503 or 504), CAKE_QOS_WEIGHTS
+("interactive=8,standard=4,batch=1") and CAKE_QOS_BOUNDS (each class's
+queue bound, --max-queue by default), CAKE_QOS_TENANTS (tenant quotas,
+e.g. "acme:rps=5,burst=10,inflight=4,max_class=standard"), and
+CAKE_TRACE_DIR (set: the span recorder records), CAKE_TRACE_EVENTS
+(16384) and CAKE_TRACE_REQUESTS (256). `--seed`
 seeds the sampling keys (serve: one key per admission; run: the
 request's) and the flagship's weights. `run` decodes through generate's
 captured chunks of 16 steps.
@@ -39,7 +46,10 @@ import threading
 from .device import parse_dtype
 from .models.common.config import FLAGSHIP_QWEN3_0_6B, config_from_hf_dict
 from .models.common.text_model import TextModel
+from . import obs
 from .ops.sampling import SamplingConfig
+from .serve.admission import (AdmissionPlane, TenantRegistry, class_bounds,
+                              class_weights)
 from .serve.engine import (DEFAULT_CHUNK, DEFAULT_CTX,
                            DEFAULT_KV_BLOCK_TOKENS, DEFAULT_PREFIX_CACHE_MB,
                            DEFAULT_QUEUE, DEFAULT_SLOTS, PREEMPT_MODES,
@@ -98,9 +108,26 @@ def supervisor_knobs(env) -> dict:
             if env.get(name)}
 
 
+def admission_knobs(env, max_queue: int) -> dict:
+    """The engine's deadline and QoS kwargs from the environment's CAKE_*
+    variables (the reference's knobs, with its defaults: deadlines 0,
+    weights 8:4:1, every class's bound `max_queue`). A malformed class
+    spec raises here, at startup."""
+    return {"queue_deadline_s": float(env.get("CAKE_QUEUE_DEADLINE_S")
+                                      or 0.0),
+            "request_deadline_s": float(env.get("CAKE_REQUEST_DEADLINE_S")
+                                        or 0.0),
+            "qos_weights": class_weights(env.get("CAKE_QOS_WEIGHTS") or ""),
+            "qos_bounds": class_bounds(max_queue,
+                                       env.get("CAKE_QOS_BOUNDS") or "")}
+
+
 def build_server(args):
     """The serve command's HTTP server (not started) over its engine."""
     from .api.server import create_app
+    env = os.environ
+    obs.configure(env)
+    plane = AdmissionPlane(TenantRegistry(env.get("CAKE_QOS_TENANTS") or ""))
     model, tokenizer, model_id = load_model(args, max_cache_len=args.ctx)
     engine = ServeEngine(model, slots=args.slots, max_queue=args.max_queue,
                          ctx_len=args.ctx, seed=args.seed,
@@ -109,9 +136,10 @@ def build_server(args):
                          kv_blocks=args.kv_blocks,
                          kv_block_tokens=args.kv_block_tokens,
                          preempt_mode=args.preempt_mode,
-                         **supervisor_knobs(os.environ))
+                         **supervisor_knobs(env),
+                         **admission_knobs(env, args.max_queue))
     return create_app(model, engine, tokenizer, args.host, args.port,
-                      model_id=model_id)
+                      model_id=model_id, plane=plane)
 
 
 def cmd_serve(args) -> int:

@@ -1,12 +1,19 @@
 """Continuous-batching serve engine (the core of
 cake_tpu/serve/engine.py: ServeEngine, ServeRequest, chunked admission,
-the shared-prefix cache, paged KV, swap and recompute preemption).
+the shared-prefix cache, paged KV, swap and recompute preemption, QoS
+lanes and victim classes, queue and request deadlines, and the metrics
+plane's spans, timelines and instruments).
 
-A bounded admission queue feeds one scheduler thread that owns the KV
-(a contiguous pool of rows, "slots", or a paged block pool behind
+A bounded, class-aware admission queue (admission/queue.py: one lane per
+QoS class, weighted-fair dequeue) feeds one scheduler thread that owns
+the KV (a contiguous pool of rows, "slots", or a paged block pool behind
 per-slot tables) and every device tensor. Each iteration:
 
-  1. sweeps cancelled requests (decoding, mid-prefill, queued);
+  1. sweeps cancelled requests (decoding, mid-prefill, parked, queued),
+     then the queue deadline (a request queued past `queue_deadline_s`
+     fails with QueueDeadlineExceeded, 503) and the request deadline (an
+     admitted or parked request older than `request_deadline_s` fails
+     with RequestDeadlineExceeded, 504, and frees its slot);
   2. resumes preempted requests first (oldest first), then moves queued
      requests into free slots as chunked admissions, splicing any cached
      shared prefix so only the suffix is prefilled;
@@ -61,20 +68,31 @@ active row advances the row's counter. Key and counter are per-slot
 carries that ride a swap, so a sampled request's tokens depend neither
 on its company nor on a swap.
 
-Preemption (paged pool exhausted): "swap" keeps the victim's blocks and
+Preemption (paged pool exhausted) takes the lowest QoS class first, the
+latest admission within a class (paged/preempt.py); an admission or a
+decoding slot that could only make room by evicting higher-class work
+parks itself instead ("self": a mid-prefill admission is requeued for a
+clean restart, a decoding slot is preempted). "swap" keeps the victim's
+blocks and
 carries in host memory; "recompute" drops them and, at resume, replays
 prompt + tokens[:-1] through the prefill programs (`_replay_slot`, the
 reference's): a greedy stream resumes bit for bit, a sampled one on a
 fresh key, request_key(seed, seq) with the next seq, as the reference
 documents. A mid-prefill admission is requeued for a clean restart
 either way (labelled "recompute", as the reference labels it).
-Left out of this port so far (see ROADMAP.md): speculative decoding,
-QoS lanes and victim classes, deadlines, the fleet KV tier and the
-metrics plane.
+
+Observability (obs/): the spans `serve.step`, `serve.prefill_chunk` and
+`serve.replay`, each request's timeline (enqueue, admit, prefix_hit,
+prefill_chunk, prefill_done, first_token, decode, preempt, resume,
+replay, finish or error) and the SERVE_* instruments are recorded at the
+reference's points from host values the iteration already has. Nothing
+is recorded inside a capture and nothing waits on the card: a span over
+device work ends at the iteration's one fetch (`_close_spans`).
+Left out of this port so far (see ROADMAP.md): speculative decoding and
+the fleet KV tier.
 """
 from __future__ import annotations
 
-import collections
 import logging
 import queue as queue_mod
 import threading
@@ -86,15 +104,26 @@ import torch
 from ..models.common.cache import kv_capacity, reset_layers
 from ..models.common.graphs import DecodeCarries, DecodeGraph
 from ..models.common.text_model import prefill_start_keys
+from ..obs import (DECODE_TOKEN_SECONDS, GENERATED_TOKENS, RECORDER,
+                   SERVE_BATCH_OCCUPANCY, SERVE_E2E_SECONDS,
+                   SERVE_ITL_SECONDS, SERVE_POISONED, SERVE_PREEMPTIONS,
+                   SERVE_PREFILL_CHUNKS, SERVE_QOS_E2E_SECONDS,
+                   SERVE_QOS_TTFT_SECONDS, SERVE_QUEUE_TIMEOUTS,
+                   SERVE_QUEUE_WAIT_SECONDS, SERVE_REQUEST_TIMEOUTS,
+                   SERVE_SLOTS_BUSY, SERVE_TTFT_SECONDS, TIMELINES,
+                   TTFT_SECONDS, now, now_us)
 from ..ops.sampling import SamplingConfig, request_key
 from . import faults
+from .admission import AdmissionQueue, QueueFull
+from .admission.classes import class_of, priority
 from .flight import FlightRecorder
 from .paged.pool import KVPoolExhausted, PagedKV
 from .paged.preempt import PreemptedSlot, choose_victim, victim_rank
 from .prefix_cache import PagedPrefixCache, PrefixCache
 from .supervisor import (DEFAULT_REBUILD_BUDGET, DEFAULT_REBUILD_WINDOW_S,
                          DEFAULT_RESTORE_INTERVAL_S, DEFAULT_STEP_WATCHDOG_S,
-                         EngineDown, PoisonedRequest, Supervisor)
+                         EngineDown, PoisonedRequest, RequestDeadlineExceeded,
+                         Supervisor)
 
 log = logging.getLogger("cake_tpu_torch.serve")
 
@@ -106,17 +135,32 @@ DEFAULT_QUEUE = 64
 DEFAULT_PREFIX_CACHE_MB = 256.0     # the reference's CAKE_PREFIX_CACHE_MB
 DEFAULT_KV_BLOCK_TOKENS = 16        # the reference's CAKE_KV_BLOCK_TOKENS
 PREEMPT_MODES = ("swap", "recompute")   # the reference's CAKE_PREEMPT_MODE
+# the reference's CAKE_QUEUE_DEADLINE_S and CAKE_REQUEST_DEADLINE_S
+# defaults: 0 turns the sweep off
+DEFAULT_QUEUE_DEADLINE_S = 0.0
+DEFAULT_REQUEST_DEADLINE_S = 0.0
 
-
-class QueueFull(RuntimeError):
-    def __init__(self, retry_after_s: int = 1):
-        super().__init__("admission queue full")
-        self.retry_after_s = retry_after_s
+__all__ = ["EngineDown", "EngineDraining", "KVPoolExhausted",
+           "PoisonedRequest", "QueueDeadlineExceeded", "QueueFull",
+           "RequestDeadlineExceeded", "ServeEngine", "ServeRequest",
+           "SlotPool"]
 
 
 class EngineDraining(RuntimeError):
     def __init__(self, retry_after_s: int = 5):
         super().__init__("serve engine draining for shutdown")
+        self.retry_after_s = retry_after_s
+
+
+class QueueDeadlineExceeded(RuntimeError):
+    """The request sat in the admission queue past the queue deadline
+    (CAKE_QUEUE_DEADLINE_S): it is finished with 503 instead of eventually
+    occupying a slot for a client that already gave up."""
+
+    def __init__(self, waited_s: float, retry_after_s: int = 1):
+        super().__init__(
+            f"request expired in admission queue after {waited_s:.1f}s")
+        self.waited_s = waited_s
         self.retry_after_s = retry_after_s
 
 
@@ -161,40 +205,6 @@ class SlotPool:
         return self.n - self.busy_count
 
 
-class AdmissionQueue:
-    """Bounded FIFO shared by client threads and the scheduler."""
-
-    def __init__(self, maxsize: int):
-        self.maxsize = maxsize
-        self._q: collections.deque = collections.deque()
-        self._lock = threading.Lock()
-
-    def put(self, item, allow_extra: int = 0) -> None:
-        with self._lock:
-            if len(self._q) >= self.maxsize + allow_extra:
-                raise QueueFull(retry_after_s=max(1, len(self._q) // 8))
-            self._q.append(item)
-
-    def pop(self):
-        with self._lock:
-            return self._q.popleft() if self._q else None
-
-    def purge(self, pred) -> list:
-        with self._lock:
-            keep, out = collections.deque(), []
-            for item in self._q:
-                (out if pred(item) else keep).append(item)
-            self._q = keep
-            return out
-
-    def drain(self) -> list:
-        return self.purge(lambda _: True)
-
-    def depth(self) -> int:
-        with self._lock:
-            return len(self._q)
-
-
 class _Prefill:
     """Scheduler-private state of one in-flight chunked admission."""
 
@@ -222,11 +232,16 @@ class ServeRequest:
 
     def __init__(self, prompt_ids: list[int], max_new_tokens: int,
                  sampling: SamplingConfig | None,
-                 request_id: str | None = None):
+                 request_id: str | None = None, qos: str = "interactive",
+                 tenant: str | None = None):
         self.id = request_id or "serve-" + uuid.uuid4().hex[:16]
         self.prompt_ids = list(prompt_ids)
         self.max_new_tokens = max_new_tokens
         self.sampling = sampling or SamplingConfig()
+        # QoS class (admission lane, weighted-fair share, preemption
+        # rank) and tenant (quota accounting, timeline attribution)
+        self.qos = qos
+        self.tenant = tenant
         self.out_q: queue_mod.Queue = queue_mod.Queue()
         self.cancelled = threading.Event()
         self.admitted = threading.Event()
@@ -234,7 +249,7 @@ class ServeRequest:
         self.result: dict = {}
         self.tokens: list[int] = []
         self.stats: dict = {}
-        self.t_enqueue = time.perf_counter()
+        self.t_enqueue = now()
         # scheduler-owned
         self.slot: int | None = None
         self.key = 0                    # sampling key, set at admission
@@ -270,7 +285,11 @@ class ServeEngine:
                  step_watchdog_s: float = DEFAULT_STEP_WATCHDOG_S,
                  rebuild_budget: int = DEFAULT_REBUILD_BUDGET,
                  rebuild_window_s: float = DEFAULT_REBUILD_WINDOW_S,
-                 restore_interval_s: float = DEFAULT_RESTORE_INTERVAL_S):
+                 restore_interval_s: float = DEFAULT_RESTORE_INTERVAL_S,
+                 queue_deadline_s: float = DEFAULT_QUEUE_DEADLINE_S,
+                 request_deadline_s: float = DEFAULT_REQUEST_DEADLINE_S,
+                 qos_weights: dict | None = None,
+                 qos_bounds: dict | None = None):
         """kv_blocks > 0 replaces the contiguous pool (slots x ctx rows)
         with a shared pool of that many blocks of kv_block_tokens tokens;
         prefix_cache_mb <= 0 turns the shared-prefix cache off;
@@ -279,7 +298,13 @@ class ServeEngine:
         dispatch in flight past step_watchdog_s flags the engine wedged
         (0: no watchdog); rebuild_budget rebuilds per rolling
         rebuild_window_s, past which the engine goes DOWN and probes the
-        device every restore_interval_s."""
+        device every restore_interval_s. queue_deadline_s > 0 fails a
+        request still queued after that long (503); request_deadline_s >
+        0 fails an admitted or parked one older than that (504).
+        qos_weights / qos_bounds override the classes' weighted-fair
+        weights and per-class queue bounds (max_queue each by default;
+        None reads CAKE_QOS_WEIGHTS / CAKE_QOS_BOUNDS, as the
+        reference's queue does)."""
         if preempt_mode not in PREEMPT_MODES:
             raise ValueError(f"preempt_mode must be one of {PREEMPT_MODES},"
                              f" got {preempt_mode!r}")
@@ -291,7 +316,10 @@ class ServeEngine:
         self.kv_block_tokens = kv_block_tokens
         self.preempt_mode = preempt_mode
         self.pool = SlotPool(slots)
-        self.queue = AdmissionQueue(max_queue)
+        self.queue = AdmissionQueue(max_queue, weights=qos_weights,
+                                    bounds=qos_bounds)
+        self.queue_deadline_s = queue_deadline_s
+        self.request_deadline_s = request_deadline_s
         self._seed = seed
         self._vocab = model.cfg.vocab_size
         self.paged: PagedKV | None = None
@@ -308,7 +336,10 @@ class ServeEngine:
         self._wake = threading.Event()
         self._stop = threading.Event()
         self.steps = 0
-        self.last_step = time.perf_counter()
+        self.last_step = now()
+        # device-work spans of this iteration, closed at its fetch:
+        # [(name, t0_us, args)]
+        self._spans: list[tuple[str, int, dict]] = []
         self.dead: BaseException | None = None
         self.graph = None               # the decode step's DecodeGraph
         self.capture_s = 0.0            # seconds capturing at start
@@ -401,8 +432,12 @@ class ServeEngine:
 
     def submit(self, prompt_ids: list[int], max_new_tokens: int = 256,
                sampling: SamplingConfig | None = None,
-               request_id: str | None = None) -> ServeRequest:
-        """Enqueue a generation. Raises QueueFull under backpressure,
+               request_id: str | None = None, qos: str = "interactive",
+               tenant: str | None = None) -> ServeRequest:
+        """Enqueue a generation under QoS class `qos` (admission lane,
+        weighted-fair share, preemption rank; the API resolves it and the
+        tenant's ceiling clamps it). Raises QueueFull when that class's
+        lane is full (its Retry-After reflects the class's backlog),
         EngineDraining while shutting down, EngineDown when the scheduler
         died or while the engine is DOWN (rebuild budget exhausted),
         PoisonedRequest for a quarantined prompt, ValueError for prompts a
@@ -428,11 +463,24 @@ class ServeEngine:
             raise ValueError(f"prompt needs {paged.blocks_for(n + 1)} KV "
                              f"blocks but the pool holds {paged.num_blocks} "
                              f"(kv_blocks x kv_block_tokens tokens in all)")
-        req = ServeRequest(prompt_ids, max_new_tokens, sampling, request_id)
+        req = ServeRequest(prompt_ids, max_new_tokens, sampling, request_id,
+                           qos=qos, tenant=tenant)
         req._engine = self
-        # free slots extend the bound: a burst that fits the idle pool is
-        # admitted even though the scheduler drains one per iteration
-        self.queue.put(req, allow_extra=self.pool.free_count)
+        # the timeline opens and records the enqueue BEFORE the put: once
+        # queued, the scheduler may admit the request at once, and its
+        # admit event must find the timeline and follow the enqueue
+        TIMELINES.begin(req.id)
+        TIMELINES.event(req.id, "enqueue", depth=self.queue.depth() + 1,
+                        qos=req.qos,
+                        **({"tenant": req.tenant} if req.tenant else {}))
+        try:
+            # free slots extend the bound: a burst that fits the idle pool
+            # is admitted even though the scheduler drains one per
+            # iteration
+            self.queue.put(req, allow_extra=self.pool.free_count)
+        except QueueFull:
+            TIMELINES.event(req.id, "error", type="QueueFull")
+            raise
         self._wake.set()
         if self.dead is not None or self.supervisor.is_down():
             # the scheduler died (or went down) between the check above
@@ -479,12 +527,13 @@ class ServeEngine:
             "slots": self.slots,
             "slots_busy": self.pool.busy_count,
             "queue_depth": self.queue.depth(),
+            "queue_by_class": self.queue.depths(),
             "ctx_len": self.ctx,
             "prefill_chunk": self.chunk,
             "prefilling": len(self._prefills),
             "draining": self._draining.is_set(),
             "steps": self.steps,
-            "last_step_age_s": round(time.perf_counter() - self.last_step, 3),
+            "last_step_age_s": round(now() - self.last_step, 3),
             "prefill_graphs": {"programs": len(self.prefill.graphs),
                                "replays": self.prefill.replays,
                                "capture_s": round(self.capture_s, 3)},
@@ -534,11 +583,11 @@ class ServeEngine:
         """Stop admission and wait for busy slots and queued requests to
         finish. True when the engine went idle within the timeout."""
         self.begin_drain()
-        deadline = None if timeout is None else time.perf_counter() + timeout
+        deadline = None if timeout is None else now() + timeout
         while self.pool.busy_count or self.queue.depth() or self._preempted:
             if self.dead is not None or not self._thread.is_alive():
                 return False
-            if deadline is not None and time.perf_counter() >= deadline:
+            if deadline is not None and now() >= deadline:
                 return False
             time.sleep(0.02)
         return True
@@ -570,12 +619,12 @@ class ServeEngine:
 
     def _loop(self):
         try:
-            t0 = time.perf_counter()
+            t0 = now()
             # captured with every row inactive (nothing admitted yet)
             self.graph = DecodeGraph(self._decode_fn(), self.model.device)
             # each prefill program's warm-up writes nothing (valid_len 0)
             self.prefill.capture(self._prefill_keys)
-            self.capture_s = time.perf_counter() - t0
+            self.capture_s = now() - t0
         except BaseException as e:
             log.exception("serve engine failed to capture its programs")
             self.dead = e
@@ -613,7 +662,7 @@ class ServeEngine:
                 continue
             worked = self._step()
             sup.disarm()
-            self.last_step = time.perf_counter()
+            self.last_step = now()
             if worked:
                 self.steps += 1
                 sup.note_ok()
@@ -680,6 +729,13 @@ class ServeEngine:
         busy = self.pool.busy()
         if not (busy or self.queue.depth() or self._preempted):
             return False
+        with RECORDER.span("serve.step", cat="serve", slots=len(busy),
+                           queued=self.queue.depth()):
+            return self._iterate(busy)
+
+    def _iterate(self, busy: list[int]) -> bool:
+        """The body of one scheduler iteration (`_step`'s span)."""
+        sup = self.supervisor
         # 1. cancel sweeps
         prefilling = {p.slot for p in self._prefills}
         for i in busy:
@@ -690,11 +746,12 @@ class ServeEngine:
         for pf in [p for p in self._prefills if p.req.cancelled.is_set()]:
             self._abort_prefill(pf, None)
         for entry in [e for e in self._preempted
-                      if e.req.cancelled.is_set()]:
+                      if e.req.cancelled.is_set() or e.req.done.is_set()]:
             self._preempted.remove(entry)
             self._fail(entry.req, None)
         for req in self.queue.purge(lambda r: r.cancelled.is_set()):
             self._fail(req, None)
+        self._sweep_deadlines()
         # 2. preempted requests resume first (their clients are mid-
         # stream), then admissions take free slots (cheap: at most a
         # prefix splice; the prefill itself is chunked)
@@ -721,9 +778,10 @@ class ServeEngine:
         # 4. one batched decode step over the pool; armed BEFORE the fault
         # hook, so that an injected stall is seen by the watchdog, and a
         # crash here implicates every active request
-        t0 = time.perf_counter()
+        t0 = now()
         active_ids = tuple(self._reqs[i].id for i in active)
         if active:
+            SERVE_BATCH_OCCUPANCY.observe(len(active))
             sup.arm("decode", active_ids)
             hook = faults.FAULT_HOOK
             if hook is not None:
@@ -740,9 +798,13 @@ class ServeEngine:
         # decode set, so that it does not implicate the chunk's request
         if active:
             sup.arm("decode", active_ids)
-            self._fanout(active, self.carries.packed.cpu().numpy())
+            packed = self.carries.packed.cpu().numpy()
+            # the chunk queued before the fetch has run on the card by now
+            self._close_spans()
+            self._fanout(active, packed)
+        self._close_spans()
         rec = {"occupancy": len(active),
-               "dispatch_ms": round((time.perf_counter() - t0) * 1e3, 3)
+               "dispatch_ms": round((now() - t0) * 1e3, 3)
                if active else 0.0,
                "queued": self.queue.depth(),
                "prefilling": len(self._prefills)}
@@ -751,6 +813,56 @@ class ServeEngine:
             rec["kv_used"] = self.paged.alloc.used_count
         self.flight.record(**rec)
         return True
+
+    def _sweep_deadlines(self) -> None:
+        """The deadline sweeps (the reference's, engine.py:848-885): a
+        request queued past queue_deadline_s fails with
+        QueueDeadlineExceeded (503) instead of taking a slot for a client
+        that gave up; an admitted (mid-prefill or decoding) or parked
+        request older than request_deadline_s fails with
+        RequestDeadlineExceeded (504) and frees its slot. Each expiry
+        counts once."""
+        if self.queue_deadline_s > 0:
+            cutoff = now() - self.queue_deadline_s
+            for req in self.queue.purge(lambda r: r.t_enqueue < cutoff):
+                SERVE_QUEUE_TIMEOUTS.inc()
+                self._fail(req, QueueDeadlineExceeded(now() - req.t_enqueue))
+        if self.request_deadline_s > 0:
+            cutoff = now() - self.request_deadline_s
+            for i in self.pool.busy():
+                req = self._reqs[i]
+                if req is None or req.t_enqueue >= cutoff:
+                    continue
+                SERVE_REQUEST_TIMEOUTS.inc()
+                err = RequestDeadlineExceeded(now() - req.t_enqueue,
+                                              self.request_deadline_s)
+                pf = next((p for p in self._prefills if p.slot == i), None)
+                if pf is not None:
+                    self._abort_prefill(pf, err)
+                else:
+                    req.result["error"] = err
+                    self._finish(i, req, cancelled=True)
+            for entry in [e for e in self._preempted
+                          if e.req.t_enqueue < cutoff]:
+                self._preempted.remove(entry)
+                SERVE_REQUEST_TIMEOUTS.inc()
+                self._fail(entry.req, RequestDeadlineExceeded(
+                    now() - entry.req.t_enqueue, self.request_deadline_s))
+
+    def _open_span(self, name: str, t0_us: int, **args) -> None:
+        """A span over device work dispatched since t0_us: `_close_spans`
+        ends it at the iteration's fetch (or where the iteration's host
+        work ends), so it never waits on the card. A no-op with the
+        recorder off."""
+        if RECORDER.enabled:
+            self._spans.append((name, t0_us, args))
+
+    def _close_spans(self) -> None:
+        if self._spans:
+            t = now_us()
+            for name, t0, args in self._spans:
+                RECORDER.add(name, t0, t - t0, cat="serve", **args)
+            self._spans.clear()
 
     # -- chunked admission --------------------------------------------------
 
@@ -762,14 +874,19 @@ class ServeEngine:
             if not req.cancelled.is_set():
                 break
             self._fail(req, None)
+        SERVE_QUEUE_WAIT_SECONDS.observe(now() - req.t_enqueue)
         slot = self.pool.alloc()
         self._reqs[slot] = req
         req.slot = slot
         req.admitted.set()
-        req.stats = {"queue_wait_s": time.perf_counter() - req.t_enqueue}
+        req.stats = {"queue_wait_s": now() - req.t_enqueue}
+        TIMELINES.event(req.id, "admit", slot=slot, qos=req.qos,
+                        queue_wait_ms=round(
+                            req.stats["queue_wait_s"] * 1e3, 3))
         req.key = request_key(self._seed, self._seq)
         self._seq += 1
         self._begin_prefill(_Prefill(req, slot))
+        SERVE_SLOTS_BUSY.set(self.pool.busy_count)
         return True
 
     def _begin_prefill(self, pf: _Prefill) -> None:
@@ -783,6 +900,8 @@ class ServeEngine:
                 pc.splice(self._layers, pf.slot, pf.keys, matched)
                 pf.next_block = matched
                 pf.pos = pf.hit_tokens = matched * self.chunk
+                TIMELINES.event(pf.req.id, "prefix_hit",
+                                tokens=pf.hit_tokens)
         self._prefills.append(pf)
 
     def _advance_prefill(self, pf: _Prefill) -> bool:
@@ -796,6 +915,7 @@ class ServeEngine:
         hook = faults.FAULT_HOOK
         if hook is not None:
             hook.on_prefill(pf.req)
+        t0 = now_us()
         try:
             logits = self.prefill.run(pf.slot, ids, pf.pos)
         except ValueError as e:
@@ -804,8 +924,12 @@ class ServeEngine:
             # the supervisor
             self._abort_prefill(pf, e)
             return False
+        self._open_span("serve.prefill_chunk", t0, tokens=take, pos0=pf.pos,
+                        slot=pf.slot, request_id=pf.req.id)
         pf.pos += take
         pf.chunks += 1
+        TIMELINES.event(pf.req.id, "prefill_chunk", pos0=pf.pos - take,
+                        tokens=take)
         pf.next_block = self._capture_blocks(pf.ids, pf.slot, pf.pos,
                                              pf.next_block, pf.keys)
         if pf.pos >= pf.n:
@@ -850,6 +974,9 @@ class ServeEngine:
         req._first_pending = True
         req.stats["prefill_chunks"] = pf.chunks
         req.stats["prefix_hit_tokens"] = pf.hit_tokens
+        SERVE_PREFILL_CHUNKS.observe(max(pf.chunks, 1))
+        TIMELINES.event(req.id, "prefill_done", chunks=pf.chunks,
+                        hit_tokens=pf.hit_tokens)
 
     def _set_slot_sampling(self, slot: int, scfg: SamplingConfig):
         self.carries.set_sampling(
@@ -857,9 +984,13 @@ class ServeEngine:
             1.0 if scfg.top_p is None else scfg.top_p, scfg.repeat_penalty)
 
     def _abort_prefill(self, pf: _Prefill, error: BaseException | None):
+        """Tear down a mid-prefill admission (cancel, deadline, a
+        request-scoped refusal): release the waiter, free the slot, wipe
+        the half-built row (paged: deref its blocks)."""
         self._prefills.remove(pf)
         self._reqs[pf.slot] = None
         self.pool.free(pf.slot)
+        SERVE_SLOTS_BUSY.set(self.pool.busy_count)
         self._fail(pf.req, error)
         self._release_row(pf.slot)
 
@@ -882,23 +1013,33 @@ class ServeEngine:
 
     def _prepare_prefill(self, pf: _Prefill) -> _Prefill | None:
         """Reserve the blocks pf's next chunk writes. None when the
-        admission was failed: with every other occupant preempted or
-        requeued the pool still cannot hold the chunk."""
+        admission parked itself (every reclaimable block is held by
+        higher-class work: it is requeued for a clean restart instead of
+        evicting that work) or was failed: with every other occupant
+        preempted or requeued the pool still cannot hold the chunk."""
         take = min(self.chunk, pf.n - pf.pos)
-        if self._reserve_blocks(pf.slot, pf.pos, take):
+        got = self._reserve_blocks(pf.slot, pf.pos, take, requester=pf.req)
+        if got == "self":
+            self._requeue_admission(pf)
+            return None
+        if got:
             return pf
         self._abort_prefill(pf, KVPoolExhausted(
             f"KV pool exhausted admitting {pf.req.id}: the prompt needs "
             "more blocks than the pool can ever free"))
         return None
 
-    def _reserve_blocks(self, slot: int, pos0: int, n: int) -> bool:
+    def _reserve_blocks(self, slot: int, pos0: int, n: int,
+                        requester: ServeRequest | None = None):
         """Back positions [pos0, pos0 + n) of `slot` with blocks, evicting
         prefix-cache LRU (inside the pool) and then preempting victims
-        until it fits. False = nothing left to reclaim."""
+        (the QoS policy of `_preempt_one`) until it fits. True = fits;
+        "self" = only higher-class work holds blocks, so the caller must
+        park itself; False = nothing left to reclaim."""
         while not self.paged.reserve_range(slot, pos0, n):
-            if not self._preempt_one(exclude=slot):
-                return False
+            got = self._preempt_one(exclude=slot, requester=requester)
+            if got is not True:
+                return got
         return True
 
     def _ensure_decode_blocks(self, active: list[int]) -> list[int]:
@@ -911,29 +1052,49 @@ class ServeEngine:
             if req is None:
                 continue        # preempted by an earlier slot's ensure
             wp = self._frontier(req)
-            if not self._reserve_blocks(i, wp, 1):
+            got = self._reserve_blocks(i, wp, 1, requester=req)
+            if got == "self":
+                # the only reclaimable blocks are held by higher-class
+                # work: this slot parks itself (it resumes bit-identical
+                # when blocks free) instead of displacing that work
+                self._preempt_slot(i, req)
+            elif not got:
                 req.result["error"] = KVPoolExhausted(
                     f"KV pool exhausted: request {req.id} cannot grow "
                     f"past {wp} tokens and nothing is left to reclaim")
                 self._finish(i, req, cancelled=True)
         return [i for i in active if self._reqs[i] is not None]
 
-    def _preempt_one(self, exclude: int) -> bool:
-        """Free blocks: preempt a decoding victim (the latest admission,
-        victim_rank), else send another in-flight admission back for a
-        clean restart (it has emitted nothing). False = nothing left."""
+    def _preempt_one(self, exclude: int,
+                     requester: ServeRequest | None = None):
+        """Free blocks: preempt a decoding victim (lowest class first,
+        LIFO within a class: victim_rank), else send another in-flight
+        admission back for a clean restart (it has emitted nothing;
+        lowest class, youngest first). Neither may outrank `requester`'s
+        class: when every candidate does, returns "self" and the caller
+        parks itself (a batch decoder never displaces interactive work).
+        True = blocks freed; False = nothing left to reclaim."""
+        def outranks(r):
+            return requester is not None and \
+                priority(class_of(r)) > priority(class_of(requester))
         prefilling = {p.slot for p in self._prefills}
         cands = [(i, self._reqs[i]) for i in self.pool.busy()
                  if i not in prefilling]
         victim = choose_victim(cands, exclude=exclude)
-        if victim is not None:
+        others = [p for p in self._prefills if p.slot != exclude]
+        pick = max(others, key=lambda p: victim_rank(p.req)) \
+            if others else None
+        # evict in policy order, but never strictly-higher-class work: a
+        # protected victim falls through to the admission check (a
+        # lower-class admission may still be requeued)
+        if victim is not None and not outranks(victim[1]):
             self._preempt_slot(*victim)
             return True
-        others = [p for p in self._prefills if p.slot != exclude]
-        if others:
-            self._requeue_admission(max(others,
-                                        key=lambda p: victim_rank(p.req)))
+        if pick is not None and not outranks(pick.req):
+            self._requeue_admission(pick)
             return True
+        if victim is not None or pick is not None:
+            return "self"
         return False
 
     def _preempt_slot(self, slot: int, req: ServeRequest):
@@ -956,6 +1117,8 @@ class ServeEngine:
                 req._first_pending = False
             entry = PreemptedSlot(req, "recompute", wp)
         self.preemptions[entry.mode] += 1
+        SERVE_PREEMPTIONS.inc(mode=entry.mode)
+        TIMELINES.event(req.id, "preempt", mode=entry.mode, tokens=wp)
         req.stats.setdefault("preempted_at", []).append(len(req.tokens))
         self.pool.free(slot)
         self._reqs[slot] = None
@@ -964,6 +1127,7 @@ class ServeEngine:
         c.toks[slot] = 0
         c.pos[slot] = 0
         self._preempted.append(entry)
+        SERVE_SLOTS_BUSY.set(self.pool.busy_count)
         log.warning("preempted slot %d (%s, %d tokens): KV pool "
                     "exhausted", slot, entry.mode, wp)
 
@@ -979,8 +1143,11 @@ class ServeEngine:
         self._reqs[pf.slot] = None
         pf.req.slot = None
         self.preemptions["recompute"] += 1
+        SERVE_PREEMPTIONS.inc(mode="recompute")
+        TIMELINES.event(pf.req.id, "preempt", mode="requeue", tokens=pf.pos)
         self._preempted.append(PreemptedSlot(pf.req, "recompute",
                                              max(pf.n - 1, 0)))
+        SERVE_SLOTS_BUSY.set(self.pool.busy_count)
         log.warning("readmitting request %s: KV pool exhausted "
                     "mid-prefill", pf.req.id)
 
@@ -1013,6 +1180,7 @@ class ServeEngine:
                 c.active[slot] = True
                 self._reqs[slot] = req
                 req.slot = slot
+                TIMELINES.event(req.id, "resume", mode="swap", slot=slot)
             else:
                 if not self.paged.ensure_free(
                         self.paged.blocks_for(entry.tokens_at_preempt + 1)):
@@ -1022,6 +1190,10 @@ class ServeEngine:
                 self._preempted.pop(0)
                 self._reqs[slot] = req
                 req.slot = slot
+                # stamped BEFORE the replay it triggers: the timeline
+                # reads preempt -> resume -> replay
+                TIMELINES.event(req.id, "resume", mode="recompute",
+                                slot=slot)
                 if not req.tokens:
                     self._begin_prefill(_Prefill(req, slot))
                 else:
@@ -1031,6 +1203,7 @@ class ServeEngine:
                         req.result["error"] = e
                         self._finish(slot, req, cancelled=True)
                         continue
+            SERVE_SLOTS_BUSY.set(self.pool.busy_count)
             log.warning("resumed preempted request %s into slot %d (%s)",
                         req.id, slot, entry.mode)
 
@@ -1049,6 +1222,8 @@ class ServeEngine:
         resumes bit for bit, a sampled one on the new key."""
         ids = req.prompt_ids + req.tokens[:-1]
         n = len(ids)
+        TIMELINES.event(req.id, "replay", tokens=n)
+        t0 = now_us()
         pos = next_block = 0
         keys: list[bytes] = []
         pc = self.prefix_cache
@@ -1074,6 +1249,8 @@ class ServeEngine:
             pos += take
             next_block = self._capture_blocks(ids, slot, pos, next_block,
                                               keys)
+        self._open_span("serve.replay", t0, slot=slot, tokens=n,
+                        request_id=req.id)
         tail = req.tokens[-RECENT_N:]
         c = self.carries
         c.recents[slot] = -1
@@ -1124,7 +1301,8 @@ class ServeEngine:
         rebuild allocates no second pool, so it cannot re-OOM on one; and
         `_fail_all` and `_revive` keep the pool and the graphs, where the
         reference drops and reallocates them."""
-        t0 = time.perf_counter()
+        t0 = now()
+        self._spans.clear()             # the failed iteration's
         replays: list[ServeRequest] = []
         restarts: list[ServeRequest] = []
         for req in self._reqs:
@@ -1165,8 +1343,10 @@ class ServeEngine:
             self.supervisor.arm("replay", tuple(r.id for r in replays),
                                 grace=True)
             self._sync_device()
+        self._close_spans()
+        SERVE_SLOTS_BUSY.set(self.pool.busy_count)
         self.last_rebuild = {
-            "wall_ms": round((time.perf_counter() - t0) * 1e3, 3),
+            "wall_ms": round((now() - t0) * 1e3, 3),
             # tokens each replay ran through the programs (its cached
             # prefix, spliced, is not counted)
             "replayed_tokens": [len(r.prompt_ids) + len(r.tokens) - 1
@@ -1193,6 +1373,8 @@ class ServeEngine:
             self._prefills[:] = [p for p in self._prefills
                                  if p.req.id != rid]
             self.supervisor.quarantine(req.prompt_ids)
+            SERVE_POISONED.inc()
+            SERVE_SLOTS_BUSY.set(self.pool.busy_count)
             log.error("poisoned request %s dropped and quarantined: %s",
                       rid, err)
             self._fail(req, err)
@@ -1215,9 +1397,11 @@ class ServeEngine:
                 self._reqs[i] = None
                 self._fail(req, err)
         self.pool = SlotPool(self.slots)
+        self._spans.clear()
         if self.paged is not None:
             self.paged.evictor = None
         self.prefix_cache = None        # _revive builds it anew
+        SERVE_SLOTS_BUSY.set(0)
 
     # -- batched decode fan-out ---------------------------------------------
 
@@ -1226,10 +1410,12 @@ class ServeEngine:
         activated slot's unemitted first token), row 1 the sampled one."""
         for i in active:
             req = self._reqs[i]
+            TIMELINES.event(req.id, "decode", bucket=self.slots)
             if req._first_pending:
                 req._first_pending = False
-                req.t_first = time.perf_counter()
+                req.t_first = now()
                 req.stats["ttft_s"] = req.t_first - req.t_enqueue
+                TIMELINES.event(req.id, "first_token")
                 first = int(arr[0, i])
                 self._emit(req, first)
                 if self.model.cfg.is_eos(first) or req.budget <= 0:
@@ -1258,7 +1444,7 @@ class ServeEngine:
             c.toks[slot] = 0
             c.pos[slot] = 0
             c.active[slot] = False
-        dt = time.perf_counter() - req.t_first if req.t_first else 0.0
+        dt = now() - req.t_first if req.t_first else 0.0
         ndec = max(len(req.tokens) - 1, 0)
         req.stats.update({"decode_tokens": ndec, "decode_s": dt,
                           "tok_per_s": ndec / dt if dt > 0 and ndec else 0.0})
@@ -1266,13 +1452,69 @@ class ServeEngine:
         req.result["stats"] = req.stats
         if cancelled and "error" not in req.result:
             req.result["cancelled"] = True
+        if not cancelled and req.tokens:
+            _observe_generation(req.stats, len(req.tokens))
+        # SLO and terminal event only for a request not already finalized
+        # (close() may have released this waiter before), so that nothing
+        # counts twice
+        if not req.done.is_set():
+            outcome = ("ok" if not cancelled else
+                       "error" if "error" in req.result else "cancelled")
+            self._observe_slo(req, outcome)
+            TIMELINES.event(
+                req.id, "finish", outcome=outcome, tokens=len(req.tokens),
+                qos=req.qos,
+                ttft_ms=round(req.stats.get("ttft_s", 0.0) * 1e3, 3),
+                e2e_ms=round((now() - req.t_enqueue) * 1e3, 3),
+                **({"tenant": req.tenant} if req.tenant else {}))
+        SERVE_SLOTS_BUSY.set(self.pool.busy_count)
         req._deliver(ServeRequest.DONE)
         req.done.set()
+
+    @staticmethod
+    def _observe_slo(req: ServeRequest, outcome: str):
+        """Per terminal request: the TTFT / mean ITL / e2e histograms by
+        outcome (and TTFT / e2e by class), each observation carrying the
+        request id as its exemplar, so a bad percentile links to one
+        /api/v1/requests/<id> timeline."""
+        t = now()
+        SERVE_E2E_SECONDS.observe(t - req.t_enqueue, exemplar=req.id,
+                                  outcome=outcome)
+        SERVE_QOS_E2E_SECONDS.observe(t - req.t_enqueue, exemplar=req.id,
+                                      qos=req.qos, outcome=outcome)
+        if req.t_first:
+            SERVE_TTFT_SECONDS.observe(req.t_first - req.t_enqueue,
+                                       exemplar=req.id, outcome=outcome)
+            SERVE_QOS_TTFT_SECONDS.observe(req.t_first - req.t_enqueue,
+                                           exemplar=req.id, qos=req.qos,
+                                           outcome=outcome)
+            ndec = max(len(req.tokens) - 1, 0)
+            if ndec:
+                SERVE_ITL_SECONDS.observe((t - req.t_first) / ndec,
+                                          exemplar=req.id, outcome=outcome)
 
     def _fail(self, req: ServeRequest, error: BaseException | None):
         if error is not None:
             req.result["error"] = error
         req.result.setdefault("tokens", req.tokens)
         req.result.setdefault("stats", req.stats)
+        if not req.done.is_set():
+            err = req.result.get("error")
+            self._observe_slo(req, "error" if err is not None
+                              else "cancelled")
+            TIMELINES.event(req.id, "error",
+                            type=type(err).__name__ if err is not None
+                            else "cancelled")
         req._deliver(ServeRequest.DONE)
         req.done.set()
+
+
+def _observe_generation(stats: dict, n_out: int) -> None:
+    """A completed generation's TTFT, mean per-token decode time and
+    emitted tokens (the reference's text_model._observe_generation, on
+    its serve path)."""
+    TTFT_SECONDS.observe(stats["ttft_s"])
+    ntok = stats.get("decode_tokens") or 0
+    if ntok and stats.get("decode_s", 0) > 0:
+        DECODE_TOKEN_SECONDS.observe(stats["decode_s"] / ntok)
+    GENERATED_TOKENS.inc(n_out, path="serve")

@@ -16,13 +16,16 @@ Everything here runs on the engine's scheduler thread. Every allocator
 change to a table entry updates the device table at once, without a host
 sync: a single entry is a scalar write, a row is one copy from pinned
 memory. The swap transport (swap_out / swap_in) is the slow path and
-syncs on purpose.
+syncs on purpose. Every change to the allocator's counts republishes the
+pool's gauges (obs: free, used and shared blocks) from host counters.
 """
 from __future__ import annotations
 
 import torch
 
 from ...models.common.cache import reset_layers
+from ...obs import (SERVE_KV_BLOCKS_FREE, SERVE_KV_BLOCKS_SHARED,
+                    SERVE_KV_BLOCKS_USED)
 from .allocator import BlockAllocator
 
 __all__ = ["PagedKV", "KVPoolExhausted", "pow2_block_tokens"]
@@ -85,6 +88,7 @@ class PagedKV:
             lambda io, bucket, mode: model.prefill_chunk_paged_into(
                 pool, rows, tables, io, bucket, mode),
             self.max_blocks * block_tokens, chunk or ctx)
+        self._publish()
 
     @classmethod
     def build(cls, model, slots: int, ctx: int, num_blocks: int,
@@ -139,6 +143,7 @@ class PagedKV:
     def sync_table_row(self, slot: int) -> None:
         """Publish the slot's host table row to the device in one copy."""
         self.tables[slot] = self._host_to_device(self.alloc.tables[slot])
+        self._publish()
 
     def reserve_range(self, slot: int, pos0: int, n: int) -> bool:
         """Ensure blocks for logical positions [pos0, pos0 + n): the
@@ -168,6 +173,7 @@ class PagedKV:
         if pid is None:
             return False
         self.tables[slot, block_idx] = pid
+        self._publish()
         return True
 
     def _copy_block(self, src: int, dst: int) -> None:
@@ -185,6 +191,7 @@ class PagedKV:
         self.tables[slot] = self.NULL
         if self.has_rows:
             self.model.row_reset(self.rows, slot)
+        self._publish()
 
     def reset(self) -> None:
         """Back to a fresh pool, in place: every block (the sink too) and
@@ -196,6 +203,7 @@ class PagedKV:
         self.tables.fill_(self.NULL)
         self.alloc = BlockAllocator(self.num_blocks, self.bt, self.slots,
                                     self.max_blocks)
+        self._publish()
 
     # -- model programs -----------------------------------------------------
 
@@ -252,6 +260,11 @@ class PagedKV:
         return True
 
     # -- introspection ------------------------------------------------------
+
+    def _publish(self) -> None:
+        SERVE_KV_BLOCKS_FREE.set(self.alloc.free_count)
+        SERVE_KV_BLOCKS_USED.set(self.alloc.used_count)
+        SERVE_KV_BLOCKS_SHARED.set(self.alloc.shared_count)
 
     def occupancy(self, live_tokens: dict[int, int] | None = None) -> dict:
         """kv_pool health block. `live_tokens`: slot -> frontier tokens,

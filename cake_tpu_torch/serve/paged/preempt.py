@@ -11,16 +11,19 @@ the emitted tokens through the prefill programs (the engine's
 either mode, labelled "recompute" as the reference labels it: it has
 emitted nothing, so its resume is a clean restart of its prefill.
 
-The port has one QoS class, so the victim is the latest admission (LIFO,
-the vLLM rule: the request that has consumed the least scheduler work is
-the cheapest to redo, and the oldest can never be starved by newcomers).
-`victim_rank` keeps the reference's (class, t_enqueue) shape so that QoS
-classes can plug in later. Parked requests resume oldest-first, before
+Victim choice follows the QoS class: the LOWEST class goes first (batch
+before standard before interactive), and within a class the latest
+admission (LIFO, the vLLM rule: the request that has consumed the least
+scheduler work is the cheapest to redo, and the oldest in its class can
+never be starved by newcomers). Single-class traffic therefore behaves
+as before classes existed. Parked requests resume oldest-first, before
 any new admission, as soon as a slot and enough blocks are free.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+from ..admission.classes import class_of, priority
 
 __all__ = ["PreemptedSlot", "choose_victim", "victim_rank"]
 
@@ -33,24 +36,18 @@ class PreemptedSlot:
     blob: dict | None = None          # swap payload (None for requeue)
 
 
-def class_priority(req) -> int:
-    """QoS priority of a request: the port has one class, so every request
-    ranks the same (the reference reads admission.classes here)."""
-    return 0
-
-
 def victim_rank(req) -> tuple:
     """Sort key under which the MAX element is the preferred victim:
-    lowest class first (negated priority), latest admission within a
+    lowest QoS class first (negated priority), latest admission within a
     class (LIFO). Shared by slot victim choice and the mid-prefill requeue
-    pick so the two paths cannot rank differently."""
-    return (-class_priority(req), getattr(req, "t_enqueue", 0.0))
+    pick so the two paths cannot rank classes differently."""
+    return (-priority(class_of(req)), getattr(req, "t_enqueue", 0.0))
 
 
 def choose_victim(candidates: list[tuple[int, object]],
                   exclude: int | None = None) -> tuple[int, object] | None:
     """(slot, req) to preempt from `candidates` [(slot, req)], or None.
-    `exclude` protects the slot whose allocation triggered the preemption
+    Lowest class first, LIFO within a class; `exclude` protects the slot whose allocation triggered the preemption
     (a slot cannot make room by evicting itself)."""
     pool = [(s, r) for s, r in candidates
             if s != exclude and r is not None]

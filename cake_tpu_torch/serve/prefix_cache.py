@@ -20,9 +20,9 @@ the exact bytes prefill wrote, and the suffix chunks land on the same
 chunk boundaries either way, so every product sees the same shapes and
 inputs.
 
-Everything here runs on the engine's scheduler thread. There is no metrics
-plane in the port yet: the counters are plain attributes that
-`occupancy()` returns.
+Everything here runs on the engine's scheduler thread. The counters are
+plain attributes that `occupancy()` returns, and they feed the metrics
+plane's prefix-cache instruments as the reference's do.
 """
 from __future__ import annotations
 
@@ -31,6 +31,9 @@ from collections import OrderedDict
 from dataclasses import dataclass
 
 import numpy as np
+
+from ..obs import (SERVE_PREFIX_BYTES, SERVE_PREFIX_EVICTIONS,
+                   SERVE_PREFIX_HITS, SERVE_PREFIX_MISSES)
 
 __all__ = ["PrefixCache", "PagedPrefixCache"]
 
@@ -115,8 +118,10 @@ class PrefixCache:
             matched += 1
         if matched:
             self.hits += 1
+            SERVE_PREFIX_HITS.inc()
         else:
             self.misses += 1
+            SERVE_PREFIX_MISSES.inc()
         return matched
 
     def splice(self, layers, slot: int, keys: list[bytes], matched: int):
@@ -147,11 +152,14 @@ class PrefixCache:
             self._evict_lru()
         self._blocks[key] = blk
         self.bytes += blk.nbytes
+        SERVE_PREFIX_BYTES.set(self.bytes)
 
     def _pop_lru(self):
         _, old = self._blocks.popitem(last=False)
         self.bytes -= old.nbytes
         self.evictions += 1
+        SERVE_PREFIX_EVICTIONS.inc()
+        SERVE_PREFIX_BYTES.set(self.bytes)
         return old
 
     def _evict_lru(self) -> int:
@@ -248,6 +256,8 @@ class PagedPrefixCache(PrefixCache):
             snap=snap, nbytes=nbytes)
         self.bytes += nbytes
         self.pinned += len(pids)
+        SERVE_PREFIX_BYTES.set(self.bytes)
+        self.paged._publish()
 
     def _evict_lru(self) -> int:
         """Drop the LRU entry and its pins; returns how many blocks were
@@ -255,8 +265,10 @@ class PagedPrefixCache(PrefixCache):
         live slot)."""
         old = self._pop_lru()
         self.pinned -= len(old.pids)
-        return sum(1 for pid in old.pids
-                   if self.paged.alloc.deref(pid, cache_pin=True))
+        freed = sum(1 for pid in old.pids
+                    if self.paged.alloc.deref(pid, cache_pin=True))
+        self.paged._publish()
+        return freed
 
     def evict_for_pressure(self) -> int:
         """Allocator pressure hook: evict LRU entries until a block frees

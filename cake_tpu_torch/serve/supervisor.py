@@ -1,8 +1,8 @@
 """Crash-only supervision for the serve engine: typed step failures, a
 budgeted rebuild state machine, poison attribution, and a wedge watchdog
 (the port's own copy of cake_tpu/serve/supervisor.py: STEP_KINDS,
-StepFailure, EngineDown, PoisonedRequest, classify, fingerprint,
-Supervisor).
+StepFailure, EngineDown, PoisonedRequest, RequestDeadlineExceeded,
+classify, fingerprint, Supervisor).
 
     serving ──step failure──▶ classify ──▶ rebuild-by-replay ──▶ serving
        ▲                         │ budget exhausted                 │
@@ -39,6 +39,11 @@ classified `wedge`, and if it returns the flag clears (slow but alive).
 Recovery work (replay, trial probes) is armed with a grace limit instead,
 so that a slow recovery is not flagged as a wedge.
 
+Its counts feed the metrics plane as the reference's do: step failures by
+kind, rebuilds, wedges and the DOWN gauge (obs: SERVE_STEP_FAILURES,
+SERVE_ENGINE_REBUILDS, SERVE_ENGINE_WEDGES, SERVE_ENGINE_DOWN), and every
+implicated request's timeline gets a `step_failure` event.
+
 Threading: recovery runs ON the scheduler thread (the engine's device
 state is single-threaded by design); the watchdog, the API handlers
 (submit / health) and this module share only the small state below,
@@ -49,16 +54,18 @@ from __future__ import annotations
 import hashlib
 import logging
 import threading
-import time
 from collections import OrderedDict, deque
 
 import numpy as np
 import torch
 
+from ..obs import (SERVE_ENGINE_DOWN, SERVE_ENGINE_REBUILDS,
+                   SERVE_ENGINE_WEDGES, SERVE_STEP_FAILURES, TIMELINES, now)
+
 log = logging.getLogger("cake_tpu_torch.serve.supervisor")
 
-__all__ = ["EngineDown", "PoisonedRequest", "StepFailure", "Supervisor",
-           "classify", "fingerprint"]
+__all__ = ["EngineDown", "PoisonedRequest", "RequestDeadlineExceeded",
+           "StepFailure", "Supervisor", "classify", "fingerprint"]
 
 STEP_KINDS = ("wedge", "device", "poison", "oom", "internal")
 
@@ -83,10 +90,6 @@ SUSPECT_CLEAR_STEPS = 8
 QUARANTINE_CAP = 128
 
 
-def now() -> float:
-    return time.perf_counter()
-
-
 class EngineDown(RuntimeError):
     """The engine cannot take this request: scheduler dead, rebuild
     budget exhausted, or shut down. The API answers 503 + Retry-After on
@@ -102,6 +105,20 @@ class PoisonedRequest(RuntimeError):
     """This request was implicated in consecutive engine crashes (or its
     fingerprint already sits in quarantine): it fails alone with a 500
     while the pool survives for everyone else."""
+
+
+class RequestDeadlineExceeded(RuntimeError):
+    """The request's TOTAL age (queue wait + prefill + decode) passed the
+    engine's request deadline (CAKE_REQUEST_DEADLINE_S): it is cancelled
+    with a 504 instead of holding a slot for a client that has surely
+    given up."""
+
+    def __init__(self, age_s: float, deadline_s: float):
+        super().__init__(
+            f"request exceeded its {deadline_s:.1f}s deadline "
+            f"(age {age_s:.1f}s)")
+        self.age_s = age_s
+        self.deadline_s = deadline_s
 
 
 class StepFailure(RuntimeError):
@@ -235,6 +252,7 @@ class Supervisor:
                 self._wedge_pending = True
                 limit = self._inflight_limit
             self.wedge_count += 1
+            SERVE_ENGINE_WEDGES.inc()
             log.error("serve watchdog: %s dispatch in flight %.1fs "
                       "(limit %.1fs): engine wedged", phase, age, limit)
             # black box out the door while the evidence is fresh: the
@@ -286,6 +304,10 @@ class Supervisor:
             kind = ("poison" if poisoned
                     else "wedge" if wedged else classify(exc))
             self.failures[kind] += 1
+            SERVE_STEP_FAILURES.inc(kind=kind)
+            for rid in implicated:
+                TIMELINES.event(rid, "step_failure", failure=kind,
+                                phase=phase)
             summary = f"{kind} in {phase}: {type(exc).__name__}: {exc}"
             with self._lock:
                 self._last_failure = {"kind": kind, "phase": phase,
@@ -312,6 +334,7 @@ class Supervisor:
             if len(self._rebuilds) >= self.rebuild_budget:
                 with self._lock:
                     self._down = {"since": t}
+                SERVE_ENGINE_DOWN.set(1)
                 log.error(
                     "serve engine DOWN: %d rebuilds inside %.0fs exhausted "
                     "the budget (%d); failing live requests, restore loop "
@@ -325,6 +348,7 @@ class Supervisor:
                 return True
             self._rebuilds.append(t)
             self.rebuild_count += 1
+            SERVE_ENGINE_REBUILDS.inc()
             self._replay_ok = 0
             try:
                 eng._rebuild(self._suspects or frozenset())
@@ -368,6 +392,7 @@ class Supervisor:
     def clear_down(self) -> None:
         with self._lock:
             self._down = None
+        SERVE_ENGINE_DOWN.set(0)
 
     # -- quarantine ---------------------------------------------------------
 

@@ -101,6 +101,29 @@ Phases (any failure exits non-zero and prints no result line):
      engine.down, then, revived, the chat's undisturbed answer; (e)
      step_watchdog_s=0.25 and a 1.5 s stall: /health 503 while wedged,
      then 200, the tokens unchanged;
+  11. QoS, deadlines, tenants and the metrics plane (run after phase 10,
+     on its model, over HTTP; 4 slots, ctx 4096, prefix cache off): (a)
+     every slot held by a long batch chat (X-Cake-QoS: batch), 4 batch
+     then 2 interactive chats queued: both interactive chats are admitted
+     first (read from the timelines), every chat answers 200, and each
+     interactive chat's tokens equal it alone; (b) a 96-block pool with
+     two batch decoders: an interactive arrival preempts a batch slot,
+     never itself, and every chat's tokens equal it alone, under swap and
+     under recompute; (c) a queue deadline of 0.5 s with every slot busy
+     answers 503 with Retry-After, a request deadline of 2 s answers 504
+     within about an iteration of it and frees the slot, each timeout
+     counter moving by exactly one; (d) tenant t1:rps=1,burst=1: its
+     second chat answers 429 tenant_quota with Retry-After, another
+     tenant 200; (e) with the span recorder on, phase 5's traffic:
+     /api/v1/trace is a Chrome trace with serve.step and one
+     serve.prefill_chunk per prefill graph replay, /metrics parses and
+     holds non-zero TTFT / ITL / e2e histograms (by class too), a
+     request's timeline runs enqueue -> admit -> prefill_chunk ->
+     first_token -> finish, /api/v1/slo and /api/v1/flight answer; (f)
+     each of those requests' TTFT split (template + encode, queue wait,
+     its chunks' spans, the time between its chunks), and TTFT p50 with
+     the recorder off and on in turns, 2 rounds each (smoke); flash and
+     paged decode launch counts printed;
   then prints the whole run's seconds, the kernels line, the card line,
   and the result line last.
 
@@ -761,12 +784,12 @@ def phase_prefill_graphs(model, card: str) -> None:
 # -- phases 5 and 6: serving -------------------------------------------------
 
 
-def _post(url, body, timeout=600):
+def _post(url, body, timeout=600, headers=None):
     req = urllib.request.Request(
         url + "/v1/chat/completions", data=json.dumps(body).encode(),
-        headers={"Content-Type": "application/json"})
+        headers={"Content-Type": "application/json", **(headers or {})})
     with urllib.request.urlopen(req, timeout=timeout) as r:
-        return r.status, r.read()
+        return r.status, dict(r.headers), r.read()
 
 
 def _prompt(i: int) -> str:
@@ -809,31 +832,33 @@ class Served:
             return r
         self.engine.submit = recording_submit
 
-    def chat(self, body: dict) -> dict:
-        """POST one chat; returns {status, resp (JSON) or events (SSE),
-        tokens, stats, seconds}."""
+    def chat(self, body: dict, headers: dict | None = None) -> dict:
+        """POST one chat (with extra `headers`); returns {status, rid,
+        resp (JSON) or events (SSE), tokens, stats, seconds}. The request
+        is found by the id the server echoes (X-Cake-Request-Id)."""
         t = time.perf_counter()
-        status, raw = _post(self.app.url, body)
+        status, hdrs, raw = _post(self.app.url, body, headers=headers)
         out = {"status": status, "seconds": time.perf_counter() - t}
         if body.get("stream"):
             out["events"] = [ln[6:] for ln in raw.decode().splitlines()
                              if ln.startswith("data: ")]
-            rid = json.loads(out["events"][0])["id"]
         else:
             out["resp"] = json.loads(raw)
-            rid = out["resp"]["id"]
+        rid = out["rid"] = hdrs["X-Cake-Request-Id"]
         out["tokens"] = self.reqs[rid].result["tokens"]
         out["stats"] = self.reqs[rid].result["stats"]
         return out
 
-    def concurrent(self, bodies: list[dict], during=None) -> list[dict]:
-        """POST the bodies at once; `during()` is polled while they run.
-        Fails on any error or hang."""
+    def concurrent(self, bodies: list[dict], during=None,
+                   headers: list | None = None) -> list[dict]:
+        """POST the bodies at once (body i with headers[i]); `during()` is
+        polled while they run. Fails on any error or hang."""
         results, errors = [None] * len(bodies), []
 
         def worker(i):
             try:
-                results[i] = self.chat(bodies[i])
+                results[i] = self.chat(bodies[i],
+                                       headers and headers[i])
             except Exception as e:     # reported below, phase fails
                 errors.append(f"request {i}: {e!r}")
         threads = [threading.Thread(target=worker, args=(i,))
@@ -1097,15 +1122,12 @@ def _pressure(model, mode: str, want: list) -> None:
 FAULT_SLOTS = 4
 
 
-def _post_any(url, body, timeout=600) -> tuple[int, dict, bytes]:
+def _post_any(url, body, timeout=600, headers=None
+              ) -> tuple[int, dict, bytes]:
     """POST a chat; (status, headers, body) for any status."""
     import urllib.error
-    req = urllib.request.Request(
-        url + "/v1/chat/completions", data=json.dumps(body).encode(),
-        headers={"Content-Type": "application/json"})
     try:
-        with urllib.request.urlopen(req, timeout=timeout) as r:
-            return r.status, dict(r.headers), r.read()
+        return _post(url, body, timeout, headers)
     except urllib.error.HTTPError as e:
         return e.code, dict(e.headers), e.read()
 
@@ -1391,6 +1413,389 @@ def phase_faults(model, card: str) -> None:
     _drill_wedge(model, card)
     print(f"faults: phase 10 took {time.perf_counter() - t0:.1f} s on "
           f"{card}", flush=True)
+
+
+# -- phase 11: QoS lanes, tenants, deadlines and the metrics plane ------------
+
+QOS_HOLD_TOKENS = 160       # a holding chat decodes ~3 s on the flagship
+
+
+def _get(url, path) -> tuple[int, dict, bytes]:
+    import urllib.error
+    try:
+        with urllib.request.urlopen(url + path, timeout=60) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def _until(cond, what: str, timeout: float = 300) -> None:
+    deadline = time.perf_counter() + timeout
+    while not cond():
+        check(time.perf_counter() < deadline, what)
+        time.sleep(0.002)
+
+
+def _send_async(served, body, headers, out: dict, key) -> threading.Thread:
+    """POST a chat on a thread; its (status, headers, body) lands in
+    out[key]."""
+    def run():
+        out[key] = _post_any(served.app.url, body, headers=headers)
+    th = threading.Thread(target=run)
+    th.start()
+    return th
+
+
+def _hold_slots(served, n: int, out: dict, tag: str) -> list:
+    """n long batch chats decoding in every slot."""
+    threads = [_send_async(served, dict(chat_body(i),
+                                        max_tokens=QOS_HOLD_TOKENS),
+                           {"X-Cake-QoS": "batch",
+                            "X-Cake-Request-Id": f"{tag}-hold-{i}"},
+                           out, f"hold-{i}") for i in range(n)]
+    _until(lambda: sum(1 for r in served.reqs.values()
+                       if r.id.startswith(f"{tag}-hold") and r.tokens) == n,
+           f"phase 11 {tag}: the holding chats never decoded")
+    return threads
+
+
+def parse_prometheus(text: str) -> dict:
+    """{series (name + labels): value} of a text exposition 0.0.4; fails
+    on a malformed line."""
+    import re
+    sample = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? '
+                        r'(-?[0-9.e+-]+|[+-]Inf|NaN)$')
+    out = {}
+    for ln in text.splitlines():
+        if not ln or ln.startswith("# HELP ") or ln.startswith("# TYPE "):
+            continue
+        m = sample.match(ln)
+        check(m is not None, f"/metrics: malformed line {ln!r}")
+        out[m.group(1) + (m.group(2) or "")] = float(m.group(3))
+    return out
+
+
+def _qos_lanes(served, card: str) -> None:
+    """(a): every slot held by a batch chat, 4 batch then 2 interactive
+    chats queued; both interactive are admitted first (timelines), all
+    answer 200, each interactive chat's tokens equal it alone."""
+    from cake_tpu_torch.obs import TIMELINES
+    eng = served.engine
+    out = {}
+    threads = _hold_slots(served, 4, out, "p11a")
+    lanes = [("batch", 4 + i) for i in range(4)] + \
+        [("interactive", 8 + i) for i in range(2)]
+    for k, (qos, i) in enumerate(lanes):
+        threads.append(_send_async(
+            served, dict(chat_body(i), max_tokens=8),
+            {"X-Cake-QoS": qos, "X-Cake-Request-Id": f"p11a-{qos}-{i}"},
+            out, f"q-{i}"))
+        _until(lambda: eng.queue.depth() == k + 1,
+               "phase 11 (a): a chat did not queue behind the held slots")
+    held = [r for r in served.reqs.values() if r.id.startswith("p11a-hold")]
+    check(all(not r.done.is_set() for r in held),
+          "phase 11 (a): a holding chat ended before the lanes filled")
+    for th in threads:
+        th.join(timeout=600)
+    statuses = {k: v[0] for k, v in out.items()}
+    check(all(v == 200 for v in statuses.values()),
+          f"phase 11 (a): statuses {statuses}")
+
+    def admitted(rid):
+        return next(e["ts"] for e in TIMELINES.to_chrome(rid)["traceEvents"]
+                    if e["name"] == "admit")
+    queued = [f"p11a-{qos}-{i}" for qos, i in lanes]
+    order = sorted(queued, key=admitted)
+    alone = {}
+    for i in (8, 9):
+        r = served.chat(dict(chat_body(i), max_tokens=8))
+        alone[i] = r["tokens"]
+    same = [served.reqs[f"p11a-interactive-{i}"].result["tokens"] == alone[i]
+            for i in (8, 9)]
+    print(f"qos (a) lanes: 4 slots held by batch chats, queued "
+          f"{[q for q, _ in lanes]}; admitted in the order "
+          f"{[rid.split('-')[1] for rid in order]}; interactive tokens "
+          f"equal alone {same}; on {card}", flush=True)
+    check([rid.split("-")[1] for rid in order[:2]] ==
+          ["interactive", "interactive"],
+          f"phase 11 (a): admit order {order}")
+    check(all(same), "phase 11 (a): an interactive chat differs alone")
+
+
+def _qos_victims(model, card: str, mode: str) -> int:
+    """(b): two batch chats decoding on 96 blocks when an interactive
+    chat arrives: a batch slot is preempted, never the interactive one;
+    every chat's tokens equal it alone. Returns the paged decode
+    kernel's launches."""
+    from cake_tpu_torch.obs import TIMELINES
+    from cake_tpu_torch.ops import paged_attention as pa
+    served = serve_model(model, kv_blocks=96, kv_block_tokens=16,
+                         preempt_mode=mode, prefix_cache_mb=0)
+    try:
+        alone = {i: served.chat(chat_body(i))["tokens"] for i in (0, 1, 2)}
+        pa.reset_launches()
+        out = {}
+        threads = [_send_async(served, chat_body(i),
+                               {"X-Cake-QoS": "batch",
+                                "X-Cake-Request-Id": f"p11b-{mode}-{i}"},
+                               out, i) for i in (0, 1)]
+        _until(lambda: all(f"p11b-{mode}-{i}" in served.reqs and
+                           served.reqs[f"p11b-{mode}-{i}"].tokens
+                           for i in (0, 1)),
+               f"phase 11 (b) {mode}: the batch chats never decoded")
+        inter = served.chat(chat_body(2), {
+            "X-Cake-QoS": "interactive",
+            "X-Cake-Request-Id": f"p11b-{mode}-2"})
+        for th in threads:
+            th.join(timeout=600)
+        launches = pa.launch_counts()["bf16"]
+        kinds = {i: [e["kind"] for e in
+                     TIMELINES.get(f"p11b-{mode}-{i}")["events"]]
+                 for i in (0, 1, 2)}
+        got = {i: served.reqs[f"p11b-{mode}-{i}"].result["tokens"]
+               for i in (0, 1, 2)}
+        pool = served.engine.health()["kv_pool"]
+        victims = [i for i in kinds if "preempt" in kinds[i]]
+        print(f"qos (b) {mode}: 96 blocks, two batch decoders and an "
+              f"interactive arrival: preempted {victims} "
+              f"(0, 1 batch; 2 interactive), preemptions "
+              f"{pool['preemptions']}; tokens equal alone "
+              f"{[got[i] == alone[i] for i in (0, 1, 2)]}; paged decode "
+              f"launches {launches}; on {card}", flush=True)
+        check(all(out[i][0] == 200 for i in (0, 1))
+              and inter["status"] == 200, f"phase 11 (b) {mode}: a chat "
+              "failed")
+        check("preempt" not in kinds[2],
+              f"phase 11 (b) {mode}: the interactive chat was preempted")
+        check(any("preempt" in kinds[i] and "resume" in kinds[i]
+                  for i in (0, 1)),
+              f"phase 11 (b) {mode}: no batch slot was preempted")
+        check(got == alone, f"phase 11 (b) {mode}: tokens differ alone")
+        check(launches > 0, f"phase 11 (b) {mode}: no paged launch")
+        return launches
+    finally:
+        served.close()
+
+
+def _qos_deadlines(model, card: str) -> None:
+    """(c): the queue deadline (0.5 s, every slot busy) answers 503 with
+    Retry-After; the request deadline (2 s) answers 504 within about an
+    iteration of it and frees the slot; each counter moves by exactly
+    the expiries sent."""
+    from cake_tpu_torch.obs import (SERVE_QUEUE_TIMEOUTS,
+                                    SERVE_REQUEST_TIMEOUTS)
+    served = serve_model(model, prefix_cache_mb=0, queue_deadline_s=0.5)
+    try:
+        q0, r0 = SERVE_QUEUE_TIMEOUTS.value(), SERVE_REQUEST_TIMEOUTS.value()
+        out = {}
+        threads = _hold_slots(served, 4, out, "p11c")
+        t = time.perf_counter()
+        status, hdrs, raw = _post_any(served.app.url, chat_body(5))
+        waited = time.perf_counter() - t
+        for th in threads:
+            th.join(timeout=600)
+        q_delta = SERVE_QUEUE_TIMEOUTS.value() - q0
+        print(f"qos (c) queue deadline 0.5 s, 4 slots busy: HTTP {status} "
+              f"Retry-After {hdrs.get('Retry-After')} after "
+              f"{waited * 1e3:.0f} ms; queue timeouts +{q_delta:g}; on "
+              f"{card}", flush=True)
+        check(status == 503 and int(hdrs.get("Retry-After", 0)) >= 1,
+              f"phase 11 (c): queue deadline answered {status}")
+        check(q_delta == 1 and SERVE_REQUEST_TIMEOUTS.value() == r0,
+              f"phase 11 (c): queue timeouts moved by {q_delta}")
+        check(all(v[0] == 200 for v in out.values()),
+              "phase 11 (c): a holding chat failed")
+    finally:
+        served.close()
+    served = serve_model(model, prefix_cache_mb=0, request_deadline_s=2.0)
+    try:
+        q0, r0 = SERVE_QUEUE_TIMEOUTS.value(), SERVE_REQUEST_TIMEOUTS.value()
+        t = time.perf_counter()
+        status, hdrs, raw = _post_any(
+            served.app.url, dict(chat_body(6), max_tokens=3000),
+            headers={"X-Cake-Request-Id": "p11c-late"})
+        took = time.perf_counter() - t
+        busy = served.engine.health()["slots_busy"]
+        req = served.reqs["p11c-late"]
+        nxt = served.chat(dict(chat_body(7), max_tokens=4))
+        r_delta = SERVE_REQUEST_TIMEOUTS.value() - r0
+        print(f"qos (c) request deadline 2 s, max_tokens 3000: HTTP "
+              f"{status} after {took:.3f} s with {len(req.tokens)} tokens; "
+              f"slots busy after {busy}; next chat HTTP {nxt['status']}; "
+              f"request timeouts +{r_delta:g}; on {card}", flush=True)
+        check(status == 504, f"phase 11 (c): request deadline {status}")
+        check(2.0 <= took < 2.5, f"phase 11 (c): 504 after {took:.3f} s")
+        check(busy == 0 and nxt["status"] == 200,
+              "phase 11 (c): the expired slot was not freed")
+        check(r_delta == 1 and SERVE_QUEUE_TIMEOUTS.value() == q0,
+              f"phase 11 (c): request timeouts moved by {r_delta}")
+    finally:
+        served.close()
+
+
+def _qos_tenants(served, card: str) -> None:
+    """(d): t1:rps=1,burst=1: the second immediate chat of t1 answers 429
+    tenant_quota with Retry-After; another tenant is unaffected."""
+    from cake_tpu_torch.serve.admission import AdmissionPlane, TenantRegistry
+    served.app.state.plane = AdmissionPlane(
+        TenantRegistry("t1:rps=1,burst=1"))
+    body = dict(chat_body(3), max_tokens=4)
+    out = {}
+    th = _send_async(served, body, {"X-Cake-Tenant": "t1",
+                                    "X-Cake-Request-Id": "p11d-first"},
+                     out, "first")
+    # the second leaves as soon as the first holds its token (it is in
+    # the engine), well inside the bucket's 1 s refill
+    _until(lambda: "p11d-first" in served.reqs,
+           "phase 11 (d): the first chat never reached the engine")
+    second = _post_any(served.app.url, body,
+                       headers={"X-Cake-Tenant": "t1"})
+    th.join(timeout=600)
+    first = out["first"]
+    other = _post_any(served.app.url, body,
+                      headers={"X-Cake-Tenant": "t2"})
+    served.app.state.plane = None
+    answer = json.loads(second[2])
+    print(f"qos (d) tenant t1:rps=1,burst=1: HTTP {first[0]}, then "
+          f"{second[0]} {answer.get('type')} Retry-After "
+          f"{second[1].get('Retry-After')}; tenant t2 HTTP {other[0]}; on "
+          f"{card}", flush=True)
+    check(first[0] == 200 and other[0] == 200,
+          "phase 11 (d): an admitted tenant's chat failed")
+    check(second[0] == 429 and answer.get("type") == "tenant_quota"
+          and int(second[1].get("Retry-After", 0)) >= 1,
+          f"phase 11 (d): the throttled chat answered {second[0]}")
+
+
+def _ttft_round(served, tag: str) -> tuple[float, list]:
+    """Phase 5's traffic: 4 concurrent chats then one alone, each under
+    its own request id. (TTFT p50 ms of the 4, request ids)."""
+    bodies = [chat_body(i) for i in range(4)]
+    rids = [f"{tag}-{i}" for i in range(5)]
+    results = served.concurrent(
+        bodies, headers=[{"X-Cake-Request-Id": r} for r in rids[:4]])
+    served.chat(chat_body(4), {"X-Cake-Request-Id": rids[4]})
+    _check_chats(results, f"phase 11 {tag}")
+    return _latency(results)[0], rids
+
+
+def _ttft_split(rid: str, spans: list) -> dict:
+    """One request's TTFT split: the queue wait (enqueue to admit), the
+    sum of its prefill-chunk spans, the time between its chunks (admit to
+    first token, less the chunks: iterations spent behind other work),
+    and the handler's template + encode span; ms."""
+    from cake_tpu_torch.obs import TIMELINES
+    ev = {}
+    for e in TIMELINES.get(rid)["events"]:
+        ev.setdefault(e["kind"], e["t_ms"])
+    mine = [e for e in spans if e.get("args", {}).get("request_id") == rid]
+    chunks = sum(e["dur"] for e in mine
+                 if e["name"] == "serve.prefill_chunk") / 1e3
+    prompt = sum(e["dur"] for e in mine
+                 if e["name"] == "api.chat_prompt") / 1e3
+    return {"ttft": round(ev["first_token"] - ev["received"], 2),
+            "prompt": round(prompt, 3),
+            "queue": round(ev["admit"] - ev["enqueue"], 2),
+            "chunks": round(chunks, 2),
+            "n_chunks": sum(1 for e in mine
+                            if e["name"] == "serve.prefill_chunk"),
+            "between": round(ev["first_token"] - ev["admit"] - chunks, 2)}
+
+
+def _qos_plane(served, card: str) -> None:
+    """(e) and (f): phase 5's traffic with the span recorder on; the
+    routes of the metrics plane; each request's TTFT split; then TTFT
+    p50 with the recorder on and off, in turns."""
+    import torch
+    from cake_tpu_torch.obs import RECORDER
+    from cake_tpu_torch.ops import flash
+    url = served.app.url
+    RECORDER.enable()
+    RECORDER.clear()
+    eng = served.engine
+    torch.cuda.synchronize()
+    replays0 = eng.health()["prefill_graphs"]["replays"]
+    flash.reset_launches()
+    _, rids = _ttft_round(served, "p11f")
+    torch.cuda.synchronize()
+    replays = eng.health()["prefill_graphs"]["replays"] - replays0
+    counts = flash.launch_counts()["bf16"]
+    status, _, raw = _get(url, "/api/v1/trace")
+    trace = json.loads(raw)
+    spans = trace["traceEvents"]
+    names = [e["name"] for e in spans]
+    check(status == 200 and all({"name", "ph", "ts", "pid", "tid"} <= set(e)
+                                for e in spans),
+          "phase 11 (e): /api/v1/trace is not a Chrome trace")
+    check(names.count("serve.prefill_chunk") == replays > 0
+          and "serve.step" in names,
+          f"phase 11 (e): {names.count('serve.prefill_chunk')} chunk spans "
+          f"for {replays} prefill graph replays")
+    status, hdrs, raw = _get(url, "/metrics")
+    series = parse_prometheus(raw.decode())
+    need = ['cake_serve_ttft_seconds_count{outcome="ok"}',
+            'cake_serve_itl_seconds_count{outcome="ok"}',
+            'cake_serve_e2e_seconds_count{outcome="ok"}',
+            'cake_serve_qos_ttft_seconds_count{qos="interactive",'
+            'outcome="ok"}',
+            'cake_serve_qos_e2e_seconds_count{qos="interactive",'
+            'outcome="ok"}']
+    lacking = [k for k in need if not series.get(k)]
+    check(status == 200 and not lacking,
+          f"phase 11 (e): /metrics lacks {lacking}")
+    status, _, raw = _get(url, f"/api/v1/requests/{rids[0]}")
+    kinds = [e["kind"] for e in json.loads(raw)["events"]]
+    at = [kinds.index(k) for k in ("enqueue", "admit", "prefill_chunk",
+                                   "first_token", "finish")]
+    check(status == 200 and at == sorted(at),
+          f"phase 11 (e): timeline of {rids[0]}: {kinds}")
+    slo, flight = _get(url, "/api/v1/slo"), _get(url, "/api/v1/flight?n=8")
+    check(slo[0] == 200 and json.loads(slo[2])["cake_serve_ttft_seconds"]
+          ["series"], "phase 11 (e): /api/v1/slo")
+    check(flight[0] == 200 and json.loads(flight[2])["count"] == 8,
+          "phase 11 (e): /api/v1/flight")
+    print(f"plane (e): /api/v1/trace {len(spans)} events, serve.prefill_chunk "
+          f"{names.count('serve.prefill_chunk')} = prefill graph replays "
+          f"{replays}, serve.step {names.count('serve.step')}; /metrics "
+          f"{len(series)} series; timeline {rids[0]}: {kinds[:6]}...; flash "
+          f"launches {counts}; on {card}", flush=True)
+    check(counts["fresh"] > 0, f"phase 11: no flash launch {counts}")
+    for rid in rids:
+        print(f"plane (f) TTFT split {rid} (ms): {_ttft_split(rid, spans)} "
+              f"on {card}", flush=True)
+    p50 = {"on": [], "off": []}
+    for k in range(4):
+        state = ("off", "on")[k % 2]
+        RECORDER.enabled = state == "on"
+        RECORDER.clear()
+        p50[state].append(round(_ttft_round(served, f"p11t{k}")[0], 1))
+    RECORDER.disable()
+    print(f"plane (f) TTFT p50 of 4 concurrent chats, recorder off / on in "
+          f"turns (smoke): off {p50['off']}, on {p50['on']} ms; on {card}",
+          flush=True)
+
+
+def phase_qos(model, card: str) -> None:
+    """Phase 11: QoS lanes, victim classes, deadlines, tenants and the
+    metrics plane, over HTTP on the full flagship."""
+    from cake_tpu_torch.ops import flash
+    t0 = time.perf_counter()
+    served = serve_model(model, prefix_cache_mb=0)
+    try:
+        flash.reset_launches()
+        _qos_lanes(served, card)
+        lanes_flash = flash.launch_counts()["bf16"]
+        check(lanes_flash["fresh"] > 0, "phase 11 (a): no flash launch")
+        _qos_tenants(served, card)
+        _qos_plane(served, card)
+    finally:
+        served.close()
+    paged = [_qos_victims(model, card, mode)
+             for mode in ("swap", "recompute")]
+    _qos_deadlines(model, card)
+    print(f"qos: phase 11 took {time.perf_counter() - t0:.1f} s; flash "
+          f"launches in (a) {lanes_flash}, paged decode launches in (b) "
+          f"{paged}; on {card}", flush=True)
 
 
 # -- phase 7: the flagship from a checkpoint directory ------------------------
@@ -1804,6 +2209,7 @@ def main() -> int:
     serve_launches, contiguous = phase_serve(model, card)
     paged_launches = phase_paged_serve(model, card, contiguous)
     phase_faults(model, card)
+    phase_qos(model, card)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         load = phase_checkpoint(model, card, workdir)

@@ -1,8 +1,12 @@
 """The port stands alone: with `jax` and `cake_tpu` blocked, and the
 packages the card's machine lacks (`tokenizers`, `transformers`,
 `safetensors`, `regex`, `ml_dtypes`, `huggingface_hub`) blocked too,
-every module of cake_tpu_torch and chip_smoke.py imports, a tiny CPU chat
-is served by a contiguous engine and by a paged one, and a chat is served
+every module of cake_tpu_torch and chip_smoke.py imports (the metrics
+plane, obs/, and the admission plane, serve/admission/, api/qos.py and
+api/obs_routes.py, among them), a tiny CPU chat is served by a contiguous
+engine and by a paged one, each also answering a batch-class chat under
+an adopted request id with its timeline, /metrics and /api/v1/trace,
+and a chat is served
 by `cli serve` from a checkpoint directory with a tokenizer.json and a
 chat template (byte-level BPE for an OLMo2 and, streamed, a Gemma-style
 byte-fallback BPE for a Gemma3); an AST scan finds no import of any of them in the port's
@@ -37,6 +41,14 @@ mods = [m.name for m in pkgutil.walk_packages(cake_tpu_torch.__path__,
                                               "cake_tpu_torch.")]
 for name in mods:
     importlib.import_module(name)
+for name in ("cake_tpu_torch.obs", "cake_tpu_torch.obs.metrics",
+             "cake_tpu_torch.obs.spans", "cake_tpu_torch.obs.timeline",
+             "cake_tpu_torch.obs.timing", "cake_tpu_torch.serve.admission",
+             "cake_tpu_torch.serve.admission.plane",
+             "cake_tpu_torch.serve.admission.queue",
+             "cake_tpu_torch.serve.admission.tenants",
+             "cake_tpu_torch.api.qos", "cake_tpu_torch.api.obs_routes"):
+    assert name in mods, name
 import chip_smoke
 
 from cake_tpu_torch.api import create_app
@@ -55,6 +67,24 @@ for kw in ({}, {"kv_blocks": 32}):
                                  data=json.dumps(body).encode())
     with urllib.request.urlopen(req, timeout=60) as r:
         resp = json.loads(r.read())
+    # the admission and metrics planes: a batch-class chat under an
+    # adopted request id, its timeline, /metrics, the span recorder
+    from cake_tpu_torch import obs
+    obs.RECORDER.enable()
+    rid = "iso-" + str(len(kw))
+    req = urllib.request.Request(
+        app.url + "/v1/chat/completions", data=json.dumps(body).encode(),
+        headers={"X-Cake-QoS": "batch", "X-Cake-Request-Id": rid})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        assert r.headers["X-Cake-Request-Id"] == rid
+    with urllib.request.urlopen(app.url + "/api/v1/requests/" + rid,
+                                timeout=60) as r:
+        kinds = [e["kind"] for e in json.loads(r.read())["events"]]
+    assert kinds[0] == "received" and kinds[-1] == "finish", kinds
+    with urllib.request.urlopen(app.url + "/metrics", timeout=60) as r:
+        assert b'cake_serve_qos_e2e_seconds_count{qos="batch"' in r.read()
+    with urllib.request.urlopen(app.url + "/api/v1/trace", timeout=60) as r:
+        assert b"serve.prefill_chunk" in r.read()
     app.stop()
     assert resp["usage"]["completion_tokens"] > 0, resp
 
