@@ -28,8 +28,8 @@ state: the same prompt in chunks into the same row of two copies of a
 pool, logits and every KV byte compared (the paged sink aside).
 
 `engine_addresses` names every tensor a serve engine's captured programs
-read or write with its data_ptr: a rebuild must leave all of them where
-they were.
+(decode, verify and prefill) read or write with its data_ptr: a rebuild
+must leave all of them where they were.
 """
 from __future__ import annotations
 
@@ -314,11 +314,15 @@ def prefill_vs_eager(model, ids: list[int], slot: int, slots: int, ctx: int,
 
 
 def engine_addresses(engine) -> dict[str, int]:
-    """data_ptr of every tensor a ServeEngine's decode graph and prefill
-    programs read or write: the carries, the prefill buffers, and the KV
+    """data_ptr of every tensor a ServeEngine's decode graph, verify
+    graphs and prefill programs read or write: the carries (the verify's
+    too, with speculation on), the prefill buffers, and the KV
     (contiguous rows, or the paged pool, rows and block tables)."""
     out = {f"carries.{n}": t.data_ptr()
            for n, t in engine.carries.tensors().items()}
+    if engine.spec is not None:
+        out.update({f"spec.{n}": t.data_ptr()
+                    for n, t in engine.spec.tensors().items()})
     out.update({f"io.{n}": t.data_ptr()
                 for n, t in engine.prefill.io.tensors().items()})
     if engine.paged is not None:

@@ -39,13 +39,19 @@ def _spin_ms_per_cycle() -> float:
     return _ms_per_cycle
 
 
+SPIN_ATTEMPTS = 3   # spins tried, each twice the last, before giving up
+
+
 def device_ms(fn, iters: int = 30, warmup: int = 5) -> float:
     """Device time per call of fn (warm L2): the card spins on one kernel
     for three times as long as `iters` calls took the host, the host
     queues the calls behind it, and CUDA events bracket the calls. The
     reading includes the card's gap between queued kernels, not the
-    host's issue time. Raises if the host had not queued every call
-    before the spin ended: that reading would be the issue rate."""
+    host's issue time. A reading where the host had not queued every
+    call before the spin ended would be the issue rate: it is discarded
+    and taken again behind a spin twice as long (a host stall, on a
+    machine that shares its cores, outlasts the first), and after
+    SPIN_ATTEMPTS such readings this raises."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -54,24 +60,27 @@ def device_ms(fn, iters: int = 30, warmup: int = 5) -> float:
         fn()
     torch.cuda.synchronize()
     hold_ms = 3e3 * (time.perf_counter() - t0) + 1.0
-    cycles = int(hold_ms / _spin_ms_per_cycle())
-    spun, start, end = (torch.cuda.Event(enable_timing=True)
-                        for _ in range(3))
-    spun.record()
-    torch.cuda._sleep(cycles)
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    queued_ms = (time.perf_counter() - t0) * 1e3
-    end.record()
-    torch.cuda.synchronize()
-    spin_ms = spun.elapsed_time(start)
-    if queued_ms >= spin_ms:
-        raise RuntimeError(f"device_ms: the host took {queued_ms:.3f} ms to "
-                           f"queue {iters} calls, longer than the "
-                           f"{spin_ms:.3f} ms spin ahead of them")
-    return start.elapsed_time(end) / iters
+    for _ in range(SPIN_ATTEMPTS):
+        cycles = int(hold_ms / _spin_ms_per_cycle())
+        spun, start, end = (torch.cuda.Event(enable_timing=True)
+                            for _ in range(3))
+        spun.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        spin_ms = spun.elapsed_time(start)
+        if queued_ms < spin_ms:
+            return start.elapsed_time(end) / iters
+        hold_ms *= 2
+    raise RuntimeError(f"device_ms: the host took {queued_ms:.3f} ms to "
+                       f"queue {iters} calls, longer than the "
+                       f"{spin_ms:.3f} ms spin ahead of them, "
+                       f"{SPIN_ATTEMPTS} times")
 
 
 def wall_ms(fn, iters: int, warmup: int = 2) -> float:

@@ -28,7 +28,12 @@ queued, or alive, past them answers 503 or 504), CAKE_QOS_WEIGHTS
 queue bound, --max-queue by default), CAKE_QOS_TENANTS (tenant quotas,
 e.g. "acme:rps=5,burst=10,inflight=4,max_class=standard"), and
 CAKE_TRACE_DIR (set: the span recorder records), CAKE_TRACE_EVENTS
-(16384) and CAKE_TRACE_REQUESTS (256). `--seed`
+(16384) and CAKE_TRACE_REQUESTS (256). So do speculative decoding's, in
+`serve` and `run`: CAKE_SPEC ("ngram" turns it on; unset, off),
+CAKE_SPEC_K (the draft window, 6, clamped to [1, 32]), CAKE_SPEC_NGRAM
+(the n-gram drafter's longest match, 3, at least 2) and, for a paged
+pool, CAKE_SPEC_RESERVE (the frontier a slot reserves ahead of a verify,
+0 = the whole window). `--seed`
 seeds the sampling keys (serve: one key per admission; run: the
 request's) and the flagship's weights. `run` decodes through generate's
 captured chunks of 16 steps.
@@ -50,6 +55,7 @@ from . import obs
 from .ops.sampling import SamplingConfig
 from .serve.admission import (AdmissionPlane, TenantRegistry, class_bounds,
                               class_weights)
+from .spec import resolve_drafter, spec_knobs
 from .serve.engine import (DEFAULT_CHUNK, DEFAULT_CTX,
                            DEFAULT_KV_BLOCK_TOKENS, DEFAULT_PREFIX_CACHE_MB,
                            DEFAULT_QUEUE, DEFAULT_SLOTS, PREEMPT_MODES,
@@ -122,6 +128,19 @@ def admission_knobs(env, max_queue: int) -> dict:
                                        env.get("CAKE_QOS_BOUNDS") or "")}
 
 
+def spec_args(env) -> dict:
+    """The engine's speculative-decoding kwargs from CAKE_SPEC,
+    CAKE_SPEC_K, CAKE_SPEC_NGRAM and CAKE_SPEC_RESERVE (the reference's
+    knobs, defaults and clamps): {} when CAKE_SPEC leaves it off."""
+    knobs = spec_knobs(env)
+    drafter, k = resolve_drafter(knobs["spec"] or False, knobs["spec_k"],
+                                 knobs["spec_ngram"])
+    if drafter is None:
+        return {}
+    return {"spec": drafter, "spec_k": k,
+            "spec_reserve": knobs["spec_reserve"]}
+
+
 def build_server(args):
     """The serve command's HTTP server (not started) over its engine."""
     from .api.server import create_app
@@ -137,7 +156,8 @@ def build_server(args):
                          kv_block_tokens=args.kv_block_tokens,
                          preempt_mode=args.preempt_mode,
                          **supervisor_knobs(env),
-                         **admission_knobs(env, args.max_queue))
+                         **admission_knobs(env, args.max_queue),
+                         **spec_args(env))
     return create_app(model, engine, tokenizer, args.host, args.port,
                       model_id=model_id, plane=plane)
 
@@ -159,15 +179,20 @@ def cmd_run(args) -> int:
     model, tokenizer, _ = load_model(args)
     ids = tokenizer.chat_prompt_ids(
         [{"role": "user", "content": args.prompt}])
+    spec = spec_args(os.environ)
     out, stats = model.generate(
         ids, max_new_tokens=args.max_tokens,
         sampling=SamplingConfig(temperature=args.temperature),
-        seed=args.seed)
+        seed=args.seed, spec=spec.get("spec", False),
+        spec_k=spec.get("spec_k"))
     if out and model.cfg.is_eos(out[-1]):
         out = out[:-1]
     print(tokenizer.decode(out))
+    extra = (f", {stats['spec_accept_rate']} accepted, "
+             f"{stats['spec_tokens_per_step']} tokens per verify"
+             if "spec_steps" in stats else "")
     print(f"[{len(out)} tokens, ttft {stats['ttft_s']:.3f}s, "
-          f"{stats['tok_per_s']:.1f} tok/s]", file=sys.stderr)
+          f"{stats['tok_per_s']:.1f} tok/s{extra}]", file=sys.stderr)
     return 0
 
 

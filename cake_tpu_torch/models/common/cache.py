@@ -54,14 +54,17 @@ def update_kv_cache(layer_cache: dict, k_new: torch.Tensor,
     synchronisation (`_update_traced`).
     Batched decode: S == 1, `pos` is a [B] tensor of per-row positions and
     `valid_len` a [B] tensor of 0/1 — a row with 0 keeps its old entry
-    (it is not stepping), with no host synchronisation."""
+    (it is not stepping), with no host synchronisation.
+    Batched verify commit: S > 1 with per-row `pos` [B] and `valid_len`
+    [B]: row b's first valid_len[b] entries land at pos[b] .. (`_update_
+    rows`)."""
     kc, vc, pc = layer_cache["k"], layer_cache["v"], layer_cache["pos"]
     size = kc.shape[1]
     if torch.is_tensor(pos) and pos.dim() == 0:
         return _update_traced(layer_cache, k_new, v_new, pos, valid_len, row)
+    if torch.is_tensor(pos) and k_new.shape[1] > 1:
+        return _update_rows(layer_cache, k_new, v_new, pos, valid_len)
     if torch.is_tensor(pos):
-        if k_new.shape[1] != 1:
-            raise ValueError("per-row positions take one new entry per row")
         rows = torch.arange(kc.shape[0], device=kc.device)
         slots = (pos % size).long()
         write = (torch.ones_like(pos, dtype=torch.bool) if valid_len is None
@@ -114,6 +117,85 @@ def _update_traced(layer_cache: dict, k_new: torch.Tensor,
     pc.index_put_((rows, slots), torch.where(write, positions.to(pc.dtype),
                                              pc[rows, slots]))
     return layer_cache
+
+
+def _update_rows(layer_cache: dict, k_new: torch.Tensor,
+                 v_new: torch.Tensor, pos: torch.Tensor,
+                 valid_len: torch.Tensor) -> dict:
+    """update_kv_cache of S entries per row at per-row positions (the
+    batched verify's commit): row b's entries 0 .. valid_len[b]-1 land at
+    positions pos[b] + i, ring index (pos[b] + i) % size, with no host
+    sync. As in `_update_traced`, a ring narrower than S takes, per row,
+    the `size` entries from clip(valid_len - size, 0, S - size), so one
+    row's targets are distinct slots; an entry at or past valid_len
+    writes back its slot's old bytes."""
+    kc, vc, pc = layer_cache["k"], layer_cache["v"], layer_cache["pos"]
+    b, size = kc.shape[:2]
+    s = k_new.shape[1]
+    dev = kc.device
+    idx = torch.arange(min(s, size), device=dev)[None, :].expand(b, -1)
+    if s > size:
+        idx = idx + torch.clamp(valid_len.long() - size, 0, s - size)[:, None]
+        sel = idx[:, :, None, None].expand(-1, -1, *k_new.shape[2:])
+        k_new = torch.gather(k_new, 1, sel)
+        v_new = torch.gather(v_new, 1, sel)
+    positions = pos.long()[:, None] + idx
+    slots = positions % size
+    rows = torch.arange(b, device=dev)[:, None].expand_as(slots)
+    write = idx < valid_len.long()[:, None]
+    kc.index_put_((rows, slots), torch.where(write[..., None, None], k_new,
+                                             kc[rows, slots]))
+    vc.index_put_((rows, slots), torch.where(write[..., None, None], v_new,
+                                             vc[rows, slots]))
+    pc.index_put_((rows, slots), torch.where(write, positions.to(pc.dtype),
+                                             pc[rows, slots]))
+    return layer_cache
+
+
+def truncate_layers(cfg: ModelConfig, layers: list[dict],
+                    new_end: int) -> list[dict]:
+    """Mark every entry at a position >= new_end empty (pos -1), in place,
+    across the batch (the reference's truncate_layers): the draft-model
+    drafter's rollback of its own speculative suffix. K/V bytes stay: a
+    -1 entry is invisible, and the next write lands over it."""
+    for lc in layers:
+        if lc:
+            lc["pos"].masked_fill_(lc["pos"] >= new_end, -1)
+    return layers
+
+
+def truncate_cache(cfg: ModelConfig, cache: dict, new_end: int) -> dict:
+    """Roll a batch-1 cache back to positions < new_end (its pos clamped
+    too): the reference's truncate_cache, in place. On a sliding-window
+    ring it cannot bring back the older entries that the dropped suffix
+    overwrote, as in the reference: a windowed draft model then proposes
+    from a damaged window. That changes only what it proposes, never what
+    the accept rule emits."""
+    truncate_layers(cfg, cache["layers"], new_end)
+    cache["pos"] = min(int(cache["pos"]), int(new_end))
+    return cache
+
+
+def grow_cache(cfg: ModelConfig, cache: dict, new_len: int) -> dict:
+    """A cache of min(new_len, window) slots per layer holding the same
+    entries (re-homed at pos % the new size); empty entries are dropped
+    (the reference's grow_cache)."""
+    out = []
+    for i, lc in enumerate(cache["layers"]):
+        spec = cfg.layer_spec(i)
+        size = new_len if spec.window is None else min(spec.window, new_len)
+        b, old = lc["pos"].shape
+        if size <= old:
+            out.append(lc)
+            continue
+        nl = init_layer_cache(cfg, spec, b, size, lc["k"].dtype,
+                              lc["k"].device)
+        rows, idx = torch.nonzero(lc["pos"] >= 0, as_tuple=True)
+        slots = lc["pos"][rows, idx].long() % size
+        for name in ("k", "v", "pos"):
+            nl[name][rows, slots] = lc[name][rows, idx]
+        out.append(nl)
+    return {"layers": out, "pos": cache["pos"]}
 
 
 def kv_capacity(cfg: ModelConfig, cache: dict) -> int | None:
@@ -305,4 +387,52 @@ def paged_write_entry(pl: dict, tables: torch.Tensor, k_new: torch.Tensor,
     pl["k"][pid, off] = k_new[:, 0]
     pl["v"][pid, off] = v_new[:, 0]
     pl["pos"][pid, off] = pos.to(pl["pos"].dtype)
+    return pl
+
+
+def paged_write_entries(pl: dict, tables: torch.Tensor, k_new: torch.Tensor,
+                        v_new: torch.Tensor, pos: torch.Tensor,
+                        valid_len: torch.Tensor) -> dict:
+    """The batched verify's write into a layer's block pool: row b's
+    entries i < valid_len[b] (k_new/v_new [B, S, Hkv, D]) at positions
+    pos[b] + i go to block tables[b, (pos[b] + i) // bt], index (pos[b] +
+    i) % bt, in place; the others (padding, inactive rows) go to the sink.
+    The engine has reserved the blocks of [pos, pos + valid_len)."""
+    null, bt = pl["pos"].shape
+    null -= 1
+    b, s = k_new.shape[:2]
+    m = tables.shape[1]
+    positions = pos.long()[:, None] + torch.arange(s, device=pos.device)
+    j = torch.clamp(torch.div(positions, bt, rounding_mode="floor"), 0,
+                    m - 1)
+    pid = torch.gather(tables.long(), 1, j)
+    write = torch.arange(s, device=pos.device)[None, :] \
+        < valid_len.long()[:, None]
+    pid = torch.where(write, pid, null)
+    off = positions % bt
+    pl["k"][pid, off] = k_new
+    pl["v"][pid, off] = v_new
+    pl["pos"][pid, off] = positions.to(pl["pos"].dtype)
+    return pl
+
+
+def paged_drop_entries(pl: dict, tables: torch.Tensor, pos: torch.Tensor,
+                       lo: torch.Tensor, hi: torch.Tensor, width: int) -> dict:
+    """Mark row b's entries at positions pos[b] + i, lo[b] <= i < hi[b]
+    (i < width), empty (pos -1) in the block pool, in place: the verify's
+    rollback of the drafts it wrote and rejected, so that every pool
+    entry at or past the commit frontier reads -1 after the step (a
+    swapped-out slot carries no uncommitted entry). The others go to the
+    sink."""
+    null, bt = pl["pos"].shape
+    null -= 1
+    m = tables.shape[1]
+    i = torch.arange(width, device=pos.device)[None, :]
+    positions = pos.long()[:, None] + i
+    j = torch.clamp(torch.div(positions, bt, rounding_mode="floor"), 0,
+                    m - 1)
+    drop = (i >= lo.long()[:, None]) & (i < hi.long()[:, None])
+    pid = torch.where(drop, torch.gather(tables.long(), 1, j), null)
+    pl["pos"].index_put_((pid, positions % bt),
+                         torch.full_like(pid, -1, dtype=pl["pos"].dtype))
     return pl

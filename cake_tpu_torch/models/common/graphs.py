@@ -1,7 +1,8 @@
-"""Captured decode and prefill programs (counterpart of the reference's
-compiled programs: text_model.py `_decode_slots`, `_decode_slots_paged`,
-`generate`'s `_decode_chunk`, and the per-bucket prefill programs
-`_prefill_slot` / `_prefill_slot_paged`).
+"""Captured decode, verify and prefill programs (counterpart of the
+reference's compiled programs: text_model.py `_decode_slots`,
+`_decode_slots_paged`, `generate`'s `_decode_chunk`, the speculative
+verify `_spec_slots` / `_spec_slots_paged`, and the per-bucket prefill
+programs `_prefill_slot` / `_prefill_slot_paged`).
 
 The reference jits its decode step, so the host issues one program per
 step. The port's step is hundreds of small torch ops per layer; issued
@@ -36,6 +37,12 @@ keep meaning launches on the device.
 
 On CPU tensors `step()` calls the step itself on the same buffers: the
 eager step is the parity reference.
+
+Verify: the speculative verify step is a DecodeGraph too, one per (pool,
+k, filt) as the reference compiles one executable per (slot bucket, k,
+filt). `SpecCarries` adds the drafts, the verify's packed ids and its
+logits to the decode carries it shares; the verify writes its results
+into both (TextModel.spec_slots_into).
 
 Prefill: `PrefillGraphs` keeps one `PrefillGraph` per (bucket, flash
 mode) of one pool (contiguous or paged), the counterpart of the
@@ -128,13 +135,72 @@ class DecodeCarries:
         self.pens[row] = penalty
 
 
+@dataclass
+class SpecCarries:
+    """The speculative verify's carries beside the decode step's, at fixed
+    addresses. `decode`: the DecodeCarries the verify shares with the
+    decode step (toks, pos, recents, keys, counters, the sampling settings
+    and the active mask: a slot moves between the two programs from one
+    iteration to the next). `io`: int32 [B, 1 + k], column 0 each row's
+    draft count and columns 1.. its drafts, so that the host loads an
+    iteration's drafts in one copy; `drafts` [B, k] and `n_drafts` [B]
+    are views of it. `packed`: int32 [3, B], the last verify's [input
+    token ; accepted drafts ; next token]; `logits`: [B, k + 1, V]
+    float32, the last verify's logits at every input position."""
+    decode: DecodeCarries
+    io: torch.Tensor
+    packed: torch.Tensor
+    logits: torch.Tensor
+
+    @classmethod
+    def build(cls, decode: DecodeCarries, k: int) -> "SpecCarries":
+        b, vocab = decode.logits.shape
+        dev = decode.logits.device
+        return cls(decode=decode,
+                   io=torch.zeros((b, 1 + k), dtype=torch.int32, device=dev),
+                   packed=torch.zeros((3, b), dtype=torch.int32, device=dev),
+                   logits=torch.zeros((b, k + 1, vocab), dtype=torch.float32,
+                                      device=dev))
+
+    @property
+    def drafts(self) -> torch.Tensor:
+        return self.io[:, 1:]
+
+    @property
+    def n_drafts(self) -> torch.Tensor:
+        return self.io[:, 0]
+
+    def load(self, drafts, n_drafts) -> None:
+        """Write an iteration's drafts ([B, k] and [B] integers, host
+        arrays) in place, in one copy (from pinned memory, without a host
+        sync, on a card)."""
+        cuda = self.io.device.type == "cuda"
+        host = torch.empty(tuple(self.io.shape), dtype=torch.int32,
+                           pin_memory=cuda)
+        host[:, 0] = torch.as_tensor(n_drafts, dtype=torch.int32)
+        host[:, 1:] = torch.as_tensor(drafts, dtype=torch.int32)
+        self.io.copy_(host, non_blocking=cuda)
+
+    def tensors(self) -> dict[str, torch.Tensor]:
+        """The verify's own buffers (the shared ones are decode's)."""
+        return {"io": self.io, "packed": self.packed, "logits": self.logits}
+
+    def reset(self) -> None:
+        """No drafts and no outputs, written in place (the decode carries
+        reset on their own)."""
+        for t in self.tensors().values():
+            t.zero_()
+
+
 def _launch_cells() -> list[tuple[dict, str]]:
     """(dict, key) of every kernel wrapper's launch count."""
     from ...ops import flash, paged_attention
     cells = [(modes, m) for modes in flash.flash_attention.launches.values()
              for m in modes]
-    pa = paged_attention.paged_decode_attention.launches
-    return cells + [(pa, r) for r in pa]
+    for pa in (paged_attention.paged_decode_attention.launches,
+               paged_attention.paged_verify_attention.launches):
+        cells += [(pa, r) for r in pa]
+    return cells
 
 
 def _read(cells) -> list[int]:

@@ -10,11 +10,13 @@ Positions: `pos0` is a host int for prefill (one sequence), a 0-d
 device tensor for the traced prefill that a captured graph replays (with
 `valid_len` a 0-d tensor too), or a [B] tensor of per-row positions for
 the batched one-token decode step, where `valid_len` is then a [B] 0/1
-tensor (a 0 row writes nothing).
+tensor (a 0 row writes nothing), and for the batched speculative verify
+(S = k + 1 tokens per row), where `valid_len` [B] is each row's count of
+real tokens.
 
 A layer cache is either a contiguous row cache {k, v, pos} or, in the
-paged decode step, a layer's block pool with the step's block tables
-{k, v, pos, tables} (see cache.init_paged_layers). In the traced prefill
+paged decode step and the paged verify, a layer's block pool with the
+step's block tables {k, v, pos, tables} (see cache.init_paged_layers). In the traced prefill
 it also carries "meta", the chunk's device int32 [3] {row, pos0,
 valid_len}: the chunk's row of the cache's batch axis is meta[0], read
 on the card (a slot of the pool, or 0 for a batch-1 view).
@@ -30,7 +32,7 @@ from ...ops import (apply_rope, embedding, gelu_mul, linear,
                     rope_tables, silu_mul)
 from ...ops import flash as flash_ops
 from ...ops import paged_attention as paged_ops
-from .cache import paged_write_entry, update_kv_cache
+from .cache import paged_write_entries, paged_write_entry, update_kv_cache
 from .config import LayerSpec, ModelConfig
 
 INIT_STD = 0.02
@@ -162,8 +164,13 @@ def attention_forward(cfg: ModelConfig, spec: LayerSpec, p: dict,
     if spec.use_rope:
         suffix = "_local" if spec.local_rope_table else ""
         cos, sin = rope["cos" + suffix], rope["sin" + suffix]
-        q = apply_rope(q, cos, sin, positions, cfg.rotary_dim)
-        k = apply_rope(k, cos, sin, positions, cfg.rotary_dim)
+        rp = positions
+        if positions.dim() == 2 and s > 1:
+            # a verify's padded tail may run past the table near the end
+            # of the context: those rows are never used
+            rp = positions.clamp(max=cos.shape[0] - 1)
+        q = apply_rope(q, cos, sin, rp, cfg.rotary_dim)
+        k = apply_rope(k, cos, sin, rp, cfg.rotary_dim)
 
     use_flash = s >= flash_ops.FLASH_MIN_SEQ and (
         flash_mode == "fresh"
@@ -202,6 +209,18 @@ def attention_forward(cfg: ModelConfig, spec: LayerSpec, p: dict,
         y = paged_ops.paged_decode_attention(
             q.contiguous(), layer_cache["k"], layer_cache["v"], layer_cache["pos"],
             layer_cache["tables"], pos0.to(torch.int32), scale)
+    elif "tables" in layer_cache:
+        # paged verify: write the k + 1 entries into their reserved blocks
+        # (padding and inactive rows to the sink), then one paged kernel
+        # call over the flattened rows, row (b, i) at frontier pos[b] + i:
+        # causal among the drafts by the kernel's visibility rule. The
+        # model drops the rejected entries once the accept is known
+        paged_write_entries(layer_cache, layer_cache["tables"], k, v, pos0,
+                            valid_len)
+        y = paged_ops.paged_verify_attention(
+            q.contiguous(), layer_cache["k"], layer_cache["v"],
+            layer_cache["pos"], layer_cache["tables"], pos0.to(torch.int32),
+            scale)
     elif s == 1:
         # decode: write the new entry first, then attend over the buffer
         # (for a ring, the overwritten slot is exactly the one the window
@@ -214,21 +233,31 @@ def attention_forward(cfg: ModelConfig, spec: LayerSpec, p: dict,
         y = multi_head_attention(q, layer_cache["k"], layer_cache["v"], mask,
                                  scale)
     else:
-        # a chunk too short for flash: attend over [cache ; chunk]; pad
-        # keys (index >= valid_len, a host int or a 0-d tensor) are
-        # invisible
-        ck, cv, cp = (_chunk_row(layer_cache, n) for n in ("k", "v", "pos"))
-        kv_pos_new = positions
+        # a chunk too short for flash (one row's prefill chunk, or the
+        # batched verify's k + 1 tokens per row): attend over [cache ;
+        # chunk]; pad keys (index >= valid_len: a host int, a 0-d tensor,
+        # or [B] per row) are invisible
+        batched = positions.dim() == 2
+        ck, cv, cp = ((layer_cache[n] if batched else _chunk_row(layer_cache,
+                                                                 n))
+                      for n in ("k", "v", "pos"))
+        q_pos = positions if batched else positions[None, :].expand(b, s)
+        kv_pos_new = q_pos
         if valid_len is not None:
+            vl = valid_len[:, None] if batched else valid_len
             kv_pos_new = torch.where(torch.arange(s, device=x.device)
-                                     < valid_len, positions, -1)
-        kv_pos = torch.cat([cp, kv_pos_new.to(cp.dtype)[None, :].expand(b, s)],
-                           1)
-        mask = make_attention_mask(positions[None, :].expand(b, s), kv_pos,
-                                   window=spec.window)
+                                     < vl, q_pos, -1)
+        kv_pos = torch.cat([cp, kv_pos_new.to(cp.dtype)], 1)
+        mask = make_attention_mask(q_pos, kv_pos, window=spec.window)
         y = multi_head_attention(q, torch.cat([ck, k], 1),
                                  torch.cat([cv, v], 1), mask, scale)
-        update_kv_cache(layer_cache, k, v, pos0, valid_len, row)
+        if batched:
+            # the verify's entries are held back until the accept is
+            # known, then only the committed ones are written (the model's
+            # commit): a ring row keeps every entry its window still needs
+            layer_cache["held"] = (k, v)
+        else:
+            update_kv_cache(layer_cache, k, v, pos0, valid_len, row)
     return linear(y.reshape(b, s, hq * d), p["o_proj"]["weight"]), layer_cache
 
 

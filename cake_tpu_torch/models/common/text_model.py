@@ -40,15 +40,18 @@ from typing import Iterable
 import torch
 
 from ...device import resolve_device
-from ...ops.sampling import (SamplingConfig, push_recent_token, request_key,
-                             sample_traced)
+from ...ops.sampling import (SamplingConfig, config_has_filters,
+                             push_recent_token, request_key, sample_traced,
+                             spec_accept)
 from ...ops.flash import FLASH_MIN_SEQ
-from .cache import (init_cache, init_paged_layers, kv_capacity,
-                    paged_gather_layer, paged_scatter_blocks, row_view,
+from .cache import (grow_cache, init_cache, init_paged_layers, kv_capacity,
+                    paged_drop_entries, paged_gather_layer,
+                    paged_scatter_blocks, row_view,
                     slot_extract_block_layers, slot_reset_layers,
-                    slot_splice_block_layers)
+                    slot_splice_block_layers, update_kv_cache)
 from .config import ModelConfig
-from .graphs import DecodeCarries, DecodeGraph, PrefillGraphs, PrefillIO
+from .graphs import (DecodeCarries, DecodeGraph, PrefillGraphs, PrefillIO,
+                     SpecCarries)
 from .layers import (block_forward, embed_tokens, forward_layers,
                      init_params, lm_head_logits, make_rope)
 
@@ -143,6 +146,11 @@ class TextModel:
     def new_cache(self, batch: int = 1, kv_len: int | None = None) -> dict:
         return init_cache(self.cfg, batch, kv_len or self.max_cache_len,
                           self.dtype, self.device)
+
+    def grow_cache(self, cache: dict, new_len: int) -> dict:
+        """The batch-1 cache re-homed into buffers of new_len slots (rings
+        keep their window): the reference's `_grow_to`."""
+        return grow_cache(self.cfg, cache, new_len)
 
     # -- prefill -------------------------------------------------------------
 
@@ -308,6 +316,157 @@ class TextModel:
                                 c: DecodeCarries) -> None:
         """decode_slots_paged writing into its carries (decode_slots_into)."""
         self.decode_slots_into(self.paged_layers(pool, rows, tables), c)
+
+    @torch.no_grad()
+    def decode_logits(self, cache: dict, token_id: int):
+        """One decode step of a batch-1 cache at its position cache["pos"]:
+        writes the token's entry and returns (logits [1, V], cache) with
+        pos advanced (the reference's decode_logits; the draft-model
+        drafter's rollout)."""
+        dev = self.device
+        pos = int(cache["pos"])
+        x = embed_tokens(self.cfg, self.params,
+                         torch.tensor([[int(token_id)]], device=dev))
+        x = forward_layers(self.cfg, self.params, x, cache["layers"],
+                           torch.tensor([pos], dtype=torch.int32, device=dev),
+                           self.rope,
+                           valid_len=torch.ones(1, dtype=torch.int32,
+                                                device=dev))
+        cache["pos"] = pos + 1
+        return lm_head_logits(self.cfg, self.params, x)[:, -1], cache
+
+    # -- speculative verify (module 9) -----------------------------------------
+
+    def _verify_step(self, layers, toks, pos, recents, keys, counters, temps,
+                     top_ks, top_ps, penalties, active, drafts, n_drafts,
+                     filt: bool):
+        """The verify's arithmetic (the reference's `_spec_slots` /
+        `_spec_slots_paged`, text_model.py:477-560 and :697-790): each row
+        forwards [input token, drafts] at its own position, the accept
+        rule (ops/sampling.py: spec_accept) keeps a prefix of the drafts,
+        and only the committed entries (the input and the accepted drafts,
+        n_acc + 1) remain in the KV. A contiguous row or a ring takes its
+        entries after the accept (attention_forward held them back), so a
+        ring keeps the older entries its window still needs, which the
+        reference's write-then-truncate loses (ROADMAP §3); a block pool
+        takes all the row's real entries before the paged kernel reads
+        them, and the rejected ones read -1 after the step. A row with no
+        drafts takes a plain decode step; an inactive row writes nothing
+        and keeps its carries. Returns (logits [B, k+1, V], packed [3, B]
+        = [input token ; accepted drafts ; next token], toks, pos,
+        recents, counters)."""
+        cfg = self.cfg
+        s = drafts.shape[1] + 1
+        tokens = torch.cat([toks[:, None], drafts.to(toks.dtype)], 1)
+        n_drafts = torch.where(active, n_drafts, 0)
+        n_input = torch.where(active, n_drafts + 1, 0).to(torch.int32)
+        caches = [dict(lc) for lc in layers]
+        x = embed_tokens(cfg, self.params, tokens.long())
+        x = forward_layers(cfg, self.params, x, caches, pos, self.rope,
+                           valid_len=n_input)
+        logits = lm_head_logits(cfg, self.params, x)
+        n_acc, nxt, recent2 = spec_accept(logits, drafts, n_drafts, keys,
+                                          counters, temps, top_ks, top_ps,
+                                          penalties, recents, filt)
+        n_acc = torch.where(active, n_acc, 0)
+        commit = torch.where(active, n_acc + 1, 0).to(torch.int32)
+        for lc in caches:
+            held = lc.pop("held", None)
+            if held is not None:
+                update_kv_cache(lc, held[0], held[1], pos, commit)
+            elif "tables" in lc:
+                paged_drop_entries(lc, lc["tables"], pos, commit, n_input, s)
+        # the has_linear re-forward of the reference's commit is not
+        # ported: linear-attention families (GDN, module 10) are NOT_PORTED
+        nxt = torch.where(active, nxt, toks)
+        recents = torch.where(active[:, None], recent2, recents)
+        return (logits, torch.stack([toks, n_acc, nxt]), nxt,
+                pos + commit.to(pos.dtype), recents,
+                counters + active.to(counters.dtype))
+
+    @torch.no_grad()
+    def spec_slots(self, layers: list[dict], toks, pos, recents, keys,
+                   counters, temps, top_ks, top_ps, penalties, active,
+                   drafts, n_drafts, filt: bool = True):
+        """One batched speculative verify over every pool row (the
+        reference's spec_slots): decode_slots' carries and contract, plus
+        drafts [B, k] int32 (right-padded) and n_drafts [B] int32 (0: a
+        plain decode step for that row). Acceptance is ragged per row;
+        each active row's position advances by its n_acc + 1 and its
+        counter by one. filt=False (no row filters its vocabulary) skips
+        the accept rule's per-row sorts. Returns (packed [3, B], toks,
+        pos, recents, counters); the KV is updated in place."""
+        return self._verify_step(layers, toks, pos, recents, keys, counters,
+                                 temps, top_ks, top_ps, penalties, active,
+                                 drafts, n_drafts, filt)[1:]
+
+    def spec_slots_paged(self, pool: list[dict], rows: list[dict],
+                         tables: torch.Tensor, *args, filt: bool = True):
+        """spec_slots over a paged pool (the reference's spec_slots_paged).
+        The caller has reserved the blocks of each row's speculative
+        frontier [pos, pos + n_drafts]; the block cursor moves by the
+        accepted length, and every pool entry at or past pos + n_acc + 1
+        reads -1 after the step."""
+        return self.spec_slots(self.paged_layers(pool, rows, tables), *args,
+                               filt=filt)
+
+    @torch.no_grad()
+    def spec_slots_into(self, layers: list[dict], c: SpecCarries,
+                        filt: bool) -> None:
+        """spec_slots reading and writing fixed carries (the verify graph's
+        program): drafts from c.io, the shared decode carries c.decode
+        advanced in place, c.packed and c.logits written."""
+        d = c.decode
+        logits, packed, nxt, pos, recents, counters = self._verify_step(
+            layers, d.toks, d.pos, d.recents, d.keys, d.counters, d.temps,
+            d.top_ks, d.top_ps, d.pens, d.active, c.drafts, c.n_drafts, filt)
+        c.logits.copy_(logits)
+        c.packed.copy_(packed)
+        d.toks.copy_(nxt)
+        d.pos.copy_(pos)
+        d.recents.copy_(recents)
+        d.counters.copy_(counters)
+
+    def spec_slots_paged_into(self, pool: list[dict], rows: list[dict],
+                              tables: torch.Tensor, c: SpecCarries,
+                              filt: bool) -> None:
+        """spec_slots_paged writing into its carries (spec_slots_into)."""
+        self.spec_slots_into(self.paged_layers(pool, rows, tables), c, filt)
+
+    @torch.no_grad()
+    def verify_tokens(self, cache: dict, last_token: int, draft_ids, k: int,
+                      pos0: int, key: int, counter: int,
+                      recent: torch.Tensor, scfg: SamplingConfig):
+        """One verify step on a batch-1 cache (generate's speculative
+        loop; the reference's verify_tokens): [last_token, drafts] padded
+        to k + 1 at pos0, the accept rule under draw `counter` of `key`,
+        and only the accepted prefix committed. recent: [1, N]. Returns
+        (packed [2] = [n_acc, next token], cache with pos at the commit
+        frontier pos0 + n_acc + 1, recent'): one host read of packed,
+        which the caller needs anyway."""
+        draft = [int(t) for t in list(draft_ids)[:k]]
+        n_draft = len(draft)
+        check_prefill_bounds(n_draft + 1, pos0,
+                             kv_capacity(self.cfg, cache),
+                             self.max_cache_len)
+        dev = self.device
+
+        def one(v, dtype):
+            return torch.tensor([v], dtype=dtype, device=dev)
+
+        drafts = torch.tensor([draft + [0] * (k - n_draft)],
+                              dtype=torch.int32, device=dev)
+        packed, _, _, recent, _ = self.spec_slots(
+            cache["layers"], one(last_token, torch.int32),
+            one(pos0, torch.int32), recent, one(key, torch.int64),
+            one(counter, torch.int64), one(scfg.temperature, torch.float32),
+            one(scfg.top_k or self.cfg.vocab_size, torch.int32),
+            one(1.0 if scfg.top_p is None else scfg.top_p, torch.float32),
+            one(scfg.repeat_penalty, torch.float32),
+            torch.ones(1, dtype=torch.bool, device=dev), drafts,
+            one(n_draft, torch.int32), filt=config_has_filters(scfg))
+        cache["pos"] = pos0 + int(packed[1, 0]) + 1
+        return packed[1:, 0], cache, recent
 
     @torch.no_grad()
     def sample_one(self, logits: torch.Tensor, key: int, counter: int,
@@ -477,14 +636,29 @@ class TextModel:
         return self._runners[key]
 
     def generate(self, prompt_ids: list[int], max_new_tokens: int = 256,
-                 sampling: SamplingConfig | None = None, seed: int = 0):
+                 sampling: SamplingConfig | None = None, seed: int = 0,
+                 spec=None, spec_k: int | None = None):
         """Generate up to max_new_tokens (stopping at EOS): one prefill,
         the first token sampled off its logits, then captured chunks of
         GEN_CHUNK batch-1 decode steps, STREAM_DEPTH chunks in flight, EOS
         checked between chunks (the reference's `_decode_chunk`). The
         request samples under key request_key(seed, 0). Returns
-        (token_ids, stats)."""
+        (token_ids, stats).
+
+        `spec` switches the decode to speculation (spec/): "ngram", a
+        Drafter, or a draft TextModel; None reads CAKE_SPEC (off when
+        unset), False forces it off. Each step a drafter proposes up to
+        `spec_k` tokens (CAKE_SPEC_K) and one verify step keeps a prefix
+        of them: greedy output equals the plain path's, sampled output
+        keeps its distribution. The verify runs eagerly, one program per
+        step (spec/verify.py: spec_decode_loop)."""
         scfg = sampling or SamplingConfig()
+        if spec is not False:
+            from ...spec import resolve_drafter
+            drafter, k = resolve_drafter(spec, spec_k)
+            if drafter is not None:
+                return self._generate_spec(prompt_ids, max_new_tokens, scfg,
+                                           seed, drafter, k)
         n = len(prompt_ids)
         kv_len = bucket_for(n + max_new_tokens, self.max_cache_len)
         run = self._chunk_runner(kv_len, scfg.repeat_last_n)
@@ -527,6 +701,40 @@ class TextModel:
         return out, {"ttft_s": ttft, "decode_tokens": len(out) - 1,
                      "decode_s": dt,
                      "tok_per_s": (len(out) - 1) / dt if dt > 0 else 0.0}
+
+    def _generate_spec(self, prompt_ids: list[int], max_new_tokens: int,
+                       scfg: SamplingConfig, seed: int, drafter, k: int):
+        """generate under speculation: the same prefill and first token
+        (draw 0 of request_key(seed, 0)) into a batch-1 cache, then
+        spec_decode_loop."""
+        from ...spec.verify import spec_decode_loop
+        n = len(prompt_ids)
+        kv_len = bucket_for(n + max_new_tokens, self.max_cache_len)
+        cache = self.new_cache(1, kv_len=kv_len)
+        t0 = time.perf_counter()
+        bkt, mode = prefill_key(n, 0, kv_capacity(self.cfg, cache),
+                                self.max_cache_len)
+        self.last_prefill_mode = mode
+        io = PrefillIO.build(bkt, self.cfg.vocab_size, self.device)
+        io.load(0, 0, prompt_ids)
+        self.prefill_chunk_into(cache["layers"], io, bkt, mode)
+        cache["pos"] = n
+        key = request_key(seed, 0)
+        recent = torch.full((1, scfg.repeat_last_n), -1, dtype=torch.int32,
+                            device=self.device)
+        tok = self.sample_one(io.logits, key, 0, scfg, recent)
+        out = [int(tok[0])]
+        ttft = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        out, spec_stats = spec_decode_loop(
+            self, drafter, k, list(prompt_ids), out, cache, kv_len, key,
+            push_recent_token(recent, tok), scfg, max_new_tokens,
+            self.cfg.is_eos(out[0]))
+        dt = time.perf_counter() - t1
+        return out, {"ttft_s": ttft, "decode_tokens": len(out) - 1,
+                     "decode_s": dt,
+                     "tok_per_s": (len(out) - 1) / dt if dt > 0 else 0.0,
+                     **spec_stats}
 
     def mk_token(self, tid: int) -> Token:
         return Token(id=tid, is_end_of_stream=self.cfg.is_eos(tid))

@@ -188,6 +188,29 @@ SERVE_PREEMPTIONS = REGISTRY.counter(
     "Slots evicted because the paged KV pool was exhausted",
     labelnames=("mode",))           # swap | recompute
 
+SPEC_PROPOSED = REGISTRY.counter(
+    "cake_serve_spec_proposed_total",
+    "Draft tokens proposed to speculative verify steps (local generate "
+    "and serve-engine paths)")
+
+SPEC_ACCEPTED = REGISTRY.counter(
+    "cake_serve_spec_accepted_total",
+    "Draft tokens accepted by speculative verify steps")
+
+SPEC_ACCEPTED_LEN = REGISTRY.histogram(
+    "cake_serve_spec_accepted_length",
+    "Accepted draft tokens per speculative verify step (0 = every draft "
+    "rejected; the step still emits its correction token)",
+    buckets=(0, 1, 2, 3, 4, 6, 8, 12, 16))
+
+SPEC_BUCKET_ACCEPTED = REGISTRY.histogram(
+    "cake_serve_spec_bucket_accepted_length",
+    "Accepted draft tokens per slot verify, labeled by the batched "
+    "dispatch's slot-count bucket — the acceptance x occupancy tradeoff "
+    "the serve bench reports",
+    labelnames=("bucket",),
+    buckets=(0, 1, 2, 3, 4, 6, 8, 12, 16))
+
 SERVE_QOS_QUEUE_DEPTH = REGISTRY.gauge(
     "cake_serve_qos_queue_depth",
     "Queued requests + jobs per QoS class, summed across the admission "
@@ -237,4 +260,6 @@ __all__ = [
     "SERVE_KV_BLOCKS_FREE", "SERVE_KV_BLOCKS_USED", "SERVE_KV_BLOCKS_SHARED",
     "SERVE_PREEMPTIONS", "SERVE_QOS_QUEUE_DEPTH", "SERVE_QOS_TTFT_SECONDS",
     "SERVE_QOS_E2E_SECONDS", "SERVE_QOS_SHEDS", "SERVE_TENANT_THROTTLES",
+    "SPEC_PROPOSED", "SPEC_ACCEPTED", "SPEC_ACCEPTED_LEN",
+    "SPEC_BUCKET_ACCEPTED",
 ]

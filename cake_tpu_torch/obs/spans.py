@@ -185,6 +185,9 @@ SPAN_CATALOG: tuple[tuple[str, str], ...] = (
                             "iteration's fetch"),
     ("serve.replay", "serve engine: one slot's crash/preemption replay, "
                      "to the fetch or the rebuild's wait that follows it"),
+    ("spec.verify", "speculative verify dispatch (generate path and "
+                    "batched serve path; on the serve path from the "
+                    "verify's replay to the iteration's fetch)"),
     ("api.chat_prompt", "chat handler: the chat template and the "
                         "tokenizer's encode of one request's prompt"),
 )

@@ -50,8 +50,8 @@ TRACE_HEADER = "X-Cake-Request-Id"
 MAX_EVENTS = 512
 
 # typed event vocabulary: event() rejects unknown kinds. The reference's
-# table, cut to the kinds the port records (its fleet, cluster and
-# speculative kinds come with those modules)
+# table, cut to the kinds the port records (its fleet and cluster kinds
+# come with those modules)
 EVENT_KINDS: dict[str, str] = {
     # API tier
     "received": "request reached the API handler",
@@ -69,6 +69,8 @@ EVENT_KINDS: dict[str, str] = {
                    "TTFT stamps here)",
     "decode": "one batched decode iteration this slot rode (`bucket` = "
               "the dispatch's slot count)",
+    "spec_verify": "one batched speculative verify this slot "
+                   "participated in (`bucket`, `proposed`, `accepted`)",
     "preempt": "slot evicted under KV-pool pressure (`mode` = "
                "swap | recompute | requeue, `tokens`)",
     "resume": "preempted request re-entered a slot (`mode`, `slot`)",

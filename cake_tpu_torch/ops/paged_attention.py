@@ -29,6 +29,17 @@ passes exactly its cluster size, stages and shared-memory bytes.
 The wrapper launches the kernel for CUDA tensors (checking device, dtype,
 shapes and contiguity, and raising on anything else), and computes the
 plain version only for CPU tensors. No host sync: p stays on the device.
+
+The speculative verify's attention runs on the same kernel
+(`paged_verify_attention`). In the reference a verify forwards k + 1
+tokens per slot, below FLASH_MIN_SEQ, so it is XLA: each slot's whole
+logical row gathered (`_paged_row_cache`, text_model.py:697-790) and
+masked attention over [row ; chunk]. The kernel's visibility rule gives
+that function row by row: the verify's entries are written into the pool
+first, its [B, S] queries are flattened to B·S rows, and row (b, i) reads
+slot b's table at frontier pos[b] + i, so it sees the committed row and
+drafts 0..i (causal among the drafts). Each flattened row reads its
+slot's live blocks, about S times the unique bytes of a decode call.
 """
 from __future__ import annotations
 
@@ -45,6 +56,9 @@ from .attention import make_attention_mask, multi_head_attention
 REPLACES = ("cake_tpu/models/common/cache.py:383 paged_gather_layer + "
             "cake_tpu/ops/attention.py:40 multi_head_attention "
             "(XLA in the reference)")
+VERIFY_REPLACES = ("cake_tpu/models/common/text_model.py:697-790 "
+                   "_spec_slots_paged: _paged_row_cache + masked attention "
+                   "over [row ; chunk] (XLA in the reference)")
 LIBRARY = "paged_decode"
 SOURCE = "cake_tpu_torch/csrc/paged_decode.cu"
 ROUTES = {torch.bfloat16: "bf16", torch.float32: "f32"}
@@ -315,14 +329,90 @@ def paged_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 paged_decode_attention.launches = {route: 0 for route in ROUTES.values()}
 
 
+def verify_rows(tables: torch.Tensor, frontier: torch.Tensor,
+                s: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The flattened rows of a verify over S queries per slot: [B·S, M]
+    int32 tables (row b·S + i is slot b's table row) and [B·S] int32
+    frontiers (frontier[b] + i). Fixed shapes and no host sync, so a
+    captured graph replays it."""
+    b, m = tables.shape
+    rows = tables[:, None, :].expand(b, s, m).reshape(b * s, m)
+    front = (frontier.to(torch.int32)[:, None]
+             + torch.arange(s, dtype=torch.int32,
+                            device=frontier.device)[None, :]).reshape(-1)
+    return rows.contiguous(), front
+
+
+def paged_verify_attention_ref(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, pos: torch.Tensor,
+                               tables: torch.Tensor, frontier: torch.Tensor,
+                               scale: float | None = None) -> torch.Tensor:
+    """Plain version: the reference's paged verify attention. Gather each
+    slot's whole logical row (every entry of the verify already written,
+    so frontier pos + S), mask it causally at query positions pos[b] + i,
+    attend with float32 scores. q: [B, S, Hq, D]."""
+    s = q.shape[1]
+    view = paged_gather_layer({"k": k, "v": v, "pos": pos}, tables,
+                              frontier + s)
+    q_pos = (frontier[:, None].long()
+             + torch.arange(s, device=q.device)[None, :])
+    mask = make_attention_mask(q_pos.to(view["pos"].dtype), view["pos"])
+    return multi_head_attention(q, view["k"], view["v"], mask, scale)
+
+
+def paged_verify_attention_kernel(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, pos: torch.Tensor,
+                                  tables: torch.Tensor,
+                                  frontier: torch.Tensor,
+                                  scale: float | None = None) -> torch.Tensor:
+    """The verify on the kernel, uncounted (callers that compare it with
+    the plain version use this entry): the flattened rows, one launch of
+    the paged decode kernel, the output back to [B, S, Hq, D]. Raises on
+    what the kernel does not take."""
+    b, s, hq, d = q.shape
+    rows, front = verify_rows(tables, frontier, s)
+    out = paged_decode_attention_kernel(q.reshape(b * s, 1, hq, d), k, v,
+                                        pos, rows, front, scale)
+    return out.reshape(b, s, hq, d)
+
+
+def paged_verify_attention(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, pos: torch.Tensor,
+                           tables: torch.Tensor, frontier: torch.Tensor,
+                           scale: float | None = None) -> torch.Tensor:
+    """The verify's attention, q [B, S, Hq, D] at positions frontier[b] +
+    i, over the pool the verify's entries were written into. On CUDA
+    tensors, one launch of the paged decode kernel over the B·S flattened
+    rows (verify_rows), counted in `paged_verify_attention.launches[route]`
+    (not in paged_decode_attention's); on CPU tensors the plain version."""
+    if q.device.type == "cpu":
+        return paged_verify_attention_ref(q, k, v, pos, tables, frontier,
+                                          scale)
+    out = paged_verify_attention_kernel(q, k, v, pos, tables, frontier,
+                                        scale)
+    paged_verify_attention.launches[kernel_route(q.dtype)] += 1
+    return out
+
+
+paged_verify_attention.launches = {route: 0 for route in ROUTES.values()}
+
+
 def launch_counts() -> dict:
-    """A copy of the launch counts, {route: n}."""
+    """A copy of the decode wrapper's launch counts, {route: n}."""
     return dict(paged_decode_attention.launches)
 
 
+def verify_launch_counts() -> dict:
+    """A copy of the verify wrapper's launch counts, {route: n}."""
+    return dict(paged_verify_attention.launches)
+
+
 def reset_launches() -> None:
-    for route in paged_decode_attention.launches:
-        paged_decode_attention.launches[route] = 0
+    """Zero both wrappers' launch counts."""
+    for counts in (paged_decode_attention.launches,
+                   paged_verify_attention.launches):
+        for route in counts:
+            counts[route] = 0
 
 
 def _bind(lib: ctypes.CDLL) -> None:

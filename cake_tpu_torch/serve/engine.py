@@ -1,8 +1,8 @@
 """Continuous-batching serve engine (the core of
 cake_tpu/serve/engine.py: ServeEngine, ServeRequest, chunked admission,
 the shared-prefix cache, paged KV, swap and recompute preemption, QoS
-lanes and victim classes, queue and request deadlines, and the metrics
-plane's spans, timelines and instruments).
+lanes and victim classes, queue and request deadlines, the metrics
+plane's spans, timelines and instruments, and speculative decoding).
 
 A bounded, class-aware admission queue (admission/queue.py: one lane per
 QoS class, weighted-fair dequeue) feeds one scheduler thread that owns
@@ -25,7 +25,9 @@ per-slot tables) and every device tensor. Each iteration:
   4. dispatches ONE batched decode step over the pool (rows whose prefill
      has completed are `active`; the others ride along frozen): on a card
      a replay of the step's CUDA graph, captured once when the scheduler
-     thread starts (models/common/graphs.py), on the CPU the eager step;
+     thread starts (models/common/graphs.py), on the CPU the eager step.
+     With a drafter, when it proposed for any slot, the step is a batched
+     speculative verify instead (below);
   5. advances the chosen admission by one chunk, capturing every prefix
      block the chunk completed: on a card a replay of the chunk's
      captured prefill program, one CUDA graph per (bucket, flash mode)
@@ -81,15 +83,31 @@ fresh key, request_key(seed, seq) with the next seq, as the reference
 documents. A mid-prefill admission is requeued for a clean restart
 either way (labelled "recompute", as the reference labels it).
 
-Observability (obs/): the spans `serve.step`, `serve.prefill_chunk` and
-`serve.replay`, each request's timeline (enqueue, admit, prefix_hit,
-prefill_chunk, prefill_done, first_token, decode, preempt, resume,
-replay, finish or error) and the SERVE_* instruments are recorded at the
-reference's points from host values the iteration already has. Nothing
-is recorded inside a capture and nothing waits on the card: a span over
-device work ends at the iteration's one fetch (`_close_spans`).
-Left out of this port so far (see ROADMAP.md): speculative decoding and
-the fleet KV tier.
+Speculative decoding (`spec`, the reference's CAKE_SPEC; module 9): a
+shareable drafter ("ngram") proposes up to `spec_k` tokens per decoding
+slot from the slot's own history on the host (`_build_drafts`), and the
+iteration replays the captured verify graph (one per `filt`: whether any
+active slot filters its vocabulary) in place of the decode step: every
+slot's window in one dispatch, acceptance ragged per slot, a slot with
+no window taking a plain decode step inside it. Its fetch brings
+[input token ; accepted drafts ; next token] per slot (`_fanout_spec`
+emits the accepted drafts and the next token, stopping at EOS, the
+budget or a stop inside the accepted prefix). In a paged pool each
+speculating slot reserves blocks for its whole window first; under
+pressure the window degrades to a plain step, other slots' speculative
+tails are trimmed before any victim is preempted (`_trim_spec_tails`),
+and a swapped-out victim carries only committed blocks. The verify is
+supervised as the decode step is.
+
+Observability (obs/): the spans `serve.step`, `serve.prefill_chunk`,
+`serve.replay` and `spec.verify`, each request's timeline (enqueue,
+admit, prefix_hit, prefill_chunk, prefill_done, first_token, decode,
+spec_verify, preempt, resume, replay, finish or error) and the SERVE_*
+and SPEC_* instruments are recorded at the reference's points from host
+values the iteration already has. Nothing is recorded inside a capture
+and nothing waits on the card: a span over device work ends at the
+iteration's one fetch (`_close_spans`).
+Left out of this port so far (see ROADMAP.md): the fleet KV tier.
 """
 from __future__ import annotations
 
@@ -99,10 +117,11 @@ import threading
 import time
 import uuid
 
+import numpy as np
 import torch
 
 from ..models.common.cache import kv_capacity, reset_layers
-from ..models.common.graphs import DecodeCarries, DecodeGraph
+from ..models.common.graphs import DecodeCarries, DecodeGraph, SpecCarries
 from ..models.common.text_model import prefill_start_keys
 from ..obs import (DECODE_TOKEN_SECONDS, GENERATED_TOKENS, RECORDER,
                    SERVE_BATCH_OCCUPANCY, SERVE_E2E_SECONDS,
@@ -112,7 +131,9 @@ from ..obs import (DECODE_TOKEN_SECONDS, GENERATED_TOKENS, RECORDER,
                    SERVE_QUEUE_WAIT_SECONDS, SERVE_REQUEST_TIMEOUTS,
                    SERVE_SLOTS_BUSY, SERVE_TTFT_SECONDS, TIMELINES,
                    TTFT_SECONDS, now, now_us)
-from ..ops.sampling import SamplingConfig, request_key
+from ..ops.sampling import SamplingConfig, config_has_filters, request_key
+from ..spec import resolve_drafter, spec_knobs
+from ..spec.verify import record_step
 from . import faults
 from .admission import AdmissionQueue, QueueFull
 from .admission.classes import class_of, priority
@@ -289,7 +310,9 @@ class ServeEngine:
                  queue_deadline_s: float = DEFAULT_QUEUE_DEADLINE_S,
                  request_deadline_s: float = DEFAULT_REQUEST_DEADLINE_S,
                  qos_weights: dict | None = None,
-                 qos_bounds: dict | None = None):
+                 qos_bounds: dict | None = None,
+                 spec=None, spec_k: int | None = None,
+                 spec_reserve: int | None = None):
         """kv_blocks > 0 replaces the contiguous pool (slots x ctx rows)
         with a shared pool of that many blocks of kv_block_tokens tokens;
         prefix_cache_mb <= 0 turns the shared-prefix cache off;
@@ -304,7 +327,12 @@ class ServeEngine:
         qos_weights / qos_bounds override the classes' weighted-fair
         weights and per-class queue bounds (max_queue each by default;
         None reads CAKE_QOS_WEIGHTS / CAKE_QOS_BOUNDS, as the
-        reference's queue does)."""
+        reference's queue does). spec ("ngram" or a shareable Drafter;
+        None reads CAKE_SPEC, off when unset) turns on speculative
+        decoding with windows of spec_k tokens (CAKE_SPEC_K, 6);
+        spec_reserve caps the speculative frontier a paged slot reserves
+        ahead of a verify (CAKE_SPEC_RESERVE; 0 = the whole window). A
+        drafter with per-sequence state is refused."""
         if preempt_mode not in PREEMPT_MODES:
             raise ValueError(f"preempt_mode must be one of {PREEMPT_MODES},"
                              f" got {preempt_mode!r}")
@@ -322,6 +350,24 @@ class ServeEngine:
         self.request_deadline_s = request_deadline_s
         self._seed = seed
         self._vocab = model.cfg.vocab_size
+        drafter, k = resolve_drafter(spec, spec_k)
+        if drafter is not None and not drafter.shareable:
+            raise ValueError(
+                f"drafter {drafter.name!r} keeps per-sequence state and "
+                "cannot be shared across engine slots: use 'ngram' "
+                "(a DraftModelDrafter belongs on the generate() path)")
+        self.spec_drafter = drafter
+        self.spec_k = k
+        if spec_reserve is None:
+            spec_reserve = spec_knobs()["spec_reserve"]
+        self.spec_reserve = max(int(spec_reserve), 0)
+        self.spec_steps = self.spec_proposed = self.spec_accepted = 0
+        # windows degraded to a plain step at the pool's edge, and blocks
+        # of speculative tails given back (paged pool)
+        self.spec_degraded = self.spec_trimmed = 0
+        # this iteration's draft lengths (slot -> n): the speculative
+        # tail trim keeps the blocks the pending verify will write
+        self._cur_nd: dict[int, int] = {}
         self.paged: PagedKV | None = None
         self._init_device_state()
         self._prefix_cache_mb = prefix_cache_mb
@@ -342,6 +388,8 @@ class ServeEngine:
         self._spans: list[tuple[str, int, dict]] = []
         self.dead: BaseException | None = None
         self.graph = None               # the decode step's DecodeGraph
+        # the verify step's graphs, by filt (speculation only)
+        self.verify_graphs: dict[bool, DecodeGraph] = {}
         self.capture_s = 0.0            # seconds capturing at start
         self.last_rebuild: dict | None = None   # the last _rebuild's record
         # the ring the supervisor dumps on a wedge or DOWN (flight.py)
@@ -385,6 +433,8 @@ class ServeEngine:
         self._prefill_keys = prefill_start_keys(self.chunk, capacity,
                                                 self.model.max_cache_len)
         self.carries = DecodeCarries.build(n, self._vocab, RECENT_N, dev)
+        self.spec = (SpecCarries.build(self.carries, self.spec_k)
+                     if self.spec_drafter is not None else None)
         self._seq = 0                   # admissions so far: the key index
 
     def _decode_fn(self):
@@ -395,6 +445,15 @@ class ServeEngine:
                 paged.pool, paged.rows, paged.tables, c)
         layers = self._layers
         return lambda: model.decode_slots_into(layers, c)
+
+    def _verify_fn(self, filt: bool):
+        """The in-place verify step over the pool that a graph captures."""
+        model, c, paged = self.model, self.spec, self.paged
+        if paged is not None:
+            return lambda: model.spec_slots_paged_into(
+                paged.pool, paged.rows, paged.tables, c, filt)
+        layers = self._layers
+        return lambda: model.spec_slots_into(layers, c, filt)
 
     def _reset_device_state(self):
         """Back to the state of a fresh engine, IN PLACE: every contiguous
@@ -407,6 +466,8 @@ class ServeEngine:
         else:
             reset_layers(self._layers)
         self.carries.reset()
+        if self.spec is not None:
+            self.spec.reset()
 
     def _build_prefix_cache(self):
         """Mode-matched prefix cache, empty: the paged one pins pool blocks
@@ -573,6 +634,16 @@ class ServeEngine:
             if pc is not None:
                 h["kv_pool"]["prefix_entries"] = len(pc._blocks)
                 h["kv_pool"]["prefix_pinned_blocks"] = pc.pinned
+        if self.spec_drafter is not None:
+            h["spec"] = {"drafter": self.spec_drafter.name,
+                         "k": self.spec_k, "mode": "batched",
+                         "steps": self.spec_steps,
+                         "proposed": self.spec_proposed,
+                         "accepted": self.spec_accepted,
+                         "degraded": self.spec_degraded,
+                         "trimmed_blocks": self.spec_trimmed,
+                         "verify_replays": sum(
+                             g.steps for g in self.verify_graphs.values())}
         return h
 
     def begin_drain(self) -> None:
@@ -622,6 +693,16 @@ class ServeEngine:
             t0 = now()
             # captured with every row inactive (nothing admitted yet)
             self.graph = DecodeGraph(self._decode_fn(), self.model.device)
+            if self.spec is not None:
+                # one graph per filt, as the reference compiles one
+                # executable per (bucket, k, filt); they never run at once
+                # and share a memory pool
+                dev = self.model.device
+                pool = (torch.cuda.graph_pool_handle()
+                        if dev.type == "cuda" else None)
+                self.verify_graphs = {
+                    filt: DecodeGraph(self._verify_fn(filt), dev, pool=pool)
+                    for filt in (False, True)}
             # each prefill program's warm-up writes nothing (valid_len 0)
             self.prefill.capture(self._prefill_keys)
             self.capture_s = now() - t0
@@ -766,6 +847,7 @@ class ServeEngine:
         # 3. choose the admission to advance and, in paged mode, reserve
         # its chunk's blocks and then the decoding slots' write blocks,
         # all BEFORE the decode dispatch (see the module docstring)
+        self._cur_nd = {}
         pf_job = (self._prefills[self._rr % len(self._prefills)]
                   if self._prefills else None)
         if pf_job is not None and self.paged is not None:
@@ -773,12 +855,17 @@ class ServeEngine:
         prefilling = {p.slot for p in self._prefills}
         active = [i for i in self.pool.busy()
                   if self._reqs[i] is not None and i not in prefilling]
+        # the drafts are built on the host (the n-gram lookup) while the
+        # previous iteration's chunk may still run on the card
+        spec_job = (self._build_drafts(active)
+                    if active and self.spec_drafter is not None else None)
         if self.paged is not None and active:
-            active = self._ensure_decode_blocks(active)
-        # 4. one batched decode step over the pool; armed BEFORE the fault
-        # hook, so that an injected stall is seen by the watchdog, and a
-        # crash here implicates every active request
+            active = self._ensure_decode_blocks(active, spec_job)
+        # 4. one batched decode or verify step over the pool; armed BEFORE
+        # the fault hook, so that an injected stall is seen by the
+        # watchdog, and a crash here implicates every active request
         t0 = now()
+        spec_acc0 = self.spec_accepted
         active_ids = tuple(self._reqs[i].id for i in active)
         if active:
             SERVE_BATCH_OCCUPANCY.observe(len(active))
@@ -786,7 +873,18 @@ class ServeEngine:
             hook = faults.FAULT_HOOK
             if hook is not None:
                 hook.on_decode([self._reqs[i] for i in active])
-            self.graph.step()
+            if spec_job is not None:
+                drafts, n_drafts = spec_job
+                # no active slot filtering its vocabulary: the graph whose
+                # accept rule skips the per-row sorts
+                filt = any(config_has_filters(self._reqs[i].sampling)
+                           for i in active)
+                self.spec.load(drafts, n_drafts)
+                self._open_span("spec.verify", now_us(), slots=len(active),
+                                drafts=int(n_drafts.sum()))
+                self.verify_graphs[filt].step()
+            else:
+                self.graph.step()
         # 5. advance the chosen admission by one chunk, queued on the
         # device behind the decode step (a preemption in 3 may have
         # requeued it since)
@@ -798,16 +896,21 @@ class ServeEngine:
         # decode set, so that it does not implicate the chunk's request
         if active:
             sup.arm("decode", active_ids)
-            packed = self.carries.packed.cpu().numpy()
+            packed = (self.carries.packed if spec_job is None
+                      else self.spec.packed).cpu().numpy()
             # the chunk queued before the fetch has run on the card by now
             self._close_spans()
-            self._fanout(active, packed)
+            if spec_job is None:
+                self._fanout(active, packed)
+            else:
+                self._fanout_spec(active, packed, *spec_job)
         self._close_spans()
         rec = {"occupancy": len(active),
                "dispatch_ms": round((now() - t0) * 1e3, 3)
                if active else 0.0,
                "queued": self.queue.depth(),
-               "prefilling": len(self._prefills)}
+               "prefilling": len(self._prefills),
+               "spec_accepted": self.spec_accepted - spec_acc0}
         if self.paged is not None:
             rec["kv_free"] = self.paged.alloc.free_count
             rec["kv_used"] = self.paged.alloc.used_count
@@ -1042,16 +1145,31 @@ class ServeEngine:
                 return got
         return True
 
-    def _ensure_decode_blocks(self, active: list[int]) -> list[int]:
-        """Back every decoding slot's write block before the dispatch.
-        Exhaustion evicts prefix-cache LRU, then preempts a victim; a slot
-        that cannot grow with nothing left to reclaim fails typed. Returns
-        the surviving active list."""
+    def _ensure_decode_blocks(self, active: list[int],
+                              spec_job=None) -> list[int]:
+        """Back every decoding slot's write reach before the dispatch: its
+        write block for a decode step, its whole speculative frontier [wp,
+        wp + n_draft] when it carries a draft window (the verify may
+        commit up to n_draft + 1 positions; the reference's frontier
+        reservation). A window that does not fit degrades to a plain
+        step (its n_draft set to 0) before anyone is preempted.
+        Exhaustion evicts prefix-cache LRU, then trims other slots'
+        speculative tails, then preempts a victim; a slot that cannot
+        grow with nothing left to reclaim fails typed. Returns the
+        surviving active list."""
+        n_drafts = spec_job[1] if spec_job is not None else None
         for i in active:
             req = self._reqs[i]
             if req is None:
                 continue        # preempted by an earlier slot's ensure
             wp = self._frontier(req)
+            if n_drafts is not None and n_drafts[i] and \
+                    not self.paged.reserve_range(i, wp, 1 + int(n_drafts[i])):
+                # speculation never costs anyone their blocks: the slot
+                # drops its window to a plain decode step
+                n_drafts[i] = 0
+                self._cur_nd[i] = 0
+                self.spec_degraded += 1
             got = self._reserve_blocks(i, wp, 1, requester=req)
             if got == "self":
                 # the only reclaimable blocks are held by higher-class
@@ -1073,7 +1191,11 @@ class ServeEngine:
         lowest class, youngest first). Neither may outrank `requester`'s
         class: when every candidate does, returns "self" and the caller
         parks itself (a batch decoder never displaces interactive work).
-        True = blocks freed; False = nothing left to reclaim."""
+        True = blocks freed; False = nothing left to reclaim. Other slots'
+        speculative tails go first: a pure rollback, nobody loses work."""
+        if self.spec_drafter is not None and self._trim_spec_tails(exclude):
+            return True
+
         def outranks(r):
             return requester is not None and \
                 priority(class_of(r)) > priority(class_of(requester))
@@ -1108,6 +1230,9 @@ class ServeEngine:
         wp = self._frontier(req)
         c = self.carries
         if self.preempt_mode == "swap":
+            # only committed blocks ride the blob: the speculative tail
+            # past the frontier goes back to the pool first
+            self.spec_trimmed += self.paged.trim_to(slot, wp)
             blob = self.paged.swap_out(slot, (c.toks, c.pos, c.recents,
                                               c.keys, c.counters))
             entry = PreemptedSlot(req, "swap", wp, blob)
@@ -1402,6 +1527,91 @@ class ServeEngine:
             self.paged.evictor = None
         self.prefix_cache = None        # _revive builds it anew
         SERVE_SLOTS_BUSY.set(0)
+
+    # -- speculative decoding (batched, accept-aware) -----------------------
+
+    def _build_drafts(self, active: list[int]):
+        """This iteration's draft windows (the reference's _build_drafts):
+        the shared drafter proposes up to spec_k tokens per slot from the
+        slot's own prompt and tokens. A slot whose first token the host
+        has not fetched yet, one the drafter abstains on, and one without
+        budget or context room get an empty window: a plain decode step
+        inside the verify. Returns (drafts [B, k], n_drafts [B]) int32
+        host arrays, or None when every window is empty (the decode
+        graph runs instead)."""
+        k = self.spec_k
+        drafts = np.zeros((self.slots, k), np.int32)
+        n_drafts = np.zeros((self.slots,), np.int32)
+        for i in active:
+            req = self._reqs[i]
+            if req._first_pending:
+                continue        # the newest token rides the next fetch
+            ki = min(k, self.ctx - self._frontier(req) - 1,
+                     max(req.budget, 0))
+            if self.paged is not None and self.spec_reserve > 0:
+                ki = min(ki, self.spec_reserve)
+            if ki <= 0:
+                continue
+            d = list(self.spec_drafter.propose(req.prompt_ids + req.tokens,
+                                               ki))[:ki]
+            if d:
+                drafts[i, :len(d)] = d
+                n_drafts[i] = len(d)
+                self._cur_nd[i] = len(d)
+        return (drafts, n_drafts) if n_drafts.any() else None
+
+    def _trim_spec_tails(self, exclude: int | None = None) -> bool:
+        """Roll speculative frontier reservations back under pressure
+        (the reference's _trim_spec_tails): blocks a slot maps past its
+        committed tokens plus its pending window go back to the pool.
+        True = at least one block freed."""
+        freed = 0
+        for i in self.pool.busy():
+            req = self._reqs[i]
+            if i == exclude or req is None:
+                continue
+            freed += self.paged.trim_to(
+                i, self._frontier(req) + self._cur_nd.get(i, 0) + 1)
+        self.spec_trimmed += freed
+        return freed > 0
+
+    def _fanout_spec(self, active: list[int], arr, drafts, n_drafts):
+        """Fan one verify's packed ids out (the reference's _fanout_spec):
+        row 0 is each slot's input token (a newly activated slot's
+        unemitted first token), row 1 its accepted drafts, row 2 the
+        correction or bonus token. The host knows the drafts, so n_acc +
+        1 tokens per slot ride a fetch no larger than a decode step's.
+        EOS or the budget inside the accepted prefix ends the request
+        there."""
+        for i in active:
+            req = self._reqs[i]
+            if req._first_pending:
+                req._first_pending = False
+                req.t_first = now()
+                req.stats["ttft_s"] = req.t_first - req.t_enqueue
+                TIMELINES.event(req.id, "first_token")
+                first = int(arr[0, i])
+                self._emit(req, first)
+                if self.model.cfg.is_eos(first) or req.budget <= 0:
+                    self._finish(i, req)
+                    continue
+            n_prop = int(n_drafts[i])
+            n_acc, nxt = int(arr[1, i]), int(arr[2, i])
+            if n_prop:
+                self.spec_steps += 1
+                self.spec_proposed += n_prop
+                self.spec_accepted += n_acc
+                record_step(n_prop, n_acc, bucket=self.slots)
+                TIMELINES.event(req.id, "spec_verify", bucket=self.slots,
+                                proposed=n_prop, accepted=n_acc)
+            else:
+                TIMELINES.event(req.id, "decode", bucket=self.slots)
+            for t in [int(d) for d in drafts[i, :n_acc]] + [nxt]:
+                req.budget -= 1
+                self._emit(req, t)
+                if self.model.cfg.is_eos(t) or req.budget <= 0:
+                    self._finish(i, req)
+                    break
 
     # -- batched decode fan-out ---------------------------------------------
 

@@ -164,6 +164,28 @@ class PagedKV:
             self.sync_table_row(slot)
         return not short
 
+    def trim_to(self, slot: int, tokens: int) -> int:
+        """Speculative-frontier rollback (the reference's trim_to): unmap
+        every table entry past the blocks a `tokens`-token sequence
+        occupies. A verify reserves blocks for the widest accept; after a
+        rejection, or before a swap-out, the tail past the committed
+        frontier goes back to the pool. Those blocks were the slot's own
+        (the frontier never maps a shared block), and need no wipe: the
+        verify left no entry at or past its commit frontier, and the
+        gather's stale-tenant guards cover reuse. One device write when
+        anything changed. Returns the number of blocks freed."""
+        keep = self.blocks_for(max(tokens, 1))
+        freed = 0
+        touched = False
+        for idx in range(keep, self.max_blocks):
+            if self.alloc.tables[slot][idx] == self.NULL:
+                continue
+            touched = True
+            freed += bool(self.alloc.unmap_entry(slot, idx))
+        if touched:
+            self.sync_table_row(slot)
+        return freed
+
     def ensure_writable(self, slot: int, block_idx: int) -> bool:
         """Copy-on-write fork of a shared block before a write into it.
         The scheduler never writes a shared block (capture stops short of

@@ -124,8 +124,39 @@ Phases (any failure exits non-zero and prints no result line):
      its chunks' spans, the time between its chunks), and TTFT p50 with
      the recorder off and on in turns, 2 rounds each (smoke); flash and
      paged decode launch counts printed;
+  12. speculative decoding (run after phase 11, on its model; k = 6):
+     (a) the paged decode kernel on a verify's flattened rows (row (b, i)
+     at frontier p + i) against its plain version, bf16 and f32, at 16/8
+     D 128 and 4/1 D 256: drafts straddling a block boundary, a padded
+     window, a one-token window, an inactive slot, a shared prefix block,
+     4 slots at the serving frontier, deep rows; each launched twice, bit
+     for bit; timed at 4 slots at p = 620 beside the plain version, the
+     library call over gathered rows, the decode call, and the bounds
+     over the unique bytes and over the bytes read; (b) the full
+     flagship, 4 slots with ctx 4096, contiguous and paged: 16 replays of
+     the captured verify equal 16 eager verify steps (packed ids, logits,
+     KV bytes and positions, carries) with a row of right drafts, one of
+     wrong drafts, a sampled row (0.8 / top_k 50) and a free one; the
+     replay's device and wall ms beside the decode step's; (c) served over
+     HTTP with the n-gram drafter, both pools (the paged one built by
+     `cli serve --flagship` under CAKE_SPEC=ngram): 4 concurrent greedy
+     chats of 64 tokens whose prompts state a passage twice, then each
+     alone: every chat 200, drafts accepted, alone == in company, the
+     paged verify launching 28 times per replay, one spec.verify span per
+     replay in /api/v1/trace, the spec counters of /metrics moving, and
+     the text equal to speculation off except after a near tie (a
+     spec-off top-2 logit gap under 0.05, printed); then phase 6(c)'s
+     96-block pool under swap with windows of 32 rejected drafts (tails
+     trimmed before a swap), and two chats on a pool that runs out while
+     they decode (windows degraded to plain steps), each chat's tokens
+     its plain stream's; accept rate, tokens per verify and decode rate
+     printed; (d) the 2-layer f32 parity model: generate with the n-gram
+     drafter and with itself as draft model equals plain generate (every
+     draft of the latter accepted), and (c)'s prompts served with
+     speculation on equal speculation off exactly, in both pools;
   then prints the whole run's seconds, the kernels line, the card line,
-  and the result line last.
+  and the result line last. `--only 12` runs phases 1, 2 and 12 alone
+  and prints no result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -1463,7 +1494,9 @@ def parse_prometheus(text: str) -> dict:
     """{series (name + labels): value} of a text exposition 0.0.4; fails
     on a malformed line."""
     import re
-    sample = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? '
+    # label values are quoted and may hold braces (a route template)
+    sample = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)'
+                        r'(\{(?:[^}"]|"(?:[^"\\]|\\.)*")*\})? '
                         r'(-?[0-9.e+-]+|[+-]Inf|NaN)$')
     out = {}
     for ln in text.splitlines():
@@ -1796,6 +1829,486 @@ def phase_qos(model, card: str) -> None:
     print(f"qos: phase 11 took {time.perf_counter() - t0:.1f} s; flash "
           f"launches in (a) {lanes_flash}, paged decode launches in (b) "
           f"{paged}; on {card}", flush=True)
+
+
+# -- phase 12: speculative decoding -------------------------------------------
+
+
+SPEC_K = 6          # the draft window (CAKE_SPEC_K's default)
+SPEC_TOKENS = 64    # tokens per spec chat
+NEAR_TIE = 0.05     # top-2 logit gap below which bf16 sums may flip a token
+SPEC_WORDS = ("the", "card", "serves", "four", "slots", "at", "its", "limit",
+              "and", "every", "draft", "that", "matches", "is", "kept")
+
+
+def _passage(i: int, n: int = 230) -> str:
+    words = " ".join(SPEC_WORDS[(i * 5 + j * 7) % len(SPEC_WORDS)]
+                     for j in range(60))
+    return f"passage {i}: {words}"[:n]
+
+
+def spec_body(i: int) -> dict:
+    """Phase 12's chat i: a passage stated twice, to be restated (the
+    n-gram drafter finds what the output repeats)."""
+    p = _passage(i)
+    return {"messages": [{"role": "user", "content":
+                          f"Restate this word for word. {p} Once more: {p}"}],
+            "temperature": 0, "max_tokens": SPEC_TOKENS}
+
+
+def _parting(on: list, off: list, gaps: list, label: str) -> list:
+    """Where a spec-on stream parts from the spec-off one: [] when equal,
+    else [(position, spec-off top-2 gap there)], which must be a near tie
+    (the verify's wider GEMMs round differently in bf16)."""
+    n = min(len(on), len(off))
+    j = next((i for i in range(n) if on[i] != off[i]), None)
+    if j is None:
+        check(len(on) == len(off), f"{label}: {len(on)} tokens with spec "
+              f"on, {len(off)} off")
+        return []
+    check(gaps[j] < NEAR_TIE, f"{label}: spec on parts from spec off at "
+          f"token {j}, where the spec-off top-2 logit gap is {gaps[j]:.4f} "
+          f"(>= {NEAR_TIE})")
+    return [(j, round(gaps[j], 5))]
+
+
+class WrongDrafter:
+    """Proposes a whole window of tokens after the last one shifted by 7:
+    all but always rejected, so every verify reserves its window and
+    commits one token, which leaves speculative tails for the pool's
+    pressure path to trim. Stateless, so the engine's slots share it."""
+    name = "wrong"
+    shareable = True
+
+    def __init__(self, vocab: int):
+        self.vocab = vocab
+
+    def propose(self, ids, k):
+        return [(int(ids[-1]) + 7 + j) % self.vocab for j in range(k)]
+
+    def reset(self):
+        pass
+
+
+def phase_spec_kernels(card: str) -> dict:
+    """(a) The paged kernel on flattened verify rows against its plain
+    version, bf16 and f32, at the flagship's 16/8 D 128 and Gemma3's 4/1
+    D 256: drafts straddling a block boundary, a padded window, a
+    one-token window, an inactive slot and a shared prefix block; 4 slots
+    at the serving frontier; two deep rows. Each case launched twice, bit
+    for bit. Then timed at the serving shape (4 slots at p = 620, k = 6):
+    device ms beside the plain version, the library call over gathered
+    rows, the decode call at the same frontier, and both bounds."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+    from cake_tpu_torch.bench.paged_cases import case_args as decode_args
+    from cake_tpu_torch.bench.paged_cases import paged_case
+    from cake_tpu_torch.bench.spec_cases import (case_args, library_args,
+                                                 verify_bounds, verify_case)
+    from cake_tpu_torch.bench.timing import device_ms, issue_ms
+    from cake_tpu_torch.ops import paged_attention as pa
+    s = SPEC_K + 1
+    cases = (("mixed", dict(slots=[(620, s), (15, s), (300, 4), (40, 1),
+                                   None], shared=True)),
+             ("serving", dict(slots=[(620, s)] * 4)),
+             ("deep", dict(slots=[(4000, s), (3989, s), None])))
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        route = pa.kernel_route(dtype)
+        for shape_name, shape in (("16/8 D 128", {}),
+                                  ("4/1 D 256", dict(hq=4, hkv=1, d=256))):
+            for name, kw in cases:
+                c = verify_case(s=s, dtype=dtype, device="cuda", seed=12,
+                                **kw, **shape)
+                args = case_args(c)
+                got = pa.paged_verify_attention_kernel(*args)
+                again = pa.paged_verify_attention_kernel(*args)
+                torch.cuda.synchronize()
+                want = pa.paged_verify_attention_ref(*args)
+                vis = c["visible"].to("cuda")
+                err = (got.float() - want.float())[vis].abs().max().item()
+                print(f"paged verify {route} {shape_name} {name:8s}: slots "
+                      f"{kw['slots']} (p, n_input), S {s}: max_abs_err "
+                      f"{err:.3e} (tol {tol:g}); two launches equal "
+                      f"{torch.equal(got, again)}", flush=True)
+                check(torch.isfinite(got[vis]).all().item() and err <= tol,
+                      f"paged verify {route} {shape_name} {name}: max_abs_err "
+                      f"{err} > {tol}")
+                check(torch.equal(got, again), f"paged verify {route} "
+                      f"{shape_name} {name}: two launches differ")
+    timings = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        route = pa.kernel_route(dtype)
+        c = verify_case([(620, s)] * 4, s, dtype=dtype, device="cuda",
+                        seed=620)
+        args = case_args(c)
+        lib_args, lib_kw = library_args(c)
+        err = (pa.paged_verify_attention_kernel(*args).float()
+               - pa.paged_verify_attention_ref(*args).float()).abs().max()
+
+        def kern():
+            return pa.paged_verify_attention_kernel(*args)
+        dc = paged_case([620] * 4, dtype=dtype, device="cuda", seed=620)
+        t = {"max_abs_err": err.item(), "ms": device_ms(kern),
+             "issue_ms": issue_ms(kern),
+             "plain_ms": device_ms(
+                 lambda: pa.paged_verify_attention_ref(*args), iters=10),
+             "library_ms": device_ms(
+                 lambda: F.scaled_dot_product_attention(*lib_args,
+                                                        **lib_kw)),
+             "library_backend": SDPBackend(torch._fused_sdp_choice(
+                 *lib_args, **lib_kw)).name,
+             "decode_ms": device_ms(
+                 lambda: pa.paged_decode_attention_kernel(*decode_args(dc))),
+             **verify_bounds(c)}
+        tol = BF16_TOL if route == "bf16" else F32_TOL
+        check(t["max_abs_err"] <= tol, f"paged verify timing {route}: "
+              f"max_abs_err {t['max_abs_err']} > {tol}")
+        timings[route] = t
+        print(f"paged verify timing {route}: 4 slots at p=620, k={SPEC_K} "
+              f"({4 * s} flattened rows), bt 16, 16/8 D 128, device ms: "
+              f"kernel {t['ms']:.5f} (the decode call at p=620: "
+              f"{t['decode_ms']:.5f}), plain {t['plain_ms']:.5f}, library "
+              f"{t['library_ms']:.5f} ({t['library_backend']}, over rows "
+              f"gathered beforehand); issue_ms {t['issue_ms']:.5f}; bound "
+              f"ms over the unique bytes {t['unique_ms']:.5f}, over the "
+              f"bytes read {t['read_ms']:.5f} ({t['bound_by']}); max_abs_err "
+              f"{t['max_abs_err']:.3e}; on {card}", flush=True)
+    return timings
+
+
+def phase_spec_graphs(model, card: str) -> None:
+    """(b) The full flagship, 4 slots with ctx 4096, contiguous and paged
+    (1024 blocks of 16), k = 6: 16 replays of the captured verify (the
+    filtering form) equal 16 eager verify steps in packed ids (n_acc,
+    tokens), logits, every KV byte and position, and every carry; rows at
+    600 (greedy, drafts that are its plain continuation), 1100 (greedy,
+    drafts all wrong), 300 (sampled at 0.8 / top_k 50) and a free row.
+    The replay's device and wall ms beside the decode step's."""
+    import torch
+    from cake_tpu_torch.bench.graph_cases import build_state
+    from cake_tpu_torch.bench.spec_cases import verify_vs_eager
+    from cake_tpu_torch.bench.timing import device_ms, wall_ms
+    from cake_tpu_torch.models.common.graphs import DecodeGraph
+    from cake_tpu_torch.ops.sampling import SamplingConfig
+    greedy = SamplingConfig(temperature=0.0)
+    sampled = SamplingConfig(temperature=0.8, top_k=50)
+    steps = 16
+    for mode, kv_blocks in (("contiguous", 0), ("paged", 1024)):
+        state = build_state(model, [600, 1100, 300, None],
+                            [greedy, greedy, sampled, greedy], 4096,
+                            kv_blocks=kv_blocks, headroom=1024, seed=6)
+        r = verify_vs_eager(model, state, SPEC_K, steps,
+                            ["right", "wrong", "right", None], True)
+        n_acc = r["tokens"][:, 1].tolist()
+        print(f"spec graph {mode}: {steps} verify replays vs eager verify "
+              f"steps, k={SPEC_K}, rows at 600 (right drafts) / 1100 (wrong) "
+              f"/ 300 (sampled 0.8, top_k 50) + 1 free: packed ids and "
+              f"logits identical {r['equal']}, KV bytes identical "
+              f"{r['kv_equal']}, carries identical {r['carries_equal']}, "
+              f"max abs logit diff {r['max_logit_diff']:.3e}; accepted per "
+              f"row {r['accepted']}; n_acc per step {n_acc[:4]}...; "
+              f"launches per replay {r['graph'].launches_per_step}",
+              flush=True)
+        check(r["graph"].graph is not None, f"spec graph {mode}: not "
+              "captured")
+        check(r["equal"] and r["kv_equal"] and r["carries_equal"],
+              f"spec graph {mode}: replays differ from eager verify steps")
+        check(r["accepted"][0] > 0 and r["accepted"][1] == 0,
+              f"spec graph {mode}: accepted {r['accepted']} (right drafts "
+              "must be accepted, wrong ones rejected)")
+        graph = r["graph"]
+        replay_ms = device_ms(graph.step, iters=20)
+        replay_wall = wall_ms(graph.step, 10)
+        decode = DecodeGraph(state.step_fn(model), model.device)
+        decode_ms = device_ms(decode.step, iters=20)
+        decode_wall = wall_ms(decode.step, 10)
+        print(f"spec graph {mode} timing (4 slots, 28 layers, bf16, k="
+              f"{SPEC_K}): verify replay device ms {replay_ms:.4f}, wall ms "
+              f"{replay_wall:.4f}; decode step replay device ms "
+              f"{decode_ms:.4f}, wall ms {decode_wall:.4f}; on {card}",
+              flush=True)
+        del state, r, graph, decode
+        torch.cuda.empty_cache()
+
+
+def phase_spec_serve(model, card: str) -> int:
+    """(c) The full flagship over HTTP with the n-gram drafter at k = 6,
+    contiguous and paged (1024 blocks of 16; this one the server `cli
+    serve --flagship` builds under CAKE_SPEC=ngram), prefix cache off: 4
+    concurrent greedy chats of 64 tokens whose prompts state a passage
+    twice, then each alone; the same chats with speculation off, and
+    their plain stream (eager, with its top-2 logit gaps). Then the pool's
+    pressure path (`_spec_pressure`). Returns the paged verify's bf16
+    launches while serving."""
+    import torch
+    from cake_tpu_torch.bench.spec_cases import plain_stream
+    from cake_tpu_torch.obs import RECORDER
+    from cake_tpu_torch.ops import paged_attention as pa
+    layers = model.cfg.num_hidden_layers
+    bodies = [spec_body(i) for i in range(4)]
+    paged_kw = dict(kv_blocks=1024, kv_block_tokens=16)
+    launches = 0
+    ref = {}
+    for mode, kw in (("contiguous", {}), ("paged", paged_kw)):
+        off = serve_model(model, prefix_cache_mb=0, **kw)
+        try:
+            off_res = off.concurrent(bodies)
+            prompts = [off.reqs[r["rid"]].prompt_ids for r in off_res]
+        finally:
+            off.close()
+        plain = plain_stream(model, prompts, SPEC_TOKENS, 4096,
+                             kv_blocks=kw.get("kv_blocks", 0))
+        for i, r in enumerate(off_res):
+            check(r["tokens"] == plain[i]["tokens"][:len(r["tokens"])],
+                  f"phase 12c {mode}: the served spec-off chat {i} differs "
+                  "from its eager plain stream")
+        ref[mode] = (off_res, plain)
+        # paged: the server `cli serve --flagship` builds under CAKE_SPEC
+        on = (serve_model(model, prefix_cache_mb=0, spec="ngram",
+                          spec_k=SPEC_K) if not kw else _cli_spec_flagship())
+        try:
+            eng = on.engine
+            check(eng.spec_k == SPEC_K and set(eng.verify_graphs) == {
+                False, True} and all(g.graph is not None for g in
+                                     eng.verify_graphs.values()),
+                f"phase 12c {mode}: the verify graphs were not captured")
+            url = on.app.url
+            RECORDER.enable()
+            RECORDER.clear()
+            torch.cuda.synchronize()
+            pa.reset_launches()
+            replays0 = eng.health()["spec"]["verify_replays"]
+            metrics0 = parse_prometheus(_get(url, "/metrics")[2].decode())
+            on_res = on.concurrent(bodies)
+            torch.cuda.synchronize()
+            counts = pa.verify_launch_counts()
+            h = eng.health()["spec"]
+            replays = h["verify_replays"] - replays0
+            metrics = parse_prometheus(_get(url, "/metrics")[2].decode())
+            moved = {name: metrics.get(name, 0) - metrics0.get(name, 0)
+                     for name in ("cake_serve_spec_proposed_total",
+                                  "cake_serve_spec_accepted_total")}
+            status, _, raw = _get(url, "/api/v1/trace")
+            spans = [e["dur"] / 1e3 for e in json.loads(raw)["traceEvents"]
+                     if e["name"] == "spec.verify"]
+            RECORDER.disable()
+            check(h["accepted"] > 0, f"phase 12c {mode}: no draft accepted "
+                  f"({h})")
+            check(status == 200 and len(spans) == replays > 0,
+                  f"phase 12c {mode}: /api/v1/trace {status}, {len(spans)} "
+                  f"spec.verify spans for {replays} replays")
+            check(moved["cake_serve_spec_proposed_total"] > 0
+                  and moved["cake_serve_spec_accepted_total"] > 0,
+                  f"phase 12c {mode}: /metrics spec counters moved {moved}")
+            if kw:
+                check(counts == {"bf16": layers * replays, "f32": 0},
+                      f"phase 12c paged: verify launches {counts} != "
+                      f"{layers} x {replays}")
+                launches = counts["bf16"]
+            else:
+                check(sum(counts.values()) == 0, f"phase 12c contiguous: "
+                      f"paged verify launches {counts}")
+            _alone_equals_concurrent(on, bodies, on_res, f"phase 12c {mode}")
+            parts = [_parting(r["tokens"], o["tokens"], p["gaps"],
+                              f"phase 12c {mode} chat {i}")
+                     for i, (r, o, p) in enumerate(zip(on_res, off_res,
+                                                       plain))]
+            _, tps_on = _latency(on_res)
+            _, tps_off = _latency(off_res)
+            spans.sort()
+            print(f"spec serve (c) {mode}: 4 concurrent chats, "
+                  f"{on_res[0]['resp']['usage']['prompt_tokens']}-token "
+                  f"prompts, {SPEC_TOKENS} tokens: {h}; accept rate "
+                  f"{h['accepted'] / max(h['proposed'], 1):.3f}, tokens per "
+                  f"verify step {(h['accepted'] + h['steps']) / max(h['steps'], 1):.3f}; "
+                  f"{replays} verify replays, verify launches {counts}; "
+                  f"/metrics moved {moved}; "
+                  f"spec.verify span ms min/median/max {spans[0]:.3f} / "
+                  f"{spans[len(spans) // 2]:.3f} / {spans[-1]:.3f}; decode "
+                  f"tok/s per request p50 spec on {tps_on:.1f}, off "
+                  f"{tps_off:.1f} (smoke); spec on == off per chat "
+                  f"{[not p for p in parts]}, partings at near ties "
+                  f"(position, spec-off top-2 gap) {parts}; on {card}",
+                  flush=True)
+        finally:
+            on.close()
+    _spec_pressure(model, card)
+    return launches
+
+
+def _cli_spec_flagship() -> Served:
+    """`cli serve --flagship` (seeded weights: phase 5's model) with a
+    paged pool of 1024 blocks and the prefix cache off, under
+    CAKE_SPEC=ngram and CAKE_SPEC_K=6, started."""
+    from cake_tpu_torch import cli
+    env = {"CAKE_SPEC": "ngram", "CAKE_SPEC_K": str(SPEC_K)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        args = cli.parser().parse_args(
+            ["serve", "--flagship", "--port", "0", "--slots", "4", "--ctx",
+             "4096", "--prefix-cache-mb", "0", "--kv-blocks", "1024"])
+        return Served(cli.build_server(args).start())
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _spec_pressure(model, card: str) -> None:
+    """Phase 6(c)'s chats on its 96-block pool under swap, with windows
+    of 32 rejected drafts (WrongDrafter): every decoding slot holds a
+    speculative tail block, so the late chats' prefills trim tails before
+    they preempt (a swap); then two chats of 64 tokens on a pool that runs
+    out while they decode (k = 6): windows degrade to plain steps. Every
+    chat's tokens are those of its plain stream but for near ties."""
+    from cake_tpu_torch.bench.spec_cases import plain_stream
+    tight = serve_model(model, prefix_cache_mb=0, kv_blocks=96,
+                        kv_block_tokens=16, preempt_mode="swap",
+                        spec=WrongDrafter(model.cfg.vocab_size), spec_k=32)
+    try:
+        first = {}
+
+        def send(i):
+            first[i] = tight.chat(chat_body(i))
+        threads = [threading.Thread(target=send, args=(i,)) for i in (0, 1)]
+        for th in threads:
+            th.start()
+        _until(lambda: len(tight.reqs) == 2 and all(
+            r.tokens for r in tight.reqs.values()), "phase 12c: two chats "
+            "decoding")
+        late = tight.concurrent([chat_body(2), chat_body(3)])
+        for th in threads:
+            th.join(timeout=900)
+        check(len(first) == 2 and all(r["status"] == 200 for r in
+                                      first.values()),
+              "phase 12c 96 blocks: a first chat failed")
+        got = [first[0], first[1]] + late
+        h = tight.engine.health()
+        prompts = [tight.reqs[r["rid"]].prompt_ids for r in got]
+    finally:
+        tight.close()
+    plain = plain_stream(model, prompts, 32, 4096, kv_blocks=1024)
+    parts = [_parting(r["tokens"], p["tokens"][:32], p["gaps"],
+                      f"phase 12c 96 blocks chat {i}")
+             for i, (r, p) in enumerate(zip(got, plain))]
+    print(f"spec serve (c) 96 blocks, swap, 32 rejected drafts: kv_pool "
+          f"{h['kv_pool']}; spec {h['spec']}; spec on == plain per chat "
+          f"{[not p for p in parts]}, partings {parts}; on {card}",
+          flush=True)
+    check(h["kv_pool"]["swaps"] >= 1, "phase 12c 96 blocks: no swap")
+    check(h["spec"]["trimmed_blocks"] > 0, "phase 12c 96 blocks: no "
+          "speculative tail was trimmed")
+    # the pool's edge: two chats of 64 tokens on a pool that holds their
+    # prompts and about 16 tokens more each, so that it runs out while
+    # they decode: a window that does not fit degrades to a plain step
+    body = dict(chat_body(0), max_tokens=64)
+    n = len(prompts[0])
+    edge = serve_model(model, prefix_cache_mb=0,
+                       kv_blocks=2 * -(-(n + 16) // 16), kv_block_tokens=16,
+                       preempt_mode="swap",
+                       spec=WrongDrafter(model.cfg.vocab_size),
+                       spec_k=SPEC_K)
+    try:
+        res = edge.concurrent([body, dict(chat_body(1), max_tokens=64)])
+        h = edge.engine.health()
+        prompts = [edge.reqs[r["rid"]].prompt_ids for r in res]
+    finally:
+        edge.close()
+    plain = plain_stream(model, prompts, 64, 4096, kv_blocks=1024)
+    parts = [_parting(r["tokens"], p["tokens"], p["gaps"],
+                      f"phase 12c pool edge chat {i}")
+             for i, (r, p) in enumerate(zip(res, plain))]
+    print(f"spec serve (c) pool edge, {h['kv_pool']['blocks']} blocks: spec "
+          f"{h['spec']}; swaps {h['kv_pool']['swaps']}; spec on == plain "
+          f"per chat {[not p for p in parts]}, partings {parts}; on {card}",
+          flush=True)
+    check(h["spec"]["degraded"] > 0, "phase 12c pool edge: no window "
+          "degraded to a plain step")
+
+
+def phase_spec_generate(card: str) -> int:
+    """(d) The 2-layer f32 parity model (TF32 off): generate with the
+    n-gram drafter and with the model as its own draft model equals plain
+    generate token for token, and the draft model's every draft is
+    accepted; then phase (c)'s prompts served with speculation on and off
+    (contiguous and paged, 48 tokens): equal exactly. Returns the paged
+    verify's f32 launches."""
+    import torch
+    from cake_tpu_torch.cli import build_flagship
+    from cake_tpu_torch.models import TextModel
+    from cake_tpu_torch.ops import paged_attention as pa
+    from cake_tpu_torch.ops.sampling import SamplingConfig
+    from cake_tpu_torch.serve import ServeEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = build_flagship(layers=2, dtype="f32", seed=1, device="cpu")
+    gpu = TextModel(cpu.cfg, _to_device(cpu.params, "cuda"),
+                    dtype=torch.float32, device="cuda")
+    del cpu
+    prompts = [list(f"Restate: {_passage(i)} Again: {_passage(i)}".encode())
+               for i in range(4)]
+    plain, _ = gpu.generate(prompts[0], 48, spec=False)
+    ngram, st = gpu.generate(prompts[0], 48, spec="ngram", spec_k=SPEC_K)
+    own, st2 = gpu.generate(prompts[0], 48, spec=gpu, spec_k=SPEC_K)
+    print(f"spec generate (d) f32, 2 layers: n-gram == plain {ngram == plain}"
+          f" ({st['spec_steps']} verify steps, {st['spec_accepted']} of "
+          f"{st['spec_proposed']} accepted); own draft model == plain "
+          f"{own == plain} ({st2['spec_accepted']} of "
+          f"{st2['spec_proposed']} accepted, {st2['spec_tokens_per_step']} "
+          f"tokens per step)", flush=True)
+    check(ngram == plain and own == plain,
+          "phase 12d: generate under speculation differs from plain")
+    check(st2["spec_accepted"] == st2["spec_proposed"] > 0,
+          "phase 12d: the perfect drafter's drafts were not all accepted")
+    greedy = SamplingConfig(temperature=0.0)
+    launches = 0
+    for mode, kw in (("contiguous", {}),
+                     ("paged", dict(kv_blocks=1024, kv_block_tokens=16))):
+        outs = {}
+        for spec in (False, "ngram"):
+            eng = ServeEngine(gpu, slots=4, ctx_len=4096, prefix_cache_mb=0,
+                              spec=spec, spec_k=SPEC_K, **kw)
+            try:
+                torch.cuda.synchronize()
+                pa.reset_launches()
+                rs = [eng.submit(p, 48, greedy) for p in prompts]
+                for r in rs:
+                    check(r.wait(600) and "error" not in r.result,
+                          f"phase 12d {mode}: a request failed")
+                torch.cuda.synchronize()
+                outs[spec] = [r.result["tokens"] for r in rs]
+                if spec and kw:
+                    launches = pa.verify_launch_counts()["f32"]
+                    check(launches > 0, "phase 12d paged: no f32 verify "
+                          "launch")
+                h = eng.health()
+            finally:
+                eng.close()
+        print(f"spec serve (d) f32 {mode}: spec on == off "
+              f"{outs['ngram'] == outs[False]}; spec {h.get('spec')}",
+              flush=True)
+        check(outs["ngram"] == outs[False],
+              f"phase 12d {mode}: f32 tokens differ with spec on")
+    del gpu
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_spec(model, card: str) -> dict:
+    """Phase 12: speculative decoding (a)-(d)."""
+    t0 = time.perf_counter()
+    timings = phase_spec_kernels(card)
+    phase_spec_graphs(model, card)
+    served = phase_spec_serve(model, card)
+    f32 = phase_spec_generate(card)
+    print(f"spec: phase 12 took {time.perf_counter() - t0:.1f} s; paged "
+          f"verify launches served bf16 {served}, f32 {f32}; on {card}",
+          flush=True)
+    return {"timings": timings, "launches": {"bf16": served, "f32": f32}}
 
 
 # -- phase 7: the flagship from a checkpoint directory ------------------------
@@ -2183,7 +2696,7 @@ def phase_gemma3(card: str, workdir: str) -> dict:
     return out
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
     t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
@@ -2197,6 +2710,14 @@ def main() -> int:
     print(f"device: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
     built = phase_build()
+    if argv[:2] == ["--only", "12"]:
+        phase_spec(build_flagship(layers=None, dtype="bf16", seed=0,
+                                  device="cuda"), card)
+        print(f"chip_smoke: phase 12 passed in "
+              f"{time.perf_counter() - t_start:.0f} s (no result line: "
+              f"one phase)", flush=True)
+        return 0
+    check(not argv, f"unknown arguments {argv} (only: --only 12)")
     timings = phase_kernels()
     paged_timings = phase_paged_kernels(built[pa.LIBRARY]["log"])
     parity_launches, parity_paged = phase_parity()
@@ -2210,6 +2731,7 @@ def main() -> int:
     paged_launches = phase_paged_serve(model, card, contiguous)
     phase_faults(model, card)
     phase_qos(model, card)
+    spec = phase_spec(model, card)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         load = phase_checkpoint(model, card, workdir)
@@ -2264,6 +2786,17 @@ def main() -> int:
             "ms": t["ms"], "issue_ms": t["issue_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    for route in ("bf16", "f32"):
+        t = spec["timings"][route]
+        kernels.append({
+            "name": f"paged_decode_attention.verify.{route}",
+            "route": "cuda", "source": pa.SOURCE,
+            "replaces": pa.VERIFY_REPLACES,
+            "launches": spec["launches"][route],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "issue_ms": t["issue_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["unique_ms"], "bound_read_ms": t["read_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     print(f"checkpoint load (phase 7): {json.dumps(load)} on {card}")
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.0f} s (limit 1200 s)", flush=True)
@@ -2277,7 +2810,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(main(sys.argv[1:]))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         sys.exit(1)

@@ -2,8 +2,8 @@
 packages the card's machine lacks (`tokenizers`, `transformers`,
 `safetensors`, `regex`, `ml_dtypes`, `huggingface_hub`) blocked too,
 every module of cake_tpu_torch and chip_smoke.py imports (the metrics
-plane, obs/, and the admission plane, serve/admission/, api/qos.py and
-api/obs_routes.py, among them), a tiny CPU chat is served by a contiguous
+plane, obs/, the admission plane, serve/admission/, api/qos.py and
+api/obs_routes.py, and speculative decoding, spec/, among them), a tiny CPU chat is served by a contiguous
 engine and by a paged one, each also answering a batch-class chat under
 an adopted request id with its timeline, /metrics and /api/v1/trace,
 and a chat is served
@@ -47,7 +47,9 @@ for name in ("cake_tpu_torch.obs", "cake_tpu_torch.obs.metrics",
              "cake_tpu_torch.serve.admission.plane",
              "cake_tpu_torch.serve.admission.queue",
              "cake_tpu_torch.serve.admission.tenants",
-             "cake_tpu_torch.api.qos", "cake_tpu_torch.api.obs_routes"):
+             "cake_tpu_torch.api.qos", "cake_tpu_torch.api.obs_routes",
+             "cake_tpu_torch.spec", "cake_tpu_torch.spec.drafter",
+             "cake_tpu_torch.spec.verify"):
     assert name in mods, name
 import chip_smoke
 

@@ -126,6 +126,18 @@ def _hold(server, n=200, **kw):
     return r
 
 
+def _released(reg, tenant, timeout=10.0):
+    """The tenant's inflight count once the handler has given its lease
+    back. The lease is released in the chat handler's `finally`, after
+    the error body is written (as in the reference), so a client can read
+    the response before that thread gets there: wait for it, up to
+    `timeout` seconds, then return what it reads."""
+    deadline = time.monotonic() + timeout
+    while reg.inflight_of(tenant) and time.monotonic() < deadline:
+        time.sleep(0.005)
+    return reg.inflight_of(tenant)
+
+
 def test_routes_and_trace_id_adoption(models):
     jm, tm = models
     obs.RECORDER.disable()
@@ -251,7 +263,7 @@ def test_tenant_quota_429_on_both_paths(models):
         status, _, raw = s.chat({"X-Cake-QoS": "gold"})
         assert status == 400 and "unknown QoS class" in \
             json.loads(raw)["error"]
-        assert reg.inflight_of("t1") == 0
+        assert _released(reg, "t1") == 0
 
 
 def test_class_lane_full_429_with_class_aware_retry_after(models):
@@ -300,7 +312,7 @@ def test_queue_deadline_503_on_both_paths(models):
             assert hdrs["Content-Type"] == "application/json"
             assert "expired in admission queue" in json.loads(raw)["error"]
             # the inflight lease came back: the next chat is not a 429
-            assert reg.inflight_of("t2") == 0
+            assert _released(reg, "t2") == 0
         assert obs.SERVE_QUEUE_TIMEOUTS.value() == before + 2
         assert not holder.done.is_set()
         holder.cancel()
@@ -325,7 +337,7 @@ def test_request_deadline_504_frees_the_slot(models):
         assert took < 30
         assert obs.SERVE_REQUEST_TIMEOUTS.value() == before + 1
         assert s.engine.health()["slots_busy"] == 0
-        assert reg.inflight_of("t3") == 0
+        assert _released(reg, "t3") == 0
         kinds = [e["kind"] for e in
                  json.loads(s.get("/api/v1/requests/late-1")[2])["events"]]
         assert kinds[-1] == "finish" and "first_token" in kinds

@@ -8,6 +8,7 @@ request cannot build answering 400 where a server fault answers 500, and
 an `attn_scale` other than D**-0.5 carried through flash (fresh and
 append), masked and paged attention, against the JAX model at the golden
 bar."""
+import contextvars
 import dataclasses
 import io
 import json
@@ -165,7 +166,10 @@ def test_prompt_faults_map_to_status(fault, status):
             raise fault()
     state = AppState(model=None, engine=None, tokenizer=Tok())
     h = _FakeHandler({"messages": [{"role": "user", "content": "hi"}]})
-    chat_completions(h, state)
+    # in a context of its own, as the server's handler thread has: the
+    # request id the handler adopts must not leak into this worker's
+    # later tests
+    contextvars.copy_context().run(chat_completions, h, state)
     assert h.sent[0] == status
     if status == 500:
         assert "list index" not in h.sent[1]["error"]
