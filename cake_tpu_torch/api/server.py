@@ -49,6 +49,7 @@ class AppState:
 
 class _Handler(BaseHTTPRequestHandler):
     server_version = "cake-tpu-torch"
+    _route = (None, 0.0)        # (endpoint, start) until it is counted
 
     @property
     def state(self) -> AppState:
@@ -74,17 +75,28 @@ class _Handler(BaseHTTPRequestHandler):
         for k, v in (headers or {}).items():
             self.send_header(k, v)
         self.end_headers()
+        # counted before the body goes out: a client that reads /metrics
+        # right after this response finds it there
+        self._count()
         self.wfile.write(data)
 
+    def _count(self) -> None:
+        """Count the route being answered once, by endpoint and status."""
+        endpoint, t0 = self._route
+        if endpoint is not None:
+            self._route = (None, t0)
+            API_REQUESTS.inc(endpoint=endpoint, status=str(self._status))
+            API_REQUEST_SECONDS.observe(now() - t0, endpoint=endpoint)
+
     def _measured(self, endpoint: str, fn) -> None:
-        """Run a route, counting it by endpoint and status."""
-        t0 = now()
+        """Run a route, counting it by endpoint and status (a streamed
+        answer when it ends)."""
+        self._route = (endpoint, now())
         self._status = 500
         try:
             fn()
         finally:
-            API_REQUESTS.inc(endpoint=endpoint, status=str(self._status))
-            API_REQUEST_SECONDS.observe(now() - t0, endpoint=endpoint)
+            self._count()
 
     def do_GET(self):
         url = urlsplit(self.path)

@@ -12,8 +12,9 @@ visible).
 `graph_vs_eager` captures the step over one state, clones it, and runs
 the graph's steps on the state and the eager in-place step
 (TextModel.decode_slots_into) on the clone: the step's tokens, its
-logits, every KV byte (the paged sink included) and every carry must be
-identical. On the CPU the "graph" is the same eager call, so only the
+logits, every KV byte (a block pool's sink aside: DecodeState.kv) and
+every carry must be identical. On the CPU the "graph" is the same eager
+call, so only the
 card's run holds a replay against eager arithmetic; `chip_smoke.py` does
 that at the flagship's full width and depth, and
 `tests/test_torch_graphs_card.py` on a small config.
@@ -62,10 +63,15 @@ class DecodeState:
         return self.layers is None
 
     def kv(self) -> list[torch.Tensor]:
-        """Every KV tensor (and the block tables) of the state."""
-        caches = self.layers if not self.paged else self.pool + self.rows
-        out = [t for lc in caches for t in lc.values()]
-        return out + ([self.tables] if self.paged else [])
+        """Every KV tensor (linear state included, and the block tables)
+        of the state; a block pool without its sink, whose contents are
+        never visible: masked rows of one step all write there, to the
+        same entries at times, and which write lands is not fixed."""
+        if not self.paged:
+            return [t for lc in self.layers for t in lc.values()]
+        out = [t[:-1] for pl in self.pool for t in pl.values()]
+        out += [t for rl in self.rows for t in rl.values()]
+        return out + [self.tables]
 
     def clone(self) -> "DecodeState":
         def copy(caches):

@@ -2,7 +2,7 @@
 the tests: the repository holds no published checkpoint and no published
 tokenizer, and nothing may be downloaded.
 
-* `FAMILIES`: config.json dicts at the widths of four published models
+* `FAMILIES`: config.json dicts at the widths of six published models
   (the source of each beside it, the fields assumed listed above it);
   `family_config` cuts the depth only.
 * `model_params(config, seed, ...)`: seeded weights (`init_params`, with
@@ -46,7 +46,11 @@ from ..utils.export import params_to_hf_tensors, write_checkpoint
 # "LLLG" pattern with window 4096, and Phi-4's rope_theta. Every Gemma3
 # field is written from memory of google/gemma-3-1b-it's config.json:
 # widths, head_dim 256, query_pre_attn_scalar, window 512 with pattern 6,
-# both RoPE bases and the EOS ids [1, 106] are all assumed. The EXAONE4
+# both RoPE bases and the EOS ids [1, 106] are all assumed. So is every
+# field of the Qwen3-Next-80B-A3B and Qwen3-30B-A3B entries (widths, head
+# counts, expert counts and sizes, the linear-attention heads, RoPE, EOS
+# ids); Qwen3-Next's every-4th-layer full attention is written as an
+# explicit layer_types list, which is what both packages read. The EXAONE4
 # entry is EXAONE-4.0-1.2B's widths with an assumed LLLG pattern: the
 # card names the 3:1 local/global hybrid for the 32B, and the 1.2B may
 # ship full attention in every layer. Confirm an entry only once that
@@ -92,6 +96,33 @@ FAMILIES = {
         rms_norm_eps=1e-6, max_position_embeddings=32768,
         hidden_activation="gelu_pytorch_tanh", tie_word_embeddings=True,
         bos_token_id=2, eos_token_id=[1, 106], pad_token_id=0),
+    # Qwen/Qwen3-Next-80B-A3B-Instruct widths (every field assumed)
+    "qwen3_next": dict(
+        architectures=["Qwen3NextForCausalLM"], vocab_size=151936,
+        hidden_size=2048, intermediate_size=5120, num_hidden_layers=48,
+        num_attention_heads=16, num_key_value_heads=2, head_dim=256,
+        partial_rotary_factor=0.25, rope_theta=10000000.0,
+        attn_output_gate=True,
+        layer_types=["linear_attention" if (i + 1) % 4 else
+                     "full_attention" for i in range(48)],
+        linear_conv_kernel_dim=4, linear_num_key_heads=16,
+        linear_key_head_dim=128, linear_num_value_heads=32,
+        linear_value_head_dim=128, num_experts=512, num_experts_per_tok=10,
+        moe_intermediate_size=512, shared_expert_intermediate_size=512,
+        norm_topk_prob=True, decoder_sparse_step=1, mlp_only_layers=[],
+        rms_norm_eps=1e-6, max_position_embeddings=262144,
+        tie_word_embeddings=False, bos_token_id=151643,
+        eos_token_id=151645),
+    # Qwen/Qwen3-30B-A3B widths (every field assumed)
+    "qwen3_moe": dict(
+        architectures=["Qwen3MoeForCausalLM"], vocab_size=151936,
+        hidden_size=2048, intermediate_size=6144, num_hidden_layers=48,
+        num_attention_heads=32, num_key_value_heads=4, head_dim=128,
+        num_experts=128, num_experts_per_tok=8, moe_intermediate_size=768,
+        norm_topk_prob=True, decoder_sparse_step=1, mlp_only_layers=[],
+        rope_theta=1000000.0, rms_norm_eps=1e-6,
+        max_position_embeddings=40960, tie_word_embeddings=False,
+        bos_token_id=151643, eos_token_id=151645),
 }
 
 CHATML_TEMPLATE = (
@@ -126,10 +157,13 @@ CORPUS = (
 
 def family_config(family: str, layers: int | None = None) -> dict:
     """The family's published config.json dict, its depth cut to `layers`
-    (widths are never changed)."""
+    (widths are never changed; a layer_types list keeps its first
+    `layers` entries)."""
     cfg = dict(FAMILIES[family])
     if layers:
         cfg["num_hidden_layers"] = layers
+        if "layer_types" in cfg:
+            cfg["layer_types"] = cfg["layer_types"][:layers]
     return cfg
 
 
@@ -150,24 +184,27 @@ def flagship_config(layers: int | None = None) -> dict:
 
 
 def _norms(params: dict):
-    """Every norm's {"weight": ...} dict of a parameter tree."""
+    """Every norm's {"weight": ...} dict of a parameter tree (a linear
+    layer's gated norm included)."""
     yield params["norm"]
     for layer in params["layers"]:
-        for node in (layer, layer["self_attn"]):
+        for node in (layer, layer.get("self_attn", {}),
+                     layer.get("linear_attn", {})):
             yield from (v for k, v in node.items() if k.endswith("norm"))
 
 
 @torch.no_grad()
 def model_params(config: dict, seed: int = 0,
                  dtype: torch.dtype = torch.bfloat16, device="cpu",
-                 randomize_norms: bool = False) -> dict:
-    """init_params(seed) of the config; with randomize_norms every norm
+                 randomize_norms: bool = False, gen_device="cpu") -> dict:
+    """init_params(seed, gen_device) of the config; with randomize_norms
+    every norm
     weight is drawn as 1 + 0.2 * N(0, 1) from seed + 1. A (1+w) family's
     draw is cut to 1 +- 0.48: there the checkpoint stores w - 1, and
     within [0.5, 2] that difference and the loader's + 1 are exact, so
     the weights load back bit for bit."""
     cfg = config_from_hf_dict(config)
-    params = init_params(cfg, seed, dtype, device)
+    params = init_params(cfg, seed, dtype, device, gen_device)
     if randomize_norms:
         gen = torch.Generator().manual_seed(seed + 1)
         for norm in _norms(params):
@@ -185,7 +222,8 @@ def write_model(model_dir: str, config: dict, params: dict,
     names). Returns the bytes of tensor data written."""
     cfg = config_from_hf_dict(config)
     tensors = params_to_hf_tensors(params, fuse_phi=cfg.fused_qkv,
-                                   residual_norms=cfg.residual_rms_norm)
+                                   residual_norms=cfg.residual_rms_norm,
+                                   cfg=cfg)
     return write_checkpoint(model_dir, config, tensors, shards)
 
 

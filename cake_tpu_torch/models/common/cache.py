@@ -2,7 +2,10 @@
 
 Same layout as the reference: per layer {"k", "v": [B, size, Hkv, D],
 "pos": [B, size] int32 (-1 = empty)}; full-attention layers hold position
-p at index p, sliding-window layers are rings (index p % size).
+p at index p, sliding-window layers are rings (index p % size). A
+linear-attention layer holds per-row state instead, {"conv": [B, C, K-1]
+in the model dtype, "state": [B, Hv, Dk, Dv] float32} (qwen3_5.py): it
+has no capacity, nothing to grow, and cannot be truncated.
 
 Unlike the reference, whose arrays are immutable, the port updates the
 buffers IN PLACE: `update_kv_cache` writes into the layer's tensors and
@@ -13,11 +16,14 @@ from __future__ import annotations
 
 import torch
 
+from ..qwen3_5 import init_linear_cache
 from .config import ModelConfig
 
 
 def init_layer_cache(cfg: ModelConfig, spec, batch: int, max_seq_len: int,
                      dtype: torch.dtype, device) -> dict:
+    if spec.kind == "linear":
+        return init_linear_cache(cfg, batch, dtype, device)
     size = max_seq_len if spec.window is None else min(spec.window,
                                                        max_seq_len)
     shape = (batch, size, cfg.num_key_value_heads, cfg.head_dim)
@@ -157,9 +163,10 @@ def truncate_layers(cfg: ModelConfig, layers: list[dict],
     """Mark every entry at a position >= new_end empty (pos -1), in place,
     across the batch (the reference's truncate_layers): the draft-model
     drafter's rollback of its own speculative suffix. K/V bytes stay: a
-    -1 entry is invisible, and the next write lands over it."""
+    -1 entry is invisible, and the next write lands over it. A
+    linear-attention layer passes through: its state cannot roll back."""
     for lc in layers:
-        if lc:
+        if "pos" in lc:
             lc["pos"].masked_fill_(lc["pos"] >= new_end, -1)
     return layers
 
@@ -170,7 +177,11 @@ def truncate_cache(cfg: ModelConfig, cache: dict, new_end: int) -> dict:
     ring it cannot bring back the older entries that the dropped suffix
     overwrote, as in the reference: a windowed draft model then proposes
     from a damaged window. That changes only what it proposes, never what
-    the accept rule emits."""
+    the accept rule emits. A linear-attention layer raises, as in the
+    reference: its state cannot roll back."""
+    if any(s.kind == "linear" for s in cfg.layer_specs()):
+        raise ValueError("truncate_cache cannot roll back linear-attention "
+                         "state")
     truncate_layers(cfg, cache["layers"], new_end)
     cache["pos"] = min(int(cache["pos"]), int(new_end))
     return cache
@@ -179,10 +190,14 @@ def truncate_cache(cfg: ModelConfig, cache: dict, new_end: int) -> dict:
 def grow_cache(cfg: ModelConfig, cache: dict, new_len: int) -> dict:
     """A cache of min(new_len, window) slots per layer holding the same
     entries (re-homed at pos % the new size); empty entries are dropped
-    (the reference's grow_cache)."""
+    (the reference's grow_cache). Linear-attention state passes
+    through."""
     out = []
     for i, lc in enumerate(cache["layers"]):
         spec = cfg.layer_spec(i)
+        if spec.kind == "linear":
+            out.append(lc)
+            continue
         size = new_len if spec.window is None else min(spec.window, new_len)
         b, old = lc["pos"].shape
         if size <= old:
@@ -200,9 +215,10 @@ def grow_cache(cfg: ModelConfig, cache: dict, new_len: int) -> dict:
 
 def kv_capacity(cfg: ModelConfig, cache: dict) -> int | None:
     """Smallest full-attention buffer length (positions past it would
-    wrap); None when every layer is a ring."""
+    wrap); None when every layer is a ring or linear."""
     caps = [lc["k"].shape[1] for i, lc in enumerate(cache["layers"])
-            if cfg.layer_spec(i).window is None]
+            if cfg.layer_spec(i).kind == "full"
+            and cfg.layer_spec(i).window is None]
     return min(caps) if caps else None
 
 
@@ -213,28 +229,27 @@ def row_view(layers: list[dict], slot: int) -> list[dict]:
             for lc in layers]
 
 
+def _clear(name: str, buf: torch.Tensor) -> None:
+    buf.fill_(-1) if name == "pos" else buf.zero_()
+
+
 def slot_reset_layers(layers: list[dict], slot: int) -> list[dict]:
-    """Clear pool row `slot` in place (positions -1, K/V zero). Empty
-    dicts (a paged pool's pooled positions in `rows`) are skipped."""
+    """Clear pool row `slot` in place (positions -1, K/V and linear state
+    zero). Empty dicts (a paged pool's pooled positions in `rows`) are
+    skipped."""
     for lc in layers:
-        if not lc:
-            continue
-        lc["k"][slot].zero_()
-        lc["v"][slot].zero_()
-        lc["pos"][slot].fill_(-1)
+        for name, buf in lc.items():
+            _clear(name, buf[slot])
     return layers
 
 
 def reset_layers(layers: list[dict]) -> list[dict]:
     """Clear every row (or every block of a block pool, sink included) in
-    place, as freshly built: positions -1, K/V zero. Empty dicts are
-    skipped."""
+    place, as freshly built: positions -1, K/V and linear state zero.
+    Empty dicts are skipped."""
     for lc in layers:
-        if not lc:
-            continue
-        lc["k"].zero_()
-        lc["v"].zero_()
-        lc["pos"].fill_(-1)
+        for name, buf in lc.items():
+            _clear(name, buf)
     return layers
 
 
@@ -247,9 +262,15 @@ def slot_extract_block_layers(cfg: ModelConfig, layers: list[dict], slot: int,
     of pool row `slot` into batch-1 tensors: the shared-prefix cache's
     insert path. Entries are read through the ring map (index = position %
     buffer), valid while width <= the smallest window, which the prefix
-    cache gates at construction."""
+    cache gates at construction. A linear-attention layer's block is a
+    copy of the row's state: exact only at the block's end, where the
+    engine takes it."""
     out = []
     for lc in layers:
+        if "conv" in lc:
+            out.append({name: buf[slot:slot + 1].clone()
+                        for name, buf in lc.items()})
+            continue
         size = lc["k"].shape[1]
         idx = (start + torch.arange(width, device=lc["k"].device)) % size
         out.append({name: lc[name][slot, idx][None] for name in
@@ -259,7 +280,7 @@ def slot_extract_block_layers(cfg: ModelConfig, layers: list[dict], slot: int,
 
 def slot_splice_block_layers(cfg: ModelConfig, layers: list[dict],
                              src_layers: list[dict], slot: int,
-                             start: int) -> list[dict]:
+                             start: int, final: bool = True) -> list[dict]:
     """Write a cached prefix block (slot_extract_block_layers output, taken
     at `start`) into pool row `slot` in place, without resetting the rest
     of the row, so consecutive blocks of a matched chain merge. Entries
@@ -267,8 +288,15 @@ def slot_splice_block_layers(cfg: ModelConfig, layers: list[dict],
     have been wiped at release; an entry the block holds as empty (pos -1)
     stays empty there, which is what the reference's dropped write leaves
     visible on a wiped row. Unlike the reference, the caller passes the
-    block's start, so no index depends on device data (no host sync)."""
+    block's start, so no index depends on device data (no host sync).
+    A linear-attention layer's state is a block-end snapshot: only the
+    chain's `final` block installs it."""
     for lc, sl in zip(layers, src_layers):
+        if "conv" in lc:
+            if final:
+                for name, buf in lc.items():
+                    buf[slot].copy_(sl[name][0])
+            continue
         size = lc["k"].shape[1]
         width = sl["pos"].shape[1]
         idx = (start + torch.arange(width, device=lc["k"].device)) % size
@@ -297,14 +325,15 @@ def init_paged_layers(cfg: ModelConfig, num_blocks: int, block_tokens: int,
     """(pool_layers, row_layers): pool_layers[i] holds full-attention layer
     i's block pool ({k, v: [num_blocks + 1, bt, Hkv, D], pos: [num_blocks +
     1, bt]}, the last block the sink) and an empty dict elsewhere;
-    row_layers[i] holds a sliding-window layer's per-slot ring and an empty
-    dict at pooled positions."""
+    row_layers[i] holds a sliding-window layer's per-slot ring or a
+    linear-attention layer's per-slot state, and an empty dict at pooled
+    positions."""
     pool, rows = [], []
     shape = (num_blocks + 1, block_tokens, cfg.num_key_value_heads,
              cfg.head_dim)
     for i in range(cfg.num_hidden_layers):
         spec = cfg.layer_spec(i)
-        if spec.window is not None:
+        if spec.kind == "linear" or spec.window is not None:
             pool.append({})
             rows.append(init_layer_cache(cfg, spec, batch, ctx, dtype,
                                          device))

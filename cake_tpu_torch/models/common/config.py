@@ -1,5 +1,5 @@
 """Text-model configuration (the port's own copy of
-cake_tpu/models/common/config.py, dense families only).
+cake_tpu/models/common/config.py).
 
 `config_from_hf_dict` normalizes an HF config.json dict through a family
 adapter into one `ModelConfig`; per-layer behaviour is resolved into
@@ -9,9 +9,13 @@ mistral, falcon3, phi4 with its pre-fused projections and partial RoPE),
 post-norm (olmo2 with QK-norm before the head split, exaone4 with
 local/global layers and NoPE global layers) and sandwich-norm (gemma3:
 four (1+w) norms per block, GELU-tanh, embeddings scaled by sqrt(hidden),
-local layers on their own RoPE table). The MoE and the GDN-hybrid
-families raise, naming the ROADMAP item that ports them; an unknown
-architecture raises too.
+local layers on their own RoPE table), the Mixture-of-Experts family
+(qwen3_moe: top-k routed experts, softmax router) and the Gated DeltaNet
+hybrids (qwen3_5, qwen3_5_moe, Qwen3-Next: linear-attention layers as
+`layer_types` lists them, full-attention layers with a sigmoid output
+gate, (1+w) norms, and for the MoE forms a sigmoid-gated shared expert).
+Gemma3's multimodal checkpoints raise, naming the ROADMAP item that ports
+them; an unknown architecture raises too.
 """
 from __future__ import annotations
 
@@ -35,13 +39,25 @@ FLAGSHIP_QWEN3_0_6B = dict(
 
 
 @dataclasses.dataclass(frozen=True)
+class LinearAttnConfig:
+    """Gated DeltaNet hyperparameters (the reference's LinearAttnConfig)."""
+    layer_types: tuple[str, ...] = ()
+    conv_kernel_dim: int = 4
+    num_key_heads: int = 16
+    key_head_dim: int = 128
+    num_value_heads: int = 16
+    value_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
 class LayerSpec:
     """Resolved per-layer behaviour, consumed by the generic block."""
-    kind: str = "full"            # 'full' | 'swa'
+    kind: str = "full"            # 'full' | 'swa' | 'linear'
     use_rope: bool = True         # False: EXAONE4's global layers (NoPE)
     local_rope_table: bool = False  # Gemma3's local layers: the tables
                                     # at rope_local_base_freq
     window: int | None = None     # sliding-window size when kind == 'swa'
+    is_moe: bool = False          # routed experts in place of the MLP
     norm_style: str = "pre"       # 'pre' | 'post' (OLMo2, EXAONE4) |
                                   # 'sandwich' (Gemma3)
 
@@ -70,7 +86,7 @@ class ModelConfig:
     qk_norm: bool = False
     qk_norm_pre_reshape: bool = False  # OLMo2: norm full q/k before heads
     residual_rms_norm: bool = False    # checkpoints store norms as w, the
-                                       # model uses 1 + w (Gemma3)
+                                       # model uses 1 + w (Gemma3, Qwen3.5)
     norm_style: str = "pre"
     sliding_window: int | None = None
     # the reference's per-layer pattern: True = full attention, False =
@@ -85,21 +101,46 @@ class ModelConfig:
     hidden_act: str = "silu"       # 'silu' | 'gelu_tanh' (Gemma3)
     embed_scale: float | None = None   # Gemma3: sqrt(hidden_size)
     attn_scale: float | None = None    # None: head_dim ** -0.5
+    model_prefix: str = "model"        # checkpoint tensor-name prefix
+    # MoE
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_intermediate_size: int | None = None
+    norm_topk_prob: bool = False
+    shared_expert_intermediate_size: int | None = None
+    moe_gate_act: str = "softmax"  # the router's gate: 'softmax' | 'sigmoid'
+    decoder_sparse_step: int = 1
+    mlp_only_layers: tuple[int, ...] = ()
+    # Gated DeltaNet linear attention (None: no linear layer)
+    linear_attn: LinearAttnConfig | None = None
+    attn_output_gate: bool = False  # full-attention layers: q_proj emits a
+                                    # per-head [q, gate], sigmoid on output
 
     def layer_spec(self, i: int) -> LayerSpec:
-        """The reference's rules (its linear and MoE kinds aside)."""
+        """The reference's rules, layer by layer."""
+        moe = self._layer_is_moe(i)
+        if self.linear_attn is not None and i < len(
+                self.linear_attn.layer_types):
+            if self.linear_attn.layer_types[i] == "linear_attention":
+                return LayerSpec(kind="linear", use_rope=False, is_moe=moe,
+                                 norm_style=self.norm_style)
         if self.global_layers:
             if i >= len(self.global_layers) or self.global_layers[i]:
                 return LayerSpec(kind="full", use_rope=self.global_rope,
-                                 norm_style=self.norm_style)
+                                 is_moe=moe, norm_style=self.norm_style)
             return LayerSpec(
                 kind="swa", window=self.sliding_window,
                 local_rope_table=self.local_rope_theta is not None,
-                norm_style=self.norm_style)
+                is_moe=moe, norm_style=self.norm_style)
         if self.sliding_window is not None:
             return LayerSpec(kind="swa", window=self.sliding_window,
-                             norm_style=self.norm_style)
-        return LayerSpec(kind="full", norm_style=self.norm_style)
+                             is_moe=moe, norm_style=self.norm_style)
+        return LayerSpec(kind="full", is_moe=moe, norm_style=self.norm_style)
+
+    def _layer_is_moe(self, i: int) -> bool:
+        if self.num_experts == 0 or i in self.mlp_only_layers:
+            return False
+        return (i + 1) % max(self.decoder_sparse_step, 1) == 0
 
     def layer_specs(self) -> tuple[LayerSpec, ...]:
         return tuple(self.layer_spec(i) for i in range(self.num_hidden_layers))
@@ -251,10 +292,92 @@ def _exaone4(d):
         global_layers=global_layers, global_rope=False))
 
 
+def _qwen3_moe(d):
+    return ModelConfig(**_base(
+        d, "qwen3_moe", qk_norm=True,
+        num_experts=int(d.get("num_experts", 128)),
+        num_experts_per_tok=int(d.get("num_experts_per_tok", 8)),
+        moe_intermediate_size=int(d["moe_intermediate_size"]),
+        norm_topk_prob=bool(d.get("norm_topk_prob", True)),
+        decoder_sparse_step=int(d.get("decoder_sparse_step", 1)),
+        mlp_only_layers=tuple(d.get("mlp_only_layers", ()))))
+
+
+def _qwen3_5_common(d, arch, **over):
+    """Qwen3.5 wraps the text fields in text_config (Qwen3-Next does not);
+    the linear layers come from an explicit `layer_types` only. As in the
+    reference, a config without it has no linear layer: transformers'
+    `full_attention_interval` is not read (the port logs it, as it logs
+    Phi-4's longrope)."""
+    tc = d.get("text_config", d)
+    rp = tc.get("rope_parameters") or {}
+    rope_theta = float(rp.get("rope_theta", tc.get("rope_theta", 10000.0)))
+    partial_rotary = float(rp.get(
+        "partial_rotary_factor", tc.get("partial_rotary_factor", 0.25)))
+    layer_types = tuple(tc.get("layer_types", ()))
+    linear = None
+    if layer_types:
+        linear = LinearAttnConfig(
+            layer_types=layer_types,
+            conv_kernel_dim=int(tc.get("linear_conv_kernel_dim", 4)),
+            num_key_heads=int(tc.get("linear_num_key_heads", 16)),
+            key_head_dim=int(tc.get("linear_key_head_dim", 128)),
+            num_value_heads=int(tc.get("linear_num_value_heads", 16)),
+            value_head_dim=int(tc.get("linear_value_head_dim", 128)))
+    elif tc.get("full_attention_interval"):
+        log.warning("full_attention_interval is not read: without "
+                    "layer_types every layer is full attention, as the "
+                    "reference reads this config")
+    base = _base(
+        tc, arch, rope_theta=rope_theta,
+        partial_rotary_factor=partial_rotary, residual_rms_norm=True,
+        model_prefix="model.language_model", linear_attn=linear,
+        qk_norm=True,
+        attn_output_gate=bool(tc.get("attn_output_gate", True)),
+        tie_word_embeddings=bool(d.get("tie_word_embeddings", False)
+                                 or tc.get("tie_word_embeddings", False)))
+    base.update(over)
+    return ModelConfig(**base)
+
+
+def _qwen3_5(d):
+    return _qwen3_5_common(d, "qwen3_5")
+
+
+def _qwen3_5_moe(d):
+    """The router is a softmax, as Qwen3-MoE's; a sigmoid gates only the
+    shared expert."""
+    tc = d.get("text_config", d)
+    return _qwen3_5_common(
+        d, "qwen3_5_moe",
+        num_experts=int(tc.get("num_experts", 256)),
+        num_experts_per_tok=int(tc.get("num_experts_per_tok", 8)),
+        moe_intermediate_size=int(tc["moe_intermediate_size"]),
+        norm_topk_prob=bool(tc.get("norm_topk_prob", True)),
+        shared_expert_intermediate_size=tc.get(
+            "shared_expert_intermediate_size"),
+        moe_gate_act="softmax",
+        decoder_sparse_step=int(tc.get("decoder_sparse_step", 1)),
+        mlp_only_layers=tuple(tc.get("mlp_only_layers", ())))
+
+
+def _qwen3_next(d):
+    """Qwen3-Next: Qwen3.5's compute from a flat config, MoE when
+    num_experts > 0, its tensors under `model.` where Qwen3.5's are under
+    `model.language_model.`."""
+    cfg = (_qwen3_5_moe(d) if int(d.get("num_experts") or 0) > 0
+           else _qwen3_5(d))
+    return dataclasses.replace(cfg, model_prefix="model")
+
+
 ARCH_ADAPTERS = {
     "LlamaForCausalLM": _llama,
     "Qwen2ForCausalLM": _qwen2,
     "Qwen3ForCausalLM": _qwen3,
+    "Qwen3MoeForCausalLM": _qwen3_moe,
+    "Qwen3_5ForConditionalGeneration": _qwen3_5,
+    "Qwen3_5MoeForConditionalGeneration": _qwen3_5_moe,
+    "Qwen3NextForCausalLM": _qwen3_next,
     "MistralForCausalLM": _mistral,
     "FalconForCausalLM": _falcon3,
     "Phi3ForCausalLM": _phi4,
@@ -268,7 +391,8 @@ ARCH_ADAPTERS = {
 
 FAMILY_ADAPTERS = {
     "llama": _llama, "llama3": _llama, "qwen2": _qwen2, "qwen3": _qwen3,
-    "mistral": _mistral, "falcon3": _falcon3, "phi4": _phi4, "phi3": _phi4,
+    "qwen3_moe": _qwen3_moe, "qwen3_5": _qwen3_5,
+    "qwen3_5_moe": _qwen3_5_moe, "mistral": _mistral, "falcon3": _falcon3, "phi4": _phi4, "phi3": _phi4,
     "olmo2": _olmo2, "exaone4": _exaone4, "gemma3": _gemma3,
 }
 
@@ -279,12 +403,6 @@ NOT_PORTED = {
     # neither package adapts; its text tower waits for a real config
     "Gemma3ForConditionalGeneration": "module 6 (Gemma3's multimodal "
                                       "checkpoints)",
-    "Qwen3MoeForCausalLM": "module 10 (MoE)", "qwen3_moe": "module 10 (MoE)",
-    "Qwen3_5ForConditionalGeneration": "module 10 (GDN)",
-    "qwen3_5": "module 10 (GDN)",
-    "Qwen3_5MoeForConditionalGeneration": "module 10 (GDN and MoE)",
-    "qwen3_5_moe": "module 10 (GDN and MoE)",
-    "Qwen3NextForCausalLM": "module 10 (GDN and MoE)",
 }
 
 
@@ -317,5 +435,19 @@ def tiny_config(arch: str = "llama", **over) -> ModelConfig:
         rms_norm_eps=1e-5, rope_theta=10000.0, max_position_embeddings=128,
         eos_token_id=2,
     )
+    if arch in ("qwen3_moe", "qwen3_5_moe"):
+        d.update(num_experts=8, num_experts_per_tok=2,
+                 moe_intermediate_size=32)
     d.update(over)
+    if arch in ("qwen3_5", "qwen3_5_moe"):
+        d["text_config"] = dict(d)
+        n = d["num_hidden_layers"]
+        d["text_config"]["layer_types"] = [
+            "linear_attention" if (i + 1) % 4 else "full_attention"
+            for i in range(n)]
+        d["text_config"].update(
+            head_dim=16, linear_conv_kernel_dim=4, linear_num_key_heads=4,
+            linear_key_head_dim=16, linear_num_value_heads=4,
+            linear_value_head_dim=16)
+        d["text_config"].update(over)
     return FAMILY_ADAPTERS[arch](d)

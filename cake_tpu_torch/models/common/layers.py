@@ -1,5 +1,6 @@
-"""Generic dense decoder block (counterpart of
-cake_tpu/models/common/layers.py).
+"""Generic decoder block (counterpart of
+cake_tpu/models/common/layers.py): attention or Gated DeltaNet, MLP or
+routed experts.
 
 Parameters are nested dicts of tensors with the reference's keys
 (`layers[i].self_attn.q_proj.weight`, ...), so a JAX parameter tree
@@ -32,6 +33,8 @@ from ...ops import (apply_rope, embedding, gelu_mul, linear,
                     rope_tables, silu_mul)
 from ...ops import flash as flash_ops
 from ...ops import paged_attention as paged_ops
+from ...ops.moe import moe_ffn, moe_route
+from ..qwen3_5 import gdn_forward, init_gdn_params
 from .cache import paged_write_entries, paged_write_entry, update_kv_cache
 from .config import LayerSpec, ModelConfig
 
@@ -50,14 +53,18 @@ ACTIVATIONS = {"silu": silu_mul, "gelu_tanh": gelu_mul}
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
-                dtype: torch.dtype = torch.bfloat16, device="cpu") -> dict:
+                dtype: torch.dtype = torch.bfloat16, device="cpu",
+                gen_device="cpu") -> dict:
     """Seeded random weights (std 0.02, ones for the norms). Drawn in
-    float32 from a CPU `torch.Generator` and then cast and moved, so one
-    seed gives the same weights on every device."""
-    gen = torch.Generator(device="cpu").manual_seed(seed)
+    float32 from a `torch.Generator` on `gen_device` and then cast and
+    moved: with the default CPU generator one seed gives the same weights
+    on every device; a generator on the card draws a model too large to
+    draw on the host quickly (other bits than the CPU's for the seed)."""
+    gen = torch.Generator(device=gen_device).manual_seed(seed)
 
     def normal(*shape):
-        w = torch.randn(shape, generator=gen, dtype=torch.float32) * INIT_STD
+        w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=gen_device) * INIT_STD
         return w.to(device=device, dtype=dtype)
 
     def ones(n):
@@ -67,25 +74,15 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     sq, skv = cfg.size_q, cfg.size_kv
     layers = []
     for spec in cfg.layer_specs():
-        attn = {"q_proj": {"weight": normal(sq, h)},
-                "k_proj": {"weight": normal(skv, h)},
-                "v_proj": {"weight": normal(skv, h)},
-                "o_proj": {"weight": normal(h, sq)}}
-        if cfg.qkv_bias:
-            for name, n in (("q_proj", sq), ("k_proj", skv), ("v_proj", skv)):
-                attn[name]["bias"] = torch.zeros(n, dtype=dtype,
-                                                 device=device)
-        if cfg.qk_norm:
-            # OLMo2 norms the whole projection, the others each head
-            pre = cfg.qk_norm_pre_reshape
-            attn["q_norm"] = {"weight": ones(sq if pre else cfg.head_dim)}
-            attn["k_norm"] = {"weight": ones(skv if pre else cfg.head_dim)}
-        layer = {
-            "self_attn": attn,
-            "mlp": {"gate_proj": {"weight": normal(i, h)},
-                    "up_proj": {"weight": normal(i, h)},
-                    "down_proj": {"weight": normal(h, i)}},
-        }
+        layer = {}
+        if spec.kind == "linear":
+            layer["linear_attn"] = init_gdn_params(cfg, normal, dtype,
+                                                   device)
+        else:
+            layer["self_attn"] = _init_attention(cfg, spec, normal, ones,
+                                                 dtype, device)
+        layer["mlp"] = (_init_moe(cfg, normal) if spec.is_moe
+                        else _init_mlp(normal, h, i))
         for name in NORM_NAMES[spec.norm_style]:
             layer[name] = {"weight": ones(h)}
         layers.append(layer)
@@ -95,6 +92,52 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     if not cfg.tie_word_embeddings:
         params["lm_head"] = {"weight": normal(cfg.vocab_size, h)}
     return params
+
+
+def _init_attention(cfg, spec, normal, ones, dtype, device) -> dict:
+    h, sq, skv = cfg.hidden_size, cfg.size_q, cfg.size_kv
+    # a gated layer's q_proj emits [q, gate] per head
+    q_out = 2 * sq if gated_attention(cfg, spec) else sq
+    attn = {"q_proj": {"weight": normal(q_out, h)},
+            "k_proj": {"weight": normal(skv, h)},
+            "v_proj": {"weight": normal(skv, h)},
+            "o_proj": {"weight": normal(h, sq)}}
+    if cfg.qkv_bias:
+        for name, n in (("q_proj", q_out), ("k_proj", skv),
+                        ("v_proj", skv)):
+            attn[name]["bias"] = torch.zeros(n, dtype=dtype, device=device)
+    if cfg.qk_norm:
+        # OLMo2 norms the whole projection, the others each head
+        pre = cfg.qk_norm_pre_reshape
+        attn["q_norm"] = {"weight": ones(sq if pre else cfg.head_dim)}
+        attn["k_norm"] = {"weight": ones(skv if pre else cfg.head_dim)}
+    return attn
+
+
+def _init_mlp(normal, h: int, i: int) -> dict:
+    return {"gate_proj": {"weight": normal(i, h)},
+            "up_proj": {"weight": normal(i, h)},
+            "down_proj": {"weight": normal(h, i)}}
+
+
+def _init_moe(cfg, normal) -> dict:
+    """The router, the stacked expert banks (gate/up [E, I, H], down [E,
+    H, I]) and, when configured, the shared expert and its gate."""
+    h, e, i = cfg.hidden_size, cfg.num_experts, cfg.moe_intermediate_size
+    p = {"gate": {"weight": normal(e, h)},
+         "experts": {"gate_proj": normal(e, i, h),
+                     "up_proj": normal(e, i, h),
+                     "down_proj": normal(e, h, i)}}
+    if cfg.shared_expert_intermediate_size:
+        p["shared_expert"] = _init_mlp(normal, h,
+                                       cfg.shared_expert_intermediate_size)
+        p["shared_expert_gate"] = {"weight": normal(1, h)}
+    return p
+
+
+def gated_attention(cfg: ModelConfig, spec: LayerSpec) -> bool:
+    """A full-attention layer with the sigmoid output gate (Qwen3.5)."""
+    return cfg.attn_output_gate and spec.kind == "full"
 
 
 def make_rope(cfg: ModelConfig, device) -> dict:
@@ -151,6 +194,12 @@ def attention_forward(cfg: ModelConfig, spec: LayerSpec, p: dict,
     q = linear(x, p["q_proj"]["weight"], p["q_proj"].get("bias"))
     k = linear(x, p["k_proj"]["weight"], p["k_proj"].get("bias"))
     v = linear(x, p["v_proj"]["weight"], p["v_proj"].get("bias"))
+    gate = None
+    if gated_attention(cfg, spec):
+        # per head [q, gate]: the gate's sigmoid scales the output
+        qg = q.reshape(b, s, hq, 2 * d)
+        q = qg[..., :d].reshape(b, s, hq * d)
+        gate = qg[..., d:].reshape(b, s, hq * d)
     if cfg.qk_norm and cfg.qk_norm_pre_reshape:
         q = rms_norm(q, p["q_norm"]["weight"], cfg.rms_norm_eps)
         k = rms_norm(k, p["k_norm"]["weight"], cfg.rms_norm_eps)
@@ -258,7 +307,10 @@ def attention_forward(cfg: ModelConfig, spec: LayerSpec, p: dict,
             layer_cache["held"] = (k, v)
         else:
             update_kv_cache(layer_cache, k, v, pos0, valid_len, row)
-    return linear(y.reshape(b, s, hq * d), p["o_proj"]["weight"]), layer_cache
+    y = y.reshape(b, s, hq * d)
+    if gate is not None:
+        y = y * torch.sigmoid(gate.float()).to(y.dtype)
+    return linear(y, p["o_proj"]["weight"]), layer_cache
 
 
 def mlp_forward(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -270,40 +322,75 @@ def mlp_forward(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     return linear(act(gate, up), p["down_proj"]["weight"])
 
 
+def moe_forward(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                rows: bool) -> torch.Tensor:
+    """Routed experts (ops/moe.py; `rows`: the tokens are decode or verify
+    rows, else one prefill chunk) plus, when present, the always-active
+    shared expert scaled by sigmoid(shared_expert_gate)."""
+    b, s, h = x.shape
+    flat = x.reshape(b * s, h)
+    e = p["experts"]
+    y = moe_ffn(flat, p["gate"]["weight"], e["gate_proj"], e["up_proj"],
+                e["down_proj"], cfg.num_experts_per_tok, cfg.norm_topk_prob,
+                cfg.moe_gate_act,
+                "gelu" if cfg.hidden_act == "gelu_tanh" else "silu",
+                moe_route(flat, rows))
+    if "shared_expert" in p:
+        sh = mlp_forward(cfg, p["shared_expert"], flat)
+        g = torch.sigmoid(linear(flat, p["shared_expert_gate"]["weight"])
+                          .float())
+        y = y + sh * g.to(sh.dtype)
+    return y.reshape(b, s, h)
+
+
+def _ffn(cfg, spec, p, x, pos0):
+    if spec.is_moe:
+        return moe_forward(cfg, p["mlp"], x,
+                           torch.is_tensor(pos0) and pos0.dim() == 1)
+    return mlp_forward(cfg, p["mlp"], x)
+
+
+def _attn(cfg, spec, p, x, layer_cache, pos0, rope, valid_len, flash_mode):
+    if spec.kind == "linear":
+        return gdn_forward(cfg, p["linear_attn"], x, layer_cache, pos0,
+                           valid_len)
+    return attention_forward(cfg, spec, p["self_attn"], x, layer_cache,
+                             pos0, rope, valid_len, flash_mode)
+
+
 def block_forward(cfg: ModelConfig, spec: LayerSpec, p: dict,
                   x: torch.Tensor, layer_cache: dict, pos0,
                   rope: dict, valid_len=None, flash_mode: str = "off"):
     """One decoder block: pre-norm (norm, sublayer, residual add),
     post-norm (OLMo2, EXAONE4: sublayer, norm of its output, residual
     add; no input_layernorm) or sandwich (Gemma3: norm, sublayer, norm of
-    its output, residual add, for both sublayers)."""
+    its output, residual add, for both sublayers). The attention sublayer
+    is a Gated DeltaNet on a linear layer, the MLP routed experts on an
+    MoE layer."""
     eps = cfg.rms_norm_eps
     if spec.norm_style == "pre":
         h = rms_norm(x, p["input_layernorm"]["weight"], eps)
-        attn_out, layer_cache = attention_forward(
-            cfg, spec, p["self_attn"], h, layer_cache, pos0, rope,
-            valid_len, flash_mode)
+        attn_out, layer_cache = _attn(cfg, spec, p, h, layer_cache, pos0,
+                                      rope, valid_len, flash_mode)
         x = x + attn_out
         h = rms_norm(x, p["post_attention_layernorm"]["weight"], eps)
-        return x + mlp_forward(cfg, p["mlp"], h), layer_cache
+        return x + _ffn(cfg, spec, p, h, pos0), layer_cache
     if spec.norm_style == "post":
-        attn_out, layer_cache = attention_forward(
-            cfg, spec, p["self_attn"], x, layer_cache, pos0, rope,
-            valid_len, flash_mode)
+        attn_out, layer_cache = _attn(cfg, spec, p, x, layer_cache, pos0,
+                                      rope, valid_len, flash_mode)
         x = x + rms_norm(attn_out, p["post_attention_layernorm"]["weight"],
                          eps)
-        return x + rms_norm(mlp_forward(cfg, p["mlp"], x),
+        return x + rms_norm(_ffn(cfg, spec, p, x, pos0),
                             p["post_feedforward_layernorm"]["weight"],
                             eps), layer_cache
     if spec.norm_style == "sandwich":
         h = rms_norm(x, p["input_layernorm"]["weight"], eps)
-        attn_out, layer_cache = attention_forward(
-            cfg, spec, p["self_attn"], h, layer_cache, pos0, rope,
-            valid_len, flash_mode)
+        attn_out, layer_cache = _attn(cfg, spec, p, h, layer_cache, pos0,
+                                      rope, valid_len, flash_mode)
         x = x + rms_norm(attn_out, p["post_attention_layernorm"]["weight"],
                          eps)
         h = rms_norm(x, p["pre_feedforward_layernorm"]["weight"], eps)
-        return x + rms_norm(mlp_forward(cfg, p["mlp"], h),
+        return x + rms_norm(_ffn(cfg, spec, p, h, pos0),
                             p["post_feedforward_layernorm"]["weight"],
                             eps), layer_cache
     raise ValueError(f"norm style {spec.norm_style!r} is not ported")

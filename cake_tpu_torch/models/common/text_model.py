@@ -52,6 +52,7 @@ from .cache import (grow_cache, init_cache, init_paged_layers, kv_capacity,
 from .config import ModelConfig
 from .graphs import (DecodeCarries, DecodeGraph, PrefillGraphs, PrefillIO,
                      SpecCarries)
+from ..qwen3_5 import gdn_commit
 from .layers import (block_forward, embed_tokens, forward_layers,
                      init_params, lm_head_logits, make_rope)
 
@@ -350,7 +351,10 @@ class TextModel:
         ring keeps the older entries its window still needs, which the
         reference's write-then-truncate loses (ROADMAP §3); a block pool
         takes all the row's real entries before the paged kernel reads
-        them, and the rejected ones read -1 after the step. A row with no
+        them, and the rejected ones read -1 after the step. A linear-attention
+        layer keeps each step's state of the pass and installs the one
+        after the committed tokens (qwen3_5.gdn_commit), which equals the
+        reference's re-forward at valid_len = n_acc + 1. A row with no
         drafts takes a plain decode step; an inactive row writes nothing
         and keeps its carries. Returns (logits [B, k+1, V], packed [3, B]
         = [input token ; accepted drafts ; next token], toks, pos,
@@ -372,12 +376,13 @@ class TextModel:
         commit = torch.where(active, n_acc + 1, 0).to(torch.int32)
         for lc in caches:
             held = lc.pop("held", None)
+            held_linear = lc.pop("held_linear", None)
             if held is not None:
                 update_kv_cache(lc, held[0], held[1], pos, commit)
+            elif held_linear is not None:
+                gdn_commit(lc, held_linear, commit)
             elif "tables" in lc:
                 paged_drop_entries(lc, lc["tables"], pos, commit, n_input, s)
-        # the has_linear re-forward of the reference's commit is not
-        # ported: linear-attention families (GDN, module 10) are NOT_PORTED
         nxt = torch.where(active, nxt, toks)
         recents = torch.where(active[:, None], recent2, recents)
         return (logits, torch.stack([toks, n_acc, nxt]), nxt,
@@ -505,12 +510,13 @@ class TextModel:
 
     @torch.no_grad()
     def slot_splice(self, layers: list[dict], src_layers: list[dict],
-                    slot: int, start: int) -> list[dict]:
+                    slot: int, start: int, final: bool = True) -> list[dict]:
         """Write a cached prefix block taken at `start` into pool row
         `slot` in place, without resetting the rest of the row (prefix-
-        cache hit)."""
+        cache hit); linear-attention state from the chain's `final` block
+        only."""
         return slot_splice_block_layers(self.cfg, layers, src_layers, slot,
-                                        start)
+                                        start, final)
 
     # -- paged KV ---------------------------------------------------------------
 
@@ -606,7 +612,8 @@ class TextModel:
     @torch.no_grad()
     def row_snapshot(self, rows: list[dict], slot: int) -> list[dict]:
         """Batch-1 copy of slot `slot`'s unpooled state (sliding-window
-        rings): what a paged swap carries beside its blocks."""
+        rings, linear-attention conv and recurrent state): what a paged
+        swap and a paged prefix unit carry beside their blocks."""
         return [{name: buf[slot:slot + 1].clone() for name, buf in rl.items()}
                 for rl in rows]
 

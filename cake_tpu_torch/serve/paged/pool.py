@@ -3,10 +3,11 @@ cake_tpu/serve/paged/pool.py: PagedKV, KVPoolExhausted, pow2_block_tokens).
 
 Owns the physical block pool (cache.init_paged_layers: one extra sink
 block at index num_blocks, the NULL id), the per-slot rows of
-sliding-window layers, the device block table ([B, M] int32) that the
-model's paged programs read, and the host-side BlockAllocator that mirrors
-it. The serve engine talks to this object; the allocator never touches
-torch and the engine never touches block ids.
+sliding-window and linear-attention layers, the device block table ([B,
+M] int32) that the model's paged programs read, and the host-side
+BlockAllocator that mirrors it. The serve engine talks to this object;
+the allocator never touches torch and the engine never touches block
+ids.
 
 The paged prefill programs (`prefill`, graphs.PrefillGraphs over
 TextModel.prefill_chunk_paged_into) read this object's pool, rows and
@@ -102,10 +103,12 @@ class PagedKV:
             raise ValueError(f"kv_block_tokens={bt} must divide the serve "
                              f"context {ctx} so the paged view keeps the "
                              "contiguous row layout")
-        if not any(s.window is None for s in model.cfg.layer_specs()):
+        if not any(s.kind == "full" and s.window is None
+                   for s in model.cfg.layer_specs()):
             raise ValueError("paged KV needs at least one full-attention "
-                             "layer: sliding-window rings are O(window) per "
-                             "slot and have nothing to page")
+                             "layer: sliding-window rings are O(window) and "
+                             "linear state O(1) per slot, and have nothing "
+                             "to page")
         return cls(model, slots, ctx, num_blocks, bt, chunk)
 
     # -- allocation (host) ------------------------------------------------
@@ -207,8 +210,9 @@ class PagedKV:
     def release_slot(self, slot: int) -> None:
         """Deref every block the slot maps (shared blocks survive under
         the prefix cache or other slots), clear its device table row and
-        wipe its sliding-window rows. Freed blocks are not wiped: the
-        gather's stale-tenant guards hide them until a new owner writes."""
+        wipe its sliding-window rows and linear state. Freed blocks are not
+        wiped: the gather's stale-tenant guards hide them until a new owner
+        writes."""
         self.alloc.unmap_slot(slot)
         self.tables[slot] = self.NULL
         if self.has_rows:

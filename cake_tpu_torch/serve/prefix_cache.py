@@ -41,7 +41,8 @@ __all__ = ["PrefixCache", "PagedPrefixCache"]
 @dataclass
 class _Block:
     tokens: np.ndarray      # the full prefix this block completes (verify)
-    layers: list            # batch-1 per-layer tensors: this block's KV
+    layers: list            # batch-1 per-layer tensors: this block's KV,
+                            # a linear layer's state at the block's end
     nbytes: int
 
 
@@ -49,8 +50,9 @@ class _Block:
 class _PagedEntry:
     tokens: np.ndarray      # the full prefix this unit completes (verify)
     pids: list              # physical block ids this entry pins
-    snap: list | None       # sliding-window rows at the unit's end,
-                            # installed only from a chain's final unit
+    snap: list | None       # sliding-window rows and linear state at the
+                            # unit's end, installed only from a chain's
+                            # final unit
     nbytes: int
 
 
@@ -129,7 +131,8 @@ class PrefixCache:
         wiped) in place. Returns the pool layers."""
         for b in range(matched):
             layers = self.model.slot_splice(
-                layers, self._blocks[keys[b]].layers, slot, b * self.block)
+                layers, self._blocks[keys[b]].layers, slot, b * self.block,
+                final=b == matched - 1)
         return layers
 
     def insert(self, layers, slot: int, prompt_ids: list[int],

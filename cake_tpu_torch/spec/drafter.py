@@ -124,6 +124,11 @@ class DraftModelDrafter:
     shareable = False
 
     def __init__(self, model):
+        if any(s.kind == "linear" for s in model.cfg.layer_specs()):
+            raise ValueError(
+                "draft model has linear-attention layers; their recurrent "
+                "state cannot roll back between proposals: use an "
+                "attention-only draft model or the n-gram drafter")
         self.model = model
         self.reset()
 

@@ -6,8 +6,12 @@ params_to_hf_tensors; the inverse of utils/loaders.py).
 and one model.safetensors, or `shards` files with a
 model.safetensors.index.json. Tensors are written from the torch tensors
 as they are, bfloat16 included; a (1+w) norm (`residual_rms_norm`,
-Gemma3) is stored as w, computed in float32 and cast to its dtype, the
-inverse of the loader's step, as the reference's exporter stores it.
+Gemma3, Qwen3.5) is stored as w, computed in float32 and cast to its
+dtype, the inverse of the loader's step, as the reference's exporter
+stores it. Given the config, the names are under its prefix, MoE experts
+are written one tensor per expert (`mlp.experts.{e}.{proj}.weight`) and a
+Gated DeltaNet layer under HF Qwen3-Next's names (`in_proj_qkvz`,
+`in_proj_ba`; qwen3_5.export_gdn_params).
 """
 from __future__ import annotations
 
@@ -16,7 +20,7 @@ import os
 
 import torch
 
-from .loaders import MODEL_PREFIX
+from ..models.qwen3_5 import export_gdn_params
 from .safetensors_io import save_safetensors
 
 NORMS = ("input_layernorm", "post_attention_layernorm",
@@ -24,11 +28,13 @@ NORMS = ("input_layernorm", "post_attention_layernorm",
 
 
 def params_to_hf_tensors(params: dict, fuse_phi: bool = False,
-                         residual_norms: bool = False
+                         residual_norms: bool = False, cfg=None
                          ) -> dict[str, torch.Tensor]:
     """fuse_phi: write Phi-style fused qkv_proj / gate_up_proj names;
-    residual_norms: store every norm weight as w - 1 (Gemma3)."""
-    pre = MODEL_PREFIX
+    residual_norms: store every norm weight as w - 1 (Gemma3, Qwen3.5);
+    cfg: the model's config, needed for its prefix and for a linear
+    layer (default prefix `model`)."""
+    pre = "model" if cfg is None else cfg.model_prefix
 
     def norm(w):
         return (w.float() - 1.0).to(w.dtype) if residual_norms else w
@@ -41,6 +47,10 @@ def params_to_hf_tensors(params: dict, fuse_phi: bool = False,
         for name in NORMS:
             if name in layer:
                 out[f"{lp}.{name}.weight"] = norm(layer[name]["weight"])
+        if "linear_attn" in layer:
+            out.update(export_gdn_params(cfg, layer["linear_attn"], lp))
+            out.update(_mlp_tensors(layer["mlp"], f"{lp}.mlp", fuse_phi))
+            continue
         a = layer["self_attn"]
         if fuse_phi:
             out[f"{lp}.self_attn.qkv_proj.weight"] = torch.cat(
@@ -54,14 +64,31 @@ def params_to_hf_tensors(params: dict, fuse_phi: bool = False,
         for qk in ("q_norm", "k_norm"):
             if qk in a:
                 out[f"{lp}.self_attn.{qk}.weight"] = norm(a[qk]["weight"])
-        mlp = layer["mlp"]
-        if fuse_phi:
-            out[f"{lp}.mlp.gate_up_proj.weight"] = torch.cat(
-                [mlp["gate_proj"]["weight"], mlp["up_proj"]["weight"]])
-            out[f"{lp}.mlp.down_proj.weight"] = mlp["down_proj"]["weight"]
-        else:
-            for proj in ("gate_proj", "up_proj", "down_proj"):
-                out[f"{lp}.mlp.{proj}.weight"] = mlp[proj]["weight"]
+        out.update(_mlp_tensors(layer["mlp"], f"{lp}.mlp", fuse_phi))
+    return out
+
+
+def _mlp_tensors(mlp: dict, mp: str, fuse_phi: bool) -> dict:
+    """An MLP's tensors, or an MoE block's: router, one tensor per expert
+    and projection, shared expert and its gate."""
+    out = {}
+    if "experts" in mlp:
+        out[f"{mp}.gate.weight"] = mlp["gate"]["weight"]
+        for proj, bank in mlp["experts"].items():
+            for e in range(bank.shape[0]):
+                out[f"{mp}.experts.{e}.{proj}.weight"] = bank[e]
+        if "shared_expert" in mlp:
+            out.update(_mlp_tensors(mlp["shared_expert"],
+                                    f"{mp}.shared_expert", False))
+            out[f"{mp}.shared_expert_gate.weight"] = \
+                mlp["shared_expert_gate"]["weight"]
+    elif fuse_phi:
+        out[f"{mp}.gate_up_proj.weight"] = torch.cat(
+            [mlp["gate_proj"]["weight"], mlp["up_proj"]["weight"]])
+        out[f"{mp}.down_proj.weight"] = mlp["down_proj"]["weight"]
+    else:
+        for proj in ("gate_proj", "up_proj", "down_proj"):
+            out[f"{mp}.{proj}.weight"] = mlp[proj]["weight"]
     return out
 
 

@@ -1,9 +1,12 @@
 """Checkpoint directory -> the port's parameter tree (counterpart of
-cake_tpu/utils/loaders.py: ParamLoader and load_model_params, dense
-families only).
+cake_tpu/utils/loaders.py: ParamLoader and load_model_params).
 
 The tree is the one `init_params` builds: HF names without the model
-prefix, separate q/k/v and gate/up projections. Phi-4's pre-fused
+prefix (`model`, or Qwen3.5's `model.language_model`), separate q/k/v and
+gate/up projections. MoE experts (`mlp.experts.{e}.{proj}.weight`) are
+stacked on the device into [E, I, H] (gate, up) and [E, H, I] (down)
+banks beside the router `mlp.gate.weight`, the shared expert and its
+gate; a Gated DeltaNet layer loads through qwen3_5.load_gdn_params. Phi-4's pre-fused
 `qkv_proj` is split at size_q / size_kv and its `gate_up_proj` in halves,
 on the device. Each tensor is read from the file's map, copied to the
 device and cast there, one at a time. A tensor the config needs and the
@@ -12,10 +15,12 @@ has and the model does not read are logged, as the reference's
 `mapping.coverage_report` does. Quantization is checked before, by
 `runtime.load_config_and_quant`.
 
-Gemma3 checkpoints store each RMS-norm weight as w for a norm that
-multiplies by 1 + w (`residual_rms_norm`): the loader adds 1 in float32
-after the cast to the model dtype and casts back, in the reference's
-order (`load_rms_norm_weight`), so both loaders give the same bits.
+Gemma3 and Qwen3.5 checkpoints store each RMS-norm weight as w for a norm
+that multiplies by 1 + w (`residual_rms_norm`): the loader adds 1 in
+float32 after the cast to the model dtype and casts back, in the
+reference's order (`load_rms_norm_weight`), so both loaders give the same
+bits. The Gated DeltaNet's gated norm is not such a norm: its weight
+loads as stored.
 """
 from __future__ import annotations
 
@@ -25,12 +30,10 @@ import torch
 
 from ..models.common.config import ModelConfig
 from ..models.common.layers import NORM_NAMES
+from ..models.qwen3_5 import load_gdn_params
 from .safetensors_io import TensorStorage
 
 log = logging.getLogger(__name__)
-
-# tensor-name prefix of the dense families' checkpoints
-MODEL_PREFIX = "model"
 
 
 class ParamLoader:
@@ -42,12 +45,13 @@ class ParamLoader:
         self.device = device
         self.used: set[str] = set()
 
-    def _get(self, name: str) -> torch.Tensor:
+    def _get(self, name: str, dtype: torch.dtype | None = None
+             ) -> torch.Tensor:
         if name not in self.st:
             raise KeyError(f"checkpoint tensor {name} is missing "
                            f"(arch {self.cfg.arch})")
         self.used.add(name)
-        return self.st.read(name, self.device, self.dtype)
+        return self.st.read(name, self.device, dtype or self.dtype)
 
     def _weight(self, name: str) -> dict:
         return {"weight": self._get(name)}
@@ -92,19 +96,45 @@ class ParamLoader:
         return {proj: self._weight(f"{mp}.{proj}.weight")
                 for proj in ("gate_proj", "up_proj", "down_proj")}
 
+    def _moe(self, mp: str) -> dict:
+        """The router, the experts stacked into banks (each expert's
+        tensor copied into its row on the device), the shared expert."""
+        cfg = self.cfg
+        p: dict = {"gate": self._weight(f"{mp}.gate.weight")}
+        banks = {}
+        for proj in ("gate_proj", "up_proj", "down_proj"):
+            bank = None
+            for e in range(cfg.num_experts):
+                w = self._get(f"{mp}.experts.{e}.{proj}.weight")
+                if bank is None:
+                    bank = torch.empty((cfg.num_experts, *w.shape),
+                                       dtype=w.dtype, device=w.device)
+                bank[e].copy_(w)
+            banks[proj] = bank
+        p["experts"] = banks
+        if cfg.shared_expert_intermediate_size:
+            p["shared_expert"] = self._mlp(f"{mp}.shared_expert")
+            p["shared_expert_gate"] = self._weight(
+                f"{mp}.shared_expert_gate.weight")
+        return p
+
     def _layer(self, i: int) -> dict:
         spec = self.cfg.layer_spec(i)
         if spec.norm_style not in NORM_NAMES:
             raise NotImplementedError(
                 f"norm style {spec.norm_style!r} is not ported")
-        lp = f"{MODEL_PREFIX}.layers.{i}"
-        p = {"self_attn": self._attention(lp), "mlp": self._mlp(f"{lp}.mlp")}
+        lp = f"{self.cfg.model_prefix}.layers.{i}"
+        p = ({"linear_attn": load_gdn_params(self, lp)}
+             if spec.kind == "linear"
+             else {"self_attn": self._attention(lp)})
+        p["mlp"] = (self._moe(f"{lp}.mlp") if spec.is_moe
+                    else self._mlp(f"{lp}.mlp"))
         for n in NORM_NAMES[spec.norm_style]:
             p[n] = self._norm(f"{lp}.{n}.weight")
         return p
 
     def load(self) -> dict:
-        cfg, pre = self.cfg, MODEL_PREFIX
+        cfg, pre = self.cfg, self.cfg.model_prefix
         params = {"layers": [self._layer(i)
                              for i in range(cfg.num_hidden_layers)],
                   "embed_tokens": self._weight(f"{pre}.embed_tokens.weight"),

@@ -6,7 +6,8 @@ HF names (`layers[i].self_attn.q_proj.weight`, `embed_tokens.weight`,
 the port's tensors: same keys, on `device`, in `dtype`. The reference's
 precomputed `rope` tables are dropped (the port computes its own), and
 `ml_dtypes.bfloat16` arrays, which torch cannot take directly, go through
-float32.
+float32. A Gated DeltaNet's A_log and dt_bias stay float32 whatever the
+model dtype, as the reference's loader keeps them.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from ..models.common.config import ModelConfig
+from ..models.qwen3_5 import F32_PARAMS
 
 DROPPED_KEYS = ("rope",)
 
@@ -30,8 +32,9 @@ def _tensor(arr, device, dtype) -> torch.Tensor:
 
 def _convert(node, device, dtype):
     if isinstance(node, dict):
-        return {k: _convert(v, device, dtype) for k, v in node.items()
-                if k not in DROPPED_KEYS}
+        return {k: _convert(v, device,
+                            torch.float32 if k in F32_PARAMS else dtype)
+                for k, v in node.items() if k not in DROPPED_KEYS}
     if isinstance(node, (list, tuple)):
         return [_convert(v, device, dtype) for v in node]
     return _tensor(node, device, dtype)

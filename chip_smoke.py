@@ -154,9 +154,34 @@ Phases (any failure exits non-zero and prints no result line):
      drafter and with itself as draft model equals plain generate (every
      draft of the latter accepted), and (c)'s prompts served with
      speculation on equal speculation off exactly, in both pools;
+  13. Qwen3-Next at Qwen3-Next-80B-A3B's widths (hidden 2048, 16/2 heads
+     of D 256 with a sigmoid output gate and partial RoPE 0.25, Gated
+     DeltaNet layers of 16x128 key and 32x128 value heads, 512 experts
+     top 10 with a shared expert; seeded weights drawn on the card): (a)
+     both flash routes at 16/2 D 256 (fresh, a ragged valid length,
+     append, the device-meta form) and both paged routes on decode rows
+     and on a verify's flattened rows, each against its plain version and
+     launched twice bit for bit, and timed beside the library call and
+     the bound; (b) f32 at 2 layers (linear, full): a 600-token prompt in
+     chunks and 16 greedy steps, contiguous and paged on the card, against
+     the CPU: logits within 2e-3, tokens identical; (c) bf16 at 12 of 48
+     layers (3 full, 9 linear, all MoE), 4 slots, ctx 4096, both pools:
+     16 decode replays equal 16 eager steps (KV, conv and recurrent state
+     included), the prefill graphs equal the eager chunks, the captured
+     verify (k 6) equals the eager verify with right and wrong drafts,
+     and after the wrong row the linear state equals a plain step's;
+     replay ms beside eager; (d) that model over HTTP, contiguous then
+     paged: 4 concurrent chats and one SSE chat equal alone, the shared
+     system message hitting the prefix cache (tokens equal to the cache
+     off), the 96-block pool under swap and recompute, and speculation
+     (an oracle drafter whose drafts are all accepted, then
+     CAKE_SPEC=ngram) with tokens equal to speculation off; (e) 4 layers
+     written as an HF checkpoint (in_proj_qkvz / in_proj_ba,
+     experts.{e}.*), loaded bit for bit and served through `cli serve
+     DIR`;
   then prints the whole run's seconds, the kernels line, the card line,
-  and the result line last. `--only 12` runs phases 1, 2 and 12 alone
-  and prints no result line.
+  and the result line last. `--only 12` runs phases 1, 2 and 12 alone,
+  `--only 13` phases 1, 2 and 13, and neither prints a result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -385,9 +410,54 @@ def _meta_form(q, k, v, kw):
         q, pool_k, pool_v, meta, mode, window=kw.get("window"))
 
 
-def phase_kernels() -> dict:
+def time_flash(entry: str, dtype, spec: dict) -> dict:
+    """One flash case timed on the card and printed: device ms of the
+    kernel, its device-meta form, the plain version and the library call,
+    the kernel's issue ms, and the card's bound."""
     import torch
     from cake_tpu_torch.bench.timing import device_ms, issue_ms
+    from cake_tpu_torch.ops.flash import (flash_attention_kernel,
+                                          flash_attention_ref, kernel_route)
+    q, k, v, kw = flash_case(entry, dtype, **spec)
+    err = (flash_attention_kernel(q, k, v, **kw).float()
+           - flash_attention_ref(q, k, v, **kw).float()).abs().max()
+
+    def kern():
+        return flash_attention_kernel(q, k, v, **kw)
+    meta_form = _meta_form(q, k, v, kw)
+    # device time: events around calls queued behind a spin, so the
+    # host's issue rate (issue_ms) does not set it
+    t = {
+        "max_abs_err": err.item(), "ms": device_ms(kern),
+        "meta_ms": device_ms(meta_form),
+        "issue_ms": issue_ms(kern),
+        "plain_ms": device_ms(
+            lambda: flash_attention_ref(q, k, v, **kw), iters=10),
+        "library_ms": device_ms(library_call(q, k, v, kw)),
+    }
+    t["bound_ms"], t["bound_by"] = flash_bound_ms(q, k, kw)
+    fma_bound = ""
+    if dtype == torch.float32:   # the bound on FMA (no tensor cores)
+        t["fma_bound_ms"] = flash_bound_ms(
+            q, k, kw, H100_PEAK_FLOPS["f32"])[0]
+        fma_bound = f" (FMA bound {t['fma_bound_ms']:.5f})"
+    print(f"flash timing {entry}: {kernel_route(dtype)} Sq={q.shape[1]} "
+          f"Hq/Hkv="
+          f"{q.shape[2]}/{k.shape[2]} D={q.shape[3]} window="
+          f"{kw.get('window')} Skv_row={k.shape[1]} device ms: kernel "
+          f"{t['ms']:.5f} (device-meta form {t['meta_ms']:.5f}) plain "
+          f"{t['plain_ms']:.5f} library "
+          f"{t['library_ms']:.5f}; kernel issue_ms {t['issue_ms']:.5f}; "
+          f"bound_ms {t['bound_ms']:.5f} ({t['bound_by']}), share of "
+          f"bound {t['bound_ms'] / t['ms']:.3f}{fma_bound}; max_abs_err "
+          f"{t['max_abs_err']:.3e}", flush=True)
+    print(f"  library backend: {library_backend(q, k, v, kw)}",
+          flush=True)
+    return t
+
+
+def phase_kernels() -> dict:
+    import torch
     from cake_tpu_torch.ops.flash import (flash_attention_kernel,
                                           flash_attention_ref, kernel_route,
                                           plan_flash)
@@ -448,42 +518,7 @@ def phase_kernels() -> dict:
               for mode, entry in (("", "fresh"), ("_append", "append"))),
             ("gemma3_f32_window", torch.float32,
              dict(family)["gemma3_fresh_window"])):
-        q, k, v, kw = flash_case(entry, dtype, **spec)
-        err = (flash_attention_kernel(q, k, v, **kw).float()
-               - flash_attention_ref(q, k, v, **kw).float()).abs().max()
-
-        def kern():
-            return flash_attention_kernel(q, k, v, **kw)
-        meta_form = _meta_form(q, k, v, kw)
-        # device time: events around calls queued behind a spin, so the
-        # host's issue rate (issue_ms) does not set it
-        t = {
-            "max_abs_err": err.item(), "ms": device_ms(kern),
-            "meta_ms": device_ms(meta_form),
-            "issue_ms": issue_ms(kern),
-            "plain_ms": device_ms(
-                lambda: flash_attention_ref(q, k, v, **kw), iters=10),
-            "library_ms": device_ms(library_call(q, k, v, kw)),
-        }
-        t["bound_ms"], t["bound_by"] = flash_bound_ms(q, k, kw)
-        fma_bound = ""
-        if dtype == torch.float32:   # the bound on FMA (no tensor cores)
-            t["fma_bound_ms"] = flash_bound_ms(
-                q, k, kw, H100_PEAK_FLOPS["f32"])[0]
-            fma_bound = f" (FMA bound {t['fma_bound_ms']:.5f})"
-        timings[entry] = t
-        print(f"flash timing {entry}: {kernel_route(dtype)} Sq={q.shape[1]} "
-              f"Hq/Hkv="
-              f"{q.shape[2]}/{k.shape[2]} D={q.shape[3]} window="
-              f"{kw.get('window')} Skv_row={k.shape[1]} device ms: kernel "
-              f"{t['ms']:.5f} (device-meta form {t['meta_ms']:.5f}) plain "
-              f"{t['plain_ms']:.5f} library "
-              f"{t['library_ms']:.5f}; kernel issue_ms {t['issue_ms']:.5f}; "
-              f"bound_ms {t['bound_ms']:.5f} ({t['bound_by']}), share of "
-              f"bound {t['bound_ms'] / t['ms']:.3f}{fma_bound}; max_abs_err "
-              f"{t['max_abs_err']:.3e}", flush=True)
-        print(f"  library backend: {library_backend(q, k, v, kw)}",
-              flush=True)
+        timings[entry] = time_flash(entry, dtype, spec)
     return timings
 
 
@@ -1058,19 +1093,12 @@ def phase_paged_serve(model, card: str, contiguous: list) -> int:
               f"torch path's); on {card}", flush=True)
         want = [r["tokens"] for r in results[:4]]
         # (b) shared system prompt, both modes, cache on vs off
-        shared_bodies = [chat_body(i, shared=True) for i in range(4)]
         shared_max = [0]
 
         def watch():
             shared_max[0] = max(shared_max[0],
                                 paged.engine.health()["kv_pool"]["shared"])
-
-        def shared_run(served, during=None):
-            first = served.chat(shared_bodies[0])
-            check(first["status"] == 200, "phase 6b first chat failed")
-            rest = served.concurrent(shared_bodies[1:], during)
-            return [first] + rest
-        on = {"paged": shared_run(paged, watch)}
+        on = {"paged": _shared_run(paged, watch)}
     finally:
         paged.close()
     for mode, kw in (("contiguous", {}),
@@ -1080,7 +1108,7 @@ def phase_paged_serve(model, card: str, contiguous: list) -> int:
                                            "kv_block_tokens": 16})):
         served = serve_model(model, **kw)
         try:
-            on[mode] = shared_run(served)
+            on[mode] = _shared_run(served)
         finally:
             served.close()
     for mode in ("contiguous", "paged"):
@@ -1105,9 +1133,11 @@ def phase_paged_serve(model, card: str, contiguous: list) -> int:
     return launches["bf16"]
 
 
-def _pressure(model, mode: str, want: list) -> None:
+def _pressure(model, mode: str, want: list, resumed=None) -> None:
     """Phase 6(c) under one preemption mode: (a)'s chats on 96 blocks,
-    the last two arriving while the first two decode."""
+    the last two arriving while the first two decode. `resumed(prompt,
+    tokens, preempted_at)`, when given, is a recompute-preempted chat's
+    reference in place of (a)'s tokens."""
     tight = serve_model(model, kv_blocks=96, kv_block_tokens=16,
                         preempt_mode=mode)
     try:
@@ -1128,13 +1158,20 @@ def _pressure(model, mode: str, want: list) -> None:
         for th in threads:
             th.join(timeout=900)
         check(len(first) == 2, "phase 6c: a first chat failed")
-        got = [first[0]["tokens"], first[1]["tokens"]] + \
-            [r["tokens"] for r in late]
+        results = [first[0], first[1]] + late
+        got = [r["tokens"] for r in results]
+        if resumed is not None and mode == "recompute":
+            want = [resumed(tight.reqs[r["rid"]].prompt_ids, w,
+                            r["stats"].get("preempted_at", []))
+                    for r, w in zip(results, want)]
         health = tight.engine.health()
         pool = health["kv_pool"]
         print(f"paged {mode} (c): 96 blocks of 16 tokens, kv_pool {pool}; "
               f"prefill graph replays {health['prefill_graphs']['replays']};"
-              f" tokens equal to (a)'s {got == want}", flush=True)
+              f" tokens equal to (a)'s {got == want}"
+              + (" (a recompute-preempted chat's: its resumed reference)"
+                 if resumed is not None and mode == "recompute" else ""),
+              flush=True)
         check(all(r["status"] == 200 for r in list(first.values()) + late),
               f"phase 6c {mode}: a request failed")
         if mode == "swap":
@@ -1900,13 +1937,7 @@ def phase_spec_kernels(card: str) -> dict:
     device ms beside the plain version, the library call over gathered
     rows, the decode call at the same frontier, and both bounds."""
     import torch
-    import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend
-    from cake_tpu_torch.bench.paged_cases import case_args as decode_args
-    from cake_tpu_torch.bench.paged_cases import paged_case
-    from cake_tpu_torch.bench.spec_cases import (case_args, library_args,
-                                                 verify_bounds, verify_case)
-    from cake_tpu_torch.bench.timing import device_ms, issue_ms
+    from cake_tpu_torch.bench.spec_cases import case_args, verify_case
     from cake_tpu_torch.ops import paged_attention as pa
     s = SPEC_K + 1
     cases = (("mixed", dict(slots=[(620, s), (15, s), (300, 4), (40, 1),
@@ -1936,45 +1967,63 @@ def phase_spec_kernels(card: str) -> dict:
                       f"{err} > {tol}")
                 check(torch.equal(got, again), f"paged verify {route} "
                       f"{shape_name} {name}: two launches differ")
-    timings = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        route = pa.kernel_route(dtype)
-        c = verify_case([(620, s)] * 4, s, dtype=dtype, device="cuda",
-                        seed=620)
-        args = case_args(c)
-        lib_args, lib_kw = library_args(c)
-        err = (pa.paged_verify_attention_kernel(*args).float()
-               - pa.paged_verify_attention_ref(*args).float()).abs().max()
+    return {route: time_verify(dtype, {}, card) for route, dtype in (
+        ("bf16", torch.bfloat16), ("f32", torch.float32))}
 
-        def kern():
-            return pa.paged_verify_attention_kernel(*args)
-        dc = paged_case([620] * 4, dtype=dtype, device="cuda", seed=620)
-        t = {"max_abs_err": err.item(), "ms": device_ms(kern),
-             "issue_ms": issue_ms(kern),
-             "plain_ms": device_ms(
-                 lambda: pa.paged_verify_attention_ref(*args), iters=10),
-             "library_ms": device_ms(
-                 lambda: F.scaled_dot_product_attention(*lib_args,
-                                                        **lib_kw)),
-             "library_backend": SDPBackend(torch._fused_sdp_choice(
-                 *lib_args, **lib_kw)).name,
-             "decode_ms": device_ms(
-                 lambda: pa.paged_decode_attention_kernel(*decode_args(dc))),
-             **verify_bounds(c)}
-        tol = BF16_TOL if route == "bf16" else F32_TOL
-        check(t["max_abs_err"] <= tol, f"paged verify timing {route}: "
-              f"max_abs_err {t['max_abs_err']} > {tol}")
-        timings[route] = t
-        print(f"paged verify timing {route}: 4 slots at p=620, k={SPEC_K} "
-              f"({4 * s} flattened rows), bt 16, 16/8 D 128, device ms: "
-              f"kernel {t['ms']:.5f} (the decode call at p=620: "
-              f"{t['decode_ms']:.5f}), plain {t['plain_ms']:.5f}, library "
-              f"{t['library_ms']:.5f} ({t['library_backend']}, over rows "
-              f"gathered beforehand); issue_ms {t['issue_ms']:.5f}; bound "
-              f"ms over the unique bytes {t['unique_ms']:.5f}, over the "
-              f"bytes read {t['read_ms']:.5f} ({t['bound_by']}); max_abs_err "
-              f"{t['max_abs_err']:.3e}; on {card}", flush=True)
-    return timings
+
+def time_verify(dtype, shape: dict, card: str) -> dict:
+    """The paged kernel on a verify's flattened rows timed at the serving
+    shape (4 slots at p = 620, k = SPEC_K, bt 16, heads `shape`): device
+    ms beside the plain version, the library call over gathered rows, the
+    decode call at the same frontier, and both bounds; printed."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+    from cake_tpu_torch.bench.paged_cases import case_args as decode_args
+    from cake_tpu_torch.bench.paged_cases import paged_case
+    from cake_tpu_torch.bench.spec_cases import (case_args, library_args,
+                                                 verify_bounds, verify_case)
+    from cake_tpu_torch.bench.timing import device_ms, issue_ms
+    from cake_tpu_torch.ops import paged_attention as pa
+    s = SPEC_K + 1
+    route = pa.kernel_route(dtype)
+    c = verify_case([(620, s)] * 4, s, dtype=dtype, device="cuda",
+                    seed=620, **shape)
+    args = case_args(c)
+    lib_args, lib_kw = library_args(c)
+    err = (pa.paged_verify_attention_kernel(*args).float()
+           - pa.paged_verify_attention_ref(*args).float()).abs().max()
+
+    def kern():
+        return pa.paged_verify_attention_kernel(*args)
+    dc = paged_case([620] * 4, dtype=dtype, device="cuda", seed=620,
+                    **shape)
+    t = {"max_abs_err": err.item(), "ms": device_ms(kern),
+         "issue_ms": issue_ms(kern),
+         "plain_ms": device_ms(
+             lambda: pa.paged_verify_attention_ref(*args), iters=10),
+         "library_ms": device_ms(
+             lambda: F.scaled_dot_product_attention(*lib_args, **lib_kw)),
+         "library_backend": SDPBackend(torch._fused_sdp_choice(
+             *lib_args, **lib_kw)).name,
+         "decode_ms": device_ms(
+             lambda: pa.paged_decode_attention_kernel(*decode_args(dc))),
+         **verify_bounds(c)}
+    tol = BF16_TOL if route == "bf16" else F32_TOL
+    check(t["max_abs_err"] <= tol, f"paged verify timing {route}: "
+          f"max_abs_err {t['max_abs_err']} > {tol}")
+    print(f"paged verify timing {route}: 4 slots at p=620, k={SPEC_K} "
+          f"({4 * s} flattened rows), bt 16, "
+          f"{c['q'].shape[2]}/{c['k'].shape[2]} D {c['q'].shape[3]}, "
+          f"device ms: "
+          f"kernel {t['ms']:.5f} (the decode call at p=620: "
+          f"{t['decode_ms']:.5f}), plain {t['plain_ms']:.5f}, library "
+          f"{t['library_ms']:.5f} ({t['library_backend']}, over rows "
+          f"gathered beforehand); issue_ms {t['issue_ms']:.5f}; bound "
+          f"ms over the unique bytes {t['unique_ms']:.5f}, over the "
+          f"bytes read {t['read_ms']:.5f} ({t['bound_by']}); max_abs_err "
+          f"{t['max_abs_err']:.3e}; on {card}", flush=True)
+    return t
 
 
 def phase_spec_graphs(model, card: str) -> None:
@@ -2142,20 +2191,11 @@ def _cli_spec_flagship() -> Served:
     paged pool of 1024 blocks and the prefix cache off, under
     CAKE_SPEC=ngram and CAKE_SPEC_K=6, started."""
     from cake_tpu_torch import cli
-    env = {"CAKE_SPEC": "ngram", "CAKE_SPEC_K": str(SPEC_K)}
-    saved = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
-        args = cli.parser().parse_args(
-            ["serve", "--flagship", "--port", "0", "--slots", "4", "--ctx",
-             "4096", "--prefix-cache-mb", "0", "--kv-blocks", "1024"])
-        return Served(cli.build_server(args).start())
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+    args = cli.parser().parse_args(
+        ["serve", "--flagship", "--port", "0", "--slots", "4", "--ctx",
+         "4096", "--prefix-cache-mb", "0", "--kv-blocks", "1024"])
+    return _with_env({"CAKE_SPEC": "ngram", "CAKE_SPEC_K": str(SPEC_K)},
+                     lambda: Served(cli.build_server(args).start()))
 
 
 def _spec_pressure(model, card: str) -> None:
@@ -2696,6 +2736,708 @@ def phase_gemma3(card: str, workdir: str) -> dict:
     return out
 
 
+# -- phase 13: Qwen3-Next, MoE and Gated DeltaNet -----------------------------
+
+QNEXT_LAYERS = 12       # of 48: full attention at 3, 7 and 11, all MoE
+QNEXT_CKPT_LAYERS = 4   # the checkpoint round trip: 3 linear, 1 full
+QNEXT_HEADS = dict(hq=16, hkv=2, d=256)
+QNEXT_STEPS = 16
+LINEAR_TOL = 2e-2       # bf16: a verify's wider GEMMs round differently
+
+
+def qwen3_next(layers: int, dtype, seed: int = 0,
+               layer_types: list | None = None):
+    """Qwen3-Next-80B-A3B's widths (synth_checkpoint.FAMILIES) cut to
+    `layers` blocks (or given `layer_types`), weights seeded from a
+    torch.Generator on the card, the byte tokenizer, ctx 4096."""
+    from cake_tpu_torch.bench.synth_checkpoint import family_config
+    from cake_tpu_torch.models import TextModel
+    from cake_tpu_torch.models.common.config import config_from_hf_dict
+    from cake_tpu_torch.models.common.layers import init_params
+    from cake_tpu_torch.tokenizer import ByteTokenizer
+    d = family_config("qwen3_next", layers)
+    if layer_types:
+        d["layer_types"] = layer_types
+    cfg = config_from_hf_dict(d)
+    params = init_params(cfg, seed, dtype, "cuda", gen_device="cuda")
+    return TextModel(cfg, params, tokenizer=ByteTokenizer(), dtype=dtype,
+                     device="cuda", max_cache_len=4096)
+
+
+def phase_qnext_kernels(card: str) -> dict:
+    """13(a). Both flash routes at Qwen3-Next's heads (16/2, D 256, a GQA
+    group of 8): fresh, a ragged valid length and append, each against
+    the plain version and launched twice bit for bit, and the device-meta
+    form (fresh, append at 256, ragged) against the plain version, the
+    host-int form and itself; the paged decode kernel on decode rows and
+    on a verify's flattened rows at the same heads, both routes, twice
+    bit for bit. Then fresh and append, the decode and the verify timed
+    beside the plain version, the library call and the bound."""
+    import torch
+    from cake_tpu_torch.bench import flash_meta, paged_timing
+    from cake_tpu_torch.bench.paged_cases import case_args as decode_args
+    from cake_tpu_torch.bench.paged_cases import paged_case
+    from cake_tpu_torch.bench.spec_cases import case_args, verify_case
+    from cake_tpu_torch.ops import paged_attention as pa
+    from cake_tpu_torch.ops.flash import (flash_attention_kernel,
+                                          flash_attention_ref, kernel_route)
+    s = SPEC_K + 1
+    cases = (("fresh", {}), ("fresh_valid200", dict(valid_len=200)),
+             ("append", FLASH_CASES[4][1]))
+    metas = [(f"qnext_{mode}{off or ''}{'_v200' if vl == 200 else ''}",
+              256, 16, 2, mode, off, vl)
+             for mode, off, vl in (("fresh", 0, 256), ("fresh", 0, 200),
+                                   ("append", 256, 256),
+                                   ("append", 256, 200))]
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        route = kernel_route(dtype)
+        for name, spec in cases:
+            q, k, v, kw = flash_case(f"qnext_{name}", dtype, **QNEXT_HEADS,
+                                     **spec)
+            got = flash_attention_kernel(q, k, v, **kw)
+            again = flash_attention_kernel(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = (got.float() - flash_attention_ref(q, k, v, **kw).float()
+                   ).abs().max().item()
+            print(f"qwen3-next flash {name:15s} {route} 16/2 D 256 "
+                  f"max_abs_err {err:.3e} (tol {tol:g}); two launches equal "
+                  f"{torch.equal(got, again)}", flush=True)
+            check(err <= tol and torch.isfinite(got).all().item(),
+                  f"qwen3-next flash {name} {route}: max_abs_err {err}")
+            check(torch.equal(got, again),
+                  f"qwen3-next flash {name} {route}: two launches differ")
+        for case in metas:
+            r = flash_meta.check(flash_meta.meta_case(*case, dtype))
+            print(f"qwen3-next flash meta {case[0]:18s} {route} max_abs_err "
+                  f"{r['max_abs_err']:.3e}; bits equal to the host-int form "
+                  f"{r['same_as_host_int']}, across two launches "
+                  f"{r['same_twice']}", flush=True)
+            check(r["finite"] and r["max_abs_err"] <= tol
+                  and r["same_as_host_int"] and r["same_twice"],
+                  f"qwen3-next flash meta {case[0]} {route}: {r}")
+        for name, frontiers in (("decode", [600, 1100, 300, 2000]),
+                                ("decode_stale_shared", [40, 620, 300])):
+            c = paged_case(frontiers, dtype=dtype, device="cuda", seed=13,
+                           stale=name != "decode", shared=name != "decode",
+                           **QNEXT_HEADS)
+            got = pa.paged_decode_attention_kernel(*decode_args(c))
+            again = pa.paged_decode_attention_kernel(*decode_args(c))
+            torch.cuda.synchronize()
+            want = pa.paged_decode_attention_ref(*decode_args(c))
+            rows = c["visible_rows"]
+            err = (got[rows].float() - want[rows].float()).abs().max().item()
+            print(f"qwen3-next paged {name} {route} rows at {frontiers}: "
+                  f"max_abs_err {err:.3e}; two launches equal "
+                  f"{torch.equal(got, again)}", flush=True)
+            check(err <= tol and torch.equal(got, again),
+                  f"qwen3-next paged {name} {route}: max_abs_err {err}")
+        for name, slots in (("verify_mixed", [(620, s), (15, s), (300, 4),
+                                              (40, 1), None]),
+                            ("verify_serving", [(620, s)] * 4)):
+            c = verify_case(slots, s, dtype=dtype, device="cuda", seed=13,
+                            shared=name == "verify_mixed", **QNEXT_HEADS)
+            args = case_args(c)
+            got = pa.paged_verify_attention_kernel(*args)
+            again = pa.paged_verify_attention_kernel(*args)
+            torch.cuda.synchronize()
+            vis = c["visible"].to("cuda")
+            err = (got.float() - pa.paged_verify_attention_ref(*args).float()
+                   )[vis].abs().max().item()
+            print(f"qwen3-next paged {name} {route} slots {slots}: "
+                  f"max_abs_err {err:.3e}; two launches equal "
+                  f"{torch.equal(got, again)}", flush=True)
+            check(err <= tol and torch.equal(got, again),
+                  f"qwen3-next paged {name} {route}: max_abs_err {err}")
+    timings = {
+        "flash.fresh": time_flash("qnext_fresh", torch.bfloat16,
+                                  QNEXT_HEADS),
+        "flash.append": time_flash("qnext_append", torch.bfloat16,
+                                   dict(QNEXT_HEADS, **FLASH_CASES[4][1])),
+        "flash.f32": time_flash("qnext_f32", torch.float32, QNEXT_HEADS),
+        "flash.f32_append": time_flash(
+            "qnext_f32_append", torch.float32,
+            dict(QNEXT_HEADS, **FLASH_CASES[4][1])),
+        "verify.bf16": time_verify(torch.bfloat16, QNEXT_HEADS, card),
+        "verify.f32": time_verify(torch.float32, QNEXT_HEADS, card)}
+    timings["module10"] = time_module10(card)
+    paged = paged_timing.measure(with_plain=True, shapes=(
+        ("bf16", "bfloat16", 620, QNEXT_HEADS),
+        ("f32", "float32", 620, QNEXT_HEADS)))
+    for entry, t in paged.items():
+        tol = F32_TOL if entry == "f32" else BF16_TOL
+        check(t["max_abs_err"] <= tol and t["same_bits"],
+              f"qwen3-next paged timing {entry}: {t['max_abs_err']}")
+        print(f"qwen3-next paged decode timing {entry}: 4 rows at p=620, bt "
+              f"16, 16/2 D 256, device ms: kernel {t['ms']:.5f} plain "
+              f"{t['plain_ms']:.5f} library {t['library_ms']:.5f}; bound_ms "
+              f"{t['bound_ms']:.5f} ({t['bound_by']}); on {card}",
+              flush=True)
+        timings[f"decode.{entry}"] = t
+    return timings
+
+
+def _graphed(fn):
+    """fn captured as a CUDA graph (warmed up on a side stream); returns
+    its replay."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph.replay
+
+
+def time_module10(card: str) -> dict:
+    """Device ms of module 10's torch-op work at Qwen3-Next's widths in
+    bf16, each captured as a CUDA graph and timed by events around
+    back-to-back replays: the MoE block's routed experts on decode rows (4
+    tokens), verify rows (28) and a 256-token chunk, beside the bound of
+    reading the banks of the experts this data routes to once; one Gated
+    DeltaNet layer over a 256-token chunk and over 4 decode rows."""
+    import torch
+    from cake_tpu_torch.bench.synth_checkpoint import family_config
+    from cake_tpu_torch.bench.timing import issue_ms
+    from cake_tpu_torch.models import qwen3_5
+    from cake_tpu_torch.models.common.config import config_from_hf_dict
+    from cake_tpu_torch.ops import moe
+    cfg = config_from_hf_dict(family_config("qwen3_next", 4))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def normal(*shape):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * 0.02).to(torch.bfloat16)
+    e, i, h = cfg.num_experts, cfg.moe_intermediate_size, cfg.hidden_size
+    k = cfg.num_experts_per_tok
+    bank = [normal(e, h), normal(e, i, h), normal(e, i, h), normal(e, h, i)]
+    out = {}
+    for name, t, route in (("moe.gathered.decode", 4, "gathered"),
+                           ("moe.gathered.verify", 28, "gathered"),
+                           ("moe.grouped.chunk", 256, "grouped")):
+        x = normal(t, h) * 50
+        idx = moe.router_topk(x.float() @ bank[0].float().t(), k, True)[1]
+        experts = int(torch.unique(idx).numel())
+        bound = experts * 3 * i * h * 2 / H100_HBM_BYTES_S * 1e3
+        ms = issue_ms(_graphed(lambda x=x, route=route: moe.moe_ffn(
+            x, *bank, k, True, route=route)), iters=20)
+        out[name] = {"ms": ms, "bound_ms": bound, "experts": experts}
+        print(f"module 10 timing {name}: {t} tokens x top {k} of {e} "
+              f"experts ({experts} distinct): {ms:.4f} ms; bound (their "
+              f"banks read once) {bound:.4f} ms; on {card}", flush=True)
+    p = qwen3_5.init_gdn_params(cfg, normal, torch.bfloat16, "cuda")
+    for name, b, s in (("gdn.chunk", 1, 256), ("gdn.decode", 4, 1)):
+        x = normal(b, s, h) * 50
+        lc = qwen3_5.init_linear_cache(cfg, b, torch.bfloat16, "cuda")
+        rows = s == 1
+        pos = torch.zeros(b, dtype=torch.int32, device="cuda") if rows else 0
+        vl = torch.ones(b, dtype=torch.int32, device="cuda") if rows \
+            else None
+        ms = issue_ms(_graphed(lambda x=x, lc=lc, pos=pos, vl=vl:
+                               qwen3_5.gdn_forward(cfg, p, x, lc, pos, vl)),
+                      iters=10)
+        out[name] = {"ms": ms}
+        print(f"module 10 timing {name}: one Gated DeltaNet layer, {b} x "
+              f"{s} tokens (Hv 32, Dk = Dv 128): {ms:.4f} ms; on {card}",
+              flush=True)
+    return out
+
+
+def phase_qnext_parity() -> dict:
+    """13(b). f32 at full width, 2 layers (linear, full; both MoE): a
+    600-token prompt in chunks (fresh flash, append flash, masked tail)
+    and 16 greedy decode steps, contiguous and paged on the card, against
+    the contiguous run on the CPU (the same weights, drawn on the card):
+    logits within 2e-3, tokens identical. Returns the f32 launches."""
+    import torch
+    from cake_tpu_torch.models import TextModel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    gpu = qwen3_next(2, torch.float32, seed=1,
+                     layer_types=["linear_attention", "full_attention"])
+    cpu = TextModel(gpu.cfg, _to_device(gpu.params, "cpu"),
+                    dtype=torch.float32, device="cpu", max_cache_len=4096)
+    ids = [int(x) for x in torch.randint(
+        0, gpu.cfg.vocab_size, (600,),
+        generator=torch.Generator().manual_seed(5))]
+    lg, tg, launches = chunked_prefill_and_greedy(gpu, ids)
+    lp, tp, paged_launches = paged_prefill_and_greedy(gpu, ids)
+    tc0 = time.perf_counter()
+    lc, tc, _ = chunked_prefill_and_greedy(cpu, ids)
+    cpu_s = time.perf_counter() - tc0
+    err = (lg - lc).abs().max().item()
+    err_p = (lp - lc).abs().max().item()
+    print(f"qwen3-next parity, 2 layers (linear, full), f32, 600-token "
+          f"chunked prefill + 16 greedy: flash launches {launches}, paged "
+          f"decode launches {paged_launches}; logits max_abs_err contiguous "
+          f"{err:.3e}, paged {err_p:.3e} (tol {LOGIT_TOL:g}); tokens "
+          f"identical {tg == tc}, {tp == tc}; CPU run {cpu_s:.1f} s, phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(launches == {"bf16": {"fresh": 0, "append": 0},
+                       "f32": {"fresh": 1, "append": 1}},
+          f"qwen3-next parity: flash launches {launches}")
+    check(paged_launches == {"bf16": 0, "f32": 15},
+          f"qwen3-next parity: paged decode launches {paged_launches}")
+    check(err <= LOGIT_TOL and err_p <= LOGIT_TOL,
+          f"qwen3-next parity: logits differ by {err}, {err_p}")
+    check(tg == tc and tp == tc,
+          f"qwen3-next parity: tokens {tg} / {tp} vs {tc}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return {"flash": launches["f32"], "paged": paged_launches["f32"]}
+
+
+def _linear_state(layers: list, rows: list, row: int) -> list:
+    """Row `row` of every linear layer's conv carry and state."""
+    return [lc[name][row].float() for lc in layers if "conv" in lc
+            for name in ("conv", "state")] + \
+        [rl[name][row].float() for rl in rows if "conv" in rl
+         for name in ("conv", "state")]
+
+
+def _wrong_row_equals_plain(model, state) -> tuple[bool, float]:
+    """One verify with row 1's drafts all wrong, against the same verify
+    with no drafts for row 1 (bit for bit: the plain step inside the
+    verify program) and against one decode step (within LINEAR_TOL: other
+    GEMM widths): row 1's linear state."""
+    import torch
+    from cake_tpu_torch.models.common.graphs import SpecCarries
+    out = []
+    for drafts in ("wrong", "none", "decode"):
+        st = state.clone()
+        st.activate()
+        if drafts == "decode":
+            st.step_fn(model)()
+        else:
+            spec = SpecCarries.build(st.carries, SPEC_K)
+            n = [SPEC_K, SPEC_K if drafts == "wrong" else 0, 0, 0]
+            spec.load([[7] * SPEC_K] * 4, n)
+            if st.paged:
+                model.spec_slots_paged_into(st.pool, st.rows, st.tables,
+                                            spec, True)
+            else:
+                model.spec_slots_into(st.layers, spec, True)
+            # the wrong row committed one token, as a plain step does
+            check(int(spec.packed[1, 1]) == 0, "wrong drafts accepted")
+        out.append(_linear_state(st.layers or [], st.rows, 1))
+    same = all(torch.equal(a, b) for a, b in zip(out[0], out[1]))
+    diff = max((a - b).abs().max().item() for a, b in zip(out[0], out[2]))
+    return same, diff
+
+
+def phase_qnext_graphs(model, card: str) -> None:
+    """13(c). bf16 at 12 of 48 layers, 4 slots with ctx 4096, contiguous
+    and paged (1024 blocks of 16): 16 decode replays equal 16 eager steps
+    (tokens, logits, KV bytes, conv and recurrent state, carries); the
+    captured prefill programs equal the eager chunks bit for bit; the
+    captured verify (k = 6) equals the eager verify with a row of right
+    drafts and a row of wrong ones; after the wrong row, its linear state
+    equals a plain step's. Replay device ms beside the eager times."""
+    import torch
+    from cake_tpu_torch.bench.graph_cases import (build_state,
+                                                  graph_vs_eager,
+                                                  prefill_vs_eager)
+    from cake_tpu_torch.bench.spec_cases import verify_vs_eager
+    from cake_tpu_torch.bench.timing import device_ms, kernel_times, wall_ms
+    from cake_tpu_torch.ops.sampling import SamplingConfig
+    greedy = SamplingConfig(temperature=0.0)
+    sampled = SamplingConfig(temperature=0.8, top_k=50)
+    gen = torch.Generator().manual_seed(11)
+    ids = torch.randint(0, 256, (600,), generator=gen).tolist()
+    tenant = torch.randint(0, 256, (300,), generator=gen).tolist()
+    for mode, kv_blocks in (("contiguous", 0), ("paged", 1024)):
+        state = build_state(model, [600, 1100, None, 300],
+                            [greedy, sampled, greedy, greedy], 4096,
+                            kv_blocks=kv_blocks, headroom=1024, seed=6)
+        r = graph_vs_eager(model, state.clone(), QNEXT_STEPS)
+        print(f"qwen3-next graph {mode}: {QNEXT_STEPS} decode replays vs "
+              f"eager steps, rows at 600/1100/300 (row 1 sampled) + 1 free: "
+              f"tokens identical {r['tokens_equal']}, KV bytes and linear "
+              f"state identical {r['kv_equal']}, carries identical "
+              f"{r['carries_equal']}; launches per replay "
+              f"{r['graph'].launches_per_step}", flush=True)
+        check(r["graph"].graph is not None and r["tokens_equal"]
+              and r["kv_equal"] and r["carries_equal"],
+              f"qwen3-next graph {mode}: replays differ from eager steps")
+        graph, eager = r["graph"], r["eager"].step_fn(model)
+        replay_ms, replay_wall = device_ms(graph.step), wall_ms(graph.step,
+                                                                10)
+        eager_wall = wall_ms(eager, 5)
+        kernels = sum(row[0] for row in kernel_times(eager, 3))
+        print(f"qwen3-next decode step {mode} (4 slots, {QNEXT_LAYERS} "
+              f"layers, bf16): replay device ms {replay_ms:.4f}, wall ms "
+              f"{replay_wall:.4f}; eager wall ms {eager_wall:.4f}, kernel "
+              f"sum {kernels:.4f}; on {card}", flush=True)
+        del r, graph, eager
+        v = verify_vs_eager(model, state.clone(), SPEC_K, QNEXT_STEPS,
+                            ["right", "wrong", "right", None], True)
+        print(f"qwen3-next spec graph {mode}: {QNEXT_STEPS} verify replays "
+              f"vs eager, k={SPEC_K}, right / wrong / sampled right / free: "
+              f"packed ids and logits identical {v['equal']}, KV bytes and "
+              f"linear state identical {v['kv_equal']}, carries identical "
+              f"{v['carries_equal']}; accepted per row {v['accepted']}",
+              flush=True)
+        check(v["graph"].graph is not None and v["equal"] and v["kv_equal"]
+              and v["carries_equal"],
+              f"qwen3-next spec graph {mode}: replays differ from eager")
+        check(v["accepted"][0] > 0 and v["accepted"][1] == 0,
+              f"qwen3-next spec graph {mode}: accepted {v['accepted']}")
+        verify_ms = device_ms(v["graph"].step, iters=10)
+        verify_wall = wall_ms(v["graph"].step, 5)
+        eager_verify = wall_ms(v["eager_fn"], 3)
+        print(f"qwen3-next verify step {mode}: replay device ms "
+              f"{verify_ms:.4f}, wall ms {verify_wall:.4f}; eager wall ms "
+              f"{eager_verify:.4f}; on {card}", flush=True)
+        del v
+        same, diff = _wrong_row_equals_plain(model, state)
+        print(f"qwen3-next {mode}: after a verify of wrong drafts, the row's "
+              f"conv and recurrent state equal the no-draft verify's "
+              f"{same}, and differ from a decode step's by {diff:.3e} (tol "
+              f"{LINEAR_TOL:g}: other GEMM widths)", flush=True)
+        check(same and diff <= LINEAR_TOL,
+              f"qwen3-next {mode}: linear state after wrong drafts {same}, "
+              f"{diff}")
+        del state
+        torch.cuda.empty_cache()
+        case = prefill_vs_eager(model, ids, slot=2, slots=4, ctx=4096,
+                                kv_blocks=kv_blocks, strict=True,
+                                tenant=tenant)
+        print(f"qwen3-next prefill graphs {mode}: "
+              f"{len(case.graphs.graphs)} programs captured in "
+              f"{case.capture_s:.2f} s (sync debug 'error'); chunks "
+              f"{[x['key'] for x in case.results]} logits identical "
+              f"{[x['logits_equal'] for x in case.results]}, KV bytes and "
+              f"linear state identical {case.kv_equal}", flush=True)
+        check(all(x["logits_equal"] for x in case.results) and case.kv_equal,
+              f"qwen3-next prefill graphs {mode}: replays differ")
+        for i, x in enumerate(case.results):
+            g, e = case.graph_chunk(i), case.eager_chunk(i)
+            print(f"qwen3-next prefill chunk {mode} {x['key']} "
+                  f"({len(case.chunks[i][1])} tokens): replay device ms "
+                  f"{device_ms(g, iters=5, warmup=1):.4f}, wall ms "
+                  f"{wall_ms(g, 5):.4f}; eager wall ms {wall_ms(e, 3):.4f}; "
+                  f"on {card}", flush=True)
+        del case
+        torch.cuda.empty_cache()
+
+
+def _resumed(model, prompt: list, tokens: list, preempted_at: list) -> list:
+    """A greedy stream as recompute preemption resumes it, from the roomy
+    pool's `tokens`: at each preemption after k tokens, prompt +
+    tokens[:k-1] prefilled in 256-token chunks into a row of a 4-row
+    paged pool and decode steps from tokens[k-1] on (the engine's replay:
+    the recomputed state comes from prefill chunks, not from the decode
+    steps that first built it, so in bf16 it differs in its last bits and
+    a flat random model's stream may part after the resume)."""
+    from cake_tpu_torch.models.common.graphs import DecodeCarries
+    from cake_tpu_torch.serve.engine import RECENT_N
+    from cake_tpu_torch.serve.paged import PagedKV
+    n = len(tokens)
+    for k in preempted_at:
+        if k == 0 or k >= n:
+            continue                    # a restart, or nothing left
+        ids = prompt + tokens[:k - 1]
+        pk = PagedKV.build(model, 4, 4096, 1024, 16, 256)
+        check(pk.reserve_range(1, 0, len(ids) + n), "resume reference pool")
+        for p0 in range(0, len(ids), 256):
+            pk.prefill_into(1, ids[p0:p0 + 256], p0)
+        c = DecodeCarries.build(4, model.cfg.vocab_size, RECENT_N,
+                                model.device)
+        c.toks[1] = tokens[k - 1]
+        c.pos[1] = len(ids)
+        c.active[1] = True
+        out = tokens[:k]
+        while len(out) < n:
+            model.decode_slots_paged_into(pk.pool, pk.rows, pk.tables, c)
+            out.append(int(c.toks[1]))
+        tokens = out
+        del pk
+    return tokens
+
+
+class Oracle:
+    """Proposes each prompt's plain greedy continuation: every draft
+    accepted, so every verify commits several tokens (the linear state
+    after the accepted ones). Stateless, so the engine's slots share it."""
+    name = "oracle"
+    shareable = True
+
+    def __init__(self, prompts: list, streams: list):
+        self.streams = {tuple(p): s for p, s in zip(prompts, streams)}
+
+    def propose(self, ids, k):
+        for prompt, stream in self.streams.items():
+            if tuple(ids[:len(prompt)]) == prompt:
+                n = len(ids) - len(prompt)
+                return list(stream[n:n + k])
+        return []
+
+    def reset(self):
+        pass
+
+
+def _shared_run(served, during=None) -> list:
+    """Phase 6(b)'s traffic: the first shared-system chat alone, then
+    three more at once."""
+    bodies = [chat_body(i, shared=True) for i in range(4)]
+    first = served.chat(bodies[0])
+    check(first["status"] == 200, "a shared-prefix chat failed")
+    return [first] + served.concurrent(bodies[1:], during)
+
+
+def _with_env(env: dict, build):
+    """build() with the environment variables `env` set, then restored."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return build()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_qnext_serve(model, card: str) -> dict:
+    """13(d). The same model over HTTP, contiguous then paged (1024 blocks
+    of 16): 4 concurrent chats and one SSE chat, all 200 and each equal
+    alone; phase 6(b)'s shared system message hitting the prefix cache
+    with tokens equal to the cache off; phase 6(c)'s 96-block pool under
+    swap and recompute with tokens equal to the roomy pool's; and under
+    CAKE_SPEC=ngram the greedy text of phase 12's chats equal to
+    speculation off (a parting only at a near tie). Every decode step,
+    chunk and verify is a graph replay. Returns the launches of every
+    kernel while serving."""
+    import torch
+    from cake_tpu_torch.bench.spec_cases import plain_stream
+    from cake_tpu_torch.ops import flash
+    from cake_tpu_torch.ops import paged_attention as pa
+    full = sum(s.kind == "full" for s in model.cfg.layer_specs())
+    bodies = [chat_body(i) for i in range(4)] + [chat_body(4, True)]
+    launches = {}
+    for mode, kw in (("contiguous", {}),
+                     ("paged", dict(kv_blocks=1024, kv_block_tokens=16))):
+        served = serve_model(model, **kw)
+        try:
+            eng = served.engine
+            check(eng.graph.graph is not None and all(
+                g.graph is not None for g in eng.prefill.graphs.values()),
+                f"qwen3-next serve {mode}: graphs not captured")
+            torch.cuda.synchronize()
+            flash.reset_launches()
+            pa.reset_launches()
+            steps = eng.graph.steps
+            results = served.concurrent(bodies)
+            torch.cuda.synchronize()
+            steps = eng.graph.steps - steps
+            fl, pg = flash.launch_counts(), pa.launch_counts()
+            _check_chats(results, f"qwen3-next {mode}")
+            check(fl["bf16"]["fresh"] >= full * 4 and fl["bf16"]["append"] > 0
+                  and sum(fl["f32"].values()) == 0,
+                  f"qwen3-next serve {mode}: flash launches {fl}")
+            if kw:
+                check(pg == {"bf16": full * steps, "f32": 0} and steps,
+                      f"qwen3-next paged: decode launches {pg} != {full} x "
+                      f"{steps}")
+                launches["paged"] = pg["bf16"]
+            else:
+                launches.update(fresh=fl["bf16"]["fresh"],
+                                append=fl["bf16"]["append"])
+            _alone_equals_concurrent(served, bodies, results,
+                                     f"qwen3-next {mode}")
+            ttft, tps = _latency(results[:4])
+            print(f"qwen3-next serve {mode}: engine start capture "
+                  f"{eng.capture_s:.2f} s ({len(eng.prefill.graphs)} prefill "
+                  f"programs + the decode step); 4 concurrent chats + 1 SSE, "
+                  f"{results[0]['resp']['usage']['prompt_tokens']}-token "
+                  f"prompts, all 200, each equal alone; flash {fl}, paged "
+                  f"decode {pg} over {steps} replays; TTFT p50 {ttft:.1f} ms, "
+                  f"decode tok/s per request p50 {tps:.1f} (smoke); on "
+                  f"{card}", flush=True)
+            # the pressure runs' reference: the roomy paged pool's tokens
+            want = [r["tokens"] for r in results[:4]]
+            shared = _shared_run(served)
+        finally:
+            served.close()
+        off = serve_model(model, prefix_cache_mb=0, **kw)
+        try:
+            shared_off = _shared_run(off)
+        finally:
+            off.close()
+        hits = [r["stats"]["prefix_hit_tokens"] for r in shared]
+        same = [r["tokens"] for r in shared] == \
+            [r["tokens"] for r in shared_off]
+        print(f"qwen3-next prefix {mode}: shared system message, "
+              f"prefix_hit_tokens {hits}; tokens equal to the cache-off run "
+              f"{same}", flush=True)
+        check(all(h >= 512 for h in hits[1:]) and same,
+              f"qwen3-next prefix {mode}: hits {hits}, same {same}")
+    for mode in ("swap", "recompute"):
+        _pressure(model, mode, want, lambda prompt, toks, at: _resumed(
+            model, prompt, toks, at))
+    spec_bodies = [spec_body(i) for i in range(4)]
+    prompts = [model.tokenizer.chat_prompt_ids(b["messages"])
+               for b in spec_bodies]
+    for mode, kw in (("contiguous", {}),
+                     ("paged", dict(kv_blocks=1024, kv_block_tokens=16))):
+        plain = plain_stream(model, prompts, SPEC_TOKENS, 4096,
+                             kv_blocks=kw.get("kv_blocks", 0))
+        oracle = Oracle(prompts, [p["tokens"] for p in plain])
+        for label, build in (
+                ("oracle", lambda: serve_model(model, prefix_cache_mb=0,
+                                               spec=oracle, spec_k=SPEC_K,
+                                               **kw)),
+                ("CAKE_SPEC=ngram", lambda: _with_env(
+                    {"CAKE_SPEC": "ngram"},
+                    lambda: serve_model(model, prefix_cache_mb=0, **kw)))):
+            on = build()
+            try:
+                eng = on.engine
+                check(eng.spec_drafter is not None and all(
+                    g.graph is not None for g in eng.verify_graphs.values()),
+                    f"qwen3-next spec {mode} {label}: no captured verify")
+                torch.cuda.synchronize()
+                pa.reset_launches()
+                on_res = on.concurrent(spec_bodies)
+                torch.cuda.synchronize()
+                h = eng.health()["spec"]
+                vc = pa.verify_launch_counts()
+                parts = [_parting(r["tokens"], p["tokens"], p["gaps"],
+                                  f"qwen3-next spec {mode} {label} chat {i}")
+                         for i, (r, p) in enumerate(zip(on_res, plain))]
+                if label == "oracle":
+                    check(h["accepted"] > 0 and h["verify_replays"] > 0,
+                          f"qwen3-next spec {mode}: {h}")
+                    if kw:
+                        check(vc["bf16"] == full * h["verify_replays"],
+                              f"qwen3-next spec paged: verify launches {vc}"
+                              f" != {full} x {h['verify_replays']}")
+                        launches["verify"] = vc["bf16"]
+                print(f"qwen3-next spec {mode}, {label} drafter (k "
+                      f"{eng.spec_k}): {h}; verify launches {vc}; greedy "
+                      f"tokens equal to speculation off (the plain stream) "
+                      f"per chat {[not p for p in parts]}, partings at near "
+                      f"ties {parts}; on {card}", flush=True)
+            finally:
+                on.close()
+    return launches
+
+
+def phase_qnext_checkpoint(card: str, workdir: str) -> None:
+    """13(e). 4 layers (3 linear, 1 full; HF names: in_proj_qkvz /
+    in_proj_ba, experts.{e}.*, shared_expert, (1+w) norms stored as w)
+    written as a checkpoint directory with a byte-level BPE tokenizer,
+    loaded through build_text_model bit for bit, then served through `cli
+    serve DIR`: 4 concurrent chats and one SSE chat, all 200, each equal
+    alone and in company."""
+    import torch
+    from cake_tpu_torch.bench import synth_checkpoint as sc
+    from cake_tpu_torch.runtime import build_text_model
+    d = os.path.join(workdir, "qwen3-next")
+    config = sc.family_config("qwen3_next", QNEXT_CKPT_LAYERS)
+    t = time.perf_counter()
+    params = sc.model_params(config, seed=3, device="cuda",
+                             randomize_norms=True, gen_device="cuda")
+    nbytes = sc.write_model(d, config, params, shards=4)
+    sc.write_tokenizer(d, sc.QWEN3_SPECIALS)
+    names = json.load(open(os.path.join(d, "model.safetensors.index.json")))
+    names = " ".join(names["weight_map"])
+    check("linear_attn.in_proj_qkvz" in names and "experts.511.down_proj"
+          in names and "shared_expert_gate" in names,
+          "qwen3-next checkpoint: HF names missing")
+    print(f"qwen3-next checkpoint: {QNEXT_CKPT_LAYERS} layers written "
+          f"({nbytes / 1e9:.2f} GB, 4 shards) in {time.perf_counter() - t:.1f}"
+          f" s", flush=True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loaded, _, _ = build_text_model(d, "bf16", device="cuda",
+                                    max_cache_len=4096)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    diff = _tree_diff(loaded.params, params)
+    print(f"qwen3-next checkpoint load: {load_s:.1f} s "
+          f"({nbytes / 1e9 / load_s:.2f} GB/s) through build_text_model; "
+          f"every tensor bit-identical {not diff}; on {card}", flush=True)
+    check(not diff, f"qwen3-next checkpoint: loaded params differ {diff[:5]}")
+    del loaded, params
+    torch.cuda.empty_cache()
+    bodies = [chat_body(i) for i in range(4)] + [chat_body(4, True)]
+    served = _cli_server(d)
+    try:
+        results = served.concurrent(bodies)
+        _check_chats_any(results, "qwen3-next cli serve")
+        _prompt_ids_match(served, d, bodies, "qwen3-next cli serve")
+        _alone_equals_concurrent(served, bodies, results,
+                                 "qwen3-next cli serve")
+        print(f"qwen3-next cli serve DIR: 4 concurrent chats + 1 SSE, all "
+              f"200, each equal alone and in company", flush=True)
+    finally:
+        served.close()
+    shutil.rmtree(d, ignore_errors=True)
+
+
+def phase_qnext(card: str, workdir: str) -> dict:
+    """Phase 13: Qwen3-Next at Qwen3-Next-80B-A3B's widths. Returns the
+    kernel timings and the main path's launches."""
+    import torch
+    t0 = time.perf_counter()
+    timings = phase_qnext_kernels(card)
+    f32 = phase_qnext_parity()
+    t = time.perf_counter()
+    model = qwen3_next(QNEXT_LAYERS, torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    print(f"qwen3-next: {QNEXT_LAYERS} of 48 layers (full at 3, 7, 11; all "
+          f"MoE, 512 experts top 10 + shared), bf16, built on the card in "
+          f"{time.perf_counter() - t:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.1f} GB", flush=True)
+    phase_qnext_graphs(model, card)
+    launches = phase_qnext_serve(model, card)
+    del model
+    torch.cuda.empty_cache()
+    phase_qnext_checkpoint(card, workdir)
+    print(f"phase 13 in {time.perf_counter() - t0:.0f} s", flush=True)
+    return {"timings": timings, "launches": launches, "f32": f32}
+
+
+def qnext_kernel_rows(q: dict) -> list:
+    """The kernels line's rows of phase 13 (Qwen3-Next's heads)."""
+    from cake_tpu_torch.ops import flash
+    from cake_tpu_torch.ops import paged_attention as pa
+    t, n = q["timings"], q["launches"]
+    rows = []
+    for entry, route, launches in (
+            ("fresh", "bf16", n["fresh"]), ("append", "bf16", n["append"]),
+            ("f32", "f32", q["f32"]["flash"]["fresh"]),
+            ("f32_append", "f32", q["f32"]["flash"]["append"])):
+        x = t[f"flash.{entry}"]
+        rows.append({
+            "name": f"flash_attention.{entry}.qwen3_next", "route": "cuda",
+            "source": flash.SOURCES[route], "replaces": flash.REPLACES,
+            "launches": launches, "max_abs_err": x["max_abs_err"],
+            "ms": x["ms"], "meta_ms": x["meta_ms"],
+            "issue_ms": x["issue_ms"], "plain_ms": x["plain_ms"],
+            "bound_ms": x["bound_ms"], "bound_by": x["bound_by"],
+            "library_ms": x["library_ms"]})
+    for name, entry, launches, replaces in (
+            ("bf16.qwen3_next", "decode.bf16", n["paged"], pa.REPLACES),
+            ("f32.qwen3_next", "decode.f32", q["f32"]["paged"], pa.REPLACES),
+            ("verify.bf16.qwen3_next", "verify.bf16", n["verify"],
+             pa.VERIFY_REPLACES)):
+        x = t[entry]
+        rows.append({
+            "name": f"paged_decode_attention.{name}", "route": "cuda",
+            "source": pa.SOURCE, "replaces": replaces, "launches": launches,
+            "max_abs_err": x["max_abs_err"], "ms": x["ms"],
+            "issue_ms": x["issue_ms"], "plain_ms": x["plain_ms"],
+            "bound_ms": x.get("unique_ms", x.get("bound_ms")),
+            "bound_by": x["bound_by"], "library_ms": x["library_ms"]})
+    return rows
+
+
 def main(argv: list[str]) -> int:
     t_start = time.perf_counter()
     import torch
@@ -2710,6 +3452,17 @@ def main(argv: list[str]) -> int:
     print(f"device: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
     built = phase_build()
+    if argv[:2] == ["--only", "13"]:
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            q = phase_qnext(card, workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        print(json.dumps({"kernels": qnext_kernel_rows(q)}))
+        print(f"chip_smoke: phase 13 passed in "
+              f"{time.perf_counter() - t_start:.0f} s (no result line: "
+              f"one phase)", flush=True)
+        return 0
     if argv[:2] == ["--only", "12"]:
         phase_spec(build_flagship(layers=None, dtype="bf16", seed=0,
                                   device="cuda"), card)
@@ -2717,7 +3470,8 @@ def main(argv: list[str]) -> int:
               f"{time.perf_counter() - t_start:.0f} s (no result line: "
               f"one phase)", flush=True)
         return 0
-    check(not argv, f"unknown arguments {argv} (only: --only 12)")
+    check(not argv, f"unknown arguments {argv} (only: --only 12, "
+          "--only 13)")
     timings = phase_kernels()
     paged_timings = phase_paged_kernels(built[pa.LIBRARY]["log"])
     parity_launches, parity_paged = phase_parity()
@@ -2739,6 +3493,7 @@ def main(argv: list[str]) -> int:
         torch.cuda.empty_cache()
         family_launches = phase_families(card, workdir)
         family_launches["gemma3"] = phase_gemma3(card, workdir)
+        qnext = phase_qnext(card, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     kernels = []
@@ -2797,6 +3552,7 @@ def main(argv: list[str]) -> int:
             "issue_ms": t["issue_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["unique_ms"], "bound_read_ms": t["read_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    kernels += qnext_kernel_rows(qnext)
     print(f"checkpoint load (phase 7): {json.dumps(load)} on {card}")
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.0f} s (limit 1200 s)", flush=True)

@@ -1,5 +1,6 @@
-"""Golden parity of the port for every family it adapts (config.py:
-llama, qwen2, qwen3, mistral, falcon3, olmo2, exaone4, phi4, gemma3): the JAX
+"""Golden parity of the port for every family with a committed fixture
+(config.py: llama, qwen2, qwen3, mistral, falcon3, olmo2, exaone4, phi4,
+gemma3, qwen3_moe, qwen3_5): the JAX
 package's weights for the committed fixtures (tests/golden/make_golden.py:
 seeded under fixture_prng) carried across with params_from_numpy, then
 prefill logits, 5 greedy decode steps' logits and the 5 + 4 chunked
@@ -38,7 +39,7 @@ torch.set_num_threads(1)
 HERE = os.path.join(os.path.dirname(__file__), "golden")
 ATOL = 1e-3
 PORTED = ("llama", "qwen2", "qwen3", "mistral", "falcon3", "olmo2",
-          "exaone4", "phi4", "gemma3")
+          "exaone4", "phi4", "gemma3", "qwen3_moe", "qwen3_5")
 GREEDY = SamplingConfig(temperature=0.0)
 
 

@@ -187,3 +187,68 @@ def test_missing_tensor_names_itself(tmp_path):
     with pytest.raises(KeyError,
                        match="model.layers.2.post_feedforward_layernorm"):
         build_text_model(str(tmp_path), dtype="f32", device="cpu")
+
+
+# -- module 10: MoE experts and Gated DeltaNet layers ---------------------------
+
+_TINY = dict(vocab_size=256, hidden_size=64, intermediate_size=128,
+             num_hidden_layers=4, num_attention_heads=4,
+             num_key_value_heads=2, head_dim=16, rms_norm_eps=1e-6,
+             max_position_embeddings=128, eos_token_id=2, num_experts=8,
+             num_experts_per_tok=2, moe_intermediate_size=32)
+MODULE10 = {
+    "qwen3_next": dict(
+        _TINY, architectures=["Qwen3NextForCausalLM"],
+        layer_types=["linear_attention"] * 3 + ["full_attention"],
+        linear_num_key_heads=2, linear_key_head_dim=16,
+        linear_num_value_heads=4, linear_value_head_dim=16,
+        shared_expert_intermediate_size=24, partial_rotary_factor=0.25),
+    "qwen3_moe": dict(_TINY, architectures=["Qwen3MoeForCausalLM"]),
+}
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("fam", sorted(MODULE10))
+def test_module10_checkpoint_loads_as_jax_loads_it(tmp_path, fam, dtype):
+    """A tiny Qwen3-Next (in HF's layout: in_proj_qkvz / in_proj_ba, one
+    tensor per expert, the shared expert and its gate, (1+w) norms stored
+    as w) and a tiny Qwen3-MoE, written by the port's exporter from the
+    JAX tree carried across with params_from_numpy: the JAX ParamLoader's
+    tree, the carried tree and the port's load are the same bits, A_log
+    and dt_bias float32 in all three."""
+    from cake_tpu_torch.models.common.config import config_from_hf_dict
+    from cake_tpu_torch.utils import params_from_numpy
+    hf = MODULE10[fam]
+    jcfg, cfg = jax_config(hf), config_from_hf_dict(hf)
+    params = randomize(jax_init_params(jcfg, jax.random.PRNGKey(6),
+                                       jnp.float32), seed=13,
+                       clip_norms=jcfg.residual_rms_norm)
+    tree = jax.tree_util.tree_map(np.asarray, params)
+    tensors = params_to_hf_tensors(
+        params_from_numpy(cfg, tree, "cpu", torch.float32),
+        residual_norms=cfg.residual_rms_norm, cfg=cfg)
+    names = " ".join(tensors)
+    assert "model.layers.0.mlp.experts.7.down_proj.weight" in names
+    if fam == "qwen3_next":
+        assert "in_proj_qkvz" in names and "in_proj_ba" in names
+        assert "mlp.shared_expert_gate.weight" in names
+    write_checkpoint(str(tmp_path), hf, tensors)
+    jdt, tdt = {"f32": (jnp.float32, torch.float32),
+                "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    want = jax_load(jcfg, str(tmp_path), jdt)
+    want.pop("rope", None)
+    got = load_model_params(cfg, str(tmp_path), tdt, "cpu")
+    carried = params_from_numpy(
+        cfg, jax.tree_util.tree_map(np.asarray, want), "cpu", tdt)
+    want = dict(_jax_tree_bits(want))
+    for tree_ in (got, carried):
+        bits = {k: (v.view(torch.int16) if v.element_size() == 2
+                    else v).numpy() for k, v in _flat(tree_)}
+        assert bits.keys() == want.keys()
+        for k in bits:
+            np.testing.assert_array_equal(bits[k], want[k], err_msg=k)
+    if fam == "qwen3_next":
+        gdn = got["layers"][0]["linear_attn"]
+        assert gdn["A_log"].dtype == gdn["dt_bias"].dtype == torch.float32
+        assert got["layers"][0]["mlp"]["experts"]["gate_proj"].shape == \
+            (8, 32, 64)

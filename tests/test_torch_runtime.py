@@ -66,9 +66,11 @@ def test_resolve_model_local_and_cached(tmp_path, monkeypatch):
     ({"quantization_config": {"quant_method": "fp8"}}, "ROADMAP module 11"),
     ({"architectures": ["Gemma3ForConditionalGeneration"]},
      "ROADMAP module 6"),
-    ({"architectures": ["Qwen3MoeForCausalLM"]}, "ROADMAP module 10"),
-    ({"architectures": ["Qwen3_5ForConditionalGeneration"]},
-     "ROADMAP module 10"),
+    ({"architectures": ["Qwen3MoeForCausalLM"],
+      "quantization_config": {"quant_method": "gptq", "bits": 4}},
+     "ROADMAP module 11"),
+    ({"architectures": ["Qwen3NextForCausalLM"],
+      "quantization_config": {"quant_method": "fp8"}}, "ROADMAP module 11"),
     ({"architectures": ["SomethingElseForCausalLM"]}, "not ported"),
 ])
 def test_refused_configs_raise(tmp_path, over, match):
@@ -260,9 +262,10 @@ def test_attn_scale_paged_matches_jax(scaled_pair):
 
 
 def test_family_configs_read_as_published():
-    """The smoke's four configurations resolve to the shapes the kernels
+    """The smoke's six configurations resolve to the shapes the kernels
     are held at: (Hq, Hkv, D, window, rotary dim, layer kinds); Gemma-3-1B
-    has its global layers at 5, 11, 17 and 23."""
+    has its global layers at 5, 11, 17 and 23; Qwen3-Next a full layer
+    every fourth, gated, and 512 experts top 10 with a shared expert."""
     got = {}
     for fam in sc.FAMILIES:
         cfg = config_from_hf_dict(sc.family_config(fam, layers=4))
@@ -277,6 +280,9 @@ def test_family_configs_read_as_published():
                     + [("full", False, "post")]),
         "phi4": (24, 8, 128, None, 96, [("full", True, "pre")] * 4),
         "gemma3": (4, 1, 256, 512, 256, [("swa", True, "sandwich")] * 4),
+        "qwen3_next": (16, 2, 256, None, 64, [("linear", False, "pre")] * 3
+                       + [("full", True, "pre")]),
+        "qwen3_moe": (32, 4, 128, None, 128, [("full", True, "pre")] * 4),
     }
     g = config_from_hf_dict(sc.family_config("gemma3"))
     assert [i for i, s in enumerate(g.layer_specs()) if s.window is None] \
@@ -284,3 +290,81 @@ def test_family_configs_read_as_published():
     assert (g.hidden_act, g.embed_scale, g.attn_scale,
             g.local_rope_theta, g.rope_theta, g.eos_token_ids) == \
         ("gelu_tanh", 1152 ** 0.5, 256 ** -0.5, 1e4, 1e6, (1, 106))
+    n = config_from_hf_dict(sc.family_config("qwen3_next"))
+    assert [i for i, s in enumerate(n.layer_specs()) if s.kind == "full"] \
+        == list(range(3, 48, 4))
+    assert all(s.is_moe for s in n.layer_specs())
+    assert (n.num_experts, n.num_experts_per_tok, n.moe_intermediate_size,
+            n.shared_expert_intermediate_size, n.norm_topk_prob,
+            n.attn_output_gate, n.residual_rms_norm, n.model_prefix) == \
+        (512, 10, 512, 512, True, True, True, "model")
+    la = n.linear_attn
+    assert (la.num_key_heads, la.key_head_dim, la.num_value_heads,
+            la.value_head_dim, la.conv_kernel_dim) == (16, 128, 32, 128, 4)
+    m = config_from_hf_dict(sc.family_config("qwen3_moe"))
+    assert (m.num_experts, m.num_experts_per_tok, m.moe_intermediate_size,
+            m.linear_attn, m.attn_output_gate) == (128, 8, 768, None, False)
+
+
+
+
+def _module10_dicts() -> dict:
+    """Tiny config.json dicts of the four module-10 architectures: flat
+    (Qwen3-MoE, Qwen3-Next) and under text_config (Qwen3.5)."""
+    base = dict(vocab_size=256, hidden_size=64, intermediate_size=128,
+                num_hidden_layers=4, num_attention_heads=4,
+                num_key_value_heads=2, head_dim=16, rms_norm_eps=1e-6,
+                max_position_embeddings=128, eos_token_id=2)
+    moe = dict(num_experts=8, num_experts_per_tok=2,
+               moe_intermediate_size=32)
+    gdn = dict(layer_types=["linear_attention"] * 3 + ["full_attention"],
+               linear_num_key_heads=2, linear_key_head_dim=16,
+               linear_num_value_heads=4, linear_value_head_dim=16,
+               rope_theta=1e6, partial_rotary_factor=0.25)
+    return {
+        "Qwen3MoeForCausalLM": dict(base, **moe),
+        "Qwen3_5ForConditionalGeneration": dict(text_config=dict(base,
+                                                                 **gdn)),
+        "Qwen3_5MoeForConditionalGeneration": dict(text_config=dict(
+            base, **gdn, **moe, shared_expert_intermediate_size=24)),
+        "Qwen3NextForCausalLM": dict(base, **gdn, **moe,
+                                     shared_expert_intermediate_size=24),
+    }
+
+
+@pytest.mark.parametrize("arch", sorted(_module10_dicts()))
+def test_module10_configs_read_as_jax_reads_them(arch):
+    """config_from_hf_dict of each module-10 architecture gives the JAX
+    package's ModelConfig field for field and layer for layer."""
+    from cake_tpu.models.common.config import config_from_hf_dict as jax_cfg
+    d = dict(_module10_dicts()[arch], architectures=[arch])
+    got, want = config_from_hf_dict(d), jax_cfg(d)
+    for f in dataclasses.fields(got):
+        g, w = getattr(got, f.name), getattr(want, f.name)
+        if f.name == "linear_attn" and g is not None:
+            g, w = dataclasses.asdict(g), dataclasses.asdict(w)
+        assert g == w, f.name
+    assert [(s.kind, s.use_rope, s.window, s.is_moe, s.norm_style)
+            for s in got.layer_specs()] == \
+        [(s.kind, s.use_rope, s.window, s.is_moe, s.norm_style)
+         for s in want.layer_specs()]
+
+
+def test_reference_reads_full_attention_interval_as_all_full(caplog):
+    """A Qwen3-Next config with transformers' full_attention_interval and
+    no layer_types: the JAX package builds no linear layer (every layer
+    full attention, gated); the port reads it the same way and logs that
+    the interval is not read."""
+    from cake_tpu.models.common.config import config_from_hf_dict as jax_cfg
+    d = dict(_module10_dicts()["Qwen3NextForCausalLM"],
+             architectures=["Qwen3NextForCausalLM"],
+             full_attention_interval=4)
+    del d["layer_types"]
+    want = jax_cfg(d)
+    assert want.linear_attn is None and want.attn_output_gate
+    assert {s.kind for s in want.layer_specs()} == {"full"}
+    with caplog.at_level("WARNING"):
+        got = config_from_hf_dict(d)
+    assert got.linear_attn is None
+    assert [s.kind for s in got.layer_specs()] == ["full"] * 4
+    assert "full_attention_interval is not read" in caplog.text
