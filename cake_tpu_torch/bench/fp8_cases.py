@@ -1,0 +1,56 @@
+"""Inputs of the FP8 dequant kernel's checks (chip_smoke.py phase 14(a),
+tests/test_torch_fp8_card.py): the shapes the main path gives it and the
+edge cases, each with seeded e4m3 bytes that hold every code (NaN, -0 and
+the subnormals included) and positive float32 scales over five decades.
+
+`dequant_bound_ms` is the least time an H100 could take for one call:
+the bytes it must move (each e4m3 byte and scale read once, each output
+written once) over 3.35 TB/s; its one multiply per value is far below
+the card's float32 rate, so bytes bound it.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..ops.fp8 import scale_shape
+
+H100_HBM_BYTES_S = 3.35e12
+
+# (name, O, I): the flagship's (Qwen3-0.6B) q_proj and gate/up_proj,
+# Qwen3-8B's gate/up_proj and down_proj, cropped edge blocks and a tail
+# of I not a multiple of 16, and a small one that holds every code
+SHAPES = [("q_proj_0.6b", 2048, 1024), ("gate_proj_0.6b", 3072, 1024),
+          ("gate_proj_8b", 12288, 4096), ("down_proj_8b", 4096, 12288),
+          ("edge_200x300", 200, 300), ("tail_129x17", 129, 17),
+          ("codes_2x128", 2, 128)]
+
+
+def fp8_case(o: int, i: int, seed: int = 0, device="cuda"
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(w float8_e4m3fn [O, I], scale_inv float32) drawn on the host from
+    `seed`; the first min(256, O*I) bytes run through every code."""
+    gen = torch.Generator().manual_seed(seed)
+    raw = torch.randint(0, 256, (o * i,), dtype=torch.uint8, generator=gen)
+    n = min(256, o * i)
+    raw[:n] = torch.arange(n, dtype=torch.uint8)
+    s = 10.0 ** (-5 * torch.rand(scale_shape(o, i), generator=gen))
+    return (raw.view(torch.float8_e4m3fn).reshape(o, i).to(device),
+            s.to(torch.float32).to(device))
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """NaN at the same places and every other value bit for bit (the NaN
+    payloads of two roundings may differ)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    ib = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[a.dtype]
+    return a.dtype == b.dtype and torch.equal(na, nb) and \
+        torch.equal(a[~na].view(ib), b[~nb].view(ib))
+
+
+def dequant_bytes(o: int, i: int, out_dtype: torch.dtype) -> int:
+    so, si = scale_shape(o, i)
+    return o * i * (1 + torch.finfo(out_dtype).bits // 8) + 4 * so * si
+
+
+def dequant_bound_ms(o: int, i: int, out_dtype: torch.dtype) -> float:
+    return dequant_bytes(o, i, out_dtype) / H100_HBM_BYTES_S * 1e3

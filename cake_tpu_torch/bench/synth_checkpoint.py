@@ -15,6 +15,17 @@ tokenizer, and nothing may be downloaded.
   deterministic learner, from `CORPUS`, a fixed multilingual text) with
   the given special tokens at the given ids, and a tokenizer_config.json
   with a ChatML template.
+* Quantized checkpoints in the published layouts: `write_fp8_model`
+  (Qwen's FP8 block-wise layout: each projection as float8_e4m3fn with a
+  float32 `weight_scale_inv` per 128 x 128 block, through
+  `quant_fp8_blockwise`, the rest bf16, Qwen's `quantization_config`),
+  `write_gptq_model` (AutoGPTQ 4-bit: seeded nibbles in int32 `qweight`
+  and `qzeros`, float16 `scales`, optionally a permuted `g_idx` with
+  desc_act) and `write_gguf_model` (GGUF v3, arch `qwen3`: seeded raw
+  Q8_0, or a Q4_K_M-style mix of Q4_K and Q6_K blocks, with finite f16
+  d / dmin, F32 norms and `qwen3.*` metadata). `QWEN3_8B` is
+  Qwen/Qwen3-8B's widths (every field assumed), the shape of
+  Qwen/Qwen3-8B-FP8.
 * `write_gemma_tokenizer(dir, ...)`: a tokenizer.json in the style of
   Gemma's (converted from SentencePiece): Gemma's special tokens at
   Gemma's ids, the 256 `<0xNN>` byte tokens, the characters of `CORPUS`
@@ -29,11 +40,15 @@ import collections
 import json
 import os
 import re
+import struct
 
+import numpy as np
 import torch
 
 from ..models.common.config import FLAGSHIP_QWEN3_0_6B, config_from_hf_dict
 from ..models.common.layers import init_params
+from ..ops.fp8 import quant_fp8_blockwise
+from ..utils import gguf
 from ..utils.bpe import GPT2_PATTERN, bytes_to_unicode, translate_regex
 from ..utils.export import params_to_hf_tensors, write_checkpoint
 
@@ -125,6 +140,16 @@ FAMILIES = {
         bos_token_id=151643, eos_token_id=151645),
 }
 
+# Qwen/Qwen3-8B widths, the model of Qwen/Qwen3-8B-FP8 (every field
+# assumed, from memory of its model card: hidden 4096, intermediate
+# 12288, 36 layers, 32/8 heads of 128, vocab 151936, untied, RoPE 1e6)
+QWEN3_8B = dict(
+    architectures=["Qwen3ForCausalLM"], vocab_size=151936, hidden_size=4096,
+    intermediate_size=12288, num_hidden_layers=36, num_attention_heads=32,
+    num_key_value_heads=8, head_dim=128, rope_theta=1000000.0,
+    rms_norm_eps=1e-6, max_position_embeddings=40960,
+    tie_word_embeddings=False, bos_token_id=151643, eos_token_id=151645)
+
 CHATML_TEMPLATE = (
     "{% for message in messages %}"
     "{{ '<|im_start|>' + message['role'] + '\\n' + message['content'] "
@@ -159,7 +184,7 @@ def family_config(family: str, layers: int | None = None) -> dict:
     """The family's published config.json dict, its depth cut to `layers`
     (widths are never changed; a layer_types list keeps its first
     `layers` entries)."""
-    cfg = dict(FAMILIES[family])
+    cfg = dict(QWEN3_8B if family == "qwen3_8b" else FAMILIES[family])
     if layers:
         cfg["num_hidden_layers"] = layers
         if "layer_types" in cfg:
@@ -216,15 +241,204 @@ def model_params(config: dict, seed: int = 0,
     return params
 
 
+def _hf_tensors(config: dict, params: dict) -> dict:
+    cfg = config_from_hf_dict(config)
+    return params_to_hf_tensors(params, fuse_phi=cfg.fused_qkv,
+                                residual_norms=cfg.residual_rms_norm,
+                                cfg=cfg)
+
+
 def write_model(model_dir: str, config: dict, params: dict,
                 shards: int = 1) -> int:
     """config.json and the params as safetensors (Phi-4 with fused
     names). Returns the bytes of tensor data written."""
-    cfg = config_from_hf_dict(config)
-    tensors = params_to_hf_tensors(params, fuse_phi=cfg.fused_qkv,
-                                   residual_norms=cfg.residual_rms_norm,
-                                   cfg=cfg)
-    return write_checkpoint(model_dir, config, tensors, shards)
+    return write_checkpoint(model_dir, config, _hf_tensors(config, params),
+                            shards)
+
+
+# -- quantized checkpoints -------------------------------------------------------
+
+# Qwen's published FP8 quantization_config (Qwen/Qwen3-8B-FP8 and
+# Qwen/Qwen3-0.6B-FP8)
+FP8_CONFIG = {"quant_method": "fp8", "fmt": "e4m3",
+              "activation_scheme": "dynamic",
+              "weight_block_size": [128, 128]}
+
+
+def _quantized(name: str, t: torch.Tensor) -> bool:
+    """A projection: what the published FP8 and GPTQ checkpoints quantize
+    (q/k/v/o, gate/up/down, experts', out_proj), never the embeddings,
+    norms, head or router."""
+    return name.endswith("_proj.weight") and t.dim() == 2
+
+
+def write_fp8_model(model_dir: str, config: dict, params: dict,
+                    shards: int = 1) -> int:
+    """The params in Qwen's FP8 block-wise layout: each projection as
+    float8_e4m3fn with its float32 `weight_scale_inv`, quantized where it
+    lies (on the card for a large model), the rest as given. Returns the
+    bytes of tensor data written."""
+    out = {}
+    for name, t in _hf_tensors(config, params).items():
+        if _quantized(name, t):
+            w, s = quant_fp8_blockwise(t)
+            out[name] = w
+            out[name + "_scale_inv"] = s
+        else:
+            out[name] = t
+    return write_checkpoint(model_dir, dict(config, quantization_config=dict(
+        FP8_CONFIG)), out, shards)
+
+
+def write_gptq_model(model_dir: str, config: dict, params: dict,
+                     seed: int = 0, group_size: int = 128,
+                     desc_act: bool = False, shards: int = 1) -> int:
+    """An AutoGPTQ 4-bit checkpoint: each projection [O, I] as seeded
+    nibbles, int32 `qweight` [I/8, O] and `qzeros` [I/group, O/8], float16
+    `scales` [I/group, O] in [0.002, 0.004) (weights about the init's
+    0.02 spread), and with desc_act a `g_idx` [I] that permutes the
+    groups; the other tensors from `params` in float16."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def words(*shape):
+        return torch.randint(-2 ** 31, 2 ** 31, shape, generator=gen,
+                             dtype=torch.int64).to(torch.int32)
+    out = {}
+    for name, t in _hf_tensors(config, params).items():
+        if not _quantized(name, t):
+            out[name] = t.to(torch.float16)
+            continue
+        o, i = t.shape
+        if i % group_size or o % 8:
+            raise ValueError(f"{name} {tuple(t.shape)} does not fit groups "
+                             f"of {group_size} and 8 nibbles a word")
+        groups = i // group_size
+        stem = name[:-len(".weight")]
+        out[f"{stem}.qweight"] = words(i // 8, o)
+        out[f"{stem}.qzeros"] = words(groups, o // 8)
+        out[f"{stem}.scales"] = (0.002 + 0.002 * torch.rand(
+            (groups, o), generator=gen)).to(torch.float16)
+        if desc_act:
+            seq = torch.arange(i, dtype=torch.int32) // group_size
+            out[f"{stem}.g_idx"] = seq[torch.randperm(i, generator=gen)]
+    qc = {"quant_method": "gptq", "bits": 4, "group_size": group_size,
+          "desc_act": desc_act, "sym": False, "true_sequential": True}
+    return write_checkpoint(model_dir, dict(config, quantization_config=qc),
+                            out, shards)
+
+
+# ggml types of a Q4_K_M-style mix: Q4_K, with Q6_K for these stems
+Q4_K_M_HIGH = ("attn_v", "ffn_down", "token_embd", "output")
+# per quantized type: the spread of its f16 d (and dmin) that gives
+# weights about the init's 0.02 spread from uniform random quants
+_GGUF_D = {gguf.GGML_Q8_0: (2.7e-4, 0.0), gguf.GGML_Q4_K: (1e-4, 7.5e-4),
+           gguf.GGML_Q6_K: (1.5e-5, 0.0)}
+
+
+def _gguf_blocks(ggml_type: int, n: int, rng) -> bytes:
+    """n values of seeded raw blocks of a quantized type: random quants
+    and scales, each block's d (and dmin) a finite f16 around _GGUF_D."""
+    per, nbytes = gguf.BLOCKS[ggml_type]
+    nb = n // per
+    b = rng.integers(0, 256, (nb, nbytes), dtype=np.uint8)
+    d0, m0 = _GGUF_D[ggml_type]
+    d = (d0 * rng.uniform(0.5, 1.5, nb)).astype(np.float16).view(np.uint8)
+    d = d.reshape(nb, 2)
+    if ggml_type == gguf.GGML_Q6_K:
+        b[:, 208:210] = d
+    else:
+        b[:, 0:2] = d
+    if m0:
+        b[:, 2:4] = (m0 * rng.uniform(0.5, 1.5, nb)).astype(
+            np.float16).view(np.uint8).reshape(nb, 2)
+    return b.tobytes()
+
+
+def _gguf_str(s: str) -> bytes:
+    b = s.encode()
+    return struct.pack("<Q", len(b)) + b
+
+
+def _gguf_kv(key: str, value) -> bytes:
+    if isinstance(value, str):
+        return _gguf_str(key) + struct.pack("<I", 8) + _gguf_str(value)
+    if isinstance(value, float):
+        return _gguf_str(key) + struct.pack("<If", 6, value)
+    return _gguf_str(key) + struct.pack("<II", 4, int(value))
+
+
+def _gguf_tensor_names(config: dict) -> dict[str, tuple[int, ...]]:
+    """llama.cpp's qwen3 tensor names -> torch-layout shapes [out, in]."""
+    c = config_from_hf_dict(config)
+    h, i, v = c.hidden_size, c.intermediate_size, c.vocab_size
+    names = {"token_embd.weight": (v, h), "output_norm.weight": (h,)}
+    if not c.tie_word_embeddings:
+        names["output.weight"] = (v, h)
+    for n in range(c.num_hidden_layers):
+        for stem, shape in (("attn_norm", (h,)), ("attn_q", (c.size_q, h)),
+                            ("attn_k", (c.size_kv, h)),
+                            ("attn_v", (c.size_kv, h)),
+                            ("attn_output", (h, c.size_q)),
+                            ("attn_q_norm", (c.head_dim,)),
+                            ("attn_k_norm", (c.head_dim,)),
+                            ("ffn_norm", (h,)), ("ffn_gate", (i, h)),
+                            ("ffn_up", (i, h)), ("ffn_down", (h, i))):
+            names[f"blk.{n}.{stem}.weight"] = shape
+    return names
+
+
+def write_gguf_model(model_dir: str, config: dict, seed: int = 0,
+                     mix: str = "q8_0") -> int:
+    """A GGUF v3 file (arch `qwen3`, alignment 32) at the config's widths:
+    every matrix as seeded raw blocks of Q8_0 (mix "q8_0") or of Q4_K,
+    with Q6_K for Q4_K_M_HIGH (mix "q4_k_m"); the norms F32 around 1; the
+    metadata llama.cpp writes for qwen3 (head_dim as key_length, no
+    vocab_size: the embedding's shape gives it). The tokenizer.json is
+    the caller's (write_tokenizer). Returns the file's bytes."""
+    c = config_from_hf_dict(config)
+    rng = np.random.default_rng(seed)
+    meta = {"general.architecture": "qwen3", "general.alignment": 32,
+            "qwen3.block_count": c.num_hidden_layers,
+            "qwen3.context_length": c.max_seq_len,
+            "qwen3.embedding_length": c.hidden_size,
+            "qwen3.feed_forward_length": c.intermediate_size,
+            "qwen3.attention.head_count": c.num_attention_heads,
+            "qwen3.attention.head_count_kv": c.num_key_value_heads,
+            "qwen3.attention.key_length": c.head_dim,
+            "qwen3.attention.value_length": c.head_dim,
+            "qwen3.attention.layer_norm_rms_epsilon": float(c.rms_norm_eps),
+            "qwen3.rope.freq_base": float(c.rope_theta)}
+    if c.eos_token_ids:
+        meta["tokenizer.ggml.eos_token_id"] = c.eos_token_ids[0]
+    infos, blobs, offset = [], [], 0
+    for name, shape in _gguf_tensor_names(config).items():
+        n = int(np.prod(shape))
+        if len(shape) == 1:
+            ttype = gguf.GGML_F32
+            data = (1.0 + 0.2 * rng.standard_normal(n)).astype(
+                np.float32).tobytes()
+        else:
+            stem = name.split(".")[-2]
+            ttype = gguf.GGML_Q8_0 if mix == "q8_0" else (
+                gguf.GGML_Q6_K if stem in Q4_K_M_HIGH else gguf.GGML_Q4_K)
+            data = _gguf_blocks(ttype, n, rng)
+        dims = tuple(reversed(shape))
+        infos.append(_gguf_str(name) + struct.pack("<I", len(dims))
+                     + struct.pack(f"<{len(dims)}Q", *dims)
+                     + struct.pack("<IQ", ttype, offset))
+        pad = b"\0" * ((-len(data)) % 32)
+        blobs += [data, pad]
+        offset += len(data) + len(pad)
+    kvs = [_gguf_kv(k, v) for k, v in meta.items()]
+    head = struct.pack("<IIQQ", gguf.GGUF_MAGIC, 3, len(infos), len(kvs))
+    body = head + b"".join(kvs) + b"".join(infos)
+    os.makedirs(model_dir, exist_ok=True)
+    path = os.path.join(model_dir, "model.gguf")
+    with open(path, "wb") as f:
+        f.write(body + b"\0" * ((-len(body)) % 32))
+        for blob in blobs:
+            f.write(blob)
+    return os.path.getsize(path)
 
 
 def learn_merges(words: dict[tuple[str, ...], int],

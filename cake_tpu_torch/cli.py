@@ -1,16 +1,20 @@
 """Command line (counterpart of cake_tpu/cli.py, `serve` and `run`).
 
     python -m cake_tpu_torch.cli serve (MODEL | --flagship) [--arch A]
-        [--dtype D] [--seed N] [--port P] [--cpu] [--prefix-cache-mb MB]
-        [--kv-blocks N] [--kv-block-tokens T] [--preempt-mode M]
+        [--dtype D] [--seed N] [--port P] [--cpu] [--fp8-native]
+        [--prefix-cache-mb MB] [--kv-blocks N] [--kv-block-tokens T]
+        [--preempt-mode M]
     python -m cake_tpu_torch.cli run (MODEL | --flagship) "prompt"
-        [--max-tokens N] [--temperature T] [--seed N]
+        [--max-tokens N] [--temperature T] [--seed N] [--fp8-native]
 
-MODEL is a local HF-layout checkpoint directory or a repo id already in
-the local Hugging Face cache (runtime.build_text_model), served with its
-own tokenizer.json and chat template; `--arch` overrides its config's
-architecture. `--flagship` is the other choice: the Qwen3-0.6B shape with
-seeded random weights and the byte tokenizer; `--layers` cuts its depth.
+MODEL is a local HF-layout checkpoint directory (FP8 block-wise, AutoGPTQ
+4-bit or unquantized), a directory with a GGUF file, or a repo id already
+in the local Hugging Face cache (runtime.build_text_model), served with
+its own tokenizer.json and chat template; `--arch` overrides its config's
+architecture, and `--fp8-native` keeps an FP8 checkpoint's projections at
+1 byte per parameter on the card. `--flagship` is the other choice: the
+Qwen3-0.6B shape with seeded random weights and the byte tokenizer;
+`--layers` cuts its depth.
 The model runs on `cuda` unless `--cpu` is given. `serve` keeps the
 reference's defaults: the shared-prefix cache on at 256 MB, and a
 contiguous KV pool unless `--kv-blocks` asks for a paged one, whose
@@ -89,18 +93,24 @@ def _model_args(p: argparse.ArgumentParser) -> None:
                    help="seeds the sampling keys (and the flagship's "
                         "random weights)")
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
+    p.add_argument("--fp8-native", action="store_true",
+                   help="keep an FP8 checkpoint's weights 1 byte/param on "
+                        "the card, dequantized per layer by the kernel")
 
 
 def load_model(args, max_cache_len: int = 2048):
     """(model, tokenizer, model_id) of the parsed arguments."""
     device = "cpu" if args.cpu else None
     if args.flagship:
+        if args.fp8_native:
+            raise ValueError("--fp8-native requires an FP8 checkpoint "
+                             "(the flagship has random bf16 weights)")
         model = build_flagship(args.layers, args.dtype, args.seed, device)
         return model, model.tokenizer, "cake-tpu-torch"
     from .runtime import build_text_model
     return build_text_model(args.model, args.dtype, args.arch,
                             max_cache_len=max_cache_len, seed=args.seed,
-                            device=device)
+                            device=device, fp8_native=args.fp8_native)
 
 
 def supervisor_knobs(env) -> dict:

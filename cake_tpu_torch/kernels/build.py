@@ -28,7 +28,8 @@ BUILD_DIR = PACKAGE_DIR.parent / "build"
 # kernel name -> source file under csrc/
 KERNELS = {"flash_attn": "flash_attn.cu",
            "flash_attn_wgmma": "flash_attn_wgmma.cu",
-           "paged_decode": "paged_decode.cu"}
+           "paged_decode": "paged_decode.cu",
+           "fp8_dequant": "fp8_dequant.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

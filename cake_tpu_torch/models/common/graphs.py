@@ -194,11 +194,12 @@ class SpecCarries:
 
 def _launch_cells() -> list[tuple[dict, str]]:
     """(dict, key) of every kernel wrapper's launch count."""
-    from ...ops import flash, paged_attention
+    from ...ops import flash, fp8, paged_attention
     cells = [(modes, m) for modes in flash.flash_attention.launches.values()
              for m in modes]
     for pa in (paged_attention.paged_decode_attention.launches,
-               paged_attention.paged_verify_attention.launches):
+               paged_attention.paged_verify_attention.launches,
+               fp8.dequant_fp8_blockwise.launches):
         cells += [(pa, r) for r in pa]
     return cells
 

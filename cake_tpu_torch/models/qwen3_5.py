@@ -252,13 +252,14 @@ def load_gdn_params(loader, lp: str) -> dict:
     """A linear layer's parameters under `{lp}.linear_attn.`: in_proj
     fused, as HF Qwen3-Next's qkvz + ba, or split qkv / a / b / z; conv1d
     as [C, 1, K] or [C, K, 1]; A_log and dt_bias in float32; the gated
-    norm's weight as stored."""
+    norm's weight as stored. Every tensor loads dense (a native FP8 one
+    dequantized), as the reference's loader reads them."""
     cfg = loader.cfg
     base = f"{lp}.linear_attn"
-    get = loader._get
-    if f"{base}.in_proj.weight" in loader.st:
+    get = loader._get_dense
+    if loader._has(f"{base}.in_proj.weight"):
         in_proj = get(f"{base}.in_proj.weight")
-    elif f"{base}.in_proj_qkvz.weight" in loader.st:
+    elif loader._has(f"{base}.in_proj_qkvz.weight"):
         in_proj = flat_from_hf_qkvz_ba(cfg, get(f"{base}.in_proj_qkvz.weight"),
                                        get(f"{base}.in_proj_ba.weight"))
     else:

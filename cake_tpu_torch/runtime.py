@@ -5,9 +5,12 @@ local branch of build_text_model).
     model, tokenizer, model_id = build_text_model("/path/to/dir")
 
 The name is a local HF-layout directory (config.json, *.safetensors,
-optionally tokenizer.json and tokenizer_config.json) or a repo id already
-in the local Hugging Face cache. Nothing is downloaded; GGUF files and
-quantized checkpoints raise (ROADMAP module 11).
+optionally tokenizer.json and tokenizer_config.json), a directory with a
+GGUF file (its config read from the file's metadata) or a repo id already
+in the local Hugging Face cache. Nothing is downloaded. Quantized
+checkpoints load through their strategy (utils/quant.py): FP8 block-wise
+(dequantized at load, or with fp8_native=True kept at 1 byte per
+parameter and dequantized per use by the kernel), AutoGPTQ 4-bit, GGUF.
 """
 from __future__ import annotations
 
@@ -23,8 +26,9 @@ from .tokenizer import PromptError, continuation_parts, render_chat
 from .utils.bpe import BpeTokenizer
 from .utils.chat_template import ChatTemplate, special_tokens, template_source
 from .utils.hub import resolve_model
-from .utils.loaders import load_model_params
-from .utils.quant import detect_quantization
+from .utils.loaders import ParamLoader, load_model_params
+from .utils.quant import (Fp8Quantization, NoQuantization,
+                          detect_quantization, fp8_native_quant)
 
 log = logging.getLogger(__name__)
 
@@ -85,39 +89,58 @@ class CakeTokenizer:
         return self.encode_chat_prompt(self.apply_chat(head) + partial)
 
 
+def _gguf_files(model_dir: str) -> list[str]:
+    return sorted(f for f in os.listdir(model_dir) if f.endswith(".gguf")) \
+        if os.path.isdir(model_dir) else []
+
+
 def load_config_and_quant(model_dir: str, arch: str | None = None):
-    """The ModelConfig of a directory's config.json, once its quantization
-    check has passed (the port loads unquantized checkpoints only)."""
+    """(ModelConfig, quantization strategy, raw config dict) of a
+    directory: from config.json, else from its GGUF file's metadata."""
     cfg_path = os.path.join(model_dir, "config.json")
     if os.path.exists(cfg_path):
         with open(cfg_path) as f:
             raw = json.load(f)
-        detect_quantization(raw)
-        return config_from_hf_dict(raw, arch)
-    if os.path.isdir(model_dir) and any(f.endswith(".gguf")
-                                        for f in os.listdir(model_dir)):
-        raise NotImplementedError(
-            f"{model_dir} holds GGUF weights only: GGUF loading is not "
-            "ported yet (ROADMAP module 11)")
+        return config_from_hf_dict(raw, arch), detect_quantization(raw), raw
+    gguf = _gguf_files(model_dir)
+    if gguf:
+        from .utils.gguf import GgufReader, gguf_config_dict
+        raw = gguf_config_dict(GgufReader(os.path.join(model_dir, gguf[0])))
+        return config_from_hf_dict(raw, arch), NoQuantization(), raw
     raise FileNotFoundError(f"no config.json or .gguf in {model_dir}")
 
 
 def build_text_model(model: str, dtype: str = "bf16", arch: str | None = None,
                      max_cache_len: int = 2048, seed: int = 42,
-                     device=None):
+                     device=None, fp8_native: bool = False):
     """(TextModel, CakeTokenizer, model_id) of a local directory or a
     cached repo id, on `device` (default `cuda`). model_id is the name's
-    last path component."""
+    last path component. fp8_native keeps an FP8 checkpoint's projections
+    at 1 byte per parameter (raises for any other checkpoint)."""
     dev = resolve_device(device)
     model_dir = resolve_model(model)
-    cfg = load_config_and_quant(model_dir, arch)
+    cfg, quant, _ = load_config_and_quant(model_dir, arch)
+    if fp8_native:
+        if not isinstance(quant, Fp8Quantization):
+            raise ValueError("--fp8-native requires an FP8 checkpoint "
+                             f"(detected quantization: {quant.name})")
+        quant = fp8_native_quant()
     dt = parse_dtype(dtype)
     tokenizer = CakeTokenizer(model_dir)
     model_id = os.path.basename(model.rstrip("/"))
     t = time.perf_counter()
-    params = load_model_params(cfg, model_dir, dt, dev)
-    log.info("loaded %s (%s, %d layers) in %.2fs", model_id, cfg.arch,
-             cfg.num_hidden_layers, time.perf_counter() - t)
+    gguf = _gguf_files(model_dir)
+    if gguf and not any(f.endswith(".safetensors")
+                        for f in os.listdir(model_dir)):
+        from .utils.gguf import GgufStorage
+        with GgufStorage(os.path.join(model_dir, gguf[0]),
+                         cfg.model_prefix) as storage:
+            params = ParamLoader(cfg, storage, dt, dev, quant).load()
+    else:
+        params = load_model_params(cfg, model_dir, dt, dev, quant)
+    log.info("loaded %s (%s, %d layers, quantization %s%s) in %.2fs",
+             model_id, cfg.arch, cfg.num_hidden_layers, quant.name,
+             ", native" if fp8_native else "", time.perf_counter() - t)
     gen = TextModel(cfg, params, tokenizer=tokenizer, dtype=dt, device=dev,
                     seed=seed, max_cache_len=max_cache_len)
     return gen, tokenizer, model_id

@@ -12,8 +12,19 @@ on the device. Each tensor is read from the file's map, copied to the
 device and cast there, one at a time. A tensor the config needs and the
 checkpoint lacks raises KeyError with its name; tensors the checkpoint
 has and the model does not read are logged, as the reference's
-`mapping.coverage_report` does. Quantization is checked before, by
-`runtime.load_config_and_quant`.
+`mapping.coverage_report` does.
+
+A quantization strategy (utils/quant.py, from
+`runtime.load_config_and_quant`) intercepts every read by name, as the
+reference's `_get` hook does: FP8 (dequantized at load, or kept native
+as {"fp8", "scale_inv"}), AutoGPTQ 4-bit, or none; a GGUF file plugs in
+as the storage (utils/gguf.py: GgufStorage). Tensors that are sliced,
+stacked, concatenated or consumed outside `linear` (fused qkv / gate_up
+splits, the MoE router and expert banks, the embeddings, every Gated
+DeltaNet tensor) load through `_get_dense`, which dequantizes a native
+FP8 pair (on a card, through the dequant kernel) and warns once, as the
+reference's does; the shared expert's gate and the head go through
+`_get` and may stay native.
 
 Gemma3 and Qwen3.5 checkpoints store each RMS-norm weight as w for a norm
 that multiplies by 1 + w (`residual_rms_norm`): the loader adds 1 in
@@ -24,34 +35,61 @@ loads as stored.
 """
 from __future__ import annotations
 
+import json
 import logging
+import os
 
 import torch
 
 from ..models.common.config import ModelConfig
 from ..models.common.layers import NORM_NAMES
 from ..models.qwen3_5 import load_gdn_params
+from ..ops.fp8 import dequant_fp8_blockwise, is_fp8
+from .quant import NoQuantization, detect_quantization
 from .safetensors_io import TensorStorage
 
 log = logging.getLogger(__name__)
 
 
 class ParamLoader:
-    def __init__(self, cfg: ModelConfig, storage: TensorStorage,
-                 dtype: torch.dtype = torch.bfloat16, device="cpu"):
+    _warned_dense = False
+
+    def __init__(self, cfg: ModelConfig, storage, dtype: torch.dtype =
+                 torch.bfloat16, device="cpu", quant=None):
         self.cfg = cfg
         self.st = storage
         self.dtype = dtype
         self.device = device
+        self.quant = quant or NoQuantization()
         self.used: set[str] = set()
 
-    def _get(self, name: str, dtype: torch.dtype | None = None
-             ) -> torch.Tensor:
-        if name not in self.st:
+    def _has(self, name: str) -> bool:
+        return self.quant.has(self.st, name)
+
+    def _get(self, name: str, dtype: torch.dtype | None = None):
+        """The tensor through the quantization strategy: a tensor, or a
+        native FP8 pair."""
+        if not self._has(name):
             raise KeyError(f"checkpoint tensor {name} is missing "
                            f"(arch {self.cfg.arch})")
-        self.used.add(name)
-        return self.st.read(name, self.device, dtype or self.dtype)
+        self.used.update(self.quant.sources(self.st, name))
+        return self.quant.load(self.st, name, self.device,
+                               dtype or self.dtype)
+
+    def _get_dense(self, name: str, dtype: torch.dtype | None = None
+                   ) -> torch.Tensor:
+        """Like _get, but a native FP8 pair is dequantized: its consumer
+        slices, stacks or reads it outside linear()."""
+        w = self._get(name, dtype)
+        if not is_fp8(w):
+            return w
+        if not ParamLoader._warned_dense:
+            log.warning("fp8-native: %s loads dense (sliced, stacked or "
+                        "not a matmul's weight); 1 byte/param residency "
+                        "applies to plain projections only", name)
+            ParamLoader._warned_dense = True
+        return dequant_fp8_blockwise(w["fp8"], w["scale_inv"],
+                                     dtype or self.dtype)
 
     def _weight(self, name: str) -> dict:
         return {"weight": self._get(name)}
@@ -65,8 +103,8 @@ class ParamLoader:
         sq, skv = cfg.size_q, cfg.size_kv
         fused = f"{lp}.self_attn.qkv_proj.weight"
         p: dict = {}
-        if cfg.fused_qkv and fused in self.st:
-            w = self._get(fused)
+        if cfg.fused_qkv and self._has(fused):
+            w = self._get_dense(fused)
             if w.shape[0] != sq + 2 * skv:
                 raise ValueError(f"{fused}: {w.shape[0]} rows, expected "
                                  f"{sq} + 2 x {skv}")
@@ -77,7 +115,7 @@ class ParamLoader:
             for proj in ("q_proj", "k_proj", "v_proj"):
                 p[proj] = self._weight(f"{lp}.self_attn.{proj}.weight")
                 bias = f"{lp}.self_attn.{proj}.bias"
-                if cfg.qkv_bias and bias in self.st:
+                if cfg.qkv_bias and self._has(bias):
                     p[proj]["bias"] = self._get(bias)
         p["o_proj"] = self._weight(f"{lp}.self_attn.o_proj.weight")
         if cfg.qk_norm:
@@ -87,8 +125,8 @@ class ParamLoader:
 
     def _mlp(self, mp: str) -> dict:
         fused = f"{mp}.gate_up_proj.weight"
-        if self.cfg.fused_qkv and fused in self.st:
-            w = self._get(fused)
+        if self.cfg.fused_qkv and self._has(fused):
+            w = self._get_dense(fused)
             i = w.shape[0] // 2
             return {"gate_proj": {"weight": w[:i].clone()},
                     "up_proj": {"weight": w[i:].clone()},
@@ -100,12 +138,12 @@ class ParamLoader:
         """The router, the experts stacked into banks (each expert's
         tensor copied into its row on the device), the shared expert."""
         cfg = self.cfg
-        p: dict = {"gate": self._weight(f"{mp}.gate.weight")}
+        p: dict = {"gate": {"weight": self._get_dense(f"{mp}.gate.weight")}}
         banks = {}
         for proj in ("gate_proj", "up_proj", "down_proj"):
             bank = None
             for e in range(cfg.num_experts):
-                w = self._get(f"{mp}.experts.{e}.{proj}.weight")
+                w = self._get_dense(f"{mp}.experts.{e}.{proj}.weight")
                 if bank is None:
                     bank = torch.empty((cfg.num_experts, *w.shape),
                                        dtype=w.dtype, device=w.device)
@@ -137,10 +175,11 @@ class ParamLoader:
         cfg, pre = self.cfg, self.cfg.model_prefix
         params = {"layers": [self._layer(i)
                              for i in range(cfg.num_hidden_layers)],
-                  "embed_tokens": self._weight(f"{pre}.embed_tokens.weight"),
+                  "embed_tokens": {"weight": self._get_dense(
+                      f"{pre}.embed_tokens.weight")},
                   "norm": self._norm(f"{pre}.norm.weight")}
         if not cfg.tie_word_embeddings:
-            head = ("lm_head.weight" if "lm_head.weight" in self.st
+            head = ("lm_head.weight" if self._has("lm_head.weight")
                     else f"{pre}.lm_head.weight")
             params["lm_head"] = self._weight(head)
         unused = sorted(set(self.st.names()) - self.used)
@@ -162,7 +201,11 @@ def load_rms_norm_weight(weight: torch.Tensor,
 
 def load_model_params(cfg: ModelConfig, model_dir: str,
                       dtype: torch.dtype = torch.bfloat16,
-                      device="cpu") -> dict:
-    """The parameter tree of an unquantized checkpoint directory."""
+                      device="cpu", quant=None) -> dict:
+    """The parameter tree of a safetensors checkpoint directory, through
+    `quant` (default: the strategy its config.json names)."""
+    if quant is None:
+        with open(os.path.join(model_dir, "config.json")) as f:
+            quant = detect_quantization(json.load(f))
     with TensorStorage.from_model_dir(model_dir) as storage:
-        return ParamLoader(cfg, storage, dtype, device).load()
+        return ParamLoader(cfg, storage, dtype, device, quant).load()

@@ -7,7 +7,10 @@ the port's tensors: same keys, on `device`, in `dtype`. The reference's
 precomputed `rope` tables are dropped (the port computes its own), and
 `ml_dtypes.bfloat16` arrays, which torch cannot take directly, go through
 float32. A Gated DeltaNet's A_log and dt_bias stay float32 whatever the
-model dtype, as the reference's loader keeps them.
+model dtype, as the reference's loader keeps them. A native FP8 weight,
+the reference's {"fp8", "scale_inv"} pair, stays one: its
+`float8_e4m3fn` bytes cross as uint8 and are viewed as
+torch.float8_e4m3fn, its scales stay float32.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 
 from ..models.common.config import ModelConfig
 from ..models.qwen3_5 import F32_PARAMS
+from ..ops.fp8 import is_fp8
 
 DROPPED_KEYS = ("rope",)
 
@@ -30,7 +34,16 @@ def _tensor(arr, device, dtype) -> torch.Tensor:
     return t.to(device)
 
 
+def _fp8(arr, device) -> torch.Tensor:
+    a = np.ascontiguousarray(np.asarray(arr)).view(np.uint8)
+    return torch.from_numpy(a.copy()).view(torch.float8_e4m3fn).to(device)
+
+
 def _convert(node, device, dtype):
+    if is_fp8(node):
+        return {"fp8": _fp8(node["fp8"], device),
+                "scale_inv": _tensor(node["scale_inv"], device,
+                                     torch.float32)}
     if isinstance(node, dict):
         return {k: _convert(v, device,
                             torch.float32 if k in F32_PARAMS else dtype)

@@ -179,9 +179,35 @@ Phases (any failure exits non-zero and prints no result line):
      written as an HF checkpoint (in_proj_qkvz / in_proj_ba,
      experts.{e}.*), loaded bit for bit and served through `cli serve
      DIR`;
+  14. quantized checkpoints: (a) the FP8 dequant kernel
+     (csrc/fp8_dequant.cu) against its plain version at the flagship's
+     q_proj and gate_proj, Qwen3-8B's gate_proj and down_proj, cropped
+     edge blocks (200 x 300), a tail (129 x 17) and every e4m3 code, bf16
+     and f32, each launched twice, bit for bit (NaN at the same places),
+     timed beside the plain version and the bound; (b) the flagship in
+     Qwen's FP8 layout (float8_e4m3fn projections with 128 x 128
+     weight_scale_inv), loaded at load and native through
+     build_text_model (device memory after each): 2 layers in f32 on the
+     card against the CPU; in bf16 native logits and tokens equal at
+     load's, 16 decode replays equal eager steps, the prefill graphs the
+     eager chunks and the captured verify (k 6) the eager verify, in both
+     pools, with replay device ms native beside at load; served through
+     `cli serve DIR --fp8-native`, contiguous and paged (4 chats + 1 SSE,
+     each equal alone), tokens equal to the at-load server's; (c)
+     Qwen3-8B's widths (assumed) at its full 36 layers in the same
+     layout, drawn and quantized on the card: memory native against at
+     load, native tokens equal at load's, 8 decode replays equal eager in
+     both pools with replay device ms native beside at load, then served
+     native, paged: 4 concurrent chats each equal alone; (d) AutoGPTQ
+     4-bit (group 128; desc_act false, and true with a permuted g_idx)
+     and (e) GGUF (Q8_0, and a Q4_K_M-style Q4_K / Q6_K mix) at the
+     flagship's widths and depth, each served through `cli serve DIR`,
+     contiguous and paged, its card parameters equal to a CPU load bit
+     for bit, each chat equal alone;
   then prints the whole run's seconds, the kernels line, the card line,
   and the result line last. `--only 12` runs phases 1, 2 and 12 alone,
-  `--only 13` phases 1, 2 and 13, and neither prints a result line.
+  `--only 13` phases 1, 2 and 13, `--only 14` phases 1, 2 and 14, and
+  none of them prints a result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -3438,6 +3464,502 @@ def qnext_kernel_rows(q: dict) -> list:
     return rows
 
 
+# -- phase 14: quantized checkpoints (FP8, AutoGPTQ, GGUF) -------------------
+
+FP8_TIMED = ("q_proj_0.6b", "gate_proj_8b", "down_proj_8b")
+Q8B_HEADS = dict(hq=32, hkv=8, d=128)     # Qwen3-8B's attention
+FP8_STEPS = 16          # decode replays against eager steps, the flagship
+Q8B_STEPS = 8           # and Qwen3-8B's widths at 36 layers
+
+
+def phase_fp8_kernel(card: str) -> dict:
+    """14(a). The dequant kernel against its plain version at every shape
+    of bench/fp8_cases.SHAPES, bf16 and f32, launched twice, bit for bit
+    (NaN at the same places); timed at FP8_TIMED beside the plain
+    version and the bound. Returns {"shape.route": {...}}."""
+    import torch
+    from cake_tpu_torch.bench.fp8_cases import (SHAPES, dequant_bound_ms,
+                                                dequant_bytes, fp8_case,
+                                                same_bits)
+    from cake_tpu_torch.bench.timing import device_ms
+    from cake_tpu_torch.ops import fp8
+    out = {}
+    for name, o, i in SHAPES:
+        w, s = fp8_case(o, i, seed=o + i)
+        for dt in (torch.bfloat16, torch.float32):
+            route = fp8.ROUTES[dt]
+            first = fp8.dequant_fp8_blockwise_kernel(w, s, dt)
+            second = fp8.dequant_fp8_blockwise_kernel(w, s, dt)
+            plain = fp8.dequant_fp8_blockwise_plain(w, s, dt)
+            torch.cuda.synchronize()
+            nan = torch.isnan(plain)
+            err = (first.float() - plain.float())[~nan].abs().max().item() \
+                if (~nan).any() else 0.0
+            same = same_bits(first, plain)
+            twice = torch.equal(first.view(torch.uint8),
+                                second.view(torch.uint8))
+            entry = {"max_abs_err": err, "nan": int(nan.sum())}
+            line = (f"fp8 dequant {name} [{o}, {i}] -> {route}: kernel == "
+                    f"plain bit for bit {same} (max_abs_err {err:.1e}, "
+                    f"{entry['nan']} NaN at the same places), launched "
+                    f"twice identical {twice}")
+            if name in FP8_TIMED:
+                entry.update(
+                    ms=device_ms(lambda: fp8.dequant_fp8_blockwise_kernel(
+                        w, s, dt)),
+                    plain_ms=device_ms(
+                        lambda: fp8.dequant_fp8_blockwise_plain(w, s, dt),
+                        iters=10),
+                    bound_ms=dequant_bound_ms(o, i, dt), bound_by="bytes")
+                line += (f"; device ms {entry['ms']:.5f} "
+                         f"({dequant_bytes(o, i, dt) / entry['ms'] / 1e9:.3f}"
+                         f" TB/s), plain {entry['plain_ms']:.5f}, bound "
+                         f"{entry['bound_ms']:.5f} (bytes); on {card}")
+            print(line, flush=True)
+            check(same and twice, f"fp8 dequant {name} {route}: kernel "
+                  f"differs from plain ({same}) or from itself ({twice})")
+            out[f"{name}.{route}"] = entry
+        del w, s
+    return out
+
+
+def _load_measured(d: str, nbytes: int, label: str, card: str,
+                   dtype: str = "bf16", **kw):
+    """build_text_model on the card, printing the load's seconds, GB/s of
+    checkpoint bytes and the device memory it took. Returns (model,
+    {seconds, gb_s, memory_gb})."""
+    import torch
+    from cake_tpu_torch.runtime import build_text_model
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    model, _, _ = build_text_model(d, dtype, device="cuda",
+                                   max_cache_len=4096, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    mem = (torch.cuda.memory_allocated() - before) / 1e9
+    print(f"{label}: {nbytes / 1e9:.3f} GB of checkpoint loaded through "
+          f"build_text_model in {secs:.2f} s = {nbytes / 1e9 / secs:.2f} "
+          f"GB/s (page cache warm); torch.cuda.memory_allocated() rose by "
+          f"{mem:.3f} GB to {torch.cuda.memory_allocated() / 1e9:.3f} GB; "
+          f"on {card}", flush=True)
+    return model, {"seconds": secs, "gb_s": nbytes / 1e9 / secs,
+                   "memory_gb": mem}
+
+
+def _native_projections(model) -> bool:
+    """Every attention and MLP projection a float8_e4m3fn pair."""
+    import torch
+    from cake_tpu_torch.ops.fp8 import is_fp8
+    ws = [layer[blk][p]["weight"] for layer in model.params["layers"]
+          for blk, projs in (("self_attn", ("q_proj", "k_proj", "v_proj",
+                                            "o_proj")),
+                             ("mlp", ("gate_proj", "up_proj", "down_proj")))
+          for p in projs]
+    return all(is_fp8(w) and w["fp8"].dtype == torch.float8_e4m3fn
+               for w in ws)
+
+
+def _replay_ms(model, kv_blocks: int, steps: int, label: str) -> float:
+    """Capture the decode step over 4 slots (rows at 600 / 1100 / 300 and
+    one free), hold `steps` replays against eager steps, and return the
+    replay's device ms."""
+    from cake_tpu_torch.bench.graph_cases import build_state, graph_vs_eager
+    from cake_tpu_torch.bench.timing import device_ms
+    from cake_tpu_torch.ops.sampling import SamplingConfig
+    greedy = SamplingConfig(temperature=0.0)
+    sampled = SamplingConfig(temperature=0.8, top_k=50)
+    state = build_state(model, [600, 1100, None, 300],
+                        [greedy, sampled, greedy, greedy], 4096,
+                        kv_blocks=kv_blocks, seed=6)
+    r = graph_vs_eager(model, state, steps)
+    check(r["graph"].graph is not None and r["tokens_equal"]
+          and r["kv_equal"] and r["carries_equal"],
+          f"{label}: {steps} decode replays differ from eager steps")
+    ms = device_ms(r["graph"].step, iters=10)
+    print(f"{label}: {steps} decode replays == eager steps (tokens, KV "
+          f"bytes, carries); replay device ms {ms:.4f}", flush=True)
+    return ms
+
+
+def _serve_dir(d: str, label: str, extra=(), cpu_params=None,
+               alone: bool = True, stream: bool = True) -> list:
+    """`cli serve d` (4 slots, ctx 4096) with `extra` flags: the loaded
+    parameters equal `cpu_params` bit for bit when given; phase 5's 4
+    concurrent chats (and one SSE chat), all 200, each equal alone.
+    Returns the concurrent chats' tokens."""
+    bodies = [chat_body(i) for i in range(4)] + (
+        [chat_body(4, True)] if stream else [])
+    served = _cli_server(d, *extra)
+    try:
+        if cpu_params is not None:
+            diff = _tree_diff(served.app.state.model.params, cpu_params)
+            check(not diff, f"{label}: card parameters differ from the "
+                  f"CPU load's: {diff[:5]}")
+        results = served.concurrent(bodies)
+        _check_chats_any(results, label)
+        if alone:
+            _alone_equals_concurrent(served, bodies, results, label)
+        first = results[0]["resp"]
+        print(f"{label}: {len(bodies) - stream} concurrent chats"
+              f"{' + 1 SSE' if stream else ''}, all 200, "
+              f"{first['usage']['prompt_tokens']}-token prompts"
+              f"{', each equal alone' if alone else ''}"
+              f"{', parameters equal the CPU load bit for bit' if cpu_params is not None else ''}",
+              flush=True)
+        return [r["tokens"] for r in results]
+    finally:
+        served.close()
+
+
+def phase_fp8_flagship(card: str, workdir: str) -> dict:
+    """14(b). The flagship as a Qwen3-0.6B-FP8-layout checkpoint. Returns
+    {"f32": launches of the f32 parity run, "bf16": launches of the
+    native servers, memory and replay readings}."""
+    import torch
+    from cake_tpu_torch.bench import synth_checkpoint as sc
+    from cake_tpu_torch.bench.graph_cases import build_state, prefill_vs_eager
+    from cake_tpu_torch.bench.spec_cases import verify_vs_eager
+    from cake_tpu_torch.ops import fp8
+    from cake_tpu_torch.ops.sampling import SamplingConfig
+    from cake_tpu_torch.runtime import build_text_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    # f32 at 2 layers: the card against the CPU, contiguous and paged
+    d2 = os.path.join(workdir, "qwen3-0.6b-fp8-2")
+    cfg2 = sc.flagship_config(layers=2)
+    sc.write_fp8_model(d2, cfg2, sc.model_params(cfg2, seed=1))
+    cpu, _, _ = build_text_model(d2, "f32", device="cpu", fp8_native=True)
+    gpu, _, _ = build_text_model(d2, "f32", device="cuda", fp8_native=True)
+    ids = [int(x) for x in torch.randint(
+        0, cfg2["vocab_size"], (600,),
+        generator=torch.Generator().manual_seed(5))]
+    fp8.reset_launches()
+    lg, tg, _ = chunked_prefill_and_greedy(gpu, ids)
+    lp, tp, _ = paged_prefill_and_greedy(gpu, ids)
+    out["f32"] = fp8.launch_counts()["f32"]
+    lc, tc, _ = chunked_prefill_and_greedy(cpu, ids)
+    err, err_p = ((x - lc).abs().max().item() for x in (lg, lp))
+    print(f"fp8 flagship width, 2 layers, f32, native: 600-token chunked "
+          f"prefill + 16 greedy, card vs CPU: logits max_abs_err {err:.3e} "
+          f"contiguous, {err_p:.3e} paged (tol {LOGIT_TOL:g}); tokens "
+          f"identical {tg == tc} / {tp == tc}; f32 dequant launches "
+          f"{out['f32']}", flush=True)
+    check(err <= LOGIT_TOL and err_p <= LOGIT_TOL and tg == tc and tp == tc,
+          f"fp8 f32 parity: {err} / {err_p}, tokens {tg == tc} {tp == tc}")
+    check(out["f32"] > 0, "fp8 f32 parity: the dequant kernel never ran")
+    del cpu, gpu
+    shutil.rmtree(d2, ignore_errors=True)
+    # the full flagship, bf16: at load and native
+    d = os.path.join(workdir, "qwen3-0.6b-fp8")
+    config = sc.flagship_config()
+    t = time.perf_counter()
+    nbytes = sc.write_fp8_model(d, config, sc.model_params(config, seed=0),
+                                shards=2)
+    sc.write_tokenizer(d, sc.QWEN3_SPECIALS)
+    print(f"fp8 flagship: {config['num_hidden_layers']} layers written in "
+          f"Qwen's FP8 layout ({nbytes / 1e9:.3f} GB) in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    at_load, out["at_load"] = _load_measured(d, nbytes, "fp8 flagship at "
+                                             "load", card)
+    native, out["native"] = _load_measured(d, nbytes, "fp8 flagship native",
+                                           card, fp8_native=True)
+    check(_native_projections(native), "fp8 flagship: a projection of the "
+          "native tree is not float8_e4m3fn")
+    ids = ids[:300]
+    la, _ = at_load.prefill(at_load.new_cache(), ids)
+    ln, _ = native.prefill(native.new_cache(), ids)
+    ta, tn = at_load.generate(ids, 16)[0], native.generate(ids, 16)[0]
+    diff = (la - ln).abs().max().item()
+    print(f"fp8 flagship bf16: native logits == at-load logits bit for bit "
+          f"{torch.equal(la, ln)} (max diff {diff:.3e}), 16 greedy tokens "
+          f"identical {ta == tn}", flush=True)
+    check(diff <= BF16_TOL and ta == tn, "fp8 flagship: native differs "
+          f"from at load by {diff}, tokens {ta == tn}")
+    greedy = SamplingConfig(temperature=0.0)
+    sampled = SamplingConfig(temperature=0.8, top_k=50)
+    gen = torch.Generator().manual_seed(11)
+    pids = torch.randint(0, 256, (600,), generator=gen).tolist()
+    tenant = torch.randint(0, 256, (300,), generator=gen).tolist()
+    for mode, kv in (("contiguous", 0), ("paged", 1024)):
+        ms = {name: _replay_ms(m, kv, FP8_STEPS,
+                               f"fp8 flagship {name} graph {mode}")
+              for name, m in (("native", native), ("at_load", at_load))}
+        out[f"replay_ms_{mode}"] = ms
+        print(f"fp8 flagship decode replay {mode} (4 slots, 28 layers, "
+              f"bf16): device ms native {ms['native']:.4f}, at load "
+              f"{ms['at_load']:.4f} (x{ms['native'] / ms['at_load']:.2f}); "
+              f"on {card}", flush=True)
+        case = prefill_vs_eager(native, pids, slot=2, slots=4, ctx=4096,
+                                kv_blocks=kv, strict=True, tenant=tenant)
+        print(f"fp8 flagship native prefill graphs {mode}: "
+              f"{len(case.graphs.graphs)} programs captured (sync debug "
+              f"'error'); chunks {[x['key'] for x in case.results]} logits "
+              f"identical {[x['logits_equal'] for x in case.results]}, KV "
+              f"bytes identical {case.kv_equal}", flush=True)
+        check(all(x["logits_equal"] for x in case.results) and case.kv_equal,
+              f"fp8 flagship prefill graphs {mode}: replays differ")
+        del case
+        state = build_state(native, [600, 1100, None, 300],
+                            [greedy, sampled, greedy, greedy], 4096,
+                            kv_blocks=kv, seed=6)
+        v = verify_vs_eager(native, state, SPEC_K, FP8_STEPS,
+                            ["right", "wrong", "right", None], True)
+        print(f"fp8 flagship native verify graph {mode}: {FP8_STEPS} "
+              f"replays vs eager, k={SPEC_K}: packed ids and logits "
+              f"identical {v['equal']}, KV bytes {v['kv_equal']}, carries "
+              f"{v['carries_equal']}; accepted per row {v['accepted']}",
+              flush=True)
+        check(v["graph"].graph is not None and v["equal"] and v["kv_equal"]
+              and v["carries_equal"] and v["accepted"][0] > 0
+              and v["accepted"][1] == 0,
+              f"fp8 flagship verify graph {mode}: replays differ")
+        del state, v
+        torch.cuda.empty_cache()
+    del at_load, native
+    torch.cuda.empty_cache()
+    # served: native first (the kernel's main path, counted), then at load
+    fp8.reset_launches()
+    native_tokens = {
+        mode: _serve_dir(d, f"fp8 flagship served native {mode}",
+                         ("--fp8-native",) + extra)
+        for mode, extra in (("contiguous", ()),
+                            ("paged", ("--kv-blocks", "1024")))}
+    out["bf16"] = fp8.launch_counts()["bf16"]
+    for mode, extra in (("contiguous", ()),
+                        ("paged", ("--kv-blocks", "1024"))):
+        toks = _serve_dir(d, f"fp8 flagship served at load {mode}", extra,
+                          alone=False)
+        print(f"fp8 flagship served {mode}: native tokens == at-load tokens "
+              f"{toks == native_tokens[mode]}", flush=True)
+        check(toks == native_tokens[mode],
+              f"fp8 flagship served {mode}: native tokens differ")
+    print(f"fp8 flagship served native: bf16 dequant launches "
+          f"{out['bf16']}", flush=True)
+    check(out["bf16"] > 0, "fp8 flagship: the dequant kernel never ran")
+    shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+def phase_q8b_kernels(card: str) -> dict:
+    """14(c), first: the kernels Qwen3-8B's served path runs at its heads
+    (32/8, D 128, bf16): flash fresh (its prompts fit one 256-token chunk
+    and a masked tail) and paged decode, each against its plain version
+    and launched twice bit for bit, then timed beside the plain version,
+    the library call and the bound."""
+    import torch
+    from cake_tpu_torch.bench import paged_timing
+    from cake_tpu_torch.bench.paged_cases import case_args, paged_case
+    from cake_tpu_torch.ops import paged_attention as pa
+    from cake_tpu_torch.ops.flash import (flash_attention_kernel,
+                                          flash_attention_ref)
+    q, k, v, kw = flash_case("q8b_fresh", torch.bfloat16, **Q8B_HEADS)
+    got = flash_attention_kernel(q, k, v, **kw)
+    again = flash_attention_kernel(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = (got.float() - flash_attention_ref(q, k, v, **kw).float()
+           ).abs().max().item()
+    c = paged_case([600, 1100, 300, 2000], dtype=torch.bfloat16,
+                   device="cuda", seed=14, **Q8B_HEADS)
+    pgot = pa.paged_decode_attention_kernel(*case_args(c))
+    pagain = pa.paged_decode_attention_kernel(*case_args(c))
+    torch.cuda.synchronize()
+    rows = c["visible_rows"]
+    perr = (pgot[rows].float() - pa.paged_decode_attention_ref(
+        *case_args(c))[rows].float()).abs().max().item()
+    print(f"qwen3-8b heads 32/8 D 128, bf16: flash fresh max_abs_err "
+          f"{err:.3e}, two launches equal {torch.equal(got, again)}; paged "
+          f"decode rows at [600, 1100, 300, 2000] max_abs_err {perr:.3e}, "
+          f"two launches equal {torch.equal(pgot, pagain)} (tol "
+          f"{BF16_TOL:g})", flush=True)
+    check(err <= BF16_TOL and perr <= BF16_TOL and torch.equal(got, again)
+          and torch.equal(pgot, pagain),
+          f"qwen3-8b kernels: flash {err}, paged {perr}")
+    timings = {"flash.fresh": time_flash("q8b_fresh", torch.bfloat16,
+                                         Q8B_HEADS)}
+    t = paged_timing.measure(with_plain=True, shapes=(
+        ("bf16", "bfloat16", 620, Q8B_HEADS),))["bf16"]
+    check(t["max_abs_err"] <= BF16_TOL and t["same_bits"],
+          f"qwen3-8b paged timing: {t['max_abs_err']}")
+    print(f"qwen3-8b paged decode timing: 4 rows at p=620, bt 16, 32/8 D "
+          f"128, device ms: kernel {t['ms']:.5f} plain {t['plain_ms']:.5f} "
+          f"library {t['library_ms']:.5f}; bound_ms {t['bound_ms']:.5f} "
+          f"({t['bound_by']}); on {card}", flush=True)
+    timings["decode.bf16"] = t
+    return timings
+
+
+def phase_fp8_8b(card: str, workdir: str) -> dict:
+    """14(c). Qwen3-8B's widths at the full 36 layers in Qwen's FP8
+    layout: loaded native and at load (memory after each), native tokens
+    equal at-load tokens, Q8B_STEPS decode replays equal eager in both
+    pools (the replay's device ms native beside at load), then served
+    native over HTTP, paged: 4 concurrent chats each equal alone."""
+    import torch
+    from cake_tpu_torch.bench import synth_checkpoint as sc
+    from cake_tpu_torch.ops import flash, fp8
+    from cake_tpu_torch.ops import paged_attention as pa
+    out = {"timings": phase_q8b_kernels(card)}
+    d = os.path.join(workdir, "qwen3-8b-fp8")
+    config = sc.family_config("qwen3_8b")
+    t = time.perf_counter()
+    params = sc.model_params(config, seed=0, device="cuda",
+                             gen_device="cuda")
+    nbytes = sc.write_fp8_model(d, config, params, shards=4)
+    del params
+    torch.cuda.empty_cache()
+    sc.write_tokenizer(d, sc.QWEN3_SPECIALS)
+    print(f"qwen3-8b fp8: {config['num_hidden_layers']} layers drawn and "
+          f"quantized on the card, written ({nbytes / 1e9:.3f} GB) in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    native, out["native"] = _load_measured(d, nbytes, "qwen3-8b fp8 native",
+                                           card, fp8_native=True)
+    check(_native_projections(native), "qwen3-8b: a projection of the "
+          "native tree is not float8_e4m3fn")
+    at_load, out["at_load"] = _load_measured(d, nbytes,
+                                             "qwen3-8b fp8 at load", card)
+    check(out["native"]["memory_gb"] < 0.7 * out["at_load"]["memory_gb"],
+          f"qwen3-8b: native memory {out['native']} not well under at "
+          f"load's {out['at_load']}")
+    ids = [int(x) for x in torch.randint(
+        0, 256, (300,), generator=torch.Generator().manual_seed(12))]
+    tn, ta = native.generate(ids, 16)[0], at_load.generate(ids, 16)[0]
+    print(f"qwen3-8b: 16 greedy tokens native == at load {tn == ta}",
+          flush=True)
+    check(tn == ta, f"qwen3-8b: native tokens {tn} != at load {ta}")
+    for mode, kv in (("contiguous", 0), ("paged", 1024)):
+        ms = {name: _replay_ms(m, kv, Q8B_STEPS, f"qwen3-8b {name} graph "
+                               f"{mode}")
+              for name, m in (("native", native), ("at_load", at_load))}
+        out[f"replay_ms_{mode}"] = ms
+        print(f"qwen3-8b decode replay {mode} (4 slots, 36 layers, bf16): "
+              f"device ms native {ms['native']:.4f}, at load "
+              f"{ms['at_load']:.4f} (x{ms['native'] / ms['at_load']:.2f}); "
+              f"on {card}", flush=True)
+        torch.cuda.empty_cache()
+    del at_load
+    torch.cuda.empty_cache()
+    for counts in (fp8, flash, pa):
+        counts.reset_launches()
+    bodies = [chat_body(i) for i in range(4)]
+    served = serve_model(native, kv_blocks=1024)
+    try:
+        results = served.concurrent(bodies)
+        _check_chats_any(results, "qwen3-8b served")
+        _alone_equals_concurrent(served, bodies, results, "qwen3-8b served")
+        ttft, tps = _latency(results)
+    finally:
+        served.close()
+    out["bf16"] = fp8.launch_counts()["bf16"]
+    out["fresh"] = flash.launch_counts()["bf16"]["fresh"]
+    out["paged"] = pa.launch_counts()["bf16"]
+    print(f"qwen3-8b served native, paged (1024 blocks): 4 concurrent chats, "
+          f"all 200, each equal alone; TTFT p50 {ttft:.1f} ms, decode tok/s "
+          f"per request p50 {tps:.1f} (smoke); launches: bf16 dequant "
+          f"{out['bf16']}, flash fresh {out['fresh']}, paged decode "
+          f"{out['paged']}; on {card}", flush=True)
+    check(out["bf16"] > 0 and out["fresh"] > 0 and out["paged"] > 0,
+          f"qwen3-8b: a kernel of its path never ran: {out}")
+    del native
+    torch.cuda.empty_cache()
+    shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+def phase_gptq_gguf(card: str, workdir: str) -> None:
+    """14(d) and (e). AutoGPTQ 4-bit (group 128; desc_act false, and true
+    with a permuted g_idx) and GGUF (Q8_0, and a Q4_K_M-style mix of
+    Q4_K and Q6_K) at the flagship's widths and depth: each served through
+    `cli serve DIR`, contiguous and paged, its card parameters equal to a
+    CPU load bit for bit and each chat equal alone."""
+    from cake_tpu_torch.bench import synth_checkpoint as sc
+    from cake_tpu_torch.runtime import build_text_model
+    config = sc.flagship_config()
+    writers = {
+        "gptq": lambda d: sc.write_gptq_model(
+            d, config, sc.model_params(config, seed=0), seed=8, shards=2),
+        "gptq-act": lambda d: sc.write_gptq_model(
+            d, config, sc.model_params(config, seed=0), seed=9,
+            desc_act=True, shards=2),
+        "gguf-q8_0": lambda d: sc.write_gguf_model(d, config, seed=10,
+                                                   mix="q8_0"),
+        "gguf-q4_k_m": lambda d: sc.write_gguf_model(d, config, seed=11,
+                                                     mix="q4_k_m")}
+    for name, write in writers.items():
+        d = os.path.join(workdir, f"qwen3-0.6b-{name}")
+        t = time.perf_counter()
+        nbytes = write(d)
+        sc.write_tokenizer(d, sc.QWEN3_SPECIALS)
+        write_s = time.perf_counter() - t
+        t = time.perf_counter()
+        cpu, _, _ = build_text_model(d, "bf16", device="cpu")
+        print(f"{name}: flagship written ({nbytes / 1e9:.3f} GB) in "
+              f"{write_s:.1f} s, loaded on the CPU in "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+        for mode, extra in (("contiguous", ()),
+                            ("paged", ("--kv-blocks", "1024"))):
+            _serve_dir(d, f"{name} served {mode}", extra,
+                       cpu_params=cpu.params, stream=False)
+        del cpu
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def phase_quant(card: str, workdir: str) -> dict:
+    """Phase 14: (a) the dequant kernel, (b) the FP8 flagship, (c)
+    Qwen3-8B-FP8's widths at 36 layers, (d) AutoGPTQ, (e) GGUF."""
+    import torch
+    t0 = time.perf_counter()
+    out = {"kernel": phase_fp8_kernel(card)}
+    torch.cuda.empty_cache()
+    out["flagship"] = phase_fp8_flagship(card, workdir)
+    out["q8b"] = phase_fp8_8b(card, workdir)
+    phase_gptq_gguf(card, workdir)
+    print(f"phase 14 in {time.perf_counter() - t0:.0f} s", flush=True)
+    return out
+
+
+def quant_kernel_rows(q: dict) -> list:
+    """The kernels line's rows of phase 14: the dequant kernel at the
+    flagship's q_proj (bf16 served native, f32 parity) and at Qwen3-8B's
+    gate_proj (bf16 served native; no single PyTorch call computes it),
+    and the flash (fresh) and paged decode kernels at Qwen3-8B's heads,
+    each with its launches while Qwen3-8B was served."""
+    from cake_tpu_torch.ops import flash, fp8
+    from cake_tpu_torch.ops import paged_attention as pa
+    rows = []
+    for name, entry, launches in (
+            ("bf16", "q_proj_0.6b.bf16", q["flagship"]["bf16"]),
+            ("f32", "q_proj_0.6b.f32", q["flagship"]["f32"]),
+            ("bf16.qwen3_8b", "gate_proj_8b.bf16", q["q8b"]["bf16"])):
+        x = q["kernel"][entry]
+        rows.append({
+            "name": f"dequant_fp8_blockwise.{name}", "route": "cuda",
+            "source": fp8.SOURCE, "replaces": fp8.REPLACES,
+            "launches": launches, "max_abs_err": x["max_abs_err"],
+            "ms": x["ms"], "plain_ms": x["plain_ms"],
+            "bound_ms": x["bound_ms"], "bound_by": x["bound_by"],
+            "library_ms": None})
+    t, n = q["q8b"]["timings"], q["q8b"]
+    x = t["flash.fresh"]
+    rows.append({
+        "name": "flash_attention.fresh.qwen3_8b", "route": "cuda",
+        "source": flash.SOURCES["bf16"], "replaces": flash.REPLACES,
+        "launches": n["fresh"], "max_abs_err": x["max_abs_err"],
+        "ms": x["ms"], "meta_ms": x["meta_ms"], "issue_ms": x["issue_ms"],
+        "plain_ms": x["plain_ms"], "bound_ms": x["bound_ms"],
+        "bound_by": x["bound_by"], "library_ms": x["library_ms"]})
+    x = t["decode.bf16"]
+    rows.append({
+        "name": "paged_decode_attention.bf16.qwen3_8b", "route": "cuda",
+        "source": pa.SOURCE, "replaces": pa.REPLACES,
+        "launches": n["paged"], "max_abs_err": x["max_abs_err"],
+        "ms": x["ms"], "issue_ms": x["issue_ms"], "plain_ms": x["plain_ms"],
+        "bound_ms": x["bound_ms"], "bound_by": x["bound_by"],
+        "library_ms": x["library_ms"]})
+    return rows
+
+
 def main(argv: list[str]) -> int:
     t_start = time.perf_counter()
     import torch
@@ -3452,6 +3974,17 @@ def main(argv: list[str]) -> int:
     print(f"device: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
     built = phase_build()
+    if argv[:2] == ["--only", "14"]:
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            q = phase_quant(card, workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        print(json.dumps({"kernels": quant_kernel_rows(q)}))
+        print(f"chip_smoke: phase 14 passed in "
+              f"{time.perf_counter() - t_start:.0f} s (no result line: "
+              f"one phase)", flush=True)
+        return 0
     if argv[:2] == ["--only", "13"]:
         workdir = tempfile.mkdtemp(prefix="chip_smoke_")
         try:
@@ -3471,7 +4004,7 @@ def main(argv: list[str]) -> int:
               f"one phase)", flush=True)
         return 0
     check(not argv, f"unknown arguments {argv} (only: --only 12, "
-          "--only 13)")
+          "--only 13, --only 14)")
     timings = phase_kernels()
     paged_timings = phase_paged_kernels(built[pa.LIBRARY]["log"])
     parity_launches, parity_paged = phase_parity()
@@ -3494,6 +4027,7 @@ def main(argv: list[str]) -> int:
         family_launches = phase_families(card, workdir)
         family_launches["gemma3"] = phase_gemma3(card, workdir)
         qnext = phase_qnext(card, workdir)
+        quant = phase_quant(card, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     kernels = []
@@ -3553,6 +4087,7 @@ def main(argv: list[str]) -> int:
             "bound_ms": t["unique_ms"], "bound_read_ms": t["read_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     kernels += qnext_kernel_rows(qnext)
+    kernels += quant_kernel_rows(quant)
     print(f"checkpoint load (phase 7): {json.dumps(load)} on {card}")
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.0f} s (limit 1200 s)", flush=True)

@@ -9,8 +9,9 @@ an adopted request id with its timeline, /metrics and /api/v1/trace,
 and a chat is served
 by `cli serve` from a checkpoint directory with a tokenizer.json and a
 chat template (byte-level BPE for an OLMo2 and, streamed, a Gemma-style
-byte-fallback BPE for a Gemma3); an AST scan finds no import of any of them in the port's
-sources."""
+byte-fallback BPE for a Gemma3), and tiny FP8 (kept native), AutoGPTQ
+and GGUF checkpoints load through build_text_model and decode; an AST
+scan finds no import of any of them in the port's sources."""
 import ast
 import pathlib
 import subprocess
@@ -49,7 +50,8 @@ for name in ("cake_tpu_torch.obs", "cake_tpu_torch.obs.metrics",
              "cake_tpu_torch.serve.admission.tenants",
              "cake_tpu_torch.api.qos", "cake_tpu_torch.api.obs_routes",
              "cake_tpu_torch.spec", "cake_tpu_torch.spec.drafter",
-             "cake_tpu_torch.spec.verify"):
+             "cake_tpu_torch.spec.verify", "cake_tpu_torch.ops.fp8",
+             "cake_tpu_torch.utils.quant", "cake_tpu_torch.utils.gguf"):
     assert name in mods, name
 import chip_smoke
 
@@ -131,6 +133,23 @@ with urllib.request.urlopen(req, timeout=60) as r:
     events = r.read().decode()
 app.stop()
 assert events.rstrip().endswith("data: [DONE]"), events
+# quantized checkpoints: FP8 (kept native), AutoGPTQ 4-bit and GGUF
+from cake_tpu_torch.runtime import build_text_model
+q = dict(architectures=["Qwen3ForCausalLM"], vocab_size=256,
+         hidden_size=256, intermediate_size=512, num_hidden_layers=1,
+         num_attention_heads=4, num_key_value_heads=2, head_dim=64,
+         max_position_embeddings=256, eos_token_id=2)
+for kind in ("fp8", "gptq", "gguf"):
+    qd = tempfile.mkdtemp() + "/" + kind
+    if kind == "fp8":
+        sc.write_fp8_model(qd, q, sc.model_params(q, 1, torch.float32))
+    elif kind == "gptq":
+        sc.write_gptq_model(qd, q, sc.model_params(q, 1, torch.float32))
+    else:
+        sc.write_gguf_model(qd, q, mix="q4_k_m")
+    m, _, _ = build_text_model(qd, "f32", device="cpu",
+                               fp8_native=kind == "fp8")
+    assert m.generate([5, 6, 7], 3)[0], kind
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
 print("OK", len(mods))

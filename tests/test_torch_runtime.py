@@ -1,7 +1,8 @@
 """The port's way from a model name to a served chat: resolve_model on a
 fake Hugging Face cache (a repo id that is not cached raises with the
-path it probed), the configs and directories the port refuses (quantized,
-GGUF only, families not ported yet), `cli serve` on a tiny checkpoint
+path it probed), the configs and directories the port refuses (families
+not ported yet, a .gguf that is not GGUF) and the quantized configs it
+now detects as the JAX package does, `cli serve` on a tiny checkpoint
 directory answering a chat over HTTP with the directory's basename as
 the model id and the directory's tokenizer and template, a prompt the
 request cannot build answering 400 where a server fault answers 500, and
@@ -61,29 +62,47 @@ def test_resolve_model_local_and_cached(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("over,match", [
-    ({"quantization_config": {"quant_method": "gptq", "bits": 4}},
-     "ROADMAP module 11"),
-    ({"quantization_config": {"quant_method": "fp8"}}, "ROADMAP module 11"),
+    ({"quantization_config": {"quant_method": "gptq", "bits": 4}}, None),
+    ({"quantization_config": {"quant_method": "fp8"}}, None),
     ({"architectures": ["Gemma3ForConditionalGeneration"]},
      "ROADMAP module 6"),
-    ({"architectures": ["Qwen3MoeForCausalLM"],
-      "quantization_config": {"quant_method": "gptq", "bits": 4}},
-     "ROADMAP module 11"),
-    ({"architectures": ["Qwen3NextForCausalLM"],
-      "quantization_config": {"quant_method": "fp8"}}, "ROADMAP module 11"),
+    ({"architectures": ["Qwen3MoeForCausalLM"], "num_experts": 8,
+      "moe_intermediate_size": 64,
+      "quantization_config": {"quant_method": "gptq", "bits": 4}}, None),
+    ({"architectures": ["Qwen3NextForCausalLM"], "num_experts": 8,
+      "moe_intermediate_size": 64, "shared_expert_intermediate_size": 64,
+      "quantization_config": {"quant_method": "fp8"}}, None),
     ({"architectures": ["SomethingElseForCausalLM"]}, "not ported"),
 ])
 def test_refused_configs_raise(tmp_path, over, match):
+    """Configs the port does not adapt raise; the quantized ones it once
+    refused (match None) now load, their quantization detected as the
+    JAX package detects it."""
     d = dict(sc.flagship_config(layers=1), **over)
     (tmp_path / "config.json").write_text(json.dumps(d))
-    with pytest.raises((NotImplementedError, ValueError), match=match):
-        load_config_and_quant(str(tmp_path))
+    if match is not None:
+        with pytest.raises((NotImplementedError, ValueError), match=match):
+            load_config_and_quant(str(tmp_path))
+        return
+    from cake_tpu.utils.quant import detect_quantization as jax_detect
+    cfg, quant, raw = load_config_and_quant(str(tmp_path))
+    want = jax_detect(d)
+    assert raw == d and cfg.arch == config_from_hf_dict(d).arch
+    assert (type(quant).__name__, quant.name, quant.vram_factor,
+            getattr(quant, "group_size", None)) == \
+        (type(want).__name__, want.name, want.vram_factor,
+         getattr(want, "group_size", None))
 
 
 def test_gguf_only_directory_raises(tmp_path):
-    (tmp_path / "model.gguf").write_bytes(b"GGUF")
-    with pytest.raises(NotImplementedError, match="ROADMAP module 11"):
-        load_config_and_quant(str(tmp_path))
+    """A .gguf that is not a GGUF file raises as the JAX package's reader
+    does; a directory with neither config.json nor a .gguf raises
+    FileNotFoundError."""
+    from cake_tpu.runtime import load_config_and_quant as jax_load_config
+    (tmp_path / "model.gguf").write_bytes(b"NOPE" + bytes(20))
+    for load in (load_config_and_quant, jax_load_config):
+        with pytest.raises(ValueError, match="not a GGUF file"):
+            load(str(tmp_path))
     with pytest.raises(FileNotFoundError):
         load_config_and_quant(str(tmp_path / "empty"))
 

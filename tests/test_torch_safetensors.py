@@ -2,8 +2,9 @@
 safetensors_io.py) against the JAX package's: files written by JAX's
 save_safetensors (bf16, f16, f32, int32; one file, and an index of two
 shards) read by the port bit for bit in their stored dtype; files written
-by the port read back by JAX's TensorStorage; a truncated file, a bad
-header and an fp8 tensor raise."""
+by the port read back by JAX's TensorStorage; a truncated file and a bad
+header raise; an F8_E4M3 tensor reads as float8_e4m3fn with the JAX
+reader's bytes, and an F8_E5M2 one raises."""
 import json
 import struct
 
@@ -146,9 +147,20 @@ def test_truncated_and_bad_files_raise(tmp_path):
     fp8 = tmp_path / "fp8.safetensors"
     _write_raw(fp8, json.dumps({"w": {"dtype": "F8_E4M3", "shape": [4],
                                       "data_offsets": [0, 4]}}).encode(),
+               bytes([0x38, 0xb8, 0x7f, 0x01]))
+    assert tst.index_file(str(fp8))["w"].dtype == "F8_E4M3"
+    got = tst.TensorStorage(tst.index_file(str(fp8))).read("w")
+    assert got.dtype == torch.float8_e4m3fn
+    assert got.view(torch.uint8).tolist() == [0x38, 0xb8, 0x7f, 0x01]
+    assert got.float()[:2].tolist() == [1.0, -1.0]
+    want = jst.TensorStorage(jst.index_file(str(fp8))).read("w")
+    assert want.view(np.uint8).tolist() == [0x38, 0xb8, 0x7f, 0x01]
+    e5m2 = tmp_path / "e5m2.safetensors"
+    _write_raw(e5m2, json.dumps({"w": {"dtype": "F8_E5M2", "shape": [4],
+                                       "data_offsets": [0, 4]}}).encode(),
                b"\0" * 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP module 11"):
-        tst.index_file(str(fp8))
+    with pytest.raises(NotImplementedError, match="F8_E5M2"):
+        tst.index_file(str(e5m2))
     with pytest.raises(FileNotFoundError):
         tst.TensorStorage.from_model_dir(str(tmp_path / "nothing"))
 
