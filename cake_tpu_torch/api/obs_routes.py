@@ -54,7 +54,19 @@ def device_health(model) -> dict:
 def health(state, query) -> tuple:
     """The engine's health, with its `prefix_cache`, in paged mode its
     `kv_pool`, and the supervisor's counts; 503 "degraded" while the
-    engine is dead, wedged or DOWN, 503 "unavailable" while draining."""
+    engine is dead, wedged or DOWN, 503 "unavailable" while draining.
+    With no engine (the locked path) the device block and the status,
+    as the reference answers without one."""
+    if state.engine is None:
+        status = "unavailable" if state.draining else "ok"
+        body = {"status": status,
+                "started_at_age_s": round(now() - _STARTED_AT, 3),
+                "device": device_health(state.model)}
+        if state.draining:
+            body["draining"] = True
+        if state.plane is not None:
+            body["admission"] = state.plane.health()
+        return (200 if status == "ok" else 503), body, None
     h = state.engine.health()
     busy = h["slots_busy"] or h["queue_depth"]
     h["wedged"] = bool(h["wedged"]) or bool(

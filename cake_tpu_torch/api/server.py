@@ -6,7 +6,8 @@ cake_tpu/api/server.py):
   GET  /health                  the engine's health (prefix_cache, paged
                                 kv_pool, the supervisor's counts) and the
                                 device block; 503 "degraded" while the
-                                engine is dead, wedged or DOWN
+                                engine is dead, wedged or DOWN. With no
+                                engine, the device block and status
   GET  /metrics                 Prometheus text exposition
   GET  /api/v1/trace            Chrome-trace JSON of recorded spans
   GET  /api/v1/requests         recent traced request ids
@@ -21,13 +22,20 @@ canonical pattern ("unmatched" for any other path), as the reference's
 middleware records them. A ThreadingHTTPServer gives each connection a
 thread; those threads only submit to the engine and wait on its queues,
 so no aiohttp is needed.
+
+A model the engine does not serve (`engine` None: an offloaded MoE
+model, or CAKE_SERVE_SLOTS=0) is served one request at a time under
+`AppState.lock` (api/state.py). Shutdown drains for CAKE_DRAIN_TIMEOUT_S
+(30 s, the reference's): new chats answer 503 while the engine finishes
+its requests, or while the locked path's one generation ends.
 """
 from __future__ import annotations
 
 import json
 import logging
+import os
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlsplit
 
@@ -38,13 +46,25 @@ from .text import chat_completions
 log = logging.getLogger("cake_tpu_torch.api")
 
 
+DEFAULT_DRAIN_TIMEOUT_S = 30.0     # the reference's CAKE_DRAIN_TIMEOUT_S
+
+
+def drain_timeout_s(env) -> float:
+    """The shutdown drain budget: CAKE_DRAIN_TIMEOUT_S, else 30 s."""
+    raw = env.get("CAKE_DRAIN_TIMEOUT_S")
+    return float(raw) if raw else DEFAULT_DRAIN_TIMEOUT_S
+
+
 @dataclass
 class AppState:
     model: object
-    engine: object
+    engine: object              # None: the locked one-request path
     tokenizer: object
     model_id: str = "cake-tpu-torch"
     plane: object = None        # serve/admission: AdmissionPlane
+    # one generation at a time on the locked path
+    lock: threading.Lock = field(default_factory=threading.Lock)
+    draining: bool = False      # shutting down: new chats answer 503
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -154,22 +174,40 @@ class ApiServer(ThreadingHTTPServer):
         self._thread.start()
         return self
 
-    def stop(self, drain_s: float = 10.0) -> None:
-        """Drain the engine, stop serving, close the engine."""
-        if self.state.plane is not None:
-            self.state.plane.begin_drain()
-        self.state.engine.drain(drain_s)
-        self.shutdown()
-        self.server_close()
-        self.state.engine.close()
+    def stop(self, drain_s: float | None = None) -> None:
+        """Drain for up to drain_s seconds (None: CAKE_DRAIN_TIMEOUT_S),
+        stop serving, close the engine. With no engine, the drain waits
+        for the locked path's generation in flight."""
+        state = self.state
+        budget = drain_timeout_s(os.environ) if drain_s is None else drain_s
+        state.draining = True
+        if state.plane is not None:
+            state.plane.begin_drain()
+        if state.engine is not None:
+            if not state.engine.drain(budget):
+                log.warning("drain timed out after %.1fs; failing the "
+                            "remaining requests", budget)
+        elif state.lock.acquire(timeout=budget):
+            state.lock.release()
+        else:
+            log.warning("drain timed out after %.1fs with a generation in "
+                        "flight", budget)
         if self._thread is not None:
+            # shutdown() waits for serve_forever, which only a started
+            # server runs
+            self.shutdown()
             self._thread.join(timeout=5)
+        self.server_close()
+        if state.engine is not None:
+            state.engine.close()
 
 
 def create_app(model, engine, tokenizer, host: str = "127.0.0.1",
                port: int = 8080, model_id: str = "cake-tpu-torch",
                plane=None) -> ApiServer:
-    """`plane`: the admission plane (tenant policies); None builds one
-    from CAKE_QOS_TENANTS at the first chat."""
+    """`engine`: a ServeEngine, or None for the locked one-request path
+    (serve/engine.py: maybe_engine). `plane`: the admission plane (tenant
+    policies); None builds one from CAKE_QOS_TENANTS at the first
+    chat."""
     return ApiServer(AppState(model, engine, tokenizer, model_id, plane),
                      host, port)

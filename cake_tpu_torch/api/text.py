@@ -11,6 +11,14 @@ under a QoS class (interactive by default; `X-Cake-QoS` or the body's
 `X-Cake-Request-Id` header becomes the request's id (its timeline, its
 spans, the engine's bookkeeping) and is echoed back. Left out so far:
 the fleet KV handshakes (the continuation-chars header among them).
+
+With no engine (an offloaded MoE model, or CAKE_SERVE_SLOTS=0) a chat
+takes the reference's locked fallback (its _chat_blocking and
+_chat_stream): one generation at a time under the server's lock
+(api/state.py), the same prompt, usage and finish_reason as the engine
+path; `stop` trims the JSON answer and ends a stream at the match. The
+tenant's quota applies as on the engine path; the QoS class orders
+nothing where one request runs at a time.
 """
 from __future__ import annotations
 
@@ -28,6 +36,7 @@ from ..serve import (EngineDown, EngineDraining, PoisonedRequest,
                      RequestDeadlineExceeded)
 from ..tokenizer import PromptError
 from .qos import admission_refusal, resolve_admission
+from .state import run_generation_blocking, run_generation_streamed
 
 log = logging.getLogger("cake_tpu_torch.api")
 
@@ -280,10 +289,64 @@ def chat_completions(handler, state) -> None:
         return None
     qos, tenant, release = resolved
     try:
+        if state.engine is None:
+            return _chat_locked(handler, state, messages, continuation, kw,
+                                stops, bool(body.get("stream")))
         return _chat_engine(handler, state, messages, continuation, kw,
                             stops, bool(body.get("stream")), qos, tenant)
     finally:
         release()
+
+
+def _prompt(handler, state, messages, continuation: bool):
+    """The prompt's token ids, or None once a 400 / 500 has been sent."""
+    try:
+        with RECORDER.span("api.chat_prompt", cat="api",
+                           messages=len(messages)):
+            return (state.tokenizer.continuation_prompt_ids(messages)
+                    if continuation
+                    else state.tokenizer.chat_prompt_ids(messages))
+    except Exception as e:
+        if not _client_fault(e):
+            log.exception("building the prompt of %d messages failed",
+                          len(messages))
+            handler.send_json({"error": "internal error"}, 500)
+        else:
+            handler.send_json({"error": f"cannot build the prompt: {e}"},
+                              400)
+        return None
+
+
+def _chat_locked(handler, state, messages, continuation: bool, kw: dict,
+                 stops: list[str], stream: bool) -> None:
+    """The locked fallback: the prompt built as on the engine path, then
+    one generation at a time under state.lock, answered as JSON (the
+    content trimmed at `stop`) or SSE."""
+    if state.draining:
+        return handler.send_json({"error": "server draining for shutdown"},
+                                 503, {"Retry-After": "5"})
+    cid = _completion_id()
+    rid = _adopt_request_id(handler, cid)
+    prompt_ids = _prompt(handler, state, messages, continuation)
+    if prompt_ids is None:
+        return None
+    with state.lock:
+        if stream:
+            tokens, _, cancel = run_generation_streamed(state.model,
+                                                        prompt_ids, kw)
+            return _sse(handler, state, cid, rid, tokens, cancel.set, stops)
+        try:
+            toks, stats = run_generation_blocking(state.model, prompt_ids,
+                                                  kw)
+        except Exception as e:
+            log.exception("locked generation failed")
+            GENERATIONS.inc(kind="text", status="error")
+            return handler.send_json({"error": f"generation failed: {e}"},
+                                     500)
+    GENERATIONS.inc(kind="text", status="ok")
+    return handler.send_json(completion_json(
+        state, cid, toks, stats, len(prompt_ids), stops),
+        headers={TRACE_HEADER: rid})
 
 
 def _chat_engine(handler, state, messages, continuation: bool, kw: dict,
@@ -293,19 +356,9 @@ def _chat_engine(handler, state, messages, continuation: bool, kw: dict,
     tenant, and answer: JSON, SSE, or the typed refusal."""
     cid = _completion_id()
     rid = _adopt_request_id(handler, cid)
-    try:
-        with RECORDER.span("api.chat_prompt", cat="api",
-                           messages=len(messages)):
-            prompt_ids = (state.tokenizer.continuation_prompt_ids(messages)
-                          if continuation
-                          else state.tokenizer.chat_prompt_ids(messages))
-    except Exception as e:
-        if not _client_fault(e):
-            log.exception("building the prompt of %d messages failed",
-                          len(messages))
-            return handler.send_json({"error": "internal error"}, 500)
-        return handler.send_json({"error": f"cannot build the prompt: {e}"},
-                                 400)
+    prompt_ids = _prompt(handler, state, messages, continuation)
+    if prompt_ids is None:
+        return None
     try:
         req = state.engine.submit(prompt_ids, request_id=rid, qos=qos,
                                   tenant=tenant, **kw)
@@ -320,7 +373,7 @@ def _chat_engine(handler, state, messages, continuation: bool, kw: dict,
     if stops:
         _cancel_at_stop(state, req, stops)
     else:
-        req.wait()
+        state.engine.wait(req)
     if "error" in req.result:
         GENERATIONS.inc(kind="text", status="error")
         err = req.result["error"]
@@ -370,22 +423,29 @@ def _cancel_at_stop(state, req, stops: list[str]) -> None:
 
 def _stream(handler, state, cid: str, req,
             stops: list[str] | None = None) -> None:
-    """SSE: a role chunk, one content chunk per token (a character split
-    over tokens goes out with its last token: TextStream), a final chunk
-    with finish_reason, then [DONE]. A client that goes away cancels the
-    request, which frees its slot. `stops`: no part of a stop sequence is
-    ever sent (a StopMatcher over the deltas holds back a possible partial
-    match), the stream finishes with finish_reason "stop" at a match and
-    the request is cancelled there. Nothing is committed before the
+    """The engine's SSE answer (_sse). Nothing is committed before the
     request is admitted: one refused outright (engine down, poisoned)
     answers its typed status instead of an in-band error chunk (a queue
     deadline, an engine going down, a quarantined prompt)."""
-    while not (req.admitted.is_set() or req.done.is_set()):
-        req.done.wait(0.02)
+    state.engine.wait(req, req.admitted)
     err = req.result.get("error") if req.done.is_set() else None
     if err is not None and _send_typed_error(handler, err):
         GENERATIONS.inc(kind="text", status="error")
         return
+    _sse(handler, state, cid, req.id, state.engine.stream(req), req.cancel,
+         stops)
+
+
+def _sse(handler, state, cid: str, trace_id: str, tokens, cancel,
+         stops: list[str] | None = None) -> None:
+    """SSE over an iterator of Tokens (the engine's stream, or the locked
+    path's worker): a role chunk, one content chunk per token (a
+    character split over tokens goes out with its last token:
+    TextStream), a final chunk with finish_reason, then [DONE]. A client
+    that goes away calls `cancel`, which frees the slot or the lock.
+    `stops`: no part of a stop sequence is ever sent (a StopMatcher over
+    the deltas holds back a possible partial match), the stream finishes
+    with finish_reason "stop" at a match and `cancel` is called there."""
     created = int(time.time())
 
     def chunk(delta: dict, finish=None) -> bytes:
@@ -400,10 +460,9 @@ def _stream(handler, state, cid: str, req,
     handler.send_header("Cache-Control", "no-cache")
     # the trace id rides the SSE headers too, so a streaming client can
     # read /api/v1/requests/<id> afterwards
-    handler.send_header(TRACE_HEADER, req.id)
+    handler.send_header(TRACE_HEADER, trace_id)
     handler.end_headers()
     finish = "length"
-    tokens = state.engine.stream(req)
     text = TextStream(state.tokenizer)
     matcher = StopMatcher(stops) if stops else None
     matched = False
@@ -418,10 +477,10 @@ def _stream(handler, state, cid: str, req,
         if matcher is not None:
             delta = matcher.feed(delta)
             if matcher.stopped:
-                # nothing past the match is ever sent; the request stops
+                # nothing past the match is ever sent; the producer stops
                 # here, and the loop drains to its end
                 matched = True
-                req.cancel()
+                cancel()
         write(delta)
     try:
         handler.wfile.write(chunk({"role": "assistant"}))
@@ -446,6 +505,6 @@ def _stream(handler, state, cid: str, req,
         handler.wfile.write(b"data: [DONE]\n\n")
         handler.wfile.flush()
     except (BrokenPipeError, ConnectionResetError):
-        req.cancel()
+        cancel()
     finally:
         tokens.close()

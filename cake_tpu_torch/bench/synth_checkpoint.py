@@ -368,46 +368,63 @@ def _gguf_kv(key: str, value) -> bytes:
 
 
 def _gguf_tensor_names(config: dict) -> dict[str, tuple[int, ...]]:
-    """llama.cpp's qwen3 tensor names -> torch-layout shapes [out, in]."""
+    """llama.cpp's qwen3 (qwen3moe) tensor names -> torch-layout shapes
+    [out, in]; an expert bank [n_expert, out, in]."""
     c = config_from_hf_dict(config)
     h, i, v = c.hidden_size, c.intermediate_size, c.vocab_size
     names = {"token_embd.weight": (v, h), "output_norm.weight": (h,)}
     if not c.tie_word_embeddings:
         names["output.weight"] = (v, h)
     for n in range(c.num_hidden_layers):
+        if c.layer_spec(n).is_moe:
+            e, im = c.num_experts, c.moe_intermediate_size
+            ffn = (("ffn_gate_inp", (e, h)), ("ffn_gate_exps", (e, im, h)),
+                   ("ffn_up_exps", (e, im, h)),
+                   ("ffn_down_exps", (e, h, im)))
+        else:
+            ffn = (("ffn_gate", (i, h)), ("ffn_up", (i, h)),
+                   ("ffn_down", (h, i)))
         for stem, shape in (("attn_norm", (h,)), ("attn_q", (c.size_q, h)),
                             ("attn_k", (c.size_kv, h)),
                             ("attn_v", (c.size_kv, h)),
                             ("attn_output", (h, c.size_q)),
                             ("attn_q_norm", (c.head_dim,)),
                             ("attn_k_norm", (c.head_dim,)),
-                            ("ffn_norm", (h,)), ("ffn_gate", (i, h)),
-                            ("ffn_up", (i, h)), ("ffn_down", (h, i))):
+                            ("ffn_norm", (h,))) + ffn:
             names[f"blk.{n}.{stem}.weight"] = shape
     return names
 
 
 def write_gguf_model(model_dir: str, config: dict, seed: int = 0,
                      mix: str = "q8_0") -> int:
-    """A GGUF v3 file (arch `qwen3`, alignment 32) at the config's widths:
-    every matrix as seeded raw blocks of Q8_0 (mix "q8_0") or of Q4_K,
-    with Q6_K for Q4_K_M_HIGH (mix "q4_k_m"); the norms F32 around 1; the
-    metadata llama.cpp writes for qwen3 (head_dim as key_length, no
-    vocab_size: the embedding's shape gives it). The tokenizer.json is
+    """A GGUF v3 file (arch `qwen3`, or `qwen3moe` for a config with
+    experts; alignment 32) at the config's widths: every matrix (each
+    expert bank too) as seeded raw blocks of Q8_0 (mix "q8_0") or of
+    Q4_K, with Q6_K for Q4_K_M_HIGH (mix "q4_k_m"); the norms and the
+    routers F32 (norms around 1); the metadata llama.cpp writes for qwen3
+    (head_dim as key_length, no vocab_size: the embedding's shape gives
+    it; the expert counts and width for qwen3moe). The tokenizer.json is
     the caller's (write_tokenizer). Returns the file's bytes."""
     c = config_from_hf_dict(config)
     rng = np.random.default_rng(seed)
-    meta = {"general.architecture": "qwen3", "general.alignment": 32,
-            "qwen3.block_count": c.num_hidden_layers,
-            "qwen3.context_length": c.max_seq_len,
-            "qwen3.embedding_length": c.hidden_size,
-            "qwen3.feed_forward_length": c.intermediate_size,
-            "qwen3.attention.head_count": c.num_attention_heads,
-            "qwen3.attention.head_count_kv": c.num_key_value_heads,
-            "qwen3.attention.key_length": c.head_dim,
-            "qwen3.attention.value_length": c.head_dim,
-            "qwen3.attention.layer_norm_rms_epsilon": float(c.rms_norm_eps),
-            "qwen3.rope.freq_base": float(c.rope_theta)}
+    arch = "qwen3moe" if c.num_experts else "qwen3"
+    meta = {"general.architecture": arch, "general.alignment": 32,
+            f"{arch}.block_count": c.num_hidden_layers,
+            f"{arch}.context_length": c.max_seq_len,
+            f"{arch}.embedding_length": c.hidden_size,
+            f"{arch}.feed_forward_length": c.intermediate_size,
+            f"{arch}.attention.head_count": c.num_attention_heads,
+            f"{arch}.attention.head_count_kv": c.num_key_value_heads,
+            f"{arch}.attention.key_length": c.head_dim,
+            f"{arch}.attention.value_length": c.head_dim,
+            f"{arch}.attention.layer_norm_rms_epsilon":
+                float(c.rms_norm_eps),
+            f"{arch}.rope.freq_base": float(c.rope_theta)}
+    if c.num_experts:
+        meta.update({f"{arch}.expert_count": c.num_experts,
+                     f"{arch}.expert_used_count": c.num_experts_per_tok,
+                     f"{arch}.expert_feed_forward_length":
+                         c.moe_intermediate_size})
     if c.eos_token_ids:
         meta["tokenizer.ggml.eos_token_id"] = c.eos_token_ids[0]
     infos, blobs, offset = [], [], 0
@@ -416,6 +433,10 @@ def write_gguf_model(model_dir: str, config: dict, seed: int = 0,
         if len(shape) == 1:
             ttype = gguf.GGML_F32
             data = (1.0 + 0.2 * rng.standard_normal(n)).astype(
+                np.float32).tobytes()
+        elif name.endswith("ffn_gate_inp.weight"):
+            ttype = gguf.GGML_F32
+            data = (0.02 * rng.standard_normal(n)).astype(
                 np.float32).tobytes()
         else:
             stem = name.split(".")[-2]

@@ -2,10 +2,13 @@
 
     python -m cake_tpu_torch.cli serve (MODEL | --flagship) [--arch A]
         [--dtype D] [--seed N] [--port P] [--cpu] [--fp8-native]
-        [--prefix-cache-mb MB] [--kv-blocks N] [--kv-block-tokens T]
-        [--preempt-mode M]
+        [--expert-offload] [--slots N] [--ctx N] [--max-queue N]
+        [--prefill-chunk N] [--prefix-cache-mb MB] [--kv-blocks N]
+        [--kv-block-tokens T] [--preempt-mode M]
     python -m cake_tpu_torch.cli run (MODEL | --flagship) "prompt"
-        [--max-tokens N] [--temperature T] [--seed N] [--fp8-native]
+        [--max-tokens N] [--temperature T] [--top-k K] [--top-p P]
+        [--repeat-penalty R] [--repeat-last-n N] [--system-prompt S]
+        [--raw] [--seed N] [--fp8-native] [--expert-offload]
 
 MODEL is a local HF-layout checkpoint directory (FP8 block-wise, AutoGPTQ
 4-bit or unquantized), a directory with a GGUF file, or a repo id already
@@ -14,13 +17,22 @@ its own tokenizer.json and chat template; `--arch` overrides its config's
 architecture, and `--fp8-native` keeps an FP8 checkpoint's projections at
 1 byte per parameter on the card. `--flagship` is the other choice: the
 Qwen3-0.6B shape with seeded random weights and the byte tokenizer;
-`--layers` cuts its depth.
-The model runs on `cuda` unless `--cpu` is given. `serve` keeps the
-reference's defaults: the shared-prefix cache on at 256 MB, and a
-contiguous KV pool unless `--kv-blocks` asks for a paged one, whose
-victims under pressure are swapped to host memory or, with
-`--preempt-mode recompute`, replayed at resume (default: the
-CAKE_PREEMPT_MODE environment variable, else "swap"). The supervisor's
+`--layers` cuts its depth. `--expert-offload` keeps an MoE checkpoint's
+experts on disk, read on demand into an LRU per layer
+(runtime.build_text_model), and serves it one request at a time.
+The model runs on `cuda` unless `--cpu` is given. `serve` takes the
+engine's shape as the reference does, from CAKE_SERVE_SLOTS (4; 0 serves
+one request at a time under a lock, as an offloaded model is served),
+CAKE_MAX_QUEUE (64), CAKE_SERVE_CTX (4096), CAKE_PREFILL_CHUNK (256),
+CAKE_PREFIX_CACHE_MB (256, 0 = off), CAKE_KV_BLOCKS (0: a contiguous KV
+pool; more: a paged pool of that many blocks), CAKE_KV_BLOCK_TOKENS (16)
+and CAKE_PREEMPT_MODE ("swap": a paged pool's victims under pressure are
+swapped to host memory; "recompute": replayed at resume); a flag given
+on the command line wins over its variable (serve/engine.py:
+engine_knobs). CAKE_DRAIN_TIMEOUT_S (30) bounds the drain at shutdown.
+`run` takes the reference's sampling flags and defaults (256 tokens at
+temperature 0.7), and `--raw` encodes the prompt without the chat
+template. The supervisor's
 knobs come from the environment, as the reference reads them:
 CAKE_STEP_WATCHDOG_S (0, off), CAKE_ENGINE_REBUILDS (3) per rolling
 CAKE_ENGINE_REBUILD_WINDOW_S (300), and CAKE_ENGINE_RESTORE_S (5), the
@@ -60,10 +72,7 @@ from .ops.sampling import SamplingConfig
 from .serve.admission import (AdmissionPlane, TenantRegistry, class_bounds,
                               class_weights)
 from .spec import resolve_drafter, spec_knobs
-from .serve.engine import (DEFAULT_CHUNK, DEFAULT_CTX,
-                           DEFAULT_KV_BLOCK_TOKENS, DEFAULT_PREFIX_CACHE_MB,
-                           DEFAULT_QUEUE, DEFAULT_SLOTS, PREEMPT_MODES,
-                           ServeEngine)
+from .serve.engine import PREEMPT_MODES, engine_knobs, maybe_engine
 from .tokenizer import ByteTokenizer
 
 
@@ -96,6 +105,9 @@ def _model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--fp8-native", action="store_true",
                    help="keep an FP8 checkpoint's weights 1 byte/param on "
                         "the card, dequantized per layer by the kernel")
+    p.add_argument("--expert-offload", action="store_true",
+                   help="MoE: read the experts from the checkpoint on "
+                        "demand instead of holding them on the card")
 
 
 def load_model(args, max_cache_len: int = 2048):
@@ -105,12 +117,16 @@ def load_model(args, max_cache_len: int = 2048):
         if args.fp8_native:
             raise ValueError("--fp8-native requires an FP8 checkpoint "
                              "(the flagship has random bf16 weights)")
+        if args.expert_offload:
+            raise ValueError("--expert-offload needs an MoE model (the "
+                             "flagship has no experts)")
         model = build_flagship(args.layers, args.dtype, args.seed, device)
         return model, model.tokenizer, "cake-tpu-torch"
     from .runtime import build_text_model
     return build_text_model(args.model, args.dtype, args.arch,
                             max_cache_len=max_cache_len, seed=args.seed,
-                            device=device, fp8_native=args.fp8_native)
+                            device=device, fp8_native=args.fp8_native,
+                            expert_offload=args.expert_offload)
 
 
 def supervisor_knobs(env) -> dict:
@@ -152,22 +168,33 @@ def spec_args(env) -> dict:
 
 
 def build_server(args):
-    """The serve command's HTTP server (not started) over its engine."""
+    """The serve command's HTTP server (not started): over its engine
+    (serve/engine.py: maybe_engine), or with none (an offloaded model, or
+    CAKE_SERVE_SLOTS=0) over the locked one-request path."""
     from .api.server import create_app
     env = os.environ
     obs.configure(env)
     plane = AdmissionPlane(TenantRegistry(env.get("CAKE_QOS_TENANTS") or ""))
-    model, tokenizer, model_id = load_model(args, max_cache_len=args.ctx)
-    engine = ServeEngine(model, slots=args.slots, max_queue=args.max_queue,
-                         ctx_len=args.ctx, seed=args.seed,
-                         prefill_chunk=args.prefill_chunk,
+    shape = engine_knobs(env, slots=args.slots, max_queue=args.max_queue,
+                         ctx_len=args.ctx, prefill_chunk=args.prefill_chunk,
                          prefix_cache_mb=args.prefix_cache_mb,
                          kv_blocks=args.kv_blocks,
                          kv_block_tokens=args.kv_block_tokens,
-                         preempt_mode=args.preempt_mode,
-                         **supervisor_knobs(env),
-                         **admission_knobs(env, args.max_queue),
-                         **spec_args(env))
+                         preempt_mode=args.preempt_mode)
+    if shape["preempt_mode"] not in PREEMPT_MODES:
+        raise ValueError(f"CAKE_PREEMPT_MODE must be one of {PREEMPT_MODES},"
+                         f" got {shape['preempt_mode']!r}")
+    model, tokenizer, model_id = load_model(args,
+                                            max_cache_len=shape["ctx_len"])
+    engine = maybe_engine(model, env, seed=args.seed, **shape,
+                          **supervisor_knobs(env),
+                          **admission_knobs(env, shape["max_queue"]),
+                          **spec_args(env))
+    if engine is None:
+        logging.getLogger("cake_tpu_torch").warning(
+            "no serve engine (%s): one request at a time under a lock",
+            "CAKE_SERVE_SLOTS=0" if shape["slots"] <= 0
+            else type(model).__name__)
     return create_app(model, engine, tokenizer, args.host, args.port,
                       model_id=model_id, plane=plane)
 
@@ -187,12 +214,20 @@ def cmd_serve(args) -> int:
 
 def cmd_run(args) -> int:
     model, tokenizer, _ = load_model(args)
-    ids = tokenizer.chat_prompt_ids(
-        [{"role": "user", "content": args.prompt}])
+    if args.raw:
+        ids = tokenizer.encode(args.prompt)
+    else:
+        messages = ([{"role": "system", "content": args.system_prompt}]
+                    if args.system_prompt else [])
+        ids = tokenizer.chat_prompt_ids(
+            messages + [{"role": "user", "content": args.prompt}])
     spec = spec_args(os.environ)
     out, stats = model.generate(
         ids, max_new_tokens=args.max_tokens,
-        sampling=SamplingConfig(temperature=args.temperature),
+        sampling=SamplingConfig(temperature=args.temperature,
+                                top_k=args.top_k, top_p=args.top_p,
+                                repeat_penalty=args.repeat_penalty,
+                                repeat_last_n=args.repeat_last_n),
         seed=args.seed, spec=spec.get("spec", False),
         spec_k=spec.get("spec_k"))
     if out and model.cfg.is_eos(out[-1]):
@@ -214,27 +249,44 @@ def parser() -> argparse.ArgumentParser:
     _model_args(s)
     s.add_argument("--host", default="127.0.0.1")
     s.add_argument("--port", type=int, default=8080)
-    s.add_argument("--slots", type=int, default=DEFAULT_SLOTS)
-    s.add_argument("--ctx", type=int, default=DEFAULT_CTX)
-    s.add_argument("--prefill-chunk", type=int, default=DEFAULT_CHUNK)
-    s.add_argument("--max-queue", type=int, default=DEFAULT_QUEUE)
-    s.add_argument("--prefix-cache-mb", type=float,
-                   default=DEFAULT_PREFIX_CACHE_MB,
-                   help="shared-prefix cache capacity (0 turns it off)")
-    s.add_argument("--kv-blocks", type=int, default=0,
-                   help="paged KV pool of this many blocks (0: contiguous)")
-    s.add_argument("--kv-block-tokens", type=int,
-                   default=DEFAULT_KV_BLOCK_TOKENS,
-                   help="tokens per paged KV block")
-    s.add_argument("--preempt-mode", choices=PREEMPT_MODES,
-                   default=os.environ.get("CAKE_PREEMPT_MODE", "swap"),
-                   help="how a paged pool under pressure parks a victim")
+    # each engine-shape flag defaults to its CAKE_ variable, then to the
+    # reference's default (serve/engine.py: ENGINE_KNOBS)
+    s.add_argument("--slots", type=int, default=None,
+                   help="engine slots (CAKE_SERVE_SLOTS, 4; 0: no engine)")
+    s.add_argument("--ctx", type=int, default=None,
+                   help="tokens per slot (CAKE_SERVE_CTX, 4096)")
+    s.add_argument("--prefill-chunk", type=int, default=None,
+                   help="prefill chunk (CAKE_PREFILL_CHUNK, 256)")
+    s.add_argument("--max-queue", type=int, default=None,
+                   help="queue bound (CAKE_MAX_QUEUE, 64)")
+    s.add_argument("--prefix-cache-mb", type=float, default=None,
+                   help="shared-prefix cache capacity "
+                        "(CAKE_PREFIX_CACHE_MB, 256; 0 turns it off)")
+    s.add_argument("--kv-blocks", type=int, default=None,
+                   help="paged KV pool of this many blocks "
+                        "(CAKE_KV_BLOCKS, 0: contiguous)")
+    s.add_argument("--kv-block-tokens", type=int, default=None,
+                   help="tokens per paged KV block "
+                        "(CAKE_KV_BLOCK_TOKENS, 16)")
+    s.add_argument("--preempt-mode", choices=PREEMPT_MODES, default=None,
+                   help="how a paged pool under pressure parks a victim "
+                        "(CAKE_PREEMPT_MODE, swap)")
     s.set_defaults(fn=cmd_serve)
     r = sub.add_parser("run", help="generate once from a chat prompt")
     _model_args(r)
     r.add_argument("prompt")
-    r.add_argument("--max-tokens", type=int, default=32)
-    r.add_argument("--temperature", type=float, default=0.0)
+    r.add_argument("--max-tokens", type=int, default=256)
+    r.add_argument("--temperature", type=float, default=0.7)
+    r.add_argument("--top-k", type=int, default=None)
+    r.add_argument("--top-p", type=float, default=None)
+    r.add_argument("--repeat-penalty", type=float, default=1.0)
+    r.add_argument("--repeat-last-n", type=int, default=64,
+                   help="window the repeat penalty looks back over")
+    r.add_argument("--system-prompt", default=None,
+                   help="a system message before the prompt")
+    r.add_argument("--raw", action="store_true",
+                   help="encode the prompt as it is, without the chat "
+                        "template")
     r.set_defaults(fn=cmd_run)
     return ap
 

@@ -36,6 +36,7 @@ from ...ops import paged_attention as paged_ops
 from ...ops.moe import moe_ffn, moe_route
 from ..qwen3_5 import gdn_forward, init_gdn_params
 from .cache import paged_write_entries, paged_write_entry, update_kv_cache
+from .expert_provider import moe_ffn_offloaded
 from .config import LayerSpec, ModelConfig
 
 INIT_STD = 0.02
@@ -326,15 +327,23 @@ def moe_forward(cfg: ModelConfig, p: dict, x: torch.Tensor,
                 rows: bool) -> torch.Tensor:
     """Routed experts (ops/moe.py; `rows`: the tokens are decode or verify
     rows, else one prefill chunk) plus, when present, the always-active
-    shared expert scaled by sigmoid(shared_expert_gate)."""
+    shared expert scaled by sigmoid(shared_expert_gate). A layer loaded
+    with expert offload holds a `_provider` in place of the banks: its
+    experts are read on demand (expert_provider.moe_ffn_offloaded, the
+    reference's branch), eagerly only."""
     b, s, h = x.shape
     flat = x.reshape(b * s, h)
-    e = p["experts"]
-    y = moe_ffn(flat, p["gate"]["weight"], e["gate_proj"], e["up_proj"],
-                e["down_proj"], cfg.num_experts_per_tok, cfg.norm_topk_prob,
-                cfg.moe_gate_act,
-                "gelu" if cfg.hidden_act == "gelu_tanh" else "silu",
-                moe_route(flat, rows))
+    act = "gelu" if cfg.hidden_act == "gelu_tanh" else "silu"
+    if "_provider" in p:
+        y = moe_ffn_offloaded(flat, p["gate"]["weight"], p["_provider"],
+                              cfg.num_experts_per_tok, cfg.norm_topk_prob,
+                              cfg.moe_gate_act, act, rows)
+    else:
+        e = p["experts"]
+        y = moe_ffn(flat, p["gate"]["weight"], e["gate_proj"],
+                    e["up_proj"], e["down_proj"], cfg.num_experts_per_tok,
+                    cfg.norm_topk_prob, cfg.moe_gate_act, act,
+                    moe_route(flat, rows))
     if "shared_expert" in p:
         sh = mlp_forward(cfg, p["shared_expert"], flat)
         g = torch.sigmoid(linear(flat, p["shared_expert_gate"]["weight"])

@@ -40,9 +40,10 @@ from typing import Iterable
 import torch
 
 from ...device import resolve_device
+from ...obs import RECORDER
 from ...ops.sampling import (SamplingConfig, config_has_filters,
-                             push_recent_token, request_key, sample_traced,
-                             spec_accept)
+                             push_recent_token, request_key, sample_one,
+                             sample_traced, spec_accept)
 from ...ops.flash import FLASH_MIN_SEQ
 from .cache import (grow_cache, init_cache, init_paged_layers, kv_capacity,
                     paged_drop_entries, paged_gather_layer,
@@ -323,18 +324,22 @@ class TextModel:
         """One decode step of a batch-1 cache at its position cache["pos"]:
         writes the token's entry and returns (logits [1, V], cache) with
         pos advanced (the reference's decode_logits; the draft-model
-        drafter's rollout)."""
+        drafter's rollout, the offloaded model's decode step), under the
+        spans embed, layers and lm_head."""
         dev = self.device
         pos = int(cache["pos"])
-        x = embed_tokens(self.cfg, self.params,
-                         torch.tensor([[int(token_id)]], device=dev))
-        x = forward_layers(self.cfg, self.params, x, cache["layers"],
-                           torch.tensor([pos], dtype=torch.int32, device=dev),
-                           self.rope,
-                           valid_len=torch.ones(1, dtype=torch.int32,
-                                                device=dev))
+        with RECORDER.span("embed", cat="phase"):
+            x = embed_tokens(self.cfg, self.params,
+                             torch.tensor([[int(token_id)]], device=dev))
+        with RECORDER.span("layers", cat="phase"):
+            x = forward_layers(
+                self.cfg, self.params, x, cache["layers"],
+                torch.tensor([pos], dtype=torch.int32, device=dev),
+                self.rope,
+                valid_len=torch.ones(1, dtype=torch.int32, device=dev))
         cache["pos"] = pos + 1
-        return lm_head_logits(self.cfg, self.params, x)[:, -1], cache
+        with RECORDER.span("lm_head", cat="phase"):
+            return lm_head_logits(self.cfg, self.params, x)[:, -1], cache
 
     # -- speculative verify (module 9) -----------------------------------------
 
@@ -479,19 +484,8 @@ class TextModel:
         """Sample the first token off prefill logits [1, V] with the
         request's settings and draw `counter` of its key; recent: [1, N].
         Returns [1] int32."""
-        dev = logits.device
-        return sample_traced(
-            logits,
-            torch.tensor([key], dtype=torch.int64, device=dev),
-            torch.tensor([counter], dtype=torch.int64, device=dev),
-            torch.tensor([scfg.temperature], dtype=torch.float32, device=dev),
-            torch.tensor([scfg.top_k or self.cfg.vocab_size],
-                         dtype=torch.int32, device=dev),
-            torch.tensor([1.0 if scfg.top_p is None else scfg.top_p],
-                         dtype=torch.float32, device=dev),
-            torch.tensor([scfg.repeat_penalty], dtype=torch.float32,
-                         device=dev),
-            recent)
+        return sample_one(logits, key, counter, scfg, recent,
+                          self.cfg.vocab_size)
 
     @torch.no_grad()
     def slot_release(self, layers: list[dict], slot: int) -> list[dict]:
@@ -644,7 +638,7 @@ class TextModel:
 
     def generate(self, prompt_ids: list[int], max_new_tokens: int = 256,
                  sampling: SamplingConfig | None = None, seed: int = 0,
-                 spec=None, spec_k: int | None = None):
+                 spec=None, spec_k: int | None = None, on_token=None):
         """Generate up to max_new_tokens (stopping at EOS): one prefill,
         the first token sampled off its logits, then captured chunks of
         GEN_CHUNK batch-1 decode steps, STREAM_DEPTH chunks in flight, EOS
@@ -658,14 +652,21 @@ class TextModel:
         `spec_k` tokens (CAKE_SPEC_K) and one verify step keeps a prefix
         of them: greedy output equals the plain path's, sampled output
         keeps its distribution. The verify runs eagerly, one program per
-        step (spec/verify.py: spec_decode_loop)."""
+        step (spec/verify.py: spec_decode_loop).
+
+        `on_token` receives each Token as the host has it: the first at
+        once, the rest as each captured chunk is fetched (under
+        speculation, all at the end)."""
         scfg = sampling or SamplingConfig()
         if spec is not False:
             from ...spec import resolve_drafter
             drafter, k = resolve_drafter(spec, spec_k)
             if drafter is not None:
-                return self._generate_spec(prompt_ids, max_new_tokens, scfg,
-                                           seed, drafter, k)
+                out, stats = self._generate_spec(prompt_ids, max_new_tokens,
+                                                 scfg, seed, drafter, k)
+                for t in out if on_token is not None else ():
+                    on_token(self.mk_token(t))
+                return out, stats
         n = len(prompt_ids)
         kv_len = bucket_for(n + max_new_tokens, self.max_cache_len)
         run = self._chunk_runner(kv_len, scfg.repeat_last_n)
@@ -687,6 +688,10 @@ class TextModel:
         tok = self.sample_one(logits, key, 0, scfg, recent)
         out = [int(tok[0])]
         ttft = time.perf_counter() - t0
+        emit = (None if on_token is None
+                else lambda t: on_token(self.mk_token(t)))
+        if emit is not None:
+            emit(out[0])
         budget = min(max_new_tokens, kv_len - n)
         t1 = time.perf_counter()
         if len(out) < budget and not self.cfg.is_eos(out[0]):
@@ -703,7 +708,7 @@ class TextModel:
             # the step at position p writes entry p and yields token p+1:
             # steps past the budget are masked, never write the cache
             run.limit.fill_(n + budget - 1)
-            out += run.decode(budget - 1, self.cfg.is_eos)
+            out += run.decode(budget - 1, self.cfg.is_eos, emit)
         dt = time.perf_counter() - t1
         return out, {"ttft_s": ttft, "decode_tokens": len(out) - 1,
                      "decode_s": dt,
@@ -784,8 +789,9 @@ class _ChunkRunner:
                                          active=c.active & (c.pos < self.limit))
             self.out[i:i + 1].copy_(c.toks)
 
-    def decode(self, n: int, stop) -> list[int]:
-        """Up to n tokens, ending at the first for which stop(token)."""
+    def decode(self, n: int, stop, emit=None) -> list[int]:
+        """Up to n tokens, ending at the first for which stop(token);
+        emit(token), when given, as each is fetched."""
         chunks = -(-n // GEN_CHUNK)
         issued = fetched = 0
         toks: list[int] = []
@@ -803,6 +809,8 @@ class _ChunkRunner:
             fetched += 1
             for t in self.host[k].tolist():
                 toks.append(t)
+                if emit is not None:
+                    emit(t)
                 if len(toks) == n or stop(t):
                     return toks
         return toks

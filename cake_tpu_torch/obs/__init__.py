@@ -60,6 +60,19 @@ GENERATED_TOKENS = REGISTRY.counter(
     "Tokens emitted by completed generations",
     labelnames=("path",))           # local | cluster | offload
 
+
+
+def observe_generation(stats: dict, n_out: int, path: str) -> None:
+    """A completed generation's TTFT, mean per-token decode time and
+    emitted tokens (the reference's text_model._observe_generation):
+    path "serve" for the engine, "offload" for an offloaded model."""
+    TTFT_SECONDS.observe(stats["ttft_s"])
+    ntok = stats.get("decode_tokens") or 0
+    if ntok and stats.get("decode_s", 0) > 0:
+        DECODE_TOKEN_SECONDS.observe(stats["decode_s"] / ntok)
+    GENERATED_TOKENS.inc(n_out, path=path)
+
+
 GENERATIONS = REGISTRY.counter(
     "cake_generations_total",
     "Completed generations by workload kind",
@@ -250,6 +263,7 @@ __all__ = [
     "current_request_id", "request_scope", "EVENT_KINDS", "TIMELINES",
     "TimelineStore", "TRACE_HEADER",
     "TTFT_SECONDS", "DECODE_TOKEN_SECONDS", "GENERATED_TOKENS", "GENERATIONS",
+    "observe_generation",
     "API_REQUESTS", "API_REQUEST_SECONDS", "SERVE_QUEUE_DEPTH",
     "SERVE_SLOTS_BUSY", "SERVE_QUEUE_WAIT_SECONDS", "SERVE_BATCH_OCCUPANCY",
     "SERVE_PREFILL_CHUNKS", "SERVE_PREFIX_HITS", "SERVE_PREFIX_MISSES",

@@ -128,6 +128,23 @@ def sample_traced(logits: torch.Tensor, keys: torch.Tensor,
     return torch.where(temperature > 0, choice, order[:, 0]).to(torch.int32)
 
 
+def sample_one(logits: torch.Tensor, key: int, counter: int,
+               scfg: SamplingConfig, recent: torch.Tensor,
+               vocab_size: int) -> torch.Tensor:
+    """One token off logits [1, V] under the request's settings, draw
+    `counter` of key `key`; recent: [1, N]. Returns [1] int32."""
+    dev = logits.device
+
+    def one(v, dtype):
+        return torch.tensor([v], dtype=dtype, device=dev)
+    return sample_traced(
+        logits, one(key, torch.int64), one(counter, torch.int64),
+        one(scfg.temperature, torch.float32),
+        one(scfg.top_k or vocab_size, torch.int32),
+        one(1.0 if scfg.top_p is None else scfg.top_p, torch.float32),
+        one(scfg.repeat_penalty, torch.float32), recent)
+
+
 def push_recent_token(recent_tokens: torch.Tensor,
                       token: torch.Tensor) -> torch.Tensor:
     """Shift one token per row into the recent-token window: [B, N] and

@@ -11,6 +11,8 @@ in the local Hugging Face cache. Nothing is downloaded. Quantized
 checkpoints load through their strategy (utils/quant.py): FP8 block-wise
 (dequantized at load, or with fp8_native=True kept at 1 byte per
 parameter and dequantized per use by the kernel), AutoGPTQ 4-bit, GGUF.
+With expert_offload an MoE model's experts stay in the checkpoint
+(models/common/offload_model.py: OffloadedTextModel).
 """
 from __future__ import annotations
 
@@ -112,11 +114,16 @@ def load_config_and_quant(model_dir: str, arch: str | None = None):
 
 def build_text_model(model: str, dtype: str = "bf16", arch: str | None = None,
                      max_cache_len: int = 2048, seed: int = 42,
-                     device=None, fp8_native: bool = False):
-    """(TextModel, CakeTokenizer, model_id) of a local directory or a
-    cached repo id, on `device` (default `cuda`). model_id is the name's
-    last path component. fp8_native keeps an FP8 checkpoint's projections
-    at 1 byte per parameter (raises for any other checkpoint)."""
+                     device=None, fp8_native: bool = False,
+                     expert_offload: bool = False):
+    """(model, CakeTokenizer, model_id) of a local directory or a cached
+    repo id, on `device` (default `cuda`): a TextModel, or with
+    expert_offload an OffloadedTextModel whose MoE experts stay in the
+    checkpoint and are read on demand into an LRU per layer (ParamLoader's
+    default size; the reference's refusals: a model with no experts, and
+    fp8_native with offload). model_id is the name's last path
+    component. fp8_native keeps an FP8 checkpoint's projections at 1
+    byte per parameter (raises for any other checkpoint)."""
     dev = resolve_device(device)
     model_dir = resolve_model(model)
     cfg, quant, _ = load_config_and_quant(model_dir, arch)
@@ -125,6 +132,15 @@ def build_text_model(model: str, dtype: str = "bf16", arch: str | None = None,
             raise ValueError("--fp8-native requires an FP8 checkpoint "
                              f"(detected quantization: {quant.name})")
         quant = fp8_native_quant()
+    if expert_offload:
+        if not cfg.num_experts:
+            raise ValueError("--expert-offload needs an MoE model "
+                             f"(arch {cfg.arch} has no experts)")
+        if fp8_native:
+            # the provider dequantizes on read: a native {"fp8",
+            # "scale_inv"} expert has no offloaded consumer
+            raise ValueError("--expert-offload and --fp8-native cannot "
+                             "combine (offloaded experts dequant on read)")
     dt = parse_dtype(dtype)
     tokenizer = CakeTokenizer(model_dir)
     model_id = os.path.basename(model.rstrip("/"))
@@ -133,14 +149,26 @@ def build_text_model(model: str, dtype: str = "bf16", arch: str | None = None,
     if gguf and not any(f.endswith(".safetensors")
                         for f in os.listdir(model_dir)):
         from .utils.gguf import GgufStorage
-        with GgufStorage(os.path.join(model_dir, gguf[0]),
-                         cfg.model_prefix) as storage:
-            params = ParamLoader(cfg, storage, dt, dev, quant).load()
+        storage = GgufStorage(os.path.join(model_dir, gguf[0]),
+                              cfg.model_prefix)
+        params = ParamLoader(cfg, storage, dt, dev, quant,
+                             expert_offload).load()
     else:
-        params = load_model_params(cfg, model_dir, dt, dev, quant)
-    log.info("loaded %s (%s, %d layers, quantization %s%s) in %.2fs",
+        params = load_model_params(cfg, model_dir, dt, dev, quant,
+                                   expert_offload)
+    log.info("loaded %s (%s, %d layers, quantization %s%s%s) in %.2fs",
              model_id, cfg.arch, cfg.num_hidden_layers, quant.name,
-             ", native" if fp8_native else "", time.perf_counter() - t)
+             ", native" if fp8_native else "",
+             ", experts offloaded" if expert_offload else "",
+             time.perf_counter() - t)
+    if expert_offload:
+        from .models.common.offload_model import OffloadedTextModel
+        log.info("expert offload: %d experts per layer read from the "
+                 "checkpoint, the trunk resident", cfg.num_experts)
+        return (OffloadedTextModel(cfg, params, tokenizer=tokenizer,
+                                   dtype=dt, device=dev,
+                                   max_cache_len=max_cache_len),
+                tokenizer, model_id)
     gen = TextModel(cfg, params, tokenizer=tokenizer, dtype=dt, device=dev,
                     seed=seed, max_cache_len=max_cache_len)
     return gen, tokenizer, model_id

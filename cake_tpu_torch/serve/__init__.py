@@ -1,6 +1,6 @@
 from .admission import AdmissionQueue, QueueFull
 from .engine import (EngineDraining, QueueDeadlineExceeded, ServeEngine,
-                     ServeRequest, SlotPool)
+                     ServeRequest, SlotPool, engine_knobs, maybe_engine)
 from .paged import KVPoolExhausted, PagedKV
 from .prefix_cache import PagedPrefixCache, PrefixCache
 from .supervisor import (EngineDown, PoisonedRequest, RequestDeadlineExceeded,
@@ -10,4 +10,5 @@ __all__ = ["AdmissionQueue", "EngineDown", "EngineDraining", "KVPoolExhausted",
            "PagedKV", "PagedPrefixCache", "PoisonedRequest",
            "PrefixCache", "QueueDeadlineExceeded", "QueueFull",
            "RequestDeadlineExceeded", "ServeEngine", "ServeRequest",
-           "SlotPool", "StepFailure", "Supervisor"]
+           "SlotPool", "StepFailure", "Supervisor", "engine_knobs",
+           "maybe_engine"]

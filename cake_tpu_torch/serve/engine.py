@@ -112,6 +112,7 @@ Left out of this port so far (see ROADMAP.md): the fleet KV tier.
 from __future__ import annotations
 
 import logging
+import os
 import queue as queue_mod
 import threading
 import time
@@ -123,14 +124,13 @@ import torch
 from ..models.common.cache import kv_capacity, reset_layers
 from ..models.common.graphs import DecodeCarries, DecodeGraph, SpecCarries
 from ..models.common.text_model import prefill_start_keys
-from ..obs import (DECODE_TOKEN_SECONDS, GENERATED_TOKENS, RECORDER,
-                   SERVE_BATCH_OCCUPANCY, SERVE_E2E_SECONDS,
+from ..obs import (RECORDER, SERVE_BATCH_OCCUPANCY, SERVE_E2E_SECONDS,
                    SERVE_ITL_SECONDS, SERVE_POISONED, SERVE_PREEMPTIONS,
                    SERVE_PREFILL_CHUNKS, SERVE_QOS_E2E_SECONDS,
                    SERVE_QOS_TTFT_SECONDS, SERVE_QUEUE_TIMEOUTS,
                    SERVE_QUEUE_WAIT_SECONDS, SERVE_REQUEST_TIMEOUTS,
-                   SERVE_SLOTS_BUSY, SERVE_TTFT_SECONDS, TIMELINES,
-                   TTFT_SECONDS, now, now_us)
+                   SERVE_SLOTS_BUSY, SERVE_TTFT_SECONDS, TIMELINES, now,
+                   now_us, observe_generation)
 from ..ops.sampling import SamplingConfig, config_has_filters, request_key
 from ..spec import resolve_drafter, spec_knobs
 from ..spec.verify import record_step
@@ -160,11 +160,15 @@ PREEMPT_MODES = ("swap", "recompute")   # the reference's CAKE_PREEMPT_MODE
 # defaults: 0 turns the sweep off
 DEFAULT_QUEUE_DEADLINE_S = 0.0
 DEFAULT_REQUEST_DEADLINE_S = 0.0
+# a client's wait on the engine wakes this often to check that the
+# scheduler thread still runs; the start waits at most START_TIMEOUT_S
+POLL_S = 0.5
+START_TIMEOUT_S = 900.0
 
-__all__ = ["EngineDown", "EngineDraining", "KVPoolExhausted",
-           "PoisonedRequest", "QueueDeadlineExceeded", "QueueFull",
-           "RequestDeadlineExceeded", "ServeEngine", "ServeRequest",
-           "SlotPool"]
+__all__ = ["ENGINE_KNOBS", "EngineDown", "EngineDraining",
+           "KVPoolExhausted", "PoisonedRequest", "QueueDeadlineExceeded",
+           "QueueFull", "RequestDeadlineExceeded", "ServeEngine",
+           "ServeRequest", "SlotPool", "engine_knobs", "maybe_engine"]
 
 
 class EngineDraining(RuntimeError):
@@ -402,10 +406,19 @@ class ServeEngine:
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="cake-torch-serve")
         self._thread.start()
-        self._ready.wait()
-        if self.dead is not None:
-            self._thread.join()
-            raise self.dead
+        t0 = now()
+        while not self._ready.wait(POLL_S):
+            if not self._thread.is_alive():
+                break
+            if now() - t0 > START_TIMEOUT_S:
+                self._stop.set()
+                raise RuntimeError(
+                    f"serve engine did not start within {START_TIMEOUT_S}s "
+                    "(the scheduler thread is still capturing its graphs)")
+        if self.dead is not None or not self._thread.is_alive():
+            self._thread.join(timeout=START_TIMEOUT_S)
+            raise self.dead or RuntimeError(
+                "serve engine's scheduler thread ended before it started")
 
     def _init_device_state(self):
         """The KV (contiguous rows, or a PagedKV) and every per-slot carry
@@ -566,13 +579,41 @@ class ServeEngine:
             f"{down.get('last_failure', 'unknown failure')}); restore loop "
             "probing", retry_after_s=self.supervisor.retry_after_s())
 
+    def _orphan_check(self, req: ServeRequest) -> None:
+        """A request whose scheduler thread is gone without finishing it
+        fails with EngineDown here, so that no waiter waits for a thread
+        that will never answer."""
+        if not req.done.is_set() and not self._thread.is_alive():
+            self._fail(req, self._down_error())
+
+    def wait(self, req: ServeRequest, event: threading.Event | None = None
+             ) -> None:
+        """Wait until `event` (default: req.done) or req.done is set,
+        checking every POLL_S that the scheduler thread still runs. A wait
+        on req.done alone blocks between checks; a wait on another event
+        looks at both every 20 ms."""
+        if event is None or event is req.done:
+            while not req.done.wait(POLL_S):
+                self._orphan_check(req)
+            return
+        checked = now()
+        while not (event.wait(0.02) or req.done.is_set()):
+            if now() - checked >= POLL_S:
+                self._orphan_check(req)
+                checked = now()
+
     def stream(self, req: ServeRequest):
-        """Iterator over the request's Tokens (blocking). Closing it early
-        cancels the request, freeing its slot. Raises the request's error,
-        if any, after the last token."""
+        """Iterator over the request's Tokens (blocking; each wait bounded
+        by POLL_S and a check that the scheduler still runs). Closing it
+        early cancels the request, freeing its slot. Raises the request's
+        error, if any, after the last token."""
         try:
             while True:
-                item = req.out_q.get()
+                try:
+                    item = req.out_q.get(timeout=POLL_S)
+                except queue_mod.Empty:
+                    self._orphan_check(req)
+                    continue
                 if item is ServeRequest.DONE:
                     break
                 yield item
@@ -1663,7 +1704,7 @@ class ServeEngine:
         if cancelled and "error" not in req.result:
             req.result["cancelled"] = True
         if not cancelled and req.tokens:
-            _observe_generation(req.stats, len(req.tokens))
+            observe_generation(req.stats, len(req.tokens), "serve")
         # SLO and terminal event only for a request not already finalized
         # (close() may have released this waiter before), so that nothing
         # counts twice
@@ -1719,12 +1760,50 @@ class ServeEngine:
         req.done.set()
 
 
-def _observe_generation(stats: dict, n_out: int) -> None:
-    """A completed generation's TTFT, mean per-token decode time and
-    emitted tokens (the reference's text_model._observe_generation, on
-    its serve path)."""
-    TTFT_SECONDS.observe(stats["ttft_s"])
-    ntok = stats.get("decode_tokens") or 0
-    if ntok and stats.get("decode_s", 0) > 0:
-        DECODE_TOKEN_SECONDS.observe(stats["decode_s"] / ntok)
-    GENERATED_TOKENS.inc(n_out, path="serve")
+# the engine's shape from the environment: (kwarg, variable, cast,
+# default), the reference's knobs and defaults (cake_tpu/knobs.py)
+ENGINE_KNOBS = (
+    ("slots", "CAKE_SERVE_SLOTS", int, DEFAULT_SLOTS),
+    ("max_queue", "CAKE_MAX_QUEUE", int, DEFAULT_QUEUE),
+    ("ctx_len", "CAKE_SERVE_CTX", int, DEFAULT_CTX),
+    ("prefill_chunk", "CAKE_PREFILL_CHUNK", int, DEFAULT_CHUNK),
+    ("prefix_cache_mb", "CAKE_PREFIX_CACHE_MB", float,
+     DEFAULT_PREFIX_CACHE_MB),
+    ("kv_blocks", "CAKE_KV_BLOCKS", int, 0),
+    ("kv_block_tokens", "CAKE_KV_BLOCK_TOKENS", int,
+     DEFAULT_KV_BLOCK_TOKENS),
+    ("preempt_mode", "CAKE_PREEMPT_MODE", str, "swap"),
+)
+
+
+def engine_knobs(env, **given) -> dict:
+    """The engine's shape: each kwarg of ENGINE_KNOBS from `given` when
+    it is not None (an explicit flag wins), else from its CAKE_ variable
+    when set and not empty, else the reference's default."""
+    out = {}
+    for kw, name, cast, default in ENGINE_KNOBS:
+        if given.get(kw) is not None:
+            out[kw] = cast(given[kw])
+        elif env.get(name):
+            out[kw] = cast(env[name])
+        else:
+            out[kw] = default
+    return out
+
+
+def maybe_engine(model, env=None, **kw) -> ServeEngine | None:
+    """A serve engine for a model that can batch (the reference's
+    maybe_engine): its shape from engine_knobs(env, **kw) (env: the
+    process environment by default), the other kwargs passed through.
+    None for a model that is not a TextModel, an offloaded one, or when
+    the slots are 0 (CAKE_SERVE_SLOTS=0): the API then serves one request
+    at a time under a lock (api/state.py)."""
+    from ..models.common.text_model import TextModel
+    shape = engine_knobs(os.environ if env is None else env,
+                         **{k: kw.pop(k) for k, *_ in ENGINE_KNOBS
+                            if k in kw})
+    if (not isinstance(model, TextModel)
+            or getattr(model, "expert_offload", False)
+            or shape["slots"] <= 0):
+        return None
+    return ServeEngine(model, **shape, **kw)

@@ -112,31 +112,46 @@ class GgufReader:
 
     # -- tensor data ------------------------------------------------------
 
-    def _raw(self, t: GgufTensor, nbytes: int) -> bytes:
+    def _raw(self, t: GgufTensor, nbytes: int, skip: int = 0) -> bytes:
         with open(self.path, "rb") as f:
-            f.seek(self.data_start + t.offset)
+            f.seek(self.data_start + t.offset + skip)
             raw = f.read(nbytes)
         if len(raw) != nbytes:
             raise ValueError(f"{self.path}: truncated: tensor {t.name} "
                              f"has {len(raw)} of {nbytes} bytes")
         return raw
 
-    def read_tensor(self, name: str, device="cpu") -> torch.Tensor:
+    def nbytes(self, name: str) -> int:
+        """Stored bytes of a tensor (its raw blocks)."""
+        t = self.tensors[name]
+        per, nbytes = BLOCKS[t.ggml_type]
+        return math.prod(t.dims) // per * nbytes
+
+    def read_tensor(self, name: str, device="cpu",
+                    index: int | None = None) -> torch.Tensor:
         """The tensor in torch layout [out, in] on `device`: float32 for
         a quantized type, as stored for F32, F16 and BF16. The raw bytes
-        are copied to the device and dequantized there."""
+        are copied to the device and dequantized there. `index` reads one
+        slice of the outermost dimension alone (one expert of a bank):
+        blocks run along the innermost one, so the slice is a contiguous
+        run of whole blocks."""
         t = self.tensors[name]
-        n = math.prod(t.dims)
+        dims = t.dims if index is None else t.dims[:-1]
+        n = math.prod(dims)
         if t.ggml_type not in BLOCKS:
             raise NotImplementedError(f"ggml type {t.ggml_type} for {name}")
         per, nbytes = BLOCKS[t.ggml_type]
-        raw = torch.frombuffer(bytearray(self._raw(t, n // per * nbytes)),
-                               dtype=torch.uint8).to(device)
+        size = n // per * nbytes
+        if index is not None and not 0 <= index < t.dims[-1]:
+            raise IndexError(f"{name}: slice {index} of {t.dims[-1]}")
+        raw = torch.frombuffer(
+            bytearray(self._raw(t, size, size * (index or 0))),
+            dtype=torch.uint8).to(device)
         stored = {GGML_F32: torch.float32, GGML_F16: torch.float16,
                   GGML_BF16: torch.bfloat16}.get(t.ggml_type)
         data = raw.view(stored) if stored is not None else \
             DEQUANT[t.ggml_type](raw, n)
-        return data.reshape(tuple(reversed(t.dims)))
+        return data.reshape(tuple(reversed(dims)))
 
 
 # -- block dequantizers (vectorized over blocks, on the load's device) ------
@@ -465,8 +480,10 @@ DEQUANT = {GGML_Q4_0: dequant_q4_0, GGML_Q5_0: dequant_q5_0,
 class GgufStorage:
     """A storage over a GGUF file for the loader: HF names in, tensors
     out. MoE expert banks (blk.N.ffn_*_exps, [n_expert, inter, hidden])
-    are exposed as virtual per-expert names; a small cache keeps the
-    current layer's banks while the loader walks its experts."""
+    are exposed as virtual per-expert names, each read and dequantized
+    alone from its slice of the bank (the reference dequantizes the
+    whole bank and keeps three; one expert at a time is what an
+    offloaded model's provider needs, with the same bits)."""
 
     def __init__(self, path: str, prefix: str = "model"):
         self.reader = GgufReader(path)
@@ -477,7 +494,6 @@ class GgufStorage:
         self._norm_offset = -1.0 if arch.startswith("gemma") else 0.0
         self._map: dict[str, str] = {}
         self._experts: dict[str, tuple[str, int]] = {}
-        self._bank_cache: dict[tuple, torch.Tensor] = {}
         for gname, t in self.reader.tensors.items():
             hf = gguf_to_hf_name(gname, prefix, arch)
             if hf:
@@ -505,13 +521,16 @@ class GgufStorage:
     def __contains__(self, name) -> bool:
         return name in self._map or name in self._experts
 
-    def _bank(self, gname: str, device) -> torch.Tensor:
-        key = (gname, str(device))
-        if key not in self._bank_cache:
-            if len(self._bank_cache) >= 3:   # gate/up/down of one layer
-                self._bank_cache.pop(next(iter(self._bank_cache)))
-            self._bank_cache[key] = self.reader.read_tensor(gname, device)
-        return self._bank_cache[key]
+    def nbytes(self, name: str) -> int:
+        """Stored bytes of one tensor (an expert's: its slice of the
+        bank)."""
+        if name in self._experts:
+            gname, _ = self._experts[name]
+            t = self.reader.tensors[gname]
+            return self.reader.nbytes(gname) // t.dims[-1]
+        if name in self._map:
+            return self.reader.nbytes(self._map[name])
+        raise KeyError(f"tensor {name} is not in the GGUF file")
 
     def read(self, name: str, device="cpu",
              dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -519,7 +538,7 @@ class GgufStorage:
         when given."""
         if name in self._experts:
             gname, e = self._experts[name]
-            t = self._bank(gname, device)[e].clone()
+            t = self.reader.read_tensor(gname, device, index=e)
         elif name in self._map:
             t = self.reader.read_tensor(self._map[name], device)
             if self._norm_offset and name.endswith("norm.weight"):
@@ -531,4 +550,4 @@ class GgufStorage:
         return t
 
     def close(self) -> None:
-        self._bank_cache.clear()
+        """Nothing is held open: each read opens the file."""

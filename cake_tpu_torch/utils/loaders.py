@@ -6,7 +6,11 @@ prefix (`model`, or Qwen3.5's `model.language_model`), separate q/k/v and
 gate/up projections. MoE experts (`mlp.experts.{e}.{proj}.weight`) are
 stacked on the device into [E, I, H] (gate, up) and [E, H, I] (down)
 banks beside the router `mlp.gate.weight`, the shared expert and its
-gate; a Gated DeltaNet layer loads through qwen3_5.load_gdn_params. Phi-4's pre-fused
+gate; with `expert_offload` each MoE layer holds a `_provider` leaf
+(models/common/expert_provider.py: DiskExpertProvider, an LRU of
+`expert_lru_size` experts) in place of the banks, and its experts stay
+in the storage, as the reference's loader does. A Gated DeltaNet layer
+loads through qwen3_5.load_gdn_params. Phi-4's pre-fused
 `qkv_proj` is split at size_q / size_kv and its `gate_up_proj` in halves,
 on the device. Each tensor is read from the file's map, copied to the
 device and cast there, one at a time. A tensor the config needs and the
@@ -42,6 +46,7 @@ import os
 import torch
 
 from ..models.common.config import ModelConfig
+from ..models.common.expert_provider import DiskExpertProvider
 from ..models.common.layers import NORM_NAMES
 from ..models.qwen3_5 import load_gdn_params
 from ..ops.fp8 import dequant_fp8_blockwise, is_fp8
@@ -55,12 +60,15 @@ class ParamLoader:
     _warned_dense = False
 
     def __init__(self, cfg: ModelConfig, storage, dtype: torch.dtype =
-                 torch.bfloat16, device="cpu", quant=None):
+                 torch.bfloat16, device="cpu", quant=None,
+                 expert_offload: bool = False, expert_lru_size: int = 32):
         self.cfg = cfg
         self.st = storage
         self.dtype = dtype
         self.device = device
         self.quant = quant or NoQuantization()
+        self.expert_offload = expert_offload
+        self.expert_lru_size = expert_lru_size
         self.used: set[str] = set()
 
     def _has(self, name: str) -> bool:
@@ -136,9 +144,25 @@ class ParamLoader:
 
     def _moe(self, mp: str) -> dict:
         """The router, the experts stacked into banks (each expert's
-        tensor copied into its row on the device), the shared expert."""
+        tensor copied into its row on the device) or, offloaded, a
+        `_provider` that reads them from the storage on demand, and the
+        shared expert."""
         cfg = self.cfg
         p: dict = {"gate": {"weight": self._get_dense(f"{mp}.gate.weight")}}
+        if self.expert_offload:
+            prov = DiskExpertProvider(
+                self.st, mp, cfg.num_experts, quant=self.quant,
+                dtype=self.dtype, device=self.device,
+                lru_size=self.expert_lru_size,
+                name_fmt="{lp}.experts.{e}.{proj}.weight")
+            for e in range(cfg.num_experts):
+                for name in prov.names(e):
+                    if not self._has(name):
+                        raise KeyError(f"checkpoint tensor {name} is "
+                                       f"missing (arch {cfg.arch})")
+                    self.used.update(self.quant.sources(self.st, name))
+            p["_provider"] = prov
+            return self._shared_expert(mp, p)
         banks = {}
         for proj in ("gate_proj", "up_proj", "down_proj"):
             bank = None
@@ -150,7 +174,10 @@ class ParamLoader:
                 bank[e].copy_(w)
             banks[proj] = bank
         p["experts"] = banks
-        if cfg.shared_expert_intermediate_size:
+        return self._shared_expert(mp, p)
+
+    def _shared_expert(self, mp: str, p: dict) -> dict:
+        if self.cfg.shared_expert_intermediate_size:
             p["shared_expert"] = self._mlp(f"{mp}.shared_expert")
             p["shared_expert_gate"] = self._weight(
                 f"{mp}.shared_expert_gate.weight")
@@ -201,11 +228,20 @@ def load_rms_norm_weight(weight: torch.Tensor,
 
 def load_model_params(cfg: ModelConfig, model_dir: str,
                       dtype: torch.dtype = torch.bfloat16,
-                      device="cpu", quant=None) -> dict:
+                      device="cpu", quant=None,
+                      expert_offload: bool = False,
+                      expert_lru_size: int = 32) -> dict:
     """The parameter tree of a safetensors checkpoint directory, through
-    `quant` (default: the strategy its config.json names)."""
+    `quant` (default: the strategy its config.json names). With
+    expert_offload the storage stays open: the MoE layers' providers read
+    from it for as long as the model lives."""
     if quant is None:
         with open(os.path.join(model_dir, "config.json")) as f:
             quant = detect_quantization(json.load(f))
-    with TensorStorage.from_model_dir(model_dir) as storage:
-        return ParamLoader(cfg, storage, dtype, device, quant).load()
+    storage = TensorStorage.from_model_dir(model_dir)
+    try:
+        return ParamLoader(cfg, storage, dtype, device, quant,
+                           expert_offload, expert_lru_size).load()
+    finally:
+        if not expert_offload:
+            storage.close()

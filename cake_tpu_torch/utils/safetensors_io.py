@@ -145,6 +145,10 @@ class TensorStorage:
     def __contains__(self, name) -> bool:
         return name in self.records
 
+    def nbytes(self, name: str) -> int:
+        """Stored bytes of one tensor."""
+        return self.records[name].nbytes
+
     def _map(self, path: str) -> mmap.mmap:
         if path not in self._maps:
             with open(path, "rb") as f:

@@ -88,7 +88,8 @@ Phases (any failure exits non-zero and prints no result line):
      28 layers, bf16, 4 slots, ctx 4096, chunk 256, prefix cache off),
      each driven by the port's own fault hook (serve/faults.py): (a)
      contiguous and (b) paged (1024 blocks of 16), three concurrent
-     greedy chats of ~630 tokens under raise_on_step=6;kind=device give
+     greedy chats of ~630 tokens under raise_on_step=6;kind=device
+     (installed once all three decode) give
      the tokens of the same chats on the same engine with no plan, in one
      rebuild, whose replay raises the flash launches (fresh and append)
      and the prefill graph replays by exactly the replay's chunks, at
@@ -204,9 +205,30 @@ Phases (any failure exits non-zero and prints no result line):
      flagship's widths and depth, each served through `cli serve DIR`,
      contiguous and paged, its card parameters equal to a CPU load bit
      for bit, each chat equal alone;
+  15. expert offload (module 10b; run right after phase 13, on its 4-layer
+     checkpoint, which it then deletes) at Qwen3-Next-80B-A3B's widths,
+     the experts read from the checkpoint into an LRU of 32 per layer: (a)
+     bf16, 4 of 48 layers: the resident model, then (freed) the
+     offloaded one: memory after each load (the offloaded one the trunk
+     alone), first-step logits equal, 16 greedy tokens of a 320-token
+     prompt equal, one flash (bf16, fresh) launch per full-attention
+     layer, the memory held at most the trunk plus the LRUs, TTFT, decode
+     rate, expert reads per token, the LRU's hit share and the GB/s
+     read; (b) Qwen's FP8 layout at 12 of 48 layers (21 GB written after
+     a check of the free disk): the same against the resident model
+     dequantized at load, three dequant launches per expert read, the
+     dequant kernel at an expert's gate_proj against its plain version
+     and timed, and the projection of the trunk and the LRUs to 48
+     layers; (c) `cli serve DIR --expert-offload`: two concurrent chats
+     answered one at a time, each equal to generate, SSE equal to JSON,
+     `stop` trimming; then phase 7's flagship checkpoint in float32 under
+     CAKE_SERVE_SLOTS=0 (no engine: the locked path) and under
+     CAKE_KV_BLOCKS=1024 (a paged pool of 1024 blocks), each locked
+     answer equal to the engine's;
   then prints the whole run's seconds, the kernels line, the card line,
   and the result line last. `--only 12` runs phases 1, 2 and 12 alone,
-  `--only 13` phases 1, 2 and 13, `--only 14` phases 1, 2 and 14, and
+  `--only 13` phases 1, 2 and 13, `--only 14` phases 1, 2 and 14,
+  `--only 15` phases 1, 2 and 15 (writing its own checkpoints), and
   none of them prints a result line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -1252,7 +1274,8 @@ def _replay_launches(engine, layers: int) -> dict:
 def _drill_rebuild(model, card: str, label: str, **engine_kw) -> None:
     """Phase 10 (a) / (b): three concurrent greedy chats, first on the
     engine with no plan, then on the same engine under
-    raise_on_step=6;kind=device: the same tokens, one rebuild, the
+    raise_on_step=6;kind=device, installed once all three decode: the
+    same tokens, one rebuild, the
     replay's chunks through the captured programs at unchanged addresses
     (flash launches and prefill replays rise by exactly the replay's),
     and, paged, the decode kernel launching after it."""
@@ -1269,12 +1292,21 @@ def _drill_rebuild(model, card: str, label: str, **engine_kw) -> None:
     prompts = [model.tokenizer.chat_prompt_ids(chat_body(i)["messages"])
                for i in range(3)]
 
-    def run():
+    def run(plan=None):
         torch.cuda.synchronize()
         replays0, steps0 = eng.prefill.replays, eng.graph.steps
         flash.reset_launches()
         pa.reset_launches()
         reqs = [eng.submit(p, 32, greedy) for p in prompts]
+        if plan is not None:
+            # the plan counts decode dispatches from its install: once
+            # every chat decodes, so that the failure always finds the
+            # three slots decoding (how far the admissions got by a
+            # dispatch count depends on when the scheduler saw each
+            # submit)
+            _until(lambda: all(r.tokens or r.done.is_set() for r in reqs),
+                   f"phase 10 {label}: chats never decoded", 600)
+            faults.install(plan)
         for r in reqs:
             check(r.wait(600), f"phase 10 {label}: a request hung")
             check("error" not in r.result,
@@ -1294,9 +1326,8 @@ def _drill_rebuild(model, card: str, label: str, **engine_kw) -> None:
         calm = run()
         ptrs, graph = engine_addresses(eng), eng.graph
         programs = dict(eng.prefill.graphs)
-        faults.install("raise_on_step=6;kind=device")
         try:
-            hit = run()
+            hit = run("raise_on_step=6;kind=device")
         finally:
             faults.clear()
         h = eng.health()
@@ -2425,8 +2456,8 @@ def phase_checkpoint(model, card: str, workdir: str) -> dict:
     served through `cli serve DIR`, contiguous and paged (1024 blocks):
     4 concurrent chats and one SSE chat, all 200, each equal alone and in
     company, their prompt ids those of the CPU tokenizer; and generate's
-    greedy tokens on a fixed id list equal `model`'s. Returns the load's
-    {seconds, gb, gb_s}."""
+    greedy tokens on a fixed id list equal `model`'s. The directory stays
+    for phase 15. Returns the load's {seconds, gb, gb_s}."""
     import torch
     from cake_tpu_torch.bench import synth_checkpoint as sc
     from cake_tpu_torch.runtime import build_text_model
@@ -2485,7 +2516,6 @@ def phase_checkpoint(model, card: str, workdir: str) -> dict:
                   flush=True)
         finally:
             served.close()
-    shutil.rmtree(d, ignore_errors=True)
     return load
 
 
@@ -3353,31 +3383,22 @@ def phase_qnext_serve(model, card: str) -> dict:
     return launches
 
 
-def phase_qnext_checkpoint(card: str, workdir: str) -> None:
+def phase_qnext_checkpoint(card: str, workdir: str) -> str:
     """13(e). 4 layers (3 linear, 1 full; HF names: in_proj_qkvz /
     in_proj_ba, experts.{e}.*, shared_expert, (1+w) norms stored as w)
     written as a checkpoint directory with a byte-level BPE tokenizer,
     loaded through build_text_model bit for bit, then served through `cli
     serve DIR`: 4 concurrent chats and one SSE chat, all 200, each equal
-    alone and in company."""
+    alone and in company. Returns the directory, which phase 15 reads
+    and deletes."""
     import torch
-    from cake_tpu_torch.bench import synth_checkpoint as sc
     from cake_tpu_torch.runtime import build_text_model
-    d = os.path.join(workdir, "qwen3-next")
-    config = sc.family_config("qwen3_next", QNEXT_CKPT_LAYERS)
-    t = time.perf_counter()
-    params = sc.model_params(config, seed=3, device="cuda",
-                             randomize_norms=True, gen_device="cuda")
-    nbytes = sc.write_model(d, config, params, shards=4)
-    sc.write_tokenizer(d, sc.QWEN3_SPECIALS)
+    d, params, nbytes = _write_qnext_dir(workdir, QNEXT_CKPT_LAYERS)
     names = json.load(open(os.path.join(d, "model.safetensors.index.json")))
     names = " ".join(names["weight_map"])
     check("linear_attn.in_proj_qkvz" in names and "experts.511.down_proj"
           in names and "shared_expert_gate" in names,
           "qwen3-next checkpoint: HF names missing")
-    print(f"qwen3-next checkpoint: {QNEXT_CKPT_LAYERS} layers written "
-          f"({nbytes / 1e9:.2f} GB, 4 shards) in {time.perf_counter() - t:.1f}"
-          f" s", flush=True)
     torch.cuda.synchronize()
     t = time.perf_counter()
     loaded, _, _ = build_text_model(d, "bf16", device="cuda",
@@ -3403,7 +3424,7 @@ def phase_qnext_checkpoint(card: str, workdir: str) -> None:
               f"200, each equal alone and in company", flush=True)
     finally:
         served.close()
-    shutil.rmtree(d, ignore_errors=True)
+    return d
 
 
 def phase_qnext(card: str, workdir: str) -> dict:
@@ -3424,9 +3445,10 @@ def phase_qnext(card: str, workdir: str) -> dict:
     launches = phase_qnext_serve(model, card)
     del model
     torch.cuda.empty_cache()
-    phase_qnext_checkpoint(card, workdir)
+    ckpt = phase_qnext_checkpoint(card, workdir)
     print(f"phase 13 in {time.perf_counter() - t0:.0f} s", flush=True)
-    return {"timings": timings, "launches": launches, "f32": f32}
+    return {"timings": timings, "launches": launches, "f32": f32,
+            "checkpoint": ckpt}
 
 
 def qnext_kernel_rows(q: dict) -> list:
@@ -3960,6 +3982,422 @@ def quant_kernel_rows(q: dict) -> list:
     return rows
 
 
+# -- phase 15: expert offload (module 10b) and the locked path -----------------
+
+OFFLOAD_LRU = 32            # experts per layer held on the card (default)
+OFFLOAD_STEPS = 16          # greedy tokens compared, offloaded vs resident
+OFFLOAD_PROMPT = 320        # tokens: a prefill of one 512 bucket, flash
+OFFLOAD_FP8_LAYERS = 12     # of 48, in the FP8 layout (9 linear, 3 full)
+OFFLOAD_CHAT_TOKENS = 16
+GB = 1e9
+
+
+def _offload_prompt() -> list[int]:
+    import torch
+    return [int(x) for x in torch.randint(
+        0, 150000, (OFFLOAD_PROMPT,),
+        generator=torch.Generator().manual_seed(15))]
+
+
+def _trunk_bytes(tree) -> int:
+    """Device bytes of every tensor of a parameter tree (an offloaded
+    model's providers, which hold no tensor at load, skipped)."""
+    import torch
+    if torch.is_tensor(tree):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(_trunk_bytes(v) for k, v in tree.items()
+                   if k != "_provider")
+    if isinstance(tree, (list, tuple)):
+        return sum(_trunk_bytes(v) for v in tree)
+    return 0
+
+
+def _layer_bytes(tree) -> tuple[int, int]:
+    """(bytes outside the layers, bytes of the layers) of a trunk."""
+    layers = _trunk_bytes(tree["layers"])
+    return _trunk_bytes(tree) - layers, layers
+
+
+def _write_qnext_dir(workdir: str, layers: int, fp8: bool = False) -> tuple:
+    """Qwen3-Next-80B-A3B's widths cut to `layers`, seeded on the card
+    (seed 3, norms randomized), written under workdir (bf16, or Qwen's
+    FP8 block-wise layout) with the byte-level BPE tokenizer, after a
+    check of the free disk. Returns (dir, params or None, bytes)."""
+    import torch
+    from cake_tpu_torch.bench import synth_checkpoint as sc
+    config = sc.family_config("qwen3_next", layers)
+    cfg_experts = config["num_experts"] * 3 * config["hidden_size"] * \
+        config["moe_intermediate_size"] * layers
+    need = cfg_experts * (1 if fp8 else 2) * 1.15 + 4 * GB
+    free = shutil.disk_usage(workdir).free
+    check(free >= need, f"qwen3-next {layers} layers: {free / GB:.1f} GB "
+          f"free under {workdir}, the checkpoint needs ~{need / GB:.1f} GB")
+    d = os.path.join(workdir, f"qwen3-next-{layers}{'-fp8' if fp8 else ''}")
+    t = time.perf_counter()
+    params = sc.model_params(config, seed=3, device="cuda",
+                             randomize_norms=True, gen_device="cuda")
+    write = sc.write_fp8_model if fp8 else sc.write_model
+    nbytes = write(d, config, params, shards=4)
+    sc.write_tokenizer(d, sc.QWEN3_SPECIALS)
+    print(f"qwen3-next checkpoint: {layers} layers written "
+          f"{'in the FP8 layout ' if fp8 else ''}({nbytes / GB:.2f} GB, 4 "
+          f"shards; {free / GB:.1f} GB free before) in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    if fp8:
+        del params
+        torch.cuda.empty_cache()
+        params = None
+    return d, params, nbytes
+
+
+def _offload_compare(d: str, card: str, label: str, logits: bool) -> dict:
+    """The checkpoint loaded resident, then (the first freed) with its
+    experts offloaded (an LRU of OFFLOAD_LRU per layer): memory after
+    each load, OFFLOAD_STEPS greedy tokens of a 320-token prompt (equal),
+    with `logits` the first step's logits (within the bf16 bar), the
+    flash and dequant launches of the offloaded run (one fresh flash per
+    full-attention layer; three dequants per expert read of an FP8
+    checkpoint), the device memory it held (at most the trunk plus the
+    LRUs), TTFT, decode rate, expert reads per token, the LRU's hit share
+    and the bytes read per second. Returns the readings."""
+    import torch
+    from cake_tpu_torch.ops import flash, fp8
+    from cake_tpu_torch.ops.sampling import SamplingConfig
+    from cake_tpu_torch.runtime import build_text_model
+    greedy = SamplingConfig(temperature=0.0)
+    prompt = _offload_prompt()
+    out = {}
+
+    def load(**kw):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        model, _, _ = build_text_model(d, "bf16", device="cuda",
+                                       max_cache_len=4096, **kw)
+        torch.cuda.synchronize()
+        return (model, before, time.perf_counter() - t,
+                torch.cuda.memory_allocated() - before)
+    res, _, res_s, res_bytes = load()
+    want, _ = res.generate(prompt, OFFLOAD_STEPS, greedy, spec=False)
+    want_logits = res.prefill(res.new_cache(1, 512), prompt)[0].float() \
+        if logits else None
+    cfg = res.cfg
+    del res
+    off, base, off_s, off_bytes = load(expert_offload=True)
+    check(all(p._lru_size == OFFLOAD_LRU for p in off.providers()),
+          f"{label}: the providers' LRU is not the default {OFFLOAD_LRU}")
+    trunk = _trunk_bytes(off.params) + _trunk_bytes(off.rope)
+    expert = 3 * cfg.hidden_size * cfg.moe_intermediate_size * 2   # bf16
+    moe_layers = len(off.providers())
+    lru_cap = moe_layers * OFFLOAD_LRU * expert
+    full = sum(1 for sp in cfg.layer_specs() if sp.kind == "full")
+    print(f"{label}: resident load {res_s:.1f} s, "
+          f"{res_bytes / GB:.3f} GB on the card; offloaded load {off_s:.1f} "
+          f"s, {off_bytes / GB:.3f} GB (trunk {trunk / GB:.3f} GB; LRU cap "
+          f"{moe_layers} x {OFFLOAD_LRU} x {expert / 1e6:.2f} MB = "
+          f"{lru_cap / GB:.3f} GB); on {card}", flush=True)
+    check(off_bytes <= trunk + 256e6, f"{label}: offloaded load holds "
+          f"{off_bytes} bytes, the trunk is {trunk}")
+    check(off_bytes < res_bytes / 3, f"{label}: offloaded memory "
+          f"{off_bytes} not well under resident {res_bytes}")
+    if logits:
+        got_logits = off.prefill(off.new_cache(1, 512), prompt)[0].float()
+        err = (got_logits - want_logits).abs().max().item()
+        print(f"{label}: first-step logits offloaded vs resident max abs "
+              f"err {err:.3g} (bar {BF16_TOL})", flush=True)
+        check(err <= BF16_TOL, f"{label}: logits differ by {err}")
+        out["logits_err"] = err
+    flash.reset_launches()
+    fp8.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    got, st = off.generate(prompt, OFFLOAD_STEPS, greedy)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    peak = torch.cuda.max_memory_allocated() - base
+    fresh = flash.launch_counts()["bf16"]["fresh"]
+    dequant = fp8.launch_counts()["bf16"]
+    dec_reads = st["expert_reads"] - st["expert_prefill_reads"]
+    dec_hits = st["expert_hits"] - st["expert_prefill_hits"]
+    dec_gets = dec_hits + st["expert_misses"] - st["expert_prefill_misses"]
+    gbs = st["expert_bytes_read"] / GB / max(st["expert_read_s"], 1e-9)
+    out.update(resident_gb=res_bytes / GB, offload_gb=off_bytes / GB,
+               trunk_gb=trunk / GB, lru_cap_gb=lru_cap / GB,
+               held_gb=held / GB, peak_gb=peak / GB, ttft_s=st["ttft_s"],
+               tok_s=st["tok_per_s"],
+               prefill_reads=st["expert_prefill_reads"],
+               reads_per_token=dec_reads / max(st["decode_tokens"], 1),
+               hit_share=dec_hits / max(dec_gets, 1),
+               gb_read=st["expert_bytes_read"] / GB, gb_s=gbs,
+               fresh=fresh, dequant=dequant, reads=st["expert_reads"],
+               tokens_equal=got == want)
+    print(f"{label}: {OFFLOAD_STEPS} greedy tokens offloaded == resident "
+          f"{got == want}; TTFT {st['ttft_s']:.2f} s ({OFFLOAD_PROMPT} "
+          f"tokens, {st['expert_prefill_reads']} expert reads), decode "
+          f"{st['tok_per_s']:.2f} tok/s, {out['reads_per_token']:.1f} expert "
+          f"reads per token, LRU hit share in decode {out['hit_share']:.3f}, "
+          f"{out['gb_read']:.2f} GB read at {gbs:.2f} GB/s (host read time); "
+          f"card memory held {held / GB:.3f} GB (peak {peak / GB:.3f}) <= "
+          f"trunk + LRU {(trunk + lru_cap) / GB:.3f} GB; launches: flash "
+          f"fresh {fresh} ({full} full-attention layers), bf16 dequant "
+          f"{dequant} for {st['expert_reads']} expert reads; on {card}",
+          flush=True)
+    check(got == want, f"{label}: offloaded tokens {got} != resident {want}")
+    check(held <= trunk + lru_cap + 256e6, f"{label}: {held} bytes held, "
+          f"trunk + LRU is {trunk + lru_cap}")
+    check(fresh == full, f"{label}: {fresh} flash launches for {full} "
+          "full-attention layers")
+    out["layer_split"] = _layer_bytes(off.params)
+    out["expert_bytes"] = expert
+    out["model"] = off
+    return out
+
+
+def _chat_locked(url: str, body: dict) -> dict:
+    status, hdrs, raw = _post(url, body)
+    check(status == 200, f"locked chat: HTTP {status}")
+    if body.get("stream"):
+        events = [ln[6:] for ln in raw.decode().splitlines()
+                  if ln.startswith("data: ")]
+        check(events[-1] == "[DONE]", "locked SSE: no [DONE]")
+        chunks = [json.loads(e)["choices"][0] for e in events[:-1]]
+        return {"content": "".join(c["delta"].get("content") or ""
+                                   for c in chunks[1:-1]),
+                "finish": chunks[-1]["finish_reason"]}
+    r = json.loads(raw)
+    return {"content": r["choices"][0]["message"]["content"],
+            "finish": r["choices"][0]["finish_reason"],
+            "completion_tokens": r["usage"]["completion_tokens"]}
+
+
+def _locked_app(model_dir: str, *extra: str, env: dict | None = None):
+    """`cli serve MODEL_DIR` (ctx 4096) under `env`, started."""
+    from cake_tpu_torch import cli
+    args = cli.parser().parse_args(
+        ["serve", model_dir, "--port", "0", "--ctx", "4096", *extra])
+    return _with_env(env or {}, lambda: cli.build_server(args)).start()
+
+
+def _offload_http(d: str, card: str) -> None:
+    """15(c). `cli serve DIR --expert-offload`: two concurrent chats
+    answered one after the other (a counter inside generate), each equal
+    to generate's greedy text; SSE equal to JSON; `stop` trims."""
+    import torch
+    from cake_tpu_torch.api.text import apply_stop
+    from cake_tpu_torch.ops.sampling import SamplingConfig
+    app = _locked_app(d, "--expert-offload")
+    try:
+        check(app.state.engine is None, "offloaded server built an engine")
+        served = app.state.model
+        seen = {"active": 0, "most": 0}
+        inner = served.generate
+        lock = threading.Lock()
+
+        def counted(*a, **kw):
+            with lock:
+                seen["active"] += 1
+                seen["most"] = max(seen["most"], seen["active"])
+            try:
+                return inner(*a, **kw)
+            finally:
+                with lock:
+                    seen["active"] -= 1
+        served.generate = counted
+        msgs = [{"role": "user", "content": "Which card serves slot 3?"}]
+        body = {"messages": msgs, "temperature": 0,
+                "max_tokens": OFFLOAD_CHAT_TOKENS}
+        results = [None, None]
+
+        def chat(i):
+            results[i] = _chat_locked(app.url, body)
+        t = time.perf_counter()
+        threads = [threading.Thread(target=chat, args=(i,)) for i in (0, 1)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        both_s = time.perf_counter() - t
+        check(all(r is not None for r in results), "locked chats hung")
+        ids = served.tokenizer.chat_prompt_ids(msgs)
+        toks, _ = inner(ids, OFFLOAD_CHAT_TOKENS,
+                        SamplingConfig(temperature=0.0))
+        ended = served.cfg.is_eos(toks[-1])
+        want = served.tokenizer.decode(toks[:-1] if ended else toks)
+        sse = _chat_locked(app.url, {**body, "stream": True})
+        content = results[0]["content"]
+        stop = next((content[i:i + 2] for i in range(2, len(content) - 1)
+                     if "\ufffd" not in content[i:i + 2]
+                     and content.index(content[i:i + 2]) == i), None)
+        check(stop is not None, f"no stop sequence in {content!r}")
+        stopped = _chat_locked(app.url, {**body, "stop": stop})
+        trimmed, _ = apply_stop(content, [stop])
+        print(f"offload over HTTP (cli serve --expert-offload): 2 "
+              f"concurrent chats in {both_s:.1f} s, at most "
+              f"{seen['most']} generation at once, each == generate "
+              f"{[r['content'] == want for r in results]}; SSE == JSON "
+              f"{sse['content'] == content}; stop {stop!r} trims to "
+              f"{len(stopped['content'])} of {len(content)} characters "
+              f"(finish {stopped['finish']}); on {card}", flush=True)
+        check(seen["most"] == 1, "locked chats overlapped")
+        check(all(r["content"] == want for r in results),
+              "offloaded chat differs from generate")
+        check(sse["content"] == content and sse["finish"] ==
+              results[0]["finish"], "offloaded SSE differs from JSON")
+        check(stopped["content"] == trimmed and stopped["finish"] == "stop",
+              "offloaded stop did not trim")
+    finally:
+        app.stop(drain_s=30)
+    torch.cuda.empty_cache()
+
+
+def _flagship_locked(card: str, workdir: str) -> None:
+    """15(c) fault 6: the flagship checkpoint (phase 7's) served in
+    float32 with CAKE_SERVE_SLOTS=0 (no engine: the locked path, whose
+    generate prefills the prompt in one chunk and decodes a batch-1 cache)
+    and with CAKE_KV_BLOCKS=1024 (a paged pool of 1024 blocks, chunks of
+    256): two chats and an SSE chat, each locked answer equal to the
+    engine's. In bf16 the two programs' roundings part the random
+    flagship's greedy stream at near ties; float32 holds them to it."""
+    from cake_tpu_torch.bench import synth_checkpoint as sc
+    d = os.path.join(workdir, "qwen3-flagship")
+    if not os.path.isdir(d):
+        config = sc.flagship_config()
+        sc.write_model(d, config, sc.model_params(
+            config, seed=0, device="cuda", gen_device="cuda"), shards=2)
+        sc.write_tokenizer(d, sc.QWEN3_SPECIALS)
+    bodies = [chat_body(0), chat_body(1), chat_body(2, True)]
+    answers = {}
+    for mode, env in (("locked", {"CAKE_SERVE_SLOTS": "0"}),
+                      ("paged", {"CAKE_KV_BLOCKS": "1024"})):
+        app = _locked_app(d, "--dtype", "f32", env=env)
+        try:
+            eng = app.state.engine
+            if mode == "locked":
+                check(eng is None, "CAKE_SERVE_SLOTS=0 built an engine")
+            else:
+                check(eng is not None and eng.paged is not None
+                      and eng.paged.num_blocks == 1024,
+                      "CAKE_KV_BLOCKS=1024 did not build a paged pool")
+            answers[mode] = [_chat_locked(app.url, b) for b in bodies]
+        finally:
+            app.stop(drain_s=30)
+    same = [a == b for a, b in zip(answers["locked"], answers["paged"])]
+    print(f"flagship: CAKE_SERVE_SLOTS=0 serves with no engine (locked), "
+          f"CAKE_KV_BLOCKS=1024 a paged pool of 1024 blocks; 2 chats + 1 "
+          f"SSE, locked == engine {same}; on {card}", flush=True)
+    check(all(same), "locked flagship answers differ from the engine's")
+
+
+def _dequant_expert_timing(cfg, card: str) -> dict:
+    """The dequant kernel at one expert's gate_proj (moe_intermediate x
+    hidden), bf16: bit for bit with the plain version, device ms beside
+    the plain version's and the bytes bound."""
+    import torch
+    from cake_tpu_torch.bench.fp8_cases import (dequant_bound_ms, fp8_case,
+                                                same_bits)
+    from cake_tpu_torch.bench.timing import device_ms
+    from cake_tpu_torch.ops import fp8
+    o, i = cfg.moe_intermediate_size, cfg.hidden_size
+    w, s = fp8_case(o, i, seed=o + i)
+    got = fp8.dequant_fp8_blockwise_kernel(w, s, torch.bfloat16)
+    plain = fp8.dequant_fp8_blockwise_plain(w, s, torch.bfloat16)
+    torch.cuda.synchronize()
+    nan = torch.isnan(plain)
+    err = (got.float() - plain.float())[~nan].abs().max().item()
+    check(same_bits(got, plain), "dequant at the expert's shape differs")
+    out = {"max_abs_err": err, "shape": [o, i],
+           "ms": device_ms(lambda: fp8.dequant_fp8_blockwise_kernel(
+               w, s, torch.bfloat16)),
+           "plain_ms": device_ms(lambda: fp8.dequant_fp8_blockwise_plain(
+               w, s, torch.bfloat16), iters=10),
+           "bound_ms": dequant_bound_ms(o, i, torch.bfloat16),
+           "bound_by": "bytes"}
+    print(f"fp8 dequant at an expert's gate_proj [{o}, {i}] -> bf16: kernel "
+          f"== plain bit for bit; device ms {out['ms']:.5f}, plain "
+          f"{out['plain_ms']:.5f}, bound {out['bound_ms']:.5f} (bytes); on "
+          f"{card}", flush=True)
+    return out
+
+
+def phase_offload(card: str, workdir: str, bf16_dir: str | None = None
+                  ) -> dict:
+    """Phase 15: expert offload at Qwen3-Next-80B-A3B's widths. (a) bf16
+    at 4 of 48 layers (phase 13(e)'s checkpoint when given, else written
+    here); (b) Qwen's FP8 layout at 12 of 48 layers, written here, with
+    the projection of the trunk and the LRUs to 48 layers; (c) the
+    offloaded model over HTTP, and the flagship on the locked path
+    (CAKE_SERVE_SLOTS=0) against a paged engine (CAKE_KV_BLOCKS=1024).
+    Returns the readings and the launches."""
+    import torch
+    t0 = time.perf_counter()
+    out = {}
+    if bf16_dir is None:
+        bf16_dir, params, _ = _write_qnext_dir(workdir, QNEXT_CKPT_LAYERS)
+        del params
+        torch.cuda.empty_cache()
+    a = _offload_compare(bf16_dir, card, "offload (a) bf16 4 layers",
+                         logits=True)
+    del a["model"]
+    torch.cuda.empty_cache()
+    _offload_http(bf16_dir, card)
+    shutil.rmtree(bf16_dir, ignore_errors=True)
+    out["a"] = a
+    d, _, nbytes = _write_qnext_dir(workdir, OFFLOAD_FP8_LAYERS, fp8=True)
+    b = _offload_compare(d, card, f"offload (b) fp8 {OFFLOAD_FP8_LAYERS} "
+                         "layers", logits=False)
+    off = b.pop("model")
+    check(b["dequant"] == 3 * b["reads"], f"offload (b): {b['dequant']} "
+          f"dequant launches for {b['reads']} expert reads")
+    out["dequant"] = _dequant_expert_timing(off.cfg, card)
+    outside, layers = b["layer_split"]
+    trunk48 = outside + layers / OFFLOAD_FP8_LAYERS * 48
+    lru48 = 48 * OFFLOAD_LRU * b["expert_bytes"]
+    banks48 = 48 * off.cfg.num_experts * b["expert_bytes"]
+    print(f"offload projection to 48 layers (bf16 on the card): trunk "
+          f"{trunk48 / GB:.2f} GB + LRUs {lru48 / GB:.2f} GB = "
+          f"{(trunk48 + lru48) / GB:.2f} GB offloaded, against "
+          f"{(trunk48 + banks48) / GB:.1f} GB resident (banks "
+          f"{banks48 / GB:.1f} GB); checkpoint {nbytes / GB:.2f} GB for "
+          f"{OFFLOAD_FP8_LAYERS} layers", flush=True)
+    out["projection_gb"] = {"offload": (trunk48 + lru48) / GB,
+                            "resident": (trunk48 + banks48) / GB}
+    del off
+    torch.cuda.empty_cache()
+    shutil.rmtree(d, ignore_errors=True)
+    out["b"] = b
+    _flagship_locked(card, workdir)
+    print(f"phase 15 in {time.perf_counter() - t0:.0f} s", flush=True)
+    return out
+
+
+def offload_kernel_rows(o: dict, qnext: dict | None) -> list:
+    """The kernels line's rows of phase 15: the flash kernel's fresh
+    launches on the offloaded prefills (timed at Qwen3-Next's heads in
+    phase 13) and the dequant kernel's launches on the FP8 experts' reads
+    (timed at an expert's shape here)."""
+    from cake_tpu_torch.ops import flash, fp8
+    rows = []
+    if qnext is not None:
+        x = qnext["timings"]["flash.fresh"]
+        rows.append({
+            "name": "flash_attention.fresh.offload", "route": "cuda",
+            "source": flash.SOURCES["bf16"], "replaces": flash.REPLACES,
+            "launches": o["a"]["fresh"] + o["b"]["fresh"],
+            "max_abs_err": x["max_abs_err"], "ms": x["ms"],
+            "meta_ms": x["meta_ms"], "issue_ms": x["issue_ms"],
+            "plain_ms": x["plain_ms"], "bound_ms": x["bound_ms"],
+            "bound_by": x["bound_by"], "library_ms": x["library_ms"]})
+    x = o["dequant"]
+    rows.append({
+        "name": "dequant_fp8_blockwise.bf16.offload", "route": "cuda",
+        "source": fp8.SOURCE, "replaces": fp8.REPLACES,
+        "launches": o["b"]["dequant"], "max_abs_err": x["max_abs_err"],
+        "ms": x["ms"], "plain_ms": x["plain_ms"], "bound_ms": x["bound_ms"],
+        "bound_by": x["bound_by"], "library_ms": None})
+    return rows
+
+
 def main(argv: list[str]) -> int:
     t_start = time.perf_counter()
     import torch
@@ -3974,6 +4412,17 @@ def main(argv: list[str]) -> int:
     print(f"device: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
     built = phase_build()
+    if argv[:2] == ["--only", "15"]:
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            o = phase_offload(card, workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        print(json.dumps({"kernels": offload_kernel_rows(o, None)}))
+        print(f"chip_smoke: phase 15 passed in "
+              f"{time.perf_counter() - t_start:.0f} s (no result line: "
+              f"one phase)", flush=True)
+        return 0
     if argv[:2] == ["--only", "14"]:
         workdir = tempfile.mkdtemp(prefix="chip_smoke_")
         try:
@@ -4004,7 +4453,7 @@ def main(argv: list[str]) -> int:
               f"one phase)", flush=True)
         return 0
     check(not argv, f"unknown arguments {argv} (only: --only 12, "
-          "--only 13, --only 14)")
+          "--only 13, --only 14, --only 15)")
     timings = phase_kernels()
     paged_timings = phase_paged_kernels(built[pa.LIBRARY]["log"])
     parity_launches, parity_paged = phase_parity()
@@ -4027,6 +4476,7 @@ def main(argv: list[str]) -> int:
         family_launches = phase_families(card, workdir)
         family_launches["gemma3"] = phase_gemma3(card, workdir)
         qnext = phase_qnext(card, workdir)
+        offload = phase_offload(card, workdir, qnext["checkpoint"])
         quant = phase_quant(card, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -4088,6 +4538,7 @@ def main(argv: list[str]) -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     kernels += qnext_kernel_rows(qnext)
     kernels += quant_kernel_rows(quant)
+    kernels += offload_kernel_rows(offload, qnext)
     print(f"checkpoint load (phase 7): {json.dumps(load)} on {card}")
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.0f} s (limit 1200 s)", flush=True)

@@ -51,7 +51,10 @@ for name in ("cake_tpu_torch.obs", "cake_tpu_torch.obs.metrics",
              "cake_tpu_torch.api.qos", "cake_tpu_torch.api.obs_routes",
              "cake_tpu_torch.spec", "cake_tpu_torch.spec.drafter",
              "cake_tpu_torch.spec.verify", "cake_tpu_torch.ops.fp8",
-             "cake_tpu_torch.utils.quant", "cake_tpu_torch.utils.gguf"):
+             "cake_tpu_torch.utils.quant", "cake_tpu_torch.utils.gguf",
+             "cake_tpu_torch.models.common.expert_provider",
+             "cake_tpu_torch.models.common.offload_model",
+             "cake_tpu_torch.api.state"):
     assert name in mods, name
 import chip_smoke
 
@@ -150,6 +153,26 @@ for kind in ("fp8", "gptq", "gguf"):
     m, _, _ = build_text_model(qd, "f32", device="cpu",
                                fp8_native=kind == "fp8")
     assert m.generate([5, 6, 7], 3)[0], kind
+# an MoE checkpoint with its experts offloaded, served by `cli serve
+# --expert-offload` on the locked path (JSON and SSE)
+md = tempfile.mkdtemp() + "/moe"
+moe = dict(q, architectures=["Qwen3MoeForCausalLM"], vocab_size=700,
+           eos_token_id=698, num_experts=4, num_experts_per_tok=2,
+           moe_intermediate_size=64)
+sc.write_model(md, moe, sc.model_params(moe, 1, torch.float32))
+sc.write_tokenizer(md, {"<|im_start|>": 697, "<|im_end|>": 698},
+                   n_merges=100)
+app = cli.build_server(cli.parser().parse_args(
+    ["serve", md, "--cpu", "--dtype", "f32", "--port", "0", "--ctx", "256",
+     "--expert-offload"])).start()
+assert app.state.engine is None
+for stream in (False, True):
+    req = urllib.request.Request(app.url + "/v1/chat/completions",
+                                 data=json.dumps({**body,
+                                                  "stream": stream}).encode())
+    with urllib.request.urlopen(req, timeout=60) as r:
+        assert r.status == 200 and r.read()
+app.stop()
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
 print("OK", len(mods))

@@ -362,6 +362,9 @@ class _DoneEngine:
         req.done.set()
         return req
 
+    def wait(self, req, event=None):
+        """The engine's bounded wait: every request is done already."""
+
     def drain(self, timeout=None):
         return True
 

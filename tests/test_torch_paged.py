@@ -8,6 +8,7 @@ engine (paged, prefix hit and miss, swap preemption).
 
 The port's pool has one more block than JAX's: the sink, index NB, which
 is also the NULL table id. Visible contents exclude it."""
+import gc
 import random
 
 import jax
@@ -34,6 +35,18 @@ from cake_tpu_torch.serve.paged import BlockAllocator, pow2_block_tokens
 from cake_tpu_torch.utils import params_from_numpy
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _collect_reference_engines():
+    """Collect, after each test, the JAX serve engines it dropped: their
+    admission queues sit in reference cycles, and a JAX queue finalized by
+    a later automatic collection, while its thread holds the reference's
+    board lock, deadlocks the process (ROADMAP §3, "Not a port fault")."""
+    yield
+    gc.collect()
+
+
 GREEDY = SamplingConfig(temperature=0.0)
 CTX, CHUNK, BT = 128, 16, 8
 

@@ -11,6 +11,8 @@ engine's recompute outputs; a mid-prefill admission is requeued and
 restarts cleanly; a replay splices a cached prefix; a victim whose first
 token was never fetched restarts from its prompt; a sampled victim keeps
 the tokens it had and completes on a fresh key."""
+import gc
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +30,18 @@ from cake_tpu_torch.serve import ServeEngine
 from cake_tpu_torch.utils import params_from_numpy
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _collect_reference_engines():
+    """Collect, after each test, the JAX serve engines it dropped: their
+    admission queues sit in reference cycles, and a JAX queue finalized by
+    a later automatic collection, while its thread holds the reference's
+    board lock, deadlocks the process (ROADMAP §3, "Not a port fault")."""
+    yield
+    gc.collect()
+
+
 GREEDY = SamplingConfig(temperature=0.0)
 SAMPLED = SamplingConfig(temperature=0.9, top_k=40)
 CTX, CHUNK, BT, BLOCKS = 128, 16, 8, 12

@@ -4,6 +4,8 @@ uniform bits equal a numpy implementation of the same hash and look
 uniform over 10^5 draws; a sampled request's tokens do not depend on its
 company or on a swap; greedy and top_k = 1 requests equal the JAX
 engine's tokens."""
+import gc
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +22,18 @@ from cake_tpu_torch.serve import ServeEngine
 from cake_tpu_torch.utils import params_from_numpy
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _collect_reference_engines():
+    """Collect, after each test, the JAX serve engines it dropped: their
+    admission queues sit in reference cycles, and a JAX queue finalized by
+    a later automatic collection, while its thread holds the reference's
+    board lock, deadlocks the process (ROADMAP §3, "Not a port fault")."""
+    yield
+    gc.collect()
+
+
 CTX, CHUNK, BT = 128, 16, 8
 SAMPLED = ts.SamplingConfig(temperature=0.8, top_k=50)
 

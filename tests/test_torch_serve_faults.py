@@ -20,6 +20,7 @@ paged engine:
     engine, 500 for a poisoned request, and /health 503 while wedged or
     down.
 Every engine wait has a timeout, so that a hang fails the test."""
+import gc
 import json
 import threading
 import time
@@ -50,6 +51,18 @@ from cake_tpu_torch.tokenizer import ByteTokenizer
 from cake_tpu_torch.utils import params_from_numpy
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _collect_reference_engines():
+    """Collect, after each test, the JAX serve engines it dropped: their
+    admission queues sit in reference cycles, and a JAX queue finalized by
+    a later automatic collection, while its thread holds the reference's
+    board lock, deadlocks the process (ROADMAP §3, "Not a port fault")."""
+    yield
+    gc.collect()
+
+
 GREEDY = SamplingConfig(temperature=0.0)
 CTX = 256
 WAIT = 120                  # seconds any one request may take

@@ -26,6 +26,7 @@ from the JAX package (ctx 128, greedy), each against the JAX package:
 Deadlines are driven by backdating a request's enqueue stamp, never by
 sleeping them out; every wait has its own timeout, and every engine is
 closed. Counters are read as deltas of the process-wide registry."""
+import gc
 import time
 import uuid
 
@@ -51,6 +52,18 @@ from cake_tpu_torch.serve import (EngineDown, QueueDeadlineExceeded,
 from cake_tpu_torch.utils import params_from_numpy
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _collect_reference_engines():
+    """Collect, after each test, the JAX serve engines it dropped: their
+    admission queues sit in reference cycles, and a JAX queue finalized by
+    a later automatic collection, while its thread holds the reference's
+    board lock, deadlocks the process (ROADMAP §3, "Not a port fault")."""
+    yield
+    gc.collect()
+
+
 GREEDY = SamplingConfig(temperature=0.0)
 CTX = 128
 WAIT = 120                  # seconds any one request may take
@@ -344,12 +357,16 @@ def test_down_drains_every_lane(pair):
     eng = ServeEngine(tm, slots=1, max_queue=4, ctx_len=CTX,
                       rebuild_budget=1, restore_interval_s=0.2)
     try:
-        faults.install("raise_on_step=3;times=2;kind=device")
-        reqs = [eng.submit(P_BATCH, max_new_tokens=40, sampling=GREEDY)]
+        # a long first request holds the one slot while the others queue
+        reqs = [eng.submit(P_BATCH, max_new_tokens=100, sampling=GREEDY)]
         reqs += [eng.submit([5 + i, 6, 7], max_new_tokens=4,
                             sampling=GREEDY, qos=q)
                  for i, q in enumerate(("batch", "standard", "interactive",
                                         "batch"))]
+        # the plan counts dispatches from here: all five are queued (one
+        # decoding, four in their lanes) before the first failing
+        # dispatch, however slowly this thread ran the submits
+        faults.install("raise_on_step=3;times=2;kind=device")
         _wait(reqs)
         errs = [r.result.get("error") for r in reqs]
         assert all(isinstance(e, EngineDown) for e in errs), errs

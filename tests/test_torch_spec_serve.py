@@ -22,6 +22,7 @@ params_from_numpy:
     the port, which writes a ring only after the accept, equals the JAX
     package's plain greedy stream there, in both pools."""
 import dataclasses
+import gc
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +42,18 @@ from cake_tpu_torch.serve import KVPoolExhausted, PagedKV, ServeEngine, faults
 from cake_tpu_torch.utils import params_from_numpy
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _collect_reference_engines():
+    """Collect, after each test, the JAX serve engines it dropped: their
+    admission queues sit in reference cycles, and a JAX queue finalized by
+    a later automatic collection, while its thread holds the reference's
+    board lock, deadlocks the process (ROADMAP §3, "Not a port fault")."""
+    yield
+    gc.collect()
+
+
 GREEDY = SamplingConfig(temperature=0.0)
 CTX, CHUNK, BT, BLOCKS, K = 128, 16, 8, 12, 4
 REP = [5, 9, 17, 23] * 4 + [5, 9]
