@@ -7,7 +7,9 @@ cake_tpu/api/server.py):
                                 kv_pool, the supervisor's counts) and the
                                 device block; 503 "degraded" while the
                                 engine is dead, wedged or DOWN. With no
-                                engine, the device block and status
+                                engine, the device block and status; a
+                                cluster master's workers, 503 while one
+                                is stale or quarantined
   GET  /metrics                 Prometheus text exposition
   GET  /api/v1/trace            Chrome-trace JSON of recorded spans
   GET  /api/v1/requests         recent traced request ids
@@ -15,6 +17,7 @@ cake_tpu/api/server.py):
                                 (?format=perfetto for Chrome-trace)
   GET  /api/v1/slo              TTFT/ITL/e2e histograms + exemplar ids
   GET  /api/v1/flight           flight recorder ring on demand (?n=K)
+  GET  /api/v1/topology         a cluster master's nodes and stage chain
 
 Every request counts into cake_api_requests_total{endpoint, status} and
 cake_api_request_seconds{endpoint}, the endpoint being the route's

@@ -341,6 +341,16 @@ def _chat_locked(handler, state, messages, continuation: bool, kw: dict,
         except Exception as e:
             log.exception("locked generation failed")
             GENERATIONS.inc(kind="text", status="error")
+            # imported on the error path only: a single-node server does
+            # not load the cluster package
+            from ..cluster.master import ClusterDegradedError
+            if isinstance(e, ClusterDegradedError):
+                # a worker is quarantined with its retry budget spent:
+                # 503, retryable once the restore probe may have revived it
+                ra = max(2, int(getattr(state.model, "restore_interval_s",
+                                        2)))
+                return handler.send_json({"error": str(e)}, 503,
+                                         {"Retry-After": str(ra)})
             return handler.send_json({"error": f"generation failed: {e}"},
                                      500)
     GENERATIONS.inc(kind="text", status="ok")

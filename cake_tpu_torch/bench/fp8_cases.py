@@ -42,7 +42,8 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     """NaN at the same places and every other value bit for bit (the NaN
     payloads of two roundings may differ)."""
     na, nb = torch.isnan(a), torch.isnan(b)
-    ib = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[a.dtype]
+    ib = {torch.bfloat16: torch.int16, torch.float16: torch.int16,
+          torch.float32: torch.int32}[a.dtype]
     return a.dtype == b.dtype and torch.equal(na, nb) and \
         torch.equal(a[~na].view(ib), b[~nb].view(ib))
 

@@ -34,7 +34,10 @@ import sys
 from pathlib import Path
 
 H100_PEAK_FLOPS = {"bf16": 989e12,   # dense tensor-core peak, H100 SXM
+                   "f16": 989e12,    # the same in float16
                    "f32": 67e12}     # float32 outside the tensor cores
+# a torch dtype's name in that table (by str(dtype): no torch at import)
+PEAK_NAMES = {"torch.bfloat16": "bf16", "torch.float16": "f16"}
 H100_HBM_BYTES_S = 3.35e12
 SHAPES = (("bf16", "bfloat16", 620, {}), ("f32", "float32", 620, {}),
           ("bf16_p4000", "bfloat16", 4000, {}))
@@ -64,7 +67,7 @@ def bound_ms(c) -> tuple[float, str]:
     nbytes = (live * (2 * hkv * d * el + 4) + 2 * q.numel() * el
               + 4 * sum(p // bt + 1 for p in fr) + 4 * b)
     flops = 4.0 * live * hq * d
-    peak = H100_PEAK_FLOPS["bf16" if q.dtype == torch.bfloat16 else "f32"]
+    peak = H100_PEAK_FLOPS[PEAK_NAMES.get(str(q.dtype), "f32")]
     t_ops, t_bytes = flops / peak, nbytes / H100_HBM_BYTES_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")

@@ -31,7 +31,7 @@ import torch
 
 from .graph_cases import DecodeState
 from .paged_cases import paged_case
-from .paged_timing import H100_HBM_BYTES_S, H100_PEAK_FLOPS
+from .paged_timing import H100_HBM_BYTES_S, H100_PEAK_FLOPS, PEAK_NAMES
 from ..models.common.cache import paged_gather_layer
 from ..models.common.graphs import DecodeCarries, DecodeGraph, SpecCarries
 
@@ -77,7 +77,7 @@ def verify_bounds(c) -> dict:
                       for i in range(s))
     io = 2 * q.numel() * el + 4 * b             # q, o, the frontiers
     flops = 4.0 * hq * d * sum(p + i + 1 for p, n in live for i in range(n))
-    peak = H100_PEAK_FLOPS["bf16" if q.dtype == torch.bfloat16 else "f32"]
+    peak = H100_PEAK_FLOPS[PEAK_NAMES.get(str(q.dtype), "f32")]
     t_ops = flops / peak
     t_unique = (unique_keys * per_key + 4 * unique_blocks + io) \
         / H100_HBM_BYTES_S
@@ -201,11 +201,12 @@ def verify_vs_eager(model, state: DecodeState, k: int, steps: int,
 @torch.no_grad()
 def plain_stream(model, prompts: list[list[int]], n: int, ctx: int,
                  kv_blocks: int = 0, block_tokens: int = 16,
-                 chunk: int = 256) -> list[dict]:
+                 chunk: int = 256, keep_logits: bool = False) -> list[dict]:
     """The spec-off greedy stream of each prompt in its own row of a pool
     of len(prompts) rows (contiguous, or paged with kv_blocks), through
     the eager prefill chunks and decode steps the engine's graphs
-    replay: per row {tokens (n), gaps (each token's top-2 logit gap)}."""
+    replay: per row {tokens (n), gaps (each token's top-2 logit gap)}, and
+    with keep_logits each token's float32 logits [V] (logits)."""
     from ..serve.engine import RECENT_N
     from ..serve.paged import PagedKV
     dev = model.device
@@ -221,6 +222,8 @@ def plain_stream(model, prompts: list[list[int]], n: int, ctx: int,
         top = torch.topk(logits.float(), 2).values
         out[row]["tokens"].append(int(logits.argmax()))
         out[row]["gaps"].append(float(top[0] - top[1]))
+        if keep_logits:
+            out[row].setdefault("logits", []).append(logits.float().clone())
     for row, ids in enumerate(prompts):
         for p0 in range(0, len(ids), chunk):
             part = ids[p0:p0 + chunk]

@@ -9,6 +9,16 @@
         [--max-tokens N] [--temperature T] [--top-k K] [--top-p P]
         [--repeat-penalty R] [--repeat-last-n N] [--system-prompt S]
         [--raw] [--seed N] [--fp8-native] [--expert-offload]
+    python -m cake_tpu_torch.cli worker --cluster-key K [--name N]
+        [--port P] [--model-dir DIR] [--cpu] [--no-advertise]
+
+`serve` and `run` with `--cluster-key K` (or CAKE_CLUSTER_KEY) are a
+cluster master: the workers of `--topology FILE` (each node's
+`layers` its assignment), else those UDP discovery finds, get their layer
+ranges' weights streamed from MODEL and serve them; the master keeps the
+rest (runtime.build_text_model, cluster/). A cluster master is served one
+request at a time under the lock, as the reference serves it. `worker`
+runs a cluster worker (cluster/worker.py) on `cuda` unless `--cpu`.
 
 MODEL is a local HF-layout checkpoint directory (FP8 block-wise, AutoGPTQ
 4-bit or unquantized), a directory with a GGUF file, or a repo id already
@@ -108,12 +118,20 @@ def _model_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--expert-offload", action="store_true",
                    help="MoE: read the experts from the checkpoint on "
                         "demand instead of holding them on the card")
+    p.add_argument("--cluster-key",
+                   default=os.environ.get("CAKE_CLUSTER_KEY") or None,
+                   help="be a cluster master (env: CAKE_CLUSTER_KEY)")
+    p.add_argument("--topology", default=None,
+                   help="cluster topology YAML (else UDP discovery)")
 
 
 def load_model(args, max_cache_len: int = 2048):
     """(model, tokenizer, model_id) of the parsed arguments."""
     device = "cpu" if args.cpu else None
     if args.flagship:
+        if args.cluster_key:
+            raise ValueError("--cluster-key needs a checkpoint directory "
+                             "(workers are sent its weights)")
         if args.fp8_native:
             raise ValueError("--fp8-native requires an FP8 checkpoint "
                              "(the flagship has random bf16 weights)")
@@ -126,7 +144,9 @@ def load_model(args, max_cache_len: int = 2048):
     return build_text_model(args.model, args.dtype, args.arch,
                             max_cache_len=max_cache_len, seed=args.seed,
                             device=device, fp8_native=args.fp8_native,
-                            expert_offload=args.expert_offload)
+                            expert_offload=args.expert_offload,
+                            cluster_key=args.cluster_key,
+                            topology_path=args.topology)
 
 
 def supervisor_knobs(env) -> dict:
@@ -241,6 +261,19 @@ def cmd_run(args) -> int:
     return 0
 
 
+def cmd_worker(args) -> int:
+    from .cluster import run_worker
+    if not args.cluster_key:
+        print("error: --cluster-key (or CAKE_CLUSTER_KEY) required",
+              file=sys.stderr)
+        return 2
+    run_worker(args.name, args.cluster_key, port=args.port,
+               model_dir=args.model_dir, host=args.host,
+               advertise=not args.no_advertise,
+               device="cpu" if args.cpu else None)
+    return 0
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="cake-tpu-torch")
     ap.add_argument("-v", "--verbose", action="store_true")
@@ -288,13 +321,26 @@ def parser() -> argparse.ArgumentParser:
                    help="encode the prompt as it is, without the chat "
                         "template")
     r.set_defaults(fn=cmd_run)
+    w = sub.add_parser("worker", help="run as a cluster worker")
+    w.add_argument("--name", default=os.uname().nodename)
+    w.add_argument("--cluster-key",
+                   default=os.environ.get("CAKE_CLUSTER_KEY") or None)
+    w.add_argument("--host", default="0.0.0.0")
+    w.add_argument("--port", type=int, default=10128)
+    w.add_argument("--model-dir", default=None,
+                   help="pre-provisioned weights of the assigned range")
+    w.add_argument("--cpu", action="store_true", help="run on the CPU")
+    w.add_argument("--no-advertise", action="store_true",
+                   help="do not answer UDP discovery (a topology file "
+                        "names this worker)")
+    w.set_defaults(fn=cmd_worker)
     return ap
 
 
 def main(argv=None) -> int:
     ap = parser()
     args = ap.parse_args(argv)
-    if args.layers and not args.flagship:
+    if getattr(args, "layers", None) and not args.flagship:
         ap.error("--layers cuts the flagship only")
     logging.basicConfig(level=logging.DEBUG if args.verbose
                         else logging.WARNING)

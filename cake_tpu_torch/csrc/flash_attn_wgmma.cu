@@ -1,15 +1,18 @@
-// Flash prefill attention for Hopper (sm_90a), bfloat16, on the tensor
-// cores. Plain C entry point, bound with ctypes by ops/flash.py.
+// Flash prefill attention for Hopper (sm_90a), bfloat16 and float16, on
+// the tensor cores. Plain C entry points (cake_flash_wgmma_fwd for bf16,
+// cake_flash_wgmma_fwd_f16 for f16: one kernel template, the operand type
+// its only difference), bound with ctypes by ops/flash.py.
 //
 // Replaces cake_tpu/ops/flash.py:_flash_kernel (the Pallas TPU kernel) on
-// the bfloat16 route; csrc/flash_attn.cu (3xTF32) is the float32 route.
+// the bfloat16 and float16 routes; csrc/flash_attn.cu (3xTF32) is the
+// float32 route.
 // Same function: causal GQA attention over [B, S, H, D] tensors given by
 // their strides, with the reference's masks
 //   key valid   iff k_pos < kv_len       (kv_len = min(q_offset + valid_len, Skv))
 //   causal      iff k_pos <= q_pos       (q_pos = q_offset + query index)
 //   window      iff k_pos >  q_pos - window   (window > 0 only)
 // scale 1/sqrt(D) (folded with log2(e) into exp2f), scores, running max and
-// sum and the output accumulator in float32, output in bfloat16.
+// sum and the output accumulator in float32, output in the input's type.
 //
 // What bounds it on an H100: at the flagship chunk (Sq = 256, Hq/Hkv =
 // 16/8, D = 128) the least time is set by bytes (q and o once, K/V rows
@@ -27,6 +30,9 @@
 //     MN-major B operand (trans-b). Rounding P to bf16 is the one numeric
 //     change from the reference, which keeps P in float32: a relative error
 //     of at most 2^-9 per weight, well inside the bf16 output tolerance.
+//     On the f16 route P is rounded to f16 instead: at most 2^-11 relative
+//     per weight (P lies in [0, 1], far inside f16's range), inside the f16
+//     output's own rounding of 2^-11.
 //  2. Asynchronous, overlapped copies. One producer warp (a warpgroup at
 //     D = 256, see Layout) issues TMA loads
 //     (cp.async.bulk.tensor, 128-byte swizzle, D / 64 boxes of 64 columns
@@ -72,6 +78,7 @@
 // coordinates only on tiles that cross one of those edges.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 
 #include "tma.cuh"
 
@@ -218,31 +225,64 @@ __device__ __forceinline__ void fence_regs(float (&d)[32]) {
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
   "%30, %31}"
 
-// d[64x64] (+)= A[64x16] . B[16x64], both from shared memory, K-major.
+// d[64x64] (+)= A[64x16] . B[16x64], both from shared memory, K-major;
+// F16 picks the float16 operand type (the f16 route), else bfloat16.
+template <bool F16>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
                                          uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_OUT32
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : WG_D32(d)
-      : "l"(a), "l"(b), "r"(accumulate));
+  if constexpr (F16)
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " WG_OUT32
+        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : WG_D32(d)
+        : "l"(a), "l"(b), "r"(accumulate));
+  else
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_OUT32
+        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : WG_D32(d)
+        : "l"(a), "l"(b), "r"(accumulate));
 }
 
 // d[64x64] += A[64x16] (registers) . B[16x64] (shared memory, MN-major).
+template <bool F16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
                                          uint64_t b) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_OUT32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : WG_D32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  if constexpr (F16)
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " WG_OUT32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : WG_D32(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  else
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_OUT32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : WG_D32(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two floats rounded to the route's 16-bit type, packed lo | hi << 16.
+template <bool F16>
+__device__ __forceinline__ uint32_t pack16(float lo, float hi) {
+  if constexpr (F16)
+    return pack_f16(lo, hi);
+  else
+    return pack_bf16(lo, hi);
 }
 
 // -- the kernel --------------------------------------------------------------
@@ -251,7 +291,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // for i in [0, N/2), row 16*(t/32) + (t%32)/4 + 8*((i>>1)&1) and column
 // 8*(i/4) + 2*(t%4) + (i&1).
 
-template <int D>
+template <int D, bool F16>
 __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
     flash_wgmma(__grid_constant__ const CUtensorMap tm_q,
                 __grid_constant__ const CUtensorMap tm_k,
@@ -364,7 +404,7 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
     for (int h = 0; h < L::HALVES; ++h)
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_ss(s, desc_kmajor(sQ + h * L::Q_HALF + 32 * kk),
+        wgmma_ss<F16>(s, desc_kmajor(sQ + h * L::Q_HALF + 32 * kk),
                  desc_kmajor(k_src + h * L::KV_HALF + 32 * kk), h | kk);
     wgmma_commit();
     wgmma_wait0();
@@ -400,7 +440,7 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
       alpha[h] = exp2f(m[h] - mx[h]);
       m[h] = mx[h];
     }
-    uint32_t pa[16];   // P in bf16: pa[4kk..4kk+3] is k-step kk's A operand
+    uint32_t pa[16];   // P in bf16 / f16: pa[4kk..4kk+3] is k-step kk's A operand
     float rs[2] = {0.f, 0.f};
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
@@ -408,7 +448,7 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
       const float e0 = exp2f(s[2 * j] - m[h]);
       const float e1 = exp2f(s[2 * j + 1] - m[h]);
       rs[h] += e0 + e1;
-      pa[j] = pack_bf16(e0, e1);
+      pa[j] = pack16<F16>(e0, e1);
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + rs[h];
@@ -424,7 +464,7 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
       for (int hd = 0; hd < L::HALVES; ++hd)
-        wgmma_rs(o[hd], pa + 4 * kk,
+        wgmma_rs<F16>(o[hd], pa + 4 * kk,
                  desc_mnmajor(v_src + hd * L::KV_HALF + 16 * 128 * kk));
     wgmma_commit();
     wgmma_wait0();
@@ -489,7 +529,7 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
         const int r = 16 * warp + g8 + 8 * h;
         const int off = hd * L::Q_HALF + r * 128 + ((j ^ (r & 7)) << 4) + 4 * t4;
         *reinterpret_cast<uint32_t*>(sbase + off) =
-            pack_bf16(o[hd][4 * j + 2 * h] * inv[h],
+            pack16<F16>(o[hd][4 * j + 2 * h] * inv[h],
                       o[hd][4 * j + 2 * h + 1] * inv[h]);
       }
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
@@ -504,11 +544,12 @@ __global__ void __launch_bounds__(Layout<D>::THREADS, 1)
 
 // -- host side ---------------------------------------------------------------
 
-// A [batch, seq, heads, D] bf16 view as a 4-D tensor map (D innermost),
-// strides in bytes; boxes of 64 columns x box_heads x box_rows x 1.
-CUresult encode(CUtensorMap* map, const void* ptr, int d, int heads, int seq,
-                int batch, long long sh, long long ss, long long sb,
-                int box_heads, int box_rows) {
+// A [batch, seq, heads, D] bf16 or f16 view (`type`) as a 4-D tensor map
+// (D innermost), strides in bytes; boxes of 64 columns x box_heads x
+// box_rows x 1.
+CUresult encode(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+                int d, int heads, int seq, int batch, long long sh,
+                long long ss, long long sb, int box_heads, int box_rows) {
   const cuuint64_t dims[4] = {cuuint64_t(d), cuuint64_t(heads),
                               cuuint64_t(seq), cuuint64_t(batch)};
   const cuuint64_t strides[3] = {cuuint64_t(sh), cuuint64_t(ss),
@@ -516,7 +557,7 @@ CUresult encode(CUtensorMap* map, const void* ptr, int d, int heads, int seq,
   const cuuint32_t box[4] = {64, cuuint32_t(box_heads), cuuint32_t(box_rows),
                              1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  return encode_tiled()(map, type, 4,
                         const_cast<void*>(ptr), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
@@ -524,17 +565,17 @@ CUresult encode(CUtensorMap* map, const void* ptr, int d, int heads, int seq,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
-template <int D>
+template <int D, bool F16>
 cudaError_t launch(const CUtensorMap (&maps)[4], const Params& p, dim3 grid,
                    int threads, int smem_bytes, cudaStream_t stream) {
   // the caller's plan must be this instantiation's layout
   if (threads != Layout<D>::THREADS || smem_bytes != Layout<D>::ALLOC)
     return cudaErrorInvalidValue;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_wgmma<D, F16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       Layout<D>::ALLOC);
   if (attr != cudaSuccess) return attr;
-  flash_wgmma<D><<<grid, Layout<D>::THREADS, Layout<D>::ALLOC, stream>>>(
+  flash_wgmma<D, F16><<<grid, Layout<D>::THREADS, Layout<D>::ALLOC, stream>>>(
       maps[0], maps[1], maps[2], maps[3], p);
   return cudaGetLastError();
 }
@@ -546,7 +587,17 @@ cudaError_t launch(const CUtensorMap (&maps)[4], const Params& p, dim3 grid,
 constexpr int kErrNoEncoder = 20000;
 constexpr int kErrEncode = 30000;
 
-// bf16 only. Strides are in BYTES, in the order (head, seq, batch) for each
+template <bool F16>
+int fwd(
+    const void* q, const void* k, const void* v, void* o, int batch, int sq,
+    int skv, int hq, int hkv, int d, long long q_sh, long long q_ss,
+    long long q_sb, long long k_sh, long long k_ss, long long k_sb,
+    long long v_sh, long long v_ss, long long v_sb, long long o_sh,
+    long long o_ss, long long o_sb, int positions, int threads,
+    int smem_bytes, float scale_log2, int causal, int window, int q_offset,
+    int kv_len, const void* meta, int meta_row, int kv_batch, void* stream);
+
+// Strides are in BYTES, in the order (head, seq, batch) for each
 // of q, k, v, o, and every one a multiple of 16 (TMA); positions is the
 // number of query indices per CTA (64 / group); kv_len = min(q_offset +
 // valid_len, skv); window <= 0 means none. meta, when not null, is a
@@ -554,6 +605,7 @@ constexpr int kErrEncode = 30000;
 // place of q_offset and kv_len (the form a captured graph replays); with
 // meta_row, query batch b reads K/V batch row meta[0] + b of kv_batch
 // rows, else K/V have q's batch. Returns 0 on success.
+// The bfloat16 route.
 extern "C" int cake_flash_wgmma_fwd(
     const void* q, const void* k, const void* v, void* o, int batch, int sq,
     int skv, int hq, int hkv, int d, long long q_sh, long long q_ss,
@@ -562,6 +614,41 @@ extern "C" int cake_flash_wgmma_fwd(
     long long o_ss, long long o_sb, int positions, int threads,
     int smem_bytes, float scale_log2, int causal, int window, int q_offset,
     int kv_len, const void* meta, int meta_row, int kv_batch, void* stream) {
+  return fwd<false>(
+      q, k, v, o, batch, sq, skv, hq, hkv, d, q_sh, q_ss, q_sb, k_sh, k_ss, k_sb,
+      v_sh, v_ss, v_sb, o_sh, o_ss, o_sb, positions, threads, smem_bytes,
+      scale_log2, causal, window, q_offset, kv_len, meta, meta_row, kv_batch,
+      stream);
+}
+
+// The float16 route: the same kernel with f16 operands (wgmma .f16), f16
+// tensor maps and P and O rounded to f16; same signature, same plan.
+extern "C" int cake_flash_wgmma_fwd_f16(
+    const void* q, const void* k, const void* v, void* o, int batch, int sq,
+    int skv, int hq, int hkv, int d, long long q_sh, long long q_ss,
+    long long q_sb, long long k_sh, long long k_ss, long long k_sb,
+    long long v_sh, long long v_ss, long long v_sb, long long o_sh,
+    long long o_ss, long long o_sb, int positions, int threads,
+    int smem_bytes, float scale_log2, int causal, int window, int q_offset,
+    int kv_len, const void* meta, int meta_row, int kv_batch, void* stream) {
+  return fwd<true>(
+      q, k, v, o, batch, sq, skv, hq, hkv, d, q_sh, q_ss, q_sb, k_sh, k_ss, k_sb,
+      v_sh, v_ss, v_sb, o_sh, o_ss, o_sb, positions, threads, smem_bytes,
+      scale_log2, causal, window, q_offset, kv_len, meta, meta_row, kv_batch,
+      stream);
+}
+
+template <bool F16>
+int fwd(
+    const void* q, const void* k, const void* v, void* o, int batch, int sq,
+    int skv, int hq, int hkv, int d, long long q_sh, long long q_ss,
+    long long q_sb, long long k_sh, long long k_ss, long long k_sb,
+    long long v_sh, long long v_ss, long long v_sb, long long o_sh,
+    long long o_ss, long long o_sb, int positions, int threads,
+    int smem_bytes, float scale_log2, int causal, int window, int q_offset,
+    int kv_len, const void* meta, int meta_row, int kv_batch, void* stream) {
+  const CUtensorMapDataType type = F16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   if (batch <= 0 || sq <= 0 || skv <= 0 || hq <= 0 || hkv <= 0 ||
       hq % hkv || positions <= 0 || positions * (hq / hkv) > BM ||
       kv_batch < batch || (kv_batch != batch && !(meta && meta_row)))
@@ -569,14 +656,14 @@ extern "C" int cake_flash_wgmma_fwd(
   if (encode_tiled() == nullptr) return kErrNoEncoder;
   const int group = hq / hkv;
   CUtensorMap maps[4];
-  CUresult r = encode(&maps[0], q, d, hq, sq, batch, q_sh, q_ss, q_sb, group,
+  CUresult r = encode(&maps[0], type, q, d, hq, sq, batch, q_sh, q_ss, q_sb, group,
                       positions);
   if (r == CUDA_SUCCESS)
-    r = encode(&maps[1], k, d, hkv, skv, kv_batch, k_sh, k_ss, k_sb, 1, BN);
+    r = encode(&maps[1], type, k, d, hkv, skv, kv_batch, k_sh, k_ss, k_sb, 1, BN);
   if (r == CUDA_SUCCESS)
-    r = encode(&maps[2], v, d, hkv, skv, kv_batch, v_sh, v_ss, v_sb, 1, BN);
+    r = encode(&maps[2], type, v, d, hkv, skv, kv_batch, v_sh, v_ss, v_sb, 1, BN);
   if (r == CUDA_SUCCESS)
-    r = encode(&maps[3], o, d, hq, sq, batch, o_sh, o_ss, o_sb, group,
+    r = encode(&maps[3], type, o, d, hq, sq, batch, o_sh, o_ss, o_sb, group,
                positions);
   if (r != CUDA_SUCCESS) return kErrEncode + static_cast<int>(r);
   Params p;
@@ -595,11 +682,11 @@ extern "C" int cake_flash_wgmma_fwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {   // each head dimension its own instantiation; no other
     case 64:
-      return static_cast<int>(launch<64>(maps, p, grid, threads, smem_bytes, s));
+      return static_cast<int>(launch<64, F16>(maps, p, grid, threads, smem_bytes, s));
     case 128:
-      return static_cast<int>(launch<128>(maps, p, grid, threads, smem_bytes, s));
+      return static_cast<int>(launch<128, F16>(maps, p, grid, threads, smem_bytes, s));
     case 256:
-      return static_cast<int>(launch<256>(maps, p, grid, threads, smem_bytes, s));
+      return static_cast<int>(launch<256, F16>(maps, p, grid, threads, smem_bytes, s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -7,10 +7,11 @@
 //   out[o, i] = RNE_out(float(w[o, i]) * scale_inv[o / 128, i / 128])
 // for w [O, I] float8_e4m3fn row-major (any O and I: edge blocks are
 // cropped), scale_inv [ceil(O/128), ceil(I/128)] float32, out [O, I]
-// bfloat16 or float32.
+// bfloat16, float16 or float32 (one rounding from the float32 product on
+// every route).
 //
 // What bounds it on an H100: bytes. One multiply per parameter against 1
-// byte read and 2 (bf16) or 4 (f32) bytes written, so the least time is
+// byte read and 2 (bf16, f16) or 4 (f32) bytes written, so the least time is
 // those bytes over 3.35 TB/s. The design is one pass that keeps the
 // memory system busy:
 //  a. One thread per 16 consecutive values of a row: one 16-byte load of
@@ -73,10 +74,26 @@ __device__ __forceinline__ void store_run(__nv_bfloat16* out,
   o[1] = make_uint4(packed[4], packed[5], packed[6], packed[7]);
 }
 
+__device__ __forceinline__ void store_run(__half* out, const float* v) {
+  uint32_t packed[kRun / 2];
+#pragma unroll
+  for (int k = 0; k < kRun / 2; ++k) {
+    __half2 h = __floats2half2_rn(v[2 * k], v[2 * k + 1]);
+    packed[k] = *reinterpret_cast<uint32_t*>(&h);
+  }
+  uint4* o = reinterpret_cast<uint4*>(out);
+  o[0] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+  o[1] = make_uint4(packed[4], packed[5], packed[6], packed[7]);
+}
+
 __device__ __forceinline__ void store_one(float* out, float v) { *out = v; }
 
 __device__ __forceinline__ void store_one(__nv_bfloat16* out, float v) {
   *out = __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ void store_one(__half* out, float v) {
+  *out = __float2half_rn(v);
 }
 
 template <typename OutT>
@@ -122,7 +139,8 @@ fp8_dequant_kernel(const uint8_t* __restrict__ w,
 
 }  // namespace
 
-// out_kind: 0 float32, 1 bfloat16. Returns the launch's cudaError_t.
+// out_kind: 0 float32, 1 bfloat16, 2 float16. Returns the launch's
+// cudaError_t.
 extern "C" int cake_fp8_dequant(const void* w, const void* scale_inv,
                                 void* out, int rows, int cols, int out_kind,
                                 void* stream) {
@@ -140,6 +158,10 @@ extern "C" int cake_fp8_dequant(const void* w, const void* scale_inv,
                                         kThreads, 0, st>>>(
         wb, s, static_cast<__nv_bfloat16*>(out), rows, cols, runs,
         scale_cols);
+  } else if (out_kind == 2) {
+    fp8_dequant_kernel<__half><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                 st>>>(wb, s, static_cast<__half*>(out), rows,
+                                       cols, runs, scale_cols);
   } else if (out_kind == 0) {
     fp8_dequant_kernel<float><<<static_cast<unsigned>(blocks), kThreads, 0,
                                 st>>>(wb, s, static_cast<float*>(out), rows,

@@ -1,5 +1,5 @@
-// Paged decode attention for Hopper (sm_90a), bf16 and float32, plain C
-// entry point.
+// Paged decode attention for Hopper (sm_90a), bf16, f16 and float32,
+// plain C entry point.
 //
 // Replaces what the reference's paged decode step does in XLA:
 // cake_tpu/models/common/cache.py:383 paged_gather_layer (materialize each
@@ -66,6 +66,7 @@
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <math.h>
 
 #include "tma.cuh"
@@ -153,6 +154,16 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* src,
     f[2 * e + 1] = x.y;
   }
 }
+__device__ __forceinline__ void load_vec(const __half* src, float (&f)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(src);
+  const __half2* h = reinterpret_cast<const __half2*>(&u);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 x = __half22float2(h[e]);
+    f[2 * e] = x.x;
+    f[2 * e + 1] = x.y;
+  }
+}
 __device__ __forceinline__ void load_vec(const float* src, float (&f)[4]) {
   const float4 x = *reinterpret_cast<const float4*>(src);
   f[0] = x.x; f[1] = x.y; f[2] = x.z; f[3] = x.w;
@@ -172,6 +183,9 @@ __device__ __forceinline__ void load_lane(const T* src,
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
+}
+__device__ __forceinline__ void store(__half* p, float x) {
+  *p = __float2half_rn(x);
 }
 
 // 2^x on the MUFU unit. Flushes results below 2^-126 to zero: such a
@@ -465,19 +479,23 @@ __global__ void __launch_bounds__(NT) paged_decode(
 
 // -- host side ---------------------------------------------------------------
 
+// The element types by dtype code: 0 float32, 1 bfloat16, 2 float16.
+constexpr int kF32 = 0, kBF16 = 1, kF16 = 2;
+
 // One pool ([rows = (null_id + 1) * bt, Hkv * D], row-major) as a 2-D
 // tensor map whose box is one page block of one KV head: D columns x bt
 // rows, unswizzled.
-CUresult encode_pool(CUtensorMap* map, const void* ptr, bool bf16, int rows,
+CUresult encode_pool(CUtensorMap* map, const void* ptr, int dtype, int rows,
                      int hkv, int d, int bt) {
-  const int elem = bf16 ? 2 : 4;
+  const int elem = dtype == kF32 ? 4 : 2;
   const cuuint64_t dims[2] = {cuuint64_t(hkv) * d, cuuint64_t(rows)};
   const cuuint64_t strides[1] = {cuuint64_t(hkv) * d * elem};
   const cuuint32_t box[2] = {cuuint32_t(d), cuuint32_t(bt)};
   const cuuint32_t unit[2] = {1, 1};
   return encode_tiled()(
-      map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      map, dtype == kBF16  ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+           : dtype == kF16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                           : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
       2, const_cast<void*>(ptr), dims, strides, box, unit,
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -547,9 +565,9 @@ int run(const void* q, const void* k, const void* v, const void* pos,
         const void* tables, const void* frontier, void* o, int batch,
         int max_blocks, int bt, int null_id, int hq, int hkv, int d,
         int cluster, int stages, int smem_bytes, float scale_log2,
-        int is_bf16, void* stream, int* clusters) {
-  const int elem = is_bf16 ? 2 : 4;
-  if (batch <= 0 || max_blocks <= 0 || bt <= 0 || bt % STEP_KEYS ||
+        int dtype, void* stream, int* clusters) {
+  const int elem = dtype == kF32 ? 4 : 2;
+  if (dtype < kF32 || dtype > kF16 || batch <= 0 || max_blocks <= 0 || bt <= 0 || bt % STEP_KEYS ||
       bt > 256 || null_id <= 0 || hkv <= 0 || hq % hkv ||
       hq / hkv > MAX_G || cluster < 1 ||
       cluster > MAX_CLUSTER || stages < 2 || stages > MAX_STAGES ||
@@ -559,8 +577,8 @@ int run(const void* q, const void* k, const void* v, const void* pos,
   if (encode_tiled() == nullptr) return kErrNoEncoder;
   const int rows = (null_id + 1) * bt;
   CUtensorMap tk, tv;
-  CUresult r = encode_pool(&tk, k, is_bf16, rows, hkv, d, bt);
-  if (r == CUDA_SUCCESS) r = encode_pool(&tv, v, is_bf16, rows, hkv, d, bt);
+  CUresult r = encode_pool(&tk, k, dtype, rows, hkv, d, bt);
+  if (r == CUDA_SUCCESS) r = encode_pool(&tv, v, dtype, rows, hkv, d, bt);
   if (r != CUDA_SUCCESS) return kErrEncode + static_cast<int>(r);
   Params p;
   p.q = q;
@@ -574,10 +592,12 @@ int run(const void* q, const void* k, const void* v, const void* pos,
   p.scale_log2 = scale_log2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? launch_dim<__nv_bfloat16>(d, tk, tv, p, batch, smem_bytes, s,
-                                          clusters)
-              : launch_dim<float>(d, tk, tv, p, batch, smem_bytes, s,
-                                  clusters);
+      dtype == kBF16  ? launch_dim<__nv_bfloat16>(d, tk, tv, p, batch,
+                                                  smem_bytes, s, clusters)
+      : dtype == kF16 ? launch_dim<__half>(d, tk, tv, p, batch, smem_bytes, s,
+                                           clusters)
+                      : launch_dim<float>(d, tk, tv, p, batch, smem_bytes, s,
+                                          clusters);
   return static_cast<int>(err);
 }
 
@@ -587,16 +607,16 @@ int run(const void* q, const void* k, const void* v, const void* pos,
 // checks: cudaErrorInvalidValue) or one of the codes above. All tensors
 // contiguous; k and v are [null_id + 1, bt, Hkv, D] pools, 16-byte
 // aligned. cluster, stages and smem_bytes come from PagedPlan: smem_bytes
-// must equal the kernel's own layout for them. is_bf16: 1 for bfloat16,
-// 0 for float32.
+// must equal the kernel's own layout for them. dtype: 0 for float32, 1
+// for bfloat16, 2 for float16 (q, the pools and o all of it).
 extern "C" int cake_paged_decode_fwd(
     const void* q, const void* k, const void* v, const void* pos,
     const void* tables, const void* frontier, void* o, int batch,
     int max_blocks, int bt, int null_id, int hq, int hkv, int d, int cluster,
-    int stages, int smem_bytes, float scale_log2, int is_bf16, void* stream) {
+    int stages, int smem_bytes, float scale_log2, int dtype, void* stream) {
   return run(q, k, v, pos, tables, frontier, o, batch, max_blocks, bt,
              null_id, hq, hkv, d, cluster, stages, smem_bytes, scale_log2,
-             is_bf16, stream, nullptr);
+             dtype, stream, nullptr);
 }
 
 // The same arguments, no launch: writes the clusters of that launch that
@@ -605,9 +625,9 @@ extern "C" int cake_paged_decode_clusters(
     const void* q, const void* k, const void* v, const void* pos,
     const void* tables, const void* frontier, void* o, int batch,
     int max_blocks, int bt, int null_id, int hq, int hkv, int d, int cluster,
-    int stages, int smem_bytes, float scale_log2, int is_bf16, void* stream,
+    int stages, int smem_bytes, float scale_log2, int dtype, void* stream,
     int* clusters) {
   return run(q, k, v, pos, tables, frontier, o, batch, max_blocks, bt,
              null_id, hq, hkv, d, cluster, stages, smem_bytes, scale_log2,
-             is_bf16, stream, clusters);
+             dtype, stream, clusters);
 }

@@ -10,10 +10,14 @@ import torch
 
 DEFAULT_DEVICE = "cuda"
 
-# The model dtypes the port supports: the flash kernel takes these two.
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# The model dtypes the port supports: the flash kernel takes these three
+# (the reference's bf16 | f16 | f32, cake_tpu/cli.py:27).
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
 
-_ALIASES = {"f32": "float32", "float": "float32", "bf16": "bfloat16"}
+# the reference's aliases of these (cake_tpu/utils/dtypes.py: parse_dtype)
+_ALIASES = {"f32": "float32", "float": "float32", "bf16": "bfloat16",
+            "f16": "float16", "half": "float16"}
 
 
 def parse_dtype(s: str) -> torch.dtype:

@@ -36,11 +36,16 @@ def init_layer_cache(cfg: ModelConfig, spec, batch: int, max_seq_len: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq_len: int,
-               dtype: torch.dtype = torch.bfloat16, device="cpu") -> dict:
+               dtype: torch.dtype = torch.bfloat16, device="cpu",
+               layer_range: tuple[int, int] | None = None) -> dict:
+    """The cache of every layer, or of the contiguous `layer_range` [lo,
+    hi) only (a cluster stage holds its own range; the reference's
+    init_cache(layer_range=))."""
+    lo, hi = layer_range or (0, cfg.num_hidden_layers)
     return {
         "layers": [init_layer_cache(cfg, cfg.layer_spec(i), batch,
                                     max_seq_len, dtype, device)
-                   for i in range(cfg.num_hidden_layers)],
+                   for i in range(lo, hi)],
         "pos": 0,
     }
 
@@ -187,14 +192,16 @@ def truncate_cache(cfg: ModelConfig, cache: dict, new_end: int) -> dict:
     return cache
 
 
-def grow_cache(cfg: ModelConfig, cache: dict, new_len: int) -> dict:
+def grow_cache(cfg: ModelConfig, cache: dict, new_len: int,
+               layer_range: tuple[int, int] | None = None) -> dict:
     """A cache of min(new_len, window) slots per layer holding the same
     entries (re-homed at pos % the new size); empty entries are dropped
     (the reference's grow_cache). Linear-attention state passes
-    through."""
+    through. layer_range: the layers the cache holds (default all)."""
+    lo = layer_range[0] if layer_range else 0
     out = []
     for i, lc in enumerate(cache["layers"]):
-        spec = cfg.layer_spec(i)
+        spec = cfg.layer_spec(lo + i)
         if spec.kind == "linear":
             out.append(lc)
             continue
@@ -213,12 +220,15 @@ def grow_cache(cfg: ModelConfig, cache: dict, new_len: int) -> dict:
     return {"layers": out, "pos": cache["pos"]}
 
 
-def kv_capacity(cfg: ModelConfig, cache: dict) -> int | None:
+def kv_capacity(cfg: ModelConfig, cache: dict,
+                layer_range: tuple[int, int] | None = None) -> int | None:
     """Smallest full-attention buffer length (positions past it would
-    wrap); None when every layer is a ring or linear."""
+    wrap); None when every layer is a ring or linear. layer_range: the
+    layers the cache holds (default all)."""
+    lo = layer_range[0] if layer_range else 0
     caps = [lc["k"].shape[1] for i, lc in enumerate(cache["layers"])
-            if cfg.layer_spec(i).kind == "full"
-            and cfg.layer_spec(i).window is None]
+            if cfg.layer_spec(lo + i).kind == "full"
+            and cfg.layer_spec(lo + i).window is None]
     return min(caps) if caps else None
 
 

@@ -407,10 +407,16 @@ def block_forward(cfg: ModelConfig, spec: LayerSpec, p: dict,
 
 def forward_layers(cfg: ModelConfig, params: dict, x: torch.Tensor,
                    layers: list[dict], pos0, rope: dict,
-                   valid_len=None, flash_mode: str = "off") -> torch.Tensor:
-    """Run every block over hidden states x; `layers` (the per-layer
-    cache list) is updated in place."""
-    for j, spec in enumerate(cfg.layer_specs()):
+                   valid_len=None, flash_mode: str = "off",
+                   layer_range: tuple[int, int] | None = None
+                   ) -> torch.Tensor:
+    """Run the blocks over hidden states x; `layers` (the per-layer cache
+    list) is updated in place. layer_range [lo, hi): run only those
+    blocks, with params["layers"] and `layers` holding that range alone
+    (a cluster stage's; the reference's forward_layers(layer_range=));
+    default every block."""
+    lo, hi = layer_range or (0, cfg.num_hidden_layers)
+    for j, spec in enumerate(cfg.layer_specs()[lo:hi]):
         x, _ = block_forward(cfg, spec, params["layers"][j], x, layers[j],
                              pos0, rope, valid_len, flash_mode)
     return x

@@ -20,11 +20,9 @@ No serve engine: an offloaded model is served one request at a time
 """
 from __future__ import annotations
 
-import torch
-
-from ...obs import RECORDER, now, observe_generation
-from ...ops.sampling import SamplingConfig, push_recent_token, request_key
-from .text_model import TextModel, bucket_for
+from ...obs import observe_generation
+from ...ops.sampling import SamplingConfig
+from .text_model import TextModel, bucket_for, eager_generate
 
 
 class OffloadedTextModel(TextModel):
@@ -54,58 +52,33 @@ class OffloadedTextModel(TextModel):
     def generate(self, prompt_ids: list[int], max_new_tokens: int = 256,
                  sampling: SamplingConfig | None = None, seed: int = 0,
                  on_token=None, **_):
-        """Up to max_new_tokens (stopping at EOS) under key
-        request_key(seed, 0), in a cache of TextModel.generate's KV
-        bucket; on_token receives each Token as it is sampled. Returns
-        (token_ids, stats): TextModel's stats, `expert_offload: True`, and
-        this generation's expert reads, LRU hits and misses, bytes and
-        read seconds (expert_*), the prefill's share of each beside them
-        (expert_prefill_*)."""
-        cfg = self.cfg
-        scfg = sampling or SamplingConfig()
-        key = request_key(seed, 0)
+        """text_model.eager_generate over TextModel's prefill and
+        decode_logits, in a cache of TextModel.generate's KV bucket.
+        Returns (token_ids, stats): eager_generate's stats, `expert_offload:
+        True`, and this generation's expert reads, LRU hits and misses,
+        bytes and read seconds (expert_*), the prefill's share of each
+        beside them (expert_prefill_*)."""
         before = self.expert_stats()
-        n = len(prompt_ids)
-        kv_len = bucket_for(n + max_new_tokens, self.max_cache_len)
-        cache = self.new_cache(1, kv_len)
-        recent = torch.full((1, scfg.repeat_last_n), -1, dtype=torch.int32,
-                            device=self.device)
-        t0 = now()
-        with RECORDER.span("prefill", cat="gen", tokens=n):
-            logits, cache = self.prefill(cache, prompt_ids)
-        mid = self.expert_stats()
-        with RECORDER.span("sample", cat="phase"):
-            tok = self.sample_one(logits, key, 0, scfg, recent)
-            recent = push_recent_token(recent, tok)
-            tid = int(tok[0])           # the host paces the next step
-        ttft = now() - t0
-        out = [tid]
-        if on_token is not None:
-            on_token(self.mk_token(tid))
-        budget = min(max_new_tokens, kv_len - n)
-        t1 = now()
-        while not cfg.is_eos(tid) and len(out) < budget:
-            with RECORDER.span("decode_token", cat="gen", pos=cache["pos"]):
-                logits, cache = self.decode_logits(cache, tid)
-                with RECORDER.span("sample", cat="phase"):
-                    tok = self.sample_one(logits, key, len(out), scfg,
-                                          recent)
-                    recent = push_recent_token(recent, tok)
-                    tid = int(tok[0])
-            out.append(tid)
-            if on_token is not None:
-                on_token(self.mk_token(tid))
-        dt = now() - t1
+        kv_len = bucket_for(len(prompt_ids) + max_new_tokens,
+                            self.max_cache_len)
+        state = {"cache": self.new_cache(1, kv_len)}
+
+        def prefill(ids):
+            logits, state["cache"] = self.prefill(state["cache"], ids)
+            state["mid"] = self.expert_stats()
+            return logits
+
+        def decode(tid, pos):
+            logits, state["cache"] = self.decode_logits(state["cache"], tid)
+            return logits
+
+        out, stats = eager_generate(self.cfg, self.device, prompt_ids,
+                                    kv_len, prefill, decode, max_new_tokens,
+                                    sampling, seed, on_token)
         after = self.expert_stats()
-        stats = {"ttft_s": ttft, "decode_tokens": len(out) - 1,
-                 "decode_s": dt,
-                 "tok_per_s": (len(out) - 1) / dt if dt > 0 else 0.0,
-                 "expert_offload": True}
+        stats["expert_offload"] = True
         for k in ("reads", "hits", "misses", "bytes_read", "read_s"):
             stats[f"expert_{k}"] = after[k] - before[k]
-            stats[f"expert_prefill_{k}"] = mid[k] - before[k]
+            stats[f"expert_prefill_{k}"] = state["mid"][k] - before[k]
         observe_generation(stats, len(out), "offload")
         return out, stats
-
-    def chat_generate(self, messages: list[dict], **kw):
-        return self.generate(self.tokenizer.chat_prompt_ids(messages), **kw)

@@ -40,7 +40,7 @@ from typing import Iterable
 import torch
 
 from ...device import resolve_device
-from ...obs import RECORDER
+from ...obs import RECORDER, now
 from ...ops.sampling import (SamplingConfig, config_has_filters,
                              push_recent_token, request_key, sample_one,
                              sample_traced, spec_accept)
@@ -122,6 +122,117 @@ def prefill_start_keys(chunk: int, capacity: int | None,
 class Token:
     id: int
     is_end_of_stream: bool
+
+
+def eager_generate(cfg: ModelConfig, device, prompt_ids: list[int],
+                   kv_len: int, prefill, decode, max_new_tokens: int = 256,
+                   sampling: SamplingConfig | None = None, seed: int = 0,
+                   on_token=None, out: list[int] | None = None):
+    """The generate loop of the models that capture no decode step (the
+    offloaded model, models/common/offload_model.py, and the distributed
+    one, cluster/master.py): prefill(ids) -> logits [1, V], then
+    decode(tid, pos) -> logits [1, V] once per token, each sampled under
+    request_key(seed, 0) with draw i for token i, as TextModel.generate.
+    Stops at EOS, at max_new_tokens or at the end of a cache of kv_len
+    positions. on_token receives each Token as it is sampled; the tokens
+    are appended to `out` (a new list when None). Returns (token_ids,
+    stats): ttft_s (the prefill and the first sample), decode_tokens,
+    decode_s and tok_per_s (the tokens after the first over their
+    time)."""
+    scfg = sampling or SamplingConfig()
+    key = request_key(seed, 0)
+    n = len(prompt_ids)
+    out = [] if out is None else out
+    recent = torch.full((1, scfg.repeat_last_n), -1, dtype=torch.int32,
+                        device=device)
+
+    def sample(logits) -> int:
+        nonlocal recent
+        with RECORDER.span("sample", cat="phase"):
+            tok = sample_one(logits, key, len(out), scfg, recent,
+                             cfg.vocab_size)
+            recent = push_recent_token(recent, tok)
+            return int(tok[0])          # the host paces the next step
+
+    def emit(tid: int) -> None:
+        out.append(tid)
+        if on_token is not None:
+            on_token(Token(id=tid, is_end_of_stream=cfg.is_eos(tid)))
+
+    t0 = now()
+    with RECORDER.span("prefill", cat="gen", tokens=n):
+        logits = prefill(prompt_ids)
+    tid = sample(logits)
+    ttft = now() - t0
+    emit(tid)
+    budget = min(max_new_tokens, kv_len - n)
+    t1 = now()
+    while not cfg.is_eos(tid) and len(out) < budget:
+        pos = n + len(out) - 1
+        with RECORDER.span("decode_token", cat="gen", pos=pos):
+            tid = sample(decode(tid, pos))
+        emit(tid)
+    dt = now() - t1
+    return out, {"ttft_s": ttft, "decode_tokens": len(out) - 1,
+                 "decode_s": dt,
+                 "tok_per_s": (len(out) - 1) / dt if dt > 0 else 0.0}
+
+
+class LocalStage:
+    """A contiguous range of layers [lo, hi) on this process's device (the
+    reference's LocalStage, text_model.py:129-160): the unit a cluster
+    worker runs, and a master runs for the layers it keeps. `params` holds
+    that range (params["layers"] of hi - lo blocks, utils/loaders.py:
+    load_model_params(layer_range=)). PyTorch runs it eagerly: the
+    reference compiles one program per (width, flash mode); here the
+    width and mode are host decisions of each call."""
+
+    def __init__(self, cfg: ModelConfig, params: dict, lo: int, hi: int,
+                 device=None):
+        if len(params["layers"]) != hi - lo:
+            raise ValueError(f"stage [{lo}, {hi}) got "
+                             f"{len(params['layers'])} layers of params")
+        self.cfg, self.lo, self.hi = cfg, lo, hi
+        self.params = params
+        self.device = resolve_device(device)
+        self.rope = make_rope(cfg, self.device)
+
+    @property
+    def layer_range(self) -> tuple[int, int]:
+        return self.lo, self.hi
+
+    def new_cache(self, kv_len: int, dtype: torch.dtype) -> dict:
+        """A batch-1 cache of the stage's layers, kv_len slots each."""
+        return init_cache(self.cfg, 1, kv_len, dtype, self.device,
+                          self.layer_range)
+
+    @torch.no_grad()
+    def forward_hidden(self, x: torch.Tensor, cache: dict, pos0: int,
+                       valid_len: int | None, flash_mode: str = "off"):
+        """x [1, S, H] on the stage's device through its layers, the
+        cache written in place. valid_len None: one decode step at
+        position pos0 (S = 1; the batched decode form with per-row
+        positions). Else a prefill chunk of S bucket-padded tokens at
+        pos0, valid_len of them real, attention by `flash_mode`
+        (select_flash_mode's). Returns (hidden states, cache)."""
+        cfg, dev = self.cfg, self.device
+        if valid_len is None:
+            b = x.shape[0]
+            x = forward_layers(
+                cfg, self.params, x, cache["layers"],
+                torch.full((b,), int(pos0), dtype=torch.int32, device=dev),
+                self.rope, valid_len=torch.ones(b, dtype=torch.int32,
+                                                device=dev),
+                layer_range=self.layer_range)
+            cache["pos"] = int(pos0) + 1
+        else:
+            x = forward_layers(cfg, self.params, x, cache["layers"],
+                               int(pos0), self.rope,
+                               valid_len=int(valid_len),
+                               flash_mode=flash_mode,
+                               layer_range=self.layer_range)
+            cache["pos"] = int(pos0) + int(valid_len)
+        return x, cache
 
 
 class TextModel:

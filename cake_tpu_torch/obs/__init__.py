@@ -13,9 +13,9 @@ the API server's /metrics renders REGISTRY, /api/v1/trace the RECORDER,
 /api/v1/requests/<id> TIMELINES. Recording reads host values the caller
 already has; none of it touches the card.
 
-Not here yet: the speculative, cluster, fleet, worker and hop
-instruments, the jobs gauge, and the reference's obs/series.py and
-obs/catalog.py (they come with the modules that record them).
+Not here yet: the fleet instruments, the jobs gauge, and the
+reference's obs/series.py and obs/catalog.py (they come with the modules
+that record them).
 """
 from __future__ import annotations
 
@@ -256,6 +256,54 @@ SERVE_TENANT_THROTTLES = REGISTRY.counter(
     labelnames=("tenant", "reason"))    # rate | inflight
 
 
+# -- cluster instruments (cluster/: master, client, worker) -------------------
+
+WORKER_FWD_SECONDS = REGISTRY.histogram(
+    "cake_worker_forward_seconds",
+    "Worker-side forward compute time per request (includes any in-band "
+    "XLA compile)")
+
+HOP_SECONDS = REGISTRY.histogram(
+    "cake_cluster_hop_seconds",
+    "Master-observed remote-hop latency split by phase "
+    "(rtt | read | deser | fwd | ser | wire)",
+    labelnames=("worker", "phase"))
+
+CLUSTER_STAGE_FAILURES = REGISTRY.counter(
+    "cake_cluster_stage_failures_total",
+    "Classified remote-hop failures observed by the master",
+    labelnames=("worker", "kind"))  # timeout | eof | conn | corrupt |
+                                    # worker_error
+
+CLUSTER_RECONNECTS = REGISTRY.counter(
+    "cake_cluster_reconnects_total",
+    "Successful master->worker channel re-establishments (reconnect + "
+    "re-auth + re-assign) after a stage failure",
+    labelnames=("worker",))
+
+CLUSTER_REPLAYS = REGISTRY.counter(
+    "cake_cluster_replays_total",
+    "Rebuild-by-replay prefills run to reconstruct lost worker KV state "
+    "mid-generation")
+
+CLUSTER_DEGRADED = REGISTRY.gauge(
+    "cake_cluster_degraded",
+    "1 while a worker is quarantined with its retry budget exhausted "
+    "(/health answers 503; the restore loop is probing)")
+
+CLUSTER_HOP_DEGRADED = REGISTRY.gauge(
+    "cake_cluster_hop_degraded",
+    "1 while the hop's rolling RTT p95 exceeds CAKE_HOP_DEGRADED_MS "
+    "(gray failure: slow-but-alive)",
+    labelnames=("worker",))
+
+WORKER_HEARTBEAT = REGISTRY.gauge(
+    "cake_worker_heartbeat_age_seconds",
+    "Seconds since the worker last handled any message, at the last "
+    "heartbeat tick (worker-process registry)",
+    labelnames=("worker",))
+
+
 __all__ = [
     "Counter", "Gauge", "Histogram", "LATENCY_BUCKETS", "MetricsRegistry",
     "REGISTRY", "RECORDER", "SPAN_CATALOG", "SpanRecorder", "PhaseTimer",
@@ -276,4 +324,7 @@ __all__ = [
     "SERVE_QOS_E2E_SECONDS", "SERVE_QOS_SHEDS", "SERVE_TENANT_THROTTLES",
     "SPEC_PROPOSED", "SPEC_ACCEPTED", "SPEC_ACCEPTED_LEN",
     "SPEC_BUCKET_ACCEPTED",
+    "WORKER_FWD_SECONDS", "HOP_SECONDS", "CLUSTER_STAGE_FAILURES",
+    "CLUSTER_RECONNECTS", "CLUSTER_REPLAYS", "CLUSTER_DEGRADED",
+    "CLUSTER_HOP_DEGRADED", "WORKER_HEARTBEAT",
 ]

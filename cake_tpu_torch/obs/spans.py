@@ -190,4 +190,10 @@ SPAN_CATALOG: tuple[tuple[str, str], ...] = (
                     "verify's replay to the iteration's fetch)"),
     ("api.chat_prompt", "chat handler: the chat template and the "
                         "tokenizer's encode of one request's prompt"),
+    ("layers", "per-token transformer layers; a cluster master's stage "
+               "hops carry kind/start/end/worker args"),
+    ("recover", "cluster master: quarantine->reconnect->replay cycle "
+                "after a stage failure"),
+    ("replay_prefill", "cluster master: rebuild-by-replay prefill "
+                       "reconstructing lost worker KV"),
 )

@@ -78,6 +78,9 @@ EVENT_KINDS: dict[str, str] = {
               "(crash rebuild or recompute resume; `tokens`)",
     "step_failure": "a scheduler step implicating this request failed "
                     "(`failure` = classified kind, `phase`)",
+    # cluster tier (distributed master, per remote hop)
+    "cluster_hop": "one remote-stage forward attributed to this request "
+                   "(`worker`, `ms`)",
     "finish": "terminal: generation completed (`outcome`, `tokens`, "
               "`ttft_ms`, `e2e_ms`)",
     "error": "terminal: request failed or was cancelled (`type`)",

@@ -10,7 +10,8 @@ query head h to kv head h // (Hq / Hkv); default scale 1/sqrt(D); output
 in q's dtype. Query rows with no visible key are don't-care, as there.
 
 Routes, chosen by dtype and nothing else:
-  * bfloat16 (the serving dtype) -> csrc/flash_attn_wgmma.cu: wgmma tensor
+  * bfloat16 (the serving dtype) and float16 -> csrc/flash_attn_wgmma.cu
+    (one kernel template, entry cake_flash_wgmma_fwd or _f16): wgmma tensor
     cores, a TMA ring of K/V tiles fed by a producer warp, packed GQA rows
     (one CTA per KV head and 64 (query, head) rows). Its launch plan is
     `FlashPlan` below, in Python so that the CPU tests reach it; the kernel
@@ -67,12 +68,18 @@ LOG2E = math.log2(math.e)
 REPLACES = "cake_tpu/ops/flash.py:38"   # _flash_kernel (pl.pallas_call at :153)
 
 # dtype -> route; route -> kernel library and its source
-ROUTES = {torch.bfloat16: "bf16", torch.float32: "f32"}
-LIBRARIES = {"bf16": "flash_attn_wgmma", "f32": "flash_attn"}
+ROUTES = {torch.bfloat16: "bf16", torch.float16: "f16",
+          torch.float32: "f32"}
+LIBRARIES = {"bf16": "flash_attn_wgmma", "f16": "flash_attn_wgmma",
+             "f32": "flash_attn"}
 SOURCES = {"bf16": "cake_tpu_torch/csrc/flash_attn_wgmma.cu",
+           "f16": "cake_tpu_torch/csrc/flash_attn_wgmma.cu",
            "f32": "cake_tpu_torch/csrc/flash_attn.cu"}
 ENTRIES = {"bf16": "cake_flash_wgmma_fwd",
+           "f16": "cake_flash_wgmma_fwd_f16",
            "f32": "cake_flash_attention_fwd"}
+# the routes of the wgmma kernel: one plan (FlashPlan), one library
+WGMMA_ROUTES = ("bf16", "f16")
 _KERNEL_HEAD_DIMS = (64, 128, 256)   # one instantiation each, no other
 
 # the bf16 kernel's tiles (csrc/flash_attn_wgmma.cu: BM, BN)
@@ -313,7 +320,7 @@ class F32FlashPlan(_Plan):
                      self.split * F32_WARPS)
 
 
-PLANS = {"bf16": FlashPlan, "f32": F32FlashPlan}
+PLANS = {"bf16": FlashPlan, "f16": FlashPlan, "f32": F32FlashPlan}
 
 
 def plan_flash(q_shape, k_shape, causal: bool = True, valid_len=None,
@@ -332,7 +339,7 @@ def plan_flash(q_shape, k_shape, causal: bool = True, valid_len=None,
                          f"{_KERNEL_HEAD_DIMS}, got {d}")
     if hkv <= 0 or hq % hkv:
         raise ValueError("flash kernel: Hq must be a multiple of Hkv")
-    if route == "bf16" and hq // hkv > BLOCK_ROWS:
+    if route in WGMMA_ROUTES and hq // hkv > BLOCK_ROWS:
         raise ValueError(f"flash kernel: a GQA group of {hq // hkv} heads "
                          f"exceeds the {BLOCK_ROWS} rows of a CTA")
     off, limit = _limits(s, valid_len, q_offset)
@@ -395,12 +402,12 @@ def tma_strides(x: torch.Tensor, name: str) -> tuple[int, int, int]:
 
 
 def kernel_route(dtype: torch.dtype) -> str:
-    """The kernel route of a dtype: "bf16" or "f32" (both on the tensor
-    cores; f32 in 3xTF32).
+    """The kernel route of a dtype: "bf16", "f16" or "f32" (all on the
+    tensor cores; f32 in 3xTF32).
     Raises ValueError on any other dtype: no kernel takes it."""
     route = ROUTES.get(dtype)
     if route is None:
-        raise ValueError(f"flash kernel takes float32 or bfloat16, "
+        raise ValueError(f"flash kernel takes float32, bfloat16 or float16, "
                          f"got {dtype}")
     return route
 
@@ -473,7 +480,7 @@ def _launch(route, q, k, v, scale, plan, meta=None, meta_row=False):
     entry = getattr(lib, ENTRIES[route])
     # the per-CTA arguments: query indices (bf16), or packed rows and the
     # cluster's split (f32)
-    per_cta = ((plan.positions,) if route == "bf16"
+    per_cta = ((plan.positions,) if route in WGMMA_ROUTES
                else (plan.rows, plan.split))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -505,7 +512,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            window: int | None = None) -> torch.Tensor:
     """Launch the kernel of q's route (no launch count: callers that
     compare a kernel with its plain version use this entry). Raises on
-    CPU tensors, on a dtype other than float32/bfloat16, on D outside
+    CPU tensors, on a dtype other than float32/bfloat16/float16, on D outside
     {64, 128, 256}, on a non-contiguous last dimension and on a view that
     breaks TMA's rules."""
     route = kernel_route(q.dtype)
@@ -620,9 +627,12 @@ def _declare(fn, plan_ints: int) -> None:
 
 
 def _bind_wgmma(lib: ctypes.CDLL) -> None:
-    """Declare the bf16 entry point's signature (positions, threads,
-    shared memory)."""
-    _declare(lib.cake_flash_wgmma_fwd, 3)
+    """Declare the bf16 and f16 entry points' signature (positions,
+    threads, shared memory): one library, bound once for both routes."""
+    for entry in (ENTRIES["bf16"], ENTRIES["f16"]):
+        fn = getattr(lib, entry, None)
+        if fn is not None:
+            _declare(fn, 3)
 
 
 def _bind_f32(lib: ctypes.CDLL) -> None:
@@ -631,4 +641,4 @@ def _bind_f32(lib: ctypes.CDLL) -> None:
     _declare(lib.cake_flash_attention_fwd, 4)
 
 
-_BINDERS = {"bf16": _bind_wgmma, "f32": _bind_f32}
+_BINDERS = {"bf16": _bind_wgmma, "f16": _bind_wgmma, "f32": _bind_f32}

@@ -16,8 +16,8 @@ written out. The kernel (csrc/fp8_dequant.cu) computes the same function
 in one pass: each thread loads 16 fp8 values with one 16-byte load,
 converts them exactly (e4m3 -> f16 -> f32), multiplies by its block's
 scale in float32 and stores them rounded to nearest even in the output
-type, so it gives the plain version's bits. It moves 1 byte in and 2 (bf16)
-or 4 (f32) bytes out per parameter: bytes bound it. A fused dequant-GEMM
+type, so it gives the plain version's bits. It moves 1 byte in and 2 (bf16,
+f16) or 4 (f32) bytes out per parameter: bytes bound it. A fused dequant-GEMM
 (e4m3 into wgmma) that never writes the weight is later work (ROADMAP).
 
 `dequant_fp8_blockwise` launches the kernel for CUDA tensors (checking
@@ -39,8 +39,9 @@ REPLACES = ("cake_tpu/ops/fp8.py:17 dequant_fp8_blockwise, consumed at "
             "cake_tpu/ops/linear.py:12-24 (XLA in the reference)")
 LIBRARY = "fp8_dequant"
 SOURCE = "cake_tpu_torch/csrc/fp8_dequant.cu"
-ROUTES = {torch.bfloat16: "bf16", torch.float32: "f32"}
-OUT_KINDS = {"f32": 0, "bf16": 1}         # the C entry's out_kind
+ROUTES = {torch.bfloat16: "bf16", torch.float16: "f16",
+          torch.float32: "f32"}
+OUT_KINDS = {"f32": 0, "bf16": 1, "f16": 2}   # the C entry's out_kind
 
 
 def scale_shape(o: int, i: int, block: int = FP8_BLOCK) -> tuple[int, int]:
@@ -92,7 +93,8 @@ def _check_kernel_inputs(w, scale_inv, out_dtype) -> None:
                          f"and float32 scales, not {w.dtype} / "
                          f"{scale_inv.dtype}")
     if out_dtype not in ROUTES:
-        raise ValueError(f"fp8 dequant kernel writes bfloat16 or float32, "
+        raise ValueError(f"fp8 dequant kernel writes bfloat16, float16 or "
+                         f"float32, "
                          f"not {out_dtype}")
     if w.dim() != 2 or tuple(scale_inv.shape) != scale_shape(*w.shape):
         raise ValueError(f"fp8 dequant kernel: weight {tuple(w.shape)} and "

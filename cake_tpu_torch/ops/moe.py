@@ -70,12 +70,13 @@ def _act(g: torch.Tensor, u: torch.Tensor, act: str) -> torch.Tensor:
 def moe_route(x: torch.Tensor, rows: bool) -> str:
     """The route of T tokens: `rows` (tokens of different requests, the
     decode and verify steps) -> "gathered"; a prefill chunk -> "grouped"
-    in bfloat16, "dense" in float32."""
+    in bfloat16 (torch._grouped_mm takes bfloat16 only), "dense" in
+    float32 and float16."""
     if rows:
         return "gathered"
     if x.dtype == torch.bfloat16:
         return "grouped"
-    if x.dtype == torch.float32:
+    if x.dtype in (torch.float32, torch.float16):
         return "dense"
     raise ValueError(f"no MoE prefill route for dtype {x.dtype}")
 

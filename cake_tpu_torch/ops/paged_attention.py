@@ -18,7 +18,7 @@ Hkv); scale 1/sqrt(D); output [B, 1, Hq, D] in q's dtype. A row with no
 visible key is don't-care.
 
 Routes by dtype, one source (csrc/paged_decode.cu): bfloat16 for serving,
-float32 for the parity phase. Both on FMA: a decode row does about one
+float16 for f16 models, float32 for the parity phase. All on FMA: a decode row does about one
 FLOP per byte it reads, so bytes bound it and tensor cores buy nothing.
 One launch per call: a thread-block cluster of CLUSTER CTAs per (row, KV
 head), each rank walking every CLUSTER-th live page block through a TMA
@@ -61,8 +61,12 @@ VERIFY_REPLACES = ("cake_tpu/models/common/text_model.py:697-790 "
                    "over [row ; chunk] (XLA in the reference)")
 LIBRARY = "paged_decode"
 SOURCE = "cake_tpu_torch/csrc/paged_decode.cu"
-ROUTES = {torch.bfloat16: "bf16", torch.float32: "f32"}
-ELEMENT_BYTES = {"bf16": 2, "f32": 4}
+ROUTES = {torch.bfloat16: "bf16", torch.float16: "f16",
+          torch.float32: "f32"}
+ELEMENT_BYTES = {"bf16": 2, "f16": 2, "f32": 4}
+# the C entry's dtype argument (0 and 1 as before the f16 route: float32
+# and bfloat16)
+DTYPE_CODES = {"f32": 0, "bf16": 1, "f16": 2}
 MAX_GROUP = 8             # query heads per KV head (MAX_G there)
 _HEAD_DIMS = (64, 128, 256)   # one instantiation each, no other
 
@@ -203,7 +207,8 @@ def paged_decode_attention_ref(q: torch.Tensor, k: torch.Tensor,
 def kernel_route(dtype: torch.dtype) -> str:
     route = ROUTES.get(dtype)
     if route is None:
-        raise ValueError(f"paged decode kernel takes float32 or bfloat16, "
+        raise ValueError(f"paged decode kernel takes float32, bfloat16 or "
+                         f"float16, "
                          f"got {dtype}")
     return route
 
@@ -275,7 +280,7 @@ def _kernel_args(q, k, v, pos, tables, frontier, out, scale, plan):
             tables.data_ptr(), frontier.data_ptr(), out.data_ptr(), b,
             tables.shape[1], bt, nb1 - 1, hq, hkv, d, plan.cluster,
             plan.stages, plan.smem_bytes, float(scale) * math.log2(math.e),
-            int(q.dtype == torch.bfloat16), stream)
+            DTYPE_CODES[kernel_route(q.dtype)], stream)
 
 
 def paged_decode_attention_kernel(q: torch.Tensor, k: torch.Tensor,

@@ -12,7 +12,9 @@ checkpoints load through their strategy (utils/quant.py): FP8 block-wise
 (dequantized at load, or with fp8_native=True kept at 1 byte per
 parameter and dequantized per use by the kernel), AutoGPTQ 4-bit, GGUF.
 With expert_offload an MoE model's experts stay in the checkpoint
-(models/common/offload_model.py: OffloadedTextModel).
+(models/common/offload_model.py: OffloadedTextModel). With a cluster key
+the model is a cluster master (cluster/master.py: DistributedTextModel)
+over the workers of a topology file, or of UDP discovery.
 """
 from __future__ import annotations
 
@@ -112,10 +114,34 @@ def load_config_and_quant(model_dir: str, arch: str | None = None):
     raise FileNotFoundError(f"no config.json or .gguf in {model_dir}")
 
 
+def cluster_workers(cluster_key: str, topology_path: str | None = None,
+                    discovery_timeout: float = 3.0,
+                    min_workers: int = 0) -> list[dict]:
+    """The workers of a cluster, as discovery replies ({"name", "host",
+    "port", "caps"}): the topology file's nodes, else those that answer
+    UDP discovery within discovery_timeout (stopping early once
+    min_workers have)."""
+    if topology_path:
+        from .cluster.topology import Topology
+        topo = Topology.from_path(topology_path)
+        return [{"name": n.name, "host": n.addr[0], "port": n.addr[1],
+                 "caps": {"backend": n.backend or "cpu",
+                          "device": n.backend or "cpu",
+                          "memory_bytes": n.memory_bytes,
+                          "tflops": n.tflops}}
+                for n in topo.nodes.values()]
+    from .cluster import discover_workers
+    return discover_workers(cluster_key, timeout=discovery_timeout,
+                            expected=min_workers or None)
+
+
 def build_text_model(model: str, dtype: str = "bf16", arch: str | None = None,
                      max_cache_len: int = 2048, seed: int = 42,
                      device=None, fp8_native: bool = False,
-                     expert_offload: bool = False):
+                     expert_offload: bool = False,
+                     cluster_key: str | None = None,
+                     topology_path: str | None = None,
+                     discovery_timeout: float = 3.0, min_workers: int = 0):
     """(model, CakeTokenizer, model_id) of a local directory or a cached
     repo id, on `device` (default `cuda`): a TextModel, or with
     expert_offload an OffloadedTextModel whose MoE experts stay in the
@@ -123,7 +149,17 @@ def build_text_model(model: str, dtype: str = "bf16", arch: str | None = None,
     default size; the reference's refusals: a model with no experts, and
     fp8_native with offload). model_id is the name's last path
     component. fp8_native keeps an FP8 checkpoint's projections at 1
-    byte per parameter (raises for any other checkpoint)."""
+    byte per parameter (raises for any other checkpoint).
+
+    With cluster_key (the reference's cluster path, runtime.py:163-246):
+    the workers of topology_path's file (each node's layers as its
+    assignment), else of UDP discovery (cluster_workers), set up by
+    cluster/master.py: master_setup (weights streamed, the master keeping
+    the unassigned layers on `device`), and the model is a
+    DistributedTextModel whose `topology` and `streams` record the
+    cluster. No worker found: all local, with a warning. Expert offload
+    applies to local serving only: ignored on the cluster path, with a
+    warning, as in the reference."""
     dev = resolve_device(device)
     model_dir = resolve_model(model)
     cfg, quant, _ = load_config_and_quant(model_dir, arch)
@@ -132,6 +168,20 @@ def build_text_model(model: str, dtype: str = "bf16", arch: str | None = None,
             raise ValueError("--fp8-native requires an FP8 checkpoint "
                              f"(detected quantization: {quant.name})")
         quant = fp8_native_quant()
+    workers = []
+    if cluster_key:
+        workers = cluster_workers(cluster_key, topology_path,
+                                  discovery_timeout, min_workers)
+        if not workers:
+            log.warning("no workers found; running all-local")
+    if expert_offload and workers:
+        log.warning("--expert-offload applies to local serving only; "
+                    "ignoring it for the cluster path")
+        expert_offload = False
+    if workers:
+        return _cluster_model(model, model_dir, cfg, workers, cluster_key,
+                              topology_path, dtype, max_cache_len,
+                              fp8_native, dev)
     if expert_offload:
         if not cfg.num_experts:
             raise ValueError("--expert-offload needs an MoE model "
@@ -172,3 +222,33 @@ def build_text_model(model: str, dtype: str = "bf16", arch: str | None = None,
     gen = TextModel(cfg, params, tokenizer=tokenizer, dtype=dt, device=dev,
                     seed=seed, max_cache_len=max_cache_len)
     return gen, tokenizer, model_id
+
+
+def _cluster_model(model: str, model_dir: str, cfg, workers: list[dict],
+                   cluster_key: str, topology_path: str | None, dtype: str,
+                   max_cache_len: int, fp8_native: bool, dev):
+    """The cluster path of build_text_model."""
+    from .cluster.master import DistributedTextModel, master_setup
+    assignments = None
+    if topology_path:
+        from .cluster.topology import Topology
+        topo = Topology.from_path(topology_path)
+        topo.assigned_layers()          # raises on a layer given twice
+        assignments = {name: n.layer_range
+                       for name, n in topo.nodes.items() if n.layer_range}
+    t = time.perf_counter()
+    setup = master_setup(model_dir, cluster_key, cfg, workers,
+                         assignments=assignments, dtype_str=dtype,
+                         max_cache_len=max_cache_len, fp8_native=fp8_native,
+                         device=dev)
+    tokenizer = CakeTokenizer(model_dir)
+    gen = DistributedTextModel(cfg, setup.master_params, setup.stages,
+                               tokenizer=tokenizer, dtype=parse_dtype(dtype),
+                               device=dev, max_cache_len=max_cache_len)
+    gen.topology = setup.topology
+    gen.streams = setup.streams
+    log.info("cluster master of %s: stages %s, set up in %.2fs",
+             os.path.basename(model.rstrip("/")),
+             [(s.kind, s.start, s.end) for s in setup.stages],
+             time.perf_counter() - t)
+    return gen, tokenizer, os.path.basename(model.rstrip("/"))

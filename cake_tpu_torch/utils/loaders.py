@@ -198,18 +198,35 @@ class ParamLoader:
             p[n] = self._norm(f"{lp}.{n}.weight")
         return p
 
-    def load(self) -> dict:
+    def load(self, layer_range: tuple[int, int] | None = None,
+             include_embed: bool | None = None,
+             include_head: bool | None = None) -> dict:
+        """The tree of every layer, or of `layer_range` [lo, hi) only (a
+        cluster stage's: params["layers"] holds that range), with the
+        embeddings when include_embed (default: lo == 0) and the final
+        norm and head when include_head (default: hi == the depth); a
+        tied head brings the embeddings along, as in the reference."""
         cfg, pre = self.cfg, self.cfg.model_prefix
-        params = {"layers": [self._layer(i)
-                             for i in range(cfg.num_hidden_layers)],
-                  "embed_tokens": {"weight": self._get_dense(
-                      f"{pre}.embed_tokens.weight")},
-                  "norm": self._norm(f"{pre}.norm.weight")}
-        if not cfg.tie_word_embeddings:
-            head = ("lm_head.weight" if self._has("lm_head.weight")
-                    else f"{pre}.lm_head.weight")
-            params["lm_head"] = self._weight(head)
-        unused = sorted(set(self.st.names()) - self.used)
+        lo, hi = layer_range or (0, cfg.num_hidden_layers)
+        if include_embed is None:
+            include_embed = lo == 0
+        if include_head is None:
+            include_head = hi == cfg.num_hidden_layers
+        if include_head and cfg.tie_word_embeddings:
+            include_embed = True
+        params: dict = {"layers": [self._layer(i) for i in range(lo, hi)]}
+        if include_embed:
+            params["embed_tokens"] = {"weight": self._get_dense(
+                f"{pre}.embed_tokens.weight")}
+        if include_head:
+            params["norm"] = self._norm(f"{pre}.norm.weight")
+            if not cfg.tie_word_embeddings:
+                head = ("lm_head.weight" if self._has("lm_head.weight")
+                        else f"{pre}.lm_head.weight")
+                params["lm_head"] = self._weight(head)
+        whole = (lo, hi) == (0, cfg.num_hidden_layers) and include_embed \
+            and include_head
+        unused = sorted(set(self.st.names()) - self.used) if whole else []
         if unused:
             log.warning("checkpoint tensors not consumed: %s%s", unused[:6],
                         f" (+{len(unused) - 6} more)" if len(unused) > 6
@@ -230,18 +247,24 @@ def load_model_params(cfg: ModelConfig, model_dir: str,
                       dtype: torch.dtype = torch.bfloat16,
                       device="cpu", quant=None,
                       expert_offload: bool = False,
-                      expert_lru_size: int = 32) -> dict:
+                      expert_lru_size: int = 32,
+                      layer_range: tuple[int, int] | None = None,
+                      include_embed: bool | None = None,
+                      include_head: bool | None = None) -> dict:
     """The parameter tree of a safetensors checkpoint directory, through
     `quant` (default: the strategy its config.json names). With
     expert_offload the storage stays open: the MoE layers' providers read
-    from it for as long as the model lives."""
+    from it for as long as the model lives. layer_range, include_embed
+    and include_head cut the tree to a cluster stage's part
+    (ParamLoader.load)."""
     if quant is None:
         with open(os.path.join(model_dir, "config.json")) as f:
             quant = detect_quantization(json.load(f))
     storage = TensorStorage.from_model_dir(model_dir)
     try:
         return ParamLoader(cfg, storage, dtype, device, quant,
-                           expert_offload, expert_lru_size).load()
+                           expert_offload, expert_lru_size).load(
+                               layer_range, include_embed, include_head)
     finally:
         if not expert_offload:
             storage.close()

@@ -180,6 +180,11 @@ class TensorStorage:
             t = t.to(dtype)
         return t
 
+    def read_bytes(self, name: str) -> bytes:
+        """One tensor's stored bytes, as they are in the file."""
+        r = self.records[name]
+        return bytes(self._map(r.file)[r.start:r.end])
+
     def close(self) -> None:
         for m in self._maps.values():
             m.close()

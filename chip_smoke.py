@@ -101,7 +101,11 @@ Phases (any failure exits non-zero and prints no result line):
      with Retry-After on the JSON and the SSE path and /health 503 with
      engine.down, then, revived, the chat's undisturbed answer; (e)
      step_watchdog_s=0.25 and a 1.5 s stall: /health 503 while wedged,
-     then 200, the tokens unchanged;
+     then 200, the tokens unchanged; (f) a device fault while a
+     2000-token admission is still prefilling beside a decoding chat:
+     one rebuild that replays the chat and restarts the admission, both
+     answering the tokens of a run with no plan, the flash launches
+     rising by the replay's plus the restart's repeated chunks;
   11. QoS, deadlines, tenants and the metrics plane (run after phase 10,
      on its model, over HTTP; 4 slots, ctx 4096, prefix cache off): (a)
      every slot held by a long batch chat (X-Cake-QoS: batch), 4 batch
@@ -174,9 +178,13 @@ Phases (any failure exits non-zero and prints no result line):
      replay ms beside eager; (d) that model over HTTP, contiguous then
      paged: 4 concurrent chats and one SSE chat equal alone, the shared
      system message hitting the prefix cache (tokens equal to the cache
-     off), the 96-block pool under swap and recompute, and speculation
-     (an oracle drafter whose drafts are all accepted, then
-     CAKE_SPEC=ngram) with tokens equal to speculation off; (e) 4 layers
+     off), the 96-block pool under swap and recompute, and speculation:
+     an oracle drafter proposing the plain stream (its partings printed:
+     in bf16 a verify row's top-2 gap differs from the decode step's on
+     the same prefix by more than the near tie), then CAKE_SPEC=ngram
+     with tokens equal to speculation off; then in float32 at 2 layers
+     (linear, full) the oracle's chats, arriving in a fixed order through
+     both pools, equal to the plain stream, the drafts accepted; (e) 4 layers
      written as an HF checkpoint (in_proj_qkvz / in_proj_ba,
      experts.{e}.*), loaded bit for bit and served through `cli serve
      DIR`;
@@ -195,7 +203,8 @@ Phases (any failure exits non-zero and prints no result line):
      pools, with replay device ms native beside at load; served through
      `cli serve DIR --fp8-native`, contiguous and paged (4 chats + 1 SSE,
      each equal alone), tokens equal to the at-load server's; (c)
-     Qwen3-8B's widths (assumed) at its full 36 layers in the same
+     Qwen3-8B's widths (assumed) at 12 of its 36 layers (cut from 36 to
+     keep the whole run inside its limit) in the same
      layout, drawn and quantized on the card: memory native against at
      load, native tokens equal at load's, 8 decode replays equal eager in
      both pools with replay device ms native beside at load, then served
@@ -214,7 +223,8 @@ Phases (any failure exits non-zero and prints no result line):
      prompt equal, one flash (bf16, fresh) launch per full-attention
      layer, the memory held at most the trunk plus the LRUs, TTFT, decode
      rate, expert reads per token, the LRU's hit share and the GB/s
-     read; (b) Qwen's FP8 layout at 12 of 48 layers (21 GB written after
+     read; (b) Qwen's FP8 layout at 4 of 48 layers (cut from 12 to keep
+     the whole run inside its limit; 7 GB written after
      a check of the free disk): the same against the resident model
      dequantized at load, three dequant launches per expert read, the
      dequant kernel at an expert's gate_proj against its plain version
@@ -225,16 +235,60 @@ Phases (any failure exits non-zero and prints no result line):
      CAKE_SERVE_SLOTS=0 (no engine: the locked path) and under
      CAKE_KV_BLOCKS=1024 (a paged pool of 1024 blocks), each locked
      answer equal to the engine's;
+  16. float16 models (module 16): (a) the three f16 kernel routes
+     against their plain versions and timed beside the bound and the
+     library call: the flash kernel's f16 entry, fresh and append at the
+     flagship's 16/8 D 128 and at 4/1 D 256, its device-meta form equal
+     to its host-int form bit for bit; the paged decode kernel's f16
+     route at 16/8 D 128, 4 rows at p = 620, and its verify form; the FP8
+     dequant kernel's f16 output at every shape, bit for bit, timed at
+     2048 x 1024 and 12288 x 4096; (b) the flagship at f16 (28 layers,
+     seed 0): the hidden state finite after every layer of a 256-token
+     prefill (its largest magnitude printed), 16 decode replays equal
+     eager steps and the prefill graphs the eager chunks, contiguous and
+     paged; (c) generate with the n-gram drafter equal to plain generate
+     up to a near tie, and the captured verify equal to eager verify
+     steps in both pools; (d) served over HTTP, contiguous and paged: 4
+     concurrent chats and one SSE chat, each equal alone, only the f16
+     flash route launched, TTFT and tokens/s printed; then paged with the
+     n-gram drafter (k 6): phase 12's 4 chats, each equal alone, tokens
+     equal to the plain stream up to a near tie, one f16 paged verify
+     launch per layer per verify replay; (e) the flagship
+     in Qwen's FP8 layout served at f16 with native projections: tokens
+     equal the model dequantized at load, the dequant kernel's f16 output
+     launched inside the captured graphs;
+  17. the layer-sharded cluster (module 13a): the flagship (28 layers,
+     seed 0) written as a checkpoint and served across processes on the
+     one card: worker w0 a `python3 -m cake_tpu_torch.cli worker`
+     subprocess, w1 a WorkerServer on a thread of this process, a
+     topology file on 127.0.0.1 giving them layers 4-11 and 12-19, the
+     master (runtime.build_text_model with a cluster key) the rest,
+     weights streamed with CRC32 (GB/s printed); (a) float32: 32 greedy
+     tokens of a chat prompt and of a 1100-token prompt (pipelined
+     prefill, 3 chunks) equal the single-process TextModel's; (b) w0
+     SIGKILLed after token 10 and restarted by `cli worker`: exactly one
+     replay, the continuation equal to the unfailed run; (c) bf16: TTFT
+     and decode tokens/s against the single-process model, each hop's
+     RTT split into read, deser, fwd, ser and wire, the flash launches of
+     the master's local stages and of w1's chunks; (d) `cli serve
+     --cluster-key --topology`: a chat answered, /api/v1/topology listing
+     both nodes, /health 200;
   then prints the whole run's seconds, the kernels line, the card line,
   and the result line last. `--only 12` runs phases 1, 2 and 12 alone,
   `--only 13` phases 1, 2 and 13, `--only 14` phases 1, 2 and 14,
-  `--only 15` phases 1, 2 and 15 (writing its own checkpoints), and
-  none of them prints a result line.
+  `--only 15` phases 1, 2 and 15 (writing its own checkpoints), `--only
+  16` phases 1, 2 and 16, `--only 17` phases 1, 2 and 17, and none of
+  them prints a result line. `--only 13d` is a diagnosis of 13(d)'s
+  oracle: its bf16 chats with the order of arrivals fixed (together,
+  chat 0 first, chat 0 last, chat 0 alone), each run's partings, the
+  iteration that parted chat 0 and the verify rows' logits against the
+  decode step's on the same prefix, then 13(d)'s float32 check.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import shutil
@@ -246,10 +300,12 @@ import time
 import urllib.request
 
 BF16_TOL = 2e-2     # bf16 output rounding (ulp 2^-7 near 1) + sum order
+F16_TOL = 4e-3      # f16 output rounding (ulp 2^-10 near 1), P in f16
 F32_TOL = 1e-4      # float32 summation order only
 LOGIT_TOL = 2e-3    # f32 model on card vs CPU (cuBLAS vs MKL sum order)
 
 H100_PEAK_FLOPS = {"bf16": 989e12,   # dense tensor-core peak, H100 SXM
+                   "f16": 989e12,
                    "tf32": 495e12,
                    "f32": 67e12}     # float32 outside the tensor cores
 # TF32 products per float32-accurate product on the f32 route (3xTF32:
@@ -397,8 +453,8 @@ def flash_bound_ms(q, k, kw, peak_flops=None) -> tuple[float, str]:
     nbytes = el * b * (2 * sq * hq * d + 2 * rows * hkv * d)
     if peak_flops is not None:
         t_ops = flops / peak_flops
-    elif q.dtype == torch.bfloat16:
-        t_ops = flops / H100_PEAK_FLOPS["bf16"]
+    elif q.dtype in (torch.bfloat16, torch.float16):
+        t_ops = flops / H100_PEAK_FLOPS["bf16"]     # f16: the same peak
     else:
         t_ops = TF32_PRODUCTS * flops / H100_PEAK_FLOPS["tf32"]
     t_bytes = nbytes / H100_HBM_BYTES_S
@@ -742,11 +798,12 @@ def phase_parity() -> tuple[dict, int]:
           f"logits max_abs_err {err_p:.3e} (tol {LOGIT_TOL:g}); 16 greedy "
           f"tokens identical {tp == tc}", flush=True)
     check(launches == {"bf16": {"fresh": 0, "append": 0},
+                       "f16": {"fresh": 0, "append": 0},
                        "f32": {"fresh": 2, "append": 2}},
           f"unexpected flash launches {launches}")
     check(err <= LOGIT_TOL, f"logits differ by {err}")
     check(tg == tc, f"greedy tokens differ: {tg} vs {tc}")
-    check(paged_launches == {"bf16": 0, "f32": 2 * 15},
+    check(paged_launches == {"bf16": 0, "f16": 0, "f32": 2 * 15},
           f"unexpected paged decode launches {paged_launches}")
     check(err_p <= LOGIT_TOL, f"paged logits differ by {err_p}")
     check(tp == tc, f"paged greedy tokens differ: {tp} vs {tc}")
@@ -1121,7 +1178,8 @@ def phase_paged_serve(model, card: str, contiguous: list) -> int:
         print(f"paged serve (a): decode launches {launches} over "
               f"{steps} replays of the paged decode step's graph x {layers} "
               f"layers; flash launches {flash_counts}", flush=True)
-        check(launches == {"bf16": layers * steps, "f32": 0} and steps,
+        check(launches == {"bf16": layers * steps, "f16": 0, "f32": 0}
+              and steps,
               f"paged decode launches {launches} != {layers} x {steps}")
         check(flash_counts["bf16"]["fresh"] >= layers * 4
               and flash_counts["bf16"]["append"] > 0
@@ -1378,6 +1436,88 @@ def _drill_rebuild(model, card: str, label: str, **engine_kw) -> None:
         eng.close()
 
 
+def _drill_prefill_fault(model, card: str) -> None:
+    """Phase 10 (f): a device fault while an admission is still
+    prefilling. A chat decodes beside a 2000-token admission (8 chunks of
+    256); once the admission is past its first chunk and short of its
+    last, raise_on_step=1;kind=device kills the next decode dispatch. The
+    rebuild replays the decoding chat and restarts the admission (it has
+    emitted nothing); both answer the tokens of the same requests with
+    no plan. The flash launches rise by the replay's, plus the chunks the
+    admission had prefilled before the fault, which its restart runs
+    again: its one fresh chunk exactly once more, and a whole number of
+    its append chunks (at most its own)."""
+    import torch
+    from cake_tpu_torch.ops import flash
+    from cake_tpu_torch.ops.sampling import SamplingConfig
+    from cake_tpu_torch.serve import ServeEngine, faults
+    layers = model.cfg.num_hidden_layers
+    eng = ServeEngine(model, slots=FAULT_SLOTS, ctx_len=4096,
+                      prefill_chunk=256, prefix_cache_mb=0)
+    greedy = SamplingConfig(temperature=0.0)
+    short = model.tokenizer.chat_prompt_ids(chat_body(0)["messages"])
+    gen = torch.Generator().manual_seed(10)
+    long = torch.randint(0, 256, (2000,), generator=gen).tolist()
+    n_chunks = -(-len(long) // 256)
+
+    def run(plan=None):
+        torch.cuda.synchronize()
+        flash.reset_launches()
+        first = eng.submit(short, 200, greedy)
+        _until(lambda: first.tokens or first.done.is_set(),
+               "phase 10 (f): the decoding chat never decoded", 600)
+        second = eng.submit(long, 16, greedy)
+        if plan is not None:
+            def midway():
+                return any(p.req is second and 256 <= p.pos < p.n - 256
+                           for p in list(eng._prefills))
+            _until(midway, "phase 10 (f): the admission never reached the "
+                   "middle of its prefill", 600)
+            faults.install(plan)
+        for r in (first, second):
+            check(r.wait(600), "phase 10 (f): a request hung")
+            check("error" not in r.result,
+                  f"phase 10 (f): {r.result.get('error')!r}")
+        torch.cuda.synchronize()
+        counts = flash.launch_counts()["bf16"]
+        return {"tokens": [first.result["tokens"], second.result["tokens"]],
+                "fresh": counts["fresh"], "append": counts["append"]}
+    try:
+        calm = run()
+        try:
+            hit = run("raise_on_step=1;kind=device")
+        finally:
+            faults.clear()
+        h = eng.health()
+        last = h["last_rebuild"]
+        want = _replay_launches(eng, layers)
+        extra_fresh = hit["fresh"] - calm["fresh"] - want["fresh"]
+        extra_append = hit["append"] - calm["append"] - want["append"]
+        print(f"faults (f) a fault mid-prefill: a chat decoding beside a "
+              f"{len(long)}-token admission ({n_chunks} chunks): rebuilds "
+              f"{h['rebuilds']}, restarted admissions {last['restarted']}, "
+              f"replayed tokens {last['replayed_tokens']}; flash launches "
+              f"fresh/append {calm['fresh']}/{calm['append']} undisturbed, "
+              f"{hit['fresh']}/{hit['append']} with the fault (the replay's "
+              f"{want}, the restart's repeated chunks {extra_fresh}/"
+              f"{extra_append}); tokens equal to the run with no plan "
+              f"{hit['tokens'] == calm['tokens']}; on {card}", flush=True)
+        check(hit["tokens"] == calm["tokens"],
+              "phase 10 (f): tokens after the rebuild differ")
+        check(h["rebuilds"] == 1 and last["restarted"] == 1
+              and len(last["replayed_tokens"]) == 1,
+              f"phase 10 (f): rebuilds {h['rebuilds']}, {last}")
+        check(extra_fresh == layers,
+              f"phase 10 (f): fresh launches rose by {extra_fresh} beyond "
+              f"the replay's, the restart's first chunk is {layers}")
+        check(extra_append % layers == 0
+              and 0 <= extra_append <= (n_chunks - 1) * layers,
+              f"phase 10 (f): append launches rose by {extra_append} beyond "
+              f"the replay's, not a whole number of the admission's chunks")
+    finally:
+        eng.close()
+
+
 def _drill_poison(model, card: str) -> None:
     """Phase 10 (c): two chats decoding when a third, whose prompt holds
     the poison token, joins them: 500 for it, 200 for the others with
@@ -1536,6 +1676,7 @@ def phase_faults(model, card: str) -> None:
     _drill_poison(model, card)
     _drill_down(model, card)
     _drill_wedge(model, card)
+    _drill_prefill_fault(model, card)
     print(f"faults: phase 10 took {time.perf_counter() - t0:.1f} s on "
           f"{card}", flush=True)
 
@@ -1950,10 +2091,17 @@ def spec_body(i: int) -> dict:
             "temperature": 0, "max_tokens": SPEC_TOKENS}
 
 
+def _first_parting(on: list, off: list, gaps: list) -> list:
+    """Where a spec-on stream parts from the spec-off one: [] when equal
+    (or one ends early), else [(position, spec-off top-2 gap there)]."""
+    n = min(len(on), len(off))
+    j = next((i for i in range(n) if on[i] != off[i]), None)
+    return [] if j is None else [(j, round(gaps[j], 5))]
+
+
 def _parting(on: list, off: list, gaps: list, label: str) -> list:
-    """Where a spec-on stream parts from the spec-off one: [] when equal,
-    else [(position, spec-off top-2 gap there)], which must be a near tie
-    (the verify's wider GEMMs round differently in bf16)."""
+    """_first_parting, which must be a near tie (the verify's wider GEMMs
+    round differently in bf16), and equal lengths when equal."""
     n = min(len(on), len(off))
     j = next((i for i in range(n) if on[i] != off[i]), None)
     if j is None:
@@ -2066,7 +2214,7 @@ def time_verify(dtype, shape: dict, card: str) -> dict:
          "decode_ms": device_ms(
              lambda: pa.paged_decode_attention_kernel(*decode_args(dc))),
          **verify_bounds(c)}
-    tol = BF16_TOL if route == "bf16" else F32_TOL
+    tol = {"bf16": BF16_TOL, "f16": F16_TOL}.get(route, F32_TOL)
     check(t["max_abs_err"] <= tol, f"paged verify timing {route}: "
           f"max_abs_err {t['max_abs_err']} > {tol}")
     print(f"paged verify timing {route}: 4 slots at p=620, k={SPEC_K} "
@@ -2208,7 +2356,8 @@ def phase_spec_serve(model, card: str) -> int:
                   and moved["cake_serve_spec_accepted_total"] > 0,
                   f"phase 12c {mode}: /metrics spec counters moved {moved}")
             if kw:
-                check(counts == {"bf16": layers * replays, "f32": 0},
+                check(counts == {"bf16": layers * replays, "f16": 0,
+                                 "f32": 0},
                       f"phase 12c paged: verify launches {counts} != "
                       f"{layers} x {replays}")
                 launches = counts["bf16"]
@@ -3033,9 +3182,10 @@ def phase_qnext_parity() -> dict:
           f"identical {tg == tc}, {tp == tc}; CPU run {cpu_s:.1f} s, phase "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     check(launches == {"bf16": {"fresh": 0, "append": 0},
+                       "f16": {"fresh": 0, "append": 0},
                        "f32": {"fresh": 1, "append": 1}},
           f"qwen3-next parity: flash launches {launches}")
-    check(paged_launches == {"bf16": 0, "f32": 15},
+    check(paged_launches == {"bf16": 0, "f16": 0, "f32": 15},
           f"qwen3-next parity: paged decode launches {paged_launches}")
     check(err <= LOGIT_TOL and err_p <= LOGIT_TOL,
           f"qwen3-next parity: logits differ by {err}, {err_p}")
@@ -3296,7 +3446,8 @@ def phase_qnext_serve(model, card: str) -> dict:
                   and sum(fl["f32"].values()) == 0,
                   f"qwen3-next serve {mode}: flash launches {fl}")
             if kw:
-                check(pg == {"bf16": full * steps, "f32": 0} and steps,
+                check(pg == {"bf16": full * steps, "f16": 0, "f32": 0}
+                      and steps,
                       f"qwen3-next paged: decode launches {pg} != {full} x "
                       f"{steps}")
                 launches["paged"] = pg["bf16"]
@@ -3362,7 +3513,14 @@ def phase_qnext_serve(model, card: str) -> dict:
                 torch.cuda.synchronize()
                 h = eng.health()["spec"]
                 vc = pa.verify_launch_counts()
-                parts = [_parting(r["tokens"], p["tokens"], p["gaps"],
+                # in bf16 a verify row's logits part from the decode
+                # step's on the same prefix by more than the near tie
+                # (`--only 13d` measures it): the oracle's partings are
+                # reported, and `_qnext_oracle_f32` holds its tokens to
+                # the plain stream
+                parts = [_first_parting(r["tokens"], p["tokens"], p["gaps"])
+                         if label == "oracle" else
+                         _parting(r["tokens"], p["tokens"], p["gaps"],
                                   f"qwen3-next spec {mode} {label} chat {i}")
                          for i, (r, p) in enumerate(zip(on_res, plain))]
                 if label == "oracle":
@@ -3376,11 +3534,194 @@ def phase_qnext_serve(model, card: str) -> dict:
                 print(f"qwen3-next spec {mode}, {label} drafter (k "
                       f"{eng.spec_k}): {h}; verify launches {vc}; greedy "
                       f"tokens equal to speculation off (the plain stream) "
-                      f"per chat {[not p for p in parts]}, partings at near "
-                      f"ties {parts}; on {card}", flush=True)
+                      f"per chat {[not p for p in parts]}, partings "
+                      f"(position, spec-off top-2 gap) {parts}"
+                      + (" (bf16: reported, not checked)" if label ==
+                         "oracle" else "") + f"; on {card}", flush=True)
             finally:
                 on.close()
     return launches
+
+
+def _oracle_schedule(model, prompts: list, plain: list, schedule: list,
+                     **kw) -> dict:
+    """The oracle drafter (k 6) over `prompts` through one engine (4 slots,
+    ctx 4096, prefix cache off, `kw`), greedy, SPEC_TOKENS each, chat i
+    submitted just before the scheduler's worked iteration schedule[i],
+    or once every chat submitted before it is done (on the scheduler's
+    own thread, so that the order of arrivals is fixed). Returns {tokens,
+    parts (against the plain stream), spec (the engine's counts), log:
+    per worked iteration {chat: (slot, tokens so far)} before it, and,
+    when the plain stream kept its logits, deltas: over every verify row
+    whose prefix equals the plain stream's, the largest |logit|
+    difference from the plain decode step's logits at that position, the
+    largest difference of the plain top-2 tokens' gap, and the number of
+    positions compared}."""
+    import torch
+    from cake_tpu_torch.ops.sampling import SamplingConfig
+    from cake_tpu_torch.serve import ServeEngine
+    greedy = SamplingConfig(temperature=0.0)
+    eng = ServeEngine(model, slots=4, ctx_len=4096, prefix_cache_mb=0,
+                      spec=Oracle(prompts, [p["tokens"] for p in plain]),
+                      spec_k=SPEC_K, **kw)
+    reqs = [None] * len(prompts)
+    log = []
+    real = eng._step
+    keep = "logits" in plain[0]
+    deltas = {"logit": 0.0, "gap": 0.0, "positions": 0}
+
+    def compare(before: dict) -> None:
+        """The last verify's rows against the plain stream's logits."""
+        for i, (slot, m, pending, prefilling) in before.items():
+            want = plain[i]
+            m += pending
+            n = int(eng.spec.n_drafts[slot])
+            drafts = eng.spec.drafts[slot, :n].tolist()
+            if slot is None or prefilling \
+                    or reqs[i].tokens[:m] != want["tokens"][:m]:
+                continue
+            for j in range(n + 1):
+                if m + j >= len(want["tokens"]) or \
+                        drafts[:j] != want["tokens"][m:m + j]:
+                    break
+                got, ref = eng.spec.logits[slot, j], want["logits"][m + j]
+                a, b = torch.topk(ref, 2).indices.tolist()
+                deltas["logit"] = max(deltas["logit"],
+                                      (got - ref).abs().max().item())
+                deltas["gap"] = max(deltas["gap"], abs(
+                    (ref[a] - ref[b]).item() - (got[a] - got[b]).item()))
+                deltas["positions"] += 1
+
+    def step():
+        idle = all(r is None or r.done.is_set() for r in reqs)
+        for i, at in enumerate(schedule):
+            if reqs[i] is None and (at <= len(log) or idle):
+                reqs[i] = eng.submit(prompts[i], SPEC_TOKENS, greedy)
+        prefilling = {p.slot for p in eng._prefills}
+        before = {i: (r.slot, len(r.tokens), int(r._first_pending),
+                      r.slot in prefilling)
+                  for i, r in enumerate(reqs)
+                  if r is not None and not r.done.is_set()}
+        verifies = eng.verify_graphs[False].steps
+        worked = real()
+        if worked:
+            log.append({i: v[:2] for i, v in before.items()})
+            if keep and eng.verify_graphs[False].steps > verifies:
+                compare(before)
+        return worked
+    try:
+        eng._step = step
+        eng._wake.set()
+        t0 = time.perf_counter()
+        while not all(r is not None and r.done.is_set() for r in reqs):
+            check(time.perf_counter() - t0 < 300 and eng.dead is None,
+                  f"oracle schedule {schedule}: the chats did not finish "
+                  f"({eng.dead})")
+            time.sleep(0.01)
+        spec = eng.health()["spec"]
+    finally:
+        eng.close()
+    for r in reqs:
+        check("error" not in r.result, f"oracle schedule {schedule}: "
+              f"{r.result.get('error')}")
+    tokens = [list(r.tokens) for r in reqs]
+    return {"tokens": tokens, "spec": spec, "log": log,
+            "parts": [_first_parting(t, p["tokens"], p["gaps"])
+                      for t, p in zip(tokens, plain)],
+            **({"deltas": deltas} if keep else {})}
+
+
+def _parting_step(run: dict, chat: int) -> str:
+    """The worked iteration whose verify gave chat `chat` its first parted
+    token, with every chat's (slot, tokens so far) before it."""
+    j = run["parts"][chat][0][0]
+    last = max((it for it, before in enumerate(run["log"])
+                if chat in before and before[chat][1] <= j), default=None)
+    return ("not found" if last is None else
+            f"iteration {last}, (slot, tokens so far) per chat "
+            f"{run['log'][last]}")
+
+
+def _deltas(run: dict) -> str:
+    d = run["deltas"]
+    return (f"max |logit diff| {d['logit']:.4g}, max top-2 gap diff "
+            f"{d['gap']:.4g} over {d['positions']} positions")
+
+
+ORACLE_SCHEDULES = (("together", (0, 0, 0, 0)),
+                    ("chat 0 first", (0, 7, 7, 7)),
+                    ("chat 0 last", (7, 0, 0, 0)))
+
+
+def qnext_oracle_arrivals(card: str) -> None:
+    """`--only 13d`: phase 13(d)'s bf16 oracle chats (12 layers, seed 0,
+    contiguous) with the order of arrivals fixed: all together (twice),
+    chat 0 seven iterations before the others, and after them; then chat
+    0 alone. Prints each run's partings from the plain stream and the
+    iteration that parted chat 0. A diagnosis: it checks only that every
+    chat finished."""
+    import torch
+    from cake_tpu_torch.bench.spec_cases import plain_stream
+    model = qwen3_next(QNEXT_LAYERS, torch.bfloat16, seed=0)
+    prompts = [model.tokenizer.chat_prompt_ids(spec_body(i)["messages"])
+               for i in range(4)]
+    plain = plain_stream(model, prompts, SPEC_TOKENS, 4096,
+                         keep_logits=True)
+    print(f"oracle arrivals: plain stream top-2 gaps of chat 0, tokens "
+          f"0-23: {[round(g, 4) for g in plain[0]['gaps'][:24]]}",
+          flush=True)
+    for name, schedule in ORACLE_SCHEDULES[:1] + ORACLE_SCHEDULES:
+        r = _oracle_schedule(model, prompts, plain, list(schedule))
+        print(f"oracle arrivals, bf16, {name} {schedule}: spec "
+              f"{r['spec']}; partings (position, plain top-2 gap) "
+              f"{r['parts']}; verify rows on the plain prefix against the "
+              f"plain decode step {_deltas(r)}; chat 0 parted at "
+              + (_parting_step(r, 0) if r["parts"][0] else "no token")
+              + f"; on {card}", flush=True)
+    alone = _oracle_schedule(model, prompts[:1], plain[:1], [0])
+    print(f"oracle arrivals, bf16, chat 0 alone: spec {alone['spec']}; "
+          f"parting {alone['parts']}; {_deltas(alone)}; at "
+          + (_parting_step(alone, 0) if alone["parts"][0] else "no token")
+          + f"; on {card}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+
+def _qnext_oracle_f32(card: str) -> None:
+    """13(d) in float32: 2 layers (linear, full; both MoE) at Qwen3-Next's
+    widths, phase 12's 4 chats with the oracle drafter, contiguous with
+    the chats arriving together, paged (1024 blocks of 16) with chat 0
+    seven iterations first: greedy tokens equal to the plain stream up to
+    a near tie, the drafts accepted. In bf16 (13(d) above) a verify row's
+    top-2 gap differs from the decode step's on the same prefix by more
+    than the near tie (`--only 13d`), so the token check is held here."""
+    import torch
+    from cake_tpu_torch.bench.spec_cases import plain_stream
+    t0 = time.perf_counter()
+    model = qwen3_next(2, torch.float32, seed=0,
+                       layer_types=["linear_attention", "full_attention"])
+    prompts = [model.tokenizer.chat_prompt_ids(spec_body(i)["messages"])
+               for i in range(4)]
+    for mode, kw, (name, schedule) in (
+            ("contiguous", {}, ORACLE_SCHEDULES[0]),
+            ("paged", dict(kv_blocks=1024, kv_block_tokens=16),
+             ORACLE_SCHEDULES[1])):
+        plain = plain_stream(model, prompts, SPEC_TOKENS, 4096,
+                             kv_blocks=kw.get("kv_blocks", 0),
+                             keep_logits=True)
+        r = _oracle_schedule(model, prompts, plain, list(schedule), **kw)
+        label = f"qwen3-next spec f32 {mode} oracle {name}"
+        parts = [_parting(t, p["tokens"], p["gaps"], f"{label} chat {i}")
+                 for i, (t, p) in enumerate(zip(r["tokens"], plain))]
+        print(f"{label} {schedule}: spec {r['spec']}; greedy tokens equal "
+              f"to the plain stream per chat {[not p for p in parts]}, "
+              f"partings at near ties {parts}; verify rows against the "
+              f"plain decode step {_deltas(r)}; on {card}", flush=True)
+        check(r["spec"]["accepted"] > 0, f"{label}: {r['spec']}")
+    del model
+    torch.cuda.empty_cache()
+    print(f"qwen3-next spec f32 in {time.perf_counter() - t0:.0f} s",
+          flush=True)
 
 
 def phase_qnext_checkpoint(card: str, workdir: str) -> str:
@@ -3445,6 +3786,7 @@ def phase_qnext(card: str, workdir: str) -> dict:
     launches = phase_qnext_serve(model, card)
     del model
     torch.cuda.empty_cache()
+    _qnext_oracle_f32(card)
     ckpt = phase_qnext_checkpoint(card, workdir)
     print(f"phase 13 in {time.perf_counter() - t0:.0f} s", flush=True)
     return {"timings": timings, "launches": launches, "f32": f32,
@@ -3491,14 +3833,16 @@ def qnext_kernel_rows(q: dict) -> list:
 FP8_TIMED = ("q_proj_0.6b", "gate_proj_8b", "down_proj_8b")
 Q8B_HEADS = dict(hq=32, hkv=8, d=128)     # Qwen3-8B's attention
 FP8_STEPS = 16          # decode replays against eager steps, the flagship
-Q8B_STEPS = 8           # and Qwen3-8B's widths at 36 layers
+Q8B_STEPS = 8           # and Qwen3-8B's widths at Q8B_LAYERS layers
+Q8B_LAYERS = 12         # of 36 (cut from 36 for the whole run's time)
 
 
-def phase_fp8_kernel(card: str) -> dict:
+def phase_fp8_kernel(card: str, dtypes=None, timed=None) -> dict:
     """14(a). The dequant kernel against its plain version at every shape
-    of bench/fp8_cases.SHAPES, bf16 and f32, launched twice, bit for bit
-    (NaN at the same places); timed at FP8_TIMED beside the plain
-    version and the bound. Returns {"shape.route": {...}}."""
+    of bench/fp8_cases.SHAPES, bf16 and f32 (or `dtypes`), launched twice,
+    bit for bit (NaN at the same places); timed at FP8_TIMED (or `timed`)
+    beside the plain version and the bound. Returns {"shape.route":
+    {...}}."""
     import torch
     from cake_tpu_torch.bench.fp8_cases import (SHAPES, dequant_bound_ms,
                                                 dequant_bytes, fp8_case,
@@ -3506,9 +3850,11 @@ def phase_fp8_kernel(card: str) -> dict:
     from cake_tpu_torch.bench.timing import device_ms
     from cake_tpu_torch.ops import fp8
     out = {}
+    dtypes = dtypes or (torch.bfloat16, torch.float32)
+    timed = FP8_TIMED if timed is None else timed
     for name, o, i in SHAPES:
         w, s = fp8_case(o, i, seed=o + i)
-        for dt in (torch.bfloat16, torch.float32):
+        for dt in dtypes:
             route = fp8.ROUTES[dt]
             first = fp8.dequant_fp8_blockwise_kernel(w, s, dt)
             second = fp8.dequant_fp8_blockwise_kernel(w, s, dt)
@@ -3525,7 +3871,7 @@ def phase_fp8_kernel(card: str) -> dict:
                     f"plain bit for bit {same} (max_abs_err {err:.1e}, "
                     f"{entry['nan']} NaN at the same places), launched "
                     f"twice identical {twice}")
-            if name in FP8_TIMED:
+            if name in timed:
                 entry.update(
                     ms=device_ms(lambda: fp8.dequant_fp8_blockwise_kernel(
                         w, s, dt)),
@@ -3813,7 +4159,7 @@ def phase_q8b_kernels(card: str) -> dict:
 
 
 def phase_fp8_8b(card: str, workdir: str) -> dict:
-    """14(c). Qwen3-8B's widths at the full 36 layers in Qwen's FP8
+    """14(c). Qwen3-8B's widths at Q8B_LAYERS of its 36 layers in Qwen's FP8
     layout: loaded native and at load (memory after each), native tokens
     equal at-load tokens, Q8B_STEPS decode replays equal eager in both
     pools (the replay's device ms native beside at load), then served
@@ -3824,7 +4170,7 @@ def phase_fp8_8b(card: str, workdir: str) -> dict:
     from cake_tpu_torch.ops import paged_attention as pa
     out = {"timings": phase_q8b_kernels(card)}
     d = os.path.join(workdir, "qwen3-8b-fp8")
-    config = sc.family_config("qwen3_8b")
+    config = sc.family_config("qwen3_8b", Q8B_LAYERS)
     t = time.perf_counter()
     params = sc.model_params(config, seed=0, device="cuda",
                              gen_device="cuda")
@@ -3855,7 +4201,8 @@ def phase_fp8_8b(card: str, workdir: str) -> dict:
                                f"{mode}")
               for name, m in (("native", native), ("at_load", at_load))}
         out[f"replay_ms_{mode}"] = ms
-        print(f"qwen3-8b decode replay {mode} (4 slots, 36 layers, bf16): "
+        print(f"qwen3-8b decode replay {mode} (4 slots, {Q8B_LAYERS} layers,"
+              f" bf16): "
               f"device ms native {ms['native']:.4f}, at load "
               f"{ms['at_load']:.4f} (x{ms['native'] / ms['at_load']:.2f}); "
               f"on {card}", flush=True)
@@ -3929,7 +4276,7 @@ def phase_gptq_gguf(card: str, workdir: str) -> None:
 
 def phase_quant(card: str, workdir: str) -> dict:
     """Phase 14: (a) the dequant kernel, (b) the FP8 flagship, (c)
-    Qwen3-8B-FP8's widths at 36 layers, (d) AutoGPTQ, (e) GGUF."""
+    Qwen3-8B-FP8's widths at Q8B_LAYERS layers, (d) AutoGPTQ, (e) GGUF."""
     import torch
     t0 = time.perf_counter()
     out = {"kernel": phase_fp8_kernel(card)}
@@ -3987,7 +4334,8 @@ def quant_kernel_rows(q: dict) -> list:
 OFFLOAD_LRU = 32            # experts per layer held on the card (default)
 OFFLOAD_STEPS = 16          # greedy tokens compared, offloaded vs resident
 OFFLOAD_PROMPT = 320        # tokens: a prefill of one 512 bucket, flash
-OFFLOAD_FP8_LAYERS = 12     # of 48, in the FP8 layout (9 linear, 3 full)
+OFFLOAD_FP8_LAYERS = 4      # of 48, in the FP8 layout (3 linear, 1 full;
+                            # cut from 12 for the whole run's time)
 OFFLOAD_CHAT_TOKENS = 16
 GB = 1e9
 
@@ -4071,6 +4419,9 @@ def _offload_compare(d: str, card: str, label: str, logits: bool) -> dict:
 
     def load(**kw):
         torch.cuda.synchronize()
+        # collect the earlier models' cycles first: freed during the load,
+        # they would be counted against it
+        gc.collect()
         torch.cuda.empty_cache()
         before = torch.cuda.memory_allocated()
         t = time.perf_counter()
@@ -4324,7 +4675,7 @@ def phase_offload(card: str, workdir: str, bf16_dir: str | None = None
                   ) -> dict:
     """Phase 15: expert offload at Qwen3-Next-80B-A3B's widths. (a) bf16
     at 4 of 48 layers (phase 13(e)'s checkpoint when given, else written
-    here); (b) Qwen's FP8 layout at 12 of 48 layers, written here, with
+    here); (b) Qwen's FP8 layout at OFFLOAD_FP8_LAYERS of 48 layers, written here, with
     the projection of the trunk and the LRUs to 48 layers; (c) the
     offloaded model over HTTP, and the flagship on the locked path
     (CAKE_SERVE_SLOTS=0) against a paged engine (CAKE_KV_BLOCKS=1024).
@@ -4398,6 +4749,649 @@ def offload_kernel_rows(o: dict, qnext: dict | None) -> list:
     return rows
 
 
+# -- phase 16: float16 models (module 16) ----------------------------------
+
+F16_FLASH = [("f16_fresh", {}),
+             ("f16_append", dict(pool_rows=4096, q_offset=256,
+                                 valid_len=256)),
+             ("f16_d256_fresh", dict(hq=4, hkv=1, d=256)),
+             ("f16_d256_append", dict(hq=4, hkv=1, d=256, pool_rows=4096,
+                                      q_offset=256, valid_len=256))]
+F16_DEQUANT_TIMED = ("q_proj_0.6b", "gate_proj_8b")   # 2048x1024, 12288x4096
+
+
+def _f16_kernels(card: str) -> dict:
+    """16(a). The three f16 routes against their plain versions on the
+    card and timed: flash fresh and append at the flagship's 16/8 D 128
+    and at 4/1 D 256, both forms (the device-meta form equal to the
+    host-int form bit for bit); the paged decode kernel at 16/8 D 128, 4
+    rows at p = 620, and its verify form; the dequant kernel's f16 output
+    at every shape (bit for bit, twice), timed at 2048 x 1024 and 12288 x
+    4096."""
+    import torch
+    from cake_tpu_torch.bench import paged_timing
+    from cake_tpu_torch.ops.flash import flash_attention_kernel
+    out = {"flash": {}}
+    for entry, spec in F16_FLASH:
+        t = time_flash(entry, torch.float16, spec)
+        check(t["max_abs_err"] <= F16_TOL,
+              f"flash {entry}: max_abs_err {t['max_abs_err']} > {F16_TOL}")
+        q, k, v, kw = flash_case(entry, torch.float16, **spec)
+        host = flash_attention_kernel(q, k, v, **kw)
+        meta = _meta_form(q, k, v, kw)()
+        check(torch.equal(host, meta), f"flash {entry}: the device-meta "
+              "form differs from the host-int form")
+        out["flash"][entry] = t
+    paged = paged_timing.measure(with_plain=True,
+                                 shapes=(("f16", "float16", 620, {}),))["f16"]
+    check(paged["max_abs_err"] <= F16_TOL and paged["same_bits"],
+          f"paged f16: max_abs_err {paged['max_abs_err']}, two launches "
+          f"equal {paged['same_bits']}")
+    print(f"paged decode timing f16: 4 rows at p=620, bt 16, 16/8 D 128, "
+          f"device ms: kernel {paged['ms']:.5f} plain "
+          f"{paged['plain_ms']:.5f} library {paged['library_ms']:.5f} "
+          f"({paged['library_backend']}); issue_ms {paged['issue_ms']:.5f};"
+          f" bound_ms {paged['bound_ms']:.5f} ({paged['bound_by']}), share "
+          f"of bound {paged['bound_ms'] / paged['ms']:.3f}; max_abs_err "
+          f"{paged['max_abs_err']:.3e}; on {card}", flush=True)
+    out["paged"] = paged
+    out["verify"] = time_verify(torch.float16, {}, card)
+    out["dequant"] = phase_fp8_kernel(card, (torch.float16,),
+                                      F16_DEQUANT_TIMED)
+    return out
+
+
+def _f16_hidden_states(model, ids: list[int]) -> list[float]:
+    """The largest |hidden state| after the embeddings and after each
+    layer of a fresh 256-token prefill (checked finite)."""
+    import torch
+    from cake_tpu_torch.models.common.layers import (block_forward,
+                                                     embed_tokens)
+    cfg = model.cfg
+    cache = model.new_cache(1, kv_len=4096)
+    x = embed_tokens(cfg, model.params,
+                     torch.tensor([ids], device=model.device))
+    peaks = [x.abs().max().item()]
+    with torch.no_grad():
+        for j, spec in enumerate(cfg.layer_specs()):
+            x, _ = block_forward(cfg, spec, model.params["layers"][j], x,
+                                 cache["layers"][j], 0, model.rope,
+                                 len(ids), "fresh")
+            check(torch.isfinite(x).all().item(),
+                  f"16(b): the hidden state is not finite after layer {j}")
+            peaks.append(x.abs().max().item())
+    return peaks
+
+
+def _f16_spec(model, card: str) -> None:
+    """16(c). Speculation at f16: generate with the n-gram drafter equals
+    plain generate up to a near tie (a plain top-2 logit gap under 0.05,
+    printed), and the captured verify (k 6) equals the eager verify in
+    both pools."""
+    import torch
+    from cake_tpu_torch.bench.graph_cases import build_state
+    from cake_tpu_torch.bench.spec_cases import verify_vs_eager
+    from cake_tpu_torch.ops.sampling import SamplingConfig
+    greedy = SamplingConfig(temperature=0.0)
+    ids = model.tokenizer.chat_prompt_ids(
+        [{"role": "user", "content": _prompt(3) + " " + _prompt(3)}])
+    plain, _ = model.generate(ids, 48, greedy, spec=False)
+    spec, stats = model.generate(ids, 48, greedy, spec="ngram")
+    part = next((i for i, (a, b) in enumerate(zip(plain, spec)) if a != b),
+                None)
+    gap = None
+    if part is not None:
+        logits, _ = model.prefill(model.new_cache(1, 4096),
+                                  ids + plain[:part])
+        top = torch.topk(logits.float()[0], 2).values
+        gap = (top[0] - top[1]).item()
+    print(f"f16 spec (c): generate with the n-gram drafter, {len(ids)}-"
+          f"token prompt, 48 tokens: accept rate "
+          f"{stats.get('spec_accept_rate')}, equal to plain "
+          f"{part is None}" + (f" (parts at {part}, plain top-2 gap "
+                               f"{gap:.4f})" if part is not None else ""),
+          flush=True)
+    check(stats.get("spec_steps", 0) > 0, "16(c): no verify step ran")
+    check(part is None or gap < 0.05, f"16(c): speculation parts from the "
+          f"plain stream at {part} with a top-2 gap of {gap}")
+    for mode, kv_blocks in (("contiguous", 0), ("paged", 1024)):
+        state = build_state(model, [600, 1100, 300, None],
+                            [greedy] * 4, 4096, kv_blocks=kv_blocks,
+                            headroom=1024, seed=6)
+        r = verify_vs_eager(model, state, SPEC_K, 8,
+                            ["right", "wrong", "right", None], False)
+        print(f"f16 spec (c) {mode}: 8 verify replays == eager verify "
+              f"steps {r['equal']} (KV {r['kv_equal']}, carries "
+              f"{r['carries_equal']}), accepted per row {r['accepted']}",
+              flush=True)
+        check(r["graph"].graph is not None and r["equal"] and r["kv_equal"]
+              and r["carries_equal"], f"16(c) {mode}: verify replays "
+              "differ from eager verify steps")
+        del state, r
+        torch.cuda.empty_cache()
+
+
+def _f16_spec_serve(model, card: str) -> int:
+    """16(d), paged with the n-gram drafter at k = 6 (1024 blocks of 16,
+    prefix cache off), as phase 12(c) serves bf16: phase 12's 4
+    concurrent chats, all 200, each equal alone; greedy tokens equal to
+    the eager plain stream up to a near tie; every verify a replay with
+    one f16 paged verify launch per layer. Returns those launches."""
+    import torch
+    from cake_tpu_torch.bench.spec_cases import plain_stream
+    from cake_tpu_torch.ops import paged_attention as pa
+    layers = model.cfg.num_hidden_layers
+    bodies = [spec_body(i) for i in range(4)]
+    on = serve_model(model, prefix_cache_mb=0, spec="ngram", spec_k=SPEC_K,
+                     kv_blocks=1024, kv_block_tokens=16)
+    try:
+        eng = on.engine
+        check(eng.spec_k == SPEC_K and all(
+            g.graph is not None for g in eng.verify_graphs.values()),
+            "16(d) paged spec: the verify graphs were not captured")
+        torch.cuda.synchronize()
+        pa.reset_launches()
+        replays0 = eng.health()["spec"]["verify_replays"]
+        results = on.concurrent(bodies)
+        torch.cuda.synchronize()
+        counts = pa.verify_launch_counts()
+        h = eng.health()["spec"]
+        replays = h["verify_replays"] - replays0
+        _check_chats(results, "16(d) paged spec")
+        _alone_equals_concurrent(on, bodies, results, "16(d) paged spec")
+        prompts = [on.reqs[r["rid"]].prompt_ids for r in results]
+    finally:
+        on.close()
+    plain = plain_stream(model, prompts, SPEC_TOKENS, 4096, kv_blocks=1024)
+    parts = [_parting(r["tokens"], p["tokens"], p["gaps"],
+                      f"16(d) paged spec chat {i}")
+             for i, (r, p) in enumerate(zip(results, plain))]
+    _, tps = _latency(results)
+    print(f"f16 (d) served paged, n-gram drafter (k {SPEC_K}): 4 concurrent "
+          f"chats, {results[0]['resp']['usage']['prompt_tokens']}-token "
+          f"prompts, {SPEC_TOKENS} tokens, all 200, alone == in company: "
+          f"{h}; {replays} verify replays, verify launches {counts}; equal "
+          f"to the plain stream per chat {[not p for p in parts]}, "
+          f"partings at near ties {parts}; decode tok/s per request p50 "
+          f"{tps:.1f}; on {card}", flush=True)
+    check(h["accepted"] > 0, f"16(d) paged spec: no draft accepted ({h})")
+    check(replays > 0 and counts == {"bf16": 0, "f16": layers * replays,
+                                     "f32": 0},
+          f"16(d) paged spec: verify launches {counts} != {layers} x "
+          f"{replays}")
+    return counts["f16"]
+
+
+def _f16_fp8_native(card: str, workdir: str) -> int:
+    """16(e). The flagship in Qwen's FP8 layout served at f16 with its
+    projections native: the dequant kernel's f16 output inside every
+    captured graph; greedy tokens equal the model dequantized at load.
+    Returns the f16 dequant launches of the native generate."""
+    import torch
+    from cake_tpu_torch.bench import synth_checkpoint as sc
+    from cake_tpu_torch.ops import fp8
+    from cake_tpu_torch.runtime import build_text_model
+    d = os.path.join(workdir, "qwen3-0.6b-fp8-f16")
+    config = sc.flagship_config()
+    sc.write_fp8_model(d, config, sc.model_params(
+        config, seed=0, device="cuda", gen_device="cuda"))
+    ids = list(range(40, 340))
+    loaded, _, _ = build_text_model(d, "f16", device="cuda",
+                                    max_cache_len=4096)
+    want, _ = loaded.generate(ids, 24)
+    del loaded
+    torch.cuda.empty_cache()
+    native, _, _ = build_text_model(d, "f16", device="cuda",
+                                    max_cache_len=4096, fp8_native=True)
+    check(_native_projections(native), "16(e): a projection is not native")
+    fp8.reset_launches()
+    got, stats = native.generate(ids, 24)
+    launches = fp8.launch_counts()["f16"]
+    print(f"f16 FP8 native (e): flagship in Qwen's FP8 layout at f16, "
+          f"300-token prompt, 24 greedy tokens native == dequantized at "
+          f"load {got == want}; dequant f16 launches {launches} (7 per "
+          f"layer per program); TTFT {stats['ttft_s'] * 1e3:.1f} ms, "
+          f"{stats['tok_per_s']:.1f} tokens/s; on {card}", flush=True)
+    check(launches > 0, "16(e): the f16 dequant route never launched")
+    check(got == want, "16(e): native tokens differ from the at-load ones")
+    del native
+    torch.cuda.empty_cache()
+    shutil.rmtree(d, ignore_errors=True)
+    return launches
+
+
+def phase_f16(card: str, workdir: str) -> dict:
+    """Phase 16: (a) the three f16 kernel routes; (b) the flagship at f16
+    (28 layers, seed 0): the hidden states finite layer by layer, decode
+    replays equal eager steps and the prefill graphs the eager chunks in
+    both pools; (c) speculation (generate, and verify replays against
+    eager verify steps); (d) served over HTTP, contiguous and paged, TTFT
+    and tokens/s, then paged with the n-gram drafter; (e) FP8 native at
+    f16. Returns the kernels' readings and launches."""
+    import torch
+    from cake_tpu_torch.bench.graph_cases import prefill_vs_eager
+    from cake_tpu_torch.cli import build_flagship
+    from cake_tpu_torch.ops import flash
+    from cake_tpu_torch.ops import paged_attention as pa
+    t0 = time.perf_counter()
+    out = _f16_kernels(card)
+    model = build_flagship(layers=None, dtype="f16", seed=0, device="cuda")
+    check(model.dtype == torch.float16, "16(b): the flagship is not f16")
+    gen = torch.Generator().manual_seed(16)
+    ids = torch.randint(0, 256, (256,), generator=gen).tolist()
+    peaks = _f16_hidden_states(model, ids)
+    print(f"f16 (b): flagship 28 layers at f16, a 256-token prefill: "
+          f"largest |hidden state| after the embeddings {peaks[0]:.3f}, "
+          f"after layers 7/14/21/28 "
+          f"{[round(peaks[i], 3) for i in (7, 14, 21, 28)]} (f16 stops at "
+          f"65504); every layer finite; on {card}", flush=True)
+    out["peak_hidden"] = max(peaks)
+    for kind, kv_blocks in (("contiguous", 0), ("paged", 1024)):
+        out[f"replay_ms_{kind}"] = _replay_ms(model, kv_blocks, 16,
+                                              f"f16 (b) {kind}")
+        case = prefill_vs_eager(model, torch.randint(
+            0, 256, (600,), generator=gen).tolist(), slot=2, slots=4,
+            ctx=4096, kv_blocks=kv_blocks, strict=True)
+        check(all(r["logits_equal"] for r in case.results) and case.kv_equal,
+              f"16(b) {kind}: prefill replays differ from eager chunks")
+        print(f"f16 (b) {kind}: prefill chunks {[r['key'] for r in case.results]}"
+              f" through the captured programs == eager bit for bit",
+              flush=True)
+        del case
+        torch.cuda.empty_cache()
+    _f16_spec(model, card)
+    bodies = [chat_body(i) for i in range(4)] + [chat_body(4, True)]
+    for kind, kw in (("contiguous", {}), ("paged", dict(kv_blocks=1024))):
+        flash.reset_launches()
+        pa.reset_launches()
+        served = serve_model(model, **kw)
+        try:
+            results = served.concurrent(bodies)
+            _check_chats(results, f"16(d) {kind}")
+            torch.cuda.synchronize()
+            counts = flash.launch_counts()
+            paged = pa.launch_counts()
+            _alone_equals_concurrent(served, bodies[:2], results[:2],
+                                     f"16(d) {kind}")
+            ttft, tps = _latency(results[:4])
+            check(served.engine.graph.graph is not None,
+                  f"16(d) {kind}: no captured decode graph")
+        finally:
+            served.close()
+        print(f"f16 (d) served {kind}: 4 concurrent chats + 1 SSE, all 200, "
+              f"alone == in company; TTFT p50 {ttft:.1f} ms, decode tokens/s "
+              f"per request p50 {tps:.1f}; flash launches {counts['f16']}, "
+              f"paged decode launches {paged['f16']}; on {card}", flush=True)
+        check(counts["f16"]["fresh"] >= 28 * 4 and counts["f16"]["append"] > 0,
+              f"16(d) {kind}: f16 flash launches {counts}")
+        check(sum(counts["bf16"].values()) == 0,
+              f"16(d) {kind}: the bf16 route ran at f16: {counts}")
+        if kv_blocks := kw.get("kv_blocks"):
+            check(paged["f16"] > 0, f"16(d) paged: no paged f16 launch")
+            out["paged_launches"] = paged["f16"]
+        else:
+            out["flash_launches"] = dict(counts["f16"])
+        out[f"ttft_ms_{kind}"], out[f"tok_s_{kind}"] = ttft, tps
+    out["verify_launches"] = _f16_spec_serve(model, card)
+    del model
+    torch.cuda.empty_cache()
+    out["dequant_launches"] = _f16_fp8_native(card, workdir)
+    print(f"phase 16 in {time.perf_counter() - t0:.0f} s", flush=True)
+    return out
+
+
+def f16_kernel_rows(f: dict) -> list:
+    """The kernels line's rows of phase 16: flash f16 fresh and append at
+    the flagship's heads (launches: 16(d)'s served chats), the paged
+    decode kernel's f16 route and its verify form (launches: 16(d)'s
+    served paged chats, without and with the n-gram drafter), and the
+    dequant f16 output at the flagship's q_proj (launches: 16(e))."""
+    from cake_tpu_torch.ops import flash, fp8
+    from cake_tpu_torch.ops import paged_attention as pa
+    rows = []
+    for mode in ("fresh", "append"):
+        t = f["flash"][f"f16_{mode}"]
+        rows.append({
+            "name": f"flash_attention.f16_{mode}", "route": "cuda",
+            "source": flash.SOURCES["f16"], "replaces": flash.REPLACES,
+            "launches": f["flash_launches"][mode],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "meta_ms": t["meta_ms"], "issue_ms": t["issue_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    t = f["paged"]
+    rows.append({
+        "name": "paged_decode_attention.f16", "route": "cuda",
+        "source": pa.SOURCE, "replaces": pa.REPLACES,
+        "launches": f["paged_launches"], "max_abs_err": t["max_abs_err"],
+        "ms": t["ms"], "issue_ms": t["issue_ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"]})
+    t = f["verify"]
+    rows.append({
+        "name": "paged_decode_attention.verify.f16", "route": "cuda",
+        "source": pa.SOURCE, "replaces": pa.VERIFY_REPLACES,
+        "launches": f["verify_launches"], "max_abs_err": t["max_abs_err"],
+        "ms": t["ms"], "issue_ms": t["issue_ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["unique_ms"], "bound_read_ms": t["read_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    x = f["dequant"]["q_proj_0.6b.f16"]
+    rows.append({
+        "name": "dequant_fp8_blockwise.f16", "route": "cuda",
+        "source": fp8.SOURCE, "replaces": fp8.REPLACES,
+        "launches": f["dequant_launches"], "max_abs_err": x["max_abs_err"],
+        "ms": x["ms"], "plain_ms": x["plain_ms"], "bound_ms": x["bound_ms"],
+        "bound_by": x["bound_by"], "library_ms": None})
+    return rows
+
+
+# -- phase 17: the layer-sharded cluster (module 13a) -------------------------
+
+CLUSTER_KEY = "chip-smoke-cluster"
+# the topology's two worker ranges; the master keeps layers 0-3 and 20-27
+CLUSTER_RANGES = {"w0": (4, 12), "w1": (12, 20)}
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawn_worker(name: str, port: int, cache_root: str, log_path: str):
+    """`python3 -m cake_tpu_torch.cli worker` in a subprocess on this
+    card, answering on 127.0.0.1:port; its log goes to log_path."""
+    env = dict(os.environ, CAKE_TPU_CACHE=cache_root)
+    log = open(log_path, "ab")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "cake_tpu_torch.cli", "worker", "--name",
+         name, "--cluster-key", CLUSTER_KEY, "--host", "127.0.0.1",
+         "--port", str(port), "--no-advertise"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    return proc
+
+
+def _wait_listening(port: int, proc, log_path: str, timeout: float = 180):
+    import socket
+    deadline = time.perf_counter() + timeout
+    while True:
+        try:
+            with socket.create_connection(("127.0.0.1", port), timeout=1):
+                return
+        except OSError:
+            pass
+        if proc.poll() is not None:
+            with open(log_path, errors="replace") as f:
+                tail = f.read()[-3000:]
+            check(False, f"17: worker process exited ({proc.returncode}): "
+                  f"{tail}")
+        check(time.perf_counter() < deadline, "17: the worker process never "
+              "listened")
+        time.sleep(0.2)
+
+
+def _thread_worker(name: str, cache_root: str):
+    """A WorkerServer on this process's card, on a thread with its own
+    event loop (so its stats, and the kernels' counts, can be read);
+    returns (server, loop, thread)."""
+    import asyncio
+    from cake_tpu_torch.cluster.worker import WorkerServer
+    held, ready = {}, threading.Event()
+
+    def run():
+        async def main():
+            held["server"] = await WorkerServer(
+                name, CLUSTER_KEY, port=0, host="127.0.0.1",
+                cache_root=cache_root, advertise=False,
+                device="cuda").start()
+            held["loop"] = asyncio.get_running_loop()
+            ready.set()
+            try:
+                await held["server"].serve_forever()
+            except asyncio.CancelledError:
+                pass
+        asyncio.run(main())
+    th = threading.Thread(target=run, daemon=True, name=f"worker-{name}")
+    th.start()
+    check(ready.wait(60), "17: the thread worker never started")
+    return held["server"], held["loop"], th
+
+
+def _cluster_model(d: str, dtype: str, topo: str):
+    from cake_tpu_torch.cluster.master import DistributedTextModel
+    from cake_tpu_torch.runtime import build_text_model
+    t = time.perf_counter()
+    model, _, _ = build_text_model(d, dtype, device="cuda",
+                                   max_cache_len=4096,
+                                   cluster_key=CLUSTER_KEY,
+                                   topology_path=topo)
+    check(isinstance(model, DistributedTextModel),
+          "17: build_text_model did not build a cluster master")
+    chain = [(s.kind, s.start, s.end) for s in model.stages]
+    check(chain == [("local", 0, 4), ("remote", 4, 12), ("remote", 12, 20),
+                    ("local", 20, 28)], f"17: stage chain {chain}")
+    return model, time.perf_counter() - t
+
+
+def _hop_split(stats: dict) -> str:
+    parts = []
+    for hop, r in stats["stage_rtts"].items():
+        parts.append(f"{hop}: rtt p50 {r['p50_ms']} ms = read "
+                     f"{r.get('read_p50_ms')} + deser {r.get('deser_p50_ms')}"
+                     f" + fwd {r.get('fwd_p50_ms')} + ser "
+                     f"{r.get('ser_p50_ms')} + wire {r.get('wire_p50_ms')} "
+                     f"(p50s; {r['count']} ops)")
+    return "; ".join(parts)
+
+
+def _cluster_f32(d, topo, card, w0):
+    """17(a)-(b) in float32: greedy tokens and the pipelined prefill
+    equal the single-process TextModel's; w0 killed mid-decode and
+    restarted costs one replay and the continuation equals the unfailed
+    run."""
+    import torch
+    from cake_tpu_torch.runtime import build_text_model
+    single, tok, _ = build_text_model(d, "f32", device="cuda",
+                                      max_cache_len=4096)
+    dist, setup_s = _cluster_model(d, "f32", topo)
+    for name, st in dist.streams.items():
+        print(f"cluster (a) {name}: {st['bytes'] / 1e9:.3f} GB of weights "
+              f"streamed with CRC32 in {st['push_s']:.2f} s = "
+              f"{st['bytes'] / 1e9 / max(st['push_s'], 1e-9):.3f} GB/s "
+              f"({'uncompressed: no zstandard' if _no_zstd() else 'zstd where it pays'}), "
+              f"ready {st['ready_s']:.2f} s later; on {card}", flush=True)
+        check(st["bytes"] > 0 and not st["cached"],
+              f"17(a): {name} received no weights")
+    short = tok.chat_prompt_ids([{"role": "user", "content": _prompt(0)}])
+    gen = torch.Generator().manual_seed(17)
+    long = torch.randint(0, 256, (1100,), generator=gen).tolist()
+    out = {"setup_s": setup_s, "streams": dist.streams}
+    for label, ids in (("short", short), ("pipelined", long)):
+        want, _ = single.generate(ids, 32)
+        got, stats = dist.generate(ids, 32)
+        print(f"cluster (a) f32 {label}: {len(ids)}-token prompt, prefill "
+              f"{stats['prefill']}, 32 greedy tokens equal the "
+              f"single-process TextModel's {got == want}; {_hop_split(stats)}",
+              flush=True)
+        check(got == want, f"17(a) {label}: cluster tokens {got} != "
+              f"single-process {want}")
+        check(stats["prefill"]["pipelined"] == (label == "pipelined"),
+              f"17(a) {label}: prefill {stats['prefill']}")
+        out[label] = want
+    # (b) kill w0 mid-decode, restart it on the same port and cache
+    dist.recovery_retries, dist.recovery_backoff_s = 8, 1.0
+    killed = {}
+
+    def on_token(t):
+        if len(killed) == 0 and t is not None and on_token.n == 10:
+            w0["proc"].kill()
+            w0["proc"].wait(timeout=30)
+            killed["at"] = time.perf_counter()
+            w0["proc"] = _spawn_worker("w0", w0["port"], w0["cache"],
+                                       w0["log"])
+        on_token.n += 1
+    on_token.n = 0
+    got, stats = dist.generate(short, 32, on_token=on_token)
+    recovered_s = time.perf_counter() - killed["at"]
+    print(f"cluster (b) f32: w0 killed (SIGKILL) after token 10 and "
+          f"restarted by `cli worker`: replays {stats['replays']}, "
+          f"recoveries {stats['recoveries']}, continuation equal to the "
+          f"unfailed run {got == out['short']}; the generation ended "
+          f"{recovered_s:.1f} s after the kill (the new process's start "
+          f"included); on {card}", flush=True)
+    check(stats["replays"] == 1 and stats["recoveries"] == 1,
+          f"17(b): replays {stats['replays']}, recoveries "
+          f"{stats['recoveries']}")
+    check(got == out["short"], "17(b): the continuation after the "
+          "restart differs from the unfailed run")
+    dist.close()
+    del single, dist
+    torch.cuda.empty_cache()
+    return out
+
+
+def _no_zstd() -> bool:
+    from cake_tpu_torch.cluster import transfer
+    return transfer.zstandard is None
+
+
+def _cluster_bf16(d, topo, card, w1):
+    """17(c) in bf16: TTFT and decode tokens/s against the single-process
+    model, each hop's RTT split, and the flash launches of the master's
+    local stages (12 layers: one fresh and two append launches each over
+    the 3 chunks) and of w1 (its own chunks, by flash mode)."""
+    import torch
+    from cake_tpu_torch.ops import flash
+    from cake_tpu_torch.runtime import build_text_model
+    single, _, _ = build_text_model(d, "bf16", device="cuda",
+                                    max_cache_len=4096)
+    gen = torch.Generator().manual_seed(18)
+    ids = torch.randint(0, 256, (1100,), generator=gen).tolist()
+    single.generate(ids, 8)                     # first use of each program
+    _, s_stats = single.generate(ids, 64)
+    dist, setup_s = _cluster_model(d, "bf16", topo)
+    check(all(st["cached"] for st in dist.streams.values()),
+          "17(c): a worker's cache missed on the second setup")
+    dist.generate(ids, 8)
+    chunks0 = dict(w1.stats["chunks"])
+    flash.reset_launches()
+    torch.cuda.synchronize()
+    _, stats = dist.generate(ids, 64)
+    torch.cuda.synchronize()
+    counts = flash.launch_counts()["bf16"]
+    w1_chunks = {m: w1.stats["chunks"][m] - chunks0[m] for m in chunks0}
+    w1_layers = CLUSTER_RANGES["w1"][1] - CLUSTER_RANGES["w1"][0]
+    # the master keeps every layer the workers do not hold
+    master_layers = 28 - sum(hi - lo for lo, hi in CLUSTER_RANGES.values())
+    w1_launches = {m: w1_chunks[m] * w1_layers for m in ("fresh", "append")}
+    master = {m: counts[m] - w1_launches[m] for m in ("fresh", "append")}
+    print(f"cluster (c) bf16, 1100-token prompt (pipelined {stats['prefill']})"
+          f", 64 tokens: TTFT {stats['ttft_s'] * 1e3:.1f} ms against "
+          f"{s_stats['ttft_s'] * 1e3:.1f} ms single-process, decode "
+          f"{stats['tok_per_s']:.1f} tokens/s against "
+          f"{s_stats['tok_per_s']:.1f}; host copies {stats['host_copy_s'] * 1e3:.1f}"
+          f" ms; {_hop_split(stats)}; flash (bf16) launches in this process "
+          f"{counts}: w1 ({w1_layers} layers) {w1_launches} from its chunks "
+          f"{w1_chunks}, the master's {master_layers} local layers "
+          f"{master}; second setup "
+          f"{setup_s:.2f} s (weights cached); on {card}", flush=True)
+    check(w1_chunks == {"fresh": 1, "append": 2, "off": 0},
+          f"17(c): w1's chunks {w1_chunks}")
+    check(master == {"fresh": master_layers, "append": 2 * master_layers},
+          f"17(c): the master's local flash launches {master}")
+    dist.close()
+    del single, dist
+    torch.cuda.empty_cache()
+    return {"ttft_ms": stats["ttft_s"] * 1e3,
+            "tok_s": stats["tok_per_s"],
+            "single_ttft_ms": s_stats["ttft_s"] * 1e3,
+            "single_tok_s": s_stats["tok_per_s"],
+            "rtts": stats["stage_rtts"], "flash": counts,
+            "w1_flash": w1_launches}
+
+
+def _cluster_serve(d, topo, card):
+    """17(d) `cli serve DIR --cluster-key --topology`: one chat answered,
+    /api/v1/topology lists both nodes, /health answers 200."""
+    from cake_tpu_torch import cli
+    app = cli.build_server(cli.parser().parse_args(
+        ["serve", d, "--port", "0", "--cluster-key", CLUSTER_KEY,
+         "--topology", topo])).start()
+    try:
+        status, _, raw = _post(app.url, chat_body(1))
+        resp = json.loads(raw)
+        st, _, topo_raw = _get(app.url, "/api/v1/topology")
+        nodes = json.loads(topo_raw)["nodes"]
+        hs, _, health = _get(app.url, "/health")
+        health = json.loads(health)
+    finally:
+        app.stop()
+        app.state.model.close()
+    print(f"cluster (d) `cli serve --cluster-key --topology`: chat HTTP "
+          f"{status}, {resp['usage']['completion_tokens']} tokens; "
+          f"/api/v1/topology nodes "
+          f"{ {n: v['layer_range'] for n, v in nodes.items()} }; /health "
+          f"{hs} {health['status']}, workers "
+          f"{[(w['name'], w['ops']) for w in health['workers']]}; on {card}",
+          flush=True)
+    check(status == 200 and resp["usage"]["completion_tokens"] > 0,
+          f"17(d): chat {status}")
+    check({n: tuple(v["layer_range"]) for n, v in nodes.items()}
+          == CLUSTER_RANGES, f"17(d): topology nodes {nodes}")
+    check(hs == 200 and health["status"] == "ok", f"17(d): /health {hs}")
+
+
+def phase_cluster(card: str, workdir: str) -> dict:
+    """Phase 17: the flagship (28 layers, seed 0) served across processes
+    on the one card: w0 a `cli worker` subprocess, w1 a WorkerServer on a
+    thread, a topology file giving them layers 4-11 and 12-19, the master
+    the rest, weights streamed with CRC32. (a) float32: greedy tokens and
+    the pipelined prefill equal the single-process TextModel's; (b) w0
+    killed mid-decode and restarted: one replay, the continuation equal;
+    (c) bf16 readings; (d) `cli serve` over the cluster."""
+    import asyncio
+    import torch
+    from cake_tpu_torch.bench import synth_checkpoint as sc
+    t0 = time.perf_counter()
+    d = os.path.join(workdir, "qwen3-flagship-cluster")
+    config = sc.flagship_config()
+    sc.write_model(d, config, sc.model_params(config, seed=0, device="cuda",
+                                              gen_device="cuda"), shards=2)
+    sc.write_tokenizer(d, sc.QWEN3_SPECIALS)
+    torch.cuda.empty_cache()
+    w0 = {"port": _free_port(), "cache": os.path.join(workdir, "w0-cache"),
+          "log": os.path.join(workdir, "w0.log")}
+    w0["proc"] = _spawn_worker("w0", w0["port"], w0["cache"], w0["log"])
+    w1, loop, th = _thread_worker("w1", os.path.join(workdir, "w1-cache"))
+    topo = os.path.join(workdir, "topology.yml")
+    with open(topo, "w") as f:
+        for name, port in (("w0", w0["port"]), ("w1", w1.port)):
+            lo, hi = CLUSTER_RANGES[name]
+            f.write(f"{name}:\n  host: 127.0.0.1:{port}\n  layers: "
+                    f"[\"model.layers.{lo}-{hi - 1}\"]\n  backend: cuda\n")
+    try:
+        _wait_listening(w0["port"], w0["proc"], w0["log"])
+        out = {"f32": _cluster_f32(d, topo, card, w0)}
+        _wait_listening(w0["port"], w0["proc"], w0["log"])
+        out["bf16"] = _cluster_bf16(d, topo, card, w1)
+        _cluster_serve(d, topo, card)
+    finally:
+        w0["proc"].terminate()
+        try:
+            w0["proc"].wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            w0["proc"].kill()
+            w0["proc"].wait(timeout=30)
+        asyncio.run_coroutine_threadsafe(w1.stop(), loop).result(timeout=30)
+        th.join(timeout=30)
+        shutil.rmtree(d, ignore_errors=True)
+    print(f"phase 17 in {time.perf_counter() - t0:.0f} s", flush=True)
+    return out
+
+
 def main(argv: list[str]) -> int:
     t_start = time.perf_counter()
     import torch
@@ -4412,6 +5406,28 @@ def main(argv: list[str]) -> int:
     print(f"device: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
     built = phase_build()
+    if argv[:2] == ["--only", "13d"]:
+        qnext_oracle_arrivals(card)
+        _qnext_oracle_f32(card)
+        print(f"chip_smoke: --only 13d done in "
+              f"{time.perf_counter() - t_start:.0f} s (no result line: a "
+              f"diagnosis)", flush=True)
+        return 0
+    if argv[:2] in (["--only", "16"], ["--only", "17"]):
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            if argv[1] == "16":
+                rows = f16_kernel_rows(phase_f16(card, workdir))
+            else:
+                phase_cluster(card, workdir)
+                rows = []
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        print(json.dumps({"kernels": rows}))
+        print(f"chip_smoke: phase {argv[1]} passed in "
+              f"{time.perf_counter() - t_start:.0f} s (no result line: "
+              f"one phase)", flush=True)
+        return 0
     if argv[:2] == ["--only", "15"]:
         workdir = tempfile.mkdtemp(prefix="chip_smoke_")
         try:
@@ -4453,7 +5469,8 @@ def main(argv: list[str]) -> int:
               f"one phase)", flush=True)
         return 0
     check(not argv, f"unknown arguments {argv} (only: --only 12, "
-          "--only 13, --only 14, --only 15)")
+          "--only 13, --only 13d, --only 14, --only 15, --only 16, "
+          "--only 17)")
     timings = phase_kernels()
     paged_timings = phase_paged_kernels(built[pa.LIBRARY]["log"])
     parity_launches, parity_paged = phase_parity()
@@ -4478,6 +5495,8 @@ def main(argv: list[str]) -> int:
         qnext = phase_qnext(card, workdir)
         offload = phase_offload(card, workdir, qnext["checkpoint"])
         quant = phase_quant(card, workdir)
+        f16 = phase_f16(card, workdir)
+        cluster = phase_cluster(card, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     kernels = []
@@ -4539,7 +5558,9 @@ def main(argv: list[str]) -> int:
     kernels += qnext_kernel_rows(qnext)
     kernels += quant_kernel_rows(quant)
     kernels += offload_kernel_rows(offload, qnext)
+    kernels += f16_kernel_rows(f16)
     print(f"checkpoint load (phase 7): {json.dumps(load)} on {card}")
+    print(f"cluster (phase 17): {json.dumps(cluster['bf16'])} on {card}")
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.0f} s (limit 1200 s)", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -301,16 +301,18 @@ def test_tma_strides_raise_on_views_tma_cannot_take():
 
 def test_route_is_chosen_by_dtype():
     assert flash.kernel_route(torch.bfloat16) == "bf16"
+    assert flash.kernel_route(torch.float16) == "f16"     # module 16
     assert flash.kernel_route(torch.float32) == "f32"
-    for dtype in (torch.float16, torch.float64, torch.int32):
-        with pytest.raises(ValueError, match="float32 or bfloat16"):
+    for dtype in (torch.float64, torch.int32):
+        with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
             flash.kernel_route(dtype)
 
 
 def test_wrapper_launches_the_route_of_the_dtype(monkeypatch):
-    """A bf16 tensor reaches only the wgmma launcher and a float32 one only
-    the 3xTF32 launcher; a dtype neither takes raises before any launcher
-    and never reaches the plain version."""
+    """A bf16 tensor reaches only the wgmma launcher's bf16 route, an f16
+    one its f16 route (module 16) and a float32 one only the 3xTF32
+    launcher; a dtype none takes raises before any launcher and never
+    reaches the plain version."""
     called = []
 
     def launcher(route):
@@ -323,14 +325,15 @@ def test_wrapper_launches_the_route_of_the_dtype(monkeypatch):
                         {r: launcher(r) for r in flash.LIBRARIES})
     monkeypatch.setattr(flash, "flash_attention_ref",
                         lambda *a, **k: pytest.fail("plain version reached"))
-    for dtype, route in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+    for dtype, route in ((torch.bfloat16, "bf16"), (torch.float16, "f16"),
+                         (torch.float32, "f32")):
         x = torch.zeros(1, 4, 2, 64, dtype=dtype)
         flash.flash_attention_kernel(x, x, x)
         assert called[-1] == route
-    x = torch.zeros(1, 4, 2, 64, dtype=torch.float16)
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
+    x = torch.zeros(1, 4, 2, 64, dtype=torch.float64)
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
         flash.flash_attention_kernel(x, x, x)
-    assert called == ["bf16", "f32"]
+    assert called == ["bf16", "f16", "f32"]
 
 
 def test_wrapper_counts_launches_by_route_and_mode(monkeypatch):
@@ -350,6 +353,7 @@ def test_wrapper_counts_launches_by_route_and_mode(monkeypatch):
     assert after["f32"]["append"] - before["f32"]["append"] == 1
     flash.reset_launches()
     assert flash.launch_counts() == {"bf16": {"fresh": 0, "append": 0},
+                                     "f16": {"fresh": 0, "append": 0},
                                      "f32": {"fresh": 0, "append": 0}}
 
 
@@ -367,6 +371,7 @@ def _c_params(source: str, entry: str) -> int:
 
 @pytest.mark.parametrize("route,entry,bind", [
     ("bf16", "cake_flash_wgmma_fwd", flash._bind_wgmma),
+    ("f16", "cake_flash_wgmma_fwd_f16", flash._bind_wgmma),
     ("f32", "cake_flash_attention_fwd", flash._bind_f32),
 ])
 def test_ctypes_signature_matches_the_c_entry(route, entry, bind):

@@ -11,7 +11,12 @@ by `cli serve` from a checkpoint directory with a tokenizer.json and a
 chat template (byte-level BPE for an OLMo2 and, streamed, a Gemma-style
 byte-fallback BPE for a Gemma3), and tiny FP8 (kept native), AutoGPTQ
 and GGUF checkpoints load through build_text_model and decode; an AST
-scan finds no import of any of them in the port's sources."""
+scan finds no import of any of them in the port's sources. The cluster
+(module 13a) runs there too, with `msgpack` and `yaml` blocked besides
+(the port has its own msgpack codec and YAML reader) and `zstandard`
+blocked (the port imports it only behind the reference's gate, which the
+scan checks): a port worker on a thread and a `cli serve --cluster-key
+--topology` master answer a chat."""
 import ast
 import pathlib
 import subprocess
@@ -19,7 +24,11 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "jaxlib", "cake_tpu", "tokenizers", "transformers",
-           "safetensors", "regex", "ml_dtypes", "huggingface_hub")
+           "safetensors", "regex", "ml_dtypes", "huggingface_hub",
+           "msgpack", "yaml")
+# optional packages the port may import only inside a try (the
+# reference's gate), blocked in the run all the same
+GATED = ("zstandard",)
 PORT_FILES = sorted((ROOT / "cake_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -54,7 +63,17 @@ for name in ("cake_tpu_torch.obs", "cake_tpu_torch.obs.metrics",
              "cake_tpu_torch.utils.quant", "cake_tpu_torch.utils.gguf",
              "cake_tpu_torch.models.common.expert_provider",
              "cake_tpu_torch.models.common.offload_model",
-             "cake_tpu_torch.api.state"):
+             "cake_tpu_torch.api.state", "cake_tpu_torch.utils.dtypes",
+             "cake_tpu_torch.cluster", "cake_tpu_torch.cluster.codec",
+             "cake_tpu_torch.cluster.proto", "cake_tpu_torch.cluster.auth",
+             "cake_tpu_torch.cluster.topology",
+             "cake_tpu_torch.cluster.strategy",
+             "cake_tpu_torch.cluster.discovery",
+             "cake_tpu_torch.cluster.transfer",
+             "cake_tpu_torch.cluster.client",
+             "cake_tpu_torch.cluster.worker",
+             "cake_tpu_torch.cluster.master",
+             "cake_tpu_torch.cluster.faults"):
     assert name in mods, name
 import chip_smoke
 
@@ -173,10 +192,46 @@ for stream in (False, True):
     with urllib.request.urlopen(req, timeout=60) as r:
         assert r.status == 200 and r.read()
 app.stop()
+# the cluster: a port worker on a thread, a `cli serve` master over a
+# topology file, one chat; weights streamed uncompressed (no zstandard)
+import asyncio, threading
+from cake_tpu_torch.cluster import transfer
+from cake_tpu_torch.cluster.worker import WorkerServer
+assert transfer.zstandard is None
+held, ready = {}, threading.Event()
+def run_worker():
+    async def main():
+        held["w"] = await WorkerServer("w0", "iso", port=0, advertise=False,
+                                       cache_root=tempfile.mkdtemp(),
+                                       device="cpu").start()
+        ready.set()
+        await held["w"].serve_forever()
+    try:
+        asyncio.run(main())
+    except Exception:
+        pass
+threading.Thread(target=run_worker, daemon=True).start()
+assert ready.wait(30)
+topo = tempfile.mkdtemp() + "/topo.yml"
+with open(topo, "w") as f:
+    f.write("w0:\n  host: 127.0.0.1:%%d\n  layers: [\"model.layers.1\"]\n"
+            %% held["w"].port)
+app = cli.build_server(cli.parser().parse_args(
+    ["serve", d, "--cpu", "--dtype", "f32", "--port", "0", "--ctx", "256",
+     "--cluster-key", "iso", "--topology", topo])).start()
+req = urllib.request.Request(app.url + "/v1/chat/completions",
+                             data=json.dumps(body).encode())
+with urllib.request.urlopen(req, timeout=60) as r:
+    assert r.status == 200 and json.loads(r.read())["usage"]
+with urllib.request.urlopen(app.url + "/api/v1/topology", timeout=60) as r:
+    assert json.loads(r.read())["nodes"]["w0"]["layer_range"] == [1, 2]
+app.stop()
+app.state.model.close()
+assert held["w"].stats["ops"] > 0
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
 print("OK", len(mods))
-''' % (BLOCKED,)
+''' % (BLOCKED + GATED,)
 
 
 def test_port_runs_with_jax_and_cake_tpu_blocked():
@@ -201,3 +256,26 @@ def test_no_jax_or_cake_tpu_import_in_port_sources():
            for p in PORT_FILES for name in _imports(p)
            if name.split(".")[0] in BLOCKED]
     assert not bad, bad
+
+
+def _gated_imports(path: pathlib.Path):
+    """(module, inside a try) of every import of a GATED package."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    tried = {id(n) for t in ast.walk(tree) if isinstance(t, ast.Try)
+             for stmt in t.body for n in ast.walk(stmt)}
+    for node in ast.walk(tree):
+        names = ([a.name for a in node.names]
+                 if isinstance(node, ast.Import)
+                 else [node.module or ""]
+                 if isinstance(node, ast.ImportFrom) and node.level == 0
+                 else [])
+        for name in names:
+            if name.split(".")[0] in GATED:
+                yield name, id(node) in tried
+
+
+def test_optional_packages_only_behind_the_gate():
+    found = [(p.relative_to(ROOT).as_posix(), name, gated)
+             for p in PORT_FILES for name, gated in _gated_imports(p)]
+    assert found == [("cake_tpu_torch/cluster/transfer.py", "zstandard",
+                      True)], found

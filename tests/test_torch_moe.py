@@ -128,8 +128,11 @@ def test_route_choice():
     assert moe.moe_route(x, rows=False) == "dense"
     assert moe.moe_route(x.bfloat16(), rows=False) == "grouped"
     assert moe.moe_route(x.bfloat16(), rows=True) == "gathered"
+    # float16 (module 16) takes the dense route: torch._grouped_mm
+    # takes bfloat16 only
+    assert moe.moe_route(x.half(), rows=False) == "dense"
     with pytest.raises(ValueError, match="no MoE prefill route"):
-        moe.moe_route(x.half(), rows=False)
+        moe.moe_route(x.double(), rows=False)
     with pytest.raises(ValueError, match="unknown MoE route"):
         moe.moe_ffn(x, *map(torch.from_numpy, _bank(0)), K, True,
                     route="ragged")

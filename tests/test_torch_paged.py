@@ -332,9 +332,10 @@ def test_paged_kernel_wrapper_refuses_cpu_and_bad_inputs():
     c = paged_case([3, 9], hq=4, hkv=2, d=16, ctx=64)
     with pytest.raises(ValueError, match="CUDA"):
         pa.paged_decode_attention_kernel(*case_args(c))
-    assert pa.launch_counts() == {"bf16": 0, "f32": 0}
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
-        pa.kernel_route(torch.float16)
+    assert pa.launch_counts() == {"bf16": 0, "f16": 0, "f32": 0}
+    assert pa.kernel_route(torch.float16) == "f16"       # module 16
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        pa.kernel_route(torch.float64)
 
 
 # -- the paged model programs against JAX's ----------------------------------
