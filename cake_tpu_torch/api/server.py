@@ -2,6 +2,8 @@
 cake_tpu/api/server.py):
 
   POST /v1/chat/completions     chat (JSON + SSE), api/text.py
+  POST /v1/images/generations   image generation (b64_json or PNG),
+  POST /api/v1/image            and its legacy raw-PNG form, api/images.py
   GET  /v1/models               model list
   GET  /health                  the engine's health (prefix_cache, paged
                                 kv_pool, the supervisor's counts) and the
@@ -29,8 +31,10 @@ so no aiohttp is needed.
 A model the engine does not serve (`engine` None: an offloaded MoE
 model, or CAKE_SERVE_SLOTS=0) is served one request at a time under
 `AppState.lock` (api/state.py). Shutdown drains for CAKE_DRAIN_TIMEOUT_S
-(30 s, the reference's): new chats answer 503 while the engine finishes
-its requests, or while the locked path's one generation ends.
+(30 s, the reference's): new chats and images answer 503 while the engine
+finishes its requests, or while the locked path's one generation ends,
+and then the admission plane's job lane gets what is left of the same
+budget (at least 2 s) to finish its queued and running image jobs.
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ from urllib.parse import parse_qs, urlsplit
 
 from ..obs import API_REQUEST_SECONDS, API_REQUESTS, now
 from . import obs_routes
+from .images import images_generations
 from .text import chat_completions
 
 log = logging.getLogger("cake_tpu_torch.api")
@@ -68,6 +73,7 @@ class AppState:
     # one generation at a time on the locked path
     lock: threading.Lock = field(default_factory=threading.Lock)
     draining: bool = False      # shutting down: new chats answer 503
+    image_model: object = None  # models/image: FluxImageModel, or None
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -152,6 +158,9 @@ class _Handler(BaseHTTPRequestHandler):
         if self.path == "/v1/chat/completions":
             return self._measured(
                 self.path, lambda: chat_completions(self, self.state))
+        if self.path in ("/v1/images/generations", "/api/v1/image"):
+            return self._measured(
+                self.path, lambda: images_generations(self, self.state))
         return self._measured(
             "unmatched", lambda: self.send_json({"error": "not found"}, 404))
 
@@ -183,6 +192,7 @@ class ApiServer(ThreadingHTTPServer):
         for the locked path's generation in flight."""
         state = self.state
         budget = drain_timeout_s(os.environ) if drain_s is None else drain_s
+        t0 = now()
         state.draining = True
         if state.plane is not None:
             state.plane.begin_drain()
@@ -195,6 +205,11 @@ class ApiServer(ThreadingHTTPServer):
         else:
             log.warning("drain timed out after %.1fs with a generation in "
                         "flight", budget)
+        if state.plane is not None:
+            # one budget: the job lane gets what the engine left
+            if not state.plane.drain(max(budget - (now() - t0), 2.0)):
+                log.warning("image jobs still running after the drain")
+            state.plane.close()
         if self._thread is not None:
             # shutdown() waits for serve_forever, which only a started
             # server runs
@@ -207,10 +222,10 @@ class ApiServer(ThreadingHTTPServer):
 
 def create_app(model, engine, tokenizer, host: str = "127.0.0.1",
                port: int = 8080, model_id: str = "cake-tpu-torch",
-               plane=None) -> ApiServer:
+               plane=None, image_model=None) -> ApiServer:
     """`engine`: a ServeEngine, or None for the locked one-request path
     (serve/engine.py: maybe_engine). `plane`: the admission plane (tenant
     policies); None builds one from CAKE_QOS_TENANTS at the first
-    chat."""
-    return ApiServer(AppState(model, engine, tokenizer, model_id, plane),
-                     host, port)
+    request. `image_model`: what /v1/images/generations serves."""
+    return ApiServer(AppState(model, engine, tokenizer, model_id, plane,
+                              image_model=image_model), host, port)

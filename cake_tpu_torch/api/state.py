@@ -1,7 +1,7 @@
-"""The locked one-request path (counterpart of cake_tpu/api/state.py:
-run_generation_blocking, GenerationCancelled, run_generation_streamed;
-the API builds the prompt ids, so the reference's messages-or-ids
-dispatch has no caller here).
+"""The locked one-request path and the wait for a job (counterpart of
+cake_tpu/api/state.py: run_generation_blocking, GenerationCancelled,
+run_generation_streamed, await_job; the API builds the prompt ids, so the
+reference's messages-or-ids dispatch has no caller here).
 
 A model the engine does not serve (an offloaded MoE model, or any model
 with CAKE_SERVE_SLOTS=0; serve/engine.py: maybe_engine) generates one
@@ -13,11 +13,17 @@ handler writes the SSE chunks. Setting the cancel flag (the client went
 away, or a stop sequence matched) makes the worker raise
 GenerationCancelled at its next token, so the lock frees at once instead
 of after the budget.
+
+`await_job` waits for an image job in the handler's thread, and cancels
+it once the client's socket has closed, so its step loop stops at the
+next checkpoint instead of finishing for nobody.
 """
 from __future__ import annotations
 
 import contextvars
 import queue as queue_mod
+import select
+import socket
 import threading
 
 # how long a reader waits on the token queue before it checks that the
@@ -25,6 +31,29 @@ import threading
 POLL_S = 0.5
 # how long the stream's end waits for the worker to finish
 JOIN_S = 30.0
+
+
+def client_gone(sock) -> bool:
+    """True once the peer has closed the connection (the socket reads
+    EOF) or the socket has failed; a pipelined next request is data, not
+    a close."""
+    try:
+        readable, _, _ = select.select([sock], [], [], 0)
+        return bool(readable) and sock.recv(1, socket.MSG_PEEK) == b""
+    except (OSError, ValueError):
+        return True
+
+
+def await_job(job, connection=None, poll_s: float = POLL_S / 5) -> bool:
+    """Wait for a GenerationJob's terminal state. With the client's
+    socket, poll it every poll_s: a closed one cancels the job and
+    returns False at once (its thread unwinds at the next checkpoint).
+    True once the job is done."""
+    while not job.wait(poll_s):
+        if connection is not None and client_gone(connection):
+            job.cancel()
+            return False
+    return True
 
 
 def run_generation_blocking(model, prompt_ids: list[int], gen_kwargs: dict):

@@ -25,6 +25,30 @@ SHAPES = [("q_proj_0.6b", 2048, 1024), ("gate_proj_0.6b", 3072, 1024),
           ("codes_2x128", 2, 128)]
 
 
+# FLUX.1-dev's FP8 weights (the MMDiT at hidden 3072, 24 x 128 heads, MLP
+# 12288): a double-stream block's qkv (and a single-stream block's
+# modulation), modulation, projection, MLP in and out; a single-stream
+# block's fused linear1 and linear2; the final modulation, txt_in, the
+# pooled vector's MLP in, and the edges img_in and final_out, whose one
+# scale block is cropped to 64
+FLUX_SHAPES = [("flux_qkv", 9216, 3072), ("flux_mod", 18432, 3072),
+               ("flux_proj", 3072, 3072), ("flux_mlp_in", 12288, 3072),
+               ("flux_mlp_out", 3072, 12288), ("flux_linear1", 21504, 3072),
+               ("flux_linear2", 3072, 15360), ("flux_final_mod", 6144, 3072),
+               ("flux_txt_in", 3072, 4096), ("flux_vec_in", 3072, 768),
+               ("flux_time_in", 3072, 256), ("flux_img_in", 3072, 64),
+               ("flux_final_out", 64, 3072)]
+FLUX_TIMED = ("flux_linear1", "flux_img_in", "flux_final_out")
+
+
+def per_tensor_case(o: int, i: int, seed: int = 0, device="cuda"
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """fp8_case's bytes with ONE scale broadcast over the whole grid (a
+    scaled-FP8 checkpoint read natively)."""
+    w, s = fp8_case(o, i, seed, device)
+    return w, s.reshape(-1)[:1].reshape(1, 1).expand(s.shape).contiguous()
+
+
 def fp8_case(o: int, i: int, seed: int = 0, device="cuda"
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """(w float8_e4m3fn [O, I], scale_inv float32) drawn on the host from

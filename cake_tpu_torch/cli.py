@@ -1,10 +1,14 @@
-"""Command line (counterpart of cake_tpu/cli.py, `serve` and `run`).
+"""Command line (counterpart of cake_tpu/cli.py, `serve`, `run` and
+`image`).
 
     python -m cake_tpu_torch.cli serve (MODEL | --flagship) [--arch A]
         [--dtype D] [--seed N] [--port P] [--cpu] [--fp8-native]
         [--expert-offload] [--slots N] [--ctx N] [--max-queue N]
         [--prefill-chunk N] [--prefix-cache-mb MB] [--kv-blocks N]
-        [--kv-block-tokens T] [--preempt-mode M]
+        [--kv-block-tokens T] [--preempt-mode M] [--image-model M]
+    python -m cake_tpu_torch.cli image MODEL "prompt" --out x.png
+        [--width W] [--height H] [--steps N] [--guidance G] [--seed N]
+        [--dtype D] [--fp8-native] [--cpu]
     python -m cake_tpu_torch.cli run (MODEL | --flagship) "prompt"
         [--max-tokens N] [--temperature T] [--top-k K] [--top-p P]
         [--repeat-penalty R] [--repeat-last-n N] [--system-prompt S]
@@ -42,7 +46,16 @@ on the command line wins over its variable (serve/engine.py:
 engine_knobs). CAKE_DRAIN_TIMEOUT_S (30) bounds the drain at shutdown.
 `run` takes the reference's sampling flags and defaults (256 tokens at
 temperature 0.7), and `--raw` encodes the prompt without the chat
-template. The supervisor's
+template. `image` writes one PNG (1024 x 1024, 20 steps, guidance 3.5 by
+default) from an image model (runtime.build_image_model: `demo:flux`, the
+tiny FLUX.1 pipeline on seeded weights; `demo:flux1-dev`, FLUX.1-dev's
+widths and depth on seeded weights; or a FLUX.1 checkpoint, whose FP8
+transformer `--fp8-native` keeps at 1 byte per parameter); `serve
+--image-model M` serves it too, at POST /v1/images/generations and
+/api/v1/image, in the same `--dtype`, `--fp8-native` then applying to the
+image model (and to MODEL, which it requires to be FP8, unless MODEL is
+`--flagship`). CAKE_JOB_WORKERS (1) image jobs run at once, and
+CAKE_IMAGE_MAX_SIZE (2048) bounds a side. The supervisor's
 knobs come from the environment, as the reference reads them:
 CAKE_STEP_WATCHDOG_S (0, off), CAKE_ENGINE_REBUILDS (3) per rolling
 CAKE_ENGINE_REBUILD_WINDOW_S (300), and CAKE_ENGINE_RESTORE_S (5), the
@@ -132,7 +145,7 @@ def load_model(args, max_cache_len: int = 2048):
         if args.cluster_key:
             raise ValueError("--cluster-key needs a checkpoint directory "
                              "(workers are sent its weights)")
-        if args.fp8_native:
+        if args.fp8_native and not getattr(args, "image_model", None):
             raise ValueError("--fp8-native requires an FP8 checkpoint "
                              "(the flagship has random bf16 weights)")
         if args.expert_offload:
@@ -206,6 +219,12 @@ def build_server(args):
                          f" got {shape['preempt_mode']!r}")
     model, tokenizer, model_id = load_model(args,
                                             max_cache_len=shape["ctx_len"])
+    image_model = None
+    if args.image_model:
+        from .runtime import build_image_model
+        image_model = build_image_model(
+            args.image_model, args.dtype, fp8_native=args.fp8_native,
+            device="cpu" if args.cpu else None, seed=args.seed)
     engine = maybe_engine(model, env, seed=args.seed, **shape,
                           **supervisor_knobs(env),
                           **admission_knobs(env, shape["max_queue"]),
@@ -216,7 +235,7 @@ def build_server(args):
             "CAKE_SERVE_SLOTS=0" if shape["slots"] <= 0
             else type(model).__name__)
     return create_app(model, engine, tokenizer, args.host, args.port,
-                      model_id=model_id, plane=plane)
+                      model_id=model_id, plane=plane, image_model=image_model)
 
 
 def cmd_serve(args) -> int:
@@ -258,6 +277,27 @@ def cmd_run(args) -> int:
              if "spec_steps" in stats else "")
     print(f"[{len(out)} tokens, ttft {stats['ttft_s']:.3f}s, "
           f"{stats['tok_per_s']:.1f} tok/s{extra}]", file=sys.stderr)
+    return 0
+
+
+def cmd_image(args) -> int:
+    """One image to a PNG file (the reference's `cake-tpu image`)."""
+    import time
+    from .runtime import build_image_model
+    model = build_image_model(args.model, args.dtype,
+                              fp8_native=args.fp8_native,
+                              device="cpu" if args.cpu else None)
+    kwargs = dict(width=args.width, height=args.height, seed=args.seed,
+                  negative_prompt=args.negative_prompt)
+    if args.steps is not None:
+        kwargs["steps"] = args.steps
+    if args.guidance is not None:
+        kwargs["guidance"] = args.guidance
+    t0 = time.monotonic()
+    image = model.generate_image(args.prompt, **kwargs)
+    image.save(args.out)
+    print(f"[{args.out}: {args.width}x{args.height} in "
+          f"{time.monotonic() - t0:.1f}s]", file=sys.stderr)
     return 0
 
 
@@ -304,6 +344,9 @@ def parser() -> argparse.ArgumentParser:
     s.add_argument("--preempt-mode", choices=PREEMPT_MODES, default=None,
                    help="how a paged pool under pressure parks a victim "
                         "(CAKE_PREEMPT_MODE, swap)")
+    s.add_argument("--image-model", default=None,
+                   help="also serve this image model ('demo:flux', "
+                        "'demo:flux1-dev' or a FLUX.1 checkpoint)")
     s.set_defaults(fn=cmd_serve)
     r = sub.add_parser("run", help="generate once from a chat prompt")
     _model_args(r)
@@ -321,6 +364,23 @@ def parser() -> argparse.ArgumentParser:
                    help="encode the prompt as it is, without the chat "
                         "template")
     r.set_defaults(fn=cmd_run)
+    i = sub.add_parser("image", help="generate an image to a PNG file")
+    i.add_argument("model", help="'demo:flux', 'demo:flux1-dev' or a "
+                                 "FLUX.1 checkpoint")
+    i.add_argument("prompt")
+    i.add_argument("--out", default="output.png")
+    i.add_argument("--width", type=int, default=1024)
+    i.add_argument("--height", type=int, default=1024)
+    i.add_argument("--steps", type=int, default=None)
+    i.add_argument("--guidance", type=float, default=None)
+    i.add_argument("--seed", type=int, default=None)
+    i.add_argument("--negative-prompt", default=None)
+    i.add_argument("--dtype", default="bf16")
+    i.add_argument("--fp8-native", action="store_true",
+                   help="keep a FLUX.1 checkpoint's FP8 transformer 1 "
+                        "byte/param on the card")
+    i.add_argument("--cpu", action="store_true", help="run on the CPU")
+    i.set_defaults(fn=cmd_image)
     w = sub.add_parser("worker", help="run as a cluster worker")
     w.add_argument("--name", default=os.uname().nodename)
     w.add_argument("--cluster-key",

@@ -248,6 +248,12 @@ SERVE_QOS_SHEDS = REGISTRY.counter(
     "class's queue lane was at its bound",
     labelnames=("qos",))
 
+SERVE_JOBS_RUNNING = REGISTRY.gauge(
+    "cake_serve_jobs_running",
+    "Heavy generation jobs (image diffusion / TTS) currently executing "
+    "under the admission plane's CAKE_JOB_WORKERS bound",
+    labelnames=("kind",))           # image | audio
+
 SERVE_TENANT_THROTTLES = REGISTRY.counter(
     "cake_serve_tenant_throttled_total",
     "Requests/jobs refused 429 tenant_quota before any queue slot was "
@@ -322,7 +328,7 @@ __all__ = [
     "SERVE_KV_BLOCKS_FREE", "SERVE_KV_BLOCKS_USED", "SERVE_KV_BLOCKS_SHARED",
     "SERVE_PREEMPTIONS", "SERVE_QOS_QUEUE_DEPTH", "SERVE_QOS_TTFT_SECONDS",
     "SERVE_QOS_E2E_SECONDS", "SERVE_QOS_SHEDS", "SERVE_TENANT_THROTTLES",
-    "SPEC_PROPOSED", "SPEC_ACCEPTED", "SPEC_ACCEPTED_LEN",
+    "SERVE_JOBS_RUNNING", "SPEC_PROPOSED", "SPEC_ACCEPTED", "SPEC_ACCEPTED_LEN",
     "SPEC_BUCKET_ACCEPTED",
     "WORKER_FWD_SECONDS", "HOP_SECONDS", "CLUSTER_STAGE_FAILURES",
     "CLUSTER_RECONNECTS", "CLUSTER_REPLAYS", "CLUSTER_DEGRADED",

@@ -22,12 +22,14 @@ f16) or 4 (f32) bytes out per parameter: bytes bound it. A fused dequant-GEMM
 
 `dequant_fp8_blockwise` launches the kernel for CUDA tensors (checking
 device, dtypes, shapes and contiguity, raising on anything else) and
-counts the launch in `dequant_fp8_blockwise.launches[route]`; it computes
-the plain version only for CPU tensors. No host sync, no host read: it
+counts the launch in `dequant_fp8_blockwise.launches[route]`, and by
+the weight's shape in `.shape_launches[(O, I)]`; it computes the plain
+version only for CPU tensors. No host sync, no host read: it
 runs inside captured graphs.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -137,16 +139,18 @@ def dequant_fp8_blockwise(w: torch.Tensor, scale_inv: torch.Tensor,
                           out_dtype: torch.dtype = torch.bfloat16
                           ) -> torch.Tensor:
     """On CUDA tensors, launch the kernel and count it in
-    `dequant_fp8_blockwise.launches[route]` (route: the output dtype); on
-    CPU tensors compute the plain version."""
+    `dequant_fp8_blockwise.launches[route]` (route: the output dtype) and
+    `.shape_launches[(O, I)]`; on CPU tensors compute the plain version."""
     if w.device.type == "cpu":
         return dequant_fp8_blockwise_plain(w, scale_inv, out_dtype)
     out = dequant_fp8_blockwise_kernel(w, scale_inv, out_dtype)
     dequant_fp8_blockwise.launches[ROUTES[out_dtype]] += 1
+    dequant_fp8_blockwise.shape_launches[tuple(w.shape)] += 1
     return out
 
 
 dequant_fp8_blockwise.launches = {route: 0 for route in ROUTES.values()}
+dequant_fp8_blockwise.shape_launches = collections.Counter()
 
 
 def launch_counts() -> dict:
@@ -154,9 +158,17 @@ def launch_counts() -> dict:
     return dict(dequant_fp8_blockwise.launches)
 
 
+def shape_launch_counts() -> dict:
+    """A copy of the wrapper's launch counts by weight shape, {(O, I): n}.
+    Eager launches only: a captured graph's replays add to the route
+    counts (models/common/graphs.py), not to these."""
+    return dict(dequant_fp8_blockwise.shape_launches)
+
+
 def reset_launches() -> None:
     for route in dequant_fp8_blockwise.launches:
         dequant_fp8_blockwise.launches[route] = 0
+    dequant_fp8_blockwise.shape_launches.clear()
 
 
 def is_fp8(weight) -> bool:

@@ -15,6 +15,15 @@ With expert_offload an MoE model's experts stay in the checkpoint
 (models/common/offload_model.py: OffloadedTextModel). With a cluster key
 the model is a cluster master (cluster/master.py: DistributedTextModel)
 over the workers of a topology file, or of UDP discovery.
+
+    image_model = build_image_model("demo:flux")
+
+`build_image_model` serves `cli image` and `cli serve --image-model`:
+`demo:flux` is the tiny FLUX.1 pipeline on seeded weights, `demo:flux1-dev`
+FLUX.1-dev's full widths and depth on seeded weights (the MMDiT native
+FP8 with fp8_native), and a path is a FLUX.1 checkpoint (ComfyUI bundle
+or BFL split layout). SD and FLUX.2 raise NotImplementedError naming the
+ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -27,7 +36,7 @@ from .device import parse_dtype, resolve_device
 from .models.common.config import config_from_hf_dict
 from .models.common.text_model import TextModel
 from .tokenizer import PromptError, continuation_parts, render_chat
-from .utils.bpe import BpeTokenizer
+from .utils.bpe import JsonTokenizer
 from .utils.chat_template import ChatTemplate, special_tokens, template_source
 from .utils.hub import resolve_model
 from .utils.loaders import ParamLoader, load_model_params
@@ -45,7 +54,7 @@ class CakeTokenizer:
 
     def __init__(self, model_dir: str):
         tok_json = os.path.join(model_dir, "tokenizer.json")
-        self._tok = (BpeTokenizer.from_file(tok_json)
+        self._tok = (JsonTokenizer.from_file(tok_json)
                      if os.path.exists(tok_json) else None)
         cfg_path = os.path.join(model_dir, "tokenizer_config.json")
         tcfg = {}
@@ -252,3 +261,64 @@ def _cluster_model(model: str, model_dir: str, cfg, workers: list[dict],
              [(s.kind, s.start, s.end) for s in setup.stages],
              time.perf_counter() - t)
     return gen, tokenizer, os.path.basename(model.rstrip("/"))
+
+
+# image families of the reference the port has not taken over yet -> the
+# ROADMAP item that brings them
+IMAGE_NOT_PORTED = {"sd": "module 14b (SD 1.5 and SDXL)",
+                    "flux2": "module 14c (FLUX.2-klein)"}
+
+
+def _image_family(path: str) -> str | None:
+    """"sd" for a diffusers SD directory, "flux2" for a FLUX.2 pipeline
+    directory (the reference's detect_sd_checkpoint and
+    detect_flux2_checkpoint sniffs), else None."""
+    if not os.path.isdir(path):
+        return None
+    if all(os.path.exists(os.path.join(path, d, "config.json"))
+           for d in ("unet", "vae")):
+        return "sd"
+    mi = os.path.join(path, "model_index.json")
+    if os.path.exists(mi):
+        with open(mi) as f:
+            if json.load(f).get("_class_name") == "Flux2Pipeline":
+                return "flux2"
+    tdir = os.path.join(path, "transformer")
+    if os.path.isdir(tdir):
+        from .utils.safetensors_io import TensorStorage
+        try:
+            names = TensorStorage.from_model_dir(tdir).names()
+        except FileNotFoundError:
+            return None
+        if any(n.startswith("double_stream_modulation_img.") for n in names):
+            return "flux2"
+    return None
+
+
+def build_image_model(model: str, dtype: str = "bf16",
+                      fp8_native: bool = False, device=None, seed: int = 42):
+    """The image generator of `cli image` and `cli serve --image-model`,
+    on `device` (default `cuda`): `demo:flux` (tiny, seeded),
+    `demo:flux1-dev` (FLUX.1-dev's widths and depth, seeded) or a FLUX.1
+    checkpoint path."""
+    from .models.image import (FluxImageModel, load_flux_image_model,
+                               seeded_flux1, tiny_flux_config)
+    dt = parse_dtype(dtype)
+    family = {"demo:sd": "sd", "demo:flux2": "flux2"}.get(model)
+    if family is None and not model.startswith("demo:"):
+        path = os.path.expanduser(model)
+        if not os.path.exists(path):
+            path = resolve_model(model)
+        family = _image_family(path)
+    if family is not None:
+        raise NotImplementedError(
+            f"{family} image models are not ported yet: ROADMAP "
+            f"{IMAGE_NOT_PORTED[family]}")
+    if model == "demo:flux1-dev":
+        return seeded_flux1(dtype=dt, device=device, seed=seed,
+                            fp8_native=fp8_native)
+    if model.startswith("demo:"):
+        return FluxImageModel(tiny_flux_config(), dtype=dt, seed=seed,
+                              device=device)
+    return load_flux_image_model(path, dtype=dt, fp8_native=fp8_native,
+                                 device=device)

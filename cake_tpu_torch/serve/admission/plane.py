@@ -1,6 +1,6 @@
-"""AdmissionPlane: the one front door the chat endpoint goes through (the
-port's own copy of cake_tpu/serve/admission/plane.py: AdmissionPlane,
-get_plane, key_fingerprint).
+"""AdmissionPlane: the one front door the chat and image endpoints go
+through (the port's own copy of cake_tpu/serve/admission/plane.py:
+AdmissionPlane, get_plane, key_fingerprint).
 
 The plane owns what comes BEFORE any scheduling:
 
@@ -10,18 +10,21 @@ The plane owns what comes BEFORE any scheduling:
     queue slot);
   * class: resolve the QoS class (endpoint default, X-Cake-QoS header /
     ``qos`` body field override, tenant ceiling clamp);
-  * drain: one flag mirrored by the engine's own drain.
+  * heavy jobs: image generation runs as GenerationJobs on the plane's
+    JobExecutor (jobs.py), queued in the same class-aware queue type;
+  * drain: one flag mirrored by the engine's own drain, and the job
+    lane's.
 
-Chat requests then flow into the ServeEngine, whose admission queue is
-the class-aware AdmissionQueue. The reference's heavy-job executor
-(`submit_job`, `JobExecutor`), which serves its image and audio
-endpoints, is not here: it comes with those endpoints.
+Chat requests flow into the ServeEngine, whose admission queue is the
+class-aware AdmissionQueue. The executor's threads start at the first
+job, so a plane costs no thread until then.
 """
 from __future__ import annotations
 
 import hashlib
 
 from .classes import QOS_HEADER, TENANT_HEADER, resolve_class
+from .jobs import GenerationJob, JobExecutor
 from .tenants import TenantRegistry
 
 __all__ = ["AdmissionPlane", "get_plane", "key_fingerprint"]
@@ -35,8 +38,10 @@ def key_fingerprint(credential: str) -> str:
 
 
 class AdmissionPlane:
-    def __init__(self, tenants: TenantRegistry | None = None):
+    def __init__(self, tenants: TenantRegistry | None = None,
+                 jobs: JobExecutor | None = None):
         self.tenants = tenants if tenants is not None else TenantRegistry()
+        self.jobs = jobs if jobs is not None else JobExecutor()
         self.draining = False
 
     # -- per-request resolution ----------------------------------------------
@@ -77,13 +82,35 @@ class AdmissionPlane:
         consumed."""
         return self.tenants.acquire(tenant)
 
+    # -- heavy jobs ----------------------------------------------------------
+
+    def submit_job(self, kind: str, fn, qos: str = "batch",
+                   tenant: str | None = None,
+                   request_id: str | None = None) -> GenerationJob:
+        return self.jobs.submit(GenerationJob(kind, fn, qos=qos,
+                                              tenant=tenant,
+                                              request_id=request_id))
+
     # -- lifecycle -----------------------------------------------------------
 
     def begin_drain(self):
         self.draining = True
+        self.jobs.begin_drain()
+
+    def drain(self, timeout: float | None = None) -> bool:
+        """Refuse new jobs and wait for the job lane to go idle."""
+        self.draining = True
+        return self.jobs.drain(timeout)
+
+    def close(self):
+        self.jobs.close()
 
     def health(self) -> dict:
         return {"draining": self.draining,
+                "jobs_running": self.jobs.running_count(),
+                "jobs_queued": self.jobs.queue.depth(),
+                "job_workers": self.jobs.workers,
+                "queue_by_class": self.jobs.queue.depths(),
                 "tenant_policies": sorted(self.tenants.policies.keys())}
 
 

@@ -1,31 +1,47 @@
-"""BPE from a `tokenizer.json`, in pure Python (the port's counterpart
-of the `tokenizers` library that cake_tpu/runtime.py calls; the card's
-machine has no `tokenizers`): byte-level BPE (GPT-2, Qwen, Llama 3,
-o200k) and the byte-fallback BPE converted from SentencePiece (Gemma).
+"""A tokenizer from a `tokenizer.json`, in pure Python (the port's
+counterpart of the `tokenizers` library that cake_tpu/runtime.py and
+cake_tpu/models/image/flux_loader.py call; the card's machine has no
+`tokenizers`): the text models' byte-level BPE (GPT-2, Qwen, Llama 3,
+o200k) and byte-fallback BPE converted from SentencePiece (Gemma), and
+the image encoders' CLIP BPE, T5 Unigram and word-level files. One
+pipeline, whose stages and model follow the file's contents.
 
 What it reads, and nothing else (any other construct raises at load and
 names its field):
   * model: BPE with `vocab`, `merges` as "a b" strings or ["a", "b"]
-    pairs, `ignore_merges`, `unk_token` with or without `fuse_unk`, and
+    pairs, `ignore_merges`, `unk_token` with or without `fuse_unk`,
     `byte_fallback` (a character with no piece becomes the `<0xNN>`
-    tokens of its UTF-8 bytes); no dropout, no subword prefix or suffix;
+    tokens of its UTF-8 bytes), `continuing_subword_prefix` and
+    `end_of_word_suffix` (CLIP's "" and "</w>"); no dropout. WordLevel
+    (`vocab`, `unk_token`). Unigram (`vocab` [[piece, score]], `unk_id`;
+    the library's Viterbi: the best total score, ties to the first path
+    found, an unknown character scored min - 10 and runs of unknowns
+    fused);
   * added_tokens: split out of the raw text before anything else,
     longest first at each position (the library's leftmost-longest
     match); tokens without lstrip / rstrip / single_word. Their ids are
-    the library's: the vocab's id, or the next one past the vocab (a
-    file whose ids leave a gap is renumbered, with a warning, as the
+    the library's: the model's id, or the next one past the model's vocab
+    (a file whose ids leave a gap is renumbered, with a warning, as the
     library renumbers it);
-  * normalizer: none, NFC, Replace (a string by a string, as Gemma's
-    " " by "▁"), or a Sequence of them;
+  * normalizer: none, NFC, NFKC, Lowercase, Replace (a string or a regex
+    by a string), or a Sequence of them. SentencePiece's `Precompiled`
+    charsmap (real T5 files carry one) is refused: no file to hold a
+    reading of it against is in the repository;
   * pre_tokenizer: none (the text between added tokens is one word, as
     in Gemma's), ByteLevel (with or without its GPT-2 regex, with or
-    without a prefix space), Split (a regex or a string, behaviour
-    Isolated), or a Sequence of them;
-  * post_processor: ByteLevel (ids unchanged) or TemplateProcessing (a
-    BOS as Llama 3 adds it), or a Sequence of them;
-  * decoder: ByteLevel, or a Sequence of Replace (string by string),
-    ByteFallback (a run of `<0xNN>` tokens becomes its UTF-8 text, or one
-    U+FFFD per byte when the run is not valid UTF-8) and Fuse.
+    without a prefix space), Split (a regex or a string, Isolated or
+    Removed, inverted or not), Whitespace, WhitespaceSplit, Metaspace
+    (prepend "always" or "never", split), or a Sequence of them;
+  * post_processor: ByteLevel (ids unchanged), TemplateProcessing (a
+    single sequence between special tokens, as Llama 3's BOS or T5's
+    `</s>`) or RobertaProcessing (cls ... sep), or a Sequence of them;
+  * decoder: none (the tokens joined by spaces, as the library joins
+    them), ByteLevel, BPEDecoder (the word suffix becomes a space),
+    Metaspace, or a Sequence of Replace (a string or a regex by a
+    string), ByteFallback (a run of `<0xNN>` tokens becomes its UTF-8
+    text, or one U+FFFD per byte when the run is not valid UTF-8) and
+    Fuse;
+  * `truncation` and `padding` null.
 
 The library's patterns are Oniguruma regexes. Stdlib `re` lacks
 `\\p{..}` classes and reads `\\s` and `\\w` differently, so `translate_regex`
@@ -33,13 +49,13 @@ rewrites those escapes into explicit code-point ranges built from
 `unicodedata`; possessive quantifiers, atomic groups and scoped flags
 `(?i:..)` are `re` syntax since Python 3.11.
 
-Encoding a word applies merges by rank with a heap, the library's
+Encoding a BPE word applies merges by rank with a heap, the library's
 algorithm (lowest rank first, leftmost among equals, stale entries
-skipped), behind a per-word cache. `decode(ids)` equals the library's
-`decode(ids, skip_special_tokens=False)`: ids with no token are dropped;
-through the ByteLevel decoder a token whose characters are not all
-byte-level characters contributes its own UTF-8, and invalid UTF-8
-becomes U+FFFD.
+skipped); every model's words go through a per-word cache.
+`decode(ids)` equals the library's `decode(ids, skip_special_tokens=False)`:
+ids with no token are dropped; through the ByteLevel decoder a token
+whose characters are not all byte-level characters contributes its own
+UTF-8, and invalid UTF-8 becomes U+FFFD.
 """
 from __future__ import annotations
 
@@ -55,6 +71,7 @@ log = logging.getLogger(__name__)
 
 MAX_CODE_POINT = sys.maxunicode
 WORD_CACHE = 10000   # words kept by the per-word cache
+UNK_PENALTY = 10.0   # the library's K_UNK_PENALTY (Unigram)
 
 # Unicode White_Space (Oniguruma's \s); str.isspace adds U+001C-001F
 WHITE_SPACE = ((0x09, 0x0D), (0x20, 0x20), (0x85, 0x85), (0xA0, 0xA0),
@@ -207,107 +224,142 @@ def translate_regex(pattern: str) -> str:
 # -- the pipeline's stages ----------------------------------------------------
 
 
-def _string_pattern(spec, where: str) -> str:
+def _pattern(spec, where: str) -> re.Pattern:
+    """A stage's `pattern`, a string or an Oniguruma regex, for `re`."""
     pat = spec.get("pattern") or {}
-    if "String" not in pat:
-        raise UnsupportedTokenizer(f"{where} Replace: pattern {pat!r} (only "
-                                   "a string is implemented)")
-    return pat["String"]
+    if "Regex" in pat:
+        return re.compile(translate_regex(pat["Regex"]))
+    if "String" in pat:
+        return re.compile(re.escape(pat["String"]))
+    raise UnsupportedTokenizer(f"{where}: pattern {pat!r}")
+
+
+def _chain(steps):
+    def run(x):
+        for f in steps:
+            x = f(x)
+        return x
+    return run
 
 
 def _normalizer(spec):
+    """A function str -> str."""
     if spec is None:
         return lambda s: s
     kind = spec.get("type")
-    if kind == "NFC":
-        return lambda s: unicodedata.normalize("NFC", s)
+    if kind in ("NFC", "NFKC"):
+        return lambda s: unicodedata.normalize(kind, s)
+    if kind == "Lowercase":
+        return str.lower
     if kind == "Replace":
-        old, new = _string_pattern(spec, "normalizer"), spec["content"]
-        return lambda s: s.replace(old, new)
+        rx, new = _pattern(spec, "normalizer Replace"), spec["content"]
+        return lambda s: rx.sub(lambda m: new, s)
     if kind == "Sequence":
-        steps = [_normalizer(n) for n in spec.get("normalizers", [])]
-
-        def run(s):
-            for f in steps:
-                s = f(s)
-            return s
-        return run
+        return _chain([_normalizer(n) for n in spec.get("normalizers", [])])
+    if kind == "Precompiled":
+        raise UnsupportedTokenizer(
+            "normalizer Precompiled (a SentencePiece charsmap) is not read "
+            "by the port yet; write the tokenizer without it")
     raise UnsupportedTokenizer(f"normalizer type {kind!r} is not "
                                "implemented")
 
 
-def _split_isolated(rx: re.Pattern, pieces: list[str]) -> list[str]:
-    """Each match and each gap between matches becomes a piece."""
-    out = []
-    for s in pieces:
-        last = 0
-        for m in rx.finditer(s):
-            if m.start() == m.end():
-                continue
-            if m.start() > last:
-                out.append(s[last:m.start()])
-            out.append(m.group(0))
-            last = m.end()
-        if last < len(s):
-            out.append(s[last:])
-    return out
+def _split(rx: re.Pattern, behavior: str, invert: bool):
+    """Split each piece at the matches of rx (or, inverted, at the gaps
+    between them); Isolated keeps the delimiters as pieces, Removed drops
+    them."""
+    if behavior not in ("Isolated", "Removed"):
+        raise UnsupportedTokenizer(f"pre_tokenizer Split: behavior "
+                                   f"{behavior!r}")
+
+    def run(pieces):
+        out = []
+        for s in pieces:
+            parts, last = [], 0
+            for m in rx.finditer(s):
+                if m.start() == m.end():
+                    continue
+                if m.start() > last:
+                    parts.append((s[last:m.start()], invert))
+                parts.append((m.group(0), not invert))
+                last = m.end()
+            if last < len(s):
+                parts.append((s[last:], invert))
+            out.extend(p for p, delim in parts
+                       if behavior == "Isolated" or not delim)
+        return out
+    return run
+
+
+def _byte_level(spec):
+    """Split by GPT-2's regex (unless use_regex is off), then write each
+    piece's UTF-8 bytes as byte-level characters."""
+    prefix = bool(spec.get("add_prefix_space"))
+    isolate = (_split(re.compile(translate_regex(GPT2_PATTERN)), "Isolated",
+                      False) if spec.get("use_regex", True) else None)
+    b2u = bytes_to_unicode()
+
+    def run(pieces):
+        if prefix:
+            pieces = [p if p.startswith(" ") else " " + p for p in pieces]
+        if isolate is not None:
+            pieces = isolate(pieces)
+        return ["".join(b2u[b] for b in p.encode("utf-8")) for p in pieces]
+    return run
+
+
+def _metaspace(spec):
+    """Spaces become the replacement, which starts the text ("always")
+    and every piece."""
+    repl = spec.get("replacement", "▁")
+    scheme = spec.get("prepend_scheme") or (
+        "always" if spec.get("add_prefix_space", True) else "never")
+    if scheme not in ("always", "never"):
+        raise UnsupportedTokenizer(f"pre_tokenizer Metaspace: prepend_scheme "
+                                   f"{scheme!r}")
+    if not spec.get("split", True):
+        raise UnsupportedTokenizer("pre_tokenizer Metaspace: split false")
+
+    def run(pieces):
+        out = []
+        for s in pieces:
+            s = s.replace(" ", repl)
+            if scheme == "always" and not s.startswith(repl):
+                s = repl + s
+            start = 0
+            for i in range(1, len(s)):
+                if s[i] == repl:
+                    out.append(s[start:i])
+                    start = i
+            out.append(s[start:])
+        return out
+    return run
 
 
 def _pre_tokenizer(spec):
-    """A function str -> list of words: in byte-level characters, or
-    (no pre-tokenizer) the text itself as one word."""
+    """A function list of pieces -> list of pieces (none: the text is one
+    word)."""
     if spec is None:
-        return lambda text: [text] if text else []
-    steps = spec.get("pretokenizers") if spec.get("type") == "Sequence" \
-        else [spec]
-    fns, byte_level = [], False
-    for st in steps:
-        kind = st.get("type")
-        if kind == "Split":
-            if st.get("invert"):
-                raise UnsupportedTokenizer("pre_tokenizer Split: invert")
-            if st.get("behavior") != "Isolated":
-                raise UnsupportedTokenizer(
-                    f"pre_tokenizer Split: behavior {st.get('behavior')!r}")
-            pat = st.get("pattern") or {}
-            if "Regex" in pat:
-                rx = re.compile(translate_regex(pat["Regex"]))
-            elif "String" in pat:
-                rx = re.compile(re.escape(pat["String"]))
-            else:
-                raise UnsupportedTokenizer(f"pre_tokenizer Split: pattern "
-                                           f"{pat!r}")
-            fns.append(functools.partial(_split_isolated, rx))
-        elif kind == "ByteLevel":
-            if byte_level:
-                raise UnsupportedTokenizer("pre_tokenizer: two ByteLevel")
-            byte_level = True
-            prefix = bool(st.get("add_prefix_space"))
-            rx = (re.compile(translate_regex(GPT2_PATTERN))
-                  if st.get("use_regex", True) else None)
-
-            def level(pieces, prefix=prefix, rx=rx):
-                if prefix:
-                    pieces = [p if p.startswith(" ") else " " + p
-                              for p in pieces]
-                if rx is not None:
-                    pieces = _split_isolated(rx, pieces)
-                return pieces
-            fns.append(level)
-        else:
-            raise UnsupportedTokenizer(f"pre_tokenizer type {kind!r} is not "
-                                       "implemented")
-    if not byte_level:
-        raise UnsupportedTokenizer("pre_tokenizer has no ByteLevel step")
-    b2u = bytes_to_unicode()
-
-    def run(text: str) -> list[str]:
-        pieces = [text]
-        for f in fns:
-            pieces = f(pieces)
-        return ["".join(b2u[b] for b in p.encode("utf-8"))
-                for p in pieces if p]
-    return run
+        return lambda pieces: pieces
+    kind = spec.get("type")
+    if kind == "Sequence":
+        return _chain([_pre_tokenizer(p)
+                       for p in spec.get("pretokenizers", [])])
+    if kind == "Split":
+        return _split(_pattern(spec, "pre_tokenizer Split"),
+                      spec.get("behavior"), bool(spec.get("invert")))
+    if kind == "ByteLevel":
+        return _byte_level(spec)
+    if kind == "Whitespace":
+        return _split(re.compile(translate_regex(r"\w+|[^\w\s]+")),
+                      "Removed", True)
+    if kind == "WhitespaceSplit":
+        return _split(re.compile(f"[{_ranges_src(WHITE_SPACE)}]+"),
+                      "Removed", False)
+    if kind == "Metaspace":
+        return _metaspace(spec)
+    raise UnsupportedTokenizer(f"pre_tokenizer type {kind!r} is not "
+                               "implemented")
 
 
 def _post_processor(spec):
@@ -318,13 +370,11 @@ def _post_processor(spec):
     if kind == "ByteLevel":
         return lambda ids: ids
     if kind == "Sequence":
-        steps = [_post_processor(p) for p in spec.get("processors", [])]
-
-        def run(ids):
-            for f in steps:
-                ids = f(ids)
-            return ids
-        return run
+        return _chain([_post_processor(p)
+                       for p in spec.get("processors", [])])
+    if kind == "RobertaProcessing":
+        cls, sep = spec["cls"][1], spec["sep"][1]
+        return lambda ids: [cls, *ids, sep]
     if kind == "TemplateProcessing":
         specials = spec.get("special_tokens") or {}
         items = []
@@ -356,44 +406,208 @@ def _post_processor(spec):
                                "implemented")
 
 
-# -- the tokenizer ------------------------------------------------------------
+# -- models: one word -> ids --------------------------------------------------
 
 
-class BpeTokenizer:
-    """encode / decode of one tokenizer.json (see the module docstring)."""
+def merge_word(ids: list[int], merges: dict) -> list[int]:
+    """Apply BPE merges {(a, b): (rank, merged id)} to a word's symbol
+    ids: lowest rank first, leftmost among equals, stale heap entries
+    skipped (the library's algorithm)."""
+    n = len(ids)
+    nxt = list(range(1, n + 1))
+    prv = list(range(-1, n - 1))
+    alive = [True] * n
+    heap = []
+    for i in range(n - 1):
+        m = merges.get((ids[i], ids[i + 1]))
+        if m is not None:
+            heap.append((m[0], i, m[1]))
+    heapq.heapify(heap)
+    while heap:
+        _, i, new_id = heapq.heappop(heap)
+        if not alive[i] or nxt[i] >= n:
+            continue
+        j = nxt[i]
+        m = merges.get((ids[i], ids[j]))
+        if m is None or m[1] != new_id:
+            continue                      # a stale entry
+        ids[i] = new_id
+        alive[j] = False
+        nxt[i] = nxt[j]
+        if nxt[j] < n:
+            prv[nxt[j]] = i
+        if prv[i] >= 0:
+            m = merges.get((ids[prv[i]], ids[i]))
+            if m is not None:
+                heapq.heappush(heap, (m[0], prv[i], m[1]))
+        if nxt[i] < n:
+            m = merges.get((ids[i], ids[nxt[i]]))
+            if m is not None:
+                heapq.heappush(heap, (m[0], i, m[1]))
+    return [t for t, a in zip(ids, alive) if a]
 
+
+class Bpe:
     def __init__(self, spec: dict):
-        model = spec.get("model") or {}
-        if model.get("type", "BPE") != "BPE":
-            raise UnsupportedTokenizer(f"model type {model.get('type')!r} is "
-                                       "not implemented")
-        for key in ("continuing_subword_prefix", "end_of_word_suffix"):
-            if model.get(key):
-                raise UnsupportedTokenizer(f"model.{key} is not implemented")
-        if model.get("dropout"):
+        if spec.get("dropout"):
             raise UnsupportedTokenizer("model.dropout is not implemented")
-        self.vocab: dict[str, int] = dict(model.get("vocab") or {})
-        self.ignore_merges = bool(model.get("ignore_merges"))
-        unk = model.get("unk_token")
+        self.vocab: dict[str, int] = dict(spec.get("vocab") or {})
+        self.size = len(self.vocab)
+        self.tokens = {i: t for t, i in self.vocab.items()}
+        self.prefix = spec.get("continuing_subword_prefix") or ""
+        self.suffix = spec.get("end_of_word_suffix") or ""
+        self.ignore_merges = bool(spec.get("ignore_merges"))
+        unk = spec.get("unk_token")
         self.unk_id = self.vocab.get(unk) if unk is not None else None
-        self.fuse_unk = bool(model.get("fuse_unk"))
+        self.fuse_unk = bool(spec.get("fuse_unk"))
         # byte value -> its <0xNN> token's id, when the model falls back
         self.byte_ids = ({b: self.vocab.get(f"<0x{b:02X}>")
                           for b in range(256)}
-                         if model.get("byte_fallback") else None)
+                         if spec.get("byte_fallback") else None)
         self.merges: dict[tuple[int, int], tuple[int, int]] = {}
-        for rank, m in enumerate(model.get("merges") or []):
+        for rank, m in enumerate(spec.get("merges") or []):
             a, b = m.split(" ") if isinstance(m, str) else m
+            merged = a + b[len(self.prefix):]
             if a not in self.vocab or b not in self.vocab \
-                    or a + b not in self.vocab:
+                    or merged not in self.vocab:
                 raise UnsupportedTokenizer(
                     f"model.merges[{rank}] {m!r}: a token is not in the "
                     "vocab")
             self.merges.setdefault((self.vocab[a], self.vocab[b]),
-                                   (rank, self.vocab[a + b]))
-        self.id_to_token = {i: t for t, i in self.vocab.items()}
+                                   (rank, self.vocab[merged]))
+
+    def __call__(self, word: str) -> list[int]:
+        if self.ignore_merges and word in self.vocab:
+            return [self.vocab[word]]
+        return merge_word(self._symbols(word), self.merges)
+
+    def _symbols(self, word: str) -> list[int]:
+        """The word's ids before any merge, in the library's order: a
+        character's piece (with the subword prefix when not first and the
+        word suffix when last), else its <0xNN> byte tokens
+        (byte_fallback, when all exist), else the unknown token, which
+        waits for the next known character or the end (fused over a run
+        with fuse_unk)."""
+        ids: list[int] = []
+        unk = False         # an unknown token not yet placed
+        last = len(word) - 1
+        for n, ch in enumerate(word):
+            s = (self.prefix if n else "") + ch \
+                + (self.suffix if n == last else "")
+            i = self.vocab.get(s)
+            if i is not None:
+                if unk:
+                    ids.append(self.unk_id)
+                    unk = False
+                ids.append(i)
+                continue
+            if self.byte_ids is not None:
+                bs = [self.byte_ids[b] for b in s.encode("utf-8")]
+                if None not in bs:
+                    ids.extend(bs)
+                    continue
+            if self.unk_id is not None:
+                if unk and not self.fuse_unk:
+                    ids.append(self.unk_id)
+                unk = True
+        if unk:
+            ids.append(self.unk_id)
+        return ids
+
+
+class WordLevel:
+    def __init__(self, spec: dict):
+        self.vocab: dict[str, int] = dict(spec.get("vocab") or {})
+        self.size = len(self.vocab)
+        self.tokens = {i: t for t, i in self.vocab.items()}
+        self.unk = spec.get("unk_token")
+
+    def __call__(self, word: str) -> list[int]:
+        if word in self.vocab:
+            return [self.vocab[word]]
+        if self.unk not in self.vocab:
+            raise ValueError(f"WordLevel: {word!r} is not in the vocab and "
+                             f"the unk token {self.unk!r} is missing")
+        return [self.vocab[self.unk]]
+
+
+class Unigram:
+    def __init__(self, spec: dict):
+        if spec.get("byte_fallback"):
+            raise UnsupportedTokenizer("model.byte_fallback (Unigram) is not "
+                                       "implemented")
+        pieces = spec.get("vocab") or []
+        self.vocab: dict[str, int] = {}
+        self.scores: list[float] = []
+        for i, (piece, score) in enumerate(pieces):
+            self.vocab.setdefault(piece, i)
+            self.scores.append(float(score))
+        self.size = len(pieces)
+        self.tokens = {i: p for i, (p, _) in enumerate(pieces)}
+        self.unk_id = spec.get("unk_id")
+        self.unk_score = min(self.scores) - UNK_PENALTY
+        self.max_len = max((len(p) for p, _ in pieces), default=1)
+
+    def __call__(self, word: str) -> list[int]:
+        n = len(word)
+        # best[e] = (score, start, id) of the best path ending at char e
+        best: list = [None] * (n + 1)
+        best[0] = (0.0, None, None)
+        for s in range(n):
+            base = best[s][0]
+            single = False
+            for ln in range(1, min(self.max_len, n - s) + 1):
+                i = self.vocab.get(word[s:s + ln])
+                if i is None:
+                    continue
+                cand = base + self.scores[i]
+                if best[s + ln] is None or cand > best[s + ln][0]:
+                    best[s + ln] = (cand, s, i)
+                single = single or ln == 1
+            if not single:
+                if self.unk_id is None:
+                    raise ValueError("Unigram: an unknown character and no "
+                                     "unk_id")
+                cand = base + self.unk_score
+                if best[s + 1] is None or cand > best[s + 1][0]:
+                    best[s + 1] = (cand, s, self.unk_id)
+        out: list[int] = []
+        e, in_unk = n, False
+        while e > 0:
+            _, s, i = best[e]
+            if i == self.unk_id:
+                if not in_unk:
+                    out.append(i)       # a run of unknowns fuses into one
+                in_unk = True
+            else:
+                out.append(i)
+                in_unk = False
+            e = s
+        return out[::-1]
+
+
+MODELS = {"BPE": Bpe, "WordLevel": WordLevel, "Unigram": Unigram}
+
+
+# -- the tokenizer ------------------------------------------------------------
+
+
+class JsonTokenizer:
+    """encode / decode of one tokenizer.json (see the module docstring)."""
+
+    def __init__(self, spec: dict):
+        model = spec.get("model") or {}
+        kind = model.get("type", "BPE")
+        if kind not in MODELS:
+            raise UnsupportedTokenizer(f"model type {kind!r} is not "
+                                       "implemented")
+        for field in ("truncation", "padding"):
+            if spec.get(field) is not None:
+                raise UnsupportedTokenizer(f"{field} is not implemented")
+        self.model = MODELS[kind](model)
+        self.vocab = self.model.vocab
+        self.id_to_token = dict(self.model.tokens)
         self.added: dict[str, int] = {}
-        self.special_ids: set[int] = set()
         normalizer = spec.get("normalizer")
         for tok in spec.get("added_tokens") or []:
             for flag in ("lstrip", "rstrip", "single_word"):
@@ -411,8 +625,6 @@ class BpeTokenizer:
                             i)
             self.added[tok["content"]] = i
             self.id_to_token[i] = tok["content"]
-            if tok.get("special"):
-                self.special_ids.add(i)
         self._added_rx = (re.compile("|".join(
             re.escape(t) for t in sorted(self.added, key=len, reverse=True)))
             if self.added else None)
@@ -424,92 +636,27 @@ class BpeTokenizer:
 
     def _added_id(self, content: str) -> int:
         """The id the library gives an added token: the model's own id
-        when the vocab has it, else the next id past the vocab and the
+        when its vocab has it, else the next id past the vocab and the
         added tokens so far (the file's id is not read)."""
         if content in self.vocab:
             return self.vocab[content]
-        n = len(self.vocab)
+        n = self.model.size
         if not self.added:
             return n
         top = max(self.added.values())
         return top + 1 if top >= n or n == 0 else n
 
     @classmethod
-    def from_file(cls, path: str) -> "BpeTokenizer":
+    def from_file(cls, path: str) -> "JsonTokenizer":
         with open(path, encoding="utf-8") as f:
             return cls(json.load(f))
 
     # -- encode --------------------------------------------------------------
 
-    def _bpe(self, word: str) -> list[int]:
-        if self.ignore_merges and word in self.vocab:
-            return [self.vocab[word]]
-        ids = self._symbols(word)
-        n = len(ids)
-        nxt = list(range(1, n + 1))
-        prv = list(range(-1, n - 1))
-        alive = [True] * n
-        heap = []
-        for i in range(n - 1):
-            m = self.merges.get((ids[i], ids[i + 1]))
-            if m is not None:
-                heap.append((m[0], i, m[1]))
-        heapq.heapify(heap)
-        while heap:
-            _, i, new_id = heapq.heappop(heap)
-            if not alive[i] or nxt[i] >= n:
-                continue
-            j = nxt[i]
-            m = self.merges.get((ids[i], ids[j]))
-            if m is None or m[1] != new_id:
-                continue                      # a stale entry
-            ids[i] = new_id
-            alive[j] = False
-            nxt[i] = nxt[j]
-            if nxt[j] < n:
-                prv[nxt[j]] = i
-            if prv[i] >= 0:
-                m = self.merges.get((ids[prv[i]], ids[i]))
-                if m is not None:
-                    heapq.heappush(heap, (m[0], prv[i], m[1]))
-            if nxt[i] < n:
-                m = self.merges.get((ids[i], ids[nxt[i]]))
-                if m is not None:
-                    heapq.heappush(heap, (m[0], i, m[1]))
-        return [t for t, a in zip(ids, alive) if a]
-
-    def _symbols(self, word: str) -> list[int]:
-        """The word's ids before any merge, in the library's order: a
-        character's piece, else its <0xNN> byte tokens (byte_fallback,
-        when all exist), else the unknown token, which waits for the next
-        known character or the end (fused over a run with fuse_unk)."""
-        ids: list[int] = []
-        unk = False         # an unknown token not yet placed
-        for ch in word:
-            i = self.vocab.get(ch)
-            if i is not None:
-                if unk:
-                    ids.append(self.unk_id)
-                    unk = False
-                ids.append(i)
-                continue
-            if self.byte_ids is not None:
-                bs = [self.byte_ids[b] for b in ch.encode("utf-8")]
-                if None not in bs:
-                    ids.extend(bs)
-                    continue
-            if self.unk_id is not None:
-                if unk and not self.fuse_unk:
-                    ids.append(self.unk_id)
-                unk = True
-        if unk:
-            ids.append(self.unk_id)
-        return ids
-
     def _encode_word(self, word: str) -> list[int]:
         ids = self._cache.get(word)
         if ids is None:
-            ids = self._bpe(word)
+            ids = self.model(word)
             if len(self._cache) >= WORD_CACHE:
                 self._cache.clear()
             self._cache[word] = ids
@@ -517,8 +664,10 @@ class BpeTokenizer:
 
     def _encode_text(self, text: str) -> list[int]:
         ids: list[int] = []
-        for word in self._words(self._normalize(text)):
-            ids.extend(self._encode_word(word))
+        normalized = self._normalize(text)
+        for word in self._words([normalized] if normalized else []):
+            if word:
+                ids.extend(self._encode_word(word))
         return ids
 
     def encode(self, text: str, add_special_tokens: bool = True
@@ -541,6 +690,22 @@ class BpeTokenizer:
         tokens = [t for t in (self.id_to_token.get(int(i)) for i in ids)
                   if t is not None]
         return "".join(self._decode(tokens))
+
+
+def word_level_spec(vocab_size: int) -> dict:
+    """A tokenizers-format word-level vocabulary: whitespace words `w0`,
+    `w1`, ..., then `<unk>` and `<eot>` at the two top ids (the seeded
+    image models' and the written FLUX.1 checkpoints' tokenizer; no real
+    one is in the repository)."""
+    vocab = {f"w{i}": i for i in range(vocab_size - 2)}
+    vocab["<unk>"] = vocab_size - 2
+    vocab["<eot>"] = vocab_size - 1
+    return {"version": "1.0", "truncation": None, "padding": None,
+            "added_tokens": [], "normalizer": None,
+            "pre_tokenizer": {"type": "Whitespace"}, "post_processor": None,
+            "decoder": None,
+            "model": {"type": "WordLevel", "vocab": vocab,
+                      "unk_token": "<unk>"}}
 
 
 # -- decoders: list of token strings -> list of strings -----------------------
@@ -586,24 +751,38 @@ def _byte_fallback_decode(tokens: list[str]) -> list[str]:
     return out
 
 
+def _metaspace_decode(spec):
+    """The replacement becomes a space, except in the first token, which
+    loses it when the pre-tokenizer prepended one."""
+    repl = spec.get("replacement", "▁")
+    drop = (spec.get("prepend_scheme") or (
+        "always" if spec.get("add_prefix_space", True) else "never")) \
+        != "never"
+    return lambda tokens: [t.replace(repl, "" if drop and n == 0 else " ")
+                           for n, t in enumerate(tokens)]
+
+
 def _decoder(spec):
     """A function list of tokens -> list of strings, joined by decode."""
-    kind = None if spec is None else spec.get("type")
+    if spec is None:
+        return lambda tokens: [" ".join(tokens)]
+    kind = spec.get("type")
     if kind == "ByteLevel":
         return _byte_level_decode
     if kind == "ByteFallback":
         return _byte_fallback_decode
     if kind == "Fuse":
         return lambda tokens: ["".join(tokens)]
+    if kind == "BPEDecoder":
+        suffix = spec.get("suffix", "</w>")
+        return lambda tokens: [
+            t.replace(suffix, "" if n == len(tokens) - 1 else " ")
+            for n, t in enumerate(tokens)]
+    if kind == "Metaspace":
+        return _metaspace_decode(spec)
     if kind == "Replace":
-        old, new = _string_pattern(spec, "decoder"), spec["content"]
-        return lambda tokens: [t.replace(old, new) for t in tokens]
+        rx, new = _pattern(spec, "decoder Replace"), spec["content"]
+        return lambda tokens: [rx.sub(lambda m: new, t) for t in tokens]
     if kind == "Sequence":
-        steps = [_decoder(d) for d in spec.get("decoders", [])]
-
-        def run(tokens):
-            for f in steps:
-                tokens = f(tokens)
-            return tokens
-        return run
+        return _chain([_decoder(d) for d in spec.get("decoders", [])])
     raise UnsupportedTokenizer(f"decoder {kind!r} is not implemented")

@@ -10,7 +10,9 @@ float32. A Gated DeltaNet's A_log and dt_bias stay float32 whatever the
 model dtype, as the reference's loader keeps them. A native FP8 weight,
 the reference's {"fp8", "scale_inv"} pair, stays one: its
 `float8_e4m3fn` bytes cross as uint8 and are viewed as
-torch.float8_e4m3fn, its scales stay float32.
+torch.float8_e4m3fn, its scales stay float32. `tree_from_numpy` does
+the same for the image models' trees (MMDiT, VAE, CLIP, T5), whose
+structural None leaves (a VAE level with no upsample) stay None.
 """
 from __future__ import annotations
 
@@ -40,6 +42,8 @@ def _fp8(arr, device) -> torch.Tensor:
 
 
 def _convert(node, device, dtype):
+    if node is None:
+        return None
     if is_fp8(node):
         return {"fp8": _fp8(node["fp8"], device),
                 "scale_inv": _tensor(node["scale_inv"], device,
@@ -64,3 +68,10 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda",
     if "embed_tokens" not in params or "norm" not in params:
         raise ValueError("tree lacks embed_tokens or norm")
     return params
+
+
+def tree_from_numpy(tree, device="cuda",
+                    dtype: torch.dtype = torch.bfloat16):
+    """Any nested dict/list of numpy arrays -> the same tree of tensors
+    (an image component's parameters)."""
+    return _convert(tree, device, dtype)

@@ -169,13 +169,14 @@ Phases (any failure exits non-zero and prints no result line):
      launched twice bit for bit, and timed beside the library call and
      the bound; (b) f32 at 2 layers (linear, full): a 600-token prompt in
      chunks and 16 greedy steps, contiguous and paged on the card, against
-     the CPU: logits within 2e-3, tokens identical; (c) bf16 at 12 of 48
-     layers (3 full, 9 linear, all MoE), 4 slots, ctx 4096, both pools:
+     the CPU: logits within 2e-3, tokens identical; (c) bf16 at 4 of 48
+     layers (3 linear, 1 full, all MoE; cut from 12 for the whole run's
+     time), 4 slots, ctx 4096, both pools:
      16 decode replays equal 16 eager steps (KV, conv and recurrent state
      included), the prefill graphs equal the eager chunks, the captured
      verify (k 6) equals the eager verify with right and wrong drafts,
      and after the wrong row the linear state equals a plain step's;
-     replay ms beside eager; (d) that model over HTTP, contiguous then
+     replay ms beside eager; (d) the same model over HTTP, contiguous then
      paged: 4 concurrent chats and one SSE chat equal alone, the shared
      system message hitting the prefix cache (tokens equal to the cache
      off), the 96-block pool under swap and recompute, and speculation:
@@ -197,8 +198,9 @@ Phases (any failure exits non-zero and prints no result line):
      Qwen's FP8 layout (float8_e4m3fn projections with 128 x 128
      weight_scale_inv), loaded at load and native through
      build_text_model (device memory after each): 2 layers in f32 on the
-     card against the CPU; in bf16 native logits and tokens equal at
-     load's, 16 decode replays equal eager steps, the prefill graphs the
+     card against the CPU; in bf16 (8 of its 28 layers, cut for the
+     whole run's time) native logits and tokens equal at load's, 16
+     decode replays equal eager steps, the prefill graphs the
      eager chunks and the captured verify (k 6) the eager verify, in both
      pools, with replay device ms native beside at load; served through
      `cli serve DIR --fp8-native`, contiguous and paged (4 chats + 1 SSE,
@@ -211,7 +213,8 @@ Phases (any failure exits non-zero and prints no result line):
      native, paged: 4 concurrent chats each equal alone; (d) AutoGPTQ
      4-bit (group 128; desc_act false, and true with a permuted g_idx)
      and (e) GGUF (Q8_0, and a Q4_K_M-style Q4_K / Q6_K mix) at the
-     flagship's widths and depth, each served through `cli serve DIR`,
+     flagship's widths and 4 of its 28 layers (cut for the whole run's
+     time), each served through `cli serve DIR`,
      contiguous and paged, its card parameters equal to a CPU load bit
      for bit, each chat equal alone;
   15. expert offload (module 10b; run right after phase 13, on its 4-layer
@@ -273,14 +276,35 @@ Phases (any failure exits non-zero and prints no result line):
      the master's local stages and of w1's chunks; (d) `cli serve
      --cluster-key --topology`: a chat answered, /api/v1/topology listing
      both nodes, /health 200;
+  18. FLUX.1-dev text-to-image (module 14a): the FP8 dequant kernel's
+     bf16 output against its plain version at every FLUX.1-dev weight
+     shape (qkv 9216 x 3072 to linear1 21504 x 3072, and the cropped
+     edges img_in 3072 x 64 and final_out 64 x 3072), with blockwise and
+     with one per-tensor scale, launched twice, bit for bit, timed at the
+     largest and the two edges beside the plain version and the bound;
+     (a) `cli serve --flagship --layers 1 --slots 0 --image-model
+     demo:flux1-dev --fp8-native`: FLUX.1-dev's full widths and depth (19
+     + 38 blocks, T5-XXL, CLIP-L, the VAE) on seeded weights, the MMDiT's
+     314 weights native FP8, the device memory against the parameters'
+     bytes; a 512 x 512 image (4 steps) through /v1/images/generations
+     as b64_json and a 1024 x 1024 one (2 steps) through /api/v1/image as
+     a raw PNG, each a valid PNG of its size, with 314 dequant launches
+     per step; seconds per step, text encoders and VAE decode, and peak
+     memory printed; (b) the same FP8 values dequantized at load, weight
+     by weight: latents equal the native model's bit for bit at the same
+     seed; (c) FLUX.1-dev's widths at 2 double, 2 single and 2 T5 layers
+     written as a ComfyUI bundle (FP8 with per-tensor scales) and loaded
+     native through runtime.build_image_model: latents equal the seeded
+     model's bit for bit, and a valid PNG;
   then prints the whole run's seconds, the kernels line, the card line,
   and the result line last. `--only 12` runs phases 1, 2 and 12 alone,
   `--only 13` phases 1, 2 and 13, `--only 14` phases 1, 2 and 14,
   `--only 15` phases 1, 2 and 15 (writing its own checkpoints), `--only
-  16` phases 1, 2 and 16, `--only 17` phases 1, 2 and 17, and none of
-  them prints a result line. `--only 13d` is a diagnosis of 13(d)'s
-  oracle: its bf16 chats with the order of arrivals fixed (together,
-  chat 0 first, chat 0 last, chat 0 alone), each run's partings, the
+  16` phases 1, 2 and 16, `--only 17` phases 1, 2 and 17, `--only 18`
+  phases 1, 2 and 18, and none of them prints a result line. `--only
+  13d` is a diagnosis of 13(d)'s oracle: its bf16 chats with the order
+  of arrivals fixed (together, chat 0 first, chat 0 last, chat 0
+  alone), each run's partings, the
   iteration that parted chat 0 and the verify rows' logits against the
   decode step's on the same prefix, then 13(d)'s float32 check.
 
@@ -288,6 +312,7 @@ Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import collections
 import gc
 import json
 import os
@@ -2943,7 +2968,8 @@ def phase_gemma3(card: str, workdir: str) -> dict:
 
 # -- phase 13: Qwen3-Next, MoE and Gated DeltaNet -----------------------------
 
-QNEXT_LAYERS = 12       # of 48: full attention at 3, 7 and 11, all MoE
+QNEXT_LAYERS = 4        # of 48, 13(c) and 13(d): 3 linear, 1 full, all
+                        # MoE (cut from 12 for the whole run's time)
 QNEXT_CKPT_LAYERS = 4   # the checkpoint round trip: 3 linear, 1 full
 QNEXT_HEADS = dict(hq=16, hkv=2, d=256)
 QNEXT_STEPS = 16
@@ -3235,7 +3261,7 @@ def _wrong_row_equals_plain(model, state) -> tuple[bool, float]:
 
 
 def phase_qnext_graphs(model, card: str) -> None:
-    """13(c). bf16 at 12 of 48 layers, 4 slots with ctx 4096, contiguous
+    """13(c). bf16 at 4 of 48 layers, 4 slots with ctx 4096, contiguous
     and paged (1024 blocks of 16): 16 decode replays equal 16 eager steps
     (tokens, logits, KV bytes, conv and recurrent state, carries); the
     captured prefill programs equal the eager chunks bit for bit; the
@@ -3654,7 +3680,7 @@ ORACLE_SCHEDULES = (("together", (0, 0, 0, 0)),
 
 
 def qnext_oracle_arrivals(card: str) -> None:
-    """`--only 13d`: phase 13(d)'s bf16 oracle chats (12 layers, seed 0,
+    """`--only 13d`: phase 13(d)'s bf16 oracle chats (4 layers, seed 0,
     contiguous) with the order of arrivals fixed: all together (twice),
     chat 0 seven iterations before the others, and after them; then chat
     0 alone. Prints each run's partings from the plain stream and the
@@ -3778,11 +3804,13 @@ def phase_qnext(card: str, workdir: str) -> dict:
     t = time.perf_counter()
     model = qwen3_next(QNEXT_LAYERS, torch.bfloat16, seed=0)
     torch.cuda.synchronize()
-    print(f"qwen3-next: {QNEXT_LAYERS} of 48 layers (full at 3, 7, 11; all "
-          f"MoE, 512 experts top 10 + shared), bf16, built on the card in "
+    print(f"qwen3-next: {QNEXT_LAYERS} of 48 layers (full at 3; all MoE, "
+          f"512 experts top 10 + shared), bf16, built on the card in "
           f"{time.perf_counter() - t:.1f} s, "
           f"{torch.cuda.memory_allocated() / 1e9:.1f} GB", flush=True)
     phase_qnext_graphs(model, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     launches = phase_qnext_serve(model, card)
     del model
     torch.cuda.empty_cache()
@@ -3835,6 +3863,10 @@ Q8B_HEADS = dict(hq=32, hkv=8, d=128)     # Qwen3-8B's attention
 FP8_STEPS = 16          # decode replays against eager steps, the flagship
 Q8B_STEPS = 8           # and Qwen3-8B's widths at Q8B_LAYERS layers
 Q8B_LAYERS = 12         # of 36 (cut from 36 for the whole run's time)
+FP8_FLAGSHIP_LAYERS = 8     # 14(b)'s bf16 flagship in the FP8 layout, of
+                            # 28 (cut for the whole run's time)
+QUANT_LAYERS = 4        # the GPTQ and GGUF flagships' depth, of 28 (cut
+                        # for the whole run's time)
 
 
 def phase_fp8_kernel(card: str, dtypes=None, timed=None) -> dict:
@@ -4021,7 +4053,7 @@ def phase_fp8_flagship(card: str, workdir: str) -> dict:
     shutil.rmtree(d2, ignore_errors=True)
     # the full flagship, bf16: at load and native
     d = os.path.join(workdir, "qwen3-0.6b-fp8")
-    config = sc.flagship_config()
+    config = sc.flagship_config(FP8_FLAGSHIP_LAYERS)
     t = time.perf_counter()
     nbytes = sc.write_fp8_model(d, config, sc.model_params(config, seed=0),
                                 shards=2)
@@ -4055,7 +4087,8 @@ def phase_fp8_flagship(card: str, workdir: str) -> dict:
                                f"fp8 flagship {name} graph {mode}")
               for name, m in (("native", native), ("at_load", at_load))}
         out[f"replay_ms_{mode}"] = ms
-        print(f"fp8 flagship decode replay {mode} (4 slots, 28 layers, "
+        print(f"fp8 flagship decode replay {mode} (4 slots, "
+              f"{FP8_FLAGSHIP_LAYERS} layers, "
               f"bf16): device ms native {ms['native']:.4f}, at load "
               f"{ms['at_load']:.4f} (x{ms['native'] / ms['at_load']:.2f}); "
               f"on {card}", flush=True)
@@ -4239,12 +4272,13 @@ def phase_fp8_8b(card: str, workdir: str) -> dict:
 def phase_gptq_gguf(card: str, workdir: str) -> None:
     """14(d) and (e). AutoGPTQ 4-bit (group 128; desc_act false, and true
     with a permuted g_idx) and GGUF (Q8_0, and a Q4_K_M-style mix of
-    Q4_K and Q6_K) at the flagship's widths and depth: each served through
-    `cli serve DIR`, contiguous and paged, its card parameters equal to a
-    CPU load bit for bit and each chat equal alone."""
+    Q4_K and Q6_K) at the flagship's widths, QUANT_LAYERS deep: each
+    served through `cli serve DIR`, contiguous and paged, its card
+    parameters equal to a CPU load bit for bit and each chat equal
+    alone."""
     from cake_tpu_torch.bench import synth_checkpoint as sc
     from cake_tpu_torch.runtime import build_text_model
-    config = sc.flagship_config()
+    config = sc.flagship_config(QUANT_LAYERS)
     writers = {
         "gptq": lambda d: sc.write_gptq_model(
             d, config, sc.model_params(config, seed=0), seed=8, shards=2),
@@ -4263,7 +4297,8 @@ def phase_gptq_gguf(card: str, workdir: str) -> None:
         write_s = time.perf_counter() - t
         t = time.perf_counter()
         cpu, _, _ = build_text_model(d, "bf16", device="cpu")
-        print(f"{name}: flagship written ({nbytes / 1e9:.3f} GB) in "
+        print(f"{name}: flagship's widths at {QUANT_LAYERS} layers written "
+              f"({nbytes / 1e9:.3f} GB) in "
               f"{write_s:.1f} s, loaded on the CPU in "
               f"{time.perf_counter() - t:.1f} s", flush=True)
         for mode, extra in (("contiguous", ()),
@@ -5392,6 +5427,325 @@ def phase_cluster(card: str, workdir: str) -> dict:
     return out
 
 
+# -- phase 18: FLUX.1-dev text-to-image (module 14a) --------------------------
+
+FLUX_SIZES = ((512, 4), (1024, 2))     # (side, denoising steps) served
+FLUX_CHECK_SIDE = 512                  # 18(b) and 18(c): 2 steps there
+FLUX_PROMPT = "w1 w2 w3 w5 w8 w13 w21 w34 w55 w89 a watercolor fox"
+FLUX_CUT = dict(double=2, single=2, t5_layers=2)   # 18(c)'s checkpoint
+
+
+def _tree_bytes(tree) -> int:
+    """Bytes of a tree's tensors, each storage once (a tied embedding)."""
+    from cake_tpu_torch.utils.mapping import flatten_tree
+    seen = {t.data_ptr(): t.numel() * t.element_size()
+            for t in flatten_tree(tree).values()
+            if hasattr(t, "data_ptr")}
+    return sum(seen.values())
+
+
+def _fp8_leaves(tree) -> int:
+    """Native FP8 pairs in a tree."""
+    from cake_tpu_torch.utils.mapping import flatten_tree
+    return sum(k.endswith(".fp8") for k in flatten_tree(tree))
+
+
+def _png_pixels(data: bytes, side: int, label: str):
+    """The PNG's pixels, checked: a valid 8-bit RGB PNG of side x side."""
+    from cake_tpu_torch.utils.png import decode_png
+    try:
+        pix = decode_png(data)
+    except ValueError as e:
+        raise SmokeFailure(f"{label}: not a valid PNG: {e}")
+    check(pix.shape == (side, side, 3), f"{label}: PNG {pix.shape}, want "
+          f"{side} x {side} RGB")
+    return pix
+
+
+def phase_flux_kernel(card: str) -> dict:
+    """18, kernels: the dequant kernel's bf16 output against its plain
+    version at every FLUX.1-dev shape (bench/fp8_cases.FLUX_SHAPES), with
+    blockwise scales and with one per-tensor scale over the grid, each
+    launched twice, bit for bit; timed at FLUX_TIMED beside the plain
+    version and the bound."""
+    import torch
+    from cake_tpu_torch.bench.fp8_cases import (FLUX_SHAPES, FLUX_TIMED,
+                                                dequant_bound_ms,
+                                                dequant_bytes, fp8_case,
+                                                per_tensor_case, same_bits)
+    from cake_tpu_torch.bench.timing import device_ms
+    from cake_tpu_torch.ops import fp8
+    out, dt = {}, torch.bfloat16
+    for name, o, i in FLUX_SHAPES:
+        for scales, case in (("blockwise", fp8_case),
+                             ("per-tensor", per_tensor_case)):
+            w, s = case(o, i, seed=o + 3 * i)
+            first = fp8.dequant_fp8_blockwise_kernel(w, s, dt)
+            second = fp8.dequant_fp8_blockwise_kernel(w, s, dt)
+            plain = fp8.dequant_fp8_blockwise_plain(w, s, dt)
+            torch.cuda.synchronize()
+            nan = torch.isnan(plain)
+            err = (first.float() - plain.float())[~nan].abs().max().item()
+            same, twice = same_bits(first, plain), torch.equal(
+                first.view(torch.uint8), second.view(torch.uint8))
+            line = (f"fp8 dequant {name} [{o}, {i}] {scales} -> bf16: "
+                    f"kernel == plain bit for bit {same} (max_abs_err "
+                    f"{err:.1e}), launched twice identical {twice}")
+            check(same and twice, f"fp8 dequant {name} {scales}: kernel "
+                  f"differs from plain ({same}) or from itself ({twice})")
+            if scales == "blockwise":
+                entry = {"max_abs_err": err}
+                if name in FLUX_TIMED:
+                    entry.update(
+                        ms=device_ms(lambda: fp8.dequant_fp8_blockwise_kernel(
+                            w, s, dt)),
+                        plain_ms=device_ms(
+                            lambda: fp8.dequant_fp8_blockwise_plain(w, s, dt),
+                            iters=10),
+                        bound_ms=dequant_bound_ms(o, i, dt),
+                        bound_by="bytes")
+                    line += (f"; device ms {entry['ms']:.5f} ("
+                             f"{dequant_bytes(o, i, dt) / entry['ms'] / 1e9:.3f}"
+                             f" TB/s), plain {entry['plain_ms']:.5f}, bound "
+                             f"{entry['bound_ms']:.5f} (bytes); on {card}")
+                out[name] = entry
+            print(line, flush=True)
+            del w, s, first, second, plain
+    return out
+
+
+def _flux_request(url: str, path: str, side: int, steps: int, seed: int,
+                  fmt: str | None = None):
+    body = {"prompt": FLUX_PROMPT, "size": f"{side}x{side}", "steps": steps,
+            "seed": seed}
+    if fmt:
+        body["response_format"] = fmt
+    req = urllib.request.Request(
+        url + path, data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    t = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=900) as r:
+        return r.status, r.headers.get("Content-Type"), r.read(), \
+            time.perf_counter() - t
+
+
+def _flux_served(card: str):
+    """18(a): `cli serve --flagship --layers 1 --slots 0 --image-model
+    demo:flux1-dev --fp8-native` (FLUX.1-dev's full widths and depth from
+    seeded weights, the MMDiT native FP8), one 512 x 512 image as b64_json
+    and one 1024 x 1024 raw PNG over HTTP. Returns (image model, the
+    served dequant launches by weight shape, readings)."""
+    import base64
+    import torch
+    from cake_tpu_torch import cli
+    from cake_tpu_torch.ops import fp8
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    args = cli.parser().parse_args(
+        ["serve", "--flagship", "--layers", "1", "--slots", "0", "--port",
+         "0", "--image-model", "demo:flux1-dev", "--fp8-native"])
+    t0 = time.perf_counter()
+    app = cli.build_server(args).start()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    model = app.state.image_model
+    enc = model.text_encoder.params
+    parts = {"mmdit": _tree_bytes(model.params["transformer"]),
+             "t5": _tree_bytes(enc["t5"]), "clip": _tree_bytes(enc["clip"]),
+             "vae": _tree_bytes(model.params["vae"]),
+             "flagship_1_layer": _tree_bytes(app.state.model.params)}
+    held = torch.cuda.memory_allocated() - base
+    reckoned = sum(parts.values())
+    n_fp8 = _fp8_leaves(model.params["transformer"])
+    print(f"18(a) FLUX.1-dev seeded on the card in {build_s:.1f} s: "
+          f"{n_fp8} native FP8 weights; device memory "
+          f"{held / GB:.3f} GB held against {reckoned / GB:.3f} GB of "
+          f"parameters ({', '.join(f'{k} {v / GB:.3f}' for k, v in parts.items())}"
+          f" GB); on {card}", flush=True)
+    check(n_fp8 == 314, f"18(a): {n_fp8} native FP8 weights, want 314 "
+          "(19 x 10 + 38 x 3 + 10)")
+    check(abs(parts["mmdit"] / GB - 11.9) < 0.3 and abs(parts["t5"] / GB
+                                                        - 9.5) < 0.3,
+          f"18(a): MMDiT {parts['mmdit'] / GB:.2f} GB / T5 "
+          f"{parts['t5'] / GB:.2f} GB, want ~11.9 / ~9.5")
+    check(reckoned <= held <= reckoned + 0.5 * GB,
+          f"18(a): {held / GB:.3f} GB held for {reckoned / GB:.3f} GB of "
+          "parameters")
+    readings, served = {}, collections.Counter()
+    try:
+        for (side, steps), (path, fmt) in zip(
+                FLUX_SIZES, (("/v1/images/generations", None),
+                             ("/api/v1/image", None))):
+            fp8.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            status, ctype, raw, wall = _flux_request(app.url, path, side,
+                                                     steps, seed=side)
+            launches = fp8.launch_counts()["bf16"]
+            by_shape = fp8.shape_launch_counts()
+            served.update(by_shape)
+            check(status == 200, f"18(a) {side}: HTTP {status}")
+            if path.endswith("/image"):
+                check(ctype == "image/png", f"18(a) {side}: {ctype}")
+                png = raw
+            else:
+                png = base64.b64decode(json.loads(raw)["data"][0]["b64_json"])
+            pix = _png_pixels(png, side, f"18(a) {side}")
+            st = dict(model.stats)
+            peak = torch.cuda.max_memory_allocated() - base
+            r = readings[side] = {
+                "steps": steps, "s_per_step": st["denoise_s"] / steps,
+                "encode_s": st["encode_s"], "decode_s": st["decode_s"],
+                "wall_s": wall, "launches": launches,
+                "peak_gb": peak / GB, "png_bytes": len(png)}
+            print(f"18(a) {side} x {side} via {path}: {steps} steps, "
+                  f"{r['s_per_step']:.4f} s per denoising step, text "
+                  f"encoders {r['encode_s']:.4f} s, VAE decode "
+                  f"{r['decode_s']:.4f} s, request {wall:.2f} s; PNG "
+                  f"{len(png)} bytes, pixels {int(pix.min())}-"
+                  f"{int(pix.max())}; {launches} dequant launches "
+                  f"({steps} x {n_fp8}); peak device memory "
+                  f"{peak / GB:.2f} GB over the start; on {card}",
+                  flush=True)
+            check(launches == steps * n_fp8
+                  and sum(by_shape.values()) == launches,
+                  f"18(a) {side}: {launches} dequant launches ("
+                  f"{sum(by_shape.values())} by shape), want {steps} x "
+                  f"{n_fp8}")
+    finally:
+        app.stop()
+    return model, dict(served), readings
+
+
+def _flux_native_vs_at_load(model, card: str) -> None:
+    """18(b): the served model's latents (native FP8, the kernel per use)
+    equal bit for bit those of the same FP8 values dequantized at load
+    (utils/mapping.dequant_at_load, the loader's arithmetic), weight by
+    weight in place, at the same seed."""
+    import torch
+    from cake_tpu_torch.ops import fp8
+    from cake_tpu_torch.utils.mapping import dequant_at_load
+
+    def at_load(node):
+        if fp8.is_fp8(node):
+            return dequant_at_load(node["fp8"], node["scale_inv"][0, 0],
+                                   torch.bfloat16)
+        if isinstance(node, dict):
+            for k in list(node):
+                node[k] = at_load(node[k])
+        elif isinstance(node, list):
+            for k in range(len(node)):
+                node[k] = at_load(node[k])
+        return node
+    native = model.denoise(FLUX_PROMPT, FLUX_CHECK_SIDE, FLUX_CHECK_SIDE, steps=2, seed=7)
+    native_s = model.stats["denoise_s"] / 2
+    at_load(model.params["transformer"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem = torch.cuda.memory_allocated() / GB
+    fp8.reset_launches()
+    loaded = model.denoise(FLUX_PROMPT, FLUX_CHECK_SIDE, FLUX_CHECK_SIDE, steps=2, seed=7)
+    same = torch.equal(native.view(torch.int16), loaded.view(torch.int16))
+    print(f"18(b) native FP8 == dequantized at load, {FLUX_CHECK_SIDE}^2, "
+          f"2 steps: "
+          f"latents bit for bit {same} (finite "
+          f"{bool(torch.isfinite(native).all())}); {mem:.3f} GB on the "
+          f"card at load; {native_s:.4f} against "
+          f"{model.stats['denoise_s'] / 2:.4f} s per step at load; on "
+          f"{card}", flush=True)
+    check(same and bool(torch.isfinite(native).all()),
+          "18(b): native latents differ from at load's (or are not finite)")
+    check(sum(fp8.launch_counts().values()) == 0,
+          "18(b): the at-load model launched the dequant kernel")
+
+
+def _flux_checkpoint(card: str, workdir: str) -> None:
+    """18(c): FLUX.1-dev's widths at 2 double, 2 single and 2 T5 layers,
+    seeded (the MMDiT native FP8), written as a ComfyUI bundle
+    (bench/synth_flux.py: per-tensor `.scale_weight`, word-level
+    tokenizers) and loaded through runtime.build_image_model with
+    --fp8-native: its latents equal the seeded model's bit for bit, and
+    it makes a valid PNG."""
+    import torch
+    from cake_tpu_torch.bench.synth_flux import cut_depth, \
+        write_flux_checkpoint
+    from cake_tpu_torch.models.image import flux1_dev_configs, seeded_flux1
+    from cake_tpu_torch.runtime import build_image_model
+    cfgs = cut_depth(flux1_dev_configs(), FLUX_CUT["double"],
+                     FLUX_CUT["single"], FLUX_CUT["t5_layers"])
+    seeded = seeded_flux1(cfgs, torch.bfloat16, "cuda", seed=11,
+                          fp8_native=True)
+    want = seeded.denoise(FLUX_PROMPT, FLUX_CHECK_SIDE, FLUX_CHECK_SIDE, steps=2, seed=3)
+    d = os.path.join(workdir, "flux1_cut")
+    t = time.perf_counter()
+    n = write_flux_checkpoint(d, cfgs, {
+        "transformer": seeded.params["transformer"],
+        "vae": seeded.params["vae"], **seeded.text_encoder.params},
+        layout="bundle", fp8="tree")
+    write_s = time.perf_counter() - t
+    del seeded
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    loaded = build_image_model(d, "bf16", fp8_native=True)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    got = loaded.denoise(FLUX_PROMPT, FLUX_CHECK_SIDE, FLUX_CHECK_SIDE, steps=2, seed=3)
+    same = torch.equal(want.view(torch.int16), got.view(torch.int16))
+    png = loaded.generate_image(FLUX_PROMPT, FLUX_CHECK_SIDE, FLUX_CHECK_SIDE, steps=2,
+                                seed=3).png_bytes()
+    _png_pixels(png, FLUX_CHECK_SIDE, "18(c)")
+    print(f"18(c) FLUX.1-dev widths at {FLUX_CUT['double']} + "
+          f"{FLUX_CUT['single']} blocks and {FLUX_CUT['t5_layers']} T5 "
+          f"layers: {n / GB:.3f} GB written in {write_s:.1f} s, loaded "
+          f"native in {load_s:.1f} s ({n / GB / load_s:.2f} GB/s, page "
+          f"cache warm); latents equal the seeded model's bit for bit "
+          f"{same}; PNG {len(png)} bytes; on {card}", flush=True)
+    check(same, "18(c): the loaded checkpoint's latents differ from the "
+          "seeded model's")
+    shutil.rmtree(d, ignore_errors=True)
+
+
+def phase_flux(card: str, workdir: str) -> dict:
+    """18. FLUX.1-dev (module 14a): the dequant kernel at FLUX's shapes,
+    then (a) served, (b) native == at load, (c) a checkpoint."""
+    import torch
+    t0 = time.perf_counter()
+    out = {"kernel": phase_flux_kernel(card)}
+    torch.cuda.empty_cache()
+    model, out["launches"], out["served"] = _flux_served(card)
+    _flux_native_vs_at_load(model, card)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    _flux_checkpoint(card, workdir)
+    print(f"phase 18 in {time.perf_counter() - t0:.0f} s", flush=True)
+    return out
+
+
+def flux_kernel_rows(f: dict) -> list:
+    """The kernels line's rows of phase 18: the dequant kernel's bf16
+    output at the largest FLUX.1-dev shape and the two cropped edges,
+    each with its own shape's launches in 18(a)'s two served images."""
+    from cake_tpu_torch.bench.fp8_cases import FLUX_SHAPES, FLUX_TIMED
+    from cake_tpu_torch.ops import fp8
+    shapes = {name: (o, i) for name, o, i in FLUX_SHAPES}
+    rows = []
+    for name in FLUX_TIMED:
+        x = f["kernel"][name]
+        check(f["launches"].get(shapes[name], 0) > 0,
+              f"18(a): no served dequant launch at {name} {shapes[name]}")
+        rows.append({
+            "name": f"dequant_fp8_blockwise.bf16.{name}", "route": "cuda",
+            "source": fp8.SOURCE, "replaces": fp8.REPLACES,
+            "launches": f["launches"].get(shapes[name], 0),
+            "max_abs_err": x["max_abs_err"],
+            "ms": x["ms"], "plain_ms": x["plain_ms"],
+            "bound_ms": x["bound_ms"], "bound_by": x["bound_by"],
+            "library_ms": None})
+    return rows
+
+
 def main(argv: list[str]) -> int:
     t_start = time.perf_counter()
     import torch
@@ -5413,11 +5767,13 @@ def main(argv: list[str]) -> int:
               f"{time.perf_counter() - t_start:.0f} s (no result line: a "
               f"diagnosis)", flush=True)
         return 0
-    if argv[:2] in (["--only", "16"], ["--only", "17"]):
+    if argv[:2] in (["--only", "16"], ["--only", "17"], ["--only", "18"]):
         workdir = tempfile.mkdtemp(prefix="chip_smoke_")
         try:
             if argv[1] == "16":
                 rows = f16_kernel_rows(phase_f16(card, workdir))
+            elif argv[1] == "18":
+                rows = flux_kernel_rows(phase_flux(card, workdir))
             else:
                 phase_cluster(card, workdir)
                 rows = []
@@ -5468,9 +5824,9 @@ def main(argv: list[str]) -> int:
               f"{time.perf_counter() - t_start:.0f} s (no result line: "
               f"one phase)", flush=True)
         return 0
-    check(not argv, f"unknown arguments {argv} (only: --only 12, "
-          "--only 13, --only 13d, --only 14, --only 15, --only 16, "
-          "--only 17)")
+    check(not argv, f"unknown arguments {argv} (only: --only 12, --only 13, "
+          "--only 13d, --only 14, --only 15, --only 16, --only 17, --only "
+          "18)")
     timings = phase_kernels()
     paged_timings = phase_paged_kernels(built[pa.LIBRARY]["log"])
     parity_launches, parity_paged = phase_parity()
@@ -5497,6 +5853,7 @@ def main(argv: list[str]) -> int:
         quant = phase_quant(card, workdir)
         f16 = phase_f16(card, workdir)
         cluster = phase_cluster(card, workdir)
+        flux = phase_flux(card, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     kernels = []
@@ -5559,8 +5916,11 @@ def main(argv: list[str]) -> int:
     kernels += quant_kernel_rows(quant)
     kernels += offload_kernel_rows(offload, qnext)
     kernels += f16_kernel_rows(f16)
+    kernels += flux_kernel_rows(flux)
     print(f"checkpoint load (phase 7): {json.dumps(load)} on {card}")
     print(f"cluster (phase 17): {json.dumps(cluster['bf16'])} on {card}")
+    print(f"FLUX.1-dev served (phase 18): {json.dumps(flux['served'])} on "
+          f"{card}")
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.0f} s (limit 1200 s)", flush=True)
     print(json.dumps({"kernels": kernels}))

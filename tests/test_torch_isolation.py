@@ -1,6 +1,7 @@
 """The port stands alone: with `jax` and `cake_tpu` blocked, and the
 packages the card's machine lacks (`tokenizers`, `transformers`,
-`safetensors`, `regex`, `ml_dtypes`, `huggingface_hub`) blocked too,
+`safetensors`, `regex`, `ml_dtypes`, `huggingface_hub`, `PIL`,
+`sentencepiece`) blocked too,
 every module of cake_tpu_torch and chip_smoke.py imports (the metrics
 plane, obs/, the admission plane, serve/admission/, api/qos.py and
 api/obs_routes.py, and speculative decoding, spec/, among them), a tiny CPU chat is served by a contiguous
@@ -16,7 +17,11 @@ scan finds no import of any of them in the port's sources. The cluster
 (the port has its own msgpack codec and YAML reader) and `zstandard`
 blocked (the port imports it only behind the reference's gate, which the
 scan checks): a port worker on a thread and a `cli serve --cluster-key
---topology` master answer a chat."""
+--topology` master answer a chat. FLUX.1 (module 14a) runs there too: `cli
+serve --image-model demo:flux` answers /v1/images/generations with a PNG
+the port's own decoder reads, and a FLUX.1 bundle written by
+bench/synth_flux.py loads native FP8 through build_image_model and
+generates."""
 import ast
 import pathlib
 import subprocess
@@ -25,7 +30,7 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "jaxlib", "cake_tpu", "tokenizers", "transformers",
            "safetensors", "regex", "ml_dtypes", "huggingface_hub",
-           "msgpack", "yaml")
+           "msgpack", "yaml", "PIL", "sentencepiece")
 # optional packages the port may import only inside a try (the
 # reference's gate), blocked in the run all the same
 GATED = ("zstandard",)
@@ -73,7 +78,20 @@ for name in ("cake_tpu_torch.obs", "cake_tpu_torch.obs.metrics",
              "cake_tpu_torch.cluster.client",
              "cake_tpu_torch.cluster.worker",
              "cake_tpu_torch.cluster.master",
-             "cake_tpu_torch.cluster.faults"):
+             "cake_tpu_torch.cluster.faults", "cake_tpu_torch.ops.conv",
+             "cake_tpu_torch.ops.diffusion",
+             "cake_tpu_torch.models.text_encoders",
+             "cake_tpu_torch.models.text_encoders.clip",
+             "cake_tpu_torch.models.text_encoders.t5",
+             "cake_tpu_torch.models.image",
+             "cake_tpu_torch.models.image.mmdit",
+             "cake_tpu_torch.models.image.vae",
+             "cake_tpu_torch.models.image.flux",
+             "cake_tpu_torch.models.image.flux_loader",
+             "cake_tpu_torch.utils.mapping", "cake_tpu_torch.utils.init",
+             "cake_tpu_torch.utils.png",
+             "cake_tpu_torch.serve.admission.jobs",
+             "cake_tpu_torch.api.images", "cake_tpu_torch.bench.synth_flux"):
     assert name in mods, name
 import chip_smoke
 
@@ -228,6 +246,37 @@ with urllib.request.urlopen(app.url + "/api/v1/topology", timeout=60) as r:
 app.stop()
 app.state.model.close()
 assert held["w"].stats["ops"] > 0
+# FLUX.1: `cli serve --image-model demo:flux` answers an image, and a
+# written FLUX.1 bundle loads native FP8 and generates
+import base64
+from cake_tpu_torch.utils.png import decode_png
+app = cli.build_server(cli.parser().parse_args(
+    ["serve", "--flagship", "--layers", "1", "--cpu", "--dtype", "f32",
+     "--port", "0", "--slots", "0", "--image-model", "demo:flux"])).start()
+req = urllib.request.Request(
+    app.url + "/v1/images/generations",
+    data=json.dumps({"prompt": "a fox", "size": "24x16",
+                     "steps": 2}).encode())
+with urllib.request.urlopen(req, timeout=60) as r:
+    png = base64.b64decode(json.loads(r.read())["data"][0]["b64_json"])
+app.stop()
+assert decode_png(png).shape == (16, 24, 3)
+from cake_tpu_torch.bench.synth_flux import write_flux_checkpoint
+from cake_tpu_torch.models.image import seeded_flux1, tiny_flux_config
+from cake_tpu_torch.models.text_encoders import (tiny_clip_config,
+                                                 tiny_t5_config)
+from cake_tpu_torch.runtime import build_image_model
+pipe = tiny_flux_config()
+fcfgs = dict(mmdit=pipe.mmdit, vae=pipe.vae, clip=tiny_clip_config(),
+             t5=tiny_t5_config())
+seeded = seeded_flux1(fcfgs, torch.float32, "cpu", seed=2)
+fd = tempfile.mkdtemp() + "/flux1"
+write_flux_checkpoint(fd, fcfgs, {"transformer": seeded.params["transformer"],
+                                  "vae": seeded.params["vae"],
+                                  **seeded.text_encoder.params},
+                      layout="split", fp8="plain")
+flux = build_image_model(fd, "f32", fp8_native=True, device="cpu")
+assert flux.generate_image("w1 w2", 16, 16, steps=1).size == (16, 16)
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
 print("OK", len(mods))

@@ -223,5 +223,7 @@ def test_plane_resolves_like_the_reference():
     state = SimpleNamespace()
     assert tplane.get_plane(state) is tplane.get_plane(state)
     tp.begin_drain()
-    assert tp.health() == {"draining": True,
-                           "tenant_policies": ["*", "acme"]}
+    jp.begin_drain()
+    assert tp.health() == jp.health()
+    assert tp.health()["draining"] is True
+    assert tp.health()["tenant_policies"] == ["*", "acme"]

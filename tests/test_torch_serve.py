@@ -154,8 +154,8 @@ def test_text_stream_fuses_characters_split_over_tokens():
     four) come out as one delta with the last of them; the deltas join to
     the whole decode, and none holds a replacement character."""
     from cake_tpu_torch.bench.synth_checkpoint import gemma_tokenizer_json
-    from cake_tpu_torch.utils.bpe import BpeTokenizer
-    tok = BpeTokenizer(gemma_tokenizer_json(vocab_size=1000))
+    from cake_tpu_torch.utils.bpe import JsonTokenizer
+    tok = JsonTokenizer(gemma_tokenizer_json(vocab_size=1000))
     text = "a€b 𝄞 naïve 你好"
     ids = tok.encode(text, add_special_tokens=False)
     assert len(ids) > len(text)           # bytes of characters with no piece

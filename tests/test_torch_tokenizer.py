@@ -33,7 +33,7 @@ from cake_tpu_torch.bench.synth_checkpoint import (CORPUS, GEMMA_SPECIALS,
                                                    GEMMA_TEMPLATE,
                                                    gemma_tokenizer_json)
 from cake_tpu_torch.runtime import CakeTokenizer
-from cake_tpu_torch.utils.bpe import BpeTokenizer, UnsupportedTokenizer
+from cake_tpu_torch.utils.bpe import JsonTokenizer, UnsupportedTokenizer
 from cake_tpu_torch.utils.chat_template import ChatTemplate
 
 QWEN2_PAT = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}"
@@ -125,13 +125,14 @@ def _spec(tok: Tokenizer, style: str) -> dict:
 
 @pytest.fixture(scope="module")
 def pairs():
-    """style -> (the library's Tokenizer, the port's BpeTokenizer), both
+    """style -> (the library's Tokenizer, the port's JsonTokenizer), both
     from the same tokenizer.json text."""
     out = {}
     for style in STYLES:
         spec = _spec(_train(style), style)
         text = json.dumps(spec)
-        out[style] = (Tokenizer.from_str(text), BpeTokenizer(json.loads(text)))
+        out[style] = (Tokenizer.from_str(text),
+                      JsonTokenizer(json.loads(text)))
     return out
 
 
@@ -184,19 +185,19 @@ def test_corpus_and_ids_outside_vocab(pairs, style):
 def test_unsupported_constructs_raise(pairs):
     spec = _spec(_train("gpt2"), "gpt2")
     cases = [("decoder", {"type": "WordPiece"}),
-             ("normalizer", {"type": "NFKC"}),
-             ("pre_tokenizer", {"type": "Whitespace"}),
+             ("normalizer", {"type": "BertNormalizer"}),
+             ("pre_tokenizer", {"type": "Digits"}),
              ("post_processor", {"type": "BertProcessing"}),
-             ("normalizer", {"type": "Replace", "pattern": {"Regex": " +"},
-                             "content": "_"})]
+             ("normalizer", {"type": "Precompiled",
+                             "precompiled_charsmap": "AAAA"})]
     for field, value in cases:
         bad = dict(spec, **{field: value})
         with pytest.raises(UnsupportedTokenizer):
-            BpeTokenizer(bad)
+            JsonTokenizer(bad)
     bad = json.loads(json.dumps(spec))
     bad["model"]["dropout"] = 0.1
     with pytest.raises(UnsupportedTokenizer, match="dropout"):
-        BpeTokenizer(bad)
+        JsonTokenizer(bad)
 
 
 def test_byte_fallback_decode_fuses_split_utf8(pairs):
@@ -339,7 +340,7 @@ def test_synth_checkpoint_tokenizer_matches_tokenizers():
     import chip_smoke
     from cake_tpu_torch.bench import synth_checkpoint as sc
     text = json.dumps(sc.tokenizer_json(sc.QWEN3_SPECIALS))
-    lib, port = Tokenizer.from_str(text), BpeTokenizer(json.loads(text))
+    lib, port = Tokenizer.from_str(text), JsonTokenizer(json.loads(text))
     tmpl = ChatTemplate(sc.CHATML_TEMPLATE)
     for i in range(5):
         for shared in (False, True):
@@ -366,7 +367,7 @@ def test_added_token_ids_follow_the_library():
          "lstrip": False, "rstrip": False, "normalized": False,
          "special": True})
     text = json.dumps(spec)
-    lib, port = Tokenizer.from_str(text), BpeTokenizer(json.loads(text))
+    lib, port = Tokenizer.from_str(text), JsonTokenizer(json.loads(text))
     prompt = "a<|extra|>b<|pad|> c<|endoftext|>"
     assert port.encode(prompt) == lib.encode(prompt).ids
     assert lib.token_to_id("<|extra|>") >= n
