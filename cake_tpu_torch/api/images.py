@@ -11,20 +11,38 @@ the tenant's quota and the drain. The job checks in between diffusion
 steps, so a client that goes away stops it at the next step, and queued
 interactive chat is never held behind a long step loop. `n` (1-4) images
 are generated in turn from seeds seed, seed + 1, ...; sizes are
-WIDTHxHEIGHT up to CAKE_IMAGE_MAX_SIZE (2048) a side. `init_image_b64`
-(img2img) is SD's, and FLUX answers 400, as the reference does.
+WIDTHxHEIGHT up to CAKE_IMAGE_MAX_SIZE (2048) a side.
+
+`init_image_b64` (img2img, with `strength`, 0.8 by default) is SD's: a
+model without `init_latent_from` (FLUX) answers 400, as the reference
+does. The image's bytes come in the body, never a server path. The
+handler reads only the PNG's signature and header (utils/png.png_header):
+anything but an 8-bit non-interlaced PNG, or one larger than twice
+CAKE_IMAGE_MAX_SIZE a side, answers 400 `bad init_image_b64: ...` before
+a pixel is inflated. The decode, the resize and the encode run inside
+the job, under admission and the job workers, as the reference leaves
+the pixel work to its job; a broken stream answers the same 400 from
+there. SD's intermediate images and profiler trace are the operator's
+(AppState.sd_intermediate_every / sd_trace_dir), never the request's.
 """
 from __future__ import annotations
 
 import base64
+import binascii
+import inspect
 import json
 import os
 import time
 
 from ..obs import TRACE_HEADER
+from ..utils.png import decode_png, png_header
 from .qos import adopt_job_request_id, resolve_admission, run_admitted_job
 
 DEFAULT_MAX_SIZE = 2048         # the reference's CAKE_IMAGE_MAX_SIZE
+
+
+def max_size() -> int:
+    return int(os.environ.get("CAKE_IMAGE_MAX_SIZE") or DEFAULT_MAX_SIZE)
 
 
 def parse_size(s: str) -> tuple[int, int]:
@@ -35,13 +53,30 @@ def parse_size(s: str) -> tuple[int, int]:
         w, h = int(w), int(h)
     except Exception:
         raise ValueError("size must be WIDTHxHEIGHT")
-    limit = int(os.environ.get("CAKE_IMAGE_MAX_SIZE") or DEFAULT_MAX_SIZE)
+    limit = max_size()
     if w <= 0 or h <= 0:
         raise ValueError(f"size {w}x{h} must be positive")
     if w > limit or h > limit:
         raise ValueError(f"size {w}x{h} exceeds CAKE_IMAGE_MAX_SIZE "
                          f"({limit}x{limit})")
     return w, h
+
+
+def check_init_png(data: bytes) -> None:
+    """Refuse, from the header alone, an init image that decode_png would
+    refuse or that is larger than twice CAKE_IMAGE_MAX_SIZE a side (a
+    phone's 4032 x 3024 photo passes at the default); raises ValueError."""
+    iw, ih, _ = png_header(data)
+    limit = 2 * max_size()
+    if iw > limit or ih > limit:
+        raise ValueError(f"init image of {iw} x {ih}: at most {limit} a "
+                         f"side (twice CAKE_IMAGE_MAX_SIZE)")
+
+
+def _takes(fn, name: str) -> bool:
+    """Whether `fn` has a parameter `name` (SD's debugging arguments go
+    only to a generator that takes them)."""
+    return name in inspect.signature(fn).parameters
 
 
 def images_generations(handler, state) -> None:
@@ -74,10 +109,30 @@ def images_generations(handler, state) -> None:
                       negative_prompt=body.get("negative_prompt"))
     except (TypeError, ValueError) as e:
         return handler.send_json({"error": f"invalid parameters: {e}"}, 400)
+    model = state.image_model
+    init_png = None
     if body.get("init_image_b64"):
-        return handler.send_json(
-            {"error": "img2img is SD-only (FLUX is guidance-distilled "
-                      "text-to-image)"}, 400)
+        if not hasattr(model, "init_latent_from"):
+            return handler.send_json(
+                {"error": "img2img is SD-only (FLUX is guidance-distilled "
+                          "text-to-image)"}, 400)
+        try:
+            init_png = base64.b64decode(body["init_image_b64"],
+                                        validate=True)
+            check_init_png(init_png)
+        except (ValueError, TypeError, binascii.Error) as e:
+            return handler.send_json(
+                {"error": f"bad init_image_b64: {e}"}, 400)
+        try:
+            kwargs["strength"] = float(body.get("strength", 0.8))
+        except (TypeError, ValueError) as e:
+            return handler.send_json({"error": f"invalid parameters: {e}"},
+                                     400)
+    gen = model.generate_image
+    if state.sd_intermediate_every and _takes(gen, "intermediate_every"):
+        kwargs["intermediate_every"] = state.sd_intermediate_every
+    if state.sd_trace_dir and _takes(gen, "trace_dir"):
+        kwargs["trace_dir"] = state.sd_trace_dir
     try:
         n = int(body.get("n") or 1)
     except (TypeError, ValueError):
@@ -92,10 +147,15 @@ def images_generations(handler, state) -> None:
         return None
     qos, tenant, release = resolved
     rid = adopt_job_request_id(handler, "img")
-    gen = state.image_model.generate_image
 
     def run(job):
         kwargs["on_step"] = lambda i, total: job.checkpoint()
+        if init_png is not None:
+            try:
+                pixels = decode_png(init_png)
+            except ValueError as e:     # answered 400 by run_admitted_job
+                raise ValueError(f"bad init_image_b64: {e}") from e
+            kwargs["init_image"] = model.init_latent_from(pixels, w, h)
         out = []
         for i in range(n):
             job.checkpoint()

@@ -74,6 +74,11 @@ class AppState:
     lock: threading.Lock = field(default_factory=threading.Lock)
     draining: bool = False      # shutting down: new chats answer 503
     image_model: object = None  # models/image: FluxImageModel, or None
+    # SD's debugging surface, set by the OPERATOR (`cli serve
+    # --sd-intermediate-every / --sd-trace-dir`), never by a request body:
+    # both write files on the server
+    sd_intermediate_every: int = 0
+    sd_trace_dir: str | None = None
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -222,10 +227,15 @@ class ApiServer(ThreadingHTTPServer):
 
 def create_app(model, engine, tokenizer, host: str = "127.0.0.1",
                port: int = 8080, model_id: str = "cake-tpu-torch",
-               plane=None, image_model=None) -> ApiServer:
+               plane=None, image_model=None, sd_intermediate_every: int = 0,
+               sd_trace_dir: str | None = None) -> ApiServer:
     """`engine`: a ServeEngine, or None for the locked one-request path
     (serve/engine.py: maybe_engine). `plane`: the admission plane (tenant
     policies); None builds one from CAKE_QOS_TENANTS at the first
-    request. `image_model`: what /v1/images/generations serves."""
+    request. `image_model`: what /v1/images/generations serves, with SD's
+    intermediate images every `sd_intermediate_every` steps and its
+    profiler trace into `sd_trace_dir`."""
     return ApiServer(AppState(model, engine, tokenizer, model_id, plane,
-                              image_model=image_model), host, port)
+                              image_model=image_model,
+                              sd_intermediate_every=sd_intermediate_every,
+                              sd_trace_dir=sd_trace_dir), host, port)

@@ -6,8 +6,10 @@
         [--expert-offload] [--slots N] [--ctx N] [--max-queue N]
         [--prefill-chunk N] [--prefix-cache-mb MB] [--kv-blocks N]
         [--kv-block-tokens T] [--preempt-mode M] [--image-model M]
+        [--sd-intermediate-every N] [--sd-trace-dir DIR]
     python -m cake_tpu_torch.cli image MODEL "prompt" --out x.png
         [--width W] [--height H] [--steps N] [--guidance G] [--seed N]
+        [--negative-prompt P] [--init-image PNG] [--strength S]
         [--dtype D] [--fp8-native] [--cpu]
     python -m cake_tpu_torch.cli run (MODEL | --flagship) "prompt"
         [--max-tokens N] [--temperature T] [--top-k K] [--top-p P]
@@ -46,16 +48,23 @@ on the command line wins over its variable (serve/engine.py:
 engine_knobs). CAKE_DRAIN_TIMEOUT_S (30) bounds the drain at shutdown.
 `run` takes the reference's sampling flags and defaults (256 tokens at
 temperature 0.7), and `--raw` encodes the prompt without the chat
-template. `image` writes one PNG (1024 x 1024, 20 steps, guidance 3.5 by
-default) from an image model (runtime.build_image_model: `demo:flux`, the
-tiny FLUX.1 pipeline on seeded weights; `demo:flux1-dev`, FLUX.1-dev's
-widths and depth on seeded weights; or a FLUX.1 checkpoint, whose FP8
-transformer `--fp8-native` keeps at 1 byte per parameter); `serve
---image-model M` serves it too, at POST /v1/images/generations and
-/api/v1/image, in the same `--dtype`, `--fp8-native` then applying to the
-image model (and to MODEL, which it requires to be FP8, unless MODEL is
-`--flagship`). CAKE_JOB_WORKERS (1) image jobs run at once, and
-CAKE_IMAGE_MAX_SIZE (2048) bounds a side. The supervisor's
+template. `image` writes one PNG (1024 x 1024 by default; 20 steps and
+guidance 3.5 for FLUX, the SD config's 20 and 7.5) from an image model
+(runtime.build_image_model: `demo:flux`, the tiny FLUX.1 pipeline on
+seeded weights; `demo:flux1-dev`, FLUX.1-dev's widths and depth on
+seeded weights; `demo:sd`, the tiny SD pipeline; a FLUX.1 checkpoint,
+whose FP8 transformer `--fp8-native` keeps at 1 byte per parameter; or a
+diffusers SD 1.x / 2.x / SDXL directory); with an SD model,
+`--init-image PNG` starts from that image (img2img, `--strength` 0.8 by
+default). `serve --image-model M` serves it too, at POST
+/v1/images/generations and /api/v1/image, in the same `--dtype`,
+`--fp8-native` then applying to the image model (and to MODEL, which it
+requires to be FP8, unless MODEL is `--flagship`); for SD,
+`--sd-intermediate-every N` writes the image in progress every N steps
+(sd_intermediate_<step>.png in the working directory) and
+`--sd-trace-dir DIR` a torch.profiler trace of each generation there.
+CAKE_JOB_WORKERS (1) image jobs run at once, and CAKE_IMAGE_MAX_SIZE
+(2048) bounds a side. The supervisor's
 knobs come from the environment, as the reference reads them:
 CAKE_STEP_WATCHDOG_S (0, off), CAKE_ENGINE_REBUILDS (3) per rolling
 CAKE_ENGINE_REBUILD_WINDOW_S (300), and CAKE_ENGINE_RESTORE_S (5), the
@@ -235,7 +244,9 @@ def build_server(args):
             "CAKE_SERVE_SLOTS=0" if shape["slots"] <= 0
             else type(model).__name__)
     return create_app(model, engine, tokenizer, args.host, args.port,
-                      model_id=model_id, plane=plane, image_model=image_model)
+                      model_id=model_id, plane=plane, image_model=image_model,
+                      sd_intermediate_every=args.sd_intermediate_every,
+                      sd_trace_dir=args.sd_trace_dir)
 
 
 def cmd_serve(args) -> int:
@@ -293,6 +304,19 @@ def cmd_image(args) -> int:
         kwargs["steps"] = args.steps
     if args.guidance is not None:
         kwargs["guidance"] = args.guidance
+    if args.init_image:
+        if not hasattr(model, "init_latent_from"):
+            raise SystemExit("--init-image needs an SD model (FLUX is "
+                             "guidance-distilled text-to-image only)")
+        from .utils.png import decode_png
+        try:
+            with open(args.init_image, "rb") as f:
+                pixels = decode_png(f.read())
+            kwargs["init_image"] = model.init_latent_from(
+                pixels, args.width, args.height)
+        except ValueError as e:
+            raise SystemExit(f"{args.init_image}: {e}")
+        kwargs["strength"] = args.strength
     t0 = time.monotonic()
     image = model.generate_image(args.prompt, **kwargs)
     image.save(args.out)
@@ -346,7 +370,14 @@ def parser() -> argparse.ArgumentParser:
                         "(CAKE_PREEMPT_MODE, swap)")
     s.add_argument("--image-model", default=None,
                    help="also serve this image model ('demo:flux', "
-                        "'demo:flux1-dev' or a FLUX.1 checkpoint)")
+                        "'demo:flux1-dev', 'demo:sd', a FLUX.1 checkpoint "
+                        "or a diffusers SD directory)")
+    s.add_argument("--sd-intermediate-every", type=int, default=0,
+                   help="SD: save the image in progress every N denoising "
+                        "steps (sd_intermediate_<step>.png)")
+    s.add_argument("--sd-trace-dir", default=None,
+                   help="SD: write a torch.profiler trace of each "
+                        "generation here")
     s.set_defaults(fn=cmd_serve)
     r = sub.add_parser("run", help="generate once from a chat prompt")
     _model_args(r)
@@ -365,8 +396,9 @@ def parser() -> argparse.ArgumentParser:
                         "template")
     r.set_defaults(fn=cmd_run)
     i = sub.add_parser("image", help="generate an image to a PNG file")
-    i.add_argument("model", help="'demo:flux', 'demo:flux1-dev' or a "
-                                 "FLUX.1 checkpoint")
+    i.add_argument("model", help="'demo:flux', 'demo:flux1-dev', "
+                                 "'demo:sd', a FLUX.1 checkpoint or a "
+                                 "diffusers SD directory")
     i.add_argument("prompt")
     i.add_argument("--out", default="output.png")
     i.add_argument("--width", type=int, default=1024)
@@ -375,6 +407,10 @@ def parser() -> argparse.ArgumentParser:
     i.add_argument("--guidance", type=float, default=None)
     i.add_argument("--seed", type=int, default=None)
     i.add_argument("--negative-prompt", default=None)
+    i.add_argument("--init-image", default=None,
+                   help="SD img2img: start from this PNG")
+    i.add_argument("--strength", type=float, default=0.8,
+                   help="img2img: how much of the schedule to run")
     i.add_argument("--dtype", default="bf16")
     i.add_argument("--fp8-native", action="store_true",
                    help="keep a FLUX.1 checkpoint's FP8 transformer 1 "

@@ -11,7 +11,8 @@ Instruments are process-global and keep the reference's names, labels
 and buckets, so a dashboard written for the reference reads the port:
 the API server's /metrics renders REGISTRY, /api/v1/trace the RECORDER,
 /api/v1/requests/<id> TIMELINES. Recording reads host values the caller
-already has; none of it touches the card.
+already has; none of it touches the card. `torch_trace` (obs/profile.py)
+is the device-side profiler trace SD's trace_dir wraps a generation in.
 
 Not here yet: the fleet instruments, the jobs gauge, and the
 reference's obs/series.py and obs/catalog.py (they come with the modules
@@ -21,6 +22,7 @@ from __future__ import annotations
 
 from .metrics import (LATENCY_BUCKETS, REGISTRY, Counter, Gauge, Histogram,
                       MetricsRegistry)
+from .profile import torch_trace
 from .spans import (DEFAULT_TRACE_EVENTS, RECORDER, SPAN_CATALOG,
                     SpanRecorder, current_request_id, new_request_id,
                     now_us, request_scope, set_request_id)
@@ -313,7 +315,8 @@ WORKER_HEARTBEAT = REGISTRY.gauge(
 __all__ = [
     "Counter", "Gauge", "Histogram", "LATENCY_BUCKETS", "MetricsRegistry",
     "REGISTRY", "RECORDER", "SPAN_CATALOG", "SpanRecorder", "PhaseTimer",
-    "now", "now_us", "configure", "new_request_id", "set_request_id",
+    "now", "now_us", "configure", "torch_trace", "new_request_id",
+    "set_request_id",
     "current_request_id", "request_scope", "EVENT_KINDS", "TIMELINES",
     "TimelineStore", "TRACE_HEADER",
     "TTFT_SECONDS", "DECODE_TOKEN_SECONDS", "GENERATED_TOKENS", "GENERATIONS",

@@ -16,8 +16,8 @@ The serve engine's spans never wait on the card: a span that covers
 device work ends at the scheduler iteration's one existing fetch (or,
 with nothing to fetch, where the iteration's host work ends), so the
 recorder adds no synchronisation and nothing is recorded inside a graph
-capture. The reference's `jax_trace` (the JAX profiler hook) has no
-counterpart here.
+capture. The reference's `jax_trace` (the JAX profiler hook) has its
+counterpart in obs/profile.py (`torch_trace`).
 """
 from __future__ import annotations
 

@@ -265,8 +265,7 @@ def _cluster_model(model: str, model_dir: str, cfg, workers: list[dict],
 
 # image families of the reference the port has not taken over yet -> the
 # ROADMAP item that brings them
-IMAGE_NOT_PORTED = {"sd": "module 14b (SD 1.5 and SDXL)",
-                    "flux2": "module 14c (FLUX.2-klein)"}
+IMAGE_NOT_PORTED = {"flux2": "module 14c (FLUX.2-klein)"}
 
 
 def _image_family(path: str) -> str | None:
@@ -298,22 +297,35 @@ def _image_family(path: str) -> str | None:
 def build_image_model(model: str, dtype: str = "bf16",
                       fp8_native: bool = False, device=None, seed: int = 42):
     """The image generator of `cli image` and `cli serve --image-model`,
-    on `device` (default `cuda`): `demo:flux` (tiny, seeded),
-    `demo:flux1-dev` (FLUX.1-dev's widths and depth, seeded) or a FLUX.1
-    checkpoint path."""
-    from .models.image import (FluxImageModel, load_flux_image_model,
-                               seeded_flux1, tiny_flux_config)
+    on `device` (default `cuda`): `demo:flux` (tiny FLUX.1, seeded),
+    `demo:flux1-dev` (FLUX.1-dev's widths and depth, seeded), `demo:sd`
+    (tiny SD, seeded), a FLUX.1 checkpoint path, or a diffusers SD 1.x /
+    2.x / SDXL directory. `fp8_native` is FLUX.1's: SD checkpoints carry
+    no FP8, and SD refuses it."""
+    from .models.image import (FluxImageModel, SDImageModel,
+                               load_flux_image_model, load_sd_image_model,
+                               seeded_flux1, tiny_flux_config,
+                               tiny_sd_config)
     dt = parse_dtype(dtype)
     family = {"demo:sd": "sd", "demo:flux2": "flux2"}.get(model)
+    path = None
     if family is None and not model.startswith("demo:"):
         path = os.path.expanduser(model)
         if not os.path.exists(path):
             path = resolve_model(model)
         family = _image_family(path)
-    if family is not None:
+    if family in IMAGE_NOT_PORTED:
         raise NotImplementedError(
             f"{family} image models are not ported yet: ROADMAP "
             f"{IMAGE_NOT_PORTED[family]}")
+    if family == "sd":
+        if fp8_native:
+            raise ValueError("--fp8-native is FLUX.1's: SD checkpoints "
+                             "carry no FP8 weights")
+        if path is None:
+            return SDImageModel(tiny_sd_config(), dtype=dt, seed=seed,
+                                device=device)
+        return load_sd_image_model(path, dtype=dt, device=device)
     if model == "demo:flux1-dev":
         return seeded_flux1(dtype=dt, device=device, seed=seed,
                             fp8_native=fp8_native)

@@ -19,7 +19,8 @@ names its field):
     fused);
   * added_tokens: split out of the raw text before anything else,
     longest first at each position (the library's leftmost-longest
-    match); tokens without lstrip / rstrip / single_word. Their ids are
+    match), or, `normalized` ones, out of each piece's normalized text;
+    tokens without lstrip / rstrip / single_word. Their ids are
     the library's: the model's id, or the next one past the model's vocab
     (a file whose ids leave a gap is renumbered, with a warning, as the
     library renumbers it);
@@ -43,6 +44,12 @@ names its field):
     Fuse;
   * `truncation` and `padding` null.
 
+A directory with no tokenizer.json but a CLIP `vocab.json` + `merges.txt`
+(what released SD and SDXL repositories ship) is read as
+`transformers.AutoTokenizer` reads it (`load_tokenizer`, `clip_spec`):
+the slow CLIPTokenizer's reading of the files, converted to the fast
+pipeline as the library's CLIPConverter converts it.
+
 The library's patterns are Oniguruma regexes. Stdlib `re` lacks
 `\\p{..}` classes and reads `\\s` and `\\w` differently, so `translate_regex`
 rewrites those escapes into explicit code-point ranges built from
@@ -63,6 +70,7 @@ import functools
 import heapq
 import json
 import logging
+import os
 import re
 import sys
 import unicodedata
@@ -608,16 +616,13 @@ class JsonTokenizer:
         self.vocab = self.model.vocab
         self.id_to_token = dict(self.model.tokens)
         self.added: dict[str, int] = {}
-        normalizer = spec.get("normalizer")
+        self._normalize = _normalizer(spec.get("normalizer"))
+        raw, normed = [], []
         for tok in spec.get("added_tokens") or []:
             for flag in ("lstrip", "rstrip", "single_word"):
                 if tok.get(flag):
                     raise UnsupportedTokenizer(
                         f"added_tokens {tok['content']!r}: {flag}")
-            if tok.get("normalized") and not tok.get("special") \
-                    and normalizer is not None:
-                raise UnsupportedTokenizer(
-                    f"added_tokens {tok['content']!r}: normalized")
             i = self._added_id(tok["content"])
             if i != int(tok["id"]):
                 log.warning("added token %r: id %s in the file, %d as the "
@@ -625,10 +630,14 @@ class JsonTokenizer:
                             i)
             self.added[tok["content"]] = i
             self.id_to_token[i] = tok["content"]
-        self._added_rx = (re.compile("|".join(
-            re.escape(t) for t in sorted(self.added, key=len, reverse=True)))
-            if self.added else None)
-        self._normalize = _normalizer(normalizer)
+            # a `normalized` token is matched in the normalized text,
+            # under its own normalized form; the others in the raw text
+            (normed if tok.get("normalized") else raw).append(
+                tok["content"])
+        self._added_normed = {self._normalize(t): self.added[t]
+                              for t in normed}
+        self._raw_rx = _alternation(raw)
+        self._normed_rx = _alternation(self._added_normed)
         self._words = _pre_tokenizer(spec.get("pre_tokenizer"))
         self._post = _post_processor(spec.get("post_processor"))
         self._decode = _decoder(spec.get("decoder"))
@@ -662,26 +671,23 @@ class JsonTokenizer:
             self._cache[word] = ids
         return ids
 
-    def _encode_text(self, text: str) -> list[int]:
+    def _encode_words(self, normalized: str) -> list[int]:
         ids: list[int] = []
-        normalized = self._normalize(text)
         for word in self._words([normalized] if normalized else []):
             if word:
                 ids.extend(self._encode_word(word))
         return ids
 
+    def _encode_text(self, text: str) -> list[int]:
+        """A piece between raw added tokens: normalized, then split at
+        the normalized added tokens, the rest pre-tokenized and encoded."""
+        return _split_added(self._normalize(text), self._normed_rx,
+                            self._added_normed, self._encode_words)
+
     def encode(self, text: str, add_special_tokens: bool = True
                ) -> list[int]:
-        ids: list[int] = []
-        last = 0
-        if self._added_rx is not None:
-            for m in self._added_rx.finditer(text):
-                if m.start() > last:
-                    ids.extend(self._encode_text(text[last:m.start()]))
-                ids.append(self.added[m.group(0)])
-                last = m.end()
-        if last < len(text):
-            ids.extend(self._encode_text(text[last:]))
+        ids = _split_added(text, self._raw_rx, self.added,
+                           self._encode_text)
         return self._post(ids) if add_special_tokens else ids
 
     # -- decode --------------------------------------------------------------
@@ -690,6 +696,141 @@ class JsonTokenizer:
         tokens = [t for t in (self.id_to_token.get(int(i)) for i in ids)
                   if t is not None]
         return "".join(self._decode(tokens))
+
+
+def _alternation(tokens) -> re.Pattern | None:
+    """Leftmost-longest match of any of `tokens` (the library's)."""
+    if not tokens:
+        return None
+    return re.compile("|".join(re.escape(t) for t in
+                               sorted(tokens, key=len, reverse=True)))
+
+
+def _split_added(text: str, rx, ids_of: dict, encode) -> list[int]:
+    """The ids of the added tokens rx finds in text, and encode(...) of
+    the pieces between them."""
+    ids: list[int] = []
+    last = 0
+    if rx is not None:
+        for m in rx.finditer(text):
+            if m.start() > last:
+                ids.extend(encode(text[last:m.start()]))
+            ids.append(ids_of[m.group(0)])
+            last = m.end()
+    if last < len(text):
+        ids.extend(encode(text[last:]))
+    return ids
+
+
+# -- CLIP from vocab.json + merges.txt ----------------------------------------
+
+CLIP_SPLIT = (r"'s|'t|'re|'ve|'m|'ll|'d|[\p{L}]+|[\p{N}]"
+              r"|[^\s\p{L}\p{N}]+")
+# the slow CLIPTokenizer reads merges.txt's lines [1, CLIP_MERGES_END):
+# the version header is skipped, at most 48894 merges are kept
+CLIP_MERGES_END = 49152 - 256 - 2 + 1
+CLIP_SPECIALS = (("bos_token", "<|startoftext|>"),
+                 ("eos_token", "<|endoftext|>"),
+                 ("unk_token", "<|endoftext|>"),
+                 ("pad_token", "<|endoftext|>"))
+
+
+def clip_spec(vocab: dict[str, int], merges_text: str,
+              config: dict | None = None) -> dict:
+    """The tokenizer.json that transformers' AutoTokenizer builds for a
+    CLIP `vocab.json` + `merges.txt` (+ `tokenizer_config.json`, here
+    `config`): its slow-to-fast conversion (CLIPConverter) over the slow
+    CLIPTokenizer's reading of the files. NFC, runs of whitespace to one
+    space and lowercase; CLIP's split regex (its matches kept) then
+    ByteLevel (GPT-2's regex, no prefix space); BPE with the "</w>" word
+    suffix; <|startoftext|> ... <|endoftext|> around the ids. The special
+    tokens become added tokens: bos, eos and unk matched in the
+    normalized text (the slow tokenizer wraps them so) unless the config
+    says otherwise, pad as the config gives it (a bare string: in the raw
+    text), each once, in that order."""
+    config = config or {}
+    lines = merges_text.strip().split("\n")[1:CLIP_MERGES_END]
+    merges: dict[tuple[str, ...], None] = {}
+    for n, line in enumerate(lines, 2):
+        pair = tuple(line.split())
+        if len(pair) != 2:
+            raise UnsupportedTokenizer(f"merges.txt line {n}: {line!r}")
+        merges.setdefault(pair, None)
+    added, specials = [], {}
+    for key, default in CLIP_SPECIALS:
+        tok = config.get(key, default)
+        if isinstance(tok, dict):
+            content, normed = tok["content"], tok.get("normalized", True)
+        else:
+            content, normed = tok, key != "pad_token"
+        specials[key] = content
+        if content is not None and all(a["content"] != content
+                                       for a in added):
+            added.append({"content": content, "single_word": False,
+                          "lstrip": False, "rstrip": False,
+                          "normalized": normed, "special": True})
+    top = len(vocab)
+    for a in added:
+        if a["content"] in vocab:
+            a["id"] = vocab[a["content"]]
+        else:
+            a["id"], top = top, top + 1
+    ids = {a["content"]: a["id"] for a in added}
+    bos, eos = specials["bos_token"], specials["eos_token"]
+    return {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": sorted(added, key=lambda a: a["id"]),
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "NFC"},
+            {"type": "Replace", "pattern": {"Regex": r"\s+"},
+             "content": " "},
+            {"type": "Lowercase"}]},
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": CLIP_SPLIT},
+             "behavior": "Removed", "invert": True},
+            {"type": "ByteLevel", "add_prefix_space": False,
+             "trim_offsets": True, "use_regex": True}]},
+        "post_processor": {"type": "RobertaProcessing",
+                           "sep": [eos, ids[eos]], "cls": [bos, ids[bos]],
+                           "trim_offsets": False, "add_prefix_space": False},
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True,
+                    "trim_offsets": True, "use_regex": True},
+        "model": {"type": "BPE", "dropout": None,
+                  "unk_token": str(specials["unk_token"]),
+                  "continuing_subword_prefix": "",
+                  "end_of_word_suffix": "</w>", "fuse_unk": False,
+                  "byte_fallback": False, "ignore_merges": False,
+                  "vocab": vocab, "merges": [list(m) for m in merges]},
+    }
+
+
+def load_tokenizer(directory: str) -> "JsonTokenizer":
+    """A directory's tokenizer: its `tokenizer.json`, else a CLIP
+    `vocab.json` + `merges.txt` (with `tokenizer_config.json` when there
+    is one) as AutoTokenizer reads them."""
+    path = os.path.join(directory, "tokenizer.json")
+    if os.path.exists(path):
+        return JsonTokenizer.from_file(path)
+    vocab_path = os.path.join(directory, "vocab.json")
+    merges_path = os.path.join(directory, "merges.txt")
+    if not (os.path.exists(vocab_path) and os.path.exists(merges_path)):
+        raise FileNotFoundError(
+            f"no tokenizer.json, nor vocab.json + merges.txt, in {directory}")
+    with open(vocab_path, encoding="utf-8") as f:
+        vocab = json.load(f)
+    with open(merges_path, encoding="utf-8") as f:
+        merges = f.read()
+    config = {}
+    cfg_path = os.path.join(directory, "tokenizer_config.json")
+    if os.path.exists(cfg_path):
+        with open(cfg_path, encoding="utf-8") as f:
+            config = json.load(f)
+    cls = config.get("tokenizer_class", "CLIPTokenizer")
+    if cls not in ("CLIPTokenizer", "CLIPTokenizerFast"):
+        raise UnsupportedTokenizer(
+            f"{directory}: vocab.json + merges.txt of a {cls}; only CLIP's "
+            "are read without a tokenizer.json")
+    return JsonTokenizer(clip_spec(vocab, merges, config))
 
 
 def word_level_spec(vocab_size: int) -> dict:

@@ -85,11 +85,15 @@ def dequant_at_load(arr: torch.Tensor, scale: torch.Tensor | None,
 
 def load_mapped_params(storage, mapping: dict[str, str], expected,
                        dtype=torch.bfloat16, device="cpu",
-                       fp8_native: bool = False) -> dict:
+                       fp8_native: bool = False,
+                       transforms: dict | None = None) -> dict:
     """The tree of `expected` (shape-only leaves) read through `mapping`
-    onto `device` in `dtype`. Raises ValueError listing every unmapped
-    path and missing tensor at once, then every shape mismatch, as the
-    reference does (same messages)."""
+    onto `device` in `dtype`. `transforms`: {path: fn(tensor) -> tensor}
+    applied to a tensor before its shape is checked (SD's 1x1-conv
+    projections squeezed to linears). Raises ValueError listing every
+    unmapped path and missing tensor at once, then every shape mismatch,
+    as the reference does (same messages)."""
+    transforms = transforms or {}
     flat_expected = flatten_tree(expected)
     problems: list[str] = []
     unmapped = [p for p in flat_expected if p not in mapping]
@@ -110,6 +114,8 @@ def load_mapped_params(storage, mapping: dict[str, str], expected,
             if name.endswith(".weight") else None
         scaled = scale is not None and scale in storage
         arr = storage.read(name, device)
+        if path in transforms:
+            arr = transforms[path](arr)
         is_f8 = arr.dtype == torch.float8_e4m3fn
         if tuple(arr.shape) != tuple(exp.shape):
             problems.append(f"{name} -> {path}: shape {tuple(arr.shape)} "

@@ -12,7 +12,8 @@ the reference's {"fp8", "scale_inv"} pair, stays one: its
 `float8_e4m3fn` bytes cross as uint8 and are viewed as
 torch.float8_e4m3fn, its scales stay float32. `tree_from_numpy` does
 the same for the image models' trees (MMDiT, VAE, CLIP, T5), whose
-structural None leaves (a VAE level with no upsample) stay None.
+structural None leaves (a VAE level with no upsample) stay None;
+`sd_params_from_numpy` carries an SD / SDXL pipeline's tree.
 """
 from __future__ import annotations
 
@@ -75,3 +76,26 @@ def tree_from_numpy(tree, device="cuda",
     """Any nested dict/list of numpy arrays -> the same tree of tensors
     (an image component's parameters)."""
     return _convert(tree, device, dtype)
+
+
+SD_PARTS = ("unet", "vae", "vae_enc")
+
+
+def sd_params_from_numpy(tree: dict, device="cuda",
+                         dtype: torch.dtype = torch.bfloat16,
+                         vae_dtype: torch.dtype | None = None) -> dict:
+    """The reference's SD / SDXL pipeline tree {"unet", "vae", "vae_enc"
+    (optional)} of numpy arrays -> SDImageModel's params: the UNet in
+    `dtype`, the VAE's decoder and encoder in `vae_dtype` (`dtype` when
+    None). The reference's structural Nones (a level with no
+    cross-attention in its "attn" list, no "down" at the last level, no
+    "up" at the first) stay None; a tree from a mapped load, which has
+    none of those entries, stays without them (unet_forward reads both)."""
+    unknown = sorted(set(tree) - set(SD_PARTS))
+    if unknown or "unet" not in tree or "vae" not in tree:
+        raise ValueError(f"an SD tree has {SD_PARTS}, not {sorted(tree)}")
+    out = {"unet": _convert(tree["unet"], device, dtype)}
+    for part in SD_PARTS[1:]:
+        if part in tree:
+            out[part] = _convert(tree[part], device, vae_dtype or dtype)
+    return out

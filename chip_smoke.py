@@ -70,15 +70,17 @@ Phases (any failure exits non-zero and prints no result line):
      no failure, tokens equal to (a)'s; then the same under
      preempt_mode="recompute": at least one recompute preemption replayed
      through the prefill graphs, tokens equal to (a)'s;
-  7. the flagship written as a checkpoint directory, loaded bit for bit
-     and served through `cli serve DIR`, contiguous and paged;
+  7. the flagship (8 of its 28 layers, cut for the whole run's time)
+     written as a checkpoint directory, loaded bit for bit and served
+     through `cli serve DIR`, contiguous and paged;
   8. OLMo2, EXAONE4 and Phi-4 at their published widths, depth cut:
      f32 card vs CPU, bf16 graph vs eager, EXAONE4 served paged;
   9. Gemma-3-1B at its published widths (head_dim 256, window 512, GQA
      4/1, sandwich (1+w) norms, GELU-tanh, local RoPE, vocab 262144):
      (a) f32 at 6 layers (one global) against the CPU on a 600-token
-     prompt that wraps the 512-token rings, contiguous and paged; (b) the
-     full 26 layers in bf16, written as a checkpoint with a Gemma-style
+     prompt that wraps the 512-token rings, contiguous and paged; (b) 12
+     of its 26 layers (two global; cut for the whole run's time) in bf16,
+     written as a checkpoint with a Gemma-style
      byte-fallback tokenizer and loaded through build_text_model: 16
      captured decode replays equal 16 eager steps in both pools; (c) the
      same directory served through `cli serve DIR`, contiguous and paged:
@@ -198,7 +200,7 @@ Phases (any failure exits non-zero and prints no result line):
      Qwen's FP8 layout (float8_e4m3fn projections with 128 x 128
      weight_scale_inv), loaded at load and native through
      build_text_model (device memory after each): 2 layers in f32 on the
-     card against the CPU; in bf16 (8 of its 28 layers, cut for the
+     card against the CPU; in bf16 (4 of its 28 layers, cut for the
      whole run's time) native logits and tokens equal at load's, 16
      decode replays equal eager steps, the prefill graphs the
      eager chunks and the captured verify (k 6) the eager verify, in both
@@ -234,7 +236,8 @@ Phases (any failure exits non-zero and prints no result line):
      and timed, and the projection of the trunk and the LRUs to 48
      layers; (c) `cli serve DIR --expert-offload`: two concurrent chats
      answered one at a time, each equal to generate, SSE equal to JSON,
-     `stop` trimming; then phase 7's flagship checkpoint in float32 under
+     `stop` trimming; then phase 7's 8-layer flagship checkpoint in
+     float32 under
      CAKE_SERVE_SLOTS=0 (no engine: the locked path) and under
      CAKE_KV_BLOCKS=1024 (a paged pool of 1024 blocks), each locked
      answer equal to the engine's;
@@ -247,7 +250,8 @@ Phases (any failure exits non-zero and prints no result line):
      dequant kernel's f16 output at every shape, bit for bit, timed at
      2048 x 1024 and 12288 x 4096; (b) the flagship at f16 (28 layers,
      seed 0): the hidden state finite after every layer of a 256-token
-     prefill (its largest magnitude printed), 16 decode replays equal
+     prefill (its largest magnitude printed); then at 8 of its 28 layers
+     (cut for the whole run's time) for (b)-(e): 16 decode replays equal
      eager steps and the prefill graphs the eager chunks, contiguous and
      paged; (c) generate with the n-gram drafter equal to plain generate
      up to a near tie, and the captured verify equal to eager verify
@@ -296,12 +300,37 @@ Phases (any failure exits non-zero and prints no result line):
      written as a ComfyUI bundle (FP8 with per-tensor scales) and loaded
      native through runtime.build_image_model: latents equal the seeded
      model's bit for bit, and a valid PNG;
+  19. SD 1.5 and SDXL (module 14b; no hand-written kernel: the UNet's
+     attention is the reference's plain float32 one): (a) SDXL base's
+     published widths and depth (blocks 320 / 640 / 1280, heads 5 / 10 /
+     20, depth 1 / 2 / 10, context 2048, text_time 2816, CLIP-L and
+     OpenCLIP bigG, VAE 0.13025) seeded in bf16, written as a diffusers
+     directory (bench/synth_sd.py) and served by `cli serve --flagship
+     --layers 1 --slots 0 --image-model DIR`: a 1024 x 1024 image (4
+     steps) with a negative prompt as b64_json and one with an empty
+     negative prompt (the zeros path) as a raw PNG, each a valid PNG of
+     its size; seconds per step, text encoders and VAE decode, device
+     memory held against the parameters' bytes, and peak; (b) SD 1.5's
+     published widths with a tokenizer/ of vocab.json + merges.txt only:
+     img2img at 512 x 512, strength 0.6, from an RGBA PNG whose rows use
+     all five filters, through `cli image DIR --init-image`; one txt2img
+     (3 steps) through `cli serve --image-model DIR --sd-intermediate-every
+     2 --sd-trace-dir T`: the intermediate PNG decodes, the trace parses,
+     its kernel events are counted and a UNet step's device time is
+     split by class (attention, conv, GEMM, other); (c) SD 1.5, SD 2.1 (v-prediction,
+     per-level heads, gelu encoder) and SDXL at their widths cut to 2
+     levels, transformer depth 1 and 2 encoder layers, float32 with TF32
+     off (restored after): the UNet's output and a 3-step latent on the
+     card against the card's machine's CPU, and each written directory
+     loaded through runtime.build_image_model equal to the seeded model
+     bit for bit (parameters and latents);
   then prints the whole run's seconds, the kernels line, the card line,
   and the result line last. `--only 12` runs phases 1, 2 and 12 alone,
   `--only 13` phases 1, 2 and 13, `--only 14` phases 1, 2 and 14,
   `--only 15` phases 1, 2 and 15 (writing its own checkpoints), `--only
   16` phases 1, 2 and 16, `--only 17` phases 1, 2 and 17, `--only 18`
-  phases 1, 2 and 18, and none of them prints a result line. `--only
+  phases 1, 2 and 18, `--only 19` phases 1, 2 and 19, and none of them
+  prints a result line. `--only
   13d` is a diagnosis of 13(d)'s oracle: its bf16 chats with the order
   of arrivals fixed (together, chat 0 first, chat 0 last, chat 0
   alone), each run's partings, the
@@ -836,6 +865,8 @@ def phase_parity() -> tuple[dict, int]:
 
 
 def _to_device(tree, device):
+    if tree is None:                # an SD tree's structural None
+        return None
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
@@ -2621,12 +2652,18 @@ def _prompt_ids_match(served, model_dir: str, bodies, label) -> None:
           f"{label}: the engine's prompt ids differ from the tokenizer's")
 
 
-def phase_checkpoint(model, card: str, workdir: str) -> dict:
-    """Phase 7. The flagship (seed 0, bf16, 28 layers) written as an HF
+CKPT_LAYERS = 8     # phase 7's flagship checkpoint, of 28 (cut for the
+                    # whole run's time); phase 15(c) serves it in float32
+
+
+def phase_checkpoint(card: str, workdir: str) -> dict:
+    """Phase 7. The flagship (seed 0, bf16, CKPT_LAYERS of its 28 layers)
+    written as an HF
     directory (two safetensors shards and an index, config.json, a
     byte-level BPE tokenizer.json with Qwen3's ChatML ids and a ChatML
     template), loaded through runtime.build_text_model bit-identical to
-    init_params(seed 0) (here: `model`, build_flagship(seed 0)), then
+    init_params(seed 0) (here: `model`, build_flagship(seed 0) at the
+    same depth), then
     served through `cli serve DIR`, contiguous and paged (1024 blocks):
     4 concurrent chats and one SSE chat, all 200, each equal alone and in
     company, their prompt ids those of the CPU tokenizer; and generate's
@@ -2634,9 +2671,12 @@ def phase_checkpoint(model, card: str, workdir: str) -> dict:
     for phase 15. Returns the load's {seconds, gb, gb_s}."""
     import torch
     from cake_tpu_torch.bench import synth_checkpoint as sc
+    from cake_tpu_torch.cli import build_flagship
     from cake_tpu_torch.runtime import build_text_model
     d = os.path.join(workdir, "qwen3-flagship")
-    config = sc.flagship_config()
+    config = sc.flagship_config(CKPT_LAYERS)
+    model = build_flagship(layers=CKPT_LAYERS, dtype="bf16", seed=0,
+                           device="cuda")
     t = time.perf_counter()
     nbytes = sc.write_model(d, config, sc.model_params(config, seed=0),
                             shards=2)
@@ -2668,7 +2708,7 @@ def phase_checkpoint(model, card: str, workdir: str) -> dict:
     print(f"checkpoint greedy: 32 tokens off a 300-id prompt equal to "
           f"build_flagship(seed=0)'s {got == want}", flush=True)
     check(got == want, f"checkpoint greedy {got} != flagship {want}")
-    del loaded
+    del loaded, model
     torch.cuda.empty_cache()
     bodies = [chat_body(i) for i in range(4)] + [chat_body(4, True)]
     for mode, extra in (("contiguous", ()),
@@ -2850,6 +2890,9 @@ def phase_families(card: str, workdir: str) -> dict:
 # -- phase 9: Gemma-3-1B at its published widths --------------------------------
 
 GEMMA_PARITY_LAYERS = 6     # layer 5 is global: the paged pool needs one
+GEMMA_CKPT_LAYERS = 12      # (b) and (c), of 26: two of the sliding-window
+                            # pattern's periods (cut for the whole run's
+                            # time)
 
 
 def phase_gemma3(card: str, workdir: str) -> dict:
@@ -2901,7 +2944,8 @@ def phase_gemma3(card: str, workdir: str) -> dict:
     shutil.rmtree(d, ignore_errors=True)
     # (b) the full model from its checkpoint: graph replays vs eager steps
     t = time.perf_counter()
-    d, nbytes = _family_dir("gemma3", workdir, None, "gemma-3-1b")
+    d, nbytes = _family_dir("gemma3", workdir, GEMMA_CKPT_LAYERS,
+                            "gemma-3-1b")
     write_s = time.perf_counter() - t
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -3863,8 +3907,8 @@ Q8B_HEADS = dict(hq=32, hkv=8, d=128)     # Qwen3-8B's attention
 FP8_STEPS = 16          # decode replays against eager steps, the flagship
 Q8B_STEPS = 8           # and Qwen3-8B's widths at Q8B_LAYERS layers
 Q8B_LAYERS = 12         # of 36 (cut from 36 for the whole run's time)
-FP8_FLAGSHIP_LAYERS = 8     # 14(b)'s bf16 flagship in the FP8 layout, of
-                            # 28 (cut for the whole run's time)
+FP8_FLAGSHIP_LAYERS = 4     # 14(b)'s bf16 flagship in the FP8 layout, of
+                            # 28 (cut from 8 for the whole run's time)
 QUANT_LAYERS = 4        # the GPTQ and GGUF flagships' depth, of 28 (cut
                         # for the whole run's time)
 
@@ -4648,7 +4692,7 @@ def _flagship_locked(card: str, workdir: str) -> None:
     from cake_tpu_torch.bench import synth_checkpoint as sc
     d = os.path.join(workdir, "qwen3-flagship")
     if not os.path.isdir(d):
-        config = sc.flagship_config()
+        config = sc.flagship_config(CKPT_LAYERS)
         sc.write_model(d, config, sc.model_params(
             config, seed=0, device="cuda", gen_device="cuda"), shards=2)
         sc.write_tokenizer(d, sc.QWEN3_SPECIALS)
@@ -4836,6 +4880,11 @@ def _f16_kernels(card: str) -> dict:
     return out
 
 
+F16_LAYERS = 8      # 16(b)'s replays and graphs, (c), (d) and (e): the
+                    # flagship at 8 of its 28 layers (cut for the whole
+                    # run's time); the hidden-state walk keeps all 28
+
+
 def _f16_hidden_states(model, ids: list[int]) -> list[float]:
     """The largest |hidden state| after the embeddings and after each
     layer of a fresh 256-token prefill (checked finite)."""
@@ -4967,7 +5016,7 @@ def _f16_fp8_native(card: str, workdir: str) -> int:
     from cake_tpu_torch.ops import fp8
     from cake_tpu_torch.runtime import build_text_model
     d = os.path.join(workdir, "qwen3-0.6b-fp8-f16")
-    config = sc.flagship_config()
+    config = sc.flagship_config(F16_LAYERS)
     sc.write_fp8_model(d, config, sc.model_params(
         config, seed=0, device="cuda", gen_device="cuda"))
     ids = list(range(40, 340))
@@ -4997,9 +5046,9 @@ def _f16_fp8_native(card: str, workdir: str) -> int:
 
 def phase_f16(card: str, workdir: str) -> dict:
     """Phase 16: (a) the three f16 kernel routes; (b) the flagship at f16
-    (28 layers, seed 0): the hidden states finite layer by layer, decode
-    replays equal eager steps and the prefill graphs the eager chunks in
-    both pools; (c) speculation (generate, and verify replays against
+    (28 layers, seed 0): the hidden states finite layer by layer; then at
+    F16_LAYERS for the rest: decode replays equal eager steps and the
+    prefill graphs the eager chunks in both pools; (c) speculation (generate, and verify replays against
     eager verify steps); (d) served over HTTP, contiguous and paged, TTFT
     and tokens/s, then paged with the n-gram drafter; (e) FP8 native at
     f16. Returns the kernels' readings and launches."""
@@ -5015,6 +5064,10 @@ def phase_f16(card: str, workdir: str) -> dict:
     gen = torch.Generator().manual_seed(16)
     ids = torch.randint(0, 256, (256,), generator=gen).tolist()
     peaks = _f16_hidden_states(model, ids)
+    del model
+    torch.cuda.empty_cache()
+    model = build_flagship(layers=F16_LAYERS, dtype="f16", seed=0,
+                           device="cuda")
     print(f"f16 (b): flagship 28 layers at f16, a 256-token prefill: "
           f"largest |hidden state| after the embeddings {peaks[0]:.3f}, "
           f"after layers 7/14/21/28 "
@@ -5057,7 +5110,8 @@ def phase_f16(card: str, workdir: str) -> dict:
               f"alone == in company; TTFT p50 {ttft:.1f} ms, decode tokens/s "
               f"per request p50 {tps:.1f}; flash launches {counts['f16']}, "
               f"paged decode launches {paged['f16']}; on {card}", flush=True)
-        check(counts["f16"]["fresh"] >= 28 * 4 and counts["f16"]["append"] > 0,
+        check(counts["f16"]["fresh"] >= F16_LAYERS * 4
+              and counts["f16"]["append"] > 0,
               f"16(d) {kind}: f16 flash launches {counts}")
         check(sum(counts["bf16"].values()) == 0,
               f"16(d) {kind}: the bf16 route ran at f16: {counts}")
@@ -5746,6 +5800,412 @@ def flux_kernel_rows(f: dict) -> list:
     return rows
 
 
+# -- phase 19: SD 1.5 and SDXL (module 14b) ----------------------------------
+
+SD_PROMPT = "a watercolor lighthouse on a cliff at dusk, soft light"
+SD_NEGATIVE = "blurry, low quality, watermark"
+SDXL_SIDE, SDXL_STEPS = 1024, 4        # 19(a): two images served
+SD15_SIDE, SD15_STEPS = 512, 4         # 19(b): img2img
+SD15_TRACED_STEPS = 3                  # 19(b): an intermediate at step 2
+SD15_STRENGTH = 0.6
+SD_CUT = dict(levels=2, depth=1, encoder_layers=2)     # 19(c)
+SD_CHECK_SIDE = 128                                    # 19(c): latent 16
+SD_UNET_TOL = 1e-4      # f32 card vs CPU, TF32 off: sum order only
+SD_LATENT_TOL = 1e-4    # after 3 steps of DPM-Solver++ and CFG
+
+
+class _TF32:
+    """PyTorch's TF32 switches set for a block and restored after it."""
+
+    def __init__(self, matmul: bool, cudnn: bool):
+        self.want = (matmul, cudnn)
+
+    def __enter__(self):
+        import torch
+        self.saved = (torch.backends.cuda.matmul.allow_tf32,
+                      torch.backends.cudnn.allow_tf32)
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = self.want
+
+    def __exit__(self, *exc):
+        import torch
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = self.saved
+
+
+def _sd_write(name: str, family: dict, workdir: str, seed: int) -> str:
+    """A diffusers directory of `family` from seeded bf16 weights drawn on
+    the card (the VAE float32), written under workdir."""
+    import torch
+    from cake_tpu_torch.bench import synth_sd
+    t = time.perf_counter()
+    model = synth_sd.seeded_sd(family, torch.bfloat16, "cuda", seed=seed)
+    d = os.path.join(workdir, name)
+    n = synth_sd.write_sd_checkpoint(d, family, model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"19 {name}: {n / GB:.3f} GB of seeded weights written as a "
+          f"diffusers directory in {time.perf_counter() - t:.1f} s",
+          flush=True)
+    return d
+
+
+def _sd_request(url: str, side: int, steps: int, negative: str,
+                fmt: str | None = None):
+    body = {"prompt": SD_PROMPT, "negative_prompt": negative,
+            "size": f"{side}x{side}", "steps": steps, "seed": side,
+            "guidance": 7.0}
+    if fmt:
+        body["response_format"] = fmt
+    req = urllib.request.Request(
+        url + "/v1/images/generations", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    t = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=900) as r:
+        return r.status, r.headers.get("Content-Type"), r.read(), \
+            time.perf_counter() - t
+
+
+def _sd_app(d: str, *extra: str):
+    from cake_tpu_torch import cli
+    args = cli.parser().parse_args(
+        ["serve", "--flagship", "--layers", "1", "--slots", "0", "--port",
+         "0", "--image-model", d, *extra])
+    return cli.build_server(args).start()
+
+
+def _sdxl_served(card: str, workdir: str) -> dict:
+    """19(a): SDXL base's published widths and depth (blocks 320 / 640 /
+    1280, heads 5 / 10 / 20, depth 1 / 2 / 10, context 2048, text_time
+    2816, CLIP-L and OpenCLIP bigG, VAE 0.13025) seeded in bf16, written
+    as a diffusers directory and served through `cli serve --flagship
+    --layers 1 --slots 0 --image-model DIR`: a 1024 x 1024 image with a
+    negative prompt as b64_json and one with an empty negative prompt
+    (the zeros path) as a raw PNG."""
+    import base64
+    import torch
+    from cake_tpu_torch.bench import synth_sd
+    d = _sd_write("sdxl", synth_sd.FAMILIES["sdxl"], workdir, seed=19)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    app = _sd_app(d)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    model = app.state.image_model
+    parts = {"unet": _tree_bytes(model.params["unet"]),
+             "vae": _tree_bytes({k: model.params[k] for k in ("vae",
+                                                              "vae_enc")}),
+             "clip_l": _tree_bytes(model.text_encoder.params),
+             "bigg": _tree_bytes(model.text_encoder2.params),
+             "flagship_1_layer": _tree_bytes(app.state.model.params)}
+    held = torch.cuda.memory_allocated() - base
+    reckoned = sum(parts.values())
+    print(f"19(a) SDXL loaded through cli serve in {load_s:.1f} s: "
+          f"{type(model).__name__}; device memory {held / GB:.3f} GB held "
+          f"against {reckoned / GB:.3f} GB of parameters ("
+          f"{', '.join(f'{k} {v / GB:.3f}' for k, v in parts.items())} "
+          f"GB); on {card}", flush=True)
+    check(type(model).__name__ == "SDXLImageModel",
+          f"19(a): {type(model).__name__}, want SDXLImageModel")
+    check(abs(parts["unet"] / GB - 5.135) < 0.05,
+          f"19(a): UNet {parts['unet'] / GB:.3f} GB, want ~5.135 (2.567 B "
+          "parameters in bf16)")
+    check(reckoned <= held <= reckoned + 0.5 * GB,
+          f"19(a): {held / GB:.3f} GB held for {reckoned / GB:.3f} GB")
+    ctx, _ = model._encode_prompt(SD_PROMPT, "", SDXL_SIDE, SDXL_SIDE)
+    check(ctx.shape[-1] == 2048 and not bool(ctx[0].any()),
+          "19(a): the empty negative prompt is not the zeros path")
+    readings = {"load_s": load_s, "held_gb": held / GB,
+                "params_gb": reckoned / GB}
+    try:
+        for negative, fmt in ((SD_NEGATIVE, None), ("", "png")):
+            torch.cuda.reset_peak_memory_stats()
+            status, ctype, raw, wall = _sd_request(
+                app.url, SDXL_SIDE, SDXL_STEPS, negative, fmt)
+            check(status == 200, f"19(a): HTTP {status}")
+            if fmt == "png":
+                check(ctype == "image/png", f"19(a): {ctype}")
+                png = raw
+            else:
+                png = base64.b64decode(json.loads(raw)["data"][0]["b64_json"])
+            pix = _png_pixels(png, SDXL_SIDE, "19(a)")
+            st = dict(model.stats)
+            peak = torch.cuda.max_memory_allocated() - base
+            key = "negative" if negative else "zeros"
+            r = readings[key] = {
+                "s_per_step": st["denoise_s"] / st["steps"],
+                "encode_s": st["encode_s"], "decode_s": st["decode_s"],
+                "wall_s": wall, "peak_gb": peak / GB,
+                "png_bytes": len(png)}
+            print(f"19(a) SDXL {SDXL_SIDE} x {SDXL_SIDE}, "
+                  f"{'a' if negative else 'an empty (zeros)'} negative "
+                  f"prompt, {st['steps']} steps: {r['s_per_step']:.4f} s "
+                  f"per denoising step (batch-2 CFG), text encoders "
+                  f"{r['encode_s']:.4f} s, VAE decode {r['decode_s']:.4f} "
+                  f"s, request {wall:.2f} s; PNG {len(png)} bytes, pixels "
+                  f"{int(pix.min())}-{int(pix.max())}; peak device memory "
+                  f"{peak / GB:.2f} GB over the start; on {card}",
+                  flush=True)
+    finally:
+        app.stop()
+    del model, app
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(d, ignore_errors=True)
+    return readings
+
+
+def _rgba_png(h: int, w: int, seed: int) -> tuple[bytes, "np.ndarray"]:
+    """An 8-bit RGBA PNG whose rows cycle through the five filters (the
+    port's encoder writes filter 0 only), and its pixels."""
+    import struct
+    import zlib
+    import numpy as np
+    from cake_tpu_torch.utils.png import SIGNATURE
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    rgba = np.stack([(xx * 255 // max(w - 1, 1)), (yy * 255 // max(h - 1, 1)),
+                     (xx + yy) % 256, 128 + (xx % 64)], axis=-1)
+    rgba = (rgba + rng.integers(0, 16, rgba.shape)).clip(0, 255) \
+        .astype(np.uint8)
+    raw = rgba.reshape(h, w * 4).astype(np.int16)
+    a = np.concatenate([np.zeros((h, 4), np.int16), raw[:, :-4]], axis=1)
+    b = np.concatenate([np.zeros((1, w * 4), np.int16), raw[:-1]], axis=0)
+    c = np.concatenate([np.zeros((h, 4), np.int16), b[:, :-4]], axis=1)
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    preds = [np.zeros_like(raw), a, b, (a + b) // 2, paeth]
+    kinds = np.arange(h) % 5
+    filt = np.stack([preds[k][y] for y, k in enumerate(kinds)])
+    rows = np.concatenate([kinds[:, None], (raw - filt) % 256], axis=1)
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+    png = (SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 6, 0,
+                                                  0, 0))
+           + chunk(b"IDAT", zlib.compress(rows.astype(np.uint8).tobytes()))
+           + chunk(b"IEND", b""))
+    return png, rgba
+
+
+def _sd15(card: str, workdir: str) -> dict:
+    """19(b): SD 1.5's published widths (blocks 320 / 640 / 1280 / 1280, 8
+    heads, context 768, CLIP-L, a tokenizer/ of vocab.json + merges.txt
+    only) seeded in bf16 and written: img2img at 512 x 512, strength 0.6,
+    from an RGBA PNG with filtered rows through `cli image DIR
+    --init-image`; then one txt2img of 3 steps through `cli serve
+    --image-model DIR --sd-intermediate-every 2 --sd-trace-dir T`: the
+    intermediate image decodes, the trace parses (its kernel events
+    counted), and one UNet step's device time is split by class
+    (obs/profile.kernel_split)."""
+    import base64
+    import numpy as np
+    import torch
+    from cake_tpu_torch import cli
+    from cake_tpu_torch.bench import synth_sd
+    from cake_tpu_torch.obs.profile import kernel_split
+    from cake_tpu_torch.utils.png import decode_png
+    d = _sd_write("sd15", synth_sd.FAMILIES["sd15"], workdir, seed=15)
+    tok = sorted(os.listdir(os.path.join(d, "tokenizer")))
+    check("tokenizer.json" not in tok and "merges.txt" in tok,
+          f"19(b): tokenizer/ holds {tok}")
+    png, rgba = _rgba_png(600, 440, seed=1)
+    check(np.array_equal(decode_png(png), rgba[..., :3]),
+          "19(b): the filtered RGBA PNG does not decode to its pixels")
+    init = os.path.join(workdir, "init.png")
+    with open(init, "wb") as f:
+        f.write(png)
+    out = os.path.join(workdir, "sd15_img2img.png")
+    t = time.perf_counter()
+    rc = cli.main(["image", d, SD_PROMPT, "--out", out, "--width",
+                   str(SD15_SIDE), "--height", str(SD15_SIDE), "--steps",
+                   str(SD15_STEPS), "--init-image", init, "--strength",
+                   str(SD15_STRENGTH), "--seed", "1", "--negative-prompt",
+                   SD_NEGATIVE])
+    img2img_s = time.perf_counter() - t
+    with open(out, "rb") as f:
+        pix = _png_pixels(f.read(), SD15_SIDE, "19(b) img2img")
+    print(f"19(b) SD 1.5 img2img {SD15_SIDE} x {SD15_SIDE} from a 440 x "
+          f"600 RGBA PNG (rows filtered 0-4), strength {SD15_STRENGTH}, "
+          f"{SD15_STEPS} steps: cli image exit {rc} in {img2img_s:.1f} s (load "
+          f"included), pixels {int(pix.min())}-{int(pix.max())}; on {card}",
+          flush=True)
+    check(rc == 0, f"19(b): cli image exited {rc}")
+    trace = os.path.join(workdir, "sd_trace")
+    mids = os.path.join(workdir, "mids")
+    os.makedirs(mids)
+    app = _sd_app(d, "--sd-intermediate-every", "2", "--sd-trace-dir",
+                  trace)
+    cwd = os.getcwd()
+    os.chdir(mids)          # the intermediate images go to the cwd
+    try:
+        status, _, raw, wall = _sd_request(app.url, SD15_SIDE,
+                                           SD15_TRACED_STEPS, SD_NEGATIVE)
+    finally:
+        os.chdir(cwd)
+        app.stop()
+    check(status == 200, f"19(b) served: HTTP {status}")
+    _png_pixels(base64.b64decode(json.loads(raw)["data"][0]["b64_json"]),
+                SD15_SIDE, "19(b) served")
+    st = dict(app.state.image_model.stats)
+    names = sorted(os.listdir(mids))
+    check(names == ["sd_intermediate_2.png"],
+          f"19(b): intermediate images {names}, want sd_intermediate_2.png")
+    with open(os.path.join(mids, names[0]), "rb") as f:
+        _png_pixels(f.read(), SD15_SIDE, "19(b) intermediate")
+    files = os.listdir(trace)
+    check(len(files) == 1, f"19(b): trace files {files}")
+    with open(os.path.join(trace, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    print(f"19(b) SD 1.5 txt2img served with --sd-intermediate-every 2 "
+          f"--sd-trace-dir: {st['steps']} steps, "
+          f"{st['denoise_s'] / st['steps']:.4f} s per step, VAE decode "
+          f"{st['decode_s']:.4f} s, request {wall:.2f} s (the profiler "
+          f"on); {names[0]} decodes; trace {files[0]} parses: "
+          f"{len(events)} events, {kernels} kernel events; on {card}",
+          flush=True)
+    split = kernel_split(events, "sd.unet_step")
+    check(split["ranges"] == SD15_TRACED_STEPS and split["total"] > 0,
+          f"19(b): the trace's UNet steps hold no kernel: {split}")
+    n = split["ranges"]
+    print("19(b) SD 1.5 UNet step at 512 x 512 (batch-2 CFG), device ms "
+          "by class from the trace: " + ", ".join(
+              f"{k} {split[k] / n:.3f} ({split[k] / split['total']:.3f})"
+              for k in ("attention", "conv", "gemm", "other"))
+          + f"; total {split['total'] / n:.3f} ms per step against "
+          f"{st['denoise_s'] / st['steps'] * 1e3:.1f} ms of wall (the "
+          f"profiler on); on {card}", flush=True)
+    del app
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(d, ignore_errors=True)
+    return {"s_per_step": st["denoise_s"] / st["steps"],
+            "decode_s": st["decode_s"], "img2img_s": img2img_s,
+            "served_wall_s": wall,
+            "trace_kernels": kernels,
+            "step_split_ms": {k: v / n for k, v in split.items()
+                              if k != "ranges"}}
+
+
+def _sd_tree(model) -> dict:
+    """An SD model's every parameter by path, structural Nones dropped
+    (a mapped load has none)."""
+    from cake_tpu_torch.utils.mapping import flatten_tree
+    tree = {"pipe": model.params, "te": model.text_encoder.params}
+    if hasattr(model, "text_encoder2"):
+        tree["te2"] = model.text_encoder2.params
+    return flatten_tree(tree)
+
+
+def _sd_copy(model, device: str):
+    """The same SD model with its parameters and encoders copied to
+    `device`."""
+    import copy
+    import torch
+    out = copy.copy(model)
+    out.params = _to_device(model.params, device)
+    for name in ("text_encoder", "text_encoder2"):
+        if hasattr(model, name):
+            enc = copy.copy(getattr(model, name))
+            enc.params = _to_device(enc.params, device)
+            setattr(out, name, enc)
+    out.device = torch.device(device)
+    return out
+
+
+def _sd_parity(card: str, workdir: str) -> dict:
+    """19(c): SD 1.5, SD 2.1 (v-prediction, per-level heads 5 / 10, a gelu
+    encoder) and SDXL at their widths cut to 2 UNet levels, transformer
+    depth 1 and 2 encoder layers, float32 with TF32 off: the UNet's output
+    and a 3-step latent from the same noise on the card against the
+    card's machine's CPU; then each written and loaded through
+    runtime.build_image_model equal to the seeded model bit for bit."""
+    import torch
+    from cake_tpu_torch.bench import synth_sd
+    from cake_tpu_torch.models.image import sd as tsd
+    from cake_tpu_torch.runtime import build_image_model
+    out = {}
+    lat = SD_CHECK_SIDE // 8
+    for i, name in enumerate(("sd15", "sd21", "sdxl")):
+        fam = synth_sd.cut(synth_sd.FAMILIES[name], **SD_CUT)
+        card_model = synth_sd.seeded_sd(fam, torch.float32, "cuda",
+                                        seed=40 + i)
+        cpu = _sd_copy(card_model, "cpu")
+        noise = torch.randn((1, 4, lat, lat),
+                            generator=torch.Generator().manual_seed(i))
+        with _TF32(False, False):
+            ctx, added = cpu._encode_prompt(SD_PROMPT, SD_NEGATIVE,
+                                            SD_CHECK_SIDE, SD_CHECK_SIDE)
+            x, t = torch.cat([noise, noise]), torch.tensor([0.6, 0.6])
+            want = tsd.unet_forward(cpu.cfg.unet, cpu.params["unet"], x, t,
+                                    ctx, added)
+            want_z = cpu.denoise(SD_PROMPT, SD_CHECK_SIDE, SD_CHECK_SIDE, 3,
+                                 negative_prompt=SD_NEGATIVE, noise=noise)
+            d = os.path.join(workdir, f"{name}_cut")
+            synth_sd.write_sd_checkpoint(d, fam, card_model)
+            got = tsd.unet_forward(card_model.cfg.unet,
+                                   card_model.params["unet"], x.cuda(),
+                                   t.cuda(), ctx.cuda(),
+                                   None if added is None else added.cuda())
+            got_z = card_model.denoise(SD_PROMPT, SD_CHECK_SIDE,
+                                       SD_CHECK_SIDE, 3,
+                                       negative_prompt=SD_NEGATIVE,
+                                       noise=noise)
+            torch.cuda.synchronize()
+        e_unet = float((got.cpu() - want).abs().max() / want.abs().max())
+        e_lat = float((got_z.cpu() - want_z).abs().max()
+                      / want_z.abs().max())
+        loaded = build_image_model(d, "f32")
+        want_t, got_t = _sd_tree(card_model), _sd_tree(loaded)
+        diff = sorted(set(want_t) ^ set(got_t)) or [
+            k for k, v in want_t.items()
+            if v.dtype != got_t[k].dtype or not torch.equal(v, got_t[k])]
+        same = torch.equal(
+            loaded.denoise(SD_PROMPT, SD_CHECK_SIDE, SD_CHECK_SIDE, 2,
+                           noise=noise),
+            card_model.denoise(SD_PROMPT, SD_CHECK_SIDE, SD_CHECK_SIDE, 2,
+                               noise=noise))
+        out[name] = {"unet_rel": e_unet, "latent_rel": e_lat}
+        print(f"19(c) {name} cut to {SD_CUT}: f32 card vs CPU (TF32 off): "
+              f"UNet output max rel err {e_unet:.2e} (tol {SD_UNET_TOL}), "
+              f"3-step latent {e_lat:.2e} (tol {SD_LATENT_TOL}); written "
+              f"and loaded through build_image_model: parameters equal "
+              f"{not diff}, latents bit for bit {same}; "
+              f"{cpu.cfg.prediction_type}, heads {cpu.cfg.unet.num_heads}; "
+              f"on {card}", flush=True)
+        check(e_unet < SD_UNET_TOL and e_lat < SD_LATENT_TOL,
+              f"19(c) {name}: card vs CPU {e_unet:.2e} / {e_lat:.2e}")
+        check(not diff and same, f"19(c) {name}: the loaded directory "
+              f"differs from the seeded model ({diff[:3]}, latents {same})")
+        del cpu, card_model, loaded
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+def phase_sd(card: str, workdir: str) -> dict:
+    """19. SD 1.5 and SDXL (module 14b): (a) SDXL served, (b) SD 1.5
+    img2img through `cli image` and txt2img served with intermediates and
+    a trace, (c) card-vs-CPU parity and the written directories. SD runs
+    no hand-written kernel: its attention is the reference's plain
+    float32 one, its products cuBLAS's and its convolutions cuDNN's, with
+    PyTorch's default TF32 settings in (a) and (b) and TF32 off in (c)."""
+    t0 = time.perf_counter()
+    with _TF32(False, True):
+        out = {"sdxl": _sdxl_served(card, workdir),
+               "sd15": _sd15(card, workdir)}
+    out["parity"] = _sd_parity(card, workdir)
+    print(f"phase 19 in {time.perf_counter() - t0:.0f} s", flush=True)
+    return out
+
+
 def main(argv: list[str]) -> int:
     t_start = time.perf_counter()
     import torch
@@ -5767,13 +6227,17 @@ def main(argv: list[str]) -> int:
               f"{time.perf_counter() - t_start:.0f} s (no result line: a "
               f"diagnosis)", flush=True)
         return 0
-    if argv[:2] in (["--only", "16"], ["--only", "17"], ["--only", "18"]):
+    if argv[:2] in (["--only", "16"], ["--only", "17"], ["--only", "18"],
+                    ["--only", "19"]):
         workdir = tempfile.mkdtemp(prefix="chip_smoke_")
         try:
             if argv[1] == "16":
                 rows = f16_kernel_rows(phase_f16(card, workdir))
             elif argv[1] == "18":
                 rows = flux_kernel_rows(phase_flux(card, workdir))
+            elif argv[1] == "19":
+                phase_sd(card, workdir)
+                rows = []
             else:
                 phase_cluster(card, workdir)
                 rows = []
@@ -5826,7 +6290,7 @@ def main(argv: list[str]) -> int:
         return 0
     check(not argv, f"unknown arguments {argv} (only: --only 12, --only 13, "
           "--only 13d, --only 14, --only 15, --only 16, --only 17, --only "
-          "18)")
+          "18, --only 19)")
     timings = phase_kernels()
     paged_timings = phase_paged_kernels(built[pa.LIBRARY]["log"])
     parity_launches, parity_paged = phase_parity()
@@ -5843,9 +6307,9 @@ def main(argv: list[str]) -> int:
     spec = phase_spec(model, card)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        load = phase_checkpoint(model, card, workdir)
         del model
         torch.cuda.empty_cache()
+        load = phase_checkpoint(card, workdir)
         family_launches = phase_families(card, workdir)
         family_launches["gemma3"] = phase_gemma3(card, workdir)
         qnext = phase_qnext(card, workdir)
@@ -5854,6 +6318,7 @@ def main(argv: list[str]) -> int:
         f16 = phase_f16(card, workdir)
         cluster = phase_cluster(card, workdir)
         flux = phase_flux(card, workdir)
+        sd = phase_sd(card, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     kernels = []
@@ -5921,6 +6386,7 @@ def main(argv: list[str]) -> int:
     print(f"cluster (phase 17): {json.dumps(cluster['bf16'])} on {card}")
     print(f"FLUX.1-dev served (phase 18): {json.dumps(flux['served'])} on "
           f"{card}")
+    print(f"SD served (phase 19): {json.dumps(sd)} on {card}")
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.0f} s (limit 1200 s)", flush=True)
     print(json.dumps({"kernels": kernels}))

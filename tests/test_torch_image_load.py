@@ -6,8 +6,9 @@ scaled FP8; both loaders read it to the same tensors (native FP8 pairs
 byte for byte), the same configs and the same text embeddings; native
 FP8 generates what dequantized at load generates; a missing tensor, a
 shape mismatch and missing encoders fail with the reference's errors.
-Also runtime.build_image_model's demo and NOT_PORTED answers and
-`cli image`."""
+Also runtime.build_image_model's demo answers (demo:sd and an SD
+directory build SD, module 14b; FLUX.2 is refused naming 14c) and `cli
+image`."""
 import gc
 import json
 import os
@@ -241,15 +242,22 @@ def test_build_image_model_demo_and_not_ported(tmp_path):
     model = build_image_model("demo:flux", "f32", device="cpu")
     assert np.asarray(model.generate_image("x", 24, 16, steps=1)).shape == \
         (16, 24, 3)
-    for name, item in (("demo:sd", "14b"), ("demo:flux2", "14c")):
-        with pytest.raises(NotImplementedError, match=item):
-            build_image_model(name, device="cpu")
-    sd = tmp_path / "sd"
-    for sub in ("unet", "vae"):
-        (sd / sub).mkdir(parents=True)
-        (sd / sub / "config.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="14b"):
-        build_image_model(str(sd), device="cpu")
+    # module 14b serves SD: demo:sd and a diffusers SD directory
+    from cake_tpu_torch.bench import synth_sd
+    from cake_tpu_torch.models.image import SDImageModel
+    sd_demo = build_image_model("demo:sd", "f32", device="cpu")
+    assert isinstance(sd_demo, SDImageModel)
+    assert np.asarray(sd_demo.generate_image("x", 16, 16, 1)).shape == \
+        (16, 16, 3)
+    with pytest.raises(NotImplementedError, match="14c"):
+        build_image_model("demo:flux2", device="cpu")
+    fam = synth_sd.tiny_family("sd15")
+    sd = str(tmp_path / "sd")
+    synth_sd.write_sd_checkpoint(sd, fam, synth_sd.seeded_sd(
+        fam, torch.float32, "cpu"))
+    sd_model = build_image_model(sd, "f32", device="cpu")
+    assert isinstance(sd_model, SDImageModel)
+    assert sd_model.generate_image("x", 32, 32, 1).size == (32, 32)
     f2 = tmp_path / "flux2"
     f2.mkdir()
     (f2 / "model_index.json").write_text(json.dumps(

@@ -21,7 +21,9 @@ scan checks): a port worker on a thread and a `cli serve --cluster-key
 serve --image-model demo:flux` answers /v1/images/generations with a PNG
 the port's own decoder reads, and a FLUX.1 bundle written by
 bench/synth_flux.py loads native FP8 through build_image_model and
-generates."""
+generates. SD (module 14b) runs there too: `cli serve --image-model DIR`
+of a tiny SDXL directory with vocab.json + merges.txt tokenizers
+(bench/synth_sd.py) answers an img2img request from a PNG."""
 import ast
 import pathlib
 import subprocess
@@ -91,7 +93,10 @@ for name in ("cake_tpu_torch.obs", "cake_tpu_torch.obs.metrics",
              "cake_tpu_torch.utils.mapping", "cake_tpu_torch.utils.init",
              "cake_tpu_torch.utils.png",
              "cake_tpu_torch.serve.admission.jobs",
-             "cake_tpu_torch.api.images", "cake_tpu_torch.bench.synth_flux"):
+             "cake_tpu_torch.api.images", "cake_tpu_torch.bench.synth_flux",
+             "cake_tpu_torch.models.image.sd",
+             "cake_tpu_torch.models.image.sd_loader",
+             "cake_tpu_torch.bench.synth_sd", "cake_tpu_torch.obs.profile"):
     assert name in mods, name
 import chip_smoke
 
@@ -277,6 +282,28 @@ write_flux_checkpoint(fd, fcfgs, {"transformer": seeded.params["transformer"],
                       layout="split", fp8="plain")
 flux = build_image_model(fd, "f32", fp8_native=True, device="cpu")
 assert flux.generate_image("w1 w2", 16, 16, steps=1).size == (16, 16)
+# SD (module 14b): a tiny SDXL directory with vocab.json + merges.txt
+# tokenizers, served by `cli serve --image-model DIR`: img2img from a PNG
+import numpy as np
+from cake_tpu_torch.bench import synth_sd
+from cake_tpu_torch.utils.png import encode_png
+fam = synth_sd.tiny_family("sdxl")
+sdd = tempfile.mkdtemp() + "/sdxl"
+synth_sd.write_sd_checkpoint(sdd, fam, synth_sd.seeded_sd(
+    fam, torch.float32, "cpu"))
+app = cli.build_server(cli.parser().parse_args(
+    ["serve", "--flagship", "--layers", "1", "--cpu", "--dtype", "f32",
+     "--port", "0", "--slots", "0", "--image-model", sdd])).start()
+init = base64.b64encode(encode_png(np.full((20, 24, 3), 90, np.uint8)))
+req = urllib.request.Request(
+    app.url + "/v1/images/generations",
+    data=json.dumps({"prompt": "a fox", "size": "32x32", "steps": 2,
+                     "init_image_b64": init.decode()}).encode())
+with urllib.request.urlopen(req, timeout=60) as r:
+    png = base64.b64decode(json.loads(r.read())["data"][0]["b64_json"])
+app.stop()
+assert type(app.state.image_model).__name__ == "SDXLImageModel"
+assert decode_png(png).shape == (32, 32, 3)
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
 print("OK", len(mods))
