@@ -4,6 +4,7 @@ cake_tpu/api/server.py):
   POST /v1/chat/completions     chat (JSON + SSE), api/text.py
   POST /v1/images/generations   image generation (b64_json or PNG),
   POST /api/v1/image            and its legacy raw-PNG form, api/images.py
+  POST /v1/audio/speech         speech (WAV or raw PCM), api/audio.py
   GET  /v1/models               model list
   GET  /health                  the engine's health (prefix_cache, paged
                                 kv_pool, the supervisor's counts) and the
@@ -48,6 +49,7 @@ from urllib.parse import parse_qs, urlsplit
 
 from ..obs import API_REQUEST_SECONDS, API_REQUESTS, now
 from . import obs_routes
+from .audio import audio_speech
 from .images import images_generations
 from .text import chat_completions
 
@@ -79,6 +81,9 @@ class AppState:
     # both write files on the server
     sd_intermediate_every: int = 0
     sd_trace_dir: str | None = None
+    audio_model: object = None  # models/audio: VibeVoiceTTS, or None
+    # the operator's voice-prompt files, picked by name (api/audio.py)
+    voices_dir: str | None = None
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -166,6 +171,9 @@ class _Handler(BaseHTTPRequestHandler):
         if self.path in ("/v1/images/generations", "/api/v1/image"):
             return self._measured(
                 self.path, lambda: images_generations(self, self.state))
+        if self.path == "/v1/audio/speech":
+            return self._measured(
+                self.path, lambda: audio_speech(self, self.state))
         return self._measured(
             "unmatched", lambda: self.send_json({"error": "not found"}, 404))
 
@@ -228,14 +236,19 @@ class ApiServer(ThreadingHTTPServer):
 def create_app(model, engine, tokenizer, host: str = "127.0.0.1",
                port: int = 8080, model_id: str = "cake-tpu-torch",
                plane=None, image_model=None, sd_intermediate_every: int = 0,
-               sd_trace_dir: str | None = None) -> ApiServer:
+               sd_trace_dir: str | None = None, audio_model=None,
+               voices_dir: str | None = None) -> ApiServer:
     """`engine`: a ServeEngine, or None for the locked one-request path
     (serve/engine.py: maybe_engine). `plane`: the admission plane (tenant
     policies); None builds one from CAKE_QOS_TENANTS at the first
     request. `image_model`: what /v1/images/generations serves, with SD's
     intermediate images every `sd_intermediate_every` steps and its
-    profiler trace into `sd_trace_dir`."""
+    profiler trace into `sd_trace_dir`. `audio_model`: what
+    /v1/audio/speech serves, with the voice-prompt files of
+    `voices_dir`."""
     return ApiServer(AppState(model, engine, tokenizer, model_id, plane,
                               image_model=image_model,
                               sd_intermediate_every=sd_intermediate_every,
-                              sd_trace_dir=sd_trace_dir), host, port)
+                              sd_trace_dir=sd_trace_dir,
+                              audio_model=audio_model, voices_dir=voices_dir),
+                     host, port)

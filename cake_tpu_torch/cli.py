@@ -1,5 +1,5 @@
-"""Command line (counterpart of cake_tpu/cli.py, `serve`, `run` and
-`image`).
+"""Command line (counterpart of cake_tpu/cli.py, `serve`, `run`, `image`
+and `tts`).
 
     python -m cake_tpu_torch.cli serve (MODEL | --flagship) [--arch A]
         [--dtype D] [--seed N] [--port P] [--cpu] [--fp8-native]
@@ -7,10 +7,14 @@
         [--prefill-chunk N] [--prefix-cache-mb MB] [--kv-blocks N]
         [--kv-block-tokens T] [--preempt-mode M] [--image-model M]
         [--sd-intermediate-every N] [--sd-trace-dir DIR]
+        [--audio-model M] [--voices-dir DIR]
     python -m cake_tpu_torch.cli image MODEL "prompt" --out x.png
         [--width W] [--height H] [--steps N] [--guidance G] [--seed N]
         [--negative-prompt P] [--init-image PNG] [--strength S]
         [--dtype D] [--fp8-native] [--cpu]
+    python -m cake_tpu_torch.cli tts MODEL "text" --out x.wav
+        [--frames N] [--steps N] [--cfg-scale S] [--voice FILE]
+        [--voice-wav WAV] [--seed N] [--dtype D] [--cpu]
     python -m cake_tpu_torch.cli run (MODEL | --flagship) "prompt"
         [--max-tokens N] [--temperature T] [--top-k K] [--top-p P]
         [--repeat-penalty R] [--repeat-last-n N] [--system-prompt S]
@@ -52,9 +56,12 @@ template. `image` writes one PNG (1024 x 1024 by default; 20 steps and
 guidance 3.5 for FLUX, the SD config's 20 and 7.5) from an image model
 (runtime.build_image_model: `demo:flux`, the tiny FLUX.1 pipeline on
 seeded weights; `demo:flux1-dev`, FLUX.1-dev's widths and depth on
-seeded weights; `demo:sd`, the tiny SD pipeline; a FLUX.1 checkpoint,
-whose FP8 transformer `--fp8-native` keeps at 1 byte per parameter; or a
-diffusers SD 1.x / 2.x / SDXL directory); with an SD model,
+seeded weights; `demo:sd`, the tiny SD pipeline; `demo:flux2`, the tiny
+FLUX.2 pipeline; `demo:flux2-klein`, FLUX.2-klein-4B's widths and depth
+with its Qwen3-4B encoder on seeded weights; a FLUX.1 checkpoint, whose
+FP8 transformer `--fp8-native` keeps at 1 byte per parameter; a
+diffusers SD 1.x / 2.x / SDXL directory; or a diffusers FLUX.2
+directory); with an SD model,
 `--init-image PNG` starts from that image (img2img, `--strength` 0.8 by
 default). `serve --image-model M` serves it too, at POST
 /v1/images/generations and /api/v1/image, in the same `--dtype`,
@@ -63,8 +70,14 @@ requires to be FP8, unless MODEL is `--flagship`); for SD,
 `--sd-intermediate-every N` writes the image in progress every N steps
 (sd_intermediate_<step>.png in the working directory) and
 `--sd-trace-dir DIR` a torch.profiler trace of each generation there.
-CAKE_JOB_WORKERS (1) image jobs run at once, and CAKE_IMAGE_MAX_SIZE
-(2048) bounds a side. The supervisor's
+`tts` writes one WAV (runtime.build_audio_model: `demo:vibevoice`, the
+tiny VibeVoice on seeded weights; `demo:vibevoice-0.5b`,
+VibeVoice-Realtime-0.5B's widths on seeded weights; or a VibeVoice
+checkpoint directory; `--voice` a voice-prompt file, `--voice-wav` a WAV
+to clone); `serve --audio-model M` serves it at POST /v1/audio/speech,
+`--voices-dir DIR` naming the voice-prompt files a request may pick by
+name. CAKE_JOB_WORKERS (1) image and speech jobs run at once, and
+CAKE_IMAGE_MAX_SIZE (2048) bounds a side. The supervisor's
 knobs come from the environment, as the reference reads them:
 CAKE_STEP_WATCHDOG_S (0, off), CAKE_ENGINE_REBUILDS (3) per rolling
 CAKE_ENGINE_REBUILD_WINDOW_S (300), and CAKE_ENGINE_RESTORE_S (5), the
@@ -234,6 +247,12 @@ def build_server(args):
         image_model = build_image_model(
             args.image_model, args.dtype, fp8_native=args.fp8_native,
             device="cpu" if args.cpu else None, seed=args.seed)
+    audio_model = None
+    if args.audio_model:
+        from .runtime import build_audio_model
+        audio_model = build_audio_model(
+            args.audio_model, args.dtype,
+            device="cpu" if args.cpu else None, seed=args.seed)
     engine = maybe_engine(model, env, seed=args.seed, **shape,
                           **supervisor_knobs(env),
                           **admission_knobs(env, shape["max_queue"]),
@@ -246,7 +265,8 @@ def build_server(args):
     return create_app(model, engine, tokenizer, args.host, args.port,
                       model_id=model_id, plane=plane, image_model=image_model,
                       sd_intermediate_every=args.sd_intermediate_every,
-                      sd_trace_dir=args.sd_trace_dir)
+                      sd_trace_dir=args.sd_trace_dir, audio_model=audio_model,
+                      voices_dir=args.voices_dir)
 
 
 def cmd_serve(args) -> int:
@@ -325,6 +345,29 @@ def cmd_image(args) -> int:
     return 0
 
 
+def cmd_tts(args) -> int:
+    """One utterance to a WAV file (the reference's `cake-tpu tts`)."""
+    import time
+    from .runtime import build_audio_model
+    model = build_audio_model(args.model, args.dtype,
+                              device="cpu" if args.cpu else None)
+    voice_wav = None
+    if args.voice_wav:
+        with open(args.voice_wav, "rb") as f:
+            voice_wav = f.read()
+    kwargs = dict(voice=args.voice, voice_wav=voice_wav, seed=args.seed)
+    for key in ("frames", "steps", "cfg_scale"):
+        value = getattr(args, key)
+        if value is not None:
+            kwargs["max_frames" if key == "frames" else key] = value
+    t0 = time.monotonic()
+    audio = model.generate_speech(args.text, **kwargs)
+    with open(args.out, "wb") as f:
+        f.write(audio.wav_bytes())
+    print(f"[{args.out}: {time.monotonic() - t0:.1f}s]", file=sys.stderr)
+    return 0
+
+
 def cmd_worker(args) -> int:
     from .cluster import run_worker
     if not args.cluster_key:
@@ -370,8 +413,15 @@ def parser() -> argparse.ArgumentParser:
                         "(CAKE_PREEMPT_MODE, swap)")
     s.add_argument("--image-model", default=None,
                    help="also serve this image model ('demo:flux', "
-                        "'demo:flux1-dev', 'demo:sd', a FLUX.1 checkpoint "
-                        "or a diffusers SD directory)")
+                        "'demo:flux1-dev', 'demo:sd', 'demo:flux2', "
+                        "'demo:flux2-klein', a FLUX.1 checkpoint or a "
+                        "diffusers SD or FLUX.2 directory)")
+    s.add_argument("--audio-model", default=None,
+                   help="also serve this speech model ('demo:vibevoice', "
+                        "'demo:vibevoice-0.5b' or a VibeVoice directory)")
+    s.add_argument("--voices-dir", default=None,
+                   help="directory of voice-prompt .safetensors files a "
+                        "speech request may name")
     s.add_argument("--sd-intermediate-every", type=int, default=0,
                    help="SD: save the image in progress every N denoising "
                         "steps (sd_intermediate_<step>.png)")
@@ -397,8 +447,9 @@ def parser() -> argparse.ArgumentParser:
     r.set_defaults(fn=cmd_run)
     i = sub.add_parser("image", help="generate an image to a PNG file")
     i.add_argument("model", help="'demo:flux', 'demo:flux1-dev', "
-                                 "'demo:sd', a FLUX.1 checkpoint or a "
-                                 "diffusers SD directory")
+                                 "'demo:sd', 'demo:flux2', "
+                                 "'demo:flux2-klein', a FLUX.1 checkpoint "
+                                 "or a diffusers SD or FLUX.2 directory")
     i.add_argument("prompt")
     i.add_argument("--out", default="output.png")
     i.add_argument("--width", type=int, default=1024)
@@ -417,6 +468,24 @@ def parser() -> argparse.ArgumentParser:
                         "byte/param on the card")
     i.add_argument("--cpu", action="store_true", help="run on the CPU")
     i.set_defaults(fn=cmd_image)
+    t = sub.add_parser("tts", help="synthesize speech to a WAV file")
+    t.add_argument("model", help="'demo:vibevoice', 'demo:vibevoice-0.5b' "
+                                 "or a VibeVoice checkpoint directory")
+    t.add_argument("text")
+    t.add_argument("--out", default="output.wav")
+    t.add_argument("--frames", type=int, default=None,
+                   help="most speech frames (133 ms each for VibeVoice)")
+    t.add_argument("--steps", type=int, default=None,
+                   help="diffusion steps per frame")
+    t.add_argument("--cfg-scale", type=float, default=None)
+    t.add_argument("--voice", default=None,
+                   help="a voice-prompt .safetensors file")
+    t.add_argument("--voice-wav", default=None,
+                   help="clone the voice of this reference WAV")
+    t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--dtype", default="bf16")
+    t.add_argument("--cpu", action="store_true", help="run on the CPU")
+    t.set_defaults(fn=cmd_tts)
     w = sub.add_parser("worker", help="run as a cluster worker")
     w.add_argument("--name", default=os.uname().nodename)
     w.add_argument("--cluster-key",

@@ -225,9 +225,18 @@ def attention_forward(cfg: ModelConfig, spec: LayerSpec, p: dict,
     use_flash = s >= flash_ops.FLASH_MIN_SEQ and (
         flash_mode == "fresh"
         or (flash_mode == "append" and spec.window is None))
-    meta = layer_cache.get("meta")
+    meta = None if layer_cache is None else layer_cache.get("meta")
     row = None if meta is None else meta[:1]
-    if use_flash and flash_mode == "fresh":
+    if layer_cache is None:
+        # stateless (an encoder: the reference's cache=None branch with
+        # flash off): causal over the in-pass keys, pad keys (index >=
+        # valid_len) invisible
+        q_pos = positions[None, :].expand(b, s)
+        kv_pos = q_pos if valid_len is None else torch.where(
+            torch.arange(s, device=x.device) < valid_len, q_pos, -1)
+        mask = make_attention_mask(q_pos, kv_pos, window=spec.window)
+        y = multi_head_attention(q, k, v, mask, scale)
+    elif use_flash and flash_mode == "fresh":
         if meta is None:
             y = flash_ops.flash_attention(q, k, v, scale=scale,
                                           valid_len=valid_len,
@@ -411,13 +420,15 @@ def forward_layers(cfg: ModelConfig, params: dict, x: torch.Tensor,
                    layer_range: tuple[int, int] | None = None
                    ) -> torch.Tensor:
     """Run the blocks over hidden states x; `layers` (the per-layer cache
-    list) is updated in place. layer_range [lo, hi): run only those
+    list) is updated in place, or None: stateless, causal attention over
+    the pass alone (an encoder's). layer_range [lo, hi): run only those
     blocks, with params["layers"] and `layers` holding that range alone
     (a cluster stage's; the reference's forward_layers(layer_range=));
     default every block."""
     lo, hi = layer_range or (0, cfg.num_hidden_layers)
     for j, spec in enumerate(cfg.layer_specs()[lo:hi]):
-        x, _ = block_forward(cfg, spec, params["layers"][j], x, layers[j],
+        x, _ = block_forward(cfg, spec, params["layers"][j], x,
+                             None if layers is None else layers[j],
                              pos0, rope, valid_len, flash_mode)
     return x
 

@@ -1,6 +1,6 @@
 """Norms with float32 accumulation, cast back to the input dtype
 (counterpart of cake_tpu/ops/norms.py: rms_norm, rms_norm_gated,
-layer_norm, group_norm)."""
+rms_norm_channel, layer_norm, group_norm)."""
 from __future__ import annotations
 
 import torch
@@ -27,6 +27,18 @@ def rms_norm_gated(x: torch.Tensor, gate: torch.Tensor, weight: torch.Tensor,
     else:
         raise ValueError(f"unknown gate activation {activation}")
     return (y.float() * g).to(x.dtype)
+
+
+def rms_norm_channel(x: torch.Tensor, weight: torch.Tensor,
+                     eps: float = 1e-6, axis: int = 1) -> torch.Tensor:
+    """RMS norm over a channel axis that is not the last one ([B, C, T]
+    activations of the audio VAE's conv stacks)."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=axis, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    wshape = [1] * x.dim()
+    wshape[axis] = x.shape[axis]
+    return (y * weight.float().reshape(wshape)).to(x.dtype)
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor,

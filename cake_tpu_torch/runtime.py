@@ -263,11 +263,6 @@ def _cluster_model(model: str, model_dir: str, cfg, workers: list[dict],
     return gen, tokenizer, os.path.basename(model.rstrip("/"))
 
 
-# image families of the reference the port has not taken over yet -> the
-# ROADMAP item that brings them
-IMAGE_NOT_PORTED = {"flux2": "module 14c (FLUX.2-klein)"}
-
-
 def _image_family(path: str) -> str | None:
     """"sd" for a diffusers SD directory, "flux2" for a FLUX.2 pipeline
     directory (the reference's detect_sd_checkpoint and
@@ -277,20 +272,12 @@ def _image_family(path: str) -> str | None:
     if all(os.path.exists(os.path.join(path, d, "config.json"))
            for d in ("unet", "vae")):
         return "sd"
-    mi = os.path.join(path, "model_index.json")
-    if os.path.exists(mi):
-        with open(mi) as f:
-            if json.load(f).get("_class_name") == "Flux2Pipeline":
-                return "flux2"
-    tdir = os.path.join(path, "transformer")
-    if os.path.isdir(tdir):
-        from .utils.safetensors_io import TensorStorage
-        try:
-            names = TensorStorage.from_model_dir(tdir).names()
-        except FileNotFoundError:
-            return None
-        if any(n.startswith("double_stream_modulation_img.") for n in names):
-            return "flux2"
+    from .models.image import detect_flux2_checkpoint
+    ckpt = detect_flux2_checkpoint(path)
+    if ckpt is not None:
+        ckpt.transformer.close()
+        ckpt.vae.close()
+        return "flux2"
     return None
 
 
@@ -299,33 +286,41 @@ def build_image_model(model: str, dtype: str = "bf16",
     """The image generator of `cli image` and `cli serve --image-model`,
     on `device` (default `cuda`): `demo:flux` (tiny FLUX.1, seeded),
     `demo:flux1-dev` (FLUX.1-dev's widths and depth, seeded), `demo:sd`
-    (tiny SD, seeded), a FLUX.1 checkpoint path, or a diffusers SD 1.x /
-    2.x / SDXL directory. `fp8_native` is FLUX.1's: SD checkpoints carry
-    no FP8, and SD refuses it."""
-    from .models.image import (FluxImageModel, SDImageModel,
+    (tiny SD, seeded), `demo:flux2` (tiny FLUX.2, seeded),
+    `demo:flux2-klein` (FLUX.2-klein-4B's widths and depth with its
+    Qwen3-4B encoder, seeded), a FLUX.1 checkpoint path, a diffusers SD
+    1.x / 2.x / SDXL directory or a diffusers FLUX.2 directory.
+    `fp8_native` is FLUX.1's: SD and FLUX.2 checkpoints carry no FP8, and
+    both refuse it."""
+    from .models.image import (Flux2ImageModel, FluxImageModel,
+                               SDImageModel, load_flux2_image_model,
                                load_flux_image_model, load_sd_image_model,
-                               seeded_flux1, tiny_flux_config,
-                               tiny_sd_config)
+                               seeded_flux1, seeded_flux2, tiny_flux2_config,
+                               tiny_flux_config, tiny_sd_config)
     dt = parse_dtype(dtype)
-    family = {"demo:sd": "sd", "demo:flux2": "flux2"}.get(model)
+    family = {"demo:sd": "sd", "demo:flux2": "flux2",
+              "demo:flux2-klein": "flux2"}.get(model)
     path = None
     if family is None and not model.startswith("demo:"):
         path = os.path.expanduser(model)
         if not os.path.exists(path):
             path = resolve_model(model)
         family = _image_family(path)
-    if family in IMAGE_NOT_PORTED:
-        raise NotImplementedError(
-            f"{family} image models are not ported yet: ROADMAP "
-            f"{IMAGE_NOT_PORTED[family]}")
+    if family in ("sd", "flux2") and fp8_native:
+        raise ValueError(f"--fp8-native is FLUX.1's: {family} checkpoints "
+                         "carry no FP8 weights")
     if family == "sd":
-        if fp8_native:
-            raise ValueError("--fp8-native is FLUX.1's: SD checkpoints "
-                             "carry no FP8 weights")
         if path is None:
             return SDImageModel(tiny_sd_config(), dtype=dt, seed=seed,
                                 device=device)
         return load_sd_image_model(path, dtype=dt, device=device)
+    if family == "flux2":
+        if model == "demo:flux2-klein":
+            return seeded_flux2(dtype=dt, device=device, seed=seed)
+        if path is None:
+            return Flux2ImageModel(tiny_flux2_config(), dtype=dt, seed=seed,
+                                   device=device)
+        return load_flux2_image_model(path, dtype=dt, device=device)
     if model == "demo:flux1-dev":
         return seeded_flux1(dtype=dt, device=device, seed=seed,
                             fp8_native=fp8_native)
@@ -334,3 +329,49 @@ def build_image_model(model: str, dtype: str = "bf16",
                               device=device)
     return load_flux_image_model(path, dtype=dt, fp8_native=fp8_native,
                                  device=device)
+
+
+def detect_luxtts_checkpoint(path: str) -> bool:
+    """The reference's LuxTTS sniff: a config.json whose "model" block has
+    the flow-matching decoder's fields."""
+    cfg_path = os.path.join(path, "config.json")
+    if not (os.path.isdir(path) and os.path.exists(cfg_path)):
+        return False
+    with open(cfg_path) as f:
+        m = json.load(f).get("model", {})
+    return isinstance(m, dict) and ("fm_decoder_dim" in m
+                                    or "fm_decoder_num_layers" in m)
+
+
+def build_audio_model(model: str, dtype: str = "bf16", device=None,
+                      seed: int = 0):
+    """The TTS generator of `cli tts` and `cli serve --audio-model`, on
+    `device` (default `cuda`): `demo:vibevoice` (tiny, seeded),
+    `demo:vibevoice-0.5b` (VibeVoice-Realtime-0.5B's widths, seeded) or a
+    VibeVoice checkpoint directory. LuxTTS (`demo:luxtts`, a LuxTTS
+    directory) raises NotImplementedError."""
+    from .models.audio import (VibeVoiceTTS, detect_vibevoice_checkpoint,
+                               load_vibevoice, realtime_0_5b_config,
+                               tiny_tts_config)
+    dt = parse_dtype(dtype)
+    luxtts = NotImplementedError(
+        "LuxTTS audio models are not ported yet: ROADMAP module 14d's "
+        "remainder (LuxTTS)")
+    if model == "demo:luxtts":
+        raise luxtts
+    if model == "demo:vibevoice-0.5b":
+        return VibeVoiceTTS(realtime_0_5b_config(), dtype=dt, seed=seed,
+                            device=device)
+    if model.startswith("demo"):
+        return VibeVoiceTTS(tiny_tts_config(), dtype=dt, seed=seed,
+                            device=device)
+    path = os.path.expanduser(model)
+    if not os.path.exists(path):
+        path = resolve_model(model)
+    if detect_vibevoice_checkpoint(path):
+        return load_vibevoice(path, dtype=dt, device=device)
+    if detect_luxtts_checkpoint(path):
+        raise luxtts
+    raise ValueError(
+        f"audio model {model!r}: not a demo: alias and not a recognizable "
+        f"VibeVoice or LuxTTS checkpoint directory")

@@ -13,7 +13,9 @@ the reference's {"fp8", "scale_inv"} pair, stays one: its
 torch.float8_e4m3fn, its scales stay float32. `tree_from_numpy` does
 the same for the image models' trees (MMDiT, VAE, CLIP, T5), whose
 structural None leaves (a VAE level with no upsample) stay None;
-`sd_params_from_numpy` carries an SD / SDXL pipeline's tree.
+`sd_params_from_numpy` carries an SD / SDXL pipeline's tree,
+`flux2_params_from_numpy` a FLUX.2 pipeline's and
+`vibevoice_params_from_numpy` a VibeVoice model's.
 """
 from __future__ import annotations
 
@@ -98,4 +100,46 @@ def sd_params_from_numpy(tree: dict, device="cuda",
     for part in SD_PARTS[1:]:
         if part in tree:
             out[part] = _convert(tree[part], device, vae_dtype or dtype)
+    return out
+
+
+def flux2_params_from_numpy(tree: dict, device="cuda",
+                            dtype: torch.dtype = torch.bfloat16,
+                            vae_dtype: torch.dtype = torch.float32) -> dict:
+    """The reference's FLUX.2 pipeline tree {"transformer", "vae"} ->
+    Flux2ImageModel's params: the transformer in `dtype`, the VAE in
+    `vae_dtype` (float32, as the loaders keep it)."""
+    if set(tree) != {"transformer", "vae"}:
+        raise ValueError(f"a FLUX.2 tree has transformer and vae, not "
+                         f"{sorted(tree)}")
+    return {"transformer": _convert(tree["transformer"], device, dtype),
+            "vae": _convert(tree["vae"], device, vae_dtype)}
+
+
+VIBEVOICE_PARTS = ("base", "tts", "input_types", "head", "connector", "eos",
+                   "vae", "vae_enc", "speech_scaling_factor",
+                   "speech_bias_factor")
+# parts kept in float32 whatever the model dtype (the VAE as the loaders
+# keep it, and the two scalars)
+VIBEVOICE_F32 = ("vae", "vae_enc", "speech_scaling_factor",
+                 "speech_bias_factor")
+
+
+def vibevoice_params_from_numpy(tree: dict, device="cuda",
+                                dtype: torch.dtype = torch.bfloat16,
+                                vae_dtype: torch.dtype = torch.float32
+                                ) -> dict:
+    """The reference's VibeVoice tree -> VibeVoiceTTS's params: the LM
+    stacks (their `rope` tables dropped), type embeddings, head,
+    connector and EOS classifier in `dtype`; the VAE's decoder and
+    encoder in `vae_dtype`; the two scalars in float32."""
+    unknown = sorted(set(tree) - set(VIBEVOICE_PARTS))
+    if unknown:
+        raise ValueError(f"a VibeVoice tree has {VIBEVOICE_PARTS}, not "
+                         f"{unknown}")
+    out = {}
+    for part, node in tree.items():
+        dt = dtype if part not in VIBEVOICE_F32 else (
+            vae_dtype if part.startswith("vae") else torch.float32)
+        out[part] = _convert(node, device, dt)
     return out

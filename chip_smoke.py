@@ -70,7 +70,7 @@ Phases (any failure exits non-zero and prints no result line):
      no failure, tokens equal to (a)'s; then the same under
      preempt_mode="recompute": at least one recompute preemption replayed
      through the prefill graphs, tokens equal to (a)'s;
-  7. the flagship (8 of its 28 layers, cut for the whole run's time)
+  7. the flagship (4 of its 28 layers, cut for the whole run's time)
      written as a checkpoint directory, loaded bit for bit and served
      through `cli serve DIR`, contiguous and paged;
   8. OLMo2, EXAONE4 and Phi-4 at their published widths, depth cut:
@@ -78,8 +78,8 @@ Phases (any failure exits non-zero and prints no result line):
   9. Gemma-3-1B at its published widths (head_dim 256, window 512, GQA
      4/1, sandwich (1+w) norms, GELU-tanh, local RoPE, vocab 262144):
      (a) f32 at 6 layers (one global) against the CPU on a 600-token
-     prompt that wraps the 512-token rings, contiguous and paged; (b) 12
-     of its 26 layers (two global; cut for the whole run's time) in bf16,
+     prompt that wraps the 512-token rings, contiguous and paged; (b) 6
+     of its 26 layers (one global; cut for the whole run's time) in bf16,
      written as a checkpoint with a Gemma-style
      byte-fallback tokenizer and loaded through build_text_model: 16
      captured decode replays equal 16 eager steps in both pools; (c) the
@@ -250,7 +250,7 @@ Phases (any failure exits non-zero and prints no result line):
      dequant kernel's f16 output at every shape, bit for bit, timed at
      2048 x 1024 and 12288 x 4096; (b) the flagship at f16 (28 layers,
      seed 0): the hidden state finite after every layer of a 256-token
-     prefill (its largest magnitude printed); then at 8 of its 28 layers
+     prefill (its largest magnitude printed); then at 4 of its 28 layers
      (cut for the whole run's time) for (b)-(e): 16 decode replays equal
      eager steps and the prefill graphs the eager chunks, contiguous and
      paged; (c) generate with the n-gram drafter equal to plain generate
@@ -264,11 +264,12 @@ Phases (any failure exits non-zero and prints no result line):
      in Qwen's FP8 layout served at f16 with native projections: tokens
      equal the model dequantized at load, the dequant kernel's f16 output
      launched inside the captured graphs;
-  17. the layer-sharded cluster (module 13a): the flagship (28 layers,
-     seed 0) written as a checkpoint and served across processes on the
+  17. the layer-sharded cluster (module 13a): the flagship (16 of its 28
+     layers, cut for the whole run's time; seed 0) written as a
+     checkpoint and served across processes on the
      one card: worker w0 a `python3 -m cake_tpu_torch.cli worker`
      subprocess, w1 a WorkerServer on a thread of this process, a
-     topology file on 127.0.0.1 giving them layers 4-11 and 12-19, the
+     topology file on 127.0.0.1 giving them layers 4-7 and 8-11, the
      master (runtime.build_text_model with a cluster key) the rest,
      weights streamed with CRC32 (GB/s printed); (a) float32: 32 greedy
      tokens of a chat prompt and of a 1100-token prompt (pipelined
@@ -324,12 +325,53 @@ Phases (any failure exits non-zero and prints no result line):
      card against the card's machine's CPU, and each written directory
      loaded through runtime.build_image_model equal to the seeded model
      bit for bit (parameters and latents);
+  20. FLUX.2-klein (module 14c; no hand-written kernel: its encoder and
+     image attention are the reference's plain ones, and the flash launch
+     counts must not move): (a) `cli serve --flagship --layers 1 --slots 0
+     --image-model demo:flux2-klein`, klein-4B's transformer (hidden 3072,
+     24 heads of 128, 5 double and 20 single blocks, MLP 9216, in 128,
+     context 7680), its Qwen3-4B encoder's layers 0-26 (hidden 2560,
+     32/8 heads of 128, intermediate 9728, vocab 151936; captures 8, 17
+     and 26) and its 32-channel VAE (base 128, (1, 2, 4, 4), 3 res
+     blocks) seeded in bf16 (the VAE float32): one 1024 x 1024 image as
+     b64_json and one 512 x 512 raw PNG over HTTP, 4 steps each; seconds
+     per step, encoder and VAE seconds, device memory held against the
+     parameters' bytes; (b) the same widths cut to 1 + 1 blocks and
+     encoder layers 0-2, float32 with TF32 off, card against the CPU: the
+     encoder's three captures, one flux2_forward and 3 Euler steps at 128
+     x 128 within 1e-4; (c) that cut seeded in bf16, written as a
+     diffusers directory (bench/synth_flux2.py) and served through `cli
+     serve --image-model DIR`: its tree equals the seeded one bit for bit
+     and the served image the in-memory model's pixel for pixel;
+  21. VibeVoice (module 14d's first part; no hand-written kernel: its
+     LMs take the masked attention path, flash off, as the reference's):
+     (a) `cli serve --flagship --layers 1 --slots 0 --audio-model
+     demo:vibevoice-0.5b --voices-dir V`, VibeVoice-Realtime-0.5B's
+     widths (Qwen2.5-0.5B's decoder, hidden 896, 14/2 heads, intermediate
+     4864, split 4 + 20 layers (assumed), acoustic dim 64, ratios 8 5 5 4
+     2 2, hop 3200, decoder depths 3-3-3-3-3-3-8) seeded in bf16 (the VAE
+     float32): a WAV, a PCM (the WAV's data chunk), a voice_b64 clone of
+     a 1 s WAV and a named voice-prompt file, each a valid answer;
+     frames, seconds per frame, VAE seconds and the real-time factor; (b)
+     those widths cut to 1 + 2 layers, float32 with TF32 off, card
+     against the CPU: the served sentence's whole generate_speech (27
+     frames over 3 text windows) from the same per-frame noise, the card
+     teacher-forced with the CPU's latents so that the loop does not
+     compound the roundings: the same frames, each frame's condition,
+     latent and EOS probability within 1e-4, the VAE decoder on the same
+     latents within 1e-4 and the waveforms within 1.5e-3 (the decoder's
+     gain); with the EOS bias raised both stop after 3 frames;
+     (c) that cut seeded in bf16, written as a checkpoint directory with
+     a byte-level BPE tokenizer (bench/synth_vibevoice.py) and spoken by
+     `cli tts DIR`: the WAV's header parses and its bytes equal the
+     in-memory model's;
   then prints the whole run's seconds, the kernels line, the card line,
   and the result line last. `--only 12` runs phases 1, 2 and 12 alone,
   `--only 13` phases 1, 2 and 13, `--only 14` phases 1, 2 and 14,
   `--only 15` phases 1, 2 and 15 (writing its own checkpoints), `--only
   16` phases 1, 2 and 16, `--only 17` phases 1, 2 and 17, `--only 18`
-  phases 1, 2 and 18, `--only 19` phases 1, 2 and 19, and none of them
+  phases 1, 2 and 18, `--only 19` phases 1, 2 and 19, `--only 20`
+  phases 1, 2 and 20, `--only 21` phases 1, 2 and 21, and none of them
   prints a result line. `--only
   13d` is a diagnosis of 13(d)'s oracle: its bf16 chats with the order
   of arrivals fixed (together, chat 0 first, chat 0 last, chat 0
@@ -2652,7 +2694,7 @@ def _prompt_ids_match(served, model_dir: str, bodies, label) -> None:
           f"{label}: the engine's prompt ids differ from the tokenizer's")
 
 
-CKPT_LAYERS = 8     # phase 7's flagship checkpoint, of 28 (cut for the
+CKPT_LAYERS = 4     # phase 7's flagship checkpoint, of 28 (cut for the
                     # whole run's time); phase 15(c) serves it in float32
 
 
@@ -2749,7 +2791,9 @@ def _check_chats_any(results: list[dict], label: str) -> None:
 
 # -- phase 8: the checkpoint families at their published widths ---------------
 
-FAMILY_LAYERS = {"olmo2": 2, "exaone4": 4, "phi4": 2}
+# OLMo2 and Phi-4 at one layer (cut for the whole run's time), EXAONE4 at
+# four so that its global NoPE layer (index 3) exists
+FAMILY_LAYERS = {"olmo2": 1, "exaone4": 4, "phi4": 1}
 
 
 def _family_dir(fam: str, workdir: str, layers: int | None,
@@ -2890,9 +2934,9 @@ def phase_families(card: str, workdir: str) -> dict:
 # -- phase 9: Gemma-3-1B at its published widths --------------------------------
 
 GEMMA_PARITY_LAYERS = 6     # layer 5 is global: the paged pool needs one
-GEMMA_CKPT_LAYERS = 12      # (b) and (c), of 26: two of the sliding-window
-                            # pattern's periods (cut for the whole run's
-                            # time)
+GEMMA_CKPT_LAYERS = 6       # (b) and (c), of 26: one period of the
+                            # sliding-window pattern, its global layer 5
+                            # included (cut for the whole run's time)
 
 
 def phase_gemma3(card: str, workdir: str) -> dict:
@@ -4880,8 +4924,8 @@ def _f16_kernels(card: str) -> dict:
     return out
 
 
-F16_LAYERS = 8      # 16(b)'s replays and graphs, (c), (d) and (e): the
-                    # flagship at 8 of its 28 layers (cut for the whole
+F16_LAYERS = 4      # 16(b)'s replays and graphs, (c), (d) and (e): the
+                    # flagship at 4 of its 28 layers (cut for the whole
                     # run's time); the hidden-state walk keeps all 28
 
 
@@ -5178,7 +5222,10 @@ def f16_kernel_rows(f: dict) -> list:
 
 CLUSTER_KEY = "chip-smoke-cluster"
 # the topology's two worker ranges; the master keeps layers 0-3 and 20-27
-CLUSTER_RANGES = {"w0": (4, 12), "w1": (12, 20)}
+# the flagship at 16 of its 28 layers (cut for the whole run's time): the
+# master holds 0-3 and 12-15, the workers a range of 4 each
+CLUSTER_LAYERS = 16
+CLUSTER_RANGES = {"w0": (4, 8), "w1": (8, 12)}
 
 
 def _free_port() -> int:
@@ -5260,8 +5307,10 @@ def _cluster_model(d: str, dtype: str, topo: str):
     check(isinstance(model, DistributedTextModel),
           "17: build_text_model did not build a cluster master")
     chain = [(s.kind, s.start, s.end) for s in model.stages]
-    check(chain == [("local", 0, 4), ("remote", 4, 12), ("remote", 12, 20),
-                    ("local", 20, 28)], f"17: stage chain {chain}")
+    want = [("local", 0, CLUSTER_RANGES["w0"][0]),
+            *(("remote", *CLUSTER_RANGES[n]) for n in ("w0", "w1")),
+            ("local", CLUSTER_RANGES["w1"][1], CLUSTER_LAYERS)]
+    check(chain == want, f"17: stage chain {chain}")
     return model, time.perf_counter() - t
 
 
@@ -5350,7 +5399,7 @@ def _no_zstd() -> bool:
 def _cluster_bf16(d, topo, card, w1):
     """17(c) in bf16: TTFT and decode tokens/s against the single-process
     model, each hop's RTT split, and the flash launches of the master's
-    local stages (12 layers: one fresh and two append launches each over
+    local stages (8 layers: one fresh and two append launches each over
     the 3 chunks) and of w1 (its own chunks, by flash mode)."""
     import torch
     from cake_tpu_torch.ops import flash
@@ -5374,7 +5423,8 @@ def _cluster_bf16(d, topo, card, w1):
     w1_chunks = {m: w1.stats["chunks"][m] - chunks0[m] for m in chunks0}
     w1_layers = CLUSTER_RANGES["w1"][1] - CLUSTER_RANGES["w1"][0]
     # the master keeps every layer the workers do not hold
-    master_layers = 28 - sum(hi - lo for lo, hi in CLUSTER_RANGES.values())
+    master_layers = CLUSTER_LAYERS - sum(hi - lo for lo, hi
+                                         in CLUSTER_RANGES.values())
     w1_launches = {m: w1_chunks[m] * w1_layers for m in ("fresh", "append")}
     master = {m: counts[m] - w1_launches[m] for m in ("fresh", "append")}
     print(f"cluster (c) bf16, 1100-token prompt (pipelined {stats['prefill']})"
@@ -5434,9 +5484,10 @@ def _cluster_serve(d, topo, card):
 
 
 def phase_cluster(card: str, workdir: str) -> dict:
-    """Phase 17: the flagship (28 layers, seed 0) served across processes
-    on the one card: w0 a `cli worker` subprocess, w1 a WorkerServer on a
-    thread, a topology file giving them layers 4-11 and 12-19, the master
+    """Phase 17: the flagship (CLUSTER_LAYERS of its 28 layers, seed 0)
+    served across processes on the one card: w0 a `cli worker`
+    subprocess, w1 a WorkerServer on a thread, a topology file giving them
+    layers 4-7 and 8-11, the master
     the rest, weights streamed with CRC32. (a) float32: greedy tokens and
     the pipelined prefill equal the single-process TextModel's; (b) w0
     killed mid-decode and restarted: one replay, the continuation equal;
@@ -5446,7 +5497,7 @@ def phase_cluster(card: str, workdir: str) -> dict:
     from cake_tpu_torch.bench import synth_checkpoint as sc
     t0 = time.perf_counter()
     d = os.path.join(workdir, "qwen3-flagship-cluster")
-    config = sc.flagship_config()
+    config = sc.flagship_config(CLUSTER_LAYERS)
     sc.write_model(d, config, sc.model_params(config, seed=0, device="cuda",
                                               gen_device="cuda"), shards=2)
     sc.write_tokenizer(d, sc.QWEN3_SPECIALS)
@@ -6206,6 +6257,565 @@ def phase_sd(card: str, workdir: str) -> dict:
     return out
 
 
+# -- phase 20: FLUX.2-klein (module 14c) --------------------------------------
+
+
+FLUX2_SIZES = ((1024, 4), (512, 4))    # 20(a): (side, steps) served
+FLUX2_PROMPT = "a watercolor fox in the snow at dusk, soft light"
+FLUX2_CUT = dict(double=1, single=1, captures=(0, 1, 2))   # 20(b), 20(c)
+FLUX2_CHECK = dict(side=128, txt_len=64, steps=3)          # 20(b)
+FLUX2_SERVED_CHECK = dict(side=256, steps=2, seed=9)       # 20(c)
+FLUX2_TOL = 1e-4        # f32 card vs CPU, TF32 off: sum order only
+
+
+def _flux2_cut(captures=FLUX2_CUT["captures"]) -> dict:
+    """klein-4B's configs at their widths, the transformer cut to
+    FLUX2_CUT's blocks and the encoder to the layers its captures run."""
+    import dataclasses
+    from cake_tpu_torch.models.image import klein_4b_configs
+    cfgs = klein_4b_configs()
+    cfgs["flux2"] = dataclasses.replace(
+        cfgs["flux2"], depth_double=FLUX2_CUT["double"],
+        depth_single=FLUX2_CUT["single"])
+    cfgs["output_layers"] = captures
+    return cfgs
+
+
+def _flux2_post(url: str, body: dict):
+    req = urllib.request.Request(
+        url + "/v1/images/generations", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    t = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=900) as r:
+        return r.status, r.headers.get("Content-Type"), r.read(), \
+            time.perf_counter() - t
+
+
+def _flux2_served(card: str) -> dict:
+    """20(a): `cli serve --flagship --layers 1 --slots 0 --image-model
+    demo:flux2-klein`: klein-4B's transformer, its Qwen3-4B encoder
+    (layers 0-26) and its 32-channel VAE seeded in bf16 (the VAE float32)
+    on the card; one 1024 x 1024 image as b64_json and one 512 x 512 raw
+    PNG over HTTP, 4 steps each."""
+    import base64
+    import torch
+    from cake_tpu_torch import cli
+    from cake_tpu_torch.ops import flash
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    args = cli.parser().parse_args(
+        ["serve", "--flagship", "--layers", "1", "--slots", "0", "--port",
+         "0", "--image-model", "demo:flux2-klein"])
+    t0 = time.perf_counter()
+    app = cli.build_server(args).start()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    model = app.state.image_model
+    t, v, enc = model.cfg.transformer, model.cfg.vae, model.text_encoder
+    e = enc.cfg
+    widths = ((t.hidden_size, t.num_heads, t.head_dim, t.mlp_hidden,
+               t.depth_double, t.depth_single, t.in_channels,
+               t.context_in_dim, t.axes_dims, t.theta),
+              (e.hidden_size, e.num_attention_heads, e.num_key_value_heads,
+               e.head_dim, e.intermediate_size, e.vocab_size,
+               len(enc.params["layers"]), enc.output_layers, enc.max_len),
+              (v.latent_channels, v.base_channels, v.channel_mults,
+               v.num_res_blocks))
+    check(widths == ((3072, 24, 128, 9216, 5, 20, 128, 7680,
+                      (32, 32, 32, 32), 2000.0),
+                     (2560, 32, 8, 128, 9728, 151936, 27, (8, 17, 26), 512),
+                     (32, 128, (1, 2, 4, 4), 3)),
+          f"20(a): not klein-4B's widths: {widths}")
+    parts = {"transformer": _tree_bytes(model.params["transformer"]),
+             "qwen3_encoder": _tree_bytes(enc.params),
+             "vae": _tree_bytes(model.params["vae"]),
+             "flagship_1_layer": _tree_bytes(app.state.model.params)}
+    held = torch.cuda.memory_allocated() - base
+    reckoned = sum(parts.values())
+    print(f"20(a) FLUX.2-klein-4B seeded on the card in {build_s:.1f} s "
+          f"(transformer {t.depth_double} + {t.depth_single} blocks at "
+          f"{t.hidden_size}, Qwen3-4B encoder layers 0-26 at "
+          f"{e.hidden_size}, VAE {v.latent_channels} channels); device "
+          f"memory {held / GB:.3f} GB held against {reckoned / GB:.3f} GB "
+          f"of parameters ({', '.join(f'{k} {b / GB:.3f}' for k, b in parts.items())}"
+          f" GB); on {card}", flush=True)
+    check(reckoned <= held <= reckoned + 0.5 * GB,
+          f"20(a): {held / GB:.3f} GB held for {reckoned / GB:.3f} GB of "
+          "parameters")
+    flash_before = dict(flash.launch_counts())
+    readings = {}
+    try:
+        for (side, steps), fmt in zip(FLUX2_SIZES, (None, "png")):
+            body = {"prompt": FLUX2_PROMPT, "size": f"{side}x{side}",
+                    "steps": steps, "seed": side}
+            if fmt:
+                body["response_format"] = fmt
+            torch.cuda.reset_peak_memory_stats()
+            status, ctype, raw, wall = _flux2_post(app.url, body)
+            check(status == 200, f"20(a) {side}: HTTP {status}")
+            if fmt:
+                check(ctype == "image/png", f"20(a) {side}: {ctype}")
+                png = raw
+            else:
+                png = base64.b64decode(json.loads(raw)["data"][0]["b64_json"])
+            pix = _png_pixels(png, side, f"20(a) {side}")
+            st = dict(model.stats)
+            peak = torch.cuda.max_memory_allocated() - base
+            r = readings[side] = {
+                "steps": steps, "s_per_step": st["denoise_s"] / steps,
+                "encode_s": st["encode_s"], "decode_s": st["decode_s"],
+                "wall_s": wall, "peak_gb": peak / GB,
+                "png_bytes": len(png)}
+            print(f"20(a) {side} x {side} ({'raw PNG' if fmt else 'b64_json'}"
+                  f"): {steps} steps, {r['s_per_step']:.4f} s per denoising "
+                  f"step, Qwen3 encoder {r['encode_s']:.4f} s, VAE decode "
+                  f"{r['decode_s']:.4f} s, request {wall:.2f} s; PNG "
+                  f"{len(png)} bytes, pixels {int(pix.min())}-"
+                  f"{int(pix.max())}; peak device memory {peak / GB:.2f} GB "
+                  f"over the start; on {card}", flush=True)
+            check(int(pix.max()) > int(pix.min()),
+                  f"20(a) {side}: a flat image")
+    finally:
+        app.stop()
+    check(flash.launch_counts() == flash_before,
+          "20(a): the FLUX.2 path launched the flash kernel (the "
+          "reference's encoder and image attention are plain)")
+    return readings
+
+
+def _flux2_parity(card: str) -> dict:
+    """20(b): klein-4B's widths cut to FLUX2_CUT, float32 with TF32 off,
+    seeded on the card and copied to the card's machine's CPU: the Qwen3
+    encoder's three captures of the templated prompt, one flux2_forward,
+    and 3 Euler steps from the same noise and text."""
+    import torch
+    from cake_tpu_torch.models.image import (Flux2ImageModel,
+                                             Flux2TextEncoder, seeded_flux2)
+    from cake_tpu_torch.models.image.flux2 import (flux2_forward,
+                                                   latent_grid,
+                                                   make_img_ids4,
+                                                   make_txt_ids4)
+    side, steps = FLUX2_CHECK["side"], FLUX2_CHECK["steps"]
+    with _TF32(False, False):
+        card_m = seeded_flux2(_flux2_cut(), torch.float32, "cuda", seed=20,
+                              max_txt_len=FLUX2_CHECK["txt_len"])
+        enc = card_m.text_encoder
+        cpu_enc = Flux2TextEncoder(enc.cfg, _to_device(enc.params, "cpu"),
+                                   tokenizer=enc.tokenizer,
+                                   max_len=enc.max_len,
+                                   output_layers=enc.output_layers,
+                                   pad_id=enc.pad_id, dtype=torch.float32)
+        cpu_m = Flux2ImageModel(card_m.cfg,
+                                params=_to_device(card_m.params, "cpu"),
+                                text_encoder=cpu_enc,
+                                bn_stats=(card_m.bn_mean.cpu(),
+                                          card_m.bn_var.cpu()),
+                                dtype=torch.float32, device="cpu")
+        ids, real = enc.token_ids(FLUX2_PROMPT)
+        want_txt = cpu_enc.encode_ids(ids, real)
+        got_txt = enc.encode_ids(ids, real)
+        cfg = card_m.cfg.transformer
+        h_half, w_half = latent_grid(card_m.cfg, side, side)
+        noise = torch.randn((1, h_half * w_half, cfg.in_channels),
+                            generator=torch.Generator().manual_seed(20))
+        t = torch.tensor([0.7])
+        args = (make_img_ids4(h_half, w_half), want_txt,
+                make_txt_ids4(want_txt.shape[1]))
+        want_v = flux2_forward(cfg, cpu_m.params["transformer"], noise,
+                               args[0], want_txt, args[2], t)
+        got_v = flux2_forward(cfg, card_m.params["transformer"],
+                              noise.cuda(), args[0].cuda(), want_txt.cuda(),
+                              args[2].cuda(), t.cuda())
+        want_z = cpu_m.denoise(FLUX2_PROMPT, side, side, steps, noise=noise,
+                               text=want_txt)
+        got_z = card_m.denoise(FLUX2_PROMPT, side, side, steps, noise=noise,
+                               text=want_txt)
+        torch.cuda.synchronize()
+
+    def rel(got, want):
+        return float((got.cpu() - want).abs().max() / want.abs().max())
+    out = {"encoder_rel": rel(got_txt, want_txt),
+           "forward_rel": rel(got_v, want_v),
+           "latent_rel": rel(got_z, want_z)}
+    print(f"20(b) klein-4B widths cut to {FLUX2_CUT['double']} + "
+          f"{FLUX2_CUT['single']} blocks and encoder layers 0-"
+          f"{max(FLUX2_CUT['captures'])}, f32 card vs CPU (TF32 off): "
+          f"encoder captures ({real} real tokens of "
+          f"{FLUX2_CHECK['txt_len']}) max rel err {out['encoder_rel']:.2e}, "
+          f"flux2_forward {out['forward_rel']:.2e}, {steps} Euler steps at "
+          f"{side} x {side} {out['latent_rel']:.2e} (tol {FLUX2_TOL}); on "
+          f"{card}", flush=True)
+    check(max(out.values()) < FLUX2_TOL, f"20(b): card vs CPU {out}")
+    return out
+
+
+def _flux2_checkpoint(card: str, workdir: str) -> dict:
+    """20(c): klein-4B's widths cut to FLUX2_CUT, seeded in bf16 on the
+    card, written as a diffusers directory (bench/synth_flux2.py) and
+    served through `cli serve --image-model DIR`: the loaded tree equals
+    the seeded one bit for bit and the served image the in-memory model's
+    pixel for pixel."""
+    import torch
+    from cake_tpu_torch.bench.synth_flux2 import write_flux2_checkpoint
+    from cake_tpu_torch.models.image import seeded_flux2
+    from cake_tpu_torch.utils.mapping import flatten_tree
+    import numpy as np
+    from cake_tpu_torch.utils.png import decode_png
+    seeded = seeded_flux2(_flux2_cut(), torch.bfloat16, "cuda", seed=21)
+    d = os.path.join(workdir, "flux2_cut")
+    t = time.perf_counter()
+    n = write_flux2_checkpoint(d, seeded)
+    write_s = time.perf_counter() - t
+    c = FLUX2_SERVED_CHECK
+    want = seeded.generate_image(FLUX2_PROMPT, c["side"], c["side"],
+                                 c["steps"], seed=c["seed"])
+    t = time.perf_counter()
+    app = _sd_app(d)
+    load_s = time.perf_counter() - t
+    try:
+        loaded = app.state.image_model
+        a = flatten_tree({"pipe": seeded.params,
+                          "enc": seeded.text_encoder.params})
+        b = flatten_tree({"pipe": loaded.params,
+                          "enc": loaded.text_encoder.params})
+        diff = sorted(set(a) ^ set(b)) or [
+            k for k, v in a.items()
+            if v.dtype != b[k].dtype or not torch.equal(v, b[k])]
+        status, _, raw, wall = _flux2_post(app.url, {
+            "prompt": FLUX2_PROMPT, "size": f"{c['side']}x{c['side']}",
+            "steps": c["steps"], "seed": c["seed"], "response_format": "png"})
+    finally:
+        app.stop()
+    check(status == 200, f"20(c): HTTP {status}")
+    same = np.array_equal(decode_png(raw), np.asarray(want))
+    print(f"20(c) klein-4B widths at {FLUX2_CUT['double']} + "
+          f"{FLUX2_CUT['single']} blocks, encoder layers 0-"
+          f"{max(FLUX2_CUT['captures'])}: {n / GB:.3f} GB written in "
+          f"{write_s:.1f} s, served through `cli serve --image-model DIR` "
+          f"after {load_s:.1f} s (page cache warm); tree equal bit for bit "
+          f"{not diff} ({len(a)} tensors, bn and post_quant_conv "
+          f"included), served {c['side']} x {c['side']} image equal to the "
+          f"in-memory model's {same} ({wall:.2f} s); on {card}", flush=True)
+    check(not diff, f"20(c): loaded tree differs: {diff[:3]}")
+    check(same, "20(c): the served image differs from the in-memory one")
+    del seeded
+    shutil.rmtree(d, ignore_errors=True)
+    return {"written_gb": n / GB, "write_s": write_s, "load_s": load_s}
+
+
+def phase_flux2(card: str, workdir: str) -> dict:
+    """20. FLUX.2-klein (module 14c): (a) served at klein-4B's full widths
+    and depth, (b) card vs CPU in float32 at a cut depth, (c) a written
+    directory served. No hand-written kernel runs: the encoder's and the
+    image's attention are the reference's plain ones."""
+    import torch
+    t0 = time.perf_counter()
+    out = {"served": _flux2_served(card)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["parity"] = _flux2_parity(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["checkpoint"] = _flux2_checkpoint(card, workdir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 20 in {time.perf_counter() - t0:.0f} s", flush=True)
+    return out
+
+
+# -- phase 21: VibeVoice (module 14d, first part) ----------------------------
+
+
+VV_TEXT = "Hello from the card, in a seeded voice."   # 27 frames (3.6 s)
+VV_CUT = dict(base_layers=1, tts_layers=2)     # 21(b), 21(c)
+VV_CLI_FRAMES = 6                              # 21(c)
+VV_FRAME_TOL = 1e-4     # f32 card vs CPU, teacher-forced with the CPU's
+                        # latents: each frame's condition, latent and EOS
+                        # probability, and the VAE decoder on the same
+                        # latents (sum order only)
+# the two runs' waveforms: the VAE decoder multiplies a latent difference
+# up to ~15x on the random weights (PERF.md §6), so 1e-4 on each latent
+# allows 1.5e-3 on the waveform
+VV_WAV_TOL = 1.5e-3
+
+
+def _vv_post(url: str, body: dict):
+    req = urllib.request.Request(
+        url + "/v1/audio/speech", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    t = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=900) as r:
+        return r.status, r.headers.get("Content-Type"), r.read(), \
+            time.perf_counter() - t
+
+
+def _vv_served(card: str, workdir: str) -> dict:
+    """21(a): `cli serve --flagship --layers 1 --slots 0 --audio-model
+    demo:vibevoice-0.5b --voices-dir V`: VibeVoice-Realtime-0.5B's widths
+    seeded in bf16 (the VAE float32) on the card; a WAV, a PCM, a
+    voice_b64 clone and a named voice over HTTP."""
+    import base64
+    import numpy as np
+    import torch
+    from cake_tpu_torch import cli
+    from cake_tpu_torch.bench.synth_vibevoice import write_voice_prompt
+    from cake_tpu_torch.models.audio import realtime_0_5b_config
+    from cake_tpu_torch.ops import flash
+    from cake_tpu_torch.utils.wav import decode_wav, encode_wav
+    voices = os.path.join(workdir, "voices")
+    os.makedirs(voices, exist_ok=True)
+    write_voice_prompt(os.path.join(voices, "narrator.safetensors"),
+                       realtime_0_5b_config(), seq=16, seed=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    args = cli.parser().parse_args(
+        ["serve", "--flagship", "--layers", "1", "--slots", "0", "--port",
+         "0", "--audio-model", "demo:vibevoice-0.5b", "--voices-dir",
+         voices])
+    t0 = time.perf_counter()
+    app = cli.build_server(args).start()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    model = app.state.audio_model
+    cfg = model.cfg
+    lm = cfg.lm_tts
+    widths = (lm.hidden_size, lm.num_attention_heads, lm.num_key_value_heads,
+              lm.intermediate_size, lm.vocab_size,
+              cfg.lm_base.num_hidden_layers, lm.num_hidden_layers,
+              cfg.acoustic_dim, cfg.vae_ratios, cfg.hop, cfg.vae_depths,
+              cfg.vae_channels[0], cfg.head_layers)
+    check(widths == (896, 14, 2, 4864, 151936, 4, 20, 64,
+                     (8, 5, 5, 4, 2, 2), 3200, (3, 3, 3, 3, 3, 3, 8), 2048,
+                     4), f"21(a): not the realtime 0.5B's widths: {widths}")
+    p = model.params
+    parts = {"lms": _tree_bytes({"b": p["base"], "t": p["tts"]}),
+             "head_connector_eos": _tree_bytes(
+                 {k: p[k] for k in ("head", "connector", "eos",
+                                    "input_types")}),
+             "vae_decoder": _tree_bytes(p["vae"]),
+             "vae_encoder": _tree_bytes(p["vae_enc"]),
+             "flagship_1_layer": _tree_bytes(app.state.model.params)}
+    held = torch.cuda.memory_allocated() - base
+    reckoned = sum(parts.values())
+    print(f"21(a) VibeVoice-Realtime-0.5B widths seeded on the card in "
+          f"{build_s:.1f} s (base {cfg.lm_base.num_hidden_layers} + TTS "
+          f"{lm.num_hidden_layers} layers at {lm.hidden_size}, hop "
+          f"{cfg.hop}); device memory {held / GB:.3f} GB held against "
+          f"{reckoned / GB:.3f} GB of parameters ({', '.join(f'{k} {b / GB:.3f}' for k, b in parts.items())}"
+          f" GB); on {card}", flush=True)
+    check(reckoned <= held <= reckoned + 0.5 * GB,
+          f"21(a): {held / GB:.3f} GB held for {reckoned / GB:.3f} GB")
+    clone = encode_wav(0.5 * np.sin(np.arange(24000) * 2 * np.pi * 220
+                                    / 24000).astype(np.float32))
+    requests = (("wav", {}), ("pcm", {"response_format": "pcm"}),
+                ("voice_b64 clone",
+                 {"voice_b64": base64.b64encode(clone).decode()}),
+                ("named voice", {"voice": "narrator"}))
+    flash_before = dict(flash.launch_counts())
+    readings, bodies = {}, {}
+    try:
+        for name, extra in requests:
+            status, ctype, raw, wall = _vv_post(app.url, {"input": VV_TEXT,
+                                                          **extra})
+            check(status == 200, f"21(a) {name}: HTTP {status}")
+            if name == "pcm":
+                check(ctype == "application/octet-stream",
+                      f"21(a) pcm: {ctype}")
+                samples = np.frombuffer(raw, "<i2")
+            else:
+                check(ctype == "audio/wav", f"21(a) {name}: {ctype}")
+                samples, rate = decode_wav(raw)
+                check(rate == cfg.sample_rate, f"21(a) {name}: rate {rate}")
+            st = dict(model.stats)
+            frames = st["frames"]
+            audio_s = frames * cfg.hop / cfg.sample_rate
+            r = readings[name] = {
+                "frames": frames, "s_per_frame": st["lm_s"] / frames,
+                "vae_s": st["vae_s"], "wall_s": wall,
+                "rtf": (st["lm_s"] + st["vae_s"]) / audio_s}
+            bodies[name] = raw
+            print(f"21(a) {name}: {frames} frames ({audio_s:.2f} s of "
+                  f"audio), {r['s_per_frame']:.4f} s per frame (text "
+                  f"windows, TTS LM steps and {cfg.solver_steps} diffusion "
+                  f"steps), VAE decode {r['vae_s']:.4f} s, real-time factor "
+                  f"{r['rtf']:.3f}, request {wall:.2f} s; {len(raw)} bytes; "
+                  f"on {card}", flush=True)
+            check(3 <= frames and len(samples) == frames * cfg.hop
+                  and np.abs(samples.astype(np.float32)).max() > 0,
+                  f"21(a) {name}: {frames} frames, {len(samples)} samples")
+    finally:
+        app.stop()
+    check(bodies["pcm"] == bodies["wav"][44:],
+          "21(a): the PCM answer is not the WAV's data chunk (same seed)")
+    check(bodies["named voice"] != bodies["wav"]
+          and bodies["voice_b64 clone"] != bodies["wav"],
+          "21(a): a voice did not change the audio")
+    check(flash.launch_counts() == flash_before,
+          "21(a): the speech path launched the flash kernel")
+    return readings
+
+
+def _vv_parity(card: str) -> dict:
+    """21(b): the realtime 0.5B's widths cut to VV_CUT, float32 with TF32
+    off, seeded on the card and copied to the CPU: the served sentence's
+    whole generate_speech on the CPU, then on the card from the same
+    per-frame noise, teacher-forced with the CPU's latents (frame_latents),
+    so that every frame, every text window and every EOS decision is held
+    on the same inputs without the loop compounding the roundings; then
+    the EOS stop itself, with the classifier's bias raised on both."""
+    import numpy as np
+    import torch
+    from cake_tpu_torch.models.audio import (VibeVoiceTTS,
+                                             realtime_0_5b_config)
+    cfg = realtime_0_5b_config(**VV_CUT)
+    gen = torch.Generator().manual_seed(21)
+    noise = [torch.randn((1, cfg.acoustic_dim), generator=gen)
+             for _ in range(8 + len(VV_TEXT) // 2)]
+    seen, logs = {}, {"cpu": [], "card": []}
+    with _TF32(False, False):
+        card_m = VibeVoiceTTS(cfg, dtype=torch.float32, seed=21,
+                              device="cuda")
+        cpu_m = VibeVoiceTTS(cfg, params=_to_device(card_m.params, "cpu"),
+                             dtype=torch.float32, device="cpu")
+
+        def keep(key, real):
+            def decode(lat):
+                seen[key] = lat.cpu()
+                seen[key + "_raw"] = real(lat)
+                return seen[key + "_raw"]
+            return decode
+
+        for key, m in (("card", card_m), ("cpu", cpu_m)):
+            m.decode_latents = keep(key, m.decode_latents)
+        t_b = time.perf_counter()
+        seen["cpu_wav"] = cpu_m.generate_speech(
+            VV_TEXT, frame_noise=noise, frame_log=logs["cpu"]).samples
+        seen["card_wav"] = card_m.generate_speech(
+            VV_TEXT, frame_noise=noise, frame_log=logs["card"],
+            frame_latents=[e["latent"] for e in logs["cpu"]]).samples
+        torch.cuda.synchronize()
+        lat, want = seen["card"], seen["cpu"]
+        check(lat.shape == want.shape and len(logs["card"]) == len(
+            logs["cpu"]), f"21(b): frames {lat.shape} against {want.shape}")
+        # the CPU's run decoded `want` itself: the card decodes the same
+        same_in = seen["cpu_raw"]
+        same_in_card = card_m.decode_latents(want.cuda()).cpu()
+        stops = {}
+        for key, m in (("card", card_m), ("cpu", cpu_m)):
+            m.params["eos"]["fc2"]["bias"].fill_(10.0)
+            m.generate_speech(VV_TEXT, frame_noise=noise)
+            stops[key] = m.stats["frames"]
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t_b
+    wav, want_wav = seen["card_wav"], seen["cpu_wav"]
+
+    def worst(field):
+        ref = torch.stack([e[field] for e in logs["cpu"]])
+        got = torch.stack([e[field] for e in logs["card"]])
+        errs = (got - ref).abs().flatten(1).max(1).values / ref.abs().max()
+        return float(errs.max()), int(errs.argmax())
+
+    eos_err = [abs(a["eos"] - b["eos"])
+               for a, b in zip(logs["card"], logs["cpu"])]
+    eos_p = [e["eos"] for e in logs["cpu"]]
+    out = {"frames": lat.shape[1],
+           "text_windows": -(-len(cpu_m._encode_text(VV_TEXT)) // 5),
+           "cond_rel": worst("cond"), "latent_rel": worst("latent"),
+           "eos_abs": max(eos_err), "eos_range": (min(eos_p), max(eos_p)),
+           "stops": stops,
+           "vae_rel": float((same_in_card - same_in).abs().max()
+                            / same_in.abs().max()),
+           "wav_rel": float(np.abs(wav - want_wav).max()
+                            / np.abs(want_wav).max())}
+    print(f"21(b) realtime 0.5B widths cut to base {VV_CUT['base_layers']} "
+          f"+ TTS {VV_CUT['tts_layers']} layers, f32 card vs CPU (TF32 "
+          f"off), the card teacher-forced with the CPU's latents: "
+          f"{out['frames']} frames on both over {out['text_windows']} text "
+          f"windows; worst frame's max rel err: condition "
+          f"{out['cond_rel'][0]:.2e} (frame {out['cond_rel'][1] + 1}), "
+          f"latent {out['latent_rel'][0]:.2e} (frame "
+          f"{out['latent_rel'][1] + 1}), EOS probability abs "
+          f"{out['eos_abs']:.2e} (p {out['eos_range'][0]:.4f}-"
+          f"{out['eos_range'][1]:.4f}), all tol {VV_FRAME_TOL}; the VAE decoder on "
+          f"the same latents {out['vae_rel']:.2e} (tol {VV_FRAME_TOL}); the "
+          f"waveforms {out['wav_rel']:.2e} (tol {VV_WAV_TOL}); EOS bias "
+          f"raised: stops after {stops['card']} frames on the card, "
+          f"{stops['cpu']} on the CPU; {took:.1f} s; on {card}", flush=True)
+    check(out["cond_rel"][0] < VV_FRAME_TOL
+          and out["latent_rel"][0] < VV_FRAME_TOL
+          and out["eos_abs"] < VV_FRAME_TOL and out["vae_rel"] < VV_FRAME_TOL
+          and out["wav_rel"] < VV_WAV_TOL
+          and stops["card"] == stops["cpu"] == 3,
+          f"21(b): card vs CPU {out}")
+    return out
+
+
+def _vv_cli(card: str, workdir: str) -> dict:
+    """21(c): the realtime 0.5B's widths cut to VV_CUT, seeded in bf16,
+    written as a checkpoint directory with a byte-level BPE tokenizer
+    (bench/synth_vibevoice.py) and spoken by `cli tts DIR`: the WAV's
+    header parses and its bytes equal the in-memory model's."""
+    import torch
+    from cake_tpu_torch import cli
+    from cake_tpu_torch.bench.synth_flux2 import qwen_tokenizer
+    from cake_tpu_torch.bench.synth_vibevoice import \
+        write_vibevoice_checkpoint
+    from cake_tpu_torch.models.audio import (VibeVoiceTTS,
+                                             realtime_0_5b_config)
+    from cake_tpu_torch.utils.bpe import JsonTokenizer
+    from cake_tpu_torch.utils.wav import decode_wav
+    cfg = realtime_0_5b_config(**VV_CUT)
+    seeded = VibeVoiceTTS(cfg, dtype=torch.bfloat16, seed=22, device="cuda")
+    seeded.tokenizer = JsonTokenizer(qwen_tokenizer(cfg.lm_base.vocab_size))
+    d = os.path.join(workdir, "vibevoice_cut")
+    t = time.perf_counter()
+    n = write_vibevoice_checkpoint(d, seeded)
+    write_s = time.perf_counter() - t
+    wav = os.path.join(workdir, "speech.wav")
+    t = time.perf_counter()
+    rc = cli.main(["tts", d, VV_TEXT, "--out", wav, "--frames",
+                   str(VV_CLI_FRAMES)])
+    tts_s = time.perf_counter() - t
+    with open(wav, "rb") as f:
+        data = f.read()
+    samples, rate = decode_wav(data)
+    want = seeded.generate_speech(VV_TEXT, max_frames=VV_CLI_FRAMES)
+    same = data == want.wav_bytes()
+    print(f"21(c) `cli tts DIR` on the realtime 0.5B's widths at base "
+          f"{VV_CUT['base_layers']} + TTS {VV_CUT['tts_layers']} layers "
+          f"({n / GB:.3f} GB written in {write_s:.1f} s): exit {rc}, "
+          f"{len(samples)} samples at {rate} Hz ({len(samples) // cfg.hop} "
+          f"frames) in {tts_s:.1f} s with the load; the WAV equals the "
+          f"in-memory model's byte for byte {same}; on {card}", flush=True)
+    check(rc == 0 and rate == cfg.sample_rate and samples.size > 0
+          and samples.size % cfg.hop == 0, "21(c): a bad WAV")
+    check(same, "21(c): the CLI's WAV differs from the in-memory model's")
+    shutil.rmtree(d, ignore_errors=True)
+    return {"write_s": write_s, "tts_s": tts_s}
+
+
+def phase_tts(card: str, workdir: str) -> dict:
+    """21. VibeVoice (module 14d, first part): (a) served at the realtime
+    0.5B's widths, (b) card vs CPU in float32 at a cut depth, (c) `cli
+    tts` on a written directory. No hand-written kernel runs: the LMs run
+    the masked attention path (flash off), as the reference's do."""
+    import torch
+    t0 = time.perf_counter()
+    out = {"served": _vv_served(card, workdir)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["parity"] = _vv_parity(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["cli"] = _vv_cli(card, workdir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 21 in {time.perf_counter() - t0:.0f} s", flush=True)
+    return out
+
+
 def main(argv: list[str]) -> int:
     t_start = time.perf_counter()
     import torch
@@ -6228,7 +6838,7 @@ def main(argv: list[str]) -> int:
               f"diagnosis)", flush=True)
         return 0
     if argv[:2] in (["--only", "16"], ["--only", "17"], ["--only", "18"],
-                    ["--only", "19"]):
+                    ["--only", "19"], ["--only", "20"], ["--only", "21"]):
         workdir = tempfile.mkdtemp(prefix="chip_smoke_")
         try:
             if argv[1] == "16":
@@ -6237,6 +6847,12 @@ def main(argv: list[str]) -> int:
                 rows = flux_kernel_rows(phase_flux(card, workdir))
             elif argv[1] == "19":
                 phase_sd(card, workdir)
+                rows = []
+            elif argv[1] == "20":
+                phase_flux2(card, workdir)
+                rows = []
+            elif argv[1] == "21":
+                phase_tts(card, workdir)
                 rows = []
             else:
                 phase_cluster(card, workdir)
@@ -6290,7 +6906,7 @@ def main(argv: list[str]) -> int:
         return 0
     check(not argv, f"unknown arguments {argv} (only: --only 12, --only 13, "
           "--only 13d, --only 14, --only 15, --only 16, --only 17, --only "
-          "18, --only 19)")
+          "18, --only 19, --only 20, --only 21)")
     timings = phase_kernels()
     paged_timings = phase_paged_kernels(built[pa.LIBRARY]["log"])
     parity_launches, parity_paged = phase_parity()
@@ -6319,6 +6935,8 @@ def main(argv: list[str]) -> int:
         cluster = phase_cluster(card, workdir)
         flux = phase_flux(card, workdir)
         sd = phase_sd(card, workdir)
+        flux2 = phase_flux2(card, workdir)
+        tts = phase_tts(card, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     kernels = []
@@ -6387,6 +7005,8 @@ def main(argv: list[str]) -> int:
     print(f"FLUX.1-dev served (phase 18): {json.dumps(flux['served'])} on "
           f"{card}")
     print(f"SD served (phase 19): {json.dumps(sd)} on {card}")
+    print(f"FLUX.2-klein (phase 20): {json.dumps(flux2)} on {card}")
+    print(f"VibeVoice (phase 21): {json.dumps(tts)} on {card}")
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.0f} s (limit 1200 s)", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -7,8 +7,8 @@ byte for byte), the same configs and the same text embeddings; native
 FP8 generates what dequantized at load generates; a missing tensor, a
 shape mismatch and missing encoders fail with the reference's errors.
 Also runtime.build_image_model's demo answers (demo:sd and an SD
-directory build SD, module 14b; FLUX.2 is refused naming 14c) and `cli
-image`."""
+directory build SD, module 14b; demo:flux2 and a FLUX.2 directory build
+FLUX.2, module 14c) and `cli image`."""
 import gc
 import json
 import os
@@ -238,6 +238,19 @@ def test_missing_encoders_error(tmp_path):
         load_flux_image_model(str(tmp_path / "nothing"), device="cpu")
 
 
+def f2_demo_with_encoder():
+    """The tiny FLUX.2 with a seeded tiny Qwen3 encoder on the CPU."""
+    from cake_tpu_torch.models.image import seeded_flux2, tiny_flux2_config
+    pipe = tiny_flux2_config()
+    enc = dict(architectures=["Qwen3ForCausalLM"], vocab_size=1024,
+               hidden_size=32, intermediate_size=64, num_hidden_layers=4,
+               num_attention_heads=4, num_key_value_heads=2,
+               max_position_embeddings=128)
+    return seeded_flux2({"flux2": pipe.transformer, "vae": pipe.vae,
+                         "encoder": enc, "output_layers": (0, 1, 2)},
+                        torch.float32, "cpu", max_txt_len=16)
+
+
 def test_build_image_model_demo_and_not_ported(tmp_path):
     model = build_image_model("demo:flux", "f32", device="cpu")
     assert np.asarray(model.generate_image("x", 24, 16, steps=1)).shape == \
@@ -249,8 +262,12 @@ def test_build_image_model_demo_and_not_ported(tmp_path):
     assert isinstance(sd_demo, SDImageModel)
     assert np.asarray(sd_demo.generate_image("x", 16, 16, 1)).shape == \
         (16, 16, 3)
-    with pytest.raises(NotImplementedError, match="14c"):
-        build_image_model("demo:flux2", device="cpu")
+    # module 14c serves FLUX.2: demo:flux2 and a diffusers FLUX.2 directory
+    from cake_tpu_torch.models.image import Flux2ImageModel
+    f2_demo = build_image_model("demo:flux2", "f32", device="cpu")
+    assert isinstance(f2_demo, Flux2ImageModel)
+    assert np.asarray(f2_demo.generate_image("x", 16, 16, 1)).shape == \
+        (16, 16, 3)
     fam = synth_sd.tiny_family("sd15")
     sd = str(tmp_path / "sd")
     synth_sd.write_sd_checkpoint(sd, fam, synth_sd.seeded_sd(
@@ -258,12 +275,21 @@ def test_build_image_model_demo_and_not_ported(tmp_path):
     sd_model = build_image_model(sd, "f32", device="cpu")
     assert isinstance(sd_model, SDImageModel)
     assert sd_model.generate_image("x", 32, 32, 1).size == (32, 32)
-    f2 = tmp_path / "flux2"
-    f2.mkdir()
-    (f2 / "model_index.json").write_text(json.dumps(
+    from cake_tpu_torch.bench.synth_flux2 import write_flux2_checkpoint
+    f2 = str(tmp_path / "flux2")
+    write_flux2_checkpoint(f2, f2_demo_with_encoder())
+    f2_model = build_image_model(f2, "f32", device="cpu")
+    assert isinstance(f2_model, Flux2ImageModel)
+    assert f2_model.generate_image("x", 16, 16, 1).size == (16, 16)
+    # a Flux2Pipeline index with no transformer/vae/text_encoder is no
+    # FLUX.2 directory, as the reference's sniff says: read as FLUX.1,
+    # it is refused
+    bare = tmp_path / "flux2_bare"
+    bare.mkdir()
+    (bare / "model_index.json").write_text(json.dumps(
         {"_class_name": "Flux2Pipeline"}))
-    with pytest.raises(NotImplementedError, match="14c"):
-        build_image_model(str(f2), device="cpu")
+    with pytest.raises(ValueError, match="not a recognizable"):
+        build_image_model(str(bare), device="cpu")
     d = _write(tmp_path, "split", "plain")
     model = build_image_model(d, "f32", fp8_native=True, device="cpu")
     assert model.params["transformer"]["img_in"]["weight"]["fp8"].dtype == \

@@ -23,7 +23,12 @@ the port's own decoder reads, and a FLUX.1 bundle written by
 bench/synth_flux.py loads native FP8 through build_image_model and
 generates. SD (module 14b) runs there too: `cli serve --image-model DIR`
 of a tiny SDXL directory with vocab.json + merges.txt tokenizers
-(bench/synth_sd.py) answers an img2img request from a PNG."""
+(bench/synth_sd.py) answers an img2img request from a PNG. FLUX.2
+(module 14c) and VibeVoice (module 14d) run there too: directories
+written by bench/synth_flux2.py and bench/synth_vibevoice.py, with
+byte-level BPE tokenizers read by utils/bpe.py, are served by `cli serve
+--image-model DIR --audio-model DIR --voices-dir V` (an image, WAV and
+PCM speech, a named voice), and `cli tts DIR` writes a WAV."""
 import ast
 import pathlib
 import subprocess
@@ -96,7 +101,15 @@ for name in ("cake_tpu_torch.obs", "cake_tpu_torch.obs.metrics",
              "cake_tpu_torch.api.images", "cake_tpu_torch.bench.synth_flux",
              "cake_tpu_torch.models.image.sd",
              "cake_tpu_torch.models.image.sd_loader",
-             "cake_tpu_torch.bench.synth_sd", "cake_tpu_torch.obs.profile"):
+             "cake_tpu_torch.bench.synth_sd", "cake_tpu_torch.obs.profile",
+             "cake_tpu_torch.models.image.flux2",
+             "cake_tpu_torch.models.image.flux2_loader",
+             "cake_tpu_torch.bench.synth_flux2",
+             "cake_tpu_torch.models.audio",
+             "cake_tpu_torch.models.audio.vibevoice",
+             "cake_tpu_torch.models.audio.vibevoice_loader",
+             "cake_tpu_torch.bench.synth_vibevoice",
+             "cake_tpu_torch.api.audio", "cake_tpu_torch.utils.wav"):
     assert name in mods, name
 import chip_smoke
 
@@ -304,7 +317,64 @@ with urllib.request.urlopen(req, timeout=60) as r:
 app.stop()
 assert type(app.state.image_model).__name__ == "SDXLImageModel"
 assert decode_png(png).shape == (32, 32, 3)
-leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+# FLUX.2 (module 14c) and VibeVoice (module 14d): directories written by
+# bench/synth_flux2.py and bench/synth_vibevoice.py (byte-level BPE
+# tokenizers with Qwen's specials) served by `cli serve --image-model DIR
+# --audio-model DIR --voices-dir V`: an image, a WAV, a PCM answer and a
+# named voice; `cli tts DIR` writes a WAV
+from cake_tpu_torch.bench.synth_flux2 import write_flux2_checkpoint
+from cake_tpu_torch.bench.synth_vibevoice import (write_vibevoice_checkpoint,
+                                                  write_voice_prompt)
+from cake_tpu_torch.models.audio import VibeVoiceTTS, tiny_tts_config
+from cake_tpu_torch.models.image import seeded_flux2, tiny_flux2_config
+from cake_tpu_torch.utils.wav import decode_wav
+import dataclasses
+fp = tiny_flux2_config()
+f2d = tempfile.mkdtemp() + "/flux2"
+write_flux2_checkpoint(f2d, seeded_flux2(
+    {"flux2": fp.transformer, "vae": fp.vae, "output_layers": (0, 1, 2),
+     "encoder": dict(architectures=["Qwen3ForCausalLM"], vocab_size=1024,
+                     hidden_size=32, intermediate_size=64,
+                     num_hidden_layers=3, num_attention_heads=4,
+                     num_key_value_heads=2, max_position_embeddings=128)},
+    torch.float32, "cpu", max_txt_len=16))
+vc = tiny_tts_config()
+vc = dataclasses.replace(
+    vc, lm_base=dataclasses.replace(vc.lm_base, vocab_size=1024),
+    lm_tts=dataclasses.replace(vc.lm_tts, vocab_size=1024))
+vvd = tempfile.mkdtemp() + "/vibevoice"
+write_vibevoice_checkpoint(vvd, VibeVoiceTTS(vc, dtype=torch.float32,
+                                             device="cpu"))
+voices = tempfile.mkdtemp()
+write_voice_prompt(voices + "/alice.safetensors", vc, seq=3)
+app = cli.build_server(cli.parser().parse_args(
+    ["serve", "--flagship", "--layers", "1", "--cpu", "--dtype", "f32",
+     "--port", "0", "--slots", "0", "--image-model", f2d, "--audio-model",
+     vvd, "--voices-dir", voices])).start()
+req = urllib.request.Request(
+    app.url + "/v1/images/generations",
+    data=json.dumps({"prompt": "a fox", "size": "32x32", "steps": 2}).encode())
+with urllib.request.urlopen(req, timeout=60) as r:
+    png = base64.b64decode(json.loads(r.read())["data"][0]["b64_json"])
+assert decode_png(png).shape == (32, 32, 3)
+assert type(app.state.image_model).__name__ == "Flux2ImageModel"
+for fmt, voice in (("wav", None), ("pcm", None), ("wav", "alice")):
+    req = urllib.request.Request(
+        app.url + "/v1/audio/speech",
+        data=json.dumps({"input": "hello there", "response_format": fmt,
+                         "voice": voice, "steps": 2}).encode())
+    with urllib.request.urlopen(req, timeout=60) as r:
+        audio = r.read()
+        assert r.headers["Content-Type"] == ("audio/wav" if fmt == "wav"
+                                             else "application/octet-stream")
+    if fmt == "wav":
+        assert len(decode_wav(audio)[0]) %% 16 == 0
+app.stop()
+wav_out = tempfile.mkdtemp() + "/speech.wav"
+assert cli.main(["tts", vvd, "hi", "--out", wav_out, "--frames", "2",
+                 "--cpu", "--dtype", "f32"]) == 0
+assert decode_wav(open(wav_out, "rb").read())[1] == 24000
+leaked =[m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
 print("OK", len(mods))
 ''' % (BLOCKED + GATED,)
