@@ -72,9 +72,11 @@ requires to be FP8, unless MODEL is `--flagship`); for SD,
 `--sd-trace-dir DIR` a torch.profiler trace of each generation there.
 `tts` writes one WAV (runtime.build_audio_model: `demo:vibevoice`, the
 tiny VibeVoice on seeded weights; `demo:vibevoice-0.5b`,
-VibeVoice-Realtime-0.5B's widths on seeded weights; or a VibeVoice
-checkpoint directory; `--voice` a voice-prompt file, `--voice-wav` a WAV
-to clone); `serve --audio-model M` serves it at POST /v1/audio/speech,
+VibeVoice-Realtime-0.5B's widths on seeded weights; `demo:luxtts`, the
+tiny LuxTTS on seeded weights; or a VibeVoice or LuxTTS checkpoint
+directory; `--voice` a VibeVoice voice-prompt file, `--voice-wav` a WAV
+to clone, `--steps` VibeVoice's diffusion steps per frame or LuxTTS's
+Euler steps); `serve --audio-model M` serves it at POST /v1/audio/speech,
 `--voices-dir DIR` naming the voice-prompt files a request may pick by
 name. CAKE_JOB_WORKERS (1) image and speech jobs run at once, and
 CAKE_IMAGE_MAX_SIZE (2048) bounds a side. The supervisor's
@@ -418,7 +420,8 @@ def parser() -> argparse.ArgumentParser:
                         "diffusers SD or FLUX.2 directory)")
     s.add_argument("--audio-model", default=None,
                    help="also serve this speech model ('demo:vibevoice', "
-                        "'demo:vibevoice-0.5b' or a VibeVoice directory)")
+                        "'demo:vibevoice-0.5b', 'demo:luxtts' or a "
+                        "VibeVoice or LuxTTS directory)")
     s.add_argument("--voices-dir", default=None,
                    help="directory of voice-prompt .safetensors files a "
                         "speech request may name")
@@ -469,14 +472,17 @@ def parser() -> argparse.ArgumentParser:
     i.add_argument("--cpu", action="store_true", help="run on the CPU")
     i.set_defaults(fn=cmd_image)
     t = sub.add_parser("tts", help="synthesize speech to a WAV file")
-    t.add_argument("model", help="'demo:vibevoice', 'demo:vibevoice-0.5b' "
-                                 "or a VibeVoice checkpoint directory")
+    t.add_argument("model", help="'demo:vibevoice', 'demo:vibevoice-0.5b', "
+                                 "'demo:luxtts' or a VibeVoice or LuxTTS "
+                                 "checkpoint directory")
     t.add_argument("text")
     t.add_argument("--out", default="output.wav")
     t.add_argument("--frames", type=int, default=None,
-                   help="most speech frames (133 ms each for VibeVoice)")
+                   help="most speech frames (133 ms each for VibeVoice, "
+                        "hop / rate for LuxTTS)")
     t.add_argument("--steps", type=int, default=None,
-                   help="diffusion steps per frame")
+                   help="diffusion steps per frame (VibeVoice) or Euler "
+                        "steps (LuxTTS)")
     t.add_argument("--cfg-scale", type=float, default=None)
     t.add_argument("--voice", default=None,
                    help="a voice-prompt .safetensors file")

@@ -24,11 +24,19 @@ row inactive, so that every lazy first-use call (kernel library loads,
 the paged kernel's shared-memory attribute, cuBLAS handles) happens
 outside the capture and nothing is written: an inactive row keeps its
 contiguous KV entry and writes the paged pool's sink. Then one step is
-captured into a private memory pool, with Python's garbage collector run
-first and held off during the capture: a dead graph that the collector
-destroyed in mid-capture would free its graph there, which CUDA refuses
-while a stream captures (and the capture is lost). There is no fallback:
-a capture or replay error goes up to the caller.
+captured into a private memory pool with Python's garbage collector held
+off: a dead graph that the collector destroyed in mid-capture would free
+its graph there, which CUDA refuses while a stream captures (and the
+capture is lost). A full collection first frees the dead graphs and
+pools of earlier captures; it costs ~0.2 s in a large process, so a set
+of programs captured together (an engine's start, `PrefillGraphs.capture`)
+runs one for the set (`collect=False` on each graph), and a prefill
+program captured at its key's first use runs none (it joins its set's
+pool). The capture calls `CUDAGraph.capture_begin` / `capture_end`
+itself: `torch.cuda.graph` would also empty the caching allocator before
+every capture, and the eager code after it would then allocate afresh
+from the device. There is no fallback: a capture or replay error goes up
+to the caller.
 
 Launch counts: the kernel wrappers count in Python, where they launch.
 The capture runs them once without launching anything, so DecodeGraph
@@ -63,7 +71,7 @@ from typing import Callable
 
 import torch
 
-WARMUP = 2      # side-stream runs of the step before its capture
+WARMUP = 1      # side-stream runs of the step before its capture
 
 
 @dataclass
@@ -218,10 +226,11 @@ class DecodeGraph:
     buffers it closes over. On a CUDA device it is captured at
     construction and `step()` replays it; on the CPU `step()` calls it.
     `pool`: a memory pool handle to share with other graphs (None: a
-    private pool of its own)."""
+    private pool of its own). `collect`: run a full garbage collection
+    before the capture (False where the caller ran one for a set)."""
 
     def __init__(self, step_fn: Callable[[], None], device,
-                 warmup: int = WARMUP, pool=None):
+                 warmup: int = WARMUP, pool=None, collect: bool = True):
         self.step_fn = step_fn
         self.device = torch.device(device)
         self.graph: torch.cuda.CUDAGraph | None = None
@@ -230,9 +239,9 @@ class DecodeGraph:
         self._delta = [0] * len(self._cells)
         self._pool = pool
         if self.device.type == "cuda":
-            self._capture(warmup)
+            self._capture(warmup, collect)
 
-    def _capture(self, warmup: int) -> None:
+    def _capture(self, warmup: int, collect: bool) -> None:
         dev = self.device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -242,14 +251,19 @@ class DecodeGraph:
         torch.cuda.current_stream(dev).wait_stream(side)
         before = _read(self._cells)
         graph = torch.cuda.CUDAGraph()
-        gc.collect()
+        if collect:
+            gc.collect()
+        pool = () if self._pool is None else (self._pool,)
         enabled = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.device(dev), torch.cuda.graph(
-                    graph, pool=self._pool,
-                    capture_error_mode="thread_local"):
-                self.step_fn()
+            torch.cuda.synchronize(dev)
+            with torch.cuda.device(dev), torch.cuda.stream(side):
+                graph.capture_begin(*pool, capture_error_mode="thread_local")
+                try:
+                    self.step_fn()
+                finally:
+                    graph.capture_end()
         finally:
             if enabled:
                 gc.enable()
@@ -320,9 +334,9 @@ class PrefillGraph(DecodeGraph):
     by step() on the CPU."""
 
     def __init__(self, run: Callable[[], None], io: PrefillIO, device,
-                 pool=None, warmup: int = WARMUP):
+                 pool=None, warmup: int = WARMUP, collect: bool = True):
         io.meta.zero_()             # slot 0, pos0 0, valid_len 0
-        super().__init__(run, device, warmup, pool)
+        super().__init__(run, device, warmup, pool, collect)
 
 
 class PrefillGraphs:
@@ -348,13 +362,19 @@ class PrefillGraphs:
         g = self.graphs.get(key)
         if g is None:
             # bound to the program and buffers, not to this set, so that a
-            # dropped set is freed at once (no reference cycle)
+            # dropped set is freed at once (no reference cycle); captured
+            # with no collection of its own: it joins the set's pool
             g = PrefillGraph(functools.partial(self.program, self.io, *key),
-                             self.io, self.device, self.pool)
+                             self.io, self.device, self.pool, collect=False)
             self.graphs[key] = g
         return g
 
-    def capture(self, keys) -> None:
+    def capture(self, keys, collect: bool = True) -> None:
+        """Capture the programs of `keys`, after one full garbage
+        collection for the set (none where `collect` is False: the caller
+        ran one)."""
+        if collect and self.device.type == "cuda":
+            gc.collect()
         for key in keys:
             self.graph(key)
 

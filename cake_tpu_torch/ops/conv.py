@@ -1,6 +1,6 @@
 """Convolutions for the image VAEs and the audio stack (counterpart of
 cake_tpu/ops/conv.py: conv2d, conv1d, conv_transpose1d,
-depthwise_conv1d).
+depthwise_conv1d, depthwise_conv1d_silu, causal_depthwise_conv1d_update).
 
 Layout: channels first, [B, C, H, W] / [B, C, T] with weights [Cout,
 Cin/groups, K...], and a transposed convolution's weight [Cin, Cout, K]
@@ -62,3 +62,30 @@ def depthwise_conv1d(x: torch.Tensor, weight: torch.Tensor,
                      padding: int = 0) -> torch.Tensor:
     """x: [B, C, T], weight: [C, 1, K]: one filter per channel."""
     return conv1d(x, weight, bias, padding=padding, groups=x.shape[1])
+
+
+def depthwise_conv1d_silu(x: torch.Tensor, weight: torch.Tensor,
+                          bias: torch.Tensor | None = None,
+                          padding: int = 0) -> torch.Tensor:
+    """A depthwise conv followed by SiLU, in plain PyTorch (the reference's
+    fused op)."""
+    return F.silu(depthwise_conv1d(x, weight, bias, padding))
+
+
+def causal_depthwise_conv1d_update(x_t: torch.Tensor,
+                                   conv_state: torch.Tensor,
+                                   weight: torch.Tensor,
+                                   bias: torch.Tensor | None = None,
+                                   activation: str | None = "silu"):
+    """One streaming step of a causal depthwise conv. x_t: [B, C], the new
+    frame; conv_state: [B, C, K - 1], the frames before it. Returns (y_t
+    [B, C], the next state)."""
+    k = weight.shape[-1]
+    window = torch.cat([conv_state, x_t[:, :, None]], dim=-1)   # [B, C, K]
+    y = torch.einsum("bck,ck->bc", window, weight[:, 0, :])
+    if bias is not None:
+        y = y + bias[None, :]
+    if activation == "silu":
+        y = F.silu(y)
+    new_state = window[:, :, 1:] if k > 1 else conv_state
+    return y, new_state

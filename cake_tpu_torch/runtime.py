@@ -22,8 +22,14 @@ over the workers of a topology file, or of UDP discovery.
 `demo:flux` is the tiny FLUX.1 pipeline on seeded weights, `demo:flux1-dev`
 FLUX.1-dev's full widths and depth on seeded weights (the MMDiT native
 FP8 with fp8_native), and a path is a FLUX.1 checkpoint (ComfyUI bundle
-or BFL split layout). SD and FLUX.2 raise NotImplementedError naming the
-ROADMAP item that brings them.
+or BFL split layout), a diffusers SD 1.x / 2.x / SDXL directory or a
+diffusers FLUX.2 directory; `demo:sd`, `demo:flux2` and `demo:flux2-klein`
+seed those pipelines.
+
+    audio_model = build_audio_model("demo:luxtts")
+
+`build_audio_model` serves `cli tts` and `cli serve --audio-model`:
+VibeVoice and LuxTTS, seeded demos or checkpoint directories.
 """
 from __future__ import annotations
 
@@ -331,34 +337,22 @@ def build_image_model(model: str, dtype: str = "bf16",
                                  device=device)
 
 
-def detect_luxtts_checkpoint(path: str) -> bool:
-    """The reference's LuxTTS sniff: a config.json whose "model" block has
-    the flow-matching decoder's fields."""
-    cfg_path = os.path.join(path, "config.json")
-    if not (os.path.isdir(path) and os.path.exists(cfg_path)):
-        return False
-    with open(cfg_path) as f:
-        m = json.load(f).get("model", {})
-    return isinstance(m, dict) and ("fm_decoder_dim" in m
-                                    or "fm_decoder_num_layers" in m)
-
-
 def build_audio_model(model: str, dtype: str = "bf16", device=None,
                       seed: int = 0):
     """The TTS generator of `cli tts` and `cli serve --audio-model`, on
     `device` (default `cuda`): `demo:vibevoice` (tiny, seeded),
-    `demo:vibevoice-0.5b` (VibeVoice-Realtime-0.5B's widths, seeded) or a
-    VibeVoice checkpoint directory. LuxTTS (`demo:luxtts`, a LuxTTS
-    directory) raises NotImplementedError."""
-    from .models.audio import (VibeVoiceTTS, detect_vibevoice_checkpoint,
+    `demo:vibevoice-0.5b` (VibeVoice-Realtime-0.5B's widths, seeded),
+    `demo:luxtts` (the tiny LuxTTS, seeded), or a VibeVoice or LuxTTS
+    checkpoint directory (the LuxTTS Vocos in float32)."""
+    from .models.audio import (LuxTTS, VibeVoiceTTS,
+                               detect_luxtts_checkpoint,
+                               detect_vibevoice_checkpoint, load_luxtts,
                                load_vibevoice, realtime_0_5b_config,
-                               tiny_tts_config)
+                               tiny_luxtts_config, tiny_tts_config)
     dt = parse_dtype(dtype)
-    luxtts = NotImplementedError(
-        "LuxTTS audio models are not ported yet: ROADMAP module 14d's "
-        "remainder (LuxTTS)")
     if model == "demo:luxtts":
-        raise luxtts
+        return LuxTTS(tiny_luxtts_config(), dtype=dt, seed=seed,
+                      device=device)
     if model == "demo:vibevoice-0.5b":
         return VibeVoiceTTS(realtime_0_5b_config(), dtype=dt, seed=seed,
                             device=device)
@@ -371,7 +365,7 @@ def build_audio_model(model: str, dtype: str = "bf16", device=None,
     if detect_vibevoice_checkpoint(path):
         return load_vibevoice(path, dtype=dt, device=device)
     if detect_luxtts_checkpoint(path):
-        raise luxtts
+        return load_luxtts(path, dtype=dt, device=device)
     raise ValueError(
         f"audio model {model!r}: not a demo: alias and not a recognizable "
         f"VibeVoice or LuxTTS checkpoint directory")

@@ -111,6 +111,7 @@ Left out of this port so far (see ROADMAP.md): the fleet KV tier.
 """
 from __future__ import annotations
 
+import gc
 import logging
 import os
 import queue as queue_mod
@@ -732,20 +733,23 @@ class ServeEngine:
     def _loop(self):
         try:
             t0 = now()
+            dev = self.model.device
+            if dev.type == "cuda":
+                gc.collect()    # one collection for every program below
             # captured with every row inactive (nothing admitted yet)
-            self.graph = DecodeGraph(self._decode_fn(), self.model.device)
+            self.graph = DecodeGraph(self._decode_fn(), dev, collect=False)
             if self.spec is not None:
                 # one graph per filt, as the reference compiles one
                 # executable per (bucket, k, filt); they never run at once
                 # and share a memory pool
-                dev = self.model.device
                 pool = (torch.cuda.graph_pool_handle()
                         if dev.type == "cuda" else None)
                 self.verify_graphs = {
-                    filt: DecodeGraph(self._verify_fn(filt), dev, pool=pool)
+                    filt: DecodeGraph(self._verify_fn(filt), dev, pool=pool,
+                                      collect=False)
                     for filt in (False, True)}
             # each prefill program's warm-up writes nothing (valid_len 0)
-            self.prefill.capture(self._prefill_keys)
+            self.prefill.capture(self._prefill_keys, collect=False)
             self.capture_s = now() - t0
         except BaseException as e:
             log.exception("serve engine failed to capture its programs")

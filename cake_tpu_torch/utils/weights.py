@@ -14,8 +14,9 @@ torch.float8_e4m3fn, its scales stay float32. `tree_from_numpy` does
 the same for the image models' trees (MMDiT, VAE, CLIP, T5), whose
 structural None leaves (a VAE level with no upsample) stay None;
 `sd_params_from_numpy` carries an SD / SDXL pipeline's tree,
-`flux2_params_from_numpy` a FLUX.2 pipeline's and
-`vibevoice_params_from_numpy` a VibeVoice model's.
+`flux2_params_from_numpy` a FLUX.2 pipeline's,
+`vibevoice_params_from_numpy` a VibeVoice model's and
+`luxtts_params_from_numpy` a LuxTTS model's.
 """
 from __future__ import annotations
 
@@ -142,4 +143,25 @@ def vibevoice_params_from_numpy(tree: dict, device="cuda",
         dt = dtype if part not in VIBEVOICE_F32 else (
             vae_dtype if part.startswith("vae") else torch.float32)
         out[part] = _convert(node, device, dt)
+    return out
+
+
+LUXTTS_PARTS = ("embed", "text_encoder", "fm_decoder", "vocos")
+
+
+def luxtts_params_from_numpy(tree: dict, device="cuda",
+                             dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The reference's LuxTTS tree (seeded, or from its loader, whose
+    per-stack entries are dicts keyed by the stack) -> LuxTTS's params:
+    the trunk in `dtype`, the Vocos in float32 (as the loaders keep it),
+    the per-stack entries as lists over the stacks with None where a
+    stack has none."""
+    from ..models.audio.luxtts_loader import stack_lists
+    if set(tree) != set(LUXTTS_PARTS):
+        raise ValueError(f"a LuxTTS tree has {LUXTTS_PARTS}, not "
+                         f"{sorted(tree)}")
+    out = {part: _convert(node, device,
+                          torch.float32 if part == "vocos" else dtype)
+           for part, node in tree.items()}
+    stack_lists(out["fm_decoder"], len(out["fm_decoder"]["stack_time_emb"]))
     return out

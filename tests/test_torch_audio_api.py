@@ -215,3 +215,52 @@ def test_resolve_voice_stays_inside_the_directory(voices, voice):
     class Unset:
         voices_dir = None
     assert resolve_voice(Unset, voice) is None
+
+
+def test_luxtts_served_over_http(tmp_path):
+    """LuxTTS (module 14d) from a directory written by bench/synth_luxtts.py,
+    served by `cli serve --audio-model DIR`: the WAV, the PCM (the WAV's
+    data chunk) and a voice_b64 clone of a 16 kHz clip are the in-memory
+    model's bytes at the request's steps and the API's cfg_scale; then
+    `cli tts DIR` writes the same model's WAV."""
+    from cake_tpu_torch import cli
+    from cake_tpu_torch.bench.synth_luxtts import write_luxtts_checkpoint
+    from cake_tpu_torch.models.audio import (LuxTTS, load_luxtts,
+                                             tiny_luxtts_config)
+    d = str(tmp_path / "lux")
+    write_luxtts_checkpoint(d, LuxTTS(tiny_luxtts_config(), seed=9,
+                                      device="cpu"))
+    model = load_luxtts(d, torch.float32, device="cpu")
+    clip = encode_wav((0.3 * np.sin(np.arange(16000) * 0.07)).astype(
+        np.float32), 16000)
+    text = "hello there"
+    want = {"wav": model.generate_speech(text, steps=3).wav_bytes(),
+            "clone": model.generate_speech(text, voice_wav=clip,
+                                           steps=3).wav_bytes()}
+    app = cli.build_server(cli.parser().parse_args(
+        ["serve", "--flagship", "--layers", "1", "--cpu", "--dtype", "f32",
+         "--port", "0", "--slots", "0", "--audio-model", d])).start()
+    try:
+        assert isinstance(app.state.audio_model, LuxTTS)
+        got = {}
+        for name, extra in (("wav", {}), ("pcm", {"response_format": "pcm"}),
+                            ("clone", {"voice_b64": base64.b64encode(
+                                clip).decode()})):
+            status, ctype, body, rid = _port_answer(
+                app.url, {"input": text, "steps": 3, **extra})
+            assert status == 200 and rid.startswith("tts-"), (name, body)
+            assert ctype == ("application/octet-stream" if name == "pcm"
+                             else "audio/wav")
+            got[name] = body
+    finally:
+        app.stop(drain_s=1)
+    assert got["wav"] == want["wav"] and got["clone"] == want["clone"]
+    assert got["pcm"] == got["wav"][44:]
+    assert got["clone"] != got["wav"]
+    samples, rate = decode_wav(got["wav"])
+    frames = len(model.phonemizer.tokenize(text))     # 12, spaces included
+    assert rate == 48000 and len(samples) == 2 * frames * 16
+    out = tmp_path / "speech.wav"
+    assert cli.main(["tts", d, text, "--out", str(out), "--steps", "3",
+                     "--dtype", "f32", "--cpu"]) == 0
+    assert out.read_bytes() == want["wav"]

@@ -1,7 +1,10 @@
 """The audio stack's operations against the JAX package on the CPU, in
 float32: conv1d (groups, stride, padding, dilation), conv_transpose1d
-(torch's convention, `padding` cropped), depthwise_conv1d and
-rms_norm_channel within 1e-5 relative (or 1e-5 of the largest magnitude
+(torch's convention, `padding` cropped), depthwise_conv1d, the plain
+versions of the reference's two fused depthwise ops
+(depthwise_conv1d_silu, and causal_depthwise_conv1d_update stepped over a
+sequence against the causal conv of the whole) and rms_norm_channel
+within 1e-5 relative (or 1e-5 of the largest magnitude
 near zero); and utils/wav.py byte for byte: f32_to_pcm16 and encode_wav,
 and decode_wav of mono, stereo and odd-sized chunks, refusing what the
 reference refuses."""
@@ -70,6 +73,49 @@ def test_depthwise_conv1d_matches_reference(padding):
     got = tconv.depthwise_conv1d(torch.from_numpy(x), torch.from_numpy(w),
                                  torch.from_numpy(b), padding)
     _close(got, want)
+
+
+@pytest.mark.parametrize("padding,bias", [(0, True), (3, True), (2, False)])
+def test_depthwise_conv1d_silu_matches_reference(padding, bias):
+    x, w = _rand((2, 6, 19), 12), _rand((6, 1, 7), 13)
+    b = _rand((6,), 14) if bias else None
+    want = jconv.depthwise_conv1d_silu(x, w, b, padding)
+    got = tconv.depthwise_conv1d_silu(
+        torch.from_numpy(x), torch.from_numpy(w),
+        None if b is None else torch.from_numpy(b), padding)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("k,activation,bias", [
+    (4, "silu", True), (4, None, False), (1, "silu", True),
+    (3, None, True)])
+def test_causal_depthwise_update_matches_reference(k, activation, bias):
+    """Stepped frame by frame from a zero state, both packages' outputs and
+    states agree, and equal the causal conv of the whole sequence."""
+    c, t = 5, 9
+    x, w = _rand((2, c, t), 15), _rand((c, 1, k), 16)
+    b = _rand((c,), 17) if bias else None
+    tb = None if b is None else torch.from_numpy(b)
+    jstate = np.zeros((2, c, k - 1), np.float32)
+    tstate = torch.zeros((2, c, k - 1))
+    outs = []
+    for i in range(t):
+        jy, jstate = jconv.causal_depthwise_conv1d_update(
+            x[:, :, i], jstate, w, b, activation)
+        ty, tstate = tconv.causal_depthwise_conv1d_update(
+            torch.from_numpy(x[:, :, i].copy()), tstate,
+            torch.from_numpy(w), tb, activation)
+        _close(ty, jy)
+        assert tstate.shape == jstate.shape == (2, c, k - 1)
+        if k > 1:
+            _close(tstate, jstate)
+        outs.append(ty)
+    whole = tconv.depthwise_conv1d(
+        torch.nn.functional.pad(torch.from_numpy(x), (k - 1, 0)),
+        torch.from_numpy(w), tb)
+    if activation == "silu":
+        whole = torch.nn.functional.silu(whole)
+    _close(torch.stack(outs, dim=-1), whole.numpy())
 
 
 @pytest.mark.parametrize("axis,dtype", [(1, "f32"), (2, "f32"),

@@ -28,7 +28,11 @@ of a tiny SDXL directory with vocab.json + merges.txt tokenizers
 written by bench/synth_flux2.py and bench/synth_vibevoice.py, with
 byte-level BPE tokenizers read by utils/bpe.py, are served by `cli serve
 --image-model DIR --audio-model DIR --voices-dir V` (an image, WAV and
-PCM speech, a named voice), and `cli tts DIR` writes a WAV."""
+PCM speech, a named voice), and `cli tts DIR` writes a WAV. LuxTTS
+(module 14d's remainder) runs there too: a directory written by
+bench/synth_luxtts.py is served by `cli serve --audio-model DIR` (WAV,
+PCM and a voice_b64 clone) and spoken by `cli tts DIR`, and the modality
+map (models/registry.py) imports."""
 import ast
 import pathlib
 import subprocess
@@ -109,6 +113,10 @@ for name in ("cake_tpu_torch.obs", "cake_tpu_torch.obs.metrics",
              "cake_tpu_torch.models.audio.vibevoice",
              "cake_tpu_torch.models.audio.vibevoice_loader",
              "cake_tpu_torch.bench.synth_vibevoice",
+             "cake_tpu_torch.models.audio.luxtts",
+             "cake_tpu_torch.models.audio.luxtts_loader",
+             "cake_tpu_torch.bench.synth_luxtts",
+             "cake_tpu_torch.models.registry",
              "cake_tpu_torch.api.audio", "cake_tpu_torch.utils.wav"):
     assert name in mods, name
 import chip_smoke
@@ -374,6 +382,39 @@ wav_out = tempfile.mkdtemp() + "/speech.wav"
 assert cli.main(["tts", vvd, "hi", "--out", wav_out, "--frames", "2",
                  "--cpu", "--dtype", "f32"]) == 0
 assert decode_wav(open(wav_out, "rb").read())[1] == 24000
+# LuxTTS (module 14d's remainder): a directory written by
+# bench/synth_luxtts.py served by `cli serve --audio-model DIR` (a WAV, a
+# PCM answer and a voice_b64 clone), `cli tts DIR` and demo:luxtts
+from cake_tpu_torch.bench.synth_luxtts import write_luxtts_checkpoint
+from cake_tpu_torch.models.audio import LuxTTS, tiny_luxtts_config
+from cake_tpu_torch.models.registry import AUDIO_ARCHS, modality_for_arch
+from cake_tpu_torch.utils.wav import encode_wav
+luxd = tempfile.mkdtemp() + "/luxtts"
+write_luxtts_checkpoint(luxd, LuxTTS(tiny_luxtts_config(), device="cpu"))
+app = cli.build_server(cli.parser().parse_args(
+    ["serve", "--flagship", "--layers", "1", "--cpu", "--dtype", "f32",
+     "--port", "0", "--slots", "0", "--audio-model", luxd])).start()
+clip = base64.b64encode(encode_wav(np.zeros(800, np.float32), 16000))
+answers = {}
+for fmt, extra in (("wav", {}), ("pcm", {}), ("wav", {"voice_b64":
+                                                    clip.decode()})):
+    req = urllib.request.Request(
+        app.url + "/v1/audio/speech",
+        data=json.dumps({"input": "hello there", "response_format": fmt,
+                         "steps": 2, **extra}).encode())
+    with urllib.request.urlopen(req, timeout=60) as r:
+        answers[fmt, bool(extra)] = r.read()
+app.stop()
+assert type(app.state.audio_model).__name__ == "LuxTTS"
+assert decode_wav(answers["wav", False])[1] == 48000
+assert answers["pcm", False] == answers["wav", False][44:]
+assert decode_wav(answers["wav", True])[1] == 48000
+assert cli.main(["tts", luxd, "hi", "--out", wav_out, "--steps", "2",
+                 "--cpu", "--dtype", "f32"]) == 0
+assert decode_wav(open(wav_out, "rb").read())[1] == 48000
+assert cli.main(["tts", "demo:luxtts", "hi", "--out", wav_out, "--steps",
+                 "1", "--cpu", "--dtype", "f32"]) == 0
+assert modality_for_arch(next(iter(AUDIO_ARCHS))) == "audio"
 leaked =[m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
 print("OK", len(mods))

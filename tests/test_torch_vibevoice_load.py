@@ -5,13 +5,13 @@ published tensor names; the JAX loader and the port's read it to the same
 tensors bit for bit and the same config, and the port's tokenizer (utils/
 bpe.py) gives the ids `tokenizers.Tokenizer.encode(text)` gives the
 reference. Also runtime.build_audio_model (demo:vibevoice, a directory;
-demo:luxtts and a LuxTTS directory refused naming ROADMAP 14d's
-remainder), `cli tts`, and the reference's bf16 fault (ROADMAP §3): its
+demo:luxtts and a LuxTTS directory give the port's LuxTTS; a directory
+of neither refused), `cli tts`, and the reference's bf16 fault (ROADMAP
+§3): its
 build_audio_model(DIR, "bf16") feeds bf16 latents into its float32 VAE
 and raises TypeError, where the port generates."""
 import dataclasses
 import gc
-import json
 import os
 
 import jax
@@ -25,9 +25,12 @@ from cake_tpu.runtime import build_audio_model as jax_build_audio
 from cake_tpu_torch import cli
 from cake_tpu_torch.bench.synth_vibevoice import (write_vibevoice_checkpoint,
                                                   write_voice_prompt)
-from cake_tpu_torch.models.audio import (VibeVoiceTTS,
+from cake_tpu_torch.bench.synth_luxtts import write_luxtts_checkpoint
+from cake_tpu_torch.models.audio import (LuxTTS, VibeVoiceTTS,
+                                         detect_luxtts_checkpoint,
                                          detect_vibevoice_checkpoint,
-                                         load_vibevoice, tiny_tts_config)
+                                         load_vibevoice, tiny_luxtts_config,
+                                         tiny_tts_config)
 from cake_tpu_torch.runtime import build_audio_model
 from cake_tpu_torch.utils.mapping import flatten_tree
 from cake_tpu_torch.utils.safetensors_io import index_file
@@ -169,14 +172,14 @@ def test_runtime_builds_and_refuses(written, tmp_path):
     assert isinstance(demo, VibeVoiceTTS) and demo.tokenizer is None
     assert isinstance(build_audio_model(d, "f32", device="cpu"),
                       VibeVoiceTTS)
-    with pytest.raises(NotImplementedError, match="14d's remainder"):
-        build_audio_model("demo:luxtts", device="cpu")
-    lux = tmp_path / "lux"
-    lux.mkdir()
-    (lux / "config.json").write_text(json.dumps(
-        {"model": {"fm_decoder_dim": 64, "fm_decoder_num_layers": 2}}))
-    with pytest.raises(NotImplementedError, match="LuxTTS"):
-        build_audio_model(str(lux), device="cpu")
+    assert isinstance(build_audio_model("demo:luxtts", device="cpu"),
+                      LuxTTS)
+    lux = str(tmp_path / "lux")
+    write_luxtts_checkpoint(lux, LuxTTS(tiny_luxtts_config(),
+                                        device="cpu"))
+    assert detect_luxtts_checkpoint(lux)
+    assert not detect_vibevoice_checkpoint(lux)
+    assert isinstance(build_audio_model(lux, "f32", device="cpu"), LuxTTS)
     other = tmp_path / "other"
     other.mkdir()
     (other / "config.json").write_text("{}")
