@@ -9,8 +9,13 @@ under a QoS class (interactive by default; `X-Cake-QoS` or the body's
 `qos`, clamped by the tenant's ceiling) and charged to its tenant
 (`X-Cake-Tenant`) before it takes a queue slot (api/qos.py). An
 `X-Cake-Request-Id` header becomes the request's id (its timeline, its
-spans, the engine's bookkeeping) and is echoed back. Left out so far:
-the fleet KV handshakes (the continuation-chars header among them).
+spans, the engine's bookkeeping) and is echoed back. A streamed
+continuation-mode answer reports the characters of the partial it
+consumed in `X-Cake-Continuation-Chars` (the fleet router's resume
+splice strips re-emitted overlap by it), and a blocking chat whose
+client closes its socket (a router's cancelled hedge or failover leg)
+is cancelled, freeing its slot. Left out so far: the fleet KV-share
+handshakes (module 15b).
 
 With no engine (an offloaded MoE model, or CAKE_SERVE_SLOTS=0) a chat
 takes the reference's locked fallback (its _chat_blocking and
@@ -25,6 +30,7 @@ from __future__ import annotations
 import json
 import logging
 import sys
+import threading
 import time
 import uuid
 
@@ -36,11 +42,20 @@ from ..serve import (EngineDown, EngineDraining, PoisonedRequest,
                      RequestDeadlineExceeded)
 from ..tokenizer import PromptError
 from .qos import admission_refusal, resolve_admission
-from .state import run_generation_blocking, run_generation_streamed
+from .state import (client_gone, run_generation_blocking,
+                    run_generation_streamed)
 
 log = logging.getLogger("cake_tpu_torch.api")
 
 TOP_K_CHOICES = (1, 5, 10, 20, 40, 64, 100, 200)
+
+# continuation handshake with the fleet router (mirrored there by name:
+# the router tier imports no torch): a streamed continuation-mode answer
+# reports how many chars of the partial assistant text this replica
+# consumed, so the router's mid-stream resume strips any re-emitted
+# overlap by POSITION instead of guessing from content. The port always
+# continues the partial verbatim, so it reports the full length.
+CONTINUATION_CHARS_HEADER = "X-Cake-Continuation-Chars"
 
 
 def _grid(v: float, step: float, lo: float, hi: float) -> float:
@@ -334,7 +349,8 @@ def _chat_locked(handler, state, messages, continuation: bool, kw: dict,
         if stream:
             tokens, _, cancel = run_generation_streamed(state.model,
                                                         prompt_ids, kw)
-            return _sse(handler, state, cid, rid, tokens, cancel.set, stops)
+            return _sse(handler, state, cid, rid, tokens, cancel.set, stops,
+                        _consumed_chars(messages, continuation))
         try:
             toks, stats = run_generation_blocking(state.model, prompt_ids,
                                                   kw)
@@ -379,11 +395,20 @@ def _chat_engine(handler, state, messages, continuation: bool, kw: dict,
     except ValueError as e:
         return handler.send_json({"error": str(e)}, 400)
     if stream:
-        return _stream(handler, state, cid, req, stops)
+        return _stream(handler, state, cid, req, stops,
+                       _consumed_chars(messages, continuation))
     if stops:
         _cancel_at_stop(state, req, stops)
     else:
-        state.engine.wait(req)
+        # a client that closed its socket (a router's cancelled hedge or
+        # failover leg) cancels the request, as the reference's aiohttp
+        # handler is cancelled, so that its slot frees at the next step
+        left = _ClientWatch(handler.connection, req.done)
+        state.engine.wait(req, left)
+        if left.is_set():
+            req.cancel()
+            state.engine.wait(req)
+            return None         # nobody reads an answer
     if "error" in req.result:
         GENERATIONS.inc(kind="text", status="error")
         err = req.result["error"]
@@ -431,8 +456,35 @@ def _cancel_at_stop(state, req, stops: list[str]) -> None:
         pass            # the request's error is in req.result, read next
 
 
+class _ClientWatch(threading.Event):
+    """Set once the client's socket has closed, which each wait looks at:
+    the engine's wait on another event polls it every 20 ms. A wait sleeps
+    on the request's own `done`, so a finished request is answered at
+    once, not at the end of a poll."""
+
+    def __init__(self, connection, done: threading.Event):
+        super().__init__()
+        self.connection = connection
+        self.done = done
+
+    def wait(self, timeout=None) -> bool:
+        if not self.is_set() and client_gone(self.connection):
+            self.set()
+        if not self.is_set():
+            self.done.wait(timeout)
+        return self.is_set()
+
+
+def _consumed_chars(messages, continuation: bool) -> int | None:
+    """The continuation handshake's value: the characters of the partial
+    assistant turn a continuation consumed (all of it), None otherwise."""
+    return len(str(messages[-1].get("content") or "")) if continuation \
+        else None
+
+
 def _stream(handler, state, cid: str, req,
-            stops: list[str] | None = None) -> None:
+            stops: list[str] | None = None,
+            cont_chars: int | None = None) -> None:
     """The engine's SSE answer (_sse). Nothing is committed before the
     request is admitted: one refused outright (engine down, poisoned)
     answers its typed status instead of an in-band error chunk (a queue
@@ -443,11 +495,12 @@ def _stream(handler, state, cid: str, req,
         GENERATIONS.inc(kind="text", status="error")
         return
     _sse(handler, state, cid, req.id, state.engine.stream(req), req.cancel,
-         stops)
+         stops, cont_chars)
 
 
 def _sse(handler, state, cid: str, trace_id: str, tokens, cancel,
-         stops: list[str] | None = None) -> None:
+         stops: list[str] | None = None,
+         cont_chars: int | None = None) -> None:
     """SSE over an iterator of Tokens (the engine's stream, or the locked
     path's worker): a role chunk, one content chunk per token (a
     character split over tokens goes out with its last token:
@@ -455,7 +508,9 @@ def _sse(handler, state, cid: str, trace_id: str, tokens, cancel,
     that goes away calls `cancel`, which frees the slot or the lock.
     `stops`: no part of a stop sequence is ever sent (a StopMatcher over
     the deltas holds back a possible partial match), the stream finishes
-    with finish_reason "stop" at a match and `cancel` is called there."""
+    with finish_reason "stop" at a match and `cancel` is called there.
+    `cont_chars`: continuation mode only, the X-Cake-Continuation-Chars
+    header's value."""
     created = int(time.time())
 
     def chunk(delta: dict, finish=None) -> bytes:
@@ -471,6 +526,8 @@ def _sse(handler, state, cid: str, trace_id: str, tokens, cancel,
     # the trace id rides the SSE headers too, so a streaming client can
     # read /api/v1/requests/<id> afterwards
     handler.send_header(TRACE_HEADER, trace_id)
+    if cont_chars is not None:
+        handler.send_header(CONTINUATION_CHARS_HEADER, str(cont_chars))
     handler.end_headers()
     finish = "length"
     text = TextStream(state.tokenizer)

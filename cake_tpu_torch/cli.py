@@ -1,5 +1,5 @@
-"""Command line (counterpart of cake_tpu/cli.py, `serve`, `run`, `image`
-and `tts`).
+"""Command line (counterpart of cake_tpu/cli.py, `serve`, `run`, `image`,
+`tts`, `worker`, `route` and `top`).
 
     python -m cake_tpu_torch.cli serve (MODEL | --flagship) [--arch A]
         [--dtype D] [--seed N] [--port P] [--cpu] [--fp8-native]
@@ -21,6 +21,10 @@ and `tts`).
         [--raw] [--seed N] [--fp8-native] [--expert-offload]
     python -m cake_tpu_torch.cli worker --cluster-key K [--name N]
         [--port P] [--model-dir DIR] [--cpu] [--no-advertise]
+    python -m cake_tpu_torch.cli route [--replica NAME=URL ...]
+        [--cluster-key K] [--host H] [--port P]
+    python -m cake_tpu_torch.cli top [--api HOST:PORT] [--interval S]
+        [--once] [--plain] [--timeout S]
 
 `serve` and `run` with `--cluster-key K` (or CAKE_CLUSTER_KEY) are a
 cluster master: the workers of `--topology FILE` (each node's
@@ -100,6 +104,15 @@ pool, CAKE_SPEC_RESERVE (the frontier a slot reserves ahead of a verify,
 seeds the sampling keys (serve: one key per admission; run: the
 request's) and the flagship's weights. `run` decodes through generate's
 captured chunks of 16 steps.
+
+`serve --announce [--announce-name N]` answers UDP discovery for the
+replica (role "serve"); its `--cluster-key` then names the fleet, and the
+model is served on this host alone. `route` is the fleet router
+(fleet/router.py) over the `--replica` entries and, with `--cluster-key`,
+the announced replicas discovery finds; the CAKE_FLEET_*, CAKE_TELEM_*
+and CAKE_SLO_* variables set it up (fleet/knobs.py), and `--autoscale`,
+CAKE_SCALE and CAKE_KVSHARE are refused (ROADMAP module 15b). `top`
+renders its telemetry rollup. Neither imports torch.
 """
 from __future__ import annotations
 
@@ -111,22 +124,20 @@ import signal
 import sys
 import threading
 
-from .device import parse_dtype
-from .models.common.config import FLAGSHIP_QWEN3_0_6B, config_from_hf_dict
-from .models.common.text_model import TextModel
-from . import obs
-from .ops.sampling import SamplingConfig
-from .serve.admission import (AdmissionPlane, TenantRegistry, class_bounds,
-                              class_weights)
-from .spec import resolve_drafter, spec_knobs
-from .serve.engine import PREEMPT_MODES, engine_knobs, maybe_engine
-from .tokenizer import ByteTokenizer
+# the model, engine and torch load inside the commands that use them:
+# `route` and `top` (the fleet router and its dashboard) import no torch
+PREEMPT_MODES = ("swap", "recompute")   # serve/engine.py's, for the parser
 
 
 def build_flagship(layers: int | None = None, dtype: str = "bf16",
-                   seed: int = 0, device: str | None = None) -> TextModel:
-    """The flagship model with seeded random weights, optionally cut to
-    `layers` blocks (widths are never changed)."""
+                   seed: int = 0, device: str | None = None):
+    """The flagship TextModel with seeded random weights, optionally cut
+    to `layers` blocks (widths are never changed)."""
+    from .device import parse_dtype
+    from .models.common.config import (FLAGSHIP_QWEN3_0_6B,
+                                       config_from_hf_dict)
+    from .models.common.text_model import TextModel
+    from .tokenizer import ByteTokenizer
     cfg = config_from_hf_dict(FLAGSHIP_QWEN3_0_6B)
     if layers:
         cfg = dataclasses.replace(cfg, num_hidden_layers=layers)
@@ -165,8 +176,12 @@ def _model_args(p: argparse.ArgumentParser) -> None:
 def load_model(args, max_cache_len: int = 2048):
     """(model, tokenizer, model_id) of the parsed arguments."""
     device = "cpu" if args.cpu else None
+    # a replica announced to a fleet router serves alone: its key names
+    # the fleet, not a cluster of workers
+    cluster_key = None if getattr(args, "announce", False) \
+        else args.cluster_key
     if args.flagship:
-        if args.cluster_key:
+        if cluster_key:
             raise ValueError("--cluster-key needs a checkpoint directory "
                              "(workers are sent its weights)")
         if args.fp8_native and not getattr(args, "image_model", None):
@@ -182,7 +197,7 @@ def load_model(args, max_cache_len: int = 2048):
                             max_cache_len=max_cache_len, seed=args.seed,
                             device=device, fp8_native=args.fp8_native,
                             expert_offload=args.expert_offload,
-                            cluster_key=args.cluster_key,
+                            cluster_key=cluster_key,
                             topology_path=args.topology)
 
 
@@ -202,6 +217,7 @@ def admission_knobs(env, max_queue: int) -> dict:
     variables (the reference's knobs, with its defaults: deadlines 0,
     weights 8:4:1, every class's bound `max_queue`). A malformed class
     spec raises here, at startup."""
+    from .serve.admission import class_bounds, class_weights
     return {"queue_deadline_s": float(env.get("CAKE_QUEUE_DEADLINE_S")
                                       or 0.0),
             "request_deadline_s": float(env.get("CAKE_REQUEST_DEADLINE_S")
@@ -215,6 +231,7 @@ def spec_args(env) -> dict:
     """The engine's speculative-decoding kwargs from CAKE_SPEC,
     CAKE_SPEC_K, CAKE_SPEC_NGRAM and CAKE_SPEC_RESERVE (the reference's
     knobs, defaults and clamps): {} when CAKE_SPEC leaves it off."""
+    from .spec import resolve_drafter, spec_knobs
     knobs = spec_knobs(env)
     drafter, k = resolve_drafter(knobs["spec"] or False, knobs["spec_k"],
                                  knobs["spec_ngram"])
@@ -228,7 +245,10 @@ def build_server(args):
     """The serve command's HTTP server (not started): over its engine
     (serve/engine.py: maybe_engine), or with none (an offloaded model, or
     CAKE_SERVE_SLOTS=0) over the locked one-request path."""
+    from . import obs
     from .api.server import create_app
+    from .serve.admission import AdmissionPlane, TenantRegistry
+    from .serve.engine import engine_knobs, maybe_engine
     env = os.environ
     obs.configure(env)
     plane = AdmissionPlane(TenantRegistry(env.get("CAKE_QOS_TENANTS") or ""))
@@ -271,20 +291,99 @@ def build_server(args):
                       voices_dir=args.voices_dir)
 
 
+def announce(args, port: int):
+    """`serve --announce`: a WorkerAdvertiser answering UDP discovery for
+    this replica (the reference's cmd_serve), its caps tagged role
+    "serve", the replies a fleet router's discovery keeps (`route
+    --cluster-key K`, fleet/registry.py: discover_replicas). Returns the
+    started advertiser; raises ValueError without a key."""
+    from .cluster import discovery
+    if not args.cluster_key:
+        raise ValueError("--announce needs --cluster-key (or "
+                         "CAKE_CLUSTER_KEY)")
+    caps = {**discovery.detect_capabilities(), "role": "serve"}
+    return discovery.WorkerAdvertiser(
+        args.announce_name or os.uname().nodename, args.cluster_key, port,
+        discovery_port=discovery.DISCOVERY_PORT, caps=caps).start()
+
+
 def cmd_serve(args) -> int:
+    if args.announce and not args.cluster_key:
+        print("error: --announce needs --cluster-key (or CAKE_CLUSTER_KEY)",
+              file=sys.stderr)
+        return 2
     app = build_server(args)
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, lambda *_: stop.set())
     app.start()
-    logging.getLogger("cake_tpu_torch").warning("serving on %s", app.url)
-    stop.wait()
-    logging.getLogger("cake_tpu_torch").warning("draining serve engine")
+    log = logging.getLogger("cake_tpu_torch")
+    log.warning("serving on %s", app.url)
+    advertiser = announce(args, app.server_address[1]) if args.announce \
+        else None
+    if advertiser is not None:
+        log.warning("announcing replica %s on UDP discovery",
+                    advertiser.name)
+    try:
+        stop.wait()
+    finally:
+        if advertiser is not None:
+            advertiser.stop()
+    log.warning("draining serve engine")
     app.stop()
     return 0
 
 
+def _replica_specs(specs: list[str]) -> list[tuple[str, str]]:
+    """--replica entries (NAME=URL or host:port) as (name, base_url), as
+    the reference's cmd_route parses them."""
+    replicas = []
+    for spec in specs or []:
+        name, sep, url = spec.partition("=")
+        if not sep:
+            url = spec
+            name = spec.split("//")[-1].replace(":", "-").replace("/", "")
+        if "://" not in url:
+            url = "http://" + url
+        replicas.append((name, url))
+    return replicas
+
+
+def cmd_route(args) -> int:
+    """Fleet router: front N `serve` replicas with health-driven
+    membership, prefix-affinity failover and router-level 429s
+    (fleet/router.py; the standard library only, no torch)."""
+    from .fleet import knobs
+    from .fleet.router import serve_router
+    replicas = _replica_specs(args.replica)
+    key = args.cluster_key or knobs.get("CAKE_CLUSTER_KEY")
+    if not replicas and not key:
+        print("error: need --replica host:port entries or --cluster-key "
+              "for UDP discovery", file=sys.stderr)
+        return 2
+    try:
+        serve_router(replicas, host=args.host, port=args.port,
+                     cluster_key=key,
+                     autoscale=True if args.autoscale else None)
+    except NotImplementedError as e:     # module 15b's switches
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    return 0
+
+
+def cmd_top(args) -> int:
+    """Live fleet dashboard: the router's telemetry rollup (burn rates,
+    headroom, per-replica SLO rows) in the terminal (fleet/top.py)."""
+    from .fleet.top import run_top
+    url = args.api
+    if "://" not in url:
+        url = "http://" + url
+    return run_top(url, interval_s=args.interval, once=args.once,
+                   plain=args.plain, timeout_s=args.timeout)
+
+
 def cmd_run(args) -> int:
+    from .ops.sampling import SamplingConfig
     model, tokenizer, _ = load_model(args)
     if args.raw:
         ids = tokenizer.encode(args.prompt)
@@ -431,6 +530,14 @@ def parser() -> argparse.ArgumentParser:
     s.add_argument("--sd-trace-dir", default=None,
                    help="SD: write a torch.profiler trace of each "
                         "generation here")
+    s.add_argument("--announce", action="store_true",
+                   help="advertise this replica on UDP discovery so a "
+                        "fleet router (`route --cluster-key K`) finds it "
+                        "(needs --cluster-key / CAKE_CLUSTER_KEY, which "
+                        "then names the fleet: the model is served here "
+                        "alone)")
+    s.add_argument("--announce-name", default=None,
+                   help="replica name for discovery (default: hostname)")
     s.set_defaults(fn=cmd_serve)
     r = sub.add_parser("run", help="generate once from a chat prompt")
     _model_args(r)
@@ -492,6 +599,34 @@ def parser() -> argparse.ArgumentParser:
     t.add_argument("--dtype", default="bf16")
     t.add_argument("--cpu", action="store_true", help="run on the CPU")
     t.set_defaults(fn=cmd_tts)
+    rt = sub.add_parser("route", help="fleet router over N serve "
+                                      "replicas (no torch)")
+    rt.add_argument("--host", default="0.0.0.0")
+    rt.add_argument("--port", type=int, default=8100)
+    rt.add_argument("--replica", action="append", default=[],
+                    help="replica as NAME=URL or host:port (repeatable; "
+                         "e.g. r0=http://10.0.0.5:8000)")
+    rt.add_argument("--cluster-key", default=None,
+                    help="PSK for UDP discovery of `serve --announce` "
+                         "replicas (CAKE_CLUSTER_KEY also works)")
+    rt.add_argument("--autoscale", action="store_true",
+                    help="the closed-loop autoscaler: refused, it is "
+                         "ROADMAP module 15b")
+    rt.set_defaults(fn=cmd_route)
+    tp = sub.add_parser("top", help="live fleet dashboard (telemetry "
+                                    "rollup from a `route` process)")
+    tp.add_argument("--api", default="127.0.0.1:8100",
+                    help="fleet router base URL (default 127.0.0.1:8100)")
+    tp.add_argument("--interval", type=float, default=2.0,
+                    help="refresh period in seconds")
+    tp.add_argument("--once", action="store_true",
+                    help="print one plain-text snapshot and exit")
+    tp.add_argument("--plain", action="store_true",
+                    help="plain text instead of curses (implied when "
+                         "stdout is not a tty)")
+    tp.add_argument("--timeout", type=float, default=3.0,
+                    help="per-fetch HTTP timeout in seconds")
+    tp.set_defaults(fn=cmd_top)
     w = sub.add_parser("worker", help="run as a cluster worker")
     w.add_argument("--name", default=os.uname().nodename)
     w.add_argument("--cluster-key",

@@ -8,14 +8,38 @@ The wire bytes are the JAX package's, so a port master drives a JAX
 worker and the other way round. The port needs neither msgpack nor yaml:
 codec.py and topology.load_yaml read and write the subsets the protocol
 and the topology format use.
+
+The names below load with their submodule on first use (PEP 562), so
+`cluster.discovery` alone, which the fleet router's UDP discovery reads,
+imports without torch.
 """
-from . import faults
-from .auth import AuthError, cluster_hash
-from .client import RemoteStage, StageFailure
-from .discovery import (WorkerAdvertiser, detect_capabilities,
-                        discover_workers)
-from .master import (ClusterDegradedError, DistributedTextModel, MasterSetup,
-                     Stage, master_setup, plan_assignments)
-from .strategy import DefaultStrategy, WorkerCapacity, estimate_layer_bytes
-from .topology import Node, Topology, expand_layer_specs
-from .worker import WorkerServer, run_worker
+import importlib
+
+# name -> the submodule that defines it
+_LAZY = {
+    "AuthError": "auth", "cluster_hash": "auth",
+    "RemoteStage": "client", "StageFailure": "client",
+    "WorkerAdvertiser": "discovery", "detect_capabilities": "discovery",
+    "discover_workers": "discovery",
+    "ClusterDegradedError": "master", "DistributedTextModel": "master",
+    "MasterSetup": "master", "Stage": "master", "master_setup": "master",
+    "plan_assignments": "master",
+    "DefaultStrategy": "strategy", "WorkerCapacity": "strategy",
+    "estimate_layer_bytes": "strategy",
+    "Node": "topology", "Topology": "topology",
+    "expand_layer_specs": "topology",
+    "WorkerServer": "worker", "run_worker": "worker",
+}
+
+__all__ = ["faults", *_LAZY]
+
+
+def __getattr__(name: str):
+    if name == "faults":
+        return importlib.import_module(f"{__name__}.faults")
+    if name in _LAZY:
+        value = getattr(importlib.import_module(
+            f"{__name__}.{_LAZY[name]}"), name)
+        globals()[name] = value
+        return value
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,0 +1,34 @@
+"""Fleet serving: a router tier over N `cli serve` replicas (counterpart of
+cake_tpu/fleet/, module 15a of the port).
+
+One engine survives crashes (serve/supervisor.py) and worker death
+(cluster/master.py); this package makes N of them survive each other —
+health-driven membership with a gray-failure eject -> half-open ->
+readmit machine (registry.py), prefix-affinity routing with
+deterministic failover (routing.py), router-level overload control and
+the `cli route` process itself (router.py), the chaos drill seam
+(faults.py), the telemetry plane that rolls per-replica signals up into
+burn rates / headroom / anomaly flags (telemetry.py, the feed `cli top`
+renders: top.py). The reference's router is aiohttp; the port's runs on
+the standard library's asyncio streams (http.py), and the package
+imports neither torch nor any third-party package, so a router starts in
+well under a second and never claims a CUDA context. Its knobs are the
+table in knobs.py.
+
+Module 15b is not here yet: the KV-share tier, the autoscaler and the
+replica lifecycle manager, and the network chaos layer (router.py
+refuses CAKE_SCALE and CAKE_KVSHARE by name).
+"""
+from .registry import (EJECTED, HALF_OPEN, HEALTHY, MembershipPolicy,
+                       Replica, ReplicaRegistry, discover_replicas)
+from .router import FleetRouter, create_router_app, serve_router
+from .routing import (AFFINITY_BLOCK, affinity_key, conversation_head,
+                      rank_replicas)
+from .telemetry import FleetTelemetry
+
+__all__ = [
+    "Replica", "ReplicaRegistry", "MembershipPolicy", "discover_replicas",
+    "HEALTHY", "EJECTED", "HALF_OPEN",
+    "FleetRouter", "create_router_app", "serve_router", "FleetTelemetry",
+    "affinity_key", "conversation_head", "rank_replicas", "AFFINITY_BLOCK",
+]

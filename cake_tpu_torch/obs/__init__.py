@@ -14,15 +14,17 @@ the API server's /metrics renders REGISTRY, /api/v1/trace the RECORDER,
 already has; none of it touches the card. `torch_trace` (obs/profile.py)
 is the device-side profiler trace SD's trace_dir wraps a generation in.
 
-Not here yet: the fleet instruments, the jobs gauge, and the
-reference's obs/series.py and obs/catalog.py (they come with the modules
-that record them).
+The fleet router (fleet/) records the FLEET_* instruments here and keeps
+its time series in obs/series.py (Series, SeriesBank). Not here yet: the
+jobs gauge, the fleet's KV-share and autoscale instruments and the
+reference's obs/catalog.py (they come with module 15b).
 """
 from __future__ import annotations
 
 from .metrics import (LATENCY_BUCKETS, REGISTRY, Counter, Gauge, Histogram,
                       MetricsRegistry)
 from .profile import torch_trace
+from .series import Series, SeriesBank
 from .spans import (DEFAULT_TRACE_EVENTS, RECORDER, SPAN_CATALOG,
                     SpanRecorder, current_request_id, new_request_id,
                     now_us, request_scope, set_request_id)
@@ -264,6 +266,124 @@ SERVE_TENANT_THROTTLES = REGISTRY.counter(
     labelnames=("tenant", "reason"))    # rate | inflight
 
 
+# -- fleet router tier (fleet/: router, registry, telemetry) ---------------
+# The reference's FLEET_* instruments that module 15a records, with its
+# names, labels and help text (its FLEET_KV_* and FLEET_SCALE_* come with
+# module 15b).
+
+FLEET_REPLICAS = REGISTRY.gauge(
+    "cake_fleet_replicas",
+    "Registered replicas by membership state — the primary autoscaling "
+    "signal (healthy shrinking or ejected growing means capacity loss)",
+    labelnames=("state",))          # healthy | ejected | half_open |
+                                    # draining
+
+FLEET_REPLICA_QUEUE_DEPTH = REGISTRY.gauge(
+    "cake_fleet_replica_queue_depth",
+    "Per-replica admission-queue depth mirrored from the last /health "
+    "probe (router-side autoscaling signal: sum across replicas is the "
+    "fleet backlog)",
+    labelnames=("replica",))
+
+FLEET_REPLICA_OCCUPANCY = REGISTRY.gauge(
+    "cake_fleet_replica_occupancy",
+    "Per-replica KV occupancy [0, 1] mirrored from the last /health "
+    "probe (paged pools report block occupancy, contiguous pools "
+    "busy-slot fraction)",
+    labelnames=("replica",))
+
+FLEET_REPLICA_INFLIGHT = REGISTRY.gauge(
+    "cake_fleet_replica_inflight",
+    "Requests the router currently has proxied onto the replica "
+    "(bounded by the per-replica in-flight cap)",
+    labelnames=("replica",))
+
+FLEET_SHEDS = REGISTRY.counter(
+    "cake_fleet_sheds_total",
+    "Requests shed 429 AT THE ROUTER before any replica admitted them",
+    labelnames=("reason",))         # global | replica_cap | no_replica |
+                                    # batch_pressure (QoS early shed)
+
+FLEET_EJECTS = REGISTRY.counter(
+    "cake_fleet_ejects_total",
+    "Replica ejections from routing membership",
+    labelnames=("replica", "reason", "evidence"))
+                                        # reason: fails | error_rate |
+                                        #   ttft_p95 | health
+                                        # evidence: data (transport /
+                                        #   request-path) | probe
+                                        #   (health-probe-path only)
+
+FLEET_READMITS = REGISTRY.counter(
+    "cake_fleet_readmits_total",
+    "Replicas readmitted to routing after a half-open trial succeeded",
+    labelnames=("replica",))
+
+FLEET_PARTITION_SECONDS = REGISTRY.counter(
+    "cake_fleet_partition_seconds_total",
+    "Cumulative seconds replicas have spent in a suspected-partition "
+    "episode (ejected on data-path/transport evidence, not yet "
+    "readmitted through a data-path trial)",
+    labelnames=("replica",))
+
+FLEET_RETRIES = REGISTRY.counter(
+    "cake_fleet_retries_total",
+    "Failover retries: attempts re-routed to another replica after a "
+    "retryable failure (transport error, replica 5xx/429)")
+
+FLEET_HEDGES = REGISTRY.counter(
+    "cake_fleet_hedges_total",
+    "Tail-hedged duplicates fired at a second replica after "
+    "CAKE_FLEET_HEDGE_MS without a reply")
+
+FLEET_PROXIED = REGISTRY.counter(
+    "cake_fleet_requests_total",
+    "Chat requests proxied through the fleet router",
+    labelnames=("outcome",))        # ok | failed | shed | broken_stream
+
+FLEET_STREAM_RESUMES = REGISTRY.counter(
+    "cake_fleet_stream_resumes_total",
+    "Transparent mid-stream resume attempts: streams broken after the "
+    "commit point that the router spliced (or tried to) onto another "
+    "replica in continuation mode",
+    labelnames=("outcome",))        # ok | broken | error | exhausted |
+                                    # overflow
+
+# -- fleet telemetry plane (rollups the autoscaler will consume) -------------
+# Computed once per probe cycle by fleet/telemetry.py from the in-process
+# time-series rings — these are the decision-grade reductions (burn rate,
+# headroom, anomaly flags), not raw mirrors.
+
+FLEET_SLO_BURN_RATE = REGISTRY.gauge(
+    "cake_fleet_slo_burn_rate",
+    "Fleet SLO burn rate per alerting window (fast ~5m, slow ~1h): the "
+    "windowed bad-request fraction (TTFT over CAKE_SLO_TTFT_MS, or "
+    "errored) divided by the CAKE_SLO_ERR_RATE error budget; > 1 means "
+    "the budget is burning faster than it accrues",
+    labelnames=("window",))         # fast | slow
+
+FLEET_HEADROOM_TOKENS = REGISTRY.gauge(
+    "cake_fleet_headroom_tokens_per_s",
+    "Estimated spare fleet decode capacity in tokens/s: per healthy "
+    "replica, observed per-slot token rate x free slots x KV-free "
+    "fraction, summed fleet-wide — the capacity signal the autoscaler "
+    "scales on")
+
+FLEET_REPLICA_OUTLIER = REGISTRY.gauge(
+    "cake_fleet_replica_outlier",
+    "1 while the replica's TTFT p95 or error rate diverges more than "
+    "CAKE_TELEM_OUTLIER_K robust standard deviations from the fleet "
+    "median (flagged in /fleet, never auto-ejected)",
+    labelnames=("replica",))
+
+FLEET_REPLICA_STALE = REGISTRY.gauge(
+    "cake_fleet_replica_stale",
+    "1 while the replica's last probe failed, so its mirrored gauges "
+    "(queue depth, occupancy) have been retracted and telemetry rollups "
+    "exclude it",
+    labelnames=("replica",))
+
+
 # -- cluster instruments (cluster/: master, client, worker) -------------------
 
 WORKER_FWD_SECONDS = REGISTRY.histogram(
@@ -335,5 +455,21 @@ __all__ = [
     "SPEC_BUCKET_ACCEPTED",
     "WORKER_FWD_SECONDS", "HOP_SECONDS", "CLUSTER_STAGE_FAILURES",
     "CLUSTER_RECONNECTS", "CLUSTER_REPLAYS", "CLUSTER_DEGRADED",
-    "CLUSTER_HOP_DEGRADED", "WORKER_HEARTBEAT",
+    "CLUSTER_HOP_DEGRADED", "WORKER_HEARTBEAT", "Series", "SeriesBank",
+    "FLEET_REPLICAS",
+    "FLEET_REPLICA_QUEUE_DEPTH",
+    "FLEET_REPLICA_OCCUPANCY",
+    "FLEET_REPLICA_INFLIGHT",
+    "FLEET_SHEDS",
+    "FLEET_EJECTS",
+    "FLEET_READMITS",
+    "FLEET_PARTITION_SECONDS",
+    "FLEET_RETRIES",
+    "FLEET_HEDGES",
+    "FLEET_PROXIED",
+    "FLEET_STREAM_RESUMES",
+    "FLEET_SLO_BURN_RATE",
+    "FLEET_HEADROOM_TOKENS",
+    "FLEET_REPLICA_OUTLIER",
+    "FLEET_REPLICA_STALE",
 ]

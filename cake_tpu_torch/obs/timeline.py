@@ -50,8 +50,8 @@ TRACE_HEADER = "X-Cake-Request-Id"
 MAX_EVENTS = 512
 
 # typed event vocabulary: event() rejects unknown kinds. The reference's
-# table, cut to the kinds the port records (its fleet and cluster kinds
-# come with those modules)
+# table, cut to the kinds the port records (the fleet router's among
+# them; the KV-share tier's come with module 15b)
 EVENT_KINDS: dict[str, str] = {
     # API tier
     "received": "request reached the API handler",
@@ -81,6 +81,36 @@ EVENT_KINDS: dict[str, str] = {
     # cluster tier (distributed master, per remote hop)
     "cluster_hop": "one remote-stage forward attributed to this request "
                    "(`worker`, `ms`)",
+    # fleet router tier
+    "route": "router accepted the request and ordered candidates "
+             "(`candidates`, `stream`)",
+    "attempt": "one outbound try against a replica (`replica`, "
+               "`outcome`, `status`)",
+    "retry": "failover: the next candidate gets the request",
+    "hedge": "tail hedge fired a duplicate at the next-best replica",
+    "shed": "router refused before any replica admitted (`reason`)",
+    "commit": "first streamed byte relayed; the request is committed "
+              "to `replica`",
+    "stream_broken": "stream severed after commit (`replica`, `chunks` "
+                     "relayed so far); the resume budget decides what "
+                     "happens next",
+    "stream_resume": "router began a transparent splice-resume of the "
+                     "broken stream (`replica` that broke, `attempt`, "
+                     "`sampled` when the rng-fold parity exception "
+                     "applies)",
+    "resume_spliced": "resumed replica's continuation reached the "
+                      "client: first spliced chunk relayed on the same "
+                      "socket (`replica`, `overlap_chars` stripped)",
+    "done": "terminal: router relayed the final response (`status`)",
+    "replica_partition_suspected": "membership ejected a replica on "
+                                   "data-path/transport evidence while "
+                                   "its probe path may still answer "
+                                   "(`replica`, `reason`, `hold_s`); "
+                                   "readmit now requires a data-path "
+                                   "trial",
+    "partition_healed": "a suspected-partition episode ended: the "
+                        "replica passed a data-path trial and rejoined "
+                        "routing (`replica`, `episode_s`)",
     "finish": "terminal: generation completed (`outcome`, `tokens`, "
               "`ttft_ms`, `e2e_ms`)",
     "error": "terminal: request failed or was cancelled (`type`)",
@@ -88,7 +118,7 @@ EVENT_KINDS: dict[str, str] = {
 
 # terminal kinds bypass the per-timeline cap: a truncated timeline must
 # still say how the request ended
-_TERMINAL = frozenset({"finish", "error"})
+_TERMINAL = frozenset({"finish", "error", "done"})
 
 
 class _Timeline:

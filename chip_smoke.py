@@ -385,6 +385,28 @@ Phases (any failure exits non-zero and prints no result line):
      that cut seeded in bf16, written with a tokens.txt and spoken by `cli
      tts DIR`: the WAV's header parses and its bytes equal the in-memory
      model's;
+  23. the fleet router (module 15a): two replicas of the flagship (28
+     layers, bf16, seed 0, paged: 1024 blocks of 16) on the one card, r0 a
+     `cli serve --announce` subprocess that one discover_replicas call
+     finds with role "serve", r1 this process's server (so its kernels'
+     counts can be read), behind a `cli route` subprocess (no torch in
+     it; 1 in flight per replica, 2 in all, a 0.5 s probe): (a) four
+     two-turn greedy SSE conversations under ~600-token system heads of
+     their own, two owned by each replica, each turn landing on its
+     rendezvous owner (the router's timeline) with the content of the
+     same request sent straight to that replica, turn 2 hitting its
+     prefix there; (b) a burst of 6 concurrent chats: each a 200 or a
+     429 with shed_by "router" and Retry-After, at least one 429, and
+     /metrics' shed counter equal to the 429s; (c) a 96-token stream
+     owned by r0, r0 SIGKILLed once the client holds 8 content events:
+     the one stream ends on r1 in one finish event and one [DONE], one
+     resume counted, its resumed text equal to r1's own continuation of
+     the partial the client received, r0 EJECTED within the probe
+     period and the next turn served by r1, the next-best; (d) `cli top
+     --once --plain` names both replicas with their states and the
+     telemetry carries the burn rates and each replica's headroom; (e)
+     r1's flash and paged-decode launches rose; prints TTFT p50 through
+     the router and direct, the resume gap, the 429s and the seconds;
   then prints the whole run's seconds, the kernels line, the card line,
   and the result line last. `--only 12` runs phases 1, 2 and 12 alone,
   `--only 13` phases 1, 2 and 13, `--only 14` phases 1, 2 and 14,
@@ -392,7 +414,8 @@ Phases (any failure exits non-zero and prints no result line):
   16` phases 1, 2 and 16, `--only 17` phases 1, 2 and 17, `--only 18`
   phases 1, 2 and 18, `--only 19` phases 1, 2 and 19, `--only 20`
   phases 1, 2 and 20, `--only 21` phases 1, 2 and 21, `--only 22` phases
-  1, 2 and 22, and none of them prints a result line. `--only
+  1, 2 and 22, `--only 23` phases 1, 2 and 23, and none of them prints a
+  result line. `--only
   13d` is a diagnosis of 13(d)'s oracle: its bf16 chats with the order
   of arrivals fixed (together, chat 0 first, chat 0 last, chat 0
   alone), each run's partings, the
@@ -7127,6 +7150,385 @@ def phase_luxtts(card: str, workdir: str) -> dict:
     return out
 
 
+
+# -- phase 23: the fleet router (module 15a) -----------------------------------
+
+FLEET_KEY = "chip-smoke-fleet"
+# router settings of phase 23: (b)'s shed bounds, and a probe period short
+# enough that (c)'s dead replica reads EJECTED within the phase
+FLEET_ENV = {"CAKE_FLEET_REPLICA_INFLIGHT": "1", "CAKE_FLEET_MAX_INFLIGHT": "2",
+             "CAKE_FLEET_PROBE_S": "0.5"}
+
+
+def _fleet_head(k: int) -> list[dict]:
+    """Conversation k's head: a ~600-token system message of its own (phase
+    6(b)'s, told apart by its first line) and its first question."""
+    return [{"role": "system", "content": f"Desk {k}. {SYSTEM}"},
+            {"role": "user", "content": f"question {k}: which card serves "
+             f"desk {k}, and at what power limit?"}]
+
+
+def _fleet_owner(msgs: list[dict], names: list[str]) -> list[str]:
+    from cake_tpu_torch.fleet import (affinity_key, conversation_head,
+                                      rank_replicas)
+    return rank_replicas(affinity_key(conversation_head(msgs), 64), names)
+
+
+def _sse_chat(url: str, body: dict, on_event=None, timeout: float = 300):
+    """POST a streamed chat and read its SSE events as they arrive: (status,
+    headers, [(seconds since the send, payload)]). `on_event(events)` runs
+    after each event."""
+    import http.client
+    from urllib.parse import urlsplit
+    u = urlsplit(url)
+    conn = http.client.HTTPConnection(u.hostname, u.port, timeout=timeout)
+    t0 = time.perf_counter()
+    conn.request("POST", "/v1/chat/completions", json.dumps(body),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    events = []
+    try:
+        if resp.status != 200:
+            return resp.status, dict(resp.headers), [(0.0, resp.read())]
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            line = line.decode("utf-8", "replace").strip()
+            if not line.startswith("data: "):
+                continue
+            events.append((time.perf_counter() - t0, line[6:]))
+            if on_event is not None:
+                on_event(events)
+    finally:
+        conn.close()
+    return resp.status, dict(resp.headers), events
+
+
+def _sse_text(events) -> tuple[str, int, float | None]:
+    """(content, content events, seconds to the first content event)."""
+    text, n, first = "", 0, None
+    for t, payload in events:
+        if payload == "[DONE]":
+            continue
+        delta = json.loads(payload)["choices"][0]["delta"]
+        if delta.get("content"):
+            text += delta["content"]
+            n += 1
+            first = t if first is None else first
+    return text, n, first
+
+
+def _get_json(url: str, timeout: float = 30):
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def _router_trace(router: str, rid: str) -> dict:
+    """The router's stitched timeline: {"router": events, "replica": the
+    replica tier's events, "landed": the replica the router committed or
+    finished on}."""
+    body = _get_json(f"{router}/api/v1/requests/{rid}")
+    tiers = body["tiers"]
+    own = next(t for t in tiers if t.get("tier") == "router")
+    landed = [e["replica"] for e in own["events"]
+              if e["kind"] in ("commit", "attempt") and e.get("replica")]
+    replica = [t for t in tiers if t.get("tier") != "router"]
+    return {"router": own["events"], "replica":
+            replica[0]["events"] if replica else [], "landed": landed}
+
+
+def _spawn_fleet(args: list[str], log_path: str, env=None):
+    log = open(log_path, "ab")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "cake_tpu_torch.cli", *args],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, **(env or {})), stdout=log,
+        stderr=subprocess.STDOUT)
+    log.close()
+    return proc
+
+
+def _wait_http(url: str, proc, log_path: str, label: str,
+               timeout: float = 240) -> None:
+    deadline = time.perf_counter() + timeout
+    while True:
+        try:
+            with urllib.request.urlopen(url + "/health", timeout=2):
+                return
+        except urllib.error.HTTPError:
+            return                  # answering (503: nothing routable yet)
+        except OSError:
+            pass
+        if proc.poll() is not None:
+            with open(log_path, errors="replace") as f:
+                tail = f.read()[-3000:]
+            check(False, f"23: {label} exited ({proc.returncode}): {tail}")
+        check(time.perf_counter() < deadline, f"23: {label} never answered")
+        time.sleep(0.1)
+
+
+def phase_fleet(card: str, workdir: str) -> dict:
+    """Phase 23: the fleet router (module 15a) in front of two flagship
+    replicas on the one card; returns the phase's readings."""
+    import signal
+    import torch
+    from cake_tpu_torch.fleet import discover_replicas
+    from cake_tpu_torch.ops import flash
+    from cake_tpu_torch.ops import paged_attention as pa
+    t_phase = time.perf_counter()
+    out = {}
+    procs = []
+    r1 = None
+    try:
+        # r0: `cli serve --announce`, started first so that its start-up
+        # overlaps r1's build in this process
+        p0 = _free_port()
+        log0 = os.path.join(workdir, "r0.log")
+        r0 = _spawn_fleet(["serve", "--flagship", "--host", "127.0.0.1",
+                           "--port", str(p0), "--kv-blocks", "1024",
+                           "--kv-block-tokens", "16", "--announce",
+                           "--cluster-key", FLEET_KEY, "--announce-name",
+                           "r0"], log0)
+        procs.append(r0)
+        url0 = f"http://127.0.0.1:{p0}"
+        from cake_tpu_torch.cli import build_flagship
+        model = build_flagship(layers=None, dtype="bf16", seed=0,
+                               device="cuda")
+        r1 = serve_model(model, kv_blocks=1024, kv_block_tokens=16)
+        url1 = r1.app.url
+        _wait_http(url0, r0, log0, "replica r0 (cli serve)")
+        found = discover_replicas(FLEET_KEY, timeout=2.0, expected=1,
+                                  addresses=["127.0.0.1"])
+        check(found == [("r0", url0)], f"23: discovery found {found}, not "
+              f"r0 at {url0} with role serve")
+        pr = _free_port()
+        router = f"http://127.0.0.1:{pr}"
+        logr = os.path.join(workdir, "router.log")
+        t0 = time.perf_counter()
+        rp = _spawn_fleet(["route", "--host", "127.0.0.1", "--port",
+                           str(pr), "--replica", f"r0={url0}", "--replica",
+                           f"r1={url1}"], logr, FLEET_ENV)
+        procs.append(rp)
+        _wait_http(router, rp, logr, "the router (cli route)")
+        out["router_start_s"] = round(time.perf_counter() - t0, 3)
+        out["startup_s"] = round(time.perf_counter() - t_phase, 3)
+        print(f"23: r0 (`cli serve --announce`, found by discovery) and r1 "
+              f"(this process) serve, the router (`cli route`) answered "
+              f"{out['router_start_s']} s after its start; "
+              f"{out['startup_s']} s in", flush=True)
+        urls = {"r0": url0, "r1": url1}
+        torch.cuda.synchronize()
+        flash.reset_launches()
+        pa.reset_launches()
+        # (a) affinity and parity: four two-turn conversations, each head
+        # owned by the replica rendezvous names; turn 2 hits its prefix
+        heads, k = [], 0
+        while len(heads) < 4:
+            owner = _fleet_owner(_fleet_head(k), ["r0", "r1"])[0]
+            if sum(h[1] == owner for h in heads) < 2:
+                heads.append((k, owner))
+            k += 1
+        ttft = {"router": [], "direct": []}
+        for n, (k, owner) in enumerate(heads):
+            msgs = _fleet_head(k)
+            for turn in range(2):
+                body = {"messages": msgs, "temperature": 0,
+                        "max_tokens": 32, "stream": True}
+                runs = {}
+                for via in (("router", "direct") if n % 2 == 0
+                            else ("direct", "router")):
+                    status, hdrs, ev = _sse_chat(
+                        router if via == "router" else urls[owner], body)
+                    check(status == 200 and ev and ev[-1][1] == "[DONE]",
+                          f"23a: {via} chat {k}.{turn}: HTTP {status}")
+                    runs[via] = _sse_text(ev)
+                    ttft[via].append(runs[via][2])
+                    if via == "router":
+                        rid = hdrs["X-Cake-Request-Id"]
+                trace = _router_trace(router, rid)
+                check(trace["landed"] == [owner], f"23a: chat {k}.{turn} "
+                      f"landed on {trace['landed']}, not its owner {owner}")
+                check(runs["router"][0] == runs["direct"][0],
+                      f"23a: chat {k}.{turn}: the router's content differs "
+                      f"from {owner}'s direct answer")
+                if turn == 1:
+                    hit = max([e.get("hit_tokens", 0)
+                               for e in trace["replica"]
+                               if e["kind"] == "prefill_done"] or [0])
+                    check(hit > 0, f"23a: turn 2 of chat {k} hit no prefix "
+                          f"on {owner}: {trace['replica'][:6]}")
+                    out.setdefault("turn2_hit_tokens", []).append(hit)
+                msgs = msgs + [{"role": "assistant",
+                                "content": runs["router"][0]},
+                               {"role": "user", "content": "and then?"}]
+        out["owners"] = [o for _, o in heads]
+        for via in ttft:
+            xs = sorted(ttft[via])
+            out[f"ttft_p50_ms_{via}"] = round(xs[len(xs) // 2] * 1e3, 3)
+        print(f"23(a): 4 conversations x 2 turns on their owners "
+              f"{out['owners']}, contents equal direct, turn 2 prefix hits "
+              f"{out['turn2_hit_tokens']}; TTFT p50 "
+              f"{out['ttft_p50_ms_router']} ms through the router, "
+              f"{out['ttft_p50_ms_direct']} ms direct; "
+              f"{time.perf_counter() - t_phase:.1f} s in", flush=True)
+        # (b) shed: a burst of 6 concurrent chats against the router's
+        # bounds (1 in flight per replica, 2 in all)
+        answers = [None] * 6
+
+        def fire(i):
+            body = {"messages": _fleet_head(100 + i), "temperature": 0,
+                    "max_tokens": 64}
+            try:
+                answers[i] = _post(router, body)
+            except urllib.error.HTTPError as e:
+                answers[i] = (e.code, dict(e.headers), e.read())
+        threads = [threading.Thread(target=fire, args=(i,))
+                   for i in range(6)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        sheds = 0
+        for i, a in enumerate(answers):
+            check(a is not None, f"23b: chat {i} never answered")
+            status, hdrs, raw = a
+            if status == 429:
+                check(json.loads(raw).get("shed_by") == "router"
+                      and hdrs.get("Retry-After"),
+                      f"23b: a 429 without shed_by router and Retry-After")
+                sheds += 1
+            else:
+                check(status == 200, f"23b: chat {i}: HTTP {status}")
+        check(sheds >= 1, "23b: the burst shed nothing")
+        with urllib.request.urlopen(router + "/metrics", timeout=30) as r:
+            metrics = r.read().decode()
+        counted = sum(float(line.rsplit(" ", 1)[1])
+                      for line in metrics.splitlines()
+                      if line.startswith("cake_fleet_sheds_total"))
+        check(counted == sheds, f"23b: /metrics counts {counted} sheds, the "
+              f"client saw {sheds} 429s")
+        out["burst_429"] = sheds
+        print(f"23(b): burst of 6: {sheds} shed 429 by the router, "
+              f"/metrics {counted:.0f}; "
+              f"{time.perf_counter() - t_phase:.1f} s in", flush=True)
+        # (c) failover mid-stream: r0 SIGKILLed after 8 content events
+        k = next(k for k in range(200, 400)
+                 if _fleet_owner(_fleet_head(k), ["r0", "r1"])[0] == "r0")
+        body = {"messages": _fleet_head(k), "temperature": 0,
+                "max_tokens": 96, "stream": True}
+        killed = {}
+
+        def kill_at_8(events):
+            if "t" not in killed and _sse_text(events)[1] >= 8:
+                os.kill(r0.pid, signal.SIGKILL)
+                killed["t"] = events[-1][0]
+        status, hdrs, ev = _sse_chat(router, body, kill_at_8)
+        check("t" in killed and status == 200, f"23c: HTTP {status}, the "
+              f"stream never reached 8 content events")
+        r0.wait(timeout=30)
+        rid = hdrs["X-Cake-Request-Id"]
+        trace = _router_trace(router, rid)
+        kinds = [e["kind"] for e in trace["router"]]
+        check("stream_broken" in kinds and "resume_spliced" in kinds,
+              f"23c: no splice in the router's timeline {kinds}")
+        broken = next(e for e in trace["router"]
+                      if e["kind"] == "stream_broken")
+        spliced = next(e for e in trace["router"]
+                       if e["kind"] == "resume_spliced")
+        check(broken["replica"] == "r0" and spliced["replica"] == "r1",
+              f"23c: broke on {broken['replica']}, resumed on "
+              f"{spliced['replica']}")
+        check(ev[-1][1] == "[DONE]" and sum(
+            1 for _, p in ev if p != "[DONE]"
+            and json.loads(p)["choices"][0]["finish_reason"]) == 1
+            and sum(1 for _, p in ev if p == "[DONE]") == 1,
+            "23c: the stream did not end in one finish event and one "
+            "[DONE]")
+        pre, post = ev[:broken["chunks"]], ev[broken["chunks"]:]
+        pre_text, pre_n, _ = _sse_text(pre)
+        post_text = _sse_text(post)[0]
+        with urllib.request.urlopen(router + "/metrics", timeout=30) as r:
+            metrics = r.read().decode()
+        check('cake_fleet_stream_resumes_total{outcome="ok"} 1' in metrics,
+              "23c: the router did not count one resumed stream")
+        cont = {"messages": body["messages"] + [
+            {"role": "assistant", "content": pre_text, "continue": True}],
+            "temperature": 0, "max_tokens": 96 - pre_n}
+        direct = r1.chat(cont)["resp"]["choices"][0]["message"]["content"]
+        check(post_text == direct, f"23c: the resumed text differs from "
+              f"r1's own continuation of the same partial")
+        out["resume_gap_ms"] = round(
+            (post[0][0] - pre[-1][0]) * 1e3, 3)
+        out["pre_kill_events"] = pre_n
+        print(f"23(c): r0 SIGKILLed after {pre_n} content events, the "
+              f"stream spliced onto r1 {out['resume_gap_ms']} ms later, equal "
+              f"to r1's own continuation; "
+              f"{time.perf_counter() - t_phase:.1f} s in", flush=True)
+        deadline = time.perf_counter() + 6 * 0.5 + 2.0
+        state = None
+        while time.perf_counter() < deadline:
+            fleet = _get_json(router + "/api/v1/fleet")
+            state = {r["name"]: r["state"] for r in fleet["replicas"]}
+            if state["r0"] == "ejected":
+                break
+            time.sleep(0.1)
+        check(state and state["r0"] == "ejected",
+              f"23c: r0 is {state} after the probe period")
+        status, hdrs, ev = _sse_chat(router, {
+            "messages": body["messages"] + [
+                {"role": "assistant", "content": pre_text + post_text},
+                {"role": "user", "content": "and then?"}],
+            "temperature": 0, "max_tokens": 16, "stream": True})
+        landed = _router_trace(router, hdrs["X-Cake-Request-Id"])["landed"]
+        check(status == 200 and landed == ["r1"]
+              == _fleet_owner(body["messages"], ["r0", "r1"])[1:],
+              f"23c: the next turn landed on {landed}")
+        # (d) the dashboard
+        top = subprocess.run(
+            [sys.executable, "-m", "cake_tpu_torch.cli", "top", "--once",
+             "--plain", "--api", router],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=60)
+        rows = [ln for ln in top.stdout.splitlines()
+                if ln.startswith(("r0 ", "r1 "))]
+        check(top.returncode == 0 and len(rows) == 2
+              and "ejected" in rows[0] and "healthy" in rows[1],
+              f"23d: cli top exited {top.returncode}: {top.stdout[-800:]}"
+              f"{top.stderr[-800:]}")
+        tel = _get_json(router + "/api/v1/fleet/telemetry")
+        check(set(tel["burn_rate"]) == {"fast", "slow"}
+              and all("headroom_tokens_per_s" in r and "err_rate" in r
+                      for r in tel["replicas"].values())
+              and set(tel["replicas"]) == {"r0", "r1"},
+              f"23d: telemetry {str(tel)[:400]}")
+        out["burn_rate"] = tel["burn_rate"]
+        out["headroom_tokens_per_s"] = tel["headroom_tokens_per_s"]
+        # (e) the kernels behind the router: r1 runs in this process
+        torch.cuda.synchronize()
+        fl, pd = flash.launch_counts(), pa.launch_counts()
+        check(fl["bf16"]["fresh"] > 0 and pd["bf16"] > 0,
+              f"23e: r1's launches flash {fl}, paged {pd}")
+        out["r1_launches"] = {"flash_bf16": fl["bf16"],
+                              "paged_bf16": pd["bf16"]}
+        print("fleet (phase 23) top:\n  " + "\n  ".join(
+            top.stdout.splitlines()), flush=True)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+                try:
+                    p.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+        if r1 is not None:
+            r1.close()
+    out["seconds"] = round(time.perf_counter() - t_phase, 3)
+    print(f"phase 23 in {out['seconds']:.0f} s", flush=True)
+    return out
+
+
 def main(argv: list[str]) -> int:
     t_start = time.perf_counter()
     import torch
@@ -7155,7 +7557,7 @@ def main(argv: list[str]) -> int:
         return 0
     if argv[:2] in (["--only", "16"], ["--only", "17"], ["--only", "18"],
                     ["--only", "19"], ["--only", "20"], ["--only", "21"],
-                    ["--only", "22"]):
+                    ["--only", "22"], ["--only", "23"]):
         workdir = tempfile.mkdtemp(prefix="chip_smoke_")
         try:
             if argv[1] == "16":
@@ -7173,6 +7575,11 @@ def main(argv: list[str]) -> int:
                 rows = []
             elif argv[1] == "22":
                 phase_luxtts(card, workdir)
+                rows = []
+            elif argv[1] == "23":
+                print(f"fleet (phase 23): "
+                      f"{json.dumps(phase_fleet(card, workdir))} on {card}",
+                      flush=True)
                 rows = []
             else:
                 phase_cluster(card, workdir)
@@ -7226,7 +7633,7 @@ def main(argv: list[str]) -> int:
         return 0
     check(not argv, f"unknown arguments {argv} (only: --only 12, --only 13, "
           "--only 13d, --only 14, --only 15, --only 16, --only 17, --only "
-          "18, --only 19, --only 20, --only 21, --only 22)")
+          "18, --only 19, --only 20, --only 21, --only 22, --only 23)")
     timings = phase_kernels()
     paged_timings = phase_paged_kernels(built[pa.LIBRARY]["log"])
     parity_launches, parity_paged = phase_parity()
@@ -7258,6 +7665,7 @@ def main(argv: list[str]) -> int:
         flux2 = phase_flux2(card, workdir)
         tts = phase_tts(card, workdir)
         lux = phase_luxtts(card, workdir)
+        fleet = phase_fleet(card, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     kernels = []
@@ -7329,6 +7737,7 @@ def main(argv: list[str]) -> int:
     print(f"FLUX.2-klein (phase 20): {json.dumps(flux2)} on {card}")
     print(f"VibeVoice (phase 21): {json.dumps(tts)} on {card}")
     print(f"LuxTTS (phase 22): {json.dumps(lux)} on {card}")
+    print(f"fleet (phase 23): {json.dumps(fleet)} on {card}")
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.0f} s (limit 1200 s)", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -15,8 +15,13 @@ apply_stop, StopMatcher, and text_model.py: continuation_prompt_ids):
     stream with no match flushes its held-back tail; every invalid
     `stop`, and "continue" on a user message, answers 400; a
     continuation's tokens equal the JAX model's greedy tokens for the
-    reference's continuation ids."""
+    reference's continuation ids;
+  * the replica's half of the fleet router's handshakes: a streamed
+    continuation reports X-Cake-Continuation-Chars, /health carries every
+    field the fleet registry reads, a blocking chat whose client leaves is
+    cancelled, and `cli serve --announce` is found by discover_replicas."""
 import json
+import time
 import urllib.error
 import urllib.request
 
@@ -306,3 +311,132 @@ def test_continuation_equals_jax_greedy(served, greedy_text):
     ended = tm.cfg.is_eos(want[-1])
     assert json.loads(raw)["choices"][0]["message"]["content"] == \
         tm.tokenizer.decode(want[:-1] if ended else want)
+
+
+# -- the replica's half of the fleet router's handshakes ----------------------
+
+
+def _raw_headers(url, body):
+    req = urllib.request.Request(
+        url + "/v1/chat/completions", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        r.read()
+        return r.headers
+
+
+def test_streamed_continuation_reports_consumed_chars(served, greedy_text):
+    """A streamed continuation-mode answer carries
+    X-Cake-Continuation-Chars: the characters of the partial it consumed,
+    the whole partial, as the reference's _sse_drain reports it; a plain
+    stream and a blocking continuation carry none."""
+    _, _, app, _ = served
+    content, _ = greedy_text
+    assert ref_text.CONTINUATION_CHARS_HEADER == "X-Cake-Continuation-Chars"
+    for partial in ("", content[:5], "naïve € 🚀"):
+        msgs = CHAT + [{"role": "assistant", "content": partial,
+                        "continue": True}]
+        hdrs = _raw_headers(app.url, {"messages": msgs, "temperature": 0,
+                                      "max_tokens": 4, "stream": True})
+        assert hdrs["X-Cake-Continuation-Chars"] == str(
+            len(str(msgs[-1].get("content") or "")))
+        assert _raw_headers(app.url, {"messages": msgs, "temperature": 0,
+                                      "max_tokens": 4}).get(
+            "X-Cake-Continuation-Chars") is None
+    assert _raw_headers(app.url, {"messages": CHAT, "temperature": 0,
+                                  "max_tokens": 4, "stream": True}).get(
+        "X-Cake-Continuation-Chars") is None
+
+
+def test_health_carries_every_key_the_registry_reads():
+    """/health of a paged engine carries each field the fleet registry
+    reads (cake_tpu/fleet/registry.py: observe_health): the engine's
+    alive, wedged, draining, slots, slots_busy, queue_depth and kv_pool
+    occupancy, and started_at_age_s (`down` appears only while DOWN, as
+    the reference's); both packages' registries read it alike."""
+    from cake_tpu.fleet import registry as ref_reg
+    from cake_tpu_torch.fleet import registry
+    cfg = tiny_config("qwen3", vocab_size=258, max_position_embeddings=CTX)
+    tok = ByteTokenizer(im_start_id=256, im_end_id=257)
+    tm = TextModel(cfg, tokenizer=tok, dtype=torch.float32, device="cpu",
+                   max_cache_len=CTX)
+    app = create_app(tm, ServeEngine(tm, slots=3, ctx_len=CTX, kv_blocks=32),
+                     tok, port=0).start()
+    try:
+        with urllib.request.urlopen(app.url + "/health", timeout=60) as r:
+            status, body = r.status, json.loads(r.read())
+    finally:
+        app.stop(drain_s=1)
+    engine = body["engine"]
+    for key in ("alive", "wedged", "draining", "slots", "slots_busy",
+                "queue_depth", "kv_pool"):
+        assert key in engine, key
+    assert "down" not in engine and engine["alive"] is True
+    assert engine["slots"] == 3 and "occupancy" in engine["kv_pool"]
+    assert isinstance(body["started_at_age_s"], float)
+    snaps = []
+    for mod in (registry, ref_reg):
+        rep = mod.Replica("r0", app.url)
+        assert rep.observe_health(status, body) is None
+        snap = rep.snapshot()
+        snaps.append({k: snap[k] for k in ("state", "cap", "queue_depth",
+                                           "occupancy", "last_probe_ok")})
+    assert snaps[0] == snaps[1]
+    assert snaps[0]["cap"] == 6                     # 2x the engine's slots
+
+
+def test_blocking_chat_cancelled_when_its_client_leaves(served):
+    """A router's cancelled hedge or failover leg closes its socket: the
+    blocking chat behind it is cancelled at the next poll and its slot
+    freed, instead of decoding its whole budget for nobody."""
+    import socket
+    _, _, app, submitted = served
+    n = len(submitted)
+    body = json.dumps({"messages": CHAT, "temperature": 0,
+                       "max_tokens": 200}).encode()
+    host, port = app.server_address[:2]
+    with socket.create_connection((host, port), timeout=30) as s:
+        s.sendall(b"POST /v1/chat/completions HTTP/1.1\r\nHost: x\r\n"
+                  b"Content-Type: application/json\r\nContent-Length: "
+                  + str(len(body)).encode() + b"\r\n\r\n" + body)
+        for _ in range(200):
+            if len(submitted) > n:
+                break
+            time.sleep(0.01)
+    req = submitted[n]
+    assert req.done.wait(60)
+    assert req.result.get("cancelled") is True
+    assert len(req.tokens) < 200
+
+
+def test_serve_announce_found_by_discover_replicas(monkeypatch):
+    """`cli serve --announce` answers UDP discovery with role "serve", and
+    discover_replicas (over loopback) finds it by its key: the name and
+    the replica's URL."""
+    import socket
+    from cake_tpu_torch import cli
+    from cake_tpu_torch.cluster import discovery
+    from cake_tpu_torch.fleet import discover_replicas
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.bind(("127.0.0.1", 0))
+        udp = s.getsockname()[1]
+    monkeypatch.setattr(discovery, "DISCOVERY_PORT", udp)
+    args = cli.parser().parse_args(
+        ["serve", "--flagship", "--cpu", "--announce", "--cluster-key",
+         "fleet-k", "--announce-name", "rep-a"])
+    assert args.announce and args.cluster_key == "fleet-k"
+    adv = cli.announce(args, 18123)
+    try:
+        assert adv.caps["role"] == "serve"
+        found = discover_replicas("fleet-k", timeout=1.0,
+                                  addresses=["127.0.0.1"],
+                                  discovery_port=udp)
+        assert found == [("rep-a", "http://127.0.0.1:18123")]
+        assert discover_replicas("other-key", timeout=0.5,
+                                 addresses=["127.0.0.1"],
+                                 discovery_port=udp) == []
+    finally:
+        adv.stop()
+    with pytest.raises(ValueError, match="--cluster-key"):
+        cli.announce(cli.parser().parse_args(
+            ["serve", "--flagship", "--announce"]), 1)

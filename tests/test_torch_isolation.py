@@ -32,7 +32,12 @@ PCM speech, a named voice), and `cli tts DIR` writes a WAV. LuxTTS
 (module 14d's remainder) runs there too: a directory written by
 bench/synth_luxtts.py is served by `cli serve --audio-model DIR` (WAV,
 PCM and a voice_b64 clone) and spoken by `cli tts DIR`, and the modality
-map (models/registry.py) imports."""
+map (models/registry.py) imports. The fleet router (module 15a) runs
+there too, with `aiohttp` blocked besides (the port depends on none):
+`cli route` fronts a `cli serve` engine and answers a chat. And the
+router tier stands apart from torch itself: with `torch` blocked as well,
+`cake_tpu_torch.fleet` imports, a router serves its views, and `cli
+route --help` / `cli top --help` run."""
 import ast
 import pathlib
 import subprocess
@@ -41,7 +46,7 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "jaxlib", "cake_tpu", "tokenizers", "transformers",
            "safetensors", "regex", "ml_dtypes", "huggingface_hub",
-           "msgpack", "yaml", "PIL", "sentencepiece")
+           "msgpack", "yaml", "PIL", "sentencepiece", "aiohttp")
 # optional packages the port may import only inside a try (the
 # reference's gate), blocked in the run all the same
 GATED = ("zstandard",)
@@ -117,7 +122,12 @@ for name in ("cake_tpu_torch.obs", "cake_tpu_torch.obs.metrics",
              "cake_tpu_torch.models.audio.luxtts_loader",
              "cake_tpu_torch.bench.synth_luxtts",
              "cake_tpu_torch.models.registry",
-             "cake_tpu_torch.api.audio", "cake_tpu_torch.utils.wav"):
+             "cake_tpu_torch.api.audio", "cake_tpu_torch.utils.wav",
+             "cake_tpu_torch.obs.series", "cake_tpu_torch.fleet",
+             "cake_tpu_torch.fleet.routing", "cake_tpu_torch.fleet.registry",
+             "cake_tpu_torch.fleet.faults", "cake_tpu_torch.fleet.telemetry",
+             "cake_tpu_torch.fleet.router", "cake_tpu_torch.fleet.top",
+             "cake_tpu_torch.fleet.http", "cake_tpu_torch.fleet.knobs"):
     assert name in mods, name
 import chip_smoke
 
@@ -415,10 +425,115 @@ assert decode_wav(open(wav_out, "rb").read())[1] == 48000
 assert cli.main(["tts", "demo:luxtts", "hi", "--out", wav_out, "--steps",
                  "1", "--cpu", "--dtype", "f32"]) == 0
 assert modality_for_arch(next(iter(AUDIO_ARCHS))) == "audio"
+# the fleet router (module 15a) in front of a `cli serve` engine: `cli
+# route` on the standard library, one chat through it
+import os, socket, subprocess, time
+app = cli.build_server(cli.parser().parse_args(
+    ["serve", "--flagship", "--layers", "1", "--cpu", "--dtype", "f32",
+     "--port", "0", "--slots", "2", "--ctx", "256"])).start()
+with socket.socket() as s_:
+    s_.bind(("127.0.0.1", 0))
+    rport = s_.getsockname()[1]
+env = dict(os.environ, PYTHONPATH=os.getcwd())
+router = subprocess.Popen(
+    [sys.executable, "-m", "cake_tpu_torch.cli", "route", "--host",
+     "127.0.0.1", "--port", str(rport), "--replica", "r0=" + app.url],
+    env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+try:
+    for _ in range(200):
+        try:
+            with urllib.request.urlopen(
+                    "http://127.0.0.1:%%d/health" %% rport, timeout=5) as r:
+                break
+        except OSError:
+            time.sleep(0.05)
+    req = urllib.request.Request(
+        "http://127.0.0.1:%%d/v1/chat/completions" %% rport,
+        data=json.dumps(body).encode())
+    with urllib.request.urlopen(req, timeout=60) as r:
+        assert json.loads(r.read())["usage"]["completion_tokens"] > 0
+finally:
+    router.terminate()
+    router.wait(30)
+    app.stop()
 leaked =[m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not leaked, leaked
 print("OK", len(mods))
 ''' % (BLOCKED + GATED,)
+
+
+TORCHLESS_RUN = r'''
+import asyncio, importlib, importlib.abc, json, pkgutil, runpy, sys
+BLOCKED = %r
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked: {name}")
+        return None
+sys.meta_path.insert(0, Block())
+
+import cake_tpu_torch.fleet as fleet
+for m in pkgutil.walk_packages(fleet.__path__, "cake_tpu_torch.fleet."):
+    importlib.import_module(m.name)
+import cake_tpu_torch.cli, cake_tpu_torch.obs.series
+from cake_tpu_torch.cluster import discovery
+from cake_tpu_torch.fleet.http import request
+
+
+async def views():
+    router = fleet.FleetRouter(fleet.ReplicaRegistry(), probe_s=30.0)
+    app = fleet.create_router_app(router)
+    host, port = await app.start("127.0.0.1", 0)
+    try:
+        out = {}
+        for path in ("/health", "/api/v1/fleet", "/api/v1/fleet/telemetry",
+                     "/api/v1/fleet/autoscale", "/metrics"):
+            r = await request("GET", "http://%%s:%%d%%s" %% (host, port, path))
+            async with r:
+                out[path] = (r.status, await r.read())
+        return out
+    finally:
+        await app.stop()
+out = asyncio.run(views())
+assert out["/health"][0] == 503                    # nothing routable
+assert json.loads(out["/api/v1/fleet/autoscale"][1]) == {"enabled": False}
+assert b"cake_fleet_replicas" in out["/metrics"][1]
+for cmd in ("route", "top"):
+    sys.argv = ["cake_tpu_torch.cli", cmd, "--help"]
+    try:
+        runpy.run_module("cake_tpu_torch.cli", run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, e.code
+leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+assert not leaked, leaked
+print("OK")
+''' % (BLOCKED + GATED + ("torch", "numpy"),)
+
+
+def test_fleet_router_runs_without_torch():
+    """The router tier imports no torch (nor numpy, jax, cake_tpu or
+    aiohttp): the whole fleet package, a router serving its views, and
+    `cli route --help` / `cli top --help`."""
+    out = subprocess.run([sys.executable, "-c", TORCHLESS_RUN], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "usage: cake-tpu-torch route" in out.stdout
+    assert "usage: cake-tpu-torch top" in out.stdout
+    assert out.stdout.rstrip().endswith("OK")
+
+
+def test_cli_module_imports_no_torch_until_a_command_runs():
+    """`cli serve` and the other model commands still import as before;
+    the cli module itself loads the model stack only inside them, and its
+    parser's preempt modes are the engine's."""
+    code = ("import sys; import cake_tpu_torch.cli as c; "
+            "assert 'torch' not in sys.modules, 'torch'; "
+            "from cake_tpu_torch.serve.engine import PREEMPT_MODES; "
+            "assert c.PREEMPT_MODES == PREEMPT_MODES; print('OK')")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
 
 
 def test_port_runs_with_jax_and_cake_tpu_blocked():
