@@ -21,6 +21,10 @@ cake_tpu/api/server.py):
   GET  /api/v1/slo              TTFT/ITL/e2e histograms + exemplar ids
   GET  /api/v1/flight           flight recorder ring on demand (?n=K)
   GET  /api/v1/topology         a cluster master's nodes and stage chain
+  GET  /api/v1/kv/prefix/{chain}  the fleet KV-share tier's blob routes
+  POST /api/v1/kv/prefix/{chain}  (api/kv_routes.py; 409 unless
+  GET  /api/v1/kv/stream/{rid}    CAKE_KVSHARE is on and the engine has
+  POST /api/v1/kv/stream/{rid}    a paged pool and a prefix cache)
 
 Every request counts into cake_api_requests_total{endpoint, status} and
 cake_api_request_seconds{endpoint}, the endpoint being the route's
@@ -43,12 +47,13 @@ import json
 import logging
 import os
 import threading
+import time
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlsplit
 
 from ..obs import API_REQUEST_SECONDS, API_REQUESTS, now
-from . import obs_routes
+from . import kv_routes, obs_routes
 from .audio import audio_speech
 from .images import images_generations
 from .text import chat_completions
@@ -84,6 +89,9 @@ class AppState:
     audio_model: object = None  # models/audio: VibeVoiceTTS, or None
     # the operator's voice-prompt files, picked by name (api/audio.py)
     voices_dir: str | None = None
+    # the fleet KV-share agent (fleet/kvshare/replica.py: KVShareReplica),
+    # set by create_app when CAKE_KVSHARE is on
+    kvshare: object = None
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -150,6 +158,11 @@ class _Handler(BaseHTTPRequestHandler):
             endpoint = obs_routes.REQUEST_PREFIX + "{rid}"
         elif url.path == "/v1/models":
             endpoint = url.path
+        kv = kv_routes.split(url.path)
+        if kv is not None:
+            return self._measured(
+                kv_routes.ENDPOINTS[kv[0]],
+                lambda: kv_routes.kv_get(self, self.state, *kv))
 
         def answer():
             if route is not None:
@@ -174,6 +187,11 @@ class _Handler(BaseHTTPRequestHandler):
         if self.path == "/v1/audio/speech":
             return self._measured(
                 self.path, lambda: audio_speech(self, self.state))
+        kv = kv_routes.split(self.path)
+        if kv is not None:
+            return self._measured(
+                kv_routes.ENDPOINTS[kv[0]],
+                lambda: kv_routes.kv_post(self, self.state, *kv))
         return self._measured(
             "unmatched", lambda: self.send_json({"error": "not found"}, 404))
 
@@ -202,7 +220,9 @@ class ApiServer(ThreadingHTTPServer):
     def stop(self, drain_s: float | None = None) -> None:
         """Drain for up to drain_s seconds (None: CAKE_DRAIN_TIMEOUT_S),
         stop serving, close the engine. With no engine, the drain waits
-        for the locked path's generation in flight."""
+        for the locked path's generation in flight. With the KV-share
+        tier on, the routes stay up within that budget until every
+        stream the drain parked has been fetched."""
         state = self.state
         budget = drain_timeout_s(os.environ) if drain_s is None else drain_s
         t0 = now()
@@ -213,6 +233,11 @@ class ApiServer(ThreadingHTTPServer):
             if not state.engine.drain(budget):
                 log.warning("drain timed out after %.1fs; failing the "
                             "remaining requests", budget)
+            # the drain parked each live stream for the fleet: serve its
+            # blob until the router's resume plane has fetched it
+            while state.kvshare is not None and state.kvshare.unclaimed() \
+                    and now() - t0 < budget:
+                time.sleep(0.02)
         elif state.lock.acquire(timeout=budget):
             state.lock.release()
         else:
@@ -245,10 +270,19 @@ def create_app(model, engine, tokenizer, host: str = "127.0.0.1",
     intermediate images every `sd_intermediate_every` steps and its
     profiler trace into `sd_trace_dir`. `audio_model`: what
     /v1/audio/speech serves, with the voice-prompt files of
-    `voices_dir`."""
-    return ApiServer(AppState(model, engine, tokenizer, model_id, plane,
-                              image_model=image_model,
-                              sd_intermediate_every=sd_intermediate_every,
-                              sd_trace_dir=sd_trace_dir,
-                              audio_model=audio_model, voices_dir=voices_dir),
-                     host, port)
+    `voices_dir`. With CAKE_KVSHARE on and an engine with a paged pool
+    and a prefix cache, the fleet KV-share agent rides the engine (the
+    contiguous pool has no block plane to share)."""
+    state = AppState(model, engine, tokenizer, model_id, plane,
+                     image_model=image_model,
+                     sd_intermediate_every=sd_intermediate_every,
+                     sd_trace_dir=sd_trace_dir, audio_model=audio_model,
+                     voices_dir=voices_dir)
+    from ..fleet import knobs
+    if knobs.get("CAKE_KVSHARE") and engine is not None \
+            and getattr(engine, "paged", None) is not None \
+            and getattr(engine, "prefix_cache", None) is not None:
+        from ..fleet.kvshare import KVShareReplica
+        state.kvshare = KVShareReplica(engine)
+        engine.kv_share = state.kvshare
+    return ApiServer(state, host, port)

@@ -14,8 +14,16 @@ continuation-mode answer reports the characters of the partial it
 consumed in `X-Cake-Continuation-Chars` (the fleet router's resume
 splice strips re-emitted overlap by it), and a blocking chat whose
 client closes its socket (a router's cancelled hedge or failover leg)
-is cancelled, freeing its slot. Left out so far: the fleet KV-share
-handshakes (module 15b).
+is cancelled, freeing its slot.
+
+The fleet KV-share handshakes (fleet/kvshare/, with CAKE_KVSHARE on):
+an X-Cake-KV-Peers directory makes the replica fetch the longest prefix
+chain a warm peer advertises before it admits the prompt
+(fetch-before-recompute); an X-Cake-KV-Resume request adopts the stream
+blob the router staged here and answers with X-Cake-KV-Resumed, its SSE
+replaying the generated text from token 0; and a stream whose KV is
+parked for migration (a drain) ends with its socket closed and no finish
+chunk, so that the router resumes it elsewhere.
 
 With no engine (an offloaded MoE model, or CAKE_SERVE_SLOTS=0) a chat
 takes the reference's locked fallback (its _chat_blocking and
@@ -34,6 +42,8 @@ import threading
 import time
 import uuid
 
+from ..fleet.kvshare.directory import (KV_DIR_HEADER, KV_RESUME_HEADER,
+                                      KV_RESUMED_HEADER)
 from ..obs import (GENERATIONS, RECORDER, TIMELINES, TRACE_HEADER,
                    set_request_id)
 from ..ops.sampling import SamplingConfig
@@ -385,18 +395,22 @@ def _chat_engine(handler, state, messages, continuation: bool, kw: dict,
     prompt_ids = _prompt(handler, state, messages, continuation)
     if prompt_ids is None:
         return None
-    try:
-        req = state.engine.submit(prompt_ids, request_id=rid, qos=qos,
-                                  tenant=tenant, **kw)
-    except (QueueFull, EngineDraining) as e:
-        return admission_refusal(handler, e)
-    except (EngineDown, PoisonedRequest) as e:
-        return _send_typed_error(handler, e)
-    except ValueError as e:
-        return handler.send_json({"error": str(e)}, 400)
+    req = _kvshare_before_admission(handler, state, rid, prompt_ids, kw,
+                                    qos, tenant)
+    resumed = req is not None
+    if not resumed:
+        try:
+            req = state.engine.submit(prompt_ids, request_id=rid, qos=qos,
+                                      tenant=tenant, **kw)
+        except (QueueFull, EngineDraining) as e:
+            return admission_refusal(handler, e)
+        except (EngineDown, PoisonedRequest) as e:
+            return _send_typed_error(handler, e)
+        except ValueError as e:
+            return handler.send_json({"error": str(e)}, 400)
     if stream:
         return _stream(handler, state, cid, req, stops,
-                       _consumed_chars(messages, continuation))
+                       _consumed_chars(messages, continuation), resumed)
     if stops:
         _cancel_at_stop(state, req, stops)
     else:
@@ -422,6 +436,45 @@ def _chat_engine(handler, state, messages, continuation: bool, kw: dict,
         len(prompt_ids), stops), headers={TRACE_HEADER: rid})
 
 
+def _kvshare_before_admission(handler, state, rid: str, prompt_ids, kw,
+                              qos: str, tenant: str | None):
+    """The KV-share tier's step before an admission. With
+    X-Cake-KV-Resume: adopt the stream blob staged here for that id
+    through the engine's swap resume (returns the live request: its
+    sampled sequence continues bit-exactly). Otherwise, with
+    X-Cake-KV-Peers: fetch the longest prefix chain a warm peer
+    advertises, before the admission below computes the prompt. None in
+    every other case; any failure inside (nothing staged, a blob that
+    does not fit this pool, a fetch that fails) is never the client's:
+    the plain admission follows."""
+    kvs = state.kvshare
+    if kvs is None:
+        return None
+    resume_rid = handler.headers.get(KV_RESUME_HEADER)
+    if resume_rid:
+        try:
+            return kvs.submit_job(
+                "adopt", {"rid": resume_rid, "sampling": kw["sampling"],
+                          "qos": qos, "tenant": tenant}, kvs.fetch_timeout)
+        except Exception:
+            return None
+    peers = handler.headers.get(KV_DIR_HEADER)
+    if peers:
+        try:
+            kvs.fetch_before_prefill(rid, prompt_ids, peers)
+        except Exception:
+            log.exception("kvshare fetch-before-recompute failed")
+    return None
+
+
+def _stream_migrated(err: BaseException) -> bool:
+    """True when the engine failed this request because its KV state was
+    parked for fleet migration (the fleet package is looked up, not
+    imported: it is loaded wherever kvshare could have raised this)."""
+    mod = sys.modules.get("cake_tpu_torch.fleet.kvshare.replica")
+    return mod is not None and isinstance(err, mod.StreamMigrated)
+
+
 def _send_typed_error(handler, err) -> bool:
     """A typed engine failure's documented status (the reference's
     _typed_error_response), shared by the blocking path and the SSE
@@ -436,6 +489,10 @@ def _send_typed_error(handler, err) -> bool:
         handler.send_json({"error": str(err)}, 504)
     elif isinstance(err, PoisonedRequest):
         handler.send_json({"error": str(err)}, 500)
+    elif _stream_migrated(err):
+        # this (non-streamed) request's KV was parked for migration:
+        # answer retryable so the router or client re-runs it elsewhere
+        handler.send_json({"error": str(err)}, 503, {"Retry-After": "1"})
     else:
         return False
     return True
@@ -484,23 +541,43 @@ def _consumed_chars(messages, continuation: bool) -> int | None:
 
 def _stream(handler, state, cid: str, req,
             stops: list[str] | None = None,
-            cont_chars: int | None = None) -> None:
+            cont_chars: int | None = None, resumed: bool = False) -> None:
     """The engine's SSE answer (_sse). Nothing is committed before the
     request is admitted: one refused outright (engine down, poisoned)
     answers its typed status instead of an in-band error chunk (a queue
-    deadline, an engine going down, a quarantined prompt)."""
+    deadline, an engine going down, a quarantined prompt). `resumed`: an
+    adopted stream blob, whose answer replays every generated token
+    first (one leading chunk, marked by X-Cake-KV-Resumed); one that dies
+    before it commits answers 503, so that the router continues the
+    stream elsewhere as a plain continuation."""
     state.engine.wait(req, req.admitted)
     err = req.result.get("error") if req.done.is_set() else None
     if err is not None and _send_typed_error(handler, err):
         GENERATIONS.inc(kind="text", status="error")
         return
+    if err is not None and resumed:
+        GENERATIONS.inc(kind="text", status="error")
+        return handler.send_json({"error": f"adopted stream failed: {err}"},
+                                 503, {"Retry-After": "1"})
+    text = None
+    if resumed:
+        # the replay goes through the same TextStream the source fed, so
+        # the text it joins to is byte for byte what that stream sent and
+        # a character split over the break point still waits for its
+        # last byte; the router strips it by cumulative position. It is
+        # the blob's token record and no more: a token decoded here
+        # since the admission is in req.tokens AND on the stream below
+        text = TextStream(state.tokenizer)
+        replay = "".join(text.push(t) for t in req.tokens[:req.replayed])
     _sse(handler, state, cid, req.id, state.engine.stream(req), req.cancel,
-         stops, cont_chars)
+         stops, cont_chars, text=text,
+         replay=replay if resumed else None)
 
 
 def _sse(handler, state, cid: str, trace_id: str, tokens, cancel,
          stops: list[str] | None = None,
-         cont_chars: int | None = None) -> None:
+         cont_chars: int | None = None, text: "TextStream | None" = None,
+         replay: str | None = None) -> None:
     """SSE over an iterator of Tokens (the engine's stream, or the locked
     path's worker): a role chunk, one content chunk per token (a
     character split over tokens goes out with its last token:
@@ -510,7 +587,13 @@ def _sse(handler, state, cid: str, trace_id: str, tokens, cancel,
     the deltas holds back a possible partial match), the stream finishes
     with finish_reason "stop" at a match and `cancel` is called there.
     `cont_chars`: continuation mode only, the X-Cake-Continuation-Chars
-    header's value."""
+    header's value. `replay`: an adopted stream's generated text so far,
+    sent as one leading chunk under X-Cake-KV-Resumed (`text`: the
+    TextStream that built it, which the new tokens continue); the stop
+    matcher sees only the new tokens, as on a continuation leg. A stream
+    whose KV the engine parked for migration (StreamMigrated) ends with
+    no finish chunk and no [DONE]: the closed socket reads as a break at
+    the router, which resumes it from the parked blob."""
     created = int(time.time())
 
     def chunk(delta: dict, finish=None) -> bytes:
@@ -528,9 +611,12 @@ def _sse(handler, state, cid: str, trace_id: str, tokens, cancel,
     handler.send_header(TRACE_HEADER, trace_id)
     if cont_chars is not None:
         handler.send_header(CONTINUATION_CHARS_HEADER, str(cont_chars))
+    if replay is not None:
+        handler.send_header(KV_RESUMED_HEADER, "1")
     handler.end_headers()
     finish = "length"
-    text = TextStream(state.tokenizer)
+    if text is None:
+        text = TextStream(state.tokenizer)
     matcher = StopMatcher(stops) if stops else None
     matched = False
 
@@ -551,6 +637,8 @@ def _sse(handler, state, cid: str, trace_id: str, tokens, cancel,
         write(delta)
     try:
         handler.wfile.write(chunk({"role": "assistant"}))
+        if replay:
+            write(replay)
         try:
             for tok in tokens:
                 if tok.is_end_of_stream:
@@ -564,6 +652,12 @@ def _sse(handler, state, cid: str, trace_id: str, tokens, cancel,
             elif matcher is not None:
                 write(matcher.flush())  # the held-back tail, unmatched
         except Exception as e:      # generation failed mid-stream
+            if _stream_migrated(e):
+                # sever: no finish chunk, no [DONE]; the router reads the
+                # EOF of this close-delimited answer as a break
+                handler.wfile.flush()
+                handler.close_connection = True
+                return
             handler.wfile.write(chunk({"content": f"\n[error: {e}]"}))
             finish = "error"
         GENERATIONS.inc(kind="text",

@@ -110,9 +110,16 @@ replica (role "serve"); its `--cluster-key` then names the fleet, and the
 model is served on this host alone. `route` is the fleet router
 (fleet/router.py) over the `--replica` entries and, with `--cluster-key`,
 the announced replicas discovery finds; the CAKE_FLEET_*, CAKE_TELEM_*
-and CAKE_SLO_* variables set it up (fleet/knobs.py), and `--autoscale`,
-CAKE_SCALE and CAKE_KVSHARE are refused (ROADMAP module 15b). `top`
-renders its telemetry rollup. Neither imports torch.
+and CAKE_SLO_* variables set it up (fleet/knobs.py). `--autoscale` (or
+CAKE_SCALE) runs the closed-loop autoscaler, which spawns replicas from
+the CAKE_SCALE_SPAWN_CMD template ({port} and {name} filled) and keeps
+CAKE_SCALE_MIN..CAKE_SCALE_MAX of them; with the template set, the
+router may start with no replica at all. CAKE_KVSHARE=1 on the router
+and on `serve` turns on the fleet-shared KV tier (prefix-blob fetch
+between replicas, stream-blob migration on a drain); a replica joins it
+only with a paged pool (`--kv-blocks`) and the prefix cache. `top`
+renders the router's telemetry rollup. Neither `route` nor `top`
+imports torch.
 """
 from __future__ import annotations
 
@@ -357,17 +364,15 @@ def cmd_route(args) -> int:
     from .fleet.router import serve_router
     replicas = _replica_specs(args.replica)
     key = args.cluster_key or knobs.get("CAKE_CLUSTER_KEY")
-    if not replicas and not key:
-        print("error: need --replica host:port entries or --cluster-key "
-              "for UDP discovery", file=sys.stderr)
+    scaling = bool(args.autoscale or knobs.get("CAKE_SCALE"))
+    if not replicas and not key and not (
+            scaling and knobs.get_str("CAKE_SCALE_SPAWN_CMD")):
+        print("error: need --replica host:port entries, --cluster-key "
+              "for UDP discovery, or --autoscale with CAKE_SCALE_SPAWN_CMD "
+              "to bootstrap an empty fleet", file=sys.stderr)
         return 2
-    try:
-        serve_router(replicas, host=args.host, port=args.port,
-                     cluster_key=key,
-                     autoscale=True if args.autoscale else None)
-    except NotImplementedError as e:     # module 15b's switches
-        print(f"error: {e}", file=sys.stderr)
-        return 2
+    serve_router(replicas, host=args.host, port=args.port, cluster_key=key,
+                 autoscale=True if args.autoscale else None)
     return 0
 
 
@@ -610,8 +615,9 @@ def parser() -> argparse.ArgumentParser:
                     help="PSK for UDP discovery of `serve --announce` "
                          "replicas (CAKE_CLUSTER_KEY also works)")
     rt.add_argument("--autoscale", action="store_true",
-                    help="the closed-loop autoscaler: refused, it is "
-                         "ROADMAP module 15b")
+                    help="run the closed-loop autoscaler (scale replicas "
+                         "out/in from the telemetry rollup; spawns from "
+                         "CAKE_SCALE_SPAWN_CMD)")
     rt.set_defaults(fn=cmd_route)
     tp = sub.add_parser("top", help="live fleet dashboard (telemetry "
                                     "rollup from a `route` process)")

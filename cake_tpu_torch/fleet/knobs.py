@@ -1,11 +1,12 @@
-"""The fleet's environment knobs: the CAKE_FLEET_*, CAKE_TELEM_* and
-CAKE_SLO_* variables the router tier reads, each with the reference's
-type and default (cake_tpu/knobs.py), plus the few serving-wide ones it
-shares. The clamps stay where the reference applies them
-(registry.MembershipPolicy.from_knobs).
+"""The fleet's environment knobs: the CAKE_FLEET_*, CAKE_TELEM_*,
+CAKE_SLO_*, CAKE_KVSHARE* and CAKE_SCALE_* variables the router tier and
+the KV-share tier read, each with the reference's type and default
+(cake_tpu/knobs.py), plus the few serving-wide ones they share. The
+clamps stay where the reference applies them
+(registry.MembershipPolicy.from_knobs, autoscale.ScalePolicy.from_knobs).
 
 The port has no knob registry (ROADMAP "Lower down"); this table is the
-fleet's own, and only the fleet reads it. As in the reference, the
+fleet's own, read by the fleet and by the API server's KV-share wiring. As in the reference, the
 environment is read on every call and an empty value means the default.
 """
 from __future__ import annotations
@@ -51,9 +52,22 @@ KNOBS: dict[str, tuple[type, object]] = {
     "CAKE_DRAIN_TIMEOUT_S": (float, 30.0),
     "CAKE_QOS_BATCH_SHED_FRAC": (float, 0.8),
     "CAKE_CLUSTER_KEY": (str, None),
-    # module 15b's switches: read only to refuse them (router.py)
-    "CAKE_SCALE": (bool, False),
+    # the fleet-shared KV tier (kvshare/, router.py, the API server)
     "CAKE_KVSHARE": (bool, False),
+    "CAKE_KVSHARE_FETCH_TIMEOUT_S": (float, 2.0),
+    "CAKE_KVSHARE_INVENTORY": (int, 32),
+    # the closed-loop autoscaler (autoscale.py, lifecycle.py)
+    "CAKE_SCALE": (bool, False),
+    "CAKE_SCALE_SPAWN_CMD": (str, None),
+    "CAKE_SCALE_BURN_FAST": (float, 2.0),
+    "CAKE_SCALE_HEADROOM_MIN": (float, 0.0),
+    "CAKE_SCALE_HEADROOM_HIGH": (float, 0.0),
+    "CAKE_SCALE_COOLDOWN_S": (float, 60.0),
+    "CAKE_SCALE_MIN": (int, 1),
+    "CAKE_SCALE_MAX": (int, 8),
+    "CAKE_SCALE_WARMUP_S": (float, 30.0),
+    "CAKE_SCALE_SPAWN_TIMEOUT_S": (float, 180.0),
+    "CAKE_SCALE_DECISIONS": (int, 256),
 }
 
 

@@ -49,8 +49,11 @@ does not reset the hold-doubling streak — repeated partition/heal
 cycles find their re-eject hold doubled each round (no reputation
 laundering); the streak expires only after a quiet forget window.
 
-The KV-share tier's chain inventory (the reference's kv_chains and
-kv_inventory, read from /health's kvshare block) comes with module 15b.
+KV-share inventory: each healthy /health's `engine.kvshare.chains` (the
+hex prefix-chain keys the replica can export) is mirrored as kv_chains
+and read through kv_inventory() into the router's peer directory; a
+stale or sick probe retracts it, and an EJECTED replica advertises
+nothing.
 
 DRAINING is orthogonal: a replica whose engine block says draining keeps
 its machine state but stops taking NEW requests (in-flight ones finish)
@@ -187,6 +190,11 @@ class Replica:
         # once per rollup cycle; /fleet surfaces it without ejecting)
         self.outlier = False            # guarded-by: self._lock
         self.outlier_reason = None      # guarded-by: self._lock
+        # kvshare inventory: hex prefix-chain keys this replica's last
+        # healthy /health advertised (kvshare.chains). Retracted the
+        # instant a probe goes stale/sick — a peer directory must never
+        # point a fetch at a replica whose cache state is unknown
+        self.kv_chains = ()             # guarded-by: self._lock
 
     # -- capacity -----------------------------------------------------------
 
@@ -339,6 +347,7 @@ class Replica:
                 FLEET_REPLICA_QUEUE_DEPTH.remove(replica=self.name)
                 FLEET_REPLICA_OCCUPANCY.remove(replica=self.name)
                 FLEET_REPLICA_STALE.set(1, replica=self.name)
+                self.kv_chains = ()     # retract: inventory is stale too
                 if self.state == HALF_OPEN:
                     return self._eject("health")
                 if (self.state == HEALTHY
@@ -372,10 +381,15 @@ class Replica:
                                           replica=self.name)
             FLEET_REPLICA_OCCUPANCY.set(self.occupancy, replica=self.name)
             FLEET_REPLICA_STALE.set(0, replica=self.name)
+            kvshare = engine.get("kvshare") or {}
+            chains = kvshare.get("chains") or []
+            self.kv_chains = tuple(
+                c for c in chains if isinstance(c, str))
             sick = bool(engine.get("down") or engine.get("wedged")
                         or engine.get("alive") is False)
             self.last_probe_ok = not sick
             if sick:
+                self.kv_chains = ()     # retract with the sick verdict
                 self.probe_ok_streak = 0
                 if self.state in (HEALTHY, HALF_OPEN):
                     return self._eject("health")
@@ -564,6 +578,19 @@ class Replica:
         with self._lock:
             return (not self.draining and not self.cordoned
                     and self.state in (HEALTHY, HALF_OPEN))
+
+    def kv_inventory(self) -> tuple:
+        """Hex chain keys from the last HEALTHY probe (empty once
+        retracted). The router builds X-Cake-KV-Peers from this.
+        Empty while EJECTED — probe retraction can lag a data-evidence
+        eject by one probe interval, and a directory must never point a
+        fetch at a replica the router itself refuses to route to.
+        DRAINING/CORDONED replicas keep advertising on purpose: their
+        cache is exactly what peers should siphon before they go."""
+        with self._lock:
+            if self.state == EJECTED:
+                return ()
+            return self.kv_chains
 
     def snapshot(self) -> dict:
         with self._lock:

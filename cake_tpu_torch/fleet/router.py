@@ -42,10 +42,17 @@ so its end of body cannot tell a cut from a finish: an EOF before
 `data: [DONE]` is a break (resumed like a severed connection), an EOF
 after it a clean end.
 
-Module 15b is not here: CAKE_SCALE / autoscale and CAKE_KVSHARE are
-refused by name (`refuse_unported`), X-Cake-KV-Peers is never injected
-(the reference's behaviour with kvshare off) and a break never tries the
-stream-blob migration.
+With CAKE_KVSHARE on, every outbound attempt carries X-Cake-KV-Peers,
+the directory of the OTHER replicas' mirrored prefix-chain inventories
+(a cold replica fetches a warm peer's chain instead of re-prefilling),
+and a post-commit break first tries to ship the broken owner's stream
+blob to the resume target (`_migrate_stream`), whose leg then carries
+X-Cake-KV-Resume; a replica that adopted the blob answers
+X-Cake-KV-Resumed and replays the stream from token 0, which the relay
+strips by the cumulative characters the client already has. With
+CAKE_SCALE (or `autoscale=True`) the probe cycle also runs the closed
+loop: the lifecycle's sweep, then one autoscaler step on the telemetry
+rollup (fleet/autoscale.py, fleet/lifecycle.py).
 
 The router does NOT load a tokenizer, a model or torch: it is a thin tier
 that must not claim a CUDA context, can run many-per-region, restart in
@@ -54,26 +61,30 @@ from __future__ import annotations
 
 import asyncio
 import base64
+import dataclasses
 import json
 import logging
 import random
 import signal
 import uuid
 
-from ..obs import (FLEET_HEDGES, FLEET_PROXIED, FLEET_RETRIES, FLEET_SHEDS,
-                   FLEET_STREAM_RESUMES, REGISTRY, TRACE_HEADER,
-                   TimelineStore, now)
+from ..obs import (FLEET_HEDGES, FLEET_KV_MIGRATIONS, FLEET_PROXIED,
+                   FLEET_RETRIES, FLEET_SHEDS, FLEET_STREAM_RESUMES,
+                   REGISTRY, TRACE_HEADER, TimelineStore, now)
 from . import faults, knobs
+from .autoscale import Autoscaler, DecisionLog, ScalePolicy
 from .http import (App, Request, Response, StreamResponse, json_response,
                    request)
+from .kvshare.directory import (KV_DIR_HEADER, KV_RESUME_HEADER,
+                                KV_RESUMED_HEADER, encode_directory)
+from .lifecycle import ReplicaLifecycle
 from .registry import ReplicaRegistry, discover_replicas
 from .routing import affinity_key, conversation_head, rank_replicas
 from .telemetry import FleetTelemetry
 
 log = logging.getLogger("cake_tpu_torch.fleet")
 
-__all__ = ["FleetRouter", "create_router_app", "serve_router",
-           "refuse_unported"]
+__all__ = ["FleetRouter", "create_router_app", "serve_router"]
 
 # transport-level failure classes: the replica never (fully) answered.
 # InjectedFleetFault subclasses ConnectionError, so drills ride this too,
@@ -100,31 +111,6 @@ CONTINUATION_CHARS_HEADER = "X-Cake-Continuation-Chars"
 
 # the end of an SSE stream, as the replicas send it
 _DONE_EVENT = b"[DONE]"
-
-# the switches of module 15b -> what the refusal names
-_UNPORTED = {
-    "CAKE_SCALE": "the closed-loop autoscaler (CAKE_SCALE / --autoscale: "
-                  "fleet/autoscale.py, fleet/lifecycle.py)",
-    "CAKE_KVSHARE": "the fleet-shared KV tier (CAKE_KVSHARE: "
-                    "fleet/kvshare/, the stream-blob migration)",
-}
-
-
-def refuse_unported(autoscale: bool | None = None,
-                    kvshare: bool | None = None) -> None:
-    """Raise NotImplementedError naming ROADMAP module 15b when the
-    autoscaler or the KV-share tier is asked for (the flag, or its knob
-    when the flag is None): the port has not taken them over yet, and a
-    router that silently ran without them would serve a different
-    fleet."""
-    asked = {"CAKE_SCALE": knobs.get("CAKE_SCALE") if autoscale is None
-             else autoscale,
-             "CAKE_KVSHARE": knobs.get("CAKE_KVSHARE") if kvshare is None
-             else kvshare}
-    for name, on in asked.items():
-        if on:
-            raise NotImplementedError(
-                f"{_UNPORTED[name]} is not ported yet: ROADMAP module 15b")
 
 
 async def _deadline(aw, seconds):
@@ -237,7 +223,6 @@ class FleetRouter:
                  resume_buffer_kb: int | None = None,
                  autoscale: bool | None = None,
                  kvshare: bool | None = None):
-        refuse_unported(autoscale, kvshare)
         self.registry = registry
         self.retries = retries if retries is not None \
             else knobs.get("CAKE_FLEET_RETRIES")
@@ -275,6 +260,11 @@ class FleetRouter:
         self.resume_buffer_kb = resume_buffer_kb \
             if resume_buffer_kb is not None \
             else knobs.get("CAKE_FLEET_RESUME_BUFFER_KB")
+        # fleet-shared KV tier: inject warm-peer directories and ship
+        # stream blobs on post-commit breaks
+        self.kvshare = kvshare if kvshare is not None \
+            else knobs.get("CAKE_KVSHARE")
+        self.kv_fetch_timeout_s = knobs.get("CAKE_KVSHARE_FETCH_TIMEOUT_S")
         self.inflight = 0                   # event-loop-confined
         self.draining = False
         # router-tier timeline ring, deliberately SEPARATE from the
@@ -286,6 +276,22 @@ class FleetRouter:
         # telemetry plane: fed by the probe loop, served by
         # /api/v1/fleet/telemetry (and the `cli top` dashboard)
         self.telemetry = FleetTelemetry(registry)
+        # closed loop: the autoscaler consumes each cycle's rollup and
+        # executes through the lifecycle manager (both None when off —
+        # CAKE_SCALE gates the subsystem, the telemetry stays advisory)
+        enabled = autoscale if autoscale is not None \
+            else knobs.get("CAKE_SCALE")
+        self.lifecycle = None
+        self.autoscaler = None
+        if enabled:
+            decisions = DecisionLog()
+            self.lifecycle = ReplicaLifecycle(registry,
+                                              record=decisions.record)
+            policy = ScalePolicy.from_knobs()
+            if autoscale:       # explicit flag wins over the env knob
+                policy = dataclasses.replace(policy, enabled=True)
+            self.autoscaler = Autoscaler(registry, self.lifecycle,
+                                         policy=policy, log=decisions)
         self._tasks: list = []
 
     # -- lifecycle -----------------------------------------------------------
@@ -306,6 +312,8 @@ class FleetRouter:
             except (asyncio.CancelledError, Exception):
                 pass
         self._tasks.clear()
+        if self.lifecycle is not None:
+            await self.lifecycle.close()
 
     async def drain(self, app=None):
         """SIGTERM mirror of the engine drain: stop admission (new chats
@@ -362,6 +370,17 @@ class FleetRouter:
             raise
         except Exception:
             log.exception("telemetry rollup failed (cycle skipped)")
+        # the closed loop rides the same cadence: reap unexpected
+        # deaths first (the controller must see the hole this cycle),
+        # then decide on the rollup just computed
+        if self.autoscaler is not None:
+            try:
+                self.lifecycle.sweep()
+                self.autoscaler.step(self.telemetry.snapshot())
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                log.exception("autoscale step failed (cycle skipped)")
 
     async def _probe_loop(self):
         """Health-driven membership: every tick consumes each replica's
@@ -416,11 +435,19 @@ class FleetRouter:
         FLEET_PROXIED.inc(outcome="failed")
         if rid:
             self.timelines.event(rid, "shed", reason="no_replica")
+        # during an in-flight scale-out the honest wait is the expected
+        # spawn-to-routable time, not the backlog formula — a client
+        # arriving mid cold start should wait the spawn out, not give up
+        eta = self.lifecycle.pending_spawn_eta() \
+            if self.lifecycle is not None else None
         body = {"error": "no routable replica (all ejected, draining, or "
                          "none registered)", "shed_by": "router"}
+        if eta is not None:
+            body["scale_out_pending"] = True
         return json_response(
             body, status=503,
-            headers={"Retry-After": str(self._retry_after())})
+            headers={"Retry-After": str(eta if eta is not None
+                                        else self._retry_after())})
 
     # -- candidate ordering --------------------------------------------------
 
@@ -492,6 +519,9 @@ class FleetRouter:
                 if stall:
                     await asyncio.sleep(stall)
             hdrs = self._trace_headers(rid, fwd)
+            peers = self._kv_peers(rep)
+            if peers:
+                hdrs[KV_DIR_HEADER] = peers
             # the deprecated total attempt deadline still rides on top of
             # the split ones when set
             status, ctype, data, ttfb_ms = await _deadline(
@@ -545,6 +575,25 @@ class FleetRouter:
         if rid:
             out[TRACE_HEADER] = rid
         return out
+
+    def _kv_peers(self, target) -> str | None:
+        """X-Cake-KV-Peers value for one outbound attempt: every OTHER
+        replica's registry-mirrored chain inventory. Draining/cordoned
+        peers advertise on purpose — a replica on its way out is exactly
+        the one whose cache peers should siphon — while ejected/stale/
+        sick inventories come back empty (kv_inventory + probe
+        retraction). None — header not injected — when kvshare is off
+        or no peer has anything to advertise."""
+        if not self.kvshare:
+            return None
+        peers = []
+        for rep in self.registry.replicas():
+            if rep.name == target.name:
+                continue
+            chains = rep.kv_inventory()
+            if chains:
+                peers.append((rep.base_url, chains))
+        return encode_directory(peers)
 
     @staticmethod
     def _fwd_headers(req: Request) -> dict:
@@ -809,9 +858,27 @@ class FleetRouter:
             rbs = {"attempts": 0, "budget": 1 + self.retries,
                    "cap_skipped": False}
             order = self._order(splice["messages"])
+            # fleet-shared KV tier: before the continuation splice, try
+            # to ship the broken owner's parked swap blob (drain parks
+            # it; post-commit failover where the source still answers
+            # exports the live slot — fetching IS the migration signal)
+            # to the first viable survivor. Success marks that leg with
+            # X-Cake-KV-Resume and orders the target first; every
+            # failure mode falls through to the splice continuation,
+            # which is the same request body either way.
+            kv_resume = None
+            if self.kvshare and rid:
+                target = next((r for r in order
+                               if r.name not in failed and r.routable()),
+                              None)
+                if target is not None and await self._migrate_stream(
+                        broken, target, rid):
+                    kv_resume = (target.name, rid)
+                    order = [target] + [r for r in order
+                                        if r.name != target.name]
             kind, val = await self._stream_seq(
                 req, splice, order, rid, fwd, st, rbs, resumed=True,
-                skip=failed)
+                skip=failed, kv_resume=kv_resume)
             if kind == "none":
                 FLEET_STREAM_RESUMES.inc(outcome="error")
                 return await self._stream_broken_terminal(
@@ -841,19 +908,25 @@ class FleetRouter:
     async def _stream_seq(self, req, body, order: list,
                           rid: str | None, fwd: dict | None,
                           st: _StreamRelay, bs: dict,
-                          resumed: bool = False, skip=()):
+                          resumed: bool = False, skip=(),
+                          kv_resume: tuple | None = None):
         """Sequential streamed placement over `order` under bs's shared
         attempt budget: rotate candidates until one commits (relays a
         byte to the client). Pre-commit failures stay invisible.
         Returns ("final", resp) | ("broken", replica) | ("none", None);
-        `skip` names replicas that already broke this stream."""
+        `skip` names replicas that already broke this stream;
+        `kv_resume` = (replica_name, rid) marks the ONE candidate that
+        holds a migrated stream blob — only its leg carries the
+        X-Cake-KV-Resume header, so a rotation past it degrades to the
+        plain continuation splice."""
         for i, rep in enumerate(order):
             if bs["attempts"] >= bs["budget"]:
                 break
             if rep.name in skip or not rep.routable():
                 continue
             kind, val = await self._stream_leg(req, rep, body, rid,
-                                               fwd, st, resumed)
+                                               fwd, st, resumed,
+                                               kv_resume)
             if kind == "skip":
                 bs["cap_skipped"] = True
                 continue
@@ -873,7 +946,8 @@ class FleetRouter:
         return ("none", None)
 
     async def _stream_leg(self, req, rep, body, rid, fwd,
-                          st: _StreamRelay, resumed: bool = False):
+                          st: _StreamRelay, resumed: bool = False,
+                          kv_resume: tuple | None = None):
         """One streamed attempt holding its own routing-slot lease (so
         a hedge winner can cancel the loser without leaking it)."""
         lease = rep.try_acquire()
@@ -881,7 +955,8 @@ class FleetRouter:
             return ("skip", None)
         try:
             return await self._relay_stream(req, rep, body, lease,
-                                            rid, fwd, st, resumed)
+                                            rid, fwd, st, resumed,
+                                            kv_resume)
         finally:
             rep.release(lease)
 
@@ -966,6 +1041,61 @@ class FleetRouter:
         return await self._stream_seq(req, body, rest, rid, fwd, st, bs)
 
     # -- resume plumbing -----------------------------------------------------
+
+    async def _migrate_stream(self, broken, target, rid: str) -> bool:
+        """Ship a broken stream's swap blob from its (possibly still
+        answering) owner to `target`. Two bounded hops under the fetch
+        timeout: GET the blob off the source — the source parks the
+        slot on this fetch if it is still live — then POST it to the
+        target, which stages it for the X-Cake-KV-Resume adoption.
+        False (metrics say why) means the resume plane falls back to
+        the continuation splice; a migration can never make a break
+        worse, only cheaper."""
+        tmo = self.kv_fetch_timeout_s or None
+        url = "/api/v1/kv/stream/" + rid
+        route = {"from": broken.name, "to": target.name}
+
+        async def get_blob():
+            async with await request("GET", broken.base_url + url,
+                                     connect_timeout=tmo) as r:
+                return r.status, await r.read()
+
+        async def post_blob(blob):
+            async with await request(
+                    "POST", target.base_url + url, data=blob,
+                    headers={"Content-Type": "application/x-cake-kv-blob"},
+                    connect_timeout=tmo) as r:
+                await r.read()
+                return r.status
+        try:
+            status, blob = await _deadline(get_blob(), tmo)
+        except _TRANSPORT_ERRORS:
+            # the break that got us here usually took the whole replica
+            # down — an unreachable source is the EXPECTED shape, not
+            # an error worth a second failure record against it
+            status, blob = None, b""
+        if status != 200:
+            # 404 = never parked / already swept; 409 = kvshare off on
+            # the source; 503 = export timed out. All the same to the
+            # resume plane: no blob to ship.
+            FLEET_KV_MIGRATIONS.inc(outcome="source_miss")
+            self.timelines.event(rid, "kv_migrate", outcome="source_miss",
+                                 **route)
+            return False
+        try:
+            status = await _deadline(post_blob(blob), tmo)
+        except _TRANSPORT_ERRORS:
+            status = None
+        if status != 200:
+            FLEET_KV_MIGRATIONS.inc(outcome="ship_error")
+            self.timelines.event(
+                rid, "kv_migrate", outcome="ship_error", **route,
+                **({"status": status} if status is not None else {}))
+            return False
+        FLEET_KV_MIGRATIONS.inc(outcome="shipped")
+        self.timelines.event(rid, "kv_migrate", outcome="shipped", **route,
+                             bytes=len(blob))
+        return True
 
     @staticmethod
     def _splice_body(body: dict, st: _StreamRelay) -> dict:
@@ -1083,7 +1213,8 @@ class FleetRouter:
                             lease: str = "slot", rid: str | None = None,
                             fwd: dict | None = None,
                             st: _StreamRelay | None = None,
-                            resumed: bool = False):
+                            resumed: bool = False,
+                            kv_resume: tuple | None = None):
         """One streamed attempt relayed onto the client socket held by
         `st`. Returns:
           ("final", resp)  — terminal: clean end, a relayed refusal, or
@@ -1124,6 +1255,15 @@ class FleetRouter:
             # UNBOUNDED: generation time is open-ended and the
             # stream-resume plane owns mid-body breaks.
             hdrs = self._trace_headers(rid, fwd)
+            peers = self._kv_peers(rep)
+            if peers:
+                hdrs[KV_DIR_HEADER] = peers
+            if kv_resume is not None and kv_resume[0] == rep.name:
+                # this candidate staged the migrated stream blob: ask
+                # it to adopt instead of splice-prefilling (the body is
+                # still the splice, so a failed adoption inside the
+                # replica falls through to the same continuation)
+                hdrs[KV_RESUME_HEADER] = kv_resume[1]
             r = await _deadline(
                 request("POST", rep.base_url + "/v1/chat/completions",
                         json_body=body, headers=hdrs,
@@ -1154,17 +1294,31 @@ class FleetRouter:
                         data, r.status,
                         r.content_type or "application/json"))
                 if resumed:
-                    # deterministic overlap: the replica says how much
-                    # of the partial its continuation consumed (the
-                    # port's consume all of it); the difference is
-                    # re-emitted text the client already has. No header
-                    # = assume exact continuation, strip nothing.
-                    hdr = r.headers.get(CONTINUATION_CHARS_HEADER)
-                    if hdr is not None:
-                        try:
-                            strip_left = max(splice_chars - int(hdr), 0)
-                        except ValueError:
-                            strip_left = 0
+                    if r.headers.get(KV_RESUMED_HEADER):
+                        # blob-adopted resume: the replica replays the
+                        # FULL generated text from token 0 (the swap
+                        # blob's token record), so the re-emitted
+                        # prefix is everything the client has received
+                        # across ALL previous legs — cumulative
+                        # position, not the splice-consumption formula.
+                        # Text past the cumulative mark is generated-
+                        # but-never-relayed tail the break ate: it
+                        # relays as new content, which is exactly right.
+                        strip_left = st.content_chars
+                    else:
+                        # deterministic overlap: the replica says how
+                        # much of the partial its continuation consumed
+                        # (the port's consume all of it); the difference
+                        # is re-emitted text the client already has. No
+                        # header = assume exact continuation, strip
+                        # nothing.
+                        hdr = r.headers.get(CONTINUATION_CHARS_HEADER)
+                        if hdr is not None:
+                            try:
+                                strip_left = max(
+                                    splice_chars - int(hdr), 0)
+                            except ValueError:
+                                strip_left = 0
                 buf = b""
                 async for piece in r.iter_any():
                     if not piece:
@@ -1354,13 +1508,21 @@ class FleetRouter:
 
     async def handle_fleet_telemetry(self, req: Request) -> Response:
         """Decision-grade rollups (fleet/telemetry.py): series, burn
-        rates, headroom, outliers — the `cli top` feed."""
-        return json_response(self.telemetry.snapshot())
+        rates, headroom, outliers — the autoscaler/`cli top` feed.
+        With the closed loop on, the body carries the autoscaler's
+        compact summary so `cli top` renders its row from one GET."""
+        body = self.telemetry.snapshot()
+        if self.autoscaler is not None:
+            body = dict(body)
+            body["autoscale"] = self.autoscaler.summary()
+        return json_response(body)
 
     async def handle_fleet_autoscale(self, req: Request) -> Response:
-        """{"enabled": false}: the closed loop is module 15b's, and the
-        reference answers this with the loop off."""
-        return json_response({"enabled": False})
+        """The decisions ring + policy + lifecycle process view
+        (fleet/autoscale.py); {"enabled": false} when the loop is off."""
+        if self.autoscaler is None:
+            return json_response({"enabled": False})
+        return json_response(self.autoscaler.snapshot())
 
     async def handle_request_index(self, req: Request) -> Response:
         return json_response({"requests": self.timelines.ids()})
@@ -1440,8 +1602,10 @@ def serve_router(replicas: list, host: str = "0.0.0.0", port: int = 8100,
     given, announced replicas discovered over UDP join too (and keep
     joining every CAKE_FLEET_DISCOVER_S); `discovery` passes
     discover_replicas' `addresses` / `discovery_port` through.
-    `autoscale` (or CAKE_SCALE) and CAKE_KVSHARE are refused: module
-    15b. SIGINT / SIGTERM drain and stop it."""
+    `autoscale` turns the closed loop on regardless of CAKE_SCALE (None
+    defers to the knob); CAKE_KVSHARE turns the KV-share tier on.
+    SIGINT / SIGTERM drain and stop it (and reap the replicas the
+    lifecycle spawned)."""
     registry = ReplicaRegistry()
     router = FleetRouter(registry, cluster_key=cluster_key,
                          autoscale=autoscale)

@@ -14,10 +14,11 @@ the API server's /metrics renders REGISTRY, /api/v1/trace the RECORDER,
 already has; none of it touches the card. `torch_trace` (obs/profile.py)
 is the device-side profiler trace SD's trace_dir wraps a generation in.
 
-The fleet router (fleet/) records the FLEET_* instruments here and keeps
-its time series in obs/series.py (Series, SeriesBank). Not here yet: the
-jobs gauge, the fleet's KV-share and autoscale instruments and the
-reference's obs/catalog.py (they come with module 15b).
+The fleet router (fleet/) records the FLEET_* instruments here (the
+KV-share tier's FLEET_KV_* and the autoscaler's FLEET_SCALE_* among
+them) and keeps its time series in obs/series.py (Series, SeriesBank).
+Not here yet: the reference's obs/catalog.py (ROADMAP module 15b's last
+part).
 """
 from __future__ import annotations
 
@@ -267,9 +268,8 @@ SERVE_TENANT_THROTTLES = REGISTRY.counter(
 
 
 # -- fleet router tier (fleet/: router, registry, telemetry) ---------------
-# The reference's FLEET_* instruments that module 15a records, with its
-# names, labels and help text (its FLEET_KV_* and FLEET_SCALE_* come with
-# module 15b).
+# The reference's FLEET_* instruments, with its names, labels and help
+# text.
 
 FLEET_REPLICAS = REGISTRY.gauge(
     "cake_fleet_replicas",
@@ -349,6 +349,34 @@ FLEET_STREAM_RESUMES = REGISTRY.counter(
     labelnames=("outcome",))        # ok | broken | error | exhausted |
                                     # overflow
 
+# -- fleet-shared KV tier (fleet/kvshare/) -----------------------------------
+# Cross-replica prefix-blob fetches and live stream-blob migrations; hit
+# ratio is recomputed from the fetch counter each time it moves.
+
+FLEET_KV_FETCHES = REGISTRY.counter(
+    "cake_fleet_kv_fetches_total",
+    "Cross-replica prefix-blob fetch attempts by a cache-cold replica "
+    "before recomputing a prefill (fetch-before-recompute)",
+    labelnames=("outcome",))        # hit | miss | timeout | error |
+                                    # mismatch
+
+FLEET_KV_FETCH_BYTES = REGISTRY.counter(
+    "cake_fleet_kv_fetch_bytes_total",
+    "Wire bytes of successfully fetched + installed prefix blobs")
+
+FLEET_KV_MIGRATIONS = REGISTRY.counter(
+    "cake_fleet_kv_migrations_total",
+    "Live stream-blob migrations attempted by the router's resume plane "
+    "(drain/rebalance/failover): shipped = blob installed at the new "
+    "owner, source_miss / ship_error = fell back to continuation-mode "
+    "re-prefill",
+    labelnames=("outcome",))        # shipped | source_miss | ship_error
+
+FLEET_KV_HIT_RATIO = REGISTRY.gauge(
+    "cake_fleet_kv_hit_ratio",
+    "Fraction of cross-replica prefix fetch attempts that installed a "
+    "peer's blob (hit / all outcomes), over this process's lifetime")
+
 # -- fleet telemetry plane (rollups the autoscaler will consume) -------------
 # Computed once per probe cycle by fleet/telemetry.py from the in-process
 # time-series rings — these are the decision-grade reductions (burn rate,
@@ -382,6 +410,30 @@ FLEET_REPLICA_STALE = REGISTRY.gauge(
     "(queue depth, occupancy) have been retracted and telemetry rollups "
     "exclude it",
     labelnames=("replica",))
+
+# -- fleet autoscale (the closed loop consuming the telemetry plane) ---------
+# Written by fleet/autoscale.py (controller) and fleet/lifecycle.py
+# (executor) inside the router process; CAKE_SCALE gates the whole loop.
+
+FLEET_SCALE_ACTIONS = REGISTRY.counter(
+    "cake_fleet_scale_actions_total",
+    "Autoscaler actions EXECUTED (holds are not counted — the decisions "
+    "ring at /api/v1/fleet/autoscale carries those): direction out/in, "
+    "reason the trigger that fired (burn_fast / headroom_low / "
+    "below_min / headroom_high)",
+    labelnames=("direction", "reason"))
+
+FLEET_SCALE_PENDING_SPAWNS = REGISTRY.gauge(
+    "cake_fleet_scale_pending_spawns",
+    "Replica processes spawned by the lifecycle manager still waiting "
+    "for their /health to answer 200 (spawn-to-routable window; feeds "
+    "the no-replica Retry-After during a cold start)")
+
+FLEET_SCALE_MANAGED_REPLICAS = REGISTRY.gauge(
+    "cake_fleet_scale_managed_replicas",
+    "Replica processes whose OS lifetime the router's lifecycle manager "
+    "owns (spawned by scale-out; retired by scale-in or reaped on "
+    "unexpected death)")
 
 
 # -- cluster instruments (cluster/: master, client, worker) -------------------
@@ -468,6 +520,13 @@ __all__ = [
     "FLEET_HEDGES",
     "FLEET_PROXIED",
     "FLEET_STREAM_RESUMES",
+    "FLEET_KV_FETCHES",
+    "FLEET_KV_FETCH_BYTES",
+    "FLEET_KV_MIGRATIONS",
+    "FLEET_KV_HIT_RATIO",
+    "FLEET_SCALE_ACTIONS",
+    "FLEET_SCALE_PENDING_SPAWNS",
+    "FLEET_SCALE_MANAGED_REPLICAS",
     "FLEET_SLO_BURN_RATE",
     "FLEET_HEADROOM_TOKENS",
     "FLEET_REPLICA_OUTLIER",

@@ -50,11 +50,19 @@ TRACE_HEADER = "X-Cake-Request-Id"
 MAX_EVENTS = 512
 
 # typed event vocabulary: event() rejects unknown kinds. The reference's
-# table, cut to the kinds the port records (the fleet router's among
-# them; the KV-share tier's come with module 15b)
+# table, cut to the kinds the port records (the fleet router's and the
+# KV-share tier's among them)
 EVENT_KINDS: dict[str, str] = {
     # API tier
     "received": "request reached the API handler",
+    "kv_fetch": "fleet-shared KV tier: this replica tried to fetch a "
+                "matching prefix blob from a warm peer before "
+                "recomputing the prefill (`outcome` = hit | miss | "
+                "timeout | error | mismatch, `tokens` installed on a "
+                "hit, `peer`)",
+    "kv_migrate": "fleet-shared KV tier: a live stream's swap blob "
+                  "moved through the router's resume plane (`outcome` "
+                  "= shipped | source_miss | ship_error, `from`, `to`)",
     # admission plane + serve engine tier
     "enqueue": "request entered the admission queue (`depth` behind it, "
                "`qos` class, `tenant` when set)",

@@ -107,7 +107,14 @@ and SPEC_* instruments are recorded at the reference's points from host
 values the iteration already has. Nothing is recorded inside a capture
 and nothing waits on the card: a span over device work ends at the
 iteration's one fetch (`_close_spans`).
-Left out of this port so far (see ROADMAP.md): the fleet KV tier.
+
+The fleet-shared KV tier (fleet/kvshare/replica.py: KVShareReplica) rides
+an engine as `kv_share` (duck-typed: this package imports nothing of the
+fleet). Its mailbox is drained by `run_pending()` at the top of every
+`_step`, before the idle return, so that blob export, import, parking
+and adoption run on the scheduler thread, where the pool and the prefix
+cache live; `health()` carries its `kvshare` block, and a migrated stream
+it adopts enters through the swap resume (`_resume_preempted`).
 """
 from __future__ import annotations
 
@@ -282,6 +289,12 @@ class ServeRequest:
         self.budget = 0                 # decode tokens left after the first
         self.t_first = 0.0
         self._first_pending = False     # first token sampled, not fetched
+        # a client reads the stream as it is produced (ServeEngine.stream
+        # runs): the KV-share tier's drain parks only such requests
+        self.streaming = False
+        # an adopted stream blob: the generated tokens it carried, which
+        # the answer replays before the ones decoded here
+        self.replayed = 0
         self._engine: "ServeEngine | None" = None
 
     def cancel(self):
@@ -386,6 +399,10 @@ class ServeEngine:
         self._draining = threading.Event()
         self._wake = threading.Event()
         self._stop = threading.Event()
+        # the fleet KV-share agent (fleet/kvshare/replica.py), set by the
+        # API server when CAKE_KVSHARE is on; its run_pending() runs at
+        # the top of every scheduler step
+        self.kv_share = None
         self.steps = 0
         self.last_step = now()
         # device-work spans of this iteration, closed at its fetch:
@@ -608,6 +625,7 @@ class ServeEngine:
         by POLL_S and a check that the scheduler still runs). Closing it
         early cancels the request, freeing its slot. Raises the request's
         error, if any, after the last token."""
+        req.streaming = True
         try:
             while True:
                 try:
@@ -619,6 +637,7 @@ class ServeEngine:
                     break
                 yield item
         finally:
+            req.streaming = False
             req.cancel()
         if "error" in req.result:
             raise req.result["error"]
@@ -676,6 +695,9 @@ class ServeEngine:
             if pc is not None:
                 h["kv_pool"]["prefix_entries"] = len(pc._blocks)
                 h["kv_pool"]["prefix_pinned_blocks"] = pc.pinned
+        ks = self.kv_share
+        if ks is not None:
+            h["kvshare"] = ks.health_view()
         if self.spec_drafter is not None:
             h["spec"] = {"drafter": self.spec_drafter.name,
                          "k": self.spec_k, "mode": "batched",
@@ -852,6 +874,12 @@ class ServeEngine:
         # a crash in the host bookkeeping below must not implicate the
         # previous step's requests (the dispatches arm their own sets)
         sup.arm("step", ())
+        # the KV-share mailbox FIRST, before the idle return: an idle
+        # engine still serves blob jobs (a submit sets _wake, which lands
+        # the loop here)
+        ks = self.kv_share
+        if ks is not None:
+            ks.run_pending()
         busy = self.pool.busy()
         if not (busy or self.queue.depth() or self._preempted):
             return False
@@ -1350,7 +1378,14 @@ class ServeEngine:
                 c.active[slot] = True
                 self._reqs[slot] = req
                 req.slot = slot
-                TIMELINES.event(req.id, "resume", mode="swap", slot=slot)
+                # a migrated stream the KV-share tier adopted enters HERE
+                # without ever passing an admission: its API handler waits
+                # on the admitted event (already set for a local preempt)
+                if not req.admitted.is_set():
+                    req.admitted.set()
+                TIMELINES.event(req.id, "resume", mode="swap", slot=slot,
+                                **({"kv_migrated": True}
+                                   if req.stats.get("kv_migrated") else {}))
             else:
                 if not self.paged.ensure_free(
                         self.paged.blocks_for(entry.tokens_at_preempt + 1)):

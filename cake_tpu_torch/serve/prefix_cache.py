@@ -75,6 +75,10 @@ class PrefixCache:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        # membership version: bumped on every insert and evict, NOT on an
+        # LRU touch, so the kvshare inventory mirror refreshes only when
+        # the key set changed (the reference's PrefixCache.version)
+        self.version = 0
 
     @classmethod
     def build(cls, model, ctx: int, block: int,
@@ -155,12 +159,14 @@ class PrefixCache:
             self._evict_lru()
         self._blocks[key] = blk
         self.bytes += blk.nbytes
+        self.version += 1
         SERVE_PREFIX_BYTES.set(self.bytes)
 
     def _pop_lru(self):
         _, old = self._blocks.popitem(last=False)
         self.bytes -= old.nbytes
         self.evictions += 1
+        self.version += 1
         SERVE_PREFIX_EVICTIONS.inc()
         SERVE_PREFIX_BYTES.set(self.bytes)
         return old
@@ -258,6 +264,7 @@ class PagedPrefixCache(PrefixCache):
             tokens=np.asarray(prompt_ids[:end], np.int32), pids=list(pids),
             snap=snap, nbytes=nbytes)
         self.bytes += nbytes
+        self.version += 1
         self.pinned += len(pids)
         SERVE_PREFIX_BYTES.set(self.bytes)
         self.paged._publish()

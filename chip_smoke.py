@@ -385,28 +385,49 @@ Phases (any failure exits non-zero and prints no result line):
      that cut seeded in bf16, written with a tokens.txt and spoken by `cli
      tts DIR`: the WAV's header parses and its bytes equal the in-memory
      model's;
-  23. the fleet router (module 15a): two replicas of the flagship (28
-     layers, bf16, seed 0, paged: 1024 blocks of 16) on the one card, r0 a
-     `cli serve --announce` subprocess that one discover_replicas call
-     finds with role "serve", r1 this process's server (so its kernels'
-     counts can be read), behind a `cli route` subprocess (no torch in
-     it; 1 in flight per replica, 2 in all, a 0.5 s probe): (a) four
-     two-turn greedy SSE conversations under ~600-token system heads of
-     their own, two owned by each replica, each turn landing on its
-     rendezvous owner (the router's timeline) with the content of the
-     same request sent straight to that replica, turn 2 hitting its
-     prefix there; (b) a burst of 6 concurrent chats: each a 200 or a
-     429 with shed_by "router" and Retry-After, at least one 429, and
-     /metrics' shed counter equal to the 429s; (c) a 96-token stream
-     owned by r0, r0 SIGKILLed once the client holds 8 content events:
-     the one stream ends on r1 in one finish event and one [DONE], one
-     resume counted, its resumed text equal to r1's own continuation of
-     the partial the client received, r0 EJECTED within the probe
-     period and the next turn served by r1, the next-best; (d) `cli top
-     --once --plain` names both replicas with their states and the
-     telemetry carries the burn rates and each replica's headroom; (e)
-     r1's flash and paged-decode launches rose; prints TTFT p50 through
-     the router and direct, the resume gap, the 429s and the seconds;
+  23. the fleet (modules 15a and 15b): replicas of the flagship (28
+     layers, bf16, seed 0, paged: 1024 blocks of 16, the KV-share tier
+     on) on the one card behind a `cli route --autoscale` subprocess (no
+     torch in it; 1 in flight per replica, 2 in all, a 0.5 s probe, 2
+     replicas at least and at most): r1 this process's server (so its
+     kernels' counts can be read), static, and the rest `cli serve
+     --announce` processes the router's lifecycle spawns. (0) the
+     below-min rule spawns r0 while r1 builds, admitted only after its
+     /health answered 200 and found by one discover_replicas call with
+     role "serve"; r1, ejected by the default policy while it built, is
+     readmitted once it serves; (a) four two-turn greedy SSE
+     conversations under ~600-token system heads of their own, two
+     owned by each replica, each turn landing on its rendezvous owner
+     (the router's timeline) with the content of the same request sent
+     straight to that replica, turn 2 hitting its prefix there; (b) a
+     burst of 6 concurrent chats: each a 200 or a 429 with shed_by
+     "router" and Retry-After, at least one 429, and /metrics' shed
+     counter equal to the 429s; (f) a follow-up warmed on r0 and sent to
+     cold r1 with the peer directory of a second router in this process
+     (its registry holds r0 and r1 as static replicas): r1 fetches r0's
+     prefix blob under the 2 s fetch deadline, answers byte for byte as
+     r0 did, splices the fetched tokens and prefills the suffix through
+     flash append (chunks x 28 launches); the fetch's phases beside the
+     cold TTFT; (c) a 96-token stream owned by r0, r0 SIGKILLed once the
+     client holds 8 content events: its blob a source_miss, the one
+     stream ends on r1 in one finish event and one [DONE], one resume
+     counted, its resumed text equal to r1's own continuation of the
+     partial the client received; the second router's default policy
+     ejects r0 within its eject_fails probes, the lifecycle sweeps r0
+     (died) and spawns its replacement r2 (below_min), and the next turn
+     lands on its first candidate, not r0; (d) `cli top --once --plain`
+     on the router shows r1 healthy and the autoscale row, on the second
+     router r0 ejected and r1 healthy; the telemetry carries the burn
+     rates, each replica's headroom and the loop's bounds; (e) r1's
+     flash and paged-decode launches rose; (g) a 96-token stream owned
+     by r2, r2 SIGTERMed (the lifecycle's retire signal) once the client
+     holds 8 content events: its drain parks the stream, whose swap blob
+     ships to r1, which continues it through the paged decode kernel
+     (its launches rose, 28 a step) byte for byte as r2 answered alone,
+     with the router's timeline stream_broken, kv_migrate(shipped),
+     stream_resume, done; the lifecycle sweeps r2's exit (code 0);
+     prints TTFT p50 through the router and direct, the resume gaps, the
+     429s, the blob sizes, spawn-to-admit seconds and the seconds;
   then prints the whole run's seconds, the kernels line, the card line,
   and the result line last. `--only 12` runs phases 1, 2 and 12 alone,
   `--only 13` phases 1, 2 and 13, `--only 14` phases 1, 2 and 14,
@@ -7151,13 +7172,23 @@ def phase_luxtts(card: str, workdir: str) -> dict:
 
 
 
-# -- phase 23: the fleet router (module 15a) -----------------------------------
+# -- phase 23: the fleet (modules 15a and 15b) --------------------------------
 
 FLEET_KEY = "chip-smoke-fleet"
-# router settings of phase 23: (b)'s shed bounds, and a probe period short
-# enough that (c)'s dead replica reads EJECTED within the phase
+# router settings of phase 23: (b)'s shed bounds, a probe period short
+# enough that (c)'s dead replica is swept within the phase, and the closed
+# loop: two replicas (r1 static, the rest spawned from
+# CAKE_SCALE_SPAWN_CMD). r1 is still building when the router starts, so
+# the default policy ejects it (3 failed probes) until it serves; the
+# ceiling of 2 keeps the below-min rule from spawning a second replica in
+# its place meanwhile. The long cooldown leaves the below-min rule (which
+# ignores it) as the only action.
 FLEET_ENV = {"CAKE_FLEET_REPLICA_INFLIGHT": "1", "CAKE_FLEET_MAX_INFLIGHT": "2",
-             "CAKE_FLEET_PROBE_S": "0.5"}
+             "CAKE_FLEET_PROBE_S": "0.5", "CAKE_KVSHARE": "1",
+             "CAKE_SCALE_MIN": "2", "CAKE_SCALE_MAX": "2",
+             "CAKE_SCALE_COOLDOWN_S": "600"}
+# the one prefix-fetch deadline of the phase (the reference's default)
+FLEET_FETCH_TIMEOUT_S = "2.0"
 
 
 def _fleet_head(k: int) -> list[dict]:
@@ -7174,7 +7205,8 @@ def _fleet_owner(msgs: list[dict], names: list[str]) -> list[str]:
     return rank_replicas(affinity_key(conversation_head(msgs), 64), names)
 
 
-def _sse_chat(url: str, body: dict, on_event=None, timeout: float = 300):
+def _sse_chat(url: str, body: dict, on_event=None, timeout: float = 300,
+              headers: dict | None = None):
     """POST a streamed chat and read its SSE events as they arrive: (status,
     headers, [(seconds since the send, payload)]). `on_event(events)` runs
     after each event."""
@@ -7184,7 +7216,7 @@ def _sse_chat(url: str, body: dict, on_event=None, timeout: float = 300):
     conn = http.client.HTTPConnection(u.hostname, u.port, timeout=timeout)
     t0 = time.perf_counter()
     conn.request("POST", "/v1/chat/completions", json.dumps(body),
-                 {"Content-Type": "application/json"})
+                 {"Content-Type": "application/json", **(headers or {})})
     resp = conn.getresponse()
     events = []
     try:
@@ -7222,6 +7254,19 @@ def _sse_text(events) -> tuple[str, int, float | None]:
 def _get_json(url: str, timeout: float = 30):
     with urllib.request.urlopen(url, timeout=timeout) as r:
         return json.loads(r.read())
+
+
+def _metric(text: str, prefix: str) -> float:
+    """The value of one series of a /metrics text (0 when absent)."""
+    for line in text.splitlines():
+        if line.startswith(prefix + " "):
+            return float(line.rsplit(" ", 1)[1])
+    return 0.0
+
+
+def _metrics(url: str) -> str:
+    with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
+        return r.read().decode()
 
 
 def _router_trace(router: str, rid: str) -> dict:
@@ -7268,9 +7313,171 @@ def _wait_http(url: str, proc, log_path: str, label: str,
         time.sleep(0.1)
 
 
+def _fleet_serve_args() -> list[str]:
+    """The replica the lifecycle spawns: `cli serve --announce` of the
+    flagship, paged ({port} and {name} filled per spawn)."""
+    return ["serve", "--flagship", "--host", "127.0.0.1", "--port", "{port}",
+            "--kv-blocks", "1024", "--kv-block-tokens", "16", "--announce",
+            "--cluster-key", FLEET_KEY, "--announce-name", "{name}"]
+
+
+def _autoscale_events(router: str, kind: str, name: str | None = None,
+                      timeout: float = 240, proc=None, log_path=None
+                      ) -> list[dict]:
+    """The router's decisions ring once it holds a `kind` event (for
+    replica `name` when given)."""
+    deadline = time.perf_counter() + timeout
+    while True:
+        ring = _get_json(router + "/api/v1/fleet/autoscale")["decisions"]
+        if any(e["kind"] == kind and (name is None
+                                      or e.get("replica") == name)
+               for e in ring):
+            return ring
+        if proc is not None and proc.poll() is not None:
+            with open(log_path, errors="replace") as f:
+                tail = f.read()[-3000:]
+            check(False, f"23: the router exited ({proc.returncode}): "
+                  f"{tail}")
+        check(time.perf_counter() < deadline,
+              f"23: no {kind} {name or ''} on the decisions ring: "
+              f"{json.dumps(ring)[-1500:]}")
+        time.sleep(0.2)
+
+
+def _managed(router: str) -> dict:
+    """name -> the lifecycle's view of each replica it manages."""
+    snap = _get_json(router + "/api/v1/fleet/autoscale")
+    return {m["name"]: m for m in snap["lifecycle"]["managed"]}
+
+
+def _second_router(r0: str, url0: str, url1: str):
+    """A FleetRouter in this process, served on a thread of its own, whose
+    registry holds r0 and r1 as static replicas under the default
+    membership policy: (f) reads its KV directory, (c) and (d) its
+    ejection of the dead r0. Returns (router, its URL, probe, stop):
+    probe() runs one probe cycle on its loop, stop() ends it."""
+    import asyncio
+    from cake_tpu_torch.fleet import (FleetRouter, ReplicaRegistry,
+                                      create_router_app)
+    registry = ReplicaRegistry()
+    registry.add(r0, url0)
+    registry.add("r1", url1)
+    router = FleetRouter(registry, kvshare=True, autoscale=False,
+                         probe_s=600.0)
+    app = create_router_app(router)
+    loop = asyncio.new_event_loop()
+    th = threading.Thread(target=loop.run_forever, daemon=True)
+    th.start()
+
+    def run(coro):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(60)
+    host, port = run(app.start("127.0.0.1", 0))
+
+    def stop():
+        try:
+            run(app.stop())
+        finally:
+            loop.call_soon_threadsafe(loop.stop)
+            th.join(10)
+    return (router, f"http://{host}:{port}",
+            lambda: run(router._probe_once()), stop)
+
+
+def _fleet_fetch(card: str, r0: str, url0: str, r1, url1: str, names,
+                 second, probe, out: dict) -> None:
+    """23(f): a prefix chain warmed on r0 is fetched by cold r1, with the
+    directory the second router builds for r1."""
+    import torch
+    from cake_tpu_torch.fleet.kvshare import KV_DIR_HEADER
+    from cake_tpu_torch.obs import FLEET_KV_FETCHES
+    from cake_tpu_torch.ops import flash
+    k = next(k for k in range(400, 600)
+             if _fleet_owner(_fleet_head(k), names)[0] == r0)
+    msgs = _fleet_head(k)
+    status, _, ev = _sse_chat(url0, {"messages": msgs, "temperature": 0,
+                                     "max_tokens": 32, "stream": True})
+    check(status == 200, f"23f: warming chat on {r0}: HTTP {status}")
+    follow = msgs + [{"role": "assistant", "content": _sse_text(ev)[0]},
+                     {"role": "user", "content": "and then?"}]
+    body = {"messages": follow, "temperature": 0, "max_tokens": 32,
+            "stream": True}
+    status, _, ev0 = _sse_chat(url0, body)
+    check(status == 200, f"23f: {r0}'s direct follow-up: HTTP {status}")
+    want = _sse_text(ev0)[0]
+    # the router's registry mirror: probed until r0's chain of the
+    # follow-up shows in its inventory (the directory the router sends)
+    ids = r1.engine.model.tokenizer.chat_prompt_ids(follow)
+    pc = r1.engine.prefix_cache
+    keys = [h.hex() for h in pc.chain_keys(ids)]
+    registry = second.registry
+    deadline = time.perf_counter() + 30
+    while keys[-1] not in registry.get(r0).kv_inventory():
+        check(time.perf_counter() < deadline, f"23f: {r0}'s chain never "
+              f"reached the registry mirror: "
+              f"{registry.get(r0).kv_inventory()[:4]}")
+        time.sleep(0.2)
+        probe()
+    directory = second._kv_peers(registry.get("r1"))
+    check(directory is not None and url0 in directory,
+          f"23f: the directory for r1 does not name {r0}: {directory}")
+    hits0 = FLEET_KV_FETCHES.value(outcome="hit")
+    torch.cuda.synchronize()
+    app0 = flash.launch_counts()["bf16"]["append"]
+    status, hdrs, ev1 = _sse_chat(url1, body,
+                                  headers={KV_DIR_HEADER: directory})
+    check(status == 200, f"23f: r1's fetched follow-up: HTTP {status}")
+    got, _, ttft_fetch = _sse_text(ev1)
+    torch.cuda.synchronize()
+    appended = flash.launch_counts()["bf16"]["append"] - app0
+    rid = hdrs["X-Cake-Request-Id"]
+    tl = _get_json(f"{url1}/api/v1/requests/{rid}")["events"]
+    hit = max([e.get("hit_tokens", 0) for e in tl
+               if e["kind"] == "prefill_done"] or [0])
+    fetched = [e for e in tl if e["kind"] == "kv_fetch"]
+    # a hit's event carries the fetch's phases
+    split = fetched[0] if fetched else {}
+    check(FLEET_KV_FETCHES.value(outcome="hit") == hits0 + 1
+          and fetched and fetched[0]["outcome"] == "hit",
+          f"23f: the fetch did not hit: {fetched} {split} (deadline "
+          f"{FLEET_FETCH_TIMEOUT_S} s)")
+    check(got == want, "23f: r1's fetched answer differs from "
+          f"{r0}'s direct answer")
+    check(hit > 0 and hit == split.get("tokens"),
+          f"23f: r1 spliced {hit} prompt tokens, the fetch installed "
+          f"{split.get('tokens')}")
+    chunks = -(-(len(ids) - hit) // r1.engine.chunk)
+    layers = r1.engine.model.cfg.num_hidden_layers
+    check(appended == chunks * layers, f"23f: {appended} flash append "
+          f"launches on r1, not {chunks} suffix chunks x {layers} layers")
+    # the same shape, cold: a fresh conversation's follow-up on r1
+    cold = _fleet_head(k + 1000) + follow[2:]
+    status, _, evc = _sse_chat(url1, dict(body, messages=cold))
+    check(status == 200, f"23f: r1's cold follow-up: HTTP {status}")
+    out["kvshare"] = {
+        "prompt_tokens": len(ids), "fetched_tokens": hit,
+        "suffix_chunks": chunks, "flash_append_launches": appended,
+        "blob_bytes": split.get("bytes"),
+        # export and encode on the peer, wire = the GET's time less
+        # them, decode and install here
+        "fetch_ms": {x: split.get(x) for x in (
+            "export_ms", "encode_ms", "wire_ms", "get_ms", "decode_ms",
+            "install_ms", "total_ms")},
+        "ttft_ms_fetched": round(ttft_fetch * 1e3, 3),
+        "ttft_ms_cold": round(_sse_text(evc)[2] * 1e3, 3),
+        "fetch_timeout_s": float(FLEET_FETCH_TIMEOUT_S)}
+    print(f"23(f): r1 fetched {hit} of {len(ids)} prompt tokens from {r0} "
+          f"({split.get('bytes')} blob bytes), answered equal to {r0}, "
+          f"{appended} flash append launches; fetch "
+          f"{out['kvshare']['fetch_ms']} ms, TTFT "
+          f"{out['kvshare']['ttft_ms_fetched']} ms fetched against "
+          f"{out['kvshare']['ttft_ms_cold']} ms cold on {card}", flush=True)
+
+
 def phase_fleet(card: str, workdir: str) -> dict:
-    """Phase 23: the fleet router (module 15a) in front of two flagship
-    replicas on the one card; returns the phase's readings."""
+    """Phase 23: the fleet router (module 15a) with its KV-share tier and
+    closed loop (module 15b) in front of flagship replicas on the one card:
+    r1 in this process, r0 and its replacement r2 spawned by the router's
+    lifecycle; returns the phase's readings."""
     import signal
     import torch
     from cake_tpu_torch.fleet import discover_replicas
@@ -7279,45 +7486,83 @@ def phase_fleet(card: str, workdir: str) -> dict:
     t_phase = time.perf_counter()
     out = {}
     procs = []
+    children = []           # the replicas the router spawned (pids)
     r1 = None
+    router = None
+    stop_second = None
+    saved = {k: os.environ.get(k) for k in ("CAKE_KVSHARE",
+                                            "CAKE_KVSHARE_FETCH_TIMEOUT_S")}
+    os.environ["CAKE_KVSHARE"] = "1"
+    os.environ["CAKE_KVSHARE_FETCH_TIMEOUT_S"] = FLEET_FETCH_TIMEOUT_S
     try:
-        # r0: `cli serve --announce`, started first so that its start-up
-        # overlaps r1's build in this process
-        p0 = _free_port()
-        log0 = os.path.join(workdir, "r0.log")
-        r0 = _spawn_fleet(["serve", "--flagship", "--host", "127.0.0.1",
-                           "--port", str(p0), "--kv-blocks", "1024",
-                           "--kv-block-tokens", "16", "--announce",
-                           "--cluster-key", FLEET_KEY, "--announce-name",
-                           "r0"], log0)
-        procs.append(r0)
-        url0 = f"http://127.0.0.1:{p0}"
-        from cake_tpu_torch.cli import build_flagship
-        model = build_flagship(layers=None, dtype="bf16", seed=0,
-                               device="cuda")
-        r1 = serve_model(model, kv_blocks=1024, kv_block_tokens=16)
-        url1 = r1.app.url
-        _wait_http(url0, r0, log0, "replica r0 (cli serve)")
-        found = discover_replicas(FLEET_KEY, timeout=2.0, expected=1,
-                                  addresses=["127.0.0.1"])
-        check(found == [("r0", url0)], f"23: discovery found {found}, not "
-              f"r0 at {url0} with role serve")
-        pr = _free_port()
+        # (0) the router first, with r1 (this process, not up yet) static
+        # and the closed loop on: the below-min rule spawns r0 in its first
+        # cycle, whose start-up overlaps r1's build here
+        p1, pr = _free_port(), _free_port()
+        url1 = f"http://127.0.0.1:{p1}"
         router = f"http://127.0.0.1:{pr}"
         logr = os.path.join(workdir, "router.log")
+        spawn = " ".join([sys.executable, "-m", "cake_tpu_torch.cli",
+                          *_fleet_serve_args()])
         t0 = time.perf_counter()
         rp = _spawn_fleet(["route", "--host", "127.0.0.1", "--port",
-                           str(pr), "--replica", f"r0={url0}", "--replica",
-                           f"r1={url1}"], logr, FLEET_ENV)
+                           str(pr), "--replica", f"r1={url1}",
+                           "--autoscale"], logr,
+                          dict(FLEET_ENV, CAKE_SCALE_SPAWN_CMD=spawn,
+                               CAKE_KVSHARE_FETCH_TIMEOUT_S=
+                               FLEET_FETCH_TIMEOUT_S))
         procs.append(rp)
+        from cake_tpu_torch.api import create_app
+        from cake_tpu_torch.cli import build_flagship
+        from cake_tpu_torch.serve import ServeEngine
+        model = build_flagship(layers=None, dtype="bf16", seed=0,
+                               device="cuda")
+        r1 = Served(create_app(model, ServeEngine(
+            model, slots=4, ctx_len=4096, kv_blocks=1024,
+            kv_block_tokens=16), model.tokenizer, port=p1).start())
+        check(r1.app.state.kvshare is not None, "23: r1 has no KV-share "
+              "agent with CAKE_KVSHARE=1")
         _wait_http(router, rp, logr, "the router (cli route)")
-        out["router_start_s"] = round(time.perf_counter() - t0, 3)
+        ring = _autoscale_events(router, "admitted", proc=rp, log_path=logr)
+        kinds = [e["kind"] for e in ring]
+        spawned = next(e for e in ring if e["kind"] == "spawned")
+        admitted = next(e for e in ring if e["kind"] == "admitted")
+        r0 = spawned["replica"]
+        check(kinds.index("scale_out") < kinds.index("spawned")
+              < kinds.index("admitted")
+              and ring[kinds.index("scale_out")]["reason"] == "below_min"
+              and admitted["replica"] == r0,
+              f"23(0): the ring reads {json.dumps(ring)[-1200:]}")
+        url0 = f"http://127.0.0.1:{spawned['port']}"
+        check(_health(url0)[0] == 200, f"23(0): {r0} admitted but its "
+              "/health is not 200")
+        found = discover_replicas(FLEET_KEY, timeout=2.0, expected=1,
+                                  addresses=["127.0.0.1"])
+        check((r0, url0) in found, f"23(0): discovery found {found}, not "
+              f"{r0} at {url0} with role serve")
+        names = sorted([r0, "r1"])
+        # r1 failed its probes while it built: the default policy ejected
+        # it, and readmits it through half-open now that it serves
+        deadline = time.perf_counter() + 30
+        while True:
+            row = next(r for r in _get_json(router + "/api/v1/fleet")[
+                "replicas"] if r["name"] == "r1")
+            if row["state"] == "healthy":
+                break
+            check(time.perf_counter() < deadline, f"23(0): r1 reads {row}")
+            time.sleep(0.1)
+        ring = _get_json(router + "/api/v1/fleet/autoscale")["decisions"]
+        check(row["ejects"] >= 1 and row["readmits"] >= 1
+              and [e["kind"] for e in ring].count("spawned") == 1,
+              f"23(0): r1 {row}, the ring {json.dumps(ring)[-800:]}")
+        out["spawn_to_admit_s"] = admitted["spawn_s"]
         out["startup_s"] = round(time.perf_counter() - t_phase, 3)
-        print(f"23: r0 (`cli serve --announce`, found by discovery) and r1 "
-              f"(this process) serve, the router (`cli route`) answered "
-              f"{out['router_start_s']} s after its start; "
-              f"{out['startup_s']} s in", flush=True)
-        urls = {"r0": url0, "r1": url1}
+        print(f"23(0): the router (`cli route --autoscale`) spawned {r0} "
+              f"(below_min), admitted after its /health answered 200, "
+              f"{admitted['spawn_s']} s from spawn to admission; r1 serves "
+              f"in this process, ejected {row['ejects']}x while it built "
+              f"and readmitted; {out['startup_s']} s in", flush=True)
+        urls = {r0: url0, "r1": url1}
         torch.cuda.synchronize()
         flash.reset_launches()
         pa.reset_launches()
@@ -7325,7 +7570,7 @@ def phase_fleet(card: str, workdir: str) -> dict:
         # owned by the replica rendezvous names; turn 2 hits its prefix
         heads, k = [], 0
         while len(heads) < 4:
-            owner = _fleet_owner(_fleet_head(k), ["r0", "r1"])[0]
+            owner = _fleet_owner(_fleet_head(k), names)[0]
             if sum(h[1] == owner for h in heads) < 2:
                 heads.append((k, owner))
             k += 1
@@ -7362,7 +7607,7 @@ def phase_fleet(card: str, workdir: str) -> dict:
                 msgs = msgs + [{"role": "assistant",
                                 "content": runs["router"][0]},
                                {"role": "user", "content": "and then?"}]
-        out["owners"] = [o for _, o in heads]
+        out["owners"] = ["r0" if o == r0 else o for _, o in heads]
         for via in ttft:
             xs = sorted(ttft[via])
             out[f"ttft_p50_ms_{via}"] = round(xs[len(xs) // 2] * 1e3, 3)
@@ -7401,8 +7646,7 @@ def phase_fleet(card: str, workdir: str) -> dict:
             else:
                 check(status == 200, f"23b: chat {i}: HTTP {status}")
         check(sheds >= 1, "23b: the burst shed nothing")
-        with urllib.request.urlopen(router + "/metrics", timeout=30) as r:
-            metrics = r.read().decode()
+        metrics = _metrics(router)
         counted = sum(float(line.rsplit(" ", 1)[1])
                       for line in metrics.splitlines()
                       if line.startswith("cake_fleet_sheds_total"))
@@ -7412,21 +7656,30 @@ def phase_fleet(card: str, workdir: str) -> dict:
         print(f"23(b): burst of 6: {sheds} shed 429 by the router, "
               f"/metrics {counted:.0f}; "
               f"{time.perf_counter() - t_phase:.1f} s in", flush=True)
-        # (c) failover mid-stream: r0 SIGKILLed after 8 content events
+        # (f) prefix fetch: a chain warmed on r0, fetched by cold r1
+        second, url_second, probe, stop_second = _second_router(
+            r0, url0, url1)
+        _fleet_fetch(card, r0, url0, r1, url1, names, second, probe, out)
+        # (c) failover mid-stream: r0 SIGKILLed after 8 content events; its
+        # blob cannot be fetched (source_miss), the splice onto r1 holds,
+        # and the lifecycle's sweep replaces r0
         k = next(k for k in range(200, 400)
-                 if _fleet_owner(_fleet_head(k), ["r0", "r1"])[0] == "r0")
+                 if _fleet_owner(_fleet_head(k), names)[0] == r0)
         body = {"messages": _fleet_head(k), "temperature": 0,
                 "max_tokens": 96, "stream": True}
+        pid0 = _managed(router)[r0]["pid"]
         killed = {}
+        children.append(pid0)
+        miss0 = _metric(_metrics(router), 'cake_fleet_kv_migrations_total'
+                        '{outcome="source_miss"}')
 
         def kill_at_8(events):
             if "t" not in killed and _sse_text(events)[1] >= 8:
-                os.kill(r0.pid, signal.SIGKILL)
+                os.kill(pid0, signal.SIGKILL)
                 killed["t"] = events[-1][0]
         status, hdrs, ev = _sse_chat(router, body, kill_at_8)
         check("t" in killed and status == 200, f"23c: HTTP {status}, the "
               f"stream never reached 8 content events")
-        r0.wait(timeout=30)
         rid = hdrs["X-Cake-Request-Id"]
         trace = _router_trace(router, rid)
         kinds = [e["kind"] for e in trace["router"]]
@@ -7436,9 +7689,12 @@ def phase_fleet(card: str, workdir: str) -> dict:
                       if e["kind"] == "stream_broken")
         spliced = next(e for e in trace["router"]
                        if e["kind"] == "resume_spliced")
-        check(broken["replica"] == "r0" and spliced["replica"] == "r1",
+        migrate = [e for e in trace["router"] if e["kind"] == "kv_migrate"]
+        check(broken["replica"] == r0 and spliced["replica"] == "r1",
               f"23c: broke on {broken['replica']}, resumed on "
               f"{spliced['replica']}")
+        check([e["outcome"] for e in migrate] == ["source_miss"],
+              f"23c: the migration of a dead source read {migrate}")
         check(ev[-1][1] == "[DONE]" and sum(
             1 for _, p in ev if p != "[DONE]"
             and json.loads(p)["choices"][0]["finish_reason"]) == 1
@@ -7448,10 +7704,12 @@ def phase_fleet(card: str, workdir: str) -> dict:
         pre, post = ev[:broken["chunks"]], ev[broken["chunks"]:]
         pre_text, pre_n, _ = _sse_text(pre)
         post_text = _sse_text(post)[0]
-        with urllib.request.urlopen(router + "/metrics", timeout=30) as r:
-            metrics = r.read().decode()
+        metrics = _metrics(router)
         check('cake_fleet_stream_resumes_total{outcome="ok"} 1' in metrics,
               "23c: the router did not count one resumed stream")
+        check(_metric(metrics, 'cake_fleet_kv_migrations_total'
+                      '{outcome="source_miss"}') == miss0 + 1,
+              "23c: /metrics did not count the source_miss")
         cont = {"messages": body["messages"] + [
             {"role": "assistant", "content": pre_text, "continue": True}],
             "temperature": 0, "max_tokens": 96 - pre_n}
@@ -7461,69 +7719,211 @@ def phase_fleet(card: str, workdir: str) -> dict:
         out["resume_gap_ms"] = round(
             (post[0][0] - pre[-1][0]) * 1e3, 3)
         out["pre_kill_events"] = pre_n
-        print(f"23(c): r0 SIGKILLed after {pre_n} content events, the "
-              f"stream spliced onto r1 {out['resume_gap_ms']} ms later, equal "
-              f"to r1's own continuation; "
+        # the second router's registry holds r0 as a static replica: its
+        # default policy ejects the dead r0 within eject_fails probes
+        rep0 = second.registry.get(r0)
+        for _ in range(rep0.policy.eject_fails):
+            probe()
+        check(rep0.snapshot()["state"] == "ejected",
+              f"23c: {r0} is {rep0.snapshot()['state']} after "
+              f"{rep0.policy.eject_fails} probes of the second router")
+        print(f"23(c): {r0} SIGKILLed after {pre_n} content events, its "
+              f"blob a source_miss, the stream spliced onto r1 "
+              f"{out['resume_gap_ms']} ms later, equal to r1's own "
+              f"continuation; ejected after {rep0.policy.eject_fails} "
+              f"probes of the second router; "
               f"{time.perf_counter() - t_phase:.1f} s in", flush=True)
-        deadline = time.perf_counter() + 6 * 0.5 + 2.0
-        state = None
-        while time.perf_counter() < deadline:
-            fleet = _get_json(router + "/api/v1/fleet")
-            state = {r["name"]: r["state"] for r in fleet["replicas"]}
-            if state["r0"] == "ejected":
-                break
-            time.sleep(0.1)
-        check(state and state["r0"] == "ejected",
-              f"23c: r0 is {state} after the probe period")
+        ring = _autoscale_events(router, "died", r0, timeout=10)
+        kinds = [e["kind"] for e in ring]
+        died = kinds.index("died")
+        check("spawned" in kinds[died:]
+              and ring[died + kinds[died:].index("scale_out")]["reason"]
+              == "below_min", f"23c: no replacement after {r0} died: "
+              f"{json.dumps(ring[died:])}")
+        r2 = ring[died + kinds[died:].index("spawned")]["replica"]
+        fleet = _get_json(router + "/api/v1/fleet")
+        check(r0 not in [r["name"] for r in fleet["replicas"]],
+              f"23c: {r0} still in the registry after its death")
         status, hdrs, ev = _sse_chat(router, {
             "messages": body["messages"] + [
                 {"role": "assistant", "content": pre_text + post_text},
                 {"role": "user", "content": "and then?"}],
             "temperature": 0, "max_tokens": 16, "stream": True})
-        landed = _router_trace(router, hdrs["X-Cake-Request-Id"])["landed"]
-        check(status == 200 and landed == ["r1"]
-              == _fleet_owner(body["messages"], ["r0", "r1"])[1:],
-              f"23c: the next turn landed on {landed}")
-        # (d) the dashboard
-        top = subprocess.run(
+        trace = _router_trace(router, hdrs["X-Cake-Request-Id"])
+        route = next(e for e in trace["router"] if e["kind"] == "route")
+        check(status == 200 and len(trace["landed"]) == 1
+              and trace["landed"][0] == route["candidates"][0]
+              and r0 not in route["candidates"],
+              f"23c: the next turn landed on {trace['landed']} of "
+              f"{route['candidates']}")
+        # (d) the dashboards: the router's with the loop's row, the second
+        # router's with the dead r0 ejected
+        tops = [subprocess.Popen(
             [sys.executable, "-m", "cake_tpu_torch.cli", "top", "--once",
-             "--plain", "--api", router],
+             "--plain", "--api", api],
             cwd=os.path.dirname(os.path.abspath(__file__)),
-            capture_output=True, text=True, timeout=60)
-        rows = [ln for ln in top.stdout.splitlines()
-                if ln.startswith(("r0 ", "r1 "))]
-        check(top.returncode == 0 and len(rows) == 2
-              and "ejected" in rows[0] and "healthy" in rows[1],
-              f"23d: cli top exited {top.returncode}: {top.stdout[-800:]}"
-              f"{top.stderr[-800:]}")
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for api in (router, url_second)]
+        (top_out, top_err), (top2_out, top2_err) = [
+            p.communicate(timeout=60) for p in tops]
+        rows = [ln for ln in top_out.splitlines() if ln.startswith("r1 ")]
+        check(tops[0].returncode == 0 and len(rows) == 1
+              and "healthy" in rows[0] and "autoscale" in top_out,
+              f"23d: cli top exited {tops[0].returncode}: {top_out[-800:]}"
+              f"{top_err[-800:]}")
+        rows2 = {ln.split()[0]: ln for ln in top2_out.splitlines()
+                 if ln.startswith((r0[:14] + " ", "r1 "))}
+        check(tops[1].returncode == 0 and len(rows2) == 2
+              and "ejected" in rows2[r0[:14]] and "healthy" in rows2["r1"],
+              f"23d: cli top on the second router exited "
+              f"{tops[1].returncode}: {top2_out[-800:]}{top2_err[-800:]}")
         tel = _get_json(router + "/api/v1/fleet/telemetry")
         check(set(tel["burn_rate"]) == {"fast", "slow"}
               and all("headroom_tokens_per_s" in r and "err_rate" in r
                       for r in tel["replicas"].values())
-              and set(tel["replicas"]) == {"r0", "r1"},
+              and "r1" in tel["replicas"]
+              and tel["autoscale"]["min"] == 2
+              and tel["autoscale"]["max"] == 2,
               f"23d: telemetry {str(tel)[:400]}")
         out["burn_rate"] = tel["burn_rate"]
         out["headroom_tokens_per_s"] = tel["headroom_tokens_per_s"]
         # (e) the kernels behind the router: r1 runs in this process
         torch.cuda.synchronize()
         fl, pd = flash.launch_counts(), pa.launch_counts()
-        check(fl["bf16"]["fresh"] > 0 and pd["bf16"] > 0,
+        check(fl["bf16"]["fresh"] > 0 and fl["bf16"]["append"] > 0
+              and pd["bf16"] > 0,
               f"23e: r1's launches flash {fl}, paged {pd}")
         out["r1_launches"] = {"flash_bf16": fl["bf16"],
                               "paged_bf16": pd["bf16"]}
         print("fleet (phase 23) top:\n  " + "\n  ".join(
-            top.stdout.splitlines()), flush=True)
+            top_out.splitlines()) + "\n  the second router's:\n  "
+            + "\n  ".join(top2_out.splitlines()), flush=True)
+        # (g) stream migration: a greedy stream owned by the replacement
+        # r2, SIGTERMed (the signal of the lifecycle's retire) after 8
+        # content events: its drain parks the stream, whose swap blob
+        # ships to r1, which continues it through the paged decode kernel
+        ring = _autoscale_events(router, "admitted", r2, proc=rp,
+                                 log_path=logr)
+        r2_admit = [e for e in ring if e["kind"] == "admitted"
+                    and e["replica"] == r2][0]
+        url2 = f"http://127.0.0.1:{_managed(router)[r2]['port']}"
+        pid2 = _managed(router)[r2]["pid"]
+        children.append(pid2)
+        deadline = time.perf_counter() + 10
+        while r2 not in [r["name"] for r in _get_json(
+                router + "/api/v1/fleet")["replicas"]
+                if r["state"] == "healthy"]:
+            check(time.perf_counter() < deadline, f"23g: {r2} not healthy")
+            time.sleep(0.1)
+        k = next(k for k in range(600, 800)
+                 if _fleet_owner(_fleet_head(k), sorted(["r1", r2]))[0]
+                 == r2)
+        body = {"messages": _fleet_head(k), "temperature": 0,
+                "max_tokens": 96, "stream": True}
+        status, _, ev = _sse_chat(url2, body)
+        check(status == 200, f"23g: {r2} alone: HTTP {status}")
+        alone = _sse_text(ev)[0]
+        shipped0 = _metric(_metrics(router), 'cake_fleet_kv_migrations_total'
+                           '{outcome="shipped"}')
+        drained = {}
+
+        def term_at_8(events):
+            if "t" not in drained and _sse_text(events)[1] >= 8:
+                os.kill(pid2, signal.SIGTERM)
+                drained["t"] = events[-1][0]
+        torch.cuda.synchronize()
+        paged0 = pa.launch_counts()["bf16"]
+        status, hdrs, ev = _sse_chat(router, body, term_at_8)
+        torch.cuda.synchronize()
+        resumed = pa.launch_counts()["bf16"] - paged0
+        check("t" in drained and status == 200, f"23g: HTTP {status}")
+        text = _sse_text(ev)[0]
+        rid = hdrs["X-Cake-Request-Id"]
+        trace = _router_trace(router, rid)
+        kinds = [e["kind"] for e in trace["router"]]
+        check(text == alone and not any(
+            "error" in json.loads(p) for _, p in ev if p != "[DONE]"),
+            f"23g: the migrated stream's body differs from {r2}'s alone")
+        check(_metric(_metrics(router), 'cake_fleet_kv_migrations_total'
+                      '{outcome="shipped"}') == shipped0 + 1,
+              "23g: /metrics did not count the shipped blob")
+        chain = [x for x in kinds if x in ("stream_broken", "kv_migrate",
+                                           "stream_resume", "done")]
+        check(set(chain) == {"stream_broken", "kv_migrate", "stream_resume",
+                             "done"} and chain[0] == "stream_broken"
+              and chain[-1] == "done", f"23g: the router's timeline {kinds}")
+        mig = next(e for e in trace["router"] if e["kind"] == "kv_migrate")
+        check(mig["outcome"] == "shipped" and mig["from"] == r2
+              and mig["to"] == "r1", f"23g: {mig}")
+        tl = _get_json(f"{url1}/api/v1/requests/{rid}")["events"]
+        check(any(e["kind"] == "resume" and e.get("kv_migrated")
+                  for e in tl), f"23g: r1's timeline {tl[:8]}")
+        layers = r1.engine.model.cfg.num_hidden_layers
+        check(resumed > 0 and resumed % layers == 0,
+              f"23g: {resumed} paged decode launches on r1 for the "
+              f"resumed leg, not a positive multiple of {layers}")
+        broken = next(e for e in trace["router"]
+                      if e["kind"] == "stream_broken")
+        pre, post = ev[:broken["chunks"]], ev[broken["chunks"]:]
+        # the lifecycle sweeps r2's exit after its drain
+        ring = _autoscale_events(router, "died", r2, timeout=30, proc=rp,
+                                 log_path=logr)
+        exited = [e for e in ring if e["kind"] == "died"
+                  and e["replica"] == r2][0]
+        check(exited.get("exit_code") == 0,
+              f"23g: {r2} exited with {exited} after its SIGTERM")
+        # the events the client held when r2's drain parked the stream
+        # (the SIGTERM went at the 8th)
+        out["migration"] = {"blob_bytes": mig["bytes"],
+                            "pre_break_events": _sse_text(pre)[1],
+                            "resume_gap_ms": round(
+                                (post[0][0] - pre[-1][0]) * 1e3, 3),
+                            "r1_paged_launches": resumed,
+                            "r1_decode_steps": resumed // layers}
+        print(f"23(g): {r2} SIGTERMed at the client's 8th content event, "
+              f"its stream parked after "
+              f"{out['migration']['pre_break_events']}, its "
+              f"{mig['bytes']}-byte swap blob shipped to r1, which continued "
+              f"the stream equal to {r2}'s alone "
+              f"{out['migration']['resume_gap_ms']} ms later through "
+              f"{resumed} paged decode launches ({resumed // layers} steps); "
+              f"{r2} exited 0 and was swept on {card}", flush=True)
+        ring = _get_json(router + "/api/v1/fleet/autoscale")["decisions"]
+        out["autoscale"] = {
+            "r0_spawn_to_admit_s": out.pop("spawn_to_admit_s"),
+            "r2_spawn_to_admit_s": r2_admit["spawn_s"],
+            "ring": [e["kind"] + (f"({e['reason']})" if e.get("reason")
+                                  else "")
+                     + (f":{e['replica']}" if e.get("replica") else "")
+                     for e in ring]}
     finally:
+        if stop_second is not None:
+            stop_second()
+        if router is not None:
+            try:                    # r2's replacement, if one is spawning
+                children += [m["pid"] for m in _managed(router).values()]
+            except Exception:
+                pass
         for p in procs:
             if p.poll() is None:
-                p.terminate()
+                p.terminate()       # the router reaps what it spawned
                 try:
-                    p.wait(timeout=30)
+                    p.wait(timeout=60)
                 except subprocess.TimeoutExpired:
                     p.kill()
                     p.wait()
+        for pid in children:        # in case the router could not reap
+            try:
+                os.killpg(pid, signal.SIGKILL)
+            except OSError:
+                pass
         if r1 is not None:
-            r1.close()
+            r1.app.stop(drain_s=1)
+        for key, v in saved.items():
+            if v is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = v
     out["seconds"] = round(time.perf_counter() - t_phase, 3)
     print(f"phase 23 in {out['seconds']:.0f} s", flush=True)
     return out

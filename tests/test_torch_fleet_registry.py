@@ -125,6 +125,8 @@ class Twin:
         if op == "cap":
             return (rep.cap(), rep.weight(), rep.routable(),
                     round(rep.warm_age_s(), 6))
+        if op == "kv":
+            return rep.kv_inventory()
         raise ValueError(op)
 
     def check(self):
@@ -312,6 +314,39 @@ def test_health_draining_and_load_mirrors(clock):
     t.do("health", "a", 200, {"engine": {"alive": True,
                                          "draining": True}})
     t.do("cap", "a")
+
+
+def test_kv_inventory_mirror_and_retraction(clock):
+    """The KV-share inventory (engine.kvshare.chains, non-strings
+    dropped) is mirrored from each healthy probe, retracted by a stale or
+    sick one, empty while EJECTED, and kept while draining or cordoned
+    (tests/test_kvshare.py's registry case, plus the eject and cordon
+    gates)."""
+    t = Twin(clock)
+    t.do("add", "a", "http://h:1")
+    assert t.do("kv", "a") == ()
+    body = {"engine": {"alive": True, "slots": 2,
+                       "kvshare": {"chains": ["aa", "bb", 7]}}}
+    t.do("health", "a", 200, body)
+    assert t.do("kv", "a") == ("aa", "bb")
+    t.do("health", "a", None, None)                 # stale: retracted
+    assert t.do("kv", "a") == ()
+    t.do("health", "a", 200, body)
+    t.do("health", "a", 200, {"engine": {"alive": False}})     # sick
+    assert t.do("kv", "a") == ()
+    t.do("tick", 1.0)
+    t.do("health", "a", 200, body)
+    t.do("health", "a", 200, body)
+    t.do("kv", "a")
+    t.do("health", "a", 200, {"draining": True, "engine": dict(
+        body["engine"], draining=True)})
+    t.do("kv", "a")
+    t.do("add", "b", "http://h:2")
+    t.do("health", "b", 200, body)
+    t.do("cordon", "b")
+    assert t.do("kv", "b") == ("aa", "bb")          # cordoned: advertised
+    _fails(t, "b", 3)
+    assert t.do("kv", "b") == ()                    # ejected: nothing
 
 
 def test_unreachable_probes_eject_and_retract(clock):

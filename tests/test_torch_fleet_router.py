@@ -15,13 +15,26 @@ one field that names the client library's exception masked), SSE
 events, router timelines, the replica every attempt reached, the
 registry's membership and the fleet counter deltas are equal.
 
+The fake also plays module 15b's replica half: /health advertises a
+KV-share chain inventory, the X-Cake-KV-Peers directory and the
+X-Cake-KV-Resume header an attempt carries are recorded (the directory's
+URLs by replica name), /api/v1/kv/stream/<rid> answers a parked blob (or
+404) and stages a posted one (or fails), and a resume leg that adopts a
+staged blob answers X-Cake-KV-Resumed and replays the stream from token
+0. The KV-share scenarios (directory injection and its retraction on an
+eject, a migration shipped / source_miss / ship_error, the cumulative
+strip) and the closed loop's views run through both routers alike.
+
 Port-only cases: a close-delimited replica (the port's own HTTP/1.0
 answer) whose EOF before [DONE] is a break and after it a clean end; the
-views and refusals of module 15b; and, end to end, the port's router in
+views of module 15b's switches; and, end to end, the port's router in
 front of two port replicas (a 2-layer qwen3 in float32 on the CPU behind
 real api/server.py servers) with one replica's stream broken by a fault
 plan: the spliced content equals the unbroken greedy stream, and equals
-the JAX router in front of two JAX replicas with the same weights."""
+the JAX router in front of two JAX replicas with the same weights; and
+the same two port replicas with the KV-share tier on, one drained
+mid-stream: its swap blob moves to the other, and the body equals the
+unbroken stream."""
 import asyncio
 import base64
 import gc
@@ -41,6 +54,8 @@ from cake_tpu_torch.fleet.http import request
 
 SYSTEM = {"role": "system", "content": "You are a terse assistant. " * 4}
 PASSTHROUGH = ("X-Cake-QoS", "X-Cake-Tenant", "Authorization")
+KV_PEERS, KV_RESUME, KV_RESUMED = ("X-Cake-KV-Peers", "X-Cake-KV-Resume",
+                                   "X-Cake-KV-Resumed")
 
 
 @pytest.fixture(autouse=True)
@@ -69,6 +84,14 @@ class FakeReplica:
         self.continuations = []     # partial contents it spliced
         self.headers = []           # passthrough headers per request
         self.release = threading.Event()
+        # module 15b: the advertised chains, the parked blob answer of
+        # GET /api/v1/kv/stream/<rid> (None = 404), the status a posted
+        # blob gets, and the blobs staged here by rid
+        self.chains = []
+        self.park = None
+        self.ship_status = 200
+        self.staged = {}
+        self.names = {}             # peer base URL -> replica name
         fake = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -91,8 +114,24 @@ class FakeReplica:
 
             def do_GET(self):
                 if self.path == "/health":
-                    return self._json(200, {"engine": {
-                        "alive": True, "slots": 2, "queue_depth": 0}})
+                    engine = {"alive": True, "slots": 2, "queue_depth": 0}
+                    if fake.chains:
+                        engine["kvshare"] = {"chains": list(fake.chains),
+                                             "parked": 0, "inbound": 0}
+                    return self._json(200, {"engine": engine})
+                if self.path.startswith("/api/v1/kv/stream/"):
+                    if fake.park is None:
+                        return self._json(404, {"error": "not parked"})
+                    data = fake.park
+                    self.send_response(200)
+                    self.send_header("Content-Type",
+                                     "application/x-cake-kv-blob")
+                    self.send_header("Content-Length", str(len(data)))
+                    self.send_header("Connection", "close")
+                    self.end_headers()
+                    self.wfile.write(data)
+                    self.close_connection = True
+                    return
                 if self.path == "/v1/models":
                     return self._json(200, {"object": "list", "data": [
                         {"id": f"model-{fake.name}", "object": "model"}]})
@@ -116,12 +155,26 @@ class FakeReplica:
 
             def do_POST(self):
                 n = int(self.headers.get("Content-Length") or 0)
-                body = json.loads(self.rfile.read(n))
+                raw = self.rfile.read(n)
                 self.close_connection = True
+                if self.path.startswith("/api/v1/kv/stream/"):
+                    rid = self.path.rsplit("/", 1)[1]
+                    if fake.ship_status == 200:
+                        fake.staged[rid] = raw
+                    return self._json(fake.ship_status, {"rid": rid})
+                body = json.loads(raw)
+                seen = {h: self.headers.get(h) for h in PASSTHROUGH
+                        if self.headers.get(h)}
+                peers = self.headers.get(KV_PEERS)
+                if peers is not None:
+                    seen["kv_peers"] = sorted(
+                        (fake.names.get(p["u"], p["u"]), sorted(p["k"]))
+                        for p in json.loads(peers)["p"])
+                resume = self.headers.get(KV_RESUME)
+                if resume:
+                    seen["kv_resume"] = resume in fake.staged
                 fake.headers.append(
-                    {h: self.headers.get(h) for h in PASSTHROUGH
-                     if self.headers.get(h)}
-                    | {"rid": bool(self.headers.get("X-Cake-Request-Id"))})
+                    seen | {"rid": bool(self.headers.get("X-Cake-Request-Id"))})
                 if fake.mode == "http500":
                     return self._json(500, {"error": "boom"})
                 if fake.mode == "http429":
@@ -132,13 +185,19 @@ class FakeReplica:
                 msgs = body["messages"]
                 start = 0
                 cont = bool(msgs and msgs[-1].get("continue"))
-                if cont:
+                adopted = bool(resume) and resume in fake.staged
+                if adopted:
+                    # an adopted blob replays the stream from token 0
+                    cont = False
+                    fake.served.append("adopted:" + msgs[-1]["content"])
+                elif cont:
                     partial = msgs[-1]["content"]
                     fake.continuations.append(partial)
                     start = partial.count("tok")
                     if fake.mode == "overlap_resume" and start > 0:
                         start -= 1
-                fake.served.append(msgs[-1]["content"])
+                if not adopted:
+                    fake.served.append(msgs[-1]["content"])
                 if not body.get("stream"):
                     return self._json(200, {
                         "id": "x", "object": "chat.completion",
@@ -155,6 +214,8 @@ class FakeReplica:
                     self.send_header(
                         "X-Cake-Continuation-Chars",
                         str(len("".join(f"tok{i}" for i in range(start)))))
+                if adopted:
+                    self.send_header(KV_RESUMED, "1")
                 self.end_headers()
 
                 def chunk(delta, finish=None):
@@ -218,6 +279,8 @@ class Env:
         self.obs = obs if kind == "port" else ref_obs
         self.faults = faults if kind == "port" else ref_faults
         self.replicas = [FakeReplica(f"r{i}", framing) for i in range(n)]
+        for rep in self.replicas:
+            rep.names = {r.url: r.name for r in self.replicas}
         self.registry = self.pkg.ReplicaRegistry(_policy(self.pkg))
         for rep in self.replicas:
             self.registry.add(rep.name, rep.url)
@@ -288,7 +351,8 @@ class Env:
 
 
 COUNTED = ("FLEET_SHEDS", "FLEET_PROXIED", "FLEET_RETRIES", "FLEET_HEDGES",
-           "FLEET_STREAM_RESUMES", "FLEET_EJECTS", "FLEET_READMITS")
+           "FLEET_STREAM_RESUMES", "FLEET_EJECTS", "FLEET_READMITS",
+           "FLEET_KV_MIGRATIONS", "FLEET_SCALE_ACTIONS")
 
 
 def counters(o) -> dict:
@@ -605,7 +669,99 @@ async def sc_break_after_complete(env):
     return a
 
 
+async def sc_kv_directory_and_retraction(env):
+    """Every attempt carries the OTHER replicas' mirrored inventories; an
+    ejected peer's is retracted (no header at all once nothing is left),
+    and the probe that follows a stale answer retracts it too."""
+    env.replicas[0].chains = ["aa", "bb"]
+    env.replicas[1].chains = ["cc"]
+    await env.router._probe_once()
+    out = [answer(*await env.post(_chat("kv convo")))]
+    owner = env.owner()
+    other = env.other(owner)
+    out.append(answer(*await env.post(_chat("kv convo", stream=True))))
+    for _ in range(3):
+        env.registry.get(other.name).record_result(False, transport=True)
+    out.append(answer(*await env.post(_chat("kv convo"))))
+    other.chains = []
+    owner.chains = []
+    await env.router._probe_once()
+    return out, [r.snapshot()["state"] for r in env.registry.replicas()]
+
+
+async def sc_kv_migration_shipped(env):
+    """A break on a replica that parked the stream's blob: the router
+    ships it to the survivor, whose leg carries X-Cake-KV-Resume, adopts
+    it and replays from token 0; the relay strips everything the client
+    already has, by cumulative position."""
+    base = answer(*await env.post(_chat("mig convo", stream=True)))
+    owner = env.owner()
+    other = env.other(owner)
+    owner.mode = "abrupt"
+    owner.park = b"CAKEKV-parked-blob"
+    healed = answer(*await env.post(_chat("mig convo", stream=True)))
+    assert _content(healed["body"]) == _content(base["body"])
+    assert list(other.staged.values()) == [b"CAKEKV-parked-blob"]
+    kinds = [e["kind"] for e in env.events(env.rids[-1])]
+    assert kinds.index("stream_broken") < kinds.index("kv_migrate") \
+        < kinds.index("resume_spliced") < kinds.index("done")
+    return base, healed
+
+
+async def sc_kv_migration_source_miss(env):
+    await env.post(_chat("miss convo", stream=True))
+    owner = env.owner()
+    owner.mode = "abrupt"
+    healed = answer(*await env.post(_chat("miss convo", stream=True)))
+    assert _content(healed["body"]) == "tok0tok1tok2tok3"
+    assert env.other(owner).continuations == ["tok0tok1"]
+    return healed
+
+
+async def sc_kv_migration_ship_error(env):
+    await env.post(_chat("ship convo", stream=True))
+    owner = env.owner()
+    owner.mode = "abrupt"
+    owner.park = b"CAKEKV-parked-blob"
+    env.other(owner).ship_status = 500
+    healed = answer(*await env.post(_chat("ship convo", stream=True)))
+    assert _content(healed["body"]) == "tok0tok1tok2tok3"
+    return healed
+
+
+async def sc_autoscale_views(env):
+    """The closed loop on with no spawn template: its decisions ring,
+    policy and lifecycle view, and the telemetry body's summary."""
+    await env.router._probe_once()
+    out = []
+    for path in ("/api/v1/fleet/autoscale", "/api/v1/fleet/telemetry"):
+        status, data = await env.get(path)
+        body = json.loads(data)
+        body = body if "decisions" in body else body["autoscale"]
+        out.append((status, _mask_clock(body)))
+    return out
+
+
+def _mask_clock(obj):
+    """Ages and clock-derived figures masked."""
+    if isinstance(obj, dict):
+        return {k: ("<clock>" if k in ("age_s", "since_last_action_s",
+                                       "high_for_s", "warm_age_s")
+                    else _mask_clock(v)) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_mask_clock(v) for v in obj]
+    return obj
+
+
 SCENARIOS = {
+    "kv_directory_and_retraction": (sc_kv_directory_and_retraction, 2,
+                                    {"kvshare": True}),
+    "kv_migration_shipped": (sc_kv_migration_shipped, 2, {"kvshare": True}),
+    "kv_migration_source_miss": (sc_kv_migration_source_miss, 2,
+                                 {"kvshare": True}),
+    "kv_migration_ship_error": (sc_kv_migration_ship_error, 2,
+                                {"kvshare": True}),
+    "autoscale_views": (sc_autoscale_views, 2, {"autoscale": True}),
     "proxy_and_stickiness": (sc_proxy_and_stickiness, 3, {}),
     "failover_and_eject": (sc_failover_and_eject, 2, {}),
     "retry_budget_503": (sc_retry_budget_503, 3, {}),
@@ -740,19 +896,35 @@ def test_views_refusals_and_stitched_timeline():
         finally:
             await env.stop()
     asyncio.run(main())
-    for kw in ({"autoscale": True}, {"kvshare": True}):
-        with pytest.raises(NotImplementedError, match="module 15b"):
-            fleet.FleetRouter(fleet.ReplicaRegistry(_policy(fleet)), **kw)
+    # module 15b's switches build the loop and the tier (they were
+    # refused before the port took them over)
+    reg = fleet.ReplicaRegistry(_policy(fleet))
+    router = fleet.FleetRouter(reg, autoscale=True, kvshare=True)
+    assert router.kvshare and router.autoscaler.policy.enabled
+    assert router.lifecycle is router.autoscaler.lifecycle
+    assert router._kv_peers(type("R", (), {"name": "x"})()) is None
 
 
 def test_unported_knobs_refused(monkeypatch):
-    from cake_tpu_torch.fleet.router import refuse_unported
+    """CAKE_SCALE and CAKE_KVSHARE, once refused by name, now switch the
+    closed loop and the KV-share tier on; an explicit flag wins over the
+    knob, and unset leaves both off."""
+    def build(**kw):
+        return fleet.FleetRouter(fleet.ReplicaRegistry(_policy(fleet)), **kw)
     for knob in ("CAKE_SCALE", "CAKE_KVSHARE"):
-        monkeypatch.setenv(knob, "1")
-        with pytest.raises(NotImplementedError, match="module 15b"):
-            refuse_unported()
-        monkeypatch.delenv(knob)
-    refuse_unported()
+        monkeypatch.delenv(knob, raising=False)
+    off = build()
+    assert off.autoscaler is None and off.lifecycle is None
+    assert not off.kvshare
+    monkeypatch.setenv("CAKE_SCALE", "1")
+    monkeypatch.setenv("CAKE_KVSHARE", "1")
+    monkeypatch.setenv("CAKE_SCALE_MIN", "2")
+    on = build()
+    assert on.autoscaler is not None and on.kvshare
+    assert on.autoscaler.policy.min_replicas == 2
+    assert build(autoscale=False, kvshare=False).autoscaler is None
+    monkeypatch.setenv("CAKE_SCALE", "0")
+    assert build(autoscale=True).autoscaler.policy.enabled
 
 
 # -- end to end: real replicas of both packages --------------------------------
@@ -891,6 +1063,134 @@ def test_end_to_end_splice_equals_unbroken_and_reference():
     assert len(whole) >= 12 and whole.isascii()
     assert spliced == whole                 # byte-identical splice
     assert ref == ours                      # and the reference's fleet
+
+
+@pytest.mark.parametrize("how", ["begin_drain", "stop", "late_replay"])
+def test_end_to_end_drained_stream_migrates(monkeypatch, how):
+    """Two paged port replicas with the KV-share tier on behind the
+    port's router: the owner is drained after 8 content chunks, its
+    stream's swap blob moves to the other replica, which adopts it and
+    continues; the client's body equals the unbroken stream, with no
+    error event, and the router counts one shipped migration. `how` the
+    owner drains: its engine's begin_drain (begin_drain); its server's
+    stop, as SIGTERM stops `cli serve` (stop: the router fetches the
+    parked blob 1 s late, after the engine's drain alone has ended, and
+    the routes are still up for it); or begin_drain with the
+    adopting replica's wait on the admission held until it has decoded
+    one token past the blob's record (late_replay: the replay is that
+    record alone, so no token reaches the client twice)."""
+    import torch
+    from cake_tpu_torch.api import create_app
+    from cake_tpu_torch.models import TextModel, tiny_config
+    from cake_tpu_torch.serve import ServeEngine
+    from cake_tpu_torch.tokenizer import ByteTokenizer
+    from cake_tpu_torch.utils import params_from_numpy
+    monkeypatch.setenv("CAKE_KVSHARE", "1")
+    # a loaded test host must not turn the blob hops into a timeout
+    monkeypatch.setenv("CAKE_KVSHARE_FETCH_TIMEOUT_S", "30")
+    torch.set_num_threads(1)
+    over, _, tree = _weights()
+    cfg = tiny_config("qwen3", **over)
+    tok = ByteTokenizer(im_start_id=256, im_end_id=257)
+    tm = TextModel(cfg, params_from_numpy(cfg, tree, "cpu", torch.float32),
+                   tokenizer=tok, dtype=torch.float32, device="cpu",
+                   max_cache_len=CTX)
+    apps = [create_app(tm, ServeEngine(
+        tm, slots=2, max_queue=8, ctx_len=CTX, prefill_chunk=16,
+        kv_blocks=64, kv_block_tokens=8, prefix_cache_mb=8), tok,
+        port=0).start() for _ in range(2)]
+    assert all(a.state.kvshare is not None for a in apps)
+    shipped0 = obs.FLEET_KV_MIGRATIONS.value(outcome="shipped")
+    key = fleet.affinity_key(
+        fleet.conversation_head(E2E_CHAT["messages"]), 64)
+    owner = int(fleet.rank_replicas(key, ["r0", "r1"])[0][1])
+    held = []
+    if how == "late_replay":
+        target = apps[1 - owner].state.engine
+        plain_wait = target.wait
+
+        def wait(req, event=None):
+            plain_wait(req, event)
+            if event is req.admitted and req.stats.get("kv_migrated"):
+                n, deadline = len(req.tokens), time.monotonic() + 60
+                while len(req.tokens) <= n and not req.done.is_set() \
+                        and time.monotonic() < deadline:
+                    time.sleep(0.002)
+                held.append((req.replayed, n, len(req.tokens)))
+        monkeypatch.setattr(target, "wait", wait)
+    stopping = []
+
+    def drain_owner():
+        if how == "stop":
+            th = threading.Thread(target=apps[owner].stop,
+                                  kwargs={"drain_s": 30})
+            th.start()
+            stopping.append(th)
+        else:
+            apps[owner].state.engine.begin_drain()
+
+    async def main():
+        registry = fleet.ReplicaRegistry(_policy(fleet))
+        for i, a in enumerate(apps):
+            registry.add(f"r{i}", a.url)
+        router = fleet.FleetRouter(registry, retries=2, backoff_s=0.001,
+                                   probe_s=30.0, hedge_ms=0.0, kvshare=True)
+        if how == "stop":
+            plain_migrate = router._migrate_stream
+
+            async def late_migrate(*args):
+                await asyncio.sleep(1.0)
+                return await plain_migrate(*args)
+            router._migrate_stream = late_migrate
+        app = fleet.create_router_app(router)
+        host, port = await app.start("127.0.0.1", 0)
+        base = f"http://{host}:{port}"
+
+        async def stream(drain_at=None):
+            r = await request("POST", base + "/v1/chat/completions",
+                              json_body=E2E_CHAT)
+            data = b""
+            async with r:
+                async for piece in r.iter_any():
+                    data += piece
+                    if drain_at and data.count(b'"content"') >= drain_at:
+                        drain_owner()
+                        drain_at = None
+            return _sse_events(data)
+        try:
+            whole = await stream()
+            moved = await stream(drain_at=8)
+            kinds = [(e["kind"], e.get("outcome")) for e in
+                     router.timelines.get(router.timelines.ids()[-1])[
+                         "events"]]
+            return whole, moved, kinds
+        finally:
+            await app.stop()
+    try:
+        whole, moved, kinds = asyncio.run(main())
+    finally:
+        for th in stopping:
+            th.join(60)
+        for i, a in enumerate(apps):
+            if not (how == "stop" and i == owner):
+                a.stop(drain_s=1)
+    assert whole[-1] == moved[-1] == "[DONE]"
+    assert not any("error" in e for e in moved if isinstance(e, dict))
+    assert len(_content(whole)) >= 12
+    assert _content(moved) == _content(whole)
+    names = [k for k, _ in kinds]
+    assert ("kv_migrate", "shipped") in kinds, kinds
+    assert names.index("stream_broken") < names.index("kv_migrate") \
+        < names.index("resume_spliced") < names.index("done"), kinds
+    assert obs.FLEET_KV_MIGRATIONS.value(outcome="shipped") == shipped0 + 1
+    if how == "stop":
+        assert not stopping[0].is_alive()
+        assert apps[owner].state.kvshare.unclaimed() == 0
+    if how == "late_replay":
+        # one adoption, whose answer began only after a token past the
+        # blob's record had been decoded
+        [(replayed, n, after)] = held
+        assert 0 < replayed <= n < after
 
 
 # -- port-only: the standard-library HTTP layer (fleet/http.py) ---------------

@@ -425,19 +425,24 @@ assert decode_wav(open(wav_out, "rb").read())[1] == 48000
 assert cli.main(["tts", "demo:luxtts", "hi", "--out", wav_out, "--steps",
                  "1", "--cpu", "--dtype", "f32"]) == 0
 assert modality_for_arch(next(iter(AUDIO_ARCHS))) == "audio"
-# the fleet router (module 15a) in front of a `cli serve` engine: `cli
-# route` on the standard library, one chat through it
+# the fleet router (modules 15a and 15b) in front of a paged `cli serve`
+# engine with the KV-share tier on: `cli route --autoscale` on the
+# standard library, one chat through it, the replica's blob routes
 import os, socket, subprocess, time
+os.environ["CAKE_KVSHARE"] = "1"
 app = cli.build_server(cli.parser().parse_args(
     ["serve", "--flagship", "--layers", "1", "--cpu", "--dtype", "f32",
-     "--port", "0", "--slots", "2", "--ctx", "256"])).start()
+     "--port", "0", "--slots", "2", "--ctx", "256", "--kv-blocks", "64",
+     "--prefill-chunk", "16"])).start()
+assert app.state.kvshare is not None
 with socket.socket() as s_:
     s_.bind(("127.0.0.1", 0))
     rport = s_.getsockname()[1]
 env = dict(os.environ, PYTHONPATH=os.getcwd())
 router = subprocess.Popen(
     [sys.executable, "-m", "cake_tpu_torch.cli", "route", "--host",
-     "127.0.0.1", "--port", str(rport), "--replica", "r0=" + app.url],
+     "127.0.0.1", "--port", str(rport), "--replica", "r0=" + app.url,
+     "--autoscale"],
     env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
 try:
     for _ in range(200):
@@ -452,6 +457,40 @@ try:
         data=json.dumps(body).encode())
     with urllib.request.urlopen(req, timeout=60) as r:
         assert json.loads(r.read())["usage"]["completion_tokens"] > 0
+    with urllib.request.urlopen(
+            "http://127.0.0.1:%%d/api/v1/fleet/autoscale" %% rport,
+            timeout=30) as r:
+        assert json.loads(r.read())["enabled"] is True
+    for _ in range(100):
+        with urllib.request.urlopen(app.url + "/health", timeout=30) as r:
+            chains = json.loads(r.read())["engine"]["kvshare"]["chains"]
+        if chains:
+            break
+        time.sleep(0.05)
+    with urllib.request.urlopen(app.url + "/api/v1/kv/prefix/" + chains[0],
+                                timeout=30) as r:
+        assert r.headers["Content-Type"] == "application/x-cake-kv-blob"
+        blob = r.read()
+    assert blob.startswith(b"CAKEKV")
+    # the blob posted back installs (deduped: the chain is cached here)
+    with urllib.request.urlopen(urllib.request.Request(
+            app.url + "/api/v1/kv/prefix/" + chains[0], data=blob),
+            timeout=30) as r:
+        assert json.loads(r.read())["installed_units"] >= 1
+    for bad in (b"garbage", blob[:-1]):
+        try:
+            urllib.request.urlopen(urllib.request.Request(
+                app.url + "/api/v1/kv/prefix/" + chains[0], data=bad),
+                timeout=30)
+            raise AssertionError("a broken blob installed")
+        except urllib.error.HTTPError as e:
+            assert e.code == 422
+    try:
+        urllib.request.urlopen(app.url + "/api/v1/kv/prefix/" + "ab" * 16,
+                               timeout=30)
+        raise AssertionError("an unknown chain was exported")
+    except urllib.error.HTTPError as e:
+        assert e.code == 404
 finally:
     router.terminate()
     router.wait(30)
@@ -473,16 +512,32 @@ class Block(importlib.abc.MetaPathFinder):
         return None
 sys.meta_path.insert(0, Block())
 
+import os
+os.environ["CAKE_KVSHARE"] = "1"
 import cake_tpu_torch.fleet as fleet
+# every fleet module but the KV-share replica agent, which moves pool
+# tensors and loads only in a replica
 for m in pkgutil.walk_packages(fleet.__path__, "cake_tpu_torch.fleet."):
-    importlib.import_module(m.name)
+    if m.name != "cake_tpu_torch.fleet.kvshare.replica":
+        importlib.import_module(m.name)
+from cake_tpu_torch.fleet.kvshare import (KVBlobMismatch, decode_blob,
+                                          encode_directory, parse_directory)
+hdr = encode_directory([("http://a:1", ["aa", "bb"])])
+assert parse_directory(hdr) == [("http://a:1", frozenset({"aa", "bb"}))]
+try:
+    decode_blob(b"garbage")
+    raise AssertionError("garbage decoded")
+except KVBlobMismatch:
+    pass
 import cake_tpu_torch.cli, cake_tpu_torch.obs.series
 from cake_tpu_torch.cluster import discovery
 from cake_tpu_torch.fleet.http import request
 
 
 async def views():
-    router = fleet.FleetRouter(fleet.ReplicaRegistry(), probe_s=30.0)
+    router = fleet.FleetRouter(fleet.ReplicaRegistry(), probe_s=30.0,
+                               autoscale=True)
+    assert router.kvshare
     app = fleet.create_router_app(router)
     host, port = await app.start("127.0.0.1", 0)
     try:
@@ -497,7 +552,11 @@ async def views():
         await app.stop()
 out = asyncio.run(views())
 assert out["/health"][0] == 503                    # nothing routable
-assert json.loads(out["/api/v1/fleet/autoscale"][1]) == {"enabled": False}
+scale = json.loads(out["/api/v1/fleet/autoscale"][1])
+# an empty fleet under CAKE_SCALE_MIN: scale out, with no template to run
+assert scale["enabled"] is True and scale["decisions"][0]["kind"] == \
+    "scale_out" and scale["decisions"][0]["reason"] == "below_min"
+assert json.loads(out["/api/v1/fleet/telemetry"][1])["autoscale"]["min"] == 1
 assert b"cake_fleet_replicas" in out["/metrics"][1]
 for cmd in ("route", "top"):
     sys.argv = ["cake_tpu_torch.cli", cmd, "--help"]
@@ -513,8 +572,10 @@ print("OK")
 
 def test_fleet_router_runs_without_torch():
     """The router tier imports no torch (nor numpy, jax, cake_tpu or
-    aiohttp): the whole fleet package, a router serving its views, and
-    `cli route --help` / `cli top --help`."""
+    aiohttp): the whole fleet package but the KV-share replica agent, the
+    KV-share codecs, a router with the closed loop and the KV-share tier
+    on (CAKE_KVSHARE=1, autoscale=True) serving its views, and `cli route
+    --help` / `cli top --help`."""
     out = subprocess.run([sys.executable, "-c", TORCHLESS_RUN], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
